@@ -1,0 +1,84 @@
+"""Engine configuration for the PyTorch engine.
+
+The fields of the JAX package's ``EngineConfig`` that this slice reads,
+plus ``device``. Every engine runs on the GPU (``device="cuda"``) unless
+the caller asks for the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..logging_utils import init_logger
+from ..models.llama import LlamaConfig
+
+logger = init_logger(__name__)
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    model: str = "tiny-llama-debug"
+    tokenizer: Optional[str] = None  # local HF dir; default: byte tokenizer
+    served_model_name: Optional[str] = None
+    max_model_len: int = 4096
+    block_size: int = 32
+    num_kv_blocks: Optional[int] = None  # None: size from device memory
+    hbm_utilization: float = 0.9  # --gpu-memory-utilization
+    max_num_seqs: int = 64
+    max_prefill_tokens: int = 2048
+    kv_cache_dtype: Optional[str] = None  # only the model dtype is ported
+    quantization: Optional[str] = None  # not ported: must stay None
+    enable_prefix_caching: bool = True
+    # Decode tokens generated per engine step (a device-side loop that
+    # chains sampled tokens without a host round trip). 1 = per token.
+    num_decode_steps: int = 1
+    # Floor for the decode-batch row bucket.
+    min_decode_bucket: int = 1
+    seed: int = 0
+    device: str = "cuda"
+
+
+def resolve_device(name: str) -> torch.device:
+    """The engine's device. Asking for CUDA without a GPU raises: the
+    engine never carries on silently on the CPU."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {name!r} requested but no CUDA GPU is available "
+            "(pass device='cpu' to run on the CPU)"
+        )
+    return dev
+
+
+def resolve_num_kv_blocks(
+    cfg: EngineConfig, model_cfg: LlamaConfig, device: torch.device
+) -> int:
+    """Page count from the device-memory budget (the
+    ``--gpu-memory-utilization`` analogue): what is left of
+    ``total * hbm_utilization`` once everything already allocated (the
+    weights included) is taken out, per ``torch.cuda.mem_get_info``.
+
+    bytes/page = 2 (K+V) * L * bs * KH * hd * itemsize."""
+    if cfg.num_kv_blocks is not None:
+        return cfg.num_kv_blocks
+    itemsize = torch.empty((), dtype=model_cfg.torch_dtype).element_size()
+    page_bytes = (
+        2 * model_cfg.num_layers * cfg.block_size * model_cfg.num_kv_heads
+        * model_cfg.head_dim * itemsize
+    )
+    if device.type == "cuda":
+        free, total = torch.cuda.mem_get_info(device)
+        budget = int(total * cfg.hbm_utilization) - (total - free)
+    else:
+        budget = 512 * 1024 * 1024  # CPU: keep the cache modest
+    n = max(budget // page_bytes, cfg.max_num_seqs * 2)
+    # Never fewer pages than one full-length sequence needs.
+    n = max(n, -(-cfg.max_model_len // cfg.block_size) + 1)
+    logger.info(
+        "KV cache: %d pages x %d tokens (%.1f MiB)",
+        n, cfg.block_size, n * page_bytes / 2**20,
+    )
+    return int(n)

@@ -1,0 +1,290 @@
+"""LLMEngine: the synchronous serving core (add_request / step / outputs).
+
+The port of the JAX package's ``engine/engine.py`` for the main serving
+path: one ``step()`` is one scheduler decision, one device step (a batch
+of prefill chunks, or a decode burst) and the host-side bookkeeping —
+detokenization, stop handling, prefix-block commitment.
+
+Not ported yet: pipelined bursts, speculative decoding, KV tiering and
+swap, LoRA, disaggregated handoff, the flight recorder and telemetry.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Sequence as Seq, Union
+
+from ..logging_utils import init_logger
+from ..models.registry import get_model_config
+from ..ops.sampling import unpack_sampled
+from .config import EngineConfig
+from .kv_manager import BlockAllocator
+from .runner import ModelRunner
+from .scheduler import Scheduler, SchedulerConfig
+from .sequence import SamplingParams, Sequence
+from .tokenizer import get_tokenizer
+
+logger = init_logger(__name__)
+
+
+@dataclasses.dataclass
+class RequestOutput:
+    request_id: str
+    text_delta: str = ""
+    new_token_ids: List[int] = dataclasses.field(default_factory=list)
+    finished: bool = False
+    finish_reason: Optional[str] = None
+    num_prompt_tokens: int = 0
+    num_output_tokens: int = 0
+    num_cached_prompt_tokens: int = 0
+    ttft: Optional[float] = None
+    # One entry per new token when SamplingParams.logprobs is set:
+    # {"token_id", "logprob", "top": [(token_id, logprob), ...]}.
+    logprobs: Optional[List[dict]] = None
+
+
+class LLMEngine:
+    def __init__(self, cfg: EngineConfig, params: Optional[Dict[str, Any]] = None):
+        """``params``: an existing parameter tree (e.g. converted from the
+        JAX package's, see ``models/convert.py``); random init from
+        ``cfg.seed`` when None."""
+        self.cfg = cfg
+        self.model_cfg = get_model_config(cfg.model)
+        self.tokenizer = get_tokenizer(cfg.tokenizer, self.model_cfg.vocab_size)
+        self.runner = ModelRunner(cfg, self.model_cfg, params)
+        self.allocator = BlockAllocator(
+            self.runner.num_blocks, cfg.block_size, cfg.enable_prefix_caching
+        )
+        self.scheduler = Scheduler(
+            SchedulerConfig(
+                max_num_seqs=cfg.max_num_seqs,
+                max_prefill_tokens=cfg.max_prefill_tokens,
+                max_model_len=cfg.max_model_len,
+                num_decode_steps=cfg.num_decode_steps,
+            ),
+            self.allocator,
+        )
+        self._seqs: Dict[str, Sequence] = {}
+        # Incremental detokenizer state per request:
+        # emitted text + [prefix_offset, read_offset) decode window.
+        self._detok: Dict[str, Dict[str, object]] = {}
+        self.num_preempted_total = 0
+        self.prompt_tokens_total = 0
+        self.generation_tokens_total = 0
+
+    @property
+    def model_name(self) -> str:
+        return self.cfg.served_model_name or self.model_cfg.name
+
+    # ------------------------------------------------------------------
+    # Requests
+    # ------------------------------------------------------------------
+
+    def add_request(
+        self,
+        request_id: str,
+        prompt: Optional[str] = None,
+        prompt_token_ids: Optional[Seq[int]] = None,
+        sampling: Optional[SamplingParams] = None,
+        arrival_time: Optional[float] = None,
+    ) -> Sequence:
+        if prompt_token_ids is None:
+            prompt_token_ids = self.tokenizer.encode(prompt or "")
+        if not prompt_token_ids:
+            prompt_token_ids = [0]
+        seq = Sequence(
+            request_id, prompt_token_ids, sampling or SamplingParams(),
+            arrival_time=arrival_time,
+        )
+        self.scheduler.add(seq)
+        self._seqs[request_id] = seq
+        self._detok[request_id] = {"emitted": "", "prefix": 0, "read": 0}
+        self.prompt_tokens_total += len(prompt_token_ids)
+        return seq
+
+    def abort_request(self, request_id: str) -> bool:
+        seq = self.scheduler.abort(request_id)
+        self._seqs.pop(request_id, None)
+        self._detok.pop(request_id, None)
+        return seq is not None
+
+    def abort_all_requests(self) -> int:
+        rids = list(self._seqs)
+        for rid in rids:
+            self.abort_request(rid)
+        return len(rids)
+
+    def has_work(self) -> bool:
+        return self.scheduler.has_work()
+
+    # ------------------------------------------------------------------
+    # Stepping
+    # ------------------------------------------------------------------
+
+    def step(self) -> List[RequestOutput]:
+        outputs: List[RequestOutput] = []
+        sched = self.scheduler.schedule()
+        self.num_preempted_total += len(sched.preempted)
+        if sched.is_empty:
+            return outputs
+        if sched.prefills:
+            # Intermediate chunks sample nothing anyone reads: no fetch.
+            # Only a chunk that completes a fresh prompt needs its token.
+            any_completes = any(
+                it.end == it.seq.num_prompt_tokens and not it.seq.output_token_ids
+                for it in sched.prefills
+            )
+            rows = None
+            if any_completes:
+                rows = self.runner.execute_prefill_batch(sched.prefills)
+            else:
+                self.runner.execute_prefill_batch_nofetch(sched.prefills)
+            for i, item in enumerate(sched.prefills):
+                seq = item.seq
+                seq.num_computed_tokens = item.end
+                self._commit(seq)
+                # Sample only when this chunk completes a *fresh* prompt;
+                # recompute chunks (post-preemption) must not re-emit.
+                if item.end == seq.num_prompt_tokens and not seq.output_token_ids:
+                    out = self._append_token(seq, int(rows[i][0]), lp_row=rows[i])
+                    if out is not None:
+                        outputs.append(out)
+            return outputs
+        bursts = self.runner.execute_decode_multi(
+            sched.decodes, sched.n_decode_steps
+        )
+        for seq, seq_rows in zip(sched.decodes, bursts):
+            for row in seq_rows:
+                seq.num_computed_tokens += 1
+                self._commit(seq)
+                out = self._append_token(seq, int(row[0]), lp_row=row)
+                if out is not None:
+                    outputs.append(out)
+                if seq.is_finished:
+                    break  # trim the burst's tail past a stop
+        return outputs
+
+    def _commit(self, seq: Sequence) -> None:
+        seq.commit_full_blocks(self.allocator)
+
+    # ------------------------------------------------------------------
+    # Token bookkeeping
+    # ------------------------------------------------------------------
+
+    def _append_token(
+        self, seq: Sequence, token: int, lp_row=None
+    ) -> Optional[RequestOutput]:
+        sp = seq.sampling
+        seq.output_token_ids.append(token)
+        self.generation_tokens_total += 1
+        now = time.monotonic()
+        if seq.first_token_time is None:
+            seq.first_token_time = now
+
+        finish_reason: Optional[str] = None
+        is_stop_token = False
+        if not sp.ignore_eos and token in self.model_cfg.eos_token_ids:
+            finish_reason = "stop"
+            is_stop_token = True
+        elif token in sp.stop_token_ids:
+            finish_reason = "stop"
+            is_stop_token = True
+        elif sp.guided_done(seq.output_token_ids):
+            finish_reason = "stop"
+        elif len(seq.output_token_ids) >= sp.max_tokens:
+            finish_reason = "length"
+        elif seq.num_tokens >= self.cfg.max_model_len:
+            finish_reason = "length"
+
+        # Incremental detokenization over a sliding window; hold text back
+        # while the window ends in a partial multi-byte character.
+        delta = "" if is_stop_token else self._detok_delta(seq)
+        st = self._detok[seq.request_id]
+        if delta and sp.stop_strings():
+            emitted = st["emitted"]
+            full = emitted + delta
+            for stop_s in sp.stop_strings():
+                idx = full.find(stop_s, max(len(emitted) - len(stop_s), 0))
+                if idx >= 0:
+                    delta = full[:idx][len(emitted):]
+                    finish_reason = "stop"
+                    break
+        st["emitted"] += delta
+
+        logprobs_entry = None
+        if sp.logprobs is not None and lp_row is not None and lp_row.shape[-1] > 1:
+            _, chosen, top_lps, top_ids = unpack_sampled(lp_row)
+            k = min(int(sp.logprobs), top_ids.shape[-1])
+            logprobs_entry = {
+                "token_id": token,
+                "logprob": float(chosen),
+                "top": [(int(top_ids[j]), float(top_lps[j])) for j in range(k)],
+            }
+
+        out = RequestOutput(
+            request_id=seq.request_id,
+            text_delta=delta,
+            new_token_ids=[token],
+            num_prompt_tokens=seq.num_prompt_tokens,
+            num_output_tokens=len(seq.output_token_ids),
+            num_cached_prompt_tokens=seq.num_cached_prompt_tokens,
+            ttft=seq.first_token_time - seq.arrival_time,
+            logprobs=[logprobs_entry] if logprobs_entry else None,
+        )
+        if finish_reason is not None:
+            self.scheduler.finish(seq, finish_reason)
+            out.finished = True
+            out.finish_reason = finish_reason
+            self._seqs.pop(seq.request_id, None)
+            self._detok.pop(seq.request_id, None)
+        return out
+
+    def _detok_delta(self, seq: Sequence) -> str:
+        """vLLM-style incremental detokenization over a bounded window."""
+        st = self._detok[seq.request_id]
+        ids = seq.output_token_ids
+        prefix, read = int(st["prefix"]), int(st["read"])  # type: ignore[arg-type]
+        prefix_text = self.tokenizer.decode(ids[prefix:read])
+        new_text = self.tokenizer.decode(ids[prefix:])
+        if new_text.endswith("�") and len(ids) - read < 16:
+            return ""  # partial character: hold until it completes
+        delta = new_text[len(prefix_text):]
+        st["prefix"], st["read"] = read, len(ids)
+        return delta
+
+    # ------------------------------------------------------------------
+    # Convenience (tests / scripts)
+    # ------------------------------------------------------------------
+
+    def generate(
+        self,
+        prompts: Union[List[str], List[List[int]]],
+        sampling: Optional[SamplingParams] = None,
+    ) -> List[Dict[str, object]]:
+        """Run prompts to completion; returns list of dicts with text/ids."""
+        results: Dict[str, Dict[str, object]] = {}
+        for i, p in enumerate(prompts):
+            rid = f"gen-{i}"
+            kwargs = {"prompt_token_ids": p} if isinstance(p, list) else {"prompt": p}
+            self.add_request(rid, sampling=sampling, **kwargs)
+            results[rid] = {"text": "", "token_ids": [], "finish_reason": None}
+        while self.has_work():
+            for out in self.step():
+                r = results[out.request_id]
+                r["text"] = str(r["text"]) + out.text_delta
+                r["token_ids"].extend(out.new_token_ids)  # type: ignore[union-attr]
+                if out.finished:
+                    r["finish_reason"] = out.finish_reason
+        return [results[f"gen-{i}"] for i in range(len(prompts))]
+
+    def stats(self) -> Dict[str, float]:
+        return {
+            "num_requests_running": float(self.scheduler.num_running),
+            "num_requests_waiting": float(self.scheduler.num_waiting),
+            "num_preemptions_total": float(self.num_preempted_total),
+            "prompt_tokens_total": float(self.prompt_tokens_total),
+            "generation_tokens_total": float(self.generation_tokens_total),
+            "kv_cache_usage_perc": self.allocator.usage,
+            "prefix_cache_hit_rate": self.allocator.hit_rate,
+        }

@@ -1,0 +1,457 @@
+"""Model runner: marshals scheduler output into device steps (PyTorch).
+
+Owns the device state (params + the stacked KV cache) and builds each
+step's batch on the host with the JAX package's padding contract, so the
+two engines feed their models the same arrays: power-of-two row, chunk
+and table-width buckets; padding rows carry ``kv_len = 0`` and write to
+the dropped slot ``nb * bs``; padding positions of a prefill chunk hold
+``end - 1``. Sampling runs on the device; only the packed sample rows
+come back to the host.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..logging_utils import init_logger
+from ..models.llama import Llama, LlamaConfig
+from ..models.registry import get_model_config
+from ..ops.sampling import (
+    apply_allowed_mask,
+    apply_logit_bias,
+    apply_penalties,
+    apply_penalties_counts,
+    sample_tokens_packed,
+)
+from .config import EngineConfig, resolve_device, resolve_num_kv_blocks
+from .scheduler import PrefillItem
+from .sequence import Sequence
+
+logger = init_logger(__name__)
+
+
+def _pow2(n: int, cap: Optional[int] = None) -> int:
+    b = 1
+    while b < n:
+        b <<= 1
+    return min(b, cap) if cap else b
+
+
+# Block tables below this width share one bucket (as in the JAX runner).
+_MIN_TABLE_BUCKET = 64
+
+# Batch entries that stay on the host: per-row sampling seeds are read there
+# to seed the per-row generators.
+_HOST_KEYS = ("seeds",)
+
+
+def _seed_for(seq: Sequence) -> int:
+    base = seq.sampling.seed
+    if base is None:
+        digest = hashlib.blake2b(seq.request_id.encode(), digest_size=4).digest()
+        base = int.from_bytes(digest, "little")
+    return (base + len(seq.output_token_ids)) & 0x7FFF_FFFF
+
+
+class ModelRunner:
+    def __init__(
+        self,
+        cfg: EngineConfig,
+        model_cfg: Optional[LlamaConfig] = None,
+        params: Optional[Dict[str, Any]] = None,
+    ):
+        t0 = time.perf_counter()
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.model_cfg = model_cfg or get_model_config(cfg.model)
+        self.model = Llama(self.model_cfg)
+        if cfg.quantization:
+            raise NotImplementedError(
+                f"quantization={cfg.quantization!r} is not ported yet"
+            )
+        if cfg.kv_cache_dtype not in (None, self.model_cfg.dtype):
+            raise NotImplementedError(
+                f"kv_cache_dtype={cfg.kv_cache_dtype!r} is not ported yet "
+                f"(the cache holds the model dtype {self.model_cfg.dtype})"
+            )
+        if params is None:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(cfg.seed)
+            params = self.model.init_params(gen, self.device)
+        else:
+            params = _to_device(params, self.device)
+        self.params = params
+        self.param_bytes = sum(
+            t.numel() * t.element_size() for t in _leaves(params)
+        )
+        logger.info(
+            "params ready: %.2f GiB on %s, %.1fs", self.param_bytes / 2**30,
+            self.device, time.perf_counter() - t0,
+        )
+        self.num_blocks = resolve_num_kv_blocks(cfg, self.model_cfg, self.device)
+        self.max_table_width = -(-cfg.max_model_len // cfg.block_size)
+        self.kv_cache = self.model.make_kv_cache(
+            self.num_blocks, cfg.block_size, device=self.device
+        )
+        self._drop_slot = self.num_blocks * cfg.block_size
+
+    # ------------------------------------------------------------------
+    # Public entry points
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _want_lp(seqs: List[Sequence]) -> bool:
+        return any(s.sampling.logprobs is not None for s in seqs)
+
+    @staticmethod
+    def _all_greedy(seqs: List[Sequence]) -> bool:
+        return all(s.sampling.greedy for s in seqs)
+
+    def execute_prefill_batch(self, items: List[PrefillItem]) -> np.ndarray:
+        """Prefill several chunks in one step (rows padded to a common
+        chunk bucket). Returns packed sample rows
+        [len(items), 1 or PACKED_WIDTH]."""
+        seqs = [i.seq for i in items]
+        batch = self._prefill_batch(items)
+        rows = self._step(batch, self._want_lp(seqs), self._all_greedy(seqs))
+        return rows.cpu().numpy()[: len(items)]
+
+    def execute_prefill_batch_nofetch(self, items: List[PrefillItem]) -> None:
+        """A prefill step whose sampled tokens nobody reads (intermediate
+        chunks): the cheapest sampling variant, no host copy."""
+        self._step(self._prefill_batch(items), False, True)
+
+    def execute_decode(self, seqs: List[Sequence]) -> np.ndarray:
+        """One decode step per sequence. Returns packed sample rows
+        [len(seqs), 1 or PACKED_WIDTH]."""
+        batch = self._decode_batch(seqs)
+        rows = self._step(batch, self._want_lp(seqs), self._all_greedy(seqs))
+        return rows.cpu().numpy()[: len(seqs)]
+
+    def execute_decode_multi(self, seqs: List[Sequence], n_steps: int) -> np.ndarray:
+        """Decode burst: ``n_steps`` tokens per sequence. Returns packed rows
+        [len(seqs), n_steps, W] (the host trims at stops)."""
+        if n_steps == 1:
+            return self.execute_decode(seqs)[:, None]
+        batch = self._decode_batch(seqs, multi=True)
+        if "allowed_ids" in batch:
+            raise RuntimeError("guided-choice rows reached a multi-step decode burst")
+        counts = self._penalty_counts_for(seqs, batch)
+        rows = self._multi_step(
+            batch, counts, n_steps, self._want_lp(seqs), self._all_greedy(seqs)
+        )
+        return rows.cpu().numpy()[: len(seqs)]
+
+    # ------------------------------------------------------------------
+    # Device steps
+    # ------------------------------------------------------------------
+
+    def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = t if k in _HOST_KEYS else t.to(self.device, non_blocking=True)
+        return out
+
+    def _forward(self, dev, tokens, positions, write_idx, kv_lens, last_idx):
+        logits, self.kv_cache = self.model.forward(
+            self.params, tokens, positions, write_idx, dev["block_tables"],
+            kv_lens, last_idx, self.kv_cache,
+        )
+        return logits
+
+    def _step(self, batch: Dict[str, np.ndarray], want_lp: bool,
+              greedy: bool) -> torch.Tensor:
+        dev = self._put(batch)
+        logits = self._forward(
+            dev, dev["tokens"], dev["positions"], dev["write_idx"],
+            dev["kv_lens"], dev["last_idx"],
+        )
+        if "penalty_prompt" in dev:
+            logits = apply_penalties(
+                logits, dev["penalty_prompt"], dev["penalty_output"],
+                dev["presence"], dev["frequency"], dev["repetition"],
+            )
+        if "bias_ids" in dev:
+            logits = apply_logit_bias(logits, dev["bias_ids"], dev["bias_vals"])
+        if "allowed_ids" in dev:
+            logits = apply_allowed_mask(
+                logits, dev["allowed_ids"], dev["allow_free"]
+            )
+        return sample_tokens_packed(
+            logits, dev["temps"], dev["top_ps"], dev["top_ks"], dev["min_ps"],
+            dev["seeds"], with_logprobs=want_lp, greedy_only=greedy,
+        )
+
+    def _multi_step(self, batch: Dict[str, np.ndarray], counts: np.ndarray,
+                    n_steps: int, want_lp: bool, greedy: bool) -> torch.Tensor:
+        """Decode ``n_steps`` tokens per sequence without a host round trip:
+        each sampled token, its position, its page write slot and the seed
+        offset are derived on the device and feed the next forward (the
+        JAX package runs the same chain inside one ``lax.scan``)."""
+        dev = self._put(batch)
+        bs = self.cfg.block_size
+        tables = dev["block_tables"]
+        active = dev["kv_lens"] > 0  # padding rows never write
+        tokens = dev["tokens"].to(torch.int32)
+        positions = dev["positions"].to(torch.int32)
+        with_pen = "penalty_seen" in dev
+        pen_counts = torch.from_numpy(counts).to(self.device)
+        zeros = torch.zeros_like(positions)
+        rows = []
+        for i in range(n_steps):
+            blk = torch.gather(tables, 1, (positions // bs)[:, None].long())[:, 0]
+            flat = torch.where(
+                active, blk * bs + positions % bs,
+                torch.full_like(positions, self._drop_slot),
+            )
+            logits = self._forward(
+                dev, tokens[:, None], positions[:, None], flat[:, None],
+                positions + 1,  # kv valid through the just-written slot
+                zeros,
+            )
+            if with_pen:
+                logits = apply_penalties_counts(
+                    logits, dev["penalty_seen"], pen_counts, dev["presence"],
+                    dev["frequency"], dev["repetition"],
+                )
+            if "bias_ids" in dev:
+                logits = apply_logit_bias(logits, dev["bias_ids"], dev["bias_vals"])
+            packed = sample_tokens_packed(
+                logits, dev["temps"], dev["top_ps"], dev["top_ks"],
+                dev["min_ps"], dev["seeds"] + i, with_logprobs=want_lp,
+                greedy_only=greedy,
+            )
+            tokens = packed[:, 0].to(torch.int32)
+            if with_pen:
+                pen_counts[torch.arange(len(tokens), device=self.device),
+                           tokens.long()] += active.float()
+            positions = positions + 1
+            rows.append(packed)
+        return torch.stack(rows, dim=1)  # [B, n, W]
+
+    def _penalty_counts_for(
+        self, seqs: List[Sequence], batch: Dict[str, np.ndarray]
+    ) -> np.ndarray:
+        """Dense penalty state for a burst: ``penalty_seen`` [Bb, V] goes
+        into the batch and the returned [Bb, V] output-token counts advance
+        on the device step by step ([1, 1] placeholder when no row is
+        penalized)."""
+        if not any(s.sampling.has_penalties for s in seqs):
+            return np.zeros((1, 1), np.float32)
+        Bb = batch["kv_lens"].shape[0]
+        V = self.model_cfg.vocab_size
+        seen = np.zeros((Bb, V), bool)
+        counts = np.zeros((Bb, V), np.float32)
+        for i, s in enumerate(seqs):
+            ids = np.asarray(s.prompt_token_ids, np.int64)
+            seen[i, ids[(ids >= 0) & (ids < V)]] = True
+            if s.output_token_ids:
+                out = np.asarray(s.output_token_ids, np.int64)
+                uniq, cnt = np.unique(
+                    out[(out >= 0) & (out < V)], return_counts=True
+                )
+                counts[i, uniq] = cnt
+        batch.pop("penalty_prompt", None)
+        batch.pop("penalty_output", None)
+        batch["penalty_seen"] = seen
+        return counts
+
+    # ------------------------------------------------------------------
+    # Batch construction (host side, numpy) — the JAX runner's contract
+    # ------------------------------------------------------------------
+
+    def _table_row(self, seq: Sequence, width: int) -> np.ndarray:
+        row = np.zeros(width, np.int32)
+        n = min(len(seq.block_ids), width)
+        row[:n] = seq.block_ids[:n]
+        return row
+
+    def _row_bucket(self, B: int) -> int:
+        Bb = _pow2(B, cap=_pow2(self.cfg.max_num_seqs))
+        return max(Bb, B, self.cfg.min_decode_bucket)
+
+    def _table_bucket(self, seqs: List[Sequence]) -> int:
+        W = max(max(len(s.block_ids) for s in seqs), 1)
+        return max(
+            _pow2(W, cap=_pow2(self.max_table_width)),
+            min(_MIN_TABLE_BUCKET, _pow2(self.max_table_width)),
+        )
+
+    def _decode_batch(
+        self, seqs: List[Sequence], multi: bool = False
+    ) -> Dict[str, np.ndarray]:
+        B = len(seqs)
+        Bb = self._row_bucket(B)
+        Wb = self._table_bucket(seqs)
+        bs = self.cfg.block_size
+
+        shape = (Bb,) if multi else (Bb, 1)
+        tokens = np.zeros(shape, np.int32)
+        positions = np.zeros(shape, np.int32)
+        tables = np.zeros((Bb, Wb), np.int32)
+        kv_lens = np.zeros(Bb, np.int32)
+        if not multi:
+            write_idx = np.full((Bb, 1), self._drop_slot, np.int32)
+            last_idx = np.zeros(Bb, np.int32)
+        for i, s in enumerate(seqs):
+            pos = s.num_tokens - 1
+            tokens[i, ...] = s.all_token_ids[-1]
+            positions[i, ...] = pos
+            tables[i] = self._table_row(s, Wb)
+            kv_lens[i] = s.num_tokens
+            if not multi:
+                write_idx[i, 0] = s.block_ids[pos // bs] * bs + pos % bs
+        batch = {
+            "tokens": tokens,
+            "positions": positions,
+            "block_tables": tables,
+            "kv_lens": kv_lens,
+        }
+        if not multi:
+            batch["write_idx"] = write_idx
+            batch["last_idx"] = last_idx
+        batch.update(self._sampling_arrays(seqs, Bb))
+        return batch
+
+    def _prefill_batch(self, items: List[PrefillItem]) -> Dict[str, np.ndarray]:
+        B = len(items)
+        Bb = _pow2(B)
+        chunk_max = max(it.end - it.start for it in items)
+        Tb = _pow2(chunk_max, cap=_pow2(self.cfg.max_prefill_tokens))
+        Tb = max(Tb, chunk_max)
+        Wb = self._table_bucket([it.seq for it in items])
+        bs = self.cfg.block_size
+
+        tokens = np.zeros((Bb, Tb), np.int32)
+        positions = np.zeros((Bb, Tb), np.int32)
+        write_idx = np.full((Bb, Tb), self._drop_slot, np.int32)
+        tables = np.zeros((Bb, Wb), np.int32)
+        kv_lens = np.zeros(Bb, np.int32)
+        last_idx = np.zeros(Bb, np.int32)
+        for i, it in enumerate(items):
+            s, start, end = it.seq, it.start, it.end
+            chunk = end - start
+            ids = s.all_token_ids
+            pos = np.arange(start, end)
+            blocks = np.asarray(s.block_ids, np.int64)
+            tokens[i, :chunk] = ids[start:end]
+            positions[i, :chunk] = pos
+            write_idx[i, :chunk] = blocks[pos // bs] * bs + pos % bs
+            positions[i, chunk:] = max(end - 1, 0)
+            tables[i] = self._table_row(s, Wb)
+            kv_lens[i] = end
+            last_idx[i] = chunk - 1
+        batch = {
+            "tokens": tokens,
+            "positions": positions,
+            "write_idx": write_idx,
+            "block_tables": tables,
+            "kv_lens": kv_lens,
+            "last_idx": last_idx,
+        }
+        batch.update(self._sampling_arrays([it.seq for it in items], Bb))
+        return batch
+
+    def _sampling_arrays(
+        self, seqs: List[Sequence], B: int
+    ) -> Dict[str, np.ndarray]:
+        temps = np.zeros(B, np.float32)
+        top_ps = np.ones(B, np.float32)
+        top_ks = np.zeros(B, np.int32)
+        min_ps = np.zeros(B, np.float32)
+        seeds = np.zeros(B, np.int64)
+        for i, s in enumerate(seqs):
+            sp = s.sampling
+            temps[i] = sp.temperature
+            top_ps[i] = sp.top_p
+            top_ks[i] = sp.top_k
+            min_ps[i] = sp.min_p
+            seeds[i] = _seed_for(s)
+        out = {
+            "temps": temps,
+            "top_ps": top_ps,
+            "top_ks": top_ks,
+            "min_ps": min_ps,
+            "seeds": seeds,
+        }
+        if any(s.sampling.has_penalties for s in seqs):
+            out.update(self._penalty_arrays(seqs, B))
+        if any(s.sampling.guided_choice for s in seqs):
+            V = self.model_cfg.vocab_size  # pad id: dropped
+            per_row = [
+                s.sampling.guided_allowed(
+                    s.output_token_ids, self.model_cfg.eos_token_ids
+                )
+                for s in seqs
+            ]
+            Na = _pow2(max(max((len(a) for a in per_row if a), default=1), 1))
+            allowed_ids = np.full((B, Na), V, np.int32)
+            allow_free = np.ones(B, bool)
+            for i, allowed in enumerate(per_row):
+                if allowed is None:
+                    continue
+                allow_free[i] = False
+                for j, tid in enumerate(allowed[:Na]):
+                    allowed_ids[i, j] = tid
+            out["allowed_ids"] = allowed_ids
+            out["allow_free"] = allow_free
+        if any(s.sampling.logit_bias for s in seqs):
+            V = self.model_cfg.vocab_size  # pad id: dropped
+            Nb = _pow2(max(max(len(s.sampling.logit_bias) for s in seqs), 1))
+            bias_ids = np.full((B, Nb), V, np.int32)
+            bias_vals = np.zeros((B, Nb), np.float32)
+            for i, s in enumerate(seqs):
+                for j, (tid, bv) in enumerate(s.sampling.logit_bias[:Nb]):
+                    if 0 <= tid < V:
+                        bias_ids[i, j] = tid
+                        bias_vals[i, j] = bv
+            out["bias_ids"] = bias_ids
+            out["bias_vals"] = bias_vals
+        return out
+
+    def _penalty_arrays(
+        self, seqs: List[Sequence], B: int
+    ) -> Dict[str, np.ndarray]:
+        V = self.model_cfg.vocab_size  # pad value: dropped
+        Pp = _pow2(max(max(s.num_prompt_tokens for s in seqs), 1))
+        Po = _pow2(max(max(len(s.output_token_ids) for s in seqs), 1))
+        prompt = np.full((B, Pp), V, np.int32)
+        output = np.full((B, Po), V, np.int32)
+        presence = np.zeros(B, np.float32)
+        frequency = np.zeros(B, np.float32)
+        repetition = np.ones(B, np.float32)
+        for i, s in enumerate(seqs):
+            sp = s.sampling
+            prompt[i, : s.num_prompt_tokens] = s.prompt_token_ids
+            output[i, : len(s.output_token_ids)] = s.output_token_ids
+            presence[i] = sp.presence_penalty
+            frequency[i] = sp.frequency_penalty
+            repetition[i] = sp.repetition_penalty
+        return {
+            "penalty_prompt": prompt,
+            "penalty_output": output,
+            "presence": presence,
+            "frequency": frequency,
+            "repetition": repetition,
+        }
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def _to_device(tree, device):
+    return {
+        k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
+        for k, v in tree.items()
+    }

@@ -1,0 +1,181 @@
+"""Request-side state for the serving engine: sampling params + sequences.
+
+A copy of the JAX package's ``engine/sequence.py`` without what this slice
+does not serve (LoRA salts, tenants, deadlines, disaggregated KV handoff,
+cost attribution, controller chunk hashes). A :class:`Sequence` owns its
+token ids, its KV page list and the prefix-cache commit cursor; the KV
+itself lives in the runner's cache tensor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from enum import Enum
+from typing import List, Optional, Sequence as Seq, Tuple, Union
+
+from ..kvcache.hashing import block_hashes
+from .kv_manager import BlockAllocator
+
+
+@dataclasses.dataclass
+class SamplingParams:
+    max_tokens: int = 16
+    temperature: float = 1.0
+    top_p: float = 1.0
+    top_k: int = -1
+    min_p: float = 0.0
+    stop: Union[str, List[str], None] = None
+    stop_token_ids: Tuple[int, ...] = ()
+    ignore_eos: bool = False
+    seed: Optional[int] = None
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    repetition_penalty: float = 1.0
+    logprobs: Optional[int] = None
+    # OpenAI logit_bias: additive per-token-id logit offsets.
+    logit_bias: Tuple[Tuple[int, float], ...] = ()
+    # Guided choice: the output must be exactly one of these token-id
+    # sequences; each step's logits are masked to viable continuations.
+    guided_choice: Tuple[Tuple[int, ...], ...] = ()
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature <= 1e-5
+
+    def guided_allowed(
+        self, output_so_far: Seq[int], eos_ids: Seq[int] = ()
+    ) -> Optional[List[int]]:
+        """Token ids allowed next under guided_choice (None = unconstrained).
+        A completed choice also allows ``eos_ids``, so a choice that is a
+        prefix of another can still end."""
+        if not self.guided_choice:
+            return None
+        out = tuple(output_so_far)
+        n = len(out)
+        allowed = []
+        for c in self.guided_choice:
+            if len(c) > n and c[:n] == out and c[n] not in allowed:
+                allowed.append(c[n])
+        if out in self.guided_choice:
+            for e in eos_ids:
+                if e not in allowed:
+                    allowed.append(e)
+        return allowed
+
+    def guided_done(self, output_so_far: Seq[int]) -> bool:
+        """True when no choice continuation remains."""
+        if not self.guided_choice:
+            return False
+        return self.guided_allowed(output_so_far) == []
+
+    @property
+    def has_penalties(self) -> bool:
+        return (
+            self.presence_penalty != 0.0
+            or self.frequency_penalty != 0.0
+            or self.repetition_penalty != 1.0
+        )
+
+    def stop_strings(self) -> List[str]:
+        if self.stop is None:
+            return []
+        return [self.stop] if isinstance(self.stop, str) else list(self.stop)
+
+
+class SequenceStatus(Enum):
+    WAITING = "waiting"
+    RUNNING = "running"
+    PREEMPTED = "preempted"
+    FINISHED = "finished"
+
+
+class Sequence:
+    """One request's lifecycle through the engine."""
+
+    def __init__(
+        self,
+        request_id: str,
+        prompt_token_ids: Seq[int],
+        sampling: SamplingParams,
+        arrival_time: Optional[float] = None,
+    ):
+        self.request_id = request_id
+        self.prompt_token_ids: List[int] = list(prompt_token_ids)
+        self.output_token_ids: List[int] = []
+        self.sampling = sampling
+        self.status = SequenceStatus.WAITING
+        # Monotonic clock: TTFT must survive wall-clock steps.
+        self.arrival_time = arrival_time or time.monotonic()
+        self.first_scheduled_time: Optional[float] = None
+        self.first_token_time: Optional[float] = None
+        self.finish_reason: Optional[str] = None
+
+        # KV bookkeeping.
+        self.block_ids: List[int] = []
+        self.num_computed_tokens = 0  # tokens whose KV is resident
+        self.num_cached_prompt_tokens = 0  # prefix-cache hits at admission
+        self.block_hashes: List[int] = []  # hash per committed block
+        self._committed_blocks = 0
+        self._last_hash = 0
+        # Admission-FIFO stamp (scheduler._admit).
+        self.queue_stamp = 0
+
+    # -- lengths ----------------------------------------------------------
+
+    @property
+    def num_prompt_tokens(self) -> int:
+        return len(self.prompt_token_ids)
+
+    @property
+    def num_tokens(self) -> int:
+        return len(self.prompt_token_ids) + len(self.output_token_ids)
+
+    @property
+    def all_token_ids(self) -> List[int]:
+        return self.prompt_token_ids + self.output_token_ids
+
+    @property
+    def is_finished(self) -> bool:
+        return self.status == SequenceStatus.FINISHED
+
+    # -- KV paging --------------------------------------------------------
+
+    def blocks_needed(self, up_to_tokens: int, block_size: int) -> int:
+        """How many new pages are needed to hold KV for ``up_to_tokens``."""
+        want = -(-up_to_tokens // block_size)
+        return max(0, want - len(self.block_ids))
+
+    def commit_full_blocks(self, allocator: BlockAllocator) -> None:
+        """Content-address every newly filled page (enables prefix sharing)."""
+        bs = allocator.block_size
+        toks = self.all_token_ids
+        n_full = self.num_computed_tokens // bs
+        while self._committed_blocks < n_full:
+            i = self._committed_blocks
+            h = block_hashes(
+                toks[i * bs : (i + 1) * bs], bs, parent=self._last_hash
+            )[0]
+            self.block_ids[i] = allocator.commit(self.block_ids[i], h)
+            self.block_hashes.append(h)
+            self._last_hash = h
+            self._committed_blocks += 1
+
+    def adopt_cached_prefix(self, blocks: List[int], hashes: List[int]) -> None:
+        """Install prefix-cache-hit pages found at admission time."""
+        assert not self.block_ids
+        self.block_ids = list(blocks)
+        self.block_hashes = list(hashes)
+        self._committed_blocks = len(blocks)
+        self._last_hash = hashes[-1] if hashes else 0
+        # caller sets num_computed_tokens (= len(blocks) * block_size)
+
+    def reset_for_recompute(self) -> None:
+        """Preemption: KV pages were surrendered; recompute from scratch."""
+        self.block_ids = []
+        self.num_computed_tokens = 0
+        self.num_cached_prompt_tokens = 0
+        self.block_hashes = []
+        self._committed_blocks = 0
+        self._last_hash = 0
+        self.status = SequenceStatus.PREEMPTED

@@ -1,0 +1,260 @@
+"""OpenAI-compatible HTTP server for the PyTorch engine (standard library).
+
+Routes: ``GET /health``, ``GET /v1/models`` and ``POST /v1/completions``
+(streamed as server-sent events, or not), with the JAX package's response
+schema for ``prompt``, ``max_tokens``, ``temperature``, ``top_p``,
+``top_k``, ``seed`` and ``stop``. Bodies are plain JSON dicts. The other
+routes of the JAX server are not ported yet.
+
+    python -m production_stack_tpu_torch.engine.server --model llama-3-8b --port 8011
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+from ..logging_utils import init_logger
+from .async_engine import AsyncLLMEngine
+from .config import EngineConfig
+from .sequence import SamplingParams
+
+logger = init_logger(__name__)
+
+
+def build_sampling(req: dict, max_model_len: int, prompt_len: int) -> SamplingParams:
+    """SamplingParams from a completion request body (OpenAI defaults)."""
+    limit = max(max_model_len - prompt_len - 1, 1)
+    want = req.get("max_tokens")
+    stop = req.get("stop")
+    if stop is not None and not isinstance(stop, (str, list)):
+        raise ValueError("stop must be a string or a list of strings")
+    seed = req.get("seed")
+    return SamplingParams(
+        max_tokens=min(int(want), limit) if want else limit,
+        temperature=float(req.get("temperature", 1.0)),
+        top_p=float(req.get("top_p", 1.0)),
+        top_k=int(req.get("top_k", -1)),
+        stop=stop,
+        seed=int(seed) if seed is not None else None,
+        ignore_eos=bool(req.get("ignore_eos", False)),
+    )
+
+
+def create_engine_app(
+    engine: AsyncLLMEngine, host: str = "127.0.0.1", port: int = 0
+) -> ThreadingHTTPServer:
+    """An HTTP server bound to ``(host, port)`` (port 0: any free port)
+    serving ``engine``; call ``serve_forever()`` on it."""
+    model_name = engine.engine.model_name
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):  # route access logs to our logger
+            logger.debug("%s %s", self.address_string(), fmt % args)
+
+        def _json(self, status: int, payload: dict,
+                  headers: Optional[dict] = None) -> None:
+            body = json.dumps(payload).encode()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _error(self, message: str, status: int = 400) -> None:
+            self._json(status, {"error": {"message": message,
+                                          "type": "invalid_request_error",
+                                          "code": status}})
+
+        def do_GET(self) -> None:
+            if self.path == "/health":
+                if engine.is_healthy():
+                    self._json(200, {"status": "ok"})
+                else:
+                    self._json(503, {"status": "unhealthy",
+                                     "error": engine.step_error})
+            elif self.path == "/v1/models":
+                self._json(200, {"object": "list", "data": [
+                    {"id": model_name, "object": "model",
+                     "created": int(time.time()),
+                     "owned_by": "production-stack-tpu",
+                     "root": None, "parent": None}
+                ]})
+            else:
+                self._error(f"no route {self.path}", 404)
+
+        def do_POST(self) -> None:
+            if self.path != "/v1/completions":
+                self._error(f"no route {self.path}", 404)
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n) or b"{}")
+                if not isinstance(req, dict):
+                    raise ValueError("body must be a JSON object")
+            except (ValueError, json.JSONDecodeError) as e:
+                self._error(f"invalid request body: {e}")
+                return
+            self._completion(req)
+
+        def _completion(self, req: dict) -> None:
+            tok = engine.engine.tokenizer
+            prompt = req.get("prompt", "")
+            try:
+                if isinstance(prompt, list) and all(isinstance(x, int) for x in prompt):
+                    ids = [int(x) for x in prompt]
+                elif isinstance(prompt, str):
+                    ids = tok.encode(prompt)
+                else:
+                    raise ValueError(
+                        "prompt must be a string or a list of token ids "
+                        "(batched prompts are not ported yet)"
+                    )
+                max_len = engine.engine.cfg.max_model_len
+                if len(ids) >= max_len:
+                    raise ValueError(
+                        f"prompt has {len(ids)} tokens, exceeds "
+                        f"max_model_len={max_len}"
+                    )
+                sampling = build_sampling(req, max_len, len(ids))
+            except (TypeError, ValueError) as e:
+                self._error(str(e))
+                return
+            rid = f"cmpl-{uuid.uuid4().hex[:24]}"
+            created = int(time.time())
+            model = req.get("model", model_name)
+            gen = engine.generate(
+                prompt_token_ids=ids, sampling=sampling, request_id=rid
+            )
+            if req.get("stream"):
+                self._stream(gen, rid, created, model)
+                return
+            text, n_out, finish = [], 0, None
+            try:
+                for out in gen:
+                    text.append(out.text_delta)
+                    n_out = out.num_output_tokens
+                    finish = out.finish_reason or finish
+            except ValueError as e:  # refused on the engine thread
+                self._error(str(e))
+                return
+            except RuntimeError as e:  # the engine failed
+                self._error(str(e), 500)
+                return
+            self._json(200, {
+                "id": rid, "object": "text_completion", "created": created,
+                "model": model,
+                "choices": [{"index": 0, "text": "".join(text),
+                             "logprobs": None, "finish_reason": finish}],
+                "usage": {"prompt_tokens": len(ids),
+                          "completion_tokens": n_out,
+                          "total_tokens": len(ids) + n_out},
+            }, headers={"X-Request-Id": rid})
+
+        def _stream(self, gen, rid: str, created: int, model: str) -> None:
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.send_header("Cache-Control", "no-cache")
+            self.send_header("X-Request-Id", rid)
+            self.end_headers()
+
+            def frame(payload) -> None:
+                data = payload if isinstance(payload, str) else json.dumps(payload)
+                self.wfile.write(f"data: {data}\n\n".encode())
+                self.wfile.flush()
+
+            try:
+                for out in gen:
+                    frame({"id": rid, "object": "text_completion",
+                           "created": created, "model": model,
+                           "choices": [{"index": 0, "text": out.text_delta,
+                                        "logprobs": None,
+                                        "finish_reason": out.finish_reason}]})
+            except ValueError as e:  # refused on the engine thread
+                frame({"error": {"message": str(e),
+                                 "type": "invalid_request_error",
+                                 "code": "engine_rejected"}})
+            except RuntimeError as e:  # the engine failed
+                frame({"error": {"message": str(e), "type": "server_error",
+                                 "code": "engine_failed"}})
+            except (BrokenPipeError, ConnectionResetError):
+                gen.close()  # aborts the request on the engine
+                return
+            frame("[DONE]")
+
+    server = ThreadingHTTPServer((host, port), Handler)
+    server.daemon_threads = True
+    return server
+
+
+def parse_engine_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        description="production-stack-tpu PyTorch serving engine"
+    )
+    p.add_argument("--host", default="0.0.0.0")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--model", default="llama-3-8b")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--max-model-len", type=int, default=4096)
+    p.add_argument("--block-size", type=int, default=32)
+    p.add_argument("--num-kv-blocks", type=int, default=None)
+    p.add_argument("--max-num-seqs", type=int, default=64)
+    p.add_argument("--max-num-batched-tokens", dest="max_prefill_tokens",
+                   type=int, default=2048)
+    p.add_argument("--num-decode-steps", type=int, default=1)
+    p.add_argument("--seed", type=int, default=0)
+    return p.parse_args(argv)
+
+
+def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
+    return EngineConfig(
+        model=args.model,
+        device=args.device,
+        max_model_len=args.max_model_len,
+        block_size=args.block_size,
+        num_kv_blocks=args.num_kv_blocks,
+        max_num_seqs=args.max_num_seqs,
+        max_prefill_tokens=args.max_prefill_tokens,
+        num_decode_steps=args.num_decode_steps,
+        seed=args.seed,
+    )
+
+
+def main(argv=None) -> None:
+    args = parse_engine_args(argv)
+    engine = AsyncLLMEngine(engine_config_from_args(args))
+    engine.start()
+    server = create_engine_app(engine, args.host, args.port)
+    logger.info("serving %s on %s:%d (%s)", engine.engine.model_name,
+                args.host, server.server_address[1], args.device)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        engine.shutdown()
+
+
+def serve_in_thread(engine: AsyncLLMEngine, host: str = "127.0.0.1",
+                    port: int = 0) -> "tuple[ThreadingHTTPServer, threading.Thread]":
+    """Start the engine loop and an HTTP server on a background thread;
+    returns (server, thread). Stop with ``server.shutdown()`` and
+    ``engine.shutdown()``."""
+    if engine._thread is None:
+        engine.start()
+    server = create_engine_app(engine, host, port)
+    t = threading.Thread(target=server.serve_forever, name="http", daemon=True)
+    t.start()
+    return server, t
+
+
+if __name__ == "__main__":
+    main()

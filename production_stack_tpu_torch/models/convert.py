@@ -1,0 +1,42 @@
+"""Convert a parameter tree given as numpy arrays into the port's tensors.
+
+``params_from_jax(tree)`` takes the JAX package's ``Llama.init_params``
+tree after ``np.asarray`` on every leaf (the caller does that; this module
+never imports JAX) and returns the same names and layouts as torch
+tensors, so both packages can run on identical weights.
+
+bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
+``torch.from_numpy`` refuses: they cross as their raw 16-bit patterns
+(``.view(np.uint16)``) and are reinterpreted as ``torch.bfloat16``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+
+def tensor_from_numpy(
+    a: np.ndarray, device: Optional[torch.device] = None
+) -> torch.Tensor:
+    # A writable C-ordered copy of its own: torch.from_numpy shares memory,
+    # and the arrays of a JAX tree are read-only views.
+    a = np.array(a, order="C", copy=True)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t if device is None else t.to(device)
+
+
+def params_from_jax(
+    tree: Dict[str, Any], device: Optional[torch.device] = None
+) -> Dict[str, Any]:
+    """Nested dict of numpy arrays -> the same nested dict of tensors."""
+    return {
+        k: params_from_jax(v, device) if isinstance(v, dict)
+        else tensor_from_numpy(np.asarray(v), device)
+        for k, v in tree.items()
+    }

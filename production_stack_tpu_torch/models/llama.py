@@ -1,0 +1,396 @@
+"""Llama-architecture decoder in PyTorch with a paged KV cache.
+
+The port of the JAX package's ``models/llama.py`` dense path: embed,
+RMSNorm, rotary embeddings (with Llama-3.1 "llama3" scaling), grouped-query
+attention with optional Qwen2 QKV biases, SwiGLU MLP, tied or untied
+unembed. Layouts are the JAX package's, so the two can be held against
+each other on the same weights:
+
+- params: a plain dict; per-layer weights stacked on a leading axis,
+  matmul weights ``[L, in, out]``, embeddings ``[V, D]``;
+- KV cache: ``[L, nb, 2, bs, KH*hd]`` (a page holds its K rows then its V
+  rows, each token row spanning all kv heads).
+
+One forward serves prefill and decode: tokens are ``[B, T]``; the step's
+K/V rows are written into their cache slots first, then attention reads
+through the block table.
+
+Not ported in this slice (``Llama`` raises ``NotImplementedError``):
+mixture-of-experts, quantized weights, LoRA, pipeline parallelism, the
+Gemma knobs (unit-offset norms, scaled embeddings, post-block norms,
+GeGLU), Qwen3 q/k norms, and all-position logits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import paged_attention
+
+Params = Dict[str, Any]
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: int = 128
+    rope_theta: float = 10000.0
+    # Llama-3.1 "llama3" rope scaling; factor 0 = disabled.
+    rope_scaling_factor: float = 0.0
+    rope_low_freq_factor: float = 1.0
+    rope_high_freq_factor: float = 4.0
+    rope_original_max_position: int = 8192
+    rms_norm_eps: float = 1e-5
+    max_position_embeddings: int = 131072
+    tie_word_embeddings: bool = False
+    attention_bias: bool = False  # Qwen2-style QKV biases
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    qk_norm: bool = False
+    hidden_act: str = "silu"
+    norm_unit_offset: bool = False
+    embed_scale: bool = False
+    query_pre_attn_scalar: float = 0.0  # attention scale override (0 = hd)
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    post_block_norms: bool = False
+    sliding_window: int = 0
+    sliding_window_pattern: int = 1
+    dtype: str = "bfloat16"
+    name: str = "llama"
+    eos_token_ids: Tuple[int, ...] = (2,)
+    bos_token_id: Optional[int] = 1
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @property
+    def attn_scale(self) -> float:
+        base = self.query_pre_attn_scalar or self.head_dim
+        return 1.0 / math.sqrt(base)
+
+    @property
+    def q_size(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_size(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+
+def _unported(cfg: LlamaConfig) -> Optional[str]:
+    if cfg.num_experts:
+        return "mixture-of-experts"
+    if cfg.qk_norm:
+        return "qk_norm"
+    if cfg.hidden_act != "silu":
+        return f"hidden_act={cfg.hidden_act}"
+    if cfg.norm_unit_offset:
+        return "norm_unit_offset"
+    if cfg.embed_scale:
+        return "embed_scale"
+    if cfg.post_block_norms:
+        return "post_block_norms"
+    return None
+
+
+class Llama:
+    """Stateless model functions bound to a config."""
+
+    def __init__(self, cfg: LlamaConfig):
+        missing = _unported(cfg)
+        if missing:
+            raise NotImplementedError(
+                f"{missing} is not ported to the PyTorch package yet"
+            )
+        self.cfg = cfg
+
+    # ------------------------------------------------------------------
+    # Parameters
+    # ------------------------------------------------------------------
+
+    def param_shapes(self) -> Dict[str, Any]:
+        """Leaf name -> shape, the same tree as the JAX ``init_params``."""
+        cfg = self.cfg
+        D, Fi, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+        layers = {
+            "attn_norm": (L, D),
+            "wq": (L, D, cfg.q_size),
+            "wk": (L, D, cfg.kv_size),
+            "wv": (L, D, cfg.kv_size),
+            "wo": (L, cfg.q_size, D),
+            "mlp_norm": (L, D),
+            "w_gate": (L, D, Fi),
+            "w_up": (L, D, Fi),
+            "w_down": (L, Fi, D),
+        }
+        if cfg.attention_bias:
+            layers["bq"] = (L, cfg.q_size)
+            layers["bk"] = (L, cfg.kv_size)
+            layers["bv"] = (L, cfg.kv_size)
+        shapes: Dict[str, Any] = {
+            "embed": (cfg.vocab_size, D),
+            "layers": layers,
+            "final_norm": (D,),
+        }
+        if not cfg.tie_word_embeddings:
+            shapes["lm_head"] = (cfg.vocab_size, D)
+        return shapes
+
+    def init_params(
+        self, generator: torch.Generator, device: torch.device
+    ) -> Params:
+        """Random init with the JAX package's distributions (norms 1,
+        biases 0, matmul weights N(0, 1/fan_in)); not its values — the
+        generators differ. Drawn on ``device`` leaf by leaf, a layer at a
+        time, so no full-precision copy of a large model is ever built."""
+        dtype = self.cfg.torch_dtype
+
+        def leaf(name: str, shape) -> torch.Tensor:
+            if "norm" in name:
+                return torch.ones(shape, dtype=dtype, device=device)
+            if name.startswith("b"):
+                return torch.zeros(shape, dtype=dtype, device=device)
+            fan_in = shape[-1] if name in ("embed", "lm_head") else shape[-2]
+            out = torch.empty(shape, dtype=dtype, device=device)
+            for part in out.view(-1, *shape[-2:]):
+                part.copy_(
+                    torch.randn(shape[-2:], generator=generator,
+                                device=device, dtype=torch.float32)
+                    / math.sqrt(fan_in)
+                )
+            return out
+
+        shapes = self.param_shapes()
+        params: Params = {
+            k: leaf(k, v) for k, v in shapes.items() if k != "layers"
+        }
+        params["layers"] = {k: leaf(k, v) for k, v in shapes["layers"].items()}
+        return params
+
+    # ------------------------------------------------------------------
+    # KV cache
+    # ------------------------------------------------------------------
+
+    def make_kv_cache(
+        self,
+        num_blocks: int,
+        block_size: int,
+        dtype: Optional[torch.dtype] = None,
+        device: Optional[torch.device] = None,
+    ) -> torch.Tensor:
+        """A zeroed ``[L, nb, 2, bs, KH*hd]`` cache: a view over a flat row
+        buffer with one spare row past its end, where ``forward`` sends the
+        writes it drops (so dropping them needs no host sync)."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, num_blocks, 2, block_size, cfg.kv_size)
+        rows = math.prod(shape[:-1])
+        flat = torch.zeros((rows + 1, cfg.kv_size),
+                           dtype=dtype or cfg.torch_dtype, device=device)
+        return flat[:rows].view(shape)
+
+    # ------------------------------------------------------------------
+    # Forward
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def forward(
+        self,
+        params: Params,
+        tokens: torch.Tensor,  # [B, T] int
+        positions: torch.Tensor,  # [B, T] int absolute positions
+        write_idx: torch.Tensor,  # [B, T] int flat slot (>= nb*bs: dropped)
+        block_tables: torch.Tensor,  # [B, W] int32
+        kv_lens: torch.Tensor,  # [B] int32 valid kv len AFTER this step
+        last_idx: torch.Tensor,  # [B] int index in T of each row's last token
+        kv_cache: torch.Tensor,  # [L, nb, 2, bs, KH*hd], updated in place
+        *,
+        attn_impl: str = "auto",
+        all_logits: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One engine step. Returns (last-token logits [B, V] float32, the
+        cache). The cache is updated IN PLACE — the JAX package donates the
+        buffer to get the same effect — and returned for symmetry."""
+        if all_logits:
+            raise NotImplementedError("all_logits is not ported yet")
+        cfg = self.cfg
+        B, T = tokens.shape
+        L, nb, _, bs, _ = kv_cache.shape
+        layers = params["layers"]
+
+        x = params["embed"][tokens.long()]  # [B, T, D]
+        rope_cos, rope_sin = _rope_tables(positions, cfg)
+
+        # KV write: one scatter per layer over the flat [L*nb*2*bs, KH*hd]
+        # row view. Slot (blk, pos) of layer li holds its K row at
+        # (li*nb + blk)*2*bs + pos and its V row bs rows later. A slot at
+        # or past nb*bs is DROPPED (padding rows, the runner's drop slot) —
+        # it must not wrap into the next layer's first page — so its rows
+        # go to the cache's spare row instead, on the device.
+        flat_write = write_idx.reshape(-1).long()
+        rows = (flat_write // bs) * (2 * bs) + flat_write % bs  # layer-0 K
+        rows = torch.cat([rows, rows + bs])  # K rows, then V rows
+        dropped = (flat_write >= nb * bs).repeat(2)
+        flat_cache = _rows_with_spare(kv_cache)
+        layer_base = torch.arange(L, device=rows.device)[:, None] * (nb * 2 * bs)
+        targets = torch.where(dropped, flat_cache.shape[0] - 1,
+                              rows + layer_base)  # [L, 2*B*T]
+
+        positions_i = positions.to(torch.int32)
+        tables = block_tables.to(torch.int32).contiguous()
+        lens = kv_lens.to(torch.int32).contiguous()
+
+        for li in range(cfg.num_layers):
+            lp = {k: v[li] for k, v in layers.items()}
+            h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+            q = _proj(h, lp["wq"], lp.get("bq"))
+            k = _proj(h, lp["wk"], lp.get("bk"))
+            v = _proj(h, lp["wv"], lp.get("bv"))
+            q = _apply_rope(q.reshape(B, T, cfg.num_heads, cfg.head_dim),
+                            rope_cos, rope_sin)
+            k = _apply_rope(k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim),
+                            rope_cos, rope_sin)
+
+            kvd = torch.cat(
+                [k.reshape(B * T, cfg.kv_size), v.reshape(B * T, cfg.kv_size)]
+            ).to(kv_cache.dtype)
+            flat_cache.index_copy_(0, targets[li], kvd)
+
+            attn = paged_attention(
+                q, kv_cache, tables, lens, positions_i, li,
+                scale=cfg.attn_scale, impl=attn_impl,
+                window=_layer_window(cfg, li),
+                softcap=cfg.attn_logit_softcap,
+            )
+            attn = attn.reshape(B, T, cfg.q_size).to(x.dtype)
+            x = x + attn @ lp["wo"]
+            h = _rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+            x = x + _mlp(h, lp)
+
+        x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+        unembed = params["lm_head"] if "lm_head" in params else params["embed"]
+        last = x[torch.arange(B, device=x.device), last_idx.long()]  # [B, D]
+        logits = unembed_logits(last, unembed)
+        return _softcap(logits, cfg.final_logit_softcap), kv_cache
+
+
+# ----------------------------------------------------------------------------
+# Layer primitives
+# ----------------------------------------------------------------------------
+
+
+def _rows_with_spare(kv_cache: torch.Tensor) -> torch.Tensor:
+    """The cache's flat ``[L*nb*2*bs + 1, KH*hd]`` row view; its last row is
+    the spare that :meth:`Llama.make_kv_cache` allocates for dropped
+    writes."""
+    lanes = kv_cache.shape[-1]
+    n = kv_cache.numel() // lanes
+    end = (kv_cache.storage_offset() + (n + 1) * lanes) * kv_cache.element_size()
+    if not kv_cache.is_contiguous() or end > kv_cache.untyped_storage().nbytes():
+        raise ValueError(
+            "the KV cache must come from Llama.make_kv_cache (dropped writes "
+            "go to its spare row)"
+        )
+    return kv_cache.as_strided((n + 1, lanes), (lanes, 1))
+
+
+def unembed_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Logits ``x @ w.T`` in float32. bf16 products keep their float32
+    accumulator, as the JAX package's ``preferred_element_type`` does."""
+    if x.dtype == torch.float32:
+        return x @ w.t()
+    if x.is_cuda:
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+    return x.float() @ w.t().float()
+
+
+def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    # The product is rounded to x's dtype before the bias is added (the JAX
+    # package adds the bias to the fp32 accumulator); identical in float32.
+    out = x @ w
+    return out if b is None else out + b
+
+
+def _mlp(h: torch.Tensor, lp: Params) -> torch.Tensor:
+    """Dense SwiGLU: silu(h @ w_gate) * (h @ w_up) in float32, then w_down."""
+    gate = _proj(h, lp["w_gate"])
+    up = _proj(h, lp["w_up"])
+    ff = (F.silu(gate.float()) * up.float()).to(h.dtype)
+    return ff @ lp["w_down"]
+
+
+def _layer_window(cfg: LlamaConfig, li: int) -> int:
+    """Sliding window of layer ``li``: 0 = global."""
+    if not cfg.sliding_window:
+        return 0
+    pat = cfg.sliding_window_pattern
+    if pat > 1 and (li + 1) % pat == 0:
+        return 0
+    return cfg.sliding_window
+
+
+def _softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    return torch.tanh(logits / cap) * cap if cap else logits
+
+
+def _rope_tables(
+    positions: torch.Tensor, cfg: LlamaConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [B, T, hd/2] for the given absolute positions, with
+    the Llama-3.1 "llama3" frequency ramp when configured."""
+    half = cfg.head_dim // 2
+    dev = positions.device
+    freqs = 1.0 / (
+        cfg.rope_theta
+        ** (torch.arange(0, half, dtype=torch.float32, device=dev) / half)
+    )
+    if cfg.rope_scaling_factor:
+        wavelen = 2.0 * math.pi / freqs
+        low_w = cfg.rope_original_max_position / cfg.rope_low_freq_factor
+        high_w = cfg.rope_original_max_position / cfg.rope_high_freq_factor
+        smooth = (
+            cfg.rope_original_max_position / wavelen - cfg.rope_low_freq_factor
+        ) / (cfg.rope_high_freq_factor - cfg.rope_low_freq_factor)
+        smooth = torch.clamp(smooth, 0.0, 1.0)
+        scaled = (1.0 - smooth) * freqs / cfg.rope_scaling_factor + smooth * freqs
+        freqs = torch.where(
+            wavelen > low_w,
+            freqs / cfg.rope_scaling_factor,
+            torch.where(wavelen < high_w, freqs, scaled),
+        )
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _apply_rope(x: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor) -> torch.Tensor:
+    """HF-Llama rotate-half convention; x [B, T, H, hd]."""
+    half = x.shape[-1] // 2
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s], dim=-1).to(x.dtype)

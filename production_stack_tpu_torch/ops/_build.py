@@ -1,0 +1,121 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``ops/csrc/`` expose a plain C interface, so they are
+compiled by ``nvcc`` straight into a shared library and bound with
+``ctypes`` — no PyTorch headers, which keeps a cold build to seconds. The
+library lands in ``build/torch_kernels/`` at the repository root, named
+by a hash of the sources and flags, and is built at first use (never at
+import: machines without ``nvcc`` import this module fine).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+from ..logging_utils import init_logger
+
+logger = init_logger(__name__)
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("paged_attention.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# Seconds the last build in this process took (0.0 when it was cached).
+last_build_seconds = 0.0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels are built on the machine with the "
+        "GPU (CUDA toolkit on PATH or under /usr/local/cuda)"
+    )
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libpst_torch_kernels_{_digest()}.so"
+
+
+def build() -> Path:
+    """Compile the sources if no library for their hash exists yet.
+    ptxas's register/shared-memory report goes to ``build.log`` beside it."""
+    global last_build_seconds
+    out = library_path()
+    if out.exists():
+        last_build_seconds = 0.0
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    last_build_seconds = time.perf_counter() - t0
+    (BUILD_DIR / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: concurrent builders race harmlessly
+    logger.info("built %s in %.1fs", out.name, last_build_seconds)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call. Every pointer and the
+    stream are ``c_void_p``: a bare Python int would be passed as a 32-bit
+    C int and cut."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(str(build()))
+        lib.pst_paged_decode.argtypes = [
+            _I, _P, _P, _P, _P, _P,  # dtype, q, cache, tables, kv_lens, out
+            _I, _I, _I, _I,  # B, H, KH, HD
+            _I, _I, _I, _I, _I,  # nb, bs, W, layer, window
+            _F, _F, _P,  # scale, softcap, stream
+        ]
+        lib.pst_paged_decode.restype = _I
+        lib.pst_paged_prefill.argtypes = [
+            _I, _P, _P, _P, _P, _P, _P,  # dtype, q, cache, tables, lens, starts, out
+            _I, _I, _I, _I, _I,  # B, T, H, KH, HD
+            _I, _I, _I, _I, _I,  # nb, bs, W, layer, window
+            _F, _F, _P,  # scale, softcap, stream
+        ]
+        lib.pst_paged_prefill.restype = _I
+        _lib = lib
+        return lib

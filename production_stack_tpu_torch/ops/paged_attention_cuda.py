@@ -1,0 +1,182 @@
+"""Wrappers of the hand-written CUDA paged-attention kernels.
+
+``paged_attention_decode`` replaces the JAX package's Pallas
+``_decode_kernel`` and ``paged_attention_prefill`` its ``_prefill_kernel``
+(``production_stack_tpu/ops/paged_attention_pallas.py``); the kernels are
+in ``csrc/paged_attention.cu``. Each wrapper has a plain PyTorch version
+beside it (``*_plain``: gather + masked softmax, the same function), which
+it runs only for tensors on the CPU. On a CUDA tensor a wrapper launches
+its kernel or raises — there is no fallback.
+
+``launch_counts`` counts kernel launches per wrapper, so a run can show
+that its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from .attention import window_eff
+
+launch_counts: Dict[str, int] = {"decode": 0, "prefill": 0}
+
+HEAD_DIM = 128  # the head dim the kernels are compiled for
+GROUPS = (1, 2, 4, 8)  # query heads per kv head the kernels are compiled for
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _plain(q, kv_pages, block_tables, kv_lens, q_positions, layer, scale,
+           window, softcap):
+    """Masked paged attention in fp32 with the kernels' empty-row rule:
+    a row with no live key outputs zeros. q [B, T, H, hd]."""
+    B, T, H, hd = q.shape
+    _, nb, _, bs, lanes = kv_pages.shape
+    KH = lanes // hd
+    W = block_tables.shape[1]
+    S = W * bs
+    kv = kv_pages[layer][block_tables.long()].float()
+    k = kv[:, :, 0].reshape(B, S, KH, hd)
+    v = kv[:, :, 1].reshape(B, S, KH, hd)
+    qg = q.float().reshape(B, T, KH, H // KH, hd)
+    s = torch.einsum("btkgd,bskd->bkgts", qg, k) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    pos = torch.arange(S, device=q.device)[None, None, :]
+    qp = q_positions.long()[..., None]  # [B, T, 1]
+    live = (
+        (pos < kv_lens.long()[:, None, None])
+        & (pos <= qp)
+        & (pos > qp - window_eff(window))
+    )  # [B, T, S]
+    s = s.masked_fill(~live[:, None, None], float("-inf"))
+    any_live = live.any(-1)[:, None, None, :, None]  # [B, 1, 1, T, 1]
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(any_live, p, torch.zeros_like(p))
+    out = torch.einsum("bkgts,bskd->btkgd", p, v)
+    return out.reshape(B, T, H, hd).to(q.dtype)
+
+
+def paged_attention_decode_plain(q3, kv_pages, block_tables, kv_lens, layer,
+                                 *, scale, window=0, softcap=0.0):
+    """[B, H, hd] query at position kv_len - 1 against its paged KV."""
+    q_pos = (kv_lens.long() - 1)[:, None]
+    return _plain(q3[:, None], kv_pages, block_tables, kv_lens, q_pos, layer,
+                  scale, window, softcap)[:, 0]
+
+
+def paged_attention_prefill_plain(q, kv_pages, block_tables, kv_lens, starts,
+                                  layer, *, scale, window=0, softcap=0.0):
+    """[B, T, H, hd] chunk whose row t sits at position starts + t."""
+    T = q.shape[1]
+    q_pos = starts.long()[:, None] + torch.arange(T, device=q.device)[None]
+    return _plain(q, kv_pages, block_tables, kv_lens, q_pos, layer, scale,
+                  window, softcap)
+
+
+def _check(q, q_dim, kv_pages, block_tables, kv_lens, layer, extra=()):
+    if q.dim() != q_dim:
+        raise ValueError(f"q must have {q_dim} dims, got {tuple(q.shape)}")
+    if kv_pages.dtype not in _DTYPES:
+        if kv_pages.element_size() == 1:
+            raise NotImplementedError("fp8 KV caches are not ported yet")
+        raise TypeError(f"unsupported cache dtype {kv_pages.dtype}")
+    if q.dtype != kv_pages.dtype:
+        raise TypeError(f"q is {q.dtype} but the cache is {kv_pages.dtype}")
+    hd = q.shape[-1]
+    H = q.shape[-2]
+    lanes = kv_pages.shape[-1]
+    if kv_pages.dim() != 5 or kv_pages.shape[2] != 2 or lanes % hd:
+        raise ValueError(f"cache shape {tuple(kv_pages.shape)} is not "
+                         "[L, nb, 2, bs, KH*hd]")
+    KH = lanes // hd
+    if hd != HEAD_DIM or H % KH or H // KH not in GROUPS:
+        raise ValueError(
+            f"kernels take head_dim={HEAD_DIM} and H/KH in {GROUPS}; got "
+            f"head_dim={hd}, H={H}, KH={KH}"
+        )
+    if not 0 <= layer < kv_pages.shape[0]:
+        raise IndexError(f"layer {layer} outside the cache")
+    B = q.shape[0]
+    for name, t in (("block_tables", block_tables), ("kv_lens", kv_lens),
+                    *extra):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if t.dim() != (2 if name == "block_tables" else 1) or t.shape[0] != B:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, q has "
+                             f"{B} rows")
+    for name, t in (("q", q), ("kv_pages", kv_pages),
+                    ("block_tables", block_tables), ("kv_lens", kv_lens),
+                    *extra):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("q", q), ("kv_pages", kv_pages)):
+        if t.data_ptr() % 16:  # the kernels load 16-byte vectors
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def paged_attention_decode(q3, kv_pages, block_tables, kv_lens, layer, *,
+                           scale, window=0, softcap=0.0):
+    """One query token per sequence. q3 [B, H, hd] -> [B, H, hd]."""
+    if not q3.is_cuda:
+        return paged_attention_decode_plain(
+            q3, kv_pages, block_tables, kv_lens, layer, scale=scale,
+            window=window, softcap=softcap,
+        )
+    _check(q3, 3, kv_pages, block_tables, kv_lens, layer)
+    from ._build import load
+
+    lib = load()
+    B, H, hd = q3.shape
+    _, nb, _, bs, lanes = kv_pages.shape
+    out = torch.empty_like(q3)
+    rc = lib.pst_paged_decode(
+        _DTYPES[q3.dtype], q3.data_ptr(), kv_pages.data_ptr(),
+        block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+        B, H, lanes // hd, hd, nb, bs, block_tables.shape[1], int(layer),
+        int(window), float(scale), float(softcap),
+        torch.cuda.current_stream(q3.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"paged decode kernel failed: cudaError {rc}")
+    launch_counts["decode"] += 1
+    return out
+
+
+def paged_attention_prefill(q, kv_pages, block_tables, kv_lens, starts,
+                            layer, *, scale, window=0, softcap=0.0):
+    """Chunked prefill. q [B, T, H, hd] -> [B, T, H, hd]; row t of
+    sequence b sits at position starts[b] + t and sees keys
+    < min(starts[b] + t + 1, kv_lens[b])."""
+    if not q.is_cuda:
+        return paged_attention_prefill_plain(
+            q, kv_pages, block_tables, kv_lens, starts, layer, scale=scale,
+            window=window, softcap=softcap,
+        )
+    _check(q, 4, kv_pages, block_tables, kv_lens, layer,
+           extra=(("starts", starts),))
+    from ._build import load
+
+    lib = load()
+    B, T, H, hd = q.shape
+    _, nb, _, bs, lanes = kv_pages.shape
+    out = torch.empty_like(q)
+    rc = lib.pst_paged_prefill(
+        _DTYPES[q.dtype], q.data_ptr(), kv_pages.data_ptr(),
+        block_tables.data_ptr(), kv_lens.data_ptr(), starts.data_ptr(),
+        out.data_ptr(), B, T, H, lanes // hd, hd, nb, bs,
+        block_tables.shape[1], int(layer), int(window), float(scale),
+        float(softcap), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"paged prefill kernel failed: cudaError {rc}")
+    launch_counts["prefill"] += 1
+    return out
