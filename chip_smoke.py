@@ -7,11 +7,17 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
 
 1. Device and toolchain: the card's name and power limit, CUDA and nvcc
    versions; the CUDA kernels are built from ``production_stack_tpu_torch/
-   ops/csrc`` and the build time printed.
-2. Each kernel against its plain PyTorch version at Llama-3-8B attention
-   shapes (H=32, KH=8, hd=128, bs=32) in bf16, plus small fp32 cases with
-   a sliding window and a softcap and the other head-group sizes; on CUDA
-   tensors a wrapper refuses what its kernel does not take.
+   ops/csrc`` (one nvcc per source, in parallel) and the build time
+   printed.
+2. Each kernel against its plain PyTorch version: the attention kernels
+   at Llama-3-8B attention shapes (H=32, KH=8, hd=128, bs=32) in bf16, plus
+   small fp32 cases with a sliding window and a softcap and the other
+   head-group sizes; the decode-write kernel's cache must equal its plain
+   version's bit for bit; the W4A16 int4 kernel at every Llama-3-8B
+   projection shape (decode and prefill rows) in bf16 and at small shapes
+   in fp32 against float64. Negative controls show the bf16 checks reject
+   a decode missing a key and an int4 product with swapped nibbles; on
+   CUDA tensors a wrapper refuses what its kernel does not take.
 3. The full-width 32-layer Llama-3-8B (random bf16 weights from a seed):
    one 512-token prefill and 8 decode steps through the kernels and again
    through the gather path; the logits must agree. A decode step, a
@@ -21,8 +27,16 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
 4. Serving: the port's OpenAI server on localhost answers completions
    (streamed, chunked-prefill, concurrent); the kernels' launch counters
    are zeroed just before and must have grown by its end.
-5. Times of each kernel at the slice's shapes beside its plain version,
-   ``scaled_dot_product_attention`` as a yardstick, and its bound.
+3b. The same model int4-quantized on the card (streamed from the seed, the
+   bf16 tree freed first), under ``PST_FUSED_KV_WRITE=1``: the same steps
+   through the int4 and decode-write kernels, against the gather path on a
+   copy whose int4 weights were dequantized to bf16 beforehand.
+4b. Serving int4 with ``PST_FUSED_KV_WRITE=1``: a second engine and server
+   after the first is shut down; the int4, decode-write and prefill
+   counters must grow.
+5. Times of each kernel at the slice's shapes beside its plain version, a
+   PyTorch call as a yardstick where one computes the same function, and
+   its bound.
 
 The line before the last is a JSON ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the
@@ -31,6 +45,7 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import http.client
 import json
 import os
@@ -50,9 +65,14 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from production_stack_tpu_torch.engine.async_engine import AsyncLLMEngine  # noqa: E402
 from production_stack_tpu_torch.engine.config import EngineConfig  # noqa: E402
 from production_stack_tpu_torch.engine.server import serve_in_thread  # noqa: E402
-from production_stack_tpu_torch.models.llama import Llama, unembed_logits  # noqa: E402
+from production_stack_tpu_torch.models.llama import (  # noqa: E402
+    Llama,
+    quantize_leaf_int4,
+    unembed_logits,
+)
 from production_stack_tpu_torch.models.registry import get_model_config  # noqa: E402
 from production_stack_tpu_torch.ops import _build  # noqa: E402
+from production_stack_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from production_stack_tpu_torch.ops import paged_attention_cuda as pac  # noqa: E402
 from production_stack_tpu_torch.ops.sampling import (  # noqa: E402
     apply_logit_bias,
@@ -76,6 +96,9 @@ PEAK_BF16_FLOPS = 989e12
 BF16_REL_ATOL = 2e-2
 # fp32 inputs, fp32 accumulation in both, only the summation order differs.
 FP32_ATOL = 1e-4
+# The int4 kernel in fp32 against the float64 product: the TPU kernel's own
+# rule (tests/test_int4_matmul.py), a share of the largest |ref|.
+INT4_FP32_REL = 1e-5
 # Logits of 32 bf16 layers computed in a different order (kernel vs gather).
 MODEL_REL_ATOL = 5e-2
 
@@ -89,8 +112,20 @@ KERNELS = {
         name="paged_attention_prefill", route="cuda", source=SOURCE,
         replaces="production_stack_tpu/ops/paged_attention_pallas.py:430",
     ),
+    "decode_write": dict(
+        name="paged_attention_decode_write", route="cuda", source=SOURCE,
+        replaces="production_stack_tpu/ops/paged_attention_pallas.py:301",
+    ),
+    "int4": dict(
+        name="int4_matmul", route="cuda",
+        source="production_stack_tpu_torch/ops/csrc/int4_matmul.cu",
+        replaces="production_stack_tpu/ops/int4_matmul.py:73",
+    ),
 }
-max_err = {"decode": 0.0, "prefill": 0.0}
+max_err = {k: 0.0 for k in KERNELS}
+
+# Llama-3-8B projections: (din, dout) of wq/wo, wk/wv, w_gate/w_up, w_down.
+INT4_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
 
 
 def log(msg: str) -> None:
@@ -163,11 +198,13 @@ def bf16_row_check(got: torch.Tensor, ref: torch.Tensor):
 
 
 def compare(kind: str, got: torch.Tensor, ref: torch.Tensor,
-            label: str) -> float:
+            label: str, rows: bool = False) -> float:
+    """bf16 outputs (or ``rows``: fp32 outputs of bf16 inputs) are held to
+    the per-row tolerance; other fp32 outputs to FP32_ATOL."""
     check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
     g, r = got.float(), ref.float()
     err = float((g - r).abs().max())
-    if got.dtype == torch.bfloat16:
+    if got.dtype == torch.bfloat16 or rows:
         ok, ratio, smallest = bf16_row_check(got, ref)
         log(f"  {label}: max|err| {err:.3e}, worst err / row tol "
             f"{ratio:.3f} (row tol 2e-2·max|ref row|, smallest {smallest:.3e})")
@@ -199,7 +236,6 @@ def run_prefill(q, cache, tables, lens, starts, layer, **kw):
 
 
 def phase_kernels() -> None:
-    log("[phase 2] kernels vs plain versions")
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1234)
 
@@ -262,6 +298,128 @@ def phase_kernels() -> None:
             continue
         raise AssertionError(f"decode wrapper accepted what it must refuse ({err})")
     log("  wrappers refuse fp8 caches, head_dim 64 and non-contiguous q")
+
+
+def write_slots(tables, positions, drop_rows, nb):
+    """Flat write slot of each row's position (``nb * BS``: dropped)."""
+    slots = [int(tables[i, p // BS]) * BS + p % BS
+             for i, p in enumerate(positions)]
+    for i in drop_rows:
+        slots[i] = nb * BS
+    return torch.tensor(slots, dtype=torch.int32, device=DEV)
+
+
+def run_decode_write(q3, cache, tables, lens, layer, k_new, v_new, wf, **kw):
+    """Kernel and plain version, each on its own copy of the cache; the
+    caches must come out bit for bit equal, and the rows must have landed."""
+    got_cache, ref_cache = cache.clone(), cache.clone()
+    got = pac.paged_attention_decode_write(q3, got_cache, tables, lens, layer,
+                                           k_new, v_new, wf, scale=SCALE, **kw)
+    ref = pac.paged_attention_decode_write_plain(
+        q3, ref_cache, tables, lens, layer, k_new, v_new, wf, scale=SCALE, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got_cache, ref_cache),
+          "decode_write: the kernel's cache differs from its plain version's")
+    check(not torch.equal(got_cache, cache), "decode_write: nothing written")
+    return got, ref
+
+
+def phase_decode_write_kernels() -> None:
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(4321)
+    # bf16 at the decode shapes: lengths 1, 33, ~4k; row 3 drops its write
+    # (and reads its cache as it was), row 2 writes 5 positions before its
+    # end (the kernel reads the row back from the cache, wherever it is).
+    lens = [1, 33, 4096, 4000, 777, 31, 32, 100]
+    q, cache, tables, kl, _ = make_case(gen, B=8, T=1, kv_lens=lens)
+    pos = [n - 1 for n in lens]
+    pos[2] -= 5
+    wf = write_slots(tables, pos, [3], cache.shape[1])
+    k_new = torch.randn((8, KH * HD), generator=gen, device=DEV).bfloat16()
+    v_new = torch.randn((8, KH * HD), generator=gen, device=DEV).bfloat16()
+    got, ref = run_decode_write(q[:, 0], cache, tables, kl, 1, k_new, v_new, wf)
+    compare("decode_write", got, ref,
+            f"decode_write bf16 B=8 kv_lens={lens} (row 3 dropped): caches "
+            "equal;")
+    # fp32 with a window that starts mid-page and a softcap.
+    lens = [50, 300, 1000, 7]
+    q, cache, tables, kl, _ = make_case(gen, B=4, T=1, kv_lens=lens,
+                                        dtype=torch.float32)
+    wf = write_slots(tables, [n - 1 for n in lens], [1], cache.shape[1])
+    k_new = torch.randn((4, KH * HD), generator=gen, device=DEV)
+    v_new = torch.randn((4, KH * HD), generator=gen, device=DEV)
+    got, ref = run_decode_write(q[:, 0], cache, tables, kl, 0, k_new, v_new,
+                                wf, window=100, softcap=30.0)
+    compare("decode_write", got, ref,
+            "decode_write fp32 window=100 softcap=30 (row 1 dropped): caches "
+            "equal;")
+
+
+def int4_case(gen, N, din, dout, dtype=torch.bfloat16):
+    """x [N, din] and a random [din, dout] weight quantized on the card."""
+    w = torch.randn((din, dout), generator=gen, device=DEV) * 0.02
+    packed, scales = quantize_leaf_int4(w)
+    x = torch.randn((N, din), generator=gen, device=DEV).to(dtype)
+    return x, packed, scales
+
+
+def phase_int4_kernels() -> None:
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(777)
+    # bf16 (tensor-core route): every projection shape at 8 decode rows, one
+    # row, a 512-token prefill chunk, a ragged 300-row chunk.
+    cases = [(8, din, dout) for din, dout in INT4_SHAPES]
+    cases += [(1, 4096, 1024), (512, 4096, 14336), (300, 14336, 4096)]
+    for N, din, dout in cases:
+        x, packed, scales = int4_case(gen, N, din, dout)
+        got = i4.int4_matmul(x, packed, scales)
+        ref = i4.int4_matmul_plain(x, packed, scales)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.float32 and got.shape == (N, dout),
+              f"int4: output {got.dtype} {tuple(got.shape)}")
+        compare("int4", got, ref, f"int4 bf16 N={N} din={din} dout={dout}",
+                rows=True)
+    # The check has teeth: a plain version with the two nibble planes of
+    # every byte swapped fails it.
+    x, packed, scales = int4_case(gen, 8, 4096, 4096)
+    ref = i4.int4_matmul_plain(x, packed, scales)
+    swapped = torch.bitwise_left_shift(packed, 4) | ((packed >> 4) & 0x0F)
+    ok, ratio, _ = bf16_row_check(i4.int4_matmul_plain(x, swapped, scales), ref)
+    log(f"  an int4 product with swapped nibble planes: worst err / row tol "
+        f"{ratio:.3f}")
+    check(not ok, "the int4 row check passes swapped nibbles")
+
+    # fp32 (CUDA-core route) against the float64 product: 128-row groups,
+    # and a group-16 tiny shape; bf16 with group 8 and a ragged dout takes
+    # the CUDA-core route too.
+    for N, din, dout, dtype in ((5, 1024, 256, torch.float32),
+                                (3, 48, 16, torch.float32),
+                                (3, 24, 40, torch.bfloat16)):
+        x, packed, scales = int4_case(gen, N, din, dout, dtype)
+        got = i4.int4_matmul(x, packed, scales)
+        ref = x.double() @ i4.dequant_int4(packed, scales, torch.float64)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "int4: non-finite output")
+        err = float((got.double() - ref).abs().max())
+        tol = INT4_FP32_REL * float(ref.abs().max())
+        G = din // scales.shape[0]
+        log(f"  int4 {str(dtype)[6:]} N={N} din={din} dout={dout} G={G} vs "
+            f"float64: max|err| {err:.3e} (tol {tol:.3e})")
+        check(err <= tol, "int4 kernel disagrees with the float64 product")
+
+    x, packed, scales = int4_case(gen, 4, 256, 128)
+    refused = (
+        (TypeError, (x.half(), packed, scales)),
+        (ValueError, (x.t().contiguous().t(), packed, scales)),
+        (ValueError, (x, packed, scales[:, :64].contiguous())),
+    )
+    for err, args in refused:
+        try:
+            i4.int4_matmul(*args)
+        except err:
+            continue
+        raise AssertionError(f"int4 wrapper accepted what it must refuse ({err})")
+    log("  int4 wrapper refuses fp16 x, non-contiguous x and mismatched scales")
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +503,8 @@ def phase_model(model, params) -> dict:
     t_cuda = time.perf_counter() - t0
     counts = dict(pac.launch_counts)
     check(counts == {"prefill": cfg.num_layers,
-                     "decode": cfg.num_layers * len(decode_tokens)},
+                     "decode": cfg.num_layers * len(decode_tokens),
+                     "decode_write": 0},
           f"launch counts {counts}: expected one per layer per step")
     t0 = time.perf_counter()
     ref, _ = drive_model(model, params, "gather", prompt, decode_tokens)
@@ -417,7 +576,8 @@ def phase_no_host_sync(model, params) -> None:
           "unembed: logits lost their float32 accumulator")
 
 
-def phase_step_times(model, params) -> dict:
+def phase_step_times(model, params, tag: str = "",
+                     impls=("cuda", "gather")) -> dict:
     """Device time of one whole-model step at the timed kernels' shapes
     (decode: 8 rows at position 4095; prefill: one fresh 512-token chunk),
     through the kernels and through the gather path."""
@@ -425,17 +585,101 @@ def phase_step_times(model, params) -> dict:
     B, ctx, T = 8, 4096, 512
     cache, dec, pre = step_inputs(model, B, ctx, T, BS, DEV)
     out = {}
-    for impl in ("cuda", "gather"):
+    for impl in impls:
         for name, args in (("decode_step", dec), ("prefill_step", pre)):
-            out[f"{name}_{impl}_ms"] = cuda_ms(
-                lambda: model.forward(params, *args, cache, attn_impl=impl),
-                iters=10, warmup=2)
-    log(f"[phase 3] one {cfg.num_layers}-layer step: decode B={B} at "
-        f"{ctx} ctx {out['decode_step_cuda_ms']:.2f} ms (gather path "
-        f"{out['decode_step_gather_ms']:.2f}); prefill T={T} fresh "
-        f"{out['prefill_step_cuda_ms']:.2f} ms (gather path "
-        f"{out['prefill_step_gather_ms']:.2f})")
+            out[f"{tag}{name}_{impl}_ms"] = step_ms(
+                lambda: model.forward(params, *args, cache, attn_impl=impl))
+    log(f"[phase 3{'b' if tag else ''}] one {cfg.num_layers}-layer {tag}step "
+        f"(B={B} decode at {ctx} ctx; T={T} fresh prefill): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
     return out
+
+
+def dequantized_copy(params):
+    """The tree with its int4 leaves dequantized to bf16 beforehand (a layer
+    at a time): the function the JAX package's XLA fallback computes."""
+    out = {k: v for k, v in params.items() if k != "layers"}
+    layers = {}
+    for k, v in params["layers"].items():
+        if k.endswith("_q4s"):
+            continue
+        s = params["layers"].get(k + "_q4s")
+        if s is None:
+            layers[k] = v
+            continue
+        w = torch.empty((v.shape[0], 2 * v.shape[1], v.shape[2]),
+                        dtype=torch.bfloat16, device=DEV)
+        for i in range(v.shape[0]):
+            w[i] = i4.dequant_int4(v[i], s[i], torch.bfloat16)
+        layers[k] = w
+    out["layers"] = layers
+    return out
+
+
+def phase_int4_model(model):
+    """Llama-3-8B int4, streamed on the card; one 512-token prefill and 8
+    decode steps through the int4 and decode-write kernels, against the
+    gather path on the dequantized tree."""
+    cfg = model.cfg
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init_params(gen, DEV, quantization="int4")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    proj = sum(v.numel() * v.element_size() for k, v in params["layers"].items()
+               if k.startswith("w"))
+    top = sum(params[k].numel() + params[k + "_qs"].numel() * 4
+              for k in ("embed", "lm_head"))
+    log(f"[phase 3b] {MODEL} int4 on {DEV} in {time.perf_counter() - t0:.1f}s: "
+        f"resident weights {nbytes / 1e9:.3f} GB (projections + group scales "
+        f"{proj / 1e9:.3f} GB, int8 embed/lm_head + scales {top / 1e9:.3f} GB); "
+        f"peak allocated while drawing {(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB")
+    check(4.3e9 < nbytes < 5.3e9, f"int4 tree holds {nbytes} bytes")
+
+    os.environ["PST_FUSED_KV_WRITE"] = "1"
+    gen = torch.Generator().manual_seed(7)
+    prompt = torch.randint(1, cfg.vocab_size, (512,), generator=gen).tolist()
+    decode_tokens = torch.randint(1, cfg.vocab_size, (8,), generator=gen).tolist()
+    reset_launch_counts()
+    got, _ = drive_model(model, params, "cuda", prompt, decode_tokens)
+    counts = launch_counts()
+    L, n = cfg.num_layers, len(decode_tokens)
+    want = {"prefill": L, "decode": 0, "decode_write": L * n,
+            "int4": 7 * L * (1 + n)}
+    check(counts == want, f"launch counts {counts}, expected {want}")
+    ref_params = dequantized_copy(params)
+    ref, _ = drive_model(model, ref_params, "gather", prompt, decode_tokens)
+    del ref_params
+    torch.cuda.empty_cache()
+    check(bool(torch.isfinite(got).all()), "int4 model: non-finite logits (cuda)")
+    check(bool(torch.isfinite(ref).all()), "int4 model: non-finite logits (gather)")
+    check(got.shape == (1 + n, cfg.vocab_size),
+          f"int4 model: logits shape {tuple(got.shape)}")
+    err = float((got - ref).abs().max())
+    tol = MODEL_REL_ATOL * float(ref.abs().max())
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    log(f"  int4, PST_FUSED_KV_WRITE=1: 512-token prefill + {n} decode steps, "
+        f"launches {counts}; max|logit| {float(ref.abs().max()):.3f}, "
+        f"max|kernels - dequantized gather| {err:.4f} (tol {tol:.4f}), "
+        f"argmax agreement {agree:.2f}")
+    check(err <= tol, "int4 model: the kernel path disagrees with the "
+          "dequantized gather path")
+
+    # The fused int4 decode step makes the host wait for nothing either.
+    cache, dec, _ = step_inputs(model, 4, 256, 64, BS, DEV)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = model.forward(params, *dec, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(torch.isfinite(logits).all()), "int4 no-sync step: bad output")
+    log("  int4 fused decode step ran with no host sync")
+    return params, {"int4": counts["int4"] // (1 + n),
+                    "decode_write": counts["decode_write"] // n}
 
 
 # ---------------------------------------------------------------------------
@@ -492,13 +736,28 @@ def _stream(port: int, body: dict, want_tokens: int) -> int:
     return len(chunks)
 
 
-def phase_serving(params) -> dict:
+def launch_counts() -> dict:
+    return {**pac.launch_counts, **i4.launch_counts}
+
+
+def reset_launch_counts() -> None:
+    pac.reset_launch_counts()
+    i4.reset_launch_counts()
+
+
+def phase_serving(params, label: str, quantization=None,
+                  used=("decode", "prefill")) -> dict:
+    """Four completions through the server; the kernels in ``used`` must
+    have launched while serving and no other kernel may have."""
     cfg = EngineConfig(model=MODEL, device=DEV.type, max_prefill_tokens=512,
-                       num_decode_steps=4, max_num_seqs=16)
+                       num_decode_steps=4, max_num_seqs=16,
+                       quantization=quantization)
     t0 = time.perf_counter()
     engine = AsyncLLMEngine(cfg, params=params)
     runner = engine.engine.runner
-    log(f"[phase 4] engine up in {time.perf_counter() - t0:.1f}s: "
+    log(f"[phase {label}] engine up in {time.perf_counter() - t0:.1f}s "
+        f"({quantization or 'bf16'} weights, {runner.param_bytes / 1e9:.3f} "
+        f"GB; PST_FUSED_KV_WRITE={os.environ.get('PST_FUSED_KV_WRITE')}): "
         f"{runner.num_blocks} KV pages x {cfg.block_size} tokens, "
         f"max_prefill_tokens {cfg.max_prefill_tokens}, "
         f"num_decode_steps {cfg.num_decode_steps}")
@@ -511,7 +770,7 @@ def phase_serving(params) -> dict:
         check(status == 200 and models["data"][0]["id"] == MODEL,
               f"/v1/models: {status} {models}")
 
-        pac.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         n_req = 0
         long_prompt = ("The quick brown fox jumps over the lazy dog. " * 40)[:1500]
@@ -547,7 +806,7 @@ def phase_serving(params) -> dict:
         n_req += 2
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(pac.launch_counts)
+        counts = launch_counts()
         check(engine.is_healthy(), f"engine failed: {engine.step_error}")
     finally:
         server.shutdown()
@@ -558,7 +817,10 @@ def phase_serving(params) -> dict:
         f"during serving: {counts}")
     check(n_req >= 4, "fewer than 4 completions served")
     for k, n in counts.items():
-        check(n > 0, f"serving never launched the {k} kernel")
+        if k in used:
+            check(n > 0, f"serving never launched the {k} kernel")
+        else:
+            check(n == 0, f"serving launched the {k} kernel {n} times")
     del engine, runner
     return counts
 
@@ -568,7 +830,38 @@ def phase_serving(params) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+# Cycles of the spin kernel that keeps the card busy while the host queues
+# a batch of timed launches (about 50 ms at the H100's clock).
+SPIN_CYCLES = 100_000_000
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls back to back
+    between two CUDA events, queued behind a spin kernel so that the host's
+    dispatch time is not counted (a version that makes the host wait for
+    the card, as the plain decode-write does, still counts its stalls);
+    the median over ``reps`` batches."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return statistics.median(times)
+
+
+def step_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Time of one call from its dispatch on an idle card: CUDA events
+    around each call, so a host-bound step counts its host time; the
+    median."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -601,6 +894,7 @@ def sdpa(q, k, v, causal):
 
 
 def phase_times(per_step: dict, served: dict, card: str) -> list:
+    """Rows of the attention kernels (decode, prefill, decode-write)."""
     log(f"[phase 5] kernel times at the slice's shapes ({card})")
     gen = torch.Generator(device=DEV)
     gen.manual_seed(99)
@@ -636,6 +930,45 @@ def phase_times(per_step: dict, served: dict, card: str) -> list:
                      served["decode"], card,
                      f"B={B} kv_len={kvl} H={H} KH={KH} hd={HD} bs={BS} bf16"))
 
+    # Decode-write at the same shape: each launch also writes its row (the
+    # same slot every time: kv_len counts it). No single PyTorch call
+    # computes this; the unfused pair it replaces (index_copy_ of the two
+    # rows, then the decode kernel) is timed in its place.
+    k_new = torch.randn((B, KH * HD), generator=gen, device=DEV).bfloat16()
+    v_new = torch.randn((B, KH * HD), generator=gen, device=DEV).bfloat16()
+    wf = write_slots(tables, [kvl - 1] * B, [], cache.shape[1])
+
+    def dw():
+        state["layer"] = (state["layer"] + 1) % 4
+        return pac.paged_attention_decode_write(
+            q3, cache, tables, kl, state["layer"], k_new, v_new, wf,
+            scale=SCALE)
+
+    ms = cuda_ms(dw)
+    plain_ms = cuda_ms(lambda: pac.paged_attention_decode_write_plain(
+        q3, cache, tables, kl, 1, k_new, v_new, wf, scale=SCALE), iters=5)
+    flat = cache.view(-1, KH * HD)
+    nb = cache.shape[1]
+    rows_k = ((nb + wf.long() // BS) * 2 * BS + wf.long() % BS)  # layer 1
+
+    def pair():
+        flat.index_copy_(0, rows_k, k_new)
+        flat.index_copy_(0, rows_k + BS, v_new)
+        return pac.paged_attention_decode(q3, cache, tables, kl, 1, scale=SCALE)
+
+    pair_ms = cuda_ms(pair)
+    row_bytes = 2 * B * KH * HD * 2 * 2  # k_new/v_new read, rows written
+    r = _row("decode_write", ms, plain_ms, None, kv_bytes + io_bytes + row_bytes,
+             flops, PEAK_BF16_FLOPS, per_step["decode_write_step"],
+             served["decode_write"], card,
+             f"B={B} kv_len={kvl} H={H} KH={KH} hd={HD} bs={BS} bf16, "
+             "one K/V row written per sequence",
+             library="none: no single PyTorch call computes it")
+    r["unfused_pair_ms"] = pair_ms
+    r["unfused_pair"] = "index_copy_ of the K/V rows + paged_attention_decode"
+    log(f"  unfused pair (index_copy_ + paged_attention_decode): {pair_ms:.4f} ms")
+    rows.append(r)
+
     # Prefill: T=512 fresh, one sequence.
     T = 512
     q, cache, tables, kl, st = make_case(gen, B=1, T=T, kv_lens=[T],
@@ -660,8 +993,51 @@ def phase_times(per_step: dict, served: dict, card: str) -> list:
     return rows
 
 
+def phase_int4_times(per_step: dict, served: dict, card: str) -> dict:
+    """The int4 kernel's row: w_gate's shape (4096 x 14336) with 8 decode
+    rows, and with a 512-token prefill chunk under ``prefill_*`` keys. Four
+    weights in turn (117 MB of packed weights, more than the 50 MB L2), as
+    a decode step finds each layer's weights cold. The yardstick is
+    torch.matmul on the weight dequantized to bf16 beforehand: it reads 4x
+    the bytes."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(98)
+    din, dout = 4096, 14336
+    weights = [int4_case(gen, 1, din, dout)[1:] for _ in range(4)]
+    dense = [i4.dequant_int4(p, s, torch.bfloat16) for p, s in weights]
+    G = din // weights[0][1].shape[0]
+    rows = []
+    for N in (8, 512):
+        x = torch.randn((N, din), generator=gen, device=DEV).bfloat16()
+        turn = {"i": 0}
+
+        def nxt():
+            turn["i"] = (turn["i"] + 1) % 4
+            return turn["i"]
+
+        ms = cuda_ms(lambda: i4.int4_matmul(x, *weights[nxt()]))
+        plain_ms = cuda_ms(lambda: i4.int4_matmul_plain(x, *weights[nxt()]))
+        lib_ms = cuda_ms(lambda: torch.matmul(x, dense[nxt()]))
+        got = i4.int4_matmul(x, *weights[0])
+        compare("int4", got, torch.matmul(x.float(), dense[0].float()),
+                f"int4 bf16 N={N} vs fp32 product of the bf16-dequantized "
+                "weight", rows=True)
+        nbytes = din * dout // 2 + (din // G) * dout * 4 + N * din * 2 + N * dout * 4
+        rows.append(_row("int4", ms, plain_ms, lib_ms, nbytes,
+                         2 * N * din * dout, PEAK_BF16_FLOPS,
+                         per_step["int4"], served["int4"], card,
+                         f"N={N} din={din} dout={dout} G={G} bf16 x",
+                         library="torch.matmul on the weight dequantized to "
+                                 "bf16 beforehand (reads 4x the bytes)"))
+    row, prefill = rows
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape"):
+        row[f"prefill_{k}"] = prefill[k]
+    return row
+
+
 def _row(kind, ms, plain_ms, lib_ms, nbytes, flops, peak, per_step, launches,
-         card, shape):
+         card, shape,
+         library="torch.nn.functional.scaled_dot_product_attention"):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     bound_ms = max(t_bytes, t_ops)
@@ -670,11 +1046,11 @@ def _row(kind, ms, plain_ms, lib_ms, nbytes, flops, peak, per_step, launches,
         launches=launches, launches_per_step=per_step,
         max_abs_err=max_err[kind], ms=ms, kernel_ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=lib_ms, library="torch.nn.functional.scaled_dot_product_attention",
-        shape=shape, card=card,
+        library_ms=lib_ms, library=library, shape=shape, card=card,
     )
+    lib = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
     log(f"  {row['name']} [{shape}]: {ms:.4f} ms (plain {plain_ms:.4f}, "
-        f"sdpa {lib_ms:.4f}, bound {bound_ms:.4f} ms by {row['bound_by']}; "
+        f"library {lib}, bound {bound_ms:.4f} ms by {row['bound_by']}; "
         f"{bound_ms / ms:.1%} of bound); {per_step} launches per step, "
         f"{launches} while serving")
     return row
@@ -682,17 +1058,37 @@ def _row(kind, ms, plain_ms, lib_ms, nbytes, flops, peak, per_step, launches,
 
 def main() -> None:
     t_start = time.perf_counter()
+    os.environ.pop("PST_FUSED_KV_WRITE", None)  # bf16 phases: unfused path
     card = phase_toolchain()
+    log("[phase 2] kernels vs plain versions")
     phase_kernels()
+    phase_decode_write_kernels()
+    phase_int4_kernels()
     model, params = build_model()
     per_step = phase_model(model, params)
     phase_no_host_sync(model, params)
     steps = phase_step_times(model, params)
     torch.cuda.empty_cache()  # the engine sizes its KV cache from free memory
-    served = phase_serving(params)
+    served = phase_serving(params, "4")
     del params
+    gc.collect()  # the engine's KV cache and the bf16 tree, cycles included
     torch.cuda.empty_cache()
-    rows = phase_times(per_step, served, card)
+    log(f"[phase 3b] bf16 tree and engine freed: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+
+    q_params, q_per_step = phase_int4_model(model)  # sets PST_FUSED_KV_WRITE=1
+    steps.update(phase_step_times(model, q_params, tag="int4_", impls=("cuda",)))
+    per_step["decode_write_step"] = q_per_step["decode_write"]
+    torch.cuda.empty_cache()
+    q_served = phase_serving(q_params, "4b", quantization="int4",
+                             used=("decode_write", "int4", "prefill"))
+    del q_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows = phase_times(per_step, {**served, "decode_write": q_served["decode_write"]},
+                       card)
+    rows.append(phase_int4_times(q_per_step, q_served, card))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows, "steps": steps}), flush=True)
     print(json.dumps({"ok": True, "device": {

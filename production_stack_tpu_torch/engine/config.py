@@ -30,7 +30,9 @@ class EngineConfig:
     max_num_seqs: int = 64
     max_prefill_tokens: int = 2048
     kv_cache_dtype: Optional[str] = None  # only the model dtype is ported
-    quantization: Optional[str] = None  # not ported: must stay None
+    # Weight-only quantization: None, "int8" (per channel) or "int4"
+    # (group-wise; embed/lm_head stay int8).
+    quantization: Optional[str] = None
     enable_prefix_caching: bool = True
     # Decode tokens generated per engine step (a device-side loop that
     # chains sampled tokens without a host round trip). 1 = per token.
@@ -39,6 +41,12 @@ class EngineConfig:
     min_decode_bucket: int = 1
     seed: int = 0
     device: str = "cuda"
+
+    def __post_init__(self) -> None:
+        if self.quantization not in (None, "int8", "int4"):
+            raise ValueError(
+                f"unsupported quantization {self.quantization!r} (int8 or int4)"
+            )
 
 
 def resolve_device(name: str) -> torch.device:

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..logging_utils import init_logger
-from ..models.llama import Llama, LlamaConfig
+from ..models.llama import Llama, LlamaConfig, quant_mode
 from ..models.registry import get_model_config
 from ..ops.sampling import (
     apply_allowed_mask,
@@ -70,28 +70,35 @@ class ModelRunner:
         self.device = resolve_device(cfg.device)
         self.model_cfg = model_cfg or get_model_config(cfg.model)
         self.model = Llama(self.model_cfg)
-        if cfg.quantization:
-            raise NotImplementedError(
-                f"quantization={cfg.quantization!r} is not ported yet"
-            )
         if cfg.kv_cache_dtype not in (None, self.model_cfg.dtype):
             raise NotImplementedError(
                 f"kv_cache_dtype={cfg.kv_cache_dtype!r} is not ported yet "
                 f"(the cache holds the model dtype {self.model_cfg.dtype})"
             )
         if params is None:
+            # Quantized presets are drawn and quantized a layer's slice at a
+            # time on the device: the bf16 tree never exists whole.
             gen = torch.Generator(device=self.device)
             gen.manual_seed(cfg.seed)
-            params = self.model.init_params(gen, self.device)
+            params = self.model.init_params(gen, self.device,
+                                            quantization=cfg.quantization)
         else:
+            # A given tree is served as it is (a converted JAX
+            # quantize_tree output is already quantized).
             params = _to_device(params, self.device)
+            if cfg.quantization and quant_mode(params) != cfg.quantization:
+                raise ValueError(
+                    f"quantization={cfg.quantization!r} but the given params "
+                    f"are {quant_mode(params) or 'not quantized'}")
         self.params = params
+        # Resident bytes, quantized leaves as stored.
         self.param_bytes = sum(
             t.numel() * t.element_size() for t in _leaves(params)
         )
         logger.info(
-            "params ready: %.2f GiB on %s, %.1fs", self.param_bytes / 2**30,
-            self.device, time.perf_counter() - t0,
+            "params ready (%s): %.2f GiB on %s, %.1fs",
+            quant_mode(params) or self.model_cfg.dtype,
+            self.param_bytes / 2**30, self.device, time.perf_counter() - t0,
         )
         self.num_blocks = resolve_num_kv_blocks(cfg, self.model_cfg, self.device)
         self.max_table_width = -(-cfg.max_model_len // cfg.block_size)

@@ -6,7 +6,8 @@ schema for ``prompt``, ``max_tokens``, ``temperature``, ``top_p``,
 ``top_k``, ``seed`` and ``stop``. Bodies are plain JSON dicts. The other
 routes of the JAX server are not ported yet.
 
-    python -m production_stack_tpu_torch.engine.server --model llama-3-8b --port 8011
+    python -m production_stack_tpu_torch.engine.server --model llama-3-8b --port 8011 \
+        [--quantization int4]
 """
 
 from __future__ import annotations
@@ -209,6 +210,8 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-num-batched-tokens", dest="max_prefill_tokens",
                    type=int, default=2048)
     p.add_argument("--num-decode-steps", type=int, default=1)
+    p.add_argument("--quantization", choices=("int8", "int4"), default=None,
+                   help="weight-only quantization (int4: W4A16 kernel)")
     p.add_argument("--seed", type=int, default=0)
     return p.parse_args(argv)
 
@@ -223,6 +226,7 @@ def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
         max_num_seqs=args.max_num_seqs,
         max_prefill_tokens=args.max_prefill_tokens,
         num_decode_steps=args.num_decode_steps,
+        quantization=args.quantization,
         seed=args.seed,
     )
 

@@ -7,7 +7,9 @@ tensors, so both packages can run on identical weights.
 
 bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 ``torch.from_numpy`` refuses: they cross as their raw 16-bit patterns
-(``.view(np.uint16)``) and are reinterpreted as ``torch.bfloat16``.
+(``.view(np.uint16)``) and are reinterpreted as ``torch.bfloat16``. The
+int8 weights and fp32 ``*_qs`` / ``*_q4s`` scales of a JAX
+``quantize_tree`` output cross as they are.
 """
 
 from __future__ import annotations

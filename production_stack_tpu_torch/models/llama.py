@@ -13,26 +13,146 @@ each other on the same weights:
 
 One forward serves prefill and decode: tokens are ``[B, T]``; the step's
 K/V rows are written into their cache slots first, then attention reads
-through the block table.
+through the block table (under ``PST_FUSED_KV_WRITE=1`` a decode step does
+both in one kernel).
+
+Weight-only quantization, as the JAX package's: ``int8`` (per output
+channel) or ``int4`` (group-wise, packed two to a byte) for the seven
+per-layer matmuls, per-row ``int8`` for ``embed``/``lm_head``; scales are
+sibling leaves ``<name>_qs`` / ``<name>_q4s``. The quantizers are
+bit-identical to the JAX ones, so a JAX ``quantize_tree`` output serves as
+is.
 
 Not ported in this slice (``Llama`` raises ``NotImplementedError``):
-mixture-of-experts, quantized weights, LoRA, pipeline parallelism, the
-Gemma knobs (unit-offset norms, scaled embeddings, post-block norms,
-GeGLU), Qwen3 q/k norms, and all-position logits.
+mixture-of-experts, LoRA, pipeline parallelism, the Gemma knobs
+(unit-offset norms, scaled embeddings, post-block norms, GeGLU), Qwen3 q/k
+norms, and all-position logits.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+import os
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import paged_attention
+from ..ops.attention import paged_attention, resolve_impl
+from ..ops.int4_matmul import int4_matmul, mm_f32
+from ..ops.paged_attention_cuda import paged_attention_decode_write
 
 Params = Dict[str, Any]
+
+# ----------------------------------------------------------------------------
+# Weight-only quantization (the JAX package's, bit for bit). Matmul weights
+# ([..., in, out]) quantize over their input dim; embedding tables ([V, D])
+# over the hidden dim, so one per-row scale serves the lookup and the
+# unembed. int4 quantizes the per-layer matmuls only: embed/lm_head stay
+# per-row int8 in both modes.
+# ----------------------------------------------------------------------------
+
+QUANT_SUFFIX = "_qs"
+QUANT4_SUFFIX = "_q4s"
+QUANT4_GROUP = 128
+QUANT_LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+QUANT_TOP_KEYS = ("embed", "lm_head")
+QUANT_MODES = ("int8", "int4")
+# The JAX quantizers divide by 127 and 7; XLA compiles each division by a
+# constant into a product with the float32 reciprocal, so the port writes
+# that product, and its scales equal the compiled JAX ones bit for bit.
+_RECIP_127 = 1.0 / 127.0
+_RECIP_7 = 1.0 / 7.0
+
+
+def quantize_leaf(w: torch.Tensor, axis: int = -2
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-channel int8 over ``axis``: (int8 weights, fp32
+    scales)."""
+    wf = w.float()
+    amax = wf.abs().amax(dim=axis)
+    s = torch.clamp_min(amax, 1e-8) * _RECIP_127
+    q = torch.clamp(torch.round(wf / s.unsqueeze(axis)), -127, 127)
+    return q.to(torch.int8), s
+
+
+def q4_group(din: int) -> int:
+    """Largest group size <= 128 dividing the contraction dim (128 at real
+    widths, smaller in tiny debug models)."""
+    g = QUANT4_GROUP
+    while din % g:
+        g //= 2
+        if g < 2:
+            raise ValueError(f"int4 needs an even contraction dim, got {din}")
+    return g
+
+
+def quantize_leaf_int4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric group-wise int4 over the contraction axis (-2): (packed int8
+    [..., in/2, out] — even rows in the low nibble, odd in the high — and
+    fp32 scales [..., in/G, out])."""
+    wf = w.float()
+    *lead, din, dout = wf.shape
+    g = q4_group(din)
+    wg = wf.reshape(*lead, din // g, g, dout)
+    s = torch.clamp_min(wg.abs().amax(dim=-2), 1e-8) * _RECIP_7
+    q = torch.clamp(torch.round(wg / s[..., :, None, :]), -7, 7).to(torch.int8)
+    q = q.reshape(*lead, din, dout)
+    packed = (q[..., 0::2, :] & 0x0F) | torch.bitwise_left_shift(q[..., 1::2, :], 4)
+    return packed, s
+
+
+def _quantizer(name: str, mode: str
+               ) -> Tuple[Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]], str]:
+    """(quantizer of one 2-D slice, scale-leaf suffix) of leaf ``name``."""
+    if name in QUANT_TOP_KEYS:
+        return (lambda w: quantize_leaf(w, axis=-1)), QUANT_SUFFIX
+    if mode == "int4":
+        return quantize_leaf_int4, QUANT4_SUFFIX
+    return (lambda w: quantize_leaf(w, axis=-2)), QUANT_SUFFIX
+
+
+def _stack_slices(lead: Tuple[int, ...], make) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stack ``make(i) -> (q, s)`` of the ``prod(lead)`` trailing 2-D
+    slices of a leaf, one slice at a time: a full-precision copy of the
+    whole leaf never exists."""
+    n = math.prod(lead)
+    q0, s0 = make(0)
+    q = q0.new_empty((n, *q0.shape))
+    s = s0.new_empty((n, *s0.shape))
+    q[0], s[0] = q0, s0
+    for i in range(1, n):
+        q[i], s[i] = make(i)
+    return q.reshape(*lead, *q0.shape), s.reshape(*lead, *s0.shape)
+
+
+def quantize_tree(params: Params, mode: str = "int8") -> Params:
+    """Quantize the matmul weights and embeddings of ``params`` in place
+    (the JAX ``quantize_tree``), a layer's slice at a time."""
+    if mode not in QUANT_MODES:
+        raise ValueError(f"unsupported quantization {mode!r} (int8 or int4)")
+    for tree, keys in ((params["layers"], QUANT_LAYER_KEYS),
+                       (params, QUANT_TOP_KEYS)):
+        for k in keys:
+            if k not in tree:
+                continue
+            fn, suffix = _quantizer(k, mode)
+            w = tree[k]
+            slices = w.reshape(-1, *w.shape[-2:])
+            tree[k], tree[k + suffix] = _stack_slices(
+                tuple(w.shape[:-2]), lambda i: fn(slices[i]))
+    return params
+
+
+def quant_mode(params: Params) -> Optional[str]:
+    """The quantization a parameter tree carries: "int4", "int8" or None."""
+    layers = params.get("layers", {})
+    if any(k.endswith(QUANT4_SUFFIX) for k in layers):
+        return "int4"
+    if any(k.endswith(QUANT_SUFFIX) for k in layers):
+        return "int8"
+    return None
 
 _DTYPES = {
     "float32": torch.float32,
@@ -155,34 +275,56 @@ class Llama:
         return shapes
 
     def init_params(
-        self, generator: torch.Generator, device: torch.device
+        self, generator: torch.Generator, device: torch.device,
+        quantization: Optional[str] = None,
     ) -> Params:
         """Random init with the JAX package's distributions (norms 1,
         biases 0, matmul weights N(0, 1/fan_in)); not its values — the
         generators differ. Drawn on ``device`` leaf by leaf, a layer at a
-        time, so no full-precision copy of a large model is ever built."""
+        time, so no full-precision copy of a large model is ever built.
+
+        ``quantization`` ("int8" | "int4"): each slice is quantized on the
+        device as soon as it is drawn and freed before the next, so only
+        the quantized tree stays resident; the result equals
+        ``quantize_tree(init_params(...), quantization)`` from the same
+        generator state, bit for bit."""
+        if quantization not in (None, *QUANT_MODES):
+            raise ValueError(
+                f"unsupported quantization {quantization!r} (int8 or int4)")
         dtype = self.cfg.torch_dtype
 
-        def leaf(name: str, shape) -> torch.Tensor:
+        def fill(params: Params, name: str, shape) -> None:
             if "norm" in name:
-                return torch.ones(shape, dtype=dtype, device=device)
+                params[name] = torch.ones(shape, dtype=dtype, device=device)
+                return
             if name.startswith("b"):
-                return torch.zeros(shape, dtype=dtype, device=device)
-            fan_in = shape[-1] if name in ("embed", "lm_head") else shape[-2]
-            out = torch.empty(shape, dtype=dtype, device=device)
-            for part in out.view(-1, *shape[-2:]):
-                part.copy_(
-                    torch.randn(shape[-2:], generator=generator,
-                                device=device, dtype=torch.float32)
-                    / math.sqrt(fan_in)
-                )
-            return out
+                params[name] = torch.zeros(shape, dtype=dtype, device=device)
+                return
+            fan_in = shape[-1] if name in QUANT_TOP_KEYS else shape[-2]
+
+            def draw() -> torch.Tensor:
+                return (torch.randn(shape[-2:], generator=generator,
+                                    device=device, dtype=torch.float32)
+                        / math.sqrt(fan_in)).to(dtype)
+
+            quantized = name in QUANT_LAYER_KEYS + QUANT_TOP_KEYS
+            if quantization is None or not quantized:
+                out = torch.empty(shape, dtype=dtype, device=device)
+                for part in out.view(-1, *shape[-2:]):
+                    part.copy_(draw())
+                params[name] = out
+                return
+            fn, suffix = _quantizer(name, quantization)
+            params[name], params[name + suffix] = _stack_slices(
+                tuple(shape[:-2]), lambda i: fn(draw()))
 
         shapes = self.param_shapes()
-        params: Params = {
-            k: leaf(k, v) for k, v in shapes.items() if k != "layers"
-        }
-        params["layers"] = {k: leaf(k, v) for k, v in shapes["layers"].items()}
+        params: Params = {"layers": {}}
+        for k, v in shapes.items():
+            if k != "layers":
+                fill(params, k, v)
+        for k, v in shapes["layers"].items():
+            fill(params["layers"], k, v)
         return params
 
     # ------------------------------------------------------------------
@@ -235,23 +377,29 @@ class Llama:
         L, nb, _, bs, _ = kv_cache.shape
         layers = params["layers"]
 
-        x = params["embed"][tokens.long()]  # [B, T, D]
+        x = _embed_lookup(params, tokens.long(), cfg.torch_dtype)  # [B, T, D]
         rope_cos, rope_sin = _rope_tables(positions, cfg)
 
-        # KV write: one scatter per layer over the flat [L*nb*2*bs, KH*hd]
-        # row view. Slot (blk, pos) of layer li holds its K row at
-        # (li*nb + blk)*2*bs + pos and its V row bs rows later. A slot at
-        # or past nb*bs is DROPPED (padding rows, the runner's drop slot) —
-        # it must not wrap into the next layer's first page — so its rows
-        # go to the cache's spare row instead, on the device.
-        flat_write = write_idx.reshape(-1).long()
-        rows = (flat_write // bs) * (2 * bs) + flat_write % bs  # layer-0 K
-        rows = torch.cat([rows, rows + bs])  # K rows, then V rows
-        dropped = (flat_write >= nb * bs).repeat(2)
-        flat_cache = _rows_with_spare(kv_cache)
-        layer_base = torch.arange(L, device=rows.device)[:, None] * (nb * 2 * bs)
-        targets = torch.where(dropped, flat_cache.shape[0] - 1,
-                              rows + layer_base)  # [L, 2*B*T]
+        fused = _decode_write_fused(attn_impl, tokens.is_cuda, T)
+        if fused:  # the attention kernel writes the rows itself
+            write_flat = write_idx.reshape(-1).to(torch.int32).contiguous()
+        else:
+            # KV write: one scatter per layer over the flat
+            # [L*nb*2*bs, KH*hd] row view. Slot (blk, pos) of layer li
+            # holds its K row at (li*nb + blk)*2*bs + pos and its V row bs
+            # rows later. A slot at or past nb*bs is DROPPED (padding rows,
+            # the runner's drop slot) — it must not wrap into the next
+            # layer's first page — so its rows go to the cache's spare row
+            # instead, on the device.
+            flat_write = write_idx.reshape(-1).long()
+            rows = (flat_write // bs) * (2 * bs) + flat_write % bs  # layer-0 K
+            rows = torch.cat([rows, rows + bs])  # K rows, then V rows
+            dropped = (flat_write >= nb * bs).repeat(2)
+            flat_cache = _rows_with_spare(kv_cache)
+            layer_base = (torch.arange(L, device=rows.device)[:, None]
+                          * (nb * 2 * bs))
+            targets = torch.where(dropped, flat_cache.shape[0] - 1,
+                                  rows + layer_base)  # [L, 2*B*T]
 
         positions_i = positions.to(torch.int32)
         tables = block_tables.to(torch.int32).contiguous()
@@ -260,34 +408,46 @@ class Llama:
         for li in range(cfg.num_layers):
             lp = {k: v[li] for k, v in layers.items()}
             h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-            q = _proj(h, lp["wq"], lp.get("bq"))
-            k = _proj(h, lp["wk"], lp.get("bk"))
-            v = _proj(h, lp["wv"], lp.get("bv"))
+            q = _proj(h, lp, "wq", lp.get("bq"))
+            k = _proj(h, lp, "wk", lp.get("bk"))
+            v = _proj(h, lp, "wv", lp.get("bv"))
             q = _apply_rope(q.reshape(B, T, cfg.num_heads, cfg.head_dim),
                             rope_cos, rope_sin)
             k = _apply_rope(k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim),
                             rope_cos, rope_sin)
 
-            kvd = torch.cat(
-                [k.reshape(B * T, cfg.kv_size), v.reshape(B * T, cfg.kv_size)]
-            ).to(kv_cache.dtype)
-            flat_cache.index_copy_(0, targets[li], kvd)
-
-            attn = paged_attention(
-                q, kv_cache, tables, lens, positions_i, li,
-                scale=cfg.attn_scale, impl=attn_impl,
-                window=_layer_window(cfg, li),
-                softcap=cfg.attn_logit_softcap,
-            )
+            if fused:
+                attn = paged_attention_decode_write(
+                    q[:, 0], kv_cache, tables, lens, li,
+                    k.reshape(B, cfg.kv_size), v.reshape(B, cfg.kv_size),
+                    write_flat, scale=cfg.attn_scale,
+                    window=_layer_window(cfg, li),
+                    softcap=cfg.attn_logit_softcap,
+                )[:, None]
+            else:
+                kvd = torch.cat(
+                    [k.reshape(B * T, cfg.kv_size),
+                     v.reshape(B * T, cfg.kv_size)]
+                ).to(kv_cache.dtype)
+                flat_cache.index_copy_(0, targets[li], kvd)
+                attn = paged_attention(
+                    q, kv_cache, tables, lens, positions_i, li,
+                    scale=cfg.attn_scale, impl=attn_impl,
+                    window=_layer_window(cfg, li),
+                    softcap=cfg.attn_logit_softcap,
+                )
             attn = attn.reshape(B, T, cfg.q_size).to(x.dtype)
-            x = x + attn @ lp["wo"]
+            x = x + _proj(attn, lp, "wo")
             h = _rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
             x = x + _mlp(h, lp)
 
         x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-        unembed = params["lm_head"] if "lm_head" in params else params["embed"]
+        head = "lm_head" if "lm_head" in params else "embed"
         last = x[torch.arange(B, device=x.device), last_idx.long()]  # [B, D]
-        logits = unembed_logits(last, unembed)
+        logits = unembed_logits(last, _wcast(params[head], x.dtype))
+        uqs = params.get(head + QUANT_SUFFIX)
+        if uqs is not None:
+            logits = logits * uqs  # per-vocab-row scale
         return _softcap(logits, cfg.final_logit_softcap), kv_cache
 
 
@@ -314,11 +474,61 @@ def _rows_with_spare(kv_cache: torch.Tensor) -> torch.Tensor:
 def unembed_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Logits ``x @ w.T`` in float32. bf16 products keep their float32
     accumulator, as the JAX package's ``preferred_element_type`` does."""
-    if x.dtype == torch.float32:
-        return x @ w.t()
-    if x.is_cuda:
-        return torch.mm(x, w.t(), out_dtype=torch.float32)
-    return x.float() @ w.t().float()
+    return mm_f32(x, w.t())
+
+
+def _decode_write_fused(attn_impl: str, on_cuda: bool, T: int) -> bool:
+    """Whether a single-token decode step folds each layer's KV write into
+    the attention kernel (no ``index_copy_`` scatter). Read at call time,
+    as the JAX package reads it at trace time: ``PST_FUSED_KV_WRITE=1``,
+    an attention impl that resolves to the CUDA kernels, and T == 1;
+    ``gather`` never fuses. The JAX package keeps it off on the TPU, where
+    a sub-row write into a tiled page is not expressible; on the GPU the
+    kernel writes the row itself. Like ``impl='cuda'``, it refuses CPU
+    tensors."""
+    if T != 1 or os.environ.get("PST_FUSED_KV_WRITE") != "1":
+        return False
+    if resolve_impl(attn_impl, on_cuda) != "cuda":
+        return False
+    if not on_cuda:
+        raise ValueError("impl='cuda' needs CUDA tensors")
+    return True
+
+
+def _wcast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A matmul operand in the compute dtype: int8 leaves are converted
+    (the scale is applied after the product). XLA fused this convert into
+    the product's read; eager PyTorch materialises the converted weight —
+    one extra write and read of it in ``dtype`` per use (PERF.md)."""
+    return w.to(dtype) if w.dtype == torch.int8 else w
+
+
+def _qdot(x: torch.Tensor, p: Params, name: str
+          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``x [..., din] @ p[name]`` in fp32 under any quantization mode;
+    returns (product, int8 scale to apply after it, or None). An int4 leaf
+    goes through :func:`int4_matmul` for every shape (the W4A16 kernel on
+    the GPU, its plain version on the CPU); an int8 leaf is converted to
+    x's dtype and multiplied."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    q4s = p.get(name + QUANT4_SUFFIX)
+    if q4s is not None:
+        out = int4_matmul(x2, p[name], q4s)
+        return out.reshape(*lead, out.shape[-1]), None
+    out = mm_f32(x2, _wcast(p[name], x.dtype))
+    return out.reshape(*lead, out.shape[-1]), p.get(name + QUANT_SUFFIX)
+
+
+def _embed_lookup(params: Params, tokens: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """Token embedding gather; an int8 table dequantizes its rows with
+    their per-row scale."""
+    x = params["embed"][tokens]
+    s = params.get("embed" + QUANT_SUFFIX)
+    if s is not None:
+        x = (x.float() * s[tokens][..., None]).to(dtype)
+    return x
 
 
 def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -327,20 +537,29 @@ def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor,
+def _proj(x: torch.Tensor, p: Params, name: str,
           b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    # The product is rounded to x's dtype before the bias is added (the JAX
-    # package adds the bias to the fp32 accumulator); identical in float32.
-    out = x @ w
-    return out if b is None else out + b
+    """``x @ p[name]`` (+ bias) in x's dtype, as the JAX ``_proj``: the
+    product in fp32, then the int8 scale and the bias in fp32, then one
+    cast. An unquantized, bias-free product stays ``x @ w``: the same one
+    rounding of the fp32 accumulator, with no extra launch."""
+    w = p[name]
+    if b is None and w.dtype == x.dtype:
+        return x @ w
+    out, s = _qdot(x, p, name)
+    if s is not None:
+        out = out * s
+    if b is not None:
+        out = out + b.float()
+    return out.to(x.dtype)
 
 
 def _mlp(h: torch.Tensor, lp: Params) -> torch.Tensor:
     """Dense SwiGLU: silu(h @ w_gate) * (h @ w_up) in float32, then w_down."""
-    gate = _proj(h, lp["w_gate"])
-    up = _proj(h, lp["w_up"])
+    gate = _proj(h, lp, "w_gate")
+    up = _proj(h, lp, "w_up")
     ff = (F.silu(gate.float()) * up.float()).to(h.dtype)
-    return ff @ lp["w_down"]
+    return _proj(ff, lp, "w_down")
 
 
 def _layer_window(cfg: LlamaConfig, li: int) -> int:

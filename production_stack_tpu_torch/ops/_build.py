@@ -2,10 +2,21 @@
 
 The sources under ``ops/csrc/`` expose a plain C interface, so they are
 compiled by ``nvcc`` straight into a shared library and bound with
-``ctypes`` — no PyTorch headers, which keeps a cold build to seconds. The
-library lands in ``build/torch_kernels/`` at the repository root, named
-by a hash of the sources and flags, and is built at first use (never at
-import: machines without ``nvcc`` import this module fine).
+``ctypes`` — no PyTorch headers, which keeps a cold build to seconds. Each
+source compiles in its own ``nvcc`` process, all started together, and
+one more links the objects. The library lands in ``build/torch_kernels/``
+at the repository root, named by a hash of the sources and flags, and is
+built at first use (never at import: machines without ``nvcc`` import this
+module fine).
+
+Kernels, each replacing a Pallas TPU kernel of the JAX package:
+
+- ``paged_attention.cu``: ``paged_decode_kernel`` (``_decode_kernel``),
+  ``paged_decode_write_kernel`` (``_decode_write_kernel``) and
+  ``paged_prefill_kernel`` (``_prefill_kernel``), all of
+  ``production_stack_tpu/ops/paged_attention_pallas.py``;
+- ``int4_matmul.cu``: ``int4_mma_kernel`` and ``int4_simt_kernel``
+  (``production_stack_tpu/ops/int4_matmul.py::_kernel``).
 """
 
 from __future__ import annotations
@@ -25,11 +36,11 @@ from ..logging_utils import init_logger
 logger = init_logger(__name__)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("paged_attention.cu",)
+SOURCES = ("paged_attention.cu", "int4_matmul.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -76,19 +87,33 @@ def build() -> Path:
         last_build_seconds = 0.0
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = []  # (command, output, return code)
+    for c, p in zip(cmds, procs):
+        output, _ = p.communicate()
+        logs.append((c, output, p.returncode))
+    if all(rc == 0 for *_, rc in logs):
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        logs.append((link, proc.stdout, proc.returncode))
     last_build_seconds = time.perf_counter() - t0
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+    text = "".join(" ".join(c) + "\n" + (o or "") for c, o, _ in logs)
+    (BUILD_DIR / "build.log").write_text(text)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [rc for *_, rc in logs if rc != 0]
+    if failed or len(logs) != len(SOURCES) + 1:
+        raise RuntimeError(f"nvcc failed ({failed}):\n{text}")
     os.replace(tmp, out)  # atomic: concurrent builders race harmlessly
     logger.info("built %s in %.1fs", out.name, last_build_seconds)
     return out
@@ -117,5 +142,19 @@ def load() -> ctypes.CDLL:
             _F, _F, _P,  # scale, softcap, stream
         ]
         lib.pst_paged_prefill.restype = _I
+        lib.pst_paged_decode_write.argtypes = [
+            _I, _P, _P, _P, _P, _P,  # dtype, q, cache, k_new, v_new, write_flat
+            _P, _P, _P,  # tables, kv_lens, out
+            _I, _I, _I, _I,  # B, H, KH, HD
+            _I, _I, _I, _I, _I,  # nb, bs, W, layer, window
+            _F, _F, _P,  # scale, softcap, stream
+        ]
+        lib.pst_paged_decode_write.restype = _I
+        lib.pst_int4_matmul.argtypes = [
+            _I, _P, _P, _P, _P, _P,  # dtype, x, packed, scales, out, ws
+            _I, _I, _I, _I,  # N, din, dout, G
+            _I, _I, _P,  # splits, per_split, stream
+        ]
+        lib.pst_int4_matmul.restype = _I
         _lib = lib
         return lib

@@ -33,6 +33,16 @@ def window_eff(window: int) -> int:
     return int(window) if window > 0 else 1 << 30
 
 
+def resolve_impl(impl: str, is_cuda: bool) -> str:
+    """``auto`` is ``cuda`` on a CUDA tensor and ``gather`` on a CPU one;
+    ``gather`` and ``cuda`` pass through; anything else raises."""
+    if impl == "auto":
+        return "cuda" if is_cuda else "gather"
+    if impl not in ("gather", "cuda"):
+        raise ValueError(f"unknown attention impl {impl!r} (auto|gather|cuda)")
+    return impl
+
+
 def paged_attention(
     q: torch.Tensor,
     kv_pages: torch.Tensor,
@@ -55,8 +65,7 @@ def paged_attention(
     kernels and the mean of its gathered V rows from ``gather`` (the JAX
     package's two paths differ the same way); the engine discards such
     rows."""
-    if impl == "auto":
-        impl = "cuda" if q.is_cuda else "gather"
+    impl = resolve_impl(impl, q.is_cuda)
     if impl == "cuda":
         if not q.is_cuda:
             raise ValueError("impl='cuda' needs CUDA tensors")
@@ -78,8 +87,6 @@ def paged_attention(
             q_positions[:, 0].to(torch.int32).contiguous(), layer,
             scale=scale, window=window, softcap=softcap,
         )
-    if impl != "gather":
-        raise ValueError(f"unknown attention impl {impl!r} (auto|gather|cuda)")
     return gather_paged_attention(
         q, kv_pages, block_tables, kv_lens, q_positions, layer,
         scale=scale, window=window, softcap=softcap,

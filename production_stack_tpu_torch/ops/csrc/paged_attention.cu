@@ -1,11 +1,15 @@
 // Paged attention over the stacked KV cache, hand-written for Hopper (sm_90a).
 //
-// Two kernels, each replacing one Pallas TPU kernel of the JAX package:
+// Three kernels, each replacing one Pallas TPU kernel of the JAX package
+// (production_stack_tpu/ops/paged_attention_pallas.py):
 //
-//   paged_decode_kernel   <- production_stack_tpu/ops/paged_attention_pallas.py
-//                            _decode_kernel (one query token per sequence)
-//   paged_prefill_kernel  <- production_stack_tpu/ops/paged_attention_pallas.py
-//                            _prefill_kernel (chunked-prefill flash attention)
+//   paged_decode_kernel        <- _decode_kernel (one query token per
+//                                 sequence)
+//   paged_decode_write_kernel  <- _decode_write_kernel (the decode step with
+//                                 this step's K/V row written into its page
+//                                 first; PST_FUSED_KV_WRITE=1)
+//   paged_prefill_kernel       <- _prefill_kernel (chunked-prefill flash
+//                                 attention)
 //
 // Layouts (identical to the JAX package):
 //   cache        [L, nb, 2, bs, KH*HD]  page = K rows (index 0) then V rows
@@ -29,6 +33,8 @@
 //             (sequence, kv head)). This first version has no split-KV, so
 //             B*KH blocks must fill the card; at B=8, KH=8 only 64 of 132
 //             SMs work and the kernel sits well below the byte bound.
+//             decode-write adds one K and one V row per (sequence, kv
+//             head) to that traffic, and saves the separate scatter launch.
 //   prefill - operations: 4*H*HD*T*(start+T/2) FLOP per layer. This first
 //             version runs the two products on the CUDA cores in fp32
 //             (no wgmma / mma.sync yet), so it is far from the tensor-core
@@ -84,6 +90,15 @@ __device__ inline uint4 load16(const T* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
+// Cache loads. The read-only path (ld.global.nc) is not coherent with
+// stores made earlier in the same kernel, so a kernel that writes the cache
+// before reading it loads through L2 (ld.global.cg) instead.
+template <bool kCoherent, typename T>
+__device__ inline uint4 load_cache16(const T* p) {
+  if constexpr (kCoherent) return __ldcg(reinterpret_cast<const uint4*>(p));
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
 __device__ inline float softcap_score(float s, float scale, float softcap) {
   s *= scale;
   if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
@@ -107,13 +122,11 @@ __device__ inline int window_eff(int window) {
 constexpr int kDecodeWarps = 8;
 constexpr int kDecodeUnroll = 4;
 
-template <typename T, int G>
-__global__ void __launch_bounds__(kDecodeWarps * 32)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ cache,
-                    const int* __restrict__ tables,
-                    const int* __restrict__ kv_lens, T* __restrict__ out,
-                    int nb, int bs, int KH, int W, int layer, int window,
-                    float scale, float softcap) {
+template <typename T, int G, bool kCoherent>
+__device__ __forceinline__ void decode_body(
+    const T* __restrict__ q, const T* cache, const int* __restrict__ tables,
+    const int* __restrict__ kv_lens, T* __restrict__ out, int nb, int bs,
+    int KH, int W, int layer, int window, float scale, float softcap) {
   using VT = VecTraits<T>;
   constexpr int HD = kHeadDim;
   constexpr int VEC = VT::kVec;
@@ -174,8 +187,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ cache,
         const T* kp = base_ptr +
                       (size_t)trow[min(pos / bs, W - 1)] * page_stride +
                       (size_t)(pos % bs) * lanes;
-        kr[u] = load16(kp);
-        vr[u] = load16(kp + (size_t)bs * lanes);
+        kr[u] = load_cache16<kCoherent>(kp);
+        vr[u] = load_cache16<kCoherent>(kp + (size_t)bs * lanes);
       } else {
         kr[u] = make_uint4(0, 0, 0, 0);
         vr[u] = make_uint4(0, 0, 0, 0);
@@ -260,6 +273,60 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ cache,
     }
     out[((size_t)b * H + kh * G + g) * HD + d] = VT::store(res);
   }
+}
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kDecodeWarps * 32)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ cache,
+                    const int* __restrict__ tables,
+                    const int* __restrict__ kv_lens, T* __restrict__ out,
+                    int nb, int bs, int KH, int W, int layer, int window,
+                    float scale, float softcap) {
+  decode_body<T, G, false>(q, cache, tables, kv_lens, out, nb, bs, KH, W,
+                           layer, window, scale, softcap);
+}
+
+// ---------------------------------------------------------------------------
+// Decode with the KV write folded in: grid (B, KH), as decode.
+//
+// Block (b, kh) first writes lanes [kh*HD, (kh+1)*HD) of k_new[b] and
+// v_new[b] into layer `layer`, page write_flat[b] / bs, row write_flat[b] %
+// bs (K row, and the V row bs rows later); a slot outside [0, nb*bs) writes
+// nothing. Then __syncthreads() and the decode loop, which reads the row
+// back from the cache, as the TPU kernel does (write_flat need not be
+// position kv_len - 1). A block reads only its own kv head's lanes, and a
+// sequence writes only into its own last page (shared prefix pages are
+// full), so no block depends on another block's write. The cache pointer is
+// not __restrict__ and the loop's cache loads are coherent (load_cache16).
+// ---------------------------------------------------------------------------
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kDecodeWarps * 32)
+paged_decode_write_kernel(const T* __restrict__ q, T* cache,
+                          const T* __restrict__ k_new,
+                          const T* __restrict__ v_new,
+                          const int* __restrict__ write_flat,
+                          const int* __restrict__ tables,
+                          const int* __restrict__ kv_lens,
+                          T* __restrict__ out, int nb, int bs, int KH, int W,
+                          int layer, int window, float scale, float softcap) {
+  const int b = blockIdx.x;
+  const int kh = blockIdx.y;
+  const size_t lanes = (size_t)KH * kHeadDim;
+  const int wf = write_flat[b];
+  if (wf >= 0 && wf < nb * bs) {
+    T* krow = cache + (((size_t)layer * nb + wf / bs) * 2 * bs + wf % bs) * lanes +
+              (size_t)kh * kHeadDim;
+    T* vrow = krow + (size_t)bs * lanes;
+    const size_t src = (size_t)b * lanes + (size_t)kh * kHeadDim;
+    for (int i = threadIdx.x; i < kHeadDim; i += blockDim.x) {
+      krow[i] = k_new[src + i];
+      vrow[i] = v_new[src + i];
+    }
+  }
+  __syncthreads();
+  decode_body<T, G, true>(q, cache, tables, kv_lens, out, nb, bs, KH, W,
+                          layer, window, scale, softcap);
 }
 
 // ---------------------------------------------------------------------------
@@ -483,6 +550,22 @@ cudaError_t launch_decode(const void* q, const void* cache, const int* tables,
 }
 
 template <typename T, int G>
+cudaError_t launch_decode_write(const void* q, void* cache, const void* k_new,
+                                const void* v_new, const int* write_flat,
+                                const int* tables, const int* kv_lens,
+                                void* out, int B, int KH, int nb, int bs,
+                                int W, int layer, int window, float scale,
+                                float softcap, cudaStream_t stream) {
+  dim3 grid(B, KH);
+  paged_decode_write_kernel<T, G><<<grid, kDecodeWarps * 32, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<T*>(cache),
+      static_cast<const T*>(k_new), static_cast<const T*>(v_new), write_flat,
+      tables, kv_lens, static_cast<T*>(out), nb, bs, KH, W, layer, window,
+      scale, softcap);
+  return cudaGetLastError();
+}
+
+template <typename T, int G>
 cudaError_t launch_prefill(const void* q, const void* cache, const int* tables,
                            const int* kv_lens, const int* starts, void* out,
                            int B, int T_len, int KH, int nb, int bs, int W,
@@ -532,6 +615,37 @@ extern "C" int pst_paged_decode(int dtype, const void* q, const void* cache,
   if (dtype == 1) { PST_DECODE_G(__nv_bfloat16) }
 #undef PST_DECODE_G
 #undef PST_DECODE
+  return (int)cudaErrorInvalidValue;
+}
+
+// k_new, v_new: [B, KH*HD] in the cache dtype; write_flat: [B] int32.
+extern "C" int pst_paged_decode_write(int dtype, const void* q, void* cache,
+                                      const void* k_new, const void* v_new,
+                                      const int* write_flat,
+                                      const int* tables, const int* kv_lens,
+                                      void* out, int B, int H, int KH, int HD,
+                                      int nb, int bs, int W, int layer,
+                                      int window, float scale, float softcap,
+                                      void* stream) {
+  if (B == 0) return 0;
+  if (HD != kHeadDim || KH <= 0 || H % KH) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PST_DECODE_WRITE(TYPE, GG)                                          \
+  return (int)launch_decode_write<TYPE, GG>(                                \
+      q, cache, k_new, v_new, write_flat, tables, kv_lens, out, B, KH, nb,  \
+      bs, W, layer, window, scale, softcap, s)
+#define PST_DECODE_WRITE_G(TYPE)        \
+  switch (H / KH) {                     \
+    case 1: PST_DECODE_WRITE(TYPE, 1);  \
+    case 2: PST_DECODE_WRITE(TYPE, 2);  \
+    case 4: PST_DECODE_WRITE(TYPE, 4);  \
+    case 8: PST_DECODE_WRITE(TYPE, 8);  \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+  if (dtype == 0) { PST_DECODE_WRITE_G(float) }
+  if (dtype == 1) { PST_DECODE_WRITE_G(__nv_bfloat16) }
+#undef PST_DECODE_WRITE_G
+#undef PST_DECODE_WRITE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,9 +1,10 @@
 """Wrappers of the hand-written CUDA paged-attention kernels.
 
 ``paged_attention_decode`` replaces the JAX package's Pallas
-``_decode_kernel`` and ``paged_attention_prefill`` its ``_prefill_kernel``
-(``production_stack_tpu/ops/paged_attention_pallas.py``); the kernels are
-in ``csrc/paged_attention.cu``. Each wrapper has a plain PyTorch version
+``_decode_kernel``, ``paged_attention_decode_write`` its
+``_decode_write_kernel`` and ``paged_attention_prefill`` its
+``_prefill_kernel`` (``production_stack_tpu/ops/paged_attention_pallas.py``);
+the kernels are in ``csrc/paged_attention.cu``. Each wrapper has a plain PyTorch version
 beside it (``*_plain``: gather + masked softmax, the same function), which
 it runs only for tensors on the CPU. On a CUDA tensor a wrapper launches
 its kernel or raises — there is no fallback.
@@ -20,7 +21,8 @@ import torch
 
 from .attention import window_eff
 
-launch_counts: Dict[str, int] = {"decode": 0, "prefill": 0}
+launch_counts: Dict[str, int] = {"decode": 0, "decode_write": 0,
+                                 "prefill": 0}
 
 HEAD_DIM = 128  # the head dim the kernels are compiled for
 GROUPS = (1, 2, 4, 8)  # query heads per kv head the kernels are compiled for
@@ -69,6 +71,28 @@ def paged_attention_decode_plain(q3, kv_pages, block_tables, kv_lens, layer,
     q_pos = (kv_lens.long() - 1)[:, None]
     return _plain(q3[:, None], kv_pages, block_tables, kv_lens, q_pos, layer,
                   scale, window, softcap)[:, 0]
+
+
+def paged_attention_decode_write_plain(q3, kv_pages, block_tables, kv_lens,
+                                       layer, k_new, v_new, write_flat, *,
+                                       scale, window=0, softcap=0.0):
+    """Write this step's K/V rows, then decode: ``index_copy_`` of the rows
+    of ``k_new``/``v_new`` [B, KH*hd] into slot ``write_flat`` [B] (page
+    ``write_flat // bs``, row ``write_flat % bs``) of ``layer``, dropping a
+    slot outside ``[0, nb*bs)``; then :func:`paged_attention_decode_plain`.
+    Updates ``kv_pages`` in place; returns [B, H, hd]."""
+    _, nb, _, bs, lanes = kv_pages.shape
+    wf = write_flat.long()
+    keep = torch.nonzero((wf >= 0) & (wf < nb * bs))[:, 0]
+    wf = wf[keep]
+    rows = ((layer * nb + wf // bs) * 2 * bs + wf % bs)
+    flat = kv_pages.view(-1, lanes)
+    flat.index_copy_(0, rows, k_new[keep].to(kv_pages.dtype))
+    flat.index_copy_(0, rows + bs, v_new[keep].to(kv_pages.dtype))
+    return paged_attention_decode_plain(
+        q3, kv_pages, block_tables, kv_lens, layer, scale=scale,
+        window=window, softcap=softcap,
+    )
 
 
 def paged_attention_prefill_plain(q, kv_pages, block_tables, kv_lens, starts,
@@ -148,6 +172,47 @@ def paged_attention_decode(q3, kv_pages, block_tables, kv_lens, layer, *,
     if rc != 0:
         raise RuntimeError(f"paged decode kernel failed: cudaError {rc}")
     launch_counts["decode"] += 1
+    return out
+
+
+def paged_attention_decode_write(q3, kv_pages, block_tables, kv_lens, layer,
+                                 k_new, v_new, write_flat, *, scale,
+                                 window=0, softcap=0.0):
+    """Decode with this step's KV write folded in. q3 [B, H, hd]; k_new,
+    v_new [B, KH*hd] (cast to the cache dtype); write_flat [B] int32 flat
+    slot ``blk * bs + pos`` (outside ``[0, nb*bs)``: dropped); kv_lens
+    include the new row. Updates ``kv_pages`` in place; returns
+    [B, H, hd]."""
+    if not q3.is_cuda:
+        return paged_attention_decode_write_plain(
+            q3, kv_pages, block_tables, kv_lens, layer, k_new, v_new,
+            write_flat, scale=scale, window=window, softcap=softcap,
+        )
+    _check(q3, 3, kv_pages, block_tables, kv_lens, layer,
+           extra=(("write_flat", write_flat),))
+    B, H, hd = q3.shape
+    _, nb, _, bs, lanes = kv_pages.shape
+    k_new = k_new.to(kv_pages.dtype).contiguous()
+    v_new = v_new.to(kv_pages.dtype).contiguous()
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        if tuple(t.shape) != (B, lanes) or t.device != q3.device:
+            raise ValueError(f"{name} must be [{B}, {lanes}] on {q3.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    from ._build import load
+
+    lib = load()
+    out = torch.empty_like(q3)
+    rc = lib.pst_paged_decode_write(
+        _DTYPES[q3.dtype], q3.data_ptr(), kv_pages.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(), write_flat.data_ptr(),
+        block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+        B, H, lanes // hd, hd, nb, bs, block_tables.shape[1], int(layer),
+        int(window), float(scale), float(softcap),
+        torch.cuda.current_stream(q3.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"paged decode-write kernel failed: cudaError {rc}")
+    launch_counts["decode_write"] += 1
     return out
 
 

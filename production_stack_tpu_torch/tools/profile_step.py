@@ -1,9 +1,12 @@
 """Where one whole-model step's time goes on the GPU.
 
     python -m production_stack_tpu_torch.tools.profile_step \
-        [--model llama-3-8b] [--batch 8] [--ctx 4096] [--prefill 512]
+        [--model llama-3-8b] [--batch 8] [--ctx 4096] [--prefill 512] \
+        [--quantization int4]
 
-Builds the model with random weights on the card, then for a decode step
+Builds the model with random weights on the card (quantized on the card
+with ``--quantization``; ``PST_FUSED_KV_WRITE=1`` in the environment
+selects the fused decode-write kernel), then for a decode step
 (``--batch`` rows at position ``--ctx - 1``) and a fresh prefill chunk of
 ``--prefill`` tokens, through the CUDA kernels: the host wall time per
 step (synchronised), the device time per step under ``torch.profiler``
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import time
 from typing import Dict, List
@@ -113,6 +117,7 @@ def main(argv=None) -> None:
     p.add_argument("--block-size", type=int, default=32)
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--top", type=int, default=12)
+    p.add_argument("--quantization", choices=("int8", "int4"), default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA GPU")
@@ -120,7 +125,7 @@ def main(argv=None) -> None:
     model = Llama(get_model_config(args.model))
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    params = model.init_params(gen, dev)
+    params = model.init_params(gen, dev, quantization=args.quantization)
     cache, decode, prefill = step_inputs(model, args.batch, args.ctx,
                                          args.prefill, args.block_size, dev)
     card = subprocess.run(
@@ -128,7 +133,9 @@ def main(argv=None) -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    result = {"card": card, "model": args.model}
+    result = {"card": card, "model": args.model,
+              "quantization": args.quantization,
+              "fused_kv_write": os.environ.get("PST_FUSED_KV_WRITE") == "1"}
     for name, batch in (("decode", decode), ("prefill", prefill)):
         r = profile(lambda: model.forward(params, *batch, cache,
                                           attn_impl="cuda"),

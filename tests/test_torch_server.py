@@ -98,12 +98,14 @@ def test_bad_requests_are_refused(served):
 def test_main_defaults_to_the_gpu():
     args = parse_engine_args(["--model", "tiny-llama-debug"])
     assert engine_config_from_args(args).device == "cuda"
+    assert engine_config_from_args(args).quantization is None
     args = parse_engine_args(["--device", "cpu", "--max-model-len", "128",
                               "--block-size", "8", "--num-kv-blocks", "32",
-                              "--max-num-seqs", "4", "--port", "0"])
+                              "--max-num-seqs", "4", "--port", "0",
+                              "--quantization", "int4"])
     cfg = engine_config_from_args(args)
     assert (cfg.device, cfg.max_model_len, cfg.block_size, cfg.num_kv_blocks,
-            cfg.max_num_seqs) == ("cpu", 128, 8, 32, 4)
+            cfg.max_num_seqs, cfg.quantization) == ("cpu", 128, 8, 32, 4, "int4")
 
 
 def test_failed_engine_step_answers_500_and_unhealthy():
