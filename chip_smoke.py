@@ -10,14 +10,19 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    ops/csrc`` (one nvcc per source, in parallel) and the build time
    printed.
 2. Each kernel against its plain PyTorch version: the attention kernels
-   at Llama-3-8B attention shapes (H=32, KH=8, hd=128, bs=32) in bf16, plus
+   at Llama-3-8B attention shapes (H=32, KH=8, hd=128, bs=32) in bf16 (the
+   wgmma prefill kernel also at every head-group size with a window that
+   starts mid-page and a softcap, a ragged T, three sequences at different
+   starts with a kv_len 0 row, T=2048 fresh and T=512 at start 3584), plus
    small fp32 cases with a sliding window and a softcap and the other
    head-group sizes; the decode-write kernel's cache must equal its plain
    version's bit for bit; the W4A16 int4 kernel at every Llama-3-8B
-   projection shape (decode and prefill rows) in bf16 and at small shapes
-   in fp32 against float64. Negative controls show the bf16 checks reject
-   a decode missing a key and an int4 product with swapped nibbles; on
-   CUDA tensors a wrapper refuses what its kernel does not take.
+   projection shape with decode rows and N in {17, 64, 300, 512, 2048}
+   (the wgmma route), at a small dout that is not a multiple of 128, and
+   at small shapes in fp32 against float64. Negative controls show the
+   bf16 checks reject a decode missing a key, a prefill whose rows each
+   miss one key and an int4 product with swapped nibbles; on CUDA tensors
+   a wrapper refuses what its kernel does not take.
 3. The full-width 32-layer Llama-3-8B (random bf16 weights from a seed):
    one 512-token prefill and 8 decode steps through the kernels and again
    through the gather path; the logits must agree. A decode step, a
@@ -36,7 +41,9 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    counters must grow.
 5. Times of each kernel at the slice's shapes beside its plain version, a
    PyTorch call as a yardstick where one computes the same function, and
-   its bound.
+   its bound: prefill at T=512 fresh, T=512 at start 3584 and T=2048
+   fresh; the int4 wgmma route at N=512 for the four projection shapes and
+   at N=2048; the int4 decode route at N=8.
 
 The line before the last is a JSON ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the
@@ -109,7 +116,8 @@ KERNELS = {
         replaces="production_stack_tpu/ops/paged_attention_pallas.py:218",
     ),
     "prefill": dict(
-        name="paged_attention_prefill", route="cuda", source=SOURCE,
+        name="paged_attention_prefill", route="cuda",
+        source="production_stack_tpu_torch/ops/csrc/prefill_wgmma.cu",
         replaces="production_stack_tpu/ops/paged_attention_pallas.py:430",
     ),
     "decode_write": dict(
@@ -121,7 +129,15 @@ KERNELS = {
         source="production_stack_tpu_torch/ops/csrc/int4_matmul.cu",
         replaces="production_stack_tpu/ops/int4_matmul.py:73",
     ),
+    "int4_wgmma": dict(
+        name="int4_matmul_wgmma", route="cuda",
+        source="production_stack_tpu_torch/ops/csrc/int4_matmul.cu",
+        replaces="production_stack_tpu/ops/int4_matmul.py:73",
+    ),
 }
+# Which launch counter of the served run belongs to each row: the int4
+# wrapper's two bf16 routes are two kernels.
+ROUTE_OF = {"prefill": "prefill_wgmma", "int4": "mma", "int4_wgmma": "wgmma"}
 max_err = {k: 0.0 for k in KERNELS}
 
 # Llama-3-8B projections: (din, dout) of wq/wo, wk/wv, w_gate/w_up, w_down.
@@ -255,13 +271,45 @@ def phase_kernels() -> None:
         f"tol {ratio:.3f}")
     check(not ok, "the bf16 row check passes a decode that drops a key")
 
-    # Prefill, bf16: T=512 fresh, T=512 continuing at 1000, T=300 ragged.
-    for T, start in ((512, 0), (512, 1000), (300, 77)):
+    # Prefill, bf16 (the wgmma kernel): T=512 fresh, T=512 continuing at
+    # 1000 and at 3584, T=300 ragged, T=2048 fresh.
+    for T, start in ((512, 0), (512, 1000), (512, 3584), (300, 77),
+                     (2048, 0)):
         q, cache, tables, kl, st = make_case(
             gen, B=2, T=T, kv_lens=[start + T, start + T],
             starts=[start, start])
         got, ref = run_prefill(q, cache, tables, kl, st, 1)
         compare("prefill", got, ref, f"prefill bf16 B=2 T={T} start={start}")
+        if T == 512 and start == 0:
+            # The check has teeth: the plain version with every row's last
+            # key dropped (each row one position earlier) fails it, on the
+            # rows that keep a key.
+            wrong = pac.paged_attention_prefill_plain(
+                q, cache, tables, kl, st - 1, 1, scale=SCALE)
+            ok, ratio, _ = bf16_row_check(got[:, 1:], wrong[:, 1:])
+            log(f"  a prefill whose rows each miss their last key: worst err "
+                f"/ row tol {ratio:.3f}")
+            check(not ok, "the bf16 row check passes a prefill that drops a key")
+    # Three sequences at different starts, the middle one with kv_len 0:
+    # its rows see no key and must be exactly zero.
+    q, cache, tables, kl, st = make_case(
+        gen, B=3, T=100, kv_lens=[100, 0, 1100], starts=[0, 300, 1000])
+    got, ref = run_prefill(q, cache, tables, kl, st, 1)
+    check(bool((got[1] == 0).all()), "prefill: kv_len 0 rows must be zeros")
+    compare("prefill", got, ref,
+            "prefill bf16 B=3 T=100 starts=[0, 300, 1000] kv_lens=[100, 0, "
+            "1100]")
+    # Every head-group size, with a window that starts mid-page and a
+    # softcap.
+    for h, kh in ((8, 8), (16, 8), (H, KH), (16, 2)):
+        q, cache, tables, kl, st = make_case(
+            gen, B=2, T=70, kv_lens=[270, 70], starts=[200, 0], h=h, kh=kh)
+        got, ref = run_prefill(q, cache, tables, kl, st, 0, window=45,
+                               softcap=30.0)
+        compare("prefill", got, ref,
+                f"prefill bf16 G={h // kh} T=70 window=45 softcap=30")
+    check(pac.route_counts["prefill_simt"] == 0,
+          "a bf16 prefill took the fp32 kernel")
 
     # fp32 with a window that starts mid-page and a softcap, and every head
     # group size the kernels are compiled for.
@@ -366,28 +414,41 @@ def int4_case(gen, N, din, dout, dtype=torch.bfloat16):
 def phase_int4_kernels() -> None:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(777)
-    # bf16 (tensor-core route): every projection shape at 8 decode rows, one
-    # row, a 512-token prefill chunk, a ragged 300-row chunk.
-    cases = [(8, din, dout) for din, dout in INT4_SHAPES]
-    cases += [(1, 4096, 1024), (512, 4096, 14336), (300, 14336, 4096)]
-    for N, din, dout in cases:
-        x, packed, scales = int4_case(gen, N, din, dout)
-        got = i4.int4_matmul(x, packed, scales)
-        ref = i4.int4_matmul_plain(x, packed, scales)
-        torch.cuda.synchronize()
-        check(got.dtype == torch.float32 and got.shape == (N, dout),
-              f"int4: output {got.dtype} {tuple(got.shape)}")
-        compare("int4", got, ref, f"int4 bf16 N={N} din={din} dout={dout}",
-                rows=True)
-    # The check has teeth: a plain version with the two nibble planes of
-    # every byte swapped fails it.
-    x, packed, scales = int4_case(gen, 8, 4096, 4096)
-    ref = i4.int4_matmul_plain(x, packed, scales)
+    # bf16 (tensor-core routes): every projection shape at 8 decode rows
+    # (int4_mma_kernel<1>) and at 17, 64, 300, 512 and 2048 rows (the wgmma
+    # kernel); one row; a small dout that is not a multiple of 128.
+    cases = [(din, dout, (8, 17, 64, 300, 512, 2048)) for din, dout in INT4_SHAPES]
+    cases += [(4096, 1024, (1,)), (256, 208, (40, 300))]
+    for din, dout, rows in cases:
+        w = torch.randn((din, dout), generator=gen, device=DEV) * 0.02
+        packed, scales = quantize_leaf_int4(w)
+        del w
+        for N in rows:
+            x = torch.randn((N, din), generator=gen, device=DEV).bfloat16()
+            route = i4.route(x, packed, scales)
+            check(route == ("wgmma" if N > 16 else "mma"),
+                  f"int4 N={N}: route {route}")
+            got = i4.int4_matmul(x, packed, scales)
+            ref = i4.int4_matmul_plain(x, packed, scales)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.float32 and got.shape == (N, dout),
+                  f"int4: output {got.dtype} {tuple(got.shape)}")
+            compare("int4_wgmma" if route == "wgmma" else "int4", got, ref,
+                    f"int4 bf16 N={N} din={din} dout={dout} ({route})",
+                    rows=True)
+    # The check has teeth on both routes: the kernel's product against a
+    # plain version with the two nibble planes of every byte swapped fails.
+    x64 = torch.randn((64, 4096), generator=gen, device=DEV).bfloat16()
+    _, packed, scales = int4_case(gen, 1, 4096, 4096)
     swapped = torch.bitwise_left_shift(packed, 4) | ((packed >> 4) & 0x0F)
-    ok, ratio, _ = bf16_row_check(i4.int4_matmul_plain(x, swapped, scales), ref)
-    log(f"  an int4 product with swapped nibble planes: worst err / row tol "
-        f"{ratio:.3f}")
-    check(not ok, "the int4 row check passes swapped nibbles")
+    for x in (x64[:8].contiguous(), x64):
+        got = i4.int4_matmul(x, packed, scales)
+        ok, ratio, _ = bf16_row_check(got, i4.int4_matmul_plain(x, swapped,
+                                                                scales))
+        log(f"  int4 N={x.shape[0]} ({i4.route(x, packed, scales)}) against a "
+            f"product with swapped nibble planes: worst err / row tol "
+            f"{ratio:.3f}")
+        check(not ok, "the int4 row check passes swapped nibbles")
 
     # fp32 (CUDA-core route) against the float64 product: 128-row groups,
     # and a group-16 tiny shape; bf16 with group 8 and a ragged dout takes
@@ -506,6 +567,9 @@ def phase_model(model, params) -> dict:
                      "decode": cfg.num_layers * len(decode_tokens),
                      "decode_write": 0},
           f"launch counts {counts}: expected one per layer per step")
+    check(pac.route_counts == {"prefill_wgmma": cfg.num_layers,
+                               "prefill_simt": 0},
+          f"prefill routes {pac.route_counts}: expected the wgmma kernel")
     t0 = time.perf_counter()
     ref, _ = drive_model(model, params, "gather", prompt, decode_tokens)
     t_gather = time.perf_counter() - t0
@@ -650,6 +714,11 @@ def phase_int4_model(model):
     want = {"prefill": L, "decode": 0, "decode_write": L * n,
             "int4": 7 * L * (1 + n)}
     check(counts == want, f"launch counts {counts}, expected {want}")
+    # The 512-token prefill's projections take the wgmma kernel, the decode
+    # steps' (2 rows) int4_mma_kernel<1>.
+    routes = dict(i4.route_counts)
+    want = {"wgmma": 7 * L, "mma": 7 * L * n, "simt": 0}
+    check(routes == want, f"int4 routes {routes}, expected {want}")
     ref_params = dequantized_copy(params)
     ref, _ = drive_model(model, ref_params, "gather", prompt, decode_tokens)
     del ref_params
@@ -678,7 +747,7 @@ def phase_int4_model(model):
         torch.cuda.set_sync_debug_mode("default")
     check(bool(torch.isfinite(logits).all()), "int4 no-sync step: bad output")
     log("  int4 fused decode step ran with no host sync")
-    return params, {"int4": counts["int4"] // (1 + n),
+    return params, {"mma": routes["mma"] // n, "wgmma": routes["wgmma"],
                     "decode_write": counts["decode_write"] // n}
 
 
@@ -740,15 +809,20 @@ def launch_counts() -> dict:
     return {**pac.launch_counts, **i4.launch_counts}
 
 
+def route_counts() -> dict:
+    return {**pac.route_counts, **i4.route_counts}
+
+
 def reset_launch_counts() -> None:
     pac.reset_launch_counts()
     i4.reset_launch_counts()
 
 
 def phase_serving(params, label: str, quantization=None,
-                  used=("decode", "prefill")) -> dict:
-    """Four completions through the server; the kernels in ``used`` must
-    have launched while serving and no other kernel may have."""
+                  used=("decode", "prefill", "prefill_wgmma")) -> dict:
+    """Four completions through the server; the kernels in ``used`` (by
+    wrapper, and by route) must have launched while serving and no other
+    kernel may have. Returns both counts."""
     cfg = EngineConfig(model=MODEL, device=DEV.type, max_prefill_tokens=512,
                        num_decode_steps=4, max_num_seqs=16,
                        quantization=quantization)
@@ -806,7 +880,7 @@ def phase_serving(params, label: str, quantization=None,
         n_req += 2
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = launch_counts()
+        counts = {**launch_counts(), **route_counts()}
         check(engine.is_healthy(), f"engine failed: {engine.step_error}")
     finally:
         server.shutdown()
@@ -969,70 +1043,130 @@ def phase_times(per_step: dict, served: dict, card: str) -> list:
     log(f"  unfused pair (index_copy_ + paged_attention_decode): {pair_ms:.4f} ms")
     rows.append(r)
 
-    # Prefill: T=512 fresh, one sequence.
-    T = 512
-    q, cache, tables, kl, st = make_case(gen, B=1, T=T, kv_lens=[T],
-                                         starts=[0], layers=4)
-    ms = cuda_ms(lambda: pac.paged_attention_prefill(
-        q, cache, tables, kl, st, 1, scale=SCALE))
-    plain_ms = cuda_ms(lambda: pac.paged_attention_prefill_plain(
-        q, cache, tables, kl, st, 1, scale=SCALE), iters=5)
-    k, v = gathered_kv(cache, tables, 1, T)
-    qs = q.transpose(1, 2).contiguous()  # [1, H, T, HD]
-    lib_ms = cuda_ms(lambda: sdpa(qs, k, v, True))
-    ref = sdpa(qs, k, v, True).transpose(1, 2)
-    got = pac.paged_attention_prefill(q, cache, tables, kl, st, 1, scale=SCALE)
-    compare("prefill", got, ref, "prefill bf16 T=512 fresh vs sdpa")
-    start = 0
-    flops = 4 * H * HD * T * (start + T / 2)
-    nbytes = 2 * T * H * HD * 2 + (start + T) * 2 * KH * HD * 2
-    rows.append(_row("prefill", ms, plain_ms, lib_ms, nbytes, flops,
-                     PEAK_BF16_FLOPS, per_step["prefill_chunk"],
-                     served["prefill"], card,
-                     f"B=1 T={T} start={start} H={H} KH={KH} hd={HD} bs={BS} bf16"))
+    # Prefill, one sequence: a fresh 512-token chunk, a 512-token chunk at
+    # start 3584 (the last chunk of a 4096-token prompt) and a fresh
+    # 2048-token chunk (the engine's default max_prefill_tokens).
+    prefill = []
+    for T, start in ((512, 0), (512, 3584), (2048, 0)):
+        q, cache, tables, kl, st = make_case(gen, B=1, T=T, kv_lens=[start + T],
+                                             starts=[start], layers=4)
+        ms = cuda_ms(lambda: pac.paged_attention_prefill(
+            q, cache, tables, kl, st, 1, scale=SCALE))
+        plain_ms = cuda_ms(lambda: pac.paged_attention_prefill_plain(
+            q, cache, tables, kl, st, 1, scale=SCALE), iters=5)
+        k, v = gathered_kv(cache, tables, 1, start + T)
+        qs = q.transpose(1, 2).contiguous()  # [1, H, T, HD]
+        yard = sdpa_chunk(qs, k, v)
+        lib_ms = cuda_ms(lambda: yard(qs, k, v))
+        ref = yard(qs, k, v).transpose(1, 2)
+        got = pac.paged_attention_prefill(q, cache, tables, kl, st, 1,
+                                          scale=SCALE)
+        compare("prefill", got, ref,
+                f"prefill bf16 T={T} start={start} vs sdpa ({yard.__doc__})")
+        pairs = T * start + T * (T + 1) // 2  # (query, live key) pairs
+        nbytes = 2 * T * H * HD * 2 + (start + T) * 2 * KH * HD * 2
+        prefill.append(_row(
+            "prefill", ms, plain_ms, lib_ms, nbytes, 4 * H * HD * pairs,
+            PEAK_BF16_FLOPS, per_step["prefill_chunk"],
+            served[ROUTE_OF["prefill"]], card,
+            f"B=1 T={T} start={start} H={H} KH={KH} hd={HD} bs={BS} bf16",
+            library="torch.nn.functional.scaled_dot_product_attention, "
+                    + yard.__doc__))
+    rows.append(with_points(prefill))
     return rows
 
 
-def phase_int4_times(per_step: dict, served: dict, card: str) -> dict:
-    """The int4 kernel's row: w_gate's shape (4096 x 14336) with 8 decode
-    rows, and with a 512-token prefill chunk under ``prefill_*`` keys. Four
-    weights in turn (117 MB of packed weights, more than the 50 MB L2), as
-    a decode step finds each layer's weights cold. The yardstick is
-    torch.matmul on the weight dequantized to bf16 beforehand: it reads 4x
-    the bytes."""
+def sdpa_chunk(q, k, v):
+    """The yardstick for a chunk of T queries at the end of S keys: SDPA,
+    causal from the upper left when T == S, else lower-right causal (as a
+    CausalBias, or as an explicit boolean mask where the bias does not
+    combine with enable_gqa). Timing only, never on the path."""
+    T, S = q.shape[2], k.shape[2]
+    F = torch.nn.functional
+    if T == S:
+        def fresh(q, k, v):
+            """causal"""
+            return sdpa(q, k, v, True)
+        return fresh
+    from torch.nn.attention.bias import causal_lower_right
+
+    def bias(q, k, v):
+        """lower-right causal bias"""
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=causal_lower_right(T, S), scale=SCALE,
+            enable_gqa=True)
+    try:
+        bias(q, k, v)
+        return bias
+    except (RuntimeError, NotImplementedError, TypeError, ValueError) as e:
+        log(f"  SDPA's lower-right causal bias with enable_gqa: {e!r}")
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device).tril(S - T)
+
+    def explicit(q, k, v):
+        """lower-right causal boolean mask"""
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=SCALE, enable_gqa=True)
+    return explicit
+
+
+def with_points(rows: list) -> dict:
+    """The first row, with every row's shape and numbers under
+    ``points``."""
+    keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    main = dict(rows[0])
+    main["points"] = [{k: r[k] for k in keys} for r in rows]
+    return main
+
+
+def phase_int4_times(per_step: dict, served: dict, card: str) -> list:
+    """Rows of the int4 kernels: the decode route (int4_mma_kernel<1>) at
+    w_gate's shape (4096 x 14336) with 8 rows, and the wgmma route at 512
+    rows for the four projection shapes and at 2048 rows for w_gate. Four
+    weights of each shape in turn (117 MB of packed weights for w_gate,
+    more than the 50 MB L2), as a step finds each layer's weights cold. The
+    yardstick is torch.matmul on the weight dequantized to bf16 beforehand:
+    it reads 4x the bytes."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(98)
-    din, dout = 4096, 14336
-    weights = [int4_case(gen, 1, din, dout)[1:] for _ in range(4)]
-    dense = [i4.dequant_int4(p, s, torch.bfloat16) for p, s in weights]
-    G = din // weights[0][1].shape[0]
-    rows = []
-    for N in (8, 512):
-        x = torch.randn((N, din), generator=gen, device=DEV).bfloat16()
-        turn = {"i": 0}
+    cases = {"int4": [(8, 4096, 14336)],
+             "int4_wgmma": [(512, 4096, 14336), (512, 4096, 4096),
+                            (512, 4096, 1024), (512, 14336, 4096),
+                            (2048, 4096, 14336)]}
+    out = []
+    for kind, shapes in cases.items():
+        rows = []
+        for N, din, dout in shapes:
+            weights = [int4_case(gen, 1, din, dout)[1:] for _ in range(4)]
+            dense = [i4.dequant_int4(p, s, torch.bfloat16) for p, s in weights]
+            G = din // weights[0][1].shape[0]
+            x = torch.randn((N, din), generator=gen, device=DEV).bfloat16()
+            check(i4.route(x, *weights[0]) == ROUTE_OF[kind],
+                  f"int4 N={N}: not the {ROUTE_OF[kind]} route")
+            turn = {"i": 0}
 
-        def nxt():
-            turn["i"] = (turn["i"] + 1) % 4
-            return turn["i"]
+            def nxt():
+                turn["i"] = (turn["i"] + 1) % 4
+                return turn["i"]
 
-        ms = cuda_ms(lambda: i4.int4_matmul(x, *weights[nxt()]))
-        plain_ms = cuda_ms(lambda: i4.int4_matmul_plain(x, *weights[nxt()]))
-        lib_ms = cuda_ms(lambda: torch.matmul(x, dense[nxt()]))
-        got = i4.int4_matmul(x, *weights[0])
-        compare("int4", got, torch.matmul(x.float(), dense[0].float()),
-                f"int4 bf16 N={N} vs fp32 product of the bf16-dequantized "
-                "weight", rows=True)
-        nbytes = din * dout // 2 + (din // G) * dout * 4 + N * din * 2 + N * dout * 4
-        rows.append(_row("int4", ms, plain_ms, lib_ms, nbytes,
-                         2 * N * din * dout, PEAK_BF16_FLOPS,
-                         per_step["int4"], served["int4"], card,
-                         f"N={N} din={din} dout={dout} G={G} bf16 x",
-                         library="torch.matmul on the weight dequantized to "
-                                 "bf16 beforehand (reads 4x the bytes)"))
-    row, prefill = rows
-    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape"):
-        row[f"prefill_{k}"] = prefill[k]
-    return row
+            ms = cuda_ms(lambda: i4.int4_matmul(x, *weights[nxt()]))
+            plain_ms = cuda_ms(lambda: i4.int4_matmul_plain(x, *weights[nxt()]),
+                               iters=5)
+            lib_ms = cuda_ms(lambda: torch.matmul(x, dense[nxt()]))
+            got = i4.int4_matmul(x, *weights[0])
+            compare(kind, got, torch.matmul(x.float(), dense[0].float()),
+                    f"int4 bf16 N={N} din={din} dout={dout} vs fp32 product "
+                    "of the bf16-dequantized weight", rows=True)
+            nbytes = (din * dout // 2 + (din // G) * dout * 4 + N * din * 2
+                      + N * dout * 4)
+            rows.append(_row(kind, ms, plain_ms, lib_ms, nbytes,
+                             2 * N * din * dout, PEAK_BF16_FLOPS,
+                             per_step[ROUTE_OF[kind]], served[ROUTE_OF[kind]],
+                             card, f"N={N} din={din} dout={dout} G={G} bf16 x",
+                             library="torch.matmul on the weight dequantized "
+                                     "to bf16 beforehand (reads 4x the bytes)"))
+            del weights, dense
+        out.append(with_points(rows) if len(rows) > 1 else rows[0])
+    return out
 
 
 def _row(kind, ms, plain_ms, lib_ms, nbytes, flops, peak, per_step, launches,
@@ -1080,15 +1214,17 @@ def main() -> None:
     steps.update(phase_step_times(model, q_params, tag="int4_", impls=("cuda",)))
     per_step["decode_write_step"] = q_per_step["decode_write"]
     torch.cuda.empty_cache()
-    q_served = phase_serving(q_params, "4b", quantization="int4",
-                             used=("decode_write", "int4", "prefill"))
+    q_served = phase_serving(
+        q_params, "4b", quantization="int4",
+        used=("decode_write", "int4", "prefill", "prefill_wgmma", "wgmma",
+              "mma"))
     del q_params
     gc.collect()
     torch.cuda.empty_cache()
 
     rows = phase_times(per_step, {**served, "decode_write": q_served["decode_write"]},
                        card)
-    rows.append(phase_int4_times(q_per_step, q_served, card))
+    rows += phase_int4_times(q_per_step, q_served, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows, "steps": steps}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,11 +12,17 @@ module fine).
 Kernels, each replacing a Pallas TPU kernel of the JAX package:
 
 - ``paged_attention.cu``: ``paged_decode_kernel`` (``_decode_kernel``),
-  ``paged_decode_write_kernel`` (``_decode_write_kernel``) and
+  ``paged_decode_write_kernel`` (``_decode_write_kernel``) and, for fp32,
   ``paged_prefill_kernel`` (``_prefill_kernel``), all of
   ``production_stack_tpu/ops/paged_attention_pallas.py``;
-- ``int4_matmul.cu``: ``int4_mma_kernel`` and ``int4_simt_kernel``
-  (``production_stack_tpu/ops/int4_matmul.py::_kernel``).
+- ``prefill_wgmma.cu``: ``paged_prefill_wgmma_kernel``, ``_prefill_kernel``
+  for bf16 on the tensor cores (wgmma);
+- ``int4_matmul.cu``: ``int4_wgmma_kernel`` (bf16, more than 16 rows),
+  ``int4_mma_kernel`` (bf16 decode rows) and ``int4_simt_kernel`` (fp32,
+  small groups), all ``production_stack_tpu/ops/int4_matmul.py::_kernel``.
+
+``sm90.cuh`` holds the wgmma, descriptor, cp.async and barrier helpers
+the two wgmma kernels share.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ from ..logging_utils import init_logger
 logger = init_logger(__name__)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("paged_attention.cu", "int4_matmul.cu")
+SOURCES = ("paged_attention.cu", "prefill_wgmma.cu", "int4_matmul.cu")
+HEADERS = ("sm90.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -69,7 +76,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -142,6 +149,8 @@ def load() -> ctypes.CDLL:
             _F, _F, _P,  # scale, softcap, stream
         ]
         lib.pst_paged_prefill.restype = _I
+        lib.pst_paged_prefill_wgmma.argtypes = lib.pst_paged_prefill.argtypes[1:]
+        lib.pst_paged_prefill_wgmma.restype = _I
         lib.pst_paged_decode_write.argtypes = [
             _I, _P, _P, _P, _P, _P,  # dtype, q, cache, k_new, v_new, write_flat
             _P, _P, _P,  # tables, kv_lens, out
@@ -151,9 +160,10 @@ def load() -> ctypes.CDLL:
         ]
         lib.pst_paged_decode_write.restype = _I
         lib.pst_int4_matmul.argtypes = [
-            _I, _P, _P, _P, _P, _P,  # dtype, x, packed, scales, out, ws
+            _I, _I, _P, _P, _P,  # route, dtype, x, packed, scales
+            _P, _P, _P,  # colmap, out, ws
             _I, _I, _I, _I,  # N, din, dout, G
-            _I, _I, _P,  # splits, per_split, stream
+            _I, _I, _I, _I, _P,  # grid x, grid y, splits, per_split, stream
         ]
         lib.pst_int4_matmul.restype = _I
         _lib = lib

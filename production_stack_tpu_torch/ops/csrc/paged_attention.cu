@@ -9,7 +9,8 @@
 //                                 this step's K/V row written into its page
 //                                 first; PST_FUSED_KV_WRITE=1)
 //   paged_prefill_kernel       <- _prefill_kernel (chunked-prefill flash
-//                                 attention)
+//                                 attention), fp32 only; bf16 prefill runs
+//                                 on the tensor cores (prefill_wgmma.cu)
 //
 // Layouts (identical to the JAX package):
 //   cache        [L, nb, 2, bs, KH*HD]  page = K rows (index 0) then V rows
@@ -35,10 +36,10 @@
 //             SMs work and the kernel sits well below the byte bound.
 //             decode-write adds one K and one V row per (sequence, kv
 //             head) to that traffic, and saves the separate scatter launch.
-//   prefill - operations: 4*H*HD*T*(start+T/2) FLOP per layer. This first
-//             version runs the two products on the CUDA cores in fp32
-//             (no wgmma / mma.sync yet), so it is far from the tensor-core
-//             bound; a wgmma + TMA version is later work.
+//   prefill - operations: 4*H*HD*T*(start+T/2) FLOP per layer. This
+//             kernel runs the two products on the CUDA cores in fp32; it
+//             serves fp32 caches (tests and debug models), whose products
+//             the bf16 tensor cores would round.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -670,8 +671,7 @@ extern "C" int pst_paged_prefill(int dtype, const void* q, const void* cache,
     case 8: PST_PREFILL(TYPE, 8);   \
     default: return (int)cudaErrorInvalidValue; \
   }
-  if (dtype == 0) { PST_PREFILL_G(float) }
-  if (dtype == 1) { PST_PREFILL_G(__nv_bfloat16) }
+  if (dtype == 0) { PST_PREFILL_G(float) }  // bf16: prefill_wgmma.cu
 #undef PST_PREFILL_G
 #undef PST_PREFILL
   return (int)cudaErrorInvalidValue;

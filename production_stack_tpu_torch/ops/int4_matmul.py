@@ -16,32 +16,73 @@ Layouts (the JAX package's, ``quantize_leaf_int4``):
   scales  [din/G, dout]   fp32, one per G-row group and output column
 Returns [N, dout] fp32.
 
-``launch_counts["int4"]`` counts kernel launches.
+``launch_counts["int4"]`` counts kernel launches, ``route_counts`` splits
+them by kernel. ``route`` picks the kernel and ``plan`` its grid; the
+wgmma kernel's fragment-row -> output-column map (``fragment_columns``) is
+built here and handed to it, so the CPU tests reach all three.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, List, NamedTuple
 
 import torch
 
 launch_counts: Dict[str, int] = {"int4": 0}
+route_counts: Dict[str, int] = {"wgmma": 0, "mma": 0, "simt": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Block tiles of the kernel (csrc/int4_matmul.cu): output columns per block,
-# and rows per block for each route.
-_BLOCK_COLS = 128
-_MMA_ROWS_SMALL, _MMA_ROWS_LARGE, _SIMT_ROWS = 16, 64, 8
-# Blocks the kernel aims to start: four per SM of an H100 (132 SMs). Measured
-# at Llama-3-8B's decode shapes, two per SM left the byte stream short of
-# loads in flight, and eight added more split-sum traffic than they saved.
+_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}
+# Block tiles of the kernels (csrc/int4_matmul.cu): (rows of x, output
+# columns) per block.
+_TILES = {"wgmma": (128, 256), "mma": (16, 128), "simt": (8, 128)}
+_MMA_MAX_ROWS = 16  # N at or below which bf16 stays on int4_mma_kernel<1>
+_WGMMA_CHUNK = 128  # contraction rows the wgmma kernel stages at a time
+# Blocks the mma.sync and CUDA-core routes aim to start: four per SM of an
+# H100 (132 SMs). Measured at Llama-3-8B's decode shapes, two per SM left
+# the byte stream short of loads in flight, and eight added more split-sum
+# traffic than they saved.
 _TARGET_BLOCKS = 528
+# The wgmma route runs one block per SM (registers): it splits the
+# contraction only when its output tiles leave SMs idle.
+_WGMMA_TARGET_BLOCKS = 132
+
+
+class Plan(NamedTuple):
+    grid: tuple  # (x, y, z = splits) of the launch
+    splits: int
+    per_split: int  # groups of the contraction per split
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, route_counts):
+        for k in counts:
+            counts[k] = 0
+
+
+def fragment_columns() -> List[List[int]]:
+    """The wgmma route's map from A-fragment rows to output columns. Entry
+    ``t`` is the pair of columns (within its warpgroup's 64, one M tile)
+    that thread ``t`` of a warpgroup holds as fragment rows r and r + 8,
+    where r = 16 * (t // 32) + (t % 32) // 4. The four threads of a quad
+    (same r) share their columns, and a thread's two are adjacent: one
+    16-bit load of a packed row fills both registers."""
+    cols = []
+    for t in range(128):
+        quad = 8 * (t // 32) + (t % 32) // 4
+        cols.append([2 * quad, 2 * quad + 1])
+    return cols
+
+
+_COLMAPS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _colmap(device: torch.device) -> torch.Tensor:
+    if device not in _COLMAPS:
+        _COLMAPS[device] = torch.tensor(fragment_columns(), dtype=torch.int32,
+                                        device=device)
+    return _COLMAPS[device]
 
 
 def dequant_int4(packed: torch.Tensor, scales: torch.Tensor,
@@ -109,19 +150,44 @@ def _check(x, packed, scales) -> int:
     return din // groups
 
 
-def _plan(N: int, din: int, dout: int, G: int, mma: bool):
-    """(splits of the contraction, groups per split): enough blocks for the
-    card at decode shapes, where the output tiles alone leave most SMs
-    idle. Splits end on group boundaries."""
-    if mma:
-        rows = _MMA_ROWS_SMALL if N <= _MMA_ROWS_SMALL else _MMA_ROWS_LARGE
-    else:
-        rows = _SIMT_ROWS
-    tiles = math.ceil(dout / _BLOCK_COLS) * math.ceil(N / rows)
+def route(x: torch.Tensor, packed: torch.Tensor,
+          scales: torch.Tensor) -> str:
+    """The kernel for a call: ``"wgmma"`` (bf16 x, G % 16 == 0, more than
+    16 rows, dout % 16 == 0 and 16-byte aligned operands, as cp.async
+    needs, and G dividing or a multiple of the kernel's 128-row chunk),
+    ``"mma"`` (the other bf16 calls with G % 16 == 0: decode rows) or
+    ``"simt"`` (fp32 x, small groups)."""
+    G = x.shape[1] // scales.shape[0]
+    if x.dtype != torch.bfloat16 or G % 16:
+        return "simt"
+    N, dout = x.shape[0], packed.shape[1]
+    if (N > _MMA_MAX_ROWS and dout % 16 == 0
+            and (_WGMMA_CHUNK % G == 0 or G % _WGMMA_CHUNK == 0)
+            and all(t.data_ptr() % 16 == 0 for t in (x, packed, scales))):
+        return "wgmma"
+    return "mma"
+
+
+def plan(route_name: str, N: int, din: int, dout: int, G: int) -> Plan:
+    """The launch of a route: its grid and the split of the contraction.
+    Splits end on group boundaries and are only made where the output
+    tiles alone leave the card short of blocks."""
+    rows, cols = _TILES[route_name]
+    tiles_n, tiles_c = math.ceil(N / rows), math.ceil(dout / cols)
+    tiles = tiles_n * tiles_c
     groups = din // G
-    splits = min(groups, max(1, math.ceil(_TARGET_BLOCKS / tiles)))
+    if route_name == "wgmma":
+        want = _WGMMA_TARGET_BLOCKS // tiles
+    else:
+        want = math.ceil(_TARGET_BLOCKS / tiles)
+    splits = min(groups, max(1, want))
     per_split = math.ceil(groups / splits)
-    return math.ceil(groups / per_split), per_split
+    splits = math.ceil(groups / per_split)
+    if route_name == "wgmma":  # x-tiles fastest: they share a weight tile
+        grid = (tiles_n, tiles_c, splits)
+    else:
+        grid = (tiles_c, tiles_n, splits)
+    return Plan(grid, splits, per_split)
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
@@ -139,18 +205,23 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
     out = torch.empty((N, dout), dtype=torch.float32, device=x.device)
     if N == 0 or dout == 0:
         return out
-    mma = x.dtype == torch.bfloat16 and G % 16 == 0
-    splits, per_split = _plan(N, din, dout, G, mma)
+    name = route(x, packed, scales)
+    p = plan(name, N, din, dout, G)
     # Partial sums of each split; a second pass adds them in a fixed order,
     # so two runs give the same result.
-    ws = (torch.empty((splits, N, dout), dtype=torch.float32, device=x.device)
-          if splits > 1 else out)
+    ws = (torch.empty((p.splits, N, dout), dtype=torch.float32,
+                      device=x.device) if p.splits > 1 else out)
+    colmap = _colmap(x.device) if name == "wgmma" else None
     rc = lib.pst_int4_matmul(
-        _DTYPES[x.dtype], x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), N, din, dout, G, splits, per_split,
+        _ROUTES[name], _DTYPES[x.dtype], x.data_ptr(), packed.data_ptr(),
+        scales.data_ptr(), None if colmap is None else colmap.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), N, din, dout, G, p.grid[0],
+        p.grid[1], p.splits, p.per_split,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"int4 matmul kernel failed: cudaError {rc}")
+        raise RuntimeError(f"int4 matmul kernel ({name}) failed: "
+                           f"cudaError {rc}")
     launch_counts["int4"] += 1
+    route_counts[name] += 1
     return out

@@ -4,13 +4,16 @@
 ``_decode_kernel``, ``paged_attention_decode_write`` its
 ``_decode_write_kernel`` and ``paged_attention_prefill`` its
 ``_prefill_kernel`` (``production_stack_tpu/ops/paged_attention_pallas.py``);
-the kernels are in ``csrc/paged_attention.cu``. Each wrapper has a plain PyTorch version
+the kernels are in ``csrc/paged_attention.cu``, and bf16 prefill's in
+``csrc/prefill_wgmma.cu`` (tensor cores; ``prefill_route`` picks it by
+dtype). Each wrapper has a plain PyTorch version
 beside it (``*_plain``: gather + masked softmax, the same function), which
 it runs only for tensors on the CPU. On a CUDA tensor a wrapper launches
 its kernel or raises — there is no fallback.
 
 ``launch_counts`` counts kernel launches per wrapper, so a run can show
-that its path went through the kernels.
+that its path went through the kernels; ``route_counts`` splits the
+prefill launches by kernel.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from .attention import window_eff
 
 launch_counts: Dict[str, int] = {"decode": 0, "decode_write": 0,
                                  "prefill": 0}
+route_counts: Dict[str, int] = {"prefill_wgmma": 0, "prefill_simt": 0}
 
 HEAD_DIM = 128  # the head dim the kernels are compiled for
 GROUPS = (1, 2, 4, 8)  # query heads per kv head the kernels are compiled for
@@ -30,8 +34,20 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, route_counts):
+        for k in counts:
+            counts[k] = 0
+
+
+def prefill_route(dtype: torch.dtype) -> str:
+    """The prefill kernel for a q/cache dtype: ``"wgmma"``
+    (``paged_prefill_wgmma_kernel``, bf16 on the tensor cores) or
+    ``"simt"`` (``paged_prefill_kernel``, fp32 on the CUDA cores)."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "simt"
+    raise TypeError(f"no prefill kernel for {dtype}")
 
 
 def _plain(q, kv_pages, block_tables, kv_lens, q_positions, layer, scale,
@@ -234,14 +250,19 @@ def paged_attention_prefill(q, kv_pages, block_tables, kv_lens, starts,
     B, T, H, hd = q.shape
     _, nb, _, bs, lanes = kv_pages.shape
     out = torch.empty_like(q)
-    rc = lib.pst_paged_prefill(
-        _DTYPES[q.dtype], q.data_ptr(), kv_pages.data_ptr(),
-        block_tables.data_ptr(), kv_lens.data_ptr(), starts.data_ptr(),
-        out.data_ptr(), B, T, H, lanes // hd, hd, nb, bs,
-        block_tables.shape[1], int(layer), int(window), float(scale),
-        float(softcap), torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    route = prefill_route(q.dtype)
+    args = (q.data_ptr(), kv_pages.data_ptr(), block_tables.data_ptr(),
+            kv_lens.data_ptr(), starts.data_ptr(), out.data_ptr(), B, T, H,
+            lanes // hd, hd, nb, bs, block_tables.shape[1], int(layer),
+            int(window), float(scale), float(softcap),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if route == "wgmma":
+        rc = lib.pst_paged_prefill_wgmma(*args)
+    else:
+        rc = lib.pst_paged_prefill(_DTYPES[q.dtype], *args)
     if rc != 0:
-        raise RuntimeError(f"paged prefill kernel failed: cudaError {rc}")
+        raise RuntimeError(f"paged prefill kernel ({route}) failed: "
+                           f"cudaError {rc}")
     launch_counts["prefill"] += 1
+    route_counts[f"prefill_{route}"] += 1
     return out
