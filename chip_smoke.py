@@ -16,7 +16,12 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    starts with a kv_len 0 row, T=2048 fresh and T=512 at start 3584), plus
    small fp32 cases with a sliding window and a softcap and the other
    head-group sizes; the decode-write kernel's cache must equal its plain
-   version's bit for bit; the W4A16 int4 kernel at every Llama-3-8B
+   version's bit for bit; the split-KV decode and decode-write kernels in
+   bf16 at every head-group size with a window that starts mid-page and a
+   softcap, over ragged lengths (0 to 4096: short rows get empty splits),
+   at one sequence of 4096 (the most splits), with a write 5 positions
+   before a row's end and a dropped write, and two launches bit for bit
+   equal; the W4A16 int4 kernel at every Llama-3-8B
    projection shape with decode rows and N in {17, 64, 300, 512, 2048}
    (the wgmma route), at a small dout that is not a multiple of 128, and
    at small shapes in fp32 against float64. Negative controls show the
@@ -25,7 +30,8 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    a wrapper refuses what its kernel does not take.
 3. The full-width 32-layer Llama-3-8B (random bf16 weights from a seed):
    one 512-token prefill and 8 decode steps through the kernels and again
-   through the gather path; the logits must agree. A decode step, a
+   through the gather path; the logits must agree, and every decode
+   launch must have taken the split-KV kernel. A decode step, a
    sampled draw and a prefill chunk then run under CUDA's sync debug mode
    set to raise (no host sync), and the unembed is held to a float32
    product.
@@ -41,7 +47,8 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    counters must grow.
 5. Times of each kernel at the slice's shapes beside its plain version, a
    PyTorch call as a yardstick where one computes the same function, and
-   its bound: prefill at T=512 fresh, T=512 at start 3584 and T=2048
+   its bound: decode at B=8, 1 and 64 at kv_len 4096 and at B=64 x 512
+   (with the split count of each), decode-write at B=8 x 4096; prefill at T=512 fresh, T=512 at start 3584 and T=2048
    fresh; the int4 wgmma route at N=512 for the four projection shapes and
    at N=2048; the int4 decode route at N=8.
 
@@ -109,7 +116,7 @@ INT4_FP32_REL = 1e-5
 # Logits of 32 bf16 layers computed in a different order (kernel vs gather).
 MODEL_REL_ATOL = 5e-2
 
-SOURCE = "production_stack_tpu_torch/ops/csrc/paged_attention.cu"
+SOURCE = "production_stack_tpu_torch/ops/csrc/decode_splitkv.cu"
 KERNELS = {
     "decode": dict(
         name="paged_attention_decode", route="cuda", source=SOURCE,
@@ -135,9 +142,11 @@ KERNELS = {
         replaces="production_stack_tpu/ops/int4_matmul.py:73",
     ),
 }
-# Which launch counter of the served run belongs to each row: the int4
-# wrapper's two bf16 routes are two kernels.
-ROUTE_OF = {"prefill": "prefill_wgmma", "int4": "mma", "int4_wgmma": "wgmma"}
+# Which launch counter of the served run belongs to each row: the route
+# of the kernel the row times (the int4 wrapper's two bf16 routes are two
+# kernels).
+ROUTE_OF = {"prefill": "prefill_wgmma", "int4": "mma", "int4_wgmma": "wgmma",
+            "decode": "decode_split", "decode_write": "decode_write_split"}
 max_err = {k: 0.0 for k in KERNELS}
 
 # Llama-3-8B projections: (din, dout) of wq/wo, wk/wv, w_gate/w_up, w_down.
@@ -270,6 +279,26 @@ def phase_kernels() -> None:
     log(f"  a decode that drops the last of 4096/4000 keys: worst err / row "
         f"tol {ratio:.3f}")
     check(not ok, "the bf16 row check passes a decode that drops a key")
+    check(torch.equal(got, pac.paged_attention_decode(q[:, 0], cache, tables,
+                                                      kl, 1, scale=SCALE)),
+          "decode: two launches on the same inputs differ")
+    # One sequence at 4096 (the most splits the plan gives), and every
+    # head-group size with a window that starts mid-page and a softcap,
+    # over the same ragged lengths (short rows get empty splits).
+    q, cache, tables, kl, _ = make_case(gen, B=1, T=1, kv_lens=[4096])
+    got, ref = run_decode(q[:, 0], cache, tables, kl, 1)
+    compare("decode", got, ref, f"decode bf16 B=1 kv_len 4096 ({splits_of(q, cache, tables)} splits)")
+    for h, kh in ((8, 8), (16, 8), (H, KH), (16, 2)):
+        q, cache, tables, kl, _ = make_case(gen, B=8, T=1, kv_lens=lens,
+                                            h=h, kh=kh)
+        got, ref = run_decode(q[:, 0], cache, tables, kl, 0, window=45,
+                              softcap=30.0)
+        check(bool((got[0] == 0).all()), "decode: kv_len 0 row must be zeros")
+        compare("decode", got, ref,
+                f"decode bf16 G={h // kh} window=45 softcap=30 "
+                f"({splits_of(q, cache, tables)} splits)")
+    check(pac.route_counts["decode_simt"] == 0,
+          "a bf16 decode took the fp32 kernel")
 
     # Prefill, bf16 (the wgmma kernel): T=512 fresh, T=512 continuing at
     # 1000 and at 3584, T=300 ragged, T=2048 fresh.
@@ -357,6 +386,13 @@ def write_slots(tables, positions, drop_rows, nb):
     return torch.tensor(slots, dtype=torch.int32, device=DEV)
 
 
+def splits_of(q, cache, tables) -> int:
+    """The split count the decode wrapper's plan gives these inputs."""
+    _, _, _, bs, lanes = cache.shape
+    return pac.decode_plan(q.shape[0], lanes // HD, tables.shape[1], bs,
+                           torch.cuda.get_device_properties(0).multi_processor_count)
+
+
 def run_decode_write(q3, cache, tables, lens, layer, k_new, v_new, wf, **kw):
     """Kernel and plain version, each on its own copy of the cache; the
     caches must come out bit for bit equal, and the rows must have landed."""
@@ -389,6 +425,40 @@ def phase_decode_write_kernels() -> None:
     compare("decode_write", got, ref,
             f"decode_write bf16 B=8 kv_lens={lens} (row 3 dropped): caches "
             "equal;")
+    again = pac.paged_attention_decode_write(
+        q[:, 0], cache.clone(), tables, kl, 1, k_new, v_new, wf, scale=SCALE)
+    check(torch.equal(got, again),
+          "decode_write: two launches on the same inputs differ")
+    # The ragged lengths of the decode checks (the kv_len 0 row drops its
+    # write, row 5 writes 5 positions before its end) at every head-group
+    # size with a window that starts mid-page and a softcap; one sequence
+    # at 4096 with the most splits.
+    lens = [0, 1, 31, 32, 33, 4096, 4000, 777]
+    for h, kh in ((8, 8), (16, 8), (H, KH), (16, 2)):
+        q, cache, tables, kl, _ = make_case(gen, B=8, T=1, kv_lens=lens,
+                                            h=h, kh=kh)
+        pos = [max(n - 1, 0) for n in lens]
+        pos[5] -= 5
+        wf = write_slots(tables, pos, [0], cache.shape[1])
+        k_new = torch.randn((8, kh * HD), generator=gen, device=DEV).bfloat16()
+        v_new = torch.randn((8, kh * HD), generator=gen, device=DEV).bfloat16()
+        got, ref = run_decode_write(q[:, 0], cache, tables, kl, 0, k_new,
+                                    v_new, wf, window=45, softcap=30.0)
+        check(bool((got[0] == 0).all()),
+              "decode_write: kv_len 0 row must be zeros")
+        compare("decode_write", got, ref,
+                f"decode_write bf16 G={h // kh} window=45 softcap=30 (row 0 "
+                f"dropped, {splits_of(q, cache, tables)} splits): caches equal;")
+    q, cache, tables, kl, _ = make_case(gen, B=1, T=1, kv_lens=[4096])
+    wf = write_slots(tables, [4095], [], cache.shape[1])
+    k_new = torch.randn((1, KH * HD), generator=gen, device=DEV).bfloat16()
+    v_new = torch.randn((1, KH * HD), generator=gen, device=DEV).bfloat16()
+    got, ref = run_decode_write(q[:, 0], cache, tables, kl, 1, k_new, v_new, wf)
+    compare("decode_write", got, ref,
+            f"decode_write bf16 B=1 kv_len 4096 ({splits_of(q, cache, tables)} "
+            "splits): caches equal;")
+    check(pac.route_counts["decode_write_simt"] == 0,
+          "a bf16 decode-write took the fp32 kernel")
     # fp32 with a window that starts mid-page and a softcap.
     lens = [50, 300, 1000, 7]
     q, cache, tables, kl, _ = make_case(gen, B=4, T=1, kv_lens=lens,
@@ -567,9 +637,12 @@ def phase_model(model, params) -> dict:
                      "decode": cfg.num_layers * len(decode_tokens),
                      "decode_write": 0},
           f"launch counts {counts}: expected one per layer per step")
-    check(pac.route_counts == {"prefill_wgmma": cfg.num_layers,
-                               "prefill_simt": 0},
-          f"prefill routes {pac.route_counts}: expected the wgmma kernel")
+    want = {k: 0 for k in pac.route_counts}
+    want.update(prefill_wgmma=cfg.num_layers,
+                decode_split=cfg.num_layers * len(decode_tokens))
+    check(pac.route_counts == want,
+          f"routes {pac.route_counts}: expected the wgmma prefill and the "
+          "split-KV decode")
     t0 = time.perf_counter()
     ref, _ = drive_model(model, params, "gather", prompt, decode_tokens)
     t_gather = time.perf_counter() - t0
@@ -719,6 +792,8 @@ def phase_int4_model(model):
     routes = dict(i4.route_counts)
     want = {"wgmma": 7 * L, "mma": 7 * L * n, "simt": 0}
     check(routes == want, f"int4 routes {routes}, expected {want}")
+    check(pac.route_counts["decode_write_split"] == L * n,
+          f"decode-write routes {pac.route_counts}: expected the split kernel")
     ref_params = dequantized_copy(params)
     ref, _ = drive_model(model, ref_params, "gather", prompt, decode_tokens)
     del ref_params
@@ -819,7 +894,8 @@ def reset_launch_counts() -> None:
 
 
 def phase_serving(params, label: str, quantization=None,
-                  used=("decode", "prefill", "prefill_wgmma")) -> dict:
+                  used=("decode", "decode_split", "prefill",
+                        "prefill_wgmma")) -> dict:
     """Four completions through the server; the kernels in ``used`` (by
     wrapper, and by route) must have launched while serving and no other
     kernel may have. Returns both counts."""
@@ -974,35 +1050,50 @@ def phase_times(per_step: dict, served: dict, card: str) -> list:
     gen.manual_seed(99)
     rows = []
 
-    # Decode: B=8, every row at kv_len 4096. Four layers of cache (537 MB),
-    # each launch reads another layer, so the 50 MB L2 never holds the KV.
+    # Decode: B=8, every row at kv_len 4096 (the profiled step's shape),
+    # then one interactive user (B=1) and a large batch (B=64) at 4096 and
+    # at 512. Four layers of cache (537 MB at B=8), each launch reads
+    # another layer, so the 50 MB L2 never holds the KV.
+    decode = []
+    for B, kvl in ((8, 4096), (1, 4096), (64, 4096), (64, 512)):
+        q, cache, tables, kl, _ = make_case(gen, B=B, T=1, kv_lens=[kvl] * B,
+                                            layers=4)
+        q3 = q[:, 0].contiguous()
+        state = {"layer": 0}
+
+        def dec():
+            state["layer"] = (state["layer"] + 1) % 4
+            return pac.paged_attention_decode(q3, cache, tables, kl,
+                                              state["layer"], scale=SCALE)
+
+        ms = cuda_ms(dec)
+        plain_ms = cuda_ms(lambda: pac.paged_attention_decode_plain(
+            q3, cache, tables, kl, 1, scale=SCALE), iters=5)
+        k, v = gathered_kv(cache, tables, 1, kvl)
+        qs = q3[:, :, None]  # [B, H, 1, HD]
+        lib_ms = cuda_ms(lambda: sdpa(qs, k, v, False))
+        ref = sdpa(qs, k, v, False)[:, :, 0]
+        got = pac.paged_attention_decode(q3, cache, tables, kl, 1, scale=SCALE)
+        splits = splits_of(q, cache, tables)
+        compare("decode", got, ref,
+                f"decode bf16 B={B} kv_len {kvl} ({splits} splits) vs sdpa")
+        kv_bytes = B * kvl * 2 * KH * HD * 2
+        io_bytes = 2 * B * H * HD * 2 + tables.numel() * 4 + B * 4
+        flops = 4 * B * H * HD * kvl
+        r = _row("decode", ms, plain_ms, lib_ms, kv_bytes + io_bytes, flops,
+                 PEAK_BF16_FLOPS, per_step["decode_step"],
+                 served[ROUTE_OF["decode"]],
+                 card, f"B={B} kv_len={kvl} H={H} KH={KH} hd={HD} bs={BS} "
+                       f"bf16, {splits} splits")
+        r["splits"] = splits
+        decode.append(r)
+        if B == 8:
+            kept = (q3, cache, tables, kl, kv_bytes, io_bytes, flops)
+        del q, cache, k, v, ref, got
+    rows.append(with_points(decode))
+    torch.cuda.empty_cache()
+    q3, cache, tables, kl, kv_bytes, io_bytes, flops = kept
     B, kvl = 8, 4096
-    q, cache, tables, kl, _ = make_case(gen, B=B, T=1, kv_lens=[kvl] * B,
-                                        layers=4)
-    q3 = q[:, 0].contiguous()
-    state = {"layer": 0}
-
-    def dec():
-        state["layer"] = (state["layer"] + 1) % 4
-        return pac.paged_attention_decode(q3, cache, tables, kl,
-                                          state["layer"], scale=SCALE)
-
-    ms = cuda_ms(dec)
-    plain_ms = cuda_ms(lambda: pac.paged_attention_decode_plain(
-        q3, cache, tables, kl, 1, scale=SCALE), iters=5)
-    k, v = gathered_kv(cache, tables, 1, kvl)
-    qs = q3[:, :, None]  # [B, H, 1, HD]
-    lib_ms = cuda_ms(lambda: sdpa(qs, k, v, False))
-    ref = sdpa(qs, k, v, False)[:, :, 0]
-    got = pac.paged_attention_decode(q3, cache, tables, kl, 1, scale=SCALE)
-    compare("decode", got, ref, "decode bf16 B=8 kv_len 4096 vs sdpa")
-    kv_bytes = B * kvl * 2 * KH * HD * 2
-    io_bytes = 2 * B * H * HD * 2 + tables.numel() * 4 + B * 4
-    flops = 4 * B * H * HD * kvl
-    rows.append(_row("decode", ms, plain_ms, lib_ms, kv_bytes + io_bytes,
-                     flops, PEAK_BF16_FLOPS, per_step["decode_step"],
-                     served["decode"], card,
-                     f"B={B} kv_len={kvl} H={H} KH={KH} hd={HD} bs={BS} bf16"))
 
     # Decode-write at the same shape: each launch also writes its row (the
     # same slot every time: kv_len counts it). No single PyTorch call
@@ -1034,10 +1125,12 @@ def phase_times(per_step: dict, served: dict, card: str) -> list:
     row_bytes = 2 * B * KH * HD * 2 * 2  # k_new/v_new read, rows written
     r = _row("decode_write", ms, plain_ms, None, kv_bytes + io_bytes + row_bytes,
              flops, PEAK_BF16_FLOPS, per_step["decode_write_step"],
-             served["decode_write"], card,
+             served[ROUTE_OF["decode_write"]], card,
              f"B={B} kv_len={kvl} H={H} KH={KH} hd={HD} bs={BS} bf16, "
-             "one K/V row written per sequence",
+             f"one K/V row written per sequence, "
+             f"{splits_of(q3, cache, tables)} splits",
              library="none: no single PyTorch call computes it")
+    r["splits"] = splits_of(q3, cache, tables)
     r["unfused_pair_ms"] = pair_ms
     r["unfused_pair"] = "index_copy_ of the K/V rows + paged_attention_decode"
     log(f"  unfused pair (index_copy_ + paged_attention_decode): {pair_ms:.4f} ms")
@@ -1112,9 +1205,10 @@ def sdpa_chunk(q, k, v):
 def with_points(rows: list) -> dict:
     """The first row, with every row's shape and numbers under
     ``points``."""
-    keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "splits")
     main = dict(rows[0])
-    main["points"] = [{k: r[k] for k in keys} for r in rows]
+    main["points"] = [{k: r[k] for k in keys if k in r} for r in rows]
     return main
 
 
@@ -1216,13 +1310,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     q_served = phase_serving(
         q_params, "4b", quantization="int4",
-        used=("decode_write", "int4", "prefill", "prefill_wgmma", "wgmma",
-              "mma"))
+        used=("decode_write", "decode_write_split", "int4", "prefill",
+              "prefill_wgmma", "wgmma", "mma"))
     del q_params
     gc.collect()
     torch.cuda.empty_cache()
 
-    rows = phase_times(per_step, {**served, "decode_write": q_served["decode_write"]},
+    rows = phase_times(per_step, {**served, "decode_write_split":
+                                  q_served["decode_write_split"]},
                        card)
     rows += phase_int4_times(q_per_step, q_served, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")

@@ -11,10 +11,13 @@ module fine).
 
 Kernels, each replacing a Pallas TPU kernel of the JAX package:
 
-- ``paged_attention.cu``: ``paged_decode_kernel`` (``_decode_kernel``),
-  ``paged_decode_write_kernel`` (``_decode_write_kernel``) and, for fp32,
-  ``paged_prefill_kernel`` (``_prefill_kernel``), all of
+- ``paged_attention.cu``, fp32 only: ``paged_decode_kernel``
+  (``_decode_kernel``), ``paged_decode_write_kernel``
+  (``_decode_write_kernel``) and ``paged_prefill_kernel``
+  (``_prefill_kernel``), all of
   ``production_stack_tpu/ops/paged_attention_pallas.py``;
+- ``decode_splitkv.cu``: ``decode_split_kernel``, ``_decode_kernel`` and
+  ``_decode_write_kernel`` for bf16 (split-KV);
 - ``prefill_wgmma.cu``: ``paged_prefill_wgmma_kernel``, ``_prefill_kernel``
   for bf16 on the tensor cores (wgmma);
 - ``int4_matmul.cu``: ``int4_wgmma_kernel`` (bf16, more than 16 rows),
@@ -22,7 +25,7 @@ Kernels, each replacing a Pallas TPU kernel of the JAX package:
   small groups), all ``production_stack_tpu/ops/int4_matmul.py::_kernel``.
 
 ``sm90.cuh`` holds the wgmma, descriptor, cp.async and barrier helpers
-the two wgmma kernels share.
+the Hopper kernels share.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ from ..logging_utils import init_logger
 logger = init_logger(__name__)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("paged_attention.cu", "prefill_wgmma.cu", "int4_matmul.cu")
+SOURCES = ("paged_attention.cu", "decode_splitkv.cu", "prefill_wgmma.cu",
+           "int4_matmul.cu")
 HEADERS = ("sm90.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -159,6 +163,14 @@ def load() -> ctypes.CDLL:
             _F, _F, _P,  # scale, softcap, stream
         ]
         lib.pst_paged_decode_write.restype = _I
+        lib.pst_decode_split.argtypes = [
+            _P, _P, _P, _P, _P,  # q, cache, k_new, v_new, write_flat
+            _P, _P, _P, _P, _P,  # tables, kv_lens, out, ws, counters
+            _I, _I, _I, _I,  # B, H, KH, HD
+            _I, _I, _I, _I, _I,  # nb, bs, W, layer, window
+            _F, _F, _I, _P,  # scale, softcap, splits, stream
+        ]
+        lib.pst_decode_split.restype = _I
         lib.pst_int4_matmul.argtypes = [
             _I, _I, _P, _P, _P,  # route, dtype, x, packed, scales
             _P, _P, _P,  # colmap, out, ws

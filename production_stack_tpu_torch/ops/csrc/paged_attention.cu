@@ -1,7 +1,11 @@
-// Paged attention over the stacked KV cache, hand-written for Hopper (sm_90a).
+// Paged attention over the stacked KV cache in fp32, hand-written for
+// Hopper (sm_90a).
 //
 // Three kernels, each replacing one Pallas TPU kernel of the JAX package
-// (production_stack_tpu/ops/paged_attention_pallas.py):
+// (production_stack_tpu/ops/paged_attention_pallas.py) for fp32 caches
+// (tests and debug models). bf16 runs elsewhere: decode and decode-write
+// on the split-KV kernel of decode_splitkv.cu, prefill on the tensor cores
+// (prefill_wgmma.cu).
 //
 //   paged_decode_kernel        <- _decode_kernel (one query token per
 //                                 sequence)
@@ -9,8 +13,7 @@
 //                                 this step's K/V row written into its page
 //                                 first; PST_FUSED_KV_WRITE=1)
 //   paged_prefill_kernel       <- _prefill_kernel (chunked-prefill flash
-//                                 attention), fp32 only; bf16 prefill runs
-//                                 on the tensor cores (prefill_wgmma.cu)
+//                                 attention)
 //
 // Layouts (identical to the JAX package):
 //   cache        [L, nb, 2, bs, KH*HD]  page = K rows (index 0) then V rows
@@ -28,21 +31,14 @@
 // keys all lie in later chunks is exact, and a row with no live key at
 // all writes zeros (the kv_len == 0 padding-row contract).
 //
-// What bounds them on an H100 (3.35 TB/s, 989 TFLOP/s bf16 dense):
-//   decode  - bytes: every live K/V row of the sequence is read once; the G
-//             query heads of a kv head share each row read (one block per
-//             (sequence, kv head)). This first version has no split-KV, so
-//             B*KH blocks must fill the card; at B=8, KH=8 only 64 of 132
-//             SMs work and the kernel sits well below the byte bound.
-//             decode-write adds one K and one V row per (sequence, kv
-//             head) to that traffic, and saves the separate scatter launch.
-//   prefill - operations: 4*H*HD*T*(start+T/2) FLOP per layer. This
-//             kernel runs the two products on the CUDA cores in fp32; it
-//             serves fp32 caches (tests and debug models), whose products
-//             the bf16 tensor cores would round.
+// What bounds them on an H100 (3.35 TB/s; 67 TFLOP/s fp32 off the tensor
+// cores): decode reads every live K/V row of the sequence once, one block
+// per (sequence, kv head) with no split of the keys; decode-write adds one
+// K and one V row per (sequence, kv head). Prefill is bound by operations,
+// 4*H*HD*T*(start+T/2) FLOP per layer, run on the CUDA cores in fp32 so
+// that the products are not rounded to bf16.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -67,23 +63,6 @@ struct VecTraits<float> {
     o[3] = __uint_as_float(r.w);
   }
   __device__ static inline float store(float v) { return v; }
-};
-
-template <>
-struct VecTraits<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static inline void to_float(const uint4& r, float* o) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static inline __nv_bfloat16 store(float v) {
-    return __float2bfloat16(v);
-  }
 };
 
 template <typename T>
@@ -591,7 +570,8 @@ cudaError_t launch_prefill(const void* q, const void* cache, const int* tables,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
+// dtype: 0 = float32 (the only one these kernels take). Returns a
+// cudaError_t (0 = success).
 extern "C" int pst_paged_decode(int dtype, const void* q, const void* cache,
                                 const int* tables, const int* kv_lens,
                                 void* out, int B, int H, int KH, int HD,
@@ -612,8 +592,7 @@ extern "C" int pst_paged_decode(int dtype, const void* q, const void* cache,
     case 8: PST_DECODE(TYPE, 8);    \
     default: return (int)cudaErrorInvalidValue; \
   }
-  if (dtype == 0) { PST_DECODE_G(float) }
-  if (dtype == 1) { PST_DECODE_G(__nv_bfloat16) }
+  if (dtype == 0) { PST_DECODE_G(float) }  // bf16: decode_splitkv.cu
 #undef PST_DECODE_G
 #undef PST_DECODE
   return (int)cudaErrorInvalidValue;
@@ -643,8 +622,7 @@ extern "C" int pst_paged_decode_write(int dtype, const void* q, void* cache,
     case 8: PST_DECODE_WRITE(TYPE, 8);  \
     default: return (int)cudaErrorInvalidValue; \
   }
-  if (dtype == 0) { PST_DECODE_WRITE_G(float) }
-  if (dtype == 1) { PST_DECODE_WRITE_G(__nv_bfloat16) }
+  if (dtype == 0) { PST_DECODE_WRITE_G(float) }  // bf16: decode_splitkv.cu
 #undef PST_DECODE_WRITE_G
 #undef PST_DECODE_WRITE
   return (int)cudaErrorInvalidValue;

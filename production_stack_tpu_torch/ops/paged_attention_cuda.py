@@ -3,22 +3,24 @@
 ``paged_attention_decode`` replaces the JAX package's Pallas
 ``_decode_kernel``, ``paged_attention_decode_write`` its
 ``_decode_write_kernel`` and ``paged_attention_prefill`` its
-``_prefill_kernel`` (``production_stack_tpu/ops/paged_attention_pallas.py``);
-the kernels are in ``csrc/paged_attention.cu``, and bf16 prefill's in
-``csrc/prefill_wgmma.cu`` (tensor cores; ``prefill_route`` picks it by
-dtype). Each wrapper has a plain PyTorch version
-beside it (``*_plain``: gather + masked softmax, the same function), which
-it runs only for tensors on the CPU. On a CUDA tensor a wrapper launches
-its kernel or raises — there is no fallback.
+``_prefill_kernel`` (``production_stack_tpu/ops/paged_attention_pallas.py``).
+bf16 decode and decode-write run the split-KV kernel of
+``csrc/decode_splitkv.cu`` (``decode_route``; ``decode_plan`` picks its
+split count), bf16 prefill the tensor-core kernel of
+``csrc/prefill_wgmma.cu`` (``prefill_route``); fp32 takes the CUDA-core
+kernels of ``csrc/paged_attention.cu``. Each wrapper has a plain PyTorch
+version beside it (``*_plain``: gather + masked softmax, the same
+function), which it runs only for tensors on the CPU. On a CUDA tensor a
+wrapper launches its kernel or raises — there is no fallback.
 
 ``launch_counts`` counts kernel launches per wrapper, so a run can show
-that its path went through the kernels; ``route_counts`` splits the
-prefill launches by kernel.
+that its path went through the kernels; ``route_counts`` splits them by
+kernel.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -26,7 +28,10 @@ from .attention import window_eff
 
 launch_counts: Dict[str, int] = {"decode": 0, "decode_write": 0,
                                  "prefill": 0}
-route_counts: Dict[str, int] = {"prefill_wgmma": 0, "prefill_simt": 0}
+route_counts: Dict[str, int] = {
+    "prefill_wgmma": 0, "prefill_simt": 0, "decode_split": 0,
+    "decode_simt": 0, "decode_write_split": 0, "decode_write_simt": 0,
+}
 
 HEAD_DIM = 128  # the head dim the kernels are compiled for
 GROUPS = (1, 2, 4, 8)  # query heads per kv head the kernels are compiled for
@@ -48,6 +53,110 @@ def prefill_route(dtype: torch.dtype) -> str:
     if dtype == torch.float32:
         return "simt"
     raise TypeError(f"no prefill kernel for {dtype}")
+
+
+def decode_route(dtype: torch.dtype) -> str:
+    """The decode and decode-write kernel for a q/cache dtype: ``"split"``
+    (``decode_split_kernel``, bf16, split-KV) or ``"simt"``
+    (``paged_decode_kernel`` / ``paged_decode_write_kernel``, fp32)."""
+    if dtype == torch.bfloat16:
+        return "split"
+    if dtype == torch.float32:
+        return "simt"
+    raise TypeError(f"no decode kernel for {dtype}")
+
+
+# decode_splitkv.cu: keys a tile holds, and the blocks an SM holds (96 KB
+# of ring and about 170 registers a thread each). On an NVIDIA H100 80GB
+# HBM3, at Llama-3-8B's heads and B in {1, 8, 16, 32, 64}, the kernel was
+# fastest with the grid one wave of them (B*KH*S = 2 * 132) and no split
+# under two tiles: a shorter one pays its merge for too few keys.
+SPLIT_TILE = 64
+_SPLIT_BLOCKS_PER_SM = 2
+_SPLIT_MIN_TILES = 2
+_MAX_SPLITS = 64  # kMaxSplits
+
+
+def decode_plan(B: int, KH: int, W: int, bs: int, n_sm: int) -> int:
+    """Splits of each (sequence, kv head)'s keys for the split-KV kernel,
+    from what the host knows (never ``kv_lens``): as many as keep B*KH*S
+    within one wave of two blocks an SM, at most one split per two key
+    tiles the table can hold, and at most 64."""
+    tiles = -(-W * bs // SPLIT_TILE)
+    fit = _SPLIT_BLOCKS_PER_SM * n_sm // max(B * KH, 1)
+    return max(1, min(fit, tiles // _SPLIT_MIN_TILES, _MAX_SPLITS))
+
+
+def decode_split_keys(kv_len: int, window: int, splits: int,
+                      s: int) -> Tuple[int, int]:
+    """The keys ``[k0, k1)`` that split ``s`` of ``splits`` reads for a row
+    of ``kv_len`` (the kernel's partition, for the tests): the row's live
+    tiles ``[lo // 64, ceil(kv_len / 64))`` cut into runs at
+    ``n * s // splits``, clipped to ``[lo, kv_len)``."""
+    lo = max(kv_len - window_eff(window), 0)
+    ta = lo // SPLIT_TILE
+    n = max(-(-kv_len // SPLIT_TILE) - ta, 0)
+    t0 = ta + n * s // splits
+    t1 = ta + n * (s + 1) // splits
+    k0 = max(t0 * SPLIT_TILE, lo)
+    k1 = min(t1 * SPLIT_TILE, kv_len)
+    return (k0, k1) if k1 > k0 else (k0, k0)
+
+
+_SM_COUNTS: Dict[torch.device, int] = {}
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device not in _SM_COUNTS:
+        _SM_COUNTS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNTS[device]
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The split kernel's per-(sequence, kv head) tickets: zeros, left zero
+    by every launch; grown (never shrunk) to the largest B*KH so far."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
+def _launch_split(q3, kv_pages, block_tables, kv_lens, layer, write, scale,
+                  window, softcap):
+    """``decode_split_kernel`` on bf16 tensors; ``write`` is None (decode)
+    or (k_new, v_new, write_flat). Returns [B, H, hd]."""
+    from ._build import load
+
+    lib = load()
+    B, H, hd = q3.shape
+    _, nb, _, bs, lanes = kv_pages.shape
+    KH = lanes // hd
+    W = block_tables.shape[1]
+    splits = decode_plan(B, KH, W, bs, _sm_count(q3.device))
+    out = torch.empty_like(q3)
+    ws = counters = None
+    if splits > 1:
+        ws = torch.empty(B * H * splits * (hd + 2),
+                         dtype=torch.float32, device=q3.device)
+        counters = _counters(q3.device, B * KH)
+    k_new, v_new, write_flat = write if write is not None else (None,) * 3
+
+    def ptr(t):  # a null pointer for what this launch does not use
+        return None if t is None else t.data_ptr()
+
+    rc = lib.pst_decode_split(
+        q3.data_ptr(), kv_pages.data_ptr(), ptr(k_new), ptr(v_new),
+        ptr(write_flat), block_tables.data_ptr(), kv_lens.data_ptr(),
+        out.data_ptr(), ptr(ws), ptr(counters), B, H, KH, hd, nb, bs, W,
+        int(layer), int(window), float(scale), float(softcap), splits,
+        torch.cuda.current_stream(q3.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"split-KV decode kernel failed: cudaError {rc}")
+    return out
 
 
 def _plain(q, kv_pages, block_tables, kv_lens, q_positions, layer, scale,
@@ -172,6 +281,13 @@ def paged_attention_decode(q3, kv_pages, block_tables, kv_lens, layer, *,
             window=window, softcap=softcap,
         )
     _check(q3, 3, kv_pages, block_tables, kv_lens, layer)
+    route = decode_route(q3.dtype)
+    if route == "split":
+        out = _launch_split(q3, kv_pages, block_tables, kv_lens, layer, None,
+                            scale, window, softcap)
+        launch_counts["decode"] += 1
+        route_counts["decode_split"] += 1
+        return out
     from ._build import load
 
     lib = load()
@@ -188,6 +304,7 @@ def paged_attention_decode(q3, kv_pages, block_tables, kv_lens, layer, *,
     if rc != 0:
         raise RuntimeError(f"paged decode kernel failed: cudaError {rc}")
     launch_counts["decode"] += 1
+    route_counts["decode_simt"] += 1
     return out
 
 
@@ -214,6 +331,15 @@ def paged_attention_decode_write(q3, kv_pages, block_tables, kv_lens, layer,
         if tuple(t.shape) != (B, lanes) or t.device != q3.device:
             raise ValueError(f"{name} must be [{B}, {lanes}] on {q3.device}, "
                              f"got {tuple(t.shape)} on {t.device}")
+        if t.data_ptr() % 16:  # the kernels copy 16-byte pieces
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if decode_route(q3.dtype) == "split":
+        out = _launch_split(q3, kv_pages, block_tables, kv_lens, layer,
+                            (k_new, v_new, write_flat), scale, window,
+                            softcap)
+        launch_counts["decode_write"] += 1
+        route_counts["decode_write_split"] += 1
+        return out
     from ._build import load
 
     lib = load()
@@ -229,6 +355,7 @@ def paged_attention_decode_write(q3, kv_pages, block_tables, kv_lens, layer,
     if rc != 0:
         raise RuntimeError(f"paged decode-write kernel failed: cudaError {rc}")
     launch_counts["decode_write"] += 1
+    route_counts["decode_write_simt"] += 1
     return out
 
 
