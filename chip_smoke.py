@@ -21,13 +21,17 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    softcap, over ragged lengths (0 to 4096: short rows get empty splits),
    at one sequence of 4096 (the most splits), with a write 5 positions
    before a row's end and a dropped write, and two launches bit for bit
-   equal; the W4A16 int4 kernel at every Llama-3-8B
-   projection shape with decode rows and N in {17, 64, 300, 512, 2048}
-   (the wgmma route), at a small dout that is not a multiple of 128, and
-   at small shapes in fp32 against float64. Negative controls show the
-   bf16 checks reject a decode missing a key, a prefill whose rows each
-   miss one key and an int4 product with swapped nibbles; on CUDA tensors
-   a wrapper refuses what its kernel does not take.
+   equal; the W4A16 int4 kernels at every Llama-3-8B projection shape:
+   the decode route at N in {1, 2, 8, 16} and every decode bucket up to
+   its boundary, the wgmma route at N in {17, 64, 300, 512, 2048}; the
+   decode route also at a ragged dout (208), an odd dout (201), a group
+   size wgmma refuses (48, up to 300 rows) and unaligned x and packed
+   pointers, two of its launches bit for bit equal, and the resident
+   blocks its plan counts on (the occupancy calculator); small shapes in
+   fp32 against float64. Negative controls show the bf16 checks reject a
+   decode missing a key, a prefill whose rows each miss one key and an
+   int4 product with swapped nibbles (on both bf16 int4 routes); on CUDA
+   tensors a wrapper refuses what its kernel does not take.
 3. The full-width 32-layer Llama-3-8B (random bf16 weights from a seed):
    one 512-token prefill and 8 decode steps through the kernels and again
    through the gather path; the logits must agree, and every decode
@@ -41,7 +45,8 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
 3b. The same model int4-quantized on the card (streamed from the seed, the
    bf16 tree freed first), under ``PST_FUSED_KV_WRITE=1``: the same steps
    through the int4 and decode-write kernels, against the gather path on a
-   copy whose int4 weights were dequantized to bf16 beforehand.
+   copy whose int4 weights were dequantized to bf16 beforehand; every
+   decode-row projection on the decode route, with no split-sum pass.
 4b. Serving int4 with ``PST_FUSED_KV_WRITE=1``: a second engine and server
    after the first is shut down; the int4, decode-write and prefill
    counters must grow.
@@ -50,7 +55,10 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    its bound: decode at B=8, 1 and 64 at kv_len 4096 and at B=64 x 512
    (with the split count of each), decode-write at B=8 x 4096; prefill at T=512 fresh, T=512 at start 3584 and T=2048
    fresh; the int4 wgmma route at N=512 for the four projection shapes and
-   at N=2048; the int4 decode route at N=8.
+   at N=2048; the int4 decode route at N in {1, 8, 16} (and the decode
+   buckets up to its boundary) for the four projection shapes; both bf16
+   int4 routes at N in {1, 8, 16, 32, 64} on the four shapes (the route
+   boundary's crossover).
 
 The line before the last is a JSON ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the
@@ -133,7 +141,7 @@ KERNELS = {
     ),
     "int4": dict(
         name="int4_matmul", route="cuda",
-        source="production_stack_tpu_torch/ops/csrc/int4_matmul.cu",
+        source="production_stack_tpu_torch/ops/csrc/int4_decode.cu",
         replaces="production_stack_tpu/ops/int4_matmul.py:73",
     ),
     "int4_wgmma": dict(
@@ -145,12 +153,18 @@ KERNELS = {
 # Which launch counter of the served run belongs to each row: the route
 # of the kernel the row times (the int4 wrapper's two bf16 routes are two
 # kernels).
-ROUTE_OF = {"prefill": "prefill_wgmma", "int4": "mma", "int4_wgmma": "wgmma",
+ROUTE_OF = {"prefill": "prefill_wgmma", "int4": "decode", "int4_wgmma": "wgmma",
             "decode": "decode_split", "decode_write": "decode_write_split"}
 max_err = {k: 0.0 for k in KERNELS}
 
 # Llama-3-8B projections: (din, dout) of wq/wo, wk/wv, w_gate/w_up, w_down.
 INT4_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+# The seven projections of a layer, in that order: wq, wk, wv, wo, w_gate,
+# w_up, w_down.
+LAYER_SHAPES = ((4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096),
+                (4096, 14336), (4096, 14336), (14336, 4096))
+# The engine's decode buckets (powers of two up to max_num_seqs = 64).
+DECODE_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
 
 def log(msg: str) -> None:
@@ -481,31 +495,91 @@ def int4_case(gen, N, din, dout, dtype=torch.bfloat16):
     return x, packed, scales
 
 
+def int4_weights(gen, din, dout, G=None, offset=0):
+    """packed [din/2, dout] and scales: quantized from a random weight, or
+    (G given) random bytes and scales at group size G; ``offset`` bytes
+    into their buffer, so the packed pointer is unaligned."""
+    if G is None:
+        w = torch.randn((din, dout), generator=gen, device=DEV) * 0.02
+        packed, scales = quantize_leaf_int4(w)
+    else:
+        packed = torch.randint(-128, 128, (din // 2, dout), generator=gen,
+                               device=DEV, dtype=torch.int8)
+        scales = torch.rand((din // G, dout), generator=gen, device=DEV) * 0.01
+    if offset:
+        buf = torch.empty(packed.numel() + offset, dtype=torch.int8, device=DEV)
+        packed = buf[offset:].view(packed.shape).copy_(packed)
+    return packed, scales
+
+
+def int4_check(x, packed, scales, label, want_route):
+    route = i4.route(x, packed, scales)
+    check(route == want_route, f"{label}: route {route}, expected {want_route}")
+    got = i4.int4_matmul(x, packed, scales)
+    ref = i4.int4_matmul_plain(x, packed, scales)
+    torch.cuda.synchronize()
+    N, dout = x.shape[0], packed.shape[1]
+    check(got.dtype == torch.float32 and got.shape == (N, dout),
+          f"int4: output {got.dtype} {tuple(got.shape)}")
+    compare("int4_wgmma" if route == "wgmma" else "int4", got, ref,
+            f"{label} ({route})", rows=True)
+    return got
+
+
 def phase_int4_kernels() -> None:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(777)
-    # bf16 (tensor-core routes): every projection shape at 8 decode rows
-    # (int4_mma_kernel<1>) and at 17, 64, 300, 512 and 2048 rows (the wgmma
-    # kernel); one row; a small dout that is not a multiple of 128.
-    cases = [(din, dout, (8, 17, 64, 300, 512, 2048)) for din, dout in INT4_SHAPES]
-    cases += [(4096, 1024, (1,)), (256, 208, (40, 300))]
-    for din, dout, rows in cases:
-        w = torch.randn((din, dout), generator=gen, device=DEV) * 0.02
-        packed, scales = quantize_leaf_int4(w)
-        del w
+    # bf16 (tensor-core routes): every projection shape at decode rows (1, 2
+    # and every bucket up to the decode route's boundary) and at 17, 64,
+    # 300, 512 and 2048 rows (the wgmma kernel above the boundary).
+    edge = i4._DECODE_MAX_ROWS
+    decode_rows = sorted({1, 2, 8, 16} | {b for b in DECODE_BUCKETS if b <= edge})
+    for din, dout in INT4_SHAPES:
+        packed, scales = int4_weights(gen, din, dout)
+        for N in decode_rows + [17, 64, 300, 512, 2048]:
+            x = torch.randn((N, din), generator=gen, device=DEV).bfloat16()
+            int4_check(x, packed, scales, f"int4 bf16 N={N} din={din} dout={dout}",
+                       "decode" if N <= edge else "wgmma")
+    # The decode route's other calls: a ragged dout (208: both routes), an
+    # odd dout and a group of 48 (wgmma refuses both, at any N), unaligned x
+    # and packed pointers (wgmma needs 16 bytes).
+    for din, dout, G, rows, poff, xoff in (
+            (256, 208, None, (1, 8, 16, 40, 300), 0, 0),
+            (256, 201, None, (3, 8, 16, 40), 0, 0),
+            (4608, 256, 48, (8, 40, 300), 0, 0),
+            (1024, 256, None, (8, 40), 1, 1)):
+        packed, scales = int4_weights(gen, din, dout, G, poff)
         for N in rows:
             x = torch.randn((N, din), generator=gen, device=DEV).bfloat16()
-            route = i4.route(x, packed, scales)
-            check(route == ("wgmma" if N > 16 else "mma"),
-                  f"int4 N={N}: route {route}")
-            got = i4.int4_matmul(x, packed, scales)
-            ref = i4.int4_matmul_plain(x, packed, scales)
+            if xoff:
+                buf = torch.empty(x.numel() + xoff, dtype=torch.bfloat16, device=DEV)
+                x = buf[xoff:].view(x.shape).copy_(x)
+            tag = f" G={G}" if G else ""
+            tag += " unaligned x, packed" if xoff else ""
+            wgmma_ok = (dout % 16 == 0 and G is None and not xoff and N > edge)
+            int4_check(x, packed, scales,
+                       f"int4 bf16 N={N} din={din} dout={dout}{tag}",
+                       "wgmma" if wgmma_ok else "decode")
+    # Determinism (the splits add up in split order) and the resident
+    # blocks the plan counts on.
+    for din, dout in INT4_SHAPES:
+        packed, scales = int4_weights(gen, din, dout)
+        for N in (1, 8, 16):
+            x = torch.randn((N, din), generator=gen, device=DEV).bfloat16()
+            a = i4.int4_matmul(x, packed, scales)
+            b = i4.int4_matmul(x, packed, scales)
             torch.cuda.synchronize()
-            check(got.dtype == torch.float32 and got.shape == (N, dout),
-                  f"int4: output {got.dtype} {tuple(got.shape)}")
-            compare("int4_wgmma" if route == "wgmma" else "int4", got, ref,
-                    f"int4 bf16 N={N} din={din} dout={dout} ({route})",
-                    rows=True)
+            check(torch.equal(a, b), f"int4 decode N={N} {din}x{dout}: two "
+                  "launches differ")
+            nt, mt = i4.decode_tile(N, din, dout, 128)
+            p = i4.plan("decode", N, din, dout, 128)
+            held = i4.decode_occupancy(nt, mt, p.per_split)
+            want = i4._DECODE_BLOCKS_PER_SM[(nt, mt)]
+            check(held >= want, f"int4 decode ({nt}, {mt}): an SM holds {held} "
+                  f"blocks, the plan counts on {want}")
+            log(f"  int4 decode N={N} {din}x{dout}: tile ({nt}, {mt}), grid "
+                f"{p.grid}, {p.per_split} groups a split; an SM holds {held} "
+                f"blocks (plan: {want}); two launches bit for bit equal")
     # The check has teeth on both routes: the kernel's product against a
     # plain version with the two nibble planes of every byte swapped fails.
     x64 = torch.randn((64, 4096), generator=gen, device=DEV).bfloat16()
@@ -787,10 +861,13 @@ def phase_int4_model(model):
     want = {"prefill": L, "decode": 0, "decode_write": L * n,
             "int4": 7 * L * (1 + n)}
     check(counts == want, f"launch counts {counts}, expected {want}")
-    # The 512-token prefill's projections take the wgmma kernel, the decode
-    # steps' (2 rows) int4_mma_kernel<1>.
+    # The 512-token prefill's projections take the wgmma kernel (and a
+    # split-sum pass where its plan splits), the decode steps' (2 rows) the
+    # decode route, whose splits add up in the same launch: no sum pass.
     routes = dict(i4.route_counts)
-    want = {"wgmma": 7 * L, "mma": 7 * L * n, "simt": 0}
+    sums = L * sum(i4.plan("wgmma", len(prompt), din, dout, 128).splits > 1
+                   for din, dout in LAYER_SHAPES)
+    want = {"wgmma": 7 * L, "decode": 7 * L * n, "simt": 0, "sum": sums}
     check(routes == want, f"int4 routes {routes}, expected {want}")
     check(pac.route_counts["decode_write_split"] == L * n,
           f"decode-write routes {pac.route_counts}: expected the split kernel")
@@ -822,7 +899,7 @@ def phase_int4_model(model):
         torch.cuda.set_sync_debug_mode("default")
     check(bool(torch.isfinite(logits).all()), "int4 no-sync step: bad output")
     log("  int4 fused decode step ran with no host sync")
-    return params, {"mma": routes["mma"] // n, "wgmma": routes["wgmma"],
+    return params, {"decode": routes["decode"] // n, "wgmma": routes["wgmma"],
                     "decode_write": counts["decode_write"] // n}
 
 
@@ -885,7 +962,10 @@ def launch_counts() -> dict:
 
 
 def route_counts() -> dict:
-    return {**pac.route_counts, **i4.route_counts}
+    """Launches by kernel; the int4 wrapper's routes carry an ``int4_``
+    prefix (its ``decode`` route is not the attention wrapper's)."""
+    return {**pac.route_counts,
+            **{f"int4_{k}": n for k, n in i4.route_counts.items()}}
 
 
 def reset_launch_counts() -> None:
@@ -1212,36 +1292,41 @@ def with_points(rows: list) -> dict:
     return main
 
 
-def phase_int4_times(per_step: dict, served: dict, card: str) -> list:
-    """Rows of the int4 kernels: the decode route (int4_mma_kernel<1>) at
-    w_gate's shape (4096 x 14336) with 8 rows, and the wgmma route at 512
-    rows for the four projection shapes and at 2048 rows for w_gate. Four
-    weights of each shape in turn (117 MB of packed weights for w_gate,
-    more than the 50 MB L2), as a step finds each layer's weights cold. The
-    yardstick is torch.matmul on the weight dequantized to bf16 beforehand:
-    it reads 4x the bytes."""
+def phase_int4_times(per_step: dict, served: dict, card: str):
+    """Rows of the int4 kernels: the decode route at the four projection
+    shapes with 1, 8 and 16 rows (and the decode buckets up to its
+    boundary), the wgmma route at 512 rows for the four shapes and at 2048
+    rows for w_gate; and the crossover of the two bf16 routes at N in {1,
+    8, 16, 32, 64} on the four shapes. Four weights of each shape in turn
+    (117 MB of packed weights for w_gate, more than the 50 MB L2), as a
+    step finds each layer's weights cold. The yardstick is torch.matmul on
+    the weight dequantized to bf16 beforehand: it reads 4x the bytes.
+    Returns (rows, crossover)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(98)
-    cases = {"int4": [(8, 4096, 14336)],
-             "int4_wgmma": [(512, 4096, 14336), (512, 4096, 4096),
-                            (512, 4096, 1024), (512, 14336, 4096),
-                            (2048, 4096, 14336)]}
-    out = []
-    for kind, shapes in cases.items():
-        rows = []
-        for N, din, dout in shapes:
-            weights = [int4_case(gen, 1, din, dout)[1:] for _ in range(4)]
-            dense = [i4.dequant_int4(p, s, torch.bfloat16) for p, s in weights]
-            G = din // weights[0][1].shape[0]
+    edge = i4._DECODE_MAX_ROWS
+    decode_rows = sorted({1, 8, 16} | {b for b in DECODE_BUCKETS if 16 <= b <= edge})
+    # w_gate's shape first: its N = 8 row heads the decode route's points.
+    shapes = ((4096, 14336), (14336, 4096), (4096, 4096), (4096, 1024))
+    wgmma_cases = {(4096, 14336): (512, 2048)}
+    rows = {"int4": [], "int4_wgmma": []}
+    crossover = []
+    for din, dout in shapes:
+        weights = [int4_case(gen, 1, din, dout)[1:] for _ in range(4)]
+        dense = [i4.dequant_int4(p, s, torch.bfloat16) for p, s in weights]
+        G = din // weights[0][1].shape[0]
+        turn = {"i": 0}
+
+        def nxt():
+            turn["i"] = (turn["i"] + 1) % 4
+            return turn["i"]
+
+        cases = [("int4", N) for N in decode_rows]
+        cases += [("int4_wgmma", N) for N in wgmma_cases.get((din, dout), (512,))]
+        for kind, N in cases:
             x = torch.randn((N, din), generator=gen, device=DEV).bfloat16()
             check(i4.route(x, *weights[0]) == ROUTE_OF[kind],
                   f"int4 N={N}: not the {ROUTE_OF[kind]} route")
-            turn = {"i": 0}
-
-            def nxt():
-                turn["i"] = (turn["i"] + 1) % 4
-                return turn["i"]
-
             ms = cuda_ms(lambda: i4.int4_matmul(x, *weights[nxt()]))
             plain_ms = cuda_ms(lambda: i4.int4_matmul_plain(x, *weights[nxt()]),
                                iters=5)
@@ -1252,15 +1337,30 @@ def phase_int4_times(per_step: dict, served: dict, card: str) -> list:
                     "of the bf16-dequantized weight", rows=True)
             nbytes = (din * dout // 2 + (din // G) * dout * 4 + N * din * 2
                       + N * dout * 4)
-            rows.append(_row(kind, ms, plain_ms, lib_ms, nbytes,
-                             2 * N * din * dout, PEAK_BF16_FLOPS,
-                             per_step[ROUTE_OF[kind]], served[ROUTE_OF[kind]],
-                             card, f"N={N} din={din} dout={dout} G={G} bf16 x",
-                             library="torch.matmul on the weight dequantized "
-                                     "to bf16 beforehand (reads 4x the bytes)"))
-            del weights, dense
-        out.append(with_points(rows) if len(rows) > 1 else rows[0])
-    return out
+            rows[kind].append(_row(
+                kind, ms, plain_ms, lib_ms, nbytes, 2 * N * din * dout,
+                PEAK_BF16_FLOPS, per_step[ROUTE_OF[kind]],
+                served["int4_" + ROUTE_OF[kind]], card,
+                f"N={N} din={din} dout={dout} G={G} bf16 x",
+                library="torch.matmul on the weight dequantized to bf16 "
+                        "beforehand (reads 4x the bytes)"))
+        # Both bf16 routes at every decode bucket: where the boundary goes.
+        for N in DECODE_BUCKETS:
+            x = torch.randn((N, din), generator=gen, device=DEV).bfloat16()
+            point = {"shape": f"N={N} din={din} dout={dout}"}
+            for name in ("decode", "wgmma"):
+                point[f"{name}_ms"] = cuda_ms(
+                    lambda: i4._launch(name, x, *weights[nxt()]))
+            crossover.append(point)
+            log(f"  crossover {point['shape']}: decode route "
+                f"{point['decode_ms']:.4f} ms, wgmma route "
+                f"{point['wgmma_ms']:.4f} ms")
+        del weights, dense
+    main = [r for r in rows["int4"] if r["shape"].startswith("N=8 ")]
+    rows["int4"].remove(main[0])
+    return ([with_points(main[:1] + rows["int4"]), with_points(
+        sorted(rows["int4_wgmma"], key=lambda r: "N=2048" in r["shape"]))],
+            crossover)
 
 
 def _row(kind, ms, plain_ms, lib_ms, nbytes, flops, peak, per_step, launches,
@@ -1311,7 +1411,11 @@ def main() -> None:
     q_served = phase_serving(
         q_params, "4b", quantization="int4",
         used=("decode_write", "decode_write_split", "int4", "prefill",
-              "prefill_wgmma", "wgmma", "mma"))
+              "prefill_wgmma", "int4_wgmma", "int4_decode", "int4_sum"))
+    # Split-sum passes follow only wgmma (and CUDA-core) launches.
+    check(q_served["int4_sum"] <= q_served["int4_wgmma"] + q_served["int4_simt"],
+          f"int4 serving: {q_served['int4_sum']} sum passes for "
+          f"{q_served['int4_wgmma']} wgmma launches")
     del q_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1319,9 +1423,11 @@ def main() -> None:
     rows = phase_times(per_step, {**served, "decode_write_split":
                                   q_served["decode_write_split"]},
                        card)
-    rows += phase_int4_times(q_per_step, q_served, card)
+    int4_rows, crossover = phase_int4_times(q_per_step, q_served, card)
+    rows += int4_rows
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"kernels": rows, "steps": steps}), flush=True)
+    print(json.dumps({"kernels": rows, "steps": steps, "int4_crossover": crossover}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,12 +20,15 @@ Kernels, each replacing a Pallas TPU kernel of the JAX package:
   ``_decode_write_kernel`` for bf16 (split-KV);
 - ``prefill_wgmma.cu``: ``paged_prefill_wgmma_kernel``, ``_prefill_kernel``
   for bf16 on the tensor cores (wgmma);
-- ``int4_matmul.cu``: ``int4_wgmma_kernel`` (bf16, more than 16 rows),
-  ``int4_mma_kernel`` (bf16 decode rows) and ``int4_simt_kernel`` (fp32,
-  small groups), all ``production_stack_tpu/ops/int4_matmul.py::_kernel``.
+- ``int4_matmul.cu``: ``int4_wgmma_kernel`` (bf16, prefill rows) and
+  ``int4_simt_kernel`` (fp32, small groups); ``int4_decode.cu``:
+  ``int4_decode_kernel`` (bf16 decode rows, the swapped product on
+  mma.sync, split-K merged in the launch); all
+  ``production_stack_tpu/ops/int4_matmul.py::_kernel``.
 
 ``sm90.cuh`` holds the wgmma, descriptor, cp.async and barrier helpers
-the Hopper kernels share.
+the Hopper kernels share; ``int4_bits.cuh`` the int4 -> bf16 conversion of
+both bf16 int4 routes.
 """
 
 from __future__ import annotations
@@ -46,8 +49,8 @@ logger = init_logger(__name__)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "decode_splitkv.cu", "prefill_wgmma.cu",
-           "int4_matmul.cu")
-HEADERS = ("sm90.cuh",)
+           "int4_matmul.cu", "int4_decode.cu")
+HEADERS = ("sm90.cuh", "int4_bits.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -178,5 +181,13 @@ def load() -> ctypes.CDLL:
             _I, _I, _I, _I, _P,  # grid x, grid y, splits, per_split, stream
         ]
         lib.pst_int4_matmul.restype = _I
+        lib.pst_int4_decode.argtypes = [
+            _P, _P, _P, _P,  # x, packed, scales, out
+            _I, _I, _I, _I, _I, _I,  # N, din, dout, G, n8 tiles, m16 tiles
+            _I, _I, _I, _I, _P,  # grid x, grid y, splits, per_split, stream
+        ]
+        lib.pst_int4_decode.restype = _I
+        lib.pst_int4_decode_occupancy.argtypes = [_I, _I, _I, _P]
+        lib.pst_int4_decode_occupancy.restype = _I
         _lib = lib
         return lib

@@ -12,56 +12,50 @@
 //   scales   [din/G, dout]  fp32
 //
 // The TPU kernel pre-split x into even and odd columns and ran two MXU dots
-// a tile. Hopper needs none of that: the m16n8k16 B fragment of mma.sync
-// holds the k-pairs (2i, 2i+1) of one column in one register, which is
-// exactly one packed byte, so a thread turns each byte it reads into one
-// bf16x2 register. The weights are read from device memory once, 0.5 byte
-// per weight, and are never written back dequantized.
+// a tile. Hopper needs none of that: with the product transposed, outᵀ =
+// Wᵀ xᵀ, a register of the tensor cores' A fragment holds the k-pair (2i,
+// 2i+1) of one output column, which is exactly one packed byte. The
+// weights are read from device memory once, 0.5 byte per weight, and are
+// never written back dequantized.
 //
 // Three routes; the wrapper picks one per call (int4_matmul.py::route), and
 // every shape the quantizer makes is taken:
-//   int4_wgmma_kernel    bf16 x, G % 16 == 0, N > 16, dout % 16 == 0 (every
-//                        real checkpoint's prefill). wgmma with the weights
-//                        as the register A operand; see its note below.
-//   int4_mma_kernel<1>   bf16 x, G % 16 == 0, otherwise (decode rows, N <=
-//                        16; odd dout). mma.sync m16n8k16, 16 rows a block.
+//   int4_wgmma_kernel    bf16 x, G % 16 == 0, more rows than decode takes,
+//                        dout % 16 == 0 (every real checkpoint's prefill).
+//                        wgmma with the weights as the register A operand;
+//                        see its note below.
+//   int4_decode_kernel   bf16 x, G % 16 == 0, otherwise (decode rows; odd
+//                        dout; unaligned operands): int4_decode.cu.
 //   int4_simt_kernel     fp32 x (exact fp32: no weight or partial sum is
 //                        rounded to bf16), and bf16 x with a group size below
 //                        16 (tiny debug models). CUDA cores.
-// The wgmma route multiplies what the TPU kernel multiplies: the levels
-// times the scale, rounded to bf16. The mma.sync route runs each group's
-// partial product on the integer levels alone (exact in bf16) and scales it
-// in fp32 after the group: a group's scale varies only along dout, so it
-// commutes with the contraction. That is more exact than the JAX bf16
-// path, which rounds q * s to bf16 first. Ragged N and dout are masked in
-// all three. A split
-// of the contraction (din) on group boundaries gives the card enough blocks
-// where the output tiles alone do not; the partial sums go to a workspace
-// that a second pass adds in a fixed order, so the result is deterministic
-// (no float atomics).
+// Both bf16 routes multiply what the TPU kernel multiplies: the levels
+// times the scale, rounded to bf16 (int4_bits.cuh). Ragged N and dout are
+// masked. Here a split of the contraction (din) on group boundaries gives
+// the card enough blocks where the output tiles alone do not; the partial
+// sums go to a workspace that a second pass (splitk_sum_kernel) adds in a
+// fixed order, so the result is deterministic (no float atomics).
 //
 // What bounds it on an NVIDIA H100 80GB HBM3 at its 700 W limit (data
-// sheet: 3.35 TB/s, 989 TFLOP/s bf16 dense):
-//   decode  (N = 8, din 4096, dout 14336): bytes. 29.4 MB of packed weights
-//           + 1.8 MB of scales: 9.5 us. The mma.sync route loads the next
-//           chunk's tiles into registers while the current one is multiplied.
-//   prefill (N = 512, same weight): operations. 60.1 GFLOP: 61 us. The
-//           wgmma route; PERF.md has its measured time.
+// sheet: 3.35 TB/s, 989 TFLOP/s bf16 dense): at prefill (N = 512, din
+// 4096, dout 14336), operations: 60.1 GFLOP, 61 us. PERF.md has the wgmma
+// route's measured time.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "int4_bits.cuh"
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kCols = 128;     // output columns per block (32 per warp)
+using pst_int4::weights_bits;
+
+constexpr int kThreads = 128;  // CUDA-core route: a thread an output column
+constexpr int kCols = 128;     // output columns per block
 constexpr int kChunk = 64;     // contraction rows staged per step
-constexpr int kSimtRows = 8;   // rows of x per block on the CUDA-core route
-constexpr int kXStride = kChunk + 8;  // bf16 per staged x row (spreads banks)
-constexpr int kPStride = kCols + 16;  // bytes per staged packed row
+constexpr int kSimtRows = 8;   // rows of x per block
 
 // Signed nibbles of a packed byte b (b sign-extended from int8). The cast
 // back to int8_t matters: b << 4 is an int, and without it the low nibble
@@ -72,194 +66,6 @@ __device__ __forceinline__ int nib_hi(int b) { return b >> 4; }
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// Two signed levels as one bf16x2 register: lo in the low half.
-__device__ __forceinline__ uint32_t levels_bf16x2(int b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn((float)nib_lo(b), (float)nib_hi(b));
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// ---------------------------------------------------------------------------
-// Tensor-core route: grid (ceil(dout/128), ceil(N/BM), splits), 4 warps.
-//
-// A block owns BM = 16*MT rows x 128 columns of the output and the groups
-// [g_lo, g_hi) of the contraction; warp w owns columns [32w, 32w+32), i.e.
-// MT x 4 m16n8 tiles. Per 64-row chunk the block stages x (bf16) and the
-// packed bytes in shared memory; per k16 step a thread builds its A
-// fragments from x and its B fragments from two packed bytes per n8 tile:
-//   B reg 0 = rows k0 + 2*tig, +1      = packed row k0/2 + tig
-//   B reg 1 = rows k0 + 8 + 2*tig, +1  = packed row k0/2 + 4 + tig
-// at column gid of the tile (gid = lane / 4, tig = lane % 4).
-// ---------------------------------------------------------------------------
-
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-int4_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                const int8_t* __restrict__ packed,
-                const float* __restrict__ scales, float* __restrict__ out,
-                int N, int din, int dout, int G, int per_split, bool vec_x,
-                bool vec_p) {
-  constexpr int BM = 16 * MT;
-  constexpr int XP = BM * (kChunk / 8) / kThreads;          // x pieces / thread
-  constexpr int PP = (kChunk / 2) * (kCols / 16) / kThreads;  // packed pieces
-  static_assert(XP >= 1 && PP >= 1, "tile / thread mismatch");
-  __shared__ __align__(16) __nv_bfloat16 sx[BM][kXStride];
-  __shared__ __align__(16) int8_t sp[kChunk / 2][kPStride];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int n0 = blockIdx.x * kCols;
-  const int m0 = blockIdx.y * BM;
-  const int groups = din / G;
-  const int g_lo = blockIdx.z * per_split;
-  const int g_hi = min(g_lo + per_split, groups);
-  const int k_lo = g_lo * G, k_hi = g_hi * G;
-  const int wn = warp * 32;
-
-  float acc[MT][4][4], part[MT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = part[mt][nt][i] = 0.f;
-
-  // One 16-byte piece per slot: x row r, columns [c, c+8) of the chunk;
-  // packed row r, columns [c, c+16) of the tile. Zero outside N, dout, k_hi
-  // (k_hi is a multiple of 16, so a piece is wholly inside or outside).
-  uint4 xr[XP], pr[PP];
-  auto load_chunk = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < XP; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      const int r = i / (kChunk / 8), c = (i % (kChunk / 8)) * 8;
-      const int row = m0 + r, k = k0 + c;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (row < N && k < k_hi) {
-        const __nv_bfloat16* src = x + (size_t)row * din + k;
-        if (vec_x) {
-          v = __ldg(reinterpret_cast<const uint4*>(src));
-        } else {
-          const unsigned short* src16 =
-              reinterpret_cast<const unsigned short*>(src);
-          union { uint4 u; unsigned short h[8]; } t;
-#pragma unroll
-          for (int e = 0; e < 8; ++e) t.h[e] = src16[e];
-          v = t.u;
-        }
-      }
-      xr[j] = v;
-    }
-#pragma unroll
-    for (int j = 0; j < PP; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      const int r = i / (kCols / 16), c = (i % (kCols / 16)) * 16;
-      const int kp = (k0 >> 1) + r, n = n0 + c;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (2 * kp < k_hi && n < dout) {
-        const int8_t* src = packed + (size_t)kp * dout + n;
-        if (vec_p) {  // dout % 16 == 0: the piece is whole
-          v = __ldg(reinterpret_cast<const uint4*>(src));
-        } else {
-          union { uint4 u; int8_t b[16]; } t;
-#pragma unroll
-          for (int e = 0; e < 16; ++e) t.b[e] = n + e < dout ? src[e] : 0;
-          v = t.u;
-        }
-      }
-      pr[j] = v;
-    }
-  };
-
-  if (k_lo < k_hi) load_chunk(k_lo);
-  for (int k0 = k_lo; k0 < k_hi; k0 += kChunk) {
-    __syncthreads();  // the previous chunk's readers are done
-#pragma unroll
-    for (int j = 0; j < XP; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      *reinterpret_cast<uint4*>(&sx[i / (kChunk / 8)][(i % (kChunk / 8)) * 8]) =
-          xr[j];
-    }
-#pragma unroll
-    for (int j = 0; j < PP; ++j) {
-      const int i = threadIdx.x + j * kThreads;
-      *reinterpret_cast<uint4*>(&sp[i / (kCols / 16)][(i % (kCols / 16)) * 16]) =
-          pr[j];
-    }
-    __syncthreads();
-    // The next chunk's loads are in flight while this one is multiplied.
-    if (k0 + kChunk < k_hi) load_chunk(k0 + kChunk);
-
-    const int ksteps = min(kChunk, k_hi - k0) / 16;
-    for (int ks = 0; ks < ksteps; ++ks) {
-      const int kk = ks * 16;
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const __nv_bfloat16* p = &sx[mt * 16 + gid][kk + 2 * tig];
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(p);
-        a[mt][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kXStride);
-        a[mt][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        a[mt][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kXStride + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = wn + nt * 8 + gid;
-        uint32_t b[2];
-        b[0] = levels_bf16x2(sp[kk / 2 + tig][col]);
-        b[1] = levels_bf16x2(sp[kk / 2 + 4 + tig][col]);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_bf16_16816(part[mt][nt], a[mt], b);
-      }
-      const int k_next = k0 + kk + 16;
-      if (k_next % G == 0) {  // end of a group: scale its product in fp32
-        const float* srow = scales + (size_t)(k_next / G - 1) * dout;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = n0 + wn + nt * 8 + 2 * tig;
-          const float s0 = col < dout ? __ldg(srow + col) : 0.f;
-          const float s1 = col + 1 < dout ? __ldg(srow + col + 1) : 0.f;
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            float* p = part[mt][nt];
-            float* o = acc[mt][nt];
-            o[0] = fmaf(s0, p[0], o[0]);
-            o[1] = fmaf(s1, p[1], o[1]);
-            o[2] = fmaf(s0, p[2], o[2]);
-            o[3] = fmaf(s1, p[3], o[3]);
-            p[0] = p[1] = p[2] = p[3] = 0.f;
-          }
-        }
-      }
-    }
-  }
-
-  float* dst = out + (size_t)blockIdx.z * N * dout;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int row = m0 + mt * 16 + gid;
-      const int col = n0 + wn + nt * 8 + 2 * tig;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // rows gid and gid + 8
-        const int r = row + 8 * h;
-        if (r >= N) continue;
-        if (col < dout) dst[(size_t)r * dout + col] = acc[mt][nt][2 * h];
-        if (col + 1 < dout) dst[(size_t)r * dout + col + 1] = acc[mt][nt][2 * h + 1];
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -321,9 +127,9 @@ int4_simt_kernel(const T* __restrict__ x, const int8_t* __restrict__ packed,
 }
 
 // ---------------------------------------------------------------------------
-// wgmma route (bf16 x, N > 16, dout % 16 == 0, G % 16 == 0 dividing or a
-// multiple of 128): grid (ceil(N/128), ceil(dout/256), splits), 512
-// threads = four warpgroups.
+// wgmma route (bf16 x, more rows than the decode route takes, dout % 16 ==
+// 0, G % 16 == 0 dividing or a multiple of 128): grid (ceil(N/128),
+// ceil(dout/256), splits), 512 threads = four warpgroups.
 //
 // The product is computed transposed, outᵀ = Wᵀ xᵀ: the weights are the
 // register A operand of wgmma m64n128k16 (M = output columns, K = din), the
@@ -341,22 +147,14 @@ int4_simt_kernel(const T* __restrict__ x, const int8_t* __restrict__ packed,
 // one 16-bit load of a staged packed row fills two A registers, and the
 // epilogue writes them as one float2.
 //
-// Dequantizing without conversions: for a packed word w and w4 = w >> 4,
-// prmt puts byte j of w in halves 0 and 1 of a register and byte j of w4
-// (whose low nibble is w's high nibble) in halves 2 and 3; (x & 0x000F000F)
-// ^ 0x43084308 turns each half into the bf16 128 + (q ^ 8) = 136 + q (XOR
-// 8 makes the signed nibble offset-binary, 0x4300 is 128.0 and its low
-// mantissa bits take the nibble exactly); one bf16x2 subtract of 136
-// leaves q, exactly.
-//
-// Group scales: one bf16x2 multiply by the group's scale, rounded to bf16
-// first, gives the weight the TPU kernel feeds its MXU (int4_matmul.py::
-// _kernel: the levels in bf16 times the scale cast to bf16) bit for bit,
-// and the plain version's. So one fp32 accumulator takes every k-step and
-// no product is waited for at a group's end. (Scaling each group's integer
-// product in fp32 afterwards, as the mma.sync route does, needs a second
-// accumulator and a wait on the tensor cores at every group's end; PERF.md
-// has the times of the version of this kernel that did.)
+// Dequantizing without conversions (int4_bits.cuh::weights_bits): prmt and
+// one lop3 make each half of a register the bf16 136 + q, a bf16x2
+// subtract leaves q, and a bf16x2 multiply by the group's scale, rounded to
+// bf16 first, gives the weight the TPU kernel feeds its MXU bit for bit. So
+// one fp32 accumulator takes every k-step and no product is waited for at
+// a group's end. (Scaling each group's integer product in fp32 afterwards
+// needs a second accumulator and a wait on the tensor cores at every
+// group's end; PERF.md, PR 3, has the times of the version that did.)
 //
 // Pipeline: a 3-slot cp.async ring of 128-row chunks (x 32 KB; packed 64
 // rows x 256 bytes, rows padded to 288 so that the fragment loads of a
@@ -397,19 +195,6 @@ constexpr int kWgStageBytes = kWgXBytes + kWgPBytes + kWgSBytes;
 constexpr int kWgSmem = kWgStages * kWgStageBytes + 1024;
 constexpr int kWgAcc = kWgRows / 2;  // accumulator registers a thread
 static_assert(kWgStageBytes % 1024 == 0, "x tiles sit on swizzle atoms");
-
-// Weights of the k-pair in byte j of packed word w (w4 = w >> 4), times the
-// bf16 scale s2 (in both halves), as one bf16x2 register.
-__device__ __forceinline__ uint32_t weights_bits(uint32_t w, uint32_t w4,
-                                                 int j, __nv_bfloat162 s2) {
-  const uint32_t sel = j | (j << 4) | ((4 + j) << 8) | ((4 + j) << 12);
-  uint32_t x = (__byte_perm(w, w4, sel) & 0x000F000Fu) ^ 0x43084308u;
-  __nv_bfloat162 h = __hmul2(
-      __hsub2(*reinterpret_cast<__nv_bfloat162*>(&x),
-              __floats2bfloat162_rn(136.f, 136.f)),
-      s2);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 // kSteps: k-steps of 16 per scale group within a chunk, min(G, 128) / 16.
 template <int kSteps>
@@ -609,9 +394,9 @@ cudaError_t launch_wgmma(dim3 grid, const __nv_bfloat16* x, const int8_t* pk,
 
 }  // namespace
 
-// route: 0 = int4_simt_kernel, 1 = int4_mma_kernel<1>, 2 = int4_wgmma_kernel
-// (chosen by the wrapper, int4_matmul.py::route); dtype: 0 = float32, 1 =
-// bfloat16 (of x). grid_x, grid_y and the splits are the wrapper's plan
+// route: 0 = int4_simt_kernel, 2 = int4_wgmma_kernel, chosen by the
+// wrapper (int4_matmul.py::route; its decode route is pst_int4_decode in
+// int4_decode.cu); dtype: 0 = float32, 1 = bfloat16 (of x). grid_x, grid_y and the splits are the wrapper's plan
 // (int4_matmul.py::plan); colmap is fragment_columns() on the device
 // (route 2 only). ws is [splits, N, dout] fp32 (the output itself when
 // splits == 1); split z covers the groups [z * per_split, (z + 1) *
@@ -627,7 +412,7 @@ extern "C" int pst_int4_matmul(int route, int dtype, const void* x,
       per_split < 1 || (long long)splits * per_split < din / G ||
       grid_x < 1 || grid_y < 1 || grid_y > 65535 || splits > 65535)
     return (int)cudaErrorInvalidValue;
-  const bool mma = dtype == 1 && G % 16 == 0;
+  const bool tc = dtype == 1 && G % 16 == 0;  // the tensor cores take it
   const auto covers = [&](int rows, int cols, bool by_rows) {
     return by_rows ? (long long)grid_x * rows >= N && (long long)grid_y * cols >= dout
                    : (long long)grid_x * cols >= dout && (long long)grid_y * rows >= N;
@@ -641,7 +426,7 @@ extern "C" int pst_int4_matmul(int route, int dtype, const void* x,
   if (route == 2) {
     // G divides or is a multiple of the 128-row chunk, so a group's share
     // of every chunk is whole k-steps and the same size.
-    if (!mma || !(kWgChunk % G == 0 || G % kWgChunk == 0) || dout % 16 ||
+    if (!tc || !(kWgChunk % G == 0 || G % kWgChunk == 0) || dout % 16 ||
         din % 8 || colmap == nullptr ||
         reinterpret_cast<uintptr_t>(x) % 16 ||
         reinterpret_cast<uintptr_t>(packed) % 16 ||
@@ -659,14 +444,6 @@ extern "C" int pst_int4_matmul(int route, int dtype, const void* x,
       default: break;
     }
     if (e != cudaSuccess) return (int)e;
-  } else if (route == 1) {
-    if (!mma || !covers(16, kCols, false)) return (int)cudaErrorInvalidValue;
-    const bool vec_x = din % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    const bool vec_p =
-        dout % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
-    int4_mma_kernel<1><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), pk, sc, dst, N, din, dout, G,
-        per_split, vec_x, vec_p);
   } else if (route == 0) {
     if (!covers(kSimtRows, kCols, false)) return (int)cudaErrorInvalidValue;
     if (dtype == 0) {

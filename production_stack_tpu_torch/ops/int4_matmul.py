@@ -1,10 +1,10 @@
 """Matmul over packed int4 weights with group-wise scales (W4A16).
 
 ``int4_matmul`` replaces the JAX package's Pallas ``_kernel``
-(``production_stack_tpu/ops/int4_matmul.py``) with a CUDA C++ kernel for
-Hopper (``csrc/int4_matmul.cu``). It reads the packed weights from device
-memory at 0.5 byte per weight and never writes a dequantized weight
-matrix back. ``int4_matmul_plain`` beside it is the JAX package's XLA
+(``production_stack_tpu/ops/int4_matmul.py``) with CUDA C++ kernels for
+Hopper (``csrc/int4_matmul.cu``, ``csrc/int4_decode.cu``). They read the
+packed weights from device memory at 0.5 byte per weight and never write
+a dequantized weight matrix back. ``int4_matmul_plain`` beside it is the JAX package's XLA
 fallback: ``dequant_int4`` in the activation dtype, then a product with
 an fp32 result. The wrapper runs the plain version only for tensors on the
 CPU; on a CUDA tensor it launches the kernel or raises.
@@ -16,34 +16,47 @@ Layouts (the JAX package's, ``quantize_leaf_int4``):
   scales  [din/G, dout]   fp32, one per G-row group and output column
 Returns [N, dout] fp32.
 
-``launch_counts["int4"]`` counts kernel launches, ``route_counts`` splits
-them by kernel. ``route`` picks the kernel and ``plan`` its grid; the
-wgmma kernel's fragment-row -> output-column map (``fragment_columns``) is
-built here and handed to it, so the CPU tests reach all three.
+``launch_counts["int4"]`` counts calls that launch a kernel,
+``route_counts`` splits them by kernel, and ``route_counts["sum"]`` counts
+the second pass that adds the splits of the wgmma and CUDA-core routes
+(the decode route adds its splits in the same launch). ``route`` picks the
+kernel and ``plan`` its grid; the wgmma kernel's fragment-row -> output
+column map (``fragment_columns``) is built here and handed to it, and the
+decode kernel's (``decode_columns``) is written down here, so the CPU tests
+reach all of them.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
 launch_counts: Dict[str, int] = {"int4": 0}
-route_counts: Dict[str, int] = {"wgmma": 0, "mma": 0, "simt": 0}
+route_counts: Dict[str, int] = {"wgmma": 0, "decode": 0, "simt": 0, "sum": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}
-# Block tiles of the kernels (csrc/int4_matmul.cu): (rows of x, output
-# columns) per block.
-_TILES = {"wgmma": (128, 256), "mma": (16, 128), "simt": (8, 128)}
-_MMA_MAX_ROWS = 16  # N at or below which bf16 stays on int4_mma_kernel<1>
+_ROUTES = {"simt": 0, "wgmma": 2}
+# Block tiles of the wgmma and CUDA-core kernels (csrc/int4_matmul.cu):
+# (rows of x, output columns) per block. The decode kernel's depend on N
+# (``decode_tile``).
+_TILES = {"wgmma": (128, 256), "simt": (8, 128)}
+_DECODE_MAX_ROWS = 16  # N at or below which bf16 takes int4_decode_kernel
 _WGMMA_CHUNK = 128  # contraction rows the wgmma kernel stages at a time
-# Blocks the mma.sync and CUDA-core routes aim to start: four per SM of an
-# H100 (132 SMs). Measured at Llama-3-8B's decode shapes, two per SM left
-# the byte stream short of loads in flight, and eight added more split-sum
-# traffic than they saved.
-_TARGET_BLOCKS = 528
+_N_SM = 132  # SMs of an H100 SXM
+# Blocks the CUDA-core route aims to start: four per SM.
+_TARGET_BLOCKS = 4 * _N_SM
+# int4_decode_kernel (csrc/int4_decode.cu): blocks an SM holds, by (n8
+# tiles, m16 tiles a warp) (its launch bounds); the most splits of a tile
+# (the blocks of one portable cluster).
+_DECODE_BLOCKS_PER_SM = {(1, 8): 4, (1, 4): 4, (2, 4): 4, (4, 4): 3}
+_DECODE_MAX_SPLITS = 8
+# Shared memory a split's group scales may take (the kernel's 96 KB holds
+# them beside its other buffers); past it (a contraction of thousands of
+# small groups) bf16 goes to the CUDA cores.
+_DECODE_SCALE_BYTES = 64 * 1024
 # The wgmma route runs one block per SM (registers): it splits the
 # contraction only when its output tiles leave SMs idle.
 _WGMMA_TARGET_BLOCKS = 132
@@ -83,6 +96,36 @@ def _colmap(device: torch.device) -> torch.Tensor:
         _COLMAPS[device] = torch.tensor(fragment_columns(), dtype=torch.int32,
                                         device=device)
     return _COLMAPS[device]
+
+
+def decode_tile(N: int, din: int, dout: int, G: int) -> Tuple[int, int]:
+    """``int4_decode_kernel``'s tile for a call: (n8 tiles, m16 tiles a
+    warp). Up to 8 rows of x take one n8 tile, up to 16 two, more four (in
+    row tiles of 32). With one n8 tile a warp's columns are 128 (MT = 8,
+    16-byte loads) or 64 (MT = 4, 8-byte loads), whichever gives the
+    launch more blocks, up to one wave (the wider on a tie); with more,
+    64 (registers)."""
+    nt = 1 if N <= 8 else 2 if N <= 16 else 4
+    best = None
+    for mt in ((8, 4) if nt == 1 else (4,)):
+        tiles = math.ceil(N / (8 * nt)) * math.ceil(dout / (16 * mt))
+        wave = _DECODE_BLOCKS_PER_SM[(nt, mt)] * _N_SM
+        blocks = tiles * max(1, min(wave // tiles, din // G,
+                                    _DECODE_MAX_SPLITS))
+        if best is None or blocks > best[0]:
+            best = (blocks, mt)
+    return nt, best[1]
+
+
+def decode_columns(mt: int) -> List[List[List[int]]]:
+    """The decode kernel's map from A-fragment rows to output columns (the
+    weights are the m16 operand of the swapped product): entry
+    ``[lane][m]`` is the pair of columns, within the warp's 16 * mt, that
+    fragment rows gid and gid + 8 (gid = lane // 4) of m-tile ``m`` stand
+    for. Lane l holds the 2 * mt adjacent columns from 2 * mt * (l // 4),
+    so one load of a packed row fills its registers of every m-tile."""
+    return [[[2 * mt * (lane // 4) + 2 * m, 2 * mt * (lane // 4) + 2 * m + 1]
+             for m in range(mt)] for lane in range(32)]
 
 
 def dequant_int4(packed: torch.Tensor, scales: torch.Tensor,
@@ -153,29 +196,50 @@ def _check(x, packed, scales) -> int:
 def route(x: torch.Tensor, packed: torch.Tensor,
           scales: torch.Tensor) -> str:
     """The kernel for a call: ``"wgmma"`` (bf16 x, G % 16 == 0, more than
-    16 rows, dout % 16 == 0 and 16-byte aligned operands, as cp.async
-    needs, and G dividing or a multiple of the kernel's 128-row chunk),
-    ``"mma"`` (the other bf16 calls with G % 16 == 0: decode rows) or
-    ``"simt"`` (fp32 x, small groups)."""
+    ``_DECODE_MAX_ROWS`` rows, dout % 16 == 0 and 16-byte aligned operands,
+    as cp.async needs, and G dividing or a multiple of the kernel's 128-row
+    chunk), ``"decode"`` (the other bf16 calls with G % 16 == 0: decode
+    rows, and the shapes wgmma refuses) or ``"simt"`` (fp32 x, small
+    groups, and splits whose scales outgrow ``_DECODE_SCALE_BYTES``)."""
     G = x.shape[1] // scales.shape[0]
     if x.dtype != torch.bfloat16 or G % 16:
         return "simt"
     N, dout = x.shape[0], packed.shape[1]
-    if (N > _MMA_MAX_ROWS and dout % 16 == 0
+    if (N > _DECODE_MAX_ROWS and dout % 16 == 0
             and (_WGMMA_CHUNK % G == 0 or G % _WGMMA_CHUNK == 0)
             and all(t.data_ptr() % 16 == 0 for t in (x, packed, scales))):
         return "wgmma"
-    return "mma"
+    din = x.shape[1]
+    # Up to 1024 groups a split of at most 128 columns always fits.
+    if din // G > _DECODE_MAX_SPLITS * _DECODE_SCALE_BYTES // (128 * 4):
+        p = plan("decode", N, din, dout, G)
+        cols = 16 * decode_tile(N, din, dout, G)[1]
+        if p.per_split * cols * 4 > _DECODE_SCALE_BYTES:
+            return "simt"
+    return "decode"
 
 
 def plan(route_name: str, N: int, din: int, dout: int, G: int) -> Plan:
     """The launch of a route: its grid and the split of the contraction.
     Splits end on group boundaries and are only made where the output
-    tiles alone leave the card short of blocks."""
+    tiles alone leave the card short of blocks.
+
+    The decode route fills one wave of the blocks the card holds at once
+    (``_DECODE_BLOCKS_PER_SM`` an SM) with splits of at least one group,
+    at most ``_DECODE_MAX_SPLITS`` a tile (one thread block cluster)."""
+    groups = din // G
+    if route_name == "decode":
+        nt, mt = decode_tile(N, din, dout, G)
+        tiles_n, tiles_c = math.ceil(N / (8 * nt)), math.ceil(dout / (16 * mt))
+        wave = _DECODE_BLOCKS_PER_SM[(nt, mt)] * _N_SM
+        splits = max(1, min(wave // (tiles_n * tiles_c), groups,
+                            _DECODE_MAX_SPLITS))
+        per_split = math.ceil(groups / splits)
+        splits = math.ceil(groups / per_split)
+        return Plan((tiles_n, tiles_c, splits), splits, per_split)
     rows, cols = _TILES[route_name]
     tiles_n, tiles_c = math.ceil(N / rows), math.ceil(dout / cols)
     tiles = tiles_n * tiles_c
-    groups = din // G
     if route_name == "wgmma":
         want = _WGMMA_TARGET_BLOCKS // tiles
     else:
@@ -190,38 +254,68 @@ def plan(route_name: str, N: int, din: int, dout: int, G: int) -> Plan:
     return Plan(grid, splits, per_split)
 
 
+def decode_occupancy(nt: int, mt: int, per_split: int) -> int:
+    """Blocks of ``int4_decode_kernel`` with ``nt`` n8 and ``mt`` m16 tiles
+    that one SM of the current card holds at a split of ``per_split``
+    groups (the CUDA occupancy calculator, from its registers and shared
+    memory)."""
+    from ._build import load
+
+    blocks = ctypes.c_int(0)
+    rc = load().pst_int4_decode_occupancy(nt, mt, per_split,
+                                          ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: cudaError {rc}")
+    return blocks.value
+
+
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor,
                 scales: torch.Tensor) -> torch.Tensor:
     """``x @ dequant(packed, scales)`` in fp32. Any N >= 1, any dout, any
     even group size G dividing din."""
     if not x.is_cuda:
         return int4_matmul_plain(x, packed, scales)
-    G = _check(x, packed, scales)
+    _check(x, packed, scales)
+    return _launch(route(x, packed, scales), x, packed, scales)
+
+
+def _launch(name: str, x: torch.Tensor, packed: torch.Tensor,
+            scales: torch.Tensor) -> torch.Tensor:
+    """One call on route ``name`` (checked operands on the card)."""
     from ._build import load
 
     lib = load()
     N, din = x.shape
     dout = packed.shape[1]
+    G = din // scales.shape[0]
     out = torch.empty((N, dout), dtype=torch.float32, device=x.device)
     if N == 0 or dout == 0:
         return out
-    name = route(x, packed, scales)
     p = plan(name, N, din, dout, G)
-    # Partial sums of each split; a second pass adds them in a fixed order,
-    # so two runs give the same result.
-    ws = (torch.empty((p.splits, N, dout), dtype=torch.float32,
-                      device=x.device) if p.splits > 1 else out)
-    colmap = _colmap(x.device) if name == "wgmma" else None
-    rc = lib.pst_int4_matmul(
-        _ROUTES[name], _DTYPES[x.dtype], x.data_ptr(), packed.data_ptr(),
-        scales.data_ptr(), None if colmap is None else colmap.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), N, din, dout, G, p.grid[0],
-        p.grid[1], p.splits, p.per_split,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if name == "decode":
+        # The splits of a tile are one cluster and add up in the launch.
+        nt, mt = decode_tile(N, din, dout, G)
+        rc = lib.pst_int4_decode(
+            x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+            out.data_ptr(), N, din, dout, G, nt, mt, p.grid[0], p.grid[1],
+            p.splits, p.per_split, stream)
+    else:
+        # Partial sums of each split; a second pass adds them in a fixed
+        # order, so two runs give the same result.
+        ws = (torch.empty((p.splits, N, dout), dtype=torch.float32,
+                          device=x.device) if p.splits > 1 else out)
+        colmap = _colmap(x.device) if name == "wgmma" else None
+        rc = lib.pst_int4_matmul(
+            _ROUTES[name], _DTYPES[x.dtype], x.data_ptr(), packed.data_ptr(),
+            scales.data_ptr(), None if colmap is None else colmap.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), N, din, dout, G, p.grid[0],
+            p.grid[1], p.splits, p.per_split, stream)
     if rc != 0:
         raise RuntimeError(f"int4 matmul kernel ({name}) failed: "
                            f"cudaError {rc}")
     launch_counts["int4"] += 1
     route_counts[name] += 1
+    if name != "decode" and p.splits > 1:
+        route_counts["sum"] += 1
     return out

@@ -38,19 +38,24 @@ def _route(N, dout, G, dtype=torch.bfloat16):
 
 
 def test_int4_route_and_plan():
-    # bf16 with G % 16 == 0: decode rows on int4_mma_kernel<1>, more rows
+    # bf16 with G % 16 == 0: decode rows on int4_decode_kernel, more rows
     # on the wgmma kernel; fp32 and small groups on the CUDA cores.
-    assert _route(1, 14336, 128) == "mma"
-    assert _route(16, 14336, 128) == "mma"
+    assert _route(1, 14336, 128) == "decode"
+    assert _route(16, 14336, 128) == "decode"
     assert _route(17, 14336, 128) == "wgmma"
     assert _route(512, 1024, 128) == "wgmma"
     assert _route(2048, 4096, 64) == "wgmma"
     assert _route(512, 4096, 256) == "wgmma"
     assert _route(512, 4096, 128, dtype=torch.float32) == "simt"
     assert _route(512, 4096, 8) == "simt"
-    # What cp.async or the chunking cannot take stays on mma.sync.
-    assert _route(512, 40, 16) == "mma"  # dout % 16
-    assert _route(512, 4096, 48) == "mma"  # 48 neither divides 128 nor is a multiple
+    # What cp.async or the chunking cannot take goes to the decode route.
+    assert _route(512, 40, 16) == "decode"  # dout % 16
+    assert _route(512, 4096, 48) == "decode"  # 48 neither divides 128 nor is a multiple
+    # A contraction of thousands of 16-row groups: a split's scales would
+    # outgrow the decode kernel's shared memory.
+    x = torch.zeros((8, 16 * 4096), dtype=torch.bfloat16)
+    assert i4.route(x, torch.zeros((8 * 4096, 64), dtype=torch.int8),
+                    torch.ones((4096, 64))) == "simt"
 
     # Llama-3-8B at a 512-token chunk: the 14336-wide projections' output
     # tiles fill the card with no split; the 4096-wide ones split the
@@ -59,19 +64,25 @@ def test_int4_route_and_plan():
     assert i4.plan("wgmma", 512, 14336, 4096, 128) == i4.Plan((4, 16, 2), 2, 56)
     assert i4.plan("wgmma", 512, 4096, 4096, 128) == i4.Plan((4, 16, 2), 2, 16)
     assert i4.plan("wgmma", 512, 4096, 1024, 128) == i4.Plan((4, 4, 8), 8, 4)
-    # The decode route keeps its grid (column tiles first) and split.
-    assert i4.plan("mma", 8, 4096, 14336, 128) == i4.Plan((112, 1, 5), 5, 7)
+    # The decode route: row tiles first, 128-column tiles, 4 splits of 8
+    # groups (tests/test_torch_int4_decode.py holds its plan at every
+    # Llama-3-8B shape); the CUDA-core route keeps its grid and split.
+    assert i4.plan("decode", 8, 4096, 14336, 128) == i4.Plan((1, 112, 4), 4, 8)
     assert i4.plan("simt", 5, 1024, 256, 128) == i4.Plan((2, 1, 8), 8, 1)
 
-    for route in ("wgmma", "mma", "simt"):
-        rows, cols = i4._TILES[route]
+    for route in ("wgmma", "decode", "simt"):
         for N in (17, 64, 300, 512, 2048):
             for din, dout in ((4096, 4096), (4096, 1024), (4096, 14336),
                               (14336, 4096), (256, 208)):
                 groups = din // 128
+                if route == "decode":
+                    nt, mt = i4.decode_tile(N, din, dout, 128)
+                    rows, cols = 8 * nt, 16 * mt
+                else:
+                    rows, cols = i4._TILES[route]
                 p = i4.plan(route, N, din, dout, 128)
                 gx, gy, gz = p.grid
-                tiles_n, tiles_c = (gx, gy) if route == "wgmma" else (gy, gx)
+                tiles_n, tiles_c = (gy, gx) if route == "simt" else (gx, gy)
                 assert tiles_n * rows >= N > (tiles_n - 1) * rows
                 assert tiles_c * cols >= dout > (tiles_c - 1) * cols
                 assert gz == p.splits and 1 <= p.splits <= groups
