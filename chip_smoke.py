@@ -9,56 +9,75 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    versions; the CUDA kernels are built from ``production_stack_tpu_torch/
    ops/csrc`` (one nvcc per source, in parallel) and the build time
    printed.
-2. Each kernel against its plain PyTorch version: the attention kernels
-   at Llama-3-8B attention shapes (H=32, KH=8, hd=128, bs=32) in bf16 (the
-   wgmma prefill kernel also at every head-group size with a window that
-   starts mid-page and a softcap, a ragged T, three sequences at different
-   starts with a kv_len 0 row, T=2048 fresh and T=512 at start 3584), plus
-   small fp32 cases with a sliding window and a softcap and the other
-   head-group sizes; the decode-write kernel's cache must equal its plain
-   version's bit for bit; the split-KV decode and decode-write kernels in
-   bf16 at every head-group size with a window that starts mid-page and a
-   softcap, over ragged lengths (0 to 4096: short rows get empty splits),
-   at one sequence of 4096 (the most splits), with a write 5 positions
-   before a row's end and a dropped write, and two launches bit for bit
-   equal; the W4A16 int4 kernels at every Llama-3-8B projection shape:
+2. Each kernel against its plain PyTorch version, with bf16 q over a bf16
+   and over an e4m3 cache (``kv_cache_dtype="float8_e4m3fn"``): the
+   split-KV decode and decode-write kernels at Llama-3-8B attention shapes
+   (H=32, KH=8, hd=128, bs=32) over ragged lengths (0 to 4096: short rows
+   get empty splits), at one sequence of 4096 (the most splits), at every
+   head-group size G = 1 to 8 (G = 7 at qwen2-7b's H=28, KH=4) with a
+   window that starts mid-page and a softcap, with a write 5 positions
+   before a row's end and a dropped write (the caches bit for bit equal to
+   the plain version's; over e4m3, a K value of 500 writes the NaN byte
+   JAX's cast writes), and two launches bit for bit equal; the wgmma
+   prefill kernel at every G with a window and a softcap, a ragged T,
+   three sequences at different starts with a kv_len 0 row, T=2048 fresh
+   and T=512 at start 3584; the CUDA-core kernels in fp32 (and bf16) at
+   head_dim 16 (the tiny presets), 32, 64 and 128, over their own type and
+   e4m3; the W4A16 int4 kernels at every Llama-3-8B projection shape:
    the decode route at N in {1, 2, 8, 16} and every decode bucket up to
    its boundary, the wgmma route at N in {17, 64, 300, 512, 2048}; the
    decode route also at a ragged dout (208), an odd dout (201), a group
    size wgmma refuses (48, up to 300 rows) and unaligned x and packed
    pointers, two of its launches bit for bit equal, and the resident
    blocks its plan counts on (the occupancy calculator); small shapes in
-   fp32 against float64. Negative controls show the bf16 checks reject a
-   decode missing a key, a prefill whose rows each miss one key and an
-   int4 product with swapped nibbles (on both bf16 int4 routes); on CUDA
-   tensors a wrapper refuses what its kernel does not take.
+   fp32 against float64. Negative controls show the checks reject a
+   decode missing a key (bf16 and e4m3), a prefill whose rows each miss
+   one key and an int4 product with swapped nibbles (on both bf16 int4
+   routes); on CUDA tensors a wrapper refuses what its kernel does not
+   take.
 3. The full-width 32-layer Llama-3-8B (random bf16 weights from a seed):
    one 512-token prefill and 8 decode steps through the kernels and again
    through the gather path; the logits must agree, and every decode
-   launch must have taken the split-KV kernel. A decode step, a
-   sampled draw and a prefill chunk then run under CUDA's sync debug mode
-   set to raise (no host sync), and the unembed is held to a float32
-   product.
-4. Serving: the port's OpenAI server on localhost answers completions
-   (streamed, chunked-prefill, concurrent); the kernels' launch counters
-   are zeroed just before and must have grown by its end.
+   launch must have taken the split-KV kernel. 3c: the same over an e4m3
+   cache, with the unfused and with the fused write, against the gather
+   path over an e4m3 cache, and the page counts the engine's budget gives
+   in e4m3 and bf16. A decode step, a sampled draw and a prefill chunk
+   then run under CUDA's sync debug mode set to raise (no host sync), and
+   the unembed is held to a float32 product.
+4. Serving: the port's OpenAI server on localhost, configured by its own
+   flags, answers completions (streamed, chunked-prefill, concurrent);
+   the kernels' launch counters are zeroed just before and must have grown
+   by its end. 4c: a second server with ``--kv-cache-dtype float8_e4m3fn``
+   and ``PST_FUSED_KV_WRITE=1``: the e4m3 decode-write and prefill
+   counters must grow, and its page count is printed beside the bf16
+   one.
 3b. The same model int4-quantized on the card (streamed from the seed, the
    bf16 tree freed first), under ``PST_FUSED_KV_WRITE=1``: the same steps
    through the int4 and decode-write kernels, against the gather path on a
    copy whose int4 weights were dequantized to bf16 beforehand; every
    decode-row projection on the decode route, with no split-sum pass.
-4b. Serving int4 with ``PST_FUSED_KV_WRITE=1``: a second engine and server
-   after the first is shut down; the int4, decode-write and prefill
-   counters must grow.
+4b. Serving int4 with ``PST_FUSED_KV_WRITE=1``: a third server; the int4,
+   decode-write and prefill counters must grow.
+3d. The same model int8-quantized, against the gather path on its weights
+   dequantized to bf16 beforehand.
+3e. qwen2-7b at full width and 4 of its 28 layers (G = 7, QKV biases):
+   prefill and decode through the kernels over a bf16 and an e4m3 cache,
+   against the gather path.
+4d. ``EngineConfig(device="cuda")``, the default tiny preset (fp32,
+   head_dim 16), answers a completion on the CUDA-core kernels; so do the
+   same over an e4m3 cache and both with the fused write.
 5. Times of each kernel at the slice's shapes beside its plain version, a
    PyTorch call as a yardstick where one computes the same function, and
    its bound: decode at B=8, 1 and 64 at kv_len 4096 and at B=64 x 512
-   (with the split count of each), decode-write at B=8 x 4096; prefill at T=512 fresh, T=512 at start 3584 and T=2048
-   fresh; the int4 wgmma route at N=512 for the four projection shapes and
-   at N=2048; the int4 decode route at N in {1, 8, 16} (and the decode
-   buckets up to its boundary) for the four projection shapes; both bf16
-   int4 routes at N in {1, 8, 16, 32, 64} on the four shapes (the route
-   boundary's crossover).
+   (with the split count of each), decode-write at B=8 x 4096; prefill at
+   T=512 fresh, T=512 at start 3584 and T=2048 fresh, each over a bf16 and
+   an e4m3 cache (bound at the cache's bytes; the e4m3 yardstick is SDPA
+   on K/V up-cast to bf16 beforehand); the CUDA-core kernels at
+   tiny-llama-debug's heads; the int4 wgmma route at N=512 for the four
+   projection shapes and at N=2048; the int4 decode route at N in {1, 8,
+   16} (and the decode buckets up to its boundary) for the four projection
+   shapes; both bf16 int4 routes at N in {1, 8, 16, 32, 64} on the four
+   shapes (the route boundary's crossover).
 
 The line before the last is a JSON ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the
@@ -67,10 +86,13 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import gc
 import http.client
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -85,9 +107,19 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from production_stack_tpu_torch.engine.async_engine import AsyncLLMEngine  # noqa: E402
-from production_stack_tpu_torch.engine.config import EngineConfig  # noqa: E402
-from production_stack_tpu_torch.engine.server import serve_in_thread  # noqa: E402
+from production_stack_tpu_torch.engine.config import (  # noqa: E402
+    EngineConfig,
+    resolve_num_kv_blocks,
+)
+from production_stack_tpu_torch.engine.engine import LLMEngine  # noqa: E402
+from production_stack_tpu_torch.engine.sequence import SamplingParams  # noqa: E402
+from production_stack_tpu_torch.engine.server import (  # noqa: E402
+    engine_config_from_args,
+    parse_engine_args,
+    serve_in_thread,
+)
 from production_stack_tpu_torch.models.llama import (  # noqa: E402
+    QUANT_SUFFIX,
     Llama,
     quantize_leaf_int4,
     unembed_logits,
@@ -96,6 +128,8 @@ from production_stack_tpu_torch.models.registry import get_model_config  # noqa:
 from production_stack_tpu_torch.ops import _build  # noqa: E402
 from production_stack_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from production_stack_tpu_torch.ops import paged_attention_cuda as pac  # noqa: E402
+from production_stack_tpu_torch.ops.attention import gather_pages  # noqa: E402
+from production_stack_tpu_torch.ops.fp8 import E4M3, raw, to_cache_dtype  # noqa: E402
 from production_stack_tpu_torch.ops.sampling import (  # noqa: E402
     apply_logit_bias,
     sample_tokens_packed,
@@ -110,6 +144,7 @@ SCALE = HD ** -0.5
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # off the tensor cores: the CUDA-core kernels
 
 # bf16 keeps about 3 significant decimal digits and the kernel sums in a
 # different order than the plain version: 2e-2 of the largest magnitude of
@@ -125,19 +160,62 @@ INT4_FP32_REL = 1e-5
 MODEL_REL_ATOL = 5e-2
 
 SOURCE = "production_stack_tpu_torch/ops/csrc/decode_splitkv.cu"
+PREFILL_SOURCE = "production_stack_tpu_torch/ops/csrc/prefill_wgmma.cu"
+SIMT_SOURCE = "production_stack_tpu_torch/ops/csrc/paged_attention.cuh"
+PALLAS = "production_stack_tpu/ops/paged_attention_pallas.py"
+# One row per kernel and cache form. Its launches are the count of the
+# kernel's route (ROUTE_OF) over the path that runs it: the bf16 server
+# (decode, prefill), the int4 server (decode_write, int4, int4_wgmma), the
+# fp8 server (decode_write_e4m3, prefill_e4m3), the fp8 model's unfused
+# steps (decode_e4m3) and the default tiny engine (the CUDA-core rows).
 KERNELS = {
     "decode": dict(
         name="paged_attention_decode", route="cuda", source=SOURCE,
-        replaces="production_stack_tpu/ops/paged_attention_pallas.py:218",
+        replaces=f"{PALLAS}:218",
     ),
     "prefill": dict(
-        name="paged_attention_prefill", route="cuda",
-        source="production_stack_tpu_torch/ops/csrc/prefill_wgmma.cu",
-        replaces="production_stack_tpu/ops/paged_attention_pallas.py:430",
+        name="paged_attention_prefill", route="cuda", source=PREFILL_SOURCE,
+        replaces=f"{PALLAS}:430",
     ),
     "decode_write": dict(
         name="paged_attention_decode_write", route="cuda", source=SOURCE,
-        replaces="production_stack_tpu/ops/paged_attention_pallas.py:301",
+        replaces=f"{PALLAS}:301",
+    ),
+    "decode_e4m3": dict(
+        name="paged_attention_decode[e4m3 cache]", route="cuda",
+        source=SOURCE, replaces=f"{PALLAS}:218",
+    ),
+    "prefill_e4m3": dict(
+        name="paged_attention_prefill[e4m3 cache]", route="cuda",
+        source=PREFILL_SOURCE, replaces=f"{PALLAS}:430",
+    ),
+    "decode_write_e4m3": dict(
+        name="paged_attention_decode_write[e4m3 cache]", route="cuda",
+        source=SOURCE, replaces=f"{PALLAS}:301",
+    ),
+    "decode_simt": dict(
+        name="paged_attention_decode[CUDA cores]", route="cuda",
+        source=SIMT_SOURCE, replaces=f"{PALLAS}:218",
+    ),
+    "prefill_simt": dict(
+        name="paged_attention_prefill[CUDA cores]", route="cuda",
+        source=SIMT_SOURCE, replaces=f"{PALLAS}:430",
+    ),
+    "decode_write_simt": dict(
+        name="paged_attention_decode_write[CUDA cores]", route="cuda",
+        source=SIMT_SOURCE, replaces=f"{PALLAS}:301",
+    ),
+    "decode_simt_e4m3": dict(
+        name="paged_attention_decode[CUDA cores, e4m3 cache]", route="cuda",
+        source=SIMT_SOURCE, replaces=f"{PALLAS}:218",
+    ),
+    "prefill_simt_e4m3": dict(
+        name="paged_attention_prefill[CUDA cores, e4m3 cache]", route="cuda",
+        source=SIMT_SOURCE, replaces=f"{PALLAS}:430",
+    ),
+    "decode_write_simt_e4m3": dict(
+        name="paged_attention_decode_write[CUDA cores, e4m3 cache]",
+        route="cuda", source=SIMT_SOURCE, replaces=f"{PALLAS}:301",
     ),
     "int4": dict(
         name="int4_matmul", route="cuda",
@@ -149,12 +227,21 @@ KERNELS = {
         source="production_stack_tpu_torch/ops/csrc/int4_matmul.cu",
         replaces="production_stack_tpu/ops/int4_matmul.py:73",
     ),
+    "int4_simt": dict(
+        name="int4_matmul[CUDA cores]", route="cuda",
+        source="production_stack_tpu_torch/ops/csrc/int4_matmul.cu",
+        replaces="production_stack_tpu/ops/int4_matmul.py:73",
+    ),
 }
-# Which launch counter of the served run belongs to each row: the route
-# of the kernel the row times (the int4 wrapper's two bf16 routes are two
+# Which launch counter of a path belongs to each row: the route of the
+# kernel the row times (the int4 wrapper's two bf16 routes are two
 # kernels).
 ROUTE_OF = {"prefill": "prefill_wgmma", "int4": "decode", "int4_wgmma": "wgmma",
-            "decode": "decode_split", "decode_write": "decode_write_split"}
+            "decode": "decode_split", "decode_write": "decode_write_split",
+            "decode_e4m3": "decode_split_e4m3",
+            "prefill_e4m3": "prefill_wgmma_e4m3",
+            "decode_write_e4m3": "decode_write_split_e4m3",
+            **{k: k for k in KERNELS if "simt" in k}}
 max_err = {k: 0.0 for k in KERNELS}
 
 # Llama-3-8B projections: (din, dout) of wq/wo, wk/wv, w_gate/w_up, w_down.
@@ -196,10 +283,29 @@ def phase_toolchain() -> str:
     _build.load()
     log(f"[phase 1] kernels built in {time.perf_counter() - t0:.1f}s "
         f"(nvcc {_build.last_build_seconds:.1f}s) -> {_build.library_path()}")
-    ptxas = (_build.BUILD_DIR / "build.log").read_text().splitlines()
-    for line in ptxas:
-        if "registers" in line or "spill" in line:
-            log("  ptxas: " + line.strip())
+    # ptxas's report, one entry per kernel: registers and spill stores.
+    entries = []
+    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entries.append([m.group(1), 0, 0])
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and entries:
+            entries[-1][2] = max(entries[-1][2], int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entries:
+            entries[-1][1] = int(m.group(1))
+    spilled = [e for e in entries if e[2]]
+    names = [e[0] for e in spilled]
+    filt = os.path.join(os.path.dirname(_build.nvcc_path()), "cu++filt")
+    if names and os.path.exists(filt):
+        names = subprocess.run([filt, *names], capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    log(f"  ptxas: {len(entries)} kernels, at most "
+        f"{max((e[1] for e in entries), default=0)} registers; "
+        f"{len(spilled)} spill:")
+    for name, e in zip(names, spilled):
+        log(f"    {e[2]} bytes of spill stores, {e[1]} registers: {name}")
     return smi
 
 
@@ -209,15 +315,17 @@ def phase_toolchain() -> str:
 
 
 def make_case(gen, *, B, T, kv_lens, starts=None, dtype=torch.bfloat16,
-              h=H, kh=KH, layers=2, extra_pages=3):
-    """Random q and a paged cache whose pages each row reaches through a
-    shuffled block table. Returns q [B,T,h,HD], cache, tables, kv_lens,
-    starts (all on the card)."""
+              h=H, kh=KH, layers=2, extra_pages=3, cache_dtype=None, hd=HD):
+    """Random q and a paged cache (``cache_dtype``, default q's; e4m3 is
+    drawn in fp32 and cast by ``cast_e4m3``) whose pages each row reaches
+    through a shuffled block table. Returns q [B,T,h,hd], cache, tables,
+    kv_lens, starts (all on the card)."""
     W = max(-(-max(kv_lens) // BS), 1)
     nb = B * W + extra_pages
-    q = torch.randn((B, T, h, HD), generator=gen, device=DEV).to(dtype)
-    cache = torch.randn((layers, nb, 2, BS, kh * HD), generator=gen,
-                        device=DEV).to(dtype)
+    q = torch.randn((B, T, h, hd), generator=gen, device=DEV).to(dtype)
+    cache = torch.randn((layers, nb, 2, BS, kh * hd), generator=gen,
+                        device=DEV)
+    cache = to_cache_dtype(cache, cache_dtype or dtype)
     perm = torch.randperm(nb, generator=gen, device=DEV)[: B * W]
     tables = perm.reshape(B, W).to(torch.int32).contiguous()
     lens = torch.tensor(kv_lens, dtype=torch.int32, device=DEV)
@@ -251,9 +359,15 @@ def compare(kind: str, got: torch.Tensor, ref: torch.Tensor,
         check(ok, f"{label}: kernel disagrees with its plain version")
     else:
         log(f"  {label}: max|err| {err:.3e} (tol {FP32_ATOL:.1e})")
+        max_err[kind] = max(max_err[kind], err)
         check(err <= FP32_ATOL,
               f"{label}: kernel disagrees with its plain version")
     return err
+
+
+def form(kind: str, cache_dtype) -> str:
+    """The row of KERNELS for a wrapper and a cache type."""
+    return kind + ("_e4m3" if cache_dtype == E4M3 else "")
 
 
 def run_decode(q3, cache, tables, lens, layer, **kw):
@@ -274,55 +388,69 @@ def run_prefill(q, cache, tables, lens, starts, layer, **kw):
     return got, ref
 
 
-def phase_kernels() -> None:
+# Head groups G = H / KH from 1 to 8: Llama-3-8B's KH=8 with H = 8 .. 64,
+# and KH=4 for G = 5, 6 and 7 (qwen2-7b's 28 heads over 4).
+GROUP_SHAPES = ((8, 8), (16, 8), (24, 8), (H, KH), (20, 4), (24, 4), (28, 4),
+                (16, 2))
+
+
+def phase_kernels(cache_dtype=torch.bfloat16) -> None:
+    """bf16 q over a bf16 or an e4m3 cache: the split-KV decode and the
+    wgmma prefill kernels; with a bf16 cache also the fp32 kernels and the
+    wrappers' refusals."""
+    pac.reset_launch_counts()
     gen = torch.Generator(device=DEV)
     gen.manual_seed(1234)
+    tag = str(cache_dtype)[6:]
+    dec, pre = form("decode", cache_dtype), form("prefill", cache_dtype)
+    case = functools.partial(make_case, cache_dtype=cache_dtype)
 
-    # Decode, bf16: lengths 0 (padding row), 1, a page minus/at/plus one,
+    # Decode, bf16 q: lengths 0 (padding row), 1, a page minus/at/plus one,
     # about 4k.
     lens = [0, 1, 31, 32, 33, 4096, 4000, 777]
-    q, cache, tables, kl, _ = make_case(gen, B=8, T=1, kv_lens=lens)
+    q, cache, tables, kl, _ = case(gen, B=8, T=1, kv_lens=lens)
     got, ref = run_decode(q[:, 0], cache, tables, kl, 1)
     check(bool((got[0] == 0).all()), "decode: kv_len 0 row must be zeros")
-    compare("decode", got, ref, f"decode bf16 B=8 kv_lens={lens}")
+    compare(dec, got, ref, f"decode {tag} B=8 kv_lens={lens}")
     # The check has teeth: the plain version with the last key of each long
     # row dropped (a kernel that misses one key of 4096 or 4000) fails it.
     wrong = pac.paged_attention_decode_plain(q[:, 0], cache, tables, kl - 1, 1,
                                              scale=SCALE)
     ok, ratio, _ = bf16_row_check(wrong[5:7], ref[5:7])
-    log(f"  a decode that drops the last of 4096/4000 keys: worst err / row "
-        f"tol {ratio:.3f}")
-    check(not ok, "the bf16 row check passes a decode that drops a key")
+    log(f"  a {tag} decode that drops the last of 4096/4000 keys: worst err "
+        f"/ row tol {ratio:.3f}")
+    check(not ok, f"the row check passes a {tag} decode that drops a key")
     check(torch.equal(got, pac.paged_attention_decode(q[:, 0], cache, tables,
                                                       kl, 1, scale=SCALE)),
           "decode: two launches on the same inputs differ")
     # One sequence at 4096 (the most splits the plan gives), and every
     # head-group size with a window that starts mid-page and a softcap,
     # over the same ragged lengths (short rows get empty splits).
-    q, cache, tables, kl, _ = make_case(gen, B=1, T=1, kv_lens=[4096])
+    q, cache, tables, kl, _ = case(gen, B=1, T=1, kv_lens=[4096])
     got, ref = run_decode(q[:, 0], cache, tables, kl, 1)
-    compare("decode", got, ref, f"decode bf16 B=1 kv_len 4096 ({splits_of(q, cache, tables)} splits)")
-    for h, kh in ((8, 8), (16, 8), (H, KH), (16, 2)):
-        q, cache, tables, kl, _ = make_case(gen, B=8, T=1, kv_lens=lens,
-                                            h=h, kh=kh)
+    compare(dec, got, ref, f"decode {tag} B=1 kv_len 4096 "
+            f"({splits_of(q, cache, tables)} splits)")
+    for h, kh in GROUP_SHAPES:
+        q, cache, tables, kl, _ = case(gen, B=8, T=1, kv_lens=lens, h=h,
+                                       kh=kh)
         got, ref = run_decode(q[:, 0], cache, tables, kl, 0, window=45,
                               softcap=30.0)
         check(bool((got[0] == 0).all()), "decode: kv_len 0 row must be zeros")
-        compare("decode", got, ref,
-                f"decode bf16 G={h // kh} window=45 softcap=30 "
-                f"({splits_of(q, cache, tables)} splits)")
-    check(pac.route_counts["decode_simt"] == 0,
-          "a bf16 decode took the fp32 kernel")
+        compare(dec, got, ref,
+                f"decode {tag} G={h // kh} (H={h}, KH={kh}) window=45 "
+                f"softcap=30 ({splits_of(q, cache, tables)} splits)")
+    check(sum(n for k, n in pac.route_counts.items() if "simt" in k) == 0,
+          "a bf16 decode took a CUDA-core kernel")
 
-    # Prefill, bf16 (the wgmma kernel): T=512 fresh, T=512 continuing at
-    # 1000 and at 3584, T=300 ragged, T=2048 fresh.
+    # Prefill (the wgmma kernel): T=512 fresh, T=512 continuing at 1000 and
+    # at 3584, T=300 ragged, T=2048 fresh.
     for T, start in ((512, 0), (512, 1000), (512, 3584), (300, 77),
                      (2048, 0)):
-        q, cache, tables, kl, st = make_case(
+        q, cache, tables, kl, st = case(
             gen, B=2, T=T, kv_lens=[start + T, start + T],
             starts=[start, start])
         got, ref = run_prefill(q, cache, tables, kl, st, 1)
-        compare("prefill", got, ref, f"prefill bf16 B=2 T={T} start={start}")
+        compare(pre, got, ref, f"prefill {tag} B=2 T={T} start={start}")
         if T == 512 and start == 0:
             # The check has teeth: the plain version with every row's last
             # key dropped (each row one position earlier) fails it, on the
@@ -330,56 +458,59 @@ def phase_kernels() -> None:
             wrong = pac.paged_attention_prefill_plain(
                 q, cache, tables, kl, st - 1, 1, scale=SCALE)
             ok, ratio, _ = bf16_row_check(got[:, 1:], wrong[:, 1:])
-            log(f"  a prefill whose rows each miss their last key: worst err "
-                f"/ row tol {ratio:.3f}")
-            check(not ok, "the bf16 row check passes a prefill that drops a key")
+            log(f"  a {tag} prefill whose rows each miss their last key: "
+                f"worst err / row tol {ratio:.3f}")
+            check(not ok, "the row check passes a prefill that drops a key")
     # Three sequences at different starts, the middle one with kv_len 0:
     # its rows see no key and must be exactly zero.
-    q, cache, tables, kl, st = make_case(
+    q, cache, tables, kl, st = case(
         gen, B=3, T=100, kv_lens=[100, 0, 1100], starts=[0, 300, 1000])
     got, ref = run_prefill(q, cache, tables, kl, st, 1)
     check(bool((got[1] == 0).all()), "prefill: kv_len 0 rows must be zeros")
-    compare("prefill", got, ref,
-            "prefill bf16 B=3 T=100 starts=[0, 300, 1000] kv_lens=[100, 0, "
+    compare(pre, got, ref,
+            f"prefill {tag} B=3 T=100 starts=[0, 300, 1000] kv_lens=[100, 0, "
             "1100]")
     # Every head-group size, with a window that starts mid-page and a
-    # softcap.
-    for h, kh in ((8, 8), (16, 8), (H, KH), (16, 2)):
-        q, cache, tables, kl, st = make_case(
+    # softcap: at G = 3, 5, 6, 7 the tile's last rows are padding.
+    for h, kh in GROUP_SHAPES:
+        q, cache, tables, kl, st = case(
             gen, B=2, T=70, kv_lens=[270, 70], starts=[200, 0], h=h, kh=kh)
         got, ref = run_prefill(q, cache, tables, kl, st, 0, window=45,
                                softcap=30.0)
-        compare("prefill", got, ref,
-                f"prefill bf16 G={h // kh} T=70 window=45 softcap=30")
-    check(pac.route_counts["prefill_simt"] == 0,
-          "a bf16 prefill took the fp32 kernel")
+        compare(pre, got, ref,
+                f"prefill {tag} G={h // kh} (H={h}, KH={kh}) T=70 window=45 "
+                "softcap=30")
+    check(sum(n for k, n in pac.route_counts.items() if "simt" in k) == 0,
+          "a bf16 prefill took a CUDA-core kernel")
+    if cache_dtype == E4M3:
+        return
 
     # fp32 with a window that starts mid-page and a softcap, and every head
-    # group size the kernels are compiled for.
-    for h, kh in ((H, KH), (8, 8), (16, 2), (4, 2)):
+    # group size.
+    for h, kh in ((H, KH), (8, 8), (16, 2), (4, 2), (28, 4), (24, 8)):
         lens = [0, 50, 300, 1000]
         q, cache, tables, kl, _ = make_case(
             gen, B=4, T=1, kv_lens=lens, dtype=torch.float32, h=h, kh=kh)
         got, ref = run_decode(q[:, 0], cache, tables, kl, 0, window=100,
                               softcap=30.0)
-        compare("decode", got, ref,
+        compare("decode_simt", got, ref,
                 f"decode fp32 H={h} KH={kh} window=100 softcap=30")
         q, cache, tables, kl, st = make_case(
             gen, B=2, T=70, kv_lens=[270, 70], starts=[200, 0],
             dtype=torch.float32, h=h, kh=kh)
         got, ref = run_prefill(q, cache, tables, kl, st, 0, window=45,
                                softcap=30.0)
-        compare("prefill", got, ref,
+        compare("prefill_simt", got, ref,
                 f"prefill fp32 H={h} KH={kh} T=70 window=45 softcap=30")
         got, ref = run_prefill(q, cache, tables, kl, st, 1)
-        compare("prefill", got, ref, f"prefill fp32 H={h} KH={kh} T=70")
+        compare("prefill_simt", got, ref, f"prefill fp32 H={h} KH={kh} T=70")
 
     # On the card a wrapper launches its kernel or raises: never the plain
     # version.
     q, cache, tables, kl, _ = make_case(gen, B=2, T=1, kv_lens=[5, 9])
     refused = (
-        (NotImplementedError, (q[:, 0], cache.to(torch.float8_e4m3fn))),
-        (ValueError, (q[:, 0, :, :64].contiguous(), cache[..., :512].contiguous())),
+        (TypeError, (q[:, 0], cache.to(torch.float8_e5m2))),
+        (ValueError, (q[:, 0].reshape(2, 16, 256), cache)),  # head_dim 256
         (ValueError, (q[:, 0].transpose(0, 1).contiguous().transpose(0, 1), cache)),
     )
     for err, (qq, cc) in refused:
@@ -388,7 +519,63 @@ def phase_kernels() -> None:
         except err:
             continue
         raise AssertionError(f"decode wrapper accepted what it must refuse ({err})")
-    log("  wrappers refuse fp8 caches, head_dim 64 and non-contiguous q")
+    log("  wrappers refuse e5m2 caches, head_dim 256 and non-contiguous q")
+
+
+def phase_simt_geometries() -> None:
+    """The CUDA-core kernels at head_dim 16 (the tiny presets), 32 and 64,
+    with fp32 and bf16 q, over a cache in q's type and in e4m3: decode,
+    decode-write and prefill against their plain versions."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2468)
+    lens = [0, 1, 17, 300, 1000, 64]
+    for dt, cdt, h, kh, hd in (
+            (torch.float32, torch.float32, 8, 8, 16),
+            (torch.bfloat16, torch.bfloat16, 8, 2, 16),
+            (torch.float32, E4M3, 8, 8, 16),
+            (torch.bfloat16, E4M3, 28, 4, 32),
+            (torch.float32, E4M3, H, KH, HD),
+            (torch.bfloat16, torch.bfloat16, 24, 8, 64)):
+        tag = f"{str(dt)[6:]} q, {str(cdt)[6:]} cache, H={h} KH={kh} hd={hd}"
+        pac.reset_launch_counts()
+        q, cache, tables, kl, _ = make_case(
+            gen, B=6, T=1, kv_lens=lens, dtype=dt, h=h, kh=kh, hd=hd,
+            cache_dtype=cdt)
+        got, ref = run_decode(q[:, 0], cache, tables, kl, 1, window=100,
+                              softcap=30.0)
+        compare(form("decode_simt", cdt), got, ref,
+                f"decode {tag} window=100 softcap=30")
+        pos = [max(n - 1, 0) for n in lens]
+        pos[4] -= 5
+        wf = write_slots(tables, pos, [0], cache.shape[1])
+        k_new = torch.randn((6, kh * hd), generator=gen, device=DEV).to(dt)
+        v_new = torch.randn((6, kh * hd), generator=gen, device=DEV).to(dt)
+        if cdt == E4M3:  # row 1 reads its own write: a NaN K, edge V values
+            k_new[1, 0] = -470.0
+            v_new[2, :3] = torch.tensor([452.0, -460.0, 464.0])
+        got, ref = run_decode_write(q[:, 0], cache, tables, kl, 0, k_new,
+                                    v_new, wf)
+        if cdt == E4M3:
+            got, ref, nan_rows = same_nan(got, ref, f"decode_write {tag}")
+            check(nan_rows == h // kh, f"decode_write {tag}: {nan_rows} NaN "
+                  f"heads, expected row 1's {h // kh}")
+        compare(form("decode_write_simt", cdt), got, ref,
+                f"decode_write {tag} (row 0 dropped"
+                + (", row 1's K of -470 cast to NaN as by cast_e4m3"
+                   if cdt == E4M3 else "") + "): caches equal;")
+        q, cache, tables, kl, st = make_case(
+            gen, B=2, T=70, kv_lens=[270, 70], starts=[200, 0], dtype=dt,
+            h=h, kh=kh, hd=hd, cache_dtype=cdt)
+        got, ref = run_prefill(q, cache, tables, kl, st, 0, window=45,
+                               softcap=30.0)
+        compare(form("prefill_simt", cdt), got, ref,
+                f"prefill {tag} T=70 window=45 softcap=30")
+        want = {k: 0 for k in pac.route_counts}
+        for kind in ("decode", "decode_write", "prefill"):
+            want[form(kind + "_simt", cdt)] = 1
+        check(pac.route_counts == want,
+              f"{tag}: routes {pac.route_counts}, expected the CUDA-core "
+              "kernels")
 
 
 def write_slots(tables, positions, drop_rows, nb):
@@ -407,6 +594,17 @@ def splits_of(q, cache, tables) -> int:
                            torch.cuda.get_device_properties(0).multi_processor_count)
 
 
+def same_nan(got, ref, label):
+    """The rows a K/V value past e4m3's range turned NaN: the kernel's NaNs
+    must be the plain version's. Returns both with those rows zeroed, for
+    the value check of the others."""
+    gn, rn = torch.isnan(got), torch.isnan(ref)
+    check(torch.equal(gn, rn), f"{label}: the kernel's NaNs are not the "
+          "plain version's")
+    rows = rn.any(-1, keepdim=True)
+    return got.masked_fill(rows, 0), ref.masked_fill(rows, 0), int(rows.sum())
+
+
 def run_decode_write(q3, cache, tables, lens, layer, k_new, v_new, wf, **kw):
     """Kernel and plain version, each on its own copy of the cache; the
     caches must come out bit for bit equal, and the rows must have landed."""
@@ -416,31 +614,55 @@ def run_decode_write(q3, cache, tables, lens, layer, k_new, v_new, wf, **kw):
     ref = pac.paged_attention_decode_write_plain(
         q3, ref_cache, tables, lens, layer, k_new, v_new, wf, scale=SCALE, **kw)
     torch.cuda.synchronize()
-    check(torch.equal(got_cache, ref_cache),
+    check(torch.equal(raw(got_cache), raw(ref_cache)),
           "decode_write: the kernel's cache differs from its plain version's")
-    check(not torch.equal(got_cache, cache), "decode_write: nothing written")
+    check(not torch.equal(raw(got_cache), raw(cache)),
+          "decode_write: nothing written")
     return got, ref
 
 
-def phase_decode_write_kernels() -> None:
+def phase_decode_write_kernels(cache_dtype=torch.bfloat16) -> None:
+    pac.reset_launch_counts()
     gen = torch.Generator(device=DEV)
     gen.manual_seed(4321)
-    # bf16 at the decode shapes: lengths 1, 33, ~4k; row 3 drops its write
-    # (and reads its cache as it was), row 2 writes 5 positions before its
-    # end (the kernel reads the row back from the cache, wherever it is).
+    tag = str(cache_dtype)[6:]
+    kind = form("decode_write", cache_dtype)
+    case = functools.partial(make_case, cache_dtype=cache_dtype)
+    # bf16 q at the decode shapes: lengths 1, 33, ~4k; row 3 drops its
+    # write (and reads its cache as it was), row 2 writes 5 positions
+    # before its end (the kernel reads the row back from the cache, wherever
+    # it is).
     lens = [1, 33, 4096, 4000, 777, 31, 32, 100]
-    q, cache, tables, kl, _ = make_case(gen, B=8, T=1, kv_lens=lens)
+    q, cache, tables, kl, _ = case(gen, B=8, T=1, kv_lens=lens)
     pos = [n - 1 for n in lens]
     pos[2] -= 5
     wf = write_slots(tables, pos, [3], cache.shape[1])
     k_new = torch.randn((8, KH * HD), generator=gen, device=DEV).bfloat16()
     v_new = torch.randn((8, KH * HD), generator=gen, device=DEV).bfloat16()
+    if cache_dtype == E4M3:
+        # The kernel casts the rows it writes; the plain version by
+        # cast_e4m3 (JAX's cast). A K value past e4m3's range is NaN: row 4
+        # reads the row it writes, so its 4 heads over kv head 3 turn NaN,
+        # in the kernel as in the plain version. V values at the range's
+        # edge round to +-448.
+        k_new[4, 3 * HD + 7] = 500.0
+        v_new[1, :3] = torch.tensor([452.0, -460.0, 464.0])
     got, ref = run_decode_write(q[:, 0], cache, tables, kl, 1, k_new, v_new, wf)
-    compare("decode_write", got, ref,
-            f"decode_write bf16 B=8 kv_lens={lens} (row 3 dropped): caches "
-            "equal;")
+    nan_rows = 0
+    if cache_dtype == E4M3:
+        got, ref, nan_rows = same_nan(got, ref, f"decode_write {tag}")
+        check(nan_rows == H // KH,
+              f"decode_write {tag}: {nan_rows} NaN heads, expected row 4's "
+              f"{H // KH}")
+    compare(kind, got, ref,
+            f"decode_write {tag} B=8 kv_lens={lens} (row 3 dropped"
+            + (", a K value of 500 -> NaN in the cache and in row 4's "
+               f"{nan_rows} heads, as in the plain version"
+               if nan_rows else "") + "): caches equal;")
     again = pac.paged_attention_decode_write(
         q[:, 0], cache.clone(), tables, kl, 1, k_new, v_new, wf, scale=SCALE)
+    if nan_rows:
+        again = again.masked_fill(torch.isnan(again).any(-1, keepdim=True), 0)
     check(torch.equal(got, again),
           "decode_write: two launches on the same inputs differ")
     # The ragged lengths of the decode checks (the kv_len 0 row drops its
@@ -448,9 +670,9 @@ def phase_decode_write_kernels() -> None:
     # size with a window that starts mid-page and a softcap; one sequence
     # at 4096 with the most splits.
     lens = [0, 1, 31, 32, 33, 4096, 4000, 777]
-    for h, kh in ((8, 8), (16, 8), (H, KH), (16, 2)):
-        q, cache, tables, kl, _ = make_case(gen, B=8, T=1, kv_lens=lens,
-                                            h=h, kh=kh)
+    for h, kh in GROUP_SHAPES:
+        q, cache, tables, kl, _ = case(gen, B=8, T=1, kv_lens=lens, h=h,
+                                       kh=kh)
         pos = [max(n - 1, 0) for n in lens]
         pos[5] -= 5
         wf = write_slots(tables, pos, [0], cache.shape[1])
@@ -460,19 +682,22 @@ def phase_decode_write_kernels() -> None:
                                     v_new, wf, window=45, softcap=30.0)
         check(bool((got[0] == 0).all()),
               "decode_write: kv_len 0 row must be zeros")
-        compare("decode_write", got, ref,
-                f"decode_write bf16 G={h // kh} window=45 softcap=30 (row 0 "
-                f"dropped, {splits_of(q, cache, tables)} splits): caches equal;")
-    q, cache, tables, kl, _ = make_case(gen, B=1, T=1, kv_lens=[4096])
+        compare(kind, got, ref,
+                f"decode_write {tag} G={h // kh} (H={h}, KH={kh}) window=45 "
+                f"softcap=30 (row 0 dropped, {splits_of(q, cache, tables)} "
+                "splits): caches equal;")
+    q, cache, tables, kl, _ = case(gen, B=1, T=1, kv_lens=[4096])
     wf = write_slots(tables, [4095], [], cache.shape[1])
     k_new = torch.randn((1, KH * HD), generator=gen, device=DEV).bfloat16()
     v_new = torch.randn((1, KH * HD), generator=gen, device=DEV).bfloat16()
     got, ref = run_decode_write(q[:, 0], cache, tables, kl, 1, k_new, v_new, wf)
-    compare("decode_write", got, ref,
-            f"decode_write bf16 B=1 kv_len 4096 ({splits_of(q, cache, tables)} "
-            "splits): caches equal;")
-    check(pac.route_counts["decode_write_simt"] == 0,
-          "a bf16 decode-write took the fp32 kernel")
+    compare(kind, got, ref,
+            f"decode_write {tag} B=1 kv_len 4096 "
+            f"({splits_of(q, cache, tables)} splits): caches equal;")
+    check(sum(n for k, n in pac.route_counts.items() if "simt" in k) == 0,
+          "a bf16 decode-write took a CUDA-core kernel")
+    if cache_dtype == E4M3:
+        return
     # fp32 with a window that starts mid-page and a softcap.
     lens = [50, 300, 1000, 7]
     q, cache, tables, kl, _ = make_case(gen, B=4, T=1, kv_lens=lens,
@@ -482,7 +707,7 @@ def phase_decode_write_kernels() -> None:
     v_new = torch.randn((4, KH * HD), generator=gen, device=DEV)
     got, ref = run_decode_write(q[:, 0], cache, tables, kl, 0, k_new, v_new,
                                 wf, window=100, softcap=30.0)
-    compare("decode_write", got, ref,
+    compare("decode_write_simt", got, ref,
             "decode_write fp32 window=100 softcap=30 (row 1 dropped): caches "
             "equal;")
 
@@ -654,13 +879,15 @@ def _leaves(tree):
             yield v
 
 
-def drive_model(model, params, impl: str, prompt, decode_tokens):
+def drive_model(model, params, impl: str, prompt, decode_tokens,
+                kv_dtype=None):
     """One prefill of ``prompt`` then one decode step per token of
-    ``decode_tokens``; returns the logits of every step [1 + n, V]."""
+    ``decode_tokens``, on a cache of ``kv_dtype`` (default the model's);
+    returns the logits of every step [1 + n, V] and the cache."""
     cfg = model.cfg
     T = len(prompt)
     nb = -(-(T + len(decode_tokens)) // BS) + 1
-    cache = model.make_kv_cache(nb, BS, device=DEV)
+    cache = model.make_kv_cache(nb, BS, dtype=kv_dtype, device=DEV)
     tables = torch.arange(nb - 1, dtype=torch.int32, device=DEV)[None].flip(1)
     tables = tables.contiguous()  # pages in reverse: a real indirection
     drop = nb * BS
@@ -696,11 +923,32 @@ def drive_model(model, params, impl: str, prompt, decode_tokens):
     return torch.stack(out), cache
 
 
-def phase_model(model, params) -> dict:
-    cfg = model.cfg
+def model_prompt(cfg):
+    """The model phases' 512-token prompt and 8 decode tokens (seed 7)."""
     gen = torch.Generator().manual_seed(7)
     prompt = torch.randint(1, cfg.vocab_size, (512,), generator=gen).tolist()
     decode_tokens = torch.randint(1, cfg.vocab_size, (8,), generator=gen).tolist()
+    return prompt, decode_tokens
+
+
+def agree(got, ref, label) -> str:
+    """Kernel-path logits against the gather path's: finite, of the
+    expected shape, within MODEL_REL_ATOL of max|ref|. Returns a summary."""
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite logits (cuda)")
+    check(bool(torch.isfinite(ref).all()), f"{label}: non-finite logits (gather)")
+    check(got.shape == ref.shape, f"{label}: logits shape {tuple(got.shape)}")
+    err = float((got - ref).abs().max())
+    tol = MODEL_REL_ATOL * float(ref.abs().max())
+    agreed = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    check(err <= tol, f"{label}: the kernel path disagrees with the gather "
+          f"path ({err:.4f} > {tol:.4f})")
+    return (f"max|logit| {float(ref.abs().max()):.3f}, max|cuda - gather| "
+            f"{err:.4f} (tol {tol:.4f}), argmax agreement {agreed:.2f}")
+
+
+def phase_model(model, params) -> dict:
+    cfg = model.cfg
+    prompt, decode_tokens = model_prompt(cfg)
 
     pac.reset_launch_counts()
     t0 = time.perf_counter()
@@ -721,20 +969,177 @@ def phase_model(model, params) -> dict:
     ref, _ = drive_model(model, params, "gather", prompt, decode_tokens)
     t_gather = time.perf_counter() - t0
 
-    check(bool(torch.isfinite(got).all()), "model: non-finite logits (cuda)")
-    check(bool(torch.isfinite(ref).all()), "model: non-finite logits (gather)")
     check(got.shape == (1 + len(decode_tokens), cfg.vocab_size),
           f"model: logits shape {tuple(got.shape)}")
-    err = float((got - ref).abs().max())
-    tol = MODEL_REL_ATOL * float(ref.abs().max())
-    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
-    log(f"  512-token prefill + 8 decode steps: max|logit| "
-        f"{float(ref.abs().max()):.3f}, max|cuda - gather| {err:.4f} "
-        f"(tol {tol:.4f}), argmax agreement {agree:.2f}; "
+    log(f"  512-token prefill + 8 decode steps: {agree(got, ref, 'model')}; "
         f"cuda {t_cuda:.2f}s, gather {t_gather:.2f}s (first calls)")
-    check(err <= tol, "model: the kernel path disagrees with the gather path")
     return {"prefill_chunk": counts["prefill"],
             "decode_step": counts["decode"] // len(decode_tokens)}
+
+
+def expect_routes(want: dict, label: str) -> None:
+    """The attention routes launched since the last reset are ``want``'s
+    counts, every other route none."""
+    full = {k: 0 for k in pac.route_counts}
+    full.update(want)
+    check(pac.route_counts == full,
+          f"{label}: routes {pac.route_counts}, expected {want}")
+
+
+def phase_fp8_model(model, params) -> dict:
+    """The full-width model's steps over an e4m3 cache: through the
+    kernels with the unfused and the fused write, each against the gather
+    path over an e4m3 cache. Returns the e4m3 kernels' launches a step,
+    and their launches over this path (by row)."""
+    cfg = model.cfg
+    L = cfg.num_layers
+    prompt, decode_tokens = model_prompt(cfg)
+    n = len(decode_tokens)
+    pages = {dt: resolve_num_kv_blocks(EngineConfig(model=MODEL,
+                                                    kv_cache_dtype=dt), cfg, DEV)
+             for dt in (None, "float8_e4m3fn")}
+    log(f"[phase 3c] {MODEL} over an e4m3 cache: the engine's budget holds "
+        f"{pages['float8_e4m3fn']} e4m3 pages beside the bf16 weights "
+        f"({pages[None]} bf16 pages), {BS} tokens each")
+    ref, ref_cache = drive_model(model, params, "gather", prompt,
+                                 decode_tokens, E4M3)
+    check(ref_cache.dtype == E4M3, "gather path: the cache is not e4m3")
+    per_step, path = {}, {}
+    for fused in (False, True):
+        if fused:
+            os.environ["PST_FUSED_KV_WRITE"] = "1"
+        pac.reset_launch_counts()
+        got, cache = drive_model(model, params, "cuda", prompt,
+                                 decode_tokens, E4M3)
+        os.environ.pop("PST_FUSED_KV_WRITE", None)
+        dec = "decode_write_split_e4m3" if fused else "decode_split_e4m3"
+        expect_routes({"prefill_wgmma_e4m3": L, dec: L * n},
+                      f"e4m3 model (fused write: {fused})")
+        check(cache.dtype == E4M3, "kernel path: the cache is not e4m3")
+        log(f"  e4m3 cache, {'fused' if fused else 'unfused'} write: 512-token "
+            f"prefill + {n} decode steps, {L} e4m3 prefill and {L * n} "
+            f"{'decode-write' if fused else 'decode'} launches: "
+            f"{agree(got, ref, 'e4m3 model')}")
+        kind = form("decode_write" if fused else "decode", E4M3)
+        per_step[kind] = L
+        path[kind] = pac.route_counts[dec]
+    per_step["prefill_e4m3"] = L
+    return per_step, path
+
+
+def phase_int8_model(model) -> None:
+    """The full-width model with int8 weights drawn on the card: one
+    512-token prefill and 8 decode steps through the attention kernels,
+    against the gather path on a copy whose int8 weights were dequantized
+    to bf16 beforehand."""
+    cfg = model.cfg
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init_params(gen, DEV, quantization="int8")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[phase 3d] {MODEL} int8 on {DEV} in {time.perf_counter() - t0:.1f}s: "
+        f"resident weights {nbytes / 1e9:.3f} GB")
+    prompt, decode_tokens = model_prompt(cfg)
+    pac.reset_launch_counts()
+    got, _ = drive_model(model, params, "cuda", prompt, decode_tokens)
+    L, n = cfg.num_layers, len(decode_tokens)
+    expect_routes({"prefill_wgmma": L, "decode_split": L * n}, "int8 model")
+    ref_params = dequantized_copy(params)
+    del params
+    ref, _ = drive_model(model, ref_params, "gather", prompt, decode_tokens)
+    del ref_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  int8: 512-token prefill + {n} decode steps against the "
+        f"dequantized gather path: {agree(got, ref, 'int8 model')}")
+
+
+def phase_qwen2(layers: int = 4) -> dict:
+    """qwen2-7b at full width (H=28 over KH=4: G=7; QKV biases, drawn
+    non-zero here) and ``layers`` of its 28 layers: one 512-token prefill
+    and 8 decode steps through the kernels, over a bf16 and an e4m3 cache,
+    against the gather path."""
+    cfg = dataclasses.replace(get_model_config("qwen2-7b"), num_layers=layers)
+    model = Llama(cfg)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    params = model.init_params(gen, DEV)
+    for name in ("bq", "bk", "bv"):
+        b = params["layers"][name]
+        b.copy_(torch.randn(b.shape, generator=gen, device=DEV) * 0.5)
+    log(f"[phase 3e] qwen2-7b at full width, {layers} of its 28 layers: "
+        f"H={cfg.num_heads}, KH={cfg.num_kv_heads} (G="
+        f"{cfg.num_heads // cfg.num_kv_heads}), hd={cfg.head_dim}, vocab "
+        f"{cfg.vocab_size}")
+    prompt, decode_tokens = model_prompt(cfg)
+    L, n = layers, len(decode_tokens)
+    counts = {}
+    for kv in (None, E4M3):
+        ref, _ = drive_model(model, params, "gather", prompt, decode_tokens, kv)
+        pac.reset_launch_counts()
+        got, _ = drive_model(model, params, "cuda", prompt, decode_tokens, kv)
+        want = {form("prefill_wgmma", kv): L, form("decode_split", kv): L * n}
+        expect_routes(want, f"qwen2-7b ({kv or 'bf16'} cache)")
+        counts.update(want)
+        log(f"  {kv or 'bf16'} cache: {agree(got, ref, 'qwen2-7b')}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_tiny_engines() -> dict:
+    """The default engine, ``EngineConfig(device="cuda")`` (the fp32
+    tiny-llama-debug, head_dim 16), answers a completion on the CUDA-core
+    kernels; then the same over an e4m3 cache, both with the fused write,
+    and with int4 weights (fp32 x: the int4 kernel's CUDA-core route).
+    Each path's launches are counted from zero; returns them by route."""
+    prompt = list(range(5, 300))
+    counts = {}
+    for kv, fused, quant in ((None, False, None), (None, True, None),
+                             ("float8_e4m3fn", False, None),
+                             ("float8_e4m3fn", True, None),
+                             (None, False, "int4")):
+        if fused:
+            os.environ["PST_FUSED_KV_WRITE"] = "1"
+        cfg = (EngineConfig(device="cuda") if kv is None and quant is None
+               else EngineConfig(device="cuda", kv_cache_dtype=kv,
+                                 quantization=quant))
+        engine = LLMEngine(cfg)
+        reset_launch_counts()
+        out = engine.generate([prompt], SamplingParams(
+            max_tokens=16, temperature=0.0, ignore_eos=True))[0]
+        torch.cuda.synchronize()
+        os.environ.pop("PST_FUSED_KV_WRITE", None)
+        cdt = engine.runner.kv_cache.dtype
+        dec = form("decode_write_simt" if fused else "decode_simt", cdt)
+        pre = form("prefill_simt", cdt)
+        check(len(out["token_ids"]) == 16 and out["finish_reason"] == "length",
+              f"tiny engine: {out}")
+        check(pac.route_counts[dec] > 0 and pac.route_counts[pre] > 0 and
+              sum(pac.route_counts.values()) == pac.route_counts[dec]
+              + pac.route_counts[pre],
+              f"tiny engine ({kv}, fused {fused}): routes {pac.route_counts}")
+        check((i4.route_counts["simt"] > 0) == (quant == "int4") and
+              i4.route_counts["simt"] == i4.launch_counts["int4"],
+              f"tiny engine ({quant}): int4 routes {i4.route_counts}")
+        counts[dec] = pac.route_counts[dec]
+        counts[pre] = pac.route_counts[pre]
+        if quant:
+            counts["int4_simt"] = i4.route_counts["simt"]
+        args = [f"kv_cache_dtype={kv!r}"] * bool(kv) + [f"quantization={quant!r}"] * bool(quant)
+        log(f"[phase 4d] EngineConfig(device='cuda'{''.join(', ' + a for a in args)})"
+            f"{' with PST_FUSED_KV_WRITE=1' if fused else ''}: "
+            f"{engine.model_cfg.name} ({engine.model_cfg.dtype}, hd "
+            f"{engine.model_cfg.head_dim}), a {len(prompt)}-token prompt -> "
+            f"16 tokens; launches {dec} {counts[dec]}, {pre} {counts[pre]}"
+            + (f", int4 (CUDA cores) {counts['int4_simt']}" if quant else ""))
+        del engine
+        gc.collect()  # its KV cache, before the next engine sizes its own
+        torch.cuda.empty_cache()
+    return counts
 
 
 def phase_no_host_sync(model, params) -> None:
@@ -788,13 +1193,13 @@ def phase_no_host_sync(model, params) -> None:
 
 
 def phase_step_times(model, params, tag: str = "",
-                     impls=("cuda", "gather")) -> dict:
+                     impls=("cuda", "gather"), kv_dtype=None) -> dict:
     """Device time of one whole-model step at the timed kernels' shapes
     (decode: 8 rows at position 4095; prefill: one fresh 512-token chunk),
     through the kernels and through the gather path."""
     cfg = model.cfg
     B, ctx, T = 8, 4096, 512
-    cache, dec, pre = step_inputs(model, B, ctx, T, BS, DEV)
+    cache, dec, pre = step_inputs(model, B, ctx, T, BS, DEV, kv_dtype)
     out = {}
     for impl in impls:
         for name, args in (("decode_step", dec), ("prefill_step", pre)):
@@ -807,21 +1212,26 @@ def phase_step_times(model, params, tag: str = "",
 
 
 def dequantized_copy(params):
-    """The tree with its int4 leaves dequantized to bf16 beforehand (a layer
-    at a time): the function the JAX package's XLA fallback computes."""
+    """The tree with its int4 and per-layer int8 leaves dequantized to bf16
+    beforehand (a layer at a time): the function the JAX package's XLA
+    fallback computes. embed/lm_head keep their per-row int8."""
     out = {k: v for k, v in params.items() if k != "layers"}
     layers = {}
     for k, v in params["layers"].items():
-        if k.endswith("_q4s"):
+        if k.endswith(("_q4s", QUANT_SUFFIX)):
             continue
-        s = params["layers"].get(k + "_q4s")
-        if s is None:
+        s4 = params["layers"].get(k + "_q4s")
+        s8 = params["layers"].get(k + QUANT_SUFFIX)
+        if s4 is None and s8 is None:
             layers[k] = v
             continue
-        w = torch.empty((v.shape[0], 2 * v.shape[1], v.shape[2]),
+        rows = 2 * v.shape[1] if s4 is not None else v.shape[1]
+        w = torch.empty((v.shape[0], rows, v.shape[2]),
                         dtype=torch.bfloat16, device=DEV)
         for i in range(v.shape[0]):
-            w[i] = i4.dequant_int4(v[i], s[i], torch.bfloat16)
+            w[i] = (i4.dequant_int4(v[i], s4[i], torch.bfloat16)
+                    if s4 is not None else
+                    (v[i].float() * s8[i][None, :]).bfloat16())
         layers[k] = w
     out["layers"] = layers
     return out
@@ -851,9 +1261,7 @@ def phase_int4_model(model):
     check(4.3e9 < nbytes < 5.3e9, f"int4 tree holds {nbytes} bytes")
 
     os.environ["PST_FUSED_KV_WRITE"] = "1"
-    gen = torch.Generator().manual_seed(7)
-    prompt = torch.randint(1, cfg.vocab_size, (512,), generator=gen).tolist()
-    decode_tokens = torch.randint(1, cfg.vocab_size, (8,), generator=gen).tolist()
+    prompt, decode_tokens = model_prompt(cfg)
     reset_launch_counts()
     got, _ = drive_model(model, params, "cuda", prompt, decode_tokens)
     counts = launch_counts()
@@ -875,19 +1283,11 @@ def phase_int4_model(model):
     ref, _ = drive_model(model, ref_params, "gather", prompt, decode_tokens)
     del ref_params
     torch.cuda.empty_cache()
-    check(bool(torch.isfinite(got).all()), "int4 model: non-finite logits (cuda)")
-    check(bool(torch.isfinite(ref).all()), "int4 model: non-finite logits (gather)")
     check(got.shape == (1 + n, cfg.vocab_size),
           f"int4 model: logits shape {tuple(got.shape)}")
-    err = float((got - ref).abs().max())
-    tol = MODEL_REL_ATOL * float(ref.abs().max())
-    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
     log(f"  int4, PST_FUSED_KV_WRITE=1: 512-token prefill + {n} decode steps, "
-        f"launches {counts}; max|logit| {float(ref.abs().max()):.3f}, "
-        f"max|kernels - dequantized gather| {err:.4f} (tol {tol:.4f}), "
-        f"argmax agreement {agree:.2f}")
-    check(err <= tol, "int4 model: the kernel path disagrees with the "
-          "dequantized gather path")
+        f"launches {counts}; against the dequantized gather path: "
+        f"{agree(got, ref, 'int4 model')}")
 
     # The fused int4 decode step makes the host wait for nothing either.
     cache, dec, _ = step_inputs(model, 4, 256, 64, BS, DEV)
@@ -973,22 +1373,29 @@ def reset_launch_counts() -> None:
     i4.reset_launch_counts()
 
 
-def phase_serving(params, label: str, quantization=None,
+def phase_serving(params, label: str, quantization=None, kv_cache_dtype=None,
                   used=("decode", "decode_split", "prefill",
                         "prefill_wgmma")) -> dict:
-    """Four completions through the server; the kernels in ``used`` (by
-    wrapper, and by route) must have launched while serving and no other
-    kernel may have. Returns both counts."""
-    cfg = EngineConfig(model=MODEL, device=DEV.type, max_prefill_tokens=512,
-                       num_decode_steps=4, max_num_seqs=16,
-                       quantization=quantization)
+    """Four completions through the server, configured by the server's own
+    flags; the kernels in ``used`` (by wrapper, and by route) must have
+    launched while serving and no other kernel may have. Returns both
+    counts and the engine's page count (as ``"pages"``)."""
+    argv = ["--model", MODEL, "--device", DEV.type,
+            "--max-num-batched-tokens", "512", "--num-decode-steps", "4",
+            "--max-num-seqs", "16"]
+    if quantization:
+        argv += ["--quantization", quantization]
+    if kv_cache_dtype:
+        argv += ["--kv-cache-dtype", kv_cache_dtype]
+    cfg = engine_config_from_args(parse_engine_args(argv))
     t0 = time.perf_counter()
     engine = AsyncLLMEngine(cfg, params=params)
     runner = engine.engine.runner
     log(f"[phase {label}] engine up in {time.perf_counter() - t0:.1f}s "
         f"({quantization or 'bf16'} weights, {runner.param_bytes / 1e9:.3f} "
         f"GB; PST_FUSED_KV_WRITE={os.environ.get('PST_FUSED_KV_WRITE')}): "
-        f"{runner.num_blocks} KV pages x {cfg.block_size} tokens, "
+        f"{runner.num_blocks} KV pages x {cfg.block_size} tokens in "
+        f"{runner.kv_cache.dtype}, "
         f"max_prefill_tokens {cfg.max_prefill_tokens}, "
         f"num_decode_steps {cfg.num_decode_steps}")
     server, thread = serve_in_thread(engine)
@@ -1038,6 +1445,7 @@ def phase_serving(params, label: str, quantization=None,
         wall = time.perf_counter() - t0
         counts = {**launch_counts(), **route_counts()}
         check(engine.is_healthy(), f"engine failed: {engine.step_error}")
+        pages = runner.num_blocks
     finally:
         server.shutdown()
         server.server_close()
@@ -1052,7 +1460,7 @@ def phase_serving(params, label: str, quantization=None,
         else:
             check(n == 0, f"serving launched the {k} kernel {n} times")
     del engine, runner
-    return counts
+    return {**counts, "pages": pages}
 
 
 # ---------------------------------------------------------------------------
@@ -1107,13 +1515,15 @@ def step_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def gathered_kv(cache, tables, layer, kv_len):
-    """K/V of one layer gathered into [B, KH, kv_len, HD] (the yardstick's
-    input, made before timing)."""
+def gathered_kv(cache, tables, layer, kv_len, hd=HD, dtype=None):
+    """K/V of one layer gathered into [B, KH, kv_len, hd] and cast to
+    ``dtype`` (default the cache's): the yardstick's input, made before
+    timing."""
     B, W = tables.shape
-    kv = cache[layer][tables.long()]  # [B, W, 2, BS, KH*HD]
-    k = kv[:, :, 0].reshape(B, W * BS, KH, HD)[:, :kv_len].transpose(1, 2)
-    v = kv[:, :, 1].reshape(B, W * BS, KH, HD)[:, :kv_len].transpose(1, 2)
+    kh = cache.shape[-1] // hd
+    kv = gather_pages(cache, layer, tables).to(dtype or cache.dtype)
+    k = kv[:, :, 0].reshape(B, W * BS, kh, hd)[:, :kv_len].transpose(1, 2)
+    v = kv[:, :, 1].reshape(B, W * BS, kh, hd)[:, :kv_len].transpose(1, 2)
     return k.contiguous(), v.contiguous()
 
 
@@ -1123,21 +1533,32 @@ def sdpa(q, k, v, causal):
         q, k, v, is_causal=causal, scale=SCALE, enable_gqa=True)
 
 
-def phase_times(per_step: dict, served: dict, card: str) -> list:
-    """Rows of the attention kernels (decode, prefill, decode-write)."""
-    log(f"[phase 5] kernel times at the slice's shapes ({card})")
+def phase_times(per_step: dict, launches: dict, card: str,
+                cache_dtype=torch.bfloat16) -> list:
+    """Rows of the attention kernels at Llama-3-8B's heads (decode,
+    prefill, decode-write) over a ``cache_dtype`` cache with bf16 q.
+    ``per_step`` and ``launches`` hold each row's launches a step and on
+    its path. The bound counts the K/V at the cache's itemsize; an e4m3
+    cache's yardstick is SDPA on K/V gathered and up-cast to bf16
+    beforehand."""
+    tag = str(cache_dtype)[6:]
+    log(f"[phase 5] kernel times at the slice's shapes, {tag} cache ({card})")
     gen = torch.Generator(device=DEV)
     gen.manual_seed(99)
     rows = []
+    item = cache_dtype.itemsize
+    dec_kind, dw_kind, pre_kind = (form(k, cache_dtype) for k in
+                                   ("decode", "decode_write", "prefill"))
+    up = " and up-cast to bf16" if cache_dtype == E4M3 else ""
 
     # Decode: B=8, every row at kv_len 4096 (the profiled step's shape),
     # then one interactive user (B=1) and a large batch (B=64) at 4096 and
-    # at 512. Four layers of cache (537 MB at B=8), each launch reads
-    # another layer, so the 50 MB L2 never holds the KV.
+    # at 512. Four layers of cache (537 MB at B=8 in bf16), each launch
+    # reads another layer, so the 50 MB L2 never holds the KV.
     decode = []
     for B, kvl in ((8, 4096), (1, 4096), (64, 4096), (64, 512)):
         q, cache, tables, kl, _ = make_case(gen, B=B, T=1, kv_lens=[kvl] * B,
-                                            layers=4)
+                                            layers=4, cache_dtype=cache_dtype)
         q3 = q[:, 0].contiguous()
         state = {"layer": 0}
 
@@ -1149,22 +1570,23 @@ def phase_times(per_step: dict, served: dict, card: str) -> list:
         ms = cuda_ms(dec)
         plain_ms = cuda_ms(lambda: pac.paged_attention_decode_plain(
             q3, cache, tables, kl, 1, scale=SCALE), iters=5)
-        k, v = gathered_kv(cache, tables, 1, kvl)
+        k, v = gathered_kv(cache, tables, 1, kvl, dtype=torch.bfloat16)
         qs = q3[:, :, None]  # [B, H, 1, HD]
         lib_ms = cuda_ms(lambda: sdpa(qs, k, v, False))
         ref = sdpa(qs, k, v, False)[:, :, 0]
         got = pac.paged_attention_decode(q3, cache, tables, kl, 1, scale=SCALE)
         splits = splits_of(q, cache, tables)
-        compare("decode", got, ref,
-                f"decode bf16 B={B} kv_len {kvl} ({splits} splits) vs sdpa")
-        kv_bytes = B * kvl * 2 * KH * HD * 2
+        compare(dec_kind, got, ref,
+                f"decode {tag} B={B} kv_len {kvl} ({splits} splits) vs sdpa")
+        kv_bytes = B * kvl * 2 * KH * HD * item
         io_bytes = 2 * B * H * HD * 2 + tables.numel() * 4 + B * 4
         flops = 4 * B * H * HD * kvl
-        r = _row("decode", ms, plain_ms, lib_ms, kv_bytes + io_bytes, flops,
-                 PEAK_BF16_FLOPS, per_step["decode_step"],
-                 served[ROUTE_OF["decode"]],
+        r = _row(dec_kind, ms, plain_ms, lib_ms, kv_bytes + io_bytes, flops,
+                 PEAK_BF16_FLOPS, per_step[dec_kind], launches[dec_kind],
                  card, f"B={B} kv_len={kvl} H={H} KH={KH} hd={HD} bs={BS} "
-                       f"bf16, {splits} splits")
+                       f"bf16 q, {tag} cache, {splits} splits",
+                 library="torch.nn.functional.scaled_dot_product_attention "
+                         f"on K/V gathered{up} beforehand")
         r["splits"] = splits
         decode.append(r)
         if B == 8:
@@ -1177,8 +1599,9 @@ def phase_times(per_step: dict, served: dict, card: str) -> list:
 
     # Decode-write at the same shape: each launch also writes its row (the
     # same slot every time: kv_len counts it). No single PyTorch call
-    # computes this; the unfused pair it replaces (index_copy_ of the two
-    # rows, then the decode kernel) is timed in its place.
+    # computes this; the unfused pair it replaces (the rows cast to the
+    # cache's type and index_copy_'d, then the decode kernel) is timed in
+    # its place.
     k_new = torch.randn((B, KH * HD), generator=gen, device=DEV).bfloat16()
     v_new = torch.randn((B, KH * HD), generator=gen, device=DEV).bfloat16()
     wf = write_slots(tables, [kvl - 1] * B, [], cache.shape[1])
@@ -1192,28 +1615,32 @@ def phase_times(per_step: dict, served: dict, card: str) -> list:
     ms = cuda_ms(dw)
     plain_ms = cuda_ms(lambda: pac.paged_attention_decode_write_plain(
         q3, cache, tables, kl, 1, k_new, v_new, wf, scale=SCALE), iters=5)
-    flat = cache.view(-1, KH * HD)
+    flat = raw(cache.view(-1, KH * HD))
     nb = cache.shape[1]
     rows_k = ((nb + wf.long() // BS) * 2 * BS + wf.long() % BS)  # layer 1
 
     def pair():
-        flat.index_copy_(0, rows_k, k_new)
-        flat.index_copy_(0, rows_k + BS, v_new)
+        flat.index_copy_(0, rows_k, raw(to_cache_dtype(k_new, cache_dtype)))
+        flat.index_copy_(0, rows_k + BS,
+                         raw(to_cache_dtype(v_new, cache_dtype)))
         return pac.paged_attention_decode(q3, cache, tables, kl, 1, scale=SCALE)
 
     pair_ms = cuda_ms(pair)
-    row_bytes = 2 * B * KH * HD * 2 * 2  # k_new/v_new read, rows written
-    r = _row("decode_write", ms, plain_ms, None, kv_bytes + io_bytes + row_bytes,
-             flops, PEAK_BF16_FLOPS, per_step["decode_write_step"],
-             served[ROUTE_OF["decode_write"]], card,
-             f"B={B} kv_len={kvl} H={H} KH={KH} hd={HD} bs={BS} bf16, "
-             f"one K/V row written per sequence, "
+    # k_new/v_new read in bf16, their rows written in the cache's type.
+    row_bytes = 2 * B * KH * HD * (2 + item)
+    r = _row(dw_kind, ms, plain_ms, None, kv_bytes + io_bytes + row_bytes,
+             flops, PEAK_BF16_FLOPS, per_step[dw_kind], launches[dw_kind],
+             card,
+             f"B={B} kv_len={kvl} H={H} KH={KH} hd={HD} bs={BS} bf16 q, "
+             f"{tag} cache, one K/V row written per sequence, "
              f"{splits_of(q3, cache, tables)} splits",
              library="none: no single PyTorch call computes it")
     r["splits"] = splits_of(q3, cache, tables)
     r["unfused_pair_ms"] = pair_ms
-    r["unfused_pair"] = "index_copy_ of the K/V rows + paged_attention_decode"
-    log(f"  unfused pair (index_copy_ + paged_attention_decode): {pair_ms:.4f} ms")
+    r["unfused_pair"] = ("the rows cast to the cache's type and index_copy_'d "
+                         "+ paged_attention_decode")
+    log(f"  unfused pair (cast + index_copy_ + paged_attention_decode): "
+        f"{pair_ms:.4f} ms")
     rows.append(r)
 
     # Prefill, one sequence: a fresh 512-token chunk, a 512-token chunk at
@@ -1222,30 +1649,135 @@ def phase_times(per_step: dict, served: dict, card: str) -> list:
     prefill = []
     for T, start in ((512, 0), (512, 3584), (2048, 0)):
         q, cache, tables, kl, st = make_case(gen, B=1, T=T, kv_lens=[start + T],
-                                             starts=[start], layers=4)
+                                             starts=[start], layers=4,
+                                             cache_dtype=cache_dtype)
         ms = cuda_ms(lambda: pac.paged_attention_prefill(
             q, cache, tables, kl, st, 1, scale=SCALE))
         plain_ms = cuda_ms(lambda: pac.paged_attention_prefill_plain(
             q, cache, tables, kl, st, 1, scale=SCALE), iters=5)
-        k, v = gathered_kv(cache, tables, 1, start + T)
+        k, v = gathered_kv(cache, tables, 1, start + T, dtype=torch.bfloat16)
         qs = q.transpose(1, 2).contiguous()  # [1, H, T, HD]
         yard = sdpa_chunk(qs, k, v)
         lib_ms = cuda_ms(lambda: yard(qs, k, v))
         ref = yard(qs, k, v).transpose(1, 2)
         got = pac.paged_attention_prefill(q, cache, tables, kl, st, 1,
                                           scale=SCALE)
-        compare("prefill", got, ref,
-                f"prefill bf16 T={T} start={start} vs sdpa ({yard.__doc__})")
+        compare(pre_kind, got, ref,
+                f"prefill {tag} T={T} start={start} vs sdpa ({yard.__doc__})")
         pairs = T * start + T * (T + 1) // 2  # (query, live key) pairs
-        nbytes = 2 * T * H * HD * 2 + (start + T) * 2 * KH * HD * 2
+        nbytes = 2 * T * H * HD * 2 + (start + T) * 2 * KH * HD * item
         prefill.append(_row(
-            "prefill", ms, plain_ms, lib_ms, nbytes, 4 * H * HD * pairs,
-            PEAK_BF16_FLOPS, per_step["prefill_chunk"],
-            served[ROUTE_OF["prefill"]], card,
-            f"B=1 T={T} start={start} H={H} KH={KH} hd={HD} bs={BS} bf16",
-            library="torch.nn.functional.scaled_dot_product_attention, "
-                    + yard.__doc__))
+            pre_kind, ms, plain_ms, lib_ms, nbytes, 4 * H * HD * pairs,
+            PEAK_BF16_FLOPS, per_step[pre_kind], launches[pre_kind], card,
+            f"B=1 T={T} start={start} H={H} KH={KH} hd={HD} bs={BS} bf16 q, "
+            f"{tag} cache",
+            library="torch.nn.functional.scaled_dot_product_attention on "
+                    f"K/V gathered{up} beforehand, " + yard.__doc__))
     rows.append(with_points(prefill))
+    return rows
+
+
+def phase_times_simt(per_step: dict, launches: dict, card: str) -> list:
+    """Rows of the CUDA-core kernels at the default engine's shapes
+    (tiny-llama-debug: fp32, H=KH=8, hd=16), over an fp32 and an e4m3
+    cache: decode and decode-write at B=8 x 1024, prefill of a fresh
+    256-token chunk. Bound: bytes, or fp32 operations off the tensor cores
+    (67 TFLOP/s)."""
+    h, kh, hd, f32 = 8, 8, 16, torch.float32
+    scale = SCALE
+    log(f"[phase 5] CUDA-core kernel times at tiny-llama-debug's heads ({card})")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(96)
+    rows = []
+    for cdt in (f32, E4M3):
+        tag = str(cdt)[6:]
+        item = cdt.itemsize
+        B, kvl = 8, 1024
+        q, cache, tables, kl, _ = make_case(
+            gen, B=B, T=1, kv_lens=[kvl] * B, dtype=f32, h=h, kh=kh, hd=hd,
+            layers=2, cache_dtype=cdt)
+        q3 = q[:, 0].contiguous()
+        k, v = gathered_kv(cache, tables, 1, kvl, hd=hd, dtype=f32)
+        qs = q3[:, :, None]
+        kind = form("decode_simt", cdt)
+        ms = cuda_ms(lambda: pac.paged_attention_decode(
+            q3, cache, tables, kl, 1, scale=scale))
+        plain_ms = cuda_ms(lambda: pac.paged_attention_decode_plain(
+            q3, cache, tables, kl, 1, scale=scale), iters=5)
+        lib_ms = cuda_ms(lambda: sdpa(qs, k, v, False))
+        compare(kind, pac.paged_attention_decode(q3, cache, tables, kl, 1,
+                                                 scale=scale),
+                sdpa(qs, k, v, False)[:, :, 0],
+                f"decode fp32 q {tag} cache hd={hd} vs sdpa")
+        kv_bytes = B * kvl * 2 * kh * hd * item
+        io_bytes = 2 * B * h * hd * 4 + tables.numel() * 4 + B * 4
+        flops = 4 * B * h * hd * kvl
+        shape = (f"B={B} kv_len={kvl} H={h} KH={kh} hd={hd} bs={BS} fp32 q, "
+                 f"{tag} cache")
+        rows.append(_row(kind, ms, plain_ms, lib_ms, kv_bytes + io_bytes,
+                         flops, PEAK_FP32_FLOPS, per_step[kind],
+                         launches[kind], card, shape,
+                         library="torch.nn.functional.scaled_dot_product_"
+                                 "attention on K/V gathered (fp32) beforehand"))
+        k_new = torch.randn((B, kh * hd), generator=gen, device=DEV)
+        v_new = torch.randn((B, kh * hd), generator=gen, device=DEV)
+        wf = write_slots(tables, [kvl - 1] * B, [], cache.shape[1])
+        kind = form("decode_write_simt", cdt)
+        ms = cuda_ms(lambda: pac.paged_attention_decode_write(
+            q3, cache, tables, kl, 1, k_new, v_new, wf, scale=scale))
+        plain_ms = cuda_ms(lambda: pac.paged_attention_decode_write_plain(
+            q3, cache, tables, kl, 1, k_new, v_new, wf, scale=scale), iters=5)
+        rows.append(_row(kind, ms, plain_ms, None,
+                         kv_bytes + io_bytes + 2 * B * kh * hd * (4 + item),
+                         flops, PEAK_FP32_FLOPS, per_step[kind],
+                         launches[kind], card,
+                         shape + ", one K/V row written per sequence",
+                         library="none: no single PyTorch call computes it"))
+        T = 256
+        q, cache, tables, kl, st = make_case(
+            gen, B=1, T=T, kv_lens=[T], dtype=f32, h=h, kh=kh, hd=hd,
+            layers=2, cache_dtype=cdt)
+        k, v = gathered_kv(cache, tables, 1, T, hd=hd, dtype=f32)
+        qs = q.transpose(1, 2).contiguous()
+        kind = form("prefill_simt", cdt)
+        ms = cuda_ms(lambda: pac.paged_attention_prefill(
+            q, cache, tables, kl, st, 1, scale=scale))
+        plain_ms = cuda_ms(lambda: pac.paged_attention_prefill_plain(
+            q, cache, tables, kl, st, 1, scale=scale), iters=5)
+        lib_ms = cuda_ms(lambda: sdpa(qs, k, v, True))
+        compare(kind, pac.paged_attention_prefill(q, cache, tables, kl, st, 1,
+                                                  scale=scale),
+                sdpa(qs, k, v, True).transpose(1, 2),
+                f"prefill fp32 q {tag} cache hd={hd} T={T} vs sdpa")
+        rows.append(_row(
+            kind, ms, plain_ms, lib_ms,
+            2 * T * h * hd * 4 + T * 2 * kh * hd * item,
+            4 * h * hd * (T * (T + 1) // 2), PEAK_FP32_FLOPS, per_step[kind],
+            launches[kind], card,
+            f"B=1 T={T} start=0 H={h} KH={kh} hd={hd} bs={BS} fp32 q, {tag} "
+            "cache",
+            library="torch.nn.functional.scaled_dot_product_attention on K/V "
+                    "gathered (fp32) beforehand, causal"))
+
+    # The int4 kernel's CUDA-core route at the tiny engine's w_gate (fp32
+    # x, 8 decode rows, din 128 -> dout 256, one group of 128).
+    N, din, dout = 8, 128, 256
+    x, packed, scales = int4_case(gen, N, din, dout, f32)
+    check(i4.route(x, packed, scales) == "simt", "int4 fp32: not the simt route")
+    dense = i4.dequant_int4(packed, scales, f32)
+    ms = cuda_ms(lambda: i4.int4_matmul(x, packed, scales))
+    plain_ms = cuda_ms(lambda: i4.int4_matmul_plain(x, packed, scales), iters=5)
+    lib_ms = cuda_ms(lambda: torch.matmul(x, dense))
+    compare("int4_simt", i4.int4_matmul(x, packed, scales), x @ dense,
+            f"int4 fp32 N={N} din={din} dout={dout} vs fp32 product of the "
+            "dequantized weight")
+    G = din // scales.shape[0]
+    rows.append(_row(
+        "int4_simt", ms, plain_ms, lib_ms,
+        din * dout // 2 + (din // G) * dout * 4 + N * din * 4 + N * dout * 4,
+        2 * N * din * dout, PEAK_FP32_FLOPS, per_step["int4_simt"],
+        launches["int4_simt"], card, f"N={N} din={din} dout={dout} G={G} fp32 x",
+        library="torch.matmul on the weight dequantized to fp32 beforehand"))
     return rows
 
 
@@ -1389,19 +1921,34 @@ def main() -> None:
     os.environ.pop("PST_FUSED_KV_WRITE", None)  # bf16 phases: unfused path
     card = phase_toolchain()
     log("[phase 2] kernels vs plain versions")
-    phase_kernels()
-    phase_decode_write_kernels()
+    for cache_dtype in (torch.bfloat16, E4M3):
+        phase_kernels(cache_dtype)
+        phase_decode_write_kernels(cache_dtype)
+    phase_simt_geometries()
     phase_int4_kernels()
     model, params = build_model()
     per_step = phase_model(model, params)
+    fp8_per_step, fp8_path = phase_fp8_model(model, params)
     phase_no_host_sync(model, params)
     steps = phase_step_times(model, params)
+    steps.update(phase_step_times(model, params, tag="e4m3_", impls=("cuda",),
+                                  kv_dtype=E4M3))
     torch.cuda.empty_cache()  # the engine sizes its KV cache from free memory
     served = phase_serving(params, "4")
+    gc.collect()  # the first engine's KV cache, before the next sizes its own
+    torch.cuda.empty_cache()
+    os.environ["PST_FUSED_KV_WRITE"] = "1"
+    fp8_served = phase_serving(
+        params, "4c", kv_cache_dtype="float8_e4m3fn",
+        used=("decode_write", "decode_write_split_e4m3", "prefill",
+              "prefill_wgmma_e4m3"))
+    os.environ.pop("PST_FUSED_KV_WRITE")
+    log(f"  KV pages beside the bf16 weights: {fp8_served['pages']} e4m3 "
+        f"against {served['pages']} bf16")
     del params
     gc.collect()  # the engine's KV cache and the bf16 tree, cycles included
     torch.cuda.empty_cache()
-    log(f"[phase 3b] bf16 tree and engine freed: "
+    log(f"[phase 3b] bf16 tree and engines freed: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
     q_params, q_per_step = phase_int4_model(model)  # sets PST_FUSED_KV_WRITE=1
@@ -1419,10 +1966,31 @@ def main() -> None:
     del q_params
     gc.collect()
     torch.cuda.empty_cache()
+    os.environ.pop("PST_FUSED_KV_WRITE", None)
+    phase_int8_model(model)
+    del model
+    phase_qwen2()
+    tiny = phase_tiny_engines()
 
-    rows = phase_times(per_step, {**served, "decode_write_split":
-                                  q_served["decode_write_split"]},
-                       card)
+    # Each row's launches a step (from the model phases) and on its path:
+    # the bf16, int4 and fp8 servers, the fp8 model's unfused steps and the
+    # tiny engines.
+    row_steps = {"decode": per_step["decode_step"],
+                 "prefill": per_step["prefill_chunk"],
+                 "decode_write": per_step["decode_write_step"],
+                 **fp8_per_step}
+    row_launches = {"decode": served["decode_split"],
+                    "prefill": served["prefill_wgmma"],
+                    "decode_write": q_served["decode_write_split"],
+                    "decode_e4m3": fp8_path["decode_e4m3"],
+                    "prefill_e4m3": fp8_served["prefill_wgmma_e4m3"],
+                    "decode_write_e4m3": fp8_served["decode_write_split_e4m3"]}
+    rows = phase_times(row_steps, row_launches, card)
+    rows += phase_times(row_steps, row_launches, card, E4M3)
+    tiny_layers = get_model_config(EngineConfig().model).num_layers
+    tiny_steps = {k: tiny_layers for k in tiny}
+    tiny_steps["int4_simt"] = 7 * tiny_layers  # the seven projections
+    rows += phase_times_simt(tiny_steps, tiny, card)
     int4_rows, crossover = phase_int4_times(q_per_step, q_served, card)
     rows += int4_rows
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")

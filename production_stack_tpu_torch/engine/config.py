@@ -12,10 +12,7 @@ from typing import Optional
 
 import torch
 
-from ..logging_utils import init_logger
 from ..models.llama import LlamaConfig
-
-logger = init_logger(__name__)
 
 
 @dataclasses.dataclass
@@ -29,7 +26,9 @@ class EngineConfig:
     hbm_utilization: float = 0.9  # --gpu-memory-utilization
     max_num_seqs: int = 64
     max_prefill_tokens: int = 2048
-    kv_cache_dtype: Optional[str] = None  # only the model dtype is ported
+    # None (the model dtype), the model dtype, or "float8_e4m3fn" (half
+    # the bytes of a bf16 page; the kernels up-convert K and V exactly).
+    kv_cache_dtype: Optional[str] = None
     # Weight-only quantization: None, "int8" (per channel) or "int4"
     # (group-wise; embed/lm_head stay int8).
     quantization: Optional[str] = None
@@ -47,6 +46,18 @@ class EngineConfig:
             raise ValueError(
                 f"unsupported quantization {self.quantization!r} (int8 or int4)"
             )
+
+
+def kv_cache_torch_dtype(cfg: EngineConfig,
+                         model_cfg: LlamaConfig) -> torch.dtype:
+    """The cache's element type: the model's, or e4m3. Any other
+    ``kv_cache_dtype`` raises."""
+    name = cfg.kv_cache_dtype or model_cfg.dtype
+    if name not in (model_cfg.dtype, "float8_e4m3fn"):
+        raise ValueError(
+            f"kv_cache_dtype={cfg.kv_cache_dtype!r}: the cache holds the "
+            f"model dtype ({model_cfg.dtype}) or float8_e4m3fn")
+    return getattr(torch, name)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -69,10 +80,11 @@ def resolve_num_kv_blocks(
     ``total * hbm_utilization`` once everything already allocated (the
     weights included) is taken out, per ``torch.cuda.mem_get_info``.
 
-    bytes/page = 2 (K+V) * L * bs * KH * hd * itemsize."""
+    bytes/page = 2 (K+V) * L * bs * KH * hd * itemsize, the itemsize of
+    the cache's element type (1 for e4m3)."""
     if cfg.num_kv_blocks is not None:
         return cfg.num_kv_blocks
-    itemsize = torch.empty((), dtype=model_cfg.torch_dtype).element_size()
+    itemsize = kv_cache_torch_dtype(cfg, model_cfg).itemsize
     page_bytes = (
         2 * model_cfg.num_layers * cfg.block_size * model_cfg.num_kv_heads
         * model_cfg.head_dim * itemsize
@@ -85,8 +97,4 @@ def resolve_num_kv_blocks(
     n = max(budget // page_bytes, cfg.max_num_seqs * 2)
     # Never fewer pages than one full-length sequence needs.
     n = max(n, -(-cfg.max_model_len // cfg.block_size) + 1)
-    logger.info(
-        "KV cache: %d pages x %d tokens (%.1f MiB)",
-        n, cfg.block_size, n * page_bytes / 2**20,
-    )
     return int(n)

@@ -28,7 +28,12 @@ from ..ops.sampling import (
     apply_penalties_counts,
     sample_tokens_packed,
 )
-from .config import EngineConfig, resolve_device, resolve_num_kv_blocks
+from .config import (
+    EngineConfig,
+    kv_cache_torch_dtype,
+    resolve_device,
+    resolve_num_kv_blocks,
+)
 from .scheduler import PrefillItem
 from .sequence import Sequence
 
@@ -70,11 +75,7 @@ class ModelRunner:
         self.device = resolve_device(cfg.device)
         self.model_cfg = model_cfg or get_model_config(cfg.model)
         self.model = Llama(self.model_cfg)
-        if cfg.kv_cache_dtype not in (None, self.model_cfg.dtype):
-            raise NotImplementedError(
-                f"kv_cache_dtype={cfg.kv_cache_dtype!r} is not ported yet "
-                f"(the cache holds the model dtype {self.model_cfg.dtype})"
-            )
+        self.kv_dtype = kv_cache_torch_dtype(cfg, self.model_cfg)
         if params is None:
             # Quantized presets are drawn and quantized a layer's slice at a
             # time on the device: the bf16 tree never exists whole.
@@ -103,7 +104,13 @@ class ModelRunner:
         self.num_blocks = resolve_num_kv_blocks(cfg, self.model_cfg, self.device)
         self.max_table_width = -(-cfg.max_model_len // cfg.block_size)
         self.kv_cache = self.model.make_kv_cache(
-            self.num_blocks, cfg.block_size, device=self.device
+            self.num_blocks, cfg.block_size, dtype=self.kv_dtype,
+            device=self.device
+        )
+        logger.info(
+            "KV cache: %d pages x %d tokens in %s (%.1f MiB)",
+            self.num_blocks, cfg.block_size, self.kv_dtype,
+            self.kv_cache.numel() * self.kv_dtype.itemsize / 2**20,
         )
         self._drop_slot = self.num_blocks * cfg.block_size
 

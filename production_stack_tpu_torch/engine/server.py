@@ -212,6 +212,9 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
     p.add_argument("--num-decode-steps", type=int, default=1)
     p.add_argument("--quantization", choices=("int8", "int4"), default=None,
                    help="weight-only quantization (int4: W4A16 kernel)")
+    p.add_argument("--kv-cache-dtype", default=None,
+                   help="KV cache element type: the model dtype (default) "
+                        "or float8_e4m3fn")
     p.add_argument("--seed", type=int, default=0)
     return p.parse_args(argv)
 
@@ -227,6 +230,7 @@ def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
         max_prefill_tokens=args.max_prefill_tokens,
         num_decode_steps=args.num_decode_steps,
         quantization=args.quantization,
+        kv_cache_dtype=args.kv_cache_dtype,
         seed=args.seed,
     )
 

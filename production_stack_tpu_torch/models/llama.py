@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import paged_attention, resolve_impl
+from ..ops.fp8 import E4M3, raw, to_cache_dtype
 from ..ops.int4_matmul import int4_matmul, mm_f32
 from ..ops.paged_attention_cuda import paged_attention_decode_write
 
@@ -338,15 +339,17 @@ class Llama:
         dtype: Optional[torch.dtype] = None,
         device: Optional[torch.device] = None,
     ) -> torch.Tensor:
-        """A zeroed ``[L, nb, 2, bs, KH*hd]`` cache: a view over a flat row
+        """A zeroed ``[L, nb, 2, bs, KH*hd]`` cache of ``dtype`` (default:
+        the model's; or ``torch.float8_e4m3fn``): a view over a flat row
         buffer with one spare row past its end, where ``forward`` sends the
         writes it drops (so dropping them needs no host sync)."""
         cfg = self.cfg
+        dtype = dtype or cfg.torch_dtype
         shape = (cfg.num_layers, num_blocks, 2, block_size, cfg.kv_size)
         rows = math.prod(shape[:-1])
-        flat = torch.zeros((rows + 1, cfg.kv_size),
-                           dtype=dtype or cfg.torch_dtype, device=device)
-        return flat[:rows].view(shape)
+        flat = torch.zeros((rows + 1, cfg.kv_size), device=device,
+                           dtype=torch.uint8 if dtype == E4M3 else dtype)
+        return flat.view(dtype)[:rows].view(shape)
 
     # ------------------------------------------------------------------
     # Forward
@@ -425,11 +428,11 @@ class Llama:
                     softcap=cfg.attn_logit_softcap,
                 )[:, None]
             else:
-                kvd = torch.cat(
+                kvd = to_cache_dtype(torch.cat(
                     [k.reshape(B * T, cfg.kv_size),
                      v.reshape(B * T, cfg.kv_size)]
-                ).to(kv_cache.dtype)
-                flat_cache.index_copy_(0, targets[li], kvd)
+                ), kv_cache.dtype)
+                raw(flat_cache).index_copy_(0, targets[li], raw(kvd))
                 attn = paged_attention(
                     q, kv_cache, tables, lens, positions_i, li,
                     scale=cfg.attn_scale, impl=attn_impl,

@@ -11,15 +11,19 @@ module fine).
 
 Kernels, each replacing a Pallas TPU kernel of the JAX package:
 
-- ``paged_attention.cu``, fp32 only: ``paged_decode_kernel``
-  (``_decode_kernel``), ``paged_decode_write_kernel``
-  (``_decode_write_kernel``) and ``paged_prefill_kernel``
-  (``_prefill_kernel``), all of
+- ``paged_attention.cuh`` (built as ``paged_attention.cu``,
+  ``paged_attention_write.cu`` and ``paged_attention_prefill.cu``, one
+  kernel each), on the CUDA cores for fp32 q, or bf16 q at
+  head_dim 16, 32 or 64: ``paged_decode_kernel`` (``_decode_kernel``),
+  ``paged_decode_write_kernel`` (``_decode_write_kernel``) and
+  ``paged_prefill_kernel`` (``_prefill_kernel``), all of
   ``production_stack_tpu/ops/paged_attention_pallas.py``;
 - ``decode_splitkv.cu``: ``decode_split_kernel``, ``_decode_kernel`` and
-  ``_decode_write_kernel`` for bf16 (split-KV);
+  ``_decode_write_kernel`` for bf16 q at head_dim 128 (split-KV);
 - ``prefill_wgmma.cu``: ``paged_prefill_wgmma_kernel``, ``_prefill_kernel``
-  for bf16 on the tensor cores (wgmma);
+  for bf16 q at head_dim 128 on the tensor cores (wgmma);
+- each attention kernel over a cache in q's type or in e4m3, at 1 to 8
+  query heads per kv head;
 - ``int4_matmul.cu``: ``int4_wgmma_kernel`` (bf16, prefill rows) and
   ``int4_simt_kernel`` (fp32, small groups); ``int4_decode.cu``:
   ``int4_decode_kernel`` (bf16 decode rows, the swapped product on
@@ -27,8 +31,9 @@ Kernels, each replacing a Pallas TPU kernel of the JAX package:
   ``production_stack_tpu/ops/int4_matmul.py::_kernel``.
 
 ``sm90.cuh`` holds the wgmma, descriptor, cp.async and barrier helpers
-the Hopper kernels share; ``int4_bits.cuh`` the int4 -> bf16 conversion of
-both bf16 int4 routes.
+the Hopper kernels share; ``fp8.cuh`` the e4m3 cache's conversions (up to
+bf16/fp32, and the JAX package's cast down); ``int4_bits.cuh`` the int4 ->
+bf16 conversion of both bf16 int4 routes.
 """
 
 from __future__ import annotations
@@ -48,9 +53,10 @@ from ..logging_utils import init_logger
 logger = init_logger(__name__)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("paged_attention.cu", "decode_splitkv.cu", "prefill_wgmma.cu",
-           "int4_matmul.cu", "int4_decode.cu")
-HEADERS = ("sm90.cuh", "int4_bits.cuh")
+SOURCES = ("paged_attention.cu", "paged_attention_write.cu",
+           "paged_attention_prefill.cu", "decode_splitkv.cu",
+           "prefill_wgmma.cu", "int4_matmul.cu", "int4_decode.cu")
+HEADERS = ("paged_attention.cuh", "fp8.cuh", "sm90.cuh", "int4_bits.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -142,15 +148,17 @@ def load() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(str(build()))
+        # Type codes (paged_attention_cuda.DTYPE_CODES): q's, then the
+        # cache's.
         lib.pst_paged_decode.argtypes = [
-            _I, _P, _P, _P, _P, _P,  # dtype, q, cache, tables, kv_lens, out
+            _I, _I, _P, _P, _P, _P, _P,  # types, q, cache, tables, kv_lens, out
             _I, _I, _I, _I,  # B, H, KH, HD
             _I, _I, _I, _I, _I,  # nb, bs, W, layer, window
             _F, _F, _P,  # scale, softcap, stream
         ]
         lib.pst_paged_decode.restype = _I
         lib.pst_paged_prefill.argtypes = [
-            _I, _P, _P, _P, _P, _P, _P,  # dtype, q, cache, tables, lens, starts, out
+            _I, _I, _P, _P, _P, _P, _P, _P,  # types, q, cache, tables, lens, starts, out
             _I, _I, _I, _I, _I,  # B, T, H, KH, HD
             _I, _I, _I, _I, _I,  # nb, bs, W, layer, window
             _F, _F, _P,  # scale, softcap, stream
@@ -159,7 +167,7 @@ def load() -> ctypes.CDLL:
         lib.pst_paged_prefill_wgmma.argtypes = lib.pst_paged_prefill.argtypes[1:]
         lib.pst_paged_prefill_wgmma.restype = _I
         lib.pst_paged_decode_write.argtypes = [
-            _I, _P, _P, _P, _P, _P,  # dtype, q, cache, k_new, v_new, write_flat
+            _I, _I, _P, _P, _P, _P, _P,  # types, q, cache, k_new, v_new, write_flat
             _P, _P, _P,  # tables, kv_lens, out
             _I, _I, _I, _I,  # B, H, KH, HD
             _I, _I, _I, _I, _I,  # nb, bs, W, layer, window
@@ -167,7 +175,7 @@ def load() -> ctypes.CDLL:
         ]
         lib.pst_paged_decode_write.restype = _I
         lib.pst_decode_split.argtypes = [
-            _P, _P, _P, _P, _P,  # q, cache, k_new, v_new, write_flat
+            _I, _P, _P, _P, _P, _P,  # cache type, q, cache, k_new, v_new, write_flat
             _P, _P, _P, _P, _P,  # tables, kv_lens, out, ws, counters
             _I, _I, _I, _I,  # B, H, KH, HD
             _I, _I, _I, _I, _I,  # nb, bs, W, layer, window

@@ -12,7 +12,8 @@ Two interchangeable implementations, as in the JAX package:
 Shapes (the JAX package's layouts):
   q            [B, T, H, hd]
   kv_pages     [L, nb, 2, bs, KH*hd]   row 0 = K, row 1 = V; the FULL
-                                       stacked cache plus a layer index
+                                       stacked cache plus a layer index;
+                                       q's type or float8_e4m3fn
   block_tables [B, W] int32
   kv_lens      [B] int32
   q_positions  [B, T] int32            absolute position of each query
@@ -23,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from .fp8 import raw
+
 _NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
 
@@ -31,6 +34,13 @@ def window_eff(window: int) -> int:
     sentinel when 0/negative (= unlimited). Keys satisfy
     ``key_pos > q_pos - window_eff``."""
     return int(window) if window > 0 else 1 << 30
+
+
+def gather_pages(kv_pages: torch.Tensor, layer: int,
+                 block_tables: torch.Tensor) -> torch.Tensor:
+    """``kv_pages[layer][block_tables]``: [B, W, 2, bs, KH*hd] in the
+    cache's type (an e4m3 cache is gathered as bytes)."""
+    return raw(kv_pages[layer])[block_tables.long()].view(kv_pages.dtype)
 
 
 def resolve_impl(impl: str, is_cuda: bool) -> str:
@@ -112,7 +122,7 @@ def gather_paged_attention(
     S = W * bs
     G = H // KH
 
-    kv = kv_pages[layer][block_tables.long()]  # [B, W, 2, bs, lanes]
+    kv = gather_pages(kv_pages, layer, block_tables)  # [B, W, 2, bs, lanes]
     k = kv[:, :, 0].reshape(B, S, KH, hd)
     v = kv[:, :, 1].reshape(B, S, KH, hd)
 

@@ -1,23 +1,38 @@
-// Split-KV ("flash-decoding") paged decode attention in bf16 for Hopper.
+// Split-KV ("flash-decoding") paged decode attention with bf16 q for
+// Hopper, over a bf16 or an e4m3 cache.
 //
-// Replaces, for bf16 caches, two Pallas TPU kernels of
+// Replaces, for bf16 q at head_dim 128, two Pallas TPU kernels of
 // production_stack_tpu/ops/paged_attention_pallas.py:
-//   decode_split_kernel<G, false>  <- _decode_kernel (one query token per
-//                                     sequence)
-//   decode_split_kernel<G, true>   <- _decode_write_kernel (the same decode
-//                                     with this step's K/V row written into
-//                                     its page; PST_FUSED_KV_WRITE=1)
-// fp32 caches keep paged_decode_kernel / paged_decode_write_kernel of
-// paged_attention.cu. The contract is theirs, unchanged:
-//   q      [B, H, 128] bf16         cache [L, nb, 2, bs, KH*128] bf16
+//   decode_split_kernel<G, false, *>  <- _decode_kernel (one query token
+//                                        per sequence)
+//   decode_split_kernel<G, true, *>   <- _decode_write_kernel (the same
+//                                        decode with this step's K/V row
+//                                        written into its page;
+//                                        PST_FUSED_KV_WRITE=1)
+// and their e4m3-cache forms (kFp8, kv_cache_dtype="float8_e4m3fn"). fp32 q
+// and other head dims keep paged_decode_kernel / paged_decode_write_kernel
+// of paged_attention.cuh. The contract is theirs, unchanged:
+//   q      [B, H, 128] bf16         cache [L, nb, 2, bs, KH*128] bf16 or
+//                                   e4m3
 //   tables [B, W] int32             kv_lens [B] int32 (the query sits at
 //                                   kv_len - 1 and sees keys >= kv_len -
 //                                   window); a table shorter than kv_len is
 //                                   clamped to its last entry
-//   k_new, v_new [B, KH*128] bf16, write_flat [B] int32 (decode-write: flat
-//   slot blk * bs + row; outside [0, nb*bs) nothing is written)
+//   k_new, v_new [B, KH*128] bf16, write_flat [B] int32
+//   (decode-write: flat slot blk * bs + row; outside [0, nb*bs) nothing is
+//   written)
 // Scores are scaled, then soft-capped; a row with no live key writes zeros;
-// G = H / KH in {1, 2, 4, 8}.
+// a NaN in a live K or V row (an e4m3 cast past 464) reaches the output, as
+// in the plain version; G = H / KH from 1 to 8 (rows G..15 of the m16 tile
+// are padding).
+//
+// Precision contract: K and V are up-converted exactly to bf16 (every
+// e4m3 value is a bf16 value). Q·Kᵀ accumulates in fp32; the softmax runs
+// in fp32; P is rounded to bf16 before P·V, which accumulates in fp32 —
+// as precise as the JAX kernel's _pv_dot (P to about 2^-8) or more. Into
+// an e4m3 cache the decode-write casts the new row by fp8.cuh's cast_e4m3,
+// the JAX package's cast bit for bit (as ops/fp8.py's); split 0 stores it
+// and every split reads the same bytes back for that key.
 //
 // Bound on an NVIDIA H100 80GB HBM3 at its 700 W limit (3.35 TB/s): bytes.
 // Every live K/V row is read once: at B = 8, kv_len 4096 and Llama-3-8B
@@ -67,6 +82,14 @@
 //     resets the counter to 0 for the next launch. The counters live in a
 //     buffer the wrapper keeps per device: launches that share it must be
 //     ordered (one stream), as the engine's are.
+//   - An e4m3 cache: each 16-byte piece (16 keys' dims of one row) comes by
+//     cp.async into a 3-slot staging ring of e4m3 tiles (8 KB of K, 8 KB of
+//     V each); the thread that copied a piece converts it, once the piece
+//     has landed, into one bf16 tile in the swizzled layout above (a second
+//     block barrier a tile hands it over), and the products run as in bf16.
+//     Shared memory: 48 KB of staging + 32 KB of bf16 tile = 80 KB, two
+//     blocks an SM as in bf16. (e4m3 operands on the tensor cores would
+//     read half the shared memory: later work.)
 //   - Decode-write: blocks of a launch are not ordered, so no block reads
 //     the row this step writes. Every block compares each key's flat slot
 //     table[pos / bs] * bs + pos % bs with write_flat[b] and copies that
@@ -77,15 +100,19 @@
 //     own last page, and shared prefix pages are full, so no other row
 //     reads the written slot in the same step.
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "fp8.cuh"
 #include "sm90.cuh"
 
 namespace {
 
+using namespace pst_fp8;
 using namespace pst_sm90;
 using bf16 = __nv_bfloat16;
 
@@ -95,18 +122,25 @@ constexpr int kKeysPerWarp = 16;
 constexpr int kStages = 3;    // ring slots
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowBytes = kHD * 2;
+constexpr int kRowBytes = kHD * 2;             // a bf16 row
 constexpr int kTileBytes = kKeys * kRowBytes;  // 16 KB of K (or V)
 constexpr int kStageBytes = 2 * kTileBytes;
-constexpr int kSmem = kStages * kStageBytes;   // 96 KB
-constexpr int kRowsPerThread = kKeys * 16 / kThreads;  // rows a thread copies
+constexpr int kRowBytes8 = kHD;                // an e4m3 row
+constexpr int kTileBytes8 = kKeys * kRowBytes8;
+constexpr int kStageBytes8 = 2 * kTileBytes8;
+// bf16: the ring, 96 KB. e4m3: one bf16 tile, then the e4m3 ring; 80 KB.
+constexpr int smem_bytes(bool fp8) {
+  return fp8 ? kStageBytes + kStages * kStageBytes8 : kStages * kStageBytes;
+}
 constexpr int kMaxSplits = 64;
 constexpr int kPageCap = 1024;  // table entries a block keeps in shared memory
 constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kThreads == kHD, "the merges give each thread one output dim");
 static_assert(kKeysPerWarp * kWarps == kKeys, "a warp owns 16 keys of a tile");
-static_assert(kWarps * 8 * (kHD + 2) * 4 <= kSmem, "the warps' states fit the ring");
-static_assert(2 * kMaxSplits * 8 * 4 <= kSmem, "the merge's weights fit the ring");
+static_assert(kWarps * 8 * (kHD + 2) * 4 <= smem_bytes(true),
+              "the warps' states fit the ring");
+static_assert(2 * kMaxSplits * 8 * 4 <= smem_bytes(true),
+              "the merge's weights fit the ring");
 
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -157,9 +191,11 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
 }
 
-template <int G, bool kWrite>
+// CT: the cache's element, bf16 or (kFp8) one e4m3 byte.
+template <int G, bool kWrite, bool kFp8,
+          typename CT = std::conditional_t<kFp8, uint8_t, bf16>>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const bf16* __restrict__ q, bf16* cache,
+decode_split_kernel(const bf16* __restrict__ q, CT* cache,
                     const bf16* __restrict__ k_new,
                     const bf16* __restrict__ v_new,
                     const int* __restrict__ write_flat,
@@ -170,6 +206,7 @@ decode_split_kernel(const bf16* __restrict__ q, bf16* cache,
                     float scale, float softcap) {
   extern __shared__ __align__(16) uint8_t ring[];
   __shared__ int sPages[kPageCap];
+  __shared__ __align__(16) uint8_t sNew[2][kHD];  // e4m3: the cast K, V rows
   __shared__ float sL[G];
   __shared__ int sLast;
 
@@ -190,13 +227,19 @@ decode_split_kernel(const bf16* __restrict__ q, bf16* cache,
   const int t0 = ta + (int)((long long)n * split / S);
   const int n_t = ta + (int)((long long)n * (split + 1) / S) - t0;
 
+  // A cache row of one kv head is kChunks 16-byte pieces of kPer values.
+  constexpr int kPer = 16 / sizeof(CT);
+  constexpr int kChunks = kHD / kPer;
   const size_t lanes = (size_t)KH * kHD;
   const size_t page_stride = 2 * (size_t)bs * lanes;
-  const bf16* layer_base =
+  const CT* layer_base =
       cache + (size_t)layer * nb * page_stride + (size_t)kh * kHD;
   const int* trow = tables + (size_t)b * W;
 
-  // Decode-write: this step's row, its slot, and split 0's store of it.
+  // Decode-write: this step's row (bf16), its slot, and split 0's store
+  // of it. An e4m3 cache takes the row cast by cast_e4m3 (JAX's cast):
+  // every block casts it into sNew, whence its key is substituted, and
+  // split 0 stores those bytes.
   int wf = -1;
   const bf16* knew = nullptr;
   const bf16* vnew = nullptr;
@@ -206,17 +249,26 @@ decode_split_kernel(const bf16* __restrict__ q, bf16* cache,
       wf = w;
       knew = k_new + (size_t)b * lanes + (size_t)kh * kHD;
       vnew = v_new + (size_t)b * lanes + (size_t)kh * kHD;
-      if (split == 0 && tid < 32) {
-        const int c = tid % 16;
-        bf16* row = cache +
-                    (((size_t)layer * nb + w / bs) * 2 * bs + w % bs) * lanes +
-                    (size_t)kh * kHD;
-        if (tid < 16) {
-          *reinterpret_cast<uint4*>(row + c * 8) =
-              *reinterpret_cast<const uint4*>(knew + c * 8);
+      CT* row = cache +
+                (((size_t)layer * nb + w / bs) * 2 * bs + w % bs) * lanes +
+                (size_t)kh * kHD;
+      if constexpr (kFp8) {
+        if (tid < 32) {  // 16 threads a row, 8 values each
+          const int h = tid / 16, c = tid % 16;
+          const uint2 e = cast_e4m3x8(*reinterpret_cast<const uint4*>(
+              (h ? vnew : knew) + c * 8));
+          *reinterpret_cast<uint2*>(&sNew[h][c * 8]) = e;
+          if (split == 0)
+            *reinterpret_cast<uint2*>(row + h * (size_t)bs * lanes + c * 8) = e;
+        }
+      } else if (split == 0 && tid < 2 * kChunks) {
+        const int c = tid % kChunks;
+        if (tid < kChunks) {
+          *reinterpret_cast<uint4*>(row + c * kPer) =
+              *reinterpret_cast<const uint4*>(knew + c * kPer);
         } else {
-          *reinterpret_cast<uint4*>(row + (size_t)bs * lanes + c * 8) =
-              *reinterpret_cast<const uint4*>(vnew + c * 8);
+          *reinterpret_cast<uint4*>(row + (size_t)bs * lanes + c * kPer) =
+              *reinterpret_cast<const uint4*>(vnew + c * kPer);
         }
       }
     }
@@ -238,8 +290,10 @@ decode_split_kernel(const bf16* __restrict__ q, bf16* cache,
     }
   }
 
-  // Thread tid copies chunk tid % 16 of rows tid / 16 + 8 j of each tile.
-  const int cc = tid % 16;
+  // Thread tid copies piece tid % kChunks of rows tid / kChunks + j *
+  // kThreads / kChunks of each tile: 8 bf16 rows, or 4 e4m3 rows.
+  const int cc = tid % kChunks;
+  constexpr int kRowsPerThread = kKeys * kChunks / kThreads;
   // The block's slice of the table row, loaded once up front: entries
   // [p_lo, p_lo + kPageCap) live in shared memory, any beyond (a split of
   // more than kPageCap pages) are read from the table.
@@ -252,31 +306,65 @@ decode_split_kernel(const bf16* __restrict__ q, bf16* cache,
     const int p = min(pos / bs, W - 1) - p_lo;
     return p < kPageCap ? sPages[p] : __ldg(trow + p_lo + p);
   };
+  // bf16: the ring slots are the tiles ldmatrix reads. e4m3: the tile is
+  // one bf16 tile at the start of the ring, the e4m3 slots follow it.
+  uint8_t* const stage0 = kFp8 ? ring + kStageBytes : ring;
   auto copy_tile = [&](int it) {
-    const uint32_t sK = smem_u32(ring + (it % kStages) * kStageBytes);
-    const uint32_t sV = sK + kTileBytes;
+    uint8_t* const s8 = stage0 + (it % kStages) * kStageBytes8;
+    const uint32_t sK = kFp8 ? smem_u32(s8)
+                             : smem_u32(ring + (it % kStages) * kStageBytes);
+    const uint32_t sV = sK + (kFp8 ? kTileBytes8 : kTileBytes);
 #pragma unroll
     for (int j = 0; j < kRowsPerThread; ++j) {
-      const int r = tid / 16 + 8 * j;
+      const int r = tid / kChunks + (kThreads / kChunks) * j;
       const int pos = (t0 + it) * kKeys + r;
       const bool ok = pos >= lo && pos < kv_len;
-      const bf16* src_k = cache;  // a valid address when nothing is read
-      const bf16* src_v = cache;
+      // e4m3 rows are staged unswizzled: only their copier reads them.
+      const int off = kFp8 ? r * kRowBytes8 + cc * 16 : swz(r, cc);
+      const void* src_k = cache;  // a valid address when nothing is read
+      const void* src_v = cache;
       if (ok) {
         const int pg = page_of(pos);
-        const bf16* row = layer_base + (size_t)pg * page_stride +
-                          (size_t)(pos % bs) * lanes + cc * 8;
+        const CT* row = layer_base + (size_t)pg * page_stride +
+                        (size_t)(pos % bs) * lanes + cc * kPer;
         src_k = row;
         src_v = row + (size_t)bs * lanes;
         if constexpr (kWrite) {
           if (pg * bs + pos % bs == wf) {
-            src_k = knew + cc * 8;
-            src_v = vnew + cc * 8;
+            if constexpr (kFp8) {  // the cast row, from sNew
+              *reinterpret_cast<uint4*>(s8 + off) =
+                  *reinterpret_cast<const uint4*>(&sNew[0][cc * 16]);
+              *reinterpret_cast<uint4*>(s8 + kTileBytes8 + off) =
+                  *reinterpret_cast<const uint4*>(&sNew[1][cc * 16]);
+              continue;
+            } else {
+              src_k = knew + cc * kPer;
+              src_v = vnew + cc * kPer;
+            }
           }
         }
       }
-      cp_async16(sK + swz(r, cc), src_k, ok);
-      cp_async16(sV + swz(r, cc), src_v, ok);
+      cp_async16(sK + off, src_k, ok);
+      cp_async16(sV + off, src_v, ok);
+    }
+  };
+  // e4m3: this thread's pieces of tile it, landed in their slot, into the
+  // bf16 tile (piece cc of a row is bf16 chunks 2 cc and 2 cc + 1).
+  auto convert_tile = [&](int it) {
+    const uint8_t* k8 = stage0 + (it % kStages) * kStageBytes8;
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) {
+      const int r = tid / kChunks + (kThreads / kChunks) * j;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // K, then V
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            k8 + h * kTileBytes8 + r * kRowBytes8 + cc * 16);
+        uint4 lo16, hi16;
+        e4m3x16_to_bf16(v, lo16, hi16);
+        uint8_t* t16 = ring + h * kTileBytes;
+        *reinterpret_cast<uint4*>(t16 + swz(r, 2 * cc)) = lo16;
+        *reinterpret_cast<uint4*>(t16 + swz(r, 2 * cc + 1)) = hi16;
+      }
     }
   };
 
@@ -303,15 +391,19 @@ decode_split_kernel(const bf16* __restrict__ q, bf16* cache,
   for (int it = 0; it < n_t; ++it) {
     cp_async_wait<kStages - 2>();
     // Tile it has landed for every thread, and every thread is done with
-    // tile it - 1, whose slot the next copy refills.
+    // tile it - 1, whose slot the next copy refills (e4m3: and with the
+    // bf16 tile, which tile it now overwrites).
     __syncthreads();
+    if constexpr (kFp8) convert_tile(it);
     const int nx = it + kStages - 1;
     if (nx < n_t) copy_tile(nx);
     cp_async_commit();
+    if constexpr (kFp8) __syncthreads();  // the bf16 tile is whole
 
     const int key0 = (t0 + it) * kKeys + kw;  // position of the warp's key 0
     if (key0 >= kv_len || key0 + kKeysPerWarp <= lo) continue;  // none live
-    const uint32_t sK = smem_u32(ring + (it % kStages) * kStageBytes);
+    const uint32_t sK =
+        smem_u32(kFp8 ? ring : ring + (it % kStages) * kStageBytes);
     const uint32_t sV = sK + kTileBytes;
 
     // S = Q Kᵀ over the warp's 16 keys (two n-tiles of 8), K's B fragments
@@ -429,7 +521,7 @@ decode_split_kernel(const bf16* __restrict__ q, bf16* cache,
   if (S == 1) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      dst[g * kHD] = __float2bfloat16(Lg[g] > 0.f ? acc[g] / Lg[g] : 0.f);
+      dst[g * kHD] = __float2bfloat16(Lg[g] == 0.f ? 0.f : acc[g] / Lg[g]);
     }
     return;
   }
@@ -491,7 +583,7 @@ decode_split_kernel(const bf16* __restrict__ q, bf16* cache,
       A.w += a.w * c;
     }
     const float L = sL[g];
-    const float inv = L > 0.f ? 1.f / L : 0.f;
+    const float inv = L == 0.f ? 0.f : 1.f / L;
     __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
         out + ((size_t)b * H + kh * G + g) * kHD + d4);
     o[0] = __floats2bfloat162_rn(A.x * inv, A.y * inv);
@@ -500,61 +592,89 @@ decode_split_kernel(const bf16* __restrict__ q, bf16* cache,
   if (tid == 0) counters[pair] = 0;
 }
 
-template <int G, bool kWrite>
+template <int G, bool kWrite, bool kFp8>
 cudaError_t launch(const void* q, void* cache, const void* k_new,
                    const void* v_new, const int* write_flat,
                    const int* tables, const int* kv_lens, void* out,
                    float* ws, int* counters, int B, int KH, int nb, int bs,
                    int W, int layer, int window, float scale, float softcap,
                    int splits, cudaStream_t stream) {
+  using CT = std::conditional_t<kFp8, uint8_t, bf16>;
+  constexpr int smem = smem_bytes(kFp8);
   static bool smem_set = false;  // idempotent: a race only repeats the call
   if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_split_kernel<G, kWrite>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        decode_split_kernel<G, kWrite, kFp8>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     smem_set = true;
   }
   dim3 grid(B, KH, splits);
-  decode_split_kernel<G, kWrite><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<bf16*>(cache),
+  decode_split_kernel<G, kWrite, kFp8><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<CT*>(cache),
       static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new),
       write_flat, tables, kv_lens, static_cast<bf16*>(out), ws, counters, nb,
       bs, KH, W, layer, window, scale, softcap);
   return cudaGetLastError();
 }
 
+template <bool kWrite, bool kFp8>
+int by_group(int G, const void* q, void* cache, const void* k_new,
+             const void* v_new, const int* write_flat, const int* tables,
+             const int* kv_lens, void* out, float* ws, int* counters, int B,
+             int KH, int nb, int bs, int W, int layer, int window,
+             float scale, float softcap, int splits, cudaStream_t s) {
+#define PST_SPLIT(GG)                                                     \
+  return (int)launch<GG, kWrite, kFp8>(q, cache, k_new, v_new, write_flat, \
+                                       tables, kv_lens, out, ws, counters, \
+                                       B, KH, nb, bs, W, layer, window,    \
+                                       scale, softcap, splits, s)
+  switch (G) {
+    case 1: PST_SPLIT(1);
+    case 2: PST_SPLIT(2);
+    case 3: PST_SPLIT(3);
+    case 4: PST_SPLIT(4);
+    case 5: PST_SPLIT(5);
+    case 6: PST_SPLIT(6);
+    case 7: PST_SPLIT(7);
+    case 8: PST_SPLIT(8);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef PST_SPLIT
+}
+
 }  // namespace
 
-// bf16 only. write_flat == nullptr: decode; else decode-write (k_new, v_new
-// [B, KH*HD]). splits > 1 needs ws (B*KH*splits*G*(HD+2) floats) and
+// cache_dtype: 1 = bfloat16, 2 = float8_e4m3fn (q is bf16). write_flat ==
+// nullptr: decode; else decode-write (k_new, v_new [B, KH*HD] bf16, cast
+// into an e4m3 cache here). splits > 1 needs ws (B*KH*splits*G*(HD+2) floats) and
 // counters (B*KH int32, zero; left zero). Returns a cudaError_t.
-extern "C" int pst_decode_split(const void* q, void* cache, const void* k_new,
-                                const void* v_new, const int* write_flat,
-                                const int* tables, const int* kv_lens,
-                                void* out, float* ws, int* counters, int B,
-                                int H, int KH, int HD, int nb, int bs, int W,
-                                int layer, int window, float scale,
-                                float softcap, int splits, void* stream) {
+extern "C" int pst_decode_split(int cache_dtype, const void* q, void* cache,
+                                const void* k_new, const void* v_new,
+                                const int* write_flat, const int* tables,
+                                const int* kv_lens, void* out, float* ws,
+                                int* counters, int B, int H, int KH, int HD,
+                                int nb, int bs, int W, int layer, int window,
+                                float scale, float softcap, int splits,
+                                void* stream) {
   if (B == 0) return 0;
   if (HD != kHD || KH <= 0 || H % KH || KH > 65535 || splits < 1 ||
       splits > kMaxSplits || (splits > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PST_SPLIT(GG, WR)                                                    \
-  return (int)launch<GG, WR>(q, cache, k_new, v_new, write_flat, tables,    \
-                             kv_lens, out, ws, counters, B, KH, nb, bs, W,  \
-                             layer, window, scale, softcap, splits, s)
-#define PST_SPLIT_G(WR)                         \
-  switch (H / KH) {                             \
-    case 1: PST_SPLIT(1, WR);                   \
-    case 2: PST_SPLIT(2, WR);                   \
-    case 4: PST_SPLIT(4, WR);                   \
-    case 8: PST_SPLIT(8, WR);                   \
-    default: return (int)cudaErrorInvalidValue; \
+  const int G = H / KH;
+#define PST_ARGS                                                          \
+  G, q, cache, k_new, v_new, write_flat, tables, kv_lens, out, ws,        \
+      counters, B, KH, nb, bs, W, layer, window, scale, softcap, splits, s
+  const bool write = write_flat != nullptr;
+  if (cache_dtype == 1) {
+    return write ? by_group<true, false>(PST_ARGS)
+                 : by_group<false, false>(PST_ARGS);
   }
-  if (write_flat == nullptr) { PST_SPLIT_G(false) }
-  PST_SPLIT_G(true)
-#undef PST_SPLIT_G
-#undef PST_SPLIT
+  if (cache_dtype == 2) {
+    return write ? by_group<true, true>(PST_ARGS)
+                 : by_group<false, true>(PST_ARGS);
+  }
+#undef PST_ARGS
+  return (int)cudaErrorInvalidValue;
 }

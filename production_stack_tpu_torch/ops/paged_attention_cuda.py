@@ -4,18 +4,21 @@
 ``_decode_kernel``, ``paged_attention_decode_write`` its
 ``_decode_write_kernel`` and ``paged_attention_prefill`` its
 ``_prefill_kernel`` (``production_stack_tpu/ops/paged_attention_pallas.py``).
-bf16 decode and decode-write run the split-KV kernel of
-``csrc/decode_splitkv.cu`` (``decode_route``; ``decode_plan`` picks its
-split count), bf16 prefill the tensor-core kernel of
-``csrc/prefill_wgmma.cu`` (``prefill_route``); fp32 takes the CUDA-core
-kernels of ``csrc/paged_attention.cu``. Each wrapper has a plain PyTorch
-version beside it (``*_plain``: gather + masked softmax, the same
-function), which it runs only for tensors on the CPU. On a CUDA tensor a
-wrapper launches its kernel or raises — there is no fallback.
+``kernel_route`` picks the kernel from the types and the head geometry:
+bf16 q at head_dim 128 runs the split-KV decode of
+``csrc/decode_splitkv.cu`` (``decode_plan`` picks its split count) and the
+tensor-core prefill of ``csrc/prefill_wgmma.cu``; fp32 q, or head_dim 16,
+32 or 64, the CUDA-core kernels of ``csrc/paged_attention.cuh``. Every
+kernel takes 1 to 8 query heads per kv head and a cache in q's type or in
+e4m3 (``kv_cache_dtype="float8_e4m3fn"``: the kernels up-convert K and V
+exactly, every e4m3 value being a bf16 value). Each wrapper has a plain
+PyTorch version beside it (``*_plain``: gather + masked softmax in fp32,
+the same function), which it runs only for tensors on the CPU. On a CUDA
+tensor a wrapper launches its kernel or raises — there is no fallback.
 
 ``launch_counts`` counts kernel launches per wrapper, so a run can show
 that its path went through the kernels; ``route_counts`` splits them by
-kernel.
+kernel and cache form.
 """
 
 from __future__ import annotations
@@ -24,18 +27,25 @@ from typing import Dict, Tuple
 
 import torch
 
-from .attention import window_eff
+from .attention import gather_pages, window_eff
+from .fp8 import E4M3, raw, to_cache_dtype
 
 launch_counts: Dict[str, int] = {"decode": 0, "decode_write": 0,
                                  "prefill": 0}
+# Launches by kernel and cache form: "<wrapper>_<route>", with "_e4m3"
+# appended for an e4m3 cache.
 route_counts: Dict[str, int] = {
-    "prefill_wgmma": 0, "prefill_simt": 0, "decode_split": 0,
-    "decode_simt": 0, "decode_write_split": 0, "decode_write_simt": 0,
+    f"{kind}_{route}{form}": 0
+    for kind, routes in (("prefill", ("wgmma", "simt")),
+                         ("decode", ("split", "simt")),
+                         ("decode_write", ("split", "simt")))
+    for route in routes for form in ("", "_e4m3")
 }
 
-HEAD_DIM = 128  # the head dim the kernels are compiled for
-GROUPS = (1, 2, 4, 8)  # query heads per kv head the kernels are compiled for
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# Element types by the code the launches pass.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, E4M3: 2}
+HEAD_DIMS = (16, 32, 64, 128)  # CUDA-core kernels; bf16 tensor cores: 128
+MAX_GROUP = 8  # query heads per kv head, 1 to 8 in every kernel
 
 
 def reset_launch_counts() -> None:
@@ -44,30 +54,46 @@ def reset_launch_counts() -> None:
             counts[k] = 0
 
 
-def prefill_route(dtype: torch.dtype) -> str:
-    """The prefill kernel for a q/cache dtype: ``"wgmma"``
-    (``paged_prefill_wgmma_kernel``, bf16 on the tensor cores) or
-    ``"simt"`` (``paged_prefill_kernel``, fp32 on the CUDA cores)."""
-    if dtype == torch.bfloat16:
-        return "wgmma"
-    if dtype == torch.float32:
-        return "simt"
-    raise TypeError(f"no prefill kernel for {dtype}")
+def kernel_route(kind: str, q_dtype: torch.dtype, cache_dtype: torch.dtype,
+                 H: int, KH: int, hd: int) -> str:
+    """The kernel a ``kind`` call (``"decode"``, ``"decode_write"`` or
+    ``"prefill"``) takes for these types and this head geometry:
+    ``"split"`` (``decode_split_kernel``) or ``"wgmma"``
+    (``paged_prefill_wgmma_kernel``) for bf16 q at head_dim 128,
+    ``"simt"`` (the CUDA-core kernels of ``paged_attention.cuh``) for fp32 q
+    or head_dim 16, 32 or 64. The cache holds q's type, or e4m3 under
+    either. Raises where no kernel exists; needs no GPU."""
+    if kind not in ("decode", "decode_write", "prefill"):
+        raise ValueError(f"unknown attention kind {kind!r}")
+    if cache_dtype not in DTYPE_CODES:
+        raise TypeError(f"no kernel takes a {cache_dtype} cache (float32, "
+                        "bfloat16 or float8_e4m3fn)")
+    if q_dtype not in (torch.float32, torch.bfloat16) or (
+            cache_dtype != E4M3 and q_dtype != cache_dtype):
+        raise TypeError(f"q is {q_dtype} but the cache is {cache_dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(
+            f"no kernel for head_dim={hd}: the kernels take {HEAD_DIMS}"
+            + (" (head_dim 256, the Gemma family: ROADMAP queue 2 item 2)"
+               if hd == 256 else ""))
+    if KH < 1 or H % KH:
+        raise ValueError(f"H={H} is not a multiple of KH={KH}")
+    if H // KH > MAX_GROUP:
+        raise ValueError(
+            f"H/KH = {H // KH}: the kernels take 1 to {MAX_GROUP} query heads "
+            "per kv head (ROADMAP queue 2 item 2)")
+    if q_dtype == torch.bfloat16 and hd == 128:
+        return "wgmma" if kind == "prefill" else "split"
+    return "simt"
 
 
-def decode_route(dtype: torch.dtype) -> str:
-    """The decode and decode-write kernel for a q/cache dtype: ``"split"``
-    (``decode_split_kernel``, bf16, split-KV) or ``"simt"``
-    (``paged_decode_kernel`` / ``paged_decode_write_kernel``, fp32)."""
-    if dtype == torch.bfloat16:
-        return "split"
-    if dtype == torch.float32:
-        return "simt"
-    raise TypeError(f"no decode kernel for {dtype}")
+def _count(kind: str, route: str, cache_dtype: torch.dtype) -> None:
+    launch_counts[kind] += 1
+    route_counts[f"{kind}_{route}{'_e4m3' if cache_dtype == E4M3 else ''}"] += 1
 
 
 # decode_splitkv.cu: keys a tile holds, and the blocks an SM holds (96 KB
-# of ring and about 170 registers a thread each). On an NVIDIA H100 80GB
+# of ring in bf16, 80 KB over e4m3, and about 170 registers a thread each). On an NVIDIA H100 80GB
 # HBM3, at Llama-3-8B's heads and B in {1, 8, 16, 32, 64}, the kernel was
 # fastest with the grid one wave of them (B*KH*S = 2 * 132) and no split
 # under two tiles: a shorter one pays its merge for too few keys.
@@ -126,8 +152,9 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
 
 def _launch_split(q3, kv_pages, block_tables, kv_lens, layer, write, scale,
                   window, softcap):
-    """``decode_split_kernel`` on bf16 tensors; ``write`` is None (decode)
-    or (k_new, v_new, write_flat). Returns [B, H, hd]."""
+    """``decode_split_kernel`` on bf16 q; ``write`` is None (decode) or
+    (k_new, v_new, write_flat), the rows in bf16 (the kernel casts them into
+    an e4m3 cache). Returns [B, H, hd]."""
     from ._build import load
 
     lib = load()
@@ -148,11 +175,11 @@ def _launch_split(q3, kv_pages, block_tables, kv_lens, layer, write, scale,
         return None if t is None else t.data_ptr()
 
     rc = lib.pst_decode_split(
-        q3.data_ptr(), kv_pages.data_ptr(), ptr(k_new), ptr(v_new),
-        ptr(write_flat), block_tables.data_ptr(), kv_lens.data_ptr(),
-        out.data_ptr(), ptr(ws), ptr(counters), B, H, KH, hd, nb, bs, W,
-        int(layer), int(window), float(scale), float(softcap), splits,
-        torch.cuda.current_stream(q3.device).cuda_stream,
+        DTYPE_CODES[kv_pages.dtype], q3.data_ptr(), kv_pages.data_ptr(),
+        ptr(k_new), ptr(v_new), ptr(write_flat), block_tables.data_ptr(),
+        kv_lens.data_ptr(), out.data_ptr(), ptr(ws), ptr(counters), B, H, KH,
+        hd, nb, bs, W, int(layer), int(window), float(scale), float(softcap),
+        splits, torch.cuda.current_stream(q3.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"split-KV decode kernel failed: cudaError {rc}")
@@ -162,13 +189,14 @@ def _launch_split(q3, kv_pages, block_tables, kv_lens, layer, write, scale,
 def _plain(q, kv_pages, block_tables, kv_lens, q_positions, layer, scale,
            window, softcap):
     """Masked paged attention in fp32 with the kernels' empty-row rule:
-    a row with no live key outputs zeros. q [B, T, H, hd]."""
+    a row with no live key outputs zeros. q [B, T, H, hd]; an e4m3 cache is
+    up-converted exactly."""
     B, T, H, hd = q.shape
     _, nb, _, bs, lanes = kv_pages.shape
     KH = lanes // hd
     W = block_tables.shape[1]
     S = W * bs
-    kv = kv_pages[layer][block_tables.long()].float()
+    kv = gather_pages(kv_pages, layer, block_tables).float()
     k = kv[:, :, 0].reshape(B, S, KH, hd)
     v = kv[:, :, 1].reshape(B, S, KH, hd)
     qg = q.float().reshape(B, T, KH, H // KH, hd)
@@ -202,7 +230,8 @@ def paged_attention_decode_write_plain(q3, kv_pages, block_tables, kv_lens,
                                        layer, k_new, v_new, write_flat, *,
                                        scale, window=0, softcap=0.0):
     """Write this step's K/V rows, then decode: ``index_copy_`` of the rows
-    of ``k_new``/``v_new`` [B, KH*hd] into slot ``write_flat`` [B] (page
+    of ``k_new``/``v_new`` [B, KH*hd], cast to the cache's type
+    (``to_cache_dtype``), into slot ``write_flat`` [B] (page
     ``write_flat // bs``, row ``write_flat % bs``) of ``layer``, dropping a
     slot outside ``[0, nb*bs)``; then :func:`paged_attention_decode_plain`.
     Updates ``kv_pages`` in place; returns [B, H, hd]."""
@@ -211,9 +240,10 @@ def paged_attention_decode_write_plain(q3, kv_pages, block_tables, kv_lens,
     keep = torch.nonzero((wf >= 0) & (wf < nb * bs))[:, 0]
     wf = wf[keep]
     rows = ((layer * nb + wf // bs) * 2 * bs + wf % bs)
-    flat = kv_pages.view(-1, lanes)
-    flat.index_copy_(0, rows, k_new[keep].to(kv_pages.dtype))
-    flat.index_copy_(0, rows + bs, v_new[keep].to(kv_pages.dtype))
+    flat = raw(kv_pages.view(-1, lanes))
+    flat.index_copy_(0, rows, raw(to_cache_dtype(k_new[keep], kv_pages.dtype)))
+    flat.index_copy_(0, rows + bs,
+                     raw(to_cache_dtype(v_new[keep], kv_pages.dtype)))
     return paged_attention_decode_plain(
         q3, kv_pages, block_tables, kv_lens, layer, scale=scale,
         window=window, softcap=softcap,
@@ -229,27 +259,18 @@ def paged_attention_prefill_plain(q, kv_pages, block_tables, kv_lens, starts,
                   window, softcap)
 
 
-def _check(q, q_dim, kv_pages, block_tables, kv_lens, layer, extra=()):
+def _check(kind, q, q_dim, kv_pages, block_tables, kv_lens, layer,
+           extra=()) -> str:
+    """Everything a launch needs of its arguments; returns the route."""
     if q.dim() != q_dim:
         raise ValueError(f"q must have {q_dim} dims, got {tuple(q.shape)}")
-    if kv_pages.dtype not in _DTYPES:
-        if kv_pages.element_size() == 1:
-            raise NotImplementedError("fp8 KV caches are not ported yet")
-        raise TypeError(f"unsupported cache dtype {kv_pages.dtype}")
-    if q.dtype != kv_pages.dtype:
-        raise TypeError(f"q is {q.dtype} but the cache is {kv_pages.dtype}")
     hd = q.shape[-1]
     H = q.shape[-2]
     lanes = kv_pages.shape[-1]
     if kv_pages.dim() != 5 or kv_pages.shape[2] != 2 or lanes % hd:
         raise ValueError(f"cache shape {tuple(kv_pages.shape)} is not "
                          "[L, nb, 2, bs, KH*hd]")
-    KH = lanes // hd
-    if hd != HEAD_DIM or H % KH or H // KH not in GROUPS:
-        raise ValueError(
-            f"kernels take head_dim={HEAD_DIM} and H/KH in {GROUPS}; got "
-            f"head_dim={hd}, H={H}, KH={KH}"
-        )
+    route = kernel_route(kind, q.dtype, kv_pages.dtype, H, lanes // hd, hd)
     if not 0 <= layer < kv_pages.shape[0]:
         raise IndexError(f"layer {layer} outside the cache")
     B = q.shape[0]
@@ -270,6 +291,7 @@ def _check(q, q_dim, kv_pages, block_tables, kv_lens, layer, extra=()):
     for name, t in (("q", q), ("kv_pages", kv_pages)):
         if t.data_ptr() % 16:  # the kernels load 16-byte vectors
             raise ValueError(f"{name} must be 16-byte aligned")
+    return route
 
 
 def paged_attention_decode(q3, kv_pages, block_tables, kv_lens, layer, *,
@@ -280,31 +302,26 @@ def paged_attention_decode(q3, kv_pages, block_tables, kv_lens, layer, *,
             q3, kv_pages, block_tables, kv_lens, layer, scale=scale,
             window=window, softcap=softcap,
         )
-    _check(q3, 3, kv_pages, block_tables, kv_lens, layer)
-    route = decode_route(q3.dtype)
+    route = _check("decode", q3, 3, kv_pages, block_tables, kv_lens, layer)
     if route == "split":
         out = _launch_split(q3, kv_pages, block_tables, kv_lens, layer, None,
                             scale, window, softcap)
-        launch_counts["decode"] += 1
-        route_counts["decode_split"] += 1
-        return out
-    from ._build import load
+    else:
+        from ._build import load
 
-    lib = load()
-    B, H, hd = q3.shape
-    _, nb, _, bs, lanes = kv_pages.shape
-    out = torch.empty_like(q3)
-    rc = lib.pst_paged_decode(
-        _DTYPES[q3.dtype], q3.data_ptr(), kv_pages.data_ptr(),
-        block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        B, H, lanes // hd, hd, nb, bs, block_tables.shape[1], int(layer),
-        int(window), float(scale), float(softcap),
-        torch.cuda.current_stream(q3.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"paged decode kernel failed: cudaError {rc}")
-    launch_counts["decode"] += 1
-    route_counts["decode_simt"] += 1
+        B, H, hd = q3.shape
+        _, nb, _, bs, lanes = kv_pages.shape
+        out = torch.empty_like(q3)
+        rc = load().pst_paged_decode(
+            DTYPE_CODES[q3.dtype], DTYPE_CODES[kv_pages.dtype], q3.data_ptr(),
+            kv_pages.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(),
+            out.data_ptr(), B, H, lanes // hd, hd, nb, bs,
+            block_tables.shape[1], int(layer), int(window), float(scale),
+            float(softcap), torch.cuda.current_stream(q3.device).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(f"paged decode kernel failed: cudaError {rc}")
+    _count("decode", route, kv_pages.dtype)
     return out
 
 
@@ -312,50 +329,48 @@ def paged_attention_decode_write(q3, kv_pages, block_tables, kv_lens, layer,
                                  k_new, v_new, write_flat, *, scale,
                                  window=0, softcap=0.0):
     """Decode with this step's KV write folded in. q3 [B, H, hd]; k_new,
-    v_new [B, KH*hd] (cast to the cache dtype); write_flat [B] int32 flat
-    slot ``blk * bs + pos`` (outside ``[0, nb*bs)``: dropped); kv_lens
-    include the new row. Updates ``kv_pages`` in place; returns
+    v_new [B, KH*hd], cast to q's type here and by the kernel into the
+    cache's (into e4m3 as ``cast_e4m3`` casts, bit for bit); write_flat [B]
+    int32 flat slot ``blk * bs + pos`` (outside ``[0, nb*bs)``: dropped);
+    kv_lens include the new row. Updates ``kv_pages`` in place; returns
     [B, H, hd]."""
     if not q3.is_cuda:
         return paged_attention_decode_write_plain(
             q3, kv_pages, block_tables, kv_lens, layer, k_new, v_new,
             write_flat, scale=scale, window=window, softcap=softcap,
         )
-    _check(q3, 3, kv_pages, block_tables, kv_lens, layer,
-           extra=(("write_flat", write_flat),))
+    route = _check("decode_write", q3, 3, kv_pages, block_tables, kv_lens,
+                   layer, extra=(("write_flat", write_flat),))
     B, H, hd = q3.shape
     _, nb, _, bs, lanes = kv_pages.shape
-    k_new = k_new.to(kv_pages.dtype).contiguous()
-    v_new = v_new.to(kv_pages.dtype).contiguous()
+    k_new = k_new.to(q3.dtype).contiguous()
+    v_new = v_new.to(q3.dtype).contiguous()
     for name, t in (("k_new", k_new), ("v_new", v_new)):
         if tuple(t.shape) != (B, lanes) or t.device != q3.device:
             raise ValueError(f"{name} must be [{B}, {lanes}] on {q3.device}, "
                              f"got {tuple(t.shape)} on {t.device}")
         if t.data_ptr() % 16:  # the kernels copy 16-byte pieces
             raise ValueError(f"{name} must be 16-byte aligned")
-    if decode_route(q3.dtype) == "split":
+    if route == "split":
         out = _launch_split(q3, kv_pages, block_tables, kv_lens, layer,
                             (k_new, v_new, write_flat), scale, window,
                             softcap)
-        launch_counts["decode_write"] += 1
-        route_counts["decode_write_split"] += 1
-        return out
-    from ._build import load
+    else:
+        from ._build import load
 
-    lib = load()
-    out = torch.empty_like(q3)
-    rc = lib.pst_paged_decode_write(
-        _DTYPES[q3.dtype], q3.data_ptr(), kv_pages.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), write_flat.data_ptr(),
-        block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        B, H, lanes // hd, hd, nb, bs, block_tables.shape[1], int(layer),
-        int(window), float(scale), float(softcap),
-        torch.cuda.current_stream(q3.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"paged decode-write kernel failed: cudaError {rc}")
-    launch_counts["decode_write"] += 1
-    route_counts["decode_write_simt"] += 1
+        out = torch.empty_like(q3)
+        rc = load().pst_paged_decode_write(
+            DTYPE_CODES[q3.dtype], DTYPE_CODES[kv_pages.dtype], q3.data_ptr(),
+            kv_pages.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            write_flat.data_ptr(), block_tables.data_ptr(),
+            kv_lens.data_ptr(), out.data_ptr(), B, H, lanes // hd, hd, nb, bs,
+            block_tables.shape[1], int(layer), int(window), float(scale),
+            float(softcap), torch.cuda.current_stream(q3.device).cuda_stream,
+        )
+        if rc != 0:
+            raise RuntimeError(
+                f"paged decode-write kernel failed: cudaError {rc}")
+    _count("decode_write", route, kv_pages.dtype)
     return out
 
 
@@ -369,27 +384,25 @@ def paged_attention_prefill(q, kv_pages, block_tables, kv_lens, starts,
             q, kv_pages, block_tables, kv_lens, starts, layer, scale=scale,
             window=window, softcap=softcap,
         )
-    _check(q, 4, kv_pages, block_tables, kv_lens, layer,
-           extra=(("starts", starts),))
+    route = _check("prefill", q, 4, kv_pages, block_tables, kv_lens, layer,
+                   extra=(("starts", starts),))
     from ._build import load
 
     lib = load()
     B, T, H, hd = q.shape
     _, nb, _, bs, lanes = kv_pages.shape
     out = torch.empty_like(q)
-    route = prefill_route(q.dtype)
-    args = (q.data_ptr(), kv_pages.data_ptr(), block_tables.data_ptr(),
-            kv_lens.data_ptr(), starts.data_ptr(), out.data_ptr(), B, T, H,
-            lanes // hd, hd, nb, bs, block_tables.shape[1], int(layer),
-            int(window), float(scale), float(softcap),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    args = (DTYPE_CODES[kv_pages.dtype], q.data_ptr(), kv_pages.data_ptr(),
+            block_tables.data_ptr(), kv_lens.data_ptr(), starts.data_ptr(),
+            out.data_ptr(), B, T, H, lanes // hd, hd, nb, bs,
+            block_tables.shape[1], int(layer), int(window), float(scale),
+            float(softcap), torch.cuda.current_stream(q.device).cuda_stream)
     if route == "wgmma":
         rc = lib.pst_paged_prefill_wgmma(*args)
     else:
-        rc = lib.pst_paged_prefill(_DTYPES[q.dtype], *args)
+        rc = lib.pst_paged_prefill(DTYPE_CODES[q.dtype], *args)
     if rc != 0:
         raise RuntimeError(f"paged prefill kernel ({route}) failed: "
                            f"cudaError {rc}")
-    launch_counts["prefill"] += 1
-    route_counts[f"prefill_{route}"] += 1
+    _count("prefill", route, kv_pages.dtype)
     return out

@@ -2,10 +2,11 @@
 
     python -m production_stack_tpu_torch.tools.profile_step \
         [--model llama-3-8b] [--batch 8] [--ctx 4096] [--prefill 512] \
-        [--quantization int4]
+        [--quantization int4] [--kv-cache-dtype float8_e4m3fn]
 
 Builds the model with random weights on the card (quantized on the card
-with ``--quantization``; ``PST_FUSED_KV_WRITE=1`` in the environment
+with ``--quantization``; the KV cache in ``--kv-cache-dtype``, default
+the model's; ``PST_FUSED_KV_WRITE=1`` in the environment
 selects the fused decode-write kernel), then for a decode step
 (``--batch`` rows at position ``--ctx - 1``) and a fresh prefill chunk of
 ``--prefill`` tokens, through the CUDA kernels: the host wall time per
@@ -22,7 +23,7 @@ import json
 import os
 import subprocess
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -52,14 +53,16 @@ def _busy_us(events) -> float:
 
 
 def step_inputs(model: Llama, batch: int, ctx: int, prefill: int,
-                block_size: int, device: torch.device):
-    """A zeroed cache and the forward arguments (tokens, positions,
+                block_size: int, device: torch.device,
+                kv_dtype: Optional[torch.dtype] = None):
+    """A zeroed cache (of ``kv_dtype``, default the model's) and the
+    forward arguments (tokens, positions,
     write_idx, block_tables, kv_lens, last_idx) of two steps: a decode step
     of ``batch`` rows at position ``ctx - 1`` and one fresh ``prefill``-token
     chunk. Returns (cache, decode_args, prefill_args)."""
     B, T, bs = batch, prefill, block_size
     W = -(-max(ctx, T) // bs)
-    cache = model.make_kv_cache(B * W + 1, bs, device=device)
+    cache = model.make_kv_cache(B * W + 1, bs, dtype=kv_dtype, device=device)
     tables = torch.arange(B * W, dtype=torch.int32, device=device).reshape(B, W)
     i32 = dict(dtype=torch.int32, device=device)
     pos = ctx - 1
@@ -118,6 +121,8 @@ def main(argv=None) -> None:
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--top", type=int, default=12)
     p.add_argument("--quantization", choices=("int8", "int4"), default=None)
+    p.add_argument("--kv-cache-dtype", choices=("float8_e4m3fn",),
+                   default=None, help="default: the model dtype")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA GPU")
@@ -126,8 +131,10 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = model.init_params(gen, dev, quantization=args.quantization)
+    kv_dtype = getattr(torch, args.kv_cache_dtype or model.cfg.dtype)
     cache, decode, prefill = step_inputs(model, args.batch, args.ctx,
-                                         args.prefill, args.block_size, dev)
+                                         args.prefill, args.block_size, dev,
+                                         kv_dtype)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -135,6 +142,7 @@ def main(argv=None) -> None:
     print(card, flush=True)
     result = {"card": card, "model": args.model,
               "quantization": args.quantization,
+              "kv_cache_dtype": str(kv_dtype),
               "fused_kv_write": os.environ.get("PST_FUSED_KV_WRITE") == "1"}
     for name, batch in (("decode", decode), ("prefill", prefill)):
         r = profile(lambda: model.forward(params, *batch, cache,

@@ -190,10 +190,15 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     tables = torch.zeros(2, 3, dtype=torch.int32)
     lens = torch.ones(2, dtype=torch.int32)
     cases = [
-        (NotImplementedError, (q, 3, kv.to(torch.float8_e4m3fn), tables, lens, 0)),
+        (TypeError, (q, 3, kv.to(torch.float8_e5m2), tables, lens, 0)),
         (TypeError, (q.float(), 3, kv, tables, lens, 0)),
+        (TypeError, (q.half(), 3, kv.to(torch.float8_e4m3fn), tables, lens, 0)),
         (ValueError, (q[None], 3, kv, tables, lens, 0)),
-        (ValueError, (q[..., :64].contiguous(), 3, kv[..., :512], tables, lens, 0)),
+        # head_dim 256 (the Gemma family) has no kernel yet.
+        (ValueError, (torch.zeros(2, 16, 256, dtype=torch.bfloat16), 3,
+                      kv[..., :512], tables, lens, 0)),
+        (ValueError, (torch.zeros(2, 72, 128, dtype=torch.bfloat16), 3, kv,
+                      tables, lens, 0)),  # H/KH = 9
         (ValueError, (q[:, :12], 3, kv, tables, lens, 0)),  # H/KH = 1.5
         (IndexError, (q, 3, kv, tables, lens, 1)),
         (TypeError, (q, 3, kv, tables.long(), lens, 0)),
@@ -202,4 +207,4 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     ]
     for err, args in cases:
         with pytest.raises(err):
-            _check(*args)
+            _check("decode", *args)

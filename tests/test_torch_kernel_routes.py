@@ -23,10 +23,16 @@ from production_stack_tpu_torch.ops import paged_attention_cuda as pac
 
 
 def test_prefill_route_by_dtype():
-    assert pac.prefill_route(torch.bfloat16) == "wgmma"
-    assert pac.prefill_route(torch.float32) == "simt"
+    bf16, f32, e4m3 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
+    assert pac.kernel_route("prefill", bf16, bf16, 32, 8, 128) == "wgmma"
+    assert pac.kernel_route("prefill", bf16, e4m3, 28, 4, 128) == "wgmma"
+    assert pac.kernel_route("prefill", f32, f32, 32, 8, 128) == "simt"
+    assert pac.kernel_route("prefill", f32, e4m3, 8, 8, 16) == "simt"
+    # head_dim below 128 takes the CUDA-core kernel in bf16 too.
+    assert pac.kernel_route("prefill", bf16, bf16, 8, 8, 16) == "simt"
+    assert pac.kernel_route("prefill", bf16, e4m3, 12, 4, 64) == "simt"
     with pytest.raises(TypeError):
-        pac.prefill_route(torch.float16)
+        pac.kernel_route("prefill", torch.float16, torch.float16, 8, 8, 128)
 
 
 def _route(N, dout, G, dtype=torch.bfloat16):
