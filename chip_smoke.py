@@ -34,7 +34,15 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    decode missing a key (bf16 and e4m3), a prefill whose rows each miss
    one key and an int4 product with swapped nibbles (on both bf16 int4
    routes); on CUDA tensors a wrapper refuses what its kernel does not
-   take.
+   take. At head_dim 256 (the Gemma family), over a bf16 and an e4m3
+   cache: the split-KV decode and decode-write and the wgmma prefill at
+   gemma2-9b's heads (H=16, KH=8, scale 1/16, softcap 50) and gemma-7b's
+   (H=KH=16), over ragged lengths 0 to 4096, one sequence of 4096, a
+   window of 4096 at kv_len 5000 starting mid-page, G = 1 to 8, the
+   decode-write's caches bit for bit (a write 5 positions before a row's
+   end, a dropped write) and two launches bit for bit, prefill at a ragged
+   T, T=2048 fresh and T=512 at 3584, with the two negative controls; the
+   CUDA-core kernels at head_dim 256 in fp32 at 1e-4.
 3. The full-width 32-layer Llama-3-8B (random bf16 weights from a seed):
    one 512-token prefill and 8 decode steps through the kernels and again
    through the gather path; the logits must agree, and every decode
@@ -66,6 +74,23 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
 4d. ``EngineConfig(device="cuda")``, the default tiny preset (fp32,
    head_dim 16), answers a completion on the CUDA-core kernels; so do the
    same over an e4m3 cache and both with the fused write.
+3f. gemma2-9b at full width and depth (42 layers, 9.24B random bf16
+   parameters, its (1 + w) norms drawn as N(0, 0.1) around w = 0 since a
+   random model at the JAX init's w = 1 amplifies rounding with depth (see
+   ``drift`` below), the Llama tree freed first): a 4608-token prompt in
+   512-token chunks (past its window of 4096) and 8 decode steps through
+   the head_dim-256 kernels against the gather path, over a bf16 cache
+   (unfused; beside it, as a witness of how far two correct paths differ,
+   the kernels' plain versions against the gather path) and an e4m3 cache
+   (unfused and fused); then its int4 form (4
+   layers, fused write) against its dequantized gather path, with the
+   int4 route of each projection.
+4e. A server with ``--model gemma2-9b`` and ``PST_FUSED_KV_WRITE=1``
+   answers a chunked, a streamed and two concurrent completions; its
+   head_dim-256 decode-write and prefill counters must grow.
+3g. gemma-7b (G = 1 at head_dim 256) and qwen3-8b (q/k norms on the
+   head_dim-128 kernels) at full width, 4 layers each: kernels against
+   the gather path.
 5. Times of each kernel at the slice's shapes beside its plain version, a
    PyTorch call as a yardstick where one computes the same function, and
    its bound: decode at B=8, 1 and 64 at kv_len 4096 and at B=64 x 512
@@ -77,11 +102,20 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    projection shapes and at N=2048; the int4 decode route at N in {1, 8,
    16} (and the decode buckets up to its boundary) for the four projection
    shapes; both bf16 int4 routes at N in {1, 8, 16, 32, 64} on the four
-   shapes (the route boundary's crossover).
+   shapes (the route boundary's crossover); the head_dim-256 kernels at
+   gemma2-9b's heads over both caches: decode at B=8 and B=1 x 4096,
+   decode-write at B=8 x 4096, prefill at T=512 fresh, at 3584 and T=2048
+   fresh (SDPA, the yardstick, takes no softcap and runs without one).
 
 The line before the last is a JSON ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the
 package beside it, the script exits non-zero and prints no result.
+
+    python3 chip_smoke.py drift
+
+builds the kernels and runs only the drift sweep: gemma2-9b at 4, 12 and
+42 layers with its (1 + w) norms at w = 1, 0.5 and 0, through the
+kernels, the gather path and the kernels' plain versions (``drift``).
 """
 
 from __future__ import annotations
@@ -118,6 +152,7 @@ from production_stack_tpu_torch.engine.server import (  # noqa: E402
     parse_engine_args,
     serve_in_thread,
 )
+from production_stack_tpu_torch.models import llama as llama_mod  # noqa: E402
 from production_stack_tpu_torch.models.llama import (  # noqa: E402
     QUANT_SUFFIX,
     Llama,
@@ -159,15 +194,17 @@ INT4_FP32_REL = 1e-5
 # Logits of 32 bf16 layers computed in a different order (kernel vs gather).
 MODEL_REL_ATOL = 5e-2
 
-SOURCE = "production_stack_tpu_torch/ops/csrc/decode_splitkv.cu"
-PREFILL_SOURCE = "production_stack_tpu_torch/ops/csrc/prefill_wgmma.cu"
+SOURCE = "production_stack_tpu_torch/ops/csrc/decode_splitkv.cuh"
+PREFILL_SOURCE = "production_stack_tpu_torch/ops/csrc/prefill_wgmma.cuh"
 SIMT_SOURCE = "production_stack_tpu_torch/ops/csrc/paged_attention.cuh"
 PALLAS = "production_stack_tpu/ops/paged_attention_pallas.py"
-# One row per kernel and cache form. Its launches are the count of the
-# kernel's route (ROUTE_OF) over the path that runs it: the bf16 server
-# (decode, prefill), the int4 server (decode_write, int4, int4_wgmma), the
-# fp8 server (decode_write_e4m3, prefill_e4m3), the fp8 model's unfused
-# steps (decode_e4m3) and the default tiny engine (the CUDA-core rows).
+# One row per kernel, cache form and head dim. Its launches are the count
+# of the kernel's route (ROUTE_OF) over the path that runs it: the bf16
+# server (decode, prefill), the int4 server (decode_write, int4,
+# int4_wgmma), the fp8 server (decode_write_e4m3, prefill_e4m3), the fp8
+# model's unfused steps (decode_e4m3), the default tiny engine (the
+# CUDA-core rows), the gemma2-9b server (decode_write_hd256,
+# prefill_hd256) and gemma2-9b's model steps (the other hd256 rows).
 KERNELS = {
     "decode": dict(
         name="paged_attention_decode", route="cuda", source=SOURCE,
@@ -232,6 +269,31 @@ KERNELS = {
         source="production_stack_tpu_torch/ops/csrc/int4_matmul.cu",
         replaces="production_stack_tpu/ops/int4_matmul.py:73",
     ),
+    # head_dim 256 (gemma-7b, gemma2-9b): the same kernels' HD = 256 builds.
+    "decode_hd256": dict(
+        name="paged_attention_decode[head_dim 256]", route="cuda",
+        source=SOURCE, replaces=f"{PALLAS}:218",
+    ),
+    "prefill_hd256": dict(
+        name="paged_attention_prefill[head_dim 256]", route="cuda",
+        source=PREFILL_SOURCE, replaces=f"{PALLAS}:430",
+    ),
+    "decode_write_hd256": dict(
+        name="paged_attention_decode_write[head_dim 256]", route="cuda",
+        source=SOURCE, replaces=f"{PALLAS}:301",
+    ),
+    "decode_e4m3_hd256": dict(
+        name="paged_attention_decode[head_dim 256, e4m3 cache]",
+        route="cuda", source=SOURCE, replaces=f"{PALLAS}:218",
+    ),
+    "prefill_e4m3_hd256": dict(
+        name="paged_attention_prefill[head_dim 256, e4m3 cache]",
+        route="cuda", source=PREFILL_SOURCE, replaces=f"{PALLAS}:430",
+    ),
+    "decode_write_e4m3_hd256": dict(
+        name="paged_attention_decode_write[head_dim 256, e4m3 cache]",
+        route="cuda", source=SOURCE, replaces=f"{PALLAS}:301",
+    ),
 }
 # Which launch counter of a path belongs to each row: the route of the
 # kernel the row times (the int4 wrapper's two bf16 routes are two
@@ -242,6 +304,9 @@ ROUTE_OF = {"prefill": "prefill_wgmma", "int4": "decode", "int4_wgmma": "wgmma",
             "prefill_e4m3": "prefill_wgmma_e4m3",
             "decode_write_e4m3": "decode_write_split_e4m3",
             **{k: k for k in KERNELS if "simt" in k}}
+ROUTE_OF.update({k + "_hd256": ROUTE_OF[k] + "_hd256" for k in (
+    "decode", "prefill", "decode_write", "decode_e4m3", "prefill_e4m3",
+    "decode_write_e4m3")})
 max_err = {k: 0.0 for k in KERNELS}
 
 # Llama-3-8B projections: (din, dout) of wq/wo, wk/wv, w_gate/w_up, w_down.
@@ -252,6 +317,14 @@ LAYER_SHAPES = ((4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096),
                 (4096, 14336), (4096, 14336), (14336, 4096))
 # The engine's decode buckets (powers of two up to max_num_seqs = 64).
 DECODE_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+# The Gemma family's attention at head_dim 256: gemma2-9b's H=16 over KH=8
+# (G=2) with scale 1/sqrt(query_pre_attn_scalar = 256), softcap 50 and a
+# window of 4096 on alternate layers; gemma-7b's H=KH=16 (G=1), scale
+# 1/sqrt(256), no softcap.
+GEMMA = "gemma2-9b"
+HD256, HD256_SCALE = 256, 256 ** -0.5
+GEMMA2_HEADS = dict(h=16, kh=8, softcap=50.0)
+GEMMA1_HEADS = dict(h=16, kh=16, softcap=0.0)
 
 
 def log(msg: str) -> None:
@@ -365,25 +438,27 @@ def compare(kind: str, got: torch.Tensor, ref: torch.Tensor,
     return err
 
 
-def form(kind: str, cache_dtype) -> str:
-    """The row of KERNELS for a wrapper and a cache type."""
-    return kind + ("_e4m3" if cache_dtype == E4M3 else "")
+def form(kind: str, cache_dtype, hd: int = HD) -> str:
+    """The row of KERNELS (and the route counter's suffixes) for a wrapper,
+    a cache type and a head dim."""
+    return (kind + ("_e4m3" if cache_dtype == E4M3 else "")
+            + ("_hd256" if hd == 256 else ""))
 
 
-def run_decode(q3, cache, tables, lens, layer, **kw):
+def run_decode(q3, cache, tables, lens, layer, scale=SCALE, **kw):
     got = pac.paged_attention_decode(q3, cache, tables, lens, layer,
-                                     scale=SCALE, **kw)
+                                     scale=scale, **kw)
     ref = pac.paged_attention_decode_plain(q3, cache, tables, lens, layer,
-                                           scale=SCALE, **kw)
+                                           scale=scale, **kw)
     torch.cuda.synchronize()
     return got, ref
 
 
-def run_prefill(q, cache, tables, lens, starts, layer, **kw):
+def run_prefill(q, cache, tables, lens, starts, layer, scale=SCALE, **kw):
     got = pac.paged_attention_prefill(q, cache, tables, lens, starts, layer,
-                                      scale=SCALE, **kw)
+                                      scale=scale, **kw)
     ref = pac.paged_attention_prefill_plain(q, cache, tables, lens, starts,
-                                            layer, scale=SCALE, **kw)
+                                            layer, scale=scale, **kw)
     torch.cuda.synchronize()
     return got, ref
 
@@ -510,7 +585,8 @@ def phase_kernels(cache_dtype=torch.bfloat16) -> None:
     q, cache, tables, kl, _ = make_case(gen, B=2, T=1, kv_lens=[5, 9])
     refused = (
         (TypeError, (q[:, 0], cache.to(torch.float8_e5m2))),
-        (ValueError, (q[:, 0].reshape(2, 16, 256), cache)),  # head_dim 256
+        (ValueError, (q[:, 0][..., :96].contiguous(),
+                      cache[..., :KH * 96].contiguous())),  # head_dim 96
         (ValueError, (q[:, 0].transpose(0, 1).contiguous().transpose(0, 1), cache)),
     )
     for err, (qq, cc) in refused:
@@ -519,7 +595,7 @@ def phase_kernels(cache_dtype=torch.bfloat16) -> None:
         except err:
             continue
         raise AssertionError(f"decode wrapper accepted what it must refuse ({err})")
-    log("  wrappers refuse e5m2 caches, head_dim 256 and non-contiguous q")
+    log("  wrappers refuse e5m2 caches, head_dim 96 and non-contiguous q")
 
 
 def phase_simt_geometries() -> None:
@@ -590,8 +666,10 @@ def write_slots(tables, positions, drop_rows, nb):
 def splits_of(q, cache, tables) -> int:
     """The split count the decode wrapper's plan gives these inputs."""
     _, _, _, bs, lanes = cache.shape
-    return pac.decode_plan(q.shape[0], lanes // HD, tables.shape[1], bs,
-                           torch.cuda.get_device_properties(0).multi_processor_count)
+    hd = q.shape[-1]
+    return pac.decode_plan(q.shape[0], lanes // hd, tables.shape[1], bs,
+                           torch.cuda.get_device_properties(0).multi_processor_count,
+                           hd)
 
 
 def same_nan(got, ref, label):
@@ -605,14 +683,15 @@ def same_nan(got, ref, label):
     return got.masked_fill(rows, 0), ref.masked_fill(rows, 0), int(rows.sum())
 
 
-def run_decode_write(q3, cache, tables, lens, layer, k_new, v_new, wf, **kw):
+def run_decode_write(q3, cache, tables, lens, layer, k_new, v_new, wf,
+                     scale=SCALE, **kw):
     """Kernel and plain version, each on its own copy of the cache; the
     caches must come out bit for bit equal, and the rows must have landed."""
     got_cache, ref_cache = cache.clone(), cache.clone()
     got = pac.paged_attention_decode_write(q3, got_cache, tables, lens, layer,
-                                           k_new, v_new, wf, scale=SCALE, **kw)
+                                           k_new, v_new, wf, scale=scale, **kw)
     ref = pac.paged_attention_decode_write_plain(
-        q3, ref_cache, tables, lens, layer, k_new, v_new, wf, scale=SCALE, **kw)
+        q3, ref_cache, tables, lens, layer, k_new, v_new, wf, scale=scale, **kw)
     torch.cuda.synchronize()
     check(torch.equal(raw(got_cache), raw(ref_cache)),
           "decode_write: the kernel's cache differs from its plain version's")
@@ -710,6 +789,196 @@ def phase_decode_write_kernels(cache_dtype=torch.bfloat16) -> None:
     compare("decode_write_simt", got, ref,
             "decode_write fp32 window=100 softcap=30 (row 1 dropped): caches "
             "equal;")
+
+
+def phase_hd256_kernels(cache_dtype=torch.bfloat16) -> None:
+    """The split-KV decode, decode-write and wgmma prefill kernels at
+    head_dim 256, bf16 q over a ``cache_dtype`` cache, against their plain
+    versions: at gemma2-9b's heads and at gemma-7b's, over ragged lengths
+    (0 to 4096), one sequence of 4096, a window of 4096 at kv_len 5000
+    (starting mid-page), every head group G 1 to 8 at a small B, the
+    decode-write's caches bit for bit and two launches bit for bit; with
+    negative controls. With a bf16 cache also the CUDA-core kernels at
+    head_dim 256 in fp32, over fp32 and e4m3 caches, at 1e-4."""
+    pac.reset_launch_counts()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2560)
+    tag = f"{str(cache_dtype)[6:]} hd256"
+    dec, dw, pre = (form(k, cache_dtype, HD256)
+                    for k in ("decode", "decode_write", "prefill"))
+    case = functools.partial(make_case, cache_dtype=cache_dtype, hd=HD256)
+    sc = HD256_SCALE
+    g2 = dict(h=GEMMA2_HEADS["h"], kh=GEMMA2_HEADS["kh"])
+    cap = GEMMA2_HEADS["softcap"]
+
+    # Decode: ragged lengths at both presets' heads.
+    lens = [0, 1, 31, 32, 33, 4096, 4000, 777]
+    for name, heads in ((GEMMA, GEMMA2_HEADS), ("gemma-7b", GEMMA1_HEADS)):
+        q, cache, tables, kl, _ = case(gen, B=8, T=1, kv_lens=lens,
+                                       h=heads["h"], kh=heads["kh"])
+        got, ref = run_decode(q[:, 0], cache, tables, kl, 1, scale=sc,
+                              softcap=heads["softcap"])
+        check(bool((got[0] == 0).all()), "decode: kv_len 0 row must be zeros")
+        compare(dec, got, ref, f"decode {tag} {name}'s heads B=8 "
+                f"kv_lens={lens} ({splits_of(q, cache, tables)} splits)")
+    # The check has teeth: a decode that drops the last of 4096/4000 keys.
+    wrong = pac.paged_attention_decode_plain(q[:, 0], cache, tables, kl - 1,
+                                             1, scale=sc)
+    ok, ratio, _ = bf16_row_check(wrong[5:7], ref[5:7])
+    log(f"  a {tag} decode that drops the last of 4096/4000 keys: worst err "
+        f"/ row tol {ratio:.3f}")
+    check(not ok, f"the row check passes a {tag} decode that drops a key")
+    check(torch.equal(got, pac.paged_attention_decode(
+        q[:, 0], cache, tables, kl, 1, scale=sc)),
+        "decode hd256: two launches on the same inputs differ")
+    q, cache, tables, kl, _ = case(gen, B=1, T=1, kv_lens=[4096], **g2)
+    got, ref = run_decode(q[:, 0], cache, tables, kl, 1, scale=sc,
+                          softcap=cap)
+    compare(dec, got, ref, f"decode {tag} B=1 kv_len 4096 "
+            f"({splits_of(q, cache, tables)} splits)")
+    # gemma2-9b's local layers: a window of 4096 at kv_len 5000 starts at
+    # key 904, mid-page.
+    q, cache, tables, kl, _ = case(gen, B=2, T=1, kv_lens=[5000, 4500], **g2)
+    got, ref = run_decode(q[:, 0], cache, tables, kl, 0, scale=sc,
+                          window=4096, softcap=cap)
+    compare(dec, got, ref, f"decode {tag} kv_lens=[5000, 4500] window=4096 "
+            f"softcap=50 ({splits_of(q, cache, tables)} splits)")
+    small = [0, 33, 300, 1000]
+    for h, kh in GROUP_SHAPES:
+        q, cache, tables, kl, _ = case(gen, B=4, T=1, kv_lens=small, h=h,
+                                       kh=kh)
+        got, ref = run_decode(q[:, 0], cache, tables, kl, 0, scale=sc,
+                              window=45, softcap=30.0)
+        check(bool((got[0] == 0).all()), "decode: kv_len 0 row must be zeros")
+        compare(dec, got, ref, f"decode {tag} G={h // kh} (H={h}, KH={kh}) "
+                f"window=45 softcap=30 ({splits_of(q, cache, tables)} splits)")
+
+    # Decode-write: row 2 writes 5 positions before its end, row 3 drops
+    # its write; over e4m3 a K value of 500 turns row 4's heads over kv
+    # head 3 NaN (as JAX's cast writes), V values at the range's edge round
+    # to +-448.
+    lens = [1, 33, 4096, 4000, 777, 31, 32, 100]
+    q, cache, tables, kl, _ = case(gen, B=8, T=1, kv_lens=lens, **g2)
+    pos = [n - 1 for n in lens]
+    pos[2] -= 5
+    wf = write_slots(tables, pos, [3], cache.shape[1])
+    lanes = g2["kh"] * HD256
+    k_new = torch.randn((8, lanes), generator=gen, device=DEV).bfloat16()
+    v_new = torch.randn((8, lanes), generator=gen, device=DEV).bfloat16()
+    if cache_dtype == E4M3:
+        k_new[4, 3 * HD256 + 7] = 500.0
+        v_new[1, :3] = torch.tensor([452.0, -460.0, 464.0])
+    got, ref = run_decode_write(q[:, 0], cache, tables, kl, 1, k_new, v_new,
+                                wf, scale=sc, softcap=cap)
+    nan_rows = 0
+    if cache_dtype == E4M3:
+        got, ref, nan_rows = same_nan(got, ref, f"decode_write {tag}")
+        check(nan_rows == g2["h"] // g2["kh"],
+              f"decode_write {tag}: {nan_rows} NaN heads, expected 2")
+    compare(dw, got, ref, f"decode_write {tag} B=8 kv_lens={lens} (row 3 "
+            "dropped, row 2 five before its end"
+            + (f", a K of 500 -> NaN in row 4's {nan_rows} heads"
+               if nan_rows else "") + "): caches equal;")
+    again = pac.paged_attention_decode_write(
+        q[:, 0], cache.clone(), tables, kl, 1, k_new, v_new, wf, scale=sc,
+        softcap=cap)
+    if nan_rows:
+        again = again.masked_fill(torch.isnan(again).any(-1, keepdim=True), 0)
+    check(torch.equal(got, again),
+          "decode_write hd256: two launches on the same inputs differ")
+    q, cache, tables, kl, _ = case(gen, B=2, T=1, kv_lens=[5000, 4096], **g2)
+    wf = write_slots(tables, [4999, 4095], [], cache.shape[1])
+    k_new = torch.randn((2, lanes), generator=gen, device=DEV).bfloat16()
+    v_new = torch.randn((2, lanes), generator=gen, device=DEV).bfloat16()
+    got, ref = run_decode_write(q[:, 0], cache, tables, kl, 0, k_new, v_new,
+                                wf, scale=sc, window=4096, softcap=cap)
+    compare(dw, got, ref, f"decode_write {tag} kv_lens=[5000, 4096] "
+            "window=4096: caches equal;")
+    for h, kh in GROUP_SHAPES:
+        q, cache, tables, kl, _ = case(gen, B=4, T=1, kv_lens=small, h=h,
+                                       kh=kh)
+        pos = [max(n - 1, 0) for n in small]
+        pos[3] -= 5
+        wf = write_slots(tables, pos, [0], cache.shape[1])
+        k_new = torch.randn((4, kh * HD256), generator=gen,
+                            device=DEV).bfloat16()
+        v_new = torch.randn((4, kh * HD256), generator=gen,
+                            device=DEV).bfloat16()
+        got, ref = run_decode_write(q[:, 0], cache, tables, kl, 0, k_new,
+                                    v_new, wf, scale=sc, window=45,
+                                    softcap=30.0)
+        compare(dw, got, ref, f"decode_write {tag} G={h // kh} (H={h}, "
+                f"KH={kh}) window=45 softcap=30 (row 0 dropped): caches "
+                "equal;")
+
+    # Prefill: a ragged T, T=2048 fresh, T=512 at 3584, and T=512 at 4488
+    # under a window of 4096 (row 0's first key 393, mid-page).
+    for T, start, window in ((300, 77, 0), (2048, 0, 0), (512, 3584, 0),
+                             (512, 4488, 4096)):
+        q, cache, tables, kl, st = case(
+            gen, B=2, T=T, kv_lens=[start + T] * 2, starts=[start] * 2, **g2)
+        got, ref = run_prefill(q, cache, tables, kl, st, 1, scale=sc,
+                               window=window, softcap=cap)
+        compare(pre, got, ref, f"prefill {tag} B=2 T={T} start={start} "
+                f"window={window} softcap=50")
+        if T == 2048:
+            # The check has teeth: every row one position earlier (its
+            # last key dropped) fails it, on the rows that keep a key.
+            wrong = pac.paged_attention_prefill_plain(
+                q, cache, tables, kl, st - 1, 1, scale=sc, softcap=cap)
+            ok, ratio, _ = bf16_row_check(got[:, 1:], wrong[:, 1:])
+            log(f"  a {tag} prefill whose rows each miss their last key: "
+                f"worst err / row tol {ratio:.3f}")
+            check(not ok, "the row check passes a prefill that drops a key")
+    q, cache, tables, kl, st = case(
+        gen, B=3, T=100, kv_lens=[100, 0, 1100], starts=[0, 300, 1000],
+        h=GEMMA1_HEADS["h"], kh=GEMMA1_HEADS["kh"])
+    got, ref = run_prefill(q, cache, tables, kl, st, 1, scale=sc)
+    check(bool((got[1] == 0).all()), "prefill: kv_len 0 rows must be zeros")
+    compare(pre, got, ref, f"prefill {tag} gemma-7b's heads B=3 T=100 "
+            "starts=[0, 300, 1000] kv_lens=[100, 0, 1100]")
+    for h, kh in GROUP_SHAPES:
+        q, cache, tables, kl, st = case(
+            gen, B=2, T=70, kv_lens=[270, 70], starts=[200, 0], h=h, kh=kh)
+        got, ref = run_prefill(q, cache, tables, kl, st, 0, scale=sc,
+                               window=45, softcap=30.0)
+        compare(pre, got, ref, f"prefill {tag} G={h // kh} (H={h}, KH={kh}) "
+                "T=70 window=45 softcap=30")
+    hd256 = sum(n for k, n in pac.route_counts.items() if k.endswith("_hd256"))
+    check(hd256 > 0 and hd256 == sum(pac.route_counts.values()),
+          f"hd256 checks took other kernels: {pac.route_counts}")
+    if cache_dtype == E4M3:
+        return
+
+    # fp32 q at head_dim 256: the CUDA-core kernels, over fp32 and e4m3.
+    for cdt in (torch.float32, E4M3):
+        ctag = f"fp32 q, {str(cdt)[6:]} cache, hd256"
+        q, cache, tables, kl, _ = make_case(
+            gen, B=4, T=1, kv_lens=[0, 50, 300, 1000], dtype=torch.float32,
+            hd=HD256, cache_dtype=cdt, **g2)
+        got, ref = run_decode(q[:, 0], cache, tables, kl, 0, scale=sc,
+                              window=100, softcap=cap)
+        compare(form("decode_simt", cdt), got, ref,
+                f"decode {ctag} window=100 softcap=50")
+        wf = write_slots(tables, [0, 49, 299, 994], [0], cache.shape[1])
+        k_new = torch.randn((4, lanes), generator=gen, device=DEV)
+        v_new = torch.randn((4, lanes), generator=gen, device=DEV)
+        got, ref = run_decode_write(q[:, 0], cache, tables, kl, 0, k_new,
+                                    v_new, wf, scale=sc, window=100,
+                                    softcap=cap)
+        compare(form("decode_write_simt", cdt), got, ref,
+                f"decode_write {ctag} window=100 (row 0 dropped): caches "
+                "equal;")
+        q, cache, tables, kl, st = make_case(
+            gen, B=2, T=70, kv_lens=[270, 70], starts=[200, 0],
+            dtype=torch.float32, hd=HD256, cache_dtype=cdt, **g2)
+        got, ref = run_prefill(q, cache, tables, kl, st, 0, scale=sc,
+                               window=45, softcap=cap)
+        compare(form("prefill_simt", cdt), got, ref,
+                f"prefill {ctag} T=70 window=45 softcap=50")
+    check(pac.route_counts["decode_simt_hd256"] > 0
+          and pac.route_counts["prefill_simt_e4m3_hd256"] > 0,
+          f"fp32 hd256 routes {pac.route_counts}")
 
 
 def int4_case(gen, N, din, dout, dtype=torch.bfloat16):
@@ -880,11 +1149,21 @@ def _leaves(tree):
 
 
 def drive_model(model, params, impl: str, prompt, decode_tokens,
-                kv_dtype=None):
-    """One prefill of ``prompt`` then one decode step per token of
-    ``decode_tokens``, on a cache of ``kv_dtype`` (default the model's);
-    returns the logits of every step [1 + n, V] and the cache."""
-    cfg = model.cfg
+                kv_dtype=None, chunk=None):
+    """The prefill of ``prompt`` (in chunks of ``chunk`` tokens; default
+    one) then one decode step per token of ``decode_tokens``, on a cache
+    of ``kv_dtype`` (default the model's), through ``impl``: ``"cuda"``,
+    ``"gather"`` or ``"plain"`` (the kernels' plain versions); returns the
+    logits of the prefill's last chunk and of every decode step [1 + n,
+    V], and the cache."""
+    if impl == "plain":
+        saved = llama_mod.paged_attention
+        llama_mod.paged_attention = plain_attention
+        try:  # as "gather", so that the fused decode-write never runs
+            return drive_model(model, params, "gather", prompt,
+                               decode_tokens, kv_dtype, chunk)
+        finally:
+            llama_mod.paged_attention = saved
     T = len(prompt)
     nb = -(-(T + len(decode_tokens)) // BS) + 1
     cache = model.make_kv_cache(nb, BS, dtype=kv_dtype, device=DEV)
@@ -895,16 +1174,19 @@ def drive_model(model, params, impl: str, prompt, decode_tokens,
     def slot(p):
         return int(tables[0, p // BS]) * BS + p % BS
 
-    toks = torch.tensor([prompt], dtype=torch.int32, device=DEV)
-    pos = torch.arange(T, dtype=torch.int32, device=DEV)[None]
-    widx = torch.tensor([[slot(p) for p in range(T)]], dtype=torch.int32,
-                        device=DEV)
     out = []
-    logits, cache = model.forward(
-        params, toks, pos, widx, tables,
-        torch.tensor([T], dtype=torch.int32, device=DEV),
-        torch.tensor([T - 1], dtype=torch.int32, device=DEV), cache,
-        attn_impl=impl)
+    chunk = chunk or T
+    for c0 in range(0, T, chunk):
+        c1 = min(c0 + chunk, T)
+        toks = torch.tensor([prompt[c0:c1]], dtype=torch.int32, device=DEV)
+        pos = torch.arange(c0, c1, dtype=torch.int32, device=DEV)[None]
+        widx = torch.tensor([[slot(p) for p in range(c0, c1)]],
+                            dtype=torch.int32, device=DEV)
+        logits, cache = model.forward(
+            params, toks, pos, widx, tables,
+            torch.tensor([c1], dtype=torch.int32, device=DEV),
+            torch.tensor([c1 - c0 - 1], dtype=torch.int32, device=DEV), cache,
+            attn_impl=impl)
     out.append(logits[0])
     for i, tok in enumerate(decode_tokens):
         p = T + i
@@ -923,12 +1205,33 @@ def drive_model(model, params, impl: str, prompt, decode_tokens,
     return torch.stack(out), cache
 
 
-def model_prompt(cfg):
-    """The model phases' 512-token prompt and 8 decode tokens (seed 7)."""
+def plain_attention(q, kv, tables, lens, positions, layer=0, *, scale,
+                    impl="auto", window=0, softcap=0.0):
+    """``ops.attention.paged_attention`` through the kernels' plain
+    versions, which keep P in fp32."""
+    if q.shape[1] == 1:
+        return pac.paged_attention_decode_plain(
+            q[:, 0], kv, tables, lens, layer, scale=scale, window=window,
+            softcap=softcap)[:, None]
+    return pac.paged_attention_prefill_plain(
+        q, kv, tables, lens, positions[:, 0].to(torch.int32).contiguous(),
+        layer, scale=scale, window=window, softcap=softcap)
+
+
+def model_prompt(cfg, n: int = 512):
+    """The model phases' ``n``-token prompt and 8 decode tokens (seed 7)."""
     gen = torch.Generator().manual_seed(7)
-    prompt = torch.randint(1, cfg.vocab_size, (512,), generator=gen).tolist()
+    prompt = torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
     decode_tokens = torch.randint(1, cfg.vocab_size, (8,), generator=gen).tolist()
     return prompt, decode_tokens
+
+
+def differ(got, ref, label: str = "cuda") -> str:
+    """max|got - ref| of two paths' logits and their argmax agreement."""
+    err = float((got - ref).abs().max())
+    agreed = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    return (f"max|{label} - gather| {err:.4f}, argmax agreement "
+            f"{agreed:.2f}")
 
 
 def agree(got, ref, label) -> str:
@@ -1087,6 +1390,239 @@ def phase_qwen2(layers: int = 4) -> dict:
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
+    return counts
+
+
+# gemma2-9b's model phases: a prompt longer than its window of 4096, in
+# chunks of the engine's 512, so that the local layers cut their keys.
+GEMMA_PROMPT, GEMMA_CHUNK = 4608, 512
+
+
+def set_norms(cfg, params, gen=None, noise: float = 0.0,
+              w: float = 0.0) -> None:
+    """Every Gemma ``(1 + w)`` norm weight at ``w`` (0: the identity, HF's
+    Gemma init), any other norm weight at 1; plus N(0, ``noise``) when
+    ``gen`` is given. ``init_params`` draws the JAX package's w = 1, which
+    doubles every Gemma norm's output and sharpens the attention scores 4x.
+    A random gemma2-9b at w = 1 amplifies rounding differences with depth:
+    at 42 layers two correct attention paths (the kernels' plain versions,
+    with an fp32 P, and the gather path) differ by 7.53 of a max|logit| of
+    9.55 on an H100, against 0.12 at w = 0 (``python3 chip_smoke.py
+    drift`` measures it; PERF.md). So the Gemma model phases draw their
+    norms around w = 0."""
+    base = w if cfg.norm_unit_offset else 1.0
+    for tree in (params, params["layers"]):
+        for k, w in tree.items():
+            if "norm" in k:
+                w.fill_(base)
+                if gen is not None:
+                    w.add_(torch.randn(w.shape, generator=gen, device=DEV)
+                           .to(w.dtype) * noise)
+
+
+def phase_gemma2() -> tuple:
+    """gemma2-9b at full width and depth (42 layers, random bf16 weights
+    from seed 0, norms drawn by ``set_norms`` around w = 0): a 4608-token
+    prompt in 512-token chunks and 8 decode steps through the head_dim-256
+    kernels, against the gather path: over a bf16 cache (unfused write;
+    the kernels' plain versions beside them as a witness of how far two
+    correct paths differ), and over an e4m3 cache with the unfused and
+    with the fused write (against the gather path over an e4m3 cache, so
+    the e4m3 rows' own error is not counted). Returns (model, params,
+    each e4m3/bf16 unfused row's launches a step, and its launches on
+    this path)."""
+    cfg = get_model_config(GEMMA)
+    model = Llama(cfg)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init_params(gen, DEV)
+    set_norms(cfg, params, gen, noise=0.1)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[phase 3f] {GEMMA}: {cfg.num_layers} layers, {n / 1e9:.2f}B params "
+        f"({nbytes / 1e9:.2f} GB {cfg.dtype}) on {DEV} in "
+        f"{time.perf_counter() - t0:.1f}s; H={cfg.num_heads}, "
+        f"KH={cfg.num_kv_heads}, hd={cfg.head_dim}, window "
+        f"{cfg.sliding_window} on alternate layers, softcaps "
+        f"{cfg.attn_logit_softcap} / {cfg.final_logit_softcap}, tied "
+        f"{cfg.vocab_size}-row unembed; (1 + w) norms at w ~ N(0, 0.1)")
+    prompt, decode_tokens = model_prompt(cfg, GEMMA_PROMPT)
+    L, nd = cfg.num_layers, len(decode_tokens)
+    chunks = -(-GEMMA_PROMPT // GEMMA_CHUNK)
+    per_step, path = {}, {}
+    for kv, fused in ((None, False), (E4M3, False), (E4M3, True)):
+        if not fused:
+            ref, _ = drive_model(model, params, "gather", prompt,
+                                 decode_tokens, kv, GEMMA_CHUNK)
+        if fused:
+            os.environ["PST_FUSED_KV_WRITE"] = "1"
+        pac.reset_launch_counts()
+        got, cache = drive_model(model, params, "cuda", prompt, decode_tokens,
+                                 kv, GEMMA_CHUNK)
+        os.environ.pop("PST_FUSED_KV_WRITE", None)
+        dec = form("decode_write_split" if fused else "decode_split", kv, 256)
+        pre = form("prefill_wgmma", kv, 256)
+        expect_routes({pre: L * chunks, dec: L * nd},
+                      f"{GEMMA} ({kv or 'bf16'} cache, fused write: {fused})")
+        check(got.shape == (1 + nd, cfg.vocab_size),
+              f"{GEMMA}: logits shape {tuple(got.shape)}")
+        log(f"  {kv or 'bf16'} cache, {'fused' if fused else 'unfused'} "
+            f"write: {GEMMA_PROMPT}-token prompt in {chunks} chunks + {nd} "
+            f"decode steps, {L * chunks} {pre} and {L * nd} {dec} launches: "
+            f"{agree(got, ref, GEMMA)}")
+        if kv is None:
+            plain, _ = drive_model(model, params, "plain", prompt,
+                                   decode_tokens, kv, GEMMA_CHUNK)
+            log(f"  witness, the plain versions (fp32 P) against the gather "
+                f"path: {differ(plain, ref, 'plain')}")
+            del plain
+        kind = form("decode_write" if fused else "decode", kv, 256)
+        per_step[kind] = L
+        path[kind] = pac.route_counts[dec]
+        if not fused:
+            per_step[form("prefill", kv, 256)] = L
+            path[form("prefill", kv, 256)] = pac.route_counts[pre]
+        del got, cache
+    return model, params, per_step, path
+
+
+GEMMA2_PROJ = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def phase_gemma2_int4(layers: int = 4) -> None:
+    """gemma2-9b int4 at full width and ``layers`` of its 42 layers, drawn
+    and quantized on the card, under ``PST_FUSED_KV_WRITE=1``: the prompt
+    of phase 3f and 8 decode steps through the int4 and head_dim-256
+    kernels, against the gather path on a copy whose int4 weights were
+    dequantized to bf16 beforehand. D = 3584 is not a multiple of 1024, so
+    the JAX package sends five projections to its XLA fallback; the port's
+    routes take every shape (printed per projection)."""
+    cfg = dataclasses.replace(get_model_config(GEMMA), num_layers=layers)
+    model = Llama(cfg)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    params = model.init_params(gen, DEV, quantization="int4")
+    set_norms(cfg, params, gen, noise=0.1)
+    lp = params["layers"]
+    routes = {}
+    for name in GEMMA2_PROJ:
+        packed, scales = lp[name][0], lp[name + "_q4s"][0]
+        din = 2 * packed.shape[0]
+        routes[name] = (din, packed.shape[1], *(
+            i4.route(torch.empty((N, din), dtype=torch.bfloat16, device=DEV),
+                     packed, scales) for N in (2, GEMMA_CHUNK)))
+    log(f"[phase 3f] {GEMMA} int4, {layers} of its {get_model_config(GEMMA).num_layers} "
+        "layers, PST_FUSED_KV_WRITE=1; int4 route per projection (din x dout: "
+        "2 decode rows, a 512-token chunk): " + ", ".join(
+            f"{k} {d}x{o}: {a}, {b}" for k, (d, o, a, b) in routes.items()))
+    check(all(r[2] == "decode" and r[3] == "wgmma" for r in routes.values()),
+          f"{GEMMA} int4 routes {routes}")
+    prompt, decode_tokens = model_prompt(cfg, GEMMA_PROMPT)
+    chunks = -(-GEMMA_PROMPT // GEMMA_CHUNK)
+    nd = len(decode_tokens)
+    os.environ["PST_FUSED_KV_WRITE"] = "1"
+    reset_launch_counts()
+    got, _ = drive_model(model, params, "cuda", prompt, decode_tokens,
+                         chunk=GEMMA_CHUNK)
+    os.environ.pop("PST_FUSED_KV_WRITE", None)
+    expect_routes({"prefill_wgmma_hd256": layers * chunks,
+                   "decode_write_split_hd256": layers * nd},
+                  f"{GEMMA} int4")
+    want = {"wgmma": 7 * layers * chunks, "decode": 7 * layers * nd}
+    got_routes = {k: i4.route_counts[k] for k in want}
+    check(got_routes == want and i4.route_counts["simt"] == 0,
+          f"{GEMMA} int4 routes {i4.route_counts}, expected {want}")
+    ref_params = dequantized_copy(params)
+    del params
+    ref, _ = drive_model(model, ref_params, "gather", prompt, decode_tokens,
+                         chunk=GEMMA_CHUNK)
+    del ref_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  int4, fused write: int4 launches {got_routes} (split sums "
+        f"{i4.route_counts['sum']}); against the dequantized gather path: "
+        f"{agree(got, ref, GEMMA + ' int4')}")
+
+
+# The drift sweep's depths of gemma2-9b and Gemma norm weights w (1 is the
+# JAX init's).
+DRIFT_LAYERS, DRIFT_W = (4, 12, 42), (1.0, 0.5, 0.0)
+
+
+def drift() -> None:
+    """``python3 chip_smoke.py drift``: how far two correct attention paths
+    drift apart with depth and with the Gemma norm weight w. gemma2-9b
+    (random weights from seed 0) cut to each of DRIFT_LAYERS, every
+    ``(1 + w)`` norm at each of DRIFT_W, runs phase 3f's prompt and decode
+    steps over a bf16 cache through the kernels, the gather path and the
+    kernels' plain versions. Where the plain versions differ from the
+    gather path as much as the kernels do, the model amplifies rounding,
+    whatever computes the attention. One line per depth and w, then one
+    JSON line."""
+    results = []
+    for layers in DRIFT_LAYERS:
+        cfg = dataclasses.replace(get_model_config(GEMMA), num_layers=layers)
+        model = Llama(cfg)
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(0)
+        params = model.init_params(gen, DEV)
+        prompt, decode_tokens = model_prompt(cfg, GEMMA_PROMPT)
+        for w in DRIFT_W:
+            set_norms(cfg, params, w=w)
+            out = {impl: drive_model(model, params, impl, prompt,
+                                     decode_tokens, chunk=GEMMA_CHUNK)[0]
+                   for impl in ("cuda", "gather", "plain")}
+            ref = out["gather"]
+            r = {"layers": layers, "norm_w": w,
+                 "max_abs_logit": float(ref.abs().max()),
+                 "cuda_vs_gather": float((out["cuda"] - ref).abs().max()),
+                 "plain_vs_gather": float((out["plain"] - ref).abs().max()),
+                 "cuda_vs_plain": float((out["cuda"] - out["plain"])
+                                        .abs().max())}
+            results.append(r)
+            log(f"[drift] {GEMMA} {layers} layers, norms at w = {w:g}: "
+                f"max|logit| {r['max_abs_logit']:.3f}; "
+                f"{differ(out['cuda'], ref)}; {differ(out['plain'], ref, 'plain')}; "
+                f"max|cuda - plain| {r['cuda_vs_plain']:.4f}")
+            del out, ref
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"drift": results}), flush=True)
+
+
+def phase_gemma_qwen3(layers: int = 4) -> dict:
+    """gemma-7b (head_dim 256, G = 1, GeGLU, (1 + w) norms, scaled
+    embeddings) and qwen3-8b (per-head q/k norms on the head_dim-128
+    kernels) at full width and ``layers`` layers each, norm weights drawn
+    around ``set_norms``' values: a 512-token prefill and 8 decode steps
+    through the kernels against the gather path. Returns the routes they
+    launched."""
+    counts = {}
+    for name, hd in (("gemma-7b", 256), ("qwen3-8b", 128)):
+        cfg = dataclasses.replace(get_model_config(name), num_layers=layers)
+        model = Llama(cfg)
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(0)
+        params = model.init_params(gen, DEV)
+        set_norms(cfg, params, gen, noise=0.1)
+        prompt, decode_tokens = model_prompt(cfg)
+        ref, _ = drive_model(model, params, "gather", prompt, decode_tokens)
+        pac.reset_launch_counts()
+        got, _ = drive_model(model, params, "cuda", prompt, decode_tokens)
+        want = {form("prefill_wgmma", None, hd): layers,
+                form("decode_split", None, hd): layers * len(decode_tokens)}
+        expect_routes(want, name)
+        counts.update(want)
+        log(f"[phase 3g] {name} at full width, {layers} of its "
+            f"{get_model_config(name).num_layers} layers (H={cfg.num_heads}, "
+            f"KH={cfg.num_kv_heads}, hd={cfg.head_dim}): "
+            f"{agree(got, ref, name)}")
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
     return counts
 
 
@@ -1375,12 +1911,12 @@ def reset_launch_counts() -> None:
 
 def phase_serving(params, label: str, quantization=None, kv_cache_dtype=None,
                   used=("decode", "decode_split", "prefill",
-                        "prefill_wgmma")) -> dict:
-    """Four completions through the server, configured by the server's own
-    flags; the kernels in ``used`` (by wrapper, and by route) must have
-    launched while serving and no other kernel may have. Returns both
-    counts and the engine's page count (as ``"pages"``)."""
-    argv = ["--model", MODEL, "--device", DEV.type,
+                        "prefill_wgmma"), model=MODEL) -> dict:
+    """Four completions through the server of ``model``, configured by the
+    server's own flags; the kernels in ``used`` (by wrapper, and by route)
+    must have launched while serving and no other kernel may have. Returns
+    both counts and the engine's page count (as ``"pages"``)."""
+    argv = ["--model", model, "--device", DEV.type,
             "--max-num-batched-tokens", "512", "--num-decode-steps", "4",
             "--max-num-seqs", "16"]
     if quantization:
@@ -1391,7 +1927,8 @@ def phase_serving(params, label: str, quantization=None, kv_cache_dtype=None,
     t0 = time.perf_counter()
     engine = AsyncLLMEngine(cfg, params=params)
     runner = engine.engine.runner
-    log(f"[phase {label}] engine up in {time.perf_counter() - t0:.1f}s "
+    log(f"[phase {label}] {model} engine up in "
+        f"{time.perf_counter() - t0:.1f}s "
         f"({quantization or 'bf16'} weights, {runner.param_bytes / 1e9:.3f} "
         f"GB; PST_FUSED_KV_WRITE={os.environ.get('PST_FUSED_KV_WRITE')}): "
         f"{runner.num_blocks} KV pages x {cfg.block_size} tokens in "
@@ -1404,7 +1941,7 @@ def phase_serving(params, label: str, quantization=None, kv_cache_dtype=None,
         status, health = _get(port, "/health")
         check(status == 200, f"/health: {status} {health}")
         status, models = _get(port, "/v1/models")
-        check(status == 200 and models["data"][0]["id"] == MODEL,
+        check(status == 200 and models["data"][0]["id"] == model,
               f"/v1/models: {status} {models}")
 
         reset_launch_counts()
@@ -1527,66 +2064,86 @@ def gathered_kv(cache, tables, layer, kv_len, hd=HD, dtype=None):
     return k.contiguous(), v.contiguous()
 
 
-def sdpa(q, k, v, causal):
+def sdpa(q, k, v, causal, scale=SCALE):
     # Yardstick only: one PyTorch call computing the same attention.
     return torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, scale=SCALE, enable_gqa=True)
+        q, k, v, is_causal=causal, scale=scale, enable_gqa=True)
+
+
+# The heads the attention rows are timed at: Llama-3-8B's, and gemma2-9b's
+# (head_dim 256, its softcap of 50 on the kernel and the plain version;
+# SDPA takes no softcap, so the yardstick runs without one).
+LLAMA_GEO = dict(h=H, kh=KH, hd=HD, scale=SCALE, softcap=0.0,
+                 decode=((8, 4096), (1, 4096), (64, 4096), (64, 512)))
+GEMMA2_GEO = dict(h=GEMMA2_HEADS["h"], kh=GEMMA2_HEADS["kh"], hd=HD256,
+                  scale=HD256_SCALE, softcap=GEMMA2_HEADS["softcap"],
+                  decode=((8, 4096), (1, 4096)))
 
 
 def phase_times(per_step: dict, launches: dict, card: str,
-                cache_dtype=torch.bfloat16) -> list:
-    """Rows of the attention kernels at Llama-3-8B's heads (decode,
-    prefill, decode-write) over a ``cache_dtype`` cache with bf16 q.
-    ``per_step`` and ``launches`` hold each row's launches a step and on
-    its path. The bound counts the K/V at the cache's itemsize; an e4m3
-    cache's yardstick is SDPA on K/V gathered and up-cast to bf16
-    beforehand."""
+                cache_dtype=torch.bfloat16, geo=LLAMA_GEO) -> list:
+    """Rows of the attention kernels at ``geo``'s heads (Llama-3-8B's by
+    default; decode, prefill, decode-write) over a ``cache_dtype`` cache
+    with bf16 q. ``per_step`` and ``launches`` hold each row's launches a
+    step and on its path. The bound counts the K/V at the cache's
+    itemsize; an e4m3 cache's yardstick is SDPA on K/V gathered and
+    up-cast to bf16 beforehand. With a softcap (gemma2-9b) the kernel and
+    its plain version are timed with it, SDPA without, and the kernel is
+    held to SDPA without it."""
+    h, kh, hd, scale, cap = (geo[k] for k in
+                             ("h", "kh", "hd", "scale", "softcap"))
     tag = str(cache_dtype)[6:]
-    log(f"[phase 5] kernel times at the slice's shapes, {tag} cache ({card})")
+    heads = f"H={h} KH={kh} hd={hd}" + (f" softcap={cap:g}" if cap else "")
+    log(f"[phase 5] kernel times at {heads}, {tag} cache ({card})")
     gen = torch.Generator(device=DEV)
     gen.manual_seed(99)
     rows = []
     item = cache_dtype.itemsize
-    dec_kind, dw_kind, pre_kind = (form(k, cache_dtype) for k in
+    dec_kind, dw_kind, pre_kind = (form(k, cache_dtype, hd) for k in
                                    ("decode", "decode_write", "prefill"))
     up = " and up-cast to bf16" if cache_dtype == E4M3 else ""
+    nocap = ", without the softcap (SDPA takes none)" if cap else ""
+    case = functools.partial(make_case, h=h, kh=kh, hd=hd, layers=4,
+                             cache_dtype=cache_dtype)
 
     # Decode: B=8, every row at kv_len 4096 (the profiled step's shape),
-    # then one interactive user (B=1) and a large batch (B=64) at 4096 and
-    # at 512. Four layers of cache (537 MB at B=8 in bf16), each launch
-    # reads another layer, so the 50 MB L2 never holds the KV.
+    # then one interactive user (B=1) and (Llama) a large batch (B=64) at
+    # 4096 and at 512. Four layers of cache (537 MB at B=8 in bf16 at
+    # Llama's heads), each launch reads another layer, so the 50 MB L2
+    # never holds the KV.
     decode = []
-    for B, kvl in ((8, 4096), (1, 4096), (64, 4096), (64, 512)):
-        q, cache, tables, kl, _ = make_case(gen, B=B, T=1, kv_lens=[kvl] * B,
-                                            layers=4, cache_dtype=cache_dtype)
+    for B, kvl in geo["decode"]:
+        q, cache, tables, kl, _ = case(gen, B=B, T=1, kv_lens=[kvl] * B)
         q3 = q[:, 0].contiguous()
         state = {"layer": 0}
 
         def dec():
             state["layer"] = (state["layer"] + 1) % 4
             return pac.paged_attention_decode(q3, cache, tables, kl,
-                                              state["layer"], scale=SCALE)
+                                              state["layer"], scale=scale,
+                                              softcap=cap)
 
         ms = cuda_ms(dec)
         plain_ms = cuda_ms(lambda: pac.paged_attention_decode_plain(
-            q3, cache, tables, kl, 1, scale=SCALE), iters=5)
-        k, v = gathered_kv(cache, tables, 1, kvl, dtype=torch.bfloat16)
-        qs = q3[:, :, None]  # [B, H, 1, HD]
-        lib_ms = cuda_ms(lambda: sdpa(qs, k, v, False))
-        ref = sdpa(qs, k, v, False)[:, :, 0]
-        got = pac.paged_attention_decode(q3, cache, tables, kl, 1, scale=SCALE)
+            q3, cache, tables, kl, 1, scale=scale, softcap=cap), iters=5)
+        k, v = gathered_kv(cache, tables, 1, kvl, hd=hd, dtype=torch.bfloat16)
+        qs = q3[:, :, None]  # [B, H, 1, hd]
+        lib_ms = cuda_ms(lambda: sdpa(qs, k, v, False, scale))
+        ref = sdpa(qs, k, v, False, scale)[:, :, 0]
+        got = pac.paged_attention_decode(q3, cache, tables, kl, 1,
+                                         scale=scale)
         splits = splits_of(q, cache, tables)
         compare(dec_kind, got, ref,
                 f"decode {tag} B={B} kv_len {kvl} ({splits} splits) vs sdpa")
-        kv_bytes = B * kvl * 2 * KH * HD * item
-        io_bytes = 2 * B * H * HD * 2 + tables.numel() * 4 + B * 4
-        flops = 4 * B * H * HD * kvl
+        kv_bytes = B * kvl * 2 * kh * hd * item
+        io_bytes = 2 * B * h * hd * 2 + tables.numel() * 4 + B * 4
+        flops = 4 * B * h * hd * kvl
         r = _row(dec_kind, ms, plain_ms, lib_ms, kv_bytes + io_bytes, flops,
                  PEAK_BF16_FLOPS, per_step[dec_kind], launches[dec_kind],
-                 card, f"B={B} kv_len={kvl} H={H} KH={KH} hd={HD} bs={BS} "
+                 card, f"B={B} kv_len={kvl} {heads} bs={BS} "
                        f"bf16 q, {tag} cache, {splits} splits",
                  library="torch.nn.functional.scaled_dot_product_attention "
-                         f"on K/V gathered{up} beforehand")
+                         f"on K/V gathered{up} beforehand{nocap}")
         r["splits"] = splits
         decode.append(r)
         if B == 8:
@@ -1602,20 +2159,21 @@ def phase_times(per_step: dict, launches: dict, card: str,
     # computes this; the unfused pair it replaces (the rows cast to the
     # cache's type and index_copy_'d, then the decode kernel) is timed in
     # its place.
-    k_new = torch.randn((B, KH * HD), generator=gen, device=DEV).bfloat16()
-    v_new = torch.randn((B, KH * HD), generator=gen, device=DEV).bfloat16()
+    k_new = torch.randn((B, kh * hd), generator=gen, device=DEV).bfloat16()
+    v_new = torch.randn((B, kh * hd), generator=gen, device=DEV).bfloat16()
     wf = write_slots(tables, [kvl - 1] * B, [], cache.shape[1])
 
     def dw():
         state["layer"] = (state["layer"] + 1) % 4
         return pac.paged_attention_decode_write(
             q3, cache, tables, kl, state["layer"], k_new, v_new, wf,
-            scale=SCALE)
+            scale=scale, softcap=cap)
 
     ms = cuda_ms(dw)
     plain_ms = cuda_ms(lambda: pac.paged_attention_decode_write_plain(
-        q3, cache, tables, kl, 1, k_new, v_new, wf, scale=SCALE), iters=5)
-    flat = raw(cache.view(-1, KH * HD))
+        q3, cache, tables, kl, 1, k_new, v_new, wf, scale=scale,
+        softcap=cap), iters=5)
+    flat = raw(cache.view(-1, kh * hd))
     nb = cache.shape[1]
     rows_k = ((nb + wf.long() // BS) * 2 * BS + wf.long() % BS)  # layer 1
 
@@ -1623,15 +2181,16 @@ def phase_times(per_step: dict, launches: dict, card: str,
         flat.index_copy_(0, rows_k, raw(to_cache_dtype(k_new, cache_dtype)))
         flat.index_copy_(0, rows_k + BS,
                          raw(to_cache_dtype(v_new, cache_dtype)))
-        return pac.paged_attention_decode(q3, cache, tables, kl, 1, scale=SCALE)
+        return pac.paged_attention_decode(q3, cache, tables, kl, 1,
+                                          scale=scale, softcap=cap)
 
     pair_ms = cuda_ms(pair)
     # k_new/v_new read in bf16, their rows written in the cache's type.
-    row_bytes = 2 * B * KH * HD * (2 + item)
+    row_bytes = 2 * B * kh * hd * (2 + item)
     r = _row(dw_kind, ms, plain_ms, None, kv_bytes + io_bytes + row_bytes,
              flops, PEAK_BF16_FLOPS, per_step[dw_kind], launches[dw_kind],
              card,
-             f"B={B} kv_len={kvl} H={H} KH={KH} hd={HD} bs={BS} bf16 q, "
+             f"B={B} kv_len={kvl} {heads} bs={BS} bf16 q, "
              f"{tag} cache, one K/V row written per sequence, "
              f"{splits_of(q3, cache, tables)} splits",
              library="none: no single PyTorch call computes it")
@@ -1648,31 +2207,30 @@ def phase_times(per_step: dict, launches: dict, card: str,
     # 2048-token chunk (the engine's default max_prefill_tokens).
     prefill = []
     for T, start in ((512, 0), (512, 3584), (2048, 0)):
-        q, cache, tables, kl, st = make_case(gen, B=1, T=T, kv_lens=[start + T],
-                                             starts=[start], layers=4,
-                                             cache_dtype=cache_dtype)
+        q, cache, tables, kl, st = case(gen, B=1, T=T, kv_lens=[start + T],
+                                        starts=[start])
         ms = cuda_ms(lambda: pac.paged_attention_prefill(
-            q, cache, tables, kl, st, 1, scale=SCALE))
+            q, cache, tables, kl, st, 1, scale=scale, softcap=cap))
         plain_ms = cuda_ms(lambda: pac.paged_attention_prefill_plain(
-            q, cache, tables, kl, st, 1, scale=SCALE), iters=5)
-        k, v = gathered_kv(cache, tables, 1, start + T, dtype=torch.bfloat16)
-        qs = q.transpose(1, 2).contiguous()  # [1, H, T, HD]
-        yard = sdpa_chunk(qs, k, v)
+            q, cache, tables, kl, st, 1, scale=scale, softcap=cap), iters=5)
+        k, v = gathered_kv(cache, tables, 1, start + T, hd=hd,
+                           dtype=torch.bfloat16)
+        qs = q.transpose(1, 2).contiguous()  # [1, H, T, hd]
+        yard = sdpa_chunk(qs, k, v, scale)
         lib_ms = cuda_ms(lambda: yard(qs, k, v))
         ref = yard(qs, k, v).transpose(1, 2)
         got = pac.paged_attention_prefill(q, cache, tables, kl, st, 1,
-                                          scale=SCALE)
+                                          scale=scale)
         compare(pre_kind, got, ref,
                 f"prefill {tag} T={T} start={start} vs sdpa ({yard.__doc__})")
         pairs = T * start + T * (T + 1) // 2  # (query, live key) pairs
-        nbytes = 2 * T * H * HD * 2 + (start + T) * 2 * KH * HD * item
+        nbytes = 2 * T * h * hd * 2 + (start + T) * 2 * kh * hd * item
         prefill.append(_row(
-            pre_kind, ms, plain_ms, lib_ms, nbytes, 4 * H * HD * pairs,
+            pre_kind, ms, plain_ms, lib_ms, nbytes, 4 * h * hd * pairs,
             PEAK_BF16_FLOPS, per_step[pre_kind], launches[pre_kind], card,
-            f"B=1 T={T} start={start} H={H} KH={KH} hd={HD} bs={BS} bf16 q, "
-            f"{tag} cache",
+            f"B=1 T={T} start={start} {heads} bs={BS} bf16 q, {tag} cache",
             library="torch.nn.functional.scaled_dot_product_attention on "
-                    f"K/V gathered{up} beforehand, " + yard.__doc__))
+                    f"K/V gathered{up} beforehand, " + yard.__doc__ + nocap))
     rows.append(with_points(prefill))
     return rows
 
@@ -1781,7 +2339,7 @@ def phase_times_simt(per_step: dict, launches: dict, card: str) -> list:
     return rows
 
 
-def sdpa_chunk(q, k, v):
+def sdpa_chunk(q, k, v, scale=SCALE):
     """The yardstick for a chunk of T queries at the end of S keys: SDPA,
     causal from the upper left when T == S, else lower-right causal (as a
     CausalBias, or as an explicit boolean mask where the bias does not
@@ -1791,14 +2349,14 @@ def sdpa_chunk(q, k, v):
     if T == S:
         def fresh(q, k, v):
             """causal"""
-            return sdpa(q, k, v, True)
+            return sdpa(q, k, v, True, scale)
         return fresh
     from torch.nn.attention.bias import causal_lower_right
 
     def bias(q, k, v):
         """lower-right causal bias"""
         return F.scaled_dot_product_attention(
-            q, k, v, attn_mask=causal_lower_right(T, S), scale=SCALE,
+            q, k, v, attn_mask=causal_lower_right(T, S), scale=scale,
             enable_gqa=True)
     try:
         bias(q, k, v)
@@ -1810,7 +2368,7 @@ def sdpa_chunk(q, k, v):
     def explicit(q, k, v):
         """lower-right causal boolean mask"""
         return F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=SCALE, enable_gqa=True)
+            q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
     return explicit
 
 
@@ -1919,11 +2477,17 @@ def _row(kind, ms, plain_ms, lib_ms, nbytes, flops, peak, per_step, launches,
 def main() -> None:
     t_start = time.perf_counter()
     os.environ.pop("PST_FUSED_KV_WRITE", None)  # bf16 phases: unfused path
+    if sys.argv[1:] not in ([], ["drift"]):
+        sys.exit("usage: python3 chip_smoke.py [drift]")
     card = phase_toolchain()
+    if sys.argv[1:] == ["drift"]:
+        drift()
+        return
     log("[phase 2] kernels vs plain versions")
     for cache_dtype in (torch.bfloat16, E4M3):
         phase_kernels(cache_dtype)
         phase_decode_write_kernels(cache_dtype)
+        phase_hd256_kernels(cache_dtype)
     phase_simt_geometries()
     phase_int4_kernels()
     model, params = build_model()
@@ -1972,6 +2536,23 @@ def main() -> None:
     phase_qwen2()
     tiny = phase_tiny_engines()
 
+    # The Gemma family: gemma2-9b at full depth, its server with the fused
+    # write, its int4 form; gemma-7b and qwen3-8b cut in depth.
+    g_model, g_params, g_per_step, g_path = phase_gemma2()
+    torch.cuda.empty_cache()
+    os.environ["PST_FUSED_KV_WRITE"] = "1"
+    g_served = phase_serving(
+        g_params, "4e", model=GEMMA,
+        used=("decode_write", "decode_write_split_hd256", "prefill",
+              "prefill_wgmma_hd256"))
+    os.environ.pop("PST_FUSED_KV_WRITE")
+    g_layers = g_model.cfg.num_layers
+    del g_model, g_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_gemma2_int4()
+    phase_gemma_qwen3()
+
     # Each row's launches a step (from the model phases) and on its path:
     # the bf16, int4 and fp8 servers, the fp8 model's unfused steps and the
     # tiny engines.
@@ -1987,6 +2568,15 @@ def main() -> None:
                     "decode_write_e4m3": fp8_served["decode_write_split_e4m3"]}
     rows = phase_times(row_steps, row_launches, card)
     rows += phase_times(row_steps, row_launches, card, E4M3)
+    # head_dim 256 at gemma2-9b's heads: launches a step from phase 3f (one
+    # a layer), on a path from the gemma2-9b server (bf16 cache, fused
+    # write: decode-write and prefill) and phase 3f's steps (the rest).
+    g_steps = {**g_per_step, "decode_write_hd256": g_layers}
+    g_launches = {**g_path,
+                  "decode_write_hd256": g_served["decode_write_split_hd256"],
+                  "prefill_hd256": g_served["prefill_wgmma_hd256"]}
+    for cdt in (torch.bfloat16, E4M3):
+        rows += phase_times(g_steps, g_launches, card, cdt, GEMMA2_GEO)
     tiny_layers = get_model_config(EngineConfig().model).num_layers
     tiny_steps = {k: tiny_layers for k in tiny}
     tiny_steps["int4_simt"] = 7 * tiny_layers  # the seven projections

@@ -3,8 +3,14 @@
 The port of the JAX package's ``models/llama.py`` dense path: embed,
 RMSNorm, rotary embeddings (with Llama-3.1 "llama3" scaling), grouped-query
 attention with optional Qwen2 QKV biases, SwiGLU MLP, tied or untied
-unembed. Layouts are the JAX package's, so the two can be held against
-each other on the same weights:
+unembed; and the knobs of the Qwen3, Gemma and Gemma-2 families: per-head
+q/k RMSNorm (``qk_norm``), ``(1 + w)`` norms (``norm_unit_offset``), the
+``sqrt(D)`` embedding scale (``embed_scale``), GeGLU
+(``hidden_act="gelu_tanh"``), post-attention and post-MLP norms
+(``post_block_norms``), the ``query_pre_attn_scalar`` attention scale,
+attention and final logit softcaps, and alternating sliding-window layers.
+Layouts are the JAX package's, so the two can be held against each other
+on the same weights:
 
 - params: a plain dict; per-layer weights stacked on a leading axis,
   matmul weights ``[L, in, out]``, embeddings ``[V, D]``;
@@ -23,15 +29,15 @@ sibling leaves ``<name>_qs`` / ``<name>_q4s``. The quantizers are
 bit-identical to the JAX ones, so a JAX ``quantize_tree`` output serves as
 is.
 
-Not ported in this slice (``Llama`` raises ``NotImplementedError``):
-mixture-of-experts, LoRA, pipeline parallelism, the Gemma knobs
-(unit-offset norms, scaled embeddings, post-block norms, GeGLU), Qwen3 q/k
-norms, and all-position logits.
+Not ported yet (``Llama`` raises ``NotImplementedError`` on the config or
+the argument): mixture-of-experts and all-position logits; LoRA and
+pipeline parallelism have no parameter or argument here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -219,16 +225,6 @@ class LlamaConfig:
 def _unported(cfg: LlamaConfig) -> Optional[str]:
     if cfg.num_experts:
         return "mixture-of-experts"
-    if cfg.qk_norm:
-        return "qk_norm"
-    if cfg.hidden_act != "silu":
-        return f"hidden_act={cfg.hidden_act}"
-    if cfg.norm_unit_offset:
-        return "norm_unit_offset"
-    if cfg.embed_scale:
-        return "embed_scale"
-    if cfg.post_block_norms:
-        return "post_block_norms"
     return None
 
 
@@ -241,6 +237,8 @@ class Llama:
             raise NotImplementedError(
                 f"{missing} is not ported to the PyTorch package yet"
             )
+        if cfg.hidden_act not in _ACTS:
+            raise ValueError(f"unsupported hidden_act {cfg.hidden_act!r}")
         self.cfg = cfg
 
     # ------------------------------------------------------------------
@@ -266,6 +264,12 @@ class Llama:
             layers["bq"] = (L, cfg.q_size)
             layers["bk"] = (L, cfg.kv_size)
             layers["bv"] = (L, cfg.kv_size)
+        if cfg.qk_norm:
+            layers["q_norm"] = (L, cfg.head_dim)
+            layers["k_norm"] = (L, cfg.head_dim)
+        if cfg.post_block_norms:
+            layers["post_attn_norm"] = (L, D)
+            layers["post_mlp_norm"] = (L, D)
         shapes: Dict[str, Any] = {
             "embed": (cfg.vocab_size, D),
             "layers": layers,
@@ -380,7 +384,12 @@ class Llama:
         L, nb, _, bs, _ = kv_cache.shape
         layers = params["layers"]
 
+        offset = cfg.norm_unit_offset
         x = _embed_lookup(params, tokens.long(), cfg.torch_dtype)  # [B, T, D]
+        if cfg.embed_scale:
+            # HF-Gemma convention: the sqrt(D) normalizer is rounded to the
+            # model dtype before multiplying.
+            x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=x.dtype)
         rope_cos, rope_sin = _rope_tables(positions, cfg)
 
         fused = _decode_write_fused(attn_impl, tokens.is_cuda, T)
@@ -410,14 +419,17 @@ class Llama:
 
         for li in range(cfg.num_layers):
             lp = {k: v[li] for k, v in layers.items()}
-            h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+            h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps, offset)
             q = _proj(h, lp, "wq", lp.get("bq"))
             k = _proj(h, lp, "wk", lp.get("bk"))
             v = _proj(h, lp, "wv", lp.get("bv"))
-            q = _apply_rope(q.reshape(B, T, cfg.num_heads, cfg.head_dim),
-                            rope_cos, rope_sin)
-            k = _apply_rope(k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim),
-                            rope_cos, rope_sin)
+            q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
+            k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+            if cfg.qk_norm:  # Qwen3: per-head RMSNorm over hd, pre-rope
+                q = _rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
+                k = _rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
+            q = _apply_rope(q, rope_cos, rope_sin)
+            k = _apply_rope(k, rope_cos, rope_sin)
 
             if fused:
                 attn = paged_attention_decode_write(
@@ -440,11 +452,19 @@ class Llama:
                     softcap=cfg.attn_logit_softcap,
                 )
             attn = attn.reshape(B, T, cfg.q_size).to(x.dtype)
-            x = x + _proj(attn, lp, "wo")
-            h = _rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-            x = x + _mlp(h, lp)
+            o = _proj(attn, lp, "wo")
+            if cfg.post_block_norms:  # Gemma-2 post-attention norm
+                o = _rms_norm(o, lp["post_attn_norm"], cfg.rms_norm_eps,
+                              offset)
+            x = x + o
+            h = _rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps, offset)
+            ff = _mlp(h, lp, _ACTS[cfg.hidden_act])
+            if cfg.post_block_norms:  # Gemma-2 post-feedforward norm
+                ff = _rms_norm(ff, lp["post_mlp_norm"], cfg.rms_norm_eps,
+                               offset)
+            x = x + ff
 
-        x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+        x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps, offset)
         head = "lm_head" if "lm_head" in params else "embed"
         last = x[torch.arange(B, device=x.device), last_idx.long()]  # [B, D]
         logits = unembed_logits(last, _wcast(params[head], x.dtype))
@@ -534,10 +554,14 @@ def _embed_lookup(params: Params, tokens: torch.Tensor,
     return x
 
 
-def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
+              unit_offset: bool = False) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+    normed = xf * torch.rsqrt(var + eps)
+    if unit_offset:  # Gemma stores w with effective weight (1 + w), fp32 math
+        return (normed * (1.0 + w.float())).to(x.dtype)
+    return normed.to(x.dtype) * w
 
 
 def _proj(x: torch.Tensor, p: Params, name: str,
@@ -557,11 +581,20 @@ def _proj(x: torch.Tensor, p: Params, name: str,
     return out.to(x.dtype)
 
 
-def _mlp(h: torch.Tensor, lp: Params) -> torch.Tensor:
-    """Dense SwiGLU: silu(h @ w_gate) * (h @ w_up) in float32, then w_down."""
+# The MLP's gate activation by ``hidden_act``: SwiGLU, or Gemma's GeGLU.
+_ACTS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "silu": F.silu,
+    "gelu_tanh": functools.partial(F.gelu, approximate="tanh"),
+}
+
+
+def _mlp(h: torch.Tensor, lp: Params,
+         act: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """Dense gated MLP: act(h @ w_gate) * (h @ w_up) in float32, then
+    w_down."""
     gate = _proj(h, lp, "w_gate")
     up = _proj(h, lp, "w_up")
-    ff = (F.silu(gate.float()) * up.float()).to(h.dtype)
+    ff = (act(gate.float()) * up.float()).to(h.dtype)
     return _proj(ff, lp, "w_down")
 
 

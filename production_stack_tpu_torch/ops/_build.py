@@ -13,15 +13,19 @@ Kernels, each replacing a Pallas TPU kernel of the JAX package:
 
 - ``paged_attention.cuh`` (built as ``paged_attention.cu``,
   ``paged_attention_write.cu`` and ``paged_attention_prefill.cu``, one
-  kernel each), on the CUDA cores for fp32 q, or bf16 q at
-  head_dim 16, 32 or 64: ``paged_decode_kernel`` (``_decode_kernel``),
-  ``paged_decode_write_kernel`` (``_decode_write_kernel``) and
-  ``paged_prefill_kernel`` (``_prefill_kernel``), all of
+  kernel each), on the CUDA cores for fp32 q (head_dim 16 to 256), or
+  bf16 q at head_dim 16, 32 or 64: ``paged_decode_kernel``
+  (``_decode_kernel``), ``paged_decode_write_kernel``
+  (``_decode_write_kernel``) and ``paged_prefill_kernel``
+  (``_prefill_kernel``), all of
   ``production_stack_tpu/ops/paged_attention_pallas.py``;
-- ``decode_splitkv.cu``: ``decode_split_kernel``, ``_decode_kernel`` and
-  ``_decode_write_kernel`` for bf16 q at head_dim 128 (split-KV);
-- ``prefill_wgmma.cu``: ``paged_prefill_wgmma_kernel``, ``_prefill_kernel``
-  for bf16 q at head_dim 128 on the tensor cores (wgmma);
+- ``decode_splitkv.cuh`` (built as ``decode_splitkv.cu`` at head_dim 128
+  and ``decode_splitkv_hd256.cu`` at 256): ``decode_split_kernel``,
+  ``_decode_kernel`` and ``_decode_write_kernel`` for bf16 q (split-KV);
+- ``prefill_wgmma.cuh`` (built as ``prefill_wgmma.cu`` and
+  ``prefill_wgmma_hd256.cu``): ``paged_prefill_wgmma_kernel``,
+  ``_prefill_kernel`` for bf16 q at head_dim 128 and 256 on the tensor
+  cores (wgmma);
 - each attention kernel over a cache in q's type or in e4m3, at 1 to 8
   query heads per kv head;
 - ``int4_matmul.cu``: ``int4_wgmma_kernel`` (bf16, prefill rows) and
@@ -55,8 +59,10 @@ logger = init_logger(__name__)
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("paged_attention.cu", "paged_attention_write.cu",
            "paged_attention_prefill.cu", "decode_splitkv.cu",
-           "prefill_wgmma.cu", "int4_matmul.cu", "int4_decode.cu")
-HEADERS = ("paged_attention.cuh", "fp8.cuh", "sm90.cuh", "int4_bits.cuh")
+           "decode_splitkv_hd256.cu", "prefill_wgmma.cu",
+           "prefill_wgmma_hd256.cu", "int4_matmul.cu", "int4_decode.cu")
+HEADERS = ("paged_attention.cuh", "decode_splitkv.cuh", "prefill_wgmma.cuh",
+           "fp8.cuh", "sm90.cuh", "int4_bits.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

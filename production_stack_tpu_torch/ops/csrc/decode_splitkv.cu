@@ -1,654 +1,21 @@
-// Split-KV ("flash-decoding") paged decode attention with bf16 q for
-// Hopper, over a bf16 or an e4m3 cache.
-//
-// Replaces, for bf16 q at head_dim 128, two Pallas TPU kernels of
-// production_stack_tpu/ops/paged_attention_pallas.py:
-//   decode_split_kernel<G, false, *>  <- _decode_kernel (one query token
-//                                        per sequence)
-//   decode_split_kernel<G, true, *>   <- _decode_write_kernel (the same
-//                                        decode with this step's K/V row
-//                                        written into its page;
-//                                        PST_FUSED_KV_WRITE=1)
-// and their e4m3-cache forms (kFp8, kv_cache_dtype="float8_e4m3fn"). fp32 q
-// and other head dims keep paged_decode_kernel / paged_decode_write_kernel
-// of paged_attention.cuh. The contract is theirs, unchanged:
-//   q      [B, H, 128] bf16         cache [L, nb, 2, bs, KH*128] bf16 or
-//                                   e4m3
-//   tables [B, W] int32             kv_lens [B] int32 (the query sits at
-//                                   kv_len - 1 and sees keys >= kv_len -
-//                                   window); a table shorter than kv_len is
-//                                   clamped to its last entry
-//   k_new, v_new [B, KH*128] bf16, write_flat [B] int32
-//   (decode-write: flat slot blk * bs + row; outside [0, nb*bs) nothing is
-//   written)
-// Scores are scaled, then soft-capped; a row with no live key writes zeros;
-// a NaN in a live K or V row (an e4m3 cast past 464) reaches the output, as
-// in the plain version; G = H / KH from 1 to 8 (rows G..15 of the m16 tile
-// are padding).
-//
-// Precision contract: K and V are up-converted exactly to bf16 (every
-// e4m3 value is a bf16 value). Q·Kᵀ accumulates in fp32; the softmax runs
-// in fp32; P is rounded to bf16 before P·V, which accumulates in fp32 —
-// as precise as the JAX kernel's _pv_dot (P to about 2^-8) or more. Into
-// an e4m3 cache the decode-write casts the new row by fp8.cuh's cast_e4m3,
-// the JAX package's cast bit for bit (as ops/fp8.py's); split 0 stores it
-// and every split reads the same bytes back for that key.
-//
-// Bound on an NVIDIA H100 80GB HBM3 at its 700 W limit (3.35 TB/s): bytes.
-// Every live K/V row is read once: at B = 8, kv_len 4096 and Llama-3-8B
-// heads that is 134 MB, 0.040 ms. The G query heads of a kv head share each
-// row read.
-//
-// Design. Grid (B, KH, S), 128 threads (4 warps). The wrapper picks S
-// (decode_plan in paged_attention_cuda.py) from B, KH, the table width and
-// the SM count, never from kv_lens, so B * KH * S blocks fill the card
-// whatever the batch: one interactive user (B = 1) gets tens of blocks per
-// kv head instead of one.
-//   - Keys go in tiles of 64 positions, aligned to multiples of 64. Row
-//     b's live tiles [lo / 64, ceil(kv_len / 64)) are cut into S runs of
-//     consecutive tiles (run s starts at n * s / S); keys outside
-//     [lo, kv_len) are zero-filled and masked. A run with no tile records
-//     m = -inf, l = 0.
-//   - The block first copies its slice of the table row into shared
-//     memory, so no K/V copy waits on a table load. (Page ids prefetched
-//     into registers one tile ahead left a table load's latency exposed
-//     every tile: slower on the H100 at every shape timed.)
-//   - Each 16-byte piece of a K or V row is gathered through the table by
-//     cp.async into a 3-slot ring (two tiles, 64 KB, in flight ahead of
-//     the one being read; two blocks an SM, so about 128 KB an SM), with
-//     the chunk position swizzled by the row (chunk c of row r at
-//     c ^ (r % 8)) so that ldmatrix's eight rows of one chunk hit every
-//     bank once. cp.async rather than TMA: TMA cannot gather rows through
-//     a block table whose pages need not be a whole tile (any bs works
-//     here). One block barrier a tile hands the ring over; a 4-slot ring
-//     at one block an SM, or a 2-slot ring at three, was slower.
-//   - Products on the tensor cores (mma.sync m16n8k16), one softmax update
-//     per 16 keys. Each warp owns 16 keys of every tile and keeps its own
-//     flash state, so the warps never wait for each other inside a tile.
-//     S = Q Kᵀ has the G heads as its rows (padded to 16: q is the
-//     register A operand, loaded once), K's B fragments come by ldmatrix;
-//     a row's 16 scores sit in the 4 lanes of a quad (two shuffles for its
-//     max), in the log2 domain. P, rounded to bf16 as prefill_wgmma.cu
-//     rounds it, is the A operand of O += P V straight from the score
-//     registers, V's B fragments by ldmatrix.trans. The four warps' states
-//     merge in shared memory at the end. (A first version on the CUDA
-//     cores, a lane per key and three block barriers a 32-key tile, was
-//     slower at every shape timed.)
-//   - Splits combine in the same launch: a block with S > 1 writes its
-//     (acc[G][128], m[G], l[G]) in fp32 to the workspace the wrapper
-//     allocates, fences, and takes a ticket from the (b, kh) counter; the
-//     block that takes the last ticket merges the S partials in split
-//     order (so two launches give bit-identical outputs), writes bf16 and
-//     resets the counter to 0 for the next launch. The counters live in a
-//     buffer the wrapper keeps per device: launches that share it must be
-//     ordered (one stream), as the engine's are.
-//   - An e4m3 cache: each 16-byte piece (16 keys' dims of one row) comes by
-//     cp.async into a 3-slot staging ring of e4m3 tiles (8 KB of K, 8 KB of
-//     V each); the thread that copied a piece converts it, once the piece
-//     has landed, into one bf16 tile in the swizzled layout above (a second
-//     block barrier a tile hands it over), and the products run as in bf16.
-//     Shared memory: 48 KB of staging + 32 KB of bf16 tile = 80 KB, two
-//     blocks an SM as in bf16. (e4m3 operands on the tensor cores would
-//     read half the shared memory: later work.)
-//   - Decode-write: blocks of a launch are not ordered, so no block reads
-//     the row this step writes. Every block compares each key's flat slot
-//     table[pos / bs] * bs + pos % bs with write_flat[b] and copies that
-//     key from k_new / v_new instead of the cache; split 0 alone stores the
-//     row into the cache. A slot outside [0, nb*bs) stores and substitutes
-//     nothing. This needs the rule the engine keeps (checked on the CPU by
-//     tests/test_torch_decode_split.py): a sequence writes only into its
-//     own last page, and shared prefix pages are full, so no other row
-//     reads the written slot in the same step.
+// decode_split_kernel at head_dim 128, and the C entry point of both head
+// dims: see decode_splitkv.cuh. Head_dim 256 is built beside it, in
+// decode_splitkv_hd256.cu.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "decode_splitkv.cuh"
 
-#include <type_traits>
+extern "C" int pst_decode_split_hd256(
+    int cache_dtype, const void* q, void* cache, const void* k_new,
+    const void* v_new, const int* write_flat, const int* tables,
+    const int* kv_lens, void* out, float* ws, int* counters, int B, int H,
+    int KH, int nb, int bs, int W, int layer, int window, float scale,
+    float softcap, int splits, void* stream);
 
-#include "fp8.cuh"
-#include "sm90.cuh"
-
-namespace {
-
-using namespace pst_fp8;
-using namespace pst_sm90;
-using bf16 = __nv_bfloat16;
-
-constexpr int kHD = 128;
-constexpr int kKeys = 64;     // keys per tile
-constexpr int kKeysPerWarp = 16;
-constexpr int kStages = 3;    // ring slots
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowBytes = kHD * 2;             // a bf16 row
-constexpr int kTileBytes = kKeys * kRowBytes;  // 16 KB of K (or V)
-constexpr int kStageBytes = 2 * kTileBytes;
-constexpr int kRowBytes8 = kHD;                // an e4m3 row
-constexpr int kTileBytes8 = kKeys * kRowBytes8;
-constexpr int kStageBytes8 = 2 * kTileBytes8;
-// bf16: the ring, 96 KB. e4m3: one bf16 tile, then the e4m3 ring; 80 KB.
-constexpr int smem_bytes(bool fp8) {
-  return fp8 ? kStageBytes + kStages * kStageBytes8 : kStages * kStageBytes;
-}
-constexpr int kMaxSplits = 64;
-constexpr int kPageCap = 1024;  // table entries a block keeps in shared memory
-constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kThreads == kHD, "the merges give each thread one output dim");
-static_assert(kKeysPerWarp * kWarps == kKeys, "a warp owns 16 keys of a tile");
-static_assert(kWarps * 8 * (kHD + 2) * 4 <= smem_bytes(true),
-              "the warps' states fit the ring");
-static_assert(2 * kMaxSplits * 8 * 4 <= smem_bytes(true),
-              "the merge's weights fit the ring");
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Byte offset of 16-byte chunk c (0..15) of key row r in a tile.
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * kRowBytes + ((c ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Four 8 x 8 bf16 matrices from shared memory; lanes 8 i .. 8 i + 7 give
-// the row addresses of matrix i, and register i receives it as an mma
-// fragment (row lane / 4, columns 2 (lane % 4) + {0, 1}), or transposed.
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
-                                              uint32_t& r1, uint32_t& r2,
-                                              uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
-}
-
-// D[16 x 8] += A[16 x 16] B[16 x 8] in fp32; A's rows 8..15 are zero (the
-// padding heads), so only its registers a0 and a2 are given.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a2, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
-}
-
-// CT: the cache's element, bf16 or (kFp8) one e4m3 byte.
-template <int G, bool kWrite, bool kFp8,
-          typename CT = std::conditional_t<kFp8, uint8_t, bf16>>
-__global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const bf16* __restrict__ q, CT* cache,
-                    const bf16* __restrict__ k_new,
-                    const bf16* __restrict__ v_new,
-                    const int* __restrict__ write_flat,
-                    const int* __restrict__ tables,
-                    const int* __restrict__ kv_lens, bf16* __restrict__ out,
-                    float* __restrict__ ws, int* __restrict__ counters,
-                    int nb, int bs, int KH, int W, int layer, int window,
-                    float scale, float softcap) {
-  extern __shared__ __align__(16) uint8_t ring[];
-  __shared__ int sPages[kPageCap];
-  __shared__ __align__(16) uint8_t sNew[2][kHD];  // e4m3: the cast K, V rows
-  __shared__ float sL[G];
-  __shared__ int sLast;
-
-  const int b = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int split = blockIdx.z;
-  const int S = gridDim.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int H = KH * G;
-
-  const int kv_len = kv_lens[b];
-  const int win = window > 0 ? window : (1 << 30);
-  const int lo = max(kv_len - win, 0);
-  const int ta = lo / kKeys;
-  const int n = max((kv_len + kKeys - 1) / kKeys - ta, 0);
-  const int t0 = ta + (int)((long long)n * split / S);
-  const int n_t = ta + (int)((long long)n * (split + 1) / S) - t0;
-
-  // A cache row of one kv head is kChunks 16-byte pieces of kPer values.
-  constexpr int kPer = 16 / sizeof(CT);
-  constexpr int kChunks = kHD / kPer;
-  const size_t lanes = (size_t)KH * kHD;
-  const size_t page_stride = 2 * (size_t)bs * lanes;
-  const CT* layer_base =
-      cache + (size_t)layer * nb * page_stride + (size_t)kh * kHD;
-  const int* trow = tables + (size_t)b * W;
-
-  // Decode-write: this step's row (bf16), its slot, and split 0's store
-  // of it. An e4m3 cache takes the row cast by cast_e4m3 (JAX's cast):
-  // every block casts it into sNew, whence its key is substituted, and
-  // split 0 stores those bytes.
-  int wf = -1;
-  const bf16* knew = nullptr;
-  const bf16* vnew = nullptr;
-  if constexpr (kWrite) {
-    const int w = write_flat[b];
-    if (w >= 0 && w < nb * bs) {
-      wf = w;
-      knew = k_new + (size_t)b * lanes + (size_t)kh * kHD;
-      vnew = v_new + (size_t)b * lanes + (size_t)kh * kHD;
-      CT* row = cache +
-                (((size_t)layer * nb + w / bs) * 2 * bs + w % bs) * lanes +
-                (size_t)kh * kHD;
-      if constexpr (kFp8) {
-        if (tid < 32) {  // 16 threads a row, 8 values each
-          const int h = tid / 16, c = tid % 16;
-          const uint2 e = cast_e4m3x8(*reinterpret_cast<const uint4*>(
-              (h ? vnew : knew) + c * 8));
-          *reinterpret_cast<uint2*>(&sNew[h][c * 8]) = e;
-          if (split == 0)
-            *reinterpret_cast<uint2*>(row + h * (size_t)bs * lanes + c * 8) = e;
-        }
-      } else if (split == 0 && tid < 2 * kChunks) {
-        const int c = tid % kChunks;
-        if (tid < kChunks) {
-          *reinterpret_cast<uint4*>(row + c * kPer) =
-              *reinterpret_cast<const uint4*>(knew + c * kPer);
-        } else {
-          *reinterpret_cast<uint4*>(row + (size_t)bs * lanes + c * kPer) =
-              *reinterpret_cast<const uint4*>(vnew + c * kPer);
-        }
-      }
-    }
-  }
-
-  // Q as the A fragments of S = Q Kᵀ, whose rows are the G heads padded
-  // to 16 (rows 8..15 are always padding: a1 = a3 = 0). k-step kk holds
-  // dims 16 kk + 2 (lane % 4) + {0, 1} and + 8 of head lane / 4.
-  const int grp = lane / 4, tig = lane % 4;
-  uint32_t qa[8][2];
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    qa[kk][0] = qa[kk][1] = 0u;
-    if (grp < G) {
-      const bf16* qr =
-          q + ((size_t)b * H + kh * G + grp) * kHD + 16 * kk + 2 * tig;
-      qa[kk][0] = *reinterpret_cast<const uint32_t*>(qr);
-      qa[kk][1] = *reinterpret_cast<const uint32_t*>(qr + 8);
-    }
-  }
-
-  // Thread tid copies piece tid % kChunks of rows tid / kChunks + j *
-  // kThreads / kChunks of each tile: 8 bf16 rows, or 4 e4m3 rows.
-  const int cc = tid % kChunks;
-  constexpr int kRowsPerThread = kKeys * kChunks / kThreads;
-  // The block's slice of the table row, loaded once up front: entries
-  // [p_lo, p_lo + kPageCap) live in shared memory, any beyond (a split of
-  // more than kPageCap pages) are read from the table.
-  const int p_lo = min(t0 * kKeys / bs, W - 1);
-  const int p_n = min((t0 + n_t) * kKeys / bs, W - 1) + 1 - p_lo;
-  for (int i = tid; i < min(p_n, kPageCap); i += kThreads)
-    sPages[i] = __ldg(trow + p_lo + i);
-  __syncthreads();
-  auto page_of = [&](int pos) {
-    const int p = min(pos / bs, W - 1) - p_lo;
-    return p < kPageCap ? sPages[p] : __ldg(trow + p_lo + p);
-  };
-  // bf16: the ring slots are the tiles ldmatrix reads. e4m3: the tile is
-  // one bf16 tile at the start of the ring, the e4m3 slots follow it.
-  uint8_t* const stage0 = kFp8 ? ring + kStageBytes : ring;
-  auto copy_tile = [&](int it) {
-    uint8_t* const s8 = stage0 + (it % kStages) * kStageBytes8;
-    const uint32_t sK = kFp8 ? smem_u32(s8)
-                             : smem_u32(ring + (it % kStages) * kStageBytes);
-    const uint32_t sV = sK + (kFp8 ? kTileBytes8 : kTileBytes);
-#pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) {
-      const int r = tid / kChunks + (kThreads / kChunks) * j;
-      const int pos = (t0 + it) * kKeys + r;
-      const bool ok = pos >= lo && pos < kv_len;
-      // e4m3 rows are staged unswizzled: only their copier reads them.
-      const int off = kFp8 ? r * kRowBytes8 + cc * 16 : swz(r, cc);
-      const void* src_k = cache;  // a valid address when nothing is read
-      const void* src_v = cache;
-      if (ok) {
-        const int pg = page_of(pos);
-        const CT* row = layer_base + (size_t)pg * page_stride +
-                        (size_t)(pos % bs) * lanes + cc * kPer;
-        src_k = row;
-        src_v = row + (size_t)bs * lanes;
-        if constexpr (kWrite) {
-          if (pg * bs + pos % bs == wf) {
-            if constexpr (kFp8) {  // the cast row, from sNew
-              *reinterpret_cast<uint4*>(s8 + off) =
-                  *reinterpret_cast<const uint4*>(&sNew[0][cc * 16]);
-              *reinterpret_cast<uint4*>(s8 + kTileBytes8 + off) =
-                  *reinterpret_cast<const uint4*>(&sNew[1][cc * 16]);
-              continue;
-            } else {
-              src_k = knew + cc * kPer;
-              src_v = vnew + cc * kPer;
-            }
-          }
-        }
-      }
-      cp_async16(sK + off, src_k, ok);
-      cp_async16(sV + off, src_v, ok);
-    }
-  };
-  // e4m3: this thread's pieces of tile it, landed in their slot, into the
-  // bf16 tile (piece cc of a row is bf16 chunks 2 cc and 2 cc + 1).
-  auto convert_tile = [&](int it) {
-    const uint8_t* k8 = stage0 + (it % kStages) * kStageBytes8;
-#pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) {
-      const int r = tid / kChunks + (kThreads / kChunks) * j;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // K, then V
-        const uint4 v = *reinterpret_cast<const uint4*>(
-            k8 + h * kTileBytes8 + r * kRowBytes8 + cc * 16);
-        uint4 lo16, hi16;
-        e4m3x16_to_bf16(v, lo16, hi16);
-        uint8_t* t16 = ring + h * kTileBytes;
-        *reinterpret_cast<uint4*>(t16 + swz(r, 2 * cc)) = lo16;
-        *reinterpret_cast<uint4*>(t16 + swz(r, 2 * cc + 1)) = hi16;
-      }
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_t) copy_tile(s);
-    cp_async_commit();
-  }
-
-  const bool capped = softcap > 0.f;
-  const float c_scale = capped ? scale / softcap : scale * kLog2e;
-  const float c_cap = softcap * kLog2e;
-  // This warp's flash state for head `grp`: O (registers c0, c1 of each
-  // of the 16 dim tiles; c2, c3 belong to the padding rows), the running
-  // max and this thread's share of the row sum.
-  float o[16][4];
-#pragma unroll
-  for (int n = 0; n < 16; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
-  float m_run = -INFINITY, l_run = 0.f;
-  const int kw = kKeysPerWarp * warp;  // the warp's keys within a tile
-
-  for (int it = 0; it < n_t; ++it) {
-    cp_async_wait<kStages - 2>();
-    // Tile it has landed for every thread, and every thread is done with
-    // tile it - 1, whose slot the next copy refills (e4m3: and with the
-    // bf16 tile, which tile it now overwrites).
-    __syncthreads();
-    if constexpr (kFp8) convert_tile(it);
-    const int nx = it + kStages - 1;
-    if (nx < n_t) copy_tile(nx);
-    cp_async_commit();
-    if constexpr (kFp8) __syncthreads();  // the bf16 tile is whole
-
-    const int key0 = (t0 + it) * kKeys + kw;  // position of the warp's key 0
-    if (key0 >= kv_len || key0 + kKeysPerWarp <= lo) continue;  // none live
-    const uint32_t sK =
-        smem_u32(kFp8 ? ring : ring + (it % kStages) * kStageBytes);
-    const uint32_t sV = sK + kTileBytes;
-
-    // S = Q Kᵀ over the warp's 16 keys (two n-tiles of 8), K's B fragments
-    // by ldmatrix from the swizzled rows: matrix i of an x4 is chunk
-    // 4 p + i of 8 keys, i.e. k-steps 2 p and 2 p + 1.
-    float sc[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[j][i] = 0.f;
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(sK + swz(kw + 8 * j + (lane & 7), 4 * p + (lane >> 3)), b0,
-                b1, b2, b3);
-        mma_bf16(sc[j], qa[2 * p][0], qa[2 * p][1], b0, b1);
-        mma_bf16(sc[j], qa[2 * p + 1][0], qa[2 * p + 1][1], b2, b3);
-      }
-    }
-
-    // One softmax update a tile: head grp's scores at keys
-    // key0 + 8 j + 2 tig + e are sc[j][e]; the row's 16 keys are spread
-    // over the 4 lanes of a quad.
-    float x[4];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int pos = key0 + 8 * j + 2 * tig + e;
-        float v = capped ? tanhf(sc[j][e] * c_scale) * c_cap
-                         : sc[j][e] * c_scale;
-        v = pos >= lo && pos < kv_len ? v : -INFINITY;
-        x[2 * j + e] = v;
-        mx = fmaxf(mx, v);
-      }
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m_run, mx);
-    // No live key yet: every p is 0 and nothing is rescaled.
-    const float mb = m_new == -INFINITY ? 0.f : m_new;
-    const float alpha = fast_exp2(m_run - mb);
-    m_run = m_new;
-    float pr[4], rs = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      pr[i] = fast_exp2(x[i] - mb);
-      rs += pr[i];
-    }
-    l_run = l_run * alpha + rs;
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      o[n][0] *= alpha;
-      o[n][1] *= alpha;
-    }
-    // P, rounded to bf16, is the A fragment of O += P V (keys 0..7 in a0,
-    // 8..15 in a2); V's B fragments by ldmatrix.trans: matrix i of an x4
-    // is keys 8 (i % 2).. of chunk m + i / 2.
-    const uint32_t pa0 = pack_bf16x2(pr[0], pr[1]);
-    const uint32_t pa2 = pack_bf16x2(pr[2], pr[3]);
-#pragma unroll
-    for (int m = 0; m < 16; m += 2) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4_trans(
-          sV + swz(kw + 8 * ((lane >> 3) & 1) + (lane & 7), m + (lane >> 4)),
-          b0, b1, b2, b3);
-      mma_bf16(o[m], pa0, pa2, b0, b1);
-      mma_bf16(o[m + 1], pa0, pa2, b2, b3);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: the warps' states meet in it
-
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
-  float* sO = reinterpret_cast<float*>(ring);  // [kWarps][G][kHD]
-  float* sML = sO + kWarps * G * kHD;          // [kWarps][G][2]
-  if (grp < G) {
-    float* row = sO + (warp * G + grp) * kHD + 2 * tig;
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      row[8 * n] = o[n][0];
-      row[8 * n + 1] = o[n][1];
-    }
-    if (tig == 0) {
-      sML[(warp * G + grp) * 2] = m_run;
-      sML[(warp * G + grp) * 2 + 1] = l_run;
-    }
-  }
-  __syncthreads();
-
-  // The block's state: thread d merges dim d of every head over the warps.
-  const int d = tid;
-  float acc[G], Mg[G], Lg[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    float M = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sML[(w * G + g) * 2]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float c =
-          M == -INFINITY ? 0.f : fast_exp2(sML[(w * G + g) * 2] - M);
-      L += sML[(w * G + g) * 2 + 1] * c;
-      A += sO[(w * G + g) * kHD + d] * c;
-    }
-    acc[g] = A;
-    Mg[g] = M;
-    Lg[g] = L;
-  }
-
-  bf16* dst = out + ((size_t)b * H + kh * G) * kHD + d;
-  if (S == 1) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      dst[g * kHD] = __float2bfloat16(Lg[g] == 0.f ? 0.f : acc[g] / Lg[g]);
-    }
-    return;
-  }
-
-  // Workspace: acc [B*KH][S][G][128], then (m, l) [B*KH][S][G][2].
-  const size_t pair = (size_t)b * KH + kh;
-  float* accs = ws + pair * S * G * kHD;
-  float* mls = ws + (size_t)gridDim.x * KH * S * G * kHD + pair * S * G * 2;
-#pragma unroll
-  for (int g = 0; g < G; ++g) accs[((size_t)split * G + g) * kHD + d] = acc[g];
-  if (tid == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      mls[(split * G + g) * 2] = Mg[g];
-      mls[(split * G + g) * 2 + 1] = Lg[g];
-    }
-  }
-  __threadfence();  // this block's partial, before its ticket
-  __syncthreads();
-  if (tid == 0) sLast = atomicAdd(counters + pair, 1) == S - 1;
-  __syncthreads();
-  if (!sLast) return;
-  __threadfence();
-
-  // The last block of (b, kh) merges the splits in split order: the
-  // weights 2^(m_s - M) of every (split, head) first, then 4 dims of a head
-  // a thread, 8 splits' loads in flight. The weights live in the ring,
-  // which no copy uses any more.
-  float (*sW)[G] = reinterpret_cast<float (*)[G]>(ring);
-  float (*sWl)[G] = sW + kMaxSplits;
-  for (int i = tid; i < S * G; i += kThreads) {
-    sW[i / G][i % G] = __ldcg(mls + 2 * i);
-    sWl[i / G][i % G] = __ldcg(mls + 2 * i + 1);
-  }
-  __syncthreads();
-  if (tid < G) {
-    float M = -INFINITY;
-    for (int s = 0; s < S; ++s) M = fmaxf(M, sW[s][tid]);
-    float L = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float c = M == -INFINITY ? 0.f : fast_exp2(sW[s][tid] - M);
-      sW[s][tid] = c;
-      L += sWl[s][tid] * c;
-    }
-    sL[tid] = L;
-  }
-  __syncthreads();
-  for (int i = tid; i < G * kHD / 4; i += kThreads) {
-    const int g = i / (kHD / 4), d4 = 4 * (i % (kHD / 4));
-    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-    for (int s = 0; s < S; ++s) {
-      const float4 a = __ldcg(reinterpret_cast<const float4*>(
-          accs + ((size_t)s * G + g) * kHD + d4));
-      const float c = sW[s][g];
-      A.x += a.x * c;
-      A.y += a.y * c;
-      A.z += a.z * c;
-      A.w += a.w * c;
-    }
-    const float L = sL[g];
-    const float inv = L == 0.f ? 0.f : 1.f / L;
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(
-        out + ((size_t)b * H + kh * G + g) * kHD + d4);
-    o[0] = __floats2bfloat162_rn(A.x * inv, A.y * inv);
-    o[1] = __floats2bfloat162_rn(A.z * inv, A.w * inv);
-  }
-  if (tid == 0) counters[pair] = 0;
-}
-
-template <int G, bool kWrite, bool kFp8>
-cudaError_t launch(const void* q, void* cache, const void* k_new,
-                   const void* v_new, const int* write_flat,
-                   const int* tables, const int* kv_lens, void* out,
-                   float* ws, int* counters, int B, int KH, int nb, int bs,
-                   int W, int layer, int window, float scale, float softcap,
-                   int splits, cudaStream_t stream) {
-  using CT = std::conditional_t<kFp8, uint8_t, bf16>;
-  constexpr int smem = smem_bytes(kFp8);
-  static bool smem_set = false;  // idempotent: a race only repeats the call
-  if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        decode_split_kernel<G, kWrite, kFp8>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    smem_set = true;
-  }
-  dim3 grid(B, KH, splits);
-  decode_split_kernel<G, kWrite, kFp8><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<CT*>(cache),
-      static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new),
-      write_flat, tables, kv_lens, static_cast<bf16*>(out), ws, counters, nb,
-      bs, KH, W, layer, window, scale, softcap);
-  return cudaGetLastError();
-}
-
-template <bool kWrite, bool kFp8>
-int by_group(int G, const void* q, void* cache, const void* k_new,
-             const void* v_new, const int* write_flat, const int* tables,
-             const int* kv_lens, void* out, float* ws, int* counters, int B,
-             int KH, int nb, int bs, int W, int layer, int window,
-             float scale, float softcap, int splits, cudaStream_t s) {
-#define PST_SPLIT(GG)                                                     \
-  return (int)launch<GG, kWrite, kFp8>(q, cache, k_new, v_new, write_flat, \
-                                       tables, kv_lens, out, ws, counters, \
-                                       B, KH, nb, bs, W, layer, window,    \
-                                       scale, softcap, splits, s)
-  switch (G) {
-    case 1: PST_SPLIT(1);
-    case 2: PST_SPLIT(2);
-    case 3: PST_SPLIT(3);
-    case 4: PST_SPLIT(4);
-    case 5: PST_SPLIT(5);
-    case 6: PST_SPLIT(6);
-    case 7: PST_SPLIT(7);
-    case 8: PST_SPLIT(8);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef PST_SPLIT
-}
-
-}  // namespace
-
-// cache_dtype: 1 = bfloat16, 2 = float8_e4m3fn (q is bf16). write_flat ==
-// nullptr: decode; else decode-write (k_new, v_new [B, KH*HD] bf16, cast
-// into an e4m3 cache here). splits > 1 needs ws (B*KH*splits*G*(HD+2) floats) and
-// counters (B*KH int32, zero; left zero). Returns a cudaError_t.
+// cache_dtype: 1 = bfloat16, 2 = float8_e4m3fn (q is bf16); HD 128 or 256.
+// write_flat == nullptr: decode; else decode-write (k_new, v_new [B, KH*HD]
+// bf16, cast into an e4m3 cache here). splits > 1 needs ws
+// (B*KH*splits*G*(HD+2) floats) and counters (B*KH int32, zero; left
+// zero). Returns a cudaError_t.
 extern "C" int pst_decode_split(int cache_dtype, const void* q, void* cache,
                                 const void* k_new, const void* v_new,
                                 const int* write_flat, const int* tables,
@@ -657,24 +24,17 @@ extern "C" int pst_decode_split(int cache_dtype, const void* q, void* cache,
                                 int nb, int bs, int W, int layer, int window,
                                 float scale, float softcap, int splits,
                                 void* stream) {
-  if (B == 0) return 0;
-  if (HD != kHD || KH <= 0 || H % KH || KH > 65535 || splits < 1 ||
-      splits > kMaxSplits || (splits > 1 && (ws == nullptr || counters == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int G = H / KH;
-#define PST_ARGS                                                          \
-  G, q, cache, k_new, v_new, write_flat, tables, kv_lens, out, ws,        \
-      counters, B, KH, nb, bs, W, layer, window, scale, softcap, splits, s
-  const bool write = write_flat != nullptr;
-  if (cache_dtype == 1) {
-    return write ? by_group<true, false>(PST_ARGS)
-                 : by_group<false, false>(PST_ARGS);
+  if (HD == 128) {
+    return decode_split<128>(cache_dtype, q, cache, k_new, v_new, write_flat,
+                             tables, kv_lens, out, ws, counters, B, H, KH, nb,
+                             bs, W, layer, window, scale, softcap, splits,
+                             stream);
   }
-  if (cache_dtype == 2) {
-    return write ? by_group<true, true>(PST_ARGS)
-                 : by_group<false, true>(PST_ARGS);
+  if (HD == 256) {
+    return pst_decode_split_hd256(cache_dtype, q, cache, k_new, v_new,
+                                  write_flat, tables, kv_lens, out, ws,
+                                  counters, B, H, KH, nb, bs, W, layer,
+                                  window, scale, softcap, splits, stream);
   }
-#undef PST_ARGS
   return (int)cudaErrorInvalidValue;
 }

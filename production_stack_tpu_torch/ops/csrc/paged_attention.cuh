@@ -5,8 +5,8 @@
 // (production_stack_tpu/ops/paged_attention_pallas.py) where the tensor-core
 // kernels do not apply: fp32 q (tests and debug models such as the tiny
 // presets), and bf16 q at head_dim 16, 32 or 64. bf16 q at head_dim 128
-// runs elsewhere: decode and decode-write on the split-KV kernel of
-// decode_splitkv.cu, prefill on the tensor cores (prefill_wgmma.cu).
+// and 256 runs elsewhere: decode and decode-write on the split-KV kernel
+// of decode_splitkv.cuh, prefill on the tensor cores (prefill_wgmma.cuh).
 //
 //   paged_decode_kernel        <- _decode_kernel (one query token per
 //                                 sequence)
@@ -21,8 +21,8 @@
 //   q (decode)   [B, H, HD]             q (prefill) [B, T, H, HD]
 //   tables       [B, W] int32           kv_lens [B] int32, starts [B] int32
 // Types: q and out are Tq (fp32 or bf16); the cache is Tc, q's type or
-// e4m3 (kv_cache_dtype="float8_e4m3fn"). HD is 16, 32, 64 or 128 (bf16 q:
-// not 128), G = H / KH from 1 to 8.
+// e4m3 (kv_cache_dtype="float8_e4m3fn"). HD is 16, 32, 64, 128 or 256
+// (bf16 q: not 128 or 256), G = H / KH from 1 to 8.
 //
 // Precision contract: every element is up-converted exactly to fp32 (every
 // bf16 and every e4m3 value is an fp32 value; e4m3 goes through the
@@ -177,28 +177,38 @@ __device__ inline int window_eff(int window) {
 // ---------------------------------------------------------------------------
 // Decode: grid (B, KH), block kDecodeWarps warps.
 //
-// A key row of one kv head is HD values = LPK lanes of 4 values, so a warp
-// processes KPW = 32 / LPK keys at once; each warp walks its own
-// interleaved slice of [lo, kv_len) with kDecodeUnroll independent loads
-// in flight, keeps (m, l, acc) for each of the G query heads in registers,
-// and the partial states are merged across lanes, then warps, at the end.
-// The state arrays hold GM >= G heads (GM in 1, 2, 4, 8); heads G.. GM - 1
-// run on zero queries and are never stored.
+// A key row of one kv head is HD values = LPK lanes of VPL values (4, or
+// HD / 32 where that is more: 8 at HD 256), so a warp processes KPW = 32 /
+// LPK keys at once; each warp walks its own interleaved slice of
+// [lo, kv_len) with UNR independent loads in flight (kDecodeUnroll, half
+// that at 8 values a lane), keeps (m, l, acc) for each of the G query
+// heads in registers, and the partial states are merged across lanes, then
+// warps, at the end, through dynamic shared memory (decode_smem: 64 KB at
+// HD 256 and 8 heads). The state arrays hold GM >= G heads (GM in 1, 2, 4,
+// 8); heads G.. GM - 1 run on zero queries and are never stored.
 // ---------------------------------------------------------------------------
 
 constexpr int kDecodeWarps = 8;
 constexpr int kDecodeUnroll = 4;
 constexpr int kVec = 4;
 
+template <int GM, int HD>
+constexpr size_t decode_smem() {
+  return sizeof(float) * (size_t)kDecodeWarps * GM * HD;  // the warps' acc
+}
+
 template <typename Tq, typename Tc, int GM, int HD, bool kCoherent>
 __device__ __forceinline__ void decode_body(const Params& p) {
-  constexpr int LPK = HD / kVec;  // lanes per key row
-  constexpr int KPW = 32 / LPK;   // keys per warp step
+  constexpr int VPL = HD / kVec > 32 ? HD / 32 : kVec;  // values a lane
+  constexpr int LPK = HD / VPL;  // lanes per key row
+  constexpr int KPW = 32 / LPK;  // keys per warp step
+  constexpr int UNR = VPL > kVec ? kDecodeUnroll / 2 : kDecodeUnroll;
   static_assert(LPK <= 32 && 32 % LPK == 0, "head_dim / lane mismatch");
 
   __shared__ float sm_m[kDecodeWarps][GM];
   __shared__ float sm_l[kDecodeWarps][GM];
-  __shared__ float sm_acc[kDecodeWarps][GM][HD];
+  extern __shared__ float smem[];  // [kDecodeWarps][GM][HD]
+  float (*sm_acc)[GM][HD] = reinterpret_cast<float (*)[GM][HD]>(smem);
 
   const Tq* q = static_cast<const Tq*>(p.q);
   const Tc* cache = static_cast<const Tc*>(p.cache);
@@ -216,39 +226,41 @@ __device__ __forceinline__ void decode_body(const Params& p) {
   // pages wholly below that are never read.
   const int lo = max(kv_len - window_eff(p.window), 0);
 
-  float qv[GM][kVec];
+  float qv[GM][VPL];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
-    if (g < G) {
-      Vec4<Tq>::template load<false>(
-          q + ((size_t)b * H + kh * G + g) * HD + sl * kVec, qv[g]);
-    } else {
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) qv[g][i] = 0.f;
+    for (int v = 0; v < VPL; v += kVec) {
+      if (g < G) {
+        Vec4<Tq>::template load<false>(
+            q + ((size_t)b * H + kh * G + g) * HD + sl * VPL + v, qv[g] + v);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) qv[g][v + i] = 0.f;
+      }
     }
   }
-  float m[GM], l[GM], acc[GM][kVec];
+  float m[GM], l[GM], acc[GM][VPL];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
     m[g] = -INFINITY;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < VPL; ++i) acc[g][i] = 0.f;
   }
 
   const size_t lanes = (size_t)p.KH * HD;
   const size_t page_stride = 2 * (size_t)p.bs * lanes;
   const Tc* base_ptr = cache + (size_t)p.layer * p.nb * page_stride +
-                       (size_t)kh * HD + sl * kVec;
+                       (size_t)kh * HD + sl * VPL;
   const int* trow = p.tables + (size_t)b * p.W;
   constexpr int kStep = kDecodeWarps * KPW;
 
-  for (int base = lo + warp * KPW; base < kv_len;
-       base += kStep * kDecodeUnroll) {
-    float kf[kDecodeUnroll][kVec], vf[kDecodeUnroll][kVec];
-    bool live[kDecodeUnroll];
+  for (int base = lo + warp * KPW; base < kv_len; base += kStep * UNR) {
+    float kf[UNR][VPL], vf[UNR][VPL];
+    bool live[UNR];
 #pragma unroll
-    for (int u = 0; u < kDecodeUnroll; ++u) {
+    for (int u = 0; u < UNR; ++u) {
       const int pos = base + u * kStep + sub;
       live[u] = pos < kv_len;
       if (live[u]) {
@@ -257,20 +269,24 @@ __device__ __forceinline__ void decode_body(const Params& p) {
         const Tc* kp = base_ptr +
                        (size_t)trow[min(pos / p.bs, p.W - 1)] * page_stride +
                        (size_t)(pos % p.bs) * lanes;
-        Vec4<Tc>::template load<kCoherent>(kp, kf[u]);
-        Vec4<Tc>::template load<kCoherent>(kp + (size_t)p.bs * lanes, vf[u]);
+#pragma unroll
+        for (int v = 0; v < VPL; v += kVec) {
+          Vec4<Tc>::template load<kCoherent>(kp + v, kf[u] + v);
+          Vec4<Tc>::template load<kCoherent>(kp + (size_t)p.bs * lanes + v,
+                                             vf[u] + v);
+        }
       } else {
 #pragma unroll
-        for (int i = 0; i < kVec; ++i) kf[u][i] = vf[u][i] = 0.f;
+        for (int i = 0; i < VPL; ++i) kf[u][i] = vf[u][i] = 0.f;
       }
     }
 #pragma unroll
-    for (int u = 0; u < kDecodeUnroll; ++u) {
+    for (int u = 0; u < UNR; ++u) {
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         float s = 0.f;
 #pragma unroll
-        for (int i = 0; i < kVec; ++i) s += qv[g][i] * kf[u][i];
+        for (int i = 0; i < VPL; ++i) s += qv[g][i] * kf[u][i];
 #pragma unroll
         for (int off = LPK / 2; off > 0; off >>= 1)
           s += __shfl_xor_sync(0xffffffffu, s, off);
@@ -281,7 +297,7 @@ __device__ __forceinline__ void decode_body(const Params& p) {
           const float pr = expf(s - mn);
           l[g] = l[g] * alpha + pr;
 #pragma unroll
-          for (int i = 0; i < kVec; ++i)
+          for (int i = 0; i < VPL; ++i)
             acc[g][i] = acc[g][i] * alpha + pr * vf[u][i];
           m[g] = mn;
         }
@@ -301,7 +317,7 @@ __device__ __forceinline__ void decode_body(const Params& p) {
       const float c = mo == -INFINITY ? 0.f : expf(mo - mn);
       l[g] = l[g] * a + lo_ * c;
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) {
+      for (int i = 0; i < VPL; ++i) {
         const float ao = __shfl_xor_sync(0xffffffffu, acc[g][i], off);
         acc[g][i] = acc[g][i] * a + ao * c;
       }
@@ -316,7 +332,7 @@ __device__ __forceinline__ void decode_body(const Params& p) {
         sm_l[warp][g] = l[g];
       }
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) sm_acc[warp][g][sl * kVec + i] = acc[g][i];
+      for (int i = 0; i < VPL; ++i) sm_acc[warp][g][sl * VPL + i] = acc[g][i];
     }
   }
   __syncthreads();
@@ -619,12 +635,31 @@ cudaError_t launch(const Params& p) {
     dim3 grid((p.T + TQ - 1) / TQ, p.B, p.KH);
     paged_prefill_kernel<Tq, Tc, HD>
         <<<grid, kPrefillThreads, smem, p.stream>>>(p);
-  } else if constexpr (K == kDecode) {
-    paged_decode_kernel<Tq, Tc, GM, HD>
-        <<<dim3(p.B, p.KH), kDecodeWarps * 32, 0, p.stream>>>(p);
   } else {
-    paged_decode_write_kernel<Tq, Tc, GM, HD>
-        <<<dim3(p.B, p.KH), kDecodeWarps * 32, 0, p.stream>>>(p);
+    // The warps' accumulators: dynamic shared memory, past 48 KB at HD 256.
+    constexpr size_t smem = decode_smem<GM, HD>();
+    static bool smem_set = false;  // idempotent: a race only repeats the call
+    if constexpr (K == kDecode) {
+      if (!smem_set) {
+        cudaError_t e = cudaFuncSetAttribute(
+            paged_decode_kernel<Tq, Tc, GM, HD>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+        smem_set = true;
+      }
+      paged_decode_kernel<Tq, Tc, GM, HD>
+          <<<dim3(p.B, p.KH), kDecodeWarps * 32, smem, p.stream>>>(p);
+    } else {
+      if (!smem_set) {
+        cudaError_t e = cudaFuncSetAttribute(
+            paged_decode_write_kernel<Tq, Tc, GM, HD>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+        smem_set = true;
+      }
+      paged_decode_write_kernel<Tq, Tc, GM, HD>
+          <<<dim3(p.B, p.KH), kDecodeWarps * 32, smem, p.stream>>>(p);
+    }
   }
   return cudaGetLastError();
 }
@@ -648,8 +683,11 @@ cudaError_t by_head_dim(const Params& p) {
     case 32: return by_group<K, Tq, Tc, 32>(p);
     case 64: return by_group<K, Tq, Tc, 64>(p);
     case 128:
-      // bf16 q at head_dim 128 runs on the tensor-core kernels.
+      // bf16 q at head_dim 128 and 256 runs on the tensor-core kernels.
       if constexpr (std::is_same_v<Tq, float>) return by_group<K, Tq, Tc, 128>(p);
+      break;
+    case 256:
+      if constexpr (std::is_same_v<Tq, float>) return by_group<K, Tq, Tc, 256>(p);
       break;
   }
   return cudaErrorInvalidValue;

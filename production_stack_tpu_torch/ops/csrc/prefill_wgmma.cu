@@ -1,475 +1,17 @@
-// Chunked-prefill paged attention with bf16 q on Hopper's tensor cores
-// (wgmma), over a bf16 or an e4m3 cache.
-//
-// Replaces, for bf16 q at head_dim 128, production_stack_tpu/ops/
-// paged_attention_pallas.py::_prefill_kernel (launched by _prefill_call),
-// and its e4m3-cache form (kFp8, kv_cache_dtype="float8_e4m3fn"). fp32 q
-// and other head dims keep the CUDA-core paged_prefill_kernel of
-// paged_attention.cuh. The contract is that kernel's, unchanged:
-//   q      [B, T, H, 128] bf16      cache [L, nb, 2, bs, KH*128] bf16 or
-//                                   e4m3
-//   tables [B, W] int32             kv_lens, starts [B] int32
-// Row t of sequence b sits at position pos = starts[b] + t and attends to
-// the keys in [max(pos + 1 - window, 0), min(pos + 1, kv_len)); scores are
-// scaled, then soft-capped; a row with no live key writes zeros (a NaN in
-// a live K or V row, an e4m3 cast past 464, reaches the output); a ragged
-// T is masked here; G = H / KH from 1 to 8.
-//
-// Precision contract: K and V are up-converted exactly to bf16 (every
-// e4m3 value is a bf16 value). Q·Kᵀ accumulates in fp32; the softmax runs
-// in fp32; P is rounded to bf16 before P·V, which accumulates in fp32 —
-// as precise as the JAX kernel's _pv_dot (P to about 2^-8) or more.
-//
-// Design. Grid (KH, B, ceil(T / (128 / G))), 256 threads = two consumer
-// warpgroups. A block owns one (sequence, kv head) and 128 query rows:
-// TQ = 128 / G positions times the G heads of the kv head,
-// position-major (row r is position r / G, head r % G); where G does not
-// divide 128 (3, 5, 6, 7) the rows past TQ * G fall at a position past
-// the block's last, so the Q load zeroes them, the masks give them no key
-// and the epilogue skips them. Each warpgroup owns 64 rows (one wgmma M
-// tile). The tile index runs
-// backwards along gridDim.z, so the tiles with the longest causal key
-// range start first.
-//   - Q is loaded once into shared memory (cp.async, rows past T zeroed).
-//   - Keys go in tiles of 64. Each 16-byte piece of a K or V row is
-//     gathered through the block table (any block size works) by cp.async
-//     into a 4-slot ring, two tiles ahead, zero-filled past the block's key
-//     range, in the 128-byte-swizzled layout the wgmma descriptors read.
-//     Tiles wholly outside the block's causal and window range are never
-//     loaded. mbarriers, not block barriers, hand the slots over: a slot is
-//     full once every thread's copies into it have landed
-//     (cp.async.mbarrier.arrive), and empty once every warp is done with
-//     it. So the two warpgroups do not meet at every tile, and one runs its
-//     softmax while the other's products run. (Making them take turns at
-//     the tensor cores with named barriers, or skipping a tile that none of
-//     a warpgroup's rows sees, was slower on an NVIDIA H100 80GB HBM3 at
-//     700 W: the skip's branch around the products makes ptxas serialize
-//     the wgmmas.)
-//   - S = Q Kᵀ: 8 x wgmma m64n64k16, both operands from shared memory,
-//     K-major. The online softmax runs in fp32 (log2 domain) on the
-//     accumulator registers; each register's (row, key) comes from the
-//     fragment layout, which gives the causal / window / kv_len masks.
-//   - P is rounded to bf16 in registers and used directly as the register
-//     A operand of 4 x wgmma m64n128k16 for O += P V, V read from shared
-//     memory MN-major (transposed B), so P never touches shared memory.
-//   - O, m and l stay in registers; the epilogue divides by l and writes
-//     bf16.
-//   - An e4m3 cache: each 16-byte piece (16 dims of one key row) comes by
-//     cp.async into a 3-slot staging ring of e4m3 tiles (8 KB of K, 8 KB of
-//     V each), a commit group a tile. The thread that copied a piece waits
-//     for its own group, converts the piece exactly to bf16 into the
-//     swizzled ring slot the wgmma descriptors read, and only then arrives
-//     on the slot's full barrier; the empty barriers guard the bf16 slots
-//     as in bf16. (e4m3 operands on the tensor cores, wgmma k32, would
-//     halve the shared memory the products read: later work.)
-// Shared memory: Q 32 KB + 4 slots x (K 16 KB + V 16 KB) = 160 KB (+1 KB
-// for alignment); e4m3 adds 3 x 16 KB of staging: 208 KB (+1 KB) of the
-// 227 KB a block may have. One block per SM, 8 warps.
-//
-// Bound on an NVIDIA H100 80GB HBM3 at its 700 W limit (data sheet: 989
-// TFLOP/s bf16 dense, 3.35 TB/s): operations,
-// 4 * H * 128 * T * (start + T/2) FLOP per layer for a causal chunk (the
-// window lowers it): at H = 32, a fresh T = 512 chunk is 2.15 GFLOP,
-// 0.0022 ms; T = 512 at start 3584 is 32.2 GFLOP, 0.0326 ms; a fresh
-// T = 2048 chunk 34.4 GFLOP, 0.0348 ms. The fresh T = 512 chunk reads
-// 4.2 MB of q/out and 1 MB of K/V: 0.0031 ms of bytes, so it is bound by
-// bytes (PERF.md has the measured times).
+// paged_prefill_wgmma_kernel at head_dim 128, and the C entry point of
+// both head dims: see prefill_wgmma.cuh. Head_dim 256 is built beside it,
+// in prefill_wgmma_hd256.cu.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "prefill_wgmma.cuh"
 
-#include <type_traits>
+extern "C" int pst_paged_prefill_wgmma_hd256(
+    int cache_dtype, const void* q, const void* cache, const int* tables,
+    const int* kv_lens, const int* starts, void* out, int B, int T_len,
+    int H, int KH, int nb, int bs, int W, int layer, int window, float scale,
+    float softcap, void* stream);
 
-#include "fp8.cuh"
-#include "sm90.cuh"
-
-namespace {
-
-using namespace pst_fp8;
-using namespace pst_sm90;
-
-constexpr int kHD = 128;
-constexpr int kRows = 128;  // query rows per block
-constexpr int kKeys = 64;   // keys per tile
-constexpr int kStages = 4;  // K/V ring slots
-constexpr int kAhead = 2;   // key tiles loaded ahead of the current
-constexpr int kThreads = 256;
-constexpr int kQBytes = kRows * kHD * 2;        // 32 KB: 2 x [128 x 64]
-constexpr int kQHalf = kRows * 128;             // one 64-dim half of Q
-constexpr int kKVBytes = kKeys * kHD * 2;       // 16 KB: K (or V) of a tile
-constexpr int kKVHalf = kKeys * 128;            // one 64-dim half of K / V
-constexpr int kStageBytes = 2 * kKVBytes;
-constexpr int kStaging = kAhead + 1;      // e4m3 staging slots
-constexpr int kKVBytes8 = kKeys * kHD;    // 8 KB: e4m3 K (or V) of a tile
-constexpr int kStageBytes8 = 2 * kKVBytes8;
-constexpr int smem_bytes(bool fp8) {
-  return kQBytes + kStages * kStageBytes + (fp8 ? kStaging * kStageBytes8 : 0) +
-         1024;
-}
-static_assert(smem_bytes(true) <= 232448, "the e4m3 form fits a block");
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// CT: the cache's element, bf16 or (kFp8) one e4m3 byte.
-template <int G, bool kFp8,
-          typename CT = std::conditional_t<kFp8, uint8_t, __nv_bfloat16>>
-__global__ void __launch_bounds__(kThreads, 1)
-paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
-                           const CT* __restrict__ cache,
-                           const int* __restrict__ tables,
-                           const int* __restrict__ kv_lens,
-                           const int* __restrict__ starts,
-                           __nv_bfloat16* __restrict__ out, int T_len, int nb,
-                           int bs, int KH, int W, int layer, int window,
-                           float scale, float softcap) {
-  constexpr int TQ = kRows / G;  // positions per block
-  extern __shared__ __align__(1024) uint8_t smem_raw[];
-  const uint32_t sQ = smem_u32(align1024(smem_raw));
-  const uint32_t sKV = sQ + kQBytes;
-  const uint32_t s8 = sKV + kStages * kStageBytes;  // e4m3 staging
-
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tile = gridDim.z - 1 - blockIdx.z;  // longest key range first
-  const int tid = threadIdx.x;
-  const int wg = tid / 128;
-  const int warp = (tid % 128) / 32;
-  const int lane = tid % 32;
-  const int quad = lane & 3;
-  const int H = KH * G;
-
-  const int kv_len = kv_lens[b];
-  const int start = starts[b];
-  const int t0 = tile * TQ;
-  const int t_end = min(t0 + TQ, T_len);
-  const int win = window > 0 ? window : (1 << 30);
-  // Keys any row of the block sees.
-  const int k_lo = max(start + t0 + 1 - win, 0);
-  const int k_hi = min(kv_len, start + t_end);
-  const int n_kv = k_hi > k_lo ? (k_hi - k_lo + kKeys - 1) / kKeys : 0;
-
-  // Q: 128 rows x 16 chunks of 16 bytes; row r is (t0 + r / G, head g).
-  for (int i = tid; i < kRows * 16; i += kThreads) {
-    const int r = i / 16, c = i % 16;
-    const int t = t0 + r / G, g = r % G;
-    const bool ok = t < t_end;
-    const __nv_bfloat16* src =
-        ok ? q + (((size_t)b * T_len + t) * H + kh * G + g) * kHD + c * 8 : q;
-    cp_async16(sQ + (c / 8) * kQHalf + sw128(r, c % 8), src, ok);
-  }
-  cp_async_commit();
-
-  const size_t lanes = (size_t)KH * kHD;
-  const size_t page_stride = 2 * (size_t)bs * lanes;
-  const CT* layer_base =
-      cache + (size_t)layer * nb * page_stride + (size_t)kh * kHD;
-  const int* trow = tables + (size_t)b * W;
-
-  // A cache row of one kv head is kChunks 16-byte pieces of kPer values;
-  // thread tid copies piece tid % kChunks of keys tid / kChunks + j *
-  // kThreads / kChunks, for K and V.
-  constexpr int kPer = 16 / sizeof(CT);
-  constexpr int kChunks = kHD / kPer;
-  constexpr int kRowStep = kThreads / kChunks;
-  const int c = tid % kChunks;
-  // Key tile `it` into ring slot `slot` (bf16), or into its e4m3 staging
-  // slot, unswizzled: only its copier reads it.
-  auto load_kv = [&](int it, int slot) {
-    const int kb = k_lo + it * kKeys;
-    const uint32_t sK = kFp8 ? s8 + (it % kStaging) * kStageBytes8
-                             : sKV + slot * kStageBytes;
-    const uint32_t sV = sK + (kFp8 ? kKVBytes8 : kKVBytes);
-#pragma unroll
-    for (int j = 0; j < kKeys / kRowStep; ++j) {
-      const int r = tid / kChunks + kRowStep * j;
-      const int kp = kb + r;
-      const bool ok = kp < k_hi;
-      const CT* src = cache;
-      if (ok) {
-        src = layer_base + (size_t)trow[min(kp / bs, W - 1)] * page_stride +
-              (size_t)(kp % bs) * lanes + c * kPer;
-      }
-      const uint32_t off =
-          kFp8 ? r * kHD + c * 16 : (c / 8) * kKVHalf + sw128(r, c % 8);
-      cp_async16(sK + off, src, ok);
-      cp_async16(sV + off, ok ? src + (size_t)bs * lanes : cache, ok);
-    }
-  };
-  // e4m3: this thread's pieces of tile it, landed, into ring slot `slot`
-  // as bf16 (piece c is bf16 chunks 2 c and 2 c + 1, in one 64-dim half).
-  auto convert_kv = [&](int it, int slot) {
-    const uint32_t k8 = s8 + (it % kStaging) * kStageBytes8;
-    const uint32_t sK = sKV + slot * kStageBytes;
-#pragma unroll
-    for (int j = 0; j < kKeys / kRowStep; ++j) {
-      const int r = tid / kChunks + kRowStep * j;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // K, then V
-        uint32_t v[4];
-        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-                     : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
-                     : "r"(k8 + h * kKVBytes8 + r * kHD + c * 16));
-        uint32_t w[8];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          w[2 * i] = e4m3x2_to_bf16x2(v[i]);
-          w[2 * i + 1] = e4m3x2_to_bf16x2(v[i] >> 16);
-        }
-        const uint32_t dst = sK + h * kKVBytes + (c / 4) * kKVHalf;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
-                       ::"r"(dst + sw128(r, (2 * c + e) % 8)),
-                       "r"(w[4 * e]), "r"(w[4 * e + 1]), "r"(w[4 * e + 2]),
-                       "r"(w[4 * e + 3])
-                       : "memory");
-        }
-      }
-    }
-  };
-
-  // Ring slot s is full once every thread's copies into it (and, for the
-  // first tile, Q) have landed, and empty once every warp is done with it.
-  __shared__ __align__(8) uint64_t bars[2 * kStages];
-  const uint32_t full0 = smem_u32(bars);
-  const uint32_t empty0 = full0 + 8 * kStages;
-  if (tid == 0) {
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full0 + 8 * s, kThreads);
-      mbar_init(empty0 + 8 * s, kThreads / 32);
-    }
-  }
-  __syncthreads();
-  // bf16: a slot is full once its copies land (cp.async.mbarrier.arrive).
-  // e4m3: one commit group a tile (empty where there is none), and a slot
-  // is full once every thread has converted its pieces into it.
-#pragma unroll
-  for (int s = 0; s < kAhead; ++s) {
-    if (s < n_kv) {
-      load_kv(s, s);
-      if constexpr (!kFp8) cp_async_mbar_arrive(full0 + 8 * s);
-    }
-    if constexpr (kFp8) cp_async_commit();
-  }
-
-  // This thread's two rows of its warpgroup's M tile (fragment rows
-  // 16 * warp + lane / 4 and + 8) and their live key ranges.
-  int low[2], bound[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = 64 * wg + 16 * warp + lane / 4 + 8 * h;
-    const int t = t0 + m / G;
-    const int pos = start + t;
-    bound[h] = t < t_end ? min(pos + 1, kv_len) : 0;
-    low[h] = max(pos + 1 - win, 0);
-  }
-  const bool capped = softcap > 0.f;
-  const float c_scale = capped ? scale / softcap : scale * kLog2e;
-  const float c_cap = softcap * kLog2e;
-
-  float o[64], s[32];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) s[i] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sum
-
-  const uint32_t qa = sQ + wg * 64 * 128;
-  for (int it = 0; it < n_kv; ++it) {
-    const int nx = it + kAhead;  // refill the slot of tile nx - kStages
-    if (nx < n_kv) {
-      const int ns = nx % kStages;
-      // bf16: slot ns is refilled now; e4m3: it is converted into two
-      // tiles from now, and this wait is what clears it for that.
-      if (nx >= kStages) mbar_wait(empty0 + 8 * ns, (nx / kStages - 1) & 1);
-      load_kv(nx, ns);
-      if constexpr (!kFp8) cp_async_mbar_arrive(full0 + 8 * ns);
-    }
-    const int slot = it % kStages;
-    if constexpr (kFp8) {
-      cp_async_commit();
-      cp_async_wait<kAhead>();  // this thread's pieces of tile it (and Q)
-      convert_kv(it, slot);
-      fence_proxy_async();  // the converted tile, to wgmma's async proxy
-      mbar_arrive(full0 + 8 * slot);
-    }
-    mbar_wait(full0 + 8 * slot, (it / kStages) & 1);
-    fence_proxy_async();  // the landed tiles, to wgmma's async proxy
-    const int kb = k_lo + it * kKeys;
-    const uint32_t sK = sKV + slot * kStageBytes;
-    const uint32_t sV = sK + kKVBytes;
-
-    // S = Q Kᵀ over the 128 dims: 8 k-steps of 16.
-    fence_regs(s);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
-      const uint64_t da =
-          desc_sw128(qa + (ks / 4) * kQHalf + (ks % 4) * 32, 16, 1024);
-      const uint64_t db =
-          desc_sw128(sK + (ks / 4) * kKVHalf + (ks % 4) * 32, 16, 1024);
-      wgmma_m64n64k16_ss(s, da, db, ks > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-
-    // Register i holds row h = (i / 2) % 2, key kb + 8 * (i / 4) +
-    // 2 * quad + i % 2. A tile that none of a row's keys is in leaves the
-    // row as it was (every p is 0, alpha 1).
-    const bool masked = kb < low[0] || kb + kKeys > bound[0] ||
-                        kb < low[1] || kb + kKeys > bound[1];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      float v = capped ? tanhf(s[i] * c_scale) * c_cap : s[i] * c_scale;
-      if (masked) {
-        const int h = (i >> 1) & 1;
-        const int key = kb + 8 * (i >> 2) + 2 * quad + (i & 1);
-        if (key < low[h] || key >= bound[h]) v = -INFINITY;
-      }
-      s[i] = v;
-    }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[h], mx);
-      // No live key for the row yet: every p is 0 and nothing is rescaled.
-      const float base = m_new == -INFINITY ? 0.f : m_new;
-      alpha[h] = fast_exp2(m_run[h] - base);
-      m_run[h] = m_new;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p0 = fast_exp2(s[4 * j + 2 * h] - base);
-        const float p1 = fast_exp2(s[4 * j + 2 * h + 1] - base);
-        s[4 * j + 2 * h] = p0;
-        s[4 * j + 2 * h + 1] = p1;
-        rs += p0 + p1;
-      }
-      l_run[h] = l_run[h] * alpha[h] + rs;
-    }
-#pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
-
-    // P as the A fragments of the 4 key k-steps: register r of k-step kk
-    // holds S registers 8 * kk + 2 * r and + 1.
-    uint32_t p[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        p[kk][r] = pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-
-    // O += P V: V is [64 keys x 128 dims], dims contiguous (MN-major B);
-    // lbo = the next 64-dim half, sbo = the next 8 keys.
-    fence_regs(o);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t db = desc_sw128(sV + kk * 16 * 128, kKVHalf, 1024);
-      wgmma_m64n128k16_rs<1>(o, p[kk], db, 1);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
-    if (lane == 0) mbar_arrive(empty0 + 8 * slot);  // this warp is done
-  }
-  cp_async_wait<0>();
-
-  // Register i of O holds row h = (i / 2) % 2, dim 8 * (i / 4) + 2 * quad +
-  // i % 2.
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float l = l_run[h];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float inv = l == 0.f ? 0.f : 1.f / l;
-    const int m = 64 * wg + 16 * warp + lane / 4 + 8 * h;
-    const int t = t0 + m / G, g = m % G;
-    if (t >= t_end) continue;
-    __nv_bfloat16* dst =
-        out + (((size_t)b * T_len + t) * H + kh * G + g) * kHD + 2 * quad;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
-          o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
-    }
-  }
-}
-
-template <int G, bool kFp8>
-cudaError_t launch(const void* q, const void* cache, const int* tables,
-                   const int* kv_lens, const int* starts, void* out, int B,
-                   int T_len, int KH, int nb, int bs, int W, int layer,
-                   int window, float scale, float softcap,
-                   cudaStream_t stream) {
-  using CT = std::conditional_t<kFp8, uint8_t, __nv_bfloat16>;
-  constexpr int smem = smem_bytes(kFp8);
-  static bool smem_set = false;  // idempotent: a race only repeats the call
-  if (!smem_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_prefill_wgmma_kernel<G, kFp8>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    smem_set = true;
-  }
-  constexpr int TQ = kRows / G;
-  dim3 grid(KH, B, (T_len + TQ - 1) / TQ);
-  paged_prefill_wgmma_kernel<G, kFp8><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const CT*>(cache),
-      tables, kv_lens, starts, static_cast<__nv_bfloat16*>(out), T_len, nb,
-      bs, KH, W, layer, window, scale, softcap);
-  return cudaGetLastError();
-}
-
-template <bool kFp8>
-int by_group(int G, const void* q, const void* cache, const int* tables,
-             const int* kv_lens, const int* starts, void* out, int B,
-             int T_len, int KH, int nb, int bs, int W, int layer, int window,
-             float scale, float softcap, cudaStream_t s) {
-#define PST_PREFILL(GG)                                                   \
-  return (int)launch<GG, kFp8>(q, cache, tables, kv_lens, starts, out, B, \
-                               T_len, KH, nb, bs, W, layer, window, scale, \
-                               softcap, s)
-  switch (G) {
-    case 1: PST_PREFILL(1);
-    case 2: PST_PREFILL(2);
-    case 3: PST_PREFILL(3);
-    case 4: PST_PREFILL(4);
-    case 5: PST_PREFILL(5);
-    case 6: PST_PREFILL(6);
-    case 7: PST_PREFILL(7);
-    case 8: PST_PREFILL(8);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef PST_PREFILL
-}
-
-}  // namespace
-
-// cache_dtype: 1 = bfloat16, 2 = float8_e4m3fn (q is bf16). Returns a
-// cudaError_t (0 = success).
+// cache_dtype: 1 = bfloat16, 2 = float8_e4m3fn (q is bf16); HD 128 or 256.
+// Returns a cudaError_t (0 = success).
 extern "C" int pst_paged_prefill_wgmma(int cache_dtype, const void* q,
                                        const void* cache, const int* tables,
                                        const int* kv_lens, const int* starts,
@@ -477,18 +19,16 @@ extern "C" int pst_paged_prefill_wgmma(int cache_dtype, const void* q,
                                        int KH, int HD, int nb, int bs, int W,
                                        int layer, int window, float scale,
                                        float softcap, void* stream) {
-  if (B == 0 || T_len == 0) return 0;
-  if (HD != kHD || KH <= 0 || H % KH || B > 65535 || KH > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int G = H / KH;
-  if (cache_dtype == 1)
-    return by_group<false>(G, q, cache, tables, kv_lens, starts, out, B,
-                           T_len, KH, nb, bs, W, layer, window, scale,
-                           softcap, s);
-  if (cache_dtype == 2)
-    return by_group<true>(G, q, cache, tables, kv_lens, starts, out, B,
-                          T_len, KH, nb, bs, W, layer, window, scale,
-                          softcap, s);
+  if (HD == 128) {
+    return prefill_wgmma<128>(cache_dtype, q, cache, tables, kv_lens, starts,
+                              out, B, T_len, H, KH, nb, bs, W, layer, window,
+                              scale, softcap, stream);
+  }
+  if (HD == 256) {
+    return pst_paged_prefill_wgmma_hd256(cache_dtype, q, cache, tables,
+                                         kv_lens, starts, out, B, T_len, H,
+                                         KH, nb, bs, W, layer, window, scale,
+                                         softcap, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }

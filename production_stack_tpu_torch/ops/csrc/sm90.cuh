@@ -132,6 +132,22 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64x32] (+)= A[64x16] B[16x32]; A and B from shared memory, K-major.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : PST_D8(0), PST_D8(8)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D[64x128] (+)= A[64x16] B[16x128]; A from registers (bf16x2 fragments
 // as mma.m16n8k16's A, warp w of the warpgroup holding rows 16w..16w+15),
 // B from shared memory: K-major (kTransB = 0) or MN-major (kTransB = 1,

@@ -5,9 +5,9 @@
 ``_decode_write_kernel`` and ``paged_attention_prefill`` its
 ``_prefill_kernel`` (``production_stack_tpu/ops/paged_attention_pallas.py``).
 ``kernel_route`` picks the kernel from the types and the head geometry:
-bf16 q at head_dim 128 runs the split-KV decode of
-``csrc/decode_splitkv.cu`` (``decode_plan`` picks its split count) and the
-tensor-core prefill of ``csrc/prefill_wgmma.cu``; fp32 q, or head_dim 16,
+bf16 q at head_dim 128 or 256 runs the split-KV decode of
+``csrc/decode_splitkv.cuh`` (``decode_plan`` picks its split count) and the
+tensor-core prefill of ``csrc/prefill_wgmma.cuh``; fp32 q, or head_dim 16,
 32 or 64, the CUDA-core kernels of ``csrc/paged_attention.cuh``. Every
 kernel takes 1 to 8 query heads per kv head and a cache in q's type or in
 e4m3 (``kv_cache_dtype="float8_e4m3fn"``: the kernels up-convert K and V
@@ -18,7 +18,7 @@ tensor a wrapper launches its kernel or raises — there is no fallback.
 
 ``launch_counts`` counts kernel launches per wrapper, so a run can show
 that its path went through the kernels; ``route_counts`` splits them by
-kernel and cache form.
+kernel, cache form and head_dim 256.
 """
 
 from __future__ import annotations
@@ -32,19 +32,20 @@ from .fp8 import E4M3, raw, to_cache_dtype
 
 launch_counts: Dict[str, int] = {"decode": 0, "decode_write": 0,
                                  "prefill": 0}
-# Launches by kernel and cache form: "<wrapper>_<route>", with "_e4m3"
-# appended for an e4m3 cache.
+# Launches by kernel, cache form and head_dim: "<wrapper>_<route>", with
+# "_e4m3" appended for an e4m3 cache, then "_hd256" at head_dim 256.
 route_counts: Dict[str, int] = {
-    f"{kind}_{route}{form}": 0
+    f"{kind}_{route}{form}{hd}": 0
     for kind, routes in (("prefill", ("wgmma", "simt")),
                          ("decode", ("split", "simt")),
                          ("decode_write", ("split", "simt")))
-    for route in routes for form in ("", "_e4m3")
+    for route in routes for form in ("", "_e4m3") for hd in ("", "_hd256")
 }
 
 # Element types by the code the launches pass.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, E4M3: 2}
-HEAD_DIMS = (16, 32, 64, 128)  # CUDA-core kernels; bf16 tensor cores: 128
+HEAD_DIMS = (16, 32, 64, 128, 256)  # every kernel's; fp32 q: CUDA cores
+TENSOR_CORE_HEAD_DIMS = (128, 256)  # bf16 q: the split-KV and wgmma kernels
 MAX_GROUP = 8  # query heads per kv head, 1 to 8 in every kernel
 
 
@@ -59,10 +60,11 @@ def kernel_route(kind: str, q_dtype: torch.dtype, cache_dtype: torch.dtype,
     """The kernel a ``kind`` call (``"decode"``, ``"decode_write"`` or
     ``"prefill"``) takes for these types and this head geometry:
     ``"split"`` (``decode_split_kernel``) or ``"wgmma"``
-    (``paged_prefill_wgmma_kernel``) for bf16 q at head_dim 128,
+    (``paged_prefill_wgmma_kernel``) for bf16 q at head_dim 128 or 256,
     ``"simt"`` (the CUDA-core kernels of ``paged_attention.cuh``) for fp32 q
-    or head_dim 16, 32 or 64. The cache holds q's type, or e4m3 under
-    either. Raises where no kernel exists; needs no GPU."""
+    (head_dim 16 to 256) or head_dim 16, 32 or 64. The cache holds q's
+    type, or e4m3 under either. Raises where no kernel exists; needs no
+    GPU."""
     if kind not in ("decode", "decode_write", "prefill"):
         raise ValueError(f"unknown attention kind {kind!r}")
     if cache_dtype not in DTYPE_CODES:
@@ -73,59 +75,64 @@ def kernel_route(kind: str, q_dtype: torch.dtype, cache_dtype: torch.dtype,
         raise TypeError(f"q is {q_dtype} but the cache is {cache_dtype}")
     if hd not in HEAD_DIMS:
         raise ValueError(
-            f"no kernel for head_dim={hd}: the kernels take {HEAD_DIMS}"
-            + (" (head_dim 256, the Gemma family: ROADMAP queue 2 item 2)"
-               if hd == 256 else ""))
+            f"no kernel for head_dim={hd}: the kernels take {HEAD_DIMS} "
+            "(other head geometries: ROADMAP queue 2 item 2)")
     if KH < 1 or H % KH:
         raise ValueError(f"H={H} is not a multiple of KH={KH}")
     if H // KH > MAX_GROUP:
         raise ValueError(
             f"H/KH = {H // KH}: the kernels take 1 to {MAX_GROUP} query heads "
             "per kv head (ROADMAP queue 2 item 2)")
-    if q_dtype == torch.bfloat16 and hd == 128:
+    if q_dtype == torch.bfloat16 and hd in TENSOR_CORE_HEAD_DIMS:
         return "wgmma" if kind == "prefill" else "split"
     return "simt"
 
 
-def _count(kind: str, route: str, cache_dtype: torch.dtype) -> None:
+def _count(kind: str, route: str, cache_dtype: torch.dtype, hd: int) -> None:
     launch_counts[kind] += 1
-    route_counts[f"{kind}_{route}{'_e4m3' if cache_dtype == E4M3 else ''}"] += 1
+    route_counts[f"{kind}_{route}{'_e4m3' if cache_dtype == E4M3 else ''}"
+                 f"{'_hd256' if hd == 256 else ''}"] += 1
 
 
-# decode_splitkv.cu: keys a tile holds, and the blocks an SM holds (96 KB
-# of ring in bf16, 80 KB over e4m3, and about 170 registers a thread each). On an NVIDIA H100 80GB
-# HBM3, at Llama-3-8B's heads and B in {1, 8, 16, 32, 64}, the kernel was
-# fastest with the grid one wave of them (B*KH*S = 2 * 132) and no split
-# under two tiles: a shorter one pays its merge for too few keys.
-SPLIT_TILE = 64
+# decode_splitkv.cuh: keys a tile holds by head_dim (a tile is 32 KB of
+# bf16 K and V at either), and the blocks an SM holds (96 KB of ring in
+# bf16, 80 KB over e4m3, and 170-216 registers a thread each). On an
+# NVIDIA H100 80GB HBM3, at Llama-3-8B's heads and B in {1, 8, 16, 32, 64},
+# the kernel was fastest with the grid one wave of them (B*KH*S = 2 * 132)
+# and no split under two tiles: a shorter one pays its merge for too few
+# keys.
+SPLIT_TILES = {128: 64, 256: 32}
 _SPLIT_BLOCKS_PER_SM = 2
 _SPLIT_MIN_TILES = 2
 _MAX_SPLITS = 64  # kMaxSplits
 
 
-def decode_plan(B: int, KH: int, W: int, bs: int, n_sm: int) -> int:
+def decode_plan(B: int, KH: int, W: int, bs: int, n_sm: int, hd: int) -> int:
     """Splits of each (sequence, kv head)'s keys for the split-KV kernel,
     from what the host knows (never ``kv_lens``): as many as keep B*KH*S
     within one wave of two blocks an SM, at most one split per two key
-    tiles the table can hold, and at most 64."""
-    tiles = -(-W * bs // SPLIT_TILE)
+    tiles (``SPLIT_TILES[hd]`` keys each) the table can hold, and at most
+    64."""
+    tiles = -(-W * bs // SPLIT_TILES[hd])
     fit = _SPLIT_BLOCKS_PER_SM * n_sm // max(B * KH, 1)
     return max(1, min(fit, tiles // _SPLIT_MIN_TILES, _MAX_SPLITS))
 
 
-def decode_split_keys(kv_len: int, window: int, splits: int,
-                      s: int) -> Tuple[int, int]:
+def decode_split_keys(kv_len: int, window: int, splits: int, s: int,
+                      hd: int) -> Tuple[int, int]:
     """The keys ``[k0, k1)`` that split ``s`` of ``splits`` reads for a row
-    of ``kv_len`` (the kernel's partition, for the tests): the row's live
-    tiles ``[lo // 64, ceil(kv_len / 64))`` cut into runs at
+    of ``kv_len`` (the kernel's partition at head dim ``hd``, for the
+    tests): with tiles of ``tile = SPLIT_TILES[hd]`` keys, the row's live
+    tiles ``[lo // tile, ceil(kv_len / tile))`` cut into runs at
     ``n * s // splits``, clipped to ``[lo, kv_len)``."""
+    tile = SPLIT_TILES[hd]
     lo = max(kv_len - window_eff(window), 0)
-    ta = lo // SPLIT_TILE
-    n = max(-(-kv_len // SPLIT_TILE) - ta, 0)
+    ta = lo // tile
+    n = max(-(-kv_len // tile) - ta, 0)
     t0 = ta + n * s // splits
     t1 = ta + n * (s + 1) // splits
-    k0 = max(t0 * SPLIT_TILE, lo)
-    k1 = min(t1 * SPLIT_TILE, kv_len)
+    k0 = max(t0 * tile, lo)
+    k1 = min(t1 * tile, kv_len)
     return (k0, k1) if k1 > k0 else (k0, k0)
 
 
@@ -162,7 +169,7 @@ def _launch_split(q3, kv_pages, block_tables, kv_lens, layer, write, scale,
     _, nb, _, bs, lanes = kv_pages.shape
     KH = lanes // hd
     W = block_tables.shape[1]
-    splits = decode_plan(B, KH, W, bs, _sm_count(q3.device))
+    splits = decode_plan(B, KH, W, bs, _sm_count(q3.device), hd)
     out = torch.empty_like(q3)
     ws = counters = None
     if splits > 1:
@@ -321,7 +328,7 @@ def paged_attention_decode(q3, kv_pages, block_tables, kv_lens, layer, *,
         )
         if rc != 0:
             raise RuntimeError(f"paged decode kernel failed: cudaError {rc}")
-    _count("decode", route, kv_pages.dtype)
+    _count("decode", route, kv_pages.dtype, q3.shape[-1])
     return out
 
 
@@ -370,7 +377,7 @@ def paged_attention_decode_write(q3, kv_pages, block_tables, kv_lens, layer,
         if rc != 0:
             raise RuntimeError(
                 f"paged decode-write kernel failed: cudaError {rc}")
-    _count("decode_write", route, kv_pages.dtype)
+    _count("decode_write", route, kv_pages.dtype, hd)
     return out
 
 
@@ -404,5 +411,5 @@ def paged_attention_prefill(q, kv_pages, block_tables, kv_lens, starts,
     if rc != 0:
         raise RuntimeError(f"paged prefill kernel ({route}) failed: "
                            f"cudaError {rc}")
-    _count("prefill", route, kv_pages.dtype)
+    _count("prefill", route, kv_pages.dtype, hd)
     return out

@@ -194,9 +194,9 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         (TypeError, (q.float(), 3, kv, tables, lens, 0)),
         (TypeError, (q.half(), 3, kv.to(torch.float8_e4m3fn), tables, lens, 0)),
         (ValueError, (q[None], 3, kv, tables, lens, 0)),
-        # head_dim 256 (the Gemma family) has no kernel yet.
-        (ValueError, (torch.zeros(2, 16, 256, dtype=torch.bfloat16), 3,
-                      kv[..., :512], tables, lens, 0)),
+        # A head_dim no kernel takes (128 and 256 are the tensor cores').
+        (ValueError, (torch.zeros(2, 16, 96, dtype=torch.bfloat16), 3,
+                      kv[..., :192], tables, lens, 0)),
         (ValueError, (torch.zeros(2, 72, 128, dtype=torch.bfloat16), 3, kv,
                       tables, lens, 0)),  # H/KH = 9
         (ValueError, (q[:, :12], 3, kv, tables, lens, 0)),  # H/KH = 1.5

@@ -3,10 +3,11 @@
 ``decode_split_kernel`` (``csrc/decode_splitkv.cu``) runs only on the card,
 where ``chip_smoke.py`` holds it against the plain versions. Here: the
 split count the wrapper plans and the key range each split reads
-(``decode_plan``, ``decode_split_keys``); a plain PyTorch model of the
-kernel's algorithm (64-key tiles, each warp's own softmax state over its
-16 keys of a tile in the log2 domain, the warps' and then the splits'
-(m, l, acc) merged in a fixed order, and decode-write's
+(``decode_plan``, ``decode_split_keys``) at both key tiles (64 keys at
+head_dim 128, 32 at 256); a plain PyTorch model of the kernel's algorithm
+(each 16-key group of a tile with its own softmax state in the log2
+domain, the groups' and then the splits' (m, l, acc) merged in a fixed
+order, and decode-write's
 substitution of this step's row) against ``paged_attention_decode_plain``,
 ``paged_attention_decode_write_plain`` and the JAX package's Pallas decode
 kernel; and the engine rule that lets decode-write skip ordering between
@@ -57,12 +58,15 @@ def _merge(parts, G, hd):
 
 
 def split_model(q3, kv_pages, tables, kv_lens, layer, *, scale, splits,
-                window=0, softcap=0.0, write=None):
+                window=0, softcap=0.0, write=None, kernel_hd=128):
     """``decode_split_kernel`` in plain PyTorch (fp32, where the kernel
-    rounds P to bf16): split s reads the keys ``decode_split_keys`` gives
-    it in 64-key tiles; warp w of its block owns keys 16 w .. 16 w + 15 of
-    every tile and updates its own flash state (log2 domain) once per 16
-    keys; the warps merge in order, then the splits. ``write`` = (k_new,
+    rounds P to bf16) as built at head dim ``kernel_hd``, whatever q's:
+    split s reads the keys ``decode_split_keys`` gives it in tiles of
+    ``SPLIT_TILES[kernel_hd]`` keys (64 at head_dim 128, 32 at 256); key
+    group w of its block (a warp, or at 32 keys a pair of warps with a
+    128-dim half of O each) owns keys 16 w .. 16 w + 15 of every tile and
+    updates its own flash state (log2 domain) once per 16 keys; the groups
+    merge in order, then the splits. ``write`` = (k_new,
     v_new, write_flat): a key whose flat slot is the row's write slot comes
     from k_new / v_new, and the cache is left as it was (split 0's store is
     the caller's). Returns [B, H, hd]."""
@@ -70,7 +74,7 @@ def split_model(q3, kv_pages, tables, kv_lens, layer, *, scale, splits,
     _, nb, _, bs, lanes = kv_pages.shape
     KH, W = lanes // hd, tables.shape[1]
     G = H // KH
-    T, TW = pac.SPLIT_TILE, pac.SPLIT_TILE // 4
+    T, TW = pac.SPLIT_TILES[kernel_hd], 16
     out = torch.zeros((B, H, hd))
     for b in range(B):
         n = int(kv_lens[b])
@@ -81,9 +85,10 @@ def split_model(q3, kv_pages, tables, kv_lens, layer, *, scale, splits,
             qg = q3[b, kh * G:(kh + 1) * G].float()  # [G, hd]
             blocks = []
             for s in range(splits):
-                k0, k1 = pac.decode_split_keys(n, window, splits, s)
+                k0, k1 = pac.decode_split_keys(n, window, splits, s,
+                                               kernel_hd)
                 warps = []
-                for w in range(4):
+                for w in range(T // TW):
                     m = torch.full((G,), -math.inf)
                     l = torch.zeros(G)
                     acc = torch.zeros((G, hd))
@@ -139,39 +144,56 @@ LENS = [0, 1, 7, 8, 9, 40, 77, 128]
 def test_decode_plan_covers_every_live_key_once():
     # Llama-3-8B heads (KH=8, bs=32, a 4096-token table) on an H100's 132
     # SMs: one wave of blocks, more splits the fewer the sequences.
-    assert pac.decode_plan(8, 8, 128, 32, 132) == 4
-    assert pac.decode_plan(16, 8, 128, 32, 132) == 2
-    assert pac.decode_plan(1, 8, 128, 32, 132) == 32  # two tiles a split
-    assert pac.decode_plan(64, 8, 128, 32, 132) == 1
-    assert pac.decode_plan(1, 8, 4, 32, 132) == 1  # a 128-key table
-    assert pac.decode_plan(1, 1, 4096, 32, 132) == 64  # capped
-    for B in (1, 3, 8, 64):
-        for W, bs in ((1, 8), (5, 8), (16, 32), (128, 32)):
-            S = pac.decode_plan(B, 8, W, bs, 132)
-            assert 1 <= S <= 64 and S <= max(1, W * bs // 128)
-            for window in (0, 45):
-                for n in sorted({0, 1, 31, 32, 33, W * bs // 2, W * bs}):
-                    lo = max(n - window, 0) if window else 0
-                    seen = []
-                    for s in range(S):
-                        k0, k1 = pac.decode_split_keys(n, window, S, s)
-                        assert k0 <= k1
-                        seen += range(k0, k1)
-                    assert seen == list(range(lo, n)), (B, W, bs, window, n)
+    assert pac.decode_plan(8, 8, 128, 32, 132, 128) == 4
+    assert pac.decode_plan(16, 8, 128, 32, 132, 128) == 2
+    assert pac.decode_plan(1, 8, 128, 32, 132, 128) == 32  # two tiles a split
+    assert pac.decode_plan(64, 8, 128, 32, 132, 128) == 1
+    assert pac.decode_plan(1, 8, 4, 32, 132, 128) == 1  # a 128-key table
+    assert pac.decode_plan(1, 1, 4096, 32, 132, 128) == 64  # capped
+    # At head_dim 256 a tile holds 32 keys: gemma2-9b (KH 8) and gemma-7b
+    # (KH 16) at 4096 tokens.
+    assert pac.SPLIT_TILES == {128: 64, 256: 32}
+    assert pac.decode_plan(8, 8, 128, 32, 132, 256) == 4
+    assert pac.decode_plan(8, 16, 128, 32, 132, 256) == 2
+    assert pac.decode_plan(1, 8, 128, 32, 132, 256) == 33
+    assert pac.decode_plan(1, 8, 2, 32, 132, 256) == 1  # a 64-key table
+    assert pac.decode_plan(1, 8, 4, 32, 132, 256) == 2  # two tiles a split
+    for hd in (128, 256):
+        tile = pac.SPLIT_TILES[hd]
+        for B in (1, 3, 8, 64):
+            for W, bs in ((1, 8), (5, 8), (16, 32), (128, 32)):
+                S = pac.decode_plan(B, 8, W, bs, 132, hd)
+                assert 1 <= S <= 64 and S <= max(1, W * bs // (2 * tile))
+                for window in (0, 45):
+                    for n in sorted({0, 1, 31, 32, 33, W * bs // 2, W * bs}):
+                        lo = max(n - window, 0) if window else 0
+                        seen = []
+                        for s in range(S):
+                            k0, k1 = pac.decode_split_keys(n, window, S, s,
+                                                           hd)
+                            assert k0 <= k1
+                            assert k1 == k0 or (
+                                k0 == lo or k0 % tile == 0), (k0, tile)
+                            seen += range(k0, k1)
+                        assert seen == list(range(lo, n)), (
+                            tile, B, W, bs, window, n)
 
 
 @pytest.mark.parametrize("window, softcap", [(0, 0.0), (45, 30.0)])
 def test_split_model_equals_plain_decode(window, softcap):
+    """Both key tiles: 64 keys (head_dim 128) and 32 (head_dim 256)."""
     for G in (1, 2, 4, 8):
         q, kv, tables, lens = _case(G, LENS, seed=G)
         want = pac.paged_attention_decode_plain(
             q, kv, tables, lens, 1, scale=0.2, window=window, softcap=softcap)
-        for splits in (1, 3, pac.decode_plan(len(LENS), 2, tables.shape[1],
-                                             8, 4)):
-            got = split_model(q, kv, tables, lens, 1, scale=0.2,
-                              splits=splits, window=window, softcap=softcap)
-            np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
-        assert torch.equal(got[0], torch.zeros_like(got[0]))  # kv_len 0
+        for khd in (128, 256):
+            for splits in (1, 3, pac.decode_plan(len(LENS), 2, tables.shape[1],
+                                                 8, 4, khd)):
+                got = split_model(q, kv, tables, lens, 1, scale=0.2,
+                                  splits=splits, window=window,
+                                  softcap=softcap, kernel_hd=khd)
+                np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+            assert torch.equal(got[0], torch.zeros_like(got[0]))  # kv_len 0
 
 
 def test_split_model_substitution_equals_plain_decode_write():
@@ -194,10 +216,10 @@ def test_split_model_substitution_equals_plain_decode_write():
         want = pac.paged_attention_decode_write_plain(
             q, want_kv, tables, lens, 0, k_new, v_new, wf, scale=0.2,
             window=window)
-        for splits in (1, 4):
+        for splits, khd in ((1, 128), (4, 128), (4, 256)):
             got = split_model(q, kv, tables, lens, 0, scale=0.2,
                               splits=splits, window=window,
-                              write=(k_new, v_new, wf))
+                              write=(k_new, v_new, wf), kernel_hd=khd)
             np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
     # The cache is as split 0 leaves it: the rows written, nothing else.
     flat = kv.clone().view(-1, KH * hd)

@@ -44,17 +44,21 @@ def test_every_served_preset_has_a_kernel():
             for kind in KINDS:
                 route = pac.kernel_route(kind, q, cache, cfg.num_heads,
                                          cfg.num_kv_heads, cfg.head_dim)
-                want = ("simt" if q == torch.float32 or cfg.head_dim != 128
+                want = ("simt" if q == torch.float32
+                        or cfg.head_dim not in (128, 256)
                         else "wgmma" if kind == "prefill" else "split")
                 assert route == want, (name, kv, kind, route)
-    assert {"tiny-llama-debug", "llama-3-8b", "qwen2-7b"} <= set(served)
+    assert {"tiny-llama-debug", "llama-3-8b", "qwen2-7b", "gemma-7b",
+            "gemma2-9b", "qwen3-8b", "tiny-gemma-debug", "tiny-gemma2-debug",
+            "tiny-qwen3-debug"} <= set(served)
 
 
 def test_kernel_route_refuses_what_no_kernel_takes():
     bf16, e4m3 = torch.bfloat16, torch.float8_e4m3fn
-    # head_dim 256 (gemma-7b, gemma2-9b) waits for the Gemma family.
-    with pytest.raises(ValueError, match="queue 2 item 2"):
-        pac.kernel_route("decode", bf16, bf16, 16, 16, 256)
+    # Head dims no kernel takes.
+    for hd in (96, 512):
+        with pytest.raises(ValueError, match="queue 2 item 2"):
+            pac.kernel_route("decode", bf16, bf16, 16, 16, hd)
     with pytest.raises(ValueError, match="1 to 8"):
         pac.kernel_route("prefill", bf16, e4m3, 36, 4, 128)  # G = 9
     with pytest.raises(ValueError):
@@ -69,6 +73,12 @@ def test_kernel_route_refuses_what_no_kernel_takes():
         pac.kernel_route("verify", bf16, bf16, 8, 8, 128)
     for G in range(1, 9):
         assert pac.kernel_route("decode", bf16, e4m3, 4 * G, 4, 128) == "split"
+        for cache in (bf16, e4m3):  # head_dim 256: the Gemma family
+            for kind in KINDS:
+                assert pac.kernel_route(kind, bf16, cache, 4 * G, 4, 256) == (
+                    "wgmma" if kind == "prefill" else "split")
+            assert pac.kernel_route("decode", torch.float32, e4m3, 4 * G, 4,
+                                    256) == "simt"
 
 
 def test_g7_qwen2_bias_forward_matches_jax():
