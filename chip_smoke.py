@@ -379,6 +379,16 @@ def phase_toolchain() -> str:
         f"{len(spilled)} spill:")
     for name, e in zip(names, spilled):
         log(f"    {e[2]} bytes of spill stores, {e[1]} registers: {name}")
+    # The wgmma prefill's instantiations, HD/G/cache: registers (+ spill).
+    prefill = []
+    for name, regs, spill in entries:
+        m = re.search(r"paged_prefill_wgmma_kernelILi(\d+)ELi(\d)ELb(\d)", name)
+        if m:
+            prefill.append(f"{m[1]}/{m[2]}/{'e4m3' if m[3] == '1' else 'bf16'}"
+                           f":{regs}" + (f"+{spill}B spill" if spill else ""))
+    log("  ptxas, paged_prefill_wgmma_kernel<HD, G, cache> registers: "
+        + " ".join(sorted(prefill, key=lambda x: [int(v) if v.isdigit() else v
+                                                   for v in re.split(r"[/:]", x)])))
     return smi
 
 
@@ -663,13 +673,25 @@ def write_slots(tables, positions, drop_rows, nb):
     return torch.tensor(slots, dtype=torch.int32, device=DEV)
 
 
+def sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def splits_of(q, cache, tables) -> int:
     """The split count the decode wrapper's plan gives these inputs."""
     _, _, _, bs, lanes = cache.shape
     hd = q.shape[-1]
     return pac.decode_plan(q.shape[0], lanes // hd, tables.shape[1], bs,
-                           torch.cuda.get_device_properties(0).multi_processor_count,
-                           hd)
+                           sm_count(), hd)
+
+
+def prefill_splits_of(q, cache, tables) -> int:
+    """The split count the prefill wrapper's plan gives these inputs."""
+    _, _, _, bs, lanes = cache.shape
+    B, T, H, hd = q.shape
+    kh = lanes // hd
+    return pac.prefill_plan(B, kh, T, H // kh, tables.shape[1], bs,
+                            sm_count(), hd)
 
 
 def same_nan(got, ref, label):
@@ -797,7 +819,10 @@ def phase_hd256_kernels(cache_dtype=torch.bfloat16) -> None:
     versions: at gemma2-9b's heads and at gemma-7b's, over ragged lengths
     (0 to 4096), one sequence of 4096, a window of 4096 at kv_len 5000
     (starting mid-page), every head group G 1 to 8 at a small B, the
-    decode-write's caches bit for bit and two launches bit for bit; with
+    decode-write's caches bit for bit and two launches bit for bit; the
+    prefill where each q-tile's keys take more than one split (B=1 and 3),
+    with a window that starts inside a q-tile's second run, ragged T,
+    mixed starts and a NaN key, each launched twice, bit for bit; with
     negative controls. With a bf16 cache also the CUDA-core kernels at
     head_dim 256 in fp32, over fp32 and e4m3 caches, at 1e-4."""
     pac.reset_launch_counts()
@@ -930,13 +955,59 @@ def phase_hd256_kernels(cache_dtype=torch.bfloat16) -> None:
             log(f"  a {tag} prefill whose rows each miss their last key: "
                 f"worst err / row tol {ratio:.3f}")
             check(not ok, "the row check passes a prefill that drops a key")
-    q, cache, tables, kl, st = case(
-        gen, B=3, T=100, kv_lens=[100, 0, 1100], starts=[0, 300, 1000],
-        h=GEMMA1_HEADS["h"], kh=GEMMA1_HEADS["kh"])
-    got, ref = run_prefill(q, cache, tables, kl, st, 1, scale=sc)
-    check(bool((got[1] == 0).all()), "prefill: kv_len 0 rows must be zeros")
-    compare(pre, got, ref, f"prefill {tag} gemma-7b's heads B=3 T=100 "
-            "starts=[0, 300, 1000] kv_lens=[100, 0, 1100]")
+    # Prefill with each q-tile's keys in more than one split (the plan's
+    # S at B=1 and 3): continuing 512-token chunks at 3584 whose window of
+    # 45 starts, for a q-tile's last rows, inside its second run (so the
+    # first run holds no key of theirs), fresh chunks, a ragged T=509 and
+    # three sequences at mixed starts with a kv_len 0 row, at gemma2-9b's
+    # heads (G 2) and gemma-7b's (G 1); each launched twice, bit for bit.
+    g1 = dict(h=GEMMA1_HEADS["h"], kh=GEMMA1_HEADS["kh"])
+    for name, heads, cap_, T, starts, lens, window in (
+            (GEMMA, g2, cap, 512, [3584], [4096], 45),
+            (GEMMA, g2, cap, 512, [0], [512], 0),
+            (GEMMA, g2, cap, 509, [0], [509], 0),
+            ("gemma-7b", g1, 0.0, 512, [3584], [4096], 45),
+            ("gemma-7b", g1, 0.0, 512, [0], [512], 0),
+            (GEMMA, g2, cap, 100, [0, 300, 1000], [100, 0, 1100], 0),
+            ("gemma-7b", g1, 0.0, 100, [0, 300, 1000], [100, 0, 1100], 0)):
+        q, cache, tables, kl, st = case(gen, B=len(lens), T=T, kv_lens=lens,
+                                        starts=starts, **heads)
+        kw = dict(scale=sc, window=window, softcap=cap_)
+        got, ref = run_prefill(q, cache, tables, kl, st, 1, **kw)
+        splits = prefill_splits_of(q, cache, tables)
+        check(splits > 1, f"prefill {tag}: {splits} split at B={len(lens)} "
+              f"T={T}")
+        if 0 in lens:
+            check(bool((got[lens.index(0)] == 0).all()),
+                  "prefill: kv_len 0 rows must be zeros")
+        compare(pre, got, ref, f"prefill {tag} {name}'s heads B={len(lens)} "
+                f"T={T} starts={starts} kv_lens={lens} window={window} "
+                f"softcap={cap_:g} ({splits} splits)")
+        again = pac.paged_attention_prefill(q, cache, tables, kl, st, 1, **kw)
+        check(torch.equal(got.view(torch.int16), again.view(torch.int16)),
+              f"prefill {tag}: two launches on the same inputs differ")
+    # A NaN key (over e4m3 a K value of 500, as JAX's cast writes it) at
+    # position 3884 of kv head 3, inside the second run of the q-tiles that
+    # reach it: every row at or past it in heads 6 and 7 must be NaN, the
+    # others as the plain version's.
+    q, cache, tables, kl, st = case(gen, B=1, T=512, kv_lens=[4096],
+                                    starts=[3584], **g2)
+    bad = to_cache_dtype(torch.tensor(
+        [500.0 if cache_dtype == E4M3 else float("nan")], device=DEV),
+        cache_dtype)
+    raw(cache)[1, int(tables[0, 3884 // BS]), 0, 3884 % BS,
+               3 * HD256 + 7] = raw(bad)[0]
+    got, ref = run_prefill(q, cache, tables, kl, st, 1, scale=sc, softcap=cap)
+    again = pac.paged_attention_prefill(q, cache, tables, kl, st, 1, scale=sc,
+                                        softcap=cap)
+    check(torch.equal(got.view(torch.int16), again.view(torch.int16)),
+          f"prefill {tag}: two launches with a NaN key differ")
+    got, ref, nan_rows = same_nan(got, ref, f"prefill {tag}")
+    check(nan_rows == 2 * (4096 - 3884),
+          f"prefill {tag}: {nan_rows} NaN rows, expected {2 * (4096 - 3884)}")
+    compare(pre, got, ref, f"prefill {tag} B=1 T=512 start=3584, a NaN K at "
+            f"3884 -> NaN in {nan_rows} rows ({prefill_splits_of(q, cache, tables)}"
+            " splits)")
     for h, kh in GROUP_SHAPES:
         q, cache, tables, kl, st = case(
             gen, B=2, T=70, kv_lens=[270, 70], starts=[200, 0], h=h, kh=kh)
@@ -2221,16 +2292,20 @@ def phase_times(per_step: dict, launches: dict, card: str,
         ref = yard(qs, k, v).transpose(1, 2)
         got = pac.paged_attention_prefill(q, cache, tables, kl, st, 1,
                                           scale=scale)
-        compare(pre_kind, got, ref,
-                f"prefill {tag} T={T} start={start} vs sdpa ({yard.__doc__})")
+        splits = prefill_splits_of(q, cache, tables)
+        compare(pre_kind, got, ref, f"prefill {tag} T={T} start={start} "
+                f"({splits} splits) vs sdpa ({yard.__doc__})")
         pairs = T * start + T * (T + 1) // 2  # (query, live key) pairs
         nbytes = 2 * T * h * hd * 2 + (start + T) * 2 * kh * hd * item
-        prefill.append(_row(
+        r = _row(
             pre_kind, ms, plain_ms, lib_ms, nbytes, 4 * h * hd * pairs,
             PEAK_BF16_FLOPS, per_step[pre_kind], launches[pre_kind], card,
-            f"B=1 T={T} start={start} {heads} bs={BS} bf16 q, {tag} cache",
+            f"B=1 T={T} start={start} {heads} bs={BS} bf16 q, {tag} cache, "
+            f"{splits} splits",
             library="torch.nn.functional.scaled_dot_product_attention on "
-                    f"K/V gathered{up} beforehand, " + yard.__doc__ + nocap))
+                    f"K/V gathered{up} beforehand, " + yard.__doc__ + nocap)
+        r["splits"] = splits
+        prefill.append(r)
     rows.append(with_points(prefill))
     return rows
 

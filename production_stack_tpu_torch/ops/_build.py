@@ -25,7 +25,8 @@ Kernels, each replacing a Pallas TPU kernel of the JAX package:
 - ``prefill_wgmma.cuh`` (built as ``prefill_wgmma.cu`` and
   ``prefill_wgmma_hd256.cu``): ``paged_prefill_wgmma_kernel``,
   ``_prefill_kernel`` for bf16 q at head_dim 128 and 256 on the tensor
-  cores (wgmma);
+  cores (wgmma), each q-tile's keys split over blocks where the grid
+  would not fill the card;
 - each attention kernel over a cache in q's type or in e4m3, at 1 to 8
   query heads per kv head;
 - ``int4_matmul.cu``: ``int4_wgmma_kernel`` (bf16, prefill rows) and
@@ -35,9 +36,10 @@ Kernels, each replacing a Pallas TPU kernel of the JAX package:
   ``production_stack_tpu/ops/int4_matmul.py::_kernel``.
 
 ``sm90.cuh`` holds the wgmma, descriptor, cp.async and barrier helpers
-the Hopper kernels share; ``fp8.cuh`` the e4m3 cache's conversions (up to
-bf16/fp32, and the JAX package's cast down); ``int4_bits.cuh`` the int4 ->
-bf16 conversion of both bf16 int4 routes.
+the Hopper kernels share; ``splits.cuh`` the key split and in-launch
+merge of the split-KV decode and the wgmma prefill; ``fp8.cuh`` the e4m3
+cache's conversions (up to bf16/fp32, and the JAX package's cast down);
+``int4_bits.cuh`` the int4 -> bf16 conversion of both bf16 int4 routes.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ SOURCES = ("paged_attention.cu", "paged_attention_write.cu",
            "decode_splitkv_hd256.cu", "prefill_wgmma.cu",
            "prefill_wgmma_hd256.cu", "int4_matmul.cu", "int4_decode.cu")
 HEADERS = ("paged_attention.cuh", "decode_splitkv.cuh", "prefill_wgmma.cuh",
-           "fp8.cuh", "sm90.cuh", "int4_bits.cuh")
+           "splits.cuh", "fp8.cuh", "sm90.cuh", "int4_bits.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -170,7 +172,13 @@ def load() -> ctypes.CDLL:
             _F, _F, _P,  # scale, softcap, stream
         ]
         lib.pst_paged_prefill.restype = _I
-        lib.pst_paged_prefill_wgmma.argtypes = lib.pst_paged_prefill.argtypes[1:]
+        lib.pst_paged_prefill_wgmma.argtypes = [
+            _I, _P, _P, _P, _P, _P, _P,  # cache type, q, cache, tables, lens, starts, out
+            _P, _P,  # ws, counters
+            _I, _I, _I, _I, _I,  # B, T, H, KH, HD
+            _I, _I, _I, _I, _I,  # nb, bs, W, layer, window
+            _F, _F, _I, _P,  # scale, softcap, splits, stream
+        ]
         lib.pst_paged_prefill_wgmma.restype = _I
         lib.pst_paged_decode_write.argtypes = [
             _I, _I, _P, _P, _P, _P, _P,  # types, q, cache, k_new, v_new, write_flat

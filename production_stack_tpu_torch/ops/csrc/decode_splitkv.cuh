@@ -88,9 +88,10 @@
 //     allocates, fences, and takes a ticket from the (b, kh) counter; the
 //     block that takes the last ticket merges the S partials in split
 //     order (so two launches give bit-identical outputs), writes bf16 and
-//     resets the counter to 0 for the next launch. The counters live in a
-//     buffer the wrapper keeps per device: launches that share it must be
-//     ordered (one stream), as the engine's are.
+//     resets the counter to 0 for the next launch (splits.cuh: the run,
+//     the ticket and the merge weights, shared with prefill_wgmma.cuh).
+//     The counters live in a buffer the wrapper keeps per device: launches
+//     that share it must be ordered (one stream), as the engine's are.
 //   - An e4m3 cache: each 16-byte piece (16 dims of one key row) comes by
 //     cp.async into a 3-slot staging ring of e4m3 tiles (8 KB of K, 8 KB of
 //     V each); the thread that copied a piece converts it, once the piece
@@ -120,11 +121,13 @@
 
 #include "fp8.cuh"
 #include "sm90.cuh"
+#include "splits.cuh"
 
 namespace {
 
 using namespace pst_fp8;
 using namespace pst_sm90;
+using namespace pst_splits;
 using bf16 = __nv_bfloat16;
 
 constexpr int kSliceDims = 128;  // output dims a warp owns
@@ -162,12 +165,6 @@ struct Geo {
   static constexpr int kRowBytes8 = HD;                    // an e4m3 row
   static_assert(kKeys * kRowBytes == kTileBytes, "a tile is 16 KB of K");
 };
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Byte offset of 16-byte chunk c (0..HD/8 - 1) of key row r in a tile.
 template <int HD>
@@ -233,7 +230,6 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
   __shared__ int sPages[kPageCap];
   __shared__ __align__(16) uint8_t sNew[2][HD];  // e4m3: the cast K, V rows
   __shared__ float sL[G];
-  __shared__ int sLast;
 
   const int b = blockIdx.x;
   const int kh = blockIdx.y;
@@ -247,10 +243,8 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
   const int kv_len = kv_lens[b];
   const int win = window > 0 ? window : (1 << 30);
   const int lo = max(kv_len - win, 0);
-  const int ta = lo / kKeys;
-  const int n = max((kv_len + kKeys - 1) / kKeys - ta, 0);
-  const int t0 = ta + (int)((long long)n * split / S);
-  const int n_t = ta + (int)((long long)n * (split + 1) / S) - t0;
+  int t0;
+  const int n_t = split_run(lo, kv_len, kKeys, split, S, t0);
 
   // A cache row of one kv head is kChunks 16-byte pieces of kPer values.
   constexpr int kPer = 16 / sizeof(CT);
@@ -586,12 +580,7 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
       mls[(split * G + g) * 2 + 1] = Lg[g];
     }
   }
-  __threadfence();  // this block's partial, before its ticket
-  __syncthreads();
-  if (tid == 0) sLast = atomicAdd(counters + pair, 1) == S - 1;
-  __syncthreads();
-  if (!sLast) return;
-  __threadfence();
+  if (!last_split(counters + pair, S)) return;
 
   // The last block of (b, kh) merges the splits in split order: the
   // weights 2^(m_s - M) of every (split, head) first, then 4 dims of a head
@@ -604,17 +593,7 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
     sWl[i / G][i % G] = __ldcg(mls + 2 * i + 1);
   }
   __syncthreads();
-  if (tid < G) {
-    float M = -INFINITY;
-    for (int s = 0; s < S; ++s) M = fmaxf(M, sW[s][tid]);
-    float L = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float c = M == -INFINITY ? 0.f : fast_exp2(sW[s][tid] - M);
-      sW[s][tid] = c;
-      L += sWl[s][tid] * c;
-    }
-    sL[tid] = L;
-  }
+  if (tid < G) sL[tid] = merge_weights(&sW[0][tid], &sWl[0][tid], G, S);
   __syncthreads();
   for (int i = tid; i < G * HD / 4; i += kThreads) {
     const int g = i / (HD / 4), d4 = 4 * (i % (HD / 4));

@@ -23,25 +23,46 @@
 // in fp32; P is rounded to bf16 before P·V, which accumulates in fp32 —
 // as precise as the JAX kernel's _pv_dot (P to about 2^-8) or more.
 //
-// Design. Grid (KH, B, ceil(T / (128 / G))), 256 threads = two consumer
-// warpgroups. A block owns one (sequence, kv head) and 128 query rows:
-// TQ = 128 / G positions times the G heads of the kv head,
+// Design. Grid (KH, B, ceil(T / (128 / G)) * S), 256 threads = two
+// consumer warpgroups. A q-tile is one (sequence, kv head) and 128 query
+// rows: TQ = 128 / G positions times the G heads of the kv head,
 // position-major (row r is position r / G, head r % G); where G does not
 // divide 128 (3, 5, 6, 7) the rows past TQ * G fall at a position past
 // the block's last, so the Q load zeroes them, the masks give them no key
 // and the epilogue skips them. Each warpgroup owns 64 rows (one wgmma M
-// tile). The tile index runs
-// backwards along gridDim.z, so the tiles with the longest causal key
-// range start first.
+// tile). The q-tile index runs backwards along gridDim.z, so the q-tiles
+// with the longest causal key range start first.
+//   - Split keys. The wrapper picks S (prefill_plan in
+//     paged_attention_cuda.py) from the shapes alone, never from kv_lens
+//     or starts, so that the grid fills about one wave of the SMs: at
+//     gemma2-9b's and gemma-7b's heads a 512-token chunk has 64 q-tiles,
+//     and S = 2 gives 128 blocks where one block a q-tile left 68 of the
+//     H100's 132 SMs idle. The q-tile's live keys (the window's lower
+//     bound of its first row to the causal bound of its last) in tiles
+//     aligned to kKeys are cut into S runs (splits.cuh::split_run, the
+//     formula of paged_attention_cuda.py::prefill_split_keys); block
+//     (q-tile, s) walks run s. With S > 1 a block writes its O (fp32, in
+//     the fragment order of its registers), m and l to the workspace and
+//     takes a ticket from the q-tile's counter; the block that takes the
+//     last ticket merges the runs in split order (two launches give the
+//     same bits), writes bf16 and resets the counter (splits.cuh, shared
+//     with the split-KV decode). The merge is a function of its own
+//     (merge_splits, not inlined) that sums in shared memory, so that it
+//     adds no register to the tile loop. An empty run (a q-tile with fewer
+//     tiles than S) loads nothing, writes nothing and only takes its
+//     ticket; the merge skips it. S = 1 writes bf16 directly.
 //   - Q is loaded once into shared memory (cp.async, rows past T zeroed).
-//   - Keys go in tiles of kKeys: 64 at HD 128, 32 at HD 256 (16 KB of bf16
-//     K either way). Each 16-byte piece of a K or V row is gathered
-//     through the block table (any block size works) by cp.async into a
-//     ring of kStages slots, two tiles ahead, zero-filled past the block's
+//   - Keys go in tiles of kKeys = 64 at both head dims (16 KB of bf16 K at
+//     HD 128, 32 KB at HD 256). Each 16-byte piece of a K or V row is
+//     gathered through the block table (any block size works) by cp.async
+//     into a ring of kStages slots, kAhead tiles ahead (4 slots, 2 ahead at
+//     HD 128; 2 slots, 1 ahead at HD 256), zero-filled outside the q-tile's
 //     key range, in the 128-byte-swizzled layout the wgmma descriptors
 //     read: a tile (and Q) is HD / 64 blocks of 64 dims, each a stack of
-//     128-byte rows.
-//     Tiles wholly outside the block's causal and window range are never
+//     128-byte rows. (At HD 256, 32-key tiles with 4 slots, 2 ahead, were
+//     slower on an NVIDIA H100 80GB HBM3: twice the per-tile softmax,
+//     barrier hand-over and O rescale per key; PERF.md has the times.)
+//     Tiles wholly outside the q-tile's causal and window range are never
 //     loaded. mbarriers, not block barriers, hand the slots over: a slot is
 //     full once every thread's copies into it have landed
 //     (cp.async.mbarrier.arrive), and empty once every warp is done with
@@ -51,7 +72,7 @@
 //     a warpgroup's rows sees, was slower on an NVIDIA H100 80GB HBM3 at
 //     700 W: the skip's branch around the products makes ptxas serialize
 //     the wgmmas.)
-//   - S = Q Kᵀ: HD / 16 x wgmma m64n{kKeys}k16, both operands from shared
+//   - S = Q Kᵀ: HD / 16 x wgmma m64n64k16, both operands from shared
 //     memory, K-major. The online softmax runs in fp32 (log2 domain) on the
 //     accumulator registers; each register's (row, key) comes from the
 //     fragment layout, which gives the causal / window / kv_len masks.
@@ -59,22 +80,26 @@
 //     A operand of wgmma m64n128k16 for O += P V (kKeys / 16 k-steps, HD /
 //     128 products a k-step, one a 128-dim slice of O), V read from shared
 //     memory MN-major (transposed B), so P never touches shared memory.
-//   - O, m and l stay in registers; the epilogue divides by l and writes
-//     bf16.
+//   - O, m and l stay in registers; the epilogue divides by l (the merged
+//     one with S > 1) and writes bf16.
 //   - An e4m3 cache: each 16-byte piece (16 dims of one key row) comes by
-//     cp.async into a 3-slot staging ring of e4m3 tiles (8 KB of K, 8 KB of
-//     V each), a commit group a tile. The thread that copied a piece waits
-//     for its own group, converts the piece exactly to bf16 into the
-//     swizzled ring slot the wgmma descriptors read, and only then arrives
-//     on the slot's full barrier; the empty barriers guard the bf16 slots
-//     as in bf16. (e4m3 operands on the tensor cores, wgmma k32, would
-//     halve the shared memory the products read: later work.)
+//     cp.async into a staging ring of kAhead e4m3 tiles, a commit group a
+//     tile. The thread that copied a piece waits for its own group,
+//     converts the piece exactly to bf16 into the swizzled ring slot the
+//     wgmma descriptors read, arrives on the slot's full barrier, and only
+//     then copies its pieces of the tile kAhead ahead into the staging it
+//     just read (its own pieces, so no other thread is in the way); the
+//     empty barriers guard the bf16 slots as in bf16. (e4m3 operands on
+//     the tensor cores, wgmma k32, would halve the shared memory the
+//     products read: later work.)
 // Shared memory at HD 128: Q 32 KB + 4 slots x (K 16 KB + V 16 KB) =
-// 160 KB (+1 KB for alignment); e4m3 adds 3 x 16 KB of staging: 208 KB
-// (+1 KB) of the 227 KB a block may have. At HD 256: Q 64 KB + 4 slots x
-// 32 KB = 192 KB (+1 KB); e4m3 keeps 3 slots, 64 + 96 + 48 = 208 KB
+// 160 KB (+1 KB for alignment); e4m3 adds 2 x 16 KB of staging: 192 KB
+// (+1 KB) of the 227 KB a block may have. At HD 256: Q 64 KB + 2 slots x
+// 64 KB = 192 KB (+1 KB); e4m3 adds one 32 KB staging tile: 224 KB
 // (+1 KB). One block per SM, 8 warps. Registers at HD 256: O is 128 fp32
-// a thread (m64n256 over a warpgroup), S 16.
+// a thread (m64n256 over a warpgroup), S 32. The workspace of a launch
+// with S > 1: q-tiles x S x 128 x (HD + 2) floats (16.9 MB for gemma2-9b's
+// 512-token chunk at S = 2, written and read through the 50 MB L2).
 //
 // Bound on an NVIDIA H100 80GB HBM3 at its 700 W limit (data sheet: 989
 // TFLOP/s bf16 dense, 3.35 TB/s): operations,
@@ -97,49 +122,139 @@
 
 #include "fp8.cuh"
 #include "sm90.cuh"
+#include "splits.cuh"
 
 namespace {
 
 using namespace pst_fp8;
 using namespace pst_sm90;
+using namespace pst_splits;
 
 constexpr int kRows = 128;  // query rows per block
-constexpr int kAhead = 2;   // key tiles loaded ahead of the current
+constexpr int kKeys = 64;   // keys a tile
 constexpr int kThreads = 256;
-constexpr int kQBlock = kRows * 128;      // one 64-dim block of Q, 16 KB
-constexpr int kKVBytes = 16 * 1024;       // K (or V) of a tile in bf16
-constexpr int kStageBytes = 2 * kKVBytes;
-constexpr int kStaging = kAhead + 1;      // e4m3 staging slots
-constexpr int kKVBytes8 = kKVBytes / 2;   // 8 KB: e4m3 K (or V) of a tile
-constexpr int kStageBytes8 = 2 * kKVBytes8;
+constexpr int kQBlock = kRows * 128;  // one 64-dim block of Q, 16 KB
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxSplits = 32;  // the merge keeps S x 128 weights in smem
 
-// The geometry of head dim HD (and cache form): keys a tile, ring slots,
-// Q's bytes, one 64-dim block of K / V, and the shared memory a block asks
-// for (1 KB more than the tiles, for the 1024-byte alignment).
+// The geometry of head dim HD (and cache form): ring slots, tiles loaded
+// ahead of the current one, e4m3 staging slots, Q's bytes, a tile's K (or
+// V) in bf16 and e4m3, one 64-dim block of a tile's K / V, and the shared
+// memory a block asks for (1 KB more than the tiles, for the 1024-byte
+// alignment).
 template <int HD, bool kFp8>
 struct Geo {
   static_assert(HD == 128 || HD == 256, "the wgmma kernel takes HD 128, 256");
-  static constexpr int kKeys = HD == 128 ? 64 : 32;
-  static constexpr int kStages = HD == 256 && kFp8 ? 3 : 4;
+  static constexpr int kStages = HD == 128 ? 4 : 2;
+  static constexpr int kAhead = HD == 128 ? 2 : 1;
+  static constexpr int kStaging = kAhead;
   static constexpr int kSlices = HD / 128;  // n128 products of O
   static constexpr int kQBytes = kRows * HD * 2;
+  static constexpr int kKVBytes = kKeys * HD * 2;
+  static constexpr int kKVBytes8 = kKVBytes / 2;
+  static constexpr int kStageBytes = 2 * kKVBytes;
+  static constexpr int kStageBytes8 = 2 * kKVBytes8;
   static constexpr int kKVBlock = kKeys * 128;
-  static_assert(kKeys * HD * 2 == kKVBytes, "a tile is 16 KB of K");
   static constexpr int kSmem = kQBytes + kStages * kStageBytes +
                                (kFp8 ? kStaging * kStageBytes8 : 0) + 1024;
+  static_assert(kStages > kAhead, "a slot is free to refill");
   static_assert(kSmem <= 232448, "the tiles fit a block");
+  static_assert(kRows * HD * 4 + (2 * kMaxSplits + 1) * kRows * 4 <=
+                    kSmem - 1024,
+                "the merge's sums and weights fit the tiles' shared memory");
 };
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// The merge of a q-tile's S runs, out of line so that its code takes no
+// part in the tile loop's register allocation. Every thread of the block
+// calls it once the block's partial is in the workspace (ws_o: split 0's O
+// of the q-tile, ws_ml: its (m, l)); the block that takes the last ticket
+// writes the q-tile's output.
+template <int HD, int G>
+__device__ __noinline__ void merge_splits(
+    const float4* ws_o, const float* ws_ml, int* counter, uint8_t* smem_raw,
+    __nv_bfloat16* out, int b, int kh, int KH, int T_len, int t0, int t_end,
+    int k_lo, int k_hi, int S) {
+  constexpr int kO4 = HD / 8;  // float4 groups of a thread's O
+  constexpr size_t per_split = (size_t)kO4 * kThreads;
+  if (!last_split(counter, S)) return;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int quad = lane & 3;
+  const int H = KH * G;
+  int row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    row[h] = 64 * (tid / 128) + 16 * ((tid % 128) / 32) + lane / 4 + 8 * h;
+  ws_o += tid;
+
+  // The runs in split order: every (split, row)'s weight 2^(m_s - M)
+  // first (an empty run's m is -inf and its l 0), then each thread its own
+  // fragment of every split's O, summed in shared memory (the ring and Q,
+  // which no copy uses any more) with 16 loads in flight.
+  float4* acc = reinterpret_cast<float4*>(align1024(smem_raw)) + tid;
+  float* sM = reinterpret_cast<float*>(align1024(smem_raw) +
+                                       kO4 * kThreads * 16);  // [S][kRows]
+  float* sLs = sM + S * kRows;                                // [S][kRows]
+  float* sL = sLs + S * kRows;                                // [kRows]
+  for (int i = tid; i < S * kRows; i += kThreads) {
+    int first;
+    const bool live = split_run(k_lo, k_hi, kKeys, i / kRows, S, first) > 0;
+    sM[i] = live ? __ldcg(ws_ml + 2 * i) : -INFINITY;
+    sLs[i] = live ? __ldcg(ws_ml + 2 * i + 1) : 0.f;
+  }
+  __syncthreads();
+  if (tid < kRows) sL[tid] = merge_weights(sM + tid, sLs + tid, kRows, S);
+  __syncthreads();
+  bool none = true;  // no run summed yet
+  for (int s2 = 0; s2 < S; ++s2) {
+    int first;
+    if (split_run(k_lo, k_hi, kKeys, s2, S, first) == 0) continue;
+    const float c0 = sM[s2 * kRows + row[0]];
+    const float c1 = sM[s2 * kRows + row[1]];
+    const float4* src = ws_o + s2 * per_split;
+#pragma unroll 16
+    for (int j = 0; j < kO4; ++j) {
+      const float4 a = __ldcg(src + j * kThreads);
+      float4 v = none ? make_float4(0.f, 0.f, 0.f, 0.f) : acc[j * kThreads];
+      v.x += a.x * c0;
+      v.y += a.y * c0;
+      v.z += a.z * c1;
+      v.w += a.w * c1;
+      acc[j * kThreads] = v;
+    }
+    none = false;
+  }
+  if (tid == 0) *counter = 0;
+  // Group j holds dims 128 (j / 16) + 8 (j % 16) + 2 quad + {0, 1} of
+  // rows row[0] (x, y) and row[1] (z, w).
+  float inv[2];
+  __nv_bfloat16* dst[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float l = sL[row[h]];
+    inv[h] = l == 0.f ? 0.f : 1.f / l;
+    const int t = t0 + row[h] / G, g = row[h] % G;
+    dst[h] = t < t_end ? out + (((size_t)b * T_len + t) * H + kh * G + g) *
+                                   HD + 2 * quad
+                       : nullptr;
+  }
+#pragma unroll 4
+  for (int j = 0; j < kO4; ++j) {
+    const float4 v = none ? make_float4(0.f, 0.f, 0.f, 0.f)
+                          : acc[j * kThreads];
+    const int d = 128 * (j / 16) + 8 * (j % 16);
+    if (dst[0])
+      *reinterpret_cast<__nv_bfloat162*>(dst[0] + d) =
+          __floats2bfloat162_rn(v.x * inv[0], v.y * inv[0]);
+    if (dst[1])
+      *reinterpret_cast<__nv_bfloat162*>(dst[1] + d) =
+          __floats2bfloat162_rn(v.z * inv[1], v.w * inv[1]);
+  }
 }
 
 // CT: the cache's element, bf16 or (kFp8) one e4m3 byte.
@@ -151,12 +266,18 @@ paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                            const int* __restrict__ tables,
                            const int* __restrict__ kv_lens,
                            const int* __restrict__ starts,
-                           __nv_bfloat16* __restrict__ out, int T_len, int nb,
-                           int bs, int KH, int W, int layer, int window,
-                           float scale, float softcap) {
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ ws, int* __restrict__ counters,
+                           int T_len, int nb, int bs, int KH, int W,
+                           int layer, int window, float scale, float softcap,
+                           int S) {
   using Gm = Geo<HD, kFp8>;
-  constexpr int kKeys = Gm::kKeys, kStages = Gm::kStages;
+  constexpr int kStages = Gm::kStages;
+  constexpr int kAhead = Gm::kAhead, kStaging = Gm::kStaging;
   constexpr int kSlices = Gm::kSlices, kKVBlock = Gm::kKVBlock;
+  constexpr int kKVBytes = Gm::kKVBytes, kKVBytes8 = Gm::kKVBytes8;
+  constexpr int kStageBytes = Gm::kStageBytes;
+  constexpr int kStageBytes8 = Gm::kStageBytes8;
   constexpr int TQ = kRows / G;  // positions per block
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t sQ = smem_u32(align1024(smem_raw));
@@ -165,7 +286,9 @@ paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int kh = blockIdx.x;
   const int b = blockIdx.y;
-  const int tile = gridDim.z - 1 - blockIdx.z;  // longest key range first
+  const int n_qt = gridDim.z / S;
+  const int qt = n_qt - 1 - blockIdx.z / S;  // longest key range first
+  const int split = blockIdx.z % S;
   const int tid = threadIdx.x;
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
@@ -175,23 +298,28 @@ paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int kv_len = kv_lens[b];
   const int start = starts[b];
-  const int t0 = tile * TQ;
+  const int t0 = qt * TQ;
   const int t_end = min(t0 + TQ, T_len);
   const int win = window > 0 ? window : (1 << 30);
-  // Keys any row of the block sees.
+  // Keys any row of the q-tile sees, and this split's run of its tiles:
+  // n_kv tiles from tile ta.
   const int k_lo = max(start + t0 + 1 - win, 0);
   const int k_hi = min(kv_len, start + t_end);
-  const int n_kv = k_hi > k_lo ? (k_hi - k_lo + kKeys - 1) / kKeys : 0;
+  int ta;
+  const int n_kv = split_run(k_lo, k_hi, kKeys, split, S, ta);
 
   // Q: 128 rows x HD / 8 chunks of 16 bytes; row r is (t0 + r / G,
-  // head g).
-  for (int i = tid; i < kRows * (HD / 8); i += kThreads) {
-    const int r = i / (HD / 8), c = i % (HD / 8);
-    const int t = t0 + r / G, g = r % G;
-    const bool ok = t < t_end;
-    const __nv_bfloat16* src =
-        ok ? q + (((size_t)b * T_len + t) * H + kh * G + g) * HD + c * 8 : q;
-    cp_async16(sQ + (c / 8) * kQBlock + sw128(r, c % 8), src, ok);
+  // head g). An empty run needs none.
+  if (n_kv > 0) {
+    for (int i = tid; i < kRows * (HD / 8); i += kThreads) {
+      const int r = i / (HD / 8), c = i % (HD / 8);
+      const int t = t0 + r / G, g = r % G;
+      const bool ok = t < t_end;
+      const __nv_bfloat16* src =
+          ok ? q + (((size_t)b * T_len + t) * H + kh * G + g) * HD + c * 8
+             : q;
+      cp_async16(sQ + (c / 8) * kQBlock + sw128(r, c % 8), src, ok);
+    }
   }
   cp_async_commit();
 
@@ -211,7 +339,7 @@ paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   // Key tile `it` into ring slot `slot` (bf16), or into its e4m3 staging
   // slot, unswizzled: only its copier reads it.
   auto load_kv = [&](int it, int slot) {
-    const int kb = k_lo + it * kKeys;
+    const int kb = (ta + it) * kKeys;
     const uint32_t sK = kFp8 ? s8 + (it % kStaging) * kStageBytes8
                              : sKV + slot * kStageBytes;
     const uint32_t sV = sK + (kFp8 ? kKVBytes8 : kKVBytes);
@@ -219,7 +347,7 @@ paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < kKeys / kRowStep; ++j) {
       const int r = tid / kChunks + kRowStep * j;
       const int kp = kb + r;
-      const bool ok = kp < k_hi;
+      const bool ok = kp >= k_lo && kp < k_hi;
       const CT* src = cache;
       if (ok) {
         src = layer_base + (size_t)trow[min(kp / bs, W - 1)] * page_stride +
@@ -318,26 +446,30 @@ paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const uint32_t qa = sQ + wg * 64 * 128;
   for (int it = 0; it < n_kv; ++it) {
-    const int nx = it + kAhead;  // refill the slot of tile nx - kStages
-    if (nx < n_kv) {
-      const int ns = nx % kStages;
-      // bf16: slot ns is refilled now; e4m3: it is converted into two
-      // tiles from now, and this wait is what clears it for that.
-      if (nx >= kStages) mbar_wait(empty0 + 8 * ns, (nx / kStages - 1) & 1);
-      load_kv(nx, ns);
-      if constexpr (!kFp8) cp_async_mbar_arrive(full0 + 8 * ns);
-    }
     const int slot = it % kStages;
     if constexpr (kFp8) {
-      cp_async_commit();
-      cp_async_wait<kAhead>();  // this thread's pieces of tile it (and Q)
+      // This thread's pieces of tile it (and Q) have landed: into ring slot
+      // `slot` (cleared for it kAhead tiles ago, below) as bf16. That frees
+      // their staging slot for the same thread's pieces of tile it +
+      // kAhead.
+      cp_async_wait<kAhead - 1>();
       convert_kv(it, slot);
       fence_proxy_async();  // the converted tile, to wgmma's async proxy
       mbar_arrive(full0 + 8 * slot);
     }
+    const int nx = it + kAhead;  // refill the slot of tile nx - kStages
+    if (nx < n_kv) {
+      const int ns = nx % kStages;
+      // bf16: slot ns is refilled now; e4m3: tile nx is converted into it
+      // kAhead tiles from now, and this wait is what clears it for that.
+      if (nx >= kStages) mbar_wait(empty0 + 8 * ns, (nx / kStages - 1) & 1);
+      load_kv(nx, ns);
+      if constexpr (!kFp8) cp_async_mbar_arrive(full0 + 8 * ns);
+    }
+    if constexpr (kFp8) cp_async_commit();  // tile nx's group, maybe empty
     mbar_wait(full0 + 8 * slot, (it / kStages) & 1);
     fence_proxy_async();  // the landed tiles, to wgmma's async proxy
-    const int kb = k_lo + it * kKeys;
+    const int kb = (ta + it) * kKeys;
     const uint32_t sK = sKV + slot * kStageBytes;
     const uint32_t sV = sK + kKVBytes;
 
@@ -350,11 +482,7 @@ paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
           desc_sw128(qa + (ks / 4) * kQBlock + (ks % 4) * 32, 16, 1024);
       const uint64_t db =
           desc_sw128(sK + (ks / 4) * kKVBlock + (ks % 4) * 32, 16, 1024);
-      if constexpr (kKeys == 64) {
-        wgmma_m64n64k16_ss(s, da, db, ks > 0);
-      } else {
-        wgmma_m64n32k16_ss(s, da, db, ks > 0);
-      }
+      wgmma_m64n64k16_ss(s, da, db, ks > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -438,15 +566,57 @@ paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_wait<0>();
 
-  // Register i of O's slice sl holds row h = (i / 2) % 2, dim 128 * sl +
-  // 8 * (i / 4) + 2 * quad + i % 2.
+  // This thread's two rows (fragment rows of its warp) and their sums, its
+  // quad's shares added. Register i of O's slice sl holds row h = (i / 2)
+  // % 2, dim 128 * sl + 8 * (i / 4) + 2 * quad + i % 2.
+  int row[2];
+  float l_row[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
+    row[h] = 64 * wg + 16 * warp + lane / 4 + 8 * h;
     float l = l_run[h];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_row[h] = l;
+  }
+  if (S > 1) {
+    // Workspace: O [q-tiles][S][kO4][kThreads] float4, a thread's registers
+    // 4 j .. 4 j + 3 (slices in order) at [j][tid], so every store and load
+    // is a warp's 512 contiguous bytes; then (m, l) [q-tiles][S][kRows][2].
+    constexpr int kO4 = kSlices * 16;
+    const size_t pair = ((size_t)b * KH + kh) * n_qt + qt;
+    const size_t n_pairs = (size_t)gridDim.y * KH * n_qt;
+    const size_t per_split = (size_t)kO4 * kThreads;
+    float4* ws_o = reinterpret_cast<float4*>(ws) + pair * S * per_split + tid;
+    float* ws_ml = ws + n_pairs * S * kRows * HD + pair * S * kRows * 2;
+    if (n_kv > 0) {
+      float4* dst = ws_o + split * per_split;
+#pragma unroll
+      for (int sl = 0; sl < kSlices; ++sl)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          dst[(sl * 16 + j) * kThreads] =
+              make_float4(o[sl][4 * j], o[sl][4 * j + 1], o[sl][4 * j + 2],
+                          o[sl][4 * j + 3]);
+      if (quad == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          ws_ml[(split * kRows + row[h]) * 2] = m_run[h];
+          ws_ml[(split * kRows + row[h]) * 2 + 1] = l_row[h];
+        }
+      }
+    }
+    merge_splits<HD, G>(reinterpret_cast<float4*>(ws) + pair * S * per_split,
+                        ws_ml, counters + pair, smem_raw, out, b, kh, KH,
+                        T_len, t0, t_end, k_lo, k_hi, S);
+    return;
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float l = l_row[h];
     const float inv = l == 0.f ? 0.f : 1.f / l;
-    const int m = 64 * wg + 16 * warp + lane / 4 + 8 * h;
+    const int m = row[h];
     const int t = t0 + m / G, g = m % G;
     if (t >= t_end) continue;
     __nv_bfloat16* dst =
@@ -465,10 +635,10 @@ paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int HD, int G, bool kFp8>
 cudaError_t launch(const void* q, const void* cache, const int* tables,
-                   const int* kv_lens, const int* starts, void* out, int B,
-                   int T_len, int KH, int nb, int bs, int W, int layer,
-                   int window, float scale, float softcap,
-                   cudaStream_t stream) {
+                   const int* kv_lens, const int* starts, void* out,
+                   float* ws, int* counters, int B, int T_len, int KH, int nb,
+                   int bs, int W, int layer, int window, float scale,
+                   float softcap, int splits, cudaStream_t stream) {
   using CT = std::conditional_t<kFp8, uint8_t, __nv_bfloat16>;
   constexpr int smem = Geo<HD, kFp8>::kSmem;
   static bool smem_set = false;  // idempotent: a race only repeats the call
@@ -480,23 +650,26 @@ cudaError_t launch(const void* q, const void* cache, const int* tables,
     smem_set = true;
   }
   constexpr int TQ = kRows / G;
-  dim3 grid(KH, B, (T_len + TQ - 1) / TQ);
+  const long long z = (long long)((T_len + TQ - 1) / TQ) * splits;
+  if (z > 65535) return cudaErrorInvalidValue;
+  dim3 grid(KH, B, (unsigned)z);
   paged_prefill_wgmma_kernel<HD, G, kFp8><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const CT*>(cache),
-      tables, kv_lens, starts, static_cast<__nv_bfloat16*>(out), T_len, nb,
-      bs, KH, W, layer, window, scale, softcap);
+      tables, kv_lens, starts, static_cast<__nv_bfloat16*>(out), ws,
+      counters, T_len, nb, bs, KH, W, layer, window, scale, softcap, splits);
   return cudaGetLastError();
 }
 
 template <int HD, bool kFp8>
 int by_group(int G, const void* q, const void* cache, const int* tables,
-             const int* kv_lens, const int* starts, void* out, int B,
-             int T_len, int KH, int nb, int bs, int W, int layer, int window,
-             float scale, float softcap, cudaStream_t s) {
+             const int* kv_lens, const int* starts, void* out, float* ws,
+             int* counters, int B, int T_len, int KH, int nb, int bs, int W,
+             int layer, int window, float scale, float softcap, int splits,
+             cudaStream_t s) {
 #define PST_PREFILL(GG)                                                    \
   return (int)launch<HD, GG, kFp8>(q, cache, tables, kv_lens, starts, out, \
-                                   B, T_len, KH, nb, bs, W, layer, window, \
-                                   scale, softcap, s)
+                                   ws, counters, B, T_len, KH, nb, bs, W,  \
+                                   layer, window, scale, softcap, splits, s)
   switch (G) {
     case 1: PST_PREFILL(1);
     case 2: PST_PREFILL(2);
@@ -512,26 +685,28 @@ int by_group(int G, const void* q, const void* cache, const int* tables,
 }
 
 // The launch at head dim HD: cache_dtype 1 = bfloat16, 2 = float8_e4m3fn
-// (q is bf16). Returns a cudaError_t (0 = success).
+// (q is bf16). splits > 1 needs ws (q-tiles * splits * 128 * (HD + 2)
+// floats, q-tiles = B * KH * ceil(T / (128 / G))) and counters (q-tiles
+// int32, zero; left zero). Returns a cudaError_t (0 = success).
 template <int HD>
 int prefill_wgmma(int cache_dtype, const void* q, const void* cache,
                   const int* tables, const int* kv_lens, const int* starts,
-                  void* out, int B, int T_len, int H, int KH, int nb, int bs,
-                  int W, int layer, int window, float scale, float softcap,
-                  void* stream) {
+                  void* out, float* ws, int* counters, int B, int T_len,
+                  int H, int KH, int nb, int bs, int W, int layer, int window,
+                  float scale, float softcap, int splits, void* stream) {
   if (B == 0 || T_len == 0) return 0;
-  if (KH <= 0 || H % KH || B > 65535 || KH > 65535)
+  if (KH <= 0 || H % KH || B > 65535 || KH > 65535 || splits < 1 ||
+      splits > kMaxSplits ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = H / KH;
-  if (cache_dtype == 1)
-    return by_group<HD, false>(G, q, cache, tables, kv_lens, starts, out, B,
-                               T_len, KH, nb, bs, W, layer, window, scale,
-                               softcap, s);
-  if (cache_dtype == 2)
-    return by_group<HD, true>(G, q, cache, tables, kv_lens, starts, out, B,
-                              T_len, KH, nb, bs, W, layer, window, scale,
-                              softcap, s);
+#define PST_ARGS                                                          \
+  G, q, cache, tables, kv_lens, starts, out, ws, counters, B, T_len, KH,  \
+      nb, bs, W, layer, window, scale, softcap, splits, s
+  if (cache_dtype == 1) return by_group<HD, false>(PST_ARGS);
+  if (cache_dtype == 2) return by_group<HD, true>(PST_ARGS);
+#undef PST_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels: cp.async
 // with zero-fill, mbarriers, the 128-byte shared-memory swizzle, wgmma
-// operand descriptors, and the wgmma shapes the kernels use.
+// operand descriptors, the wgmma shapes the kernels use, and the fast
+// exp2 of the softmaxes.
 //
 // Layout convention (the one TMA's SWIZZLE_128B writes and wgmma's B128
 // descriptors read): a tile is a stack of rows of 128 bytes; the 16-byte
@@ -16,6 +17,13 @@ namespace pst_sm90 {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 2^x on the special-function unit (flush-to-zero): the softmaxes' exp.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a swizzled tile.
@@ -129,22 +137,6 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
       "}\n"
       : PST_D8(0), PST_D8(8), PST_D8(16), PST_D8(24)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D[64x32] (+)= A[64x16] B[16x32]; A and B from shared memory, K-major.
-__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
-                                                   uint64_t da, uint64_t db,
-                                                   int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : PST_D8(0), PST_D8(8)
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -7,7 +7,8 @@
 ``kernel_route`` picks the kernel from the types and the head geometry:
 bf16 q at head_dim 128 or 256 runs the split-KV decode of
 ``csrc/decode_splitkv.cuh`` (``decode_plan`` picks its split count) and the
-tensor-core prefill of ``csrc/prefill_wgmma.cuh``; fp32 q, or head_dim 16,
+tensor-core prefill of ``csrc/prefill_wgmma.cuh`` (``prefill_plan`` picks
+how many blocks share each q-tile's keys); fp32 q, or head_dim 16,
 32 or 64, the CUDA-core kernels of ``csrc/paged_attention.cuh``. Every
 kernel takes 1 to 8 query heads per kv head and a cache in q's type or in
 e4m3 (``kv_cache_dtype="float8_e4m3fn"``: the kernels up-convert K and V
@@ -118,6 +119,21 @@ def decode_plan(B: int, KH: int, W: int, bs: int, n_sm: int, hd: int) -> int:
     return max(1, min(fit, tiles // _SPLIT_MIN_TILES, _MAX_SPLITS))
 
 
+def _split_keys(lo: int, hi: int, tile: int, splits: int,
+                s: int) -> Tuple[int, int]:
+    """Run ``s`` of ``splits`` over the keys ``[lo, hi)``
+    (``csrc/splits.cuh::split_run``): the tiles ``[lo // tile,
+    ceil(hi / tile))`` cut at ``n * s // splits``, clipped to ``[lo, hi)``;
+    an empty run is ``(k0, k0)``."""
+    ta = lo // tile
+    n = -(-hi // tile) - ta if hi > lo else 0
+    t0 = ta + n * s // splits
+    t1 = ta + n * (s + 1) // splits
+    k0 = max(t0 * tile, lo)
+    k1 = min(t1 * tile, hi)
+    return (k0, k1) if k1 > k0 else (k0, k0)
+
+
 def decode_split_keys(kv_len: int, window: int, splits: int, s: int,
                       hd: int) -> Tuple[int, int]:
     """The keys ``[k0, k1)`` that split ``s`` of ``splits`` reads for a row
@@ -125,15 +141,53 @@ def decode_split_keys(kv_len: int, window: int, splits: int, s: int,
     tests): with tiles of ``tile = SPLIT_TILES[hd]`` keys, the row's live
     tiles ``[lo // tile, ceil(kv_len / tile))`` cut into runs at
     ``n * s // splits``, clipped to ``[lo, kv_len)``."""
-    tile = SPLIT_TILES[hd]
     lo = max(kv_len - window_eff(window), 0)
-    ta = lo // tile
-    n = max(-(-kv_len // tile) - ta, 0)
-    t0 = ta + n * s // splits
-    t1 = ta + n * (s + 1) // splits
-    k0 = max(t0 * tile, lo)
-    k1 = min(t1 * tile, kv_len)
-    return (k0, k1) if k1 > k0 else (k0, k0)
+    return _split_keys(lo, kv_len, SPLIT_TILES[hd], splits, s)
+
+
+# prefill_wgmma.cuh: query rows a block takes (128 // G positions of the G
+# heads of one kv head: a q-tile) and keys a tile holds by head_dim
+# (kKeys). One block an SM (161-225 KB of shared memory), so the plan aims
+# at one block an SM.
+PREFILL_ROWS = 128
+PREFILL_TILES = {128: 64, 256: 64}
+_PREFILL_MAX_SPLITS = 32  # kMaxSplits: the merge's weights in shared memory
+
+
+def prefill_qtiles(T: int, G: int) -> int:
+    """q-tiles of a T-row chunk at G query heads per kv head."""
+    return -(-T // (PREFILL_ROWS // G))
+
+
+def prefill_plan(B: int, KH: int, T: int, G: int, W: int, bs: int,
+                 n_sm: int, hd: int) -> int:
+    """Blocks that share each q-tile's keys in the wgmma prefill, from what
+    the host knows (never ``kv_lens`` or ``starts``): as many as keep the
+    grid, B*KH*q-tiles*S blocks, within one wave of one block an SM, at
+    most one split per two key tiles (``PREFILL_TILES[hd]`` keys each) the
+    table can hold, and at most 32. At gemma2-9b's heads (KH 8, G 2) a
+    512-token chunk has 64 q-tiles, so S = 2 on 132 SMs; Llama-3-8B's (KH
+    8, G 4) has 128, so S = 1."""
+    tiles = -(-W * bs // PREFILL_TILES[hd])
+    fit = n_sm // max(B * KH * prefill_qtiles(T, G), 1)
+    return max(1, min(fit, tiles // _SPLIT_MIN_TILES, _PREFILL_MAX_SPLITS))
+
+
+def prefill_split_keys(kv_len: int, start: int, T: int, G: int, qt: int,
+                       window: int, splits: int, s: int,
+                       hd: int) -> Tuple[int, int]:
+    """The keys ``[k0, k1)`` that split ``s`` of ``splits`` reads for
+    q-tile ``qt`` of a T-row chunk at ``start`` (the kernel's partition at
+    head dim ``hd``, for the tests): the q-tile's positions ``start + [t0,
+    t_end)`` see keys from its first row's window start to its last row's
+    causal bound, ``[max(start + t0 + 1 - window, 0), min(kv_len, start +
+    t_end))``, cut as :func:`_split_keys` cuts, in tiles of
+    ``PREFILL_TILES[hd]`` keys."""
+    tq = PREFILL_ROWS // G
+    t0, t_end = qt * tq, min(qt * tq + tq, T)
+    lo = max(start + t0 + 1 - window_eff(window), 0)
+    hi = min(kv_len, start + t_end)
+    return _split_keys(lo, hi, PREFILL_TILES[hd], splits, s)
 
 
 _SM_COUNTS: Dict[torch.device, int] = {}
@@ -148,8 +202,10 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:
-    """The split kernel's per-(sequence, kv head) tickets: zeros, left zero
-    by every launch; grown (never shrunk) to the largest B*KH so far."""
+    """The split kernels' tickets, one per (sequence, kv head) in decode
+    and per q-tile in prefill: zeros, left zero by every launch (the
+    launches that share them are ordered on one stream); grown (never
+    shrunk) to the largest count so far."""
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
@@ -398,16 +454,30 @@ def paged_attention_prefill(q, kv_pages, block_tables, kv_lens, starts,
     lib = load()
     B, T, H, hd = q.shape
     _, nb, _, bs, lanes = kv_pages.shape
+    KH, W = lanes // hd, block_tables.shape[1]
     out = torch.empty_like(q)
-    args = (DTYPE_CODES[kv_pages.dtype], q.data_ptr(), kv_pages.data_ptr(),
+    head = (DTYPE_CODES[kv_pages.dtype], q.data_ptr(), kv_pages.data_ptr(),
             block_tables.data_ptr(), kv_lens.data_ptr(), starts.data_ptr(),
-            out.data_ptr(), B, T, H, lanes // hd, hd, nb, bs,
-            block_tables.shape[1], int(layer), int(window), float(scale),
-            float(softcap), torch.cuda.current_stream(q.device).cuda_stream)
+            out.data_ptr())
+    tail = (B, T, H, KH, hd, nb, bs, W, int(layer), int(window),
+            float(scale), float(softcap))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     if route == "wgmma":
-        rc = lib.pst_paged_prefill_wgmma(*args)
+        splits = prefill_plan(B, KH, T, H // KH, W, bs, _sm_count(q.device),
+                              hd)
+        ws = counters = None
+        if splits > 1:
+            n = B * KH * prefill_qtiles(T, H // KH)
+            ws = torch.empty(n * splits * PREFILL_ROWS * (hd + 2),
+                             dtype=torch.float32, device=q.device)
+            counters = _counters(q.device, n)
+        rc = lib.pst_paged_prefill_wgmma(
+            *head, None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), *tail, splits,
+            stream)
     else:
-        rc = lib.pst_paged_prefill(DTYPE_CODES[q.dtype], *args)
+        rc = lib.pst_paged_prefill(DTYPE_CODES[q.dtype], *head, *tail,
+                                   stream)
     if rc != 0:
         raise RuntimeError(f"paged prefill kernel ({route}) failed: "
                            f"cudaError {rc}")
