@@ -8,7 +8,8 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
 1. Device and toolchain: the card's name and power limit, CUDA and nvcc
    versions; the CUDA kernels are built from ``production_stack_tpu_torch/
    ops/csrc`` (one nvcc per source, in parallel) and the build time
-   printed.
+   printed, with ptxas's spills and the registers of each wgmma prefill,
+   split-KV decode and int4 CUDA-core instantiation.
 2. Each kernel against its plain PyTorch version, with bf16 q over a bf16
    and over an e4m3 cache (``kv_cache_dtype="float8_e4m3fn"``): the
    split-KV decode and decode-write kernels at Llama-3-8B attention shapes
@@ -34,7 +35,12 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    decode missing a key (bf16 and e4m3), a prefill whose rows each miss
    one key and an int4 product with swapped nibbles (on both bf16 int4
    routes); on CUDA tensors a wrapper refuses what its kernel does not
-   take. At head_dim 256 (the Gemma family), over a bf16 and an e4m3
+   take. The int4 CUDA-core route (fp32, or bf16 with groups under 16)
+   at the tiny engine's w_gate, a split over a cluster, ragged rows and
+   columns, 512 groups of 8 and a Llama projection in fp32, each two
+   launches bit for bit. A decode over an e4m3 cache whose bytes run
+   through all 256 codes, at head_dim 128 and 256 (the NaN codes' heads
+   NaN as in the plain version). At head_dim 256 (the Gemma family), over a bf16 and an e4m3
    cache: the split-KV decode and decode-write and the wgmma prefill at
    gemma2-9b's heads (H=16, KH=8, scale 1/16, softcap 50) and gemma-7b's
    (H=KH=16), over ragged lengths 0 to 4096, one sequence of 4096, a
@@ -65,7 +71,8 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    copy whose int4 weights were dequantized to bf16 beforehand; every
    decode-row projection on the decode route, with no split-sum pass.
 4b. Serving int4 with ``PST_FUSED_KV_WRITE=1``: a third server; the int4,
-   decode-write and prefill counters must grow.
+   decode-write and prefill counters must grow; split-sum passes follow
+   only wgmma launches.
 3d. The same model int8-quantized, against the gather path on its weights
    dequantized to bf16 beforehand.
 3e. qwen2-7b at full width and 4 of its 28 layers (G = 7, QKV biases):
@@ -103,9 +110,12 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    16} (and the decode buckets up to its boundary) for the four projection
    shapes; both bf16 int4 routes at N in {1, 8, 16, 32, 64} on the four
    shapes (the route boundary's crossover); the head_dim-256 kernels at
-   gemma2-9b's heads over both caches: decode at B=8 and B=1 x 4096,
+   gemma2-9b's heads over both caches: decode at B=8, 1 and 64 x 4096 and
+   B=64 x 512,
    decode-write at B=8 x 4096, prefill at T=512 fresh, at 3584 and T=2048
-   fresh (SDPA, the yardstick, takes no softcap and runs without one).
+   fresh (SDPA, the yardstick, takes no softcap and runs without one);
+   the int4 CUDA-core route in fp32 at N=8 on the tiny engine's w_gate
+   (128 x 256) and on Llama-3-8B's (4096 x 14336, not a served shape).
 
 The line before the last is a JSON ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the
@@ -389,6 +399,24 @@ def phase_toolchain() -> str:
     log("  ptxas, paged_prefill_wgmma_kernel<HD, G, cache> registers: "
         + " ".join(sorted(prefill, key=lambda x: [int(v) if v.isdigit() else v
                                                    for v in re.split(r"[/:]", x)])))
+    # The split-KV decode's, HD/G/decode or write/cache, and the int4
+    # CUDA-core kernel's, x type/vector loads.
+    split, simt = [], []
+    for name, regs, spill in entries:
+        tail = f":{regs}" + (f"+{spill}B spill" if spill else "")
+        m = re.search(r"decode_split_kernelILi(\d+)ELi(\d)ELb(\d)ELb(\d)",
+                      name)
+        if m:
+            split.append(f"{m[1]}/{m[2]}/{'write' if m[3] == '1' else 'decode'}"
+                         f"/{'e4m3' if m[4] == '1' else 'bf16'}" + tail)
+        m = re.search(r"int4_simt_kernelI(f|13__nv_bfloat16)Lb(\d)", name)
+        if m:
+            simt.append(f"{'fp32' if m[1] == 'f' else 'bf16'}/"
+                        f"{'vec' if m[2] == '1' else 'bytes'}" + tail)
+    log("  ptxas, decode_split_kernel<HD, G, kind, cache> registers: "
+        + " ".join(sorted(split, key=lambda x: [int(v) if v.isdigit() else v
+                                                for v in re.split(r"[/:]", x)])))
+    log("  ptxas, int4_simt_kernel<x, loads> registers: " + " ".join(simt))
     return smi
 
 
@@ -664,6 +692,46 @@ def phase_simt_geometries() -> None:
               "kernels")
 
 
+def phase_e4m3_all_codes() -> None:
+    """Decode over an e4m3 cache whose K and V bytes run through all 256
+    codes (a shuffled order, over and over), at both head dims, against the
+    plain version: row 0 with q = 0 (every key weighs the same, so every V
+    code reaches the output), row 1 with a small q (every K code reaches a
+    score), both without the two NaN codes; row 2 with them, whose heads
+    must all be NaN."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(256)
+    for hd, h, kh, scale, cap in ((HD, H, KH, SCALE, 0.0),
+                                  (HD256, GEMMA2_HEADS["h"],
+                                   GEMMA2_HEADS["kh"], HD256_SCALE,
+                                   GEMMA2_HEADS["softcap"])):
+        n = 777
+        q, cache, tables, kl, _ = make_case(gen, B=3, T=1, kv_lens=[n] * 3,
+                                            h=h, kh=kh, hd=hd,
+                                            cache_dtype=E4M3)
+        q3 = (q[:, 0].float() * torch.tensor([0.0, 1e-2, 1e-2], device=DEV)
+              .view(3, 1, 1)).bfloat16()
+        flat = raw(cache)[1]  # layer 1: [nb, 2, BS, kh * hd]
+        for b in range(3):
+            pages = tables[b].long()
+            size = pages.numel() * flat[0].numel()
+            codes = torch.randperm(256, generator=gen, device=DEV).repeat(
+                -(-size // 256))[:size]
+            if b < 2:
+                codes[(codes == 0x7F) | (codes == 0xFF)] = 0
+            flat[pages] = codes.to(torch.uint8).view(-1, *flat.shape[1:])
+        got, ref = run_decode(q3, cache, tables, kl, 1, scale=scale,
+                              softcap=cap)
+        label = f"decode e4m3 hd={hd}, all 256 codes"
+        got, ref, nan_rows = same_nan(got, ref, label)
+        check(nan_rows == h, f"{label}: {nan_rows} NaN heads, expected row "
+              f"2's {h}")
+        compare(form("decode", E4M3, hd), got, ref,
+                f"{label} (q = 0 and q ~ 1e-2 N(0, 1); row 2's {nan_rows} "
+                f"heads NaN as in the plain version; "
+                f"{splits_of(q, cache, tables)} splits)")
+
+
 def write_slots(tables, positions, drop_rows, nb):
     """Flat write slot of each row's position (``nb * BS``: dropped)."""
     slots = [int(tables[i, p // BS]) * BS + p % BS
@@ -682,7 +750,7 @@ def splits_of(q, cache, tables) -> int:
     _, _, _, bs, lanes = cache.shape
     hd = q.shape[-1]
     return pac.decode_plan(q.shape[0], lanes // hd, tables.shape[1], bs,
-                           sm_count(), hd)
+                           sm_count(), hd, cache.dtype == E4M3)
 
 
 def prefill_splits_of(q, cache, tables) -> int:
@@ -1162,19 +1230,36 @@ def phase_int4_kernels() -> None:
     # fp32 (CUDA-core route) against the float64 product: 128-row groups,
     # and a group-16 tiny shape; bf16 with group 8 and a ragged dout takes
     # the CUDA-core route too.
-    for N, din, dout, dtype in ((5, 1024, 256, torch.float32),
-                                (3, 48, 16, torch.float32),
-                                (3, 24, 40, torch.bfloat16)):
-        x, packed, scales = int4_case(gen, N, din, dout, dtype)
+    # The tiny engine's w_gate (one group: 32 blocks of 8 columns), a split
+    # over a cluster of blocks, ragged rows and columns, 512 groups of 8,
+    # and a Llama projection in fp32; two launches bit for bit.
+    for N, din, dout, dtype, G in ((8, 128, 256, torch.float32, None),
+                                   (5, 1024, 256, torch.float32, None),
+                                   (3, 48, 16, torch.float32, None),
+                                   (3, 24, 40, torch.bfloat16, None),
+                                   (11, 4096, 37, torch.bfloat16, 8),
+                                   (8, 4096, 14336, torch.float32, None)):
+        if G is None:
+            x, packed, scales = int4_case(gen, N, din, dout, dtype)
+        else:
+            packed, scales = int4_weights(gen, din, dout, G)
+            x = torch.randn((N, din), generator=gen, device=DEV).to(dtype)
+        check(i4.route(x, packed, scales) == "simt", "int4: not the simt route")
         got = i4.int4_matmul(x, packed, scales)
+        again = i4.int4_matmul(x, packed, scales)
         ref = x.double() @ i4.dequant_int4(packed, scales, torch.float64)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), "int4: non-finite output")
+        check(torch.equal(got, again), "int4 simt: two launches differ")
         err = float((got.double() - ref).abs().max())
         tol = INT4_FP32_REL * float(ref.abs().max())
         G = din // scales.shape[0]
-        log(f"  int4 {str(dtype)[6:]} N={N} din={din} dout={dout} G={G} vs "
-            f"float64: max|err| {err:.3e} (tol {tol:.3e})")
+        p = i4.plan("simt", N, din, dout, G)
+        max_err["int4_simt"] = max(max_err["int4_simt"], err)
+        log(f"  int4 {str(dtype)[6:]} N={N} din={din} dout={dout} G={G} "
+            f"(simt: grid {p.grid}, {p.cols} columns a block, {p.kslices} "
+            f"runs a group) vs float64: max|err| {err:.3e} (tol {tol:.3e}); "
+            "two launches bit for bit equal")
         check(err <= tol, "int4 kernel disagrees with the float64 product")
 
     x, packed, scales = int4_case(gen, 4, 256, 128)
@@ -1730,7 +1815,8 @@ def phase_tiny_engines() -> dict:
               + pac.route_counts[pre],
               f"tiny engine ({kv}, fused {fused}): routes {pac.route_counts}")
         check((i4.route_counts["simt"] > 0) == (quant == "int4") and
-              i4.route_counts["simt"] == i4.launch_counts["int4"],
+              i4.route_counts["simt"] == i4.launch_counts["int4"] and
+              i4.route_counts["sum"] == 0,
               f"tiny engine ({quant}): int4 routes {i4.route_counts}")
         counts[dec] = pac.route_counts[dec]
         counts[pre] = pac.route_counts[pre]
@@ -2148,7 +2234,7 @@ LLAMA_GEO = dict(h=H, kh=KH, hd=HD, scale=SCALE, softcap=0.0,
                  decode=((8, 4096), (1, 4096), (64, 4096), (64, 512)))
 GEMMA2_GEO = dict(h=GEMMA2_HEADS["h"], kh=GEMMA2_HEADS["kh"], hd=HD256,
                   scale=HD256_SCALE, softcap=GEMMA2_HEADS["softcap"],
-                  decode=((8, 4096), (1, 4096)))
+                  decode=((8, 4096), (1, 4096), (64, 4096), (64, 512)))
 
 
 def phase_times(per_step: dict, launches: dict, card: str,
@@ -2393,24 +2479,45 @@ def phase_times_simt(per_step: dict, launches: dict, card: str) -> list:
                     "gathered (fp32) beforehand, causal"))
 
     # The int4 kernel's CUDA-core route at the tiny engine's w_gate (fp32
-    # x, 8 decode rows, din 128 -> dout 256, one group of 128).
-    N, din, dout = 8, 128, 256
-    x, packed, scales = int4_case(gen, N, din, dout, f32)
-    check(i4.route(x, packed, scales) == "simt", "int4 fp32: not the simt route")
-    dense = i4.dequant_int4(packed, scales, f32)
-    ms = cuda_ms(lambda: i4.int4_matmul(x, packed, scales))
-    plain_ms = cuda_ms(lambda: i4.int4_matmul_plain(x, packed, scales), iters=5)
-    lib_ms = cuda_ms(lambda: torch.matmul(x, dense))
-    compare("int4_simt", i4.int4_matmul(x, packed, scales), x @ dense,
-            f"int4 fp32 N={N} din={din} dout={dout} vs fp32 product of the "
-            "dequantized weight")
-    G = din // scales.shape[0]
-    rows.append(_row(
-        "int4_simt", ms, plain_ms, lib_ms,
-        din * dout // 2 + (din // G) * dout * 4 + N * din * 4 + N * dout * 4,
-        2 * N * din * dout, PEAK_FP32_FLOPS, per_step["int4_simt"],
-        launches["int4_simt"], card, f"N={N} din={din} dout={dout} G={G} fp32 x",
-        library="torch.matmul on the weight dequantized to fp32 beforehand"))
+    # x, 8 decode rows, din 128 -> dout 256, one group of 128), and at
+    # Llama-3-8B's w_gate in fp32 (not a served shape: it gives the kernel
+    # a bound that means something), four weights in turn (117 MB, more
+    # than the 50 MB L2).
+    simt = []
+    for N, din, dout, n_w, note in ((8, 128, 256, 1, ""),
+                                    (8, 4096, 14336, 4,
+                                     ", not a served shape")):
+        weights = [int4_case(gen, N, din, dout, f32)[1:] for _ in range(n_w)]
+        x = torch.randn((N, din), generator=gen, device=DEV)
+        packed, scales = weights[0]
+        check(i4.route(x, packed, scales) == "simt",
+              "int4 fp32: not the simt route")
+        dense = [i4.dequant_int4(p, s, f32) for p, s in weights]
+        turn = {"i": 0}
+
+        def nxt():
+            turn["i"] = (turn["i"] + 1) % n_w
+            return turn["i"]
+
+        ms = cuda_ms(lambda: i4.int4_matmul(x, *weights[nxt()]))
+        plain_ms = cuda_ms(lambda: i4.int4_matmul_plain(x, *weights[nxt()]),
+                           iters=5)
+        lib_ms = cuda_ms(lambda: torch.matmul(x, dense[nxt()]))
+        compare("int4_simt", i4.int4_matmul(x, packed, scales), x @ dense[0],
+                f"int4 fp32 N={N} din={din} dout={dout} vs fp32 product of "
+                "the dequantized weight")
+        G = din // scales.shape[0]
+        simt.append(_row(
+            "int4_simt", ms, plain_ms, lib_ms,
+            din * dout // 2 + (din // G) * dout * 4 + N * din * 4
+            + N * dout * 4,
+            2 * N * din * dout, PEAK_FP32_FLOPS, per_step["int4_simt"],
+            launches["int4_simt"], card,
+            f"N={N} din={din} dout={dout} G={G} fp32 x{note}",
+            library="torch.matmul on the weight dequantized to fp32 "
+                    "beforehand"))
+        del weights, dense
+    rows.append(with_points(simt))
     return rows
 
 
@@ -2563,6 +2670,7 @@ def main() -> None:
         phase_kernels(cache_dtype)
         phase_decode_write_kernels(cache_dtype)
         phase_hd256_kernels(cache_dtype)
+    phase_e4m3_all_codes()
     phase_simt_geometries()
     phase_int4_kernels()
     model, params = build_model()
@@ -2598,8 +2706,8 @@ def main() -> None:
         q_params, "4b", quantization="int4",
         used=("decode_write", "decode_write_split", "int4", "prefill",
               "prefill_wgmma", "int4_wgmma", "int4_decode", "int4_sum"))
-    # Split-sum passes follow only wgmma (and CUDA-core) launches.
-    check(q_served["int4_sum"] <= q_served["int4_wgmma"] + q_served["int4_simt"],
+    # Split-sum passes follow only wgmma launches.
+    check(q_served["int4_sum"] <= q_served["int4_wgmma"],
           f"int4 serving: {q_served['int4_sum']} sum passes for "
           f"{q_served['int4_wgmma']} wgmma launches")
     del q_params

@@ -30,7 +30,8 @@ Kernels, each replacing a Pallas TPU kernel of the JAX package:
 - each attention kernel over a cache in q's type or in e4m3, at 1 to 8
   query heads per kv head;
 - ``int4_matmul.cu``: ``int4_wgmma_kernel`` (bf16, prefill rows) and
-  ``int4_simt_kernel`` (fp32, small groups); ``int4_decode.cu``:
+  ``int4_simt_kernel`` (fp32, small groups; one launch, its splits one
+  thread block cluster); ``int4_decode.cu``:
   ``int4_decode_kernel`` (bf16 decode rows, the swapped product on
   mma.sync, split-K merged in the launch); all
   ``production_stack_tpu/ops/int4_matmul.py::_kernel``.
@@ -197,12 +198,18 @@ def load() -> ctypes.CDLL:
         ]
         lib.pst_decode_split.restype = _I
         lib.pst_int4_matmul.argtypes = [
-            _I, _I, _P, _P, _P,  # route, dtype, x, packed, scales
+            _P, _P, _P,  # x, packed, scales
             _P, _P, _P,  # colmap, out, ws
             _I, _I, _I, _I,  # N, din, dout, G
             _I, _I, _I, _I, _P,  # grid x, grid y, splits, per_split, stream
         ]
         lib.pst_int4_matmul.restype = _I
+        lib.pst_int4_simt.argtypes = [
+            _I, _P, _P, _P, _P,  # dtype, x, packed, scales, out
+            _I, _I, _I, _I, _I, _I,  # N, din, dout, G, cols, kslices
+            _I, _I, _I, _I, _P,  # grid x, grid y, splits, per_split, stream
+        ]
+        lib.pst_int4_simt.restype = _I
         lib.pst_int4_decode.argtypes = [
             _P, _P, _P, _P,  # x, packed, scales, out
             _I, _I, _I, _I, _I, _I,  # N, din, dout, G, n8 tiles, m16 tiles

@@ -47,8 +47,9 @@
 // the SM count, never from kv_lens, so B * KH * S blocks fill the card
 // whatever the batch: one interactive user (B = 1) gets tens of blocks per
 // kv head instead of one.
-//   - Keys go in tiles of kKeys positions (64 at HD 128, 32 at HD 256: a
-//     tile is 16 KB of bf16 K at either), aligned to multiples of kKeys.
+//   - Keys go in tiles of kKeys positions (bf16: 64 at HD 128, 32 at HD
+//     256, a tile is 16 KB of K at either; e4m3: 64 at both), aligned to
+//     multiples of kKeys.
 //     Row b's live tiles [lo / kKeys, ceil(kv_len / kKeys)) are cut into
 //     S runs of consecutive tiles (run s starts at n * s / S); keys outside
 //     [lo, kv_len) are zero-filled and masked. A run with no tile records
@@ -65,9 +66,9 @@
 //     bank once. cp.async rather than TMA: TMA cannot gather rows through
 //     a block table whose pages need not be a whole tile (any bs works
 //     here). One block barrier a tile hands the ring over; a 4-slot ring
-//     at one block an SM, or a 2-slot ring at three, was slower.
+//     at one block an SM, or a 2-slot ring at three, was slower (bf16).
 //   - Products on the tensor cores (mma.sync m16n8k16), one softmax update
-//     per 16 keys. Each warp owns 16 keys of every tile and 128 output
+//     per 16 keys. bf16: each warp owns 16 keys of every tile and 128 output
 //     dims and keeps its own flash state, so the warps never wait for each
 //     other inside a tile: at HD 128 the four warps own the tile's four
 //     16-key groups; at HD 256 two warps share each of its two 16-key
@@ -92,14 +93,56 @@
 //     the ticket and the merge weights, shared with prefill_wgmma.cuh).
 //     The counters live in a buffer the wrapper keeps per device: launches
 //     that share it must be ordered (one stream), as the engine's are.
-//   - An e4m3 cache: each 16-byte piece (16 dims of one key row) comes by
-//     cp.async into a 3-slot staging ring of e4m3 tiles (8 KB of K, 8 KB of
-//     V each); the thread that copied a piece converts it, once the piece
-//     has landed, into one bf16 tile in the swizzled layout above (a second
-//     block barrier a tile hands it over), and the products run as in bf16.
-//     Shared memory: 48 KB of staging + 32 KB of bf16 tile = 80 KB, two
-//     blocks an SM as in bf16. (e4m3 operands on the tensor cores would
-//     read half the shared memory: later work.)
+//   - An e4m3 cache (redesigned for Hopper): the ring holds the e4m3 bytes
+//     as they are, and the warps build their tensor-core fragments from
+//     them in registers, converting exactly (fp8.cuh) as they go. No bf16
+//     tile, no ldmatrix, and one block barrier a tile, as in bf16. (The
+//     first e4m3 form converted each staged tile into one bf16 tile in
+//     shared memory behind a second barrier: 80 KB of shared-memory
+//     traffic a 64-key tile at HD 128 against bf16's 32 KB, and a tile's
+//     conversion could not overlap the products of the one before; 43-45 %
+//     of the byte bound at B = 8, PERF.md, PR 6.)
+//     * Each warp owns 16 keys of a tile and all HD dims of O, so a tile is
+//       64 keys (4 warps) at either head dim: 8 KB of K at HD 128, 16 KB at
+//       256. P·V runs transposed, Oᵀ[dims][heads] += Vᵀ Pᵀ (m16n8k16: 16
+//       dims, the G <= 8 heads as n8), so O is HD / 4 registers a thread
+//       with no padding rows (32 at HD 128, 64 at 256), and P, the
+//       accumulator of S = Q Kᵀ, is already Pᵀ's B fragment.
+//     * K: Q·Kᵀ sums over dims, so which dims a k-step takes is the
+//       kernel's choice. Lane (grp, tig) takes, in k-step kk = 4 h + w, the
+//       dims 16 (tig + 4 h) + 4 w + {0..3} (b0, b1): one 16-byte load of a
+//       staged K row gives it 4 k-steps' fragments. Q's A fragments are
+//       loaded once in the same order (paged_attention_cuda.py::
+//       e4m3_k_dims mirrors the map for the CPU tests).
+//     * V: P·V sums over keys, and which key each column of S stands for
+//       is the kernel's choice too (each lane supplies one K row): column
+//       n of n8 tile j of a 16-key step is key 4 (n / 2) + 2 j + n % 2, so
+//       a lane's four P values are 4 consecutive keys 4 tig .. 4 tig + 3.
+//       Its Vᵀ A fragments need those 4 keys at dims 16 grp + {0..15} (+128
+//       per half at HD 256): four 16-byte loads (one a key row) and a byte
+//       permute (prmt) give each register its key pair at one dim.
+//     * Staging layout: 16-byte chunk c of key row r at chunk c ^ sig(r),
+//       sig(r) = 4 ((r ^ r >> 2) & 1) + 2 ((r >> 3) & 1), so both fragment
+//       loads hit every bank once a quarter-warp (e4m3_stage_offset).
+//     * Shared memory: the e4m3 ring alone, 3 slots of 16 KB at HD 128 (48
+//       KB) and of 32 KB at 256 (96 KB, 2 blocks an SM), and q's G rows:
+//       at HD 128 the registers hold 4 blocks an SM (128 a thread) only
+//       with Q's fragments read from shared memory 16 dims at a time, not
+//       kept in registers. Four blocks an SM, not three, because at B = 64
+//       the 512 blocks of a step then make one wave, not 1.3 (on an NVIDIA
+//       H100 80GB HBM3 at 700 W, three were 23 % slower there; a 6-slot
+//       ring at two blocks an SM was slower at every shape; PERF.md, PR 9).
+//     * What bounds it: bytes, half of bf16's. On an NVIDIA H100 80GB HBM3
+//       at 700 W it reaches 57 % of the byte bound at B = 8 x 4096 (hd
+//       128) and 80 % at B = 64; a build with the conversions taken out
+//       (wrong values) was only 2.5 % faster at B = 8, so the loop is not
+//       bound by them, and a conversion by integer ops and a bf16 multiply
+//       (0x7f made NaN by hand) was 19 % slower than the hardware's
+//       cvt. The other route, e4m3 operands for P·V (m16n8k32, P split
+//       into an e4m3 part and a 16x residual as the TPU kernel's _pv_dot
+//       does), skips V's conversion; a build of it spilled, was 29 % (hd
+//       128) and 88 % (hd 256) slower at B = 8 and disagreed with the
+//       plain version (PERF.md, PR 9).
 //   - Decode-write: blocks of a launch are not ordered, so no block reads
 //     the row this step writes. Every block compares each key's flat slot
 //     table[pos / bs] * bs + pos % bs with write_flat[b] and copies that
@@ -130,46 +173,60 @@ using namespace pst_sm90;
 using namespace pst_splits;
 using bf16 = __nv_bfloat16;
 
-constexpr int kSliceDims = 128;  // output dims a warp owns
+constexpr int kSliceDims = 128;  // output dims a bf16 warp owns
 constexpr int kKeysPerWarp = 16;
-constexpr int kStages = 3;    // ring slots
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileBytes = 16 * 1024;  // bf16 K (or V) of a tile
-constexpr int kStageBytes = 2 * kTileBytes;
-constexpr int kTileBytes8 = kTileBytes / 2;  // e4m3 K (or V) of a tile
-constexpr int kStageBytes8 = 2 * kTileBytes8;
-// bf16: the ring, 96 KB. e4m3: one bf16 tile, then the e4m3 ring; 80 KB.
-constexpr int smem_bytes(bool fp8) {
-  return fp8 ? kStageBytes + kStages * kStageBytes8 : kStages * kStageBytes;
-}
 constexpr int kMaxSplits = 64;
 constexpr int kPageCap = 1024;  // table entries a block keeps in shared memory
 constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kThreads == kSliceDims,
               "the merges give each thread one dim of each 128-dim slice");
-static_assert(kWarps * 8 * (kSliceDims + 2) * 4 <= smem_bytes(true),
-              "the warps' states fit the ring");
-static_assert(2 * kMaxSplits * 8 * 4 <= smem_bytes(true),
-              "the merge's weights fit the ring");
 
-// The tile geometry of head dim HD: kSlices 128-dim slices of O, a warp
-// each, so kKeyGroups warps of 16 keys cover a tile of kKeys keys.
-template <int HD>
+// The tile geometry of head dim HD and cache form kFp8. bf16: kSlices
+// 128-dim slices of O, a warp each, so kKeyGroups warps of 16 keys cover a
+// tile of kKeys keys (16 KB of K at either head dim). e4m3: every warp
+// holds all HD dims of O, so the 4 warps' 16 keys make a 64-key tile.
+template <int HD, bool kFp8>
 struct Geo {
   static_assert(HD == 128 || HD == 256, "the split kernel takes HD 128, 256");
-  static constexpr int kSlices = HD / kSliceDims;
+  static constexpr int kSlices = kFp8 ? 1 : HD / kSliceDims;
   static constexpr int kKeyGroups = kWarps / kSlices;
-  static constexpr int kKeys = kKeysPerWarp * kKeyGroups;  // 64 or 32
-  static constexpr int kRowBytes = HD * 2;                 // a bf16 row
-  static constexpr int kRowBytes8 = HD;                    // an e4m3 row
-  static_assert(kKeys * kRowBytes == kTileBytes, "a tile is 16 KB of K");
+  static constexpr int kKeys = kKeysPerWarp * kKeyGroups;   // 64, 32 or 64
+  static constexpr int kRowBytes = HD * (kFp8 ? 1 : 2);     // a cache row
+  static constexpr int kTileBytes = kKeys * kRowBytes;      // K (or V)
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kStages = 3;  // ring slots
+  static constexpr int kSmem = kStages * kStageBytes;  // 96 KB; e4m3 48/96
+  static constexpr int kORow = kFp8 ? HD : kSliceDims;  // dims a warp's O
+  // Blocks an SM the registers allow (paged_attention_cuda.py's plan
+  // assumes the same): e4m3 at HD 128 is held to 128 registers a thread.
+  static constexpr int kMinBlocks = kFp8 && HD == 128 ? 4 : 1;
+  static_assert(kWarps * 8 * (kORow + 2) * 4 <= kSmem,
+                "the warps' states fit the ring");
+  static_assert(2 * kMaxSplits * 8 * 4 <= kSmem,
+                "the merge's weights fit the ring");
 };
 
-// Byte offset of 16-byte chunk c (0..HD/8 - 1) of key row r in a tile.
+// Byte offset of 16-byte chunk c (0..HD/8 - 1) of bf16 key row r in a
+// tile.
 template <int HD>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * Geo<HD>::kRowBytes + ((c ^ (r & 7)) << 4);
+  return r * HD * 2 + ((c ^ (r & 7)) << 4);
+}
+
+// e4m3 staging: chunk c (0..HD/16 - 1) of key row r sits at chunk
+// c ^ sig(r). A quarter-warp's K loads read rows 2i, 2i + 1 of a 16-key
+// group at 4 chunks each, and its V loads rows i, i + 4, i + 8, i + 12 at
+// 2 chunks each; sig flips bit 2 between the first pair and takes 4
+// values over the second, so each reads 8 distinct chunks of the 8 a
+// 128-byte bank line holds (paged_attention_cuda.py::e4m3_stage_offset).
+__device__ __forceinline__ int sig8(int r) {
+  return (((r ^ (r >> 2)) & 1) << 2) | (((r >> 3) & 1) << 1);
+}
+template <int HD>
+__device__ __forceinline__ int swz8(int r, int c) {
+  return r * HD + ((c ^ sig8(r)) << 4);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -210,10 +267,26 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
 }
 
+// The same with all four A registers (e4m3's Oᵀ += Vᵀ Pᵀ).
+__device__ __forceinline__ void mma_bf16_a4(float (&d)[4], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint32_t b0,
+                                            uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int w) {
+  return w == 0 ? v.x : w == 1 ? v.y : w == 2 ? v.z : v.w;
+}
+
 // CT: the cache's element, bf16 or (kFp8) one e4m3 byte.
 template <int HD, int G, bool kWrite, bool kFp8,
           typename CT = std::conditional_t<kFp8, uint8_t, bf16>>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (Geo<HD, kFp8>::kMinBlocks))
 decode_split_kernel(const bf16* __restrict__ q, CT* cache,
                     const bf16* __restrict__ k_new,
                     const bf16* __restrict__ v_new,
@@ -223,12 +296,16 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
                     float* __restrict__ ws, int* __restrict__ counters,
                     int nb, int bs, int KH, int W, int layer, int window,
                     float scale, float softcap) {
-  using Gm = Geo<HD>;
+  using Gm = Geo<HD, kFp8>;
   constexpr int kKeys = Gm::kKeys;
-  constexpr int kRowBytes8 = Gm::kRowBytes8;
   extern __shared__ __align__(16) uint8_t ring[];
   __shared__ int sPages[kPageCap];
   __shared__ __align__(16) uint8_t sNew[2][HD];  // e4m3: the cast K, V rows
+  // e4m3 at HD 128: q's G rows (bf16), read 16 dims at a time; rows padded
+  // by 16 bytes so that a quarter-warp's two rows hit other banks.
+  constexpr bool kQs = kFp8 && HD == 128;
+  constexpr int kQRow = HD + 8;
+  __shared__ __align__(16) bf16 sQ[kQs ? G : 1][kQs ? kQRow : 1];
   __shared__ float sL[G];
 
   const int b = blockIdx.x;
@@ -294,23 +371,44 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
   }
 
   // Q as the A fragments of S = Q Kᵀ, whose rows are the G heads padded
-  // to 16 (rows 8..15 are always padding: a1 = a3 = 0). k-step kk holds
-  // dims 16 kk + 2 (lane % 4) + {0, 1} and + 8 of head lane / 4.
+  // to 16 (rows 8..15 are always padding: a1 = a3 = 0), loaded once into
+  // registers. bf16: k-step kk holds dims 16 kk + 2 (lane % 4) + {0, 1}
+  // and + 8 of head lane / 4. e4m3: k-step kk = 4 h + w holds dims 16
+  // (lane % 4 + 4 h) + 4 w + {0, 1} and + {2, 3}, the order in which a K
+  // row's 16-byte chunk lands in a lane's registers; at HD 128 (kQs) they
+  // are read from shared memory 16 dims at a time instead, so that four
+  // blocks an SM fit the registers without a spill.
   const int grp = lane / 4, tig = lane % 4;
-  uint32_t qa[HD / 16][2];
+  uint32_t qa[kQs ? 1 : HD / 16][2];
+  const bf16* qb = q + ((size_t)b * H + kh * G) * HD;
+  if constexpr (kQs) {
+    for (int i = tid; i < G * HD / 4; i += kThreads) {
+      const int g = i / (HD / 4), c = i % (HD / 4);
+      *reinterpret_cast<uint2*>(&sQ[g][4 * c]) =
+          *reinterpret_cast<const uint2*>(qb + g * HD + 4 * c);
+    }
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    qa[kk][0] = qa[kk][1] = 0u;
-    if (grp < G) {
-      const bf16* qr =
-          q + ((size_t)b * H + kh * G + grp) * HD + 16 * kk + 2 * tig;
-      qa[kk][0] = *reinterpret_cast<const uint32_t*>(qr);
-      qa[kk][1] = *reinterpret_cast<const uint32_t*>(qr + 8);
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      qa[kk][0] = qa[kk][1] = 0u;
+      if (grp < G) {
+        if constexpr (kFp8) {
+          const uint2 v = *reinterpret_cast<const uint2*>(
+              qb + grp * HD + 16 * (tig + 4 * (kk / 4)) + 4 * (kk % 4));
+          qa[kk][0] = v.x;
+          qa[kk][1] = v.y;
+        } else {
+          const bf16* qr = qb + grp * HD + 16 * kk + 2 * tig;
+          qa[kk][0] = *reinterpret_cast<const uint32_t*>(qr);
+          qa[kk][1] = *reinterpret_cast<const uint32_t*>(qr + 8);
+        }
+      }
     }
   }
 
   // Thread tid copies piece tid % kChunks of rows tid / kChunks + j *
-  // kThreads / kChunks of each tile: 8 bf16 rows, or 4 e4m3 rows.
+  // kThreads / kChunks of each tile: 8 bf16 rows, or 4 (HD 128) or 8 (HD
+  // 256) e4m3 rows.
   const int cc = tid % kChunks;
   constexpr int kRowsPerThread = kKeys * kChunks / kThreads;
   // The block's slice of the table row, loaded once up front: entries
@@ -325,21 +423,16 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
     const int p = min(pos / bs, W - 1) - p_lo;
     return p < kPageCap ? sPages[p] : __ldg(trow + p_lo + p);
   };
-  // bf16: the ring slots are the tiles ldmatrix reads. e4m3: the tile is
-  // one bf16 tile at the start of the ring, the e4m3 slots follow it.
-  uint8_t* const stage0 = kFp8 ? ring + kStageBytes : ring;
   auto copy_tile = [&](int it) {
-    uint8_t* const s8 = stage0 + (it % kStages) * kStageBytes8;
-    const uint32_t sK = kFp8 ? smem_u32(s8)
-                             : smem_u32(ring + (it % kStages) * kStageBytes);
-    const uint32_t sV = sK + (kFp8 ? kTileBytes8 : kTileBytes);
+    uint8_t* const slot = ring + (it % Gm::kStages) * Gm::kStageBytes;
+    const uint32_t sK = smem_u32(slot);
+    const uint32_t sV = sK + Gm::kTileBytes;
 #pragma unroll
     for (int j = 0; j < kRowsPerThread; ++j) {
       const int r = tid / kChunks + (kThreads / kChunks) * j;
       const int pos = (t0 + it) * kKeys + r;
       const bool ok = pos >= lo && pos < kv_len;
-      // e4m3 rows are staged unswizzled: only their copier reads them.
-      const int off = kFp8 ? r * kRowBytes8 + cc * 16 : swz<HD>(r, cc);
+      const int off = kFp8 ? swz8<HD>(r, cc) : swz<HD>(r, cc);
       const void* src_k = cache;  // a valid address when nothing is read
       const void* src_v = cache;
       if (ok) {
@@ -351,9 +444,9 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
         if constexpr (kWrite) {
           if (pg * bs + pos % bs == wf) {
             if constexpr (kFp8) {  // the cast row, from sNew
-              *reinterpret_cast<uint4*>(s8 + off) =
+              *reinterpret_cast<uint4*>(slot + off) =
                   *reinterpret_cast<const uint4*>(&sNew[0][cc * 16]);
-              *reinterpret_cast<uint4*>(s8 + kTileBytes8 + off) =
+              *reinterpret_cast<uint4*>(slot + Gm::kTileBytes + off) =
                   *reinterpret_cast<const uint4*>(&sNew[1][cc * 16]);
               continue;
             } else {
@@ -367,28 +460,9 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
       cp_async16(sV + off, src_v, ok);
     }
   };
-  // e4m3: this thread's pieces of tile it, landed in their slot, into the
-  // bf16 tile (piece cc of a row is bf16 chunks 2 cc and 2 cc + 1).
-  auto convert_tile = [&](int it) {
-    const uint8_t* k8 = stage0 + (it % kStages) * kStageBytes8;
-#pragma unroll
-    for (int j = 0; j < kRowsPerThread; ++j) {
-      const int r = tid / kChunks + (kThreads / kChunks) * j;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {  // K, then V
-        const uint4 v = *reinterpret_cast<const uint4*>(
-            k8 + h * kTileBytes8 + r * kRowBytes8 + cc * 16);
-        uint4 lo16, hi16;
-        e4m3x16_to_bf16(v, lo16, hi16);
-        uint8_t* t16 = ring + h * kTileBytes;
-        *reinterpret_cast<uint4*>(t16 + swz<HD>(r, 2 * cc)) = lo16;
-        *reinterpret_cast<uint4*>(t16 + swz<HD>(r, 2 * cc + 1)) = hi16;
-      }
-    }
-  };
 
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+  for (int s = 0; s < Gm::kStages - 1; ++s) {
     if (s < n_t) copy_tile(s);
     cp_async_commit();
   }
@@ -396,65 +470,102 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
   const bool capped = softcap > 0.f;
   const float c_scale = capped ? scale / softcap : scale * kLog2e;
   const float c_cap = softcap * kLog2e;
-  // This warp's flash state for head `grp`: O over its 128-dim slice
-  // (registers c0, c1 of each of the 16 dim tiles; c2, c3 belong to the
-  // padding rows), the running max and this thread's share of the row
-  // sum.
-  float o[16][4];
+  // This warp's flash state. bf16: head grp's O over the warp's 128-dim
+  // slice (registers c0, c1 of each of the 16 dim tiles; c2, c3 belong to
+  // the padding rows). e4m3: Oᵀ, HD / 16 m-tiles of 16 dims by the 8
+  // heads: tile T's registers are heads 2 tig, 2 tig + 1 (c0, c1) at dim
+  // 128 (T / 8) + 16 grp + 2 (T % 8), and (c2, c3) at the next dim. Then
+  // head grp's running max and this thread's share of its row sum.
+  constexpr int kOTiles = kFp8 ? HD / 16 : 16;
+  float o[kOTiles][4];
 #pragma unroll
-  for (int n = 0; n < 16; ++n)
+  for (int n = 0; n < kOTiles; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
   float m_run = -INFINITY, l_run = 0.f;
   const int kw = kKeysPerWarp * (warp % Gm::kKeyGroups);  // keys in a tile
   const int slice = warp / Gm::kKeyGroups;                // its dims / 128
+  // e4m3: the K row (of the warp's 16) a lane reads for S's n8 tile j,
+  // and the staging chunk order of that row and of the lane's V rows.
+  const int krow0 = 4 * (grp >> 1) + (grp & 1);
+  const int ksig0 = sig8(krow0), ksig1 = sig8(krow0 + 2);
 
   for (int it = 0; it < n_t; ++it) {
-    cp_async_wait<kStages - 2>();
+    cp_async_wait<Gm::kStages - 2>();
     // Tile it has landed for every thread, and every thread is done with
-    // tile it - 1, whose slot the next copy refills (e4m3: and with the
-    // bf16 tile, which tile it now overwrites).
+    // tile it - 1, whose slot the next copy refills.
     __syncthreads();
-    if constexpr (kFp8) convert_tile(it);
-    const int nx = it + kStages - 1;
+    const int nx = it + Gm::kStages - 1;
     if (nx < n_t) copy_tile(nx);
     cp_async_commit();
-    if constexpr (kFp8) __syncthreads();  // the bf16 tile is whole
 
     const int key0 = (t0 + it) * kKeys + kw;  // position of the warp's key 0
     if (key0 >= kv_len || key0 + kKeysPerWarp <= lo) continue;  // none live
-    const uint32_t sK =
-        smem_u32(kFp8 ? ring : ring + (it % kStages) * kStageBytes);
-    const uint32_t sV = sK + kTileBytes;
+    const uint8_t* const slot = ring + (it % Gm::kStages) * Gm::kStageBytes;
+    const uint32_t sK = smem_u32(slot);
+    const uint32_t sV = sK + Gm::kTileBytes;
 
-    // S = Q Kᵀ over the warp's 16 keys (two n-tiles of 8), K's B fragments
-    // by ldmatrix from the swizzled rows: matrix i of an x4 is chunk
-    // 4 p + i of 8 keys, i.e. k-steps 2 p and 2 p + 1.
+    // S = Q Kᵀ over the warp's 16 keys (two n-tiles of 8). bf16: K's B
+    // fragments by ldmatrix from the swizzled rows: matrix i of an x4 is
+    // chunk 4 p + i of 8 keys, i.e. k-steps 2 p and 2 p + 1. e4m3: n-tile
+    // j, column grp is key krow0 + 2 j, whose chunk tig + 4 h is the
+    // lane's (b0, b1) of k-steps 4 h .. 4 h + 3, converted exactly.
     float sc[2][4];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) sc[j][i] = 0.f;
+    if constexpr (kFp8) {
 #pragma unroll
-      for (int p = 0; p < HD / 32; ++p) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(sK + swz<HD>(kw + 8 * j + (lane & 7), 4 * p + (lane >> 3)),
-                b0, b1, b2, b3);
-        mma_bf16(sc[j], qa[2 * p][0], qa[2 * p][1], b0, b1);
-        mma_bf16(sc[j], qa[2 * p + 1][0], qa[2 * p + 1][1], b2, b3);
+      for (int h = 0; h < HD / 64; ++h) {
+        uint4 q0 = make_uint4(0u, 0u, 0u, 0u), q1 = q0;  // kQs: dims +0..15
+        if (kQs && grp < G) {
+          const bf16* qr = &sQ[grp][16 * (tig + 4 * h)];
+          q0 = *reinterpret_cast<const uint4*>(qr);
+          q1 = *reinterpret_cast<const uint4*>(qr + 8);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const uint4 v = *reinterpret_cast<const uint4*>(
+              slot + (kw + krow0 + 2 * j) * HD +
+              (((tig + 4 * h) ^ (j ? ksig1 : ksig0)) << 4));
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            uint32_t b0, b1;
+            e4m3x4_to_bf16x2x2(word(v, w), b0, b1);
+            const uint4& qw = w < 2 ? q0 : q1;
+            if constexpr (kQs)
+              mma_bf16(sc[j], word(qw, 2 * (w % 2)), word(qw, 2 * (w % 2) + 1),
+                       b0, b1);
+            else
+              mma_bf16(sc[j], qa[4 * h + w][0], qa[4 * h + w][1], b0, b1);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int p = 0; p < HD / 32; ++p) {
+          uint32_t b0, b1, b2, b3;
+          ldsm_x4(sK + swz<HD>(kw + 8 * j + (lane & 7), 4 * p + (lane >> 3)),
+                  b0, b1, b2, b3);
+          mma_bf16(sc[j], qa[2 * p][0], qa[2 * p][1], b0, b1);
+          mma_bf16(sc[j], qa[2 * p + 1][0], qa[2 * p + 1][1], b2, b3);
+        }
       }
     }
 
-    // One softmax update a tile: head grp's scores at keys
-    // key0 + 8 j + 2 tig + e are sc[j][e]; the row's 16 keys are spread
-    // over the 4 lanes of a quad.
+    // One softmax update a tile: head grp's score sc[j][e] is at key
+    // key0 + 8 j + 2 tig + e (bf16) or key0 + 4 tig + 2 j + e (e4m3); the
+    // row's 16 keys are spread over the 4 lanes of a quad.
     float x[4];
     float mx = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int pos = key0 + 8 * j + 2 * tig + e;
+        const int pos = key0 + (kFp8 ? 4 * tig + 2 * j : 8 * j + 2 * tig) + e;
         float v = capped ? tanhf(sc[j][e] * c_scale) * c_cap
                          : sc[j][e] * c_scale;
         v = pos >= lo && pos < kv_len ? v : -INFINITY;
@@ -476,24 +587,62 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
       rs += pr[i];
     }
     l_run = l_run * alpha + rs;
-#pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      o[n][0] *= alpha;
-      o[n][1] *= alpha;
-    }
-    // P, rounded to bf16, is the A fragment of O += P V (keys 0..7 in a0,
-    // 8..15 in a2); V's B fragments by ldmatrix.trans: matrix i of an x4
-    // is keys 8 (i % 2).. of chunk m + i / 2 of the warp's slice.
+    // P, rounded to bf16: keys 0..7 of the bf16 order in pa0, 8..15 in
+    // pa2 (the A fragment of O += P V); e4m3: keys 4 tig, 4 tig + 1 and
+    // 4 tig + 2, 4 tig + 3 (the B fragment of Oᵀ += Vᵀ Pᵀ).
     const uint32_t pa0 = pack_bf16x2(pr[0], pr[1]);
     const uint32_t pa2 = pack_bf16x2(pr[2], pr[3]);
+    if constexpr (kFp8) {
+      // Heads 2 tig and 2 tig + 1 (the columns of Oᵀ this lane holds) take
+      // their alphas from lanes 8 tig and 8 tig + 4.
+      const float a_lo = __shfl_sync(0xffffffffu, alpha, 8 * tig);
+      const float a_hi = __shfl_sync(0xffffffffu, alpha, 8 * tig + 4);
 #pragma unroll
-    for (int m = 0; m < 16; m += 2) {
-      uint32_t b0, b1, b2, b3;
-      ldsm_x4_trans(sV + swz<HD>(kw + 8 * ((lane >> 3) & 1) + (lane & 7),
-                                 16 * slice + m + (lane >> 4)),
-                    b0, b1, b2, b3);
-      mma_bf16(o[m], pa0, pa2, b0, b1);
-      mma_bf16(o[m + 1], pa0, pa2, b2, b3);
+      for (int n = 0; n < kOTiles; ++n) {
+        o[n][0] *= a_lo;
+        o[n][1] *= a_hi;
+        o[n][2] *= a_lo;
+        o[n][3] *= a_hi;
+      }
+      // Vᵀ's A fragments: key rows 4 tig + i (i = 0..3), chunk grp + 8 hh;
+      // word w's bytes 2 s, 2 s + 1 are the dims of m-tile 8 hh + 2 w + s
+      // (rows grp, grp + 8), each register a key pair at one dim.
+      const uint8_t* vr = slot + Gm::kTileBytes + (kw + 4 * tig) * HD;
+#pragma unroll
+      for (int hh = 0; hh < HD / 128; ++hh) {
+        uint4 vk[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          vk[i] = *reinterpret_cast<const uint4*>(
+              vr + i * HD + (((grp + 8 * hh) ^ sig8(4 * tig + i)) << 4));
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          uint32_t a01[4], a23[4];
+          e4m3_key_pairs(word(vk[0], w), word(vk[1], w), a01);
+          e4m3_key_pairs(word(vk[2], w), word(vk[3], w), a23);
+          mma_bf16_a4(o[8 * hh + 2 * w], a01[0], a01[1], a23[0], a23[1],
+                      pa0, pa2);
+          mma_bf16_a4(o[8 * hh + 2 * w + 1], a01[2], a01[3], a23[2], a23[3],
+                      pa0, pa2);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        o[n][0] *= alpha;
+        o[n][1] *= alpha;
+      }
+      // V's B fragments by ldmatrix.trans: matrix i of an x4 is keys
+      // 8 (i % 2).. of chunk m + i / 2 of the warp's slice.
+#pragma unroll
+      for (int m = 0; m < 16; m += 2) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(sV + swz<HD>(kw + 8 * ((lane >> 3) & 1) + (lane & 7),
+                                   16 * slice + m + (lane >> 4)),
+                      b0, b1, b2, b3);
+        mma_bf16(o[m], pa0, pa2, b0, b1);
+        mma_bf16(o[m + 1], pa0, pa2, b2, b3);
+      }
     }
   }
   cp_async_wait<0>();
@@ -501,14 +650,29 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
 
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
-  float* sO = reinterpret_cast<float*>(ring);  // [kWarps][G][128]
-  float* sML = sO + kWarps * G * kSliceDims;   // [kWarps][G][2]
-  if (grp < G) {
-    float* row = sO + (warp * G + grp) * kSliceDims + 2 * tig;
+  constexpr int kORow = Gm::kORow;
+  float* sO = reinterpret_cast<float*>(ring);  // [kWarps][G][kORow]
+  float* sML = sO + kWarps * G * kORow;        // [kWarps][G][2]
+  if constexpr (kFp8) {
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      row[8 * n] = o[n][0];
-      row[8 * n + 1] = o[n][1];
+    for (int n = 0; n < kOTiles; ++n) {
+      const int d = 128 * (n / 8) + 16 * grp + 2 * (n % 8);
+      if (2 * tig < G)
+        *reinterpret_cast<float2*>(sO + (warp * G + 2 * tig) * kORow + d) =
+            make_float2(o[n][0], o[n][2]);
+      if (2 * tig + 1 < G)
+        *reinterpret_cast<float2*>(sO + (warp * G + 2 * tig + 1) * kORow +
+                                   d) = make_float2(o[n][1], o[n][3]);
+    }
+  }
+  if (grp < G) {
+    if constexpr (!kFp8) {
+      float* row = sO + (warp * G + grp) * kSliceDims + 2 * tig;
+#pragma unroll
+      for (int n = 0; n < 16; ++n) {
+        row[8 * n] = o[n][0];
+        row[8 * n + 1] = o[n][1];
+      }
     }
     if (tig == 0) {
       sML[(warp * G + grp) * 2] = m_run;
@@ -517,29 +681,32 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
   }
   __syncthreads();
 
-  // The block's state: thread tid merges dim tid of each slice of every
-  // head over the slice's warps (the key groups). At HD 256 the two
-  // slices' warps of a key group hold the same (m, l), so slice 0's serve
-  // the workspace.
-  constexpr int kSlices = Gm::kSlices, kGroups = Gm::kKeyGroups;
+  // The block's state: thread tid merges dim tid of each 128-dim slice of
+  // every head over the warps that hold it (bf16: the slice's key groups;
+  // e4m3: all four). At HD 256 the two slices' warps of a bf16 key group
+  // hold the same (m, l), so slice 0's serve the workspace.
+  constexpr int kSlices = HD / kSliceDims;
+  constexpr int kGroups = kFp8 ? kWarps : Gm::kKeyGroups;
   float acc[kSlices][G], Mg[G], Lg[G];
 #pragma unroll
   for (int sl = 0; sl < kSlices; ++sl) {
+    const int w0 = kFp8 ? 0 : kGroups * sl;  // the slice's first warp
+    const int dim = kFp8 ? kSliceDims * sl + tid : tid;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float M = -INFINITY;
 #pragma unroll
       for (int kg = 0; kg < kGroups; ++kg) {
-        M = fmaxf(M, sML[((kg + kGroups * sl) * G + g) * 2]);
+        M = fmaxf(M, sML[((kg + w0) * G + g) * 2]);
       }
       float L = 0.f, A = 0.f;
 #pragma unroll
       for (int kg = 0; kg < kGroups; ++kg) {
-        const int w = kg + kGroups * sl;
+        const int w = kg + w0;
         const float c =
             M == -INFINITY ? 0.f : fast_exp2(sML[(w * G + g) * 2] - M);
         L += sML[(w * G + g) * 2 + 1] * c;
-        A += sO[(w * G + g) * kSliceDims + tid] * c;
+        A += sO[(w * G + g) * kORow + dim] * c;
       }
       acc[sl][g] = A;
       if (sl == 0) {
@@ -626,7 +793,7 @@ cudaError_t launch(const void* q, void* cache, const void* k_new,
                    int W, int layer, int window, float scale, float softcap,
                    int splits, cudaStream_t stream) {
   using CT = std::conditional_t<kFp8, uint8_t, bf16>;
-  constexpr int smem = smem_bytes(kFp8);
+  constexpr int smem = Geo<HD, kFp8>::kSmem;
   static bool smem_set = false;  // idempotent: a race only repeats the call
   if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -35,6 +35,29 @@ __device__ __forceinline__ void e4m3x16_to_bf16(const uint4 v, uint4& lo,
                   e4m3x2_to_bf16x2(v.w), e4m3x2_to_bf16x2(v.w >> 16));
 }
 
+// A fragment register's four e4m3 bytes (element 0 lowest) -> the two
+// bf16x2 registers of an mma operand: bytes 0, 1 in lo and 2, 3 in hi.
+// Exact, and NaN stays NaN (the hardware conversion keeps e4m3's NaN
+// codes 0x7f and 0xff NaN, where a bit-trick conversion would make 480).
+__device__ __forceinline__ void e4m3x4_to_bf16x2x2(uint32_t four,
+                                                   uint32_t& lo,
+                                                   uint32_t& hi) {
+  lo = e4m3x2_to_bf16x2(four);
+  hi = e4m3x2_to_bf16x2(four >> 16);
+}
+
+// Two key rows' words of 4 e4m3 dims (a: the lower key) -> four bf16x2
+// key pairs, one a dim: pairs[d] = (a's byte d, b's byte d). One byte
+// permute makes two pairs: the byte transpose of the split-KV decode's V
+// fragments.
+__device__ __forceinline__ void e4m3_key_pairs(uint32_t a, uint32_t b,
+                                               uint32_t (&pairs)[4]) {
+  const uint32_t d01 = __byte_perm(a, b, 0x5140);  // a0 b0 a1 b1
+  const uint32_t d23 = __byte_perm(a, b, 0x7362);  // a2 b2 a3 b3
+  e4m3x4_to_bf16x2x2(d01, pairs[0], pairs[1]);
+  e4m3x4_to_bf16x2x2(d23, pairs[2], pairs[3]);
+}
+
 // Two e4m3 values (the low 16 bits) -> fp32.
 __device__ __forceinline__ float2 e4m3x2_to_float2(uint32_t two) {
   return __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(

@@ -28,13 +28,14 @@
 //                        dout; unaligned operands): int4_decode.cu.
 //   int4_simt_kernel     fp32 x (exact fp32: no weight or partial sum is
 //                        rounded to bf16), and bf16 x with a group size below
-//                        16 (tiny debug models). CUDA cores.
+//                        16 (tiny debug models). CUDA cores; see its note.
 // Both bf16 routes multiply what the TPU kernel multiplies: the levels
 // times the scale, rounded to bf16 (int4_bits.cuh). Ragged N and dout are
-// masked. Here a split of the contraction (din) on group boundaries gives
-// the card enough blocks where the output tiles alone do not; the partial
+// masked. A split of the contraction (din) on group boundaries gives the
+// card enough blocks where the output tiles alone do not. wgmma's partial
 // sums go to a workspace that a second pass (splitk_sum_kernel) adds in a
-// fixed order, so the result is deterministic (no float atomics).
+// fixed order; the CUDA-core route's splits add up in the launch, in a
+// fixed order too. No float atomics: the result is deterministic.
 //
 // What bounds it on an NVIDIA H100 80GB HBM3 at its 700 W limit (data
 // sheet: 3.35 TB/s, 989 TFLOP/s bf16 dense): at prefill (N = 512, din
@@ -45,6 +46,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "int4_bits.cuh"
 #include "sm90.cuh"
 
@@ -52,78 +55,205 @@ namespace {
 
 using pst_int4::weights_bits;
 
-constexpr int kThreads = 128;  // CUDA-core route: a thread an output column
-constexpr int kCols = 128;     // output columns per block
-constexpr int kChunk = 64;     // contraction rows staged per step
-constexpr int kSimtRows = 8;   // rows of x per block
+// ---------------------------------------------------------------------------
+// CUDA-core route (fp32 x, or bf16 x with G < 16): grid (column tiles, row
+// tiles of 8, splits), 128 threads. What bounds it on an NVIDIA H100 80GB
+// HBM3 at 700 W: at the shapes it serves (the tiny debug engines, e.g. N 8,
+// din 128, dout 256) the latency of one launch; at a Llama projection in
+// fp32 (N 8, 4096 x 14336) the fp32 products (0.94 GFLOP, 14 us at 67
+// TFLOP/s) before the bytes (29.4 MB of packed weights, 8.8 us).
+//
+// Design (redesigned for Hopper; the first form gave a thread one output
+// column and walked the block's whole contraction one byte a step, so a
+// one-group projection ran 2 blocks on 2 of 132 SMs):
+//   - A thread owns 4 adjacent columns: one 32-bit load of a packed row
+//     gives their k-pair (2p, 2p + 1). The cols / 4 threads of a column
+//     tile share each row; the block's other threads ("k-lanes", 128 /
+//     (cols / 4) of them) take other parts of the contraction. The
+//     wrapper picks cols from 8 to 128 (int4_matmul.py::plan), as narrow
+//     as gives the card its blocks: the tiny engine's w_gate gets 32.
+//   - The contraction is cut into units: each group of G / 2 packed rows
+//     into `kslices` equal runs. k-lane l takes units l, l + lanes, ...;
+//     in a unit it sums x q in fp32, kSimtBatch packed rows loaded ahead
+//     of use (a fixed, unrolled count), then adds scale * sum, as the
+//     first form did: no weight or partial sum is rounded to bf16.
+//   - Nibbles become floats exactly without a conversion instruction:
+//     2^23 + (n ^ 8) - (2^23 + 8).
+//   - The k-lanes' sums meet in shared memory and add in lane order. Where
+//     the output tiles alone leave SMs idle, up to 8 blocks split a tile's
+//     groups; they are one thread block cluster and block 0 adds their
+//     sums in split order through distributed shared memory: one launch,
+//     no workspace, and two launches give the same bits.
+// ---------------------------------------------------------------------------
 
-// Signed nibbles of a packed byte b (b sign-extended from int8). The cast
-// back to int8_t matters: b << 4 is an int, and without it the low nibble
-// would not be sign-extended.
-__device__ __forceinline__ int nib_lo(int b) { return (int)(int8_t)(b << 4) >> 4; }
-__device__ __forceinline__ int nib_hi(int b) { return b >> 4; }
+constexpr int kSimtThreads = 128;
+constexpr int kSimtRows = 8;    // rows of x per block
+constexpr int kSimtBatch = 4;   // packed rows a thread loads ahead of use
+constexpr int kSimtMaxCols = 128;
+constexpr int kSimtMaxSplits = 8;  // a tile's blocks: one portable cluster
+// The k-lanes' sums: (128 / (cols / 4)) lanes x 8 rows x cols floats.
+constexpr int kSimtRed = 4 * kSimtThreads * kSimtRows;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// Signed nibble i (0..7) of w, exactly, as a float.
+__device__ __forceinline__ float nib_f(uint32_t w, int i) {
+  return __uint_as_float(((w >> (4 * i)) & 0xfu) ^ 0x4b000008u) - 8388616.f;
 }
 
-// ---------------------------------------------------------------------------
-// CUDA-core route: grid (ceil(dout/128), ceil(N/8), splits), 128 threads.
-// Thread t owns output column n0 + t for the block's 8 rows; x is staged in
-// shared memory and read as a broadcast, each packed byte is read once
-// (consecutive threads read consecutive bytes). Products and sums in fp32.
-// ---------------------------------------------------------------------------
+// x[k], x[k + 1] as floats (k even).
+__device__ __forceinline__ float2 load_x2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_x2(const __nv_bfloat16* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// kVec: dout % 4 == 0 and 4-byte aligned packed rows, so a thread's 4
+// columns are one 32-bit load; else 4 byte loads, masked at dout.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kSimtThreads)
 int4_simt_kernel(const T* __restrict__ x, const int8_t* __restrict__ packed,
                  const float* __restrict__ scales, float* __restrict__ out,
-                 int N, int din, int dout, int G, int per_split) {
-  __shared__ float sx[kSimtRows][kChunk];
-  const int n = blockIdx.x * kCols + threadIdx.x;
+                 int N, int din, int dout, int G, int cols, int kslices,
+                 int per_split) {
+  __shared__ __align__(16) float red[kSimtRed];
+  __shared__ __align__(16) float part[kSimtRows * kSimtMaxCols];
+  const int tid = threadIdx.x;
+  const int ctn = cols / 4;                // column threads
+  const int lanes = kSimtThreads / ctn;    // k-lanes
+  const int ct = tid % ctn, kl = tid / ctn;
+  const int n0 = blockIdx.x * cols + 4 * ct;  // the thread's first column
   const int r0 = blockIdx.y * kSimtRows;
-  const int groups = din / G;
+  const int rows = min(kSimtRows, N - r0);
+  const int groups = din / G, gp = G / 2, ru = gp / kslices;
   const int g_lo = blockIdx.z * per_split;
-  const int g_hi = min(g_lo + per_split, groups);
-  const int k_lo = g_lo * G, k_hi = g_hi * G;
+  const int units = (min(g_lo + per_split, groups) - g_lo) * kslices;
 
-  float acc[kSimtRows], part[kSimtRows];
+  auto load_w = [&](int p) -> uint32_t {  // packed row p, the 4 columns
+    const int8_t* src = packed + (size_t)p * dout + n0;
+    if constexpr (kVec) {
+      return n0 < dout ? __ldg(reinterpret_cast<const unsigned*>(src)) : 0u;
+    } else {
+      uint32_t w = 0u;
 #pragma unroll
-  for (int r = 0; r < kSimtRows; ++r) acc[r] = part[r] = 0.f;
-
-  for (int k0 = k_lo; k0 < k_hi; k0 += kChunk) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kSimtRows * kChunk; i += kThreads) {
-      const int r = i / kChunk, kk = i % kChunk;
-      const int row = r0 + r, k = k0 + kk;
-      sx[r][kk] = row < N && k < k_hi ? to_float(x[(size_t)row * din + k]) : 0.f;
+      for (int c = 0; c < 4; ++c)
+        if (n0 + c < dout) w |= (uint32_t)(uint8_t)__ldg(src + c) << (8 * c);
+      return w;
     }
-    __syncthreads();
-    if (n >= dout) continue;
-    const int kend = min(kChunk, k_hi - k0);  // even: G is even
-    for (int kk = 0; kk < kend; kk += 2) {
-      const int k = k0 + kk;
-      const int b = packed[(size_t)(k >> 1) * dout + n];
-      const float lo = (float)nib_lo(b), hi = (float)nib_hi(b);
+  };
+
+  float acc[kSimtRows][4];
 #pragma unroll
-      for (int r = 0; r < kSimtRows; ++r)
-        part[r] = fmaf(sx[r][kk + 1], hi, fmaf(sx[r][kk], lo, part[r]));
-      if ((k + 2) % G == 0) {  // end of a group
-        const float s = scales[(size_t)(k / G) * dout + n];
+  for (int r = 0; r < kSimtRows; ++r)
 #pragma unroll
-        for (int r = 0; r < kSimtRows; ++r) {
-          acc[r] = fmaf(s, part[r], acc[r]);
-          part[r] = 0.f;
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  for (int u = kl; u < units; u += lanes) {
+    const int g = g_lo + u / kslices;
+    const int p0 = g * gp + (u % kslices) * ru;
+    float sum[kSimtRows][4];
+#pragma unroll
+    for (int r = 0; r < kSimtRows; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sum[r][c] = 0.f;
+    for (int i0 = 0; i0 < ru; i0 += kSimtBatch) {
+      uint32_t wv[kSimtBatch];
+#pragma unroll
+      for (int i = 0; i < kSimtBatch; ++i)
+        wv[i] = i0 + i < ru ? load_w(p0 + i0 + i) : 0u;
+#pragma unroll
+      for (int i = 0; i < kSimtBatch; ++i) {
+        if (i0 + i < ru) {
+          const int k = 2 * (p0 + i0 + i);
+          float lo[4], hi[4];  // levels of k and k + 1, by column
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            lo[c] = nib_f(wv[i], 2 * c);
+            hi[c] = nib_f(wv[i], 2 * c + 1);
+          }
+#pragma unroll
+          for (int r = 0; r < kSimtRows; ++r) {
+            if (r < rows) {
+              const float2 xv = load_x2(x + (size_t)(r0 + r) * din + k);
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                sum[r][c] = fmaf(xv.y, hi[c], fmaf(xv.x, lo[c], sum[r][c]));
+            }
+          }
         }
       }
     }
+    float s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      s[c] = n0 + c < dout ? __ldg(scales + (size_t)g * dout + n0 + c) : 0.f;
+#pragma unroll
+    for (int r = 0; r < kSimtRows; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(s[c], sum[r][c], acc[r][c]);
   }
-  if (n >= dout) return;
-  float* dst = out + (size_t)blockIdx.z * N * dout;
+
+  // The k-lanes' sums, added in lane order: element e = r * cols + column.
 #pragma unroll
   for (int r = 0; r < kSimtRows; ++r)
-    if (r0 + r < N) dst[(size_t)(r0 + r) * dout + n] = acc[r];
+    *reinterpret_cast<float4*>(red + (kl * kSimtRows + r) * cols + 4 * ct) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  __syncthreads();
+  const int S = gridDim.z;
+  auto store = [&](int e, float v) {
+    const int r = e / cols, n = blockIdx.x * cols + e % cols;
+    if (r < rows && n < dout) out[(size_t)(r0 + r) * dout + n] = v;
+  };
+  for (int e = tid; e < kSimtRows * cols; e += kSimtThreads) {
+    float v = red[e];
+    for (int l = 1; l < lanes; ++l) v += red[l * kSimtRows * cols + e];
+    if (S == 1) {
+      store(e, v);
+    } else {
+      part[e] = v;
+    }
+  }
+  if (S == 1) return;
+  // The tile's S blocks are one cluster: block 0 adds their sums in split
+  // order once every block's are in its shared memory, and the others wait
+  // for it before they exit (their shared memory must outlive its reads).
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (blockIdx.z == 0) {
+    for (int e = tid; e < kSimtRows * cols; e += kSimtThreads) {
+      float v = part[e];
+      for (int z = 1; z < S; ++z) v += *cluster.map_shared_rank(part + e, z);
+      store(e, v);
+    }
+  }
+  cluster.sync();
+}
+
+template <typename T, bool kVec>
+cudaError_t launch_simt(dim3 grid, const void* x, const int8_t* pk,
+                        const float* sc, float* out, int N, int din, int dout,
+                        int G, int cols, int kslices, int per_split,
+                        cudaStream_t s) {
+  auto* k = int4_simt_kernel<T, kVec>;
+  const T* xt = static_cast<const T*>(x);
+  if (grid.z == 1) {
+    k<<<grid, kSimtThreads, 0, s>>>(xt, pk, sc, out, N, din, dout, G, cols,
+                                    kslices, per_split);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kSimtThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = grid.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, k, xt, pk, sc, out, N, din, dout, G, cols,
+                            kslices, per_split);
 }
 
 // ---------------------------------------------------------------------------
@@ -394,72 +524,48 @@ cudaError_t launch_wgmma(dim3 grid, const __nv_bfloat16* x, const int8_t* pk,
 
 }  // namespace
 
-// route: 0 = int4_simt_kernel, 2 = int4_wgmma_kernel, chosen by the
-// wrapper (int4_matmul.py::route; its decode route is pst_int4_decode in
-// int4_decode.cu); dtype: 0 = float32, 1 = bfloat16 (of x). grid_x, grid_y and the splits are the wrapper's plan
-// (int4_matmul.py::plan); colmap is fragment_columns() on the device
-// (route 2 only). ws is [splits, N, dout] fp32 (the output itself when
-// splits == 1); split z covers the groups [z * per_split, (z + 1) *
-// per_split). Returns a cudaError_t (0 = success).
-extern "C" int pst_int4_matmul(int route, int dtype, const void* x,
-                               const void* packed, const void* scales,
-                               const int* colmap, void* out, void* ws, int N,
-                               int din, int dout, int G, int grid_x,
-                               int grid_y, int splits, int per_split,
-                               void* stream) {
+// int4_wgmma_kernel (bf16 x; the wrapper's route "wgmma",
+// int4_matmul.py::route). grid_x, grid_y and the splits are the wrapper's
+// plan (int4_matmul.py::plan); colmap is fragment_columns() on the device.
+// ws is [splits, N, dout] fp32 (the output itself when splits == 1); split
+// z covers the groups [z * per_split, (z + 1) * per_split), and a second
+// pass (splitk_sum_kernel) adds the splits in order. Returns a cudaError_t
+// (0 = success).
+extern "C" int pst_int4_matmul(const void* x, const void* packed,
+                               const void* scales, const int* colmap,
+                               void* out, void* ws, int N, int din, int dout,
+                               int G, int grid_x, int grid_y, int splits,
+                               int per_split, void* stream) {
   if (N <= 0 || dout <= 0) return 0;
-  if (din <= 0 || G <= 0 || G % 2 || din % G || splits < 1 ||
+  if (din <= 0 || G <= 0 || G % 16 || din % G || splits < 1 ||
       per_split < 1 || (long long)splits * per_split < din / G ||
       grid_x < 1 || grid_y < 1 || grid_y > 65535 || splits > 65535)
     return (int)cudaErrorInvalidValue;
-  const bool tc = dtype == 1 && G % 16 == 0;  // the tensor cores take it
-  const auto covers = [&](int rows, int cols, bool by_rows) {
-    return by_rows ? (long long)grid_x * rows >= N && (long long)grid_y * cols >= dout
-                   : (long long)grid_x * cols >= dout && (long long)grid_y * rows >= N;
-  };
+  // G divides or is a multiple of the 128-row chunk, so a group's share of
+  // every chunk is whole k-steps and the same size.
+  if (!(kWgChunk % G == 0 || G % kWgChunk == 0) || dout % 16 || din % 8 ||
+      colmap == nullptr || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(packed) % 16 ||
+      reinterpret_cast<uintptr_t>(scales) % 16 ||
+      (long long)grid_x * kWgRows < N || (long long)grid_y * kWgCols < dout)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* dst = static_cast<float*>(splits > 1 ? ws : out);
   const int8_t* pk = static_cast<const int8_t*>(packed);
   const float* sc = static_cast<const float*>(scales);
   const dim3 grid(grid_x, grid_y, splits);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  if (route == 2) {
-    // G divides or is a multiple of the 128-row chunk, so a group's share
-    // of every chunk is whole k-steps and the same size.
-    if (!tc || !(kWgChunk % G == 0 || G % kWgChunk == 0) || dout % 16 ||
-        din % 8 || colmap == nullptr ||
-        reinterpret_cast<uintptr_t>(x) % 16 ||
-        reinterpret_cast<uintptr_t>(packed) % 16 ||
-        reinterpret_cast<uintptr_t>(scales) % 16 ||
-        !covers(kWgRows, kWgCols, true))
-      return (int)cudaErrorInvalidValue;
-    // A group's share of a 128-row chunk, in k-steps of 16.
-    const int steps = G < kWgChunk ? G / 16 : kWgChunk / 16;
-    cudaError_t e = cudaErrorInvalidValue;
-    switch (steps) {
-      case 1: e = launch_wgmma<1>(grid, xb, pk, sc, dst, colmap, N, din, dout, G, per_split, s); break;
-      case 2: e = launch_wgmma<2>(grid, xb, pk, sc, dst, colmap, N, din, dout, G, per_split, s); break;
-      case 4: e = launch_wgmma<4>(grid, xb, pk, sc, dst, colmap, N, din, dout, G, per_split, s); break;
-      case 8: e = launch_wgmma<8>(grid, xb, pk, sc, dst, colmap, N, din, dout, G, per_split, s); break;
-      default: break;
-    }
-    if (e != cudaSuccess) return (int)e;
-  } else if (route == 0) {
-    if (!covers(kSimtRows, kCols, false)) return (int)cudaErrorInvalidValue;
-    if (dtype == 0) {
-      int4_simt_kernel<float><<<grid, kThreads, 0, s>>>(
-          static_cast<const float*>(x), pk, sc, dst, N, din, dout, G, per_split);
-    } else if (dtype == 1) {
-      int4_simt_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x), pk, sc, dst, N, din, dout, G,
-          per_split);
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
-  } else {
-    return (int)cudaErrorInvalidValue;
+  // A group's share of a 128-row chunk, in k-steps of 16.
+  const int steps = G < kWgChunk ? G / 16 : kWgChunk / 16;
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (steps) {
+    case 1: e = launch_wgmma<1>(grid, xb, pk, sc, dst, colmap, N, din, dout, G, per_split, s); break;
+    case 2: e = launch_wgmma<2>(grid, xb, pk, sc, dst, colmap, N, din, dout, G, per_split, s); break;
+    case 4: e = launch_wgmma<4>(grid, xb, pk, sc, dst, colmap, N, din, dout, G, per_split, s); break;
+    case 8: e = launch_wgmma<8>(grid, xb, pk, sc, dst, colmap, N, din, dout, G, per_split, s); break;
+    default: break;
   }
-  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   const size_t count = (size_t)N * dout;
   const size_t want = (count + 255) / 256;
@@ -468,4 +574,45 @@ extern "C" int pst_int4_matmul(int route, int dtype, const void* x,
                                            static_cast<float*>(out), count,
                                            splits);
   return (int)cudaGetLastError();
+}
+
+// int4_simt_kernel (the wrapper's route "simt": fp32 x, or bf16 x with G <
+// 16); dtype: 0 = float32, 1 = bfloat16 (of x). cols (8 to 128, a power of
+// two: output columns a block), kslices (runs of each group, dividing G /
+// 2), the grid and the splits (at most 8, one cluster a tile) are the
+// wrapper's plan (int4_matmul.py::plan): grid_x column tiles, grid_y row
+// tiles of 8, split z covers the groups [z * per_split, (z + 1) *
+// per_split). One launch, no workspace. Returns a cudaError_t.
+extern "C" int pst_int4_simt(int dtype, const void* x, const void* packed,
+                             const void* scales, void* out, int N, int din,
+                             int dout, int G, int cols, int kslices,
+                             int grid_x, int grid_y, int splits,
+                             int per_split, void* stream) {
+  if (N <= 0 || dout <= 0) return 0;
+  const int groups = G > 0 ? din / G : 0;
+  if (din <= 0 || G <= 0 || G % 2 || din % G || cols < 4 ||
+      cols > kSimtMaxCols || (cols & (cols - 1)) || kslices < 1 ||
+      (G / 2) % kslices || per_split < 1 || splits < 1 ||
+      splits > kSimtMaxSplits || (long long)splits * per_split < groups ||
+      (long long)(splits - 1) * per_split >= groups || grid_x < 1 ||
+      grid_y < 1 || grid_y > 65535 || (long long)grid_x * cols < dout ||
+      (long long)grid_y * kSimtRows < N)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(grid_x, grid_y, splits);
+  const int8_t* pk = static_cast<const int8_t*>(packed);
+  const float* sc = static_cast<const float*>(scales);
+  float* o = static_cast<float*>(out);
+  const bool vec = dout % 4 == 0 && reinterpret_cast<uintptr_t>(packed) % 4 == 0;
+  if (dtype == 0) {
+    if (reinterpret_cast<uintptr_t>(x) % 8) return (int)cudaErrorInvalidValue;
+    return (int)(vec ? launch_simt<float, true>(grid, x, pk, sc, o, N, din, dout, G, cols, kslices, per_split, s)
+                     : launch_simt<float, false>(grid, x, pk, sc, o, N, din, dout, G, cols, kslices, per_split, s));
+  }
+  if (dtype == 1) {
+    if (reinterpret_cast<uintptr_t>(x) % 4) return (int)cudaErrorInvalidValue;
+    return (int)(vec ? launch_simt<__nv_bfloat16, true>(grid, x, pk, sc, o, N, din, dout, G, cols, kslices, per_split, s)
+                     : launch_simt<__nv_bfloat16, false>(grid, x, pk, sc, o, N, din, dout, G, cols, kslices, per_split, s));
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -18,8 +18,8 @@ Returns [N, dout] fp32.
 
 ``launch_counts["int4"]`` counts calls that launch a kernel,
 ``route_counts`` splits them by kernel, and ``route_counts["sum"]`` counts
-the second pass that adds the splits of the wgmma and CUDA-core routes
-(the decode route adds its splits in the same launch). ``route`` picks the
+the second pass that adds the splits of the wgmma route (the decode and
+CUDA-core routes add their splits in the same launch). ``route`` picks the
 kernel and ``plan`` its grid; the wgmma kernel's fragment-row -> output
 column map (``fragment_columns``) is built here and handed to it, and the
 decode kernel's (``decode_columns``) is written down here, so the CPU tests
@@ -38,16 +38,22 @@ launch_counts: Dict[str, int] = {"int4": 0}
 route_counts: Dict[str, int] = {"wgmma": 0, "decode": 0, "simt": 0, "sum": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ROUTES = {"simt": 0, "wgmma": 2}
-# Block tiles of the wgmma and CUDA-core kernels (csrc/int4_matmul.cu):
-# (rows of x, output columns) per block. The decode kernel's depend on N
-# (``decode_tile``).
-_TILES = {"wgmma": (128, 256), "simt": (8, 128)}
+# Block tile of the wgmma kernel (csrc/int4_matmul.cu): (rows of x, output
+# columns) per block. The decode kernel's depend on N (``decode_tile``),
+# the CUDA-core kernel's columns on the shape (``plan``).
+_TILES = {"wgmma": (128, 256)}
 _DECODE_MAX_ROWS = 16  # N at or below which bf16 takes int4_decode_kernel
 _WGMMA_CHUNK = 128  # contraction rows the wgmma kernel stages at a time
 _N_SM = 132  # SMs of an H100 SXM
-# Blocks the CUDA-core route aims to start: four per SM.
+# int4_simt_kernel: rows of x and threads a block; its column tiles, 8 to
+# 128 columns (4 a thread); the narrowest it takes is the widest that
+# still starts _TARGET_BLOCKS blocks (four an SM). Its contraction splits
+# across at most 8 blocks (one cluster) where the tiles leave SMs idle.
+_SIMT_ROWS = 8
+_SIMT_THREADS = 128
+_SIMT_COLS = (128, 64, 32, 16, 8)
 _TARGET_BLOCKS = 4 * _N_SM
+_SIMT_MAX_SPLITS = 8
 # int4_decode_kernel (csrc/int4_decode.cu): blocks an SM holds, by (n8
 # tiles, m16 tiles a warp) (its launch bounds); the most splits of a tile
 # (the blocks of one portable cluster).
@@ -66,6 +72,8 @@ class Plan(NamedTuple):
     grid: tuple  # (x, y, z = splits) of the launch
     splits: int
     per_split: int  # groups of the contraction per split
+    cols: int = 0  # CUDA-core route: output columns a block
+    kslices: int = 1  # CUDA-core route: runs of each group (units)
 
 
 def reset_launch_counts() -> None:
@@ -237,21 +245,69 @@ def plan(route_name: str, N: int, din: int, dout: int, G: int) -> Plan:
         per_split = math.ceil(groups / splits)
         splits = math.ceil(groups / per_split)
         return Plan((tiles_n, tiles_c, splits), splits, per_split)
+    if route_name == "simt":
+        return simt_plan(N, din, dout, G)
     rows, cols = _TILES[route_name]
     tiles_n, tiles_c = math.ceil(N / rows), math.ceil(dout / cols)
     tiles = tiles_n * tiles_c
-    if route_name == "wgmma":
-        want = _WGMMA_TARGET_BLOCKS // tiles
-    else:
-        want = math.ceil(_TARGET_BLOCKS / tiles)
-    splits = min(groups, max(1, want))
+    splits = min(groups, max(1, _WGMMA_TARGET_BLOCKS // tiles))
     per_split = math.ceil(groups / splits)
     splits = math.ceil(groups / per_split)
-    if route_name == "wgmma":  # x-tiles fastest: they share a weight tile
-        grid = (tiles_n, tiles_c, splits)
-    else:
-        grid = (tiles_c, tiles_n, splits)
-    return Plan(grid, splits, per_split)
+    # x-tiles fastest: they share a weight tile
+    return Plan((tiles_n, tiles_c, splits), splits, per_split)
+
+
+def simt_plan(N: int, din: int, dout: int, G: int) -> Plan:
+    """``int4_simt_kernel``'s launch. Column tiles as wide as still give
+    ``_TARGET_BLOCKS`` blocks (8 columns at the least); where the tiles
+    leave SMs idle, up to 8 splits of whole groups (one cluster, added in
+    the launch). Each group's G / 2 packed rows are cut into ``kslices``
+    equal runs (a divisor of G / 2), as many as give the block's k-lanes
+    (128 / (cols / 4) threads of the same columns) a run each."""
+    groups, gp = din // G, G // 2
+    tiles_n = math.ceil(N / _SIMT_ROWS)
+    cols = next(c for c in _SIMT_COLS
+                if c == _SIMT_COLS[-1]
+                or tiles_n * math.ceil(dout / c) >= _TARGET_BLOCKS)
+    tiles = tiles_n * math.ceil(dout / cols)
+    splits = max(1, min(math.ceil(_N_SM / tiles), groups, _SIMT_MAX_SPLITS))
+    per_split = math.ceil(groups / splits)
+    splits = math.ceil(groups / per_split)
+    lanes = _SIMT_THREADS // (cols // 4)
+    want = math.ceil(lanes / per_split)
+    kslices = max(d for d in range(1, min(gp, want) + 1) if gp % d == 0)
+    return Plan((math.ceil(dout / cols), tiles_n, splits), splits, per_split,
+                cols, kslices)
+
+
+def simt_partition(plan: Plan, N: int, din: int, dout: int, G: int):
+    """The CUDA-core kernel's work, for the tests: for each block (x, y, z)
+    of ``plan``'s grid and each of its threads, the output rows and
+    columns the thread sums and its units in the order it takes them, each
+    unit (group, first packed row, packed rows)."""
+    gp = G // 2
+    ru = gp // plan.kslices
+    ctn = plan.cols // 4
+    lanes = _SIMT_THREADS // ctn
+    groups = din // G
+    gx, gy, gz = plan.grid
+    for bx in range(gx):
+        for by in range(gy):
+            for bz in range(gz):
+                g_lo = bz * plan.per_split
+                units = (min(g_lo + plan.per_split, groups) - g_lo) \
+                    * plan.kslices
+                for t in range(_SIMT_THREADS):
+                    ct, kl = t % ctn, t // ctn
+                    n0 = bx * plan.cols + 4 * ct
+                    r0 = by * _SIMT_ROWS
+                    work = []
+                    for u in range(kl, units, lanes):
+                        g = g_lo + u // plan.kslices
+                        work.append((g, g * gp + (u % plan.kslices) * ru, ru))
+                    yield ((bx, by, bz), kl,
+                           range(r0, min(r0 + _SIMT_ROWS, N)),
+                           range(n0, min(n0 + 4, dout)), work)
 
 
 def decode_occupancy(nt: int, mt: int, per_split: int) -> int:
@@ -300,22 +356,27 @@ def _launch(name: str, x: torch.Tensor, packed: torch.Tensor,
             x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
             out.data_ptr(), N, din, dout, G, nt, mt, p.grid[0], p.grid[1],
             p.splits, p.per_split, stream)
+    elif name == "simt":
+        # The splits of a tile are one cluster and add up in the launch.
+        rc = lib.pst_int4_simt(
+            _DTYPES[x.dtype], x.data_ptr(), packed.data_ptr(),
+            scales.data_ptr(), out.data_ptr(), N, din, dout, G, p.cols,
+            p.kslices, p.grid[0], p.grid[1], p.splits, p.per_split, stream)
     else:
         # Partial sums of each split; a second pass adds them in a fixed
         # order, so two runs give the same result.
         ws = (torch.empty((p.splits, N, dout), dtype=torch.float32,
                           device=x.device) if p.splits > 1 else out)
-        colmap = _colmap(x.device) if name == "wgmma" else None
         rc = lib.pst_int4_matmul(
-            _ROUTES[name], _DTYPES[x.dtype], x.data_ptr(), packed.data_ptr(),
-            scales.data_ptr(), None if colmap is None else colmap.data_ptr(),
-            out.data_ptr(), ws.data_ptr(), N, din, dout, G, p.grid[0],
-            p.grid[1], p.splits, p.per_split, stream)
+            x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+            _colmap(x.device).data_ptr(), out.data_ptr(), ws.data_ptr(), N,
+            din, dout, G, p.grid[0], p.grid[1], p.splits, p.per_split,
+            stream)
     if rc != 0:
         raise RuntimeError(f"int4 matmul kernel ({name}) failed: "
                            f"cudaError {rc}")
     launch_counts["int4"] += 1
     route_counts[name] += 1
-    if name != "decode" and p.splits > 1:
+    if name == "wgmma" and p.splits > 1:
         route_counts["sum"] += 1
     return out

@@ -95,27 +95,38 @@ def _count(kind: str, route: str, cache_dtype: torch.dtype, hd: int) -> None:
                  f"{'_hd256' if hd == 256 else ''}"] += 1
 
 
-# decode_splitkv.cuh: keys a tile holds by head_dim (a tile is 32 KB of
-# bf16 K and V at either), and the blocks an SM holds (96 KB of ring in
-# bf16, 80 KB over e4m3, and 170-216 registers a thread each). On an
-# NVIDIA H100 80GB HBM3, at Llama-3-8B's heads and B in {1, 8, 16, 32, 64},
-# the kernel was fastest with the grid one wave of them (B*KH*S = 2 * 132)
-# and no split under two tiles: a shorter one pays its merge for too few
-# keys.
+# decode_splitkv.cuh: keys a tile holds by head_dim (bf16: a tile is 32 KB
+# of K and V at either; e4m3: 64 keys, 16 or 32 KB), and the blocks an SM
+# holds (bf16: 96 KB of ring and 170-216 registers a thread; e4m3 at head
+# dim 128: a 48 KB ring and at most 128 registers, so four; at 256, 96 KB).
+# On an NVIDIA H100 80GB HBM3, at Llama-3-8B's heads and B in {1, 8, 16,
+# 32, 64}, the bf16 kernel was fastest with the grid one wave of them
+# (B*KH*S = 2 * 132) and no split under two tiles: a shorter one pays its
+# merge for too few keys.
 SPLIT_TILES = {128: 64, 256: 32}
+SPLIT_TILES_E4M3 = {128: 64, 256: 64}
 _SPLIT_BLOCKS_PER_SM = 2
+_SPLIT_BLOCKS_PER_SM_E4M3 = {128: 4, 256: 2}
 _SPLIT_MIN_TILES = 2
 _MAX_SPLITS = 64  # kMaxSplits
 
 
-def decode_plan(B: int, KH: int, W: int, bs: int, n_sm: int, hd: int) -> int:
+def split_tile(hd: int, e4m3: bool = False) -> int:
+    """Keys a tile of the split-KV kernel holds over this cache form."""
+    return (SPLIT_TILES_E4M3 if e4m3 else SPLIT_TILES)[hd]
+
+
+def decode_plan(B: int, KH: int, W: int, bs: int, n_sm: int, hd: int,
+                e4m3: bool = False) -> int:
     """Splits of each (sequence, kv head)'s keys for the split-KV kernel,
     from what the host knows (never ``kv_lens``): as many as keep B*KH*S
-    within one wave of two blocks an SM, at most one split per two key
-    tiles (``SPLIT_TILES[hd]`` keys each) the table can hold, and at most
-    64."""
-    tiles = -(-W * bs // SPLIT_TILES[hd])
-    fit = _SPLIT_BLOCKS_PER_SM * n_sm // max(B * KH, 1)
+    within one wave of the blocks an SM holds (two, or over an e4m3 cache
+    ``_SPLIT_BLOCKS_PER_SM_E4M3[hd]``), at most one split per two key
+    tiles (``split_tile(hd, e4m3)`` keys each) the table can hold, and at
+    most 64."""
+    tiles = -(-W * bs // split_tile(hd, e4m3))
+    per_sm = _SPLIT_BLOCKS_PER_SM_E4M3[hd] if e4m3 else _SPLIT_BLOCKS_PER_SM
+    fit = per_sm * n_sm // max(B * KH, 1)
     return max(1, min(fit, tiles // _SPLIT_MIN_TILES, _MAX_SPLITS))
 
 
@@ -135,14 +146,52 @@ def _split_keys(lo: int, hi: int, tile: int, splits: int,
 
 
 def decode_split_keys(kv_len: int, window: int, splits: int, s: int,
-                      hd: int) -> Tuple[int, int]:
+                      hd: int, e4m3: bool = False) -> Tuple[int, int]:
     """The keys ``[k0, k1)`` that split ``s`` of ``splits`` reads for a row
-    of ``kv_len`` (the kernel's partition at head dim ``hd``, for the
-    tests): with tiles of ``tile = SPLIT_TILES[hd]`` keys, the row's live
-    tiles ``[lo // tile, ceil(kv_len / tile))`` cut into runs at
-    ``n * s // splits``, clipped to ``[lo, kv_len)``."""
+    of ``kv_len`` (the kernel's partition at head dim ``hd`` over this
+    cache form, for the tests): with tiles of ``tile = split_tile(hd,
+    e4m3)`` keys, the row's live tiles ``[lo // tile, ceil(kv_len /
+    tile))`` cut into runs at ``n * s // splits``, clipped to ``[lo,
+    kv_len)``."""
     lo = max(kv_len - window_eff(window), 0)
-    return _split_keys(lo, kv_len, SPLIT_TILES[hd], splits, s)
+    return _split_keys(lo, kv_len, split_tile(hd, e4m3), splits, s)
+
+
+# The e4m3 form's fragment maps (csrc/decode_splitkv.cuh), for the tests.
+# A warp owns 16 keys of a tile; lane = 4 grp + tig.
+
+def e4m3_stage_offset(r: int, c: int, hd: int) -> int:
+    """Byte offset of 16-byte chunk ``c`` of staged e4m3 key row ``r`` in
+    a tile (``swz8``): chunk c ^ sig(r), sig(r) = 4 ((r ^ r >> 2) & 1) +
+    2 ((r >> 3) & 1)."""
+    sig = (((r ^ (r >> 2)) & 1) << 2) | (((r >> 3) & 1) << 1)
+    return r * hd + ((c ^ sig) << 4)
+
+
+def e4m3_k_dims(tig: int, kk: int) -> Tuple[int, int, int, int]:
+    """The dims of k-step ``kk`` of S = Q Kᵀ that lane ``tig`` (mod 4)
+    holds at its k positions 2 tig, 2 tig + 1 (register b0 of K, a0 of Q)
+    and 2 tig + 8, 2 tig + 9 (b1, a2): bytes 4 (kk % 4) .. + 3 of chunk
+    tig + 4 (kk // 4) of a K row."""
+    d = 16 * (tig + 4 * (kk // 4)) + 4 * (kk % 4)
+    return d, d + 1, d + 2, d + 3
+
+
+def e4m3_s_key(n: int, j: int) -> int:
+    """The key (of the warp's 16) that column ``n`` of S's n8 tile ``j``
+    stands for: the K row lane 4 n + tig reads for tile j. A lane's scores
+    (columns 2 tig, 2 tig + 1 of both tiles) are keys 4 tig .. 4 tig + 3,
+    which are the k positions 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9 of
+    Oᵀ += Vᵀ Pᵀ."""
+    return 4 * (n // 2) + 2 * j + n % 2
+
+
+def e4m3_o_dims(grp: int, t: int) -> Tuple[int, int]:
+    """The dims of rows ``grp`` and ``grp + 8`` of Oᵀ's m-tile ``t``: bytes
+    2 (t % 2), + 1 of word (t % 8) // 2 of chunk grp + 8 (t // 8) of a V
+    row. Its columns are the heads."""
+    d = 128 * (t // 8) + 16 * grp + 2 * (t % 8)
+    return d, d + 1
 
 
 # prefill_wgmma.cuh: query rows a block takes (128 // G positions of the G
@@ -225,7 +274,8 @@ def _launch_split(q3, kv_pages, block_tables, kv_lens, layer, write, scale,
     _, nb, _, bs, lanes = kv_pages.shape
     KH = lanes // hd
     W = block_tables.shape[1]
-    splits = decode_plan(B, KH, W, bs, _sm_count(q3.device), hd)
+    splits = decode_plan(B, KH, W, bs, _sm_count(q3.device), hd,
+                         kv_pages.dtype == E4M3)
     out = torch.empty_like(q3)
     ws = counters = None
     if splits > 1:

@@ -72,21 +72,26 @@ def test_int4_route_and_plan():
     assert i4.plan("wgmma", 512, 4096, 1024, 128) == i4.Plan((4, 4, 8), 8, 4)
     # The decode route: row tiles first, 128-column tiles, 4 splits of 8
     # groups (tests/test_torch_int4_decode.py holds its plan at every
-    # Llama-3-8B shape); the CUDA-core route keeps its grid and split.
+    # Llama-3-8B shape); the CUDA-core route takes 8-column tiles, 4
+    # splits of 2 groups (one cluster a tile), each group in 32 runs
+    # (tests/test_torch_int4_simt.py holds its partition).
     assert i4.plan("decode", 8, 4096, 14336, 128) == i4.Plan((1, 112, 4), 4, 8)
-    assert i4.plan("simt", 5, 1024, 256, 128) == i4.Plan((2, 1, 8), 8, 1)
+    assert i4.plan("simt", 5, 1024, 256, 128) == i4.Plan((32, 1, 4), 4, 2,
+                                                         8, 32)
 
     for route in ("wgmma", "decode", "simt"):
         for N in (17, 64, 300, 512, 2048):
             for din, dout in ((4096, 4096), (4096, 1024), (4096, 14336),
                               (14336, 4096), (256, 208)):
                 groups = din // 128
+                p = i4.plan(route, N, din, dout, 128)
                 if route == "decode":
                     nt, mt = i4.decode_tile(N, din, dout, 128)
                     rows, cols = 8 * nt, 16 * mt
+                elif route == "simt":
+                    rows, cols = i4._SIMT_ROWS, p.cols
                 else:
                     rows, cols = i4._TILES[route]
-                p = i4.plan(route, N, din, dout, 128)
                 gx, gy, gz = p.grid
                 tiles_n, tiles_c = (gy, gx) if route == "simt" else (gx, gy)
                 assert tiles_n * rows >= N > (tiles_n - 1) * rows
