@@ -48,7 +48,13 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    decode-write's caches bit for bit (a write 5 positions before a row's
    end, a dropped write) and two launches bit for bit, prefill at a ragged
    T, T=2048 fresh and T=512 at 3584, with the two negative controls; the
-   CUDA-core kernels at head_dim 256 in fp32 at 1e-4.
+   CUDA-core kernels at head_dim 256 in fp32 at 1e-4. The bf16 head_dim-256
+   decode and decode-write at G 1, 2 and 8, each at its planned split count
+   and at one more forced, with a window of 1000, the softcap of 50, ragged
+   lengths, a kv_len 0 row and a NaN key (two launches bit for bit). The
+   CUDA-core decode and decode-write at every head dim and q type they
+   serve, over q's type and e4m3, at the planned split count, at 1 and at
+   3 (two launches bit for bit).
 3. The full-width 32-layer Llama-3-8B (random bf16 weights from a seed):
    one 512-token prefill and 8 decode steps through the kernels and again
    through the gather path; the logits must agree, and every decode
@@ -100,20 +106,22 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    the gather path.
 5. Times of each kernel at the slice's shapes beside its plain version, a
    PyTorch call as a yardstick where one computes the same function, and
-   its bound: decode at B=8, 1 and 64 at kv_len 4096 and at B=64 x 512
-   (with the split count of each), decode-write at B=8 x 4096; prefill at
+   its bound: decode and decode-write at B=8, 1 and 64 at kv_len 4096 and
+   at B=64 x 512 (with the split count of each); prefill at
    T=512 fresh, T=512 at start 3584 and T=2048 fresh, each over a bf16 and
    an e4m3 cache (bound at the cache's bytes; the e4m3 yardstick is SDPA
    on K/V up-cast to bf16 beforehand); the CUDA-core kernels at
-   tiny-llama-debug's heads; the int4 wgmma route at N=512 for the four
+   tiny-llama-debug's heads and (decode, decode-write) at fp32 Llama-3-8B
+   heads, B=8 x 4096, beside an empty kernel queued the same way; the int4
+   wgmma route at N=512 for the four
    projection shapes and at N=2048; the int4 decode route at N in {1, 8,
    16} (and the decode buckets up to its boundary) for the four projection
    shapes; both bf16 int4 routes at N in {1, 8, 16, 32, 64} on the four
    shapes (the route boundary's crossover); the head_dim-256 kernels at
-   gemma2-9b's heads over both caches: decode at B=8, 1 and 64 x 4096 and
-   B=64 x 512,
-   decode-write at B=8 x 4096, prefill at T=512 fresh, at 3584 and T=2048
-   fresh (SDPA, the yardstick, takes no softcap and runs without one);
+   gemma2-9b's heads over both caches: decode and decode-write at B=8, 1
+   and 64 x 4096 and B=64 x 512, prefill at T=512 fresh, at 3584 and
+   T=2048 fresh (SDPA, the yardstick, takes no softcap and runs without
+   one);
    the int4 CUDA-core route in fp32 at N=8 on the tiny engine's w_gate
    (128 x 256) and on Llama-3-8B's (4096 x 14336, not a served shape).
 
@@ -130,6 +138,7 @@ kernels, the gather path and the kernels' plain versions (``drift``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -417,6 +426,27 @@ def phase_toolchain() -> str:
         + " ".join(sorted(split, key=lambda x: [int(v) if v.isdigit() else v
                                                 for v in re.split(r"[/:]", x)])))
     log("  ptxas, int4_simt_kernel<x, loads> registers: " + " ".join(simt))
+    # The CUDA-core decode's, q/cache/GM/HD/decode or write, demangled.
+    cuda_core = [(n, r, sp) for n, r, sp in entries
+                 if "paged_decode_kernel" in n]
+    if cuda_core and os.path.exists(filt):
+        names = subprocess.run([filt, *(n for n, _, _ in cuda_core)],
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        short = {"float": "fp32", "__nv_bfloat16": "bf16",
+                 "__nv_fp8_e4m3": "e4m3"}
+        regs = []
+        for name, (_, r, sp) in zip(names, cuda_core):
+            m = re.search(r"paged_decode_kernel<([\w:]+), ([\w:]+), "
+                          r"(?:\(int\))?(\d+), (?:\(int\))?(\d+), "
+                          r"(?:\(bool\))?(\w+)>", name)
+            if m:
+                regs.append(f"{short.get(m[1], m[1])}/{short.get(m[2], m[2])}"
+                            f"/{m[3]}/{m[4]}/"
+                            f"{'write' if m[5] in ('true', '1') else 'decode'}"
+                            f":{r}" + (f"+{sp}B spill" if sp else ""))
+        log("  ptxas, paged_decode_kernel<q, cache, GM, HD, kind> registers: "
+            + " ".join(sorted(regs)))
     return smi
 
 
@@ -741,6 +771,18 @@ def write_slots(tables, positions, drop_rows, nb):
     return torch.tensor(slots, dtype=torch.int32, device=DEV)
 
 
+@contextlib.contextmanager
+def forced_splits(n: int):
+    """The decode wrappers' plans (split-KV and CUDA-core) replaced by a
+    fixed split count ``n`` inside the block."""
+    saved = pac.decode_plan, pac.simt_decode_plan
+    pac.decode_plan = pac.simt_decode_plan = lambda *a, **k: n
+    try:
+        yield
+    finally:
+        pac.decode_plan, pac.simt_decode_plan = saved
+
+
 def sm_count() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -749,8 +791,13 @@ def splits_of(q, cache, tables) -> int:
     """The split count the decode wrapper's plan gives these inputs."""
     _, _, _, bs, lanes = cache.shape
     hd = q.shape[-1]
-    return pac.decode_plan(q.shape[0], lanes // hd, tables.shape[1], bs,
-                           sm_count(), hd, cache.dtype == E4M3)
+    kh = lanes // hd
+    if pac.kernel_route("decode", q.dtype, cache.dtype, q.shape[-2], kh,
+                        hd) == "simt":
+        return pac.simt_decode_plan(q.shape[0], kh, tables.shape[1], bs,
+                                    sm_count(), hd, cache.dtype.itemsize)
+    return pac.decode_plan(q.shape[0], kh, tables.shape[1], bs, sm_count(),
+                           hd, cache.dtype == E4M3)
 
 
 def prefill_splits_of(q, cache, tables) -> int:
@@ -783,9 +830,11 @@ def run_decode_write(q3, cache, tables, lens, layer, k_new, v_new, wf,
     ref = pac.paged_attention_decode_write_plain(
         q3, ref_cache, tables, lens, layer, k_new, v_new, wf, scale=scale, **kw)
     torch.cuda.synchronize()
-    check(torch.equal(raw(got_cache), raw(ref_cache)),
+    # Bit patterns: a cache may hold a NaN key.
+    bits = functools.partial(torch.Tensor.view, dtype=torch.uint8)
+    check(torch.equal(bits(got_cache), bits(ref_cache)),
           "decode_write: the kernel's cache differs from its plain version's")
-    check(not torch.equal(raw(got_cache), raw(cache)),
+    check(not torch.equal(bits(got_cache), bits(cache)),
           "decode_write: nothing written")
     return got, ref
 
@@ -1118,6 +1167,140 @@ def phase_hd256_kernels(cache_dtype=torch.bfloat16) -> None:
     check(pac.route_counts["decode_simt_hd256"] > 0
           and pac.route_counts["prefill_simt_e4m3_hd256"] > 0,
           f"fp32 hd256 routes {pac.route_counts}")
+
+
+def phase_hd256_splits() -> None:
+    """The bf16 head_dim-256 split-KV decode and decode-write (a warp owns
+    8 keys of a tile and all 256 dims of Oᵀ) at G 1 (gemma-7b's heads), 2
+    (gemma2-9b's) and 8, each at the split count its plan picks and at one
+    more forced: ragged kv_lens with a kv_len 0 row, a window of 1000, the
+    softcap of 50 and a NaN key (the heads of its kv head NaN in that row,
+    as in the plain version); two launches bit for bit, and the
+    decode-write's cache bit for bit against the plain write."""
+    pac.reset_launch_counts()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2561)
+    lens = [0, 1, 33, 777, 4000, 4096, 2500, 64]
+    sc, cap, window = HD256_SCALE, GEMMA2_HEADS["softcap"], 1000
+    for name, h, kh in (("gemma-7b", 16, 16), (GEMMA, 16, 8), ("G 8", 64, 8)):
+        G = h // kh
+        q, cache, tables, kl, _ = make_case(gen, B=8, T=1, kv_lens=lens, h=h,
+                                            kh=kh, hd=HD256)
+        # A NaN K value at position 3700 of row 4 (kv_len 4000, inside its
+        # window), kv head kh - 1.
+        raw(cache)[1, int(tables[4, 3700 // BS]), 0, 3700 % BS,
+                   (kh - 1) * HD256 + 7] = raw(torch.tensor(
+                       [float("nan")], device=DEV).bfloat16())[0]
+        pos = [max(n - 1, 0) for n in lens]
+        pos[5] -= 5
+        wf = write_slots(tables, pos, [0], cache.shape[1])
+        k_new = torch.randn((8, kh * HD256), generator=gen,
+                            device=DEV).bfloat16()
+        v_new = torch.randn((8, kh * HD256), generator=gen,
+                            device=DEV).bfloat16()
+        kw = dict(scale=sc, window=window, softcap=cap)
+        planned = splits_of(q, cache, tables)
+        for forced in (None, planned + 3):
+            with (forced_splits(forced) if forced
+                  else contextlib.nullcontext()):
+                splits = splits_of(q, cache, tables)
+                label = (f"bf16 hd256 {name}'s heads (G {G}) B=8 "
+                         f"kv_lens={lens} window={window} softcap=50, "
+                         f"{splits} splits" + (" (forced)" if forced else ""))
+                got, ref = run_decode(q[:, 0], cache, tables, kl, 1, **kw)
+                again = pac.paged_attention_decode(q[:, 0], cache, tables, kl,
+                                                   1, **kw)
+                check(torch.equal(got.view(torch.int16),
+                                  again.view(torch.int16)),
+                      f"decode {label}: two launches differ")
+                check(bool((got[0] == 0).all()),
+                      "decode: kv_len 0 row must be zeros")
+                got, ref, nan_rows = same_nan(got, ref, f"decode {label}")
+                check(nan_rows == G, f"decode {label}: {nan_rows} NaN heads, "
+                      f"expected {G}")
+                compare("decode_hd256", got, ref, f"decode {label}, a NaN key "
+                        f"-> {nan_rows} NaN heads as in the plain version")
+                got, ref = run_decode_write(q[:, 0], cache, tables, kl, 1,
+                                            k_new, v_new, wf, **kw)
+                again = pac.paged_attention_decode_write(
+                    q[:, 0], cache.clone(), tables, kl, 1, k_new, v_new, wf,
+                    **kw)
+                check(torch.equal(got.view(torch.int16),
+                                  again.view(torch.int16)),
+                      f"decode_write {label}: two launches differ")
+                got, ref, nan_rows = same_nan(got, ref,
+                                              f"decode_write {label}")
+                check(nan_rows == G, f"decode_write {label}: {nan_rows} NaN "
+                      f"heads, expected {G}")
+                compare("decode_write_hd256", got, ref,
+                        f"decode_write {label} (row 0 dropped, row 5 five "
+                        "before its end): caches equal;")
+    want = pac.route_counts["decode_split_hd256"] + pac.route_counts[
+        "decode_write_split_hd256"]
+    check(want > 0 and want == sum(pac.route_counts.values()),
+          f"bf16 hd256 split checks took other kernels: {pac.route_counts}")
+
+
+# The CUDA-core decode's head dims and q types: fp32 q at every head dim,
+# bf16 q up to 64 (bf16 q at 128 and 256 takes the split-KV kernel).
+SIMT_GEOMETRIES = ((torch.float32, 8, 8, 16), (torch.bfloat16, 8, 2, 16),
+                   (torch.float32, 28, 4, 32), (torch.bfloat16, 28, 4, 32),
+                   (torch.float32, 24, 8, 64), (torch.bfloat16, 24, 8, 64),
+                   (torch.float32, H, KH, HD),
+                   (torch.float32, 16, 8, HD256))
+
+
+def phase_simt_splits() -> None:
+    """The CUDA-core decode and decode-write over splits of each row's keys
+    (S > 1, merged in the launch) at every head dim and q type they serve,
+    over a cache in q's type and in e4m3: at the split count the plan picks
+    and at 1 and 3 forced; a kv_len 0 row, ragged lengths,
+    a window of 300 and a softcap; two launches bit for bit; the
+    decode-write's cache bit for bit against the plain write, with a write
+    5 before a row's end and a dropped write."""
+    pac.reset_launch_counts()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(1357)
+    lens = [0, 50, 1000, 777]
+    for dt, h, kh, hd in SIMT_GEOMETRIES:
+        for cdt in (dt, E4M3):
+            tag = (f"{str(dt)[6:]} q, {str(cdt)[6:]} cache, H={h} KH={kh} "
+                   f"hd={hd}")
+            q, cache, tables, kl, _ = make_case(
+                gen, B=4, T=1, kv_lens=lens, dtype=dt, h=h, kh=kh, hd=hd,
+                cache_dtype=cdt)
+            pos = [max(n - 1, 0) for n in lens]
+            pos[2] -= 5
+            wf = write_slots(tables, pos, [0], cache.shape[1])
+            k_new = torch.randn((4, kh * hd), generator=gen, device=DEV).to(dt)
+            v_new = torch.randn((4, kh * hd), generator=gen, device=DEV).to(dt)
+            kw = dict(window=300, softcap=30.0)
+            for forced in (None, 1, 3):
+                with (forced_splits(forced) if forced
+                      else contextlib.nullcontext()):
+                    splits = splits_of(q, cache, tables)
+                    label = (f"{tag} window=300 softcap=30, {splits} splits"
+                             + (" (forced)" if forced else ""))
+                    got, ref = run_decode(q[:, 0], cache, tables, kl, 1, **kw)
+                    check(bool((got[0] == 0).all()),
+                          "decode: kv_len 0 row must be zeros")
+                    compare(form("decode_simt", cdt), got, ref,
+                            f"decode {label}")
+                    check(torch.equal(got, pac.paged_attention_decode(
+                        q[:, 0], cache, tables, kl, 1, scale=SCALE, **kw)),
+                          f"decode {label}: two launches differ")
+                    got, ref = run_decode_write(q[:, 0], cache, tables, kl, 1,
+                                                k_new, v_new, wf, **kw)
+                    compare(form("decode_write_simt", cdt), got, ref,
+                            f"decode_write {label} (row 0 dropped): caches "
+                            "equal;")
+                    check(torch.equal(got, pac.paged_attention_decode_write(
+                        q[:, 0], cache.clone(), tables, kl, 1, k_new, v_new,
+                        wf, scale=SCALE, **kw)),
+                          f"decode_write {label}: two launches differ")
+    simt = sum(n for k, n in pac.route_counts.items() if "simt" in k)
+    check(simt > 0 and simt == sum(pac.route_counts.values()),
+          f"CUDA-core split checks took other kernels: {pac.route_counts}")
 
 
 def int4_case(gen, N, din, dout, dtype=torch.bfloat16):
@@ -2263,24 +2446,27 @@ def phase_times(per_step: dict, launches: dict, card: str,
     case = functools.partial(make_case, h=h, kh=kh, hd=hd, layers=4,
                              cache_dtype=cache_dtype)
 
-    # Decode: B=8, every row at kv_len 4096 (the profiled step's shape),
-    # then one interactive user (B=1) and (Llama) a large batch (B=64) at
-    # 4096 and at 512. Four layers of cache (537 MB at B=8 in bf16 at
-    # Llama's heads), each launch reads another layer, so the 50 MB L2
-    # never holds the KV.
-    decode = []
+    # Decode and decode-write: B=8, every row at kv_len 4096 (the profiled
+    # step's shape), then one interactive user (B=1) and a large batch
+    # (B=64) at 4096 and at 512. Four layers of cache (537 MB at B=8 in
+    # bf16 at Llama's heads), each launch reads another layer, so the 50 MB
+    # L2 never holds the KV. The decode-write writes its row each launch
+    # (the same slot every time: kv_len counts it); no single PyTorch call
+    # computes it, so the unfused pair it replaces (the rows cast to the
+    # cache's type and index_copy_'d, then the decode kernel) is timed
+    # beside it.
+    decode, decode_write = [], []
     for B, kvl in geo["decode"]:
         q, cache, tables, kl, _ = case(gen, B=B, T=1, kv_lens=[kvl] * B)
         q3 = q[:, 0].contiguous()
         state = {"layer": 0}
 
-        def dec():
+        def turn():
             state["layer"] = (state["layer"] + 1) % 4
-            return pac.paged_attention_decode(q3, cache, tables, kl,
-                                              state["layer"], scale=scale,
-                                              softcap=cap)
+            return state["layer"]
 
-        ms = cuda_ms(dec)
+        ms = cuda_ms(lambda: pac.paged_attention_decode(
+            q3, cache, tables, kl, turn(), scale=scale, softcap=cap))
         plain_ms = cuda_ms(lambda: pac.paged_attention_decode_plain(
             q3, cache, tables, kl, 1, scale=scale, softcap=cap), iters=5)
         k, v = gathered_kv(cache, tables, 1, kvl, hd=hd, dtype=torch.bfloat16)
@@ -2292,72 +2478,58 @@ def phase_times(per_step: dict, launches: dict, card: str,
         splits = splits_of(q, cache, tables)
         compare(dec_kind, got, ref,
                 f"decode {tag} B={B} kv_len {kvl} ({splits} splits) vs sdpa")
+        del k, v, ref, got
         kv_bytes = B * kvl * 2 * kh * hd * item
         io_bytes = 2 * B * h * hd * 2 + tables.numel() * 4 + B * 4
         flops = 4 * B * h * hd * kvl
+        shape = f"B={B} kv_len={kvl} {heads} bs={BS} bf16 q, {tag} cache"
         r = _row(dec_kind, ms, plain_ms, lib_ms, kv_bytes + io_bytes, flops,
                  PEAK_BF16_FLOPS, per_step[dec_kind], launches[dec_kind],
-                 card, f"B={B} kv_len={kvl} {heads} bs={BS} "
-                       f"bf16 q, {tag} cache, {splits} splits",
+                 card, f"{shape}, {splits} splits",
                  library="torch.nn.functional.scaled_dot_product_attention "
                          f"on K/V gathered{up} beforehand{nocap}")
         r["splits"] = splits
         decode.append(r)
-        if B == 8:
-            kept = (q3, cache, tables, kl, kv_bytes, io_bytes, flops)
-        del q, cache, k, v, ref, got
+
+        k_new = torch.randn((B, kh * hd), generator=gen, device=DEV).bfloat16()
+        v_new = torch.randn((B, kh * hd), generator=gen, device=DEV).bfloat16()
+        wf = write_slots(tables, [kvl - 1] * B, [], cache.shape[1])
+        ms = cuda_ms(lambda: pac.paged_attention_decode_write(
+            q3, cache, tables, kl, turn(), k_new, v_new, wf, scale=scale,
+            softcap=cap))
+        plain_ms = cuda_ms(lambda: pac.paged_attention_decode_write_plain(
+            q3, cache, tables, kl, 1, k_new, v_new, wf, scale=scale,
+            softcap=cap), iters=5)
+        flat = raw(cache.view(-1, kh * hd))
+        nb = cache.shape[1]
+        rows_k = ((nb + wf.long() // BS) * 2 * BS + wf.long() % BS)  # layer 1
+
+        def pair():
+            flat.index_copy_(0, rows_k, raw(to_cache_dtype(k_new, cache_dtype)))
+            flat.index_copy_(0, rows_k + BS,
+                             raw(to_cache_dtype(v_new, cache_dtype)))
+            return pac.paged_attention_decode(q3, cache, tables, kl, 1,
+                                              scale=scale, softcap=cap)
+
+        pair_ms = cuda_ms(pair)
+        # k_new/v_new read in bf16, their rows written in the cache's type.
+        row_bytes = 2 * B * kh * hd * (2 + item)
+        r = _row(dw_kind, ms, plain_ms, None, kv_bytes + io_bytes + row_bytes,
+                 flops, PEAK_BF16_FLOPS, per_step[dw_kind], launches[dw_kind],
+                 card, f"{shape}, one K/V row written per sequence, {splits} "
+                       "splits",
+                 library="none: no single PyTorch call computes it")
+        r["splits"] = splits
+        r["unfused_pair_ms"] = pair_ms
+        r["unfused_pair"] = ("the rows cast to the cache's type and "
+                             "index_copy_'d + paged_attention_decode")
+        log(f"  unfused pair (cast + index_copy_ + paged_attention_decode): "
+            f"{pair_ms:.4f} ms")
+        decode_write.append(r)
+        del q, q3, cache
+        torch.cuda.empty_cache()
     rows.append(with_points(decode))
-    torch.cuda.empty_cache()
-    q3, cache, tables, kl, kv_bytes, io_bytes, flops = kept
-    B, kvl = 8, 4096
-
-    # Decode-write at the same shape: each launch also writes its row (the
-    # same slot every time: kv_len counts it). No single PyTorch call
-    # computes this; the unfused pair it replaces (the rows cast to the
-    # cache's type and index_copy_'d, then the decode kernel) is timed in
-    # its place.
-    k_new = torch.randn((B, kh * hd), generator=gen, device=DEV).bfloat16()
-    v_new = torch.randn((B, kh * hd), generator=gen, device=DEV).bfloat16()
-    wf = write_slots(tables, [kvl - 1] * B, [], cache.shape[1])
-
-    def dw():
-        state["layer"] = (state["layer"] + 1) % 4
-        return pac.paged_attention_decode_write(
-            q3, cache, tables, kl, state["layer"], k_new, v_new, wf,
-            scale=scale, softcap=cap)
-
-    ms = cuda_ms(dw)
-    plain_ms = cuda_ms(lambda: pac.paged_attention_decode_write_plain(
-        q3, cache, tables, kl, 1, k_new, v_new, wf, scale=scale,
-        softcap=cap), iters=5)
-    flat = raw(cache.view(-1, kh * hd))
-    nb = cache.shape[1]
-    rows_k = ((nb + wf.long() // BS) * 2 * BS + wf.long() % BS)  # layer 1
-
-    def pair():
-        flat.index_copy_(0, rows_k, raw(to_cache_dtype(k_new, cache_dtype)))
-        flat.index_copy_(0, rows_k + BS,
-                         raw(to_cache_dtype(v_new, cache_dtype)))
-        return pac.paged_attention_decode(q3, cache, tables, kl, 1,
-                                          scale=scale, softcap=cap)
-
-    pair_ms = cuda_ms(pair)
-    # k_new/v_new read in bf16, their rows written in the cache's type.
-    row_bytes = 2 * B * kh * hd * (2 + item)
-    r = _row(dw_kind, ms, plain_ms, None, kv_bytes + io_bytes + row_bytes,
-             flops, PEAK_BF16_FLOPS, per_step[dw_kind], launches[dw_kind],
-             card,
-             f"B={B} kv_len={kvl} {heads} bs={BS} bf16 q, "
-             f"{tag} cache, one K/V row written per sequence, "
-             f"{splits_of(q3, cache, tables)} splits",
-             library="none: no single PyTorch call computes it")
-    r["splits"] = splits_of(q3, cache, tables)
-    r["unfused_pair_ms"] = pair_ms
-    r["unfused_pair"] = ("the rows cast to the cache's type and index_copy_'d "
-                         "+ paged_attention_decode")
-    log(f"  unfused pair (cast + index_copy_ + paged_attention_decode): "
-        f"{pair_ms:.4f} ms")
-    rows.append(r)
+    rows.append(with_points(decode_write))
 
     # Prefill, one sequence: a fresh 512-token chunk, a 512-token chunk at
     # start 3584 (the last chunk of a 4096-token prompt) and a fresh
@@ -2400,58 +2572,84 @@ def phase_times_simt(per_step: dict, launches: dict, card: str) -> list:
     """Rows of the CUDA-core kernels at the default engine's shapes
     (tiny-llama-debug: fp32, H=KH=8, hd=16), over an fp32 and an e4m3
     cache: decode and decode-write at B=8 x 1024, prefill of a fresh
-    256-token chunk. Bound: bytes, or fp32 operations off the tensor cores
-    (67 TFLOP/s)."""
-    h, kh, hd, f32 = 8, 8, 16, torch.float32
+    256-token chunk; decode and decode-write also where bytes dominate, at
+    fp32 Llama-3-8B heads (H=32, KH=8, hd=128) over an fp32 cache, B=8 x
+    4096. Bound: bytes, or fp32 operations off the tensor cores (67
+    TFLOP/s). Beside each decode row, ``launch_floor_ms``: an empty kernel
+    (``torch.cuda._sleep(0)``) queued the same way."""
+    f32 = torch.float32
     scale = SCALE
-    log(f"[phase 5] CUDA-core kernel times at tiny-llama-debug's heads ({card})")
+    log(f"[phase 5] CUDA-core kernel times at tiny-llama-debug's heads and "
+        f"fp32 Llama-3-8B heads ({card})")
     gen = torch.Generator(device=DEV)
     gen.manual_seed(96)
+    floor_ms = cuda_ms(lambda: torch.cuda._sleep(0))
+    log(f"  an empty kernel queued the same way: {floor_ms:.4f} ms")
     rows = []
     for cdt in (f32, E4M3):
         tag = str(cdt)[6:]
         item = cdt.itemsize
-        B, kvl = 8, 1024
-        q, cache, tables, kl, _ = make_case(
-            gen, B=B, T=1, kv_lens=[kvl] * B, dtype=f32, h=h, kh=kh, hd=hd,
-            layers=2, cache_dtype=cdt)
-        q3 = q[:, 0].contiguous()
-        k, v = gathered_kv(cache, tables, 1, kvl, hd=hd, dtype=f32)
-        qs = q3[:, :, None]
-        kind = form("decode_simt", cdt)
-        ms = cuda_ms(lambda: pac.paged_attention_decode(
-            q3, cache, tables, kl, 1, scale=scale))
-        plain_ms = cuda_ms(lambda: pac.paged_attention_decode_plain(
-            q3, cache, tables, kl, 1, scale=scale), iters=5)
-        lib_ms = cuda_ms(lambda: sdpa(qs, k, v, False))
-        compare(kind, pac.paged_attention_decode(q3, cache, tables, kl, 1,
-                                                 scale=scale),
-                sdpa(qs, k, v, False)[:, :, 0],
-                f"decode fp32 q {tag} cache hd={hd} vs sdpa")
-        kv_bytes = B * kvl * 2 * kh * hd * item
-        io_bytes = 2 * B * h * hd * 4 + tables.numel() * 4 + B * 4
-        flops = 4 * B * h * hd * kvl
-        shape = (f"B={B} kv_len={kvl} H={h} KH={kh} hd={hd} bs={BS} fp32 q, "
-                 f"{tag} cache")
-        rows.append(_row(kind, ms, plain_ms, lib_ms, kv_bytes + io_bytes,
-                         flops, PEAK_FP32_FLOPS, per_step[kind],
-                         launches[kind], card, shape,
-                         library="torch.nn.functional.scaled_dot_product_"
-                                 "attention on K/V gathered (fp32) beforehand"))
-        k_new = torch.randn((B, kh * hd), generator=gen, device=DEV)
-        v_new = torch.randn((B, kh * hd), generator=gen, device=DEV)
-        wf = write_slots(tables, [kvl - 1] * B, [], cache.shape[1])
-        kind = form("decode_write_simt", cdt)
-        ms = cuda_ms(lambda: pac.paged_attention_decode_write(
-            q3, cache, tables, kl, 1, k_new, v_new, wf, scale=scale))
-        plain_ms = cuda_ms(lambda: pac.paged_attention_decode_write_plain(
-            q3, cache, tables, kl, 1, k_new, v_new, wf, scale=scale), iters=5)
-        rows.append(_row(kind, ms, plain_ms, None,
-                         kv_bytes + io_bytes + 2 * B * kh * hd * (4 + item),
-                         flops, PEAK_FP32_FLOPS, per_step[kind],
-                         launches[kind], card,
-                         shape + ", one K/V row written per sequence",
-                         library="none: no single PyTorch call computes it"))
+        dec, dw = [], []
+        points = ((8, 8, 16, 8, 1024),) + (((32, 8, HD, 8, 4096),)
+                                           if cdt == f32 else ())
+        for h, kh, hd, B, kvl in points:
+            q, cache, tables, kl, _ = make_case(
+                gen, B=B, T=1, kv_lens=[kvl] * B, dtype=f32, h=h, kh=kh,
+                hd=hd, layers=4, cache_dtype=cdt)
+            q3 = q[:, 0].contiguous()
+            k, v = gathered_kv(cache, tables, 1, kvl, hd=hd, dtype=f32)
+            qs = q3[:, :, None]
+            state = {"layer": 0}
+
+            def turn():
+                state["layer"] = (state["layer"] + 1) % 4
+                return state["layer"]
+
+            splits = splits_of(q, cache, tables)
+            kind = form("decode_simt", cdt)
+            ms = cuda_ms(lambda: pac.paged_attention_decode(
+                q3, cache, tables, kl, turn(), scale=scale))
+            plain_ms = cuda_ms(lambda: pac.paged_attention_decode_plain(
+                q3, cache, tables, kl, 1, scale=scale), iters=5)
+            lib_ms = cuda_ms(lambda: sdpa(qs, k, v, False))
+            compare(kind, pac.paged_attention_decode(q3, cache, tables, kl, 1,
+                                                     scale=scale),
+                    sdpa(qs, k, v, False)[:, :, 0],
+                    f"decode fp32 q {tag} cache H={h} KH={kh} hd={hd} B={B} "
+                    f"kv_len {kvl} ({splits} splits) vs sdpa")
+            del k, v
+            kv_bytes = B * kvl * 2 * kh * hd * item
+            io_bytes = 2 * B * h * hd * 4 + tables.numel() * 4 + B * 4
+            flops = 4 * B * h * hd * kvl
+            shape = (f"B={B} kv_len={kvl} H={h} KH={kh} hd={hd} bs={BS} fp32 "
+                     f"q, {tag} cache, {splits} splits")
+            r = _row(kind, ms, plain_ms, lib_ms, kv_bytes + io_bytes, flops,
+                     PEAK_FP32_FLOPS, per_step[kind], launches[kind], card,
+                     shape,
+                     library="torch.nn.functional.scaled_dot_product_"
+                             "attention on K/V gathered (fp32) beforehand")
+            r["splits"], r["launch_floor_ms"] = splits, floor_ms
+            dec.append(r)
+            k_new = torch.randn((B, kh * hd), generator=gen, device=DEV)
+            v_new = torch.randn((B, kh * hd), generator=gen, device=DEV)
+            wf = write_slots(tables, [kvl - 1] * B, [], cache.shape[1])
+            kind = form("decode_write_simt", cdt)
+            ms = cuda_ms(lambda: pac.paged_attention_decode_write(
+                q3, cache, tables, kl, turn(), k_new, v_new, wf, scale=scale))
+            plain_ms = cuda_ms(lambda: pac.paged_attention_decode_write_plain(
+                q3, cache, tables, kl, 1, k_new, v_new, wf, scale=scale),
+                iters=5)
+            r = _row(kind, ms, plain_ms, None,
+                     kv_bytes + io_bytes + 2 * B * kh * hd * (4 + item),
+                     flops, PEAK_FP32_FLOPS, per_step[kind], launches[kind],
+                     card, shape + ", one K/V row written per sequence",
+                     library="none: no single PyTorch call computes it")
+            r["splits"], r["launch_floor_ms"] = splits, floor_ms
+            dw.append(r)
+            del q, q3, cache
+            torch.cuda.empty_cache()
+        rows += [with_points(dec), with_points(dw)]
+        h, kh, hd = 8, 8, 16
         T = 256
         q, cache, tables, kl, st = make_case(
             gen, B=1, T=T, kv_lens=[T], dtype=f32, h=h, kh=kh, hd=hd,
@@ -2558,7 +2756,7 @@ def with_points(rows: list) -> dict:
     """The first row, with every row's shape and numbers under
     ``points``."""
     keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "splits")
+            "splits", "unfused_pair_ms", "launch_floor_ms")
     main = dict(rows[0])
     main["points"] = [{k: r[k] for k in keys if k in r} for r in rows]
     return main
@@ -2670,8 +2868,10 @@ def main() -> None:
         phase_kernels(cache_dtype)
         phase_decode_write_kernels(cache_dtype)
         phase_hd256_kernels(cache_dtype)
+    phase_hd256_splits()
     phase_e4m3_all_codes()
     phase_simt_geometries()
+    phase_simt_splits()
     phase_int4_kernels()
     model, params = build_model()
     per_step = phase_model(model, params)

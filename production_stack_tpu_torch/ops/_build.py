@@ -13,10 +13,10 @@ Kernels, each replacing a Pallas TPU kernel of the JAX package:
 
 - ``paged_attention.cuh`` (built as ``paged_attention.cu``,
   ``paged_attention_write.cu`` and ``paged_attention_prefill.cu``, one
-  kernel each), on the CUDA cores for fp32 q (head_dim 16 to 256), or
-  bf16 q at head_dim 16, 32 or 64: ``paged_decode_kernel``
-  (``_decode_kernel``), ``paged_decode_write_kernel``
-  (``_decode_write_kernel``) and ``paged_prefill_kernel``
+  kernel form each), on the CUDA cores for fp32 q (head_dim 16 to 256), or
+  bf16 q at head_dim 16, 32 or 64: ``paged_decode_kernel`` (split-KV;
+  ``_decode_kernel`` and, as its decode-write form,
+  ``_decode_write_kernel``) and ``paged_prefill_kernel``
   (``_prefill_kernel``), all of
   ``production_stack_tpu/ops/paged_attention_pallas.py``;
 - ``decode_splitkv.cuh`` (built as ``decode_splitkv.cu`` at head_dim 128
@@ -36,9 +36,9 @@ Kernels, each replacing a Pallas TPU kernel of the JAX package:
   mma.sync, split-K merged in the launch); all
   ``production_stack_tpu/ops/int4_matmul.py::_kernel``.
 
-``sm90.cuh`` holds the wgmma, descriptor, cp.async and barrier helpers
-the Hopper kernels share; ``splits.cuh`` the key split and in-launch
-merge of the split-KV decode and the wgmma prefill; ``fp8.cuh`` the e4m3
+``sm90.cuh`` holds the wgmma, descriptor, cp.async, bulk-copy and barrier
+helpers the Hopper kernels share; ``splits.cuh`` the key split and
+in-launch merge of the split-KV decodes and the wgmma prefill; ``fp8.cuh`` the e4m3
 cache's conversions (up to bf16/fp32, and the JAX package's cast down);
 ``int4_bits.cuh`` the int4 -> bf16 conversion of both bf16 int4 routes.
 """
@@ -161,9 +161,10 @@ def load() -> ctypes.CDLL:
         # cache's.
         lib.pst_paged_decode.argtypes = [
             _I, _I, _P, _P, _P, _P, _P,  # types, q, cache, tables, kv_lens, out
+            _P, _P,  # ws, counters
             _I, _I, _I, _I,  # B, H, KH, HD
             _I, _I, _I, _I, _I,  # nb, bs, W, layer, window
-            _F, _F, _P,  # scale, softcap, stream
+            _F, _F, _I, _P,  # scale, softcap, splits, stream
         ]
         lib.pst_paged_decode.restype = _I
         lib.pst_paged_prefill.argtypes = [
@@ -183,10 +184,10 @@ def load() -> ctypes.CDLL:
         lib.pst_paged_prefill_wgmma.restype = _I
         lib.pst_paged_decode_write.argtypes = [
             _I, _I, _P, _P, _P, _P, _P,  # types, q, cache, k_new, v_new, write_flat
-            _P, _P, _P,  # tables, kv_lens, out
+            _P, _P, _P, _P, _P,  # tables, kv_lens, out, ws, counters
             _I, _I, _I, _I,  # B, H, KH, HD
             _I, _I, _I, _I, _I,  # nb, bs, W, layer, window
-            _F, _F, _P,  # scale, softcap, stream
+            _F, _F, _I, _P,  # scale, softcap, splits, stream
         ]
         lib.pst_paged_decode_write.restype = _I
         lib.pst_decode_split.argtypes = [

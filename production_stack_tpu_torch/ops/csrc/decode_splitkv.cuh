@@ -13,7 +13,7 @@
 //                                            K/V row written into its
 //                                            page; PST_FUSED_KV_WRITE=1)
 // and their e4m3-cache forms (kFp8, kv_cache_dtype="float8_e4m3fn"). fp32 q
-// and other head dims keep paged_decode_kernel / paged_decode_write_kernel
+// and other head dims keep paged_decode_kernel (decode and decode-write)
 // of paged_attention.cuh. The contract is theirs, unchanged:
 //   q      [B, H, HD] bf16          cache [L, nb, 2, bs, KH*HD] bf16 or
 //                                   e4m3
@@ -58,32 +58,51 @@
 //     memory, so no K/V copy waits on a table load. (Page ids prefetched
 //     into registers one tile ahead left a table load's latency exposed
 //     every tile: slower on the H100 at every shape timed.)
-//   - Each 16-byte piece of a K or V row is gathered through the table by
-//     cp.async into a 3-slot ring (two tiles, 64 KB, in flight ahead of
-//     the one being read; two blocks an SM, so about 128 KB an SM), with
-//     the chunk position swizzled by the row (chunk c of row r at
-//     c ^ (r % 8)) so that ldmatrix's eight rows of one chunk hit every
-//     bank once. cp.async rather than TMA: TMA cannot gather rows through
-//     a block table whose pages need not be a whole tile (any bs works
-//     here). One block barrier a tile hands the ring over; a 4-slot ring
-//     at one block an SM, or a 2-slot ring at three, was slower (bf16).
-//   - Products on the tensor cores (mma.sync m16n8k16), one softmax update
-//     per 16 keys. bf16: each warp owns 16 keys of every tile and 128 output
-//     dims and keeps its own flash state, so the warps never wait for each
-//     other inside a tile: at HD 128 the four warps own the tile's four
-//     16-key groups; at HD 256 two warps share each of its two 16-key
-//     groups, one a 128-dim half of O each (both compute the group's
-//     scores over all 256 dims: the same instructions on the same data,
-//     so the same (m, l)), which keeps O at 64 registers a thread.
-//     S = Q Kᵀ has the G heads as its rows (padded to 16: q is the
+//   - A 3-slot ring (two tiles, 64 KB, in flight ahead of the one being
+//     read; two blocks an SM, so about 128 KB an SM); one block barrier a
+//     tile hands it over. bf16 at HD 128 and e4m3: each 16-byte piece of a
+//     K or V row is gathered through the table by cp.async, the chunk
+//     position swizzled by the row (bf16: chunk c of row r at c ^ (r % 8))
+//     so that ldmatrix's eight rows of one chunk hit every bank once; a
+//     4-slot ring at one block an SM, or a 2-slot ring at three, was slower
+//     (bf16 at HD 128). bf16 at HD 256: warp 0 gathers the tile, one lane a
+//     key row, each whole 512-byte K or V row by one bulk copy (the TMA
+//     unit's cp.async.bulk, no tensor map, so any bs works), completed on
+//     the slot's mbarrier; rows are padded by 16 bytes instead of swizzled
+//     (528 bytes apart, eight rows of one chunk hit every bank once), and a
+//     row outside [lo, kv_len) is zero-filled by its lane. On an NVIDIA
+//     H100 80GB HBM3 at 700 W, with cp.async pieces this form matched the
+//     previous one (below); with bulk copies it was 5 % faster (PERF.md).
+//   - Products on the tensor cores (mma.sync), in the log2 domain; every
+//     warp keeps its own flash state, so the warps never wait for each
+//     other inside a tile, and their states merge in shared memory at the
+//     end. S = Q Kᵀ has the G heads as its rows (padded to 16: q is the
 //     register A operand, loaded once), K's B fragments come by ldmatrix;
-//     a row's 16 scores sit in the 4 lanes of a quad (two shuffles for its
-//     max), in the log2 domain. P, rounded to bf16 as prefill_wgmma.cu
-//     rounds it, is the A operand of O += P V straight from the score
-//     registers, V's B fragments by ldmatrix.trans. The four warps' states
-//     merge in shared memory at the end. (A first version on the CUDA
-//     cores, a lane per key and three block barriers a 32-key tile, was
-//     slower at every shape timed.)
+//     a head's scores sit in the 4 lanes of a quad (two shuffles for its
+//     max). P is rounded to bf16 as prefill_wgmma.cu rounds it.
+//     * bf16 at HD 128: a warp owns 16 keys of every tile and all 128
+//       dims; P is the A operand of O += P V straight from the score
+//       registers (m16n8k16, heads padded to 16), V's B fragments by
+//       ldmatrix.trans. (A first version on the CUDA cores, a lane per key
+//       and three block barriers a 32-key tile, was slower at every shape
+//       timed; O kept transposed, as at HD 256, was 0.1-1.4 % faster at
+//       the four shapes timed in one call, within the spread, so this
+//       layout stays.)
+//     * bf16 at HD 256 (kNarrow): a warp owns 8 keys of every 32-key tile
+//       and all 256 dims, so no two warps compute the same scores: S over
+//       one n8 tile (in two accumulators, even and odd k-steps), and P·V
+//       runs transposed, Oᵀ[dims][heads] += Vᵀ Pᵀ on m16n8k8 (the 8 keys
+//       as k, the G <= 8 heads as n8): the lane's score accumulator is
+//       already Pᵀ's B fragment, no product and no register of O holds a
+//       padding head (O is 64 registers a thread), and one ldmatrix.trans
+//       gives Vᵀ's A fragments of two m-tiles. O is rescaled only when a
+//       head's max moved. Measured alternatives (NVIDIA H100 80GB HBM3,
+//       700 W, PERF.md): 16 keys a warp in 64-key tiles, a 192 KB ring
+//       and one block an SM (four warps an SM) was 18 % slower than the
+//       previous form at B = 8 x 4096 (0.1234 against 0.1049 ms) and 26 %
+//       at B = 64; this form on cp.async pieces matched the previous one
+//       (0.1019 against 0.1030, 0.7314 against 0.7316): the loop is bound
+//       by its copies, not by its products.
 //   - Splits combine in the same launch: a block with S > 1 writes its
 //     (acc[G][HD], m[G], l[G]) in fp32 to the workspace the wrapper
 //     allocates, fences, and takes a ticket from the (b, kh) counter; the
@@ -173,36 +192,40 @@ using namespace pst_sm90;
 using namespace pst_splits;
 using bf16 = __nv_bfloat16;
 
-constexpr int kSliceDims = 128;  // output dims a bf16 warp owns
-constexpr int kKeysPerWarp = 16;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSplits = 64;
 constexpr int kPageCap = 1024;  // table entries a block keeps in shared memory
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kThreads == kSliceDims,
+static_assert(kThreads == 128,
               "the merges give each thread one dim of each 128-dim slice");
 
-// The tile geometry of head dim HD and cache form kFp8. bf16: kSlices
-// 128-dim slices of O, a warp each, so kKeyGroups warps of 16 keys cover a
-// tile of kKeys keys (16 KB of K at either head dim). e4m3: every warp
-// holds all HD dims of O, so the 4 warps' 16 keys make a 64-key tile.
+// The geometry of head dim HD and cache form kFp8. Every warp owns
+// kKeysPerWarp keys of a tile and all HD dims of O. kOT: O is kept
+// transposed, Oᵀ [dims][heads] (the e4m3 forms and bf16 at HD 256); bf16
+// at HD 128 keeps O [heads][dims] with the heads padded to 16. kNarrow
+// (bf16 at HD 256): 8 keys a warp, a 32-key tile, P·V on m16n8k8.
 template <int HD, bool kFp8>
 struct Geo {
   static_assert(HD == 128 || HD == 256, "the split kernel takes HD 128, 256");
-  static constexpr int kSlices = kFp8 ? 1 : HD / kSliceDims;
-  static constexpr int kKeyGroups = kWarps / kSlices;
-  static constexpr int kKeys = kKeysPerWarp * kKeyGroups;   // 64, 32 or 64
+  static constexpr bool kOT = kFp8 || HD == 256;
+  static constexpr bool kNarrow = !kFp8 && HD == 256;
+  static constexpr int kKeysPerWarp = kNarrow ? 8 : 16;
+  static constexpr int kKeys = kKeysPerWarp * kWarps;       // 32 or 64
   static constexpr int kRowBytes = HD * (kFp8 ? 1 : 2);     // a cache row
-  static constexpr int kTileBytes = kKeys * kRowBytes;      // K (or V)
+  // A staged row: kNarrow's rows are copied whole by the bulk copy engine
+  // and padded by 16 bytes, so that ldmatrix's 8 rows of a chunk hit
+  // every bank once; the others are swizzled (swz, swz8).
+  static constexpr int kRowStride = kRowBytes + (kNarrow ? 16 : 0);
+  static constexpr int kTileBytes = kKeys * kRowStride;     // K (or V)
   static constexpr int kStageBytes = 2 * kTileBytes;
   static constexpr int kStages = 3;  // ring slots
-  static constexpr int kSmem = kStages * kStageBytes;  // 96 KB; e4m3 48/96
-  static constexpr int kORow = kFp8 ? HD : kSliceDims;  // dims a warp's O
-  // Blocks an SM the registers allow (paged_attention_cuda.py's plan
-  // assumes the same): e4m3 at HD 128 is held to 128 registers a thread.
+  // bf16 96 KB (HD 128), 99 KB (256); e4m3 48 KB (HD 128), 96 KB (256).
+  static constexpr int kSmem = kStages * kStageBytes;
+  // Blocks an SM (paged_attention_cuda.py's plan assumes the same): e4m3
+  // at HD 128 is held to 128 registers a thread.
   static constexpr int kMinBlocks = kFp8 && HD == 128 ? 4 : 1;
-  static_assert(kWarps * 8 * (kORow + 2) * 4 <= kSmem,
+  static_assert(kWarps * 8 * (HD + 2) * 4 <= kSmem,
                 "the warps' states fit the ring");
   static_assert(2 * kMaxSplits * 8 * 4 <= kSmem,
                 "the merge's weights fit the ring");
@@ -253,6 +276,17 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0,
       "[%4];\n"
       : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
       : "r"(addr));
+}
+
+// D[16 x 8] += A[16 x 8] B[8 x 8] in fp32 (bf16 at HD 256's Oᵀ += Vᵀ Pᵀ
+// over a warp's 8 keys).
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0,
+                                            uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
 // D[16 x 8] += A[16 x 16] B[16 x 8] in fp32; A's rows 8..15 are zero (the
@@ -307,6 +341,7 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
   constexpr int kQRow = HD + 8;
   __shared__ __align__(16) bf16 sQ[kQs ? G : 1][kQs ? kQRow : 1];
   __shared__ float sL[G];
+  __shared__ __align__(8) uint64_t sBar[Gm::kNarrow ? Gm::kStages : 1];
 
   const int b = blockIdx.x;
   const int kh = blockIdx.y;
@@ -407,8 +442,8 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
   }
 
   // Thread tid copies piece tid % kChunks of rows tid / kChunks + j *
-  // kThreads / kChunks of each tile: 8 bf16 rows, or 4 (HD 128) or 8 (HD
-  // 256) e4m3 rows.
+  // kThreads / kChunks of each tile: 8 (HD 128) or 16 (HD 256) bf16 rows,
+  // or 4 or 8 e4m3 rows.
   const int cc = tid % kChunks;
   constexpr int kRowsPerThread = kKeys * kChunks / kThreads;
   // The block's slice of the table row, loaded once up front: entries
@@ -418,6 +453,11 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
   const int p_n = min((t0 + n_t) * kKeys / bs, W - 1) + 1 - p_lo;
   for (int i = tid; i < min(p_n, kPageCap); i += kThreads)
     sPages[i] = __ldg(trow + p_lo + i);
+  if (Gm::kNarrow && tid == 0) {  // a ring slot's arrivals: its copier's
+#pragma unroll
+    for (int s = 0; s < Gm::kStages; ++s) mbar_init(smem_u32(&sBar[s]), 1);
+    fence_mbarrier_init();
+  }
   __syncthreads();
   auto page_of = [&](int pos) {
     const int p = min(pos / bs, W - 1) - p_lo;
@@ -427,6 +467,41 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
     uint8_t* const slot = ring + (it % Gm::kStages) * Gm::kStageBytes;
     const uint32_t sK = smem_u32(slot);
     const uint32_t sV = sK + Gm::kTileBytes;
+    if constexpr (Gm::kNarrow) {
+      // Warp 0 copies the tile: lane r key row r of K and of V, each one
+      // bulk copy of the whole row, completed on the slot's mbarrier; a
+      // row outside [lo, kv_len) is zero-filled by its lane (a stale row
+      // could hold a NaN, which P = 0 would not cancel).
+      if (warp != 0) return;
+      const int pos = (t0 + it) * kKeys + lane;
+      const bool ok = pos >= lo && pos < kv_len;
+      const uint32_t bar = smem_u32(&sBar[it % Gm::kStages]);
+      const int n_ok = __popc(__ballot_sync(0xffffffffu, ok));
+      if (lane == 0) mbar_arrive_expect_tx(bar, n_ok * 2 * Gm::kRowBytes);
+      const uint32_t dk = sK + lane * Gm::kRowStride;
+      if (ok) {
+        const int pg = page_of(pos);
+        const CT* row =
+            layer_base + (size_t)pg * page_stride + (size_t)(pos % bs) * lanes;
+        const void* src_k = row;
+        const void* src_v = row + (size_t)bs * lanes;
+        if (kWrite && pg * bs + pos % bs == wf) {
+          src_k = knew;
+          src_v = vnew;
+        }
+        bulk_copy_g2s(dk, src_k, Gm::kRowBytes, bar);
+        bulk_copy_g2s(dk + Gm::kTileBytes, src_v, Gm::kRowBytes, bar);
+      } else {
+        uint4* zk = reinterpret_cast<uint4*>(slot + lane * Gm::kRowStride);
+        uint4* zv = reinterpret_cast<uint4*>(slot + Gm::kTileBytes +
+                                             lane * Gm::kRowStride);
+#pragma unroll 8
+        for (int c = 0; c < Gm::kRowBytes / 16; ++c)
+          zk[c] = zv[c] = make_uint4(0u, 0u, 0u, 0u);
+        fence_proxy_async();  // before a later bulk copy into the row
+      }
+      return;
+    }
 #pragma unroll
     for (int j = 0; j < kRowsPerThread; ++j) {
       const int r = tid / kChunks + (kThreads / kChunks) * j;
@@ -470,28 +545,31 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
   const bool capped = softcap > 0.f;
   const float c_scale = capped ? scale / softcap : scale * kLog2e;
   const float c_cap = softcap * kLog2e;
-  // This warp's flash state. bf16: head grp's O over the warp's 128-dim
-  // slice (registers c0, c1 of each of the 16 dim tiles; c2, c3 belong to
-  // the padding rows). e4m3: Oᵀ, HD / 16 m-tiles of 16 dims by the 8
-  // heads: tile T's registers are heads 2 tig, 2 tig + 1 (c0, c1) at dim
-  // 128 (T / 8) + 16 grp + 2 (T % 8), and (c2, c3) at the next dim. Then
-  // head grp's running max and this thread's share of its row sum.
-  constexpr int kOTiles = kFp8 ? HD / 16 : 16;
+  // This warp's flash state. bf16 at HD 128: head grp's O over the 128
+  // dims (registers c0, c1 of each of the 16 dim tiles; c2, c3 belong to
+  // the padding rows). Oᵀ (kOT): HD / 16 m-tiles of 16 dims by the 8
+  // heads, tile T's registers heads 2 tig, 2 tig + 1 (c0, c1) at one dim
+  // and (c2, c3) at another: e4m3 dims 128 (T / 8) + 16 grp + 2 (T % 8)
+  // and the next; bf16 16 T + grp and 16 T + grp + 8. Then head grp's
+  // running max and this thread's share of its row sum.
+  constexpr int kOTiles = Gm::kOT ? HD / 16 : 16;
   float o[kOTiles][4];
 #pragma unroll
   for (int n = 0; n < kOTiles; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
   float m_run = -INFINITY, l_run = 0.f;
-  const int kw = kKeysPerWarp * (warp % Gm::kKeyGroups);  // keys in a tile
-  const int slice = warp / Gm::kKeyGroups;                // its dims / 128
+  const int kw = Gm::kKeysPerWarp * warp;  // the warp's keys in a tile
   // e4m3: the K row (of the warp's 16) a lane reads for S's n8 tile j,
   // and the staging chunk order of that row and of the lane's V rows.
   const int krow0 = 4 * (grp >> 1) + (grp & 1);
   const int ksig0 = sig8(krow0), ksig1 = sig8(krow0 + 2);
 
   for (int it = 0; it < n_t; ++it) {
-    cp_async_wait<Gm::kStages - 2>();
+    if constexpr (Gm::kNarrow)
+      mbar_wait(smem_u32(&sBar[it % Gm::kStages]), (it / Gm::kStages) & 1);
+    else
+      cp_async_wait<Gm::kStages - 2>();
     // Tile it has landed for every thread, and every thread is done with
     // tile it - 1, whose slot the next copy refills.
     __syncthreads();
@@ -500,10 +578,75 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
     cp_async_commit();
 
     const int key0 = (t0 + it) * kKeys + kw;  // position of the warp's key 0
-    if (key0 >= kv_len || key0 + kKeysPerWarp <= lo) continue;  // none live
+    if (key0 >= kv_len || key0 + Gm::kKeysPerWarp <= lo) continue;  // no key
+
     const uint8_t* const slot = ring + (it % Gm::kStages) * Gm::kStageBytes;
     const uint32_t sK = smem_u32(slot);
     const uint32_t sV = sK + Gm::kTileBytes;
+
+    if constexpr (Gm::kNarrow) {
+      // S = Q Kᵀ over the warp's 8 keys (one n8 tile: column n is key kw +
+      // n), K's B fragments by ldmatrix (matrix i of call p: chunk 4 p + i,
+      // i.e. k-steps 2 p and 2 p + 1), in two accumulators (even and odd
+      // p) for two independent mma chains. Lane l gives row kw + l % 8.
+      const uint32_t krow = sK + (kw + (lane & 7)) * Gm::kRowStride;
+      float s2[2][4] = {};
+#pragma unroll
+      for (int p = 0; p < HD / 32; ++p) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4(krow + ((4 * p + (lane >> 3)) << 4), b0, b1, b2, b3);
+        mma_bf16(s2[p & 1], qa[2 * p][0], qa[2 * p][1], b0, b1);
+        mma_bf16(s2[p & 1], qa[2 * p + 1][0], qa[2 * p + 1][1], b2, b3);
+      }
+      // One softmax update a tile: head grp's scores at keys key0 + 2 tig
+      // + e, spread over the 4 lanes of a quad.
+      float x[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int pos = key0 + 2 * tig + e;
+        const float d = s2[0][e] + s2[1][e];
+        const float v = capped ? tanhf(d * c_scale) * c_cap : d * c_scale;
+        x[e] = pos >= lo && pos < kv_len ? v : -INFINITY;
+      }
+      float mx = fmaxf(x[0], x[1]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run, mx);
+      const float mb = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = fast_exp2(m_run - mb);
+      m_run = m_new;
+      const float p0 = fast_exp2(x[0] - mb), p1 = fast_exp2(x[1] - mb);
+      l_run = l_run * alpha + (p0 + p1);
+      // P, rounded to bf16: keys 2 tig, 2 tig + 1 of head grp, the B
+      // fragment of Oᵀ += Vᵀ Pᵀ (m16n8k8: k the 8 keys, n8 the heads).
+      const uint32_t pb = pack_bf16x2(p0, p1);
+      // Rescale only where a head's max moved (alpha != 1 in some lane;
+      // skipping a multiply by 1 changes no bit).
+      if (__any_sync(0xffffffffu, alpha != 1.f)) {
+        const float a_lo = __shfl_sync(0xffffffffu, alpha, 8 * tig);
+        const float a_hi = __shfl_sync(0xffffffffu, alpha, 8 * tig + 4);
+#pragma unroll
+        for (int n = 0; n < kOTiles; ++n) {
+          o[n][0] *= a_lo;
+          o[n][1] *= a_hi;
+          o[n][2] *= a_lo;
+          o[n][3] *= a_hi;
+        }
+      }
+      // Vᵀ's A fragments by ldmatrix.trans, one x4 two m-tiles: matrix
+      // i = lane / 8 is the warp's 8 keys at chunk 4 u + i, so registers
+      // (0, 1) are a0 (dims 16 (2 u) + grp, keys 2 tig, + 1) and a1 (dims
+      // + 8) of m-tile 2 u, (2, 3) those of m-tile 2 u + 1.
+      const uint32_t vrow = krow + Gm::kTileBytes;
+#pragma unroll
+      for (int u = 0; u < HD / 32; ++u) {
+        uint32_t a0, a1, a2, a3;
+        ldsm_x4_trans(vrow + ((4 * u + (lane >> 3)) << 4), a0, a1, a2, a3);
+        mma_bf16_k8(o[2 * u], a0, a1, pb);
+        mma_bf16_k8(o[2 * u + 1], a2, a3, pb);
+      }
+      continue;
+    }
 
     // S = Q Kᵀ over the warp's 16 keys (two n-tiles of 8). bf16: K's B
     // fragments by ldmatrix from the swizzled rows: matrix i of an x4 is
@@ -633,12 +776,12 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
         o[n][1] *= alpha;
       }
       // V's B fragments by ldmatrix.trans: matrix i of an x4 is keys
-      // 8 (i % 2).. of chunk m + i / 2 of the warp's slice.
+      // 8 (i % 2).. of chunk m + i / 2.
 #pragma unroll
       for (int m = 0; m < 16; m += 2) {
         uint32_t b0, b1, b2, b3;
         ldsm_x4_trans(sV + swz<HD>(kw + 8 * ((lane >> 3) & 1) + (lane & 7),
-                                   16 * slice + m + (lane >> 4)),
+                                   m + (lane >> 4)),
                       b0, b1, b2, b3);
         mma_bf16(o[m], pa0, pa2, b0, b1);
         mma_bf16(o[m + 1], pa0, pa2, b2, b3);
@@ -650,24 +793,30 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
 
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
-  constexpr int kORow = Gm::kORow;
-  float* sO = reinterpret_cast<float*>(ring);  // [kWarps][G][kORow]
-  float* sML = sO + kWarps * G * kORow;        // [kWarps][G][2]
-  if constexpr (kFp8) {
+  float* sO = reinterpret_cast<float*>(ring);  // [kWarps][G][HD]
+  float* sML = sO + kWarps * G * HD;           // [kWarps][G][2]
+  if constexpr (Gm::kOT) {
 #pragma unroll
     for (int n = 0; n < kOTiles; ++n) {
-      const int d = 128 * (n / 8) + 16 * grp + 2 * (n % 8);
-      if (2 * tig < G)
-        *reinterpret_cast<float2*>(sO + (warp * G + 2 * tig) * kORow + d) =
-            make_float2(o[n][0], o[n][2]);
-      if (2 * tig + 1 < G)
-        *reinterpret_cast<float2*>(sO + (warp * G + 2 * tig + 1) * kORow +
-                                   d) = make_float2(o[n][1], o[n][3]);
+      // The dims of this lane's rows of m-tile n: (c0, c1) at d, (c2, c3)
+      // at d + dd.
+      const int d = kFp8 ? 128 * (n / 8) + 16 * grp + 2 * (n % 8)
+                         : 16 * n + grp;
+      constexpr int dd = kFp8 ? 1 : 8;
+      float* r0 = sO + (warp * G + 2 * tig) * HD + d;
+      if (2 * tig < G) {
+        r0[0] = o[n][0];
+        r0[dd] = o[n][2];
+      }
+      if (2 * tig + 1 < G) {
+        r0[HD] = o[n][1];
+        r0[HD + dd] = o[n][3];
+      }
     }
   }
   if (grp < G) {
-    if constexpr (!kFp8) {
-      float* row = sO + (warp * G + grp) * kSliceDims + 2 * tig;
+    if constexpr (!Gm::kOT) {
+      float* row = sO + (warp * G + grp) * HD + 2 * tig;
 #pragma unroll
       for (int n = 0; n < 16; ++n) {
         row[8 * n] = o[n][0];
@@ -682,38 +831,28 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
   __syncthreads();
 
   // The block's state: thread tid merges dim tid of each 128-dim slice of
-  // every head over the warps that hold it (bf16: the slice's key groups;
-  // e4m3: all four). At HD 256 the two slices' warps of a bf16 key group
-  // hold the same (m, l), so slice 0's serve the workspace.
-  constexpr int kSlices = HD / kSliceDims;
-  constexpr int kGroups = kFp8 ? kWarps : Gm::kKeyGroups;
+  // every head over the four warps.
+  constexpr int kSlices = HD / 128;
   float acc[kSlices][G], Mg[G], Lg[G];
 #pragma unroll
-  for (int sl = 0; sl < kSlices; ++sl) {
-    const int w0 = kFp8 ? 0 : kGroups * sl;  // the slice's first warp
-    const int dim = kFp8 ? kSliceDims * sl + tid : tid;
+  for (int g = 0; g < G; ++g) {
+    float M = -INFINITY;
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float M = -INFINITY;
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sML[(w * G + g) * 2]);
+    float L = 0.f, A[kSlices] = {};
 #pragma unroll
-      for (int kg = 0; kg < kGroups; ++kg) {
-        M = fmaxf(M, sML[((kg + w0) * G + g) * 2]);
-      }
-      float L = 0.f, A = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float c =
+          M == -INFINITY ? 0.f : fast_exp2(sML[(w * G + g) * 2] - M);
+      L += sML[(w * G + g) * 2 + 1] * c;
 #pragma unroll
-      for (int kg = 0; kg < kGroups; ++kg) {
-        const int w = kg + w0;
-        const float c =
-            M == -INFINITY ? 0.f : fast_exp2(sML[(w * G + g) * 2] - M);
-        L += sML[(w * G + g) * 2 + 1] * c;
-        A += sO[(w * G + g) * kORow + dim] * c;
-      }
-      acc[sl][g] = A;
-      if (sl == 0) {
-        Mg[g] = M;
-        Lg[g] = L;
-      }
+      for (int sl = 0; sl < kSlices; ++sl)
+        A[sl] += sO[(w * G + g) * HD + 128 * sl + tid] * c;
     }
+#pragma unroll
+    for (int sl = 0; sl < kSlices; ++sl) acc[sl][g] = A[sl];
+    Mg[g] = M;
+    Lg[g] = L;
   }
 
   bf16* dst = out + ((size_t)b * H + kh * G) * HD + tid;
@@ -722,7 +861,7 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
     for (int sl = 0; sl < kSlices; ++sl) {
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        dst[g * HD + kSliceDims * sl] =
+        dst[g * HD + 128 * sl] =
             __float2bfloat16(Lg[g] == 0.f ? 0.f : acc[sl][g] / Lg[g]);
       }
     }
@@ -737,7 +876,7 @@ decode_split_kernel(const bf16* __restrict__ q, CT* cache,
   for (int sl = 0; sl < kSlices; ++sl) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      accs[((size_t)split * G + g) * HD + kSliceDims * sl + tid] = acc[sl][g];
+      accs[((size_t)split * G + g) * HD + 128 * sl + tid] = acc[sl][g];
     }
   }
   if (tid == 0) {

@@ -8,13 +8,13 @@
 // and 256 runs elsewhere: decode and decode-write on the split-KV kernel
 // of decode_splitkv.cuh, prefill on the tensor cores (prefill_wgmma.cuh).
 //
-//   paged_decode_kernel        <- _decode_kernel (one query token per
-//                                 sequence)
-//   paged_decode_write_kernel  <- _decode_write_kernel (the decode step with
-//                                 this step's K/V row written into its page
-//                                 first; PST_FUSED_KV_WRITE=1)
-//   paged_prefill_kernel       <- _prefill_kernel (chunked-prefill flash
-//                                 attention)
+//   paged_decode_kernel<..., false> <- _decode_kernel (one query token per
+//                                      sequence)
+//   paged_decode_kernel<..., true>  <- _decode_write_kernel (the decode step
+//                                      with this step's K/V row written into
+//                                      its page; PST_FUSED_KV_WRITE=1)
+//   paged_prefill_kernel            <- _prefill_kernel (chunked-prefill
+//                                      flash attention)
 //
 // Layouts (identical to the JAX package):
 //   cache        [L, nb, 2, bs, KH*HD]  page = K rows (index 0) then V rows
@@ -47,11 +47,40 @@
 // version.
 //
 // What bounds them on an H100 (3.35 TB/s; 67 TFLOP/s fp32 off the tensor
-// cores): decode reads every live K/V row of the sequence once, one block
-// per (sequence, kv head) with no split of the keys; decode-write adds one
-// K and one V row per (sequence, kv head). Prefill is bound by operations,
-// 4*H*HD*T*(start+T/2) FLOP per layer, run on the CUDA cores in fp32 so
-// that the products are not rounded to bf16.
+// cores): decode and decode-write read every live K/V row once (bytes).
+// Prefill is bound by operations, 4*H*HD*T*(start+T/2) FLOP per layer, run
+// on the CUDA cores in fp32 so that the products are not rounded to bf16.
+//
+// Decode design: grid (B, KH, S), 8 warps. The keys of each (sequence, kv
+// head) are cut into S runs of tiles (splits.cuh's split_run, as the
+// split-KV kernel cuts them); S comes from a plan of shapes only
+// (simt_decode_plan in paged_attention_cuda.py: as many as fill one wave
+// of the blocks an SM's shared memory holds, at most one a tile and one a
+// 256 KB of K and V), and the S partial states merge in the same launch
+// through splits.cuh's ticket, in split order, so two launches give the
+// same bits. A tile (about 16 KB of K rows) is gathered through the table
+// by cp.async into a 3-slot ring, so two tiles are in flight while one is
+// read. A tile's scores of a lane group are computed first, then one max
+// update, one rescale and the exp2s of the tile (log2 domain); the
+// softcap's tanhf runs only with a softcap. Measured on an NVIDIA H100
+// 80GB HBM3 at 700 W (PERF.md), at fp32 Llama-3-8B heads, B = 8 x 4096
+// (the byte bound 0.080 ms): the previous form (grid (B, KH), each lane
+// four key rows in flight, two expf a key) 0.437 ms; this one at 4 warps
+// a block 0.167, at 8 warps 0.101. At tiny-llama-debug's heads (B = 8 x
+// 1024, 8.4 MB) it is 0.0092 ms at one split (0.0086-0.0095 at 2 to 8)
+// against an empty kernel's 0.0019 queued the same way: the table, the
+// data and (with S > 1) the merge's fence, ticket and reload are serial
+// round trips, so a row's 128 KB takes one split.
+//
+// Decode-write: blocks of a launch are not ordered, so no block reads the
+// row this step writes: every split casts the new K and V rows (by
+// to_cache) into shared memory and substitutes them for the key whose
+// flat slot table[pos / bs] * bs + pos % bs is write_flat[b]; split 0
+// alone stores them into the cache; a slot outside [0, nb*bs) stores and
+// substitutes nothing. This needs the rule the engine keeps (checked on
+// the CPU by tests/test_torch_decode_split.py): a sequence writes only
+// into its own last page, and shared prefix pages are full, so no other
+// row reads the written slot in the same step.
 
 #pragma once
 
@@ -64,6 +93,8 @@
 #include <type_traits>
 
 #include "fp8.cuh"
+#include "sm90.cuh"
+#include "splits.cuh"
 
 // Included by paged_attention.cu (decode), paged_attention_write.cu
 // (decode-write) and paged_attention_prefill.cu (prefill): one nvcc each,
@@ -90,16 +121,30 @@ struct Params {
   cudaStream_t stream;
 };
 
+// A launch: Params and, for the decode, the split count and, with S > 1,
+// the splits' partial states and B*KH tickets (zero, and left zero). The
+// decode kernel takes it whole, the prefill kernel Params alone: three
+// more fields in Params moved ptxas to spill in paged_prefill_kernel
+// instantiations that had not spilled (fp32 at head_dim 16 became 17 %
+// slower on an NVIDIA H100 80GB HBM3).
+struct Launch {
+  Params p;
+  int splits;
+  float* ws;
+  int* counters;
+};
+
 // ---------------------------------------------------------------------------
-// Four consecutive elements (16, 8 or 4 bytes) loaded and converted to
-// fp32. The read-only path (ld.global.nc) is not coherent with stores made
-// earlier in the same kernel, so a kernel that writes the cache before
-// reading it loads through L2 (ld.global.cg) instead: kCoherent.
+// Four consecutive elements (16, 8 or 4 bytes) loaded through the
+// read-only path (ld.global.nc, not coherent with stores made earlier in
+// the same kernel: every caller reads what its launch does not write) and
+// converted to fp32.
 // ---------------------------------------------------------------------------
 
-template <bool kCoherent, typename V>
+constexpr int kVec = 4;  // values a load
+
+template <typename V>
 __device__ __forceinline__ V load_vec(const void* p) {
-  if constexpr (kCoherent) return __ldcg(reinterpret_cast<const V*>(p));
   return __ldg(reinterpret_cast<const V*>(p));
 }
 
@@ -108,9 +153,8 @@ struct Vec4;
 
 template <>
 struct Vec4<float> {
-  template <bool kCoherent>
   __device__ static inline void load(const float* p, float* o) {
-    const uint4 r = load_vec<kCoherent, uint4>(p);
+    const uint4 r = load_vec<uint4>(p);
     o[0] = __uint_as_float(r.x);
     o[1] = __uint_as_float(r.y);
     o[2] = __uint_as_float(r.z);
@@ -121,9 +165,8 @@ struct Vec4<float> {
 
 template <>
 struct Vec4<bf16> {
-  template <bool kCoherent>
   __device__ static inline void load(const bf16* p, float* o) {
-    const uint2 r = load_vec<kCoherent, uint2>(p);
+    const uint2 r = load_vec<uint2>(p);
     o[0] = __uint_as_float(r.x << 16);
     o[1] = __uint_as_float(r.x & 0xffff0000u);
     o[2] = __uint_as_float(r.y << 16);
@@ -134,9 +177,8 @@ struct Vec4<bf16> {
 
 template <>
 struct Vec4<e4m3> {
-  template <bool kCoherent>
   __device__ static inline void load(const e4m3* p, float* o) {
-    const unsigned r = load_vec<kCoherent, unsigned>(p);
+    const unsigned r = load_vec<unsigned>(p);
     const float2 a = pst_fp8::e4m3x2_to_float2(r);
     const float2 b = pst_fp8::e4m3x2_to_float2(r >> 16);
     o[0] = a.x;
@@ -145,6 +187,32 @@ struct Vec4<e4m3> {
     o[3] = b.y;
   }
 };
+
+// The decode's four values from its shared-memory ring, converted to fp32
+// as Vec4 converts them.
+__device__ __forceinline__ void lds4(const float* p, float* o) {
+  const float4 r = *reinterpret_cast<const float4*>(p);
+  o[0] = r.x;
+  o[1] = r.y;
+  o[2] = r.z;
+  o[3] = r.w;
+}
+__device__ __forceinline__ void lds4(const bf16* p, float* o) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  o[0] = __uint_as_float(r.x << 16);
+  o[1] = __uint_as_float(r.x & 0xffff0000u);
+  o[2] = __uint_as_float(r.y << 16);
+  o[3] = __uint_as_float(r.y & 0xffff0000u);
+}
+__device__ __forceinline__ void lds4(const e4m3* p, float* o) {
+  const unsigned r = *reinterpret_cast<const unsigned*>(p);
+  const float2 a = pst_fp8::e4m3x2_to_float2(r);
+  const float2 b = pst_fp8::e4m3x2_to_float2(r >> 16);
+  o[0] = a.x;
+  o[1] = a.y;
+  o[2] = b.x;
+  o[3] = b.y;
+}
 
 // One value of q's type (a row of k_new / v_new) into the cache's type:
 // exact into its own type, by cast_e4m3 (JAX's cast) into e4m3.
@@ -175,71 +243,198 @@ __device__ inline int window_eff(int window) {
 }
 
 // ---------------------------------------------------------------------------
-// Decode: grid (B, KH), block kDecodeWarps warps.
+// Decode and decode-write: grid (B, KH, S), kDecodeThreads threads.
 //
 // A key row of one kv head is HD values = LPK lanes of VPL values (4, or
-// HD / 32 where that is more: 8 at HD 256), so a warp processes KPW = 32 /
-// LPK keys at once; each warp walks its own interleaved slice of
-// [lo, kv_len) with UNR independent loads in flight (kDecodeUnroll, half
-// that at 8 values a lane), keeps (m, l, acc) for each of the G query
-// heads in registers, and the partial states are merged across lanes, then
-// warps, at the end, through dynamic shared memory (decode_smem: 64 KB at
-// HD 256 and 8 heads). The state arrays hold GM >= G heads (GM in 1, 2, 4,
-// 8); heads G.. GM - 1 run on zero queries and are never stored.
+// HD / 32 where that is more: 8 at HD 256), so a warp takes KPW = 32 / LPK
+// keys a step. The block's run of key tiles (split_run, as the split-KV
+// kernel cuts them) is gathered through the table by cp.async into a
+// kDecodeStages-slot ring; warp w takes keys (i * kDecodeWarps + w) * KPW
+// + lane / LPK of a tile in its steps i = 0 .. kSteps - 1, each lane group
+// with its own (m, l, acc) for the GM heads. A tile's kSteps scores of a
+// lane group are computed first, then one max update, one rescale and
+// kSteps exp2s (log2 domain) a head. The lane groups merge by shuffles,
+// the warps in shared memory, the splits through splits.cuh's ticket in
+// split order. GM >= G heads (1, 2, 4, 8); heads G.. GM - 1 run on zero
+// queries and are never stored.
 // ---------------------------------------------------------------------------
 
 constexpr int kDecodeWarps = 8;
-constexpr int kDecodeUnroll = 4;
-constexpr int kVec = 4;
+constexpr int kDecodeThreads = 32 * kDecodeWarps;
+constexpr int kDecodeStages = 3;
+constexpr int kDecodeMaxSplits = 64;
+constexpr int kDecodePageCap = 1024;  // table entries kept in shared memory
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <int GM, int HD>
-constexpr size_t decode_smem() {
-  return sizeof(float) * (size_t)kDecodeWarps * GM * HD;  // the warps' acc
-}
-
-template <typename Tq, typename Tc, int GM, int HD, bool kCoherent>
-__device__ __forceinline__ void decode_body(const Params& p) {
-  constexpr int VPL = HD / kVec > 32 ? HD / 32 : kVec;  // values a lane
-  constexpr int LPK = HD / VPL;  // lanes per key row
-  constexpr int KPW = 32 / LPK;  // keys per warp step
-  constexpr int UNR = VPL > kVec ? kDecodeUnroll / 2 : kDecodeUnroll;
+// The tile of a cache of Tc at head dim HD (paged_attention_cuda.py's
+// simt_tile mirrors kKeys): about 16 KB of K rows, at most 8 steps a warp
+// and 128 keys.
+template <typename Tc, int HD>
+struct SimtGeo {
+  static constexpr int VPL = HD / 4 > 32 ? HD / 32 : 4;  // values a lane
+  static constexpr int LPK = HD / VPL;                    // lanes a key row
+  static constexpr int KPW = 32 / LPK;                    // keys a warp step
+  static constexpr int kRowBytes = HD * (int)sizeof(Tc);
+  static constexpr int kStepKeys = kDecodeWarps * KPW;
+  static constexpr int kByBytes = 16384 / kRowBytes;
+  static constexpr int kCap = 8 * kStepKeys < 128 ? 8 * kStepKeys : 128;
+  static constexpr int kKeys =
+      kByBytes < kStepKeys ? kStepKeys : (kByBytes < kCap ? kByBytes : kCap);
+  static constexpr int kSteps = kKeys / kStepKeys;
+  static constexpr int kChunks = kRowBytes / 16;  // 16-byte pieces a row
+  static constexpr int kPieces = kKeys * kChunks;  // of K (and of V) a tile
+  static constexpr int kTileBytes = kKeys * kRowBytes;
+  static constexpr int kSmem = kDecodeStages * 2 * kTileBytes;
   static_assert(LPK <= 32 && 32 % LPK == 0, "head_dim / lane mismatch");
+  static_assert(kKeys % kStepKeys == 0 && kSteps <= 8, "steps a tile");
+};
 
-  __shared__ float sm_m[kDecodeWarps][GM];
-  __shared__ float sm_l[kDecodeWarps][GM];
-  extern __shared__ float smem[];  // [kDecodeWarps][GM][HD]
-  float (*sm_acc)[GM][HD] = reinterpret_cast<float (*)[GM][HD]>(smem);
+template <typename Tq, typename Tc, int GM, int HD, bool kWrite>
+__global__ void __launch_bounds__(kDecodeThreads)
+paged_decode_kernel(const Launch dp) {
+  const Params& p = dp.p;
+  using Gm = SimtGeo<Tc, HD>;
+  constexpr int VPL = Gm::VPL, LPK = Gm::LPK, KPW = Gm::KPW;
+  constexpr int kKeys = Gm::kKeys, kSteps = Gm::kSteps;
+  static_assert(kDecodeWarps * GM * (HD + 2) * 4 <= Gm::kSmem,
+                "the warps' states fit the ring");
+  static_assert(2 * kDecodeMaxSplits * GM * 4 <= Gm::kSmem,
+                "the merge's weights fit the ring");
+  extern __shared__ __align__(16) uint8_t ring[];
+  __shared__ int sPages[kDecodePageCap];
+  // Decode-write: the new K and V rows in the cache's type.
+  __shared__ __align__(16) uint8_t sNew[2][kWrite ? Gm::kRowBytes : 16];
+  __shared__ float sL[GM];
 
   const Tq* q = static_cast<const Tq*>(p.q);
   const Tc* cache = static_cast<const Tc*>(p.cache);
   const int b = blockIdx.x;
   const int kh = blockIdx.y;
+  const int split = blockIdx.z;
+  const int S = gridDim.z;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const int G = p.G;
   const int H = p.KH * G;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   const int sub = lane / LPK;  // which key of the warp step
-  const int sl = lane % LPK;   // which 4-value slice of the row
+  const int sl = lane % LPK;   // which VPL-value slice of the row
 
   const int kv_len = p.kv_lens[b];
   // The query sits at position kv_len - 1 and sees keys >= kv_len - window:
-  // pages wholly below that are never read.
+  // tiles wholly below that are never read.
   const int lo = max(kv_len - window_eff(p.window), 0);
+  int t0;
+  const int n_t = pst_splits::split_run(lo, kv_len, kKeys, split, S, t0);
+
+  const size_t lanes = (size_t)p.KH * HD;
+  const size_t page_stride = 2 * (size_t)p.bs * lanes;
+  const Tc* layer_base =
+      cache + (size_t)p.layer * p.nb * page_stride + (size_t)kh * HD;
+  const int* trow = p.tables + (size_t)b * p.W;
+
+  // Decode-write: this step's row cast into the cache's type (sNew), which
+  // every split substitutes for the key at the write slot and split 0
+  // alone stores. No block reads the slot from the cache: blocks of a
+  // launch are not ordered.
+  int wf = -1;
+  if constexpr (kWrite) {
+    const int w = p.write_flat[b];
+    if (w >= 0 && w < p.nb * p.bs) {
+      wf = w;
+      Tc* krow = static_cast<Tc*>(p.cache) +
+                 (((size_t)p.layer * p.nb + w / p.bs) * 2 * p.bs + w % p.bs) *
+                     lanes +
+                 (size_t)kh * HD;
+      const size_t src = (size_t)b * lanes + (size_t)kh * HD;
+      const Tq* kn = static_cast<const Tq*>(p.k_new) + src;
+      const Tq* vn = static_cast<const Tq*>(p.v_new) + src;
+      for (int i = tid; i < HD; i += kDecodeThreads) {
+        const Tc kc = to_cache<Tc>(to_float(kn[i]));
+        const Tc vc = to_cache<Tc>(to_float(vn[i]));
+        reinterpret_cast<Tc*>(sNew[0])[i] = kc;
+        reinterpret_cast<Tc*>(sNew[1])[i] = vc;
+        if (split == 0) {
+          krow[i] = kc;
+          krow[(size_t)p.bs * lanes + i] = vc;
+        }
+      }
+    }
+  }
+
+  // The block's slice of the table row, loaded once up front: entries
+  // [p_lo, p_lo + kDecodePageCap) live in shared memory, any beyond are
+  // read from the table.
+  const int p_lo = min(t0 * kKeys / p.bs, p.W - 1);
+  const int p_n = min((t0 + n_t) * kKeys / p.bs, p.W - 1) + 1 - p_lo;
+  for (int i = tid; i < min(p_n, kDecodePageCap); i += kDecodeThreads)
+    sPages[i] = __ldg(trow + p_lo + i);
+  __syncthreads();  // sPages and sNew
+  auto page_of = [&](int pos) {
+    // A table shorter than kv_len is a caller error; the clamp (as in the
+    // TPU kernel's page loop) keeps the read inside the table.
+    const int pi = min(pos / p.bs, p.W - 1) - p_lo;
+    return pi < kDecodePageCap ? sPages[pi] : __ldg(trow + p_lo + pi);
+  };
+  // Thread tid copies 16-byte pieces tid + j * kDecodeThreads of a tile's
+  // K rows (and the same of its V rows), row-major: piece i is chunk i %
+  // kChunks of row i / kChunks. Keys outside [lo, kv_len) are zero-filled.
+  auto copy_tile = [&](int it) {
+    uint8_t* const slot = ring + (it % kDecodeStages) * 2 * Gm::kTileBytes;
+    const uint32_t sK = pst_sm90::smem_u32(slot);
+    const uint32_t sV = sK + Gm::kTileBytes;
+#pragma unroll
+    for (int j = 0; j < (Gm::kPieces + kDecodeThreads - 1) / kDecodeThreads;
+         ++j) {
+      const int i = tid + j * kDecodeThreads;
+      if (Gm::kPieces % kDecodeThreads && i >= Gm::kPieces) break;
+      const int r = i / Gm::kChunks, c = i % Gm::kChunks;
+      const int pos = (t0 + it) * kKeys + r;
+      const bool ok = pos >= lo && pos < kv_len;
+      const void* src_k = cache;  // a valid address when nothing is read
+      const void* src_v = cache;
+      if (ok) {
+        const int pg = page_of(pos);
+        if (kWrite && pg * p.bs + pos % p.bs == wf) {
+          *reinterpret_cast<uint4*>(slot + 16 * i) =
+              *reinterpret_cast<const uint4*>(&sNew[0][16 * c]);
+          *reinterpret_cast<uint4*>(slot + Gm::kTileBytes + 16 * i) =
+              *reinterpret_cast<const uint4*>(&sNew[1][16 * c]);
+          continue;
+        }
+        const uint8_t* row = reinterpret_cast<const uint8_t*>(
+            layer_base + (size_t)pg * page_stride +
+            (size_t)(pos % p.bs) * lanes);
+        src_k = row + 16 * c;
+        src_v = row + (size_t)p.bs * lanes * sizeof(Tc) + 16 * c;
+      }
+      pst_sm90::cp_async16(sK + 16 * i, src_k, ok);
+      pst_sm90::cp_async16(sV + 16 * i, src_v, ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kDecodeStages - 1; ++s) {
+    if (s < n_t) copy_tile(s);
+    pst_sm90::cp_async_commit();
+  }
 
   float qv[GM][VPL];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
 #pragma unroll
-    for (int v = 0; v < VPL; v += kVec) {
+    for (int v = 0; v < VPL; v += 4) {
       if (g < G) {
-        Vec4<Tq>::template load<false>(
+        Vec4<Tq>::load(
             q + ((size_t)b * H + kh * G + g) * HD + sl * VPL + v, qv[g] + v);
       } else {
 #pragma unroll
-        for (int i = 0; i < kVec; ++i) qv[g][v + i] = 0.f;
+        for (int i = 0; i < 4; ++i) qv[g][v + i] = 0.f;
       }
     }
   }
+  const bool capped = p.softcap > 0.f;
+  const float c_scale = capped ? p.scale / p.softcap : p.scale * kLog2e;
+  const float c_cap = p.softcap * kLog2e;
   float m[GM], l[GM], acc[GM][VPL];
 #pragma unroll
   for (int g = 0; g < GM; ++g) {
@@ -249,63 +444,96 @@ __device__ __forceinline__ void decode_body(const Params& p) {
     for (int i = 0; i < VPL; ++i) acc[g][i] = 0.f;
   }
 
-  const size_t lanes = (size_t)p.KH * HD;
-  const size_t page_stride = 2 * (size_t)p.bs * lanes;
-  const Tc* base_ptr = cache + (size_t)p.layer * p.nb * page_stride +
-                       (size_t)kh * HD + sl * VPL;
-  const int* trow = p.tables + (size_t)b * p.W;
-  constexpr int kStep = kDecodeWarps * KPW;
+  for (int it = 0; it < n_t; ++it) {
+    pst_sm90::cp_async_wait<kDecodeStages - 2>();
+    // Tile it has landed for every thread, and every thread is done with
+    // tile it - 1, whose slot the next copy refills.
+    __syncthreads();
+    if (it + kDecodeStages - 1 < n_t) copy_tile(it + kDecodeStages - 1);
+    pst_sm90::cp_async_commit();
 
-  for (int base = lo + warp * KPW; base < kv_len; base += kStep * UNR) {
-    float kf[UNR][VPL], vf[UNR][VPL];
-    bool live[UNR];
+    const Tc* const sk = reinterpret_cast<const Tc*>(
+        ring + (it % kDecodeStages) * 2 * Gm::kTileBytes);
+    const Tc* const sv = sk + kKeys * HD;
+    const int key0 = (t0 + it) * kKeys + warp * KPW + sub;
+    // Scores of this lane group's kSteps keys (log2 domain; -inf where
+    // masked), then one max update a head. The softcap's branch is taken
+    // once a tile, around the loops: tanhf is not evaluated without one.
+    float x[kSteps][GM];
 #pragma unroll
-    for (int u = 0; u < UNR; ++u) {
-      const int pos = base + u * kStep + sub;
-      live[u] = pos < kv_len;
-      if (live[u]) {
-        // A table shorter than kv_len is a caller error; the clamp (as in
-        // the TPU kernel's page loop) keeps the read inside the table.
-        const Tc* kp = base_ptr +
-                       (size_t)trow[min(pos / p.bs, p.W - 1)] * page_stride +
-                       (size_t)(pos % p.bs) * lanes;
+    for (int i = 0; i < kSteps; ++i) {
+      const int r = i * Gm::kStepKeys + warp * KPW + sub;
+      float kf[VPL];
 #pragma unroll
-        for (int v = 0; v < VPL; v += kVec) {
-          Vec4<Tc>::template load<kCoherent>(kp + v, kf[u] + v);
-          Vec4<Tc>::template load<kCoherent>(kp + (size_t)p.bs * lanes + v,
-                                             vf[u] + v);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < VPL; ++i) kf[u][i] = vf[u][i] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UNR; ++u) {
+      for (int v = 0; v < VPL; v += 4) lds4(sk + r * HD + sl * VPL + v, kf + v);
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
-        float s = 0.f;
+        float d = 0.f;
 #pragma unroll
-        for (int i = 0; i < VPL; ++i) s += qv[g][i] * kf[u][i];
+        for (int v = 0; v < VPL; ++v) d += qv[g][v] * kf[v];
 #pragma unroll
         for (int off = LPK / 2; off > 0; off >>= 1)
-          s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (live[u]) {
-          s = softcap_score(s, p.scale, p.softcap);
-          const float mn = fmaxf(m[g], s);
-          const float alpha = expf(m[g] - mn);
-          const float pr = expf(s - mn);
-          l[g] = l[g] * alpha + pr;
+          d += __shfl_xor_sync(0xffffffffu, d, off);
+        x[i][g] = d;
+      }
+    }
+    if (capped) {
 #pragma unroll
-          for (int i = 0; i < VPL; ++i)
-            acc[g][i] = acc[g][i] * alpha + pr * vf[u][i];
-          m[g] = mn;
-        }
+      for (int i = 0; i < kSteps; ++i)
+#pragma unroll
+        for (int g = 0; g < GM; ++g) x[i][g] = tanhf(x[i][g] * c_scale) * c_cap;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kSteps; ++i)
+#pragma unroll
+        for (int g = 0; g < GM; ++g) x[i][g] *= c_scale;
+    }
+    float mx[GM];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) mx[g] = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      const int pos = key0 + i * Gm::kStepKeys;
+      const bool live = pos >= lo && pos < kv_len;
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        x[i][g] = live ? x[i][g] : -INFINITY;
+        mx[g] = fmaxf(mx[g], x[i][g]);
+      }
+    }
+    float mb[GM];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      const float m_new = fmaxf(m[g], mx[g]);
+      // No live key yet: every p is 0 and nothing is rescaled.
+      mb[g] = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = pst_sm90::fast_exp2(m[g] - mb[g]);
+      m[g] = m_new;
+      l[g] *= alpha;
+#pragma unroll
+      for (int v = 0; v < VPL; ++v) acc[g][v] *= alpha;
+    }
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      const int r = i * Gm::kStepKeys + warp * KPW + sub;
+      float vf[VPL];
+#pragma unroll
+      for (int v = 0; v < VPL; v += 4) lds4(sv + r * HD + sl * VPL + v, vf + v);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        // A NaN score (an e4m3 K past 464) passes fmaxf by, but its p is
+        // NaN, and so are l and the output.
+        const float pr = pst_sm90::fast_exp2(x[i][g] - mb[g]);
+        l[g] += pr;
+#pragma unroll
+        for (int v = 0; v < VPL; ++v) acc[g][v] += pr * vf[v];
       }
     }
   }
+  pst_sm90::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the warps' states meet in it
 
-  // Merge the KPW key slots of the warp (lanes that share `sl`).
+  // Merge the KPW lane groups of the warp (lanes that share `sl`).
 #pragma unroll
   for (int off = LPK; off < 32; off <<= 1) {
 #pragma unroll
@@ -313,8 +541,8 @@ __device__ __forceinline__ void decode_body(const Params& p) {
       const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
       const float lo_ = __shfl_xor_sync(0xffffffffu, l[g], off);
       const float mn = fmaxf(m[g], mo);
-      const float a = m[g] == -INFINITY ? 0.f : expf(m[g] - mn);
-      const float c = mo == -INFINITY ? 0.f : expf(mo - mn);
+      const float a = m[g] == -INFINITY ? 0.f : pst_sm90::fast_exp2(m[g] - mn);
+      const float c = mo == -INFINITY ? 0.f : pst_sm90::fast_exp2(mo - mn);
       l[g] = l[g] * a + lo_ * c;
 #pragma unroll
       for (int i = 0; i < VPL; ++i) {
@@ -324,85 +552,80 @@ __device__ __forceinline__ void decode_body(const Params& p) {
       m[g] = mn;
     }
   }
+  float* sAcc = reinterpret_cast<float*>(ring);   // [kDecodeWarps][GM][HD]
+  float* sML = sAcc + kDecodeWarps * GM * HD;     // [kDecodeWarps][GM][2]
   if (sub == 0) {
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       if (sl == 0) {
-        sm_m[warp][g] = m[g];
-        sm_l[warp][g] = l[g];
+        sML[(warp * GM + g) * 2] = m[g];
+        sML[(warp * GM + g) * 2 + 1] = l[g];
       }
 #pragma unroll
-      for (int i = 0; i < VPL; ++i) sm_acc[warp][g][sl * VPL + i] = acc[g][i];
+      for (int i = 0; i < VPL; ++i)
+        sAcc[(warp * GM + g) * HD + sl * VPL + i] = acc[g][i];
     }
   }
   __syncthreads();
 
-  // Merge the warps; one thread per (head, element) of the G live heads.
+  // The block's state, one thread a (head, dim) of the G live heads: with
+  // one split the output, else this split's partial in the workspace
+  // (acc [B*KH][S][G][HD], then (m, l) [B*KH][S][G][2]).
   Tq* out = static_cast<Tq*>(p.out);
-  for (int t = threadIdx.x; t < G * HD; t += blockDim.x) {
+  const size_t pair = (size_t)b * p.KH + kh;
+  float* accs = dp.ws + pair * S * G * HD;
+  float* mls = dp.ws + (size_t)gridDim.x * p.KH * S * G * HD + pair * S * G * 2;
+  for (int t = tid; t < G * HD; t += kDecodeThreads) {
     const int g = t / HD, d = t % HD;
     float M = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) M = fmaxf(M, sm_m[w][g]);
-    // No live key: every l is 0 and the row writes 0. A NaN score (an e4m3
-    // K past 464) leaves m at -inf but l NaN, which carries to the output.
+    for (int w = 0; w < kDecodeWarps; ++w) M = fmaxf(M, sML[(w * GM + g) * 2]);
+    // No live key: every l is 0 and the row writes 0. A NaN score leaves
+    // m at -inf but l NaN, which carries to the output.
     float L = 0.f, A = 0.f;
 #pragma unroll
     for (int w = 0; w < kDecodeWarps; ++w) {
-      const float mw = sm_m[w][g];
-      const float c = mw == -INFINITY ? 0.f : expf(mw - M);
-      L += sm_l[w][g] * c;
-      A += sm_acc[w][g][d] * c;
+      const float mw = sML[(w * GM + g) * 2];
+      const float c = mw == -INFINITY ? 0.f : pst_sm90::fast_exp2(mw - M);
+      L += sML[(w * GM + g) * 2 + 1] * c;
+      A += sAcc[(w * GM + g) * HD + d] * c;
     }
-    const float res = L == 0.f ? 0.f : A / L;
-    out[((size_t)b * H + kh * G + g) * HD + d] = Vec4<Tq>::store(res);
+    if (S == 1) {
+      out[((size_t)b * H + kh * G + g) * HD + d] =
+          Vec4<Tq>::store(L == 0.f ? 0.f : A / L);
+    } else {
+      accs[((size_t)split * G + g) * HD + d] = A;
+      if (d == 0) {
+        mls[(split * G + g) * 2] = M;
+        mls[(split * G + g) * 2 + 1] = L;
+      }
+    }
   }
-}
+  if (S == 1 || !pst_splits::last_split(dp.counters + pair, S)) return;
 
-template <typename Tq, typename Tc, int GM, int HD>
-__global__ void __launch_bounds__(kDecodeWarps * 32)
-paged_decode_kernel(const Params p) {
-  decode_body<Tq, Tc, GM, HD, false>(p);
-}
-
-// ---------------------------------------------------------------------------
-// Decode with the KV write folded in: grid (B, KH), as decode.
-//
-// Block (b, kh) first writes lanes [kh*HD, (kh+1)*HD) of k_new[b] and
-// v_new[b] (q's type, cast into the cache's by to_cache) into layer
-// `layer`, page write_flat[b] / bs, row write_flat[b] %
-// bs (K row, and the V row bs rows later); a slot outside [0, nb*bs) writes
-// nothing. Then __syncthreads() and the decode loop, which reads the row
-// back from the cache, as the TPU kernel does (write_flat need not be
-// position kv_len - 1). A block reads only its own kv head's lanes, and a
-// sequence writes only into its own last page (shared prefix pages are
-// full), so no block depends on another block's write. The loop's cache
-// loads are coherent (load_vec<true>).
-// ---------------------------------------------------------------------------
-
-template <typename Tq, typename Tc, int GM, int HD>
-__global__ void __launch_bounds__(kDecodeWarps * 32)
-paged_decode_write_kernel(const Params p) {
-  const int b = blockIdx.x;
-  const int kh = blockIdx.y;
-  const size_t lanes = (size_t)p.KH * HD;
-  const int wf = p.write_flat[b];
-  if (wf >= 0 && wf < p.nb * p.bs) {
-    Tc* krow = static_cast<Tc*>(p.cache) +
-               (((size_t)p.layer * p.nb + wf / p.bs) * 2 * p.bs + wf % p.bs) *
-                   lanes +
-               (size_t)kh * HD;
-    Tc* vrow = krow + (size_t)p.bs * lanes;
-    const size_t src = (size_t)b * lanes + (size_t)kh * HD;
-    const Tq* kn = static_cast<const Tq*>(p.k_new);
-    const Tq* vn = static_cast<const Tq*>(p.v_new);
-    for (int i = threadIdx.x; i < HD; i += blockDim.x) {
-      krow[i] = to_cache<Tc>(to_float(kn[src + i]));
-      vrow[i] = to_cache<Tc>(to_float(vn[src + i]));
-    }
+  // The last block of (b, kh) merges the splits in split order: the
+  // weights 2^(m_s - M) of every (split, head), then one (head, dim) a
+  // thread. The weights live in the ring, which no copy uses any more.
+  float* sW = reinterpret_cast<float*>(ring);  // [kDecodeMaxSplits][GM]
+  float* sWl = sW + kDecodeMaxSplits * GM;
+  for (int i = tid; i < S * G; i += kDecodeThreads) {
+    sW[(i / G) * GM + i % G] = __ldcg(mls + 2 * i);
+    sWl[(i / G) * GM + i % G] = __ldcg(mls + 2 * i + 1);
   }
   __syncthreads();
-  decode_body<Tq, Tc, GM, HD, true>(p);
+  if (tid < G) sL[tid] = pst_splits::merge_weights(sW + tid, sWl + tid, GM, S);
+  __syncthreads();
+  for (int t = tid; t < G * HD; t += kDecodeThreads) {
+    const int g = t / HD;
+    float A = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < S; ++s)
+      A += __ldcg(accs + (size_t)s * G * HD + t) * sW[s * GM + g];
+    const float L = sL[g];
+    out[((size_t)b * H + kh * G + g) * HD + t % HD] =
+        Vec4<Tq>::store(L == 0.f ? 0.f : A / L);
+  }
+  if (tid == 0) dp.counters[pair] = 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -474,7 +697,7 @@ paged_prefill_kernel(const Params p) {
     const int t = t0 + r / G, g = r % G;
     float f[kVec];
     if (t < t_end) {
-      Vec4<Tq>::template load<false>(
+      Vec4<Tq>::load(
           q + (((size_t)b * T_len + t) * H + kh * G + g) * HD + c * kVec, f);
     } else {
 #pragma unroll
@@ -515,8 +738,8 @@ paged_prefill_kernel(const Params p) {
         const Tc* src = layer_base +
                         (size_t)trow[min(kp / p.bs, p.W - 1)] * page_stride +
                         (size_t)(kp % p.bs) * lanes + c * kVec;
-        Vec4<Tc>::template load<false>(src, kf);
-        Vec4<Tc>::template load<false>(src + (size_t)p.bs * lanes, vf);
+        Vec4<Tc>::load(src, kf);
+        Vec4<Tc>::load(src + (size_t)p.bs * lanes, vf);
       } else {
 #pragma unroll
         for (int i = 0; i < kVec; ++i) kf[i] = vf[i] = 0.f;
@@ -620,7 +843,8 @@ paged_prefill_kernel(const Params p) {
 enum Kind { kDecode, kDecodeWrite, kPrefill };
 
 template <Kind K, typename Tq, typename Tc, int GM, int HD>
-cudaError_t launch(const Params& p) {
+cudaError_t launch(const Launch& dp) {
+  const Params& p = dp.p;
   if constexpr (K == kPrefill) {
     constexpr size_t smem = prefill_smem<HD>();
     static bool smem_set = false;  // idempotent: a race only repeats the call
@@ -636,58 +860,49 @@ cudaError_t launch(const Params& p) {
     paged_prefill_kernel<Tq, Tc, HD>
         <<<grid, kPrefillThreads, smem, p.stream>>>(p);
   } else {
-    // The warps' accumulators: dynamic shared memory, past 48 KB at HD 256.
-    constexpr size_t smem = decode_smem<GM, HD>();
+    // The ring: dynamic shared memory, past 48 KB for the larger rows.
+    constexpr bool kW = K == kDecodeWrite;
+    constexpr int smem = SimtGeo<Tc, HD>::kSmem;
     static bool smem_set = false;  // idempotent: a race only repeats the call
-    if constexpr (K == kDecode) {
-      if (!smem_set) {
-        cudaError_t e = cudaFuncSetAttribute(
-            paged_decode_kernel<Tq, Tc, GM, HD>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return e;
-        smem_set = true;
-      }
-      paged_decode_kernel<Tq, Tc, GM, HD>
-          <<<dim3(p.B, p.KH), kDecodeWarps * 32, smem, p.stream>>>(p);
-    } else {
-      if (!smem_set) {
-        cudaError_t e = cudaFuncSetAttribute(
-            paged_decode_write_kernel<Tq, Tc, GM, HD>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return e;
-        smem_set = true;
-      }
-      paged_decode_write_kernel<Tq, Tc, GM, HD>
-          <<<dim3(p.B, p.KH), kDecodeWarps * 32, smem, p.stream>>>(p);
+    if (!smem_set) {
+      cudaError_t e = cudaFuncSetAttribute(
+          paged_decode_kernel<Tq, Tc, GM, HD, kW>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return e;
+      smem_set = true;
     }
+    paged_decode_kernel<Tq, Tc, GM, HD, kW>
+        <<<dim3(p.B, p.KH, dp.splits), kDecodeThreads, smem, p.stream>>>(dp);
   }
   return cudaGetLastError();
 }
 
 template <Kind K, typename Tq, typename Tc, int HD>
-cudaError_t by_group(const Params& p) {
+cudaError_t by_group(const Launch& dp) {
+  const Params& p = dp.p;
   if constexpr (K == kPrefill) {
-    return launch<K, Tq, Tc, 1, HD>(p);
+    return launch<K, Tq, Tc, 1, HD>(dp);
   } else {
-    if (p.G == 1) return launch<K, Tq, Tc, 1, HD>(p);
-    if (p.G == 2) return launch<K, Tq, Tc, 2, HD>(p);
-    if (p.G <= 4) return launch<K, Tq, Tc, 4, HD>(p);
-    return launch<K, Tq, Tc, 8, HD>(p);
+    if (p.G == 1) return launch<K, Tq, Tc, 1, HD>(dp);
+    if (p.G == 2) return launch<K, Tq, Tc, 2, HD>(dp);
+    if (p.G <= 4) return launch<K, Tq, Tc, 4, HD>(dp);
+    return launch<K, Tq, Tc, 8, HD>(dp);
   }
 }
 
 template <Kind K, typename Tq, typename Tc>
-cudaError_t by_head_dim(const Params& p) {
+cudaError_t by_head_dim(const Launch& dp) {
+  const Params& p = dp.p;
   switch (p.HD) {
-    case 16: return by_group<K, Tq, Tc, 16>(p);
-    case 32: return by_group<K, Tq, Tc, 32>(p);
-    case 64: return by_group<K, Tq, Tc, 64>(p);
+    case 16: return by_group<K, Tq, Tc, 16>(dp);
+    case 32: return by_group<K, Tq, Tc, 32>(dp);
+    case 64: return by_group<K, Tq, Tc, 64>(dp);
     case 128:
       // bf16 q at head_dim 128 and 256 runs on the tensor-core kernels.
-      if constexpr (std::is_same_v<Tq, float>) return by_group<K, Tq, Tc, 128>(p);
+      if constexpr (std::is_same_v<Tq, float>) return by_group<K, Tq, Tc, 128>(dp);
       break;
     case 256:
-      if constexpr (std::is_same_v<Tq, float>) return by_group<K, Tq, Tc, 256>(p);
+      if constexpr (std::is_same_v<Tq, float>) return by_group<K, Tq, Tc, 256>(dp);
       break;
   }
   return cudaErrorInvalidValue;
@@ -695,14 +910,19 @@ cudaError_t by_head_dim(const Params& p) {
 
 // Type codes: 0 = float32, 1 = bfloat16, 2 = float8_e4m3fn (cache only).
 template <Kind K>
-int dispatch(int q_dtype, int cache_dtype, const Params& p) {
+int dispatch(int q_dtype, int cache_dtype, const Launch& dp) {
+  const Params& p = dp.p;
   if (p.B == 0 || p.T == 0) return 0;
   if (p.KH <= 0 || p.G < 1 || p.G > 8 || p.KH > 65535 || p.B > 65535)
     return (int)cudaErrorInvalidValue;
-  if (q_dtype == 0 && cache_dtype == 0) return (int)by_head_dim<K, float, float>(p);
-  if (q_dtype == 0 && cache_dtype == 2) return (int)by_head_dim<K, float, e4m3>(p);
-  if (q_dtype == 1 && cache_dtype == 1) return (int)by_head_dim<K, bf16, bf16>(p);
-  if (q_dtype == 1 && cache_dtype == 2) return (int)by_head_dim<K, bf16, e4m3>(p);
+  if (K != kPrefill &&
+      (dp.splits < 1 || dp.splits > kDecodeMaxSplits ||
+       (dp.splits > 1 && (dp.ws == nullptr || dp.counters == nullptr))))
+    return (int)cudaErrorInvalidValue;
+  if (q_dtype == 0 && cache_dtype == 0) return (int)by_head_dim<K, float, float>(dp);
+  if (q_dtype == 0 && cache_dtype == 2) return (int)by_head_dim<K, float, e4m3>(dp);
+  if (q_dtype == 1 && cache_dtype == 1) return (int)by_head_dim<K, bf16, bf16>(dp);
+  if (q_dtype == 1 && cache_dtype == 2) return (int)by_head_dim<K, bf16, e4m3>(dp);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,5 +13,6 @@ extern "C" int pst_paged_prefill(int q_dtype, int cache_dtype, const void* q,
       make_params(q, const_cast<void*>(cache), tables, kv_lens, out, B, T_len,
                   H, KH, HD, nb, bs, W, layer, window, scale, softcap, stream);
   p.starts = starts;
-  return dispatch<kPrefill>(q_dtype, cache_dtype, p);
+  return dispatch<kPrefill>(q_dtype, cache_dtype,
+                           Launch{p, 1, nullptr, nullptr});
 }

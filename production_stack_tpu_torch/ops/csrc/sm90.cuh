@@ -74,6 +74,33 @@ __device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
                    bar)
                : "memory");
 }
+// An arrive that also expects `bytes` more of the phase's transactions
+// (cp.async.bulk completions); once after mbar_init, the fence that makes
+// the barriers visible to the async proxy.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "{\n"
+      ".reg .b64 state;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n"
+      "}\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// `bytes` (a multiple of 16) global -> shared by the bulk copy engine,
+// both 16-byte aligned; completes its bytes on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src,
+                                              uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   asm volatile(
       "{\n"

@@ -95,18 +95,17 @@ def _count(kind: str, route: str, cache_dtype: torch.dtype, hd: int) -> None:
                  f"{'_hd256' if hd == 256 else ''}"] += 1
 
 
-# decode_splitkv.cuh: keys a tile holds by head_dim (bf16: a tile is 32 KB
-# of K and V at either; e4m3: 64 keys, 16 or 32 KB), and the blocks an SM
-# holds (bf16: 96 KB of ring and 170-216 registers a thread; e4m3 at head
-# dim 128: a 48 KB ring and at most 128 registers, so four; at 256, 96 KB).
-# On an NVIDIA H100 80GB HBM3, at Llama-3-8B's heads and B in {1, 8, 16,
-# 32, 64}, the bf16 kernel was fastest with the grid one wave of them
-# (B*KH*S = 2 * 132) and no split under two tiles: a shorter one pays its
-# merge for too few keys.
+# decode_splitkv.cuh: keys a tile holds (16 a warp, 8 in bf16 at head_dim
+# 256), and the blocks an SM holds by head_dim and cache form (bf16: a 96
+# KB ring at either head dim, two; e4m3 at head_dim 128: a 48 KB ring and
+# at most 128 registers, so four; at 256, 96 KB, two). On an NVIDIA H100
+# 80GB HBM3, at Llama-3-8B's heads and B in {1, 8, 16, 32, 64}, the bf16
+# kernel was fastest with the grid one wave of them (B*KH*S = 2 * 132) and
+# no split under two tiles: a shorter one pays its merge for too few keys.
 SPLIT_TILES = {128: 64, 256: 32}
 SPLIT_TILES_E4M3 = {128: 64, 256: 64}
-_SPLIT_BLOCKS_PER_SM = 2
-_SPLIT_BLOCKS_PER_SM_E4M3 = {128: 4, 256: 2}
+_SPLIT_BLOCKS_PER_SM = {(128, False): 2, (256, False): 2, (128, True): 4,
+                        (256, True): 2}
 _SPLIT_MIN_TILES = 2
 _MAX_SPLITS = 64  # kMaxSplits
 
@@ -120,13 +119,11 @@ def decode_plan(B: int, KH: int, W: int, bs: int, n_sm: int, hd: int,
                 e4m3: bool = False) -> int:
     """Splits of each (sequence, kv head)'s keys for the split-KV kernel,
     from what the host knows (never ``kv_lens``): as many as keep B*KH*S
-    within one wave of the blocks an SM holds (two, or over an e4m3 cache
-    ``_SPLIT_BLOCKS_PER_SM_E4M3[hd]``), at most one split per two key
-    tiles (``split_tile(hd, e4m3)`` keys each) the table can hold, and at
-    most 64."""
+    within one wave of the blocks an SM holds (``_SPLIT_BLOCKS_PER_SM[hd,
+    e4m3]``), at most one split per two key tiles (``split_tile(hd,
+    e4m3)`` keys each) the table can hold, and at most 64."""
     tiles = -(-W * bs // split_tile(hd, e4m3))
-    per_sm = _SPLIT_BLOCKS_PER_SM_E4M3[hd] if e4m3 else _SPLIT_BLOCKS_PER_SM
-    fit = per_sm * n_sm // max(B * KH, 1)
+    fit = _SPLIT_BLOCKS_PER_SM[hd, e4m3] * n_sm // max(B * KH, 1)
     return max(1, min(fit, tiles // _SPLIT_MIN_TILES, _MAX_SPLITS))
 
 
@@ -155,6 +152,24 @@ def decode_split_keys(kv_len: int, window: int, splits: int, s: int,
     kv_len)``."""
     lo = max(kv_len - window_eff(window), 0)
     return _split_keys(lo, kv_len, split_tile(hd, e4m3), splits, s)
+
+
+# The bf16 form's staging layout and Oᵀ map at head_dim 256
+# (csrc/decode_splitkv.cuh), for the tests. A warp owns 8 keys of a tile;
+# lane = 4 grp + tig.
+
+def bf16_stage_offset(r: int, c: int, hd: int = 256) -> int:
+    """Byte offset of 16-byte chunk ``c`` (8 dims) of staged bf16 key row
+    ``r`` in a head_dim-256 tile: a whole row from the bulk copy engine,
+    rows 2 hd + 16 bytes apart (``Geo::kRowStride``)."""
+    return r * (2 * hd + 16) + 16 * c
+
+
+def bf16_o_dims(grp: int, t: int) -> Tuple[int, int]:
+    """The dims of rows ``grp`` and ``grp + 8`` of Oᵀ's m-tile ``t`` at
+    head_dim 256: chunks 2 t and 2 t + 1 of a V row, whose ldmatrix.trans
+    rows are the warp's 8 keys."""
+    return 16 * t + grp, 16 * t + grp + 8
 
 
 # The e4m3 form's fragment maps (csrc/decode_splitkv.cuh), for the tests.
@@ -192,6 +207,58 @@ def e4m3_o_dims(grp: int, t: int) -> Tuple[int, int]:
     row. Its columns are the heads."""
     d = 128 * (t // 8) + 16 * grp + 2 * (t % 8)
     return d, d + 1
+
+
+# paged_attention.cuh's CUDA-core decode: a key row is LPK lanes of VPL
+# values, a warp takes KPW keys a step, 8 warps a block; a tile holds about
+# 16 KB of K rows (at most 8 steps a warp and 128 keys), 3 tiles of K and
+# V in the ring. Blocks an SM: as many rings as fit 227 KB, at most 4. A
+# split reads at least 256 KB of K and V: on an NVIDIA H100 80GB HBM3 a
+# shorter one paid its merge (a fence, a ticket and a reload) for too few
+# bytes (PERF.md).
+SIMT_WARPS = 8
+_SIMT_STAGES = 3
+_SIMT_BLOCKS_PER_SM = 4
+_SMEM_PER_SM = 227 * 1024
+_SIMT_MIN_SPLIT_BYTES = 256 * 1024
+
+
+def simt_lanes(hd: int) -> Tuple[int, int, int]:
+    """(VPL, LPK, KPW) of the CUDA-core decode at head_dim ``hd``: values a
+    lane, lanes a key row, keys a warp step."""
+    vpl = hd // 32 if hd // 4 > 32 else 4
+    return vpl, hd // vpl, 32 // (hd // vpl)
+
+
+def simt_tile(hd: int, itemsize: int) -> int:
+    """Keys a tile of the CUDA-core decode holds over a cache of
+    ``itemsize``-byte values (``SimtGeo::kKeys``)."""
+    step = SIMT_WARPS * simt_lanes(hd)[2]
+    return max(step, min(16384 // (hd * itemsize), 8 * step, 128))
+
+
+def simt_decode_plan(B: int, KH: int, W: int, bs: int, n_sm: int, hd: int,
+                     itemsize: int) -> int:
+    """Splits of each (sequence, kv head)'s keys for the CUDA-core decode,
+    from shapes only (never ``kv_lens``): as many as keep B*KH*S within one
+    wave of the blocks an SM holds (as many rings as fit, at most 4), at
+    most one split a tile and one per 256 KB of K and V the table can
+    hold, and at most 64."""
+    tile = simt_tile(hd, itemsize)
+    ring = _SIMT_STAGES * 2 * tile * hd * itemsize
+    per_sm = max(1, min(_SIMT_BLOCKS_PER_SM, _SMEM_PER_SM // ring))
+    fit = per_sm * n_sm // max(B * KH, 1)
+    by_bytes = W * bs * 2 * hd * itemsize // _SIMT_MIN_SPLIT_BYTES
+    return max(1, min(fit, -(-W * bs // tile), by_bytes, _MAX_SPLITS))
+
+
+def simt_split_keys(kv_len: int, window: int, splits: int, s: int, hd: int,
+                    itemsize: int) -> Tuple[int, int]:
+    """The keys ``[k0, k1)`` that split ``s`` of ``splits`` of the CUDA-core
+    decode reads for a row of ``kv_len``: :func:`_split_keys` in tiles of
+    ``simt_tile(hd, itemsize)`` keys."""
+    lo = max(kv_len - window_eff(window), 0)
+    return _split_keys(lo, kv_len, simt_tile(hd, itemsize), splits, s)
 
 
 # prefill_wgmma.cuh: query rows a block takes (128 // G positions of the G
@@ -262,11 +329,20 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _launch_split(q3, kv_pages, block_tables, kv_lens, layer, write, scale,
-                  window, softcap):
-    """``decode_split_kernel`` on bf16 q; ``write`` is None (decode) or
-    (k_new, v_new, write_flat), the rows in bf16 (the kernel casts them into
-    an e4m3 cache). Returns [B, H, hd]."""
+def _ptr(t):
+    """A tensor's address, or a null pointer for what a launch does not
+    use."""
+    return None if t is None else t.data_ptr()
+
+
+def _launch_decode(route, q3, kv_pages, block_tables, kv_lens, layer, write,
+                   scale, window, softcap):
+    """A decode (``write`` None) or decode-write (``write`` = (k_new, v_new,
+    write_flat), the rows in q's type; the kernel casts them into the
+    cache's) on ``route``: ``"split"`` (``decode_split_kernel``, bf16 q) or
+    ``"simt"`` (``paged_decode_kernel``). Both split each (sequence, kv
+    head)'s keys over blocks from a plan of shapes only and merge the
+    splits in the launch. Returns [B, H, hd]."""
     from ._build import load
 
     lib = load()
@@ -274,8 +350,12 @@ def _launch_split(q3, kv_pages, block_tables, kv_lens, layer, write, scale,
     _, nb, _, bs, lanes = kv_pages.shape
     KH = lanes // hd
     W = block_tables.shape[1]
-    splits = decode_plan(B, KH, W, bs, _sm_count(q3.device), hd,
-                         kv_pages.dtype == E4M3)
+    n_sm = _sm_count(q3.device)
+    if route == "split":
+        splits = decode_plan(B, KH, W, bs, n_sm, hd, kv_pages.dtype == E4M3)
+    else:
+        splits = simt_decode_plan(B, KH, W, bs, n_sm, hd,
+                                  kv_pages.dtype.itemsize)
     out = torch.empty_like(q3)
     ws = counters = None
     if splits > 1:
@@ -283,19 +363,25 @@ def _launch_split(q3, kv_pages, block_tables, kv_lens, layer, write, scale,
                          dtype=torch.float32, device=q3.device)
         counters = _counters(q3.device, B * KH)
     k_new, v_new, write_flat = write if write is not None else (None,) * 3
-
-    def ptr(t):  # a null pointer for what this launch does not use
-        return None if t is None else t.data_ptr()
-
-    rc = lib.pst_decode_split(
-        DTYPE_CODES[kv_pages.dtype], q3.data_ptr(), kv_pages.data_ptr(),
-        ptr(k_new), ptr(v_new), ptr(write_flat), block_tables.data_ptr(),
-        kv_lens.data_ptr(), out.data_ptr(), ptr(ws), ptr(counters), B, H, KH,
-        hd, nb, bs, W, int(layer), int(window), float(scale), float(softcap),
-        splits, torch.cuda.current_stream(q3.device).cuda_stream,
-    )
+    head = (q3.data_ptr(), kv_pages.data_ptr())
+    tail = (block_tables.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+            _ptr(ws), _ptr(counters), B, H, KH, hd, nb, bs, W, int(layer),
+            int(window), float(scale), float(softcap), splits,
+            torch.cuda.current_stream(q3.device).cuda_stream)
+    if route == "split":
+        rc = lib.pst_decode_split(DTYPE_CODES[kv_pages.dtype], *head,
+                                  _ptr(k_new), _ptr(v_new), _ptr(write_flat),
+                                  *tail)
+    elif write is None:
+        rc = lib.pst_paged_decode(DTYPE_CODES[q3.dtype],
+                                  DTYPE_CODES[kv_pages.dtype], *head, *tail)
+    else:
+        rc = lib.pst_paged_decode_write(
+            DTYPE_CODES[q3.dtype], DTYPE_CODES[kv_pages.dtype], *head,
+            k_new.data_ptr(), v_new.data_ptr(), write_flat.data_ptr(), *tail)
     if rc != 0:
-        raise RuntimeError(f"split-KV decode kernel failed: cudaError {rc}")
+        kind = "decode" if write is None else "decode-write"
+        raise RuntimeError(f"{kind} kernel ({route}) failed: cudaError {rc}")
     return out
 
 
@@ -416,24 +502,8 @@ def paged_attention_decode(q3, kv_pages, block_tables, kv_lens, layer, *,
             window=window, softcap=softcap,
         )
     route = _check("decode", q3, 3, kv_pages, block_tables, kv_lens, layer)
-    if route == "split":
-        out = _launch_split(q3, kv_pages, block_tables, kv_lens, layer, None,
-                            scale, window, softcap)
-    else:
-        from ._build import load
-
-        B, H, hd = q3.shape
-        _, nb, _, bs, lanes = kv_pages.shape
-        out = torch.empty_like(q3)
-        rc = load().pst_paged_decode(
-            DTYPE_CODES[q3.dtype], DTYPE_CODES[kv_pages.dtype], q3.data_ptr(),
-            kv_pages.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(),
-            out.data_ptr(), B, H, lanes // hd, hd, nb, bs,
-            block_tables.shape[1], int(layer), int(window), float(scale),
-            float(softcap), torch.cuda.current_stream(q3.device).cuda_stream,
-        )
-        if rc != 0:
-            raise RuntimeError(f"paged decode kernel failed: cudaError {rc}")
+    out = _launch_decode(route, q3, kv_pages, block_tables, kv_lens, layer,
+                         None, scale, window, softcap)
     _count("decode", route, kv_pages.dtype, q3.shape[-1])
     return out
 
@@ -454,8 +524,8 @@ def paged_attention_decode_write(q3, kv_pages, block_tables, kv_lens, layer,
         )
     route = _check("decode_write", q3, 3, kv_pages, block_tables, kv_lens,
                    layer, extra=(("write_flat", write_flat),))
-    B, H, hd = q3.shape
-    _, nb, _, bs, lanes = kv_pages.shape
+    B, _, hd = q3.shape
+    lanes = kv_pages.shape[-1]
     k_new = k_new.to(q3.dtype).contiguous()
     v_new = v_new.to(q3.dtype).contiguous()
     for name, t in (("k_new", k_new), ("v_new", v_new)):
@@ -464,25 +534,8 @@ def paged_attention_decode_write(q3, kv_pages, block_tables, kv_lens, layer,
                              f"got {tuple(t.shape)} on {t.device}")
         if t.data_ptr() % 16:  # the kernels copy 16-byte pieces
             raise ValueError(f"{name} must be 16-byte aligned")
-    if route == "split":
-        out = _launch_split(q3, kv_pages, block_tables, kv_lens, layer,
-                            (k_new, v_new, write_flat), scale, window,
-                            softcap)
-    else:
-        from ._build import load
-
-        out = torch.empty_like(q3)
-        rc = load().pst_paged_decode_write(
-            DTYPE_CODES[q3.dtype], DTYPE_CODES[kv_pages.dtype], q3.data_ptr(),
-            kv_pages.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-            write_flat.data_ptr(), block_tables.data_ptr(),
-            kv_lens.data_ptr(), out.data_ptr(), B, H, lanes // hd, hd, nb, bs,
-            block_tables.shape[1], int(layer), int(window), float(scale),
-            float(softcap), torch.cuda.current_stream(q3.device).cuda_stream,
-        )
-        if rc != 0:
-            raise RuntimeError(
-                f"paged decode-write kernel failed: cudaError {rc}")
+    out = _launch_decode(route, q3, kv_pages, block_tables, kv_lens, layer,
+                         (k_new, v_new, write_flat), scale, window, softcap)
     _count("decode_write", route, kv_pages.dtype, hd)
     return out
 

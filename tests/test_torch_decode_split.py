@@ -62,11 +62,11 @@ def split_model(q3, kv_pages, tables, kv_lens, layer, *, scale, splits,
     """``decode_split_kernel`` in plain PyTorch (fp32, where the kernel
     rounds P to bf16) as built at head dim ``kernel_hd``, whatever q's:
     split s reads the keys ``decode_split_keys`` gives it in tiles of
-    ``SPLIT_TILES[kernel_hd]`` keys (64 at head_dim 128, 32 at 256); key
-    group w of its block (a warp, or at 32 keys a pair of warps with a
-    128-dim half of O each) owns keys 16 w .. 16 w + 15 of every tile and
-    updates its own flash state (log2 domain) once per 16 keys; the groups
-    merge in order, then the splits. ``write`` = (k_new,
+    ``SPLIT_TILES[kernel_hd]`` keys (64 at head_dim 128, 32 at 256); warp
+    w of its block owns keys TW w .. TW w + TW - 1 of every tile (TW = 16
+    at head_dim 128, 8 at 256) and updates its own flash state (log2
+    domain) once per TW keys; the warps merge in order, then the splits.
+    ``write`` = (k_new,
     v_new, write_flat): a key whose flat slot is the row's write slot comes
     from k_new / v_new, and the cache is left as it was (split 0's store is
     the caller's). Returns [B, H, hd]."""
@@ -74,7 +74,8 @@ def split_model(q3, kv_pages, tables, kv_lens, layer, *, scale, splits,
     _, nb, _, bs, lanes = kv_pages.shape
     KH, W = lanes // hd, tables.shape[1]
     G = H // KH
-    T, TW = pac.SPLIT_TILES[kernel_hd], 16
+    T = pac.SPLIT_TILES[kernel_hd]
+    TW = T // 4
     out = torch.zeros((B, H, hd))
     for b in range(B):
         n = int(kv_lens[b])
