@@ -9,7 +9,8 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    versions; the CUDA kernels are built from ``production_stack_tpu_torch/
    ops/csrc`` (one nvcc per source, in parallel) and the build time
    printed, with ptxas's spills and the registers of each wgmma prefill,
-   split-KV decode and int4 CUDA-core instantiation.
+   split-KV decode, int4 CUDA-core, CUDA-core decode and CUDA-core prefill
+   instantiation; a CUDA-core prefill instantiation that spills fails.
 2. Each kernel against its plain PyTorch version, with bf16 q over a bf16
    and over an e4m3 cache (``kv_cache_dtype="float8_e4m3fn"``): the
    split-KV decode and decode-write kernels at Llama-3-8B attention shapes
@@ -54,15 +55,21 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    lengths, a kv_len 0 row and a NaN key (two launches bit for bit). The
    CUDA-core decode and decode-write at every head dim and q type they
    serve, over q's type and e4m3, at the planned split count, at 1 and at
-   3 (two launches bit for bit).
+   3 (two launches bit for bit); the CUDA-core prefill the same way, at
+   every head dim and q type, a chunk continuing at 700 with a window of
+   300 and a softcap, a kv_len 0 row and a fresh chunk shorter than T (two
+   launches bit for bit). The sampler's seeded draw on the card against
+   the CPU's: the threefry words bit for bit, the Gumbel values within
+   1e-6, and ``sample_tokens``' tokens equal.
 3. The full-width 32-layer Llama-3-8B (random bf16 weights from a seed):
    one 512-token prefill and 8 decode steps through the kernels and again
    through the gather path; the logits must agree, and every decode
    launch must have taken the split-KV kernel. 3c: the same over an e4m3
    cache, with the unfused and with the fused write, against the gather
    path over an e4m3 cache, and the page counts the engine's budget gives
-   in e4m3 and bf16. A decode step, a sampled draw and a prefill chunk
-   then run under CUDA's sync debug mode set to raise (no host sync), and
+   in e4m3 and bf16. A decode step, a seeded draw (its seeds on the card)
+   and a prefill chunk then run under CUDA's sync debug mode set to raise
+   (no host sync), and
    the unembed is held to a float32 product.
 4. Serving: the port's OpenAI server on localhost, configured by its own
    flags, answers completions (streamed, chunked-prefill, concurrent);
@@ -112,7 +119,9 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    an e4m3 cache (bound at the cache's bytes; the e4m3 yardstick is SDPA
    on K/V up-cast to bf16 beforehand); the CUDA-core kernels at
    tiny-llama-debug's heads and (decode, decode-write) at fp32 Llama-3-8B
-   heads, B=8 x 4096, beside an empty kernel queued the same way; the int4
+   heads, B=8 x 4096, beside an empty kernel queued the same way, and the
+   CUDA-core prefill also at fp32 Llama-3-8B heads (a fresh 512-token
+   chunk and one at 3584) and gemma2-9b's (fresh, no softcap); the int4
    wgmma route at N=512 for the four
    projection shapes and at N=2048; the int4 decode route at N in {1, 8,
    16} (and the decode buckets up to its boundary) for the four projection
@@ -184,6 +193,7 @@ from production_stack_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from production_stack_tpu_torch.ops import paged_attention_cuda as pac  # noqa: E402
 from production_stack_tpu_torch.ops.attention import gather_pages  # noqa: E402
 from production_stack_tpu_torch.ops.fp8 import E4M3, raw, to_cache_dtype  # noqa: E402
+from production_stack_tpu_torch.ops import sampling as sampler  # noqa: E402
 from production_stack_tpu_torch.ops.sampling import (  # noqa: E402
     apply_logit_bias,
     sample_tokens_packed,
@@ -426,6 +436,8 @@ def phase_toolchain() -> str:
         + " ".join(sorted(split, key=lambda x: [int(v) if v.isdigit() else v
                                                 for v in re.split(r"[/:]", x)])))
     log("  ptxas, int4_simt_kernel<x, loads> registers: " + " ".join(simt))
+    short = {"float": "fp32", "__nv_bfloat16": "bf16",
+             "__nv_fp8_e4m3": "e4m3"}
     # The CUDA-core decode's, q/cache/GM/HD/decode or write, demangled.
     cuda_core = [(n, r, sp) for n, r, sp in entries
                  if "paged_decode_kernel" in n]
@@ -433,8 +445,6 @@ def phase_toolchain() -> str:
         names = subprocess.run([filt, *(n for n, _, _ in cuda_core)],
                                capture_output=True, text=True,
                                check=True).stdout.splitlines()
-        short = {"float": "fp32", "__nv_bfloat16": "bf16",
-                 "__nv_fp8_e4m3": "e4m3"}
         regs = []
         for name, (_, r, sp) in zip(names, cuda_core):
             m = re.search(r"paged_decode_kernel<([\w:]+), ([\w:]+), "
@@ -447,6 +457,24 @@ def phase_toolchain() -> str:
                             f":{r}" + (f"+{sp}B spill" if sp else ""))
         log("  ptxas, paged_decode_kernel<q, cache, GM, HD, kind> registers: "
             + " ".join(sorted(regs)))
+    # The CUDA-core prefill's, q/cache/HD: none may spill.
+    cuda_core = [(n, r, sp) for n, r, sp in entries
+                 if "paged_prefill_kernel" in n]
+    if cuda_core and os.path.exists(filt):
+        names = subprocess.run([filt, *(n for n, _, _ in cuda_core)],
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        regs = []
+        for name, (_, r, sp) in zip(names, cuda_core):
+            m = re.search(r"paged_prefill_kernel<([\w:]+), ([\w:]+), "
+                          r"(?:\(int\))?(\d+)>", name)
+            if m:
+                regs.append(f"{short.get(m[1], m[1])}/{short.get(m[2], m[2])}"
+                            f"/{m[3]}:{r}" + (f"+{sp}B spill" if sp else ""))
+        log("  ptxas, paged_prefill_kernel<q, cache, HD> registers: "
+            + " ".join(sorted(regs)))
+    check(all(not sp for n, _, sp in entries if "paged_prefill_kernel" in n),
+          "a CUDA-core prefill instantiation spills")
     return smi
 
 
@@ -772,15 +800,17 @@ def write_slots(tables, positions, drop_rows, nb):
 
 
 @contextlib.contextmanager
-def forced_splits(n: int):
-    """The decode wrappers' plans (split-KV and CUDA-core) replaced by a
-    fixed split count ``n`` inside the block."""
-    saved = pac.decode_plan, pac.simt_decode_plan
-    pac.decode_plan = pac.simt_decode_plan = lambda *a, **k: n
+def forced_splits(n: int, plans=("decode_plan", "simt_decode_plan")):
+    """The wrappers' ``plans`` (by default the decodes', split-KV and
+    CUDA-core) replaced by a fixed split count ``n`` inside the block."""
+    saved = {name: getattr(pac, name) for name in plans}
+    for name in plans:
+        setattr(pac, name, lambda *a, **k: n)
     try:
         yield
     finally:
-        pac.decode_plan, pac.simt_decode_plan = saved
+        for name, plan in saved.items():
+            setattr(pac, name, plan)
 
 
 def sm_count() -> int:
@@ -1301,6 +1331,94 @@ def phase_simt_splits() -> None:
     simt = sum(n for k, n in pac.route_counts.items() if "simt" in k)
     check(simt > 0 and simt == sum(pac.route_counts.values()),
           f"CUDA-core split checks took other kernels: {pac.route_counts}")
+
+
+def simt_prefill_splits_of(q, cache, tables) -> int:
+    """The split count the CUDA-core prefill's plan gives these inputs."""
+    _, _, _, bs, lanes = cache.shape
+    B, T, h, hd = q.shape
+    kh = lanes // hd
+    return pac.simt_prefill_plan(B, kh, T, h // kh, tables.shape[1], bs,
+                                 sm_count(), hd)
+
+
+def phase_simt_prefill_splits() -> None:
+    """The CUDA-core prefill over splits of each q-tile's keys (S > 1,
+    merged in the launch) at every head dim and q type it serves, over a
+    cache in q's type and in e4m3: at the split count the plan picks and at
+    1 and 3 forced; a chunk continuing at 700 (two q-tiles at G = 1, the
+    second ragged), a kv_len 0 row and a fresh chunk shorter than T, a
+    window of 300 and a softcap; two launches bit for bit."""
+    pac.reset_launch_counts()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2024)
+    T, starts, lens = 150, [700, 0, 0], [850, 0, 141]
+    for dt, h, kh, hd in SIMT_GEOMETRIES:
+        for cdt in (dt, E4M3):
+            tag = (f"{str(dt)[6:]} q, {str(cdt)[6:]} cache, H={h} KH={kh} "
+                   f"hd={hd}")
+            q, cache, tables, kl, st = make_case(
+                gen, B=3, T=T, kv_lens=lens, starts=starts, dtype=dt, h=h,
+                kh=kh, hd=hd, cache_dtype=cdt)
+            kw = dict(window=300, softcap=30.0)
+            for forced in (None, 1, 3):
+                with (forced_splits(forced, ("simt_prefill_plan",)) if forced
+                      else contextlib.nullcontext()):
+                    splits = simt_prefill_splits_of(q, cache, tables)
+                    label = (f"prefill {tag} T={T} window=300 softcap=30, "
+                             f"{splits} splits" + (" (forced)" if forced
+                                                   else ""))
+                    got, ref = run_prefill(q, cache, tables, kl, st, 1, **kw)
+                    check(bool((got[1] == 0).all()),
+                          "prefill: kv_len 0 row must be zeros")
+                    compare(form("prefill_simt", cdt), got, ref, label)
+                    check(torch.equal(got, pac.paged_attention_prefill(
+                        q, cache, tables, kl, st, 1, scale=SCALE, **kw)),
+                          f"{label}: two launches differ")
+    simt = sum(n for k, n in pac.route_counts.items()
+               if k.startswith("prefill_simt"))
+    check(simt > 0 and simt == sum(pac.route_counts.values()),
+          f"CUDA-core prefill split checks took other kernels: "
+          f"{pac.route_counts}")
+
+
+# The seeds of the seeded-draw checks: the JAX sampler's draw is checked
+# against jax.random on the CPU by tests/test_torch_seeded_draw.py.
+DRAW_SEEDS = (0, 1, 7, 12345, 2**31 - 1, 2**31, 2**31 + 2)
+
+
+def phase_device_draw() -> None:
+    """The sampler's seeded draw on the card against the same code on the
+    CPU: threefry2x32's 32-bit words and the uniforms built from them bit
+    for bit, the Gumbel values (two ``log`` implementations) within 1e-6;
+    then ``sample_tokens`` on seeded logits gives the CPU's tokens."""
+    seeds = torch.tensor(DRAW_SEEDS, dtype=torch.int64)
+    for k in (256, 300):
+        got = sampler.threefry_bits(seeds.to(DEV), k).cpu()
+        want = sampler.threefry_bits(seeds, k)
+        check(torch.equal(got, want), f"threefry words, K={k}: the card's "
+              "differ from the CPU's")
+        g_dev = sampler.gumbel_noise(seeds.to(DEV), k).cpu()
+        g_cpu = sampler.gumbel_noise(seeds, k)
+        err = float((g_dev - g_cpu).abs().max())
+        log(f"  seeded draw K={k}, seeds {list(DRAW_SEEDS)}: words bit for "
+            f"bit; Gumbel max|card - CPU| {err:.3e} "
+            f"({int((g_dev != g_cpu).sum())} of {g_dev.numel()} differ; tol "
+            "1e-6)")
+        check(err <= 1e-6, f"Gumbel draw, K={k}: the card's differ")
+    gen = torch.Generator()
+    gen.manual_seed(11)
+    B, V = len(DRAW_SEEDS), 4096
+    logits = torch.randn((B, V), generator=gen) * 3
+    args = (torch.full((B,), 0.8), torch.full((B,), 0.95),
+            torch.full((B,), 50, dtype=torch.int32), torch.full((B,), 0.02),
+            seeds)
+    want = sampler.sample_tokens(logits, *args)
+    got = sampler.sample_tokens(logits.to(DEV),
+                                 *(a.to(DEV) for a in args)).cpu()
+    check(torch.equal(got, want), f"sampled tokens: card {got.tolist()} "
+          f"against CPU {want.tolist()}")
+    log(f"  sample_tokens on the card = on the CPU: {got.tolist()}")
 
 
 def int4_case(gen, N, din, dout, dtype=torch.bfloat16):
@@ -2020,7 +2138,8 @@ def phase_tiny_engines() -> dict:
 
 def phase_no_host_sync(model, params) -> None:
     """One decode step (with a padding row whose write is dropped), a
-    sampled draw with a logit bias, and one prefill chunk (with dropped
+    seeded draw (its seeds on the card) with a logit bias, and one prefill
+    chunk (with dropped
     tail writes), under CUDA's sync debug mode set to raise: the forward
     and the sampler never make the host wait for the card, so a decode
     burst chains its steps on the device. Also holds the bf16 unembed to
@@ -2036,7 +2155,7 @@ def phase_no_host_sync(model, params) -> None:
     f32 = dict(dtype=torch.float32, device=DEV)
     sampling = (torch.full((B,), 0.8, **f32), torch.full((B,), 0.9, **f32),
                 torch.full((B,), 50, dtype=torch.int32, device=DEV),
-                torch.zeros(B, **f32), torch.arange(B))  # seeds stay on host
+                torch.zeros(B, **f32), torch.arange(B, device=DEV))
     bias_ids = torch.tensor([[5, V]] * B, dtype=torch.int32, device=DEV)
     bias_vals = torch.tensor([[3.0, 1.0]] * B, **f32)
     torch.cuda.synchronize()
@@ -2649,32 +2768,51 @@ def phase_times_simt(per_step: dict, launches: dict, card: str) -> list:
             del q, q3, cache
             torch.cuda.empty_cache()
         rows += [with_points(dec), with_points(dw)]
-        h, kh, hd = 8, 8, 16
-        T = 256
-        q, cache, tables, kl, st = make_case(
-            gen, B=1, T=T, kv_lens=[T], dtype=f32, h=h, kh=kh, hd=hd,
-            layers=2, cache_dtype=cdt)
-        k, v = gathered_kv(cache, tables, 1, T, hd=hd, dtype=f32)
-        qs = q.transpose(1, 2).contiguous()
-        kind = form("prefill_simt", cdt)
-        ms = cuda_ms(lambda: pac.paged_attention_prefill(
-            q, cache, tables, kl, st, 1, scale=scale))
-        plain_ms = cuda_ms(lambda: pac.paged_attention_prefill_plain(
-            q, cache, tables, kl, st, 1, scale=scale), iters=5)
-        lib_ms = cuda_ms(lambda: sdpa(qs, k, v, True))
-        compare(kind, pac.paged_attention_prefill(q, cache, tables, kl, st, 1,
-                                                  scale=scale),
-                sdpa(qs, k, v, True).transpose(1, 2),
-                f"prefill fp32 q {tag} cache hd={hd} T={T} vs sdpa")
-        rows.append(_row(
-            kind, ms, plain_ms, lib_ms,
-            2 * T * h * hd * 4 + T * 2 * kh * hd * item,
-            4 * h * hd * (T * (T + 1) // 2), PEAK_FP32_FLOPS, per_step[kind],
-            launches[kind], card,
-            f"B=1 T={T} start=0 H={h} KH={kh} hd={hd} bs={BS} fp32 q, {tag} "
-            "cache",
-            library="torch.nn.functional.scaled_dot_product_attention on K/V "
-                    "gathered (fp32) beforehand, causal"))
+        # Prefill: a fresh 256-token chunk at tiny-llama-debug's heads; over
+        # an fp32 cache also fp32 Llama-3-8B heads on a fresh 512-token chunk
+        # and one at 3584, where operations dominate, and gemma2-9b's (no
+        # softcap: SDPA takes none) on a fresh 512-token chunk
+        # (tools/prefill_times.py --parts simt's points).
+        pre = []
+        points = ((8, 8, 16, 256, 0),) + ((
+            (H, KH, HD, 512, 0), (H, KH, HD, 512, 3584),
+            (GEMMA2_HEADS["h"], GEMMA2_HEADS["kh"], HD256, 512, 0))
+            if cdt == f32 else ())
+        for h, kh, hd, T, start in points:
+            q, cache, tables, kl, st = make_case(
+                gen, B=1, T=T, kv_lens=[start + T], starts=[start], dtype=f32,
+                h=h, kh=kh, hd=hd, layers=2, cache_dtype=cdt)
+            S = start + T
+            k, v = gathered_kv(cache, tables, 1, S, hd=hd, dtype=f32)
+            qs = q.transpose(1, 2).contiguous()
+            lib = sdpa_chunk(qs, k, v, hd ** -0.5)
+            kind = form("prefill_simt", cdt)
+            splits = simt_prefill_splits_of(q, cache, tables)
+            ms = cuda_ms(lambda: pac.paged_attention_prefill(
+                q, cache, tables, kl, st, 1, scale=hd ** -0.5))
+            plain_ms = cuda_ms(lambda: pac.paged_attention_prefill_plain(
+                q, cache, tables, kl, st, 1, scale=hd ** -0.5), iters=5)
+            lib_ms = cuda_ms(lambda: lib(qs, k, v))
+            compare(kind, pac.paged_attention_prefill(
+                q, cache, tables, kl, st, 1, scale=hd ** -0.5),
+                lib(qs, k, v).transpose(1, 2),
+                f"prefill fp32 q {tag} cache H={h} KH={kh} hd={hd} T={T} "
+                f"at {start} ({splits} splits) vs sdpa")
+            keys = T * start + T * (T + 1) // 2  # each row's keys, summed
+            r = _row(
+                kind, ms, plain_ms, lib_ms,
+                2 * T * h * hd * 4 + S * 2 * kh * hd * item,
+                4 * h * hd * keys, PEAK_FP32_FLOPS, per_step[kind],
+                launches[kind], card,
+                f"B=1 T={T} start={start} H={h} KH={kh} hd={hd} bs={BS} "
+                f"fp32 q, {tag} cache, {splits} splits",
+                library="torch.nn.functional.scaled_dot_product_attention "
+                        f"on K/V gathered (fp32) beforehand, {lib.__doc__}")
+            r["splits"] = splits
+            pre.append(r)
+            del q, cache, k, v, qs
+            torch.cuda.empty_cache()
+        rows.append(with_points(pre))
 
     # The int4 kernel's CUDA-core route at the tiny engine's w_gate (fp32
     # x, 8 decode rows, din 128 -> dout 256, one group of 128), and at
@@ -2872,6 +3010,8 @@ def main() -> None:
     phase_e4m3_all_codes()
     phase_simt_geometries()
     phase_simt_splits()
+    phase_simt_prefill_splits()
+    phase_device_draw()
     phase_int4_kernels()
     model, params = build_model()
     per_step = phase_model(model, params)

@@ -50,11 +50,6 @@ def _pow2(n: int, cap: Optional[int] = None) -> int:
 # Block tables below this width share one bucket (as in the JAX runner).
 _MIN_TABLE_BUCKET = 64
 
-# Batch entries that stay on the host: per-row sampling seeds are read there
-# to seed the per-row generators.
-_HOST_KEYS = ("seeds",)
-
-
 def _seed_for(seq: Sequence) -> int:
     base = seq.sampling.seed
     if base is None:
@@ -168,8 +163,8 @@ class ModelRunner:
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         out = {}
         for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            out[k] = t if k in _HOST_KEYS else t.to(self.device, non_blocking=True)
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.device, non_blocking=True)
         return out
 
     def _forward(self, dev, tokens, positions, write_idx, kv_lens, last_idx):

@@ -2,9 +2,11 @@
 
 Routes: ``GET /health``, ``GET /v1/models`` and ``POST /v1/completions``
 (streamed as server-sent events, or not), with the JAX package's response
-schema for ``prompt``, ``max_tokens``, ``temperature``, ``top_p``,
-``top_k``, ``seed`` and ``stop``. Bodies are plain JSON dicts. The other
-routes of the JAX server are not ported yet.
+schema, ``logprobs`` included, and its mapping of every sampling field
+(``build_sampling``). Bodies are plain JSON dicts. A value the port does
+not serve yet (``n`` or ``best_of`` above 1, ``echo``, a ``suffix``, a
+list of prompts) gets a 400 that names the field. The other routes of the
+JAX server are not ported yet.
 
     python -m production_stack_tpu_torch.engine.server --model llama-3-8b --port 8011 \
         [--quantization int4]
@@ -28,23 +30,122 @@ from .sequence import SamplingParams
 logger = init_logger(__name__)
 
 
-def build_sampling(req: dict, max_model_len: int, prompt_len: int) -> SamplingParams:
-    """SamplingParams from a completion request body (OpenAI defaults)."""
+def _parse_logit_bias(raw) -> tuple:
+    """OpenAI logit_bias keys are stringified token ids; a non-numeric key
+    must surface as a 400, not a 500 (callers catch ValueError). Values are
+    validated to OpenAI's documented [-100, 100] range."""
+    if not raw:
+        return ()
+    try:
+        parsed = tuple((int(k), float(v)) for k, v in raw.items())
+    except (AttributeError, TypeError, ValueError):
+        raise ValueError("logit_bias keys must be integer token ids")
+    for _, v in parsed:
+        if not (-100.0 <= v <= 100.0):
+            raise ValueError("logit_bias values must be in [-100, 100]")
+    return parsed
+
+
+def _parse_guided_choice(raw, tok) -> tuple:
+    """Tokenize guided_choice strings (no special tokens: the choices are
+    output continuations). Invalid shapes raise ValueError (a 400)."""
+    if not raw:
+        return ()
+    if tok is None:
+        raise ValueError("guided_choice is not supported on this endpoint")
+    if not isinstance(raw, list) or not all(
+        isinstance(c, str) and c for c in raw
+    ):
+        raise ValueError("guided_choice must be a list of non-empty strings")
+    if len(raw) > 64:
+        raise ValueError("guided_choice supports at most 64 choices")
+    choices = []
+    for c in raw:
+        ids = tuple(tok.encode(c, add_special_tokens=False))
+        if not ids or len(ids) > 256:
+            raise ValueError(
+                f"guided_choice entry tokenizes to {len(ids)} tokens "
+                "(must be 1..256)"
+            )
+        choices.append(ids)
+    return tuple(choices)
+
+
+def _opt(req: dict, name: str, cast, default):
+    value = req.get(name)
+    return default if value is None else cast(value)
+
+
+def build_sampling(req: dict, max_model_len: int, prompt_len: int,
+                   tok=None) -> SamplingParams:
+    """SamplingParams from a completion request body, field by field as
+    the JAX server's ``build_sampling`` maps its ``CompletionRequest``
+    (OpenAI defaults; ``max_completion_tokens`` before ``max_tokens``; an
+    int ``logprobs``, or a bool with ``top_logprobs``). ``tok`` tokenizes
+    ``guided_choice``."""
     limit = max(max_model_len - prompt_len - 1, 1)
-    want = req.get("max_tokens")
+    want = req.get("max_completion_tokens") or req.get("max_tokens")
     stop = req.get("stop")
     if stop is not None and not isinstance(stop, (str, list)):
         raise ValueError("stop must be a string or a list of strings")
-    seed = req.get("seed")
+    lp = req.get("logprobs")
+    if isinstance(lp, bool):
+        lp = _opt(req, "top_logprobs", int, 0) if lp else None
+    gc = _parse_guided_choice(req.get("guided_choice"), tok)
     return SamplingParams(
         max_tokens=min(int(want), limit) if want else limit,
-        temperature=float(req.get("temperature", 1.0)),
-        top_p=float(req.get("top_p", 1.0)),
-        top_k=int(req.get("top_k", -1)),
+        temperature=_opt(req, "temperature", float, 1.0),
+        top_p=_opt(req, "top_p", float, 1.0),
+        top_k=_opt(req, "top_k", int, -1),
+        min_p=_opt(req, "min_p", float, 0.0),
         stop=stop,
-        seed=int(seed) if seed is not None else None,
-        ignore_eos=bool(req.get("ignore_eos", False)),
+        stop_token_ids=tuple(int(t) for t in req.get("stop_token_ids") or ()),
+        # Guided requests end by EOS at a completed choice: ignore_eos would
+        # deadlock the mask.
+        ignore_eos=bool(req.get("ignore_eos", False)) and not gc,
+        seed=_opt(req, "seed", int, None),
+        presence_penalty=_opt(req, "presence_penalty", float, 0.0),
+        frequency_penalty=_opt(req, "frequency_penalty", float, 0.0),
+        repetition_penalty=_opt(req, "repetition_penalty", float, 1.0),
+        logprobs=int(lp) if lp is not None else None,
+        logit_bias=_parse_logit_bias(req.get("logit_bias")),
+        guided_choice=gc,
     )
+
+
+def unserved_field(req: dict) -> Optional[str]:
+    """The first field of a completion request whose value the port does
+    not serve yet, as a 400's message; None when it serves them all."""
+    for name in ("n", "best_of"):
+        if _opt(req, name, int, 1) > 1:
+            return f"{name}={req[name]} is not served yet (only 1)"
+    if req.get("echo"):
+        return "echo is not served yet"
+    if req.get("suffix") is not None:
+        return "suffix is not served yet"
+    return None
+
+
+def fmt_completion_logprobs(tok, entries, base_offset: int = 0) -> dict:
+    """The OpenAI completions ``logprobs`` object of the JAX server's
+    ``_fmt_completion_logprobs`` (no echoed prompt: echo is not served).
+    ``base_offset`` anchors ``text_offset`` in the whole completion text
+    for streamed chunks."""
+    tokens, token_lps, top_lps, offsets = [], [], [], []
+    off = base_offset
+    for e in entries:
+        s = tok.decode([e["token_id"]])
+        tokens.append(s)
+        token_lps.append(e["logprob"])
+        top_lps.append({tok.decode([t]): lp for t, lp in e["top"]})
+        offsets.append(off)
+        off += len(s)
+    return {
+        "tokens": tokens,
+        "token_logprobs": token_lps,
+        "top_logprobs": top_lps,
+        "text_offset": offsets,
+    }
 
 
 def create_engine_app(
@@ -109,6 +210,9 @@ def create_engine_app(
             tok = engine.engine.tokenizer
             prompt = req.get("prompt", "")
             try:
+                unserved = unserved_field(req)
+                if unserved:
+                    raise ValueError(unserved)
                 if isinstance(prompt, list) and all(isinstance(x, int) for x in prompt):
                     ids = [int(x) for x in prompt]
                 elif isinstance(prompt, str):
@@ -116,7 +220,7 @@ def create_engine_app(
                 else:
                     raise ValueError(
                         "prompt must be a string or a list of token ids "
-                        "(batched prompts are not ported yet)"
+                        "(a list of prompts is not served yet)"
                     )
                 max_len = engine.engine.cfg.max_model_len
                 if len(ids) >= max_len:
@@ -124,7 +228,7 @@ def create_engine_app(
                         f"prompt has {len(ids)} tokens, exceeds "
                         f"max_model_len={max_len}"
                     )
-                sampling = build_sampling(req, max_len, len(ids))
+                sampling = build_sampling(req, max_len, len(ids), tok)
             except (TypeError, ValueError) as e:
                 self._error(str(e))
                 return
@@ -135,14 +239,17 @@ def create_engine_app(
                 prompt_token_ids=ids, sampling=sampling, request_id=rid
             )
             if req.get("stream"):
-                self._stream(gen, rid, created, model)
+                usage = bool((req.get("stream_options") or {}).get(
+                    "include_usage"))
+                self._stream(gen, rid, created, model, len(ids), usage)
                 return
-            text, n_out, finish = [], 0, None
+            text, n_out, finish, entries = [], 0, None, []
             try:
                 for out in gen:
                     text.append(out.text_delta)
                     n_out = out.num_output_tokens
                     finish = out.finish_reason or finish
+                    entries.extend(out.logprobs or ())
             except ValueError as e:  # refused on the engine thread
                 self._error(str(e))
                 return
@@ -153,13 +260,16 @@ def create_engine_app(
                 "id": rid, "object": "text_completion", "created": created,
                 "model": model,
                 "choices": [{"index": 0, "text": "".join(text),
-                             "logprobs": None, "finish_reason": finish}],
+                             "logprobs": fmt_completion_logprobs(tok, entries)
+                             if entries else None,
+                             "finish_reason": finish}],
                 "usage": {"prompt_tokens": len(ids),
                           "completion_tokens": n_out,
                           "total_tokens": len(ids) + n_out},
             }, headers={"X-Request-Id": rid})
 
-        def _stream(self, gen, rid: str, created: int, model: str) -> None:
+        def _stream(self, gen, rid: str, created: int, model: str,
+                    n_prompt: int, usage: bool) -> None:
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
@@ -171,13 +281,25 @@ def create_engine_app(
                 self.wfile.write(f"data: {data}\n\n".encode())
                 self.wfile.flush()
 
+            tok = engine.engine.tokenizer
+            char_off = 0  # text_offset runs over the whole completion
             try:
                 for out in gen:
-                    frame({"id": rid, "object": "text_completion",
-                           "created": created, "model": model,
-                           "choices": [{"index": 0, "text": out.text_delta,
-                                        "logprobs": None,
-                                        "finish_reason": out.finish_reason}]})
+                    chunk = {"id": rid, "object": "text_completion",
+                             "created": created, "model": model,
+                             "choices": [{
+                                 "index": 0, "text": out.text_delta,
+                                 "logprobs": fmt_completion_logprobs(
+                                     tok, out.logprobs, char_off)
+                                 if out.logprobs else None,
+                                 "finish_reason": out.finish_reason}]}
+                    char_off += len(out.text_delta)
+                    if out.finished and usage:
+                        n = out.num_output_tokens
+                        chunk["usage"] = {"prompt_tokens": n_prompt,
+                                          "completion_tokens": n,
+                                          "total_tokens": n_prompt + n}
+                    frame(chunk)
             except ValueError as e:  # refused on the engine thread
                 frame({"error": {"message": str(e),
                                  "type": "invalid_request_error",

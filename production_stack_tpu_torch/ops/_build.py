@@ -17,7 +17,7 @@ Kernels, each replacing a Pallas TPU kernel of the JAX package:
   bf16 q at head_dim 16, 32 or 64: ``paged_decode_kernel`` (split-KV;
   ``_decode_kernel`` and, as its decode-write form,
   ``_decode_write_kernel``) and ``paged_prefill_kernel``
-  (``_prefill_kernel``), all of
+  (``_prefill_kernel``; each q-tile's keys split over blocks), all of
   ``production_stack_tpu/ops/paged_attention_pallas.py``;
 - ``decode_splitkv.cuh`` (built as ``decode_splitkv.cu`` at head_dim 128
   and ``decode_splitkv_hd256.cu`` at 256): ``decode_split_kernel``,
@@ -38,7 +38,7 @@ Kernels, each replacing a Pallas TPU kernel of the JAX package:
 
 ``sm90.cuh`` holds the wgmma, descriptor, cp.async, bulk-copy and barrier
 helpers the Hopper kernels share; ``splits.cuh`` the key split and
-in-launch merge of the split-KV decodes and the wgmma prefill; ``fp8.cuh`` the e4m3
+in-launch merge of the split-KV decodes and both prefills; ``fp8.cuh`` the e4m3
 cache's conversions (up to bf16/fp32, and the JAX package's cast down);
 ``int4_bits.cuh`` the int4 -> bf16 conversion of both bf16 int4 routes.
 """
@@ -169,9 +169,10 @@ def load() -> ctypes.CDLL:
         lib.pst_paged_decode.restype = _I
         lib.pst_paged_prefill.argtypes = [
             _I, _I, _P, _P, _P, _P, _P, _P,  # types, q, cache, tables, lens, starts, out
+            _P, _P,  # ws, counters
             _I, _I, _I, _I, _I,  # B, T, H, KH, HD
             _I, _I, _I, _I, _I,  # nb, bs, W, layer, window
-            _F, _F, _P,  # scale, softcap, stream
+            _F, _F, _I, _P,  # scale, softcap, splits, stream
         ]
         lib.pst_paged_prefill.restype = _I
         lib.pst_paged_prefill_wgmma.argtypes = [

@@ -72,6 +72,17 @@
 // data and (with S > 1) the merge's fence, ticket and reload are serial
 // round trips, so a row's 128 KB takes one split.
 //
+// Prefill design: grid (KH, B, q-tiles * S), 8 warps; a 128-row q-tile
+// (64 at HD 256) walks 32-key tiles (16 at HD 256) of its split's run out
+// of a 3-slot cp.async ring, a lane computing 4 x 4 scores (2 x 2 at HD
+// 256) from 16-byte shared loads and sharing p by shuffle for P.V; S from
+// a plan of shapes only (simt_prefill_plan), the runs merged in the launch
+// through splits.cuh as the decode's are. The previous form (grid (T /
+// TQ, B, KH), 4 warps, one 32-key chunk at a time loaded synchronously,
+// three barriers a chunk, scalar shared loads) took 0.0228 ms at
+// tiny-llama-debug's heads (T = 256) and 1.647 ms at fp32 Llama-3-8B heads
+// (T = 512 at 3584); the figures of this form are in PERF.md.
+//
 // Decode-write: blocks of a launch are not ordered, so no block reads the
 // row this step writes: every split casts the new K and V rows (by
 // to_cache) into shared memory and substitutes them for the key whose
@@ -114,19 +125,16 @@ struct Params {
   const int* write_flat;  // decode-write: [B] flat slot blk * bs + row
   const int* tables;
   const int* kv_lens;
-  const int* starts;  // prefill
   void* out;
   int B, T, KH, G, HD, nb, bs, W, layer, window;
   float scale, softcap;
   cudaStream_t stream;
 };
 
-// A launch: Params and, for the decode, the split count and, with S > 1,
-// the splits' partial states and B*KH tickets (zero, and left zero). The
-// decode kernel takes it whole, the prefill kernel Params alone: three
-// more fields in Params moved ptxas to spill in paged_prefill_kernel
-// instantiations that had not spilled (fp32 at head_dim 16 became 17 %
-// slower on an NVIDIA H100 80GB HBM3).
+// A decode launch: Params, the split count and, with S > 1, the splits'
+// partial states and B*KH tickets (zero, and left zero). (Three more
+// fields in this struct once moved ptxas to spill in the prefill, which
+// took it then: the prefill has its own, PrefillLaunch.)
 struct Launch {
   Params p;
   int splits;
@@ -629,210 +637,462 @@ paged_decode_kernel(const Launch dp) {
 }
 
 // ---------------------------------------------------------------------------
-// Prefill: grid (ceil(T / TQ), B, KH), block 128 threads.
+// Prefill: grid (KH, B, Q * S), kPrefillThreads threads (8 warps).
 //
-// A block holds TQ * G of its kRows = 64 query rows (TQ = 64 / G
-// consecutive positions times the G heads of one kv head; rows past TQ * G
-// are dead, as are rows past T) and walks key chunks of kKeys from the
-// first row's window start up to the tile's causal horizon. Each thread
-// owns a 4 x 4 tile of the score chunk (rows tr + 16i, keys tk + 8j) and
-// the same four rows of the output accumulator, so the row statistics it
-// computes for the softmax are the ones it applies to its accumulator.
+// A block owns one q-tile of a (sequence, kv head): kRows query rows, TQ =
+// kRows / G consecutive positions times the G heads (row r is position t0
+// + r / G, head r % G; rows past TQ * G or past T are dead), and split
+// `split` of the q-tile's live keys: from its first row's window start to
+// its last row's causal bound, cut into S runs of kKeys-key tiles by
+// splits.cuh's split_run (the q-tile index runs backwards along gridDim.z,
+// so the longest key ranges start first). With S > 1 each block writes its
+// partial (O, m, l) to a workspace and the block taking the q-tile's last
+// ticket merges the runs in split order (two launches give the same bits)
+// and resets the ticket.
+//
+// The block's page-table entries go to shared memory once; K and V tiles
+// are gathered raw, in the cache's type, by cp.async into a kPrefillStages
+// ring (two tiles in flight while one is read; kTPR threads share a staged
+// row and its one page lookup) and converted to fp32 where they are read
+// (lds4). Q is converted to fp32 once, into shared memory.
+//
+// Register tile: a warp owns RY * RM rows; lane (ry, kx) = (lane / KX,
+// lane % KX) takes rows warp * RY * RM + ry + RY * i (i < RM) and keys kx
+// + KX * j (j < KN) of a tile's scores, one 16-byte Q load (4 dims) and KN
+// four-value K loads feeding 4 * RM * KN FMAs. For P.V the KX lanes of a
+// row set share each p by shuffle and lane kx accumulates dim quads s * KX
+// + kx (s < NQ) of its RM rows over every key: RM shuffles and NQ V loads
+// a key for 4 * RM * NQ FMAs. Staged rows are padded by 16 bytes (Q rows
+// always, K/V rows of 32 bytes and more), so the RY rows or KX keys one
+// load instruction touches fall in distinct banks.
+//
+// Softmax: log2 domain, one max update a tile (the row's max over its KX
+// lanes by shuffles), fast_exp2; the softcap is exact (tanhf of the scaled
+// score, then the rescale); O is rescaled only when a row of the warp saw
+// its max move. Each lane keeps its own part of l, summed at the end. A
+// row with no live key writes 0. All arithmetic is fp32 FMA on the CUDA
+// cores: TF32 would round the products against the JAX kernel's fp32.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md; the bound is
+// 4 * H * HD * the keys each row sees, at 67 TFLOP/s): P shared through a
+// per-warp shared-memory tile instead of shuffles used 254 registers at
+// HD 128 and was 1.6 % slower there; 64-row q-tiles with 16-key tiles at
+// HD 128 (two blocks an SM, 2 x 2 a lane) were 50 % slower.
 // ---------------------------------------------------------------------------
 
-constexpr int kPrefillThreads = 128;
-constexpr int kRows = 64;
-constexpr int kKeys = 32;
-constexpr int kKP = kKeys + 1;
+constexpr int kPrefillWarps = 8;
+constexpr int kPrefillThreads = 32 * kPrefillWarps;
+constexpr int kPrefillStages = 3;
+constexpr int kPrefillMaxSplits = 16;
+constexpr int kPrefillPageCap = 512;  // table entries kept in shared memory
 
-template <int HD>
-constexpr size_t prefill_smem() {
-  // sQ [kRows][HD+1], sK [kKeys][HD+1], sV [kKeys][HD], sP [kRows][kKP];
-  // the padded rows spread the banks.
-  return sizeof(float) * ((size_t)kRows * (HD + 1) + (size_t)kKeys * (HD + 1) +
-                          (size_t)kKeys * HD + (size_t)kRows * kKP);
-}
+// The prefill's own launch: fields added to the decode's Params once made
+// ptxas spill in the prefill's instantiations (fp32 at head_dim 16 became
+// 17 % slower on an NVIDIA H100 80GB HBM3), so it takes nothing it does not
+// read.
+struct PrefillLaunch {
+  const void* q;
+  const void* cache;
+  const int* tables;
+  const int* kv_lens;
+  const int* starts;
+  void* out;
+  float* ws;      // S > 1: [pairs][S][kRows][HD] O, then [pairs][S][kRows][2]
+  int* counters;  // S > 1: one ticket a q-tile (zero, and left zero)
+  int T, KH, G, nb, bs, W, layer, window, splits;
+  float scale, softcap;
+};
+
+// The tile geometry at head dim HD over a cache of Tc
+// (paged_attention_cuda.py's SIMT_PREFILL_TILES mirrors kRows and kKeys,
+// _SIMT_PREFILL_BLOCKS_PER_SM kMinBlocks).
+template <typename Tc, int HD>
+struct PrefillGeo {
+  static constexpr int kRows = HD == 256 ? 64 : 128;  // query rows a block
+  static constexpr int kKeys = HD == 256 ? 16 : 32;   // keys a tile
+  static constexpr int KX = HD / 4 < 8 ? HD / 4 : 8;  // lanes sharing rows
+  static constexpr int RY = 32 / KX;                  // row lanes a warp
+  static constexpr int RM = kRows / (kPrefillWarps * RY);  // rows a lane
+  static constexpr int KN = kKeys / KX;               // keys a lane (scores)
+  static constexpr int NQ = HD / (4 * KX);            // dim quads a lane (P.V)
+  static constexpr int kRowBytes = HD * (int)sizeof(Tc);
+  static constexpr int kRowStride = kRowBytes + (kRowBytes >= 32 ? 16 : 0);
+  static constexpr int kChunks = kRowBytes / 16;      // 16-byte pieces a row
+  static constexpr int kPieces = kKeys * kChunks;     // of K (and of V) a tile
+  static constexpr int kTileBytes = kKeys * kRowStride;
+  static constexpr int kQStride = HD + 4;             // floats a staged Q row
+  static constexpr int kQBytes = kRows * kQStride * 4;
+  static constexpr int kRingBytes = kPrefillStages * 2 * kTileBytes;
+  static constexpr int kTPR = kPrefillThreads / kKeys;  // copy threads a row
+  static constexpr int kMergeBytes = (2 * kPrefillMaxSplits + 1) * kRows * 4;
+  static constexpr int kSmem = kQBytes + kRingBytes > kMergeBytes
+                                   ? kQBytes + kRingBytes
+                                   : kMergeBytes;
+  // Two blocks an SM at head_dim 16 (at most 128 registers); one above,
+  // where 128 registers spill (head_dim 32 and 64) or the ring and Q take
+  // 166-169 KB (128 and 256).
+  static constexpr int kMinBlocks = HD == 16 ? 2 : 1;
+  static_assert(KX * RY == 32 && RM >= 1 && KN >= 1 && NQ >= 1,
+                "lanes / tile mismatch");
+  static_assert(kRows % (kPrefillWarps * RY) == 0 && kKeys % KX == 0 &&
+                    HD % (4 * KX) == 0,
+                "the tile divides over the lanes");
+  static_assert(kQBytes % 16 == 0 && kTileBytes % 16 == 0, "16-byte rows");
+};
 
 template <typename Tq, typename Tc, int HD>
-__global__ void __launch_bounds__(kPrefillThreads)
-paged_prefill_kernel(const Params p) {
-  constexpr int HDP = HD + 1;
-  constexpr int CPR = HD / kVec;  // 4-value chunks per row
-  constexpr int DPT = HD / 8;     // accumulator columns per thread
-  static_assert(HD % 8 == 0, "a thread owns HD / 8 output columns");
+__global__ void __launch_bounds__(kPrefillThreads,
+                                  (PrefillGeo<Tc, HD>::kMinBlocks))
+paged_prefill_kernel(const PrefillLaunch lp) {
+  using Geo = PrefillGeo<Tc, HD>;
+  constexpr int kRows = Geo::kRows, kKeys = Geo::kKeys;
+  constexpr int KX = Geo::KX, RY = Geo::RY, RM = Geo::RM, KN = Geo::KN,
+                NQ = Geo::NQ;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int sPages[kPrefillPageCap];
+  float* const sQ = reinterpret_cast<float*>(smem);  // [kRows][kQStride]
+  uint8_t* const ring = smem + Geo::kQBytes;
 
-  extern __shared__ float smem[];
-  float* sQ = smem;               // [kRows][HDP]
-  float* sK = sQ + kRows * HDP;   // [kKeys][HDP]
-  float* sV = sK + kKeys * HDP;   // [kKeys][HD]
-  float* sP = sV + kKeys * HD;    // [kRows][kKP]
-
-  const Tq* q = static_cast<const Tq*>(p.q);
-  const Tc* cache = static_cast<const Tc*>(p.cache);
-  const int G = p.G;
-  const int TQ = kRows / G;
-  const int tile = blockIdx.x;
+  const int kh = blockIdx.x;
   const int b = blockIdx.y;
-  const int kh = blockIdx.z;
-  const int H = p.KH * G;
-  const int T_len = p.T;
+  const int S = lp.splits;
+  const int n_qt = gridDim.z / S;
+  const int qt = n_qt - 1 - (int)blockIdx.z / S;  // longest key range first
+  const int split = blockIdx.z % S;
   const int tid = threadIdx.x;
-  const int tr = tid / 8;  // 0..15
-  const int tk = tid % 8;  // 0..7
+  const int warp = tid / 32, lane = tid % 32;
+  const int ry = lane / KX, kx = lane % KX;
+  const int G = lp.G, KH = lp.KH, T = lp.T;
+  const int H = KH * G;
+  const int TQ = kRows / G;
 
-  const int kv_len = p.kv_lens[b];
-  const int start = p.starts[b];
-  const int t0 = tile * TQ;
-  const int t_end = min(t0 + TQ, T_len);  // ragged end of T
-  const int win = window_eff(p.window);
-  // Keys the tile may read: from its first row's window start up to its
-  // last row's causal horizon (never past kv_len).
+  const int kv_len = lp.kv_lens[b];
+  const int start = lp.starts[b];
+  const int t0 = qt * TQ;
+  const int t_end = min(t0 + TQ, T);  // ragged end of T
+  const int win = window_eff(lp.window);
+  // Keys any row of the q-tile may read: from its first row's window
+  // start up to its last row's causal bound (never past kv_len); this
+  // split's run of their kKeys-aligned tiles.
   const int k_lo = max(start + t0 + 1 - win, 0);
   const int k_hi = min(kv_len, start + t_end);
+  int f0;
+  const int n_t = pst_splits::split_run(k_lo, k_hi, kKeys, split, S, f0);
 
-  // Row r is position t0 + r / G, head r % G: r / G reaches TQ only on
-  // the dead rows past TQ * G, whose t is at or past t_end.
-  for (int idx = tid; idx < kRows * CPR; idx += kPrefillThreads) {
-    const int r = idx / CPR, c = idx % CPR;
-    const int t = t0 + r / G, g = r % G;
-    float f[kVec];
-    if (t < t_end) {
-      Vec4<Tq>::load(
-          q + (((size_t)b * T_len + t) * H + kh * G + g) * HD + c * kVec, f);
-    } else {
+  int row[RM], bound[RM], low[RM];
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) f[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) sQ[r * HDP + c * kVec + i] = f[i];
-  }
-
-  int bound[4], low[4];
-  float m[4], l[4], acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = tr + 16 * i;
-    const int t = t0 + r / G;
+  for (int i = 0; i < RM; ++i) {
+    row[i] = warp * (RY * RM) + ry + RY * i;
+    const int t = t0 + row[i] / G;
     const int pos = start + t;
     bound[i] = t < t_end ? min(pos + 1, kv_len) : 0;  // exclusive
-    low[i] = max(pos + 1 - win, 0);                    // inclusive
+    low[i] = max(pos + 1 - win, 0);                   // inclusive
+  }
+
+  const size_t lanes = (size_t)KH * HD;
+  const size_t page_stride = 2 * (size_t)lp.bs * lanes;
+  const Tc* const cache = static_cast<const Tc*>(lp.cache);
+  const Tc* const layer_base =
+      cache + (size_t)lp.layer * lp.nb * page_stride + (size_t)kh * HD;
+  const int* const trow = lp.tables + (size_t)b * lp.W;
+
+  // The run's slice of the table row, loaded once: entries [p_lo, p_lo +
+  // kPrefillPageCap) in shared memory, any beyond read from the table.
+  const int p_lo = min(f0 * kKeys / lp.bs, lp.W - 1);
+  if (n_t > 0) {
+    const int p_n = min((f0 + n_t) * kKeys / lp.bs, lp.W - 1) + 1 - p_lo;
+    for (int i = tid; i < min(p_n, kPrefillPageCap); i += kPrefillThreads)
+      sPages[i] = __ldg(trow + p_lo + i);
+  }
+  __syncthreads();
+  auto page_of = [&](int pos) {
+    // A table shorter than kv_len is a caller error; the clamp keeps the
+    // read inside the table.
+    const int pi = min(pos / lp.bs, lp.W - 1) - p_lo;
+    return pi < kPrefillPageCap ? sPages[pi] : __ldg(trow + p_lo + pi);
+  };
+  // The tile's K rows and V rows, 16-byte pieces. Where a row has at least
+  // kTPR pieces, kTPR threads share a row (one page lookup each, the row's
+  // pieces side by side for each copy instruction); else thread i copies
+  // piece i, chunk i % kChunks of row i / kChunks. Keys outside [k_lo,
+  // k_hi) are zero-filled.
+  auto copy_row = [&](uint32_t sK, int it, int r, int c0, int dc, int nc) {
+    const int pos = (f0 + it) * kKeys + r;
+    const bool ok = pos >= k_lo && pos < k_hi;
+    const uint8_t* src_k = reinterpret_cast<const uint8_t*>(cache);
+    size_t v_off = 0;  // valid addresses when nothing is read
+    if (ok) {
+      src_k = reinterpret_cast<const uint8_t*>(
+          layer_base + (size_t)page_of(pos) * page_stride +
+          (size_t)(pos % lp.bs) * lanes);
+      v_off = (size_t)lp.bs * lanes * sizeof(Tc);
+    }
+#pragma unroll
+    for (int j = 0; j < nc; ++j) {
+      const int c = c0 + j * dc;
+      const uint32_t dst = sK + r * Geo::kRowStride + 16 * c;
+      pst_sm90::cp_async16(dst, src_k + (ok ? 16 * c : 0), ok);
+      pst_sm90::cp_async16(dst + Geo::kTileBytes,
+                           src_k + (ok ? v_off + 16 * c : 0), ok);
+    }
+  };
+  auto copy_tile = [&](int it) {
+    const uint32_t sK = pst_sm90::smem_u32(
+        ring + (it % kPrefillStages) * 2 * Geo::kTileBytes);
+    if constexpr (Geo::kChunks >= Geo::kTPR) {
+      copy_row(sK, it, tid / Geo::kTPR, tid % Geo::kTPR, Geo::kTPR,
+               Geo::kChunks / Geo::kTPR);
+    } else if (tid < Geo::kPieces) {
+      copy_row(sK, it, tid / Geo::kChunks, tid % Geo::kChunks, 0, 1);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kPrefillStages - 1; ++s) {
+    if (s < n_t) copy_tile(s);
+    pst_sm90::cp_async_commit();
+  }
+
+  // Q in fp32 while the first tiles are in flight; dead rows are zeros.
+  const Tq* const q = static_cast<const Tq*>(lp.q);
+  if (n_t > 0) {
+    for (int idx = tid; idx < kRows * (HD / 4); idx += kPrefillThreads) {
+      const int r = idx / (HD / 4), c = idx % (HD / 4);
+      const int t = t0 + r / G;
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+      if (t < t_end)
+        Vec4<Tq>::load(q + (((size_t)b * T + t) * H + kh * G + r % G) * HD +
+                           4 * c,
+                       f);
+      *reinterpret_cast<float4*>(sQ + r * Geo::kQStride + 4 * c) =
+          make_float4(f[0], f[1], f[2], f[3]);
+    }
+  }
+
+  const bool capped = lp.softcap > 0.f;
+  const float c_scale = capped ? lp.scale / lp.softcap : lp.scale * kLog2e;
+  const float c_cap = lp.softcap * kLog2e;
+  float m[RM], l[RM], acc[RM][4 * NQ];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
+    for (int d = 0; d < 4 * NQ; ++d) acc[i][d] = 0.f;
   }
 
-  const size_t lanes = (size_t)p.KH * HD;
-  const size_t page_stride = 2 * (size_t)p.bs * lanes;
-  const Tc* layer_base =
-      cache + (size_t)p.layer * p.nb * page_stride + (size_t)kh * HD;
-  const int* trow = p.tables + (size_t)b * p.W;
-
-  for (int kb = k_lo; kb < k_hi; kb += kKeys) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int idx = tid; idx < kKeys * CPR; idx += kPrefillThreads) {
-      const int key = idx / CPR, c = idx % CPR;
-      const int kp = kb + key;
-      float kf[kVec], vf[kVec];
-      if (kp < k_hi) {
-        const Tc* src = layer_base +
-                        (size_t)trow[min(kp / p.bs, p.W - 1)] * page_stride +
-                        (size_t)(kp % p.bs) * lanes + c * kVec;
-        Vec4<Tc>::load(src, kf);
-        Vec4<Tc>::load(src + (size_t)p.bs * lanes, vf);
-      } else {
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) kf[i] = vf[i] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) {
-        sK[key * HDP + c * kVec + i] = kf[i];
-        sV[key * HD + c * kVec + i] = vf[i];
-      }
-    }
+  for (int it = 0; it < n_t; ++it) {
+    pst_sm90::cp_async_wait<kPrefillStages - 2>();
+    // Tile it (and, the first time, Q) is in place for every thread, and
+    // every thread is done with tile it - 1, whose slot the next copy fills.
     __syncthreads();
+    if (it + kPrefillStages - 1 < n_t) copy_tile(it + kPrefillStages - 1);
+    pst_sm90::cp_async_commit();
 
-    float s[4][4];
+    const uint8_t* const sk = ring + (it % kPrefillStages) * 2 * Geo::kTileBytes;
+    const uint8_t* const sv = sk + Geo::kTileBytes;
+    const int key0 = (f0 + it) * kKeys;
+
+    // Scores of the lane's RM rows and KN keys, over the dims in quads.
+    float x[RM][KN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qa[4], ka[4];
+      for (int j = 0; j < KN; ++j) x[i][j] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = sQ[(tr + 16 * i) * HDP + d];
+    for (int c = 0; c < HD / 4; ++c) {
+      float qa[RM][4], ka[KN][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ka[j] = sK[(tk + 8 * j) * HDP + d];
+      for (int i = 0; i < RM; ++i)
+        lds4(sQ + row[i] * Geo::kQStride + 4 * c, qa[i]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < KN; ++j)
+        lds4(reinterpret_cast<const Tc*>(sk + (kx + KX * j) * Geo::kRowStride) +
+                 4 * c,
+             ka[j]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += qa[i] * ka[j];
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < KN; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x[i][j] = fmaf(qa[i][e], ka[j][e], x[i][j]);
     }
 
+    // Log2-domain scores, masked to each row's [low, bound); one max
+    // update a row and tile. The softcap's branch is taken once a tile:
+    // tanhf is not evaluated without one.
+    if (capped) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < KN; ++j) x[i][j] = tanhf(x[i][j] * c_scale) * c_cap;
+    } else {
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < KN; ++j) x[i][j] *= c_scale;
+    }
+    float alpha[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = kb + tk + 8 * j;
-        const bool live = kp < bound[i] && kp >= low[i];
-        s[i][j] = live ? softcap_score(s[i][j], p.scale, p.softcap) : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
+      for (int j = 0; j < KN; ++j) {
+        const int kp = key0 + kx + KX * j;
+        x[i][j] = kp >= low[i] && kp < bound[i] ? x[i][j] : -INFINITY;
+        mx = fmaxf(mx, x[i][j]);
       }
-      // The 8 threads of a row are lanes differing in their low 3 bits.
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float mn = fmaxf(m[i], mx);
-      // No live key for this row yet (mn == -inf): every p is 0 and l, acc
-      // stay 0. A NaN score (an e4m3 K past 464) makes l NaN.
-      const float base = mn == -INFINITY ? 0.f : mn;
+#pragma unroll
+      for (int off = 1; off < KX; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      // No live key for this row yet: every p is 0 and nothing is
+      // rescaled. A NaN score (an e4m3 K past 464) passes fmaxf by, but its
+      // p is NaN, and so are l and the output.
+      const float base = m_new == -INFINITY ? 0.f : m_new;
+      alpha[i] = pst_sm90::fast_exp2(m[i] - base);
+      m[i] = m_new;
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - base);
-        rs += s[i][j];
+      for (int j = 0; j < KN; ++j) {
+        x[i][j] = pst_sm90::fast_exp2(x[i][j] - base);
+        rs += x[i][j];
       }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 4);
-      const float alpha = expf(m[i] - base);
-      l[i] = l[i] * alpha + rs;
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= alpha;
-      m[i] = mn;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sP[(tr + 16 * i) * kKP + tk + 8 * j] = s[i][j];
+      l[i] = l[i] * alpha[i] + rs;
     }
-    __syncthreads();
+    // O is rescaled only where a row's max moved (alpha is then not 1).
+    bool moved = false;
+#pragma unroll
+    for (int i = 0; i < RM; ++i) moved |= alpha[i] != 1.f;
+    if (__any_sync(0xffffffffu, moved)) {
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int d = 0; d < 4 * NQ; ++d) acc[i][d] *= alpha[i];
+    }
 
-#pragma unroll 4
-    for (int k = 0; k < kKeys; ++k) {
-      float pv[4];
+    // P.V: key kx' + KX * j's p from lane kx' of the row set, every key in
+    // order; the lane's NQ dim quads of V.
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(tr + 16 * i) * kKP + k];
+    for (int j = 0; j < KN; ++j) {
 #pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const float v = sV[k * HD + tk + 8 * j];
+      for (int src = 0; src < KX; ++src) {
+        float pr[RM];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += pv[i] * v;
+        for (int i = 0; i < RM; ++i)
+          pr[i] = __shfl_sync(0xffffffffu, x[i][j], src, KX);
+        const Tc* const vrow =
+            reinterpret_cast<const Tc*>(sv + (src + KX * j) * Geo::kRowStride);
+#pragma unroll
+        for (int s = 0; s < NQ; ++s) {
+          float vf[4];
+          lds4(vrow + 4 * (s * KX + kx), vf);
+#pragma unroll
+          for (int i = 0; i < RM; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][4 * s + e] = fmaf(pr[i], vf[e], acc[i][4 * s + e]);
+        }
       }
     }
   }
+  pst_sm90::cp_async_wait<0>();
 
-  Tq* out = static_cast<Tq*>(p.out);
+  // The row sums over the KX lanes that share the rows.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = tr + 16 * i;
-    const int t = t0 + r / G, g = r % G;
-    if (t >= t_end) continue;
-    const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
-    Tq* dst = out + (((size_t)b * T_len + t) * H + kh * G + g) * HD;
+  for (int i = 0; i < RM; ++i)
 #pragma unroll
-    for (int j = 0; j < DPT; ++j)
-      dst[tk + 8 * j] = Vec4<Tq>::store(acc[i][j] * inv);
+    for (int off = 1; off < KX; off <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+
+  Tq* const out = static_cast<Tq*>(lp.out);
+  auto store = [&](int i, int s, const float* v) {
+    const int t = t0 + row[i] / G;
+    Tq* dst = out + (((size_t)b * T + t) * H + kh * G + row[i] % G) * HD +
+              4 * (s * KX + kx);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dst[e] = Vec4<Tq>::store(v[e]);
+  };
+  if (S == 1) {
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      if (t0 + row[i] / G >= t_end) continue;
+      const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
+#pragma unroll
+      for (int s = 0; s < NQ; ++s) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = acc[i][4 * s + e] * inv;
+        store(i, s, v);
+      }
+    }
+    return;
   }
+
+  // S > 1: this run's partial, then the q-tile's ticket.
+  const size_t pair = ((size_t)b * KH + kh) * n_qt + qt;
+  const size_t n_pairs = (size_t)gridDim.y * KH * n_qt;
+  float* const ws_o = lp.ws + pair * S * kRows * HD;
+  float* const ws_ml = lp.ws + n_pairs * S * kRows * HD + pair * S * kRows * 2;
+  if (n_t > 0) {
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+#pragma unroll
+      for (int s = 0; s < NQ; ++s)
+        *reinterpret_cast<float4*>(ws_o + ((size_t)split * kRows + row[i]) *
+                                              HD + 4 * (s * KX + kx)) =
+            make_float4(acc[i][4 * s], acc[i][4 * s + 1], acc[i][4 * s + 2],
+                        acc[i][4 * s + 3]);
+      if (kx == 0) {
+        ws_ml[(split * kRows + row[i]) * 2] = m[i];
+        ws_ml[(split * kRows + row[i]) * 2 + 1] = l[i];
+      }
+    }
+  }
+  if (!pst_splits::last_split(lp.counters + pair, S)) return;
+
+  // The last block merges the runs in split order: the weights 2^(m_s -
+  // M) of every (run, row), an empty run's skipped; then its rows' quads.
+  // Its shared memory is free: the ring's copies have all landed.
+  float* const sM = reinterpret_cast<float*>(smem);  // [S][kRows]
+  float* const sLs = sM + S * kRows;                 // [S][kRows]
+  float* const sL = sLs + S * kRows;                 // [kRows]
+  for (int idx = tid; idx < S * kRows; idx += kPrefillThreads) {
+    int first;
+    const bool live =
+        pst_splits::split_run(k_lo, k_hi, kKeys, idx / kRows, S, first) > 0;
+    sM[idx] = live ? __ldcg(ws_ml + 2 * idx) : -INFINITY;
+    sLs[idx] = live ? __ldcg(ws_ml + 2 * idx + 1) : 0.f;
+  }
+  __syncthreads();
+  if (tid < kRows)
+    sL[tid] = pst_splits::merge_weights(sM + tid, sLs + tid, kRows, S);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    if (t0 + row[i] / G >= t_end) continue;
+    const float L = sL[row[i]];
+    const float inv = L == 0.f ? 0.f : 1.f / L;
+#pragma unroll
+    for (int s = 0; s < NQ; ++s) {
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int s2 = 0; s2 < S; ++s2) {
+        int first;
+        if (pst_splits::split_run(k_lo, k_hi, kKeys, s2, S, first) == 0)
+          continue;
+        const float c = sM[s2 * kRows + row[i]];
+        const float4 a = __ldcg(reinterpret_cast<const float4*>(
+            ws_o + ((size_t)s2 * kRows + row[i]) * HD + 4 * (s * KX + kx)));
+        v[0] += a.x * c;
+        v[1] += a.y * c;
+        v[2] += a.z * c;
+        v[3] += a.w * c;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] *= inv;
+      store(i, s, v);
+    }
+  }
+  if (tid == 0) lp.counters[pair] = 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -840,54 +1100,34 @@ paged_prefill_kernel(const Params p) {
 // GM (G rounded up to 1, 2, 4 or 8; prefill takes G at run time).
 // ---------------------------------------------------------------------------
 
-enum Kind { kDecode, kDecodeWrite, kPrefill };
+enum Kind { kDecode, kDecodeWrite };
 
 template <Kind K, typename Tq, typename Tc, int GM, int HD>
 cudaError_t launch(const Launch& dp) {
   const Params& p = dp.p;
-  if constexpr (K == kPrefill) {
-    constexpr size_t smem = prefill_smem<HD>();
-    static bool smem_set = false;  // idempotent: a race only repeats the call
-    if (!smem_set) {
-      cudaError_t e = cudaFuncSetAttribute(
-          paged_prefill_kernel<Tq, Tc, HD>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return e;
-      smem_set = true;
-    }
-    const int TQ = kRows / p.G;
-    dim3 grid((p.T + TQ - 1) / TQ, p.B, p.KH);
-    paged_prefill_kernel<Tq, Tc, HD>
-        <<<grid, kPrefillThreads, smem, p.stream>>>(p);
-  } else {
-    // The ring: dynamic shared memory, past 48 KB for the larger rows.
-    constexpr bool kW = K == kDecodeWrite;
-    constexpr int smem = SimtGeo<Tc, HD>::kSmem;
-    static bool smem_set = false;  // idempotent: a race only repeats the call
-    if (!smem_set) {
-      cudaError_t e = cudaFuncSetAttribute(
-          paged_decode_kernel<Tq, Tc, GM, HD, kW>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return e;
-      smem_set = true;
-    }
-    paged_decode_kernel<Tq, Tc, GM, HD, kW>
-        <<<dim3(p.B, p.KH, dp.splits), kDecodeThreads, smem, p.stream>>>(dp);
+  // The ring: dynamic shared memory, past 48 KB for the larger rows.
+  constexpr bool kW = K == kDecodeWrite;
+  constexpr int smem = SimtGeo<Tc, HD>::kSmem;
+  static bool smem_set = false;  // idempotent: a race only repeats the call
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        paged_decode_kernel<Tq, Tc, GM, HD, kW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
   }
+  paged_decode_kernel<Tq, Tc, GM, HD, kW>
+      <<<dim3(p.B, p.KH, dp.splits), kDecodeThreads, smem, p.stream>>>(dp);
   return cudaGetLastError();
 }
 
 template <Kind K, typename Tq, typename Tc, int HD>
 cudaError_t by_group(const Launch& dp) {
   const Params& p = dp.p;
-  if constexpr (K == kPrefill) {
-    return launch<K, Tq, Tc, 1, HD>(dp);
-  } else {
-    if (p.G == 1) return launch<K, Tq, Tc, 1, HD>(dp);
-    if (p.G == 2) return launch<K, Tq, Tc, 2, HD>(dp);
-    if (p.G <= 4) return launch<K, Tq, Tc, 4, HD>(dp);
-    return launch<K, Tq, Tc, 8, HD>(dp);
-  }
+  if (p.G == 1) return launch<K, Tq, Tc, 1, HD>(dp);
+  if (p.G == 2) return launch<K, Tq, Tc, 2, HD>(dp);
+  if (p.G <= 4) return launch<K, Tq, Tc, 4, HD>(dp);
+  return launch<K, Tq, Tc, 8, HD>(dp);
 }
 
 template <Kind K, typename Tq, typename Tc>
@@ -915,15 +1155,56 @@ int dispatch(int q_dtype, int cache_dtype, const Launch& dp) {
   if (p.B == 0 || p.T == 0) return 0;
   if (p.KH <= 0 || p.G < 1 || p.G > 8 || p.KH > 65535 || p.B > 65535)
     return (int)cudaErrorInvalidValue;
-  if (K != kPrefill &&
-      (dp.splits < 1 || dp.splits > kDecodeMaxSplits ||
-       (dp.splits > 1 && (dp.ws == nullptr || dp.counters == nullptr))))
+  if (dp.splits < 1 || dp.splits > kDecodeMaxSplits ||
+      (dp.splits > 1 && (dp.ws == nullptr || dp.counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (q_dtype == 0 && cache_dtype == 0) return (int)by_head_dim<K, float, float>(dp);
   if (q_dtype == 0 && cache_dtype == 2) return (int)by_head_dim<K, float, e4m3>(dp);
   if (q_dtype == 1 && cache_dtype == 1) return (int)by_head_dim<K, bf16, bf16>(dp);
   if (q_dtype == 1 && cache_dtype == 2) return (int)by_head_dim<K, bf16, e4m3>(dp);
   return (int)cudaErrorInvalidValue;
+}
+
+// The prefill: grid (KH, B, q-tiles * S), the q-tiles' count from the
+// geometry's rows.
+template <typename Tq, typename Tc, int HD>
+cudaError_t launch_prefill(const PrefillLaunch& lp, int B,
+                           cudaStream_t stream) {
+  using Geo = PrefillGeo<Tc, HD>;
+  static bool smem_set = false;  // idempotent: a race only repeats the call
+  if (!smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        paged_prefill_kernel<Tq, Tc, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Geo::kSmem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  const int TQ = Geo::kRows / lp.G;
+  const long long z = (long long)((lp.T + TQ - 1) / TQ) * lp.splits;
+  if (z > 65535) return cudaErrorInvalidValue;
+  paged_prefill_kernel<Tq, Tc, HD>
+      <<<dim3(lp.KH, B, (unsigned)z), kPrefillThreads, Geo::kSmem, stream>>>(
+          lp);
+  return cudaGetLastError();
+}
+
+template <typename Tq, typename Tc>
+cudaError_t prefill_by_head_dim(int HD, const PrefillLaunch& lp, int B,
+                                cudaStream_t stream) {
+  switch (HD) {
+    case 16: return launch_prefill<Tq, Tc, 16>(lp, B, stream);
+    case 32: return launch_prefill<Tq, Tc, 32>(lp, B, stream);
+    case 64: return launch_prefill<Tq, Tc, 64>(lp, B, stream);
+    case 128:
+      if constexpr (std::is_same_v<Tq, float>)
+        return launch_prefill<Tq, Tc, 128>(lp, B, stream);
+      break;
+    case 256:
+      if constexpr (std::is_same_v<Tq, float>)
+        return launch_prefill<Tq, Tc, 256>(lp, B, stream);
+      break;
+  }
+  return cudaErrorInvalidValue;
 }
 
 Params make_params(const void* q, void* cache, const int* tables,

@@ -9,7 +9,8 @@ bf16 q at head_dim 128 or 256 runs the split-KV decode of
 ``csrc/decode_splitkv.cuh`` (``decode_plan`` picks its split count) and the
 tensor-core prefill of ``csrc/prefill_wgmma.cuh`` (``prefill_plan`` picks
 how many blocks share each q-tile's keys); fp32 q, or head_dim 16,
-32 or 64, the CUDA-core kernels of ``csrc/paged_attention.cuh``. Every
+32 or 64, the CUDA-core kernels of ``csrc/paged_attention.cuh``
+(``simt_decode_plan`` and ``simt_prefill_plan`` pick their splits). Every
 kernel takes 1 to 8 query heads per kv head and a cache in q's type or in
 e4m3 (``kv_cache_dtype="float8_e4m3fn"``: the kernels up-convert K and V
 exactly, every e4m3 value being a bf16 value). Each wrapper has a plain
@@ -259,6 +260,57 @@ def simt_split_keys(kv_len: int, window: int, splits: int, s: int, hd: int,
     ``simt_tile(hd, itemsize)`` keys."""
     lo = max(kv_len - window_eff(window), 0)
     return _split_keys(lo, kv_len, simt_tile(hd, itemsize), splits, s)
+
+
+# paged_attention.cuh's CUDA-core prefill (PrefillGeo): query rows a block
+# takes (a q-tile: rows // G positions of the G heads of one kv head) and
+# keys a tile, by head_dim; the blocks an SM its launch bounds promise
+# (kMinBlocks: two at head_dim 16; one above, where 128 registers a thread
+# spill or an fp32 ring and Q take 166-169 KB). 8 warps a block.
+SIMT_PREFILL_TILES = {16: (128, 32), 32: (128, 32), 64: (128, 32),
+                      128: (128, 32), 256: (64, 16)}
+_SIMT_PREFILL_BLOCKS_PER_SM = {16: 2, 32: 1, 64: 1, 128: 1, 256: 1}
+_SIMT_PREFILL_MAX_SPLITS = 16  # kPrefillMaxSplits
+
+
+def simt_prefill_qtiles(T: int, G: int, hd: int) -> int:
+    """q-tiles of a T-row chunk at G query heads per kv head in the
+    CUDA-core prefill at head_dim ``hd``."""
+    return -(-T // (SIMT_PREFILL_TILES[hd][0] // G))
+
+
+def simt_prefill_plan(B: int, KH: int, T: int, G: int, W: int, bs: int,
+                      n_sm: int, hd: int) -> int:
+    """Blocks that share each q-tile's keys in the CUDA-core prefill, from
+    shapes only (never ``kv_lens`` or ``starts``): as many as keep the
+    grid, B*KH*q-tiles*S blocks, within one wave of the blocks an SM holds
+    (``_SIMT_PREFILL_BLOCKS_PER_SM[hd]``), at most one split per two key
+    tiles the table can hold, and at most 16. tiny-llama-debug's heads (KH
+    8, G 1, hd 16) at T=256 over a 256-key table: 16 q-tile blocks, 4
+    splits; fp32 Llama-3-8B heads (KH 8, G 4, hd 128) at T=512: 128, one."""
+    keys = SIMT_PREFILL_TILES[hd][1]
+    tiles = -(-W * bs // keys)
+    fit = (_SIMT_PREFILL_BLOCKS_PER_SM[hd] * n_sm
+           // max(B * KH * simt_prefill_qtiles(T, G, hd), 1))
+    return max(1, min(fit, tiles // _SPLIT_MIN_TILES,
+                      _SIMT_PREFILL_MAX_SPLITS))
+
+
+def simt_prefill_split_keys(kv_len: int, start: int, T: int, G: int, qt: int,
+                            window: int, splits: int, s: int,
+                            hd: int) -> Tuple[int, int]:
+    """The keys ``[k0, k1)`` that split ``s`` of ``splits`` of the CUDA-core
+    prefill reads for q-tile ``qt`` of a T-row chunk at ``start``: the
+    q-tile's positions ``start + [t0, t_end)`` see keys ``[max(start + t0
+    + 1 - window, 0), min(kv_len, start + t_end))``, cut as
+    :func:`_split_keys` cuts, in tiles of ``SIMT_PREFILL_TILES[hd][1]``
+    keys."""
+    rows, keys = SIMT_PREFILL_TILES[hd]
+    tq = rows // G
+    t0, t_end = qt * tq, min(qt * tq + tq, T)
+    lo = max(start + t0 + 1 - window_eff(window), 0)
+    hi = min(kv_len, start + t_end)
+    return _split_keys(lo, hi, keys, splits, s)
 
 
 # prefill_wgmma.cuh: query rows a block takes (128 // G positions of the G
@@ -565,22 +617,25 @@ def paged_attention_prefill(q, kv_pages, block_tables, kv_lens, starts,
     tail = (B, T, H, KH, hd, nb, bs, W, int(layer), int(window),
             float(scale), float(softcap))
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    G, n_sm = H // KH, _sm_count(q.device)
     if route == "wgmma":
-        splits = prefill_plan(B, KH, T, H // KH, W, bs, _sm_count(q.device),
-                              hd)
-        ws = counters = None
-        if splits > 1:
-            n = B * KH * prefill_qtiles(T, H // KH)
-            ws = torch.empty(n * splits * PREFILL_ROWS * (hd + 2),
-                             dtype=torch.float32, device=q.device)
-            counters = _counters(q.device, n)
-        rc = lib.pst_paged_prefill_wgmma(
-            *head, None if ws is None else ws.data_ptr(),
-            None if counters is None else counters.data_ptr(), *tail, splits,
-            stream)
+        splits = prefill_plan(B, KH, T, G, W, bs, n_sm, hd)
+        n, rows = B * KH * prefill_qtiles(T, G), PREFILL_ROWS
     else:
-        rc = lib.pst_paged_prefill(DTYPE_CODES[q.dtype], *head, *tail,
-                                   stream)
+        splits = simt_prefill_plan(B, KH, T, G, W, bs, n_sm, hd)
+        n = B * KH * simt_prefill_qtiles(T, G, hd)
+        rows = SIMT_PREFILL_TILES[hd][0]
+    ws = counters = None
+    if splits > 1:
+        ws = torch.empty(n * splits * rows * (hd + 2), dtype=torch.float32,
+                         device=q.device)
+        counters = _counters(q.device, n)
+    if route == "wgmma":
+        rc = lib.pst_paged_prefill_wgmma(*head, _ptr(ws), _ptr(counters),
+                                         *tail, splits, stream)
+    else:
+        rc = lib.pst_paged_prefill(DTYPE_CODES[q.dtype], *head, _ptr(ws),
+                                   _ptr(counters), *tail, splits, stream)
     if rc != 0:
         raise RuntimeError(f"paged prefill kernel ({route}) failed: "
                            f"cudaError {rc}")

@@ -2,10 +2,11 @@
 penalties, logit bias and allowed-token masks (PyTorch).
 
 Greedy, masking and penalty math follow the JAX package's
-``ops/sampling.py`` exactly. The Gumbel draw cannot reproduce
-``jax.random``: each row draws from its own ``torch.Generator`` seeded
-from ``seeds``, so the same seed gives the same tokens within this
-package.
+``ops/sampling.py`` exactly, and so does the seeded draw: each row's
+Gumbel noise is ``jax.random.gumbel(jax.random.PRNGKey(seed), (K,))``,
+computed here from the device ``seeds`` tensor with integer tensor ops
+(threefry2x32, :func:`threefry_bits`), so a seeded request gets the JAX
+server's tokens and the sampler never reads a seed on the host.
 """
 
 from __future__ import annotations
@@ -19,12 +20,53 @@ PACKED_WIDTH = 2 + 2 * LOGPROBS_K
 _NEG = -0.7 * torch.finfo(torch.float32).max
 
 
-def _gumbel(seed: int, n: int, device: torch.device) -> torch.Tensor:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    u = torch.rand(n, generator=gen, device=device, dtype=torch.float32)
-    tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(u.clamp(min=tiny)))
+_MASK32 = 0xFFFF_FFFF
+# threefry2x32 as jax._src.prng.threefry2x32 runs it: 20 rounds in five
+# groups of four, with these rotations, the key schedule (k0, k1, k0 ^ k1
+# ^ 0x1BD11BDA) injected after each group with the group's index.
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+# jax.random.uniform's range [tiny, 1) in float32: maxval - minval is 1.0.
+_TINY = float(np.finfo(np.float32).tiny)
+_SPAN = float(np.float32(1.0) - np.float32(_TINY))
+
+
+def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
+    return ((v << r) | (v >> (32 - r))) & _MASK32
+
+
+def threefry_bits(seeds: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.bits(jax.random.PRNGKey(seed), (n,), uint32)`` of each
+    row's seed, as int64 [B, n] holding the 32-bit words: threefry2x32 on
+    key (0, seed mod 2^32) and counters (0, i), i < n, the two output words
+    XORed (JAX's partitionable layout, ``jax_threefry_partitionable``).
+    int64 tensor ops masked to 32 bits, on ``seeds``' device."""
+    k0 = torch.zeros_like(seeds, dtype=torch.int64)[:, None]
+    k1 = (seeds.to(torch.int64) & _MASK32)[:, None]
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    x0 = k0 + torch.zeros(n, dtype=torch.int64, device=seeds.device)
+    x1 = (torch.arange(n, dtype=torch.int64, device=seeds.device) + k1) \
+        & _MASK32
+    for g in range(5):
+        for r in _ROTATIONS[g % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = x0 ^ _rotl(x1, r)
+        x0 = (x0 + ks[(g + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(g + 2) % 3] + g + 1) & _MASK32
+    return x0 ^ x1
+
+
+def gumbel_noise(seeds: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.gumbel(jax.random.PRNGKey(seed), (n,), float32)`` of
+    each row's seed, [B, n] float32: the words' top 23 bits as the mantissa
+    of a float in [1, 2), minus 1, scaled to [tiny, 1) as
+    ``jax.random.uniform(..., minval=tiny, maxval=1.)`` does (times 1 - tiny,
+    which is 1.0 in float32, plus tiny, then at least tiny), then
+    ``-log(-log(u))``."""
+    mant = (threefry_bits(seeds, n) >> 9) | 0x3F80_0000
+    f = mant.to(torch.int32).view(torch.float32) - 1.0
+    u = torch.clamp_min(f * _SPAN + _TINY, _TINY)
+    return -torch.log(-torch.log(u))
 
 
 def sample_tokens(
@@ -33,7 +75,7 @@ def sample_tokens(
     top_ps: torch.Tensor,  # [B]
     top_ks: torch.Tensor,  # [B] (<=0: disabled)
     min_ps: torch.Tensor,  # [B]
-    seeds,  # [B] per-row seeds (tensor or sequence; read on the host)
+    seeds: torch.Tensor,  # [B] integer per-row seeds, on logits' device
     greedy_only: bool = False,
 ) -> torch.Tensor:
     """``greedy_only`` (every row greedy) skips the top-k/softmax/Gumbel
@@ -57,8 +99,7 @@ def sample_tokens(
     keep &= probs >= min_ps[:, None] * probs[:, :1]
     keep[:, 0] = True
 
-    seed_list = seeds.tolist() if hasattr(seeds, "tolist") else list(seeds)
-    g = torch.stack([_gumbel(s, K, logits.device) for s in seed_list])
+    g = gumbel_noise(seeds, K)
     choice = torch.argmax(
         torch.where(keep, scaled + g, torch.full_like(scaled, _NEG)), dim=-1
     )

@@ -1,9 +1,10 @@
 """The port's sampling ops vs the JAX package's ``ops/sampling.py``.
 
 Greedy, logit bias, allowed-token masks and both penalty forms must match
-exactly. The Gumbel draw cannot reproduce ``jax.random``: seeded sampling
-is held to reproducibility within the port, and top-k / top-p / min-p to
-keeping only allowed ids.
+exactly. Seeded sampling is held here to reproducibility and top-k /
+top-p / min-p to keeping only allowed ids; ``test_torch_seeded_draw.py``
+holds the draw to ``jax.random`` bit for bit and the sampled tokens to the
+JAX sampler's and the JAX engine's.
 """
 
 import itertools
