@@ -61,6 +61,11 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    launches bit for bit). The sampler's seeded draw on the card against
    the CPU's: the threefry words bit for bit, the Gumbel values within
    1e-6, and ``sample_tokens``' tokens equal.
+2x. CUDA graphs: one launch each of the split-KV decode (bf16 cache; e4m3
+   cache with the fused write), the wgmma prefill and the int4 wgmma and
+   decode kernels captured into a CUDA graph; its inputs redrawn in
+   place, the replay must equal an eager launch bit for bit (and the
+   fused write's cache bytes) and differ from the first inputs' output.
 3. The full-width 32-layer Llama-3-8B (random bf16 weights from a seed):
    one 512-token prefill and 8 decode steps through the kernels and again
    through the gather path; the logits must agree, and every decode
@@ -70,11 +75,21 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    in e4m3 and bf16. A decode step, a seeded draw (its seeds on the card)
    and a prefill chunk then run under CUDA's sync debug mode set to raise
    (no host sync), and
-   the unembed is held to a float32 product.
+   the unembed is held to a float32 product. 3x: the runner's steps eager
+   against replayed from their CUDA graphs, each from the same KV cache
+   (restored from a clone): a decode step at B=8 x 4096 (seeded draws,
+   logprobs), a fresh 512-token chunk and a 4-step seeded burst with
+   penalties; the packed rows and the cache bytes bit for bit; the host
+   wall, device busy and idle share of both.
 4. Serving: the port's OpenAI server on localhost, configured by its own
-   flags, answers completions (streamed, chunked-prefill, concurrent);
-   the kernels' launch counters are zeroed just before and must have grown
-   by its end. 4c: a second server with ``--kv-cache-dtype float8_e4m3fn``
+   flags (``--warmup lazy``: ``/ready`` must answer 503 ``"warming"``,
+   ``/health`` 200 ``"warming"`` and a completion 503 with
+   ``X-PST-Warming: 1`` while the warmup is held, then ``/ready`` 200 with
+   its summary), answers completions (streamed, chunked-prefill,
+   concurrent); the kernels' launch counters are zeroed just before and
+   must have grown by its end, counting each graph replay's launches; the
+   engine must have replayed graphs and captured each key it ran eagerly
+   (so in every server). 4c: a second server with ``--kv-cache-dtype float8_e4m3fn``
    and ``PST_FUSED_KV_WRITE=1``: the e4m3 decode-write and prefill
    counters must grow, and its page count is printed beside the bf16
    one.
@@ -82,7 +97,9 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    bf16 tree freed first), under ``PST_FUSED_KV_WRITE=1``: the same steps
    through the int4 and decode-write kernels, against the gather path on a
    copy whose int4 weights were dequantized to bf16 beforehand; every
-   decode-row projection on the decode route, with no split-sum pass.
+   decode-row projection on the decode route, with no split-sum pass;
+   3x's decode step through the int4 and fused-write kernels, eager
+   against replayed.
 4b. Serving int4 with ``PST_FUSED_KV_WRITE=1``: a third server; the int4,
    decode-write and prefill counters must grow; split-sum passes follow
    only wgmma launches.
@@ -93,7 +110,10 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    against the gather path.
 4d. ``EngineConfig(device="cuda")``, the default tiny preset (fp32,
    head_dim 16), answers a completion on the CUDA-core kernels; so do the
-   same over an e4m3 cache and both with the fused write.
+   same over an e4m3 cache and both with the fused write. A tiny engine
+   with ``warmup="full"`` captures every lattice bucket; traffic that
+   spans the lattice then captures nothing (a penalized prefill at most
+   once).
 3f. gemma2-9b at full width and depth (42 layers, 9.24B random bf16
    parameters, its (1 + w) norms drawn as N(0, 0.1) around w = 0 since a
    random model at the JAX init's w = 1 amplifies rounding with depth (see
@@ -134,7 +154,9 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    the int4 CUDA-core route in fp32 at N=8 on the tiny engine's w_gate
    (128 x 256) and on Llama-3-8B's (4096 x 14336, not a served shape).
 
-The line before the last is a JSON ``kernels`` summary; the last line is
+Before the last line come a JSON ``graphs`` summary (the step rows of
+3x, the serving phases' graph counts, pool bytes and warmup summary, the
+tiny full warmup) and a JSON ``kernels`` summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA GPU, or without the
 package beside it, the script exits non-zero and prints no result.
 
@@ -161,6 +183,7 @@ import sys
 import threading
 import time
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -174,6 +197,11 @@ from production_stack_tpu_torch.engine.config import (  # noqa: E402
     resolve_num_kv_blocks,
 )
 from production_stack_tpu_torch.engine.engine import LLMEngine  # noqa: E402
+from production_stack_tpu_torch.engine.runner import (  # noqa: E402
+    ModelRunner,
+    capture,
+    on_stream,
+)
 from production_stack_tpu_torch.engine.sequence import SamplingParams  # noqa: E402
 from production_stack_tpu_torch.engine.server import (  # noqa: E402
     engine_config_from_args,
@@ -198,7 +226,10 @@ from production_stack_tpu_torch.ops.sampling import (  # noqa: E402
     apply_logit_bias,
     sample_tokens_packed,
 )
-from production_stack_tpu_torch.tools.profile_step import step_inputs  # noqa: E402
+from production_stack_tpu_torch.tools.profile_step import (  # noqa: E402
+    profile,
+    step_inputs,
+)
 
 DEV = torch.device("cuda")
 MODEL = "llama-3-8b"
@@ -1583,6 +1614,254 @@ def phase_int4_kernels() -> None:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# Phase 2x / 3x: CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (a NaN equals the same NaN)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def replay_vs_eager(label: str, fn, refill, state=()) -> None:
+    """``fn`` (one kernel launch) run once eagerly on a side stream, then
+    captured into a CUDA graph; ``refill()`` redraws its inputs in place;
+    the replay and an eager ``fn()`` on the redrawn inputs, each from the
+    same ``state`` (tensors the launch writes, e.g. a cache), must agree
+    bit for bit, and the replay must differ from the first inputs'
+    output (it ran, on the new inputs)."""
+    stream = torch.cuda.Stream()
+    with on_stream(stream):
+        first = fn().clone()
+    graph = torch.cuda.CUDAGraph()
+    with on_stream(stream):
+        out = capture(graph, fn)
+    refill()
+    saved = [t.clone() for t in state]
+    graph.replay()
+    got, got_state = out.clone(), [t.clone() for t in state]
+    for t, v in zip(state, saved):
+        t.copy_(v)
+    ref = fn()
+    torch.cuda.synchronize()
+    check(same_bits(got, ref) and all(
+        same_bits(a, b) for a, b in zip(got_state, state)),
+        f"{label}: the replayed launch differs from an eager launch")
+    check(not same_bits(got, first), f"{label}: the replay read stale inputs")
+    log(f"  {label}: replay equals an eager launch bit for bit"
+        + (" (output and cache)" if state else ""))
+
+
+def phase_capture_kernels() -> None:
+    """One launch of each kernel family captured into a CUDA graph (the
+    library links the CUDA runtime statically; the launches go to
+    PyTorch's current stream as a raw handle) and replayed on new inputs
+    against an eager launch, bit for bit."""
+    log("[phase 2x] kernels under CUDA graph capture")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2024)
+    B, T = 8, 512
+    lens = [4096, 3000, 1, 0, 517, 2048, 4096, 33]
+    # Tickets for the largest launch here, before any capture.
+    pac.reserve_tickets(DEV, pac.ticket_count(
+        torch.bfloat16, torch.bfloat16, H, KH, HD, 2, T))
+
+    def redraw(*ts):
+        def refill():
+            for t in ts:
+                t.copy_(torch.randn(t.shape, generator=gen, device=DEV))
+        return refill
+
+    q, cache, tables, kl, _ = make_case(gen, B=B, T=1, kv_lens=lens)
+    q3 = q[:, 0].contiguous()
+    check(splits_of(q3, cache, tables) > 1, "capture: the decode must split")
+    replay_vs_eager(
+        "decode_split_kernel (bf16 cache, B=8 ragged to 4096, split)",
+        lambda: pac.paged_attention_decode(q3, cache, tables, kl, 1,
+                                           scale=SCALE), redraw(q3))
+
+    q, cache, tables, kl, _ = make_case(gen, B=B, T=1, kv_lens=lens,
+                                        cache_dtype=E4M3)
+    q3 = q[:, 0].contiguous()
+    k_new = torch.randn((B, KH * HD), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    v_new = torch.randn_like(k_new)
+    wf = write_slots(tables, [max(n - 1, 0) for n in lens], [3],
+                     cache.shape[1])
+    replay_vs_eager(
+        "decode_split_kernel (e4m3 cache, fused write)",
+        lambda: pac.paged_attention_decode_write(
+            q3, cache, tables, kl, 1, k_new, v_new, wf, scale=SCALE),
+        redraw(q3, k_new, v_new), state=(cache,))
+
+    q, cache, tables, kl, st = make_case(gen, B=2, T=T, kv_lens=[T, 3584 + T],
+                                         starts=[0, 3584])
+    replay_vs_eager(
+        "paged_prefill_wgmma_kernel (T=512 fresh and at 3584)",
+        lambda: pac.paged_attention_prefill(q, cache, tables, kl, st, 1,
+                                            scale=SCALE), redraw(q))
+
+    for N, route in ((64, "wgmma"), (8, "decode")):
+        x, packed, scales = int4_case(gen, N, 4096, 14336)
+        check(i4.route(x, packed, scales) == route,
+              f"capture: int4 N={N} takes {i4.route(x, packed, scales)}")
+        replay_vs_eager(
+            f"int4_{route}_kernel (N={N}, 4096 x 14336)",
+            lambda: i4.int4_matmul(x, packed, scales), redraw(x))
+
+
+# The model phases' graphed steps: B=8 rows at 4096 (a burst of 4 ending
+# there), a fresh 512-token chunk.
+GRAPH_B, GRAPH_CTX, GRAPH_T, GRAPH_N = 8, 4096, 512, 4
+
+
+def graph_runner(params, quantization=None) -> ModelRunner:
+    """A runner of the full-width model over ``params`` with pages for
+    ``GRAPH_B`` sequences of ``GRAPH_CTX`` tokens, filled with random
+    keys and values (every step reads all of them)."""
+    W = GRAPH_CTX // BS
+    cfg = EngineConfig(
+        model=MODEL, device=DEV.type, max_num_seqs=GRAPH_B,
+        max_prefill_tokens=GRAPH_T, max_model_len=GRAPH_CTX,
+        num_decode_steps=GRAPH_N, num_kv_blocks=GRAPH_B * W + 1,
+        quantization=quantization)
+    runner = ModelRunner(cfg, get_model_config(MODEL), params)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(11)
+    runner.kv_cache.normal_(generator=gen)
+    return runner
+
+
+def graph_batches(runner) -> dict:
+    """The runner's numpy batches of three steps: a decode step at 4096
+    (seeded draws, logprobs), a fresh 512-token chunk in row 0's pages,
+    and a 4-step seeded burst with penalties (the dense form) ending at
+    4096."""
+    rng = np.random.default_rng(5)
+    B, ctx, T, n = GRAPH_B, GRAPH_CTX, GRAPH_T, GRAPH_N
+    V = runner.model_cfg.vocab_size
+    i32, f32 = np.int32, np.float32
+    tables = np.arange(B * (ctx // BS), dtype=i32).reshape(B, -1)
+
+    def sampling(rows):
+        return dict(temps=np.full(rows, 0.8, f32), top_ps=np.full(rows, 0.9, f32),
+                    top_ks=np.full(rows, 50, i32), min_ps=np.zeros(rows, f32),
+                    seeds=np.arange(rows, dtype=np.int64) + 1000)
+
+    def slots(rows, pos):
+        return tables[rows, pos // BS] * BS + pos % BS
+
+    pos = ctx - 1
+    decode = dict(tokens=rng.integers(0, V, (B, 1)).astype(i32),
+                  positions=np.full((B, 1), pos, i32),
+                  write_idx=slots(np.arange(B), np.full(B, pos))[:, None]
+                  .astype(i32),
+                  block_tables=tables, kv_lens=np.full(B, ctx, i32),
+                  last_idx=np.zeros(B, i32), **sampling(B))
+    p = np.arange(T)
+    chunk = dict(tokens=rng.integers(0, V, (1, T)).astype(i32),
+                 positions=p[None].astype(i32),
+                 write_idx=slots(np.zeros(T, int), p)[None].astype(i32),
+                 block_tables=tables[:1], kv_lens=np.array([T], i32),
+                 last_idx=np.array([T - 1], i32), **sampling(1))
+    start = ctx - n  # positions start .. ctx - 1
+    burst = dict(tokens=rng.integers(0, V, B).astype(i32),
+                 positions=np.full(B, start, i32), block_tables=tables,
+                 kv_lens=np.full(B, start + 1, i32), **sampling(B),
+                 penalty_seen=rng.random((B, V)) < 0.01,
+                 presence=np.full(B, 0.5, f32), frequency=np.full(B, 0.3, f32),
+                 repetition=np.full(B, 1.2, f32),
+                 pen_counts=rng.poisson(0.01, (B, V)).astype(f32))
+    return {"decode": decode, "chunk": chunk, "burst": burst}
+
+
+def graph_vs_eager(runner, label: str, batch: dict, want_lp: bool,
+                   greedy: bool, n_steps: int = 0) -> dict:
+    """One step run eagerly through the runner's own method, then (from
+    the same KV cache, restored from a clone) through its graph path:
+    first use (eager on the capture stream, then the capture), and, the
+    cache restored again, the replay. The replay's packed rows and the
+    cache bytes must equal the eager step's. Returns the host wall, device
+    busy and idle share of both (``profile_step.profile``)."""
+    if n_steps:
+        def eager():
+            return runner.eager_multi_step(runner._put(batch), n_steps,
+                                           want_lp, greedy)
+
+        def graphed():
+            return runner._multi_step(batch, n_steps, want_lp, greedy)
+    else:
+        def eager():
+            return runner.eager_step(runner._put(batch), want_lp, greedy)
+
+        def graphed():
+            return runner._step(batch, want_lp, greedy)
+    saved = runner.kv_cache.clone()
+    ref = eager().clone()
+    ref_cache = runner.kv_cache.clone()
+    before = dict(runner.graph_counts)
+    runner.kv_cache.copy_(saved)
+    graphed()
+    runner.kv_cache.copy_(saved)
+    got = graphed().clone()
+    torch.cuda.synchronize()
+    after = runner.graph_counts
+    check(after["captured"] == before["captured"] + 1
+          and after["replayed"] == before["replayed"] + 1,
+          f"{label}: graph counts {before} -> {after}")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite rows")
+    rows_equal = same_bits(got, ref)
+    cache_equal = same_bits(runner.kv_cache, ref_cache)
+    if not rows_equal:
+        tok = (got[..., 0] == ref[..., 0]).float().mean()
+        log(f"  {label}: replayed rows differ from eager ones: tokens equal "
+            f"{float(tok):.3f}, max|diff| {float((got - ref).abs().max()):.3e}")
+    check(rows_equal and cache_equal,
+          f"{label}: replay differs from the eager step (rows equal "
+          f"{rows_equal}, cache bytes equal {cache_equal})")
+    del saved, ref_cache
+    times = {"eager": profile(eager, 5, 3), "replayed": profile(graphed, 5, 3)}
+    out = {"step": label, "fused_kv_write":
+           os.environ.get("PST_FUSED_KV_WRITE") == "1"}
+    for how, r in times.items():
+        out[how] = {k: r[k] for k in ("wall_ms", "device_busy_ms",
+                                      "idle_share", "kernels_per_step")}
+    log(f"  {label}: packed rows {tuple(got.shape)} and cache bytes equal the "
+        f"eager step's; " + "; ".join(
+            f"{how} wall {r['wall_ms']:.2f} ms, device busy "
+            f"{r['device_busy_ms']:.2f} ms, idle {r['idle_share']:.1%}, "
+            f"{r['kernels_per_step']:.0f} kernels" for how, r in times.items()))
+    return out
+
+
+def phase_step_graphs(params, quantization=None) -> list:
+    """Phase 3x: full-width Llama-3-8B steps through the runner, eager
+    against replayed: bf16 — a decode step at B=8 x 4096, a fresh T=512
+    chunk and a 4-step seeded burst with penalties; int4 (under
+    ``PST_FUSED_KV_WRITE=1``) — the decode step."""
+    runner = graph_runner(params, quantization)
+    batches = graph_batches(runner)
+    tag = quantization or "bf16"
+    log(f"[phase 3x] {MODEL} {tag} steps, eager against replayed "
+        f"(PST_FUSED_KV_WRITE={os.environ.get('PST_FUSED_KV_WRITE')})")
+    rows = [graph_vs_eager(runner, f"{tag} decode B={GRAPH_B} x {GRAPH_CTX}",
+                           batches["decode"], True, False)]
+    if quantization is None:
+        rows.append(graph_vs_eager(runner, f"bf16 prefill T={GRAPH_T} fresh",
+                                   batches["chunk"], True, True))
+        rows.append(graph_vs_eager(
+            runner, f"bf16 {GRAPH_N}-step seeded burst with penalties",
+            batches["burst"], False, False, n_steps=GRAPH_N))
+    log(f"  graphs {runner.graph_counts}, their pool "
+        f"{runner.graph_pool_bytes / 2**20:.1f} MiB")
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def build_model(seed: int = 0):
     cfg = get_model_config(MODEL)
     model = Llama(cfg)
@@ -2136,6 +2415,88 @@ def phase_tiny_engines() -> dict:
     return counts
 
 
+def drain(engine, requests) -> dict:
+    """Add ``requests`` ((prompt ids, SamplingParams kwargs) pairs) and
+    step the engine until they finish; returns each one's token count and
+    finish reason by request id."""
+    done = {}
+    for ids, sp in requests:
+        engine.add_request(f"r{ids[0]}-{len(ids)}", prompt_token_ids=ids,
+                           sampling=SamplingParams(ignore_eos=True, **sp))
+    for _ in range(400):
+        if not engine.has_work():
+            return done
+        for out in engine.step():
+            if out.finished:
+                done[out.request_id] = (out.num_output_tokens,
+                                        out.finish_reason)
+    raise AssertionError("the engine did not drain")
+
+
+def phase_tiny_warmup() -> dict:
+    """Phase 4d: a tiny engine (the JAX precompile test's: two decode row
+    buckets, one table bucket, four chunk buckets, a 2-step burst) on the
+    card with ``warmup="full"``: every lattice bucket captured, then
+    traffic that spans the lattice (greedy, sampled and mixed rows,
+    chunked prefills, one-row tails) replays and captures nothing; a
+    penalized request's bursts replay the dense-penalty graphs and its
+    prefill (pow2 penalty ids) captures at most once. The counterpart of
+    ``tests/test_precompile.py::test_full_warmup_then_zero_compiles_on_spanning_traffic``."""
+    cfg = EngineConfig(device="cuda", warmup="full", max_model_len=64,
+                       block_size=16, num_kv_blocks=16, max_num_seqs=2,
+                       max_prefill_tokens=8, num_decode_steps=2)
+    engine = LLMEngine(cfg)
+    runner = engine.runner
+    summary = engine.precompile()
+    warm = dict(runner.graph_counts)
+    check(summary["buckets_compiled"] == summary["buckets_total"] > 0
+          and warm["captured"] == warm["eager"] == len(runner._graphs),
+          f"tiny full warmup: {summary}, graphs {warm}")
+    reset_launch_counts()
+    traffic = [
+        [(list(range(2, 12)), dict(max_tokens=3, temperature=0.0))],
+        [(list(range(20, 26)), dict(max_tokens=4, temperature=1.0, seed=7)),
+         (list(range(30, 42)), dict(max_tokens=2, temperature=0.0))],
+        [(list(range(2, 9)), dict(max_tokens=2, temperature=0.9, seed=1)),
+         (list(range(9, 16)), dict(max_tokens=2, temperature=0.8, seed=2))],
+    ]
+    for reqs in traffic:
+        done = drain(engine, reqs)
+        check(sorted(n for n, _ in done.values())
+              == sorted(sp["max_tokens"] for _, sp in reqs)
+              and all(r == "length" for _, r in done.values()),
+              f"tiny warmed engine: {done}")
+    torch.cuda.synchronize()
+    after = dict(runner.graph_counts)
+    check(after["captured"] == warm["captured"]
+          and after["eager"] == warm["eager"]
+          and after["replayed"] > warm["replayed"],
+          f"spanning traffic after a full warmup: graphs {warm} -> {after}")
+    check(pac.route_counts["decode_simt"] > 0
+          and pac.route_counts["prefill_simt"] > 0,
+          f"tiny warmed engine: routes {pac.route_counts}")
+    drain(engine, [(list(range(4, 11)), dict(
+        max_tokens=3, temperature=0.0, repetition_penalty=1.3,
+        presence_penalty=0.5))])
+    pen = dict(runner.graph_counts)
+    check(pen["captured"] <= after["captured"] + 1,
+          f"penalized request after a full warmup: graphs {after} -> {pen}")
+    log(f"[phase 4d] {engine.model_cfg.name} on {DEV} with warmup='full': "
+        f"{summary['buckets_compiled']}/{summary['buckets_total']} buckets, "
+        f"{warm['captured']} graphs ({runner.graph_pool_bytes / 2**20:.1f} MiB "
+        f"pool) in {summary['seconds']}s; spanning traffic: "
+        f"{after['replayed'] - warm['replayed']} replays, 0 captures, launches "
+        f"decode {pac.route_counts['decode_simt']}, prefill "
+        f"{pac.route_counts['prefill_simt']}; a penalized request: "
+        f"{pen['captured'] - after['captured']} capture")
+    out = {"warmup": summary, "after_warmup": warm, "after_traffic": after,
+           "after_penalized": pen, "pool_bytes": runner.graph_pool_bytes}
+    del engine, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_no_host_sync(model, params) -> None:
     """One decode step (with a padding row whose write is dropped), a
     seeded draw (its seeds on the card) with a logit bias, and one prefill
@@ -2368,16 +2729,35 @@ def reset_launch_counts() -> None:
     i4.reset_launch_counts()
 
 
+def wait_ready(port: int, limit: float = 600.0) -> dict:
+    """Poll ``/ready`` until it answers 200 (503 ``"warming"`` meanwhile);
+    returns its body."""
+    t0 = time.perf_counter()
+    while True:
+        status, body = _get(port, "/ready")
+        if status == 200:
+            return body
+        check(status == 503 and body["reason"] == "warming"
+              and time.perf_counter() - t0 < limit,
+              f"/ready: {status} {body}")
+        time.sleep(0.1)
+
+
 def phase_serving(params, label: str, quantization=None, kv_cache_dtype=None,
                   used=("decode", "decode_split", "prefill",
-                        "prefill_wgmma"), model=MODEL) -> dict:
+                        "prefill_wgmma"), model=MODEL, warmup="off") -> dict:
     """Four completions through the server of ``model``, configured by the
     server's own flags; the kernels in ``used`` (by wrapper, and by route)
-    must have launched while serving and no other kernel may have. Returns
-    both counts and the engine's page count (as ``"pages"``)."""
+    must have launched while serving and no other kernel may have. Steps
+    replay CUDA graphs: each key captured on first use (or at warmup) and
+    replayed after, the launch counts added by the replays. With
+    ``warmup``, the warmup is held until ``/ready``, ``/health`` and a
+    completion have answered as warming, then ``/ready`` must answer 200
+    with its summary. Returns both counts, the engine's page count (as
+    ``"pages"``), its graph counts, pool bytes and warmup summary."""
     argv = ["--model", model, "--device", DEV.type,
             "--max-num-batched-tokens", "512", "--num-decode-steps", "4",
-            "--max-num-seqs", "16"]
+            "--max-num-seqs", "16", "--warmup", warmup]
     if quantization:
         argv += ["--quantization", quantization]
     if kv_cache_dtype:
@@ -2386,6 +2766,15 @@ def phase_serving(params, label: str, quantization=None, kv_cache_dtype=None,
     t0 = time.perf_counter()
     engine = AsyncLLMEngine(cfg, params=params)
     runner = engine.engine.runner
+    gate = threading.Event()
+    if warmup != "off":
+        precompile = engine.engine.precompile
+
+        def held_precompile():
+            check(gate.wait(timeout=300), "the warmup gate never opened")
+            return precompile()
+
+        engine.engine.precompile = held_precompile
     log(f"[phase {label}] {model} engine up in "
         f"{time.perf_counter() - t0:.1f}s "
         f"({quantization or 'bf16'} weights, {runner.param_bytes / 1e9:.3f} "
@@ -2396,7 +2785,38 @@ def phase_serving(params, label: str, quantization=None, kv_cache_dtype=None,
         f"num_decode_steps {cfg.num_decode_steps}")
     server, thread = serve_in_thread(engine)
     port = server.server_address[1]
+    summary = None
     try:
+        if warmup != "off":
+            status, body = _get(port, "/ready")
+            check(status == 503 and body["reason"] == "warming",
+                  f"/ready while warming: {status} {body}")
+            status, health = _get(port, "/health")
+            check(status == 200 and health["status"] == "warming",
+                  f"/health while warming: {status} {health}")
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+            conn.request("POST", "/v1/completions",
+                         json.dumps({"prompt": "hi", "max_tokens": 1}),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            resp.read()
+            conn.close()
+            check(resp.status == 503
+                  and resp.getheader("X-PST-Warming") == "1",
+                  f"completion while warming: {resp.status}")
+            gate.set()
+            t1 = time.perf_counter()
+            summary = wait_ready(port)["warmup"]
+            check(summary["mode"] == warmup
+                  and summary["buckets_compiled"] > 0
+                  and "error" not in summary
+                  and engine.warmup_error is None,
+                  f"warmup: {summary} ({engine.warmup_error})")
+            log(f"  /ready 503 'warming' (health 200 'warming', completion "
+                f"503 X-PST-Warming: 1), then 200 after "
+                f"{time.perf_counter() - t1:.1f}s: {summary}; graphs "
+                f"{runner.graph_counts}, pool "
+                f"{runner.graph_pool_bytes / 2**20:.1f} MiB")
         status, health = _get(port, "/health")
         check(status == 200, f"/health: {status} {health}")
         status, models = _get(port, "/v1/models")
@@ -2442,21 +2862,28 @@ def phase_serving(params, label: str, quantization=None, kv_cache_dtype=None,
         counts = {**launch_counts(), **route_counts()}
         check(engine.is_healthy(), f"engine failed: {engine.step_error}")
         pages = runner.num_blocks
+        graphs = dict(runner.graph_counts)
+        pool = runner.graph_pool_bytes
     finally:
+        gate.set()
         server.shutdown()
         server.server_close()
         engine.shutdown()
         thread.join(timeout=10)
     log(f"  {n_req} completions served in {wall:.2f}s; kernel launches "
-        f"during serving: {counts}")
+        f"during serving: {counts}; graphs {graphs}, pool "
+        f"{pool / 2**20:.1f} MiB")
     check(n_req >= 4, "fewer than 4 completions served")
+    check(graphs["replayed"] > 0 and graphs["eager"] == graphs["captured"],
+          f"serving: graph counts {graphs}")
     for k, n in counts.items():
         if k in used:
             check(n > 0, f"serving never launched the {k} kernel")
         else:
             check(n == 0, f"serving launched the {k} kernel {n} times")
     del engine, runner
-    return {**counts, "pages": pages}
+    return {**counts, "pages": pages, "graphs": graphs,
+            "graph_pool_bytes": pool, "warmup": summary}
 
 
 # ---------------------------------------------------------------------------
@@ -3013,15 +3440,17 @@ def main() -> None:
     phase_simt_prefill_splits()
     phase_device_draw()
     phase_int4_kernels()
+    phase_capture_kernels()
     model, params = build_model()
     per_step = phase_model(model, params)
     fp8_per_step, fp8_path = phase_fp8_model(model, params)
     phase_no_host_sync(model, params)
+    graph_steps = phase_step_graphs(params)
     steps = phase_step_times(model, params)
     steps.update(phase_step_times(model, params, tag="e4m3_", impls=("cuda",),
                                   kv_dtype=E4M3))
     torch.cuda.empty_cache()  # the engine sizes its KV cache from free memory
-    served = phase_serving(params, "4")
+    served = phase_serving(params, "4", warmup="lazy")
     gc.collect()  # the first engine's KV cache, before the next sizes its own
     torch.cuda.empty_cache()
     os.environ["PST_FUSED_KV_WRITE"] = "1"
@@ -3040,6 +3469,7 @@ def main() -> None:
 
     q_params, q_per_step = phase_int4_model(model)  # sets PST_FUSED_KV_WRITE=1
     steps.update(phase_step_times(model, q_params, tag="int4_", impls=("cuda",)))
+    graph_steps += phase_step_graphs(q_params, quantization="int4")
     per_step["decode_write_step"] = q_per_step["decode_write"]
     torch.cuda.empty_cache()
     q_served = phase_serving(
@@ -3058,6 +3488,7 @@ def main() -> None:
     del model
     phase_qwen2()
     tiny = phase_tiny_engines()
+    tiny_warm = phase_tiny_warmup()
 
     # The Gemma family: gemma2-9b at full depth, its server with the fused
     # write, its int4 form; gemma-7b and qwen3-8b cut in depth.
@@ -3107,6 +3538,13 @@ def main() -> None:
     int4_rows, crossover = phase_int4_times(q_per_step, q_served, card)
     rows += int4_rows
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"graphs": {
+        "card": card, "steps": graph_steps, "tiny_full_warmup": tiny_warm,
+        "serving": {label: {k: d[k] for k in ("graphs", "graph_pool_bytes",
+                                              "warmup")}
+                    for label, d in (("4", served), ("4b", q_served),
+                                     ("4c", fp8_served), ("4e", g_served))},
+    }}), flush=True)
     print(json.dumps({"kernels": rows, "steps": steps, "int4_crossover": crossover}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,11 @@ class AsyncLLMEngine:
         self._pending_adds: list = []
         self._pending_aborts: list = []
         self.step_error: Optional[str] = None
+        # Warmup gate (engine/precompile.py): the step thread captures the
+        # shape-bucket lattice before its first step; /ready answers 503
+        # until this flips. /health stays green (liveness != readiness).
+        self._warming = cfg.warmup != "off"
+        self.warmup_error: Optional[str] = None
 
     # -- lifecycle --------------------------------------------------------
 
@@ -54,6 +59,16 @@ class AsyncLLMEngine:
             and self._thread is not None
             and self._thread.is_alive()
         )
+
+    @property
+    def warming(self) -> bool:
+        """True while the startup warmup pass is still running."""
+        return self._warming
+
+    @property
+    def ready(self) -> bool:
+        """Readiness (the /ready contract): healthy and warmed."""
+        return self.is_healthy() and not self._warming
 
     # -- submission -------------------------------------------------------
 
@@ -119,6 +134,19 @@ class AsyncLLMEngine:
 
     def _run(self) -> None:
         logger.info("engine step loop started")
+        if self._warming:
+            # Warm up on the step thread: the HTTP threads keep answering
+            # /health and /ready, and no step interleaves with a warmup
+            # capture.
+            try:
+                self.engine.precompile()
+            except Exception as e:  # noqa: BLE001 — serve anyway: the
+                # buckets that were captured replay, the rest capture on
+                # first use (where an error fails the step); readiness
+                # still flips so the server is not wedged.
+                logger.exception("warmup failed")
+                self.warmup_error = str(e)
+            self._warming = False
         while not self._stop:
             self._drain_mailboxes()
             if not self.engine.has_work():

@@ -38,6 +38,13 @@ class EngineConfig:
     num_decode_steps: int = 1
     # Floor for the decode-batch row bucket.
     min_decode_bucket: int = 1
+    # Step capture before /ready flips (engine/precompile.py): "full"
+    # captures the whole padded shape-bucket lattice, "lazy" the core set
+    # the first requests hit; "off" captures each bucket on first use.
+    warmup: str = "off"  # off | lazy | full
+    # Cap on buckets captured at warmup (0 = the entire lattice). Buckets
+    # are walked most-likely-first, so a budget keeps the hot shapes.
+    warmup_bucket_budget: int = 0
     seed: int = 0
     device: str = "cuda"
 

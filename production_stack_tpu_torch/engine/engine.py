@@ -72,6 +72,9 @@ class LLMEngine:
         self.num_preempted_total = 0
         self.prompt_tokens_total = 0
         self.generation_tokens_total = 0
+        # Warmup summary (engine/precompile.py): set by precompile(); the
+        # server's /ready payload carries it.
+        self.warmup_summary: Optional[dict] = None
 
     @property
     def model_name(self) -> str:
@@ -287,4 +290,30 @@ class LLMEngine:
             "generation_tokens_total": float(self.generation_tokens_total),
             "kv_cache_usage_perc": self.allocator.usage,
             "prefix_cache_hit_rate": self.allocator.hit_rate,
+            **{f"graphs_{k}": float(n)
+               for k, n in self.runner.graph_counts.items()},
+            "graph_pool_bytes": float(self.runner.graph_pool_bytes),
         }
+
+    # ------------------------------------------------------------------
+    # Warmup (engine/precompile.py)
+    # ------------------------------------------------------------------
+
+    def precompile(
+        self, mode: Optional[str] = None, bucket_budget: Optional[int] = None
+    ) -> dict:
+        """Capture the padded shape-bucket lattice ahead of traffic (mode
+        and budget default to the config's ``warmup`` and
+        ``warmup_bucket_budget``). Runs on whatever thread calls it (the
+        async engine's step thread, so HTTP probes stay responsive);
+        returns the summary the server's ``/ready`` payload carries."""
+        from .precompile import Precompiler
+
+        summary = Precompiler(
+            self.runner, self.cfg, mode=mode, bucket_budget=bucket_budget
+        ).run()
+        gc = self.runner.graph_counts
+        logger.info("warmup done: %d graphs captured, %.1f MiB in their pool",
+                    gc["captured"], self.runner.graph_pool_bytes / 2**20)
+        self.warmup_summary = summary
+        return summary

@@ -7,13 +7,26 @@ and table-width buckets; padding rows carry ``kv_len = 0`` and write to
 the dropped slot ``nb * bs``; padding positions of a prefill chunk hold
 ``end - 1``. Sampling runs on the device; only the packed sample rows
 come back to the host.
+
+Each step's inputs are copied into static buffers, one flat buffer an
+input name, allocated at init for the largest bucket of the lattice
+(``engine/precompile.py``); a bucket's inputs are prefix views of them.
+On the GPU each step key (its kind, input names and shapes, flags and
+the fused-write switch) is captured into one ``torch.cuda.CUDAGraph`` the
+first time it runs — as ``jax.jit`` compiles on the first call — and
+every later step of the key fills the buffers and replays the graph;
+``warmup_bucket`` captures a bucket ahead of traffic from an all-padding
+batch. Steps on CPU tensors run eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import hashlib
+import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -21,6 +34,7 @@ import torch
 from ..logging_utils import init_logger
 from ..models.llama import Llama, LlamaConfig, quant_mode
 from ..models.registry import get_model_config
+from ..ops import int4_matmul, paged_attention_cuda
 from ..ops.sampling import (
     apply_allowed_mask,
     apply_logit_bias,
@@ -34,6 +48,7 @@ from .config import (
     resolve_device,
     resolve_num_kv_blocks,
 )
+from .precompile import enumerate_lattice
 from .scheduler import PrefillItem
 from .sequence import Sequence
 
@@ -49,6 +64,56 @@ def _pow2(n: int, cap: Optional[int] = None) -> int:
 
 # Block tables below this width share one bucket (as in the JAX runner).
 _MIN_TABLE_BUCKET = 64
+
+def _launch_counters() -> tuple:
+    """The kernel wrappers' launch counters, which count in Python and so
+    not on a graph's replay: the runner adds each replay's launches."""
+    return (paged_attention_cuda.launch_counts,
+            paged_attention_cuda.route_counts,
+            int4_matmul.launch_counts, int4_matmul.route_counts)
+
+
+def _counts_now() -> List[Dict[str, int]]:
+    return [dict(c) for c in _launch_counters()]
+
+
+def _counts_since(before: List[Dict[str, int]]) -> List[Dict[str, int]]:
+    return [{k: n - b[k] for k, n in c.items() if n != b[k]}
+            for c, b in zip(_launch_counters(), before)]
+
+
+@contextlib.contextmanager
+def on_stream(stream):
+    """Run the block on ``stream`` (None: the current stream), after the
+    current stream's work so far and before its later work."""
+    if stream is None:
+        yield
+        return
+    cur = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        yield
+    cur.wait_stream(stream)
+
+
+def capture(graph, fn: Callable[[], Any], pool=None) -> Any:
+    """Record ``fn``'s launches on the current stream (not the legacy
+    default stream) into ``graph`` and return its output, which each
+    ``graph.replay()`` rewrites in place. Thread-local capture mode: the
+    server's threads may use CUDA while the step thread captures."""
+    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+    try:
+        return fn()
+    finally:
+        graph.capture_end()
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: Any  # torch.cuda.CUDAGraph
+    out: torch.Tensor  # static output: read it before the next replay
+    launches: List[Dict[str, int]]  # counter changes one replay makes
+
 
 def _seed_for(seq: Sequence) -> int:
     base = seq.sampling.seed
@@ -109,6 +174,42 @@ class ModelRunner:
         )
         self._drop_slot = self.num_blocks * cfg.block_size
 
+        # Static inputs, one flat buffer a name, sized for the largest
+        # bucket of the lattice and allocated here, outside any graph's
+        # pool (dtypes from the warmup batches, which carry live dtypes).
+        lattice = enumerate_lattice(cfg)
+        need: Dict[str, np.ndarray] = {}
+        for bucket in lattice:
+            for name, v in self._warmup_batch(bucket).items():
+                if name not in need or v.size > need[name].size:
+                    need[name] = v
+        self._bufs: Dict[Any, torch.Tensor] = {
+            name: torch.empty(v.size, dtype=torch.from_numpy(v).dtype,
+                              device=self.device)
+            for name, v in need.items()
+        }
+        # Graphs by step key, all in one memory pool. Sharing the pool is
+        # safe only because each graph's output is read (or dropped)
+        # before the next replay: a later capture may place its tensors
+        # where an earlier graph keeps its intermediates.
+        self._graphs: Dict[tuple, _Graph] = {}
+        self.graph_counts = {"captured": 0, "replayed": 0, "eager": 0}
+        self.graph_pool_bytes = 0  # device memory the captures reserved
+        self._graph_cls = None  # None: steps run eagerly (CPU tensors)
+        self._capture_stream = self._pool = None
+        if self.device.type == "cuda":
+            self._graph_cls = torch.cuda.CUDAGraph
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+            # The split kernels' tickets for the largest launch of the
+            # lattice, before any capture (a graph keeps the buffer it saw).
+            mc = self.model_cfg
+            paged_attention_cuda.reserve_tickets(self.device, max(
+                paged_attention_cuda.ticket_count(
+                    mc.torch_dtype, self.kv_dtype, mc.num_heads,
+                    mc.num_kv_heads, mc.head_dim, b.rows, b.tokens or 1)
+                for b in lattice))
+
     # ------------------------------------------------------------------
     # Public entry points
     # ------------------------------------------------------------------
@@ -150,22 +251,109 @@ class ModelRunner:
         batch = self._decode_batch(seqs, multi=True)
         if "allowed_ids" in batch:
             raise RuntimeError("guided-choice rows reached a multi-step decode burst")
-        counts = self._penalty_counts_for(seqs, batch)
+        if any(s.sampling.has_penalties for s in seqs):
+            self._dense_penalties(seqs, batch)
         rows = self._multi_step(
-            batch, counts, n_steps, self._want_lp(seqs), self._all_greedy(seqs)
+            batch, n_steps, self._want_lp(seqs), self._all_greedy(seqs)
         )
         return rows.cpu().numpy()[: len(seqs)]
+
+    def warmup_bucket(self, bucket) -> None:
+        """Capture one lattice bucket from an all-padding dummy batch.
+
+        Every row carries ``kv_len = 0`` and writes to the drop slot, so
+        the step touches no real KV state; its input names, shapes and
+        flags are exactly what live traffic produces, so the first live
+        batch of the bucket replays its graph."""
+        batch = self._warmup_batch(bucket)
+        if bucket.kind == "decode_burst":
+            self._multi_step(batch, bucket.n_steps, bucket.want_lp,
+                             bucket.greedy)
+        elif bucket.kind in ("decode", "prefill"):
+            self._step(batch, bucket.want_lp, bucket.greedy)
+        else:
+            raise ValueError(f"unknown warmup bucket kind {bucket.kind!r}")
 
     # ------------------------------------------------------------------
     # Device steps
     # ------------------------------------------------------------------
 
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Copy the batch into the static buffers; returns their views.
+        Allocates only for a width the lattice cannot enumerate."""
         out = {}
         for k, v in batch.items():
-            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(
-                self.device, non_blocking=True)
+            host = torch.from_numpy(np.ascontiguousarray(v))
+            buf = self._bufs.get(k)
+            if buf is None or buf.numel() < host.numel():
+                # The single-step penalty ids, allowed_ids and bias_*
+                # arrays (pow2 widths from the requests): a buffer a
+                # width, made on first use and kept for the graphs that
+                # read it, as the JAX runner compiles such a shape on
+                # first use.
+                buf = self._bufs.get((k, host.numel()))
+                if buf is None:
+                    buf = self._bufs[(k, host.numel())] = torch.empty(
+                        host.numel(), dtype=host.dtype, device=self.device)
+            view = buf[: host.numel()].view(host.shape)
+            view.copy_(host, non_blocking=True)
+            out[k] = view
         return out
+
+    def _key(self, kind: str, dev: Dict[str, torch.Tensor], want_lp: bool,
+             greedy: bool, n_steps: int) -> tuple:
+        """A step's graph key. ``PST_FUSED_KV_WRITE`` is in it: the model
+        reads it on every call and a graph fixes the choice at capture."""
+        shapes = tuple(sorted((k, tuple(v.shape)) for k, v in dev.items()))
+        return (kind, shapes, want_lp, greedy, n_steps,
+                os.environ.get("PST_FUSED_KV_WRITE") == "1")
+
+    def _run(self, key: tuple, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """A step: replayed from its key's graph, or run eagerly — on CPU
+        tensors, and on the first use of a key on the card, which then
+        captures the key (the eager run also loads what the kernels load
+        lazily, outside the capture). A capture or replay error raises."""
+        rec = self._graphs.get(key)
+        if rec is not None:
+            rec.graph.replay()
+            for c, d in zip(_launch_counters(), rec.launches):
+                for k, n in d.items():
+                    c[k] += n
+            self.graph_counts["replayed"] += 1
+            return rec.out
+        self.graph_counts["eager"] += 1
+        if self._graph_cls is None:
+            return fn()
+        before = _counts_now()
+        with on_stream(self._capture_stream):
+            out = fn()
+        self._graphs[key] = self._capture(fn, _counts_since(before))
+        return out
+
+    def _capture(self, fn: Callable[[], torch.Tensor],
+                 launches: List[Dict[str, int]]) -> _Graph:
+        graph = self._graph_cls()
+        before = _counts_now()
+        reserved = self._reserved_bytes()
+        try:
+            with on_stream(self._capture_stream):
+                out = capture(graph, fn, self._pool)
+            held = _counts_since(before)
+        finally:
+            # Capturing launches nothing: only replays count.
+            for c, b in zip(_launch_counters(), before):
+                c.update(b)
+        if held != launches:
+            raise RuntimeError(f"a captured step holds launches {held}, its "
+                               f"eager run made {launches}")
+        self.graph_pool_bytes += self._reserved_bytes() - reserved
+        self.graph_counts["captured"] += 1
+        return _Graph(graph, out, launches)
+
+    def _reserved_bytes(self) -> int:
+        if self.device.type != "cuda":
+            return 0
+        return torch.cuda.memory_reserved(self.device)
 
     def _forward(self, dev, tokens, positions, write_idx, kv_lens, last_idx):
         logits, self.kv_cache = self.model.forward(
@@ -177,6 +365,13 @@ class ModelRunner:
     def _step(self, batch: Dict[str, np.ndarray], want_lp: bool,
               greedy: bool) -> torch.Tensor:
         dev = self._put(batch)
+        return self._run(self._key("step", dev, want_lp, greedy, 1),
+                         lambda: self.eager_step(dev, want_lp, greedy))
+
+    def eager_step(self, dev: Dict[str, torch.Tensor], want_lp: bool,
+                   greedy: bool) -> torch.Tensor:
+        """The forward and the sampler of one step on the inputs ``dev``
+        (``_put``'s views), run eagerly: what a step's graph captures."""
         logits = self._forward(
             dev, dev["tokens"], dev["positions"], dev["write_idx"],
             dev["kv_lens"], dev["last_idx"],
@@ -197,20 +392,27 @@ class ModelRunner:
             dev["seeds"], with_logprobs=want_lp, greedy_only=greedy,
         )
 
-    def _multi_step(self, batch: Dict[str, np.ndarray], counts: np.ndarray,
-                    n_steps: int, want_lp: bool, greedy: bool) -> torch.Tensor:
+    def _multi_step(self, batch: Dict[str, np.ndarray], n_steps: int,
+                    want_lp: bool, greedy: bool) -> torch.Tensor:
+        dev = self._put(batch)
+        return self._run(
+            self._key("burst", dev, want_lp, greedy, n_steps),
+            lambda: self.eager_multi_step(dev, n_steps, want_lp, greedy))
+
+    def eager_multi_step(self, dev: Dict[str, torch.Tensor], n_steps: int,
+                         want_lp: bool, greedy: bool) -> torch.Tensor:
         """Decode ``n_steps`` tokens per sequence without a host round trip:
         each sampled token, its position, its page write slot and the seed
         offset are derived on the device and feed the next forward (the
-        JAX package runs the same chain inside one ``lax.scan``)."""
-        dev = self._put(batch)
+        JAX package runs the same chain inside one ``lax.scan``). Run
+        eagerly on ``_put``'s views, which it leaves as they were."""
         bs = self.cfg.block_size
         tables = dev["block_tables"]
         active = dev["kv_lens"] > 0  # padding rows never write
         tokens = dev["tokens"].to(torch.int32)
         positions = dev["positions"].to(torch.int32)
         with_pen = "penalty_seen" in dev
-        pen_counts = torch.from_numpy(counts).to(self.device)
+        pen_counts = dev["pen_counts"].clone() if with_pen else None
         zeros = torch.zeros_like(positions)
         rows = []
         for i in range(n_steps):
@@ -244,15 +446,12 @@ class ModelRunner:
             rows.append(packed)
         return torch.stack(rows, dim=1)  # [B, n, W]
 
-    def _penalty_counts_for(
+    def _dense_penalties(
         self, seqs: List[Sequence], batch: Dict[str, np.ndarray]
-    ) -> np.ndarray:
-        """Dense penalty state for a burst: ``penalty_seen`` [Bb, V] goes
-        into the batch and the returned [Bb, V] output-token counts advance
-        on the device step by step ([1, 1] placeholder when no row is
-        penalized)."""
-        if not any(s.sampling.has_penalties for s in seqs):
-            return np.zeros((1, 1), np.float32)
+    ) -> None:
+        """Dense penalty state for a burst, in place of the id arrays:
+        ``penalty_seen`` [Bb, V] and the [Bb, V] output-token counts
+        ``pen_counts``, which advance on the device step by step."""
         Bb = batch["kv_lens"].shape[0]
         V = self.model_cfg.vocab_size
         seen = np.zeros((Bb, V), bool)
@@ -269,7 +468,37 @@ class ModelRunner:
         batch.pop("penalty_prompt", None)
         batch.pop("penalty_output", None)
         batch["penalty_seen"] = seen
-        return counts
+        batch["pen_counts"] = counts
+
+    def _warmup_batch(self, bucket) -> Dict[str, np.ndarray]:
+        """The all-padding batch of a lattice bucket, with the names,
+        shapes and dtypes live traffic gives it and neutral sampling and
+        penalty values."""
+        B, W = bucket.rows, bucket.width
+
+        def zeros(*shape):
+            return np.zeros(shape, np.int32)
+
+        if bucket.kind == "decode_burst":
+            batch = {"tokens": zeros(B), "positions": zeros(B),
+                     "block_tables": zeros(B, W), "kv_lens": zeros(B)}
+        else:
+            T = bucket.tokens if bucket.kind == "prefill" else 1
+            batch = {"tokens": zeros(B, T), "positions": zeros(B, T),
+                     "write_idx": np.full((B, T), self._drop_slot, np.int32),
+                     "block_tables": zeros(B, W), "kv_lens": zeros(B),
+                     "last_idx": zeros(B)}
+        batch.update(self._sampling_arrays([], B))
+        if bucket.penalized:
+            V = self.model_cfg.vocab_size
+            batch.update(
+                penalty_seen=np.zeros((B, V), bool),
+                presence=np.zeros(B, np.float32),
+                frequency=np.zeros(B, np.float32),
+                repetition=np.ones(B, np.float32),
+                pen_counts=np.zeros((B, V), np.float32),
+            )
+        return batch
 
     # ------------------------------------------------------------------
     # Batch construction (host side, numpy) — the JAX runner's contract

@@ -1,7 +1,8 @@
 """OpenAI-compatible HTTP server for the PyTorch engine (standard library).
 
-Routes: ``GET /health``, ``GET /v1/models`` and ``POST /v1/completions``
-(streamed as server-sent events, or not), with the JAX package's response
+Routes: ``GET /health``, ``GET /ready``, ``GET /v1/models`` and
+``POST /v1/completions`` (streamed as server-sent events, or not), with
+the JAX package's response
 schema, ``logprobs`` included, and its mapping of every sampling field
 (``build_sampling``). Bodies are plain JSON dicts. A value the port does
 not serve yet (``n`` or ``best_of`` above 1, ``echo``, a ``suffix``, a
@@ -9,7 +10,11 @@ list of prompts) gets a 400 that names the field. The other routes of the
 JAX server are not ported yet.
 
     python -m production_stack_tpu_torch.engine.server --model llama-3-8b --port 8011 \
-        [--quantization int4]
+        [--quantization int4] [--warmup lazy|full]
+
+With ``--warmup`` the engine captures its step graphs before it takes
+traffic: meanwhile ``/ready`` answers 503 ``"warming"``, ``/health`` 200
+``"warming"`` and a completion 503 with ``X-PST-Warming: 1``.
 """
 
 from __future__ import annotations
@@ -178,10 +183,24 @@ def create_engine_app(
         def do_GET(self) -> None:
             if self.path == "/health":
                 if engine.is_healthy():
-                    self._json(200, {"status": "ok"})
+                    self._json(200, {"status": "warming" if engine.warming
+                                     else "ok"})
                 else:
                     self._json(503, {"status": "unhealthy",
                                      "error": engine.step_error})
+            elif self.path == "/ready":
+                # Readiness: 200 only once warmup has finished and the
+                # engine takes work (liveness is /health).
+                warmup = dict(engine.engine.warmup_summary or {})
+                warmup["mode"] = engine.engine.cfg.warmup
+                if engine.warmup_error:
+                    warmup["error"] = engine.warmup_error
+                if engine.ready:
+                    self._json(200, {"ready": True, "warmup": warmup})
+                else:
+                    self._json(503, {"ready": False, "warmup": warmup,
+                                     "reason": "warming" if engine.is_healthy()
+                                     else "unhealthy"})
             elif self.path == "/v1/models":
                 self._json(200, {"object": "list", "data": [
                     {"id": model_name, "object": "model",
@@ -203,6 +222,14 @@ def create_engine_app(
                     raise ValueError("body must be a JSON object")
             except (ValueError, json.JSONDecodeError) as e:
                 self._error(f"invalid request body: {e}")
+                return
+            if engine.warming:
+                # Accepting would queue the request behind the warmup
+                # pass; the marker lets a router fail over.
+                self._json(503, {"error": {
+                    "message": "engine is warming up (capturing step graphs)",
+                    "type": "service_unavailable", "code": 503}},
+                    headers={"X-PST-Warming": "1"})
                 return
             self._completion(req)
 
@@ -338,6 +365,13 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
                    help="KV cache element type: the model dtype (default) "
                         "or float8_e4m3fn")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--warmup", default="off", choices=["off", "lazy", "full"],
+                   help="step capture before /ready flips: full = entire "
+                        "shape-bucket lattice, lazy = the core set the first "
+                        "requests hit, off = capture each bucket on first use")
+    p.add_argument("--warmup-bucket-budget", type=int, default=0,
+                   help="cap warmup to this many lattice buckets, "
+                        "most-likely-first (0 = whole lattice)")
     return p.parse_args(argv)
 
 
@@ -354,6 +388,8 @@ def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
         quantization=args.quantization,
         kv_cache_dtype=args.kv_cache_dtype,
         seed=args.seed,
+        warmup=args.warmup,
+        warmup_bucket_budget=args.warmup_bucket_budget,
     )
 
 

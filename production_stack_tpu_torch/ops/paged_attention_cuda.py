@@ -25,7 +25,7 @@ kernel, cache form and head_dim 256.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -360,6 +360,9 @@ def prefill_split_keys(kv_len: int, start: int, T: int, G: int, qt: int,
 
 _SM_COUNTS: Dict[torch.device, int] = {}
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
+# Ticket buffers outgrown by a later launch: a CUDA graph captured before
+# the growth still reads and writes the old one, so it is never freed.
+_RETIRED: List[torch.Tensor] = []
 
 
 def _sm_count(device: torch.device) -> int:
@@ -369,13 +372,41 @@ def _sm_count(device: torch.device) -> int:
     return _SM_COUNTS[device]
 
 
+def ticket_count(q_dtype: torch.dtype, cache_dtype: torch.dtype, H: int,
+                 KH: int, hd: int, B: int, T: int = 1) -> int:
+    """The tickets a launch over B sequences of T query tokens takes when
+    its plan splits: one a (sequence, kv head) in decode (T = 1), one a
+    q-tile of each (sequence, kv head) in prefill. Needs no GPU."""
+    if T == 1:
+        return B * KH
+    G = H // KH
+    if kernel_route("prefill", q_dtype, cache_dtype, H, KH, hd) == "wgmma":
+        return B * KH * prefill_qtiles(T, G)
+    return B * KH * simt_prefill_qtiles(T, G, hd)
+
+
+def reserve_tickets(device: torch.device, n: int) -> None:
+    """Grow the split kernels' tickets on ``device`` to ``n`` now, before
+    any CUDA graph is captured: a growth under capture raises."""
+    _counters(device, n)
+
+
 def _counters(device: torch.device, n: int) -> torch.Tensor:
     """The split kernels' tickets, one per (sequence, kv head) in decode
     and per q-tile in prefill: zeros, left zero by every launch (the
     launches that share them are ordered on one stream); grown (never
-    shrunk) to the largest count so far."""
+    shrunk) to the largest count so far. Under stream capture the buffer
+    must already be large enough: one allocated there would come from
+    the graph's pool."""
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"a captured launch needs {n} split tickets but "
+                f"{0 if buf is None else buf.numel()} are reserved: call "
+                "reserve_tickets before capturing")
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
         _COUNTERS[device] = buf
     return buf
@@ -620,11 +651,11 @@ def paged_attention_prefill(q, kv_pages, block_tables, kv_lens, starts,
     G, n_sm = H // KH, _sm_count(q.device)
     if route == "wgmma":
         splits = prefill_plan(B, KH, T, G, W, bs, n_sm, hd)
-        n, rows = B * KH * prefill_qtiles(T, G), PREFILL_ROWS
+        rows = PREFILL_ROWS
     else:
         splits = simt_prefill_plan(B, KH, T, G, W, bs, n_sm, hd)
-        n = B * KH * simt_prefill_qtiles(T, G, hd)
         rows = SIMT_PREFILL_TILES[hd][0]
+    n = ticket_count(q.dtype, kv_pages.dtype, H, KH, hd, B, T)
     ws = counters = None
     if splits > 1:
         ws = torch.empty(n * splits * rows * (hd + 2), dtype=torch.float32,

@@ -2,7 +2,7 @@
 
     python -m production_stack_tpu_torch.tools.profile_step \
         [--model llama-3-8b] [--batch 8] [--ctx 4096] [--prefill 512] \
-        [--quantization int4] [--kv-cache-dtype float8_e4m3fn]
+        [--quantization int4] [--kv-cache-dtype float8_e4m3fn] [--graphs]
 
 Builds the model with random weights on the card (quantized on the card
 with ``--quantization``; the KV cache in ``--kv-cache-dtype``, default
@@ -12,8 +12,10 @@ selects the fused decode-write kernel), then for a decode step
 ``--prefill`` tokens, through the CUDA kernels: the host wall time per
 step (synchronised), the device time per step under ``torch.profiler``
 (the union of kernel intervals), the device's idle share of the wall
-time, and the kernels that take the most device time. Prints one JSON
-object as its last line.
+time, and the kernels that take the most device time. With ``--graphs``
+each step is also captured into a CUDA graph (as the engine's runner
+captures a bucket) and the same numbers are taken for its replay beside
+the eager run's. Prints one JSON object as its last line.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..engine.runner import capture, on_stream
 from ..models.llama import Llama
 from ..models.registry import get_model_config
 
@@ -111,6 +114,19 @@ def profile(fn, steps: int, top: int) -> Dict:
     }
 
 
+def replayed(fn):
+    """``fn`` captured into a CUDA graph, after one eager run on the
+    capture stream (which loads what its kernels load lazily); returns the
+    graph's ``replay``."""
+    stream = torch.cuda.Stream()
+    with on_stream(stream):
+        fn()
+    graph = torch.cuda.CUDAGraph()
+    with on_stream(stream):
+        capture(graph, fn)
+    return graph.replay
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="llama-3-8b")
@@ -123,6 +139,8 @@ def main(argv=None) -> None:
     p.add_argument("--quantization", choices=("int8", "int4"), default=None)
     p.add_argument("--kv-cache-dtype", choices=("float8_e4m3fn",),
                    default=None, help="default: the model dtype")
+    p.add_argument("--graphs", action="store_true",
+                   help="also time each step replayed from a CUDA graph")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA GPU")
@@ -145,16 +163,23 @@ def main(argv=None) -> None:
               "kv_cache_dtype": str(kv_dtype),
               "fused_kv_write": os.environ.get("PST_FUSED_KV_WRITE") == "1"}
     for name, batch in (("decode", decode), ("prefill", prefill)):
-        r = profile(lambda: model.forward(params, *batch, cache,
-                                          attn_impl="cuda"),
-                    args.steps, args.top)
-        result[name] = r
-        print(f"{name}: wall {r['wall_ms']:.2f} ms/step, device busy "
-              f"{r['device_busy_ms']:.2f} ms, idle {r['idle_share']:.1%}, "
-              f"{r['kernels_per_step']:.0f} kernels/step", flush=True)
-        for row in r["top"]:
-            print(f"  {row['ms_per_step']:8.3f} ms  x{row['launches_per_step']:5.0f}"
-                  f"  {row['kernel']}", flush=True)
+        def step(batch=batch):
+            return model.forward(params, *batch, cache, attn_impl="cuda")
+
+        runs = {"eager": step}
+        if args.graphs:
+            runs["replayed"] = replayed(step)
+        for how, fn in runs.items():
+            r = profile(fn, args.steps, args.top)
+            result[name if how == "eager" else f"{name}_{how}"] = r
+            print(f"{name} ({how}): wall {r['wall_ms']:.2f} ms/step, device "
+                  f"busy {r['device_busy_ms']:.2f} ms, idle "
+                  f"{r['idle_share']:.1%}, {r['kernels_per_step']:.0f} "
+                  "kernels/step", flush=True)
+            for row in r["top"]:
+                print(f"  {row['ms_per_step']:8.3f} ms  "
+                      f"x{row['launches_per_step']:5.0f}  {row['kernel']}",
+                      flush=True)
     print(json.dumps(result), flush=True)
 
 
