@@ -93,6 +93,25 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    and ``PST_FUSED_KV_WRITE=1``: the e4m3 decode-write and prefill
    counters must grow, and its page count is printed beside the bf16
    one.
+4f. The engine's metrics and admin routes on a fresh bf16 server of the
+   same flags (the phase 4 server shut down and its memory returned
+   first): a greedy chat completion streamed and not gives the same
+   tokens, its prompt is ``/tokenize`` of its messages and
+   ``/detokenize`` gives the rendered text back; ``/metrics``, read by the
+   script's own parser, carries the names the router's scraper reads and
+   the host-gap histogram, counts the requests, their generated tokens
+   and the step captures, and has an MFU above 0; ``/drain`` makes
+   ``/is_draining`` true, ``/ready`` 503 ``"draining"`` and a completion
+   503 with ``X-PST-Draining: 1`` until ``/undrain``. A prompt P runs
+   fresh and then as a prefix-cache hit; after a level-1 sleep and wake it
+   hits again with the hit's tokens, capturing nothing new. A level-2
+   sleep frees at least the KV cache's bytes (printed) and answers
+   ``/ready`` 503 ``"sleeping"`` and a completion 503; after the wake
+   ``/ready`` answers 503 ``"warming"`` while the warmup is held, then
+   200, and P runs fresh again with its first run's tokens, bit for bit,
+   from graphs captured anew (every graph of before the sleep dropped),
+   launching only the split-KV decode and the wgmma prefill; the free
+   memory comes back to within the graph pool's bytes.
 3b. The same model int4-quantized on the card (streamed from the seed, the
    bf16 tree freed first), under ``PST_FUSED_KV_WRITE=1``: the same steps
    through the int4 and decode-write kernels, against the gather path on a
@@ -203,6 +222,7 @@ from production_stack_tpu_torch.engine.runner import (  # noqa: E402
     on_stream,
 )
 from production_stack_tpu_torch.engine.sequence import SamplingParams  # noqa: E402
+from production_stack_tpu_torch.engine.tokenizer import ChatMessage  # noqa: E402
 from production_stack_tpu_torch.engine.server import (  # noqa: E402
     engine_config_from_args,
     parse_engine_args,
@@ -2664,29 +2684,39 @@ def phase_int4_model(model):
 # ---------------------------------------------------------------------------
 
 
-def _post(port: int, body: dict, timeout: float = 300.0):
+def _call(port: int, method: str, path: str, body=None,
+          timeout: float = 300.0):
+    """One request: its status, its body (parsed when JSON) and headers."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
-    conn.request("POST", "/v1/completions", json.dumps(body),
+    conn.request(method, path, None if body is None else json.dumps(body),
                  {"Content-Type": "application/json"})
     resp = conn.getresponse()
-    data = resp.read()
+    raw = resp.read()
     conn.close()
-    return resp.status, data
+    headers = dict(resp.getheaders())
+    if headers.get("Content-Type", "").startswith("application/json"):
+        return resp.status, json.loads(raw), headers
+    return resp.status, raw.decode(), headers
 
 
-def _get(port: int, path: str):
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
-    conn.request("GET", path)
+def _sse(port: int, path: str, body: dict) -> list:
+    """The JSON frames of a streamed answer (the last with its usage)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("POST", path, json.dumps(
+        {**body, "stream": True, "stream_options": {"include_usage": True}}),
+        {"Content-Type": "application/json"})
     resp = conn.getresponse()
-    data = resp.read()
+    check(resp.status == 200, f"{path} stream: HTTP {resp.status}")
+    frames = [ln[len(b"data: "):].strip() for ln in resp.read().split(b"\n")
+              if ln.startswith(b"data: ")]
     conn.close()
-    return resp.status, json.loads(data)
+    check(frames and frames[-1] == b"[DONE]", f"{path} stream: no [DONE]")
+    return [json.loads(f) for f in frames[:-1]]
 
 
 def _completion(port: int, body: dict, want_tokens: int) -> dict:
-    status, data = _post(port, body)
-    check(status == 200, f"completion: HTTP {status}: {data[:300]!r}")
-    out = json.loads(data)
+    status, out, _ = _call(port, "POST", "/v1/completions", body)
+    check(status == 200, f"completion: HTTP {status}: {out}")
     ch = out["choices"][0]
     check(out["usage"]["completion_tokens"] == want_tokens,
           f"completion: {out['usage']} != {want_tokens} tokens")
@@ -2696,16 +2726,7 @@ def _completion(port: int, body: dict, want_tokens: int) -> dict:
 
 
 def _stream(port: int, body: dict, want_tokens: int) -> int:
-    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
-    conn.request("POST", "/v1/completions", json.dumps({**body, "stream": True}),
-                 {"Content-Type": "application/json"})
-    resp = conn.getresponse()
-    check(resp.status == 200, f"stream: HTTP {resp.status}")
-    frames = [ln[len(b"data: "):].strip() for ln in resp.read().split(b"\n")
-              if ln.startswith(b"data: ")]
-    conn.close()
-    check(frames and frames[-1] == b"[DONE]", "stream: no [DONE] frame")
-    chunks = [json.loads(f) for f in frames[:-1]]
+    chunks = _sse(port, "/v1/completions", body)
     check(len(chunks) == want_tokens,
           f"stream: {len(chunks)} frames for {want_tokens} tokens")
     check(chunks[-1]["choices"][0]["finish_reason"] == "length",
@@ -2734,7 +2755,7 @@ def wait_ready(port: int, limit: float = 600.0) -> dict:
     returns its body."""
     t0 = time.perf_counter()
     while True:
-        status, body = _get(port, "/ready")
+        status, body, _ = _call(port, "GET", "/ready")
         if status == 200:
             return body
         check(status == 503 and body["reason"] == "warming"
@@ -2788,22 +2809,16 @@ def phase_serving(params, label: str, quantization=None, kv_cache_dtype=None,
     summary = None
     try:
         if warmup != "off":
-            status, body = _get(port, "/ready")
+            status, body, _ = _call(port, "GET", "/ready")
             check(status == 503 and body["reason"] == "warming",
                   f"/ready while warming: {status} {body}")
-            status, health = _get(port, "/health")
+            status, health, _ = _call(port, "GET", "/health")
             check(status == 200 and health["status"] == "warming",
                   f"/health while warming: {status} {health}")
-            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
-            conn.request("POST", "/v1/completions",
-                         json.dumps({"prompt": "hi", "max_tokens": 1}),
-                         {"Content-Type": "application/json"})
-            resp = conn.getresponse()
-            resp.read()
-            conn.close()
-            check(resp.status == 503
-                  and resp.getheader("X-PST-Warming") == "1",
-                  f"completion while warming: {resp.status}")
+            status, _, headers = _call(port, "POST", "/v1/completions",
+                                       {"prompt": "hi", "max_tokens": 1})
+            check(status == 503 and headers.get("X-PST-Warming") == "1",
+                  f"completion while warming: {status}")
             gate.set()
             t1 = time.perf_counter()
             summary = wait_ready(port)["warmup"]
@@ -2817,9 +2832,9 @@ def phase_serving(params, label: str, quantization=None, kv_cache_dtype=None,
                 f"{time.perf_counter() - t1:.1f}s: {summary}; graphs "
                 f"{runner.graph_counts}, pool "
                 f"{runner.graph_pool_bytes / 2**20:.1f} MiB")
-        status, health = _get(port, "/health")
+        status, health, _ = _call(port, "GET", "/health")
         check(status == 200, f"/health: {status} {health}")
-        status, models = _get(port, "/v1/models")
+        status, models, _ = _call(port, "GET", "/v1/models")
         check(status == 200 and models["data"][0]["id"] == model,
               f"/v1/models: {status} {models}")
 
@@ -2884,6 +2899,282 @@ def phase_serving(params, label: str, quantization=None, kv_cache_dtype=None,
     del engine, runner
     return {**counts, "pages": pages, "graphs": graphs,
             "graph_pool_bytes": pool, "warmup": summary}
+
+
+# The names of the router's scraper (router/stats/engine_stats.py,
+# _METRIC_FIELDS) that the port exports; the one it does not is the
+# remote KV tier's integrity counter (queue 1, item 13).
+ROUTER_METRICS = (
+    "vllm:num_requests_running", "vllm:num_requests_waiting",
+    "vllm:gpu_prefix_cache_hit_rate", "vllm:gpu_prefix_cache_hits_total",
+    "vllm:gpu_prefix_cache_queries_total", "vllm:gpu_cache_usage_perc",
+    "pst_engine_compile_total", "pst_engine_mfu",
+    "pst_engine_kv_page_occupancy", "pst_engine_kv_page_high_watermark",
+    "pst_engine_warmup_coverage", "pst:kv_transfer_fallbacks_total",
+)
+
+
+def scrape(port: int) -> dict:
+    """``/metrics`` read by a few lines of this script (the card's machine
+    has no prometheus_client): each sample name's sum over its label
+    sets."""
+    status, text, headers = _call(port, "GET", "/metrics")
+    check(status == 200 and headers.get("Content-Type", "").startswith(
+        "text/plain; version=0.0.4"), f"/metrics: {status} {headers}")
+    samples: dict = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            head, _, value = line.rpartition(" ")
+            name = head.partition("{")[0]
+            samples[name] = samples.get(name, 0.0) + float(value)
+    return samples
+
+
+def phase_admin(params, card: str) -> dict:
+    """Phase 4f: the metrics and admin routes of a bf16 Llama-3-8B server
+    of phase 4's flags, sleep level 1 and 2 with their wakes (see the
+    module docstring). Returns its numbers for the ``graphs`` line."""
+    argv = ["--model", MODEL, "--device", DEV.type,
+            "--max-num-batched-tokens", "512", "--num-decode-steps", "4",
+            "--max-num-seqs", "16", "--warmup", "lazy"]
+    cfg = engine_config_from_args(parse_engine_args(argv))
+    engine = AsyncLLMEngine(cfg, params=params)
+    runner = engine.engine.runner
+    # Prompt and token ids of each answer, by its id: the HTTP answers
+    # carry text, and most tokens of a random model decode to none.
+    seen: dict = {}
+    generate = engine.generate
+
+    def recording_generate(*args, request_id=None, prompt_token_ids=None,
+                           **kw):
+        rec = seen[request_id] = {"prompt": list(prompt_token_ids),
+                                  "tokens": []}
+        for out in generate(*args, request_id=request_id,
+                            prompt_token_ids=prompt_token_ids, **kw):
+            rec["tokens"].extend(out.new_token_ids)
+            yield out
+
+    engine.generate = recording_generate
+    # The wake's warmup (the second) is held until /ready has answered
+    # "warming".
+    gate, warmups = threading.Event(), []
+    precompile = engine.engine.precompile
+
+    def gated_precompile():
+        warmups.append(1)
+        if len(warmups) > 1 and not gate.wait(timeout=300):
+            raise RuntimeError("the wake's warmup gate never opened")
+        return precompile()
+
+    engine.engine.precompile = gated_precompile
+    server, thread = serve_in_thread(engine)
+    port = server.server_address[1]
+    try:
+        wait_ready(port)
+        status, body, _ = _call(port, "GET", "/version")
+        check(status == 200 and body["version"], f"/version: {body}")
+        n_req = n_gen = 0
+
+        # A greedy chat, whole and streamed; its prompt (27 tokens) fills
+        # no page, so both runs are fresh prefills.
+        messages = [{"role": "user", "content": "Hi!"}]
+        rendered = engine.engine.tokenizer.apply_chat_template(
+            [ChatMessage.from_dict(m) for m in messages])
+        chat = {"model": MODEL, "messages": messages, "max_tokens": 16,
+                "temperature": 0.0, "ignore_eos": True}
+        status, whole, _ = _call(port, "POST", "/v1/chat/completions", chat)
+        check(status == 200 and whole["object"] == "chat.completion"
+              and whole["choices"][0]["message"]["role"] == "assistant"
+              and whole["choices"][0]["finish_reason"] == "length"
+              and whole["usage"]["completion_tokens"] == 16,
+              f"chat: {status} {whole}")
+        frames = _sse(port, "/v1/chat/completions", chat)
+        check(frames[0]["choices"][0]["delta"] == {"role": "assistant"}
+              and all(f["object"] == "chat.completion.chunk" for f in frames)
+              and frames[-1]["choices"][0]["finish_reason"] == "length"
+              and frames[-1]["usage"]["completion_tokens"] == 16,
+              f"chat stream: {frames[0]} ... {frames[-1]}")
+        streamed = "".join(f["choices"][0]["delta"].get("content", "")
+                           for f in frames[1:])
+        a, b = seen[whole["id"]], seen[frames[0]["id"]]
+        check(a["tokens"] == b["tokens"] and len(a["tokens"]) == 16
+              and streamed == whole["choices"][0]["message"]["content"],
+              f"chat: streamed tokens {b['tokens']} != {a['tokens']}")
+        status, tk, _ = _call(port, "POST", "/tokenize",
+                              {"messages": messages})
+        check(status == 200 and tk["tokens"] == a["prompt"] == b["prompt"]
+              and tk["count"] == whole["usage"]["prompt_tokens"]
+              and tk["max_model_len"] == cfg.max_model_len
+              and tk["count"] < cfg.block_size,
+              f"/tokenize: {tk} against the chat's prompt {a['prompt']}")
+        status, dt, _ = _call(port, "POST", "/detokenize",
+                              {"tokens": tk["tokens"]})
+        check(status == 200 and dt["prompt"] == rendered,
+              f"/detokenize: {dt} != {rendered!r}")
+        n_req, n_gen = n_req + 2, n_gen + 32
+        log(f"[phase 4f] chat whole and streamed: the same 16 tokens; "
+            f"/tokenize = its {tk['count']}-token prompt, /detokenize gives "
+            f"the rendered text back")
+
+        # P fresh, then as a prefix-cache hit.
+        P = {"model": MODEL, "max_tokens": 24, "temperature": 0.0,
+             "ignore_eos": True, "prompt": (
+                 "Paged attention keeps each sequence's keys and values in "
+                 "fixed-size pages. " * 6)[:320]}
+
+        def run_p():
+            hits0 = engine.engine.stats()["prefix_cache_hits_total"]
+            status, body, _ = _call(port, "POST", "/v1/completions", P)
+            check(status == 200 and body["usage"]["completion_tokens"] == 24,
+                  f"P: {status} {body}")
+            hits = engine.engine.stats()["prefix_cache_hits_total"] - hits0
+            return seen[body["id"]]["tokens"], hits
+
+        fresh, hits = run_p()
+        check(hits == 0, f"P's first run hit {hits} cached tokens")
+        hit, hits = run_p()
+        check(hits > 0, "P's second run hit no cached page")
+        n_req, n_gen = n_req + 2, n_gen + 48
+
+        m = scrape(port)
+        missing = [k for k in ROUTER_METRICS
+                   + ("pst_engine_host_gap_seconds_bucket",) if k not in m]
+        check(not missing, f"/metrics lacks {missing}")
+        status, state, _ = _call(port, "GET", "/debug/state")
+        captured = state["stats"]["graphs_captured"]
+        check(status == 200 and state["ready"] and state["in_flight"] == 0
+              and state["flight"] == {}
+              and state["compiles_total"] == captured,
+              f"/debug/state: {state}")
+        check(m["vllm:request_success_total"] == n_req
+              and m["vllm:generation_tokens_total"] == n_gen
+              and m["vllm:prompt_tokens_total"] == sum(
+                  len(r["prompt"]) for r in seen.values())
+              and m["pst_engine_compile_total"] == captured
+              and m["pst_engine_mfu"] > 0,
+              f"/metrics: success {m['vllm:request_success_total']} of "
+              f"{n_req}, generated {m['vllm:generation_tokens_total']} of "
+              f"{n_gen}, compiles {m['pst_engine_compile_total']} against "
+              f"{captured} captures, mfu {m['pst_engine_mfu']}")
+        log(f"  /metrics: {n_req} requests, {n_gen} tokens, "
+            f"{captured:.0f} captures counted as compiles, mfu "
+            f"{m['pst_engine_mfu']:.3g}, host-gap samples "
+            f"{m['pst_engine_host_gap_seconds_count']:.0f}; the router's "
+            f"{len(ROUTER_METRICS)} names present")
+
+        # Drain: out of rotation until undrained.
+        status, body, _ = _call(port, "POST", "/drain")
+        check(status == 200 and body == {"status": "draining",
+                                         "in_flight": 0}, f"/drain: {body}")
+        check(_call(port, "GET", "/is_draining")[1] == {
+            "is_draining": True, "in_flight": 0}, "/is_draining after /drain")
+        status, body, _ = _call(port, "GET", "/ready")
+        check(status == 503 and body["reason"] == "draining",
+              f"/ready while draining: {status} {body}")
+        status, body, headers = _call(port, "POST", "/v1/completions", P)
+        check(status == 503 and headers.get("X-PST-Draining") == "1",
+              f"completion while draining: {status} {headers}")
+        status, body, _ = _call(port, "POST", "/undrain")
+        check(status == 200 and body["status"] == "accepting", f"{body}")
+        check(_call(port, "GET", "/is_draining")[1]["is_draining"] is False,
+              "/is_draining after /undrain")
+        check(_call(port, "GET", "/ready")[0] == 200, "/ready after /undrain")
+        status, body, _ = _call(port, "POST", "/v1/completions", {
+            "prompt": "ok", "max_tokens": 2, "temperature": 0.0})
+        check(status == 200, f"completion after /undrain: {status}")
+
+        def asleep(level: int) -> None:
+            status, body, _ = _call(port, "POST", f"/sleep?level={level}")
+            check(status == 200 and body == {"status": "sleeping",
+                                             "level": level}, f"{body}")
+            check(_call(port, "GET", "/is_sleeping")[1] == {
+                "is_sleeping": True}, "/is_sleeping")
+            status, body, _ = _call(port, "GET", "/ready")
+            check(status == 503 and body["reason"] == "sleeping",
+                  f"/ready asleep: {status} {body}")
+            status, body, _ = _call(port, "POST", "/v1/completions", P)
+            check(status == 503
+                  and body["error"]["message"] == "engine is sleeping",
+                  f"completion asleep: {status} {body}")
+
+        # Level 1 pauses the loop and keeps the cache and the graphs.
+        g0 = dict(runner.graph_counts)
+        asleep(1)
+        status, body, _ = _call(port, "POST", "/wake_up")
+        check(status == 200 and body == {"status": "awake"}, f"{body}")
+        check(_call(port, "GET", "/ready")[0] == 200, "/ready after level 1")
+        again, hits = run_p()
+        g1 = dict(runner.graph_counts)
+        check(hits > 0 and again == hit,
+              f"P after level 1: hits {hits}, {again} != {hit}")
+        check(g1["captured"] == g0["captured"]
+              and g1["replayed"] > g0["replayed"],
+              f"level 1: graphs {g0} -> {g1}")
+
+        # Level 2 frees the cache and every graph; the wake restores a
+        # zeroed cache and warms up again.
+        torch.cuda.synchronize()
+        kv_bytes = runner.kv_cache.numel() * runner.kv_cache.element_size()
+        pool0, live = runner.graph_pool_bytes, len(runner._graphs)
+        free0 = torch.cuda.mem_get_info()[0]
+        asleep(2)
+        freed = torch.cuda.mem_get_info()[0] - free0
+        check(freed >= kv_bytes,
+              f"level 2 freed {freed} B, less than the cache's {kv_bytes}")
+        check(engine.engine.stats()["graphs_dropped"] == live
+              == g1["captured"], f"level 2 dropped "
+              f"{runner.graph_counts['dropped']} of {live} graphs")
+        reset_launch_counts()
+        t_wake = time.perf_counter()
+        status, body, _ = _call(port, "POST", "/wake_up")
+        check(status == 200, f"/wake_up: {status} {body}")
+        status, body, _ = _call(port, "GET", "/ready")
+        check(status == 503 and body["reason"] == "warming",
+              f"/ready after the wake: {status} {body}")
+        gate.set()
+        summary = wait_ready(port)["warmup"]
+        wake_s = time.perf_counter() - t_wake
+        check("error" not in summary and summary["buckets_compiled"] > 0,
+              f"the wake's warmup: {summary}")
+        after, hits = run_p()
+        torch.cuda.synchronize()
+        counts = {**launch_counts(), **route_counts()}
+        g2 = dict(runner.graph_counts)
+        pool2 = runner.graph_pool_bytes
+        free2 = torch.cuda.mem_get_info()[0]
+        check(hits == 0 and after == fresh,
+              f"P after level 2: hits {hits}, {after} != its fresh {fresh}")
+        check(g2["captured"] > g1["captured"]
+              and g2["replayed"] > g1["replayed"],
+              f"level 2: graphs {g1} -> {g2}")
+        used = ("decode", "decode_split", "prefill", "prefill_wgmma")
+        for k, n in counts.items():
+            check(n > 0 if k in used else n == 0,
+                  f"after the wake the {k} kernel launched {n} times")
+        check(abs(free2 - free0) <= max(pool0, pool2),
+              f"free memory {free0} before the sleep, {free2} after the "
+              f"wake: more apart than the pools ({pool0}, {pool2} B)")
+        check(engine.is_healthy(), f"engine failed: {engine.step_error}")
+    finally:
+        gate.set()
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+        thread.join(timeout=10)
+    log(f"  level 1: P hit the cache again with the hit's tokens; graphs "
+        f"{g0} -> {g1}")
+    log(f"  level 2 ({card}): freed {freed / 1e9:.3f} GB "
+        f"(KV cache {kv_bytes / 1e9:.3f} GB = {runner.num_blocks} pages, "
+        f"{live} graphs in a {pool0 / 2**20:.1f} MiB pool); /wake_up to "
+        f"/ready 200 in {wake_s:.2f}s; P fresh again with its first run's "
+        f"tokens; graphs {g1} -> {g2}, pool {pool2 / 2**20:.1f} MiB; free "
+        f"memory {(free2 - free0) / 2**20:+.1f} MiB against before the "
+        f"sleep; launches after the wake {counts}")
+    del engine, runner
+    return {"kv_bytes": kv_bytes, "freed_bytes": freed,
+            "wake_to_ready_s": round(wake_s, 3), "graphs_level1": g1,
+            "graphs_after_wake": g2, "graph_pool_bytes": [pool0, pool2],
+            "free_delta_bytes": free2 - free0}
 
 
 # ---------------------------------------------------------------------------
@@ -3453,6 +3744,9 @@ def main() -> None:
     served = phase_serving(params, "4", warmup="lazy")
     gc.collect()  # the first engine's KV cache, before the next sizes its own
     torch.cuda.empty_cache()
+    admin = phase_admin(params, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     os.environ["PST_FUSED_KV_WRITE"] = "1"
     fp8_served = phase_serving(
         params, "4c", kv_cache_dtype="float8_e4m3fn",
@@ -3544,6 +3838,7 @@ def main() -> None:
                                               "warmup")}
                     for label, d in (("4", served), ("4b", q_served),
                                      ("4c", fp8_served), ("4e", g_served))},
+        "sleep_4f": admin,
     }}), flush=True)
     print(json.dumps({"kernels": rows, "steps": steps, "int4_crossover": crossover}),
           flush=True)

@@ -5,6 +5,14 @@ The device step loop runs on a dedicated thread; each request gets a
 which a server thread consumes as an iterator. Submissions and aborts go
 through mailboxes the step thread drains, so a server thread never waits
 on a device step to enqueue work.
+
+Sleep and wake (the JAX package's ``/sleep`` and ``/wake_up``): sleeping
+pauses the step loop; level 2 also drops the KV cache and the step graphs
+that hold its address, and forgets the prefix map. The step thread owns
+the stream, the captures and the cache, so a sleep or a wake is posted to
+it through a mailbox and the caller waits for it: no step or capture
+interleaves with a drop or a restore. A wake from level 2 runs the
+configured warmup again. Draining only closes the HTTP admission gate.
 """
 
 from __future__ import annotations
@@ -22,6 +30,11 @@ from .sequence import SamplingParams
 
 logger = init_logger(__name__)
 
+# Ends a request's stream without a finish: the request was aborted by a
+# level-2 sleep (the JAX engine's sentinel).
+_SENTINEL = object()
+
+
 class AsyncLLMEngine:
     def __init__(self, cfg: EngineConfig, params: Optional[Dict[str, Any]] = None):
         self.engine = LLMEngine(cfg, params)
@@ -32,12 +45,18 @@ class AsyncLLMEngine:
         self._submit_lock = threading.Lock()
         self._pending_adds: list = []
         self._pending_aborts: list = []
+        # (fn, done event, [exception]) run on the step thread: sleep, wake.
+        self._pending_calls: list = []
         self.step_error: Optional[str] = None
         # Warmup gate (engine/precompile.py): the step thread captures the
-        # shape-bucket lattice before its first step; /ready answers 503
-        # until this flips. /health stays green (liveness != readiness).
+        # shape-bucket lattice before its first step (and again on a wake
+        # from level 2); /ready answers 503 until this flips. /health
+        # stays green (liveness != readiness).
         self._warming = cfg.warmup != "off"
         self.warmup_error: Optional[str] = None
+        self._sleeping = False
+        self._sleep_level = 0
+        self._draining = False
 
     # -- lifecycle --------------------------------------------------------
 
@@ -67,8 +86,91 @@ class AsyncLLMEngine:
 
     @property
     def ready(self) -> bool:
-        """Readiness (the /ready contract): healthy and warmed."""
-        return self.is_healthy() and not self._warming
+        """Readiness (the /ready contract): healthy, warmed, awake and
+        accepting work."""
+        return (self.is_healthy() and not self._warming
+                and not self._sleeping and not self._draining)
+
+    # -- sleep / wake -----------------------------------------------------
+
+    @property
+    def sleeping(self) -> bool:
+        return self._sleeping
+
+    def sleep(self, level: int = 1) -> None:
+        """Pause the step loop; level 2 also frees the KV cache and the
+        step graphs, aborts every request in flight and ends their
+        streams. Returns once the step thread has done so."""
+        self._on_step_thread(lambda: self._sleep(level))
+        logger.info("engine sleeping (level %d)", level)
+
+    def wake_up(self) -> None:
+        """Resume the step loop. After level 2 the cache is restored
+        (zeroed) before this returns, and the configured warmup runs
+        next on the step thread (``warming`` meanwhile)."""
+        self._on_step_thread(self._wake_up)
+        logger.info("engine awake")
+
+    def _sleep(self, level: int) -> None:
+        self._sleeping = True
+        if level >= 2 and self._sleep_level < 2:
+            # The dropped pages are what the prefix map points at: forget
+            # them, or a later prompt adopts zeroed pages as cache hits.
+            self.engine.clear_kv_state()
+            self.engine.runner.drop_kv_cache()
+            for q in list(self._queues.values()):
+                q.put(_SENTINEL)
+        self._sleep_level = max(self._sleep_level, level)
+
+    def _wake_up(self) -> None:
+        if self._sleep_level >= 2:
+            self.engine.runner.restore_kv_cache()
+            # Before sleeping flips: /ready never reads ready in between.
+            self._warming = self.engine.cfg.warmup != "off"
+        self._sleep_level = 0
+        self._sleeping = False
+        self._work.set()
+
+    def _on_step_thread(self, fn) -> None:
+        """Run ``fn`` on the step thread between two steps and wait for it
+        (inline when no step thread runs); its exception is raised here."""
+        thread = self._thread
+        if thread is None or not thread.is_alive():
+            fn()
+            return
+        done, error = threading.Event(), []
+        with self._submit_lock:
+            self._pending_calls.append((fn, done, error))
+        self._work.set()
+        while not done.wait(timeout=0.1):
+            if not thread.is_alive():
+                raise RuntimeError("the engine step loop stopped")
+        if error:
+            raise error[0]
+
+    # -- drain ------------------------------------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def drain(self) -> None:
+        """Stop admitting new requests (the server's gate); those in
+        flight run to completion."""
+        self._draining = True
+        logger.info("engine draining (in-flight requests will finish)")
+
+    def undrain(self) -> None:
+        self._draining = False
+        logger.info("engine accepting new requests again")
+
+    def num_inflight(self) -> int:
+        """Requests running, waiting, or submitted and not yet taken by
+        the step thread."""
+        sched = self.engine.scheduler
+        with self._submit_lock:
+            pending = len(self._pending_adds)
+        return int(sched.num_running + sched.num_waiting + pending)
 
     # -- submission -------------------------------------------------------
 
@@ -97,6 +199,9 @@ class AsyncLLMEngine:
             self._work.set()
             while True:
                 item = q.get()
+                if item is _SENTINEL:
+                    finished = True  # aborted by a sleep: nothing to reclaim
+                    break
                 if isinstance(item, Exception):
                     finished = True  # refused or failed: nothing to reclaim
                     raise item
@@ -120,6 +225,7 @@ class AsyncLLMEngine:
         with self._submit_lock:
             adds, self._pending_adds = self._pending_adds, []
             aborts, self._pending_aborts = self._pending_aborts, []
+            calls, self._pending_calls = self._pending_calls, []
         for rid in aborts:
             self.engine.abort_request(rid)
         for rid, kwargs in adds:
@@ -131,25 +237,35 @@ class AsyncLLMEngine:
             except Exception as e:  # noqa: BLE001 — per-request error
                 logger.warning("add_request %s failed: %s", rid, e)
                 q.put(e)
+        for fn, done, error in calls:
+            try:
+                fn()
+            except Exception as e:  # noqa: BLE001 — raised to the caller
+                logger.exception("engine call failed")
+                error.append(e)
+            done.set()
+
+    def _warm_up(self) -> None:
+        # On the step thread: the HTTP threads keep answering /health and
+        # /ready, and no step interleaves with a warmup capture.
+        self.warmup_error = None
+        try:
+            self.engine.precompile()
+        except Exception as e:  # noqa: BLE001 — serve anyway: the
+            # buckets that were captured replay, the rest capture on
+            # first use (where an error fails the step); readiness still
+            # flips so the server is not wedged.
+            logger.exception("warmup failed")
+            self.warmup_error = str(e)
+        self._warming = False
 
     def _run(self) -> None:
         logger.info("engine step loop started")
-        if self._warming:
-            # Warm up on the step thread: the HTTP threads keep answering
-            # /health and /ready, and no step interleaves with a warmup
-            # capture.
-            try:
-                self.engine.precompile()
-            except Exception as e:  # noqa: BLE001 — serve anyway: the
-                # buckets that were captured replay, the rest capture on
-                # first use (where an error fails the step); readiness
-                # still flips so the server is not wedged.
-                logger.exception("warmup failed")
-                self.warmup_error = str(e)
-            self._warming = False
         while not self._stop:
+            if self._warming:
+                self._warm_up()
             self._drain_mailboxes()
-            if not self.engine.has_work():
+            if self._sleeping or not self.engine.has_work():
                 self._work.wait(timeout=0.05)
                 self._work.clear()
                 continue

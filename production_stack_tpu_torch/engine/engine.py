@@ -5,8 +5,13 @@ path: one ``step()`` is one scheduler decision, one device step (a batch
 of prefill chunks, or a decode burst) and the host-side bookkeeping —
 detokenization, stop handling, prefix-block commitment.
 
+``stats()`` feeds the server's ``/metrics``; the runner's ``telemetry``
+records every device step. ``clear_kv_state`` (sleep level 2) forgets
+every page the prefix map points at.
+
 Not ported yet: pipelined bursts, speculative decoding, KV tiering and
-swap, LoRA, disaggregated handoff, the flight recorder and telemetry.
+swap, LoRA, disaggregated handoff, the flight recorder and cost
+attribution.
 """
 
 from __future__ import annotations
@@ -51,8 +56,9 @@ class LLMEngine:
         ``cfg.seed`` when None."""
         self.cfg = cfg
         self.model_cfg = get_model_config(cfg.model)
-        self.tokenizer = get_tokenizer(cfg.tokenizer, self.model_cfg.vocab_size)
         self.runner = ModelRunner(cfg, self.model_cfg, params)
+        t_runner = time.perf_counter()
+        self.tokenizer = get_tokenizer(cfg.tokenizer, self.model_cfg.vocab_size)
         self.allocator = BlockAllocator(
             self.runner.num_blocks, cfg.block_size, cfg.enable_prefix_caching
         )
@@ -75,6 +81,14 @@ class LLMEngine:
         # Warmup summary (engine/precompile.py): set by precompile(); the
         # server's /ready payload carries it.
         self.warmup_summary: Optional[dict] = None
+        # Startup around the runner (which records load and shard):
+        # tokenizer, allocator, scheduler.
+        self.telemetry.record_startup_phase(
+            "warmup", time.perf_counter() - t_runner)
+
+    @property
+    def telemetry(self):
+        return self.runner.telemetry
 
     @property
     def model_name(self) -> str:
@@ -120,6 +134,17 @@ class LLMEngine:
 
     def has_work(self) -> bool:
         return self.scheduler.has_work()
+
+    def clear_kv_state(self) -> None:
+        """Forget every page the cache held (sleep level 2 drops them):
+        abort every request in flight and start an empty allocator, so no
+        later prompt adopts a dropped (zeroed) page as a prefix hit."""
+        self.abort_all_requests()
+        self.allocator = BlockAllocator(
+            self.runner.num_blocks, self.cfg.block_size,
+            self.cfg.enable_prefix_caching,
+        )
+        self.scheduler.allocator = self.allocator
 
     # ------------------------------------------------------------------
     # Stepping
@@ -290,6 +315,9 @@ class LLMEngine:
             "generation_tokens_total": float(self.generation_tokens_total),
             "kv_cache_usage_perc": self.allocator.usage,
             "prefix_cache_hit_rate": self.allocator.hit_rate,
+            "prefix_cache_hits_total": float(self.allocator.hit_tokens),
+            "prefix_cache_queries_total": float(self.allocator.query_tokens),
+            "device_busy_seconds_total": self.telemetry.device_busy(),
             **{f"graphs_{k}": float(n)
                for k, n in self.runner.graph_counts.items()},
             "graph_pool_bytes": float(self.runner.graph_pool_bytes),
@@ -309,9 +337,14 @@ class LLMEngine:
         returns the summary the server's ``/ready`` payload carries."""
         from .precompile import Precompiler
 
+        t0 = time.perf_counter()
         summary = Precompiler(
             self.runner, self.cfg, mode=mode, bucket_budget=bucket_budget
         ).run()
+        self.telemetry.record_startup_phase(
+            "precompile", time.perf_counter() - t0)
+        self.telemetry.set_warmup_coverage(summary["buckets_compiled"],
+                                           summary["buckets_total"])
         gc = self.runner.graph_counts
         logger.info("warmup done: %d graphs captured, %.1f MiB in their pool",
                     gc["captured"], self.runner.graph_pool_bytes / 2**20)

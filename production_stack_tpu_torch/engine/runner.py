@@ -16,13 +16,21 @@ the fused-write switch) is captured into one ``torch.cuda.CUDAGraph`` the
 first time it runs — as ``jax.jit`` compiles on the first call — and
 every later step of the key fills the buffers and replays the graph;
 ``warmup_bucket`` captures a bucket ahead of traffic from an all-padding
-batch. Steps on CPU tensors run eagerly.
+batch. Steps on CPU tensors run eagerly. ``drop_kv_cache`` (sleep level
+2) frees the cache with every graph, each of which holds its address;
+``restore_kv_cache`` allocates a zeroed cache, and steps capture afresh.
+
+Every step is recorded in the runner's ``telemetry``
+(``obs/engine_telemetry.py``): a step that captured its key counts as a
+compile, the others as steps, and the wall from a decode step's fetch to
+the next decode dispatch as a host gap.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import os
 import time
@@ -34,6 +42,7 @@ import torch
 from ..logging_utils import init_logger
 from ..models.llama import Llama, LlamaConfig, quant_mode
 from ..models.registry import get_model_config
+from ..obs.engine_telemetry import EngineTelemetry
 from ..ops import int4_matmul, paged_attention_cuda
 from ..ops.sampling import (
     apply_allowed_mask,
@@ -156,6 +165,13 @@ class ModelRunner:
         self.param_bytes = sum(
             t.numel() * t.element_size() for t in _leaves(params)
         )
+        self.telemetry = EngineTelemetry()
+        t_load = time.perf_counter()
+        self.telemetry.record_startup_phase("load", t_load - t0)
+        self.telemetry.set_model_info(
+            sum(t.numel() for t in _leaves(params)),
+            torch.cuda.get_device_name(self.device)
+            if self.device.type == "cuda" else None)
         logger.info(
             "params ready (%s): %.2f GiB on %s, %.1fs",
             quant_mode(params) or self.model_cfg.dtype,
@@ -193,7 +209,8 @@ class ModelRunner:
         # before the next replay: a later capture may place its tensors
         # where an earlier graph keeps its intermediates.
         self._graphs: Dict[tuple, _Graph] = {}
-        self.graph_counts = {"captured": 0, "replayed": 0, "eager": 0}
+        self.graph_counts = {"captured": 0, "replayed": 0, "eager": 0,
+                             "dropped": 0}
         self.graph_pool_bytes = 0  # device memory the captures reserved
         self._graph_cls = None  # None: steps run eagerly (CPU tensors)
         self._capture_stream = self._pool = None
@@ -209,6 +226,11 @@ class ModelRunner:
                     mc.torch_dtype, self.kv_dtype, mc.num_heads,
                     mc.num_kv_heads, mc.head_dim, b.rows, b.tokens or 1)
                 for b in lattice))
+        # When the last decode step's rows reached the host (None after a
+        # prefill): the next decode dispatch closes the host gap.
+        self._host_gap_t0: Optional[float] = None
+        self.telemetry.record_startup_phase(
+            "shard", time.perf_counter() - t_load)
 
     # ------------------------------------------------------------------
     # Public entry points
@@ -228,20 +250,26 @@ class ModelRunner:
         [len(items), 1 or PACKED_WIDTH]."""
         seqs = [i.seq for i in items]
         batch = self._prefill_batch(items)
-        rows = self._step(batch, self._want_lp(seqs), self._all_greedy(seqs))
-        return rows.cpu().numpy()[: len(items)]
+        want_lp, greedy = self._want_lp(seqs), self._all_greedy(seqs)
+        rows = self._timed("prefill", *self._prefill_tel(items, batch),
+                           lambda: self._step(batch, want_lp, greedy).cpu())
+        return rows.numpy()[: len(items)]
 
     def execute_prefill_batch_nofetch(self, items: List[PrefillItem]) -> None:
         """A prefill step whose sampled tokens nobody reads (intermediate
         chunks): the cheapest sampling variant, no host copy."""
-        self._step(self._prefill_batch(items), False, True)
+        batch = self._prefill_batch(items)
+        self._timed("prefill", *self._prefill_tel(items, batch),
+                    lambda: self._step(batch, False, True))
 
     def execute_decode(self, seqs: List[Sequence]) -> np.ndarray:
         """One decode step per sequence. Returns packed sample rows
         [len(seqs), 1 or PACKED_WIDTH]."""
         batch = self._decode_batch(seqs)
-        rows = self._step(batch, self._want_lp(seqs), self._all_greedy(seqs))
-        return rows.cpu().numpy()[: len(seqs)]
+        want_lp, greedy = self._want_lp(seqs), self._all_greedy(seqs)
+        rows = self._timed_decode(
+            seqs, batch, 1, lambda: self._step(batch, want_lp, greedy).cpu())
+        return rows.numpy()[: len(seqs)]
 
     def execute_decode_multi(self, seqs: List[Sequence], n_steps: int) -> np.ndarray:
         """Decode burst: ``n_steps`` tokens per sequence. Returns packed rows
@@ -253,10 +281,11 @@ class ModelRunner:
             raise RuntimeError("guided-choice rows reached a multi-step decode burst")
         if any(s.sampling.has_penalties for s in seqs):
             self._dense_penalties(seqs, batch)
-        rows = self._multi_step(
-            batch, n_steps, self._want_lp(seqs), self._all_greedy(seqs)
-        )
-        return rows.cpu().numpy()[: len(seqs)]
+        want_lp, greedy = self._want_lp(seqs), self._all_greedy(seqs)
+        rows = self._timed_decode(
+            seqs, batch, n_steps,
+            lambda: self._multi_step(batch, n_steps, want_lp, greedy).cpu())
+        return rows.numpy()[: len(seqs)]
 
     def warmup_bucket(self, bucket) -> None:
         """Capture one lattice bucket from an all-padding dummy batch.
@@ -267,12 +296,93 @@ class ModelRunner:
         batch of the bucket replays its graph."""
         batch = self._warmup_batch(bucket)
         if bucket.kind == "decode_burst":
-            self._multi_step(batch, bucket.n_steps, bucket.want_lp,
-                             bucket.greedy)
+            step = lambda: self._multi_step(  # noqa: E731
+                batch, bucket.n_steps, bucket.want_lp, bucket.greedy)
         elif bucket.kind in ("decode", "prefill"):
-            self._step(batch, bucket.want_lp, bucket.greedy)
+            step = lambda: self._step(  # noqa: E731
+                batch, bucket.want_lp, bucket.greedy)
         else:
             raise ValueError(f"unknown warmup bucket kind {bucket.kind!r}")
+        self._host_gap_t0 = None
+        # Serves no request: no tokens, no device-busy seconds.
+        self._timed("prefill" if bucket.kind == "prefill" else "decode",
+                    bucket.label, 0, None, step, live=False)
+
+    # ------------------------------------------------------------------
+    # Telemetry
+    # ------------------------------------------------------------------
+
+    def _timed(self, kind: str, label: str, tokens: int,
+               fill: Optional[float], step: Callable[[], Any],
+               live: bool = True) -> Any:
+        """Run ``step`` (a device step, and its fetch where it has one)
+        and record it: as a compile when it captured its graph key."""
+        captured = self.graph_counts["captured"]
+        t0 = time.perf_counter()
+        out = step()
+        self.telemetry.record_dispatch(
+            kind, label, time.perf_counter() - t0,
+            first_use=self.graph_counts["captured"] > captured,
+            tokens=tokens, fill_ratio=fill, count_busy=live)
+        return out
+
+    def _timed_decode(self, seqs: List[Sequence],
+                      batch: Dict[str, np.ndarray], n_steps: int,
+                      step: Callable[[], torch.Tensor]) -> torch.Tensor:
+        """A decode step or burst, timed and recorded, and the host gap
+        since the last decode step's fetch (serial: bursts are not
+        pipelined, so none records 0)."""
+        Bb = batch["kv_lens"].shape[0]
+        label = f"b{Bb}" if n_steps == 1 else f"b{Bb}xn{n_steps}"
+        if self._host_gap_t0 is not None:
+            self.telemetry.record_host_gap(
+                label, time.perf_counter() - self._host_gap_t0)
+        rows = self._timed("decode", label, len(seqs) * n_steps,
+                           len(seqs) / Bb, step)
+        self._host_gap_t0 = time.perf_counter()
+        return rows
+
+    def _prefill_tel(self, items: List[PrefillItem],
+                     batch: Dict[str, np.ndarray]) -> tuple:
+        """(bucket label, real tokens, fill ratio) of a prefill step; a
+        prefill between two decode steps ends the host gap unrecorded."""
+        self._host_gap_t0 = None
+        Bb, Tb = batch["tokens"].shape
+        real = sum(it.end - it.start for it in items)
+        return f"b{Bb}xt{Tb}", real, real / max(Bb * Tb, 1)
+
+    # ------------------------------------------------------------------
+    # Sleep (level 2): the KV cache and the graphs that hold its address
+    # ------------------------------------------------------------------
+
+    def drop_kv_cache(self) -> None:
+        """Free the KV cache, and with it every captured graph, its
+        static output and its pool: a graph replays into the addresses it
+        captured, so none captured before the drop may replay after it.
+        The static inputs and the split kernels' tickets stay (neither
+        refers to the cache)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # no replay still runs
+        n_graphs = len(self._graphs)
+        self.graph_counts["dropped"] += n_graphs
+        self._graphs.clear()
+        self.kv_cache = None
+        self._pool = None
+        self.graph_pool_bytes = 0
+        self._host_gap_t0 = None
+        gc.collect()  # a cycle holding a graph or the cache keeps its memory
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()  # the freed segments go back (cudaFree)
+        logger.info("KV cache and %d step graphs dropped", n_graphs)
+
+    def restore_kv_cache(self) -> None:
+        """A zeroed cache of the dropped one's shape and type, and a new
+        graph pool: every step key captures afresh on first use."""
+        self.kv_cache = self.model.make_kv_cache(
+            self.num_blocks, self.cfg.block_size, dtype=self.kv_dtype,
+            device=self.device)
+        if self.device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
 
     # ------------------------------------------------------------------
     # Device steps

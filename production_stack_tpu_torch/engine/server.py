@@ -1,20 +1,28 @@
 """OpenAI-compatible HTTP server for the PyTorch engine (standard library).
 
-Routes: ``GET /health``, ``GET /ready``, ``GET /v1/models`` and
-``POST /v1/completions`` (streamed as server-sent events, or not), with
-the JAX package's response
-schema, ``logprobs`` included, and its mapping of every sampling field
-(``build_sampling``). Bodies are plain JSON dicts. A value the port does
-not serve yet (``n`` or ``best_of`` above 1, ``echo``, a ``suffix``, a
-list of prompts) gets a 400 that names the field. The other routes of the
-JAX server are not ported yet.
+The JAX package's engine server, route for route where the port has the
+module behind it, with its status codes, response keys and headers:
+
+- ``POST /v1/completions`` and ``POST /v1/chat/completions``, streamed
+  as server-sent events or not, ``logprobs`` included, every sampling
+  field mapped as the JAX ``build_sampling`` maps it. A value the port
+  does not serve yet (``n`` or ``best_of`` above 1, ``echo``, a
+  ``suffix``, a list of prompts) gets a 400 that names the field.
+- ``POST /tokenize`` (a ``prompt`` or chat ``messages``) and
+  ``POST /detokenize``.
+- ``GET /metrics``: the ``vllm:`` families the router's scraper reads
+  and the engine's ``pst_engine_*`` telemetry, as Prometheus text.
+- ``GET /health``, ``GET /ready``, ``GET /v1/models``, ``GET /version``,
+  ``GET /debug/state``.
+- ``POST /sleep?level=``, ``POST /wake_up``, ``GET /is_sleeping``;
+  ``POST /drain?wait=&timeout=``, ``POST /undrain``, ``GET /is_draining``.
+
+Bodies are plain JSON dicts. While the engine warms up, sleeps or drains
+it answers a generation request with a 503 (``X-PST-Warming: 1``, or
+``X-PST-Draining: 1``) that lets a router fail over.
 
     python -m production_stack_tpu_torch.engine.server --model llama-3-8b --port 8011 \
         [--quantization int4] [--warmup lazy|full]
-
-With ``--warmup`` the engine captures its step graphs before it takes
-traffic: meanwhile ``/ready`` answers 503 ``"warming"``, ``/health`` 200
-``"warming"`` and a completion 503 with ``X-PST-Warming: 1``.
 """
 
 from __future__ import annotations
@@ -25,12 +33,16 @@ import threading
 import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import List, Optional
+from urllib.parse import parse_qs, urlsplit
 
+from .. import __version__
 from ..logging_utils import init_logger
+from ..obs.prometheus_text import CONTENT_TYPE, Registry
 from .async_engine import AsyncLLMEngine
 from .config import EngineConfig
 from .sequence import SamplingParams
+from .tokenizer import ChatMessage
 
 logger = init_logger(__name__)
 
@@ -118,12 +130,16 @@ def build_sampling(req: dict, max_model_len: int, prompt_len: int,
     )
 
 
-def unserved_field(req: dict) -> Optional[str]:
+def unserved_field(req: dict, is_chat: bool = False) -> Optional[str]:
     """The first field of a completion request whose value the port does
-    not serve yet, as a 400's message; None when it serves them all."""
-    for name in ("n", "best_of"):
+    not serve yet, as a 400's message; None when it serves them all. A
+    chat request has no ``best_of``, ``echo`` or ``suffix`` (the JAX
+    server ignores them there as unknown fields)."""
+    for name in ("n",) if is_chat else ("n", "best_of"):
         if _opt(req, name, int, 1) > 1:
             return f"{name}={req[name]} is not served yet (only 1)"
+    if is_chat:
+        return None
     if req.get("echo"):
         return "echo is not served yet"
     if req.get("suffix") is not None:
@@ -153,102 +169,407 @@ def fmt_completion_logprobs(tok, entries, base_offset: int = 0) -> dict:
     }
 
 
+def fmt_chat_logprobs(tok, entries) -> dict:
+    """The OpenAI chat ``logprobs`` object (``content`` entries) of the
+    JAX server's ``_fmt_chat_logprobs``."""
+    def one(tid, lp):
+        s = tok.decode([tid])
+        return {"token": s, "logprob": lp, "bytes": list(s.encode())}
+
+    return {"content": [
+        dict(one(e["token_id"], e["logprob"]),
+             top_logprobs=[one(t, lp) for t, lp in e["top"]])
+        for e in entries
+    ]}
+
+
+def parse_messages(raw) -> List[ChatMessage]:
+    """A chat request's ``messages``; raises ValueError on a bad shape."""
+    if not isinstance(raw, list):
+        raise ValueError("messages must be a list")
+    return [ChatMessage.from_dict(m) for m in raw]
+
+
+class EngineMetrics:
+    """The ``vllm:`` families of the JAX server's ``EngineMetrics``, with
+    its names, help strings, label and buckets. Families of features the
+    port does not have yet (speculation, adaptive and pipelined bursts,
+    deadlines, swap, KV transfer, tenants) are exported at 0, as a JAX
+    engine with those features off exports them."""
+
+    def __init__(self, model: str):
+        self.registry = r = Registry()
+        label = {"model_name": model}
+
+        def gauge(name, doc):
+            return r.gauge(name, doc, ["model_name"]).labels(**label)
+
+        def counter(name, doc):
+            return r.counter(name, doc, ["model_name"]).labels(**label)
+
+        def hist(name, doc, buckets):
+            return r.histogram(name, doc, buckets,
+                               ["model_name"]).labels(**label)
+
+        self.running = gauge("vllm:num_requests_running", "running requests")
+        self.waiting = gauge("vllm:num_requests_waiting", "waiting requests")
+        self.swapped = gauge("vllm:num_requests_swapped",
+                             "sequences with KV parked host-side")
+        self.preemptions = counter("vllm:num_preemptions",
+                                   "recompute preemptions")
+        self.cache_usage = gauge("vllm:gpu_cache_usage_perc",
+                                 "KV page usage (HBM)")
+        self.hit_rate = gauge("vllm:gpu_prefix_cache_hit_rate",
+                              "prefix cache hit rate")
+        self.hits = gauge("vllm:gpu_prefix_cache_hits_total",
+                          "prefix cache hit tokens")
+        self.queries = gauge("vllm:gpu_prefix_cache_queries_total",
+                             "prefix cache query tokens")
+        self.prompt_tokens = counter("vllm:prompt_tokens_total",
+                                     "prompt tokens processed")
+        self.generation_tokens = counter("vllm:generation_tokens_total",
+                                         "tokens generated")
+        self.ttft = hist("vllm:time_to_first_token_seconds", "TTFT",
+                         (0.01, 0.025, 0.05, 0.1, 0.2, 0.4, 0.8, 1.6, 3.2,
+                          6.4))
+        self.e2e = hist("vllm:e2e_request_latency_seconds", "request latency",
+                        (0.1, 0.25, 0.5, 1, 2, 4, 8, 16, 32, 64))
+        self.success = counter("vllm:request_success_total",
+                               "finished requests")
+        self.spec_draft = counter("vllm:spec_decode_num_draft_tokens",
+                                  "speculative draft tokens proposed")
+        self.spec_accepted = counter("vllm:spec_decode_num_accepted_tokens",
+                                     "speculative draft tokens accepted")
+        self.adaptive_deep = counter(
+            "pst:adaptive_deep_bursts",
+            "decode bursts executed at the adaptive deep depth")
+        self.pipelined_bursts = counter(
+            "pst:pipelined_bursts",
+            "decode bursts dispatched as part of an overlapped pipeline "
+            "(one burst in flight, host bookkeeping off the critical path)")
+        self.deadline_shed_admission = counter(
+            "pst:deadline_shed_admission",
+            "requests shed at HTTP admission (budget already expired)")
+        self.deadline_shed_queued = counter(
+            "pst:deadline_shed_queued",
+            "queued sequences shed before consuming a prefill step")
+        self.deadline_shed_running = counter(
+            "pst:deadline_shed_running",
+            "running sequences shed between decode steps")
+        self.swap_out = counter("pst:kv_swap_out",
+                                "sequences swapped out (KV parked)")
+        self.swap_in = counter("pst:kv_swap_in",
+                               "sequences swapped back in (KV resumed)")
+        self.swap_tail_pages = counter(
+            "pst:kv_swap_tail_pages",
+            "uncommitted tail pages physically moved by swap")
+        self.swap_fallback = counter(
+            "pst:kv_swap_fallback_recompute",
+            "swap-ins that degraded to recompute (committed pages lost)")
+        self.swap_stash = gauge("pst:kv_swap_stash_blocks",
+                                "host-DRAM stash occupancy (pages)")
+        self.kv_published_blocks = counter(
+            "pst:kv_published_blocks",
+            "KV pages published to the remote store by the streamed "
+            "disagg handoff (per prefill chunk, batched)")
+        self.kv_prefetched_blocks = counter(
+            "pst:kv_prefetched_blocks",
+            "KV pages prefetched from a disagg prefill's manifest while "
+            "the prefill was still running")
+        self.kv_transfer_fallbacks = counter(
+            "pst:kv_transfer_fallbacks",
+            "disagg transfers that degraded to the fused path "
+            "(manifest timeout or kvserver failure)")
+        self.kv_remote_retries = counter(
+            "pst:kv_remote_retries",
+            "remote-KV GET attempts retried after a transient shard "
+            "error (bounded, jittered — docs/kvserver.md)")
+        self.tenant_queue_age_interactive = gauge(
+            "pst:tenant_queue_age_interactive_seconds",
+            "oldest interactive-tier queued sequence's wait (seconds)")
+        self.tenant_queue_age_batch = gauge(
+            "pst:tenant_queue_age_batch_seconds",
+            "oldest batch-tier queued sequence's wait (seconds)")
+        self.tenant_batch_preemptions = counter(
+            "pst:tenant_batch_preemptions",
+            "batch-tier sequences preempted (swap/shed) so a waiting "
+            "interactive sequence could admit")
+
+    def refresh(self, stats: dict) -> None:
+        """The JAX server's mapping from ``stats()``, key for key (the
+        totals the port does not keep read 0)."""
+        self.running.set(stats["num_requests_running"])
+        self.waiting.set(stats["num_requests_waiting"])
+        self.swapped.set(
+            stats.get("num_requests_swapped", stats["num_preemptions_total"]))
+        self.preemptions.to_total(stats["num_preemptions_total"])
+        self.swap_out.to_total(stats.get("kv_swap_out_total", 0))
+        self.swap_in.to_total(stats.get("kv_swap_in_total", 0))
+        self.swap_tail_pages.to_total(stats.get("kv_swap_tail_pages_total", 0))
+        self.swap_fallback.to_total(
+            stats.get("kv_swap_fallback_recompute_total", 0))
+        self.swap_stash.set(stats.get("kv_swap_stash_blocks", 0))
+        self.cache_usage.set(stats["kv_cache_usage_perc"])
+        self.hit_rate.set(stats["prefix_cache_hit_rate"])
+        self.hits.set(stats["prefix_cache_hits_total"])
+        self.queries.set(stats["prefix_cache_queries_total"])
+        self.spec_draft.to_total(
+            stats.get("spec_decode_num_draft_tokens_total", 0))
+        self.spec_accepted.to_total(
+            stats.get("spec_decode_num_accepted_tokens_total", 0))
+        self.adaptive_deep.to_total(stats.get("adaptive_deep_bursts_total", 0))
+        self.pipelined_bursts.to_total(stats.get("pipelined_bursts_total", 0))
+        self.deadline_shed_queued.to_total(
+            stats.get("deadline_sheds_queued_total", 0))
+        self.deadline_shed_running.to_total(
+            stats.get("deadline_sheds_running_total", 0))
+        self.kv_published_blocks.to_total(
+            stats.get("kv_published_blocks_total", 0))
+        self.kv_prefetched_blocks.to_total(
+            stats.get("kv_prefetched_blocks_total", 0))
+        self.kv_transfer_fallbacks.to_total(
+            stats.get("kv_transfer_fallbacks_total", 0))
+        self.kv_remote_retries.to_total(
+            stats.get("kv_remote_retries_total", 0))
+        self.tenant_queue_age_interactive.set(
+            stats.get("tenant_queue_age_interactive", 0.0))
+        self.tenant_queue_age_batch.set(
+            stats.get("tenant_queue_age_batch", 0.0))
+        self.tenant_batch_preemptions.to_total(
+            stats.get("tenant_batch_preemptions_total", 0))
+
+
 def create_engine_app(
     engine: AsyncLLMEngine, host: str = "127.0.0.1", port: int = 0
 ) -> ThreadingHTTPServer:
     """An HTTP server bound to ``(host, port)`` (port 0: any free port)
     serving ``engine``; call ``serve_forever()`` on it."""
     model_name = engine.engine.model_name
+    metrics = EngineMetrics(model_name)
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # route access logs to our logger
             logger.debug("%s %s", self.address_string(), fmt % args)
 
-        def _json(self, status: int, payload: dict,
+        # -- plumbing ----------------------------------------------------
+
+        def _send(self, status: int, body: bytes, content_type: str,
                   headers: Optional[dict] = None) -> None:
-            body = json.dumps(payload).encode()
             self.send_response(status)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(body)))
             for k, v in (headers or {}).items():
                 self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
 
-        def _error(self, message: str, status: int = 400) -> None:
-            self._json(status, {"error": {"message": message,
-                                          "type": "invalid_request_error",
-                                          "code": status}})
+        def _json(self, status: int, payload: dict,
+                  headers: Optional[dict] = None) -> None:
+            self._send(status, json.dumps(payload).encode(),
+                       "application/json", headers)
+
+        def _error(self, message: str, status: int = 400,
+                   etype: str = "invalid_request_error",
+                   headers: Optional[dict] = None) -> None:
+            self._json(status, {"error": {"message": message, "type": etype,
+                                          "code": status}}, headers)
+
+        def _body(self) -> dict:
+            n = int(self.headers.get("Content-Length", 0))
+            req = json.loads(self.rfile.read(n) or b"{}")
+            if not isinstance(req, dict):
+                raise ValueError("body must be a JSON object")
+            return req
+
+        def _route(self, routes: dict) -> None:
+            url = urlsplit(self.path)
+            self.query = {k: v[-1] for k, v in parse_qs(url.query).items()}
+            handler = routes.get(url.path)
+            if handler is None:
+                self._error(f"no route {url.path}", 404)
+                return
+            handler(self)
 
         def do_GET(self) -> None:
-            if self.path == "/health":
-                if engine.is_healthy():
-                    self._json(200, {"status": "warming" if engine.warming
-                                     else "ok"})
-                else:
-                    self._json(503, {"status": "unhealthy",
-                                     "error": engine.step_error})
-            elif self.path == "/ready":
-                # Readiness: 200 only once warmup has finished and the
-                # engine takes work (liveness is /health).
-                warmup = dict(engine.engine.warmup_summary or {})
-                warmup["mode"] = engine.engine.cfg.warmup
-                if engine.warmup_error:
-                    warmup["error"] = engine.warmup_error
-                if engine.ready:
-                    self._json(200, {"ready": True, "warmup": warmup})
-                else:
-                    self._json(503, {"ready": False, "warmup": warmup,
-                                     "reason": "warming" if engine.is_healthy()
-                                     else "unhealthy"})
-            elif self.path == "/v1/models":
-                self._json(200, {"object": "list", "data": [
-                    {"id": model_name, "object": "model",
-                     "created": int(time.time()),
-                     "owned_by": "production-stack-tpu",
-                     "root": None, "parent": None}
-                ]})
-            else:
-                self._error(f"no route {self.path}", 404)
+            self._route(GET_ROUTES)
 
         def do_POST(self) -> None:
-            if self.path != "/v1/completions":
-                self._error(f"no route {self.path}", 404)
+            self._route(POST_ROUTES)
+
+        # -- probes and introspection ------------------------------------
+
+        def health(self) -> None:
+            if engine.is_healthy():
+                # Draining and warming are alive (liveness): the status
+                # string tells them apart from a routable engine.
+                self._json(200, {"status": "draining" if engine.draining
+                                 else "warming" if engine.warming else "ok"})
+            else:
+                self._json(503, {"status": "unhealthy",
+                                 "error": engine.step_error})
+
+        def ready(self) -> None:
+            # Readiness: 200 only once warmup has finished and the engine
+            # takes work (liveness is /health).
+            warmup = dict(engine.engine.warmup_summary or {})
+            warmup["mode"] = engine.engine.cfg.warmup
+            if engine.warmup_error:
+                warmup["error"] = engine.warmup_error
+            if engine.ready:
+                self._json(200, {"ready": True, "warmup": warmup})
                 return
+            reason = ("unhealthy" if not engine.is_healthy()
+                      else "warming" if engine.warming
+                      else "sleeping" if engine.sleeping
+                      else "draining")
+            self._json(503, {"ready": False, "reason": reason,
+                             "warmup": warmup})
+
+        def models(self) -> None:
+            self._json(200, {"object": "list", "data": [
+                {"id": model_name, "object": "model",
+                 "created": int(time.time()),
+                 "owned_by": "production-stack-tpu",
+                 "root": None, "parent": None}
+            ]})
+
+        def metrics(self) -> None:
+            stats = engine.engine.stats()
+            metrics.refresh(stats)
+            telemetry = engine.engine.telemetry
+            telemetry.refresh_from_stats(stats)
+            text = metrics.registry.render() + telemetry.render()
+            self._send(200, text.encode(), CONTENT_TYPE)
+
+        def version(self) -> None:
+            self._json(200, {"version": __version__})
+
+        def debug_state(self) -> None:
+            stats = engine.engine.stats()
+            self._json(200, {
+                "model": model_name,
+                "ready": engine.ready,
+                "draining": engine.draining,
+                "warming": engine.warming,
+                "sleeping": engine.sleeping,
+                "in_flight": engine.num_inflight(),
+                # Captures stand in for compiles; no flight recorder yet.
+                "compiles_total": engine.engine.telemetry.compile_count(),
+                "flight": {},
+                "stats": {k: v for k, v in stats.items()
+                          if isinstance(v, (int, float, str, bool))},
+            })
+
+        # -- admin -------------------------------------------------------
+
+        def is_sleeping(self) -> None:
+            self._json(200, {"is_sleeping": engine.sleeping})
+
+        def sleep(self) -> None:
             try:
-                n = int(self.headers.get("Content-Length", 0))
-                req = json.loads(self.rfile.read(n) or b"{}")
-                if not isinstance(req, dict):
-                    raise ValueError("body must be a JSON object")
-            except (ValueError, json.JSONDecodeError) as e:
+                level = int(self.query.get("level", "1"))
+            except ValueError:
+                self._error("level must be an integer")
+                return
+            engine.sleep(level)
+            self._json(200, {"status": "sleeping", "level": level})
+
+        def wake_up(self) -> None:
+            engine.wake_up()
+            self._json(200, {"status": "awake"})
+
+        def drain(self) -> None:
+            """Stop admitting new requests; those in flight finish.
+            ``?wait=1`` holds the answer (up to ``?timeout=`` seconds,
+            default 30) until none is left; this thread polls, the step
+            thread runs on."""
+            engine.drain()
+            if self.query.get("wait"):
+                try:
+                    timeout = float(self.query.get("timeout", "30"))
+                except ValueError:
+                    timeout = 30.0
+                deadline = time.monotonic() + timeout
+                while (time.monotonic() < deadline
+                       and engine.num_inflight() > 0):
+                    time.sleep(0.1)
+            self._json(200, {"status": "draining",
+                             "in_flight": engine.num_inflight()})
+
+        def undrain(self) -> None:
+            engine.undrain()
+            self._json(200, {"status": "accepting",
+                             "in_flight": engine.num_inflight()})
+
+        def is_draining(self) -> None:
+            self._json(200, {"is_draining": engine.draining,
+                             "in_flight": engine.num_inflight()})
+
+        # -- tokens ------------------------------------------------------
+
+        def tokenize(self) -> None:
+            tok = engine.engine.tokenizer
+            try:
+                body = self._body()
+                if body.get("messages"):
+                    text = tok.apply_chat_template(
+                        parse_messages(body["messages"]))
+                else:
+                    text = body.get("prompt") or ""
+                    if not isinstance(text, str):
+                        raise ValueError("prompt must be a string")
+                ids = tok.encode(text, add_special_tokens=bool(
+                    body.get("add_special_tokens", True)))
+            except ValueError as e:
                 self._error(f"invalid request body: {e}")
+                return
+            self._json(200, {"tokens": ids, "count": len(ids),
+                             "max_model_len": engine.engine.cfg.max_model_len})
+
+        def detokenize(self) -> None:
+            try:
+                ids = [int(t) for t in self._body().get("tokens", [])]
+            except (TypeError, ValueError) as e:
+                self._error(f"invalid request body: {e}")
+                return
+            self._json(200, {"prompt": engine.engine.tokenizer.decode(ids)})
+
+        # -- generation --------------------------------------------------
+
+        def completions(self) -> None:
+            self._generation(is_chat=False)
+
+        def chat_completions(self) -> None:
+            self._generation(is_chat=True)
+
+        def _generation(self, is_chat: bool) -> None:
+            try:
+                req = self._body()
+            except ValueError as e:  # json.JSONDecodeError included
+                self._error(f"invalid request body: {e}")
+                return
+            if engine.sleeping:
+                self._error("engine is sleeping", 503, "service_unavailable")
+                return
+            if engine.draining:
+                # The marker tells a router this is a deliberate drain,
+                # not a failure: it fails over without a breaker penalty.
+                self._error("engine is draining", 503, "service_unavailable",
+                            headers={"X-PST-Draining": "1"})
                 return
             if engine.warming:
                 # Accepting would queue the request behind the warmup
                 # pass; the marker lets a router fail over.
-                self._json(503, {"error": {
-                    "message": "engine is warming up (capturing step graphs)",
-                    "type": "service_unavailable", "code": 503}},
-                    headers={"X-PST-Warming": "1"})
+                self._error("engine is warming up (capturing step graphs)",
+                            503, "service_unavailable",
+                            headers={"X-PST-Warming": "1"})
                 return
-            self._completion(req)
-
-        def _completion(self, req: dict) -> None:
             tok = engine.engine.tokenizer
-            prompt = req.get("prompt", "")
             try:
-                unserved = unserved_field(req)
+                unserved = unserved_field(req, is_chat)
                 if unserved:
                     raise ValueError(unserved)
-                if isinstance(prompt, list) and all(isinstance(x, int) for x in prompt):
-                    ids = [int(x) for x in prompt]
-                elif isinstance(prompt, str):
-                    ids = tok.encode(prompt)
-                else:
-                    raise ValueError(
-                        "prompt must be a string or a list of token ids "
-                        "(a list of prompts is not served yet)"
-                    )
+                ids = self._prompt_ids(req, is_chat)
                 max_len = engine.engine.cfg.max_model_len
                 if len(ids) >= max_len:
                     raise ValueError(
@@ -259,20 +580,53 @@ def create_engine_app(
             except (TypeError, ValueError) as e:
                 self._error(str(e))
                 return
-            rid = f"cmpl-{uuid.uuid4().hex[:24]}"
-            created = int(time.time())
-            model = req.get("model", model_name)
+            rid = f"{'chatcmpl' if is_chat else 'cmpl'}-{uuid.uuid4().hex[:24]}"
+            meta = dict(rid=rid, created=int(time.time()),
+                        model=req.get("model", model_name), is_chat=is_chat,
+                        n_prompt=len(ids), start=time.time())
             gen = engine.generate(
                 prompt_token_ids=ids, sampling=sampling, request_id=rid
             )
             if req.get("stream"):
                 usage = bool((req.get("stream_options") or {}).get(
                     "include_usage"))
-                self._stream(gen, rid, created, model, len(ids), usage)
-                return
+                self._stream(gen, meta, usage)
+            else:
+                self._collect(gen, meta)
+
+        @staticmethod
+        def _prompt_ids(req: dict, is_chat: bool) -> List[int]:
+            tok = engine.engine.tokenizer
+            if is_chat:
+                # continue_final_message renders the final turn open, so
+                # generation continues it instead of a new assistant turn.
+                cfm = bool(req.get("continue_final_message", False))
+                return tok.encode(tok.apply_chat_template(
+                    parse_messages(req.get("messages", [])),
+                    add_generation_prompt=not cfm,
+                    continue_final_message=cfm))
+            prompt = req.get("prompt", "")
+            if isinstance(prompt, list) and all(isinstance(x, int)
+                                                for x in prompt):
+                return [int(x) for x in prompt]
+            if isinstance(prompt, str):
+                return tok.encode(prompt)
+            raise ValueError("prompt must be a string or a list of token ids "
+                             "(a list of prompts is not served yet)")
+
+        def _finished(self, meta: dict, n_out: int) -> None:
+            metrics.e2e.observe(time.time() - meta["start"])
+            metrics.success.inc()
+            metrics.prompt_tokens.inc(meta["n_prompt"])
+            metrics.generation_tokens.inc(n_out)
+
+        def _collect(self, gen, meta: dict) -> None:
+            tok = engine.engine.tokenizer
             text, n_out, finish, entries = [], 0, None, []
             try:
                 for out in gen:
+                    if out.num_output_tokens == 1 and out.ttft is not None:
+                        metrics.ttft.observe(out.ttft)
                     text.append(out.text_delta)
                     n_out = out.num_output_tokens
                     finish = out.finish_reason or finish
@@ -283,24 +637,36 @@ def create_engine_app(
             except RuntimeError as e:  # the engine failed
                 self._error(str(e), 500)
                 return
+            self._finished(meta, n_out)
+            if meta["is_chat"]:
+                choice = {"index": 0,
+                          "message": {"role": "assistant",
+                                      "content": "".join(text)},
+                          "logprobs": fmt_chat_logprobs(tok, entries)
+                          if entries else None,
+                          "finish_reason": finish}
+            else:
+                choice = {"index": 0, "text": "".join(text),
+                          "logprobs": fmt_completion_logprobs(tok, entries)
+                          if entries else None,
+                          "finish_reason": finish}
+            n_prompt = meta["n_prompt"]
             self._json(200, {
-                "id": rid, "object": "text_completion", "created": created,
-                "model": model,
-                "choices": [{"index": 0, "text": "".join(text),
-                             "logprobs": fmt_completion_logprobs(tok, entries)
-                             if entries else None,
-                             "finish_reason": finish}],
-                "usage": {"prompt_tokens": len(ids),
+                "id": meta["rid"],
+                "object": "chat.completion" if meta["is_chat"]
+                else "text_completion",
+                "created": meta["created"], "model": meta["model"],
+                "choices": [choice],
+                "usage": {"prompt_tokens": n_prompt,
                           "completion_tokens": n_out,
-                          "total_tokens": len(ids) + n_out},
-            }, headers={"X-Request-Id": rid})
+                          "total_tokens": n_prompt + n_out},
+            }, headers={"X-Request-Id": meta["rid"]})
 
-        def _stream(self, gen, rid: str, created: int, model: str,
-                    n_prompt: int, usage: bool) -> None:
+        def _stream(self, gen, meta: dict, usage: bool) -> None:
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
-            self.send_header("X-Request-Id", rid)
+            self.send_header("X-Request-Id", meta["rid"])
             self.end_headers()
 
             def frame(payload) -> None:
@@ -309,23 +675,42 @@ def create_engine_app(
                 self.wfile.flush()
 
             tok = engine.engine.tokenizer
+            is_chat = meta["is_chat"]
+            head = {"id": meta["rid"],
+                    "object": "chat.completion.chunk" if is_chat
+                    else "text_completion",
+                    "created": meta["created"], "model": meta["model"]}
+            n_prompt, n_out = meta["n_prompt"], 0
             char_off = 0  # text_offset runs over the whole completion
             try:
+                if is_chat:
+                    frame({**head, "choices": [{
+                        "index": 0, "delta": {"role": "assistant"},
+                        "finish_reason": None}]})
                 for out in gen:
-                    chunk = {"id": rid, "object": "text_completion",
-                             "created": created, "model": model,
-                             "choices": [{
-                                 "index": 0, "text": out.text_delta,
-                                 "logprobs": fmt_completion_logprobs(
-                                     tok, out.logprobs, char_off)
-                                 if out.logprobs else None,
-                                 "finish_reason": out.finish_reason}]}
+                    n_out = out.num_output_tokens
+                    if out.num_output_tokens == 1 and out.ttft is not None:
+                        metrics.ttft.observe(out.ttft)
+                    if is_chat:
+                        choice = {"index": 0,
+                                  "delta": {"content": out.text_delta}
+                                  if out.text_delta else {},
+                                  "logprobs": fmt_chat_logprobs(
+                                      tok, out.logprobs)
+                                  if out.logprobs else None,
+                                  "finish_reason": out.finish_reason}
+                    else:
+                        choice = {"index": 0, "text": out.text_delta,
+                                  "logprobs": fmt_completion_logprobs(
+                                      tok, out.logprobs, char_off)
+                                  if out.logprobs else None,
+                                  "finish_reason": out.finish_reason}
                     char_off += len(out.text_delta)
+                    chunk = {**head, "choices": [choice]}
                     if out.finished and usage:
-                        n = out.num_output_tokens
                         chunk["usage"] = {"prompt_tokens": n_prompt,
-                                          "completion_tokens": n,
-                                          "total_tokens": n_prompt + n}
+                                          "completion_tokens": n_out,
+                                          "total_tokens": n_prompt + n_out}
                     frame(chunk)
             except ValueError as e:  # refused on the engine thread
                 frame({"error": {"message": str(e),
@@ -337,7 +722,30 @@ def create_engine_app(
             except (BrokenPipeError, ConnectionResetError):
                 gen.close()  # aborts the request on the engine
                 return
+            else:
+                self._finished(meta, n_out)
             frame("[DONE]")
+
+    GET_ROUTES = {
+        "/health": Handler.health,
+        "/ready": Handler.ready,
+        "/v1/models": Handler.models,
+        "/metrics": Handler.metrics,
+        "/version": Handler.version,
+        "/debug/state": Handler.debug_state,
+        "/is_sleeping": Handler.is_sleeping,
+        "/is_draining": Handler.is_draining,
+    }
+    POST_ROUTES = {
+        "/v1/completions": Handler.completions,
+        "/v1/chat/completions": Handler.chat_completions,
+        "/tokenize": Handler.tokenize,
+        "/detokenize": Handler.detokenize,
+        "/sleep": Handler.sleep,
+        "/wake_up": Handler.wake_up,
+        "/drain": Handler.drain,
+        "/undrain": Handler.undrain,
+    }
 
     server = ThreadingHTTPServer((host, port), Handler)
     server.daemon_threads = True

@@ -1,18 +1,60 @@
 """Tokenizers: a byte-level tokenizer and local HF tokenizers.
 
-A copy of the JAX package's ``engine/tokenizer.py`` without chat
-templating (the chat route is not ported yet). Tokenizers load only from
-local directories; ``transformers`` is imported only when an HF tokenizer
-is asked for.
+A copy of the JAX package's ``engine/tokenizer.py`` without the sentence
+pairs of the cross-encoder (not ported yet), with its chat templating and
+a ``ChatMessage`` of its own. Tokenizers load only from local
+directories; ``transformers`` is imported only when an HF tokenizer is
+asked for.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Protocol, Sequence, Tuple
+import dataclasses
+import inspect
+from typing import Any, Dict, List, Optional, Protocol, Sequence, Tuple, Union
 
 from ..logging_utils import init_logger
 
 logger = init_logger(__name__)
+
+_ROLES = ("system", "user", "assistant", "tool")
+
+
+@dataclasses.dataclass
+class ChatMessage:
+    """One message of a chat request, as the JAX package's protocol
+    model reads it: string content, or a list of parts whose ``text``
+    parts are joined."""
+
+    role: str = "user"
+    content: Union[str, List[Dict[str, Any]], None] = None
+    name: Optional[str] = None
+
+    @classmethod
+    def from_dict(cls, raw) -> "ChatMessage":
+        """A message from a request body's dict (other keys ignored);
+        raises ValueError on what the JAX protocol model refuses."""
+        if not isinstance(raw, dict):
+            raise ValueError("each message must be a JSON object")
+        role = raw.get("role", "user")
+        if role not in _ROLES:
+            raise ValueError(f"message role must be one of {_ROLES}")
+        content = raw.get("content")
+        if content is not None and not isinstance(content, (str, list)):
+            raise ValueError("message content must be a string or a list")
+        name = raw.get("name")
+        return cls(role, content, None if name is None else str(name))
+
+    def text(self) -> str:
+        if isinstance(self.content, str):
+            return self.content
+        if isinstance(self.content, list):
+            return "".join(
+                part.get("text", "")
+                for part in self.content
+                if isinstance(part, dict) and part.get("type", "text") == "text"
+            )
+        return ""
 
 
 class Tokenizer(Protocol):
@@ -22,6 +64,31 @@ class Tokenizer(Protocol):
     def encode(self, text: str, add_special_tokens: bool = True) -> List[int]: ...
 
     def decode(self, ids: Sequence[int]) -> str: ...
+
+    def apply_chat_template(
+        self,
+        messages: List[ChatMessage],
+        add_generation_prompt: bool = True,
+        continue_final_message: bool = False,
+    ) -> str: ...
+
+
+def _fallback_chat_template(
+    messages: List[ChatMessage],
+    add_generation_prompt: bool,
+    continue_final_message: bool = False,
+) -> str:
+    parts = [f"<|{m.role}|>\n{m.text()}\n" for m in messages]
+    if continue_final_message:
+        # Leave the final message's turn open (no terminator, no new
+        # generation prompt): the model continues it mid-sentence, which
+        # is what a resumed stream's continuation relies on.
+        if parts:
+            parts[-1] = parts[-1][:-1]
+        return "".join(parts)
+    if add_generation_prompt:
+        parts.append("<|assistant|>\n")
+    return "".join(parts)
 
 
 class ByteTokenizer:
@@ -37,6 +104,16 @@ class ByteTokenizer:
     def decode(self, ids: Sequence[int]) -> str:
         return bytes(i - 1 for i in ids if 1 <= i <= 256).decode(
             "utf-8", errors="replace"
+        )
+
+    def apply_chat_template(
+        self,
+        messages: List[ChatMessage],
+        add_generation_prompt: bool = True,
+        continue_final_message: bool = False,
+    ) -> str:
+        return _fallback_chat_template(
+            messages, add_generation_prompt, continue_final_message
         )
 
 
@@ -58,6 +135,37 @@ class HFTokenizer:
 
     def decode(self, ids: Sequence[int]) -> str:
         return self._tok.decode(list(ids), skip_special_tokens=True)
+
+    def apply_chat_template(
+        self,
+        messages: List[ChatMessage],
+        add_generation_prompt: bool = True,
+        continue_final_message: bool = False,
+    ) -> str:
+        dicts = [{"role": m.role, "content": m.text()} for m in messages]
+        kwargs = {"tokenize": False,
+                  "add_generation_prompt": add_generation_prompt}
+        if continue_final_message:
+            # An older transformers takes an unknown keyword into its
+            # **kwargs and renders the final turn closed, without an
+            # error: check for real support, or render with the fallback
+            # template (whose final turn stays open).
+            params = inspect.signature(self._tok.apply_chat_template).parameters
+            if "continue_final_message" not in params:
+                logger.warning(
+                    "tokenizer lacks continue_final_message; rendering "
+                    "the continuation with the fallback chat template"
+                )
+                return _fallback_chat_template(
+                    messages, add_generation_prompt, continue_final_message
+                )
+            kwargs["continue_final_message"] = True
+        try:
+            return self._tok.apply_chat_template(dicts, **kwargs)
+        except Exception:  # noqa: BLE001 — no template: the fallback
+            return _fallback_chat_template(
+                messages, add_generation_prompt, continue_final_message
+            )
 
 
 def get_tokenizer(spec: Optional[str], vocab_size: int = 512) -> Tokenizer:

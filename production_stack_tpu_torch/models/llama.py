@@ -161,6 +161,10 @@ def quant_mode(params: Params) -> Optional[str]:
         return "int8"
     return None
 
+# The CUDA caching allocator rounds a large allocation's segment up to a
+# multiple of this and splits off a free tail of more than 1 MiB.
+_SEGMENT_GRANULE = 2 << 20
+
 _DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
@@ -351,7 +355,15 @@ class Llama:
         dtype = dtype or cfg.torch_dtype
         shape = (cfg.num_layers, num_blocks, 2, block_size, cfg.kv_size)
         rows = math.prod(shape[:-1])
-        flat = torch.zeros((rows + 1, cfg.kv_size), device=device,
+        # The spare row, then spare rows up to a whole number of the CUDA
+        # caching allocator's 2 MiB segment granules (less than a row
+        # short): a buffer that ends a granule short leaves a free tail in
+        # its segment, where a later tensor can land and keep the whole
+        # segment reserved once the cache is freed (a level-2 sleep).
+        row_bytes = cfg.kv_size * dtype.itemsize
+        granules = -(-(rows + 1) * row_bytes // _SEGMENT_GRANULE)
+        flat = torch.zeros((granules * _SEGMENT_GRANULE // row_bytes,
+                            cfg.kv_size), device=device,
                            dtype=torch.uint8 if dtype == E4M3 else dtype)
         return flat.view(dtype)[:rows].view(shape)
 

@@ -1,0 +1,236 @@
+"""Engine telemetry: step captures, step durations, host gaps, MFU, KV
+pressure, startup phases.
+
+The port's copy of the engine side of the JAX package's
+``obs/engine_telemetry.py``, with its family names, help strings, labels
+and buckets, rendered by :mod:`.prometheus_text`. The runner feeds it at
+every device step and the server appends it to ``/metrics``.
+
+What differs:
+
+- A "compile" is a graph key's first use on the card: its eager run plus
+  its capture into a CUDA graph (``engine/runner.py::_run``). Steps on
+  CPU tensors capture nothing and are all counted as steps.
+- Each runner owns its telemetry (one registry an engine), where the JAX
+  package keeps one for the process.
+- ``pst_engine_mfu`` divides by the peak of the card's name in
+  ``_PEAK_FLOPS_BY_DEVICE_NAME``; for a device the table lacks it stays
+  0, rather than taking another device's peak.
+- Not exported, since their modules are not ported: the JAX compilation
+  cache's hits and misses, per-request and per-tenant device seconds
+  (cost attribution), and swap in and out.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Deque, Dict, Optional, Tuple
+
+from .prometheus_text import Registry
+
+_COMPILE_BUCKETS = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+                    120.0, 300.0)
+_STEP_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                 1.0, 2.5, 5.0, 10.0, 30.0, 120.0)
+_FILL_BUCKETS = (0.1, 0.25, 0.5, 0.625, 0.75, 0.875, 1.0)
+_HOST_GAP_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+                     0.1, 0.25)
+
+# Dense bf16 tensor-core peak by ``torch.cuda.get_device_name()``: the
+# H100 SXM5's 989.4 TFLOP/s (NVIDIA H100 Tensor Core GPU datasheet).
+_PEAK_FLOPS_BY_DEVICE_NAME = {
+    "NVIDIA H100 80GB HBM3": 989.4e12,
+}
+
+
+class EngineTelemetry:
+    """The ``pst_engine_*`` families of one engine. Thread-safe: the step
+    thread records while HTTP threads render."""
+
+    _TOKEN_WINDOW_S = 10.0
+
+    def __init__(self) -> None:
+        self.registry = r = Registry()
+        self._lock = threading.Lock()
+        self.compile_total = r.counter(
+            "pst_engine_compile",
+            "XLA compilations observed at jitted dispatch (first call per "
+            "shape bucket), by step kind and padded shape bucket",
+            ["kind", "shape_bucket"])
+        self.compile_seconds = r.histogram(
+            "pst_engine_compile_seconds",
+            "Wall time of compile-bearing dispatches (trace + XLA build + "
+            "first execution), by step kind",
+            _COMPILE_BUCKETS, ["kind"])
+        self.step_duration = r.histogram(
+            "pst_engine_step_duration_seconds",
+            "Device step wall time (dispatch to fetch), by step kind and "
+            "padded batch bucket; compile-bearing first calls excluded",
+            _STEP_BUCKETS, ["kind", "batch_bucket"])
+        self.host_gap_seconds = r.histogram(
+            "pst_engine_host_gap_seconds",
+            "Serial host wall between a decode step's device completion and "
+            "the next decode dispatch (batch build, detokenization, stop "
+            "scans, scheduler accounting on the critical path), by padded "
+            "batch bucket; pipelined continuations record 0 — the device "
+            "never idled",
+            _HOST_GAP_BUCKETS, ["batch_bucket"])
+        self.batch_fill_ratio = r.histogram(
+            "pst_engine_batch_fill_ratio",
+            "Useful fraction of each padded device step (real rows*tokens "
+            "over padded rows*tokens) — 1.0 means zero padding waste",
+            _FILL_BUCKETS, ["kind"])
+        self.tokens_per_second = r.gauge(
+            "pst_engine_tokens_per_second",
+            "Engine token throughput over a short sliding window, by step "
+            "kind", ["kind"])
+        self.mfu = r.gauge(
+            "pst_engine_mfu",
+            "Model-FLOPs utilization estimate: 2 * params * tokens/s over "
+            "the accelerator's peak FLOPs")
+        self.kv_page_occupancy = r.gauge(
+            "pst_engine_kv_page_occupancy", "Fraction of HBM KV pages in use")
+        self.kv_page_high_watermark = r.gauge(
+            "pst_engine_kv_page_high_watermark",
+            "Highest KV page occupancy fraction observed since engine start")
+        self.preemptions = r.counter(
+            "pst_engine_preemptions",
+            "Scheduler recompute preemptions (out of KV pages)")
+        self.start_time_seconds = r.gauge(
+            "pst_engine_start_time_seconds",
+            "Wall-clock time the engine's runner initialized (the alert "
+            "rules gate recompile alerts on uptime so cold-start compiles "
+            "never page)")
+        self.startup_seconds = r.gauge(
+            "pst_engine_startup_seconds",
+            "Engine startup decomposition: load (param materialization), "
+            "shard (device placement + KV alloc + jit wiring), warmup "
+            "(tokenizer, allocator, scheduler), precompile (ahead-of-time "
+            "shape-bucket lattice compilation)", ["phase"])
+        self.warmup_coverage = r.gauge(
+            "pst_engine_warmup_coverage",
+            "Warmup precompile coverage: shape buckets compiled over buckets "
+            "in the enumerated lattice (1.0 = every padded shape live "
+            "traffic can produce is already compiled)")
+        self.warmup_buckets = r.gauge(
+            "pst_engine_warmup_buckets",
+            "Warmup lattice size, by state: total (enumerated) vs compiled "
+            "(dispatched at warmup)", ["state"])
+        self.device_busy_seconds = r.counter(
+            "pst_engine_device_busy_seconds",
+            "Cumulative wall the device spent executing live-traffic "
+            "dispatches (warmup precompilation excluded) — the denominator "
+            "per-request cost attribution is audited against (sum of "
+            "request device-seconds must cover >= 90% of this)")
+        self._compiles = 0
+        self._device_busy_s = 0.0
+        self._kv_hwm = 0.0
+        # (monotonic, kind, tokens) samples of the throughput window.
+        self._tok_samples: Deque[Tuple[float, str, int]] = deque()
+        self._tok_kinds: set = set()
+        self.param_count = 0
+        self.peak_flops = 0.0
+
+    # -- model / startup ------------------------------------------------
+
+    def set_model_info(self, param_count: int,
+                       device_name: Optional[str] = None) -> None:
+        self.param_count = int(param_count)
+        self.peak_flops = _PEAK_FLOPS_BY_DEVICE_NAME.get(device_name or "",
+                                                         0.0)
+        self.start_time_seconds.set(time.time())
+
+    def record_startup_phase(self, phase: str, seconds: float) -> None:
+        self.startup_seconds.labels(phase=phase).set(max(seconds, 0.0))
+
+    def set_warmup_coverage(self, compiled: int, total: int) -> None:
+        self.warmup_buckets.labels(state="total").set(max(total, 0))
+        self.warmup_buckets.labels(state="compiled").set(max(compiled, 0))
+        self.warmup_coverage.set(compiled / total if total > 0 else 0.0)
+
+    # -- device steps ---------------------------------------------------
+
+    def record_dispatch(self, kind: str, batch_bucket: str, seconds: float,
+                        *, first_use: bool, tokens: int = 0,
+                        fill_ratio: Optional[float] = None,
+                        count_busy: bool = True) -> None:
+        """One device step. ``first_use``: the step captured its graph key
+        (a compile in the JAX package's terms), timed apart from the
+        steady-state steps. ``count_busy=False`` marks warmup steps, which
+        serve no request."""
+        seconds = max(seconds, 0.0)
+        with self._lock:
+            if first_use:
+                self._compiles += 1
+            if tokens > 0:
+                now = time.monotonic()
+                self._tok_samples.append((now, kind, tokens))
+                self._refresh_throughput_locked(now)
+            if count_busy:
+                self._device_busy_s += seconds
+        if count_busy:
+            self.device_busy_seconds.inc(seconds)
+        if first_use:
+            self.compile_total.labels(kind=kind,
+                                      shape_bucket=batch_bucket).inc()
+            self.compile_seconds.labels(kind=kind).observe(seconds)
+        else:
+            self.step_duration.labels(kind=kind,
+                                      batch_bucket=batch_bucket).observe(
+                seconds)
+        if fill_ratio is not None:
+            self.batch_fill_ratio.labels(kind=kind).observe(
+                min(max(fill_ratio, 0.0), 1.0))
+
+    def record_host_gap(self, batch_bucket: str, seconds: float) -> None:
+        """The serial host wall between a decode step's fetch and the next
+        decode dispatch."""
+        self.host_gap_seconds.labels(batch_bucket=batch_bucket).observe(
+            max(seconds, 0.0))
+
+    def compile_count(self) -> int:
+        with self._lock:
+            return self._compiles
+
+    def device_busy(self) -> float:
+        """Seconds of live-traffic steps (warmup excluded)."""
+        with self._lock:
+            return self._device_busy_s
+
+    def _refresh_throughput_locked(self, now: float) -> None:
+        cutoff = now - self._TOKEN_WINDOW_S
+        while self._tok_samples and self._tok_samples[0][0] < cutoff:
+            self._tok_samples.popleft()
+        per_kind: Dict[str, int] = {}
+        total = 0
+        for _, kind, toks in self._tok_samples:
+            self._tok_kinds.add(kind)
+            per_kind[kind] = per_kind.get(kind, 0) + toks
+            total += toks
+        span = (max(now - self._tok_samples[0][0], 0.5)
+                if self._tok_samples else 1.0)
+        # An idle engine reads 0, not its last burst's rate.
+        for kind in self._tok_kinds:
+            self.tokens_per_second.labels(kind=kind).set(
+                per_kind.get(kind, 0) / span)
+        if self.param_count and self.peak_flops:
+            self.mfu.set(2.0 * self.param_count * (total / span)
+                         / self.peak_flops)
+
+    # -- scheduler / KV refresh (from LLMEngine.stats()) ----------------
+
+    def refresh_from_stats(self, stats: dict) -> None:
+        occ = float(stats.get("kv_cache_usage_perc", 0.0))
+        self.kv_page_occupancy.set(occ)
+        with self._lock:
+            self._refresh_throughput_locked(time.monotonic())
+            self._kv_hwm = max(self._kv_hwm, occ)
+            hwm = self._kv_hwm
+        self.kv_page_high_watermark.set(hwm)
+        self.preemptions.to_total(
+            float(stats.get("num_preemptions_total", 0.0)))
+
+    def render(self) -> str:
+        return self.registry.render()
