@@ -80,7 +80,13 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    (restored from a clone): a decode step at B=8 x 4096 (seeded draws,
    logprobs), a fresh 512-token chunk and a 4-step seeded burst with
    penalties; the packed rows and the cache bytes bit for bit; the host
-   wall, device busy and idle share of both.
+   wall, device busy and idle share of both. 3y: pipelined bursts at B=8 x
+   ~4096 (greedy, seeded with logprobs and penalized rows, 4 tokens a
+   burst): ``burst_start``, three ``burst_continue`` (their dispatch under
+   CUDA's sync debug mode set to raise) and ``burst_drain`` against four
+   synchronous bursts from a clone of the same cache, rows and cache bytes
+   bit for bit; the host wall, device busy and idle share a burst of each
+   loop (again in int4 with the fused write, after 3b).
 4. Serving: the port's OpenAI server on localhost, configured by its own
    flags (``--warmup lazy``: ``/ready`` must answer 503 ``"warming"``,
    ``/health`` 200 ``"warming"`` and a completion 503 with
@@ -112,6 +118,13 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    from graphs captured anew (every graph of before the sleep dropped),
    launching only the split-KV decode and the wgmma prefill; the free
    memory comes back to within the graph pool's bytes.
+4g. A pipelining server (phase 4's flags, ``--adaptive-decode-steps 8
+   --adaptive-decode-quiet-s 0``) and the same with
+   ``--no-overlap-decode``: 8 concurrent greedy streams of 128 tokens,
+   admitted together, once to capture and once timed; equal tokens,
+   ``pst:pipelined_bursts`` and ``pst:adaptive_deep_bursts`` above 0 and
+   0-valued host gaps on the pipelined server, the launch counters grown;
+   both servers' output tok/s and host-gap p50 (one run each).
 3b. The same model int4-quantized on the card (streamed from the seed, the
    bf16 tree freed first), under ``PST_FUSED_KV_WRITE=1``: the same steps
    through the int4 and decode-write kernels, against the gather path on a
@@ -124,6 +137,17 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    only wgmma launches.
 3d. The same model int8-quantized, against the gather path on its weights
    dequantized to bf16 beforehand.
+3z. A checkpoint written and served: Llama-3-8B's widths at 4 of its 32
+   layers (depth cut to bound the disk written, about 3.9 GB), random
+   bf16 weights from a seed in HF names and ``[out, in]`` layout, two
+   shards with ``model.safetensors.index.json`` and a config.json of the
+   preset's fields (with Llama-3.1's llama3 rope scaling), under
+   ``build/``: ``load_hf_params`` in bf16 equals the source tensors bit for
+   bit, in int4 the card's leaves equal the CPU loader's, a prefill and a
+   burst through the runner equal the in-memory tree's, the load's
+   seconds and GB/s are printed, and a server started with ``--model
+   <dir>`` answers a greedy completion with the in-process engine's
+   tokens. The directory is removed afterwards.
 3e. qwen2-7b at full width and 4 of its 28 layers (G = 7, QKV biases):
    prefill and decode through the kernels over a bf16 and an e4m3 cache,
    against the gather path.
@@ -196,7 +220,9 @@ import http.client
 import json
 import os
 import re
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import threading
@@ -221,7 +247,11 @@ from production_stack_tpu_torch.engine.runner import (  # noqa: E402
     capture,
     on_stream,
 )
-from production_stack_tpu_torch.engine.sequence import SamplingParams  # noqa: E402
+from production_stack_tpu_torch.engine.scheduler import PrefillItem  # noqa: E402
+from production_stack_tpu_torch.engine.sequence import (  # noqa: E402
+    SamplingParams,
+    Sequence,
+)
 from production_stack_tpu_torch.engine.tokenizer import ChatMessage  # noqa: E402
 from production_stack_tpu_torch.engine.server import (  # noqa: E402
     engine_config_from_args,
@@ -236,6 +266,7 @@ from production_stack_tpu_torch.models.llama import (  # noqa: E402
     unembed_logits,
 )
 from production_stack_tpu_torch.models.registry import get_model_config  # noqa: E402
+from production_stack_tpu_torch.models.safetensors import INDEX_FILE  # noqa: E402
 from production_stack_tpu_torch.ops import _build  # noqa: E402
 from production_stack_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from production_stack_tpu_torch.ops import paged_attention_cuda as pac  # noqa: E402
@@ -1806,12 +1837,14 @@ def graph_vs_eager(runner, label: str, batch: dict, want_lp: bool,
     cache bytes must equal the eager step's. Returns the host wall, device
     busy and idle share of both (``profile_step.profile``)."""
     if n_steps:
+        # A burst returns its rows beside its carry: the rows are compared.
         def eager():
             return runner.eager_multi_step(runner._put(batch), n_steps,
-                                           want_lp, greedy)
+                                           want_lp, greedy)["rows"]
 
         def graphed():
-            return runner._multi_step(batch, n_steps, want_lp, greedy)
+            return runner._multi_step(batch, n_steps, want_lp,
+                                      greedy)["rows"]
     else:
         def eager():
             return runner.eager_step(runner._put(batch), want_lp, greedy)
@@ -1880,6 +1913,142 @@ def phase_step_graphs(params, quantization=None) -> list:
     gc.collect()
     torch.cuda.empty_cache()
     return rows
+
+
+# Phase 3y: pipelined bursts at full width.
+
+
+def burst_seqs(runner) -> list:
+    """``GRAPH_B`` sequences over the graph runner's pages, each with
+    about ``GRAPH_CTX - 200`` tokens of random ids (its pages hold random
+    keys and values) and five output tokens so far: greedy rows, seeded
+    sampled rows with logprobs, and penalized seeded rows, in turn."""
+    rng = np.random.default_rng(21)
+    V = runner.model_cfg.vocab_size
+    W = GRAPH_CTX // BS
+    kinds = (dict(temperature=0.0),
+             dict(temperature=0.8, top_p=0.9, top_k=50, logprobs=2),
+             dict(temperature=0.7, repetition_penalty=1.2,
+                  presence_penalty=0.5, frequency_penalty=0.3))
+    seqs = []
+    for i in range(GRAPH_B):
+        sp = dict(kinds[i % 3], max_tokens=GRAPH_CTX, ignore_eos=True)
+        if i % 3:
+            sp["seed"] = 1000 + i
+        s = Sequence(f"b{i}", rng.integers(0, V, GRAPH_CTX - 200 - 8 * i)
+                     .tolist(), SamplingParams(**sp))
+        s.output_token_ids = rng.integers(0, V, 5).tolist()
+        s.block_ids = list(range(i * W, (i + 1) * W))
+        s.num_computed_tokens = s.num_tokens - 1
+        seqs.append(s)
+    return seqs
+
+
+def apply_rows(seqs, rows) -> None:
+    """The host's part of a burst: each row's tokens appended."""
+    for s, r in zip(seqs, rows):
+        for row in r:
+            s.output_token_ids.append(int(row[0]))
+            s.num_computed_tokens += 1
+
+
+@contextlib.contextmanager
+def no_host_sync_until_fetch(runner, reached: list):
+    """CUDA's sync debug mode set to raise from here until the runner
+    waits for the previous burst's rows (its ``_fetch``): the dispatch
+    half of ``burst_continue`` must not sync with the card."""
+    fetch = runner._fetch
+
+    def fetch_after_dispatch(pending):
+        torch.cuda.set_sync_debug_mode(0)
+        reached.append(True)
+        return fetch(pending)
+
+    runner._fetch = fetch_after_dispatch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        del runner._fetch
+
+
+def phase_pipelined_bursts(params, quantization=None) -> dict:
+    """Phase 3y: ``burst_start``, three ``burst_continue`` and a
+    ``burst_drain`` of 4-token bursts at B=8 x ~4096 (greedy, seeded with
+    logprobs, penalized rows), against four synchronous
+    ``execute_decode_multi`` bursts from a clone of the same cache: rows
+    and cache bytes bit for bit; each continuation's dispatch half under
+    the sync debug mode set to raise. Then the host wall, device busy and
+    idle share per burst of a run of each loop (its host part: the rows
+    appended)."""
+    runner = graph_runner(params, quantization)
+    tag = quantization or "bf16"
+    n = GRAPH_N
+    log(f"[phase 3y] {MODEL} {tag} pipelined {n}-token bursts at "
+        f"B={GRAPH_B} x ~{GRAPH_CTX} (PST_FUSED_KV_WRITE="
+        f"{os.environ.get('PST_FUSED_KV_WRITE')})")
+    saved = runner.kv_cache.clone()
+    seqs = burst_seqs(runner)
+    runner.burst_start(seqs, n)
+    pipe, reached = [], []
+    for _ in range(3):
+        with no_host_sync_until_fetch(runner, reached):
+            rows = runner.burst_continue(seqs)
+        pipe.append(rows)
+        apply_rows(seqs, rows)
+    rows = runner.burst_drain()
+    pipe.append(rows)
+    apply_rows(seqs, rows)
+    check(len(reached) == 3, "a continuation never fetched its rows")
+    torch.cuda.synchronize()
+    pipe_cache = runner.kv_cache.clone()
+    runner.kv_cache.copy_(saved)
+    del saved
+    seqs = burst_seqs(runner)
+    sync = []
+    for _ in range(4):
+        rows = runner.execute_decode_multi(seqs, n)
+        sync.append(rows)
+        apply_rows(seqs, rows)
+    torch.cuda.synchronize()
+    rows_equal = all(a.shape == b.shape and np.array_equal(
+        a.view(np.uint32), b.view(np.uint32)) for a, b in zip(pipe, sync))
+    cache_equal = same_bits(pipe_cache, runner.kv_cache)
+    check(rows_equal and cache_equal,
+          f"3y {tag}: pipelined bursts differ from synchronous ones (rows "
+          f"equal {rows_equal}, cache bytes equal {cache_equal})")
+    del pipe_cache
+    log(f"  {tag}: 4 pipelined bursts' rows {pipe[0].shape} and the cache "
+        f"bytes equal 4 synchronous bursts' bit for bit; the continuations' "
+        f"dispatch ran with no host sync")
+
+    def sync_burst():
+        apply_rows(sync_seqs, runner.execute_decode_multi(sync_seqs, n))
+
+    def pipelined_burst():
+        apply_rows(pipe_seqs, runner.burst_continue(pipe_seqs))
+
+    sync_seqs = burst_seqs(runner)
+    times = {"synchronous": profile(sync_burst, 5, 3)}
+    pipe_seqs = burst_seqs(runner)
+    runner.burst_start(pipe_seqs, n)
+    times["pipelined"] = profile(pipelined_burst, 5, 3)
+    apply_rows(pipe_seqs, runner.burst_drain())
+    out = {"step": f"{tag} {n}-token burst B={GRAPH_B} x {GRAPH_CTX}, "
+                   "synchronous vs pipelined",
+           "fused_kv_write": os.environ.get("PST_FUSED_KV_WRITE") == "1"}
+    for how, r in times.items():
+        out[how] = {k: r[k] for k in ("wall_ms", "device_busy_ms",
+                                      "idle_share", "kernels_per_step")}
+    log(f"  {tag} per {n}-token burst: " + "; ".join(
+        f"{how} host wall {r['wall_ms']:.3f} ms, device busy "
+        f"{r['device_busy_ms']:.3f} ms, idle {r['idle_share']:.2%}"
+        for how, r in times.items()))
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def build_model(seed: int = 0):
@@ -2901,6 +3070,413 @@ def phase_serving(params, label: str, quantization=None, kv_cache_dtype=None,
             "graph_pool_bytes": pool, "warmup": summary}
 
 
+# Phase 3z: a checkpoint written and served.
+
+CKPT_LAYERS = 4
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "hf_checkpoint_smoke")
+# Llama-3.1-8B's rope scaling, which the llama-3-8b preset lacks: written
+# into config.json so the loaded config takes the llama3 path.
+LLAMA31_ROPE = {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                "high_freq_factor": 4.0,
+                "original_max_position_embeddings": 8192}
+
+
+def write_safetensors(tensors: dict, path: str) -> None:
+    """bf16 ``tensors`` (on any device) as one safetensors file: the
+    header's length (8 bytes, little-endian), the JSON header padded to 8
+    bytes, then the buffers back to back in name order."""
+    header, offset = {}, 0
+    for k in sorted(tensors):
+        n = tensors[k].numel() * 2
+        header[k] = {"dtype": "BF16", "shape": list(tensors[k].shape),
+                     "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for k in sorted(tensors):
+            f.write(tensors[k].contiguous().cpu().view(torch.int16)
+                    .numpy().data)
+
+
+def write_checkpoint(cfg, gen) -> dict:
+    """``CKPT_DIR``: an HF Llama checkpoint of ``cfg``'s widths and
+    ``CKPT_LAYERS`` layers, random bf16 weights from ``gen`` in HF names
+    and ``[out, in]`` layout, in two shards with an index, and its
+    config.json. Returns the source tensors (on the card) by HF name."""
+    os.makedirs(CKPT_DIR, exist_ok=True)
+    D, Fi, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+
+    def w(out, inp):
+        return (torch.randn(out, inp, generator=gen, device=DEV)
+                / inp ** 0.5).to(torch.bfloat16)
+
+    def norm(n):
+        return (1 + 0.05 * torch.randn(n, generator=gen, device=DEV)).to(
+            torch.bfloat16)
+
+    src = {"model.embed_tokens.weight": w(V, D)}
+    for i in range(CKPT_LAYERS):
+        p = f"model.layers.{i}."
+        src[p + "input_layernorm.weight"] = norm(D)
+        src[p + "self_attn.q_proj.weight"] = w(cfg.q_size, D)
+        src[p + "self_attn.k_proj.weight"] = w(cfg.kv_size, D)
+        src[p + "self_attn.v_proj.weight"] = w(cfg.kv_size, D)
+        src[p + "self_attn.o_proj.weight"] = w(D, cfg.q_size)
+        src[p + "post_attention_layernorm.weight"] = norm(D)
+        src[p + "mlp.gate_proj.weight"] = w(Fi, D)
+        src[p + "mlp.up_proj.weight"] = w(Fi, D)
+        src[p + "mlp.down_proj.weight"] = w(D, Fi)
+    src["model.norm.weight"] = norm(D)
+    src["lm_head.weight"] = w(V, D)
+    names = list(src)
+    half = len(names) // 2
+    weight_map = {}
+    for k, part in enumerate((names[:half], names[half:])):
+        f = f"model-{k + 1:05d}-of-00002.safetensors"
+        write_safetensors({n: src[n] for n in part},
+                          os.path.join(CKPT_DIR, f))
+        weight_map.update({n: f for n in part})
+    with open(os.path.join(CKPT_DIR, INDEX_FILE), "w") as f:
+        json.dump({"metadata": {}, "weight_map": weight_map}, f)
+    hf = {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+          "vocab_size": V, "hidden_size": D, "intermediate_size": Fi,
+          "num_hidden_layers": CKPT_LAYERS,
+          "num_attention_heads": cfg.num_heads,
+          "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+          "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+          "max_position_embeddings": cfg.max_position_embeddings,
+          "tie_word_embeddings": cfg.tie_word_embeddings,
+          "hidden_act": cfg.hidden_act, "rope_scaling": LLAMA31_ROPE,
+          "eos_token_id": list(cfg.eos_token_ids),
+          "bos_token_id": cfg.bos_token_id, "torch_dtype": "bfloat16"}
+    with open(os.path.join(CKPT_DIR, "config.json"), "w") as f:
+        json.dump(hf, f)
+    return src
+
+
+def source_tree(cfg, src) -> dict:
+    """The port's parameter tree of the source tensors, built in memory:
+    ``[out, in]`` transposed, layers stacked."""
+    layer = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.o_proj",
+             "w_gate": "mlp.gate_proj", "w_up": "mlp.up_proj",
+             "w_down": "mlp.down_proj", "attn_norm": "input_layernorm",
+             "mlp_norm": "post_attention_layernorm"}
+    tree = {"embed": src["model.embed_tokens.weight"],
+            "final_norm": src["model.norm.weight"],
+            "lm_head": src["lm_head.weight"], "layers": {}}
+    for ours, hf in layer.items():
+        parts = [src[f"model.layers.{i}.{hf}.weight"]
+                 for i in range(cfg.num_layers)]
+        tree["layers"][ours] = torch.stack(
+            [t.T if t.dim() == 2 else t for t in parts]).contiguous()
+    return tree
+
+
+def tree_mismatch(got: dict, want: dict, prefix: str = "") -> list:
+    """Leaves of two trees that differ in name, shape, type or bits."""
+    bad = sorted(set(got) ^ set(want))
+    for k in set(got) & set(want):
+        if isinstance(want[k], dict):
+            bad += tree_mismatch(got[k], want[k], prefix + k + ".")
+        elif not same_bits(got[k].to(DEV), want[k].to(DEV)):
+            bad.append(prefix + k)
+    return bad
+
+
+def runner_rows(runner, prompt) -> tuple:
+    """A 512-token prefill and a 4-token decode burst through the runner's
+    entry points; (the rows of both, the KV cache after them)."""
+    seq = Sequence("z", prompt, SamplingParams(temperature=0.0,
+                                               ignore_eos=True))
+    seq.block_ids = list(range(-(-len(prompt) // BS) + 1))
+    first = runner.execute_prefill_batch([PrefillItem(seq, 0, len(prompt))])
+    seq.num_computed_tokens = len(prompt)
+    seq.output_token_ids.append(int(first[0][0]))
+    burst = runner.execute_decode_multi([seq], 4)
+    torch.cuda.synchronize()
+    return first, burst, runner.kv_cache.clone()
+
+
+def phase_checkpoint(card: str) -> dict:
+    """Phase 3z: a Llama-3-8B-shaped HF checkpoint (full width, depth cut
+    to ``CKPT_LAYERS`` layers to bound the disk written) written from a
+    seed, loaded in bf16 (bit for bit the source tensors) and int4 (the
+    card's leaves bit for bit the CPU loader's), run through the runner
+    against the in-memory source tree, and served by a server started with
+    ``--model <dir>``. The directory is removed afterwards."""
+    base = get_model_config(MODEL)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(31)
+    t0 = time.perf_counter()
+    src = write_checkpoint(base, gen)
+    nbytes = sum(os.path.getsize(os.path.join(CKPT_DIR, f))
+                 for f in os.listdir(CKPT_DIR))
+    log(f"[phase 3z] {MODEL}-shaped HF checkpoint: {CKPT_LAYERS} of "
+        f"{base.num_layers} layers (depth cut to bound the disk written), "
+        f"{nbytes / 1e9:.3f} GB in 2 safetensors shards + index, written in "
+        f"{time.perf_counter() - t0:.1f}s; config.json from the preset's "
+        f"fields with Llama-3.1's llama3 rope scaling (factor 8)")
+    try:
+        cfg = get_model_config(CKPT_DIR)
+        check(cfg == dataclasses.replace(
+            base, num_layers=CKPT_LAYERS, name=CKPT_DIR,
+            rope_scaling_factor=8.0, rope_original_max_position=8192),
+            f"3z: config from config.json {cfg}")
+        want = source_tree(cfg, src)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = llama_mod.load_hf_params(cfg, CKPT_DIR, device=DEV)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        bad = tree_mismatch(loaded, want)
+        check(not bad, f"3z: bf16 leaves differ from the source: {bad}")
+        del loaded
+        log(f"  bf16 load: {load_s:.2f}s, {nbytes / load_s / 1e9:.2f} GB/s "
+            f"(files in the page cache the write left); every leaf equals "
+            f"the source tensors bit for bit")
+        t0 = time.perf_counter()
+        q_card = llama_mod.load_hf_params(cfg, CKPT_DIR, quantize="int4",
+                                          device=DEV)
+        torch.cuda.synchronize()
+        q_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        q_cpu = llama_mod.load_hf_params(
+            dataclasses.replace(cfg, num_layers=1), CKPT_DIR,
+            quantize="int4", device="cpu")
+        cpu_s = time.perf_counter() - t0
+        first_layer = dict(q_card, layers={k: v[:1] for k, v in
+                                           q_card["layers"].items()})
+        bad = tree_mismatch(first_layer, q_cpu)
+        check(not bad, f"3z: int4 leaves on the card differ from the CPU "
+                       f"loader's: {bad}")
+        del q_card, q_cpu, first_layer
+        log(f"  int4 load on the card {q_s:.2f}s; the CPU loader's leaves "
+            f"(embed, lm_head, norm and layer 0; {cpu_s:.1f}s) equal the "
+            f"card's bit for bit")
+
+        ecfg = EngineConfig(model=CKPT_DIR, device=DEV.type, max_num_seqs=1,
+                            max_prefill_tokens=512, max_model_len=1024,
+                            num_decode_steps=4, num_kv_blocks=40)
+        prompt = np.random.default_rng(8).integers(
+            0, cfg.vocab_size, 512).tolist()
+        runner = ModelRunner(ecfg)
+        got = runner_rows(runner, prompt)
+        del runner
+        ref = runner_rows(ModelRunner(ecfg, params=want), prompt)
+        check(np.array_equal(got[0], ref[0]) and np.array_equal(got[1], ref[1])
+              and same_bits(got[2], ref[2]),
+              "3z: the runner on the loaded weights differs from the "
+              "in-memory source tree")
+        del got, ref, want, src
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("  a 512-token prefill and a 4-token burst through the runner "
+            "on the loaded weights equal the in-memory tree's (rows and "
+            "cache bytes)")
+
+        # The directory has no tokenizer files; the card's machine has
+        # transformers, whose AutoTokenizer builds one from config.json
+        # alone, so the byte tokenizer is named.
+        argv = ["--model", CKPT_DIR, "--tokenizer", "byte",
+                "--device", DEV.type, "--max-model-len", "1024",
+                "--num-kv-blocks", "64", "--max-num-seqs", "4",
+                "--num-decode-steps", "4"]
+        scfg = engine_config_from_args(parse_engine_args(argv))
+        body = {"prompt": "The checkpoint says", "max_tokens": 12,
+                "temperature": 0.0, "ignore_eos": True}
+        local = LLMEngine(scfg)
+        check(type(local.tokenizer).__name__ == "ByteTokenizer",
+              f"3z: tokenizer {type(local.tokenizer).__name__}")
+        want_ids = local.generate([body["prompt"]], SamplingParams(
+            max_tokens=12, temperature=0.0, ignore_eos=True))[0]["token_ids"]
+        del local
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine = AsyncLLMEngine(scfg)
+        seen = []
+        generate = engine.generate
+
+        def recording_generate(*args, **kw):
+            for out in generate(*args, **kw):
+                seen.extend(out.new_token_ids)
+                yield out
+
+        engine.generate = recording_generate
+        server, thread = serve_in_thread(engine)
+        port = server.server_address[1]
+        try:
+            status, models, _ = _call(port, "GET", "/v1/models")
+            check(status == 200 and models["data"][0]["id"] == CKPT_DIR,
+                  f"3z /v1/models: {status} {models}")
+            _completion(port, body, 12)
+        finally:
+            server.shutdown()
+            server.server_close()
+            engine.shutdown()
+            thread.join(timeout=10)
+        check(seen == want_ids, f"3z: the server's tokens {seen} differ from "
+                                f"the in-process engine's {want_ids}")
+        log(f"  a server started with --model {CKPT_DIR} --tokenizer byte "
+            f"answered a greedy completion with the in-process engine's "
+            f"{len(want_ids)} tokens")
+        del engine
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"card": card, "layers": CKPT_LAYERS, "bytes": nbytes,
+            "bf16_load_s": load_s, "bf16_load_gb_per_s": nbytes / load_s / 1e9,
+            "int4_load_s": q_s}
+
+
+# Phase 4g: a pipelining server at full width.
+
+
+def serve_streams(params, argv: list, n_req: int, n_tok: int) -> dict:
+    """One server of ``argv`` over ``params``: ``n_req`` concurrent greedy
+    streamed requests of ``n_tok`` tokens, once to capture the graphs and
+    once timed. In each round the step loop waits until all the round's
+    requests are in, so both servers step the same batches (a random
+    bf16 model's greedy tokens turn on the batch shapes' rounding).
+    Returns the timed round's tokens by prompt, wall, host gaps, launch
+    counts, scraped /metrics and graph counts."""
+    engine = AsyncLLMEngine(engine_config_from_args(parse_engine_args(argv)),
+                            params=params)
+    llm = engine.engine
+    seen: dict = {}
+    generate, add, step = engine.generate, llm.add_request, llm.step
+    all_in = threading.Event()
+
+    def recording_generate(*args, prompt_token_ids=None, **kw):
+        rec = seen[tuple(prompt_token_ids)] = []
+        for o in generate(*args, prompt_token_ids=prompt_token_ids, **kw):
+            rec.extend(o.new_token_ids)
+            yield o
+
+    def counting_add(*args, **kw):
+        seq = add(*args, **kw)
+        if llm.scheduler.num_waiting + llm.scheduler.num_running >= n_req:
+            all_in.set()
+        return seq
+
+    def gated_step():
+        if not all_in.wait(timeout=0.01):
+            return []
+        return step()
+
+    engine.generate = recording_generate
+    llm.add_request, llm.step = counting_add, gated_step
+    gaps = []
+    record_gap = llm.runner.telemetry.record_host_gap
+
+    def spy_gap(bucket, seconds):
+        gaps.append(seconds)
+        record_gap(bucket, seconds)
+
+    llm.runner.telemetry.record_host_gap = spy_gap
+    server, thread = serve_in_thread(engine)
+    port = server.server_address[1]
+
+    def one(i, errors):
+        try:
+            _stream(port, {"prompt": f"Request {i}: a story about "
+                                     f"{'paged ' * i}attention.",
+                           "max_tokens": n_tok, "temperature": 0.0,
+                           "ignore_eos": True}, n_tok)
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    def traffic():
+        all_in.clear()
+        errors = []
+        threads = [threading.Thread(target=one, args=(i, errors))
+                   for i in range(n_req)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+
+    try:
+        traffic()  # captures this traffic's graphs
+        reset_launch_counts()
+        gaps.clear()
+        t0 = time.perf_counter()
+        traffic()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {**launch_counts(), **route_counts()}
+        samples = scrape(port)
+        check(engine.is_healthy(), f"4g: {engine.step_error}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+        thread.join(timeout=10)
+    return {"tokens": dict(seen), "wall": wall, "gaps": list(gaps),
+            "counts": counts, "samples": samples,
+            "graphs": dict(llm.runner.graph_counts)}
+
+
+def phase_pipelined_serving(params, card: str) -> dict:
+    """Phase 4g: the bf16 Llama-3-8B server of phase 4's flags with
+    ``--adaptive-decode-quiet-s 0 --adaptive-decode-steps 8``, then the
+    same with ``--no-overlap-decode``: 8 concurrent greedy streamed
+    requests of 128 tokens, once to capture the graphs and once timed
+    (one run each). Tokens equal between the two servers; the pipelined
+    one counts pipelined and adaptive deep bursts in /metrics and records
+    0-valued host gaps; the kernels' launch counters grow."""
+    n_req, n_tok = 8, 128
+    out, tokens = {}, {}
+    for label, extra in (("pipelined", []), ("synchronous",
+                                             ["--no-overlap-decode"])):
+        argv = ["--model", MODEL, "--device", DEV.type,
+                "--max-num-batched-tokens", "512", "--num-decode-steps", "4",
+                "--max-num-seqs", "16", "--adaptive-decode-quiet-s", "0",
+                "--adaptive-decode-steps", "8", *extra]
+        r = serve_streams(params, argv, n_req, n_tok)
+        gc.collect()  # the server's engine and KV cache, before the next
+        torch.cuda.empty_cache()
+        tokens[label] = r["tokens"]
+        counts, samples, gaps = r["counts"], r["samples"], r["gaps"]
+        check(counts.get("decode_split", 0) > 0
+              and counts.get("prefill_wgmma", 0) > 0,
+              f"4g {label}: launch counters did not grow: {counts}")
+        pipelined = samples.get("pst:pipelined_bursts_total", 0.0)
+        deep = samples.get("pst:adaptive_deep_bursts_total", 0.0)
+        zeros = sum(1 for g in gaps if g == 0.0)
+        out[label] = {
+            "output_tok_per_s": n_req * n_tok / r["wall"], "wall_s": r["wall"],
+            "host_gap_p50_ms": (statistics.median(gaps) * 1e3
+                                if gaps else None),
+            "host_gaps": len(gaps), "zero_host_gaps": zeros,
+            "pipelined_bursts": pipelined, "adaptive_deep_bursts": deep,
+            "graphs": r["graphs"]}
+        log(f"[phase 4g] {label} server (one run): {n_req} x {n_tok} "
+            f"streamed tokens in {r['wall']:.3f}s, "
+            f"{out[label]['output_tok_per_s']:.1f} output tok/s, host gap "
+            f"p50 {out[label]['host_gap_p50_ms']} ms over {len(gaps)} gaps "
+            f"({zeros} of them 0); pst:pipelined_bursts {pipelined:.0f}, "
+            f"pst:adaptive_deep_bursts {deep:.0f}; {card}")
+    p = out["pipelined"]
+    check(p["pipelined_bursts"] > 0 and p["adaptive_deep_bursts"] > 0,
+          f"4g: pipelined server counters {p}")
+    check(p["zero_host_gaps"] > 0, "4g: no 0-valued host gap recorded")
+    check(out["synchronous"]["pipelined_bursts"] == 0,
+          "4g: the --no-overlap-decode server pipelined")
+    check(len(tokens["pipelined"]) == n_req
+          and tokens["pipelined"] == tokens["synchronous"],
+          "4g: the two servers' tokens differ")
+    log(f"  4g: both servers' {n_req} x {n_tok} tokens equal")
+    return out
+
+
 # The names of the router's scraper (router/stats/engine_stats.py,
 # _METRIC_FIELDS) that the port exports; the one it does not is the
 # remote KV tier's integrity counter (queue 1, item 13).
@@ -3737,6 +4313,7 @@ def main() -> None:
     fp8_per_step, fp8_path = phase_fp8_model(model, params)
     phase_no_host_sync(model, params)
     graph_steps = phase_step_graphs(params)
+    graph_steps.append(phase_pipelined_bursts(params))
     steps = phase_step_times(model, params)
     steps.update(phase_step_times(model, params, tag="e4m3_", impls=("cuda",),
                                   kv_dtype=E4M3))
@@ -3747,6 +4324,7 @@ def main() -> None:
     admin = phase_admin(params, card)
     gc.collect()
     torch.cuda.empty_cache()
+    pipelined_serving = phase_pipelined_serving(params, card)
     os.environ["PST_FUSED_KV_WRITE"] = "1"
     fp8_served = phase_serving(
         params, "4c", kv_cache_dtype="float8_e4m3fn",
@@ -3764,6 +4342,7 @@ def main() -> None:
     q_params, q_per_step = phase_int4_model(model)  # sets PST_FUSED_KV_WRITE=1
     steps.update(phase_step_times(model, q_params, tag="int4_", impls=("cuda",)))
     graph_steps += phase_step_graphs(q_params, quantization="int4")
+    graph_steps.append(phase_pipelined_bursts(q_params, quantization="int4"))
     per_step["decode_write_step"] = q_per_step["decode_write"]
     torch.cuda.empty_cache()
     q_served = phase_serving(
@@ -3780,6 +4359,7 @@ def main() -> None:
     os.environ.pop("PST_FUSED_KV_WRITE", None)
     phase_int8_model(model)
     del model
+    checkpoint = phase_checkpoint(card)
     phase_qwen2()
     tiny = phase_tiny_engines()
     tiny_warm = phase_tiny_warmup()
@@ -3838,7 +4418,8 @@ def main() -> None:
                                               "warmup")}
                     for label, d in (("4", served), ("4b", q_served),
                                      ("4c", fp8_served), ("4e", g_served))},
-        "sleep_4f": admin,
+        "sleep_4f": admin, "pipelined_serving_4g": pipelined_serving,
+        "checkpoint_3z": checkpoint,
     }}), flush=True)
     print(json.dumps({"kernels": rows, "steps": steps, "int4_crossover": crossover}),
           flush=True)

@@ -13,6 +13,9 @@ the stream, the captures and the cache, so a sleep or a wake is posted to
 it through a mailbox and the caller waits for it: no step or capture
 interleaves with a drop or a restore. A wake from level 2 runs the
 configured warmup again. Draining only closes the HTTP admission gate.
+
+The loop steps while the engine has work, and an in-flight pipelined
+burst is work: its rows are applied even once every queue is empty.
 """
 
 from __future__ import annotations
@@ -116,6 +119,8 @@ class AsyncLLMEngine:
         if level >= 2 and self._sleep_level < 2:
             # The dropped pages are what the prefix map points at: forget
             # them, or a later prompt adopts zeroed pages as cache hits.
+            # This drains an in-flight burst first, which writes into the
+            # cache about to be dropped.
             self.engine.clear_kv_state()
             self.engine.runner.drop_kv_cache()
             for q in list(self._queues.values()):

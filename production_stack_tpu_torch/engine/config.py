@@ -36,8 +36,25 @@ class EngineConfig:
     # Decode tokens generated per engine step (a device-side loop that
     # chains sampled tokens without a host round trip). 1 = per token.
     num_decode_steps: int = 1
+    # Adaptive burst depth: when nothing waits, at least
+    # ``adaptive_decode_min_running`` sequences run and no request arrived
+    # for ``adaptive_decode_quiet_s``, decode bursts deepen to this many
+    # steps. Gated on past arrivals only, so a live stream keeps bursts at
+    # num_decode_steps. 0 = off.
+    adaptive_decode_steps: int = 0
+    adaptive_decode_quiet_s: float = 0.5
+    adaptive_decode_min_running: int = 0
     # Floor for the decode-batch row bucket.
     min_decode_bucket: int = 1
+    # Pipelined decode: keep one burst in flight and fetch its rows while
+    # the next burst runs, unconditionally (batch serving: a new arrival's
+    # prefill may wait behind one in-flight burst).
+    async_decode: bool = False
+    # The arrival-gated form of pipelining: a pipeline starts only under
+    # the adaptive depth's three gates (nothing waiting, the running
+    # floor met, the arrival stream quiet), so live traffic keeps the
+    # synchronous loop's latency and saturated decode gets the overlap.
+    overlap_decode: bool = True
     # Step capture before /ready flips (engine/precompile.py): "full"
     # captures the whole padded shape-bucket lattice, "lazy" the core set
     # the first requests hit; "off" captures each bucket on first use.

@@ -5,18 +5,27 @@ path: one ``step()`` is one scheduler decision, one device step (a batch
 of prefill chunks, or a decode burst) and the host-side bookkeeping —
 detokenization, stop handling, prefix-block commitment.
 
+Pipelined decode (``overlap_decode``, the default, and ``async_decode``):
+a step with a burst in flight dispatches the next burst and then applies
+the previous one's rows, so the host's bookkeeping runs while the device
+decodes. ``overlap_decode`` starts a pipeline only under the adaptive
+depth's arrival gates (``_arrival_safe``); ``adaptive_decode_steps``
+deepens bursts under the same gates. A sequence that finishes or is
+aborted while a burst still writes through its pages is detached, and
+its pages are released when the burst drains.
+
 ``stats()`` feeds the server's ``/metrics``; the runner's ``telemetry``
 records every device step. ``clear_kv_state`` (sleep level 2) forgets
 every page the prefix map points at.
 
-Not ported yet: pipelined bursts, speculative decoding, KV tiering and
-swap, LoRA, disaggregated handoff, the flight recorder and cost
-attribution.
+Not ported yet: speculative decoding, KV tiering and swap, LoRA,
+disaggregated handoff, the flight recorder and cost attribution.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence as Seq, Union
 
@@ -58,7 +67,10 @@ class LLMEngine:
         self.model_cfg = get_model_config(cfg.model)
         self.runner = ModelRunner(cfg, self.model_cfg, params)
         t_runner = time.perf_counter()
-        self.tokenizer = get_tokenizer(cfg.tokenizer, self.model_cfg.vocab_size)
+        # A checkpoint directory carries its own tokenizer files.
+        tok_spec = cfg.tokenizer or (
+            cfg.model if os.path.isdir(cfg.model) else None)
+        self.tokenizer = get_tokenizer(tok_spec, self.model_cfg.vocab_size)
         self.allocator = BlockAllocator(
             self.runner.num_blocks, cfg.block_size, cfg.enable_prefix_caching
         )
@@ -68,6 +80,11 @@ class LLMEngine:
                 max_prefill_tokens=cfg.max_prefill_tokens,
                 max_model_len=cfg.max_model_len,
                 num_decode_steps=cfg.num_decode_steps,
+                # A continuation writes one burst past the host's view, so
+                # its pages must exist at dispatch: whenever a pipeline can
+                # engage.
+                decode_lookahead=(
+                    2 if cfg.async_decode or cfg.overlap_decode else 1),
             ),
             self.allocator,
         )
@@ -78,6 +95,17 @@ class LLMEngine:
         self.num_preempted_total = 0
         self.prompt_tokens_total = 0
         self.generation_tokens_total = 0
+        # Pipelined bursts: the in-flight burst's members (original order,
+        # finished ones included), its depth, and the sequences whose page
+        # release waits for its drain.
+        self._burst_seqs: List[Sequence] = []
+        self._burst_n = 0
+        self._burst_deferred: List[Sequence] = []
+        # Last arrival (the adaptive-depth and overlap gates) and the
+        # bursts each mode ran.
+        self._last_arrival = 0.0
+        self.adaptive_deep_bursts_total = 0
+        self.pipelined_bursts_total = 0
         # Warmup summary (engine/precompile.py): set by precompile(); the
         # server's /ready payload carries it.
         self.warmup_summary: Optional[dict] = None
@@ -114,6 +142,7 @@ class LLMEngine:
             request_id, prompt_token_ids, sampling or SamplingParams(),
             arrival_time=arrival_time,
         )
+        self._last_arrival = time.time()
         self.scheduler.add(seq)
         self._seqs[request_id] = seq
         self._detok[request_id] = {"emitted": "", "prefix": 0, "read": 0}
@@ -121,19 +150,35 @@ class LLMEngine:
         return seq
 
     def abort_request(self, request_id: str) -> bool:
-        seq = self.scheduler.abort(request_id)
+        if self.runner.burst_in_flight and any(
+            s.request_id == request_id for s in self._burst_seqs
+        ):
+            # The in-flight burst writes through its pages: release them
+            # at the drain.
+            seq = self.scheduler.detach(request_id)
+            if seq is not None:
+                self._burst_deferred.append(seq)
+        else:
+            seq = self.scheduler.abort(request_id)
         self._seqs.pop(request_id, None)
         self._detok.pop(request_id, None)
         return seq is not None
 
     def abort_all_requests(self) -> int:
+        if self.runner.burst_in_flight:
+            self.runner.burst_drain()  # discarded: everything goes away
+            self._burst_seqs = []
+            self._burst_n = 0
+            self._release_burst_deferred()
         rids = list(self._seqs)
         for rid in rids:
             self.abort_request(rid)
         return len(rids)
 
     def has_work(self) -> bool:
-        return self.scheduler.has_work()
+        # An in-flight burst is work with empty queues too: its rows must
+        # be applied and its deferred pages released.
+        return self.scheduler.has_work() or self.runner.burst_in_flight
 
     def clear_kv_state(self) -> None:
         """Forget every page the cache held (sleep level 2 drops them):
@@ -150,9 +195,55 @@ class LLMEngine:
     # Stepping
     # ------------------------------------------------------------------
 
+    def _arrival_safe(self) -> bool:
+        """The three arrival-safety rules of adaptive deepening and overlap
+        engagement, from PAST observations only: nothing waits, at least
+        ``adaptive_decode_min_running`` sequences run, and no request
+        arrived for ``adaptive_decode_quiet_s``."""
+        if self.scheduler.num_waiting:
+            return False
+        if self.scheduler.num_running < self.cfg.adaptive_decode_min_running:
+            return False
+        return (time.time() - self._last_arrival
+                >= self.cfg.adaptive_decode_quiet_s)
+
+    def _decode_depth_hint(self) -> Optional[int]:
+        """The adaptive burst depth when the gates hold, else None (the
+        configured depth)."""
+        cap = self.cfg.adaptive_decode_steps
+        if not cap or cap <= self.cfg.num_decode_steps:
+            return None
+        if not self._arrival_safe():
+            return None
+        return cap
+
     def step(self) -> List[RequestOutput]:
         outputs: List[RequestOutput] = []
-        sched = self.scheduler.schedule()
+        hint = self._decode_depth_hint()
+        if self.runner.burst_in_flight:
+            locked = frozenset(s.request_id for s in self._burst_seqs)
+            sched = self.scheduler.schedule(locked=locked, n_decode=hint)
+            self.num_preempted_total += len(sched.preempted)
+            if self._can_continue_burst(sched):
+                self.pipelined_bursts_total += 1
+                if self._burst_n > self.cfg.num_decode_steps:
+                    self.adaptive_deep_bursts_total += 1
+                rows = self.runner.burst_continue(self._burst_seqs)
+                return outputs + self._process_burst_rows(rows)
+            # A new arrival's prefill slips in BEHIND the in-flight burst:
+            # dispatched first, it runs while the burst's rows are fetched
+            # (it touches only its own fresh pages; locked members were not
+            # evicted for them).
+            handle = None
+            if sched.prefills and not sched.blocked_on_locked:
+                handle = self.runner.prefill_dispatch(sched.prefills)
+            outputs += self._process_burst_rows(self.runner.burst_drain())
+            self._release_burst_deferred()
+            if handle is not None:
+                rows = self.runner.prefill_fetch(handle, len(sched.prefills))
+                return outputs + self._process_prefill_rows(
+                    sched.prefills, rows)
+        sched = self.scheduler.schedule(n_decode=hint)
         self.num_preempted_total += len(sched.preempted)
         if sched.is_empty:
             return outputs
@@ -168,17 +259,19 @@ class LLMEngine:
                 rows = self.runner.execute_prefill_batch(sched.prefills)
             else:
                 self.runner.execute_prefill_batch_nofetch(sched.prefills)
-            for i, item in enumerate(sched.prefills):
-                seq = item.seq
-                seq.num_computed_tokens = item.end
-                self._commit(seq)
-                # Sample only when this chunk completes a *fresh* prompt;
-                # recompute chunks (post-preemption) must not re-emit.
-                if item.end == seq.num_prompt_tokens and not seq.output_token_ids:
-                    out = self._append_token(seq, int(rows[i][0]), lp_row=rows[i])
-                    if out is not None:
-                        outputs.append(out)
+            return outputs + self._process_prefill_rows(sched.prefills, rows)
+        deep = (hint is not None
+                and sched.n_decode_steps > self.cfg.num_decode_steps)
+        if self._pipeline_ok(sched):
+            # The first burst of a pipeline: dispatched only; its rows are
+            # applied on the NEXT step, while the following burst runs.
+            self._burst_seqs = list(sched.decodes)
+            self._burst_n = sched.n_decode_steps
+            self.pipelined_bursts_total += 1
+            self.adaptive_deep_bursts_total += deep
+            self.runner.burst_start(sched.decodes, sched.n_decode_steps)
             return outputs
+        self.adaptive_deep_bursts_total += deep
         bursts = self.runner.execute_decode_multi(
             sched.decodes, sched.n_decode_steps
         )
@@ -193,8 +286,88 @@ class LLMEngine:
                     break  # trim the burst's tail past a stop
         return outputs
 
-    def _commit(self, seq: Sequence) -> None:
-        seq.commit_full_blocks(self.allocator)
+    def _process_prefill_rows(self, prefills, rows) -> List[RequestOutput]:
+        """``rows is None`` for a step that fetched nothing (no chunk
+        completed a fresh prompt)."""
+        outputs: List[RequestOutput] = []
+        for i, item in enumerate(prefills):
+            seq = item.seq
+            seq.num_computed_tokens = item.end
+            self._commit(seq)
+            # Sample only when this chunk completes a *fresh* prompt;
+            # recompute chunks (post-preemption) must not re-emit.
+            if item.end == seq.num_prompt_tokens and not seq.output_token_ids:
+                out = self._append_token(seq, int(rows[i][0]), lp_row=rows[i])
+                if out is not None:
+                    outputs.append(out)
+        return outputs
+
+    # -- pipelined decode ------------------------------------------------
+
+    def _pipeline_ok(self, sched) -> bool:
+        """May this pass start a pipeline? ``async_decode`` always;
+        ``overlap_decode`` only under the arrival gates, so no arrival
+        waits behind a burst it did not already have. Guided rows never
+        (their allowed-token mask is rebuilt per token on the host);
+        penalized rows do (their counts ride the burst's carry)."""
+        if not sched.decodes:
+            return False
+        if any(s.sampling.guided_choice for s in sched.decodes):
+            return False
+        if self.cfg.async_decode:
+            return True
+        return self.cfg.overlap_decode and self._arrival_safe()
+
+    def _can_continue_burst(self, sched) -> bool:
+        """The in-flight burst may chain iff the step's shape is unchanged
+        and the NEXT burst's writes are covered by pages."""
+        alive = [s for s in self._burst_seqs if not s.is_finished]
+        n = self._burst_n
+        return bool(
+            not sched.prefills
+            and not sched.blocked_on_locked
+            and self.scheduler.num_waiting == 0  # drain so admission runs
+            and alive
+            and sched.decodes == alive
+            and sched.n_decode_steps == n
+            and self.runner.burst_width_stable(self._burst_seqs)
+            # The continuation writes up to num_tokens + 2n (the host's
+            # view lags one burst): past max_model_len no page exists.
+            and all(s.num_tokens + 2 * n <= self.cfg.max_model_len
+                    for s in alive)
+        )
+
+    def _process_burst_rows(self, rows) -> List[RequestOutput]:
+        """Apply one fetched burst's rows, aligned with ``_burst_seqs``;
+        the rows of members that finished earlier are skipped. While the
+        next burst is in flight, dedup swaps and page releases wait: the
+        device writes through these page ids."""
+        outputs: List[RequestOutput] = []
+        inflight = self.runner.burst_in_flight
+        for seq, seq_rows in zip(self._burst_seqs, rows):
+            if seq.is_finished:
+                continue
+            for row in seq_rows:
+                seq.num_computed_tokens += 1
+                self._commit(seq, allow_swap=not inflight)
+                out = self._append_token(seq, int(row[0]), lp_row=row)
+                if out is not None:
+                    outputs.append(out)
+                if seq.is_finished:
+                    break  # trim the burst's tail past a stop
+        if not inflight:
+            self._burst_seqs = []
+            self._burst_n = 0
+        return outputs
+
+    def _release_burst_deferred(self) -> None:
+        for seq in self._burst_deferred:
+            self.allocator.release_all(seq.block_ids)
+            seq.block_ids = []
+        self._burst_deferred = []
+
+    def _commit(self, seq: Sequence, allow_swap: bool = True) -> None:
+        seq.commit_full_blocks(self.allocator, allow_swap=allow_swap)
 
     # ------------------------------------------------------------------
     # Token bookkeeping
@@ -261,7 +434,13 @@ class LLMEngine:
             logprobs=[logprobs_entry] if logprobs_entry else None,
         )
         if finish_reason is not None:
-            self.scheduler.finish(seq, finish_reason)
+            if self.runner.burst_in_flight and seq in self._burst_seqs:
+                # The in-flight burst still writes through its pages:
+                # detach now, release at the drain.
+                self.scheduler.detach(seq.request_id, finish_reason)
+                self._burst_deferred.append(seq)
+            else:
+                self.scheduler.finish(seq, finish_reason)
             out.finished = True
             out.finish_reason = finish_reason
             self._seqs.pop(seq.request_id, None)
@@ -321,6 +500,11 @@ class LLMEngine:
             **{f"graphs_{k}": float(n)
                for k, n in self.runner.graph_counts.items()},
             "graph_pool_bytes": float(self.runner.graph_pool_bytes),
+            **({"adaptive_deep_bursts_total":
+                float(self.adaptive_deep_bursts_total)}
+               if self.cfg.adaptive_decode_steps else {}),
+            **({"pipelined_bursts_total": float(self.pipelined_bursts_total)}
+               if self.cfg.async_decode or self.cfg.overlap_decode else {}),
         }
 
     # ------------------------------------------------------------------

@@ -82,14 +82,20 @@ class BlockAllocator:
         self._refcount[blk] += 1
         return blk
 
-    def commit(self, blk: int, h: int) -> int:
+    def commit(self, blk: int, h: int, allow_swap: bool = True) -> int:
         """Mark a freshly written full page as content-addressed by ``h``.
         If another request already committed the same content, dedup to the
-        existing page: the caller must swap to the returned id."""
+        existing page: the caller must swap to the returned id.
+        ``allow_swap=False`` suppresses that (and the release of the
+        duplicate) while an in-flight decode burst's block table still
+        points at ``blk``: released, the page could be handed to another
+        request while the burst reads it."""
         if not self.enable_prefix_caching:
             return blk
         existing = self._block_of_hash.get(h)
         if existing is not None and existing != blk:
+            if not allow_swap:
+                return blk  # our copy stays un-addressed; existing owns h
             self.release(blk)
             self._refcount[existing] += 1
             if existing in self._reusable:

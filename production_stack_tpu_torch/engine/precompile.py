@@ -12,9 +12,7 @@ a bucket, so after a ``full`` warmup no live step of a covered shape runs
 eagerly or captures: every one replays.
 
 Left out, as the port serves neither yet: the ``spec_verify`` and
-``encode`` kinds (ROADMAP queue 1, items 9 and 12), and the pipelined
-depth-1 burst (no ``overlap_decode``, queue 1, item 5), so
-``burst_depths`` is the configured depth when it is above 1.
+``encode`` kinds (ROADMAP queue 1, items 9 and 12).
 
 The JAX module's persistent compilation cache has no counterpart beyond
 what exists: the kernel library is already cached by the hash of its
@@ -135,12 +133,22 @@ def prefill_shape_buckets(cfg: EngineConfig) -> List[tuple]:
 
 def burst_depths(cfg: EngineConfig) -> List[int]:
     """Burst depths the engine dispatches at steady state: the configured
-    depth when it is above 1. (The per-sequence clamp near max_model_len
-    can shrink n through arbitrary values on the last few tokens of a
-    context-limit sequence — that long tail is deliberately NOT
-    enumerated; it is one capture per engine lifetime at worst.)"""
-    n = cfg.num_decode_steps
-    return [n] if n and n > 1 else []
+    depth and the adaptive deep depth — plus, when a pipelining mode is on
+    (``async_decode`` or the default arrival-gated ``overlap_decode``),
+    the configured depth even at 1: the pipeline runs the multi-step
+    graph (``b{B}xn{n}``) at whatever depth the scheduler emits. (The
+    per-sequence clamp near max_model_len can shrink n through arbitrary
+    values on the last few tokens of a context-limit sequence — that long
+    tail is deliberately NOT enumerated; it is one capture per engine
+    lifetime at worst.)"""
+    depths = {
+        n
+        for n in (cfg.num_decode_steps, cfg.adaptive_decode_steps)
+        if n and n > 1
+    }
+    if cfg.async_decode or cfg.overlap_decode:
+        depths.add(max(cfg.num_decode_steps, 1))
+    return sorted(depths)
 
 
 # The (want_lp, greedy) static-flag sets warmed by default. Logprob

@@ -20,10 +20,27 @@ batch. Steps on CPU tensors run eagerly. ``drop_kv_cache`` (sleep level
 2) frees the cache with every graph, each of which holds its address;
 ``restore_kv_cache`` allocates a zeroed cache, and steps capture afresh.
 
+Pipelined decode bursts (``burst_start`` / ``burst_continue`` /
+``burst_drain``): one burst stays in flight while the host applies the
+previous one. A burst step returns its carry beside its rows — the next
+tokens, positions, seeds and penalty counts — and a continuation feeds
+the carry back on the device: only the block tables and ``kv_lens`` come
+from the host. As a graph's output is rewritten by the next replay of
+its key, and another graph of the shared pool may place its
+intermediates where that output lies, each dispatched burst's output
+leaves the pool before anything else is enqueued: the carry into the
+static inputs, the rows to a pinned host slot with an event the fetch
+waits on. ``prefill_dispatch`` / ``prefill_fetch`` let a prefill run
+behind an in-flight burst.
+
+A ``model`` that names a local HF checkpoint directory is loaded from
+its safetensors (``models/llama.py::load_hf_params``).
+
 Every step is recorded in the runner's ``telemetry``
 (``obs/engine_telemetry.py``): a step that captured its key counts as a
 compile, the others as steps, and the wall from a decode step's fetch to
-the next decode dispatch as a host gap.
+the next decode dispatch as a host gap (0 for a pipelined continuation,
+whose dispatch precedes the previous burst's fetch).
 """
 
 from __future__ import annotations
@@ -40,7 +57,7 @@ import numpy as np
 import torch
 
 from ..logging_utils import init_logger
-from ..models.llama import Llama, LlamaConfig, quant_mode
+from ..models.llama import Llama, LlamaConfig, load_hf_params, quant_mode
 from ..models.registry import get_model_config
 from ..obs.engine_telemetry import EngineTelemetry
 from ..ops import int4_matmul, paged_attention_cuda
@@ -120,7 +137,9 @@ def capture(graph, fn: Callable[[], Any], pool=None) -> Any:
 @dataclasses.dataclass
 class _Graph:
     graph: Any  # torch.cuda.CUDAGraph
-    out: torch.Tensor  # static output: read it before the next replay
+    # Static output, rewritten by each replay: a step's packed rows, or a
+    # burst's {"rows", carry...}. Read or copy it before the next replay.
+    out: Any
     launches: List[Dict[str, int]]  # counter changes one replay makes
 
 
@@ -145,7 +164,12 @@ class ModelRunner:
         self.model_cfg = model_cfg or get_model_config(cfg.model)
         self.model = Llama(self.model_cfg)
         self.kv_dtype = kv_cache_torch_dtype(cfg, self.model_cfg)
-        if params is None:
+        if params is None and os.path.isdir(cfg.model):
+            # One stacked leaf at a time onto the device, quantized there.
+            params = load_hf_params(self.model_cfg, cfg.model,
+                                    quantize=cfg.quantization,
+                                    device=self.device)
+        elif params is None:
             # Quantized presets are drawn and quantized a layer's slice at a
             # time on the device: the bf16 tree never exists whole.
             gen = torch.Generator(device=self.device)
@@ -229,6 +253,8 @@ class ModelRunner:
         # When the last decode step's rows reached the host (None after a
         # prefill): the next decode dispatch closes the host gap.
         self._host_gap_t0: Optional[float] = None
+        # The pipelined burst in flight (burst_start .. burst_drain).
+        self._burst: Optional[Dict[str, Any]] = None
         self.telemetry.record_startup_phase(
             "shard", time.perf_counter() - t_load)
 
@@ -284,8 +310,155 @@ class ModelRunner:
         want_lp, greedy = self._want_lp(seqs), self._all_greedy(seqs)
         rows = self._timed_decode(
             seqs, batch, n_steps,
-            lambda: self._multi_step(batch, n_steps, want_lp, greedy).cpu())
+            lambda: self._multi_step(batch, n_steps, want_lp,
+                                     greedy)["rows"].cpu())
         return rows.numpy()[: len(seqs)]
+
+    # ------------------------------------------------------------------
+    # Pipelined decode bursts: one burst in flight, its rows fetched while
+    # the next one runs (the JAX runner's burst_* contract)
+    # ------------------------------------------------------------------
+
+    @property
+    def burst_in_flight(self) -> bool:
+        return self._burst is not None
+
+    def burst_start(self, seqs: List[Sequence], n_steps: int) -> None:
+        """Dispatch the first burst of a pipeline; nothing is fetched."""
+        if self._burst is not None:
+            raise RuntimeError("burst already in flight (drain first)")
+        batch = self._decode_batch(seqs, multi=True)
+        if "allowed_ids" in batch:
+            raise RuntimeError(
+                "guided-choice rows reached a pipelined decode burst")
+        if any(s.sampling.has_penalties for s in seqs):
+            self._dense_penalties(seqs, batch)
+        want_lp, greedy = self._want_lp(seqs), self._all_greedy(seqs)
+        Bb = batch["kv_lens"].shape[0]
+        label = f"b{Bb}xn{n_steps}"
+        if self._host_gap_t0 is not None:
+            self.telemetry.record_host_gap(
+                label, time.perf_counter() - self._host_gap_t0)
+            self._host_gap_t0 = None
+
+        def step():
+            dev = self._put(batch)
+            key = self._key("burst", dev, want_lp, greedy, n_steps)
+            fn = lambda: self.eager_multi_step(  # noqa: E731
+                dev, n_steps, want_lp, greedy)
+            out = self._run(key, fn)
+            slots = [self._host_slot(out["rows"]) for _ in range(2)]
+            self._burst = {"dev": dev, "key": key, "fn": fn, "n": n_steps,
+                           "label": label, "members": len(seqs),
+                           "slots": slots, "count": 1,
+                           "pending": self._stage(out, dev, slots[0])}
+
+        self._timed("decode", label, len(seqs) * n_steps, len(seqs) / Bb,
+                    step)
+
+    def burst_width_stable(self, members: List[Sequence]) -> bool:
+        """True while the members' block tables still fit the table width
+        the in-flight burst was dispatched with (growth needs a drain)."""
+        if self._burst is None:
+            return False
+        Wb = self._burst["dev"]["block_tables"].shape[1]
+        return max(len(s.block_ids) for s in members) <= Wb
+
+    def burst_continue(self, members: List[Sequence]) -> np.ndarray:
+        """Dispatch the NEXT burst, then fetch and return the PREVIOUS
+        burst's rows [len(members), n, W]: the fetch waits while the new
+        burst runs. ``members`` is the pipeline's membership in its
+        original order: their block tables are refreshed (the scheduler
+        reserved lookahead pages on the host) and members that finished
+        on the host get ``kv_len`` 0, so their rows stop writing KV."""
+        st = self._burst
+        if st is None:
+            raise RuntimeError("no burst in flight")
+        dev = st["dev"]
+        Bb, Wb = dev["block_tables"].shape
+        tables = np.zeros((Bb, Wb), np.int32)
+        kv_lens = np.zeros(Bb, np.int32)
+        for i, s in enumerate(members):
+            tables[i] = self._table_row(s, Wb)
+            kv_lens[i] = 0 if s.is_finished else max(s.num_tokens, 1)
+        alive = sum(1 for s in members if not s.is_finished)
+
+        def step():
+            self._put({"block_tables": tables, "kv_lens": kv_lens})
+            out = self._run(st["key"], st["fn"])
+            slot = st["slots"][st["count"] % 2]
+            st["count"] += 1
+            prev, st["pending"] = st["pending"], self._stage(out, dev, slot)
+            return self._fetch(prev)
+
+        # Dispatched before the previous burst's rows were read: the
+        # device runs the two back to back, so this step's host gap is 0.
+        self.telemetry.record_host_gap(st["label"], 0.0)
+        rows = self._timed("decode", st["label"], alive * st["n"],
+                           alive / Bb, step)
+        return rows[: len(members)]
+
+    def burst_drain(self) -> np.ndarray:
+        """Fetch the in-flight burst's rows and end the pipeline."""
+        st, self._burst = self._burst, None
+        if st is None:
+            raise RuntimeError("no burst in flight")
+        rows = self._fetch(st["pending"])
+        # A drain is a transition (an arrival or a shape change broke the
+        # pipeline; a prefill may be queued behind it): the wall up to the
+        # next decode dispatch is not steady-state host bookkeeping.
+        self._host_gap_t0 = None
+        return rows[: st["members"]]
+
+    def prefill_dispatch(self, items: List[PrefillItem]):
+        """The dispatch half of a prefill step, whose fetch
+        (``prefill_fetch``) comes later: a new arrival's prefill runs
+        behind an in-flight burst, and the burst's drain waits while the
+        prefill runs."""
+        seqs = [i.seq for i in items]
+        batch = self._prefill_batch(items)
+        want_lp, greedy = self._want_lp(seqs), self._all_greedy(seqs)
+
+        def step():
+            out = self._step(batch, want_lp, greedy)
+            return self._stage(out, None, self._host_slot(out))
+
+        return self._timed("prefill", *self._prefill_tel(items, batch), step)
+
+    def prefill_fetch(self, handle, n_items: int) -> np.ndarray:
+        return self._fetch(handle)[:n_items]
+
+    def _host_slot(self, like: torch.Tensor) -> torch.Tensor:
+        """A host tensor for a step's rows: pinned on the GPU, so the
+        copy into it runs on the stream without holding the host."""
+        return torch.empty(like.shape, dtype=like.dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def _stage(self, out: Any, dev: Optional[Dict[str, torch.Tensor]],
+               slot: torch.Tensor) -> tuple:
+        """Move a dispatched step's output out of the graph pool before
+        anything else is enqueued: a burst's carry into the static inputs
+        ``dev`` it feeds back into, its rows into the host ``slot``.
+        Returns (slot, the event the fetch waits on)."""
+        rows = out
+        if isinstance(out, dict):
+            rows = out["rows"]
+            for k, v in out.items():
+                if k != "rows":
+                    dev[k].copy_(v)
+        slot.copy_(rows, non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return slot, event
+
+    @staticmethod
+    def _fetch(pending: tuple) -> np.ndarray:
+        slot, event = pending
+        if event is not None:
+            event.synchronize()
+        return slot.numpy().copy()  # the slot is written again later
 
     def warmup_bucket(self, bucket) -> None:
         """Capture one lattice bucket from an all-padding dummy batch.
@@ -361,6 +534,8 @@ class ModelRunner:
         captured, so none captured before the drop may replay after it.
         The static inputs and the split kernels' tickets stay (neither
         refers to the cache)."""
+        if self._burst is not None:
+            raise RuntimeError("a decode burst is in flight (drain first)")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # no replay still runs
         n_graphs = len(self._graphs)
@@ -390,10 +565,16 @@ class ModelRunner:
 
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """Copy the batch into the static buffers; returns their views.
-        Allocates only for a width the lattice cannot enumerate."""
+        Allocates only for a width the lattice cannot enumerate. On the
+        GPU each array is staged in pinned memory, so the copy is queued
+        on the stream (behind an in-flight burst) without holding the
+        host; the pinned allocator keeps the block until the copy ran."""
+        pin = self.device.type == "cuda"
         out = {}
         for k, v in batch.items():
             host = torch.from_numpy(np.ascontiguousarray(v))
+            if pin:
+                host = host.pin_memory()
             buf = self._bufs.get(k)
             if buf is None or buf.numel() < host.numel():
                 # The single-step penalty ids, allowed_ids and bias_*
@@ -503,19 +684,26 @@ class ModelRunner:
         )
 
     def _multi_step(self, batch: Dict[str, np.ndarray], n_steps: int,
-                    want_lp: bool, greedy: bool) -> torch.Tensor:
+                    want_lp: bool, greedy: bool) -> Dict[str, torch.Tensor]:
         dev = self._put(batch)
         return self._run(
             self._key("burst", dev, want_lp, greedy, n_steps),
             lambda: self.eager_multi_step(dev, n_steps, want_lp, greedy))
 
     def eager_multi_step(self, dev: Dict[str, torch.Tensor], n_steps: int,
-                         want_lp: bool, greedy: bool) -> torch.Tensor:
+                         want_lp: bool, greedy: bool
+                         ) -> Dict[str, torch.Tensor]:
         """Decode ``n_steps`` tokens per sequence without a host round trip:
         each sampled token, its position, its page write slot and the seed
         offset are derived on the device and feed the next forward (the
         JAX package runs the same chain inside one ``lax.scan``). Run
-        eagerly on ``_put``'s views, which it leaves as they were."""
+        eagerly on ``_put``'s views, which it leaves as they were.
+
+        Returns the packed rows [B, n, W] under ``"rows"`` and the carry a
+        continuation feeds back under the input names it replaces: the
+        next ``tokens`` and ``positions``, the ``seeds`` advanced by n (the
+        JAX ``seed_off``; the draw masks each seed to 32 bits, as JAX's
+        uint32 sum wraps) and, with penalties, ``pen_counts``."""
         bs = self.cfg.block_size
         tables = dev["block_tables"]
         active = dev["kv_lens"] > 0  # padding rows never write
@@ -554,7 +742,12 @@ class ModelRunner:
                            tokens.long()] += active.float()
             positions = positions + 1
             rows.append(packed)
-        return torch.stack(rows, dim=1)  # [B, n, W]
+        out = {"rows": torch.stack(rows, dim=1),  # [B, n, W]
+               "tokens": tokens, "positions": positions,
+               "seeds": dev["seeds"] + n_steps}
+        if with_pen:
+            out["pen_counts"] = pen_counts
+        return out
 
     def _dense_penalties(
         self, seqs: List[Sequence], batch: Dict[str, np.ndarray]

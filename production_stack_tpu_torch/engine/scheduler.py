@@ -6,9 +6,14 @@ step: either a set of prefill chunks (token-budget bounded) or one decode
 batch over all running sequences. Out-of-pages decode preempts the
 youngest sequence (free its pages, recompute later).
 
+While a pipelined decode burst is in flight, ``schedule(locked=...)``
+never preempts its members (the device still writes through their
+pages) and reports ``blocked_on_locked`` when one of them needs pages
+only another member holds; ``decode_lookahead`` reserves the pages of
+the continuation that writes one burst past the host's view.
+
 Not ported yet: KV swap (preemption always recomputes), tenant-fair
-admission (``tenant_fairness=True`` raises), deadline shedding and the
-pipelined-burst page locks.
+admission (``tenant_fairness=True`` raises) and deadline shedding.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Deque, List, Optional
+from typing import Deque, FrozenSet, List, Optional
 
 from ..logging_utils import init_logger
 from .kv_manager import BlockAllocator, NoFreeBlocksError
@@ -31,6 +36,10 @@ class SchedulerConfig:
     max_prefill_tokens: int = 2048  # per-step chunked-prefill token budget
     max_model_len: int = 4096
     num_decode_steps: int = 1  # decode burst length per device call
+    # Bursts of page reservation per decode pass: 2 when the engine
+    # pipelines bursts (the in-flight continuation writes one burst past
+    # what the host has seen, so its pages must exist at dispatch time).
+    decode_lookahead: int = 1
     tenant_fairness: bool = False
 
 
@@ -47,6 +56,10 @@ class SchedulerOutput:
     decodes: List[Sequence] = dataclasses.field(default_factory=list)
     preempted: List[Sequence] = dataclasses.field(default_factory=list)
     n_decode_steps: int = 1
+    # A locked (in-flight-burst) sequence needed pages it could not get
+    # without evicting another locked sequence: the engine must drain the
+    # burst and schedule again.
+    blocked_on_locked: bool = False
 
     @property
     def is_empty(self) -> bool:
@@ -69,6 +82,8 @@ class Scheduler:
         # (request_id, num_free) of the last head-of-line admission failure:
         # no point re-running the prefix match until free pages change.
         self._admit_blocked: Optional[tuple] = None
+        # Request ids of the in-flight burst's members (this pass).
+        self._locked: FrozenSet[str] = frozenset()
 
     # -- queue ops --------------------------------------------------------
 
@@ -113,6 +128,20 @@ class Scheduler:
                     return seq
         return None
 
+    def detach(self, request_id: str,
+               reason: str = "abort") -> Optional[Sequence]:
+        """Remove a sequence from the queues WITHOUT releasing its pages:
+        an in-flight pipelined burst still writes through its block table,
+        so the engine releases them when the burst drains."""
+        for q in (self.waiting, self.running):
+            for seq in list(q):
+                if seq.request_id == request_id:
+                    q.remove(seq)
+                    seq.status = SequenceStatus.FINISHED
+                    seq.finish_reason = reason
+                    return seq
+        return None
+
     def finish(self, seq: Sequence, reason: str) -> None:
         if seq in self.running:
             self.running.remove(seq)
@@ -137,7 +166,16 @@ class Scheduler:
 
     # -- the step ---------------------------------------------------------
 
-    def schedule(self) -> SchedulerOutput:
+    def schedule(
+        self,
+        locked: FrozenSet[str] = frozenset(),
+        n_decode: Optional[int] = None,
+    ) -> SchedulerOutput:
+        """``locked``: request ids whose pages an in-flight burst
+        references; none of them is preempted this pass. ``n_decode``:
+        the burst depth for this pass (the engine's adaptive hint),
+        clamped by the same per-sequence limits as the configured one."""
+        self._locked = locked
         out = SchedulerOutput()
         self._admit()
 
@@ -172,15 +210,17 @@ class Scheduler:
         # Phase 2: a decode burst for every running sequence, bounded so no
         # sequence writes KV past max_model_len; early stops are trimmed
         # host-side.
-        n = max(self.config.num_decode_steps, 1)
+        n = max(n_decode or self.config.num_decode_steps, 1)
         for seq in self.running:
             n = min(n, max(self.config.max_model_len - seq.num_tokens, 1))
             if seq.sampling.guided_choice:
                 n = 1  # the allowed-token mask is rebuilt per token
+        look = max(self.config.decode_lookahead, 1)
         for seq in list(self.running):
             if seq not in self.running:  # lost pages to an earlier preemption
                 continue
-            reserve = min(seq.num_tokens + n - 1, self.config.max_model_len)
+            reserve = min(seq.num_tokens + look * n - 1,
+                          self.config.max_model_len)
             if not self._ensure_blocks(seq, reserve, out, protect=seq):
                 continue
             out.decodes.append(seq)
@@ -254,13 +294,21 @@ class Scheduler:
             except NoFreeBlocksError:
                 victim = self._pick_victim(exclude=protect or seq)
                 if victim is None:
+                    if seq.request_id in self._locked:
+                        # An in-flight burst writes through its pages: it
+                        # cannot preempt itself. The engine drains and
+                        # schedules again.
+                        out.blocked_on_locked = True
+                        out.decodes[:] = [s for s in out.decodes
+                                          if s is not seq]
+                        return False
                     self._preempt(seq, out)  # nothing left but itself
                     return False
                 self._preempt(victim, out)
 
     def _pick_victim(self, exclude: Sequence) -> Optional[Sequence]:
         for seq in reversed(self.running):  # youngest first (vLLM policy)
-            if seq is not exclude:
+            if seq is not exclude and seq.request_id not in self._locked:
                 return seq
         return None
 

@@ -146,8 +146,12 @@ class Sequence:
         want = -(-up_to_tokens // block_size)
         return max(0, want - len(self.block_ids))
 
-    def commit_full_blocks(self, allocator: BlockAllocator) -> None:
-        """Content-address every newly filled page (enables prefix sharing)."""
+    def commit_full_blocks(
+        self, allocator: BlockAllocator, allow_swap: bool = True
+    ) -> None:
+        """Content-address every newly filled page (enables prefix sharing).
+        ``allow_swap=False`` while this sequence rides an in-flight
+        pipelined burst (the device still writes through these page ids)."""
         bs = allocator.block_size
         toks = self.all_token_ids
         n_full = self.num_computed_tokens // bs
@@ -156,7 +160,9 @@ class Sequence:
             h = block_hashes(
                 toks[i * bs : (i + 1) * bs], bs, parent=self._last_hash
             )[0]
-            self.block_ids[i] = allocator.commit(self.block_ids[i], h)
+            self.block_ids[i] = allocator.commit(
+                self.block_ids[i], h, allow_swap=allow_swap
+            )
             self.block_hashes.append(h)
             self._last_hash = h
             self._committed_blocks += 1

@@ -22,7 +22,11 @@ it answers a generation request with a 503 (``X-PST-Warming: 1``, or
 ``X-PST-Draining: 1``) that lets a router fail over.
 
     python -m production_stack_tpu_torch.engine.server --model llama-3-8b --port 8011 \
-        [--quantization int4] [--warmup lazy|full]
+        [--quantization int4] [--warmup lazy|full] [--no-overlap-decode]
+
+``--model`` takes a preset name or a local HF checkpoint directory (its
+``config.json`` and safetensors; its tokenizer files unless
+``--tokenizer`` names others).
 """
 
 from __future__ import annotations
@@ -193,9 +197,10 @@ def parse_messages(raw) -> List[ChatMessage]:
 class EngineMetrics:
     """The ``vllm:`` families of the JAX server's ``EngineMetrics``, with
     its names, help strings, label and buckets. Families of features the
-    port does not have yet (speculation, adaptive and pipelined bursts,
-    deadlines, swap, KV transfer, tenants) are exported at 0, as a JAX
-    engine with those features off exports them."""
+    port does not have yet (speculation, deadlines, swap, KV transfer,
+    tenants) are exported at 0, as a JAX engine with those features off
+    exports them; ``pst:pipelined_bursts`` and ``pst:adaptive_deep_bursts``
+    count the engine's pipelined and adaptive deep bursts."""
 
     def __init__(self, model: str):
         self.registry = r = Registry()
@@ -758,7 +763,11 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
     )
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
-    p.add_argument("--model", default="llama-3-8b")
+    p.add_argument("--model", default="llama-3-8b",
+                   help="a preset name or a local HF checkpoint directory")
+    p.add_argument("--tokenizer", default=None,
+                   help="a local HF tokenizer directory (default: the "
+                        "checkpoint directory, else the byte tokenizer)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--max-model-len", type=int, default=4096)
     p.add_argument("--block-size", type=int, default=32)
@@ -767,6 +776,18 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-num-batched-tokens", dest="max_prefill_tokens",
                    type=int, default=2048)
     p.add_argument("--num-decode-steps", type=int, default=1)
+    p.add_argument("--adaptive-decode-steps", type=int, default=0,
+                   help="deep burst cap when the arrival stream is quiet")
+    p.add_argument("--adaptive-decode-quiet-s", type=float, default=0.5)
+    p.add_argument("--adaptive-decode-min-running", type=int, default=0)
+    # Overlapped decode pipeline: burst N+1 is dispatched before burst N's
+    # rows are applied, under the adaptive depth's arrival gates.
+    p.add_argument("--overlap-decode", dest="overlap_decode",
+                   action="store_true", default=True)
+    p.add_argument("--no-overlap-decode", dest="overlap_decode",
+                   action="store_false",
+                   help="disable the arrival-gated overlapped decode "
+                        "pipeline (synchronous loop)")
     p.add_argument("--quantization", choices=("int8", "int4"), default=None,
                    help="weight-only quantization (int4: W4A16 kernel)")
     p.add_argument("--kv-cache-dtype", default=None,
@@ -786,6 +807,7 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
 def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
     return EngineConfig(
         model=args.model,
+        tokenizer=args.tokenizer,
         device=args.device,
         max_model_len=args.max_model_len,
         block_size=args.block_size,
@@ -793,6 +815,10 @@ def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
         max_num_seqs=args.max_num_seqs,
         max_prefill_tokens=args.max_prefill_tokens,
         num_decode_steps=args.num_decode_steps,
+        adaptive_decode_steps=args.adaptive_decode_steps,
+        adaptive_decode_quiet_s=args.adaptive_decode_quiet_s,
+        adaptive_decode_min_running=args.adaptive_decode_min_running,
+        overlap_decode=args.overlap_decode,
         quantization=args.quantization,
         kv_cache_dtype=args.kv_cache_dtype,
         seed=args.seed,

@@ -29,6 +29,11 @@ sibling leaves ``<name>_qs`` / ``<name>_q4s``. The quantizers are
 bit-identical to the JAX ones, so a JAX ``quantize_tree`` output serves as
 is.
 
+Local HF checkpoints: ``config_from_hf_json`` reads a ``config.json`` as
+the JAX one does, and ``load_hf_params`` builds the JAX ``load_hf_params``
+tree from its safetensors (``models/safetensors.py``), bit for bit, one
+stacked leaf at a time on the target device.
+
 Not ported yet (``Llama`` raises ``NotImplementedError`` on the config or
 the argument): mixture-of-experts and all-position logits; LoRA and
 pipeline parallelism have no parameter or argument here.
@@ -38,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import math
 import os
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -49,6 +55,7 @@ from ..ops.attention import paged_attention, resolve_impl
 from ..ops.fp8 import E4M3, raw, to_cache_dtype
 from ..ops.int4_matmul import int4_matmul, mm_f32
 from ..ops.paged_attention_cuda import paged_attention_decode_write
+from .safetensors import Checkpoint
 
 Params = Dict[str, Any]
 
@@ -69,17 +76,27 @@ QUANT_MODES = ("int8", "int4")
 # The JAX quantizers divide by 127 and 7; XLA compiles each division by a
 # constant into a product with the float32 reciprocal, so the port writes
 # that product, and its scales equal the compiled JAX ones bit for bit.
-_RECIP_127 = 1.0 / 127.0
-_RECIP_7 = 1.0 / 7.0
+# The JAX checkpoint loader quantizes in numpy, which divides: with
+# ``divide=True`` the port divides too, and matches it bit for bit. The
+# divisor is a tensor on amax's device: PyTorch's CUDA division by a
+# host scalar multiplies by its reciprocal.
 
 
-def quantize_leaf(w: torch.Tensor, axis: int = -2
+def _scale(amax: torch.Tensor, qmax: float, divide: bool) -> torch.Tensor:
+    amax = torch.clamp_min(amax, 1e-8)
+    if divide:
+        return amax / torch.full((), qmax, dtype=amax.dtype,
+                                 device=amax.device)
+    return amax * (1.0 / qmax)
+
+
+def quantize_leaf(w: torch.Tensor, axis: int = -2, divide: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-channel int8 over ``axis``: (int8 weights, fp32
     scales)."""
     wf = w.float()
     amax = wf.abs().amax(dim=axis)
-    s = torch.clamp_min(amax, 1e-8) * _RECIP_127
+    s = _scale(amax, 127.0, divide)
     q = torch.clamp(torch.round(wf / s.unsqueeze(axis)), -127, 127)
     return q.to(torch.int8), s
 
@@ -95,7 +112,8 @@ def q4_group(din: int) -> int:
     return g
 
 
-def quantize_leaf_int4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_leaf_int4(w: torch.Tensor, divide: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric group-wise int4 over the contraction axis (-2): (packed int8
     [..., in/2, out] — even rows in the low nibble, odd in the high — and
     fp32 scales [..., in/G, out])."""
@@ -103,21 +121,22 @@ def quantize_leaf_int4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     *lead, din, dout = wf.shape
     g = q4_group(din)
     wg = wf.reshape(*lead, din // g, g, dout)
-    s = torch.clamp_min(wg.abs().amax(dim=-2), 1e-8) * _RECIP_7
+    s = _scale(wg.abs().amax(dim=-2), 7.0, divide)
     q = torch.clamp(torch.round(wg / s[..., :, None, :]), -7, 7).to(torch.int8)
     q = q.reshape(*lead, din, dout)
     packed = (q[..., 0::2, :] & 0x0F) | torch.bitwise_left_shift(q[..., 1::2, :], 4)
     return packed, s
 
 
-def _quantizer(name: str, mode: str
+def _quantizer(name: str, mode: str, divide: bool = False
                ) -> Tuple[Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]], str]:
     """(quantizer of one 2-D slice, scale-leaf suffix) of leaf ``name``."""
     if name in QUANT_TOP_KEYS:
-        return (lambda w: quantize_leaf(w, axis=-1)), QUANT_SUFFIX
+        return (lambda w: quantize_leaf(w, axis=-1, divide=divide)), \
+            QUANT_SUFFIX
     if mode == "int4":
-        return quantize_leaf_int4, QUANT4_SUFFIX
-    return (lambda w: quantize_leaf(w, axis=-2)), QUANT_SUFFIX
+        return (lambda w: quantize_leaf_int4(w, divide=divide)), QUANT4_SUFFIX
+    return (lambda w: quantize_leaf(w, axis=-2, divide=divide)), QUANT_SUFFIX
 
 
 def _stack_slices(lead: Tuple[int, ...], make) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -661,3 +680,176 @@ def _apply_rope(x: torch.Tensor, cos: torch.Tensor,
     c = cos[:, :, None, :]
     s = sin[:, :, None, :]
     return torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s], dim=-1).to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Local HF checkpoints (the JAX package's loader; no download, no
+# ``safetensors`` or ``transformers`` package)
+# ----------------------------------------------------------------------------
+
+_HF_LAYER_MAP = {
+    "self_attn.q_proj": "wq",
+    "self_attn.k_proj": "wk",
+    "self_attn.v_proj": "wv",
+    "self_attn.o_proj": "wo",
+    "mlp.gate_proj": "w_gate",
+    "mlp.up_proj": "w_up",
+    "mlp.down_proj": "w_down",
+    "input_layernorm": "attn_norm",
+    "post_attention_layernorm": "mlp_norm",
+}
+_HF_BIAS_MAP = {
+    "self_attn.q_proj": "bq",
+    "self_attn.k_proj": "bk",
+    "self_attn.v_proj": "bv",
+}
+_HF_MODEL_TYPES = ("llama", "mistral", "qwen2", "qwen3", "mixtral", "gemma",
+                   "gemma2")
+
+
+def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
+                   device: Optional[torch.device] = None) -> Params:
+    """The parameter tree of a local HF checkpoint directory: the JAX
+    ``load_hf_params`` tree, bit for bit. HF linear weights are stored
+    ``[out, in]`` and become ``[in, out]``; layers are stacked on axis 0;
+    the Gemma-2 and qk-norm names map as there, Qwen2's q/k/v biases are
+    read, and a checkpoint without ``lm_head.weight`` serves its tied
+    embeddings.
+
+    Each layer's tensor is copied from the mapped file to ``device`` and
+    written into its stacked leaf there, so no leaf is ever whole on the
+    host. ``quantize`` ("int8" or True, "int4"): each layer's slice is
+    quantized on ``device`` from the stored values as soon as it lands,
+    with the numpy loader's division (``divide=True``), and only the
+    quantized leaf stays."""
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "mixture-of-experts is not ported to the PyTorch package yet")
+    qmode = "int8" if quantize is True else (quantize or None)
+    if qmode not in (None, *QUANT_MODES):
+        raise ValueError(f"unsupported quantization {quantize!r} (int8 or int4)")
+    device = torch.device(device or "cpu")
+    dtype = cfg.torch_dtype
+    ck = Checkpoint(model_dir)
+
+    def read(name: str) -> torch.Tensor:
+        """A stored tensor on ``device``, ``[in, out]`` when it is 2-D."""
+        t = ck.tensor(name).to(device)
+        return t.T.contiguous() if t.dim() == 2 else t
+
+    def put(tree: Params, ours: str, names) -> None:
+        """Leaf ``ours`` from the stored tensor ``names`` (a top leaf, as
+        stored) or from one a layer (stacked): cast to the model dtype,
+        or quantized."""
+        if isinstance(names, str):
+            w = ck.tensor(names).to(device)
+            if qmode and ours in QUANT_TOP_KEYS:
+                fn, suffix = _quantizer(ours, qmode, divide=True)
+                tree[ours], tree[ours + suffix] = fn(w)
+            else:
+                tree[ours] = w.to(dtype)
+            return
+        if qmode and ours in QUANT_LAYER_KEYS:
+            fn, suffix = _quantizer(ours, qmode, divide=True)
+            tree[ours], tree[ours + suffix] = _stack_slices(
+                (len(names),), lambda i: fn(read(names[i])))
+            return
+        first = read(names[0])
+        out = torch.empty((len(names), *first.shape), dtype=dtype,
+                          device=device)
+        out[0].copy_(first)
+        for i in range(1, len(names)):
+            out[i].copy_(read(names[i]))
+        tree[ours] = out
+
+    params: Params = {"layers": {}}
+    put(params, "embed", "model.embed_tokens.weight")
+    put(params, "final_norm", "model.norm.weight")
+    if "lm_head.weight" in ck:
+        put(params, "lm_head", "lm_head.weight")
+    layer_map = dict(_HF_LAYER_MAP)
+    if cfg.qk_norm:
+        layer_map["self_attn.q_norm"] = "q_norm"
+        layer_map["self_attn.k_norm"] = "k_norm"
+    if cfg.post_block_norms:
+        # Gemma-2: post_attention_layernorm is the norm AFTER attention;
+        # the MLP has its own pre and post norms.
+        layer_map["post_attention_layernorm"] = "post_attn_norm"
+        layer_map["pre_feedforward_layernorm"] = "mlp_norm"
+        layer_map["post_feedforward_layernorm"] = "post_mlp_norm"
+    L = cfg.num_layers
+    for hf_name, ours in layer_map.items():
+        put(params["layers"], ours,
+            [f"model.layers.{i}.{hf_name}.weight" for i in range(L)])
+    if cfg.attention_bias:
+        for hf_name, ours in _HF_BIAS_MAP.items():
+            put(params["layers"], ours,
+                [f"model.layers.{i}.{hf_name}.bias" for i in range(L)])
+    return params
+
+
+def config_from_hf_json(config_path: str, name: str = "") -> LlamaConfig:
+    """A :class:`LlamaConfig` from an HF ``config.json``, field for field
+    as the JAX package builds it (a ``mixtral`` config is built; ``Llama``
+    refuses it)."""
+    with open(config_path) as f:
+        hf = json.load(f)
+    mt = hf.get("model_type", "llama")
+    if mt not in _HF_MODEL_TYPES:
+        raise ValueError(f"unsupported model_type {mt!r} "
+                         f"({'/'.join(_HF_MODEL_TYPES)})")
+    eos = hf.get("eos_token_id", 2)
+    eos_ids = tuple(eos) if isinstance(eos, list) else (eos,)
+    heads = hf["num_attention_heads"]
+    gemma = mt in ("gemma", "gemma2")
+    act = hf.get("hidden_activation") or hf.get("hidden_act") or "silu"
+    act = "gelu_tanh" if act.startswith("gelu") else act
+    # Sliding window: Mistral v0.1 (all layers), Gemma-2 (alternating).
+    sliding = int(hf.get("sliding_window") or 0)
+    if mt not in ("mistral", "gemma2"):
+        sliding = 0
+    # Llama-3.1 "llama3" rope scaling; other kinds are refused rather than
+    # served with the wrong long-context rotation.
+    rs = hf.get("rope_scaling") or {}
+    rs_kind = rs.get("rope_type") or rs.get("type") or ""
+    if rs and rs_kind not in ("llama3", "default", ""):
+        raise ValueError(
+            f"unsupported rope_scaling type {rs_kind!r} (llama3 only)")
+    return LlamaConfig(
+        rope_scaling_factor=(float(rs.get("factor", 0.0))
+                             if rs_kind == "llama3" else 0.0),
+        rope_low_freq_factor=float(rs.get("low_freq_factor", 1.0)),
+        rope_high_freq_factor=float(rs.get("high_freq_factor", 4.0)),
+        rope_original_max_position=int(
+            rs.get("original_max_position_embeddings", 8192)),
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=heads,
+        num_kv_heads=hf.get("num_key_value_heads", heads),
+        head_dim=hf.get("head_dim", hf["hidden_size"] // heads),
+        rope_theta=hf.get("rope_theta", 10000.0),
+        rms_norm_eps=hf.get("rms_norm_eps", 1e-5),
+        max_position_embeddings=hf.get("max_position_embeddings", 4096),
+        tie_word_embeddings=hf.get("tie_word_embeddings", gemma),
+        attention_bias=mt == "qwen2" or hf.get("attention_bias", False),
+        qk_norm=mt == "qwen3",
+        num_experts=hf.get("num_local_experts", 0) if mt == "mixtral" else 0,
+        num_experts_per_tok=hf.get("num_experts_per_tok", 2),
+        hidden_act=act,
+        norm_unit_offset=gemma,
+        embed_scale=gemma,
+        query_pre_attn_scalar=(float(hf.get("query_pre_attn_scalar", 0.0))
+                               if mt == "gemma2" else 0.0),
+        attn_logit_softcap=(float(hf.get("attn_logit_softcapping") or 0.0)
+                            if mt == "gemma2" else 0.0),
+        final_logit_softcap=(float(hf.get("final_logit_softcapping") or 0.0)
+                             if mt == "gemma2" else 0.0),
+        post_block_norms=mt == "gemma2",
+        sliding_window=sliding,
+        sliding_window_pattern=2 if mt == "gemma2" else 1,
+        name=name or hf.get("_name_or_path", mt),
+        eos_token_ids=eos_ids,
+        bos_token_id=hf.get("bos_token_id"),
+    )

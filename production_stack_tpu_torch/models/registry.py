@@ -1,14 +1,17 @@
-"""Model registry: named architecture presets (random-init weights).
+"""Model registry: named architecture presets (random-init weights) and
+local HF checkpoint directories.
 
 A copy of the JAX package's ``PRESETS``; shapes match the public configs of
-each family. Loading local HF checkpoints is not ported yet.
+each family. A directory holding a ``config.json`` resolves through
+``config_from_hf_json``, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
-from .llama import LlamaConfig
+from .llama import LlamaConfig, config_from_hf_json
 
 PRESETS: Dict[str, LlamaConfig] = {
     # Tiny debug model for unit tests / CPU-mesh e2e (heads divisible by 8
@@ -253,11 +256,13 @@ PRESETS: Dict[str, LlamaConfig] = {
 
 
 def get_model_config(model: str) -> LlamaConfig:
-    """Resolve a preset name to its config."""
+    """Resolve ``model`` to a config: preset name or local HF directory."""
     if model in PRESETS:
         return PRESETS[model]
+    cfg_path = os.path.join(model, "config.json")
+    if os.path.isfile(cfg_path):
+        return config_from_hf_json(cfg_path, name=model)
     raise ValueError(
         f"unknown model {model!r}: not a preset "
-        f"({', '.join(sorted(PRESETS))}); loading HF checkpoint directories "
-        "is not ported yet"
+        f"({', '.join(sorted(PRESETS))}) and no local HF dir found"
     )

@@ -242,8 +242,8 @@ def test_drain_and_sleep_answer_as_the_jax_server(servers):
 
 class ReplayingGraph(StandInGraph):
     """The stand-in graph, whose replay reruns the captured step into the
-    captured output (the engine's tokens stay right), and which records
-    every replay."""
+    captured output (a step's rows, or a burst's rows and carry: the
+    engine's tokens stay right), and which records every replay."""
 
     made: list = []
 
@@ -253,7 +253,12 @@ class ReplayingGraph(StandInGraph):
 
     def replay(self):
         self.replays += 1
-        self.out.copy_(self.fn())
+        new = self.fn()
+        if isinstance(self.out, dict):
+            for k, v in self.out.items():
+                v.copy_(new[k])
+        else:
+            self.out.copy_(new)
 
 
 def _capture(graph, fn, pool=None):
@@ -273,8 +278,11 @@ def test_level2_sleep_drops_every_graph_and_the_prefix_map(
     want = jax_engine.generate([list(P)], JaxSamplingParams(**GREEDY))[0]
     monkeypatch.setattr(runner_mod, "capture", _capture)
     ReplayingGraph.made = []
+    # Synchronous decode: the graphs it captures do not depend on the
+    # wall clock.
     engine = AsyncLLMEngine(EngineConfig(device="cpu", num_decode_steps=2,
-                                         warmup="lazy", **COMMON),
+                                         warmup="lazy", overlap_decode=False,
+                                         **COMMON),
                             params=params)
     runner = engine.engine.runner
     runner._graph_cls = ReplayingGraph

@@ -259,16 +259,22 @@ def test_split_model_matches_pallas_decode_kernel():
 def test_no_row_reads_a_slot_another_row_writes():
     """Prefix sharing in the port's engine: two prompts with a common
     prefix of three full pages, served together after the prefix is cached.
-    In every decode step (one step at a time, and four-step bursts), no
-    row's write slot lies in a page that another row's table reads."""
+    In every decode step (one step at a time, and four-step bursts; each
+    synchronous, and pipelined with the arrival gates open, where deferred
+    releases, lookahead pages and suppressed dedup swaps come into play),
+    no row's write slot lies in a page that another serving row's table
+    reads. A row that writes nothing (a member finished on the host whose
+    burst runs on; its kv_len is 0) serves no token: what it reads is
+    discarded."""
     bs = 8
     prefix = list(range(1, 3 * bs + 1))
     sp = SamplingParams(max_tokens=10, temperature=0.0, ignore_eos=True)
-    for steps in (1, 4):
+    for steps, pipelined in ((1, False), (4, False), (1, True), (4, True)):
         engine = LLMEngine(EngineConfig(
             model="tiny-llama-debug", device="cpu", block_size=bs,
             max_prefill_tokens=64, max_model_len=128, num_kv_blocks=64,
-            max_num_seqs=4, num_decode_steps=steps))
+            max_num_seqs=4, num_decode_steps=steps, overlap_decode=pipelined,
+            adaptive_decode_quiet_s=0.0))
         runner = engine.runner
         forward = runner.model.forward
         seen = []
@@ -286,15 +292,18 @@ def test_no_row_reads_a_slot_another_row_writes():
         seen.clear()
         engine.generate([prefix + [41, 42], prefix + [43]], sp)
         assert seen and engine.allocator.hit_tokens >= 2 * len(prefix)
+        assert (engine.pipelined_bursts_total > 0) == pipelined
         shared = False
         drop = runner.num_blocks * bs
         for wf, tables, lens in seen:
+            serving = [0 <= w < drop for w in wf.tolist()]
             reads = [set(tables[i, :-(-int(n) // bs)].tolist())
-                     if n > 0 else set() for i, n in enumerate(lens)]
+                     if n > 0 and serving[i] else set()
+                     for i, n in enumerate(lens)]
             shared |= any(reads[i] & reads[j] for i in range(len(reads))
                           for j in range(i))
             for i, w in enumerate(wf.tolist()):
-                if lens[i] == 0 or not 0 <= w < drop:
+                if lens[i] == 0 or not serving[i]:
                     continue
                 for j, r in enumerate(reads):
                     assert j == i or w // bs not in r, (steps, i, j, w)

@@ -3,9 +3,10 @@ of the PyTorch port) against the JAX package's precompile module.
 
 The port's lattice, lazy core and budget selection must be the JAX
 ones with the kinds the port does not serve (``spec_verify``,
-``encode``) taken out, for a JAX config without the pipelined burst
-(``overlap_decode=False``, ``async_decode=False``) or n-gram
-speculation. On the CPU nothing can be captured, so one test injects a
+``encode``) taken out, for the same pipeline fields (``overlap_decode``,
+``async_decode``, ``adaptive_decode_steps``) on both sides, pipelining
+off and on, without n-gram speculation. On the CPU nothing can be
+captured, so one test injects a
 stand-in for ``torch.cuda.CUDAGraph`` into a tiny CPU engine: after a
 full warmup, traffic that spans the lattice adds no graph key, and every
 replay adds the launch counts its capture recorded. Another holds a
@@ -35,23 +36,35 @@ from production_stack_tpu_torch.models.convert import params_from_jax
 from production_stack_tpu_torch.ops import paged_attention_cuda as pac
 
 # (block_size, max_num_seqs, max_prefill_tokens, max_model_len,
-#  num_decode_steps, min_decode_bucket): the tiny JAX test engine's, the
-# served llama-3-8b's in chip_smoke.py, and a config of non-powers of two
-# with a decode-row floor and no burst.
+#  num_decode_steps, min_decode_bucket[, pipeline]): the tiny JAX test
+# engine's, the served llama-3-8b's in chip_smoke.py, and a config of
+# non-powers of two with a decode-row floor and no burst, each with every
+# pipeline mode off; then the same three pipelined: the default overlap,
+# async_decode with an adaptive depth of 8, and the overlap at depth 1
+# (its b{B}xn1 bursts).
+PIPELINES = {
+    "off": dict(overlap_decode=False, async_decode=False),
+    "overlap": dict(overlap_decode=True, async_decode=False),
+    "async_adaptive8": dict(overlap_decode=False, async_decode=True,
+                            adaptive_decode_steps=8),
+}
 CONFIGS = [
     (16, 2, 8, 64, 2, 1),
     (32, 16, 512, 4096, 4, 1),
     (16, 6, 48, 200, 1, 3),
+    (16, 2, 8, 64, 2, 1, "overlap"),
+    (32, 16, 512, 4096, 4, 1, "async_adaptive8"),
+    (16, 6, 48, 200, 1, 3, "overlap"),
 ]
 
 
 def _configs(c):
-    bs, seqs, budget, max_len, steps, floor = c
+    bs, seqs, budget, max_len, steps, floor, *pipe = c
     common = dict(model="tiny-llama-debug", block_size=bs, max_num_seqs=seqs,
                   max_prefill_tokens=budget, max_model_len=max_len,
-                  num_decode_steps=steps, min_decode_bucket=floor)
-    jcfg = JaxEngineConfig(overlap_decode=False, async_decode=False,
-                           speculative_ngram=0, **common)
+                  num_decode_steps=steps, min_decode_bucket=floor,
+                  **PIPELINES[pipe[0] if pipe else "off"])
+    jcfg = JaxEngineConfig(speculative_ngram=0, **common)
     return EngineConfig(device="cpu", **common), jcfg
 
 
@@ -111,10 +124,11 @@ class StandInGraph:
 
 
 # The JAX precompile test's tiny engine: two decode row buckets, one table
-# bucket, four prefill chunk buckets, a 2-step burst.
+# bucket, four prefill chunk buckets, a 2-step burst; synchronous, so the
+# steps it takes do not depend on the wall clock.
 TINY = dict(model="tiny-llama-debug", max_model_len=64, block_size=16,
             num_kv_blocks=16, max_num_seqs=2, max_prefill_tokens=8,
-            num_decode_steps=2, device="cpu")
+            num_decode_steps=2, overlap_decode=False, device="cpu")
 
 
 def _drain(engine) -> None:
