@@ -86,7 +86,15 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    CUDA's sync debug mode set to raise) and ``burst_drain`` against four
    synchronous bursts from a clone of the same cache, rows and cache bytes
    bit for bit; the host wall, device busy and idle share a burst of each
-   loop (again in int4 with the fused write, after 3b).
+   loop (again in int4 with the fused write, after 3b). 3w: KV swap at
+   B=8 x ~2000 greedy rows over a bf16 and an e4m3 cache: after two
+   4-token bursts one row is swapped out through the engine's swapper
+   (committed pages left in place, the tail copied to pinned host memory)
+   and back in (the tail uploaded into another page, its old one
+   overwritten), both under CUDA's sync debug mode set to raise; two more
+   bursts; rows, tokens and the row's pages equal an uninterrupted run's
+   bit for bit; a page's size and its device-to-host and host-to-device
+   device times.
 4. Serving: the port's OpenAI server on localhost, configured by its own
    flags (``--warmup lazy``: ``/ready`` must answer 503 ``"warming"``,
    ``/health`` 200 ``"warming"`` and a completion 503 with
@@ -125,6 +133,18 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    ``pst:pipelined_bursts`` and ``pst:adaptive_deep_bursts`` above 0 and
    0-valued host gaps on the pipelined server, the launch counters grown;
    both servers' output tok/s and host-gap p50 (one run each).
+4h. A bf16 server of phase 4's flags with ``--num-kv-blocks 160`` (five
+   1024-token prompts' pages): 16 requests of 1024-token prompts at once,
+   6 streamed from a batch tenant and 6 from an interactive one (128
+   tokens), 2 whose ``X-PST-Deadline-Ms`` is spent on arrival (504,
+   ``X-PST-Deadline-Exceeded: 1``) and a second interactive tenant's 2
+   whose 2 s run out mid-decode (a tagged 504; streamed, a last frame with
+   ``finish_reason`` ``"deadline"``). ``/metrics``: 2 sheds at admission, 2 queued or
+   running, swaps out above 0 and every one back (resumed or recomputed);
+   the interactive TTFT p50 at most the batch one. Then n=4 candidates of
+   a prompt just served (its pages prefix hits for each), best_of=4 with
+   n=2 ranked by mean logprob, an echo with logprobs and a batch of three
+   prompts.
 3b. The same model int4-quantized on the card (streamed from the seed, the
    bf16 tree freed first), under ``PST_FUSED_KV_WRITE=1``: the same steps
    through the int4 and decode-write kernels, against the gather path on a
@@ -242,6 +262,7 @@ from production_stack_tpu_torch.engine.config import (  # noqa: E402
     resolve_num_kv_blocks,
 )
 from production_stack_tpu_torch.engine.engine import LLMEngine  # noqa: E402
+from production_stack_tpu_torch.engine.kv_manager import BlockAllocator  # noqa: E402
 from production_stack_tpu_torch.engine.runner import (  # noqa: E402
     ModelRunner,
     capture,
@@ -258,6 +279,7 @@ from production_stack_tpu_torch.engine.server import (  # noqa: E402
     parse_engine_args,
     serve_in_thread,
 )
+from production_stack_tpu_torch.engine.swap import KVSwapper  # noqa: E402
 from production_stack_tpu_torch.models import llama as llama_mod  # noqa: E402
 from production_stack_tpu_torch.models.llama import (  # noqa: E402
     QUANT_SUFFIX,
@@ -2051,6 +2073,150 @@ def phase_pipelined_bursts(params, quantization=None) -> dict:
     return out
 
 
+# Phase 3w: a sequence swapped out and back in at full width.
+
+SWAP_B, SWAP_CTX, SWAP_N = 8, 2000, 4
+SWAP_BEFORE, SWAP_AFTER = 2, 2  # bursts before the swap and after it
+
+
+def swap_seqs(runner, alloc) -> list:
+    """``SWAP_B`` greedy sequences of about ``SWAP_CTX`` tokens of random
+    ids (their pages hold random keys and values) with three output tokens
+    so far, pages for the whole run taken from ``alloc`` and their full
+    pages committed, as the engine leaves them after a prefill."""
+    rng = np.random.default_rng(31)
+    V = runner.model_cfg.vocab_size
+    grow = SWAP_N * (SWAP_BEFORE + SWAP_AFTER)
+    seqs = []
+    for i in range(SWAP_B):
+        s = Sequence(f"w{i}", rng.integers(0, V, SWAP_CTX - 16 * i).tolist(),
+                     SamplingParams(temperature=0.0, max_tokens=4096,
+                                    ignore_eos=True))
+        s.output_token_ids = rng.integers(0, V, 3).tolist()
+        s.num_computed_tokens = s.num_tokens - 1
+        s.block_ids = [alloc.allocate()
+                       for _ in range(-(-(s.num_tokens + grow) // BS))]
+        s.commit_full_blocks(alloc)
+        seqs.append(s)
+    return seqs
+
+
+def swap_bursts(runner, alloc, seqs, n_bursts: int) -> list:
+    """``n_bursts`` synchronous bursts of every row, in the rows' order;
+    the host's part: the tokens appended and the filled pages committed."""
+    out = []
+    for _ in range(n_bursts):
+        rows = runner.execute_decode_multi(seqs, SWAP_N)
+        apply_rows(seqs, rows)
+        for s in seqs:
+            s.commit_full_blocks(alloc)
+        out.append(rows)
+    return out
+
+
+def phase_swap(params, kv_cache_dtype=None) -> dict:
+    """Phase 3w: ``SWAP_B`` greedy rows at about ``SWAP_CTX`` tokens; after
+    ``SWAP_BEFORE`` bursts, row 3 is swapped out through the engine's
+    swapper (its committed pages stay addressed, its tail goes to pinned
+    host memory), the freed tail page is taken and overwritten, and the
+    row is swapped back in (its tail uploaded into another page) before
+    ``SWAP_AFTER`` more bursts; swap-out and swap-in run under CUDA's sync
+    debug mode set to raise. Rows and the row's pages against an
+    uninterrupted run from the same cache, bit for bit (the batch keeps its
+    rows' order). Then the device time of a page's download and upload."""
+    tag = kv_cache_dtype or "bf16"
+    dtype = E4M3 if kv_cache_dtype else torch.bfloat16
+    grow = SWAP_N * (SWAP_BEFORE + SWAP_AFTER)
+    per_row = -(-(SWAP_CTX + 3 + grow) // BS)
+    cfg = EngineConfig(model=MODEL, device=DEV.type, max_num_seqs=SWAP_B,
+                       max_model_len=4096, num_decode_steps=SWAP_N,
+                       num_kv_blocks=SWAP_B * per_row + 8,
+                       kv_cache_dtype=kv_cache_dtype)
+    runner = ModelRunner(cfg, get_model_config(MODEL), params)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(13)
+    for layer in range(runner.kv_cache.shape[0]):  # a layer's bf16 at a time
+        noise = torch.empty(runner.kv_cache.shape[1:], dtype=torch.bfloat16,
+                            device=DEV).normal_(generator=gen)
+        runner.kv_cache[layer].copy_(to_cache_dtype(noise, dtype))
+    del noise
+    saved = runner.kv_cache.clone()
+    row = 3
+
+    def run(swap: bool) -> tuple:
+        runner.kv_cache.copy_(saved)
+        alloc = BlockAllocator(runner.num_blocks, BS, True)
+        seqs = swap_seqs(runner, alloc)
+        rows = swap_bursts(runner, alloc, seqs, SWAP_BEFORE)
+        info = {}
+        if swap:
+            s = seqs[row]
+            used = -(-s.num_computed_tokens // BS)
+            tail_ids = s.block_ids[s._committed_blocks:used]
+            swapper = KVSwapper(runner)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                swapper.swap_out(s, alloc)
+                # The freed tail pages go to another owner, which writes them.
+                taken = [alloc.allocate() for _ in tail_ids]
+                for blk in taken:
+                    raw(runner.kv_cache)[:, blk].fill_(0x42)
+                back = swapper.swap_in(s, alloc)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            check(back and swapper.swap_in_total == 1
+                  and swapper.fallback_recompute_total == 0,
+                  f"3w {tag}: the row did not come back intact")
+            moved = s.block_ids[used - len(tail_ids):used]
+            check(set(moved).isdisjoint(taken),
+                  f"3w {tag}: the tail came back into the pages it left")
+            # The pages its next bursts write (the engine's scheduler
+            # reserves them).
+            want = -(-(s.num_tokens + SWAP_N * SWAP_AFTER) // BS)
+            s.block_ids += [alloc.allocate()
+                            for _ in range(want - len(s.block_ids))]
+            info = {"tail_pages": len(tail_ids),
+                    "committed_pages": s._committed_blocks}
+        rows += swap_bursts(runner, alloc, seqs, SWAP_AFTER)
+        torch.cuda.synchronize()
+        s = seqs[row]
+        used = -(-s.num_computed_tokens // BS)
+        pages = raw(runner.kv_cache)[:, s.block_ids[:used]].clone()
+        return rows, [list(q.output_token_ids) for q in seqs], pages, info
+
+    want_rows, want_toks, want_pages = run(False)[:3]
+    got_rows, got_toks, got_pages, info = run(True)
+    rows_equal = all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
+                     for a, b in zip(got_rows, want_rows))
+    check(rows_equal and got_toks == want_toks
+          and same_bits(got_pages, want_pages),
+          f"3w {tag}: the swapped run differs from the uninterrupted one "
+          f"(rows {rows_equal}, tokens {got_toks == want_toks}, pages "
+          f"{same_bits(got_pages, want_pages)})")
+    del saved, got_pages, want_pages
+    # A page's bytes (K and V of every layer) and its device time each way.
+    mc = runner.model_cfg
+    page_bytes = (2 * mc.num_layers * BS * mc.num_kv_heads * mc.head_dim
+                  * runner.kv_cache.element_size())
+    k, v = runner.download_page(5)
+    d2h = cuda_ms(lambda: runner.download_page(5))
+    h2d = cuda_ms(lambda: runner.upload_page(9, k, v))
+    log(f"[phase 3w] {MODEL} {tag} cache: {SWAP_B} greedy rows at ~{SWAP_CTX} "
+        f"tokens, row {row} swapped out after burst {SWAP_BEFORE} "
+        f"({info['committed_pages']} committed pages left in place, "
+        f"{info['tail_pages']} tail page(s) moved, no host sync) and back "
+        f"in: {SWAP_BEFORE + SWAP_AFTER} bursts' rows, every row's tokens "
+        f"and the row's pages equal the uninterrupted run's bit for bit; "
+        f"page {page_bytes / 2**20:.1f} MiB, device-to-host {d2h:.4f} ms "
+        f"({page_bytes / d2h / 1e6:.1f} GB/s), host-to-device {h2d:.4f} ms "
+        f"({page_bytes / h2d / 1e6:.1f} GB/s)")
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cache": tag, "page_bytes": page_bytes, "d2h_ms": d2h,
+            "h2d_ms": h2d, **info}
+
+
 def build_model(seed: int = 0):
     cfg = get_model_config(MODEL)
     model = Llama(cfg)
@@ -3477,6 +3643,206 @@ def phase_pipelined_serving(params, card: str) -> dict:
     return out
 
 
+# Phase 4h: a server with a small pool, deadlines and two tenants.
+
+
+def _timed_request(port: int, body: dict, headers: dict) -> dict:
+    """One completion with ``headers``: its status and headers, its body
+    (JSON) or its frames (streamed), and for a stream the wall from the
+    request to the first token's frame (TTFT)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/completions", json.dumps(body),
+                 {"Content-Type": "application/json", **headers})
+    resp = conn.getresponse()
+    out = {"status": resp.status, "headers": dict(resp.getheaders())}
+    if not body.get("stream") or resp.status != 200:
+        out["body"] = json.loads(resp.read())
+        conn.close()
+        return out
+    frames, ttft = [], None
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        if line.startswith(b"data: {"):
+            frames.append(json.loads(line[6:]))
+            if ttft is None:
+                ttft = time.perf_counter() - t0
+        elif line.startswith(b"data: [DONE]"):
+            frames.append("[DONE]")
+    conn.close()
+    out.update(frames=frames, ttft=ttft)
+    return out
+
+
+def phase_tenancy_serving(params, card: str) -> dict:
+    """Phase 4h: the bf16 Llama-3-8B server of phase 4's flags with
+    ``--num-kv-blocks 160`` (five 1024-token prompts' pages) and
+    ``--max-num-seqs 16``: 16 requests of 1024-token prompts at once,
+    from a batch tenant (6, streamed, 128 tokens) and an interactive one
+    (6 the same; 2 whose ``X-PST-Deadline-Ms`` is spent on arrival), and a
+    second interactive tenant's 2 whose budget of 2 s runs out mid-decode
+    (512 tokens asked, one streamed). Every status and
+    finish reason; ``/metrics``' sheds (2 at admission, 2 queued or
+    running) and swaps (every sequence swapped out came back, resumed or
+    recomputed); the interactive TTFT p50 at most the batch one. Then n=4
+    candidates of a prompt just served (its pages counted as prefix hits),
+    best_of=4 with n=2 ranked by mean logprob, an echo and a batch of
+    prompts."""
+    argv = ["--model", MODEL, "--device", DEV.type,
+            "--max-num-batched-tokens", "512", "--num-decode-steps", "4",
+            "--max-num-seqs", "16", "--num-kv-blocks", "160"]
+    engine = AsyncLLMEngine(engine_config_from_args(parse_engine_args(argv)),
+                            params=params)
+    server, thread = serve_in_thread(engine)
+    port = server.server_address[1]
+    rng = np.random.default_rng(41)
+    V = engine.engine.model_cfg.vocab_size
+    prompts = [rng.integers(1, V, 1024).tolist() for _ in range(16)]
+    batch = {"X-PST-Tenant": "bulk", "X-PST-Tenant-Class": "batch"}
+    chat = {"X-PST-Tenant": "chat", "X-PST-Tenant-Class": "interactive"}
+    # A second interactive tenant, whose turn (deficit round robin) comes
+    # among chat's first: its requests decode before their 2 s run out.
+    ops = {"X-PST-Tenant": "ops", "X-PST-Tenant-Class": "interactive"}
+    # (kind, headers, stream, max_tokens) a request, batch tenant first.
+    plan = ([("batch", batch, True, 128)] * 6
+            + [("interactive", chat, True, 128)] * 6
+            + [("spent", {**chat, "X-PST-Deadline-Ms": "0"}, False, 128)] * 2
+            + [("mid", {**ops, "X-PST-Deadline-Ms": "2000"}, s, 512)
+               for s in (False, True)])
+    results: dict = {}
+
+    def one(i):
+        kind, headers, stream, max_tokens = plan[i]
+        try:
+            results[i] = _timed_request(port, {
+                "prompt": prompts[i], "max_tokens": max_tokens,
+                "temperature": 0.0, "ignore_eos": True, "stream": stream},
+                headers)
+        except BaseException as e:  # re-raised on the main thread
+            results[i] = e
+
+    try:
+        before = scrape(port)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(plan))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        for r in results.values():
+            if isinstance(r, BaseException):
+                raise r
+        ttft = {"batch": [], "interactive": []}
+        for i, (kind, _, stream, max_tokens) in enumerate(plan):
+            r = results[i]
+            tagged = r["headers"].get("X-PST-Deadline-Exceeded") == "1"
+            if kind in ("batch", "interactive"):
+                fr = r["frames"]
+                check(r["status"] == 200 and fr[-1] == "[DONE]"
+                      and len(fr) == 129
+                      and fr[-2]["choices"][0]["finish_reason"] == "length",
+                      f"4h {kind} request {i}: {r['status']}, {len(fr)} "
+                      f"frames")
+                ttft[kind].append(r["ttft"])
+            elif kind == "spent" or not stream:
+                check(r["status"] == 504 and tagged,
+                      f"4h {kind} request {i}: {r['status']} {r['body']}")
+            else:
+                fr = r["frames"]
+                check(r["status"] == 200 and fr[-1] == "[DONE]"
+                      and fr[-2]["choices"][0]["finish_reason"] == "deadline"
+                      and len(fr) - 2 < max_tokens,
+                      f"4h streamed mid-decode shed: {r['status']}, "
+                      f"{len(fr)} frames, last {fr[-2:]}")
+        m = scrape(port)
+
+        def grew(name):
+            return m.get(name, 0.0) - before.get(name, 0.0)
+
+        shed_adm = grew("pst:deadline_shed_admission_total")
+        shed_q = grew("pst:deadline_shed_queued_total")
+        shed_r = grew("pst:deadline_shed_running_total")
+        out_, in_ = grew("pst:kv_swap_out_total"), grew("pst:kv_swap_in_total")
+        fallback = grew("pst:kv_swap_fallback_recompute_total")
+        check(shed_adm == 2 and shed_q + shed_r == 2,
+              f"4h sheds: admission {shed_adm}, queued {shed_q}, running "
+              f"{shed_r}")
+        check(out_ > 0 and in_ + fallback == out_
+              and m.get("vllm:num_requests_swapped", 0.0) == 0
+              and grew("pst_engine_swap_out_total") == out_
+              and grew("pst_engine_swap_in_total") == in_,
+              f"4h swaps: out {out_}, in {in_}, fallback {fallback}")
+        p50 = {k: statistics.median(v) for k, v in ttft.items()}
+        check(p50["interactive"] <= p50["batch"],
+              f"4h TTFT p50: interactive {p50['interactive']:.3f}s over "
+              f"batch {p50['batch']:.3f}s")
+        log(f"[phase 4h] {MODEL}, 160 KV pages, 16 requests of 1024-token "
+            f"prompts in {wall:.2f}s: statuses and finish reasons as sent; "
+            f"sheds at admission {shed_adm:.0f}, queued {shed_q:.0f}, "
+            f"running {shed_r:.0f}; swaps out {out_:.0f}, in {in_:.0f}, "
+            f"recomputed {fallback:.0f} (tail pages "
+            f"{grew('pst:kv_swap_tail_pages_total'):.0f}); batch-tier "
+            f"preemptions {grew('pst:tenant_batch_preemptions_total'):.0f}; "
+            f"TTFT p50 interactive {p50['interactive']:.3f}s, batch "
+            f"{p50['batch']:.3f}s; {card}")
+
+        # n=4 candidates of a prompt just served: its pages are hits.
+        base = {"prompt": prompts[6], "max_tokens": 16, "temperature": 0.8,
+                "seed": 7, "logprobs": 1, "ignore_eos": True}
+        _completion(port, {"prompt": prompts[6], "max_tokens": 4,
+                           "temperature": 0.0, "ignore_eos": True}, 4)
+        hits = scrape(port)["vllm:gpu_prefix_cache_hits_total"]
+        status, out, _ = _call(port, "POST", "/v1/completions", {**base, "n": 4})
+        hit = scrape(port)["vllm:gpu_prefix_cache_hits_total"] - hits
+        full = (1024 - 1) // BS * BS  # the prompt's pages a match can take
+        check(status == 200 and len(out["choices"]) == 4
+              and out["usage"]["completion_tokens"] == 64
+              and out["usage"]["prompt_tokens"] == 1024 and hit >= 4 * full,
+              f"4h n=4: {status}, {out.get('usage')}, prefix hit tokens {hit}")
+        status, out, _ = _call(port, "POST", "/v1/completions",
+                               {**base, "n": 2, "best_of": 4})
+        means = [statistics.mean(c["logprobs"]["token_logprobs"])
+                 for c in out.get("choices", ())]
+        check(status == 200 and len(means) == 2
+              and means == sorted(means, reverse=True)
+              and out["usage"]["completion_tokens"] == 64,
+              f"4h best_of=4 n=2: {status}, means {means}, {out.get('usage')}")
+        status, out, _ = _call(port, "POST", "/v1/completions", {
+            "prompt": "Echo this prompt.", "max_tokens": 8, "echo": True,
+            "logprobs": 1, "temperature": 0.0, "ignore_eos": True})
+        lp = out["choices"][0]["logprobs"] if status == 200 else {}
+        n_in = out.get("usage", {}).get("prompt_tokens", 0)
+        check(status == 200
+              and out["choices"][0]["text"].startswith("Echo this prompt.")
+              and lp["token_logprobs"][:n_in] == [None] * n_in
+              and len(lp["tokens"]) == n_in + 8,
+              f"4h echo: {status} {out}")
+        status, out, _ = _call(port, "POST", "/v1/completions", {
+            "prompt": ["One", "Two, longer", "Three"], "max_tokens": 8,
+            "temperature": 0.0, "ignore_eos": True})
+        check(status == 200 and [c["index"] for c in out["choices"]]
+              == [0, 1, 2] and out["usage"]["completion_tokens"] == 24,
+              f"4h batched prompts: {status} {out}")
+        log(f"  n=4: 4 choices, 64 tokens billed, {hit:.0f} prefix-hit "
+            f"tokens (4 x {full}); best_of=4 n=2: mean logprobs "
+            f"{[round(x, 4) for x in means]}; echo and a batch of 3 prompts "
+            f"served")
+        check(engine.is_healthy(), f"4h: {engine.step_error}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+        thread.join(timeout=10)
+    del engine
+    return {"wall_s": wall, "ttft_p50_s": p50, "sheds": {
+        "admission": shed_adm, "queued": shed_q, "running": shed_r},
+        "swaps": {"out": out_, "in": in_, "recomputed": fallback}}
+
+
 # The names of the router's scraper (router/stats/engine_stats.py,
 # _METRIC_FIELDS) that the port exports; the one it does not is the
 # remote KV tier's integrity counter (queue 1, item 13).
@@ -4314,6 +4680,7 @@ def main() -> None:
     phase_no_host_sync(model, params)
     graph_steps = phase_step_graphs(params)
     graph_steps.append(phase_pipelined_bursts(params))
+    swaps = [phase_swap(params), phase_swap(params, "float8_e4m3fn")]
     steps = phase_step_times(model, params)
     steps.update(phase_step_times(model, params, tag="e4m3_", impls=("cuda",),
                                   kv_dtype=E4M3))
@@ -4325,6 +4692,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     pipelined_serving = phase_pipelined_serving(params, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tenancy = phase_tenancy_serving(params, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     os.environ["PST_FUSED_KV_WRITE"] = "1"
     fp8_served = phase_serving(
         params, "4c", kv_cache_dtype="float8_e4m3fn",
@@ -4419,7 +4791,8 @@ def main() -> None:
                     for label, d in (("4", served), ("4b", q_served),
                                      ("4c", fp8_served), ("4e", g_served))},
         "sleep_4f": admin, "pipelined_serving_4g": pipelined_serving,
-        "checkpoint_3z": checkpoint,
+        "checkpoint_3z": checkpoint, "swap_3w": swaps,
+        "tenancy_serving_4h": tenancy,
     }}), flush=True)
     print(json.dumps({"kernels": rows, "steps": steps, "int4_crossover": crossover}),
           flush=True)

@@ -33,8 +33,8 @@ from .sequence import SamplingParams
 
 logger = init_logger(__name__)
 
-# Ends a request's stream without a finish: the request was aborted by a
-# level-2 sleep (the JAX engine's sentinel).
+# Ends a request's stream without a finish: the request was aborted, by
+# its caller or a level-2 sleep (the JAX engine's sentinel).
 _SENTINEL = object()
 
 
@@ -170,12 +170,14 @@ class AsyncLLMEngine:
         logger.info("engine accepting new requests again")
 
     def num_inflight(self) -> int:
-        """Requests running, waiting, or submitted and not yet taken by
-        the step thread."""
+        """Requests running, waiting, parked (swapped out: a drain that
+        ignored them would end with generations parked mid-flight), or
+        submitted and not yet taken by the step thread."""
         sched = self.engine.scheduler
         with self._submit_lock:
             pending = len(self._pending_adds)
-        return int(sched.num_running + sched.num_waiting + pending)
+        return int(sched.num_running + sched.num_waiting + sched.num_swapped
+                   + pending)
 
     # -- submission -------------------------------------------------------
 
@@ -185,27 +187,40 @@ class AsyncLLMEngine:
         prompt_token_ids: Optional[Seq[int]] = None,
         sampling: Optional[SamplingParams] = None,
         request_id: Optional[str] = None,
+        deadline: Optional[float] = None,
+        tenant: Optional[str] = None,
+        tenant_class: Optional[str] = None,
     ) -> Iterator[RequestOutput]:
-        """Submit one request and yield its outputs until it finishes.
-        Raises ValueError if the engine refuses the request (e.g. a prompt
-        that does not fit) and RuntimeError if an engine step failed."""
-        if self.step_error is not None:
-            raise RuntimeError(f"engine is failed: {self.step_error}")
+        """Submit one request now and return the iterator of its outputs,
+        which ends with its finish (``deadline``, ``tenant`` and
+        ``tenant_class`` as ``LLMEngine.add_request`` takes them). Requests
+        submitted back to back reach the same step's admission. The
+        iterator raises ValueError if the engine refuses the request (e.g.
+        a prompt that does not fit) and RuntimeError if an engine step
+        failed; closed early, it aborts the request."""
         rid = request_id or f"req-{uuid.uuid4().hex[:16]}"
         q: "queue.Queue" = queue.Queue()
+        if self.step_error is not None:
+            q.put(RuntimeError(f"engine is failed: {self.step_error}"))
+            return self._outputs(rid, q)
         self._queues[rid] = q
+        with self._submit_lock:
+            self._pending_adds.append(
+                (rid, dict(prompt=prompt, prompt_token_ids=prompt_token_ids,
+                           sampling=sampling, arrival_time=time.monotonic(),
+                           deadline=deadline, tenant=tenant,
+                           tenant_class=tenant_class))
+            )
+        self._work.set()
+        return self._outputs(rid, q)
+
+    def _outputs(self, rid: str, q: "queue.Queue") -> Iterator[RequestOutput]:
         finished = False
         try:
-            with self._submit_lock:
-                self._pending_adds.append(
-                    (rid, dict(prompt=prompt, prompt_token_ids=prompt_token_ids,
-                               sampling=sampling, arrival_time=time.monotonic()))
-                )
-            self._work.set()
             while True:
                 item = q.get()
                 if item is _SENTINEL:
-                    finished = True  # aborted by a sleep: nothing to reclaim
+                    finished = True  # aborted: nothing to reclaim
                     break
                 if isinstance(item, Exception):
                     finished = True  # refused or failed: nothing to reclaim
@@ -220,9 +235,13 @@ class AsyncLLMEngine:
                 self.abort(rid)
 
     def abort(self, request_id: str) -> None:
+        """Abort a request; its iterator, if still read, ends."""
         with self._submit_lock:
             self._pending_aborts.append(request_id)
         self._work.set()
+        q = self._queues.pop(request_id, None)
+        if q is not None:
+            q.put(_SENTINEL)
 
     # -- engine thread ----------------------------------------------------
 

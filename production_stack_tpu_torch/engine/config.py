@@ -62,6 +62,23 @@ class EngineConfig:
     # Cap on buckets captured at warmup (0 = the entire lattice). Buckets
     # are walked most-likely-first, so a budget keeps the hot shapes.
     warmup_bucket_budget: int = 0
+    # Live-sequence KV swap (engine/swap.py): preemption parks a
+    # sequence's KV instead of recomputing it. Committed pages stay
+    # addressed in place; only the uncommitted tail goes to a host stash.
+    kv_swap: bool = True
+    # Rotate a running sequence out after this many decoded tokens when
+    # parked or queued work exists (0 = swap only under page pressure).
+    swap_quantum_tokens: int = 256
+    # Host budget for stashed tail pages, in KV pages.
+    swap_stash_blocks: int = 4096
+    # Honor the router-propagated X-PST-Deadline-Ms budget: 504 expired
+    # work at admission, drop expired queued sequences before a prefill
+    # step, and stop decoding expired running ones.
+    deadline_shedding: bool = True
+    # Honor the router-stamped X-PST-Tenant / X-PST-Tenant-Class headers:
+    # admit weighted-fair across tenants with strict tier priority, and
+    # preempt batch-tier sequences first. Untagged traffic is plain FIFO.
+    tenant_fairness: bool = True
     seed: int = 0
     device: str = "cuda"
 

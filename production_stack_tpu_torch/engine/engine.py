@@ -14,12 +14,18 @@ deepens bursts under the same gates. A sequence that finishes or is
 aborted while a burst still writes through its pages is detached, and
 its pages are released when the burst drains.
 
+The JAX engine's default scheduling (``engine/scheduler.py``): KV swap
+(``kv_swap``, through the runner's page I/O, ``engine/swap.py``),
+deadline shedding (a request's ``deadline``; a shed ends with
+``finish_reason="deadline"``) and tenant-fair admission (its ``tenant``
+and ``tenant_class``).
+
 ``stats()`` feeds the server's ``/metrics``; the runner's ``telemetry``
 records every device step. ``clear_kv_state`` (sleep level 2) forgets
 every page the prefix map points at.
 
-Not ported yet: speculative decoding, KV tiering and swap, LoRA,
-disaggregated handoff, the flight recorder and cost attribution.
+Not ported yet: speculative decoding, KV tiering, LoRA, disaggregated
+handoff, the flight recorder and cost attribution.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from .kv_manager import BlockAllocator
 from .runner import ModelRunner
 from .scheduler import Scheduler, SchedulerConfig
 from .sequence import SamplingParams, Sequence
+from .swap import KVSwapper
 from .tokenizer import get_tokenizer
 
 logger = init_logger(__name__)
@@ -74,6 +81,9 @@ class LLMEngine:
         self.allocator = BlockAllocator(
             self.runner.num_blocks, cfg.block_size, cfg.enable_prefix_caching
         )
+        self.swapper: Optional[KVSwapper] = (
+            KVSwapper(self.runner, max_stash_blocks=cfg.swap_stash_blocks)
+            if cfg.kv_swap else None)
         self.scheduler = Scheduler(
             SchedulerConfig(
                 max_num_seqs=cfg.max_num_seqs,
@@ -85,8 +95,12 @@ class LLMEngine:
                 # engage.
                 decode_lookahead=(
                     2 if cfg.async_decode or cfg.overlap_decode else 1),
+                swap_quantum=cfg.swap_quantum_tokens,
+                deadline_shedding=cfg.deadline_shedding,
+                tenant_fairness=cfg.tenant_fairness,
             ),
             self.allocator,
+            swapper=self.swapper,
         )
         self._seqs: Dict[str, Sequence] = {}
         # Incremental detokenizer state per request:
@@ -133,7 +147,14 @@ class LLMEngine:
         prompt_token_ids: Optional[Seq[int]] = None,
         sampling: Optional[SamplingParams] = None,
         arrival_time: Optional[float] = None,
+        deadline: Optional[float] = None,
+        tenant: Optional[str] = None,
+        tenant_class: Optional[str] = None,
     ) -> Sequence:
+        """``deadline``: the monotonic expiry of the request's budget
+        (ignored with ``deadline_shedding`` off); ``tenant`` and
+        ``tenant_class`` (``"interactive"`` or ``"batch"``) order its
+        admission under ``tenant_fairness``."""
         if prompt_token_ids is None:
             prompt_token_ids = self.tokenizer.encode(prompt or "")
         if not prompt_token_ids:
@@ -141,6 +162,9 @@ class LLMEngine:
         seq = Sequence(
             request_id, prompt_token_ids, sampling or SamplingParams(),
             arrival_time=arrival_time,
+            deadline=deadline if self.cfg.deadline_shedding else None,
+            tenant=tenant or "default",
+            tenant_class=tenant_class or "interactive",
         )
         self._last_arrival = time.time()
         self.scheduler.add(seq)
@@ -182,8 +206,10 @@ class LLMEngine:
 
     def clear_kv_state(self) -> None:
         """Forget every page the cache held (sleep level 2 drops them):
-        abort every request in flight and start an empty allocator, so no
-        later prompt adopts a dropped (zeroed) page as a prefix hit."""
+        abort every request in flight (a parked one's abort drops its
+        stash) and start an empty allocator, which the scheduler hands the
+        swapper from then on, so no later prompt adopts a dropped (zeroed)
+        page as a prefix hit."""
         self.abort_all_requests()
         self.allocator = BlockAllocator(
             self.runner.num_blocks, self.cfg.block_size,
@@ -224,6 +250,7 @@ class LLMEngine:
             locked = frozenset(s.request_id for s in self._burst_seqs)
             sched = self.scheduler.schedule(locked=locked, n_decode=hint)
             self.num_preempted_total += len(sched.preempted)
+            outputs += self._finish_expired(sched.expired)
             if self._can_continue_burst(sched):
                 self.pipelined_bursts_total += 1
                 if self._burst_n > self.cfg.num_decode_steps:
@@ -245,6 +272,7 @@ class LLMEngine:
                     sched.prefills, rows)
         sched = self.scheduler.schedule(n_decode=hint)
         self.num_preempted_total += len(sched.preempted)
+        outputs += self._finish_expired(sched.expired)
         if sched.is_empty:
             return outputs
         if sched.prefills:
@@ -285,6 +313,24 @@ class LLMEngine:
                 if seq.is_finished:
                     break  # trim the burst's tail past a stop
         return outputs
+
+    def _finish_expired(self, expired) -> List[RequestOutput]:
+        """The terminal output of each sequence the scheduler shed on its
+        deadline (already finished, pages released), so the server can
+        answer a 504 or end the stream."""
+        outs: List[RequestOutput] = []
+        for seq in expired:
+            if self._seqs.pop(seq.request_id, None) is None:
+                continue
+            self._detok.pop(seq.request_id, None)
+            outs.append(RequestOutput(
+                request_id=seq.request_id, finished=True,
+                finish_reason="deadline",
+                num_prompt_tokens=seq.num_prompt_tokens,
+                num_output_tokens=len(seq.output_token_ids),
+                num_cached_prompt_tokens=seq.num_cached_prompt_tokens,
+            ))
+        return outs
 
     def _process_prefill_rows(self, prefills, rows) -> List[RequestOutput]:
         """``rows is None`` for a step that fetched nothing (no chunk
@@ -486,9 +532,11 @@ class LLMEngine:
         return [results[f"gen-{i}"] for i in range(len(prompts))]
 
     def stats(self) -> Dict[str, float]:
+        sched, swapper = self.scheduler, self.swapper
         return {
-            "num_requests_running": float(self.scheduler.num_running),
-            "num_requests_waiting": float(self.scheduler.num_waiting),
+            "num_requests_running": float(sched.num_running),
+            "num_requests_waiting": float(sched.num_waiting),
+            "num_requests_swapped": float(sched.num_swapped),
             "num_preemptions_total": float(self.num_preempted_total),
             "prompt_tokens_total": float(self.prompt_tokens_total),
             "generation_tokens_total": float(self.generation_tokens_total),
@@ -496,6 +544,9 @@ class LLMEngine:
             "prefix_cache_hit_rate": self.allocator.hit_rate,
             "prefix_cache_hits_total": float(self.allocator.hit_tokens),
             "prefix_cache_queries_total": float(self.allocator.query_tokens),
+            "deadline_sheds_queued_total": float(sched.deadline_sheds_queued),
+            "deadline_sheds_running_total": float(
+                sched.deadline_sheds_running),
             "device_busy_seconds_total": self.telemetry.device_busy(),
             **{f"graphs_{k}": float(n)
                for k, n in self.runner.graph_counts.items()},
@@ -505,6 +556,23 @@ class LLMEngine:
                if self.cfg.adaptive_decode_steps else {}),
             **({"pipelined_bursts_total": float(self.pipelined_bursts_total)}
                if self.cfg.async_decode or self.cfg.overlap_decode else {}),
+            **(self._tenant_stats() if self.cfg.tenant_fairness else {}),
+            **({"kv_swap_out_total": float(swapper.swap_out_total),
+                "kv_swap_in_total": float(swapper.swap_in_total),
+                "kv_swap_tail_pages_total": float(swapper.tail_pages_moved),
+                "kv_swap_fallback_recompute_total": float(
+                    swapper.fallback_recompute_total),
+                "kv_swap_stash_blocks": float(swapper.stash_blocks)}
+               if swapper is not None else {}),
+        }
+
+    def _tenant_stats(self) -> Dict[str, float]:
+        ages = self.scheduler.queue_age_by_tier()
+        return {
+            "tenant_queue_age_interactive": ages["interactive"],
+            "tenant_queue_age_batch": ages["batch"],
+            "tenant_batch_preemptions_total": float(
+                self.scheduler.batch_preemptions),
         }
 
     # ------------------------------------------------------------------

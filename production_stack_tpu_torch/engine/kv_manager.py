@@ -1,7 +1,8 @@
 """Paged KV-cache block manager with content-hash prefix caching.
 
 A copy of the JAX package's ``engine/kv_manager.py`` without the tiering
-hooks. Host-side bookkeeping only — the device pages live in the stacked
+hooks (``acquire_resident`` finds pages in device memory only).
+Host-side bookkeeping only — the device pages live in the stacked
 ``[L, nb, 2, bs, KH*hd]`` cache tensor owned by the runner; this class
 decides *which page index* each sequence writes and reads, and which full
 pages are shareable across requests via the prefix-committing block hashes
@@ -82,6 +83,16 @@ class BlockAllocator:
         self._refcount[blk] += 1
         return blk
 
+    def incref(self, blk: int) -> None:
+        self._refcount[blk] += 1
+
+    def acquire_resident(self, h: int):
+        """Reacquire the page holding hash ``h`` from wherever it survives
+        (device memory: the port has no lower tier). The swap path uses it
+        to resurrect a parked sequence's committed prefix without copying
+        bytes that never left."""
+        return self.acquire_cached(h)
+
     def commit(self, blk: int, h: int, allow_swap: bool = True) -> int:
         """Mark a freshly written full page as content-addressed by ``h``.
         If another request already committed the same content, dedup to the
@@ -97,7 +108,7 @@ class BlockAllocator:
             if not allow_swap:
                 return blk  # our copy stays un-addressed; existing owns h
             self.release(blk)
-            self._refcount[existing] += 1
+            self.incref(existing)
             if existing in self._reusable:
                 del self._reusable[existing]
             return existing

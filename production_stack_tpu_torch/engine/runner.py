@@ -560,6 +560,41 @@ class ModelRunner:
             self._pool = torch.cuda.graph_pool_handle()
 
     # ------------------------------------------------------------------
+    # Page I/O for KV swap (engine/swap.py): one page's K and V of every
+    # layer, device <-> host, queued on the step stream
+    # ------------------------------------------------------------------
+
+    def download_page(self, blk: int) -> tuple:
+        """Page ``blk``'s K and V, each ``[L, bs, KH, hd]`` in the cache's
+        type, on the host. On the GPU the copies are queued on the current
+        stream into pinned memory and nothing waits for them: they run
+        after the steps queued before (an in-flight burst included), and
+        an upload of the same tensors queued later reads them only after
+        they landed. A host reader synchronizes first."""
+        mc = self.model_cfg
+        L, bs = mc.num_layers, self.cfg.block_size
+        pin = self.device.type == "cuda"
+        out = []
+        for kv in (0, 1):
+            host = torch.empty((L, bs, mc.num_kv_heads, mc.head_dim),
+                               dtype=self.kv_dtype, pin_memory=pin)
+            host.view(L, bs, -1).copy_(self.kv_cache[:, blk, kv],
+                                       non_blocking=pin)
+            out.append(host)
+        return out[0], out[1]
+
+    def upload_page(self, blk: int, k, v) -> None:
+        """Write K and V (``download_page``'s shapes and type) into page
+        ``blk`` of the existing cache, in place and queued on the current
+        stream: every captured step graph holds the cache's address, so
+        the cache is never rebound."""
+        L, bs = self.model_cfg.num_layers, self.cfg.block_size
+        pin = self.device.type == "cuda"
+        for kv, host in ((0, k), (1, v)):
+            self.kv_cache[:, blk, kv].copy_(
+                host.reshape(L, bs, -1), non_blocking=pin)
+
+    # ------------------------------------------------------------------
     # Device steps
     # ------------------------------------------------------------------
 

@@ -1,19 +1,29 @@
 """Continuous-batching scheduler: admission, chunked prefill, preemption.
 
-A copy of the JAX package's ``engine/scheduler.py`` for the paths this
-slice serves. Each call to :meth:`Scheduler.schedule` emits one device
-step: either a set of prefill chunks (token-budget bounded) or one decode
-batch over all running sequences. Out-of-pages decode preempts the
-youngest sequence (free its pages, recompute later).
+A copy of the JAX package's ``engine/scheduler.py``. Each call to
+:meth:`Scheduler.schedule` emits one device step: either a set of prefill
+chunks (token-budget bounded) or one decode batch over all running
+sequences.
+
+- **Deadlines**: sequences whose end-to-end budget expired are shed
+  first, queued ones before any prefill step, running ones between
+  decode steps (``SchedulerOutput.expired``).
+- **KV swap** (with a ``swapper``, ``engine/swap.py``): out of pages,
+  the youngest sequence is parked — its committed pages stay addressed
+  in place, its uncommitted tail goes to a host stash — instead of
+  recomputed; ``swapped`` and ``waiting`` admit as one stamp-ordered
+  FIFO; with work waiting or parked, a running sequence that decoded
+  ``swap_quantum`` tokens since its admission rotates out.
+- **Tenants**: the waiting queue admits interactive before batch and,
+  within a tier, by deficit round robin across tenants; batch-tier
+  sequences are preempted first, also to admit a waiting interactive
+  one.
 
 While a pipelined decode burst is in flight, ``schedule(locked=...)``
-never preempts its members (the device still writes through their
-pages) and reports ``blocked_on_locked`` when one of them needs pages
-only another member holds; ``decode_lookahead`` reserves the pages of
-the continuation that writes one burst past the host's view.
-
-Not ported yet: KV swap (preemption always recomputes), tenant-fair
-admission (``tenant_fairness=True`` raises) and deadline shedding.
+never sheds, rotates or preempts its members (the device still writes
+through their pages) and reports ``blocked_on_locked`` when one of them
+needs pages only another member holds; ``decode_lookahead`` reserves the
+pages of the continuation that writes one burst past the host's view.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from collections import deque
 from typing import Deque, FrozenSet, List, Optional
 
 from ..logging_utils import init_logger
+from ..resilience.tenancy import DeficitScheduler
 from .kv_manager import BlockAllocator, NoFreeBlocksError
 from .sequence import Sequence, SequenceStatus
 
@@ -40,7 +51,19 @@ class SchedulerConfig:
     # pipelines bursts (the in-flight continuation writes one burst past
     # what the host has seen, so its pages must exist at dispatch time).
     decode_lookahead: int = 1
-    tenant_fairness: bool = False
+    # Fair timeslicing when more live users than the cache holds (needs
+    # a swapper): after a running sequence has decoded this many tokens
+    # since its last (re)admission, it may rotate out in favor of a
+    # parked or waiting one. 0 = rotate only under allocation pressure.
+    swap_quantum: int = 0
+    # Drop sequences whose end-to-end budget (Sequence.deadline,
+    # monotonic) expired: queued ones before they take a prefill step,
+    # running ones between decode steps.
+    deadline_shedding: bool = True
+    # Admit the waiting queue weighted-fair across tenants with strict
+    # tier priority (interactive before batch), and preempt batch-tier
+    # sequences first. With one tenant and tier this is plain FIFO.
+    tenant_fairness: bool = True
 
 
 @dataclasses.dataclass
@@ -55,6 +78,9 @@ class SchedulerOutput:
     prefills: List[PrefillItem] = dataclasses.field(default_factory=list)
     decodes: List[Sequence] = dataclasses.field(default_factory=list)
     preempted: List[Sequence] = dataclasses.field(default_factory=list)
+    # Sequences shed this pass because their deadline expired (pages
+    # already released): the engine answers them finish_reason="deadline".
+    expired: List[Sequence] = dataclasses.field(default_factory=list)
     n_decode_steps: int = 1
     # A locked (in-flight-burst) sequence needed pages it could not get
     # without evicting another locked sequence: the engine must drain the
@@ -67,23 +93,34 @@ class SchedulerOutput:
 
 
 class Scheduler:
-    def __init__(self, config: SchedulerConfig, allocator: BlockAllocator):
-        if config.tenant_fairness:
-            raise NotImplementedError(
-                "tenant-fair scheduling is not ported to the PyTorch package"
-            )
+    def __init__(self, config: SchedulerConfig, allocator: BlockAllocator,
+                 swapper=None):
         self.config = config
         self.allocator = allocator
+        # Optional engine/swap.KVSwapper: preemption parks KV host-side
+        # and resumes without recompute.
+        self.swapper = swapper
         self.waiting: Deque[Sequence] = deque()
         self.running: List[Sequence] = []
-        # Monotonic admission stamp: preempted sequences keep theirs and
-        # re-enter the waiting line in stamp order.
+        self.swapped: Deque[Sequence] = deque()
+        # Monotonic admission stamp: ``waiting`` and ``swapped`` form ONE
+        # logical FIFO (else rotation would free pages for a waiting
+        # request only for the rotated-out sequence to reclaim them).
+        # Involuntary preemption or swap keeps the original stamp (front
+        # of the line); voluntary rotation takes a fresh one (back).
         self._stamp = 0
         # (request_id, num_free) of the last head-of-line admission failure:
         # no point re-running the prefix match until free pages change.
         self._admit_blocked: Optional[tuple] = None
         # Request ids of the in-flight burst's members (this pass).
         self._locked: FrozenSet[str] = frozenset()
+        # Deadline sheds (engine stats → pst:deadline_shed_*).
+        self.deadline_sheds_queued = 0  # shed before any prefill step
+        self.deadline_sheds_running = 0  # shed between decode steps
+        # DRR credit across tenants for the admission order, and the
+        # batch-tier preemptions made for interactive work.
+        self._tenant_drr = DeficitScheduler()
+        self.batch_preemptions = 0
 
     # -- queue ops --------------------------------------------------------
 
@@ -104,13 +141,17 @@ class Scheduler:
                 f"prompt of {seq.num_prompt_tokens} tokens needs more KV "
                 f"pages than the engine has ({self.allocator.num_blocks})"
             )
-        self._stamp += 1
-        seq.queue_stamp = self._stamp
+        seq.queue_stamp = self._next_stamp()
         self.waiting.append(seq)
+
+    def _next_stamp(self) -> int:
+        self._stamp += 1
+        return self._stamp
 
     @staticmethod
     def _insert_by_stamp(dq: "Deque[Sequence]", seq: Sequence) -> None:
-        """Insert keeping the deque ascending by queue_stamp."""
+        """Insert keeping the deque ascending by queue_stamp (after rotate
+        and resume cycles the running list is no longer stamp-ordered)."""
         if not dq or dq[-1].queue_stamp <= seq.queue_stamp:
             dq.append(seq)
             return
@@ -120,7 +161,7 @@ class Scheduler:
                 return
 
     def abort(self, request_id: str) -> Optional[Sequence]:
-        for q in (self.waiting, self.running):
+        for q in (self.waiting, self.running, self.swapped):
             for seq in list(q):
                 if seq.request_id == request_id:
                     q.remove(seq)
@@ -133,7 +174,7 @@ class Scheduler:
         """Remove a sequence from the queues WITHOUT releasing its pages:
         an in-flight pipelined burst still writes through its block table,
         so the engine releases them when the burst drains."""
-        for q in (self.waiting, self.running):
+        for q in (self.waiting, self.running, self.swapped):
             for seq in list(q):
                 if seq.request_id == request_id:
                     q.remove(seq)
@@ -152,6 +193,8 @@ class Scheduler:
         seq.finish_reason = reason
         self.allocator.release_all(seq.block_ids)
         seq.block_ids = []
+        if self.swapper is not None:
+            self.swapper.drop(seq.request_id)
 
     @property
     def num_waiting(self) -> int:
@@ -161,8 +204,12 @@ class Scheduler:
     def num_running(self) -> int:
         return len(self.running)
 
+    @property
+    def num_swapped(self) -> int:
+        return len(self.swapped)
+
     def has_work(self) -> bool:
-        return bool(self.waiting or self.running)
+        return bool(self.waiting or self.running or self.swapped)
 
     # -- the step ---------------------------------------------------------
 
@@ -172,12 +219,22 @@ class Scheduler:
         n_decode: Optional[int] = None,
     ) -> SchedulerOutput:
         """``locked``: request ids whose pages an in-flight burst
-        references; none of them is preempted this pass. ``n_decode``:
-        the burst depth for this pass (the engine's adaptive hint),
-        clamped by the same per-sequence limits as the configured one."""
+        references; none of them is shed, rotated or preempted this pass.
+        ``n_decode``: the burst depth for this pass (the engine's adaptive
+        hint), clamped by the same per-sequence limits as the configured
+        one."""
         self._locked = locked
         out = SchedulerOutput()
-        self._admit()
+        # Deadline sweep first: an expired sequence never takes a device
+        # step, nor an admission that pins pages.
+        self._shed_expired(out)
+        self._admit(out)
+        # Fair timeslicing: with parked or queued work left after
+        # admission, rotate out the running sequence with the most decode
+        # progress past the quantum; the next pass admits into its pages.
+        if (self.swapper is not None and (self.swapped or self.waiting)
+                and len(self.running) > 1):
+            self._rotate()
 
         # Phase 1: sequences needing prompt (or post-preemption recompute)
         # work get chunks, oldest first, bounded by the step token budget.
@@ -227,7 +284,121 @@ class Scheduler:
         out.n_decode_steps = n
         return out
 
+    # -- state for stats ----------------------------------------------------
+
+    def flight_depths(self) -> tuple:
+        """(waiting, running, swapped, batch-tier running rows). Read on
+        the step thread, which mutates the queues."""
+        running = self.running
+        batch = sum(1 for s in running if s.tier_rank)
+        return (len(self.waiting), len(running), len(self.swapped), batch)
+
+    def queue_age_by_tier(self, now: Optional[float] = None) -> dict:
+        """The oldest queued (waiting or parked) sequence's age per tier,
+        in seconds: the starvation signal behind
+        ``pst:tenant_queue_age_*``."""
+        now = now if now is not None else time.monotonic()
+        ages = {"interactive": 0.0, "batch": 0.0}
+        # list(deque) is one C-level copy (atomic under the GIL): this runs
+        # on an HTTP thread while the step thread mutates the queues.
+        for q in (list(self.waiting), list(self.swapped)):
+            for seq in q:
+                tier = "batch" if seq.tier_rank else "interactive"
+                ages[tier] = max(ages[tier], now - seq.arrival_time)
+        return ages
+
     # -- internals --------------------------------------------------------
+
+    def _shed_expired(self, out: SchedulerOutput) -> None:
+        """Drop sequences whose deadline budget is gone, before a device
+        step is spent on them: queued or parked ones from the line
+        (``deadline_sheds_queued``), running ones between decode steps
+        (``deadline_sheds_running``). Members of an in-flight burst are
+        skipped (the device still writes through their pages) and caught
+        on the pass after the drain."""
+        if not self.config.deadline_shedding:
+            return
+        now = time.monotonic()
+        for q, running in ((self.waiting, False), (self.swapped, False),
+                           (self.running, True)):
+            for seq in [s for s in q if s.deadline_expired(now)]:
+                if seq.request_id in self._locked:
+                    continue
+                q.remove(seq)
+                self._finish(seq, "deadline")
+                if running:
+                    self.deadline_sheds_running += 1
+                else:
+                    self.deadline_sheds_queued += 1
+                    self._admit_blocked = None  # free pages changed
+                out.expired.append(seq)
+                logger.info(
+                    "shedding request %s (deadline exceeded while %s)",
+                    seq.request_id, "running" if running else "queued",
+                )
+
+    def _rotate(self) -> None:
+        """Swap out at most ONE quantum-expired running sequence per pass
+        (bounds thrash; steady state rotates every ``swap_quantum``
+        tokens)."""
+        q = self.config.swap_quantum
+        if q <= 0:
+            return
+        best: Optional[Sequence] = None
+        for seq in self.running:
+            if seq.request_id in self._locked or seq.in_prefill:
+                continue
+            progress = seq.num_tokens - seq.resume_marker
+            if progress >= q and (
+                best is None
+                or progress > best.num_tokens - best.resume_marker
+            ):
+                best = seq
+        if best is not None and self.swapper.can_stash(best, self.allocator):
+            self.running.remove(best)
+            self.swapper.swap_out(best, self.allocator)
+            best.queue_stamp = self._next_stamp()  # back of the line
+            self.swapped.append(best)
+            self._admit_blocked = None  # free pages changed
+
+    def _next_waiting_index(self) -> int:
+        """Which waiting sequence admits next: FIFO (index 0) when tenant
+        fairness is off or the queue is homogeneous; otherwise the best
+        tier first and, within it, tenants by deficit round robin. Stamp
+        order holds within each (tier, tenant) class."""
+        if not self.config.tenant_fairness or len(self.waiting) < 2:
+            return 0
+        keys = {(s.tier_rank, s.tenant) for s in self.waiting}
+        if len(keys) == 1:
+            return 0
+        best_rank = min(rank for rank, _ in keys)
+        heads: dict = {}
+        for i, s in enumerate(self.waiting):
+            if s.tier_rank == best_rank and s.tenant not in heads:
+                heads[s.tenant] = i
+        pick = self._tenant_drr.pick({t: 1.0 for t in heads})
+        return heads.get(pick, 0)
+
+    def _preempt_batch_for(self, seq: Sequence, out: SchedulerOutput) -> bool:
+        """An interactive sequence is blocked on pages that batch-tier
+        work holds: preempt ONE running batch-tier sequence (swap first)
+        and report whether pages were freed."""
+        victim: Optional[Sequence] = None
+        for cand in reversed(self.running):  # youngest batch first
+            if cand.request_id in self._locked or cand.tier_rank != 1:
+                continue
+            victim = cand
+            break
+        if victim is None:
+            return False
+        self._preempt(victim, out)
+        self.batch_preemptions += 1
+        self._admit_blocked = None  # free pages changed
+        logger.info(
+            "preempting batch-tier request %s for waiting interactive %s",
+            victim.request_id, seq.request_id,
+        )
+        return True
 
     def _promised_pages(self) -> int:
         """Pages already-admitted sequences will still allocate to finish
@@ -237,10 +408,48 @@ class Scheduler:
             s.blocks_needed(s.num_prompt_tokens, bs) for s in self.running
         )
 
-    def _admit(self) -> None:
+    def _admit(self, out: SchedulerOutput) -> None:
+        # ``swapped`` and ``waiting`` admit as one stamp-ordered FIFO. A
+        # swap-in is gated by a worst-case page check, so a blocked resume
+        # does not churn I/O every pass.
         promised = self._promised_pages()
+        while self.swapped and len(self.running) < self.config.max_num_seqs:
+            seq = self.swapped[0]
+            if self.waiting and self.waiting[0].queue_stamp < seq.queue_stamp:
+                break  # an older waiting request admits first
+            # Headroom beyond the bare resume need: each running sequence
+            # may grow a page within a few steps, and a resume that leaves
+            # no slack is swapped right back out. With NOTHING running the
+            # gate must not hold (a sequence that once filled the pool
+            # would wait forever): swap_in itself degrades safely.
+            reserve = len(self.running) + 1
+            if self.running and (
+                self.swapper.blocks_needed(seq) + reserve + promised
+                > self.allocator.num_free
+            ):
+                return  # no room for the line's head: nobody jumps it
+            self.swapped.popleft()
+            if not self.swapper.swap_in(seq, self.allocator):
+                self._insert_by_stamp(self.swapped, seq)
+                return
+            if seq.status == SequenceStatus.RUNNING:
+                seq.resume_marker = seq.num_tokens
+                if seq.first_scheduled_time is None:
+                    seq.first_scheduled_time = time.monotonic()
+                self.running.append(seq)
+            else:
+                # Part of the committed chain was reused: the sequence
+                # recomputes from its longest surviving prefix.
+                self._insert_by_stamp(self.waiting, seq)
+        # A parked head still in ``swapped`` here yielded to an older
+        # waiting request (a head that could not resume returned above),
+        # so the waiting queue's pick admits. The JAX scheduler holds its
+        # pick behind an older parked head of its tier or better: with
+        # tiers ordering the pick, an interactive pick then waits on the
+        # parked head, which waits on an older batch request, for good.
         while self.waiting and len(self.running) < self.config.max_num_seqs:
-            seq = self.waiting[0]
+            idx = self._next_waiting_index()
+            seq = self.waiting[idx]
             if self._admit_blocked == (seq.request_id, self.allocator.num_free):
                 break  # nothing changed since the last failed attempt
             # Prefix-cache lookup; never match the full token list — at
@@ -265,11 +474,20 @@ class Scheduler:
                     self.allocator.release_all(seq.block_ids)
                     seq.reset_for_recompute()
                     seq.status = SequenceStatus.WAITING
+                # Before declaring the pool full for a waiting interactive
+                # sequence, evict one running batch-tier sequence and
+                # retry: batch work never starves interactive prefills.
+                if (self.config.tenant_fairness and seq.tier_rank == 0
+                        and self._preempt_batch_for(seq, out)):
+                    promised = self._promised_pages()
+                    continue
                 self._admit_blocked = (seq.request_id, self.allocator.num_free)
                 break
-            self.waiting.popleft()
+            del self.waiting[idx]
             self._admit_blocked = None
+            self._tenant_drr.charge(seq.tenant)
             seq.status = SequenceStatus.RUNNING
+            seq.resume_marker = seq.num_tokens
             if seq.first_scheduled_time is None:
                 seq.first_scheduled_time = time.monotonic()
             self.running.append(seq)
@@ -307,6 +525,13 @@ class Scheduler:
                 self._preempt(victim, out)
 
     def _pick_victim(self, exclude: Sequence) -> Optional[Sequence]:
+        if self.config.tenant_fairness:
+            # Batch-tier sequences go first: an interactive sequence loses
+            # pages only when no batch victim remains.
+            for seq in reversed(self.running):  # youngest batch first
+                if (seq is not exclude and seq.request_id not in self._locked
+                        and seq.tier_rank == 1):
+                    return seq
         for seq in reversed(self.running):  # youngest first (vLLM policy)
             if seq is not exclude and seq.request_id not in self._locked:
                 return seq
@@ -318,6 +543,16 @@ class Scheduler:
         # The victim may already have been granted work this step.
         out.decodes[:] = [s for s in out.decodes if s is not seq]
         out.prefills[:] = [it for it in out.prefills if it.seq is not seq]
+        if (self.swapper is not None and not seq.in_prefill
+                and self.swapper.can_stash(seq, self.allocator)):
+            # Park KV instead of recompute: the committed prefix stays
+            # addressed in place; only the tail pages move host-side. It
+            # keeps its original stamp: near the front of the resume line.
+            logger.info("swapping out request %s (out of KV pages)",
+                        seq.request_id)
+            self.swapper.swap_out(seq, self.allocator)
+            self._insert_by_stamp(self.swapped, seq)
+            return
         logger.warning("preempting request %s (out of KV pages)", seq.request_id)
         self.allocator.release_all(seq.block_ids)
         seq.reset_for_recompute()

@@ -1,10 +1,10 @@
 """Request-side state for the serving engine: sampling params + sequences.
 
 A copy of the JAX package's ``engine/sequence.py`` without what this slice
-does not serve (LoRA salts, tenants, deadlines, disaggregated KV handoff,
-cost attribution, controller chunk hashes). A :class:`Sequence` owns its
-token ids, its KV page list and the prefix-cache commit cursor; the KV
-itself lives in the runner's cache tensor.
+does not serve (LoRA salts, disaggregated KV handoff, cost attribution,
+controller chunk hashes). A :class:`Sequence` owns its token ids, its KV
+page list and the prefix-cache commit cursor; the KV itself lives in the
+runner's cache tensor.
 """
 
 from __future__ import annotations
@@ -87,6 +87,7 @@ class SequenceStatus(Enum):
     WAITING = "waiting"
     RUNNING = "running"
     PREEMPTED = "preempted"
+    SWAPPED = "swapped"  # live KV parked host-side (engine/swap.py)
     FINISHED = "finished"
 
 
@@ -99,6 +100,9 @@ class Sequence:
         prompt_token_ids: Seq[int],
         sampling: SamplingParams,
         arrival_time: Optional[float] = None,
+        deadline: Optional[float] = None,
+        tenant: str = "default",
+        tenant_class: str = "interactive",
     ):
         self.request_id = request_id
         self.prompt_token_ids: List[int] = list(prompt_token_ids)
@@ -110,6 +114,17 @@ class Sequence:
         self.first_scheduled_time: Optional[float] = None
         self.first_token_time: Optional[float] = None
         self.finish_reason: Optional[str] = None
+        # Monotonic expiry of the request's end-to-end budget (None: no
+        # deadline). The scheduler sheds expired sequences before they
+        # take a device step.
+        self.deadline = deadline
+        # Tenant identity and tier, stamped by the router (X-PST-Tenant /
+        # X-PST-Tenant-Class): the scheduler admits weighted-fair across
+        # tenants and preempts batch-tier work first.
+        self.tenant = tenant
+        self.tenant_class = (
+            tenant_class if tenant_class == "batch" else "interactive"
+        )
 
         # KV bookkeeping.
         self.block_ids: List[int] = []
@@ -118,10 +133,18 @@ class Sequence:
         self.block_hashes: List[int] = []  # hash per committed block
         self._committed_blocks = 0
         self._last_hash = 0
-        # Admission-FIFO stamp (scheduler._admit).
+        # Token count at admission or the last swap-in: the scheduler's
+        # rotation quantum measures decode progress since this marker.
+        self.resume_marker = 0
+        # Admission-FIFO stamp across waiting and swapped (scheduler._admit).
         self.queue_stamp = 0
 
     # -- lengths ----------------------------------------------------------
+
+    @property
+    def tier_rank(self) -> int:
+        """0 = interactive (served first), 1 = batch."""
+        return 1 if self.tenant_class == "batch" else 0
 
     @property
     def num_prompt_tokens(self) -> int:
@@ -136,8 +159,19 @@ class Sequence:
         return self.prompt_token_ids + self.output_token_ids
 
     @property
+    def in_prefill(self) -> bool:
+        return self.num_computed_tokens < self.num_prompt_tokens and not (
+            self.output_token_ids
+        )
+
+    @property
     def is_finished(self) -> bool:
         return self.status == SequenceStatus.FINISHED
+
+    def deadline_expired(self, now: Optional[float] = None) -> bool:
+        if self.deadline is None:
+            return False
+        return (now if now is not None else time.monotonic()) >= self.deadline
 
     # -- KV paging --------------------------------------------------------
 

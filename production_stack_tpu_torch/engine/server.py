@@ -5,9 +5,12 @@ module behind it, with its status codes, response keys and headers:
 
 - ``POST /v1/completions`` and ``POST /v1/chat/completions``, streamed
   as server-sent events or not, ``logprobs`` included, every sampling
-  field mapped as the JAX ``build_sampling`` maps it. A value the port
-  does not serve yet (``n`` or ``best_of`` above 1, ``echo``, a
-  ``suffix``, a list of prompts) gets a 400 that names the field.
+  field mapped as the JAX ``build_sampling`` maps it. A completion's
+  prompt takes the four OpenAI forms (a string, a list of token ids, a
+  list of either: one choice a prompt); ``n`` and ``best_of`` sample
+  candidates seeded ``seed + i`` (ranked by mean token logprob when
+  ``best_of > n``), ``echo`` prepends the prompt, ``suffix`` is accepted
+  and ignored.
 - ``POST /tokenize`` (a ``prompt`` or chat ``messages``) and
   ``POST /detokenize``.
 - ``GET /metrics``: the ``vllm:`` families the router's scraper reads
@@ -21,8 +24,15 @@ Bodies are plain JSON dicts. While the engine warms up, sleeps or drains
 it answers a generation request with a 503 (``X-PST-Warming: 1``, or
 ``X-PST-Draining: 1``) that lets a router fail over.
 
+The router's hop headers: ``X-PST-Deadline-Ms`` (a budget already spent
+gets an instant 504 tagged ``X-PST-Deadline-Exceeded: 1``, as does a
+request the scheduler sheds later; a streamed one ends with a frame whose
+``finish_reason`` is ``"deadline"``), ``X-PST-Tenant`` and
+``X-PST-Tenant-Class`` (the scheduler's admission order).
+
     python -m production_stack_tpu_torch.engine.server --model llama-3-8b --port 8011 \
-        [--quantization int4] [--warmup lazy|full] [--no-overlap-decode]
+        [--quantization int4] [--warmup lazy|full] [--no-overlap-decode] \
+        [--no-kv-swap] [--no-deadline-shedding] [--no-tenant-fairness]
 
 ``--model`` takes a preset name or a local HF checkpoint directory (its
 ``config.json`` and safetensors; its tokenizer files unless
@@ -32,6 +42,7 @@ it answers a generation request with a 503 (``X-PST-Warming: 1``, or
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import threading
 import time
@@ -43,6 +54,7 @@ from urllib.parse import parse_qs, urlsplit
 from .. import __version__
 from ..logging_utils import init_logger
 from ..obs.prometheus_text import CONTENT_TYPE, Registry
+from ..resilience.deadline import DEADLINE_EXCEEDED_HEADER, parse_deadline
 from .async_engine import AsyncLLMEngine
 from .config import EngineConfig
 from .sequence import SamplingParams
@@ -134,30 +146,22 @@ def build_sampling(req: dict, max_model_len: int, prompt_len: int,
     )
 
 
-def unserved_field(req: dict, is_chat: bool = False) -> Optional[str]:
-    """The first field of a completion request whose value the port does
-    not serve yet, as a 400's message; None when it serves them all. A
-    chat request has no ``best_of``, ``echo`` or ``suffix`` (the JAX
-    server ignores them there as unknown fields)."""
-    for name in ("n",) if is_chat else ("n", "best_of"):
-        if _opt(req, name, int, 1) > 1:
-            return f"{name}={req[name]} is not served yet (only 1)"
-    if is_chat:
-        return None
-    if req.get("echo"):
-        return "echo is not served yet"
-    if req.get("suffix") is not None:
-        return "suffix is not served yet"
-    return None
-
-
-def fmt_completion_logprobs(tok, entries, base_offset: int = 0) -> dict:
+def fmt_completion_logprobs(tok, entries, echo_ids=None,
+                            base_offset: int = 0) -> dict:
     """The OpenAI completions ``logprobs`` object of the JAX server's
-    ``_fmt_completion_logprobs`` (no echoed prompt: echo is not served).
-    ``base_offset`` anchors ``text_offset`` in the whole completion text
-    for streamed chunks."""
+    ``_fmt_completion_logprobs``. Echoed prompt tokens (``echo_ids``)
+    carry null logprobs (no prefill logits are kept). ``base_offset``
+    anchors ``text_offset`` in the whole completion text for streamed
+    chunks."""
     tokens, token_lps, top_lps, offsets = [], [], [], []
     off = base_offset
+    for tid in echo_ids or []:
+        s = tok.decode([tid])
+        tokens.append(s)
+        token_lps.append(None)
+        top_lps.append(None)
+        offsets.append(off)
+        off += len(s)
     for e in entries:
         s = tok.decode([e["token_id"]])
         tokens.append(s)
@@ -187,6 +191,26 @@ def fmt_chat_logprobs(tok, entries) -> dict:
     ]}
 
 
+def completion_prompts(prompt) -> list:
+    """A completion's ``prompt`` in the four OpenAI forms — a string, a
+    list of token ids, a list of strings, a list of token-id lists — as a
+    list of prompts (each a string or a list of ids). Any other shape
+    raises ValueError."""
+    if isinstance(prompt, str):
+        return [prompt]
+    if not isinstance(prompt, list):
+        raise ValueError("prompt must be a string, a list of token ids or "
+                         "a list of either")
+    if prompt and all(isinstance(x, int) for x in prompt):
+        return [prompt]
+    if all(isinstance(x, str) for x in prompt) or all(
+            isinstance(x, list) and all(isinstance(t, int) for t in x)
+            for x in prompt):
+        return list(prompt)
+    raise ValueError("prompt must be a string, a list of token ids or a "
+                     "list of either")
+
+
 def parse_messages(raw) -> List[ChatMessage]:
     """A chat request's ``messages``; raises ValueError on a bad shape."""
     if not isinstance(raw, list):
@@ -197,10 +221,8 @@ def parse_messages(raw) -> List[ChatMessage]:
 class EngineMetrics:
     """The ``vllm:`` families of the JAX server's ``EngineMetrics``, with
     its names, help strings, label and buckets. Families of features the
-    port does not have yet (speculation, deadlines, swap, KV transfer,
-    tenants) are exported at 0, as a JAX engine with those features off
-    exports them; ``pst:pipelined_bursts`` and ``pst:adaptive_deep_bursts``
-    count the engine's pipelined and adaptive deep bursts."""
+    port does not have yet (speculation, KV transfer) are exported at 0,
+    as a JAX engine with those features off exports them."""
 
     def __init__(self, model: str):
         self.registry = r = Registry()
@@ -302,7 +324,7 @@ class EngineMetrics:
 
     def refresh(self, stats: dict) -> None:
         """The JAX server's mapping from ``stats()``, key for key (the
-        totals the port does not keep read 0)."""
+        totals the engine does not keep read 0)."""
         self.running.set(stats["num_requests_running"])
         self.waiting.set(stats["num_requests_waiting"])
         self.swapped.set(
@@ -570,101 +592,309 @@ def create_engine_app(
                             headers={"X-PST-Warming": "1"})
                 return
             tok = engine.engine.tokenizer
+            if is_chat:
+                try:
+                    # continue_final_message renders the final turn open,
+                    # so generation continues it instead of a new turn.
+                    cfm = bool(req.get("continue_final_message", False))
+                    ids = tok.encode(tok.apply_chat_template(
+                        parse_messages(req.get("messages", [])),
+                        add_generation_prompt=not cfm,
+                        continue_final_message=cfm))
+                except (TypeError, ValueError) as e:
+                    self._error(f"invalid request body: {e}")
+                    return
+                self._serve(req, ids, is_chat=True)
+                return
             try:
-                unserved = unserved_field(req, is_chat)
-                if unserved:
-                    raise ValueError(unserved)
-                ids = self._prompt_ids(req, is_chat)
-                max_len = engine.engine.cfg.max_model_len
+                prompts = completion_prompts(req.get("prompt", ""))
+                fan_out = max(_opt(req, "n", int, 1),
+                              _opt(req, "best_of", int, 1))
+            except (TypeError, ValueError) as e:
+                self._error(f"invalid request body: {e}")
+                return
+            if not prompts:
+                self._error("prompt must not be empty")
+                return
+            if len(prompts) == 1:
+                self._serve(req, prompts[0], is_chat=False)
+                return
+            if req.get("stream"):
+                self._error("streaming is not supported for batched prompts")
+                return
+            if fan_out > 1:
+                self._error(
+                    "n/best_of > 1 is not supported for batched prompts")
+                return
+            self._serve_batch(req, prompts)
+
+        # -- admission: token ids, deadline, tenant -----------------------
+
+        def _deadline_error(self) -> None:
+            # A budget shed, not an engine failure: the marker keeps the
+            # router's breaker out of it.
+            self._error("deadline exceeded", 504, "deadline_exceeded",
+                        headers={DEADLINE_EXCEEDED_HEADER: "1"})
+
+        def _request_deadline(self):
+            """``(expired, deadline)`` from ``X-PST-Deadline-Ms``: an
+            already spent budget is shed here, before tokenization's work
+            reaches the scheduler; else the monotonic expiry the
+            scheduler sheds on (None without a header)."""
+            if not engine.engine.cfg.deadline_shedding:
+                return False, None
+            d = parse_deadline(self.headers)
+            if d is None:
+                return False, None
+            if d.expired():
+                metrics.deadline_shed_admission.inc()
+                return True, None
+            return False, d.expires_at
+
+        def _request_tenant(self) -> dict:
+            """The router-stamped tenant and tier (trusted: the router
+            overwrites what clients send); an engine reached directly
+            treats the caller as the default interactive tenant unless it
+            declares itself."""
+            if not engine.engine.cfg.tenant_fairness:
+                return {}
+            return {"tenant": self.headers.get("X-PST-Tenant"),
+                    "tenant_class": self.headers.get("X-PST-Tenant-Class")}
+
+        @staticmethod
+        def _ids(prompt) -> List[int]:
+            """A prompt of ``completion_prompts``: its ids, or its text's."""
+            if isinstance(prompt, list):
+                return prompt
+            return engine.engine.tokenizer.encode(prompt)
+
+        # -- one prompt ----------------------------------------------------
+
+        def _serve(self, req: dict, prompt, is_chat: bool) -> None:
+            """One prompt (text, or token ids) with its ``n``/``best_of``
+            candidates, streamed or collected: the JAX server's
+            ``_serve_generation``."""
+            tok = engine.engine.tokenizer
+            max_len = engine.engine.cfg.max_model_len
+            try:
+                ids = prompt if is_chat else self._ids(prompt)
                 if len(ids) >= max_len:
                     raise ValueError(
                         f"prompt has {len(ids)} tokens, exceeds "
-                        f"max_model_len={max_len}"
-                    )
+                        f"max_model_len={max_len}")
+                if not engine.engine.scheduler.prompt_fits(len(ids)):
+                    raise ValueError(
+                        f"prompt of {len(ids)} tokens needs more KV pages "
+                        f"than the engine has "
+                        f"({engine.engine.allocator.num_blocks})")
                 sampling = build_sampling(req, max_len, len(ids), tok)
+                n = max(int(req.get("n") or 1), 1)
+                # best_of is a completions field; a chat ignores it.
+                best_of = n if is_chat else int(req.get("best_of") or n)
             except (TypeError, ValueError) as e:
                 self._error(str(e))
                 return
+            expired, deadline = self._request_deadline()
+            if expired:
+                self._deadline_error()
+                return
+            if best_of < n:
+                self._error("best_of must be >= n")
+                return
+            # OpenAI's ceilings, and this server's fan-out bound.
+            if best_of > 20 and best_of > n:
+                self._error("best_of must be <= 20")
+                return
+            if n > 128 or best_of > 128:
+                self._error("n must be <= 128")
+                return
+            echo = bool(req.get("echo")) and not is_chat
             rid = f"{'chatcmpl' if is_chat else 'cmpl'}-{uuid.uuid4().hex[:24]}"
             meta = dict(rid=rid, created=int(time.time()),
                         model=req.get("model", model_name), is_chat=is_chat,
-                        n_prompt=len(ids), start=time.time())
-            gen = engine.generate(
-                prompt_token_ids=ids, sampling=sampling, request_id=rid
-            )
+                        ids=ids, echo=echo, start=time.time())
+            admit = dict(deadline=deadline, **self._request_tenant())
+            if n > 1 or best_of > 1:
+                if req.get("stream"):
+                    self._error(
+                        "streaming with n/best_of > 1 is not supported")
+                    return
+                self._serve_choices(sampling, meta, admit, n, best_of)
+                return
+            gen = engine.generate(prompt_token_ids=ids, sampling=sampling,
+                                  request_id=rid, **admit)
             if req.get("stream"):
                 usage = bool((req.get("stream_options") or {}).get(
                     "include_usage"))
                 self._stream(gen, meta, usage)
-            else:
-                self._collect(gen, meta)
+                return
+            result = self._collect(gen)
+            if result is None:
+                return
+            if result["finish_reason"] == "deadline":
+                # Shed by the scheduler, queued past its budget or expired
+                # mid-decode: nothing useful to return.
+                self._deadline_error()
+                return
+            n_out = len(result["token_ids"])
+            self._finished(meta, len(ids), n_out)
+            self._reply(meta, [self._choice(meta, result, 0)], n_out)
 
-        @staticmethod
-        def _prompt_ids(req: dict, is_chat: bool) -> List[int]:
+        def _serve_choices(self, sampling: SamplingParams, meta: dict,
+                           admit: dict, n: int, best_of: int) -> None:
+            """``best_of`` candidates of one prompt, candidate ``i`` seeded
+            ``seed + i``, all submitted together; with ``best_of > n`` the
+            ``n`` of highest mean token logprob are kept (so logprobs are
+            asked for internally). Every candidate's tokens are billed."""
+            rank = best_of > n
+            lp = 0 if rank and sampling.logprobs is None else sampling.logprobs
+            rid = meta["rid"]
+            gens = [engine.generate(
+                prompt_token_ids=meta["ids"], request_id=f"{rid}-{i}",
+                sampling=dataclasses.replace(
+                    sampling, logprobs=lp,
+                    seed=None if sampling.seed is None else sampling.seed + i),
+                **admit) for i in range(best_of)]
+            results = self._collect_all(gens, rid)
+            if results is None:
+                return
+            n_out = sum(len(r["token_ids"]) for r in results)
+            if rank:
+                def mean_lp(r):
+                    lps = [e["logprob"] for e in r["logprobs"]]
+                    return sum(lps) / max(len(lps), 1)
+
+                results.sort(key=mean_lp, reverse=True)
+                results = results[:n]
+                if sampling.logprobs is None:  # not asked for: strip
+                    for r in results:
+                        r["logprobs"] = []
+            self._finished(meta, len(meta["ids"]), n_out)
+            self._reply(meta, [self._choice(meta, r, i)
+                               for i, r in enumerate(results)], n_out)
+
+        # -- a batch of prompts --------------------------------------------
+
+        def _serve_batch(self, req: dict, prompts: list) -> None:
+            """One choice a prompt, index-aligned (no logprobs, as the JAX
+            server's ``_serve_completion_batch``)."""
             tok = engine.engine.tokenizer
-            if is_chat:
-                # continue_final_message renders the final turn open, so
-                # generation continues it instead of a new assistant turn.
-                cfm = bool(req.get("continue_final_message", False))
-                return tok.encode(tok.apply_chat_template(
-                    parse_messages(req.get("messages", [])),
-                    add_generation_prompt=not cfm,
-                    continue_final_message=cfm))
-            prompt = req.get("prompt", "")
-            if isinstance(prompt, list) and all(isinstance(x, int)
-                                                for x in prompt):
-                return [int(x) for x in prompt]
-            if isinstance(prompt, str):
-                return tok.encode(prompt)
-            raise ValueError("prompt must be a string or a list of token ids "
-                             "(a list of prompts is not served yet)")
+            max_len = engine.engine.cfg.max_model_len
+            expired, deadline = self._request_deadline()
+            if expired:
+                self._deadline_error()
+                return
+            batch = []
+            try:
+                for p in prompts:
+                    ids = self._ids(p)
+                    if len(ids) >= max_len:
+                        raise ValueError(
+                            f"prompt has {len(ids)} tokens (max {max_len})")
+                    batch.append((ids, build_sampling(req, max_len, len(ids),
+                                                      tok)))
+            except (TypeError, ValueError) as e:
+                self._error(str(e))
+                return
+            rid = f"cmpl-{uuid.uuid4().hex[:24]}"
+            meta = dict(rid=rid, created=int(time.time()),
+                        model=req.get("model", model_name), is_chat=False,
+                        echo=False, start=time.time())
+            admit = dict(deadline=deadline, **self._request_tenant())
+            gens = [engine.generate(prompt_token_ids=ids, sampling=sp,
+                                    request_id=f"{rid}-{i}", **admit)
+                    for i, (ids, sp) in enumerate(batch)]
+            results = self._collect_all(gens, rid)
+            if results is None:
+                return
+            n_in = sum(len(ids) for ids, _ in batch)
+            n_out = sum(len(r["token_ids"]) for r in results)
+            self._finished(meta, n_in, n_out)
+            self._reply(meta, [
+                {"index": i, "text": r["text"], "logprobs": None,
+                 "finish_reason": r["finish_reason"]}
+                for i, r in enumerate(results)], n_out, n_in)
 
-        def _finished(self, meta: dict, n_out: int) -> None:
+        # -- answers -------------------------------------------------------
+
+        def _finished(self, meta: dict, n_in: int, n_out: int) -> None:
             metrics.e2e.observe(time.time() - meta["start"])
             metrics.success.inc()
-            metrics.prompt_tokens.inc(meta["n_prompt"])
+            metrics.prompt_tokens.inc(n_in)
             metrics.generation_tokens.inc(n_out)
 
-        def _collect(self, gen, meta: dict) -> None:
-            tok = engine.engine.tokenizer
-            text, n_out, finish, entries = [], 0, None, []
+        def _collect(self, gen) -> Optional[dict]:
+            """Drain one request's outputs into its text, token ids,
+            logprob entries and finish; None once an error was answered
+            (a refusal on the engine thread: 400; a failed engine: 500)."""
+            text, token_ids, entries, finish = [], [], [], None
             try:
                 for out in gen:
                     if out.num_output_tokens == 1 and out.ttft is not None:
                         metrics.ttft.observe(out.ttft)
                     text.append(out.text_delta)
-                    n_out = out.num_output_tokens
-                    finish = out.finish_reason or finish
+                    token_ids.extend(out.new_token_ids)
                     entries.extend(out.logprobs or ())
+                    finish = out.finish_reason or finish
             except ValueError as e:  # refused on the engine thread
                 self._error(str(e))
-                return
+                return None
             except RuntimeError as e:  # the engine failed
                 self._error(str(e), 500)
-                return
-            self._finished(meta, n_out)
+                return None
+            return {"text": "".join(text), "token_ids": token_ids,
+                    "logprobs": entries, "finish_reason": finish}
+
+        def _collect_all(self, gens: list, rid: str) -> Optional[list]:
+            """The results of requests ``{rid}-{i}`` submitted together;
+            None once an answer was sent: an error (the others aborted),
+            or a 504 when any ran out of its budget (the whole answer
+            cannot come within it)."""
+            results = []
+            for gen in gens:
+                result = self._collect(gen)
+                if result is None:
+                    for i in range(len(gens)):
+                        engine.abort(f"{rid}-{i}")
+                    return None
+                results.append(result)
+            if any(r["finish_reason"] == "deadline" for r in results):
+                self._deadline_error()
+                return None
+            return results
+
+        def _choice(self, meta: dict, result: dict, index: int) -> dict:
+            """A choice of the JAX server's ``_build_choice``: an echoed
+            prompt leads the text, and its tokens the logprobs."""
+            tok = engine.engine.tokenizer
+            entries, echo = result["logprobs"], meta["echo"]
             if meta["is_chat"]:
-                choice = {"index": 0,
-                          "message": {"role": "assistant",
-                                      "content": "".join(text)},
-                          "logprobs": fmt_chat_logprobs(tok, entries)
-                          if entries else None,
-                          "finish_reason": finish}
-            else:
-                choice = {"index": 0, "text": "".join(text),
-                          "logprobs": fmt_completion_logprobs(tok, entries)
-                          if entries else None,
-                          "finish_reason": finish}
-            n_prompt = meta["n_prompt"]
+                return {"index": index,
+                        "message": {"role": "assistant",
+                                    "content": result["text"]},
+                        "logprobs": fmt_chat_logprobs(tok, entries)
+                        if entries else None,
+                        "finish_reason": result["finish_reason"]}
+            text = result["text"]
+            if echo:
+                text = tok.decode(meta["ids"]) + text
+            return {"index": index, "text": text,
+                    "logprobs": fmt_completion_logprobs(
+                        tok, entries, meta["ids"] if echo else None)
+                    if entries else None,
+                    "finish_reason": result["finish_reason"]}
+
+        def _reply(self, meta: dict, choices: list, n_out: int,
+                   n_in: Optional[int] = None) -> None:
+            n_in = len(meta["ids"]) if n_in is None else n_in
             self._json(200, {
                 "id": meta["rid"],
                 "object": "chat.completion" if meta["is_chat"]
                 else "text_completion",
                 "created": meta["created"], "model": meta["model"],
-                "choices": [choice],
-                "usage": {"prompt_tokens": n_prompt,
-                          "completion_tokens": n_out,
-                          "total_tokens": n_prompt + n_out},
+                "choices": choices,
+                "usage": {"prompt_tokens": n_in, "completion_tokens": n_out,
+                          "total_tokens": n_in + n_out},
             }, headers={"X-Request-Id": meta["rid"]})
 
         def _stream(self, gen, meta: dict, usage: bool) -> None:
@@ -685,8 +915,11 @@ def create_engine_app(
                     "object": "chat.completion.chunk" if is_chat
                     else "text_completion",
                     "created": meta["created"], "model": meta["model"]}
-            n_prompt, n_out = meta["n_prompt"], 0
-            char_off = 0  # text_offset runs over the whole completion
+            n_prompt, n_out = len(meta["ids"]), 0
+            # text_offset runs over the whole completion, an echoed prompt
+            # included; the echo leads the first chunk's text.
+            echo = tok.decode(meta["ids"]) if meta["echo"] else ""
+            char_off = len(echo)
             try:
                 if is_chat:
                     frame({**head, "choices": [{
@@ -705,11 +938,13 @@ def create_engine_app(
                                   if out.logprobs else None,
                                   "finish_reason": out.finish_reason}
                     else:
-                        choice = {"index": 0, "text": out.text_delta,
+                        choice = {"index": 0, "text": echo + out.text_delta,
                                   "logprobs": fmt_completion_logprobs(
-                                      tok, out.logprobs, char_off)
+                                      tok, out.logprobs,
+                                      base_offset=char_off)
                                   if out.logprobs else None,
                                   "finish_reason": out.finish_reason}
+                        echo = ""
                     char_off += len(out.text_delta)
                     chunk = {**head, "choices": [choice]}
                     if out.finished and usage:
@@ -728,7 +963,7 @@ def create_engine_app(
                 gen.close()  # aborts the request on the engine
                 return
             else:
-                self._finished(meta, n_out)
+                self._finished(meta, n_prompt, n_out)
             frame("[DONE]")
 
     GET_ROUTES = {
@@ -801,6 +1036,25 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
     p.add_argument("--warmup-bucket-budget", type=int, default=0,
                    help="cap warmup to this many lattice buckets, "
                         "most-likely-first (0 = whole lattice)")
+    # Live-sequence KV swap: preemption parks KV instead of recomputing.
+    p.add_argument("--kv-swap", action="store_true", default=True)
+    p.add_argument("--no-kv-swap", dest="kv_swap", action="store_false")
+    p.add_argument("--swap-quantum-tokens", type=int, default=256,
+                   help="decode tokens before a running seq may rotate out "
+                        "for parked/queued work (0 = only under pressure)")
+    p.add_argument("--swap-stash-blocks", type=int, default=4096,
+                   help="host budget for stashed tail pages (KV pages)")
+    # Honor the router-propagated X-PST-Deadline-Ms budget.
+    p.add_argument("--deadline-shedding", dest="deadline_shedding",
+                   action="store_true", default=True)
+    p.add_argument("--no-deadline-shedding", dest="deadline_shedding",
+                   action="store_false")
+    # Honor the router-stamped X-PST-Tenant / X-PST-Tenant-Class headers
+    # (weighted-fair admission, batch preempted first).
+    p.add_argument("--tenant-fairness", dest="tenant_fairness",
+                   action="store_true", default=True)
+    p.add_argument("--no-tenant-fairness", dest="tenant_fairness",
+                   action="store_false")
     return p.parse_args(argv)
 
 
@@ -824,6 +1078,11 @@ def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
         seed=args.seed,
         warmup=args.warmup,
         warmup_bucket_budget=args.warmup_bucket_budget,
+        kv_swap=args.kv_swap,
+        swap_quantum_tokens=args.swap_quantum_tokens,
+        swap_stash_blocks=args.swap_stash_blocks,
+        deadline_shedding=args.deadline_shedding,
+        tenant_fairness=args.tenant_fairness,
     )
 
 

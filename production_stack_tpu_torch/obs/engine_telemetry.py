@@ -17,8 +17,8 @@ What differs:
   ``_PEAK_FLOPS_BY_DEVICE_NAME``; for a device the table lacks it stays
   0, rather than taking another device's peak.
 - Not exported, since their modules are not ported: the JAX compilation
-  cache's hits and misses, per-request and per-tenant device seconds
-  (cost attribution), and swap in and out.
+  cache's hits and misses, and per-request and per-tenant device seconds
+  (cost attribution).
 """
 
 from __future__ import annotations
@@ -98,6 +98,12 @@ class EngineTelemetry:
         self.preemptions = r.counter(
             "pst_engine_preemptions",
             "Scheduler recompute preemptions (out of KV pages)")
+        self.swap_out = r.counter(
+            "pst_engine_swap_out",
+            "Sequences swapped out by the scheduler (KV parked host-side)")
+        self.swap_in = r.counter(
+            "pst_engine_swap_in",
+            "Sequences swapped back in by the scheduler (KV resumed)")
         self.start_time_seconds = r.gauge(
             "pst_engine_start_time_seconds",
             "Wall-clock time the engine's runner initialized (the alert "
@@ -231,6 +237,8 @@ class EngineTelemetry:
         self.kv_page_high_watermark.set(hwm)
         self.preemptions.to_total(
             float(stats.get("num_preemptions_total", 0.0)))
+        self.swap_out.to_total(float(stats.get("kv_swap_out_total", 0.0)))
+        self.swap_in.to_total(float(stats.get("kv_swap_in_total", 0.0)))
 
     def render(self) -> str:
         return self.registry.render()

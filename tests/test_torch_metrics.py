@@ -98,8 +98,7 @@ def test_engine_telemetry_families_are_the_jax_ones():
     port = {f.name: f for f in EngineTelemetry().registry._families}
     not_ported = {"pst_engine_compile_cache_hits",
                   "pst_engine_compile_cache_misses",
-                  "pst_request_device_seconds", "pst_tenant_device_seconds",
-                  "pst_engine_swap_out", "pst_engine_swap_in"}
+                  "pst_request_device_seconds", "pst_tenant_device_seconds"}
     assert set(port) == set(jax) - not_ported
     for name, fam in port.items():
         ref = jax[name]

@@ -1,0 +1,76 @@
+"""Mixed-tier traffic under page pressure drains through the port's
+scheduler, where the JAX scheduler stops admitting.
+
+Fourteen requests alternate batch and interactive over a pool that holds
+five prompts. An interactive sequence is parked for the others' growth
+while older batch requests and newer interactive ones wait. The parked
+head yields to the oldest waiting request (a batch one); the JAX
+scheduler's waiting queue, interactive first, then holds its pick behind
+the older parked head: neither admits, and nothing runs. The port's
+waiting queue admits its pick once the head yielded, so every request
+finishes; where the JAX scheduler does not stall, the two agree (the
+parity cases of ``test_torch_scheduler_parity.py``).
+"""
+
+import numpy as np
+import pytest
+
+from .test_torch_scheduler_parity import JAX, PORT, _Pages
+
+
+def _serve(side, passes: int = 400) -> tuple:
+    """(passes until drained or None, waiting, parked, running ids)."""
+    Scheduler, Config, Allocator, Sequence, SP, Swapper = side
+    alloc = Allocator(40, 4, True)
+    store = _Pages()
+    sched = Scheduler(Config(max_num_seqs=16, max_prefill_tokens=64,
+                             max_model_len=512, num_decode_steps=4,
+                             decode_lookahead=2),
+                      alloc, swapper=Swapper(store))
+    rng = np.random.default_rng(0)
+    for i in range(14):
+        tier = ("batch", "interactive")[i % 2]
+        sched.add(Sequence(f"r{i}", rng.integers(1, 1000, 32).tolist(),
+                           SP(max_tokens=16, temperature=0.0), tenant=tier,
+                           tenant_class=tier))
+    done = []
+    for n in range(passes):
+        if not sched.has_work():
+            return n, done
+        out = sched.schedule()
+        for it in out.prefills:
+            s = it.seq
+            s.num_computed_tokens = it.end
+            for p in range(-(-it.end // 4)):
+                store.pages[s.block_ids[p]] = (s.request_id, p), None
+            s.commit_full_blocks(alloc)
+            if it.end == s.num_prompt_tokens and not s.output_token_ids:
+                s.output_token_ids.append(5)
+        for s in out.decodes:
+            for _ in range(out.n_decode_steps):
+                s.num_computed_tokens += 1
+                store.pages[s.block_ids[(s.num_computed_tokens - 1) // 4]] = (
+                    (s.request_id, (s.num_computed_tokens - 1) // 4), None)
+                s.output_token_ids.append(5)
+                s.commit_full_blocks(alloc)
+                if len(s.output_token_ids) >= 16:
+                    sched.finish(s, "length")
+                    done.append(s.request_id)
+                    break
+    return None, (sorted(s.request_id for s in sched.waiting),
+                  [s.request_id for s in sched.swapped], len(sched.running))
+
+
+@pytest.mark.parametrize("side", ["jax", "port"])
+def test_mixed_tiers_under_page_pressure(side):
+    passes, state = _serve(JAX if side == "jax" else PORT)
+    if side == "jax":
+        # Stuck: requests wait and one is parked, and nothing runs.
+        assert passes is None
+        waiting, parked, running = state
+        assert waiting and parked and running == 0
+        return
+    assert passes is not None
+    assert sorted(state) == sorted(f"r{i}" for i in range(14))
+    # Interactive requests finish first (the pool's first five prompts).
+    assert {int(r[1:]) % 2 for r in state[:5]} == {1}

@@ -5,8 +5,7 @@ through both ``build_sampling``s, the JAX one fed ``CompletionRequest(
 **body)``, and the two ``SamplingParams`` must agree field by field. A
 tiny-preset server then answers ``logprobs`` in the JAX server's shape
 (its ``_fmt_completion_logprobs`` over the port engine's own entries) and
-``max_completion_tokens``; a value the port does not serve yet gets a 400
-that names its field.
+``max_completion_tokens``.
 """
 
 import dataclasses
@@ -160,16 +159,3 @@ def test_logprobs_and_max_completion_tokens_are_served(served):
     out = json.loads(raw)
     assert status == 200 and out["usage"]["completion_tokens"] == 5
     assert out["choices"][0]["logprobs"] is None
-
-
-@pytest.mark.parametrize("field, value", [
-    ("n", 2), ("best_of", 2), ("echo", True), ("suffix", "!")])
-def test_unserved_values_get_a_400_naming_the_field(served, field, value):
-    port, _ = served
-    body = {"prompt": PROMPT, "max_tokens": 2, "temperature": 0.0}
-    status, raw = _post(port, {**body, field: value})
-    assert status == 400
-    assert field in json.loads(raw)["error"]["message"]
-    # The default values are served.
-    default = {"n": 1, "best_of": 1, "echo": False, "suffix": None}[field]
-    assert _post(port, {**body, field: default})[0] == 200
