@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any exception, mismatch or NaN exits non-zero:
+Phases, in order; any exception, mismatch or NaN exits non-zero, and so
+does a run still going after ``WATCHDOG_S`` seconds, with every thread's
+stack printed:
 
 1. Device and toolchain: the card's name and power limit, CUDA and nvcc
    versions; the CUDA kernels are built from ``production_stack_tpu_torch/
@@ -127,12 +129,20 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    launching only the split-KV decode and the wgmma prefill; the free
    memory comes back to within the graph pool's bytes.
 4g. A pipelining server (phase 4's flags, ``--adaptive-decode-steps 8
-   --adaptive-decode-quiet-s 0``) and the same with
-   ``--no-overlap-decode``: 8 concurrent greedy streams of 128 tokens,
-   admitted together, once to capture and once timed; equal tokens,
-   ``pst:pipelined_bursts`` and ``pst:adaptive_deep_bursts`` above 0 and
-   0-valued host gaps on the pipelined server, the launch counters grown;
-   both servers' output tok/s and host-gap p50 (one run each).
+   --adaptive-decode-quiet-s 0``), the same with ``--no-overlap-decode``
+   and the pipelining one with its diagnostics off (``--no-tracing
+   --no-cost-attribution --flight-buffer 0``): 8 concurrent greedy
+   streams of 128 tokens, admitted together, once to capture and once
+   timed; equal tokens, ``pst:pipelined_bursts`` and
+   ``pst:adaptive_deep_bursts`` above 0 and 0-valued host gaps on the
+   pipelining servers, the launch counters grown; the servers' output
+   tok/s and host-gap p50 (one run each). With the diagnostics on (the
+   defaults) the streams' ``usage.pst_cost.device_s`` sum to within 0.90
+   and 1.10 of the growth of ``pst_engine_device_busy_seconds`` (the
+   fraction printed), ``pst_request_device_seconds_count{phase="decode"}``
+   grows by the requests, and ``/debug/flight`` holds one row for each
+   live step in the lattice's buckets; off, nothing is billed or
+   recorded.
 4h. A bf16 server of phase 4's flags with ``--num-kv-blocks 160`` (five
    1024-token prompts' pages): 16 requests of 1024-token prompts at once,
    6 streamed from a batch tenant and 6 from an interactive one (128
@@ -144,7 +154,22 @@ Phases, in order; any exception, mismatch or NaN exits non-zero:
    the interactive TTFT p50 at most the batch one. Then n=4 candidates of
    a prompt just served (its pages prefix hits for each), best_of=4 with
    n=2 ranked by mean logprob, an echo with logprobs and a batch of three
-   prompts.
+   prompts. Then the same pool with ``--no-kv-swap`` (ROADMAP fault 3.6):
+   the wave's 12 streamed requests all finish with their 128 tokens
+   through at least one recompute preemption.
+4i. Diagnostics on a bf16 server of phase 4's flags with ``--profiling``:
+   a completion with a fixed ``traceparent``, ``X-Request-Id`` and
+   tenant is found at ``/debug/requests?request_id=``, joined to the
+   caller's trace under its span, with the spans ``engine_request``,
+   ``engine_admission``, ``engine_queue``, ``prefill`` and ``decode``
+   (the last three within the root's wall plus 1 ms) and the ``compile``
+   events of its graph captures; ``X-PST-Cost`` equals its
+   ``usage.pst_cost``, a streamed chat's final usage carries one, a spent
+   deadline's 504 echoes its ``X-Request-Id`` with a ``deadline_shed``
+   event, and ``pst_stage_duration_seconds_count`` counts the requests by
+   stage. ``POST /debug/profile`` of 500 ms during a stream writes a
+   ``torch.profiler`` trace that names ``decode_split_kernel`` (a second
+   POST meanwhile answers 409).
 3b. The same model int4-quantized on the card (streamed from the seed, the
    bf16 tree freed first), under ``PST_FUSED_KV_WRITE=1``: the same steps
    through the int4 and decode-write kernels, against the gather path on a
@@ -234,6 +259,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import faulthandler
 import functools
 import gc
 import http.client
@@ -274,7 +300,9 @@ from production_stack_tpu_torch.engine.sequence import (  # noqa: E402
     Sequence,
 )
 from production_stack_tpu_torch.engine.tokenizer import ChatMessage  # noqa: E402
+from production_stack_tpu_torch.engine.precompile import enumerate_lattice  # noqa: E402
 from production_stack_tpu_torch.engine.server import (  # noqa: E402
+    app_options_from_args,
     engine_config_from_args,
     parse_engine_args,
     serve_in_thread,
@@ -3060,13 +3088,15 @@ def _completion(port: int, body: dict, want_tokens: int) -> dict:
     return out
 
 
-def _stream(port: int, body: dict, want_tokens: int) -> int:
+def _stream(port: int, body: dict, want_tokens: int) -> dict:
+    """A streamed completion of ``want_tokens`` frames; returns its final
+    usage chunk."""
     chunks = _sse(port, "/v1/completions", body)
     check(len(chunks) == want_tokens,
           f"stream: {len(chunks)} frames for {want_tokens} tokens")
     check(chunks[-1]["choices"][0]["finish_reason"] == "length",
           "stream: last frame has no finish_reason 'length'")
-    return len(chunks)
+    return chunks[-1].get("usage") or {}
 
 
 def launch_counts() -> dict:
@@ -3510,9 +3540,11 @@ def serve_streams(params, argv: list, n_req: int, n_tok: int) -> dict:
     requests are in, so both servers step the same batches (a random
     bf16 model's greedy tokens turn on the batch shapes' rounding).
     Returns the timed round's tokens by prompt, wall, host gaps, launch
-    counts, scraped /metrics and graph counts."""
-    engine = AsyncLLMEngine(engine_config_from_args(parse_engine_args(argv)),
-                            params=params)
+    counts, scraped /metrics (and before it), the streams' costs (their
+    final usage chunks' ``pst_cost``), ``/debug/flight`` of the whole ring
+    and graph counts."""
+    args = parse_engine_args(argv)
+    engine = AsyncLLMEngine(engine_config_from_args(args), params=params)
     llm = engine.engine
     seen: dict = {}
     generate, add, step = engine.generate, llm.add_request, llm.step
@@ -3545,15 +3577,17 @@ def serve_streams(params, argv: list, n_req: int, n_tok: int) -> dict:
         record_gap(bucket, seconds)
 
     llm.runner.telemetry.record_host_gap = spy_gap
-    server, thread = serve_in_thread(engine)
+    server, thread = serve_in_thread(engine, **app_options_from_args(args))
     port = server.server_address[1]
+    costs = []
 
     def one(i, errors):
         try:
-            _stream(port, {"prompt": f"Request {i}: a story about "
-                                     f"{'paged ' * i}attention.",
-                           "max_tokens": n_tok, "temperature": 0.0,
-                           "ignore_eos": True}, n_tok)
+            usage = _stream(port, {"prompt": f"Request {i}: a story about "
+                                             f"{'paged ' * i}attention.",
+                                   "max_tokens": n_tok, "temperature": 0.0,
+                                   "ignore_eos": True}, n_tok)
+            costs.append(usage.get("pst_cost"))
         except BaseException as e:  # re-raised below
             errors.append(e)
 
@@ -3573,12 +3607,16 @@ def serve_streams(params, argv: list, n_req: int, n_tok: int) -> dict:
         traffic()  # captures this traffic's graphs
         reset_launch_counts()
         gaps.clear()
+        costs.clear()
+        before = scrape(port)
         t0 = time.perf_counter()
         traffic()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {**launch_counts(), **route_counts()}
         samples = scrape(port)
+        status, flight, _ = _call(port, "GET", "/debug/flight?n=100000")
+        check(status == 200, f"4g /debug/flight: {status}")
         check(engine.is_healthy(), f"4g: {engine.step_error}")
     finally:
         server.shutdown()
@@ -3586,22 +3624,72 @@ def serve_streams(params, argv: list, n_req: int, n_tok: int) -> dict:
         engine.shutdown()
         thread.join(timeout=10)
     return {"tokens": dict(seen), "wall": wall, "gaps": list(gaps),
-            "counts": counts, "samples": samples,
+            "counts": counts, "samples": samples, "before": before,
+            "costs": list(costs), "flight": flight,
+            "lattice": {b.label for b in enumerate_lattice(llm.cfg)},
             "graphs": dict(llm.runner.graph_counts)}
+
+
+def audit_diagnostics(label: str, r: dict, n_req: int) -> dict:
+    """Phase 4g's audit of one server's timed round: the streams' costs
+    sum to within 0.90-1.10 of the growth of
+    ``pst_engine_device_busy_seconds`` (the JAX cost-parity bounds; a
+    wall segment charged twice reads well above 1.0), each request
+    observed one decode cost, and the flight ring holds one row for each
+    live step (every step of a server without warmup), up to its size,
+    in the lattice's buckets."""
+    m, before = r["samples"], r["before"]
+    busy = (m["pst_engine_device_busy_seconds_total"]
+            - before["pst_engine_device_busy_seconds_total"])
+    check(len(r["costs"]) == n_req and all(r["costs"]),
+          f"4g {label}: streams without usage.pst_cost: {r['costs']}")
+    cost = sum(c["device_s"] for c in r["costs"])
+    frac = cost / busy
+    check(0.90 <= frac <= 1.10,
+          f"4g {label}: request costs {cost:.6f}s over device busy "
+          f"{busy:.6f}s = {frac:.4f}, outside 0.90-1.10")
+    key = 'pst_request_device_seconds_count{phase="decode"}'
+    decoded = m.get(key, 0.0) - before.get(key, 0.0)
+    check(decoded == n_req,
+          f"4g {label}: {decoded} decode costs observed for {n_req} requests")
+    flight = r["flight"]
+    live = (m.get("pst_engine_step_duration_seconds_count", 0.0)
+            + m.get("pst_engine_compile_total", 0.0))
+    rows = flight["records"]
+    check(flight["total_steps"] == live
+          and len(rows) == min(live, flight["capacity"])
+          and {row["bucket"] for row in rows} <= r["lattice"],
+          f"4g {label}: flight ring {flight['total_steps']} steps, "
+          f"{len(rows)} rows of {flight['capacity']}, against {live:.0f} "
+          f"live steps; buckets {sorted({row['bucket'] for row in rows})}")
+    log(f"  4g {label}: request costs {cost:.6f}s over device busy "
+        f"{busy:.6f}s = {frac:.4f}; {decoded:.0f} decode costs observed; "
+        f"flight ring {len(rows)} rows of {flight['total_steps']:.0f} live "
+        f"steps (capacity {flight['capacity']}), "
+        f"{len({row['bucket'] for row in rows})} buckets, all in the lattice")
+    return {"cost_over_busy": frac, "cost_s": cost, "busy_s": busy,
+            "flight_rows": len(rows)}
 
 
 def phase_pipelined_serving(params, card: str) -> dict:
     """Phase 4g: the bf16 Llama-3-8B server of phase 4's flags with
     ``--adaptive-decode-quiet-s 0 --adaptive-decode-steps 8``, then the
-    same with ``--no-overlap-decode``: 8 concurrent greedy streamed
-    requests of 128 tokens, once to capture the graphs and once timed
-    (one run each). Tokens equal between the two servers; the pipelined
-    one counts pipelined and adaptive deep bursts in /metrics and records
-    0-valued host gaps; the kernels' launch counters grow."""
+    same with ``--no-overlap-decode``, then the pipelined one again with
+    its diagnostics off (``--no-tracing --no-cost-attribution
+    --flight-buffer 0``): 8 concurrent greedy streamed requests of 128
+    tokens, once to capture the graphs and once timed (one run each).
+    Tokens equal between the three servers; the pipelined ones count
+    pipelined and adaptive deep bursts in /metrics and record 0-valued
+    host gaps; the kernels' launch counters grow; the first two pass the
+    diagnostics audit (``audit_diagnostics``), the third bills and records
+    nothing."""
     n_req, n_tok = 8, 128
     out, tokens = {}, {}
-    for label, extra in (("pipelined", []), ("synchronous",
-                                             ["--no-overlap-decode"])):
+    for label, extra in (("pipelined", []),
+                         ("synchronous", ["--no-overlap-decode"]),
+                         ("diagnostics_off", ["--no-tracing",
+                                              "--no-cost-attribution",
+                                              "--flight-buffer", "0"])):
         argv = ["--model", MODEL, "--device", DEV.type,
                 "--max-num-batched-tokens", "512", "--num-decode-steps", "4",
                 "--max-num-seqs", "16", "--adaptive-decode-quiet-s", "0",
@@ -3630,16 +3718,31 @@ def phase_pipelined_serving(params, card: str) -> dict:
             f"p50 {out[label]['host_gap_p50_ms']} ms over {len(gaps)} gaps "
             f"({zeros} of them 0); pst:pipelined_bursts {pipelined:.0f}, "
             f"pst:adaptive_deep_bursts {deep:.0f}; {card}")
-    p = out["pipelined"]
-    check(p["pipelined_bursts"] > 0 and p["adaptive_deep_bursts"] > 0,
-          f"4g: pipelined server counters {p}")
-    check(p["zero_host_gaps"] > 0, "4g: no 0-valued host gap recorded")
+        if label == "diagnostics_off":
+            check(r["costs"] == [None] * n_req
+                  and r["flight"]["total_steps"] == 0
+                  and r["flight"]["records"] == [],
+                  f"4g {label}: billed {r['costs']} or recorded "
+                  f"{r['flight']['total_steps']} flight steps")
+        else:
+            out[label]["diagnostics"] = audit_diagnostics(label, r, n_req)
+    for label in ("pipelined", "diagnostics_off"):
+        p = out[label]
+        check(p["pipelined_bursts"] > 0 and p["adaptive_deep_bursts"] > 0,
+              f"4g: {label} server counters {p}")
+        check(p["zero_host_gaps"] > 0,
+              f"4g: {label}: no 0-valued host gap recorded")
     check(out["synchronous"]["pipelined_bursts"] == 0,
           "4g: the --no-overlap-decode server pipelined")
     check(len(tokens["pipelined"]) == n_req
-          and tokens["pipelined"] == tokens["synchronous"],
-          "4g: the two servers' tokens differ")
-    log(f"  4g: both servers' {n_req} x {n_tok} tokens equal")
+          and tokens["pipelined"] == tokens["synchronous"]
+          == tokens["diagnostics_off"],
+          "4g: the three servers' tokens differ")
+    log(f"  4g: the three servers' {n_req} x {n_tok} tokens equal; output "
+        f"tok/s with the diagnostics on (the defaults) "
+        f"{out['pipelined']['output_tok_per_s']:.1f}, off "
+        f"{out['diagnostics_off']['output_tok_per_s']:.1f} (one run each); "
+        f"{card}")
     return out
 
 
@@ -3843,6 +3946,259 @@ def phase_tenancy_serving(params, card: str) -> dict:
         "swaps": {"out": out_, "in": in_, "recomputed": fallback}}
 
 
+def phase_recompute_serving(params, card: str) -> dict:
+    """Phase 4h with ``--no-kv-swap`` (ROADMAP fault 3.6 on the card): the
+    first wave's 12 streamed requests of 1024-token prompts, 6 from a
+    batch tenant and 6 from an interactive one, 128 tokens each, at once
+    over 160 pages. Out of pages, sequences are preempted and recompute
+    their prompt and output; every request must finish with its 128
+    tokens and the preemptions be at least 1, with no swap."""
+    argv = ["--model", MODEL, "--device", DEV.type,
+            "--max-num-batched-tokens", "512", "--num-decode-steps", "4",
+            "--max-num-seqs", "16", "--num-kv-blocks", "160", "--no-kv-swap"]
+    engine = AsyncLLMEngine(engine_config_from_args(parse_engine_args(argv)),
+                            params=params)
+    server, thread = serve_in_thread(engine)
+    port = server.server_address[1]
+    rng = np.random.default_rng(41)
+    V = engine.engine.model_cfg.vocab_size
+    tiers = [("bulk", "batch")] * 6 + [("chat", "interactive")] * 6
+    results: dict = {}
+
+    def one(i):
+        tenant, tier = tiers[i]
+        try:
+            results[i] = _timed_request(port, {
+                "prompt": rng_prompts[i], "max_tokens": 128,
+                "temperature": 0.0, "ignore_eos": True, "stream": True},
+                {"X-PST-Tenant": tenant, "X-PST-Tenant-Class": tier})
+        except BaseException as e:  # re-raised on the main thread
+            results[i] = e
+
+    rng_prompts = [rng.integers(1, V, 1024).tolist() for _ in tiers]
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(tiers))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        for i, r in sorted(results.items()):
+            if isinstance(r, BaseException):
+                raise r
+            fr = r["frames"]
+            check(r["status"] == 200 and fr[-1] == "[DONE]" and len(fr) == 129
+                  and fr[-2]["choices"][0]["finish_reason"] == "length",
+                  f"4h no-swap request {i}: {r['status']}, {len(fr)} frames")
+        m = scrape(port)
+        preempted = m.get("vllm:num_preemptions_total", 0.0)
+        check(preempted >= 1 and m.get("pst:kv_swap_out_total", 0.0) == 0
+              and engine.engine.swapper is None,
+              f"4h no-swap: preemptions {preempted}, swaps "
+              f"{m.get('pst:kv_swap_out_total')}")
+        check(engine.is_healthy(), f"4h no-swap: {engine.step_error}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+        thread.join(timeout=10)
+    log(f"[phase 4h] --no-kv-swap, 160 KV pages: 12 streamed requests of "
+        f"1024-token prompts finished with their 128 tokens in {wall:.2f}s; "
+        f"recompute preemptions {preempted:.0f}, no swap; {card}")
+    del engine
+    return {"wall_s": wall, "preemptions": preempted}
+
+
+# Phase 4i: tracing, cost and the profiler on a served path.
+
+TRACE_ID, TRACE_PARENT = "4bf92f3577b34da6a3ce929d0e0e4736", "00f067aa0ba902b7"
+PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "profiles_smoke")
+
+
+def _post(port: int, path: str, body: dict, headers: dict) -> tuple:
+    """One POST with ``headers``: status, parsed body, headers."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("POST", path, json.dumps(body),
+                 {"Content-Type": "application/json", **headers})
+    resp = conn.getresponse()
+    raw = resp.read()
+    conn.close()
+    return resp.status, json.loads(raw), dict(resp.getheaders())
+
+
+def _timeline(port: int, request_id: str) -> dict:
+    status, ring, _ = _call(port, "GET",
+                            f"/debug/requests?request_id={request_id}")
+    check(status == 200 and len(ring["requests"]) == 1,
+          f"4i /debug/requests?request_id={request_id}: {status} {ring}")
+    return ring["requests"][0]
+
+
+def phase_traced_serving(params, card: str) -> dict:
+    """Phase 4i: a bf16 Llama-3-8B server of phase 4's flags with
+    ``--profiling``. A completion carrying a fixed ``traceparent``,
+    ``X-Request-Id`` and ``X-PST-Tenant`` (the server's first, so its
+    steps capture graph keys): its timeline under the id joins the
+    caller's trace under the caller's span, holds ``engine_request``,
+    ``engine_admission``, ``engine_queue``, ``prefill`` and ``decode``
+    (the last three together no longer than the root plus 1 ms) and
+    ``compile`` events; ``X-PST-Cost`` equals ``usage.pst_cost``. A
+    streamed chat's final usage carries ``pst_cost``. A spent deadline's
+    504 echoes its ``X-Request-Id`` and its timeline holds a
+    ``deadline_shed`` event. ``pst_stage_duration_seconds_count`` counts
+    the traced requests by stage. ``POST /debug/profile`` of 500 ms during
+    a stream writes a trace that names ``decode_split_kernel``, and a
+    second POST meanwhile answers 409."""
+    argv = ["--model", MODEL, "--device", DEV.type,
+            "--max-num-batched-tokens", "512", "--num-decode-steps", "4",
+            "--max-num-seqs", "16", "--profiling", "--profile-dir",
+            PROFILE_DIR]
+    args = parse_engine_args(argv)
+    engine = AsyncLLMEngine(engine_config_from_args(args), params=params)
+    server, thread = serve_in_thread(engine, **app_options_from_args(args))
+    port = server.server_address[1]
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    try:
+        long_prompt = ("The quick brown fox jumps over the lazy dog. " * 40)[:900]
+        status, out, headers = _post(port, "/v1/completions", {
+            "prompt": long_prompt, "max_tokens": 16, "temperature": 0.0,
+            "ignore_eos": True}, {
+            "traceparent": f"00-{TRACE_ID}-{TRACE_PARENT}-01",
+            "X-Request-Id": "smoke-4i-1", "X-PST-Tenant": "acme"})
+        check(status == 200, f"4i traced completion: {status} {out}")
+        cost = json.loads(headers.get("X-PST-Cost", "null"))
+        check(cost is not None and cost == out["usage"].get("pst_cost")
+              and cost["device_s"] > 0,
+              f"4i X-PST-Cost {headers.get('X-PST-Cost')} against usage "
+              f"{out['usage']}")
+        tl = _timeline(port, "smoke-4i-1")
+        spans = {sp["name"]: sp for sp in tl["spans"]}
+        root = tl["spans"][0]
+        check(tl["trace_id"] == TRACE_ID and root["name"] == "engine_request"
+              and root["parent_id"] == TRACE_PARENT
+              and [sp["name"] for sp in tl["spans"]]
+              == ["engine_request", "engine_admission", "engine_queue",
+                  "prefill", "decode"]
+              and all(sp["parent_id"] == root["span_id"]
+                      for sp in tl["spans"][1:]),
+              f"4i timeline: {tl}")
+        stages_ms = sum(spans[k]["duration_ms"]
+                        for k in ("engine_queue", "prefill", "decode"))
+        check(stages_ms <= root["duration_ms"] + 1.0,
+              f"4i: queue + prefill + decode {stages_ms} ms over the root's "
+              f"{root['duration_ms']} ms")
+        compiles = [e for e in root["events"] if e["name"] == "compile"]
+        check(compiles, f"4i: the first request carries no compile event: "
+                        f"{root['events']}")
+        log(f"  4i: traced completion and its timeline checked")
+
+        chat = _sse(port, "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "Hello there."}],
+            "max_tokens": 8, "temperature": 0.0, "ignore_eos": True})
+        chat_cost = (chat[-1].get("usage") or {}).get("pst_cost")
+        check(chat_cost is not None and chat_cost["device_s"] > 0,
+              f"4i streamed chat: final usage {chat[-1].get('usage')}")
+
+        status, shed, headers = _post(port, "/v1/completions", {
+            "prompt": "late", "max_tokens": 4}, {
+            "X-PST-Deadline-Ms": "0", "X-Request-Id": "smoke-4i-shed"})
+        check(status == 504 and headers.get("X-Request-Id") == "smoke-4i-shed"
+              and headers.get("X-PST-Deadline-Exceeded") == "1",
+              f"4i spent deadline: {status} {headers}")
+        events = [e["name"] for e in
+                  _timeline(port, "smoke-4i-shed")["spans"][0]["events"]]
+        check(events == ["deadline_shed"], f"4i 504 events: {events}")
+        m = scrape(port)
+
+        def stage(name):
+            return m.get(f'pst_stage_duration_seconds_count{{component='
+                         f'"engine",stage="{name}"}}', 0.0)
+
+        counted = {k: stage(k) for k in ("engine_request", "engine_admission",
+                                          "engine_queue", "prefill",
+                                          "decode")}
+        check(counted == {"engine_request": 3, "engine_admission": 2,
+                          "engine_queue": 2, "prefill": 2, "decode": 2},
+              f"4i stage counts: {counted}")
+        log("  4i: chat cost, the 504's id and events, stage counts checked")
+
+        # A profile during a stream; a second capture meanwhile is refused.
+        first_frame, answers = threading.Event(), {}
+
+        def streamed():
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            conn.request("POST", "/v1/completions", json.dumps({
+                "prompt": "A long story:", "max_tokens": 512,
+                "temperature": 0.0, "ignore_eos": True, "stream": True}),
+                {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            n = 0
+            while True:
+                line = resp.readline()
+                if not line:
+                    break
+                if line.startswith(b"data: {"):
+                    n += 1
+                    first_frame.set()
+            conn.close()
+            answers["frames"] = n
+
+        def profile(key):
+            answers[key] = _post(port, "/debug/profile",
+                                 {"duration_ms": 500}, {})
+
+        reader = threading.Thread(target=streamed)
+        reader.start()
+        check(first_frame.wait(timeout=120), "4i: the stream never started")
+        capture = threading.Thread(target=profile, args=("first",))
+        capture.start()
+        time.sleep(0.15)
+        profile("second")
+        capture.join()
+        reader.join()
+        status, body, _ = answers["first"]
+        check(status == 200 and body["status"] == "ok",
+              f"4i /debug/profile: {status} {body}")
+        check(answers["second"][0] == 409,
+              f"4i second /debug/profile during a capture: {answers['second']}")
+        check(answers.get("frames") == 512,
+              f"4i profiled stream: {answers.get('frames')} frames")
+        with open(body["trace"]) as f:
+            trace = json.load(f)
+        kernels = [e for e in trace.get("traceEvents", [])
+                   if e.get("cat") == "kernel"]
+        split = [e for e in kernels if "decode_split_kernel" in e["name"]]
+        check(split, f"4i: the profile names no decode_split_kernel "
+                     f"({len(kernels)} kernel events; categories "
+                     f"{sorted({str(e.get('cat')) for e in trace.get('traceEvents', [])})})")
+        busy_ms = sum(e.get("dur", 0) for e in kernels) / 1e3
+        log(f"[phase 4i] {MODEL} traced: trace {TRACE_ID} joined under "
+            f"{TRACE_PARENT}, spans {[sp['name'] for sp in tl['spans']]} "
+            f"(queue + prefill + decode {stages_ms:.3f} of "
+            f"{root['duration_ms']:.3f} ms), {len(compiles)} compile "
+            f"events, X-PST-Cost {cost}; chat usage pst_cost {chat_cost}; "
+            f"504 X-Request-Id echoed with deadline_shed; stage counts "
+            f"{counted}; /debug/profile 500 ms: {len(kernels)} kernel events "
+            f"({len(split)} decode_split_kernel), kernel time {busy_ms:.1f} "
+            f"ms, second capture 409; {card}")
+        check(engine.is_healthy(), f"4i: {engine.step_error}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+        thread.join(timeout=10)
+        shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    del engine
+    return {"stages_ms": stages_ms, "root_ms": root["duration_ms"],
+            "compile_events": len(compiles), "cost": cost,
+            "profile_kernel_events": len(kernels),
+            "profile_decode_split_events": len(split),
+            "profile_kernel_ms": busy_ms}
+
+
 # The names of the router's scraper (router/stats/engine_stats.py,
 # _METRIC_FIELDS) that the port exports; the one it does not is the
 # remote KV tier's integrity counter (queue 1, item 13).
@@ -3859,7 +4215,7 @@ ROUTER_METRICS = (
 def scrape(port: int) -> dict:
     """``/metrics`` read by a few lines of this script (the card's machine
     has no prometheus_client): each sample name's sum over its label
-    sets."""
+    sets, and each labelled sample under its full ``name{labels}``."""
     status, text, headers = _call(port, "GET", "/metrics")
     check(status == 200 and headers.get("Content-Type", "").startswith(
         "text/plain; version=0.0.4"), f"/metrics: {status} {headers}")
@@ -3869,6 +4225,8 @@ def scrape(port: int) -> dict:
             head, _, value = line.rpartition(" ")
             name = head.partition("{")[0]
             samples[name] = samples.get(name, 0.0) + float(value)
+            if head != name:
+                samples[head] = float(value)
     return samples
 
 
@@ -3985,7 +4343,8 @@ def phase_admin(params, card: str) -> dict:
         status, state, _ = _call(port, "GET", "/debug/state")
         captured = state["stats"]["graphs_captured"]
         check(status == 200 and state["ready"] and state["in_flight"] == 0
-              and state["flight"] == {}
+              and state["flight"]["capacity"] == 512
+              and state["flight"]["total_steps"] > 0
               and state["compiles_total"] == captured,
               f"/debug/state: {state}")
         check(m["vllm:request_success_total"] == n_req
@@ -4652,7 +5011,13 @@ def _row(kind, ms, plain_ms, lib_ms, nbytes, flops, peak, per_step, launches,
     return row
 
 
+# A hang anywhere prints every thread's stack and fails the run before
+# the 1200 s the run is given.
+WATCHDOG_S = 1140
+
+
 def main() -> None:
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
     os.environ.pop("PST_FUSED_KV_WRITE", None)  # bf16 phases: unfused path
     if sys.argv[1:] not in ([], ["drift"]):
@@ -4695,6 +5060,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     tenancy = phase_tenancy_serving(params, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    recompute = phase_recompute_serving(params, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    traced = phase_traced_serving(params, card)
     gc.collect()
     torch.cuda.empty_cache()
     os.environ["PST_FUSED_KV_WRITE"] = "1"
@@ -4792,7 +5163,8 @@ def main() -> None:
                                      ("4c", fp8_served), ("4e", g_served))},
         "sleep_4f": admin, "pipelined_serving_4g": pipelined_serving,
         "checkpoint_3z": checkpoint, "swap_3w": swaps,
-        "tenancy_serving_4h": tenancy,
+        "tenancy_serving_4h": tenancy, "recompute_serving_4h": recompute,
+        "traced_serving_4i": traced,
     }}), flush=True)
     print(json.dumps({"kernels": rows, "steps": steps, "int4_crossover": crossover}),
           flush=True)

@@ -15,7 +15,9 @@ interleaves with a drop or a restore. A wake from level 2 runs the
 configured warmup again. Draining only closes the HTTP admission gate.
 
 The loop steps while the engine has work, and an in-flight pipelined
-burst is work: its rows are applied even once every queue is empty.
+burst is work: its rows are applied even once every queue is empty. A
+step that raises snapshots the flight recorder before every request is
+failed.
 """
 
 from __future__ import annotations
@@ -104,14 +106,14 @@ class AsyncLLMEngine:
         """Pause the step loop; level 2 also frees the KV cache and the
         step graphs, aborts every request in flight and ends their
         streams. Returns once the step thread has done so."""
-        self._on_step_thread(lambda: self._sleep(level))
+        self.on_step_thread(lambda: self._sleep(level))
         logger.info("engine sleeping (level %d)", level)
 
     def wake_up(self) -> None:
         """Resume the step loop. After level 2 the cache is restored
         (zeroed) before this returns, and the configured warmup runs
         next on the step thread (``warming`` meanwhile)."""
-        self._on_step_thread(self._wake_up)
+        self.on_step_thread(self._wake_up)
         logger.info("engine awake")
 
     def _sleep(self, level: int) -> None:
@@ -136,9 +138,10 @@ class AsyncLLMEngine:
         self._sleeping = False
         self._work.set()
 
-    def _on_step_thread(self, fn) -> None:
+    def on_step_thread(self, fn) -> None:
         """Run ``fn`` on the step thread between two steps and wait for it
-        (inline when no step thread runs); its exception is raised here."""
+        (inline when no step thread runs); its exception is raised here.
+        Sleep, wake and the server's profiler start and stop run so."""
         thread = self._thread
         if thread is None or not thread.is_alive():
             fn()
@@ -297,6 +300,17 @@ class AsyncLLMEngine:
                 outputs = self.engine.step()
             except Exception as e:  # noqa: BLE001 — surface via /health
                 logger.exception("engine step failed")
+                # The post-mortem before the teardown: the ring's tail
+                # ends with the failing step (served at /debug/flight
+                # while the process lives, and in the log after).
+                try:
+                    snap = self.engine.flight.snapshot(
+                        "fatal", detail={"error": str(e)})
+                    logger.error(
+                        "flight snapshot (fatal): %d steps recorded, tail=%s",
+                        snap["total_steps"], snap["records"][-3:])
+                except Exception:  # noqa: BLE001 — never mask the error
+                    logger.exception("flight snapshot failed")
                 self.step_error = str(e)
                 self.engine.abort_all_requests()
                 # Every waiting request fails loudly (its generate raises),

@@ -79,6 +79,19 @@ class EngineConfig:
     # admit weighted-fair across tenants with strict tier priority, and
     # preempt batch-tier sequences first. Untagged traffic is plain FIFO.
     tenant_fairness: bool = True
+    # Flight recorder (obs/flight.py): the ring's capacity in device
+    # steps, served at GET /debug/flight and snapshotted on tail outliers,
+    # captures, SIGTERM and a failed step. 0 records nothing.
+    flight_buffer: int = 512
+    # Write every retained snapshot under this directory as well (bounded,
+    # oldest first out) and read them back after a restart. None: memory
+    # only.
+    flight_snapshot_dir: Optional[str] = None
+    # Per-request cost attribution: each request's share of the device
+    # steps it rode (prefill by tokens, decode by live rows), its KV
+    # page-seconds and queue wait, on the X-PST-Cost header, the usage
+    # extension and pst_request_device_seconds / pst_tenant_device_seconds.
+    cost_attribution: bool = True
     seed: int = 0
     device: str = "cuda"
 

@@ -21,11 +21,21 @@ deadline shedding (a request's ``deadline``; a shed ends with
 and ``tenant_class``).
 
 ``stats()`` feeds the server's ``/metrics``; the runner's ``telemetry``
-records every device step. ``clear_kv_state`` (sleep level 2) forgets
+records every device step, and forwards each live one to the engine's
+flight recorder (``flight_buffer``, ``obs/flight.py``), whose records
+carry the scheduler's depths. ``clear_kv_state`` (sleep level 2) forgets
 every page the prefix map points at.
 
+Diagnostics on the outputs, as the JAX engine's: each carries the
+request's queue wait and prefill time (``queue_time``, ``prefill_time``;
+the finish also ``decode_time``), and the outputs of a step that
+captured a graph key carry it as ``compile_events``. With
+``cost_attribution`` a request's account closes exactly once, on its
+finish, abort or deadline shed, before its pages are released; the
+finished output carries it as ``cost``.
+
 Not ported yet: speculative decoding, KV tiering, LoRA, disaggregated
-handoff, the flight recorder and cost attribution.
+handoff.
 """
 
 from __future__ import annotations
@@ -37,6 +47,7 @@ from typing import Any, Dict, List, Optional, Sequence as Seq, Union
 
 from ..logging_utils import init_logger
 from ..models.registry import get_model_config
+from ..obs.flight import NULL_FLIGHT_RECORDER, FlightRecorder
 from ..ops.sampling import unpack_sampled
 from .config import EngineConfig
 from .kv_manager import BlockAllocator
@@ -60,9 +71,23 @@ class RequestOutput:
     num_output_tokens: int = 0
     num_cached_prompt_tokens: int = 0
     ttft: Optional[float] = None
+    # The TTFT's parts (monotonic seconds): queued before the first
+    # admission, first admission to first token, and on the finished
+    # output first token to finish. The server lays them out as the
+    # engine_queue, prefill and decode spans.
+    queue_time: Optional[float] = None
+    prefill_time: Optional[float] = None
+    decode_time: Optional[float] = None
     # One entry per new token when SamplingParams.logprobs is set:
     # {"token_id", "logprob", "top": [(token_id, logprob), ...]}.
     logprobs: Optional[List[dict]] = None
+    # The graph captures the step that produced this output absorbed
+    # ({"kind", "shape_bucket", "seconds"}): `compile` events on the
+    # request's trace.
+    compile_events: Optional[List[dict]] = None
+    # The closed cost account (finished outputs, with cost_attribution):
+    # the X-PST-Cost payload.
+    cost: Optional[dict] = None
 
 
 class LLMEngine:
@@ -120,6 +145,18 @@ class LLMEngine:
         self._last_arrival = 0.0
         self.adaptive_deep_bursts_total = 0
         self.pipelined_bursts_total = 0
+        # The flight recorder, fed by the telemetry's live steps; only a
+        # live ring takes the probe.
+        self.flight = (
+            FlightRecorder(
+                cfg.flight_buffer, snapshot_dir=cfg.flight_snapshot_dir,
+                on_persist=self.telemetry.flight_snapshots_persisted.inc)
+            if cfg.flight_buffer > 0 else NULL_FLIGHT_RECORDER)
+        if self.flight.enabled:
+            self.flight.set_probe(self._flight_probe)
+        self.telemetry.attach_flight(self.flight)
+        # Compile events awaiting a step that emits outputs (see step()).
+        self._pending_compile_events: List[dict] = []
         # Warmup summary (engine/precompile.py): set by precompile(); the
         # server's /ready payload carries it.
         self.warmup_summary: Optional[dict] = None
@@ -135,6 +172,35 @@ class LLMEngine:
     @property
     def model_name(self) -> str:
         return self.cfg.served_model_name or self.model_cfg.name
+
+    def _flight_probe(self) -> dict:
+        """The scheduler and KV state each flight record carries. Runs on
+        the step thread, right after a dispatch."""
+        waiting, running, swapped, batch = self.scheduler.flight_depths()
+        return {
+            "waiting": waiting,
+            "running": running,
+            "swapped": swapped,
+            "batch_tier_rows": batch,
+            "kv_occupancy": self.allocator.usage,
+            "preemptions": self.num_preempted_total,
+        }
+
+    def _finalize_cost(self, seq: Sequence) -> Optional[dict]:
+        """Close a request's cost account, once: integrate its KV pages up
+        to now, export the per-phase histogram and the tenant's meter,
+        and return the X-PST-Cost payload."""
+        if not self.cfg.cost_attribution:
+            return None
+        if seq.cost_final is None:
+            now = time.monotonic()
+            # Before the scheduler releases block_ids: the residency
+            # since the last charge point is still this request's.
+            seq.charge_kv_pages(now)
+            seq.cost_final = seq.cost_snapshot(now)
+            self.telemetry.record_request_cost(
+                seq.tenant, seq.cost_prefill_s, seq.cost_decode_s)
+        return seq.cost_final
 
     # ------------------------------------------------------------------
     # Requests
@@ -174,6 +240,11 @@ class LLMEngine:
         return seq
 
     def abort_request(self, request_id: str) -> bool:
+        # An aborted request is billed for the device time it took, while
+        # it still owns its pages.
+        live = self._seqs.get(request_id)
+        if live is not None:
+            self._finalize_cost(live)
         if self.runner.burst_in_flight and any(
             s.request_id == request_id for s in self._burst_seqs
         ):
@@ -244,6 +315,23 @@ class LLMEngine:
         return cap
 
     def step(self) -> List[RequestOutput]:
+        outputs = self._step_impl()
+        # A capture in this step delayed every request the step served:
+        # its outputs carry the events. A step that emits nothing (an
+        # intermediate prefill chunk) holds them for the next one that
+        # does, which serves the requests that waited on it.
+        events = (self._pending_compile_events
+                  + self.telemetry.drain_compile_events())
+        if outputs:
+            if events:
+                for out in outputs:
+                    out.compile_events = list(events)
+            self._pending_compile_events = []
+        else:
+            self._pending_compile_events = events[-8:]  # bounded
+        return outputs
+
+    def _step_impl(self) -> List[RequestOutput]:
         outputs: List[RequestOutput] = []
         hint = self._decode_depth_hint()
         if self.runner.burst_in_flight:
@@ -329,6 +417,8 @@ class LLMEngine:
                 num_prompt_tokens=seq.num_prompt_tokens,
                 num_output_tokens=len(seq.output_token_ids),
                 num_cached_prompt_tokens=seq.num_cached_prompt_tokens,
+                # Shed work still took device time: bill it.
+                cost=self._finalize_cost(seq),
             ))
         return outs
 
@@ -469,6 +559,7 @@ class LLMEngine:
                 "top": [(int(top_ids[j]), float(top_lps[j])) for j in range(k)],
             }
 
+        scheduled = seq.first_scheduled_time
         out = RequestOutput(
             request_id=seq.request_id,
             text_delta=delta,
@@ -477,9 +568,17 @@ class LLMEngine:
             num_output_tokens=len(seq.output_token_ids),
             num_cached_prompt_tokens=seq.num_cached_prompt_tokens,
             ttft=seq.first_token_time - seq.arrival_time,
+            queue_time=(scheduled - seq.arrival_time
+                        if scheduled is not None else None),
+            prefill_time=(seq.first_token_time - scheduled
+                          if scheduled is not None else None),
             logprobs=[logprobs_entry] if logprobs_entry else None,
         )
         if finish_reason is not None:
+            out.decode_time = now - seq.first_token_time
+            # The account closes while the pages are still owned (the
+            # scheduler releases them just below).
+            out.cost = self._finalize_cost(seq)
             if self.runner.burst_in_flight and seq in self._burst_seqs:
                 # The in-flight burst still writes through its pages:
                 # detach now, release at the drain.

@@ -41,6 +41,14 @@ Every step is recorded in the runner's ``telemetry``
 compile, the others as steps, and the wall from a decode step's fetch to
 the next decode dispatch as a host gap (0 for a pipelined continuation,
 whose dispatch precedes the previous burst's fetch).
+
+With ``cost_attribution`` each live step's wall, the seconds its record
+gets, is charged to the sequences it served (``_charge_prefill``,
+``_charge_decode``): the shares of a step sum to its wall, so the
+requests' device seconds sum to ``pst_engine_device_busy_seconds``. A
+pipelined burst is charged once for each of its wall segments, the start
+and each continuation, to the members still alive; finished members and
+padding rows cost nothing.
 """
 
 from __future__ import annotations
@@ -278,7 +286,8 @@ class ModelRunner:
         batch = self._prefill_batch(items)
         want_lp, greedy = self._want_lp(seqs), self._all_greedy(seqs)
         rows = self._timed("prefill", *self._prefill_tel(items, batch),
-                           lambda: self._step(batch, want_lp, greedy).cpu())
+                           lambda: self._step(batch, want_lp, greedy).cpu(),
+                           charge=lambda dt: self._charge_prefill(items, dt))
         return rows.numpy()[: len(items)]
 
     def execute_prefill_batch_nofetch(self, items: List[PrefillItem]) -> None:
@@ -286,7 +295,8 @@ class ModelRunner:
         chunks): the cheapest sampling variant, no host copy."""
         batch = self._prefill_batch(items)
         self._timed("prefill", *self._prefill_tel(items, batch),
-                    lambda: self._step(batch, False, True))
+                    lambda: self._step(batch, False, True),
+                    charge=lambda dt: self._charge_prefill(items, dt))
 
     def execute_decode(self, seqs: List[Sequence]) -> np.ndarray:
         """One decode step per sequence. Returns packed sample rows
@@ -354,7 +364,7 @@ class ModelRunner:
                            "pending": self._stage(out, dev, slots[0])}
 
         self._timed("decode", label, len(seqs) * n_steps, len(seqs) / Bb,
-                    step)
+                    step, charge=lambda dt: self._charge_decode(seqs, dt))
 
     def burst_width_stable(self, members: List[Sequence]) -> bool:
         """True while the members' block tables still fit the table width
@@ -394,8 +404,11 @@ class ModelRunner:
         # Dispatched before the previous burst's rows were read: the
         # device runs the two back to back, so this step's host gap is 0.
         self.telemetry.record_host_gap(st["label"], 0.0)
+        # This wall segment (the next burst's dispatch and the previous
+        # one's fetch) is charged once, to the members still alive.
         rows = self._timed("decode", st["label"], alive * st["n"],
-                           alive / Bb, step)
+                           alive / Bb, step,
+                           charge=lambda dt: self._charge_decode(members, dt))
         return rows[: len(members)]
 
     def burst_drain(self) -> np.ndarray:
@@ -423,7 +436,8 @@ class ModelRunner:
             out = self._step(batch, want_lp, greedy)
             return self._stage(out, None, self._host_slot(out))
 
-        return self._timed("prefill", *self._prefill_tel(items, batch), step)
+        return self._timed("prefill", *self._prefill_tel(items, batch), step,
+                           charge=lambda dt: self._charge_prefill(items, dt))
 
     def prefill_fetch(self, handle, n_items: int) -> np.ndarray:
         return self._fetch(handle)[:n_items]
@@ -487,17 +501,47 @@ class ModelRunner:
 
     def _timed(self, kind: str, label: str, tokens: int,
                fill: Optional[float], step: Callable[[], Any],
-               live: bool = True) -> Any:
+               live: bool = True,
+               charge: Optional[Callable[[float], None]] = None) -> Any:
         """Run ``step`` (a device step, and its fetch where it has one)
-        and record it: as a compile when it captured its graph key."""
+        and record it: as a compile when it captured its graph key. A
+        live step's wall is passed to ``charge``."""
         captured = self.graph_counts["captured"]
         t0 = time.perf_counter()
         out = step()
+        dt = time.perf_counter() - t0
+        if live and charge is not None and self.cfg.cost_attribution:
+            charge(dt)
         self.telemetry.record_dispatch(
-            kind, label, time.perf_counter() - t0,
+            kind, label, dt,
             first_use=self.graph_counts["captured"] > captured,
             tokens=tokens, fill_ratio=fill, count_busy=live)
         return out
+
+    @staticmethod
+    def _charge_decode(seqs: List[Sequence], seconds: float) -> None:
+        """Split a decode step's or burst's wall equally over its live
+        rows (padding rows and finished pipeline members cost nothing)."""
+        alive = [s for s in seqs if not s.is_finished]
+        if seconds <= 0 or not alive:
+            return
+        share = seconds / len(alive)
+        now = time.monotonic()
+        for s in alive:
+            s.cost_decode_s += share
+            s.charge_kv_pages(now)
+
+    @staticmethod
+    def _charge_prefill(items: List[PrefillItem], seconds: float) -> None:
+        """Split a prefill step's wall over its chunks by their real
+        tokens."""
+        total = sum(it.end - it.start for it in items)
+        if seconds <= 0 or total <= 0:
+            return
+        now = time.monotonic()
+        for it in items:
+            it.seq.cost_prefill_s += seconds * (it.end - it.start) / total
+            it.seq.charge_kv_pages(now)
 
     def _timed_decode(self, seqs: List[Sequence],
                       batch: Dict[str, np.ndarray], n_steps: int,
@@ -511,7 +555,8 @@ class ModelRunner:
             self.telemetry.record_host_gap(
                 label, time.perf_counter() - self._host_gap_t0)
         rows = self._timed("decode", label, len(seqs) * n_steps,
-                           len(seqs) / Bb, step)
+                           len(seqs) / Bb, step,
+                           charge=lambda dt: self._charge_decode(seqs, dt))
         self._host_gap_t0 = time.perf_counter()
         return rows
 

@@ -18,6 +18,9 @@ sequences.
   within a tier, by deficit round robin across tenants; batch-tier
   sequences are preempted first, also to admit a waiting interactive
   one.
+- **Admission** reserves pages for all of a waiting sequence's tokens,
+  its output included once it recomputes; the JAX scheduler reserves its
+  prompt's, and livelocks under recompute preemption.
 
 While a pipelined decode burst is in flight, ``schedule(locked=...)``
 never sheds, rotates or preempts its members (the device still writes
@@ -461,11 +464,17 @@ class Scheduler:
                     seq.adopt_cached_prefix(blocks, hashes)
                     seq.num_computed_tokens = len(blocks) * self.allocator.block_size
                     seq.num_cached_prompt_tokens = seq.num_computed_tokens
-            # Admission requires pages for the FULL prompt, not just the
-            # first chunk (chunk-level admission overcommits the pool and
-            # thrashes prefills at near-capacity).
+            # Admission requires pages for everything the sequence
+            # computes, not just the first chunk (chunk-level admission
+            # overcommits the pool and thrashes prefills at near-capacity).
+            # That is its prompt AND its output when it recomputes after a
+            # preemption (or a swap-in whose chain was reused). The JAX
+            # scheduler sizes this by the prompt alone: a recompute then
+            # admits short of pages, takes them by preempting the next
+            # sequence, and with kv_swap off the two livelock. The port
+            # departs from it here on purpose.
             need = seq.blocks_needed(
-                seq.num_prompt_tokens, self.allocator.block_size
+                seq.num_tokens, self.allocator.block_size
             )
             if need + promised > self.allocator.num_free:
                 # Stays queued; release the adopted prefix (re-matched on

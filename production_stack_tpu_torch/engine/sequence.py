@@ -1,8 +1,8 @@
 """Request-side state for the serving engine: sampling params + sequences.
 
 A copy of the JAX package's ``engine/sequence.py`` without what this slice
-does not serve (LoRA salts, disaggregated KV handoff, cost attribution,
-controller chunk hashes). A :class:`Sequence` owns its token ids, its KV
+does not serve (LoRA salts, disaggregated KV handoff, controller chunk
+hashes). A :class:`Sequence` owns its token ids, its KV
 page list and the prefix-cache commit cursor; the KV itself lives in the
 runner's cache tensor.
 """
@@ -139,6 +139,19 @@ class Sequence:
         # Admission-FIFO stamp across waiting and swapped (scheduler._admit).
         self.queue_stamp = 0
 
+        # Per-request cost attribution: the device seconds this request
+        # was charged. A prefill step charges its chunks a token-weighted
+        # share and a decode step or burst its live rows an equal one, so
+        # the shares of a step sum to its wall and a pipelined
+        # continuation is charged once. KV page-seconds integrate
+        # len(block_ids) over the wall between charge points.
+        self.cost_prefill_s = 0.0
+        self.cost_decode_s = 0.0
+        self.cost_kv_page_s = 0.0
+        self._kv_cost_mark: Optional[float] = None
+        # The payload of the closed account (engine._finalize_cost).
+        self.cost_final: Optional[dict] = None
+
     # -- lengths ----------------------------------------------------------
 
     @property
@@ -172,6 +185,34 @@ class Sequence:
         if self.deadline is None:
             return False
         return (now if now is not None else time.monotonic()) >= self.deadline
+
+    # -- cost attribution -------------------------------------------------
+
+    def charge_kv_pages(self, now: Optional[float] = None) -> None:
+        """Integrate KV residency since the last charge point:
+        ``kv_page_s += pages_held * elapsed``. Called at every step that
+        charges this sequence and once more at its finish."""
+        now = now if now is not None else time.monotonic()
+        mark = self._kv_cost_mark
+        if mark is not None and self.block_ids:
+            self.cost_kv_page_s += len(self.block_ids) * max(now - mark, 0.0)
+        self._kv_cost_mark = now
+
+    def cost_snapshot(self, now: Optional[float] = None) -> dict:
+        """The request's cost so far: the ``X-PST-Cost`` payload."""
+        now = now if now is not None else time.monotonic()
+        queue_s = (
+            self.first_scheduled_time - self.arrival_time
+            if self.first_scheduled_time is not None
+            else now - self.arrival_time
+        )
+        return {
+            "prefill_device_s": round(self.cost_prefill_s, 6),
+            "decode_device_s": round(self.cost_decode_s, 6),
+            "device_s": round(self.cost_prefill_s + self.cost_decode_s, 6),
+            "kv_page_s": round(self.cost_kv_page_s, 3),
+            "queue_s": round(max(queue_s, 0.0), 6),
+        }
 
     # -- KV paging --------------------------------------------------------
 

@@ -19,6 +19,23 @@ module behind it, with its status codes, response keys and headers:
   ``GET /debug/state``.
 - ``POST /sleep?level=``, ``POST /wake_up``, ``GET /is_sleeping``;
   ``POST /drain?wait=&timeout=``, ``POST /undrain``, ``GET /is_draining``.
+- Diagnostics, on by default as in the JAX server: ``GET /debug/requests``
+  (``limit``, ``request_id``: the ring of request timelines),
+  ``GET /debug/flight`` (``n``, ``window_s``, ``snapshots=1``: the flight
+  recorder), ``POST /debug/profile`` (``duration_ms``, ``dir``; with
+  ``--profiling``: a ``torch.profiler`` trace of the CPU and the card,
+  written as Chrome/Perfetto JSON).
+
+Tracing (``--tracing``): a completion or chat request gets a root span
+``engine_request`` that joins the caller's ``traceparent``, and the
+spans ``engine_admission``, ``engine_queue``, ``prefill`` and
+``decode``, with ``compile`` and ``deadline_shed`` events; every span
+feeds ``pst_stage_duration_seconds``. ``X-Request-Id`` (the caller's, or
+a fresh one) names the timeline and rides every error answer; the
+handler thread binds it, with the trace id and tenant, to the JSON log
+lines (``--log-format json``). With ``--cost-attribution`` a collected
+answer carries the request's device seconds as ``X-PST-Cost`` and
+``usage.pst_cost``, a stream's final usage chunk as ``usage.pst_cost``.
 
 Bodies are plain JSON dicts. While the engine warms up, sleeps or drains
 it answers a generation request with a 503 (``X-PST-Warming: 1``, or
@@ -32,7 +49,9 @@ request the scheduler sheds later; a streamed one ends with a frame whose
 
     python -m production_stack_tpu_torch.engine.server --model llama-3-8b --port 8011 \
         [--quantization int4] [--warmup lazy|full] [--no-overlap-decode] \
-        [--no-kv-swap] [--no-deadline-shedding] [--no-tenant-fairness]
+        [--no-kv-swap] [--no-deadline-shedding] [--no-tenant-fairness] \
+        [--no-tracing] [--log-format json] [--profiling] \
+        [--flight-buffer 0] [--no-cost-attribution]
 
 ``--model`` takes a preset name or a local HF checkpoint directory (its
 ``config.json`` and safetensors; its tokenizer files unless
@@ -44,6 +63,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import signal
+import tempfile
 import threading
 import time
 import uuid
@@ -51,9 +73,25 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 from urllib.parse import parse_qs, urlsplit
 
+import torch
+
 from .. import __version__
 from ..logging_utils import init_logger
+from ..obs.logging import (
+    LOG_FORMATS,
+    LOG_REGISTRY,
+    bind_log_context,
+    configure_logging,
+    unbind_log_context,
+)
 from ..obs.prometheus_text import CONTENT_TYPE, Registry
+from ..obs.tracing import (
+    NOOP_TRACE,
+    REQUEST_ID_HEADER,
+    SpanRecorder,
+    debug_requests_payload,
+    error_headers,
+)
 from ..resilience.deadline import DEADLINE_EXCEEDED_HEADER, parse_deadline
 from .async_engine import AsyncLLMEngine
 from .config import EngineConfig
@@ -366,17 +404,45 @@ class EngineMetrics:
             stats.get("tenant_batch_preemptions_total", 0))
 
 
+# The paths that get a root span and a timeline: the work a router
+# proxies (probes and admin routes are not traced).
+_TRACED_PATHS = frozenset({"/v1/completions", "/v1/chat/completions"})
+
+DEFAULT_PROFILE_DIR = os.path.join(tempfile.gettempdir(), "pst_profiles")
+
+
 def create_engine_app(
-    engine: AsyncLLMEngine, host: str = "127.0.0.1", port: int = 0
+    engine: AsyncLLMEngine, host: str = "127.0.0.1", port: int = 0, *,
+    tracing: bool = True, debug_requests_buffer: int = 256,
+    profiling: bool = False, profile_dir: str = DEFAULT_PROFILE_DIR,
 ) -> ThreadingHTTPServer:
     """An HTTP server bound to ``(host, port)`` (port 0: any free port)
-    serving ``engine``; call ``serve_forever()`` on it."""
+    serving ``engine``; call ``serve_forever()`` on it. ``tracing`` and
+    ``debug_requests_buffer`` size the request tracing (the JAX server's
+    ``--tracing`` and ``--debug-requests-buffer``); ``profiling`` opens
+    ``POST /debug/profile``, which writes under ``profile_dir`` unless the
+    request names a ``dir``."""
     model_name = engine.engine.model_name
     metrics = EngineMetrics(model_name)
+    recorder = SpanRecorder("engine", buffer=debug_requests_buffer,
+                            enabled=tracing)
+    # One capture at a time: a second one while it runs answers 409.
+    profile_lock = threading.Lock()
+    if profiling and engine.engine.runner.device.type == "cuda":
+        _prime_profiler()  # before main() or serve_in_thread starts steps
 
     class Handler(BaseHTTPRequestHandler):
+        # The traced request's trace and id (do_POST sets them).
+        trace = NOOP_TRACE
+        request_id: Optional[str] = None
+        status: Optional[int] = None
+
         def log_message(self, fmt, *args):  # route access logs to our logger
             logger.debug("%s %s", self.address_string(), fmt % args)
+
+        def send_response(self, code, message=None) -> None:
+            self.status = code
+            super().send_response(code, message)
 
         # -- plumbing ----------------------------------------------------
 
@@ -398,8 +464,11 @@ def create_engine_app(
         def _error(self, message: str, status: int = 400,
                    etype: str = "invalid_request_error",
                    headers: Optional[dict] = None) -> None:
+            # A traced request's id rides every error answer: 503 drain
+            # and 504 deadline sheds included.
             self._json(status, {"error": {"message": message, "type": etype,
-                                          "code": status}}, headers)
+                                          "code": status}},
+                       error_headers(self.request_id, headers))
 
         def _body(self) -> dict:
             n = int(self.headers.get("Content-Length", 0))
@@ -421,7 +490,28 @@ def create_engine_app(
             self._route(GET_ROUTES)
 
         def do_POST(self) -> None:
-            self._route(POST_ROUTES)
+            path = urlsplit(self.path).path
+            self.trace, self.request_id = NOOP_TRACE, None
+            if not (recorder.enabled and path in _TRACED_PATHS):
+                self._route(POST_ROUTES)
+                return
+            # The JAX middleware's work: a root span joining the caller's
+            # traceparent, the request id, and the log context of this
+            # handler thread for as long as it serves the request.
+            self.request_id = (self.headers.get(REQUEST_ID_HEADER)
+                               or f"req-{uuid.uuid4().hex}")
+            self.trace = recorder.trace(
+                self.request_id, headers=self.headers, name="engine_request",
+                attributes={"http.target": path})
+            token = bind_log_context(
+                request_id=self.request_id, trace_id=self.trace.trace_id,
+                tenant=self.headers.get("X-PST-Tenant"))
+            self.status = None
+            try:
+                self._route(POST_ROUTES)
+            finally:
+                unbind_log_context(token)
+                self.trace.finish(status=self.status)
 
         # -- probes and introspection ------------------------------------
 
@@ -465,7 +555,8 @@ def create_engine_app(
             metrics.refresh(stats)
             telemetry = engine.engine.telemetry
             telemetry.refresh_from_stats(stats)
-            text = metrics.registry.render() + telemetry.render()
+            text = (metrics.registry.render() + telemetry.render()
+                    + recorder.registry.render() + LOG_REGISTRY.render())
             self._send(200, text.encode(), CONTENT_TYPE)
 
         def version(self) -> None:
@@ -480,12 +571,77 @@ def create_engine_app(
                 "warming": engine.warming,
                 "sleeping": engine.sleeping,
                 "in_flight": engine.num_inflight(),
-                # Captures stand in for compiles; no flight recorder yet.
+                # Captures stand in for compiles.
                 "compiles_total": engine.engine.telemetry.compile_count(),
-                "flight": {},
+                "flight": engine.engine.flight.stats(),
                 "stats": {k: v for k, v in stats.items()
                           if isinstance(v, (int, float, str, bool))},
             })
+
+        def debug_requests(self) -> None:
+            """The ring of completed request timelines, most recent first
+            (404 under ``--no-tracing`` or ``--debug-requests-buffer 0``)."""
+            status, body = debug_requests_payload(recorder, self.query)
+            self._json(status, body)
+
+        def debug_flight(self) -> None:
+            """The flight recorder: the last ``n`` step records or those of
+            the last ``window_s`` seconds, the retained snapshots, and
+            with ``snapshots=1`` those a previous process persisted."""
+            try:
+                n = int(self.query["n"]) if "n" in self.query else None
+                window_s = (float(self.query["window_s"])
+                            if "window_s" in self.query else None)
+            except ValueError:
+                self._error("n and window_s must be numbers")
+                return
+            self._json(200, engine.engine.flight.to_payload(
+                n=n, window_s=window_s,
+                include_restored=self.query.get("snapshots") in ("1",
+                                                                 "true")))
+
+        def debug_profile(self) -> None:
+            """A ``torch.profiler`` capture of the CPU and the card for
+            ``duration_ms`` (10 ms to 60 s), written as a Chrome/Perfetto
+            trace into ``dir`` (default ``--profile-dir``). 403 without
+            ``--profiling``; 409 while a capture runs; skipped on an
+            engine whose device is the CPU. The capture starts and stops
+            on the engine's step thread, between two steps (see
+            ``_capture_profile``); the card's kernels are recorded
+            process-wide in between."""
+            if not profiling:
+                self._error("profiling is disabled (start the engine with "
+                            "--profiling)", 403, "permission_error")
+                return
+            try:
+                body = self._body()
+            except ValueError:  # an empty or garbled body: the defaults
+                body = {}
+            try:
+                duration_ms = float(body.get("duration_ms")
+                                    or self.query.get("duration_ms", 1000))
+            except (TypeError, ValueError):
+                self._error("duration_ms must be a number")
+                return
+            duration_ms = min(max(duration_ms, 10.0), 60_000.0)
+            out_dir = str(body.get("dir") or profile_dir)
+            if engine.engine.runner.device.type != "cuda":
+                self._json(200, {"status": "skipped",
+                                 "reason": "no accelerator backend (cpu) "
+                                           "— nothing to profile",
+                                 "duration_ms": duration_ms})
+                return
+            if not profile_lock.acquire(blocking=False):
+                self._error("a profile capture is already running", 409,
+                            "conflict_error")
+                return
+            try:
+                path = _capture_profile(engine, out_dir, duration_ms)
+            finally:
+                profile_lock.release()
+            logger.info("profile captured: %.0f ms -> %s", duration_ms, path)
+            self._json(200, {"status": "ok", "dir": out_dir,
+                             "duration_ms": duration_ms, "trace": path})
 
         # -- admin -------------------------------------------------------
 
@@ -648,6 +804,7 @@ def create_engine_app(
                 return False, None
             if d.expired():
                 metrics.deadline_shed_admission.inc()
+                self.trace.add_event("deadline_shed", stage="engine_admission")
                 return True, None
             return False, d.expires_at
 
@@ -674,6 +831,7 @@ def create_engine_app(
             """One prompt (text, or token ids) with its ``n``/``best_of``
             candidates, streamed or collected: the JAX server's
             ``_serve_generation``."""
+            t_admission = time.monotonic()
             tok = engine.engine.tokenizer
             max_len = engine.engine.cfg.max_model_len
             try:
@@ -698,6 +856,10 @@ def create_engine_app(
             if expired:
                 self._deadline_error()
                 return
+            # Tokenization, validation and the budget: engine admission.
+            self.trace.record_span(
+                "engine_admission", time.monotonic() - t_admission,
+                attributes={"prompt_tokens": len(ids)})
             if best_of < n:
                 self._error("best_of must be >= n")
                 return
@@ -734,11 +896,14 @@ def create_engine_app(
             if result["finish_reason"] == "deadline":
                 # Shed by the scheduler, queued past its budget or expired
                 # mid-decode: nothing useful to return.
+                self.trace.add_event("deadline_shed", stage="engine_scheduler")
                 self._deadline_error()
                 return
+            self._record_stages(result)
             n_out = len(result["token_ids"])
             self._finished(meta, len(ids), n_out)
-            self._reply(meta, [self._choice(meta, result, 0)], n_out)
+            self._reply(meta, [self._choice(meta, result, 0)], n_out,
+                        cost=result["cost"])
 
         def _serve_choices(self, sampling: SamplingParams, meta: dict,
                            admit: dict, n: int, best_of: int) -> None:
@@ -758,6 +923,9 @@ def create_engine_app(
             results = self._collect_all(gens, rid)
             if results is None:
                 return
+            # The first candidate's stages: all share admission and the
+            # prompt's prefill, and the stage counts stay one a request.
+            self._record_stages(results[0])
             n_out = sum(len(r["token_ids"]) for r in results)
             if rank:
                 def mean_lp(r):
@@ -825,9 +993,12 @@ def create_engine_app(
 
         def _collect(self, gen) -> Optional[dict]:
             """Drain one request's outputs into its text, token ids,
-            logprob entries and finish; None once an error was answered
-            (a refusal on the engine thread: 400; a failed engine: 500)."""
-            text, token_ids, entries, finish = [], [], [], None
+            logprob entries, finish, stage timings, compile events and
+            cost; None once an error was answered (a refusal on the
+            engine thread: 400; a failed engine: 500)."""
+            text, token_ids, entries, compiles = [], [], [], []
+            last = dict.fromkeys(("finish_reason", "queue_time",
+                                  "prefill_time", "decode_time", "cost"))
             try:
                 for out in gen:
                     if out.num_output_tokens == 1 and out.ttft is not None:
@@ -835,7 +1006,10 @@ def create_engine_app(
                     text.append(out.text_delta)
                     token_ids.extend(out.new_token_ids)
                     entries.extend(out.logprobs or ())
-                    finish = out.finish_reason or finish
+                    compiles.extend(out.compile_events or ())
+                    for k in last:
+                        if getattr(out, k) is not None:
+                            last[k] = getattr(out, k)
             except ValueError as e:  # refused on the engine thread
                 self._error(str(e))
                 return None
@@ -843,7 +1017,26 @@ def create_engine_app(
                 self._error(str(e), 500)
                 return None
             return {"text": "".join(text), "token_ids": token_ids,
-                    "logprobs": entries, "finish_reason": finish}
+                    "logprobs": entries, "compile_events": compiles, **last}
+
+        def _record_stages(self, result: dict) -> None:
+            """The request's queue wait, prefill and decode as spans laid
+            back to back and ending now (after the fact, so the step
+            thread never touches the recorder), and its compile events."""
+            now = time.monotonic()
+            end_prefill = now - (result["decode_time"] or 0.0)
+            end_queue = end_prefill - (result["prefill_time"] or 0.0)
+            if result["queue_time"] is not None:
+                self.trace.record_span("engine_queue", result["queue_time"],
+                                       end_mono=end_queue)
+            if result["prefill_time"] is not None:
+                self.trace.record_span("prefill", result["prefill_time"],
+                                       end_mono=end_prefill)
+            if result["decode_time"] is not None:
+                self.trace.record_span("decode", result["decode_time"],
+                                       end_mono=now)
+            for ev in result["compile_events"]:
+                self.trace.add_event("compile", **ev)
 
         def _collect_all(self, gens: list, rid: str) -> Optional[list]:
             """The results of requests ``{rid}-{i}`` submitted together;
@@ -885,17 +1078,24 @@ def create_engine_app(
                     "finish_reason": result["finish_reason"]}
 
         def _reply(self, meta: dict, choices: list, n_out: int,
-                   n_in: Optional[int] = None) -> None:
+                   n_in: Optional[int] = None,
+                   cost: Optional[dict] = None) -> None:
             n_in = len(meta["ids"]) if n_in is None else n_in
+            usage = {"prompt_tokens": n_in, "completion_tokens": n_out,
+                     "total_tokens": n_in + n_out}
+            headers = {"X-Request-Id": meta["rid"]}
+            if cost is not None:
+                # The request's device seconds, as a header a router
+                # passes on and as a usage extension.
+                usage["pst_cost"] = cost
+                headers["X-PST-Cost"] = json.dumps(cost, separators=(",", ":"))
             self._json(200, {
                 "id": meta["rid"],
                 "object": "chat.completion" if meta["is_chat"]
                 else "text_completion",
                 "created": meta["created"], "model": meta["model"],
-                "choices": choices,
-                "usage": {"prompt_tokens": n_in, "completion_tokens": n_out,
-                          "total_tokens": n_in + n_out},
-            }, headers={"X-Request-Id": meta["rid"]})
+                "choices": choices, "usage": usage,
+            }, headers=headers)
 
         def _stream(self, gen, meta: dict, usage: bool) -> None:
             self.send_response(200)
@@ -920,6 +1120,7 @@ def create_engine_app(
             # included; the echo leads the first chunk's text.
             echo = tok.decode(meta["ids"]) if meta["echo"] else ""
             char_off = len(echo)
+            last = None
             try:
                 if is_chat:
                     frame({**head, "choices": [{
@@ -927,6 +1128,9 @@ def create_engine_app(
                         "finish_reason": None}]})
                 for out in gen:
                     n_out = out.num_output_tokens
+                    last = out
+                    for ev in out.compile_events or ():
+                        self.trace.add_event("compile", **ev)
                     if out.num_output_tokens == 1 and out.ttft is not None:
                         metrics.ttft.observe(out.ttft)
                     if is_chat:
@@ -951,6 +1155,10 @@ def create_engine_app(
                         chunk["usage"] = {"prompt_tokens": n_prompt,
                                           "completion_tokens": n_out,
                                           "total_tokens": n_prompt + n_out}
+                        # A stream learns its cost at its end, after its
+                        # headers: the usage chunk carries it.
+                        if out.cost is not None:
+                            chunk["usage"]["pst_cost"] = out.cost
                     frame(chunk)
             except ValueError as e:  # refused on the engine thread
                 frame({"error": {"message": str(e),
@@ -963,6 +1171,12 @@ def create_engine_app(
                 gen.close()  # aborts the request on the engine
                 return
             else:
+                if last is not None:
+                    self._record_stages({
+                        "queue_time": last.queue_time,
+                        "prefill_time": last.prefill_time,
+                        "decode_time": last.decode_time,
+                        "compile_events": ()})
                 self._finished(meta, n_prompt, n_out)
             frame("[DONE]")
 
@@ -973,6 +1187,8 @@ def create_engine_app(
         "/metrics": Handler.metrics,
         "/version": Handler.version,
         "/debug/state": Handler.debug_state,
+        "/debug/requests": Handler.debug_requests,
+        "/debug/flight": Handler.debug_flight,
         "/is_sleeping": Handler.is_sleeping,
         "/is_draining": Handler.is_draining,
     }
@@ -985,11 +1201,47 @@ def create_engine_app(
         "/wake_up": Handler.wake_up,
         "/drain": Handler.drain,
         "/undrain": Handler.undrain,
+        "/debug/profile": Handler.debug_profile,
     }
 
     server = ThreadingHTTPServer((host, port), Handler)
     server.daemon_threads = True
     return server
+
+
+def _prime_profiler() -> None:
+    """Initialize the profiler's tracing library on this thread (the one
+    that builds the app, which imported torch), before the engine's step
+    thread runs: the library refuses to initialize from another thread
+    (``External init callback must run in same thread as
+    registerClient``) and then records no kernel, and a capture runs on
+    the step thread."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pass
+    torch.cuda.synchronize()
+
+
+def _capture_profile(engine: AsyncLLMEngine, out_dir: str,
+                     duration_ms: float) -> str:
+    """Profile the step thread's CPU work and the card for
+    ``duration_ms`` and write the Chrome/Perfetto trace under
+    ``out_dir``; returns its path. The profiler starts and stops on the
+    step thread between two steps: stopping it on another thread while
+    the step thread launches a CUDA graph can deadlock the two."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    engine.on_step_thread(prof.start)
+    try:
+        time.sleep(duration_ms / 1000.0)
+    finally:
+        engine.on_step_thread(prof.stop)
+    path = os.path.join(out_dir, f"pst_profile_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    return path
 
 
 def parse_engine_args(argv=None) -> argparse.Namespace:
@@ -1055,6 +1307,42 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
                    action="store_true", default=True)
     p.add_argument("--no-tenant-fairness", dest="tenant_fairness",
                    action="store_false")
+    # Request tracing: engine spans for admission, queue wait, prefill and
+    # decode, joined to the router's trace by the propagated traceparent.
+    p.add_argument("--tracing", dest="tracing", action="store_true",
+                   default=True)
+    p.add_argument("--no-tracing", dest="tracing", action="store_false")
+    p.add_argument("--debug-requests-buffer", type=int, default=256,
+                   help="completed request timelines kept for "
+                        "GET /debug/requests (0 disables the endpoint)")
+    p.add_argument("--log-format", choices=list(LOG_FORMATS),
+                   default="text",
+                   help="log output format: 'json' emits one JSON object "
+                        "per line with trace_id/request_id/tenant/"
+                        "engine_id")
+    p.add_argument("--profiling", dest="profiling", action="store_true",
+                   default=False,
+                   help="enable POST /debug/profile (an on-demand "
+                        "torch.profiler trace; skipped on a CPU engine)")
+    p.add_argument("--profile-dir", default=DEFAULT_PROFILE_DIR,
+                   help="directory POST /debug/profile writes traces to")
+    # Flight recorder and cost attribution.
+    p.add_argument("--flight-buffer", type=int, default=512,
+                   help="per-step flight-recorder ring capacity (GET "
+                        "/debug/flight; auto-snapshots on tail outliers "
+                        "and SIGTERM/fatal; 0 disables recording)")
+    p.add_argument("--flight-snapshot-dir", default=None,
+                   help="persist retained flight snapshots as JSON files "
+                        "under this directory (bounded, oldest-first "
+                        "eviction) and load them back into GET "
+                        "/debug/flight?snapshots=1 after a restart")
+    p.add_argument("--cost-attribution", dest="cost_attribution",
+                   action="store_true", default=True)
+    p.add_argument("--no-cost-attribution", dest="cost_attribution",
+                   action="store_false",
+                   help="disable per-request device-seconds attribution "
+                        "(X-PST-Cost header, pst_request_device_seconds, "
+                        "pst_tenant_device_seconds)")
     return p.parse_args(argv)
 
 
@@ -1083,33 +1371,62 @@ def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
         swap_stash_blocks=args.swap_stash_blocks,
         deadline_shedding=args.deadline_shedding,
         tenant_fairness=args.tenant_fairness,
+        flight_buffer=args.flight_buffer,
+        flight_snapshot_dir=args.flight_snapshot_dir,
+        cost_attribution=args.cost_attribution,
     )
+
+
+def app_options_from_args(args: argparse.Namespace) -> dict:
+    """``create_engine_app``'s keywords from the server's flags."""
+    return dict(tracing=args.tracing,
+                debug_requests_buffer=args.debug_requests_buffer,
+                profiling=args.profiling, profile_dir=args.profile_dir)
+
+
+class _Terminated(Exception):
+    """Raised in the main thread by SIGTERM, to leave ``serve_forever``."""
+
+
+def _on_sigterm(signum, frame):
+    raise _Terminated
 
 
 def main(argv=None) -> None:
     args = parse_engine_args(argv)
+    configure_logging(args.log_format, component="engine",
+                      engine_id=f"{args.host}:{args.port}")
     engine = AsyncLLMEngine(engine_config_from_args(args))
+    server = create_engine_app(engine, args.host, args.port,
+                               **app_options_from_args(args))
     engine.start()
-    server = create_engine_app(engine, args.host, args.port)
     logger.info("serving %s on %s:%d (%s)", engine.engine.model_name,
                 args.host, server.server_address[1], args.device)
+    signal.signal(signal.SIGTERM, _on_sigterm)
     try:
         server.serve_forever()
-    except KeyboardInterrupt:
+    except (KeyboardInterrupt, _Terminated):
         pass
     finally:
+        # Freeze the flight ring so a terminated server leaves a
+        # post-mortem in its log (/debug/flight dies with the process).
+        snap = engine.engine.flight.snapshot("sigterm")
+        if snap["records"]:
+            logger.info("flight snapshot (sigterm): %d steps recorded, "
+                        "tail=%s", snap["total_steps"], snap["records"][-3:])
         server.server_close()
         engine.shutdown()
 
 
 def serve_in_thread(engine: AsyncLLMEngine, host: str = "127.0.0.1",
-                    port: int = 0) -> "tuple[ThreadingHTTPServer, threading.Thread]":
-    """Start the engine loop and an HTTP server on a background thread;
-    returns (server, thread). Stop with ``server.shutdown()`` and
-    ``engine.shutdown()``."""
+                    port: int = 0, **app_options
+                    ) -> "tuple[ThreadingHTTPServer, threading.Thread]":
+    """Start the engine loop and an HTTP server on a background thread
+    (``app_options``: ``create_engine_app``'s keywords); returns (server,
+    thread). Stop with ``server.shutdown()`` and ``engine.shutdown()``."""
+    server = create_engine_app(engine, host, port, **app_options)
     if engine._thread is None:
         engine.start()
-    server = create_engine_app(engine, host, port)
     t = threading.Thread(target=server.serve_forever, name="http", daemon=True)
     t.start()
     return server, t

@@ -1,7 +1,9 @@
 """Colored, leveled logging (a copy of the JAX package's logging_utils).
 
 Per-level ANSI colors on a terminal, INFO and below to stdout, WARNING and
-above to stderr; idempotent handler install.
+above to stderr; idempotent handler install. ``apply_log_profile`` swaps
+the formatter (and a record filter) on every logger made here, existing
+and later: ``obs/logging.py`` installs its JSON lines through it.
 """
 
 from __future__ import annotations
@@ -40,6 +42,40 @@ class _BelowWarning(logging.Filter):
         return record.levelno < logging.WARNING
 
 
+# The structured-logging profile (obs/logging.py installs it): a factory
+# of the formatter for a stream (None: the colored text default) and an
+# optional record filter (the hot-path sampler), applied to every logger
+# init_logger configured, existing and later.
+_FORMATTER_FACTORY = None
+_RECORD_FILTER = None
+
+
+def _make_formatter(stream) -> logging.Formatter:
+    if _FORMATTER_FACTORY is not None:
+        return _FORMATTER_FACTORY(stream)
+    return _ColorFormatter(_FMT, _DATEFMT, stream)
+
+
+def apply_log_profile(formatter_factory=None, record_filter=None) -> None:
+    """Swap the formatter (and optional filter) on every logger this
+    module configured, and remember both for loggers made later. With no
+    arguments the colored text default is restored."""
+    global _FORMATTER_FACTORY, _RECORD_FILTER
+    old_filter = _RECORD_FILTER
+    _FORMATTER_FACTORY = formatter_factory
+    _RECORD_FILTER = record_filter
+    for logger in list(logging.Logger.manager.loggerDict.values()):
+        if not getattr(logger, "_pst_configured", False):
+            continue
+        if old_filter is not None:
+            logger.removeFilter(old_filter)
+        if record_filter is not None:
+            logger.addFilter(record_filter)
+        for handler in logger.handlers:
+            stream = getattr(handler, "stream", sys.stdout)
+            handler.setFormatter(_make_formatter(stream))
+
+
 def init_logger(name: str, level: int = logging.INFO) -> logging.Logger:
     """Return a logger with colored stdout/stderr split handlers."""
     logger = logging.getLogger(name)
@@ -51,12 +87,14 @@ def init_logger(name: str, level: int = logging.INFO) -> logging.Logger:
 
     out = logging.StreamHandler(sys.stdout)
     out.addFilter(_BelowWarning())
-    out.setFormatter(_ColorFormatter(_FMT, _DATEFMT, sys.stdout))
+    out.setFormatter(_make_formatter(sys.stdout))
     err = logging.StreamHandler(sys.stderr)
     err.setLevel(logging.WARNING)
-    err.setFormatter(_ColorFormatter(_FMT, _DATEFMT, sys.stderr))
+    err.setFormatter(_make_formatter(sys.stderr))
 
     logger.addHandler(out)
     logger.addHandler(err)
+    if _RECORD_FILTER is not None:
+        logger.addFilter(_RECORD_FILTER)
     logger._pst_configured = True  # type: ignore[attr-defined]
     return logger

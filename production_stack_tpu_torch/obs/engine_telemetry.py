@@ -1,5 +1,5 @@
 """Engine telemetry: step captures, step durations, host gaps, MFU, KV
-pressure, startup phases.
+pressure, startup phases, per-request cost.
 
 The port's copy of the engine side of the JAX package's
 ``obs/engine_telemetry.py``, with its family names, help strings, labels
@@ -16,9 +16,16 @@ What differs:
 - ``pst_engine_mfu`` divides by the peak of the card's name in
   ``_PEAK_FLOPS_BY_DEVICE_NAME``; for a device the table lacks it stays
   0, rather than taking another device's peak.
-- Not exported, since their modules are not ported: the JAX compilation
-  cache's hits and misses, and per-request and per-tenant device seconds
-  (cost attribution).
+- Compile events (a step that captured its key) are queued for the
+  engine to attach to the requests it served only for live steps: a
+  warmup capture delays no request.
+- Not exported, since its module is not ported: the JAX compilation
+  cache's hits and misses.
+
+Every live step also goes to the engine's flight recorder
+(``attach_flight``, ``obs/flight.py``), and each finished request's
+device seconds to ``pst_request_device_seconds{phase}`` and
+``pst_tenant_device_seconds_total{tenant}`` (``record_request_cost``).
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import time
 from collections import deque
 from typing import Deque, Dict, Optional, Tuple
 
+from .flight import NULL_FLIGHT_RECORDER
 from .prometheus_text import Registry
 
 _COMPILE_BUCKETS = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
@@ -37,6 +45,8 @@ _STEP_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
 _FILL_BUCKETS = (0.1, 0.25, 0.5, 0.625, 0.75, 0.875, 1.0)
 _HOST_GAP_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
                      0.1, 0.25)
+_REQUEST_DEVICE_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                           0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 120.0)
 
 # Dense bf16 tensor-core peak by ``torch.cuda.get_device_name()``: the
 # H100 SXM5's 989.4 TFLOP/s (NVIDIA H100 Tensor Core GPU datasheet).
@@ -130,6 +140,27 @@ class EngineTelemetry:
             "dispatches (warmup precompilation excluded) — the denominator "
             "per-request cost attribution is audited against (sum of "
             "request device-seconds must cover >= 90% of this)")
+        self.request_device_seconds = r.histogram(
+            "pst_request_device_seconds",
+            "Device-seconds attributed to one finished request, by phase: "
+            "prefill (token-weighted share of its prefill steps) or decode "
+            "(active-row share of its decode bursts/spec verifies)",
+            _REQUEST_DEVICE_BUCKETS, ["phase"])
+        self.tenant_device_seconds = r.counter(
+            "pst_tenant_device_seconds",
+            "Device-seconds attributed to finished requests, per tenant — "
+            "the chip-time billing meter beside pst_tenant_usage_tokens",
+            ["tenant"])
+        self.flight_snapshots_persisted = r.counter(
+            "pst_engine_flight_snapshots_persisted",
+            "Flight-recorder snapshots written to --flight-snapshot-dir "
+            "(bounded, oldest-first eviction) so tail-outlier post-mortems "
+            "survive process death and restart (docs/observability.md "
+            "\"Flight recorder\")")
+        self._flight = NULL_FLIGHT_RECORDER
+        # Compile events of live steps, until the engine attaches them to
+        # the outputs of the step that absorbed them.
+        self._pending_compile_events: list = []
         self._compiles = 0
         self._device_busy_s = 0.0
         self._kv_hwm = 0.0
@@ -170,6 +201,10 @@ class EngineTelemetry:
         with self._lock:
             if first_use:
                 self._compiles += 1
+                if count_busy:
+                    self._pending_compile_events.append({
+                        "kind": kind, "shape_bucket": batch_bucket,
+                        "seconds": round(seconds, 3)})
             if tokens > 0:
                 now = time.monotonic()
                 self._tok_samples.append((now, kind, tokens))
@@ -178,6 +213,8 @@ class EngineTelemetry:
                 self._device_busy_s += seconds
         if count_busy:
             self.device_busy_seconds.inc(seconds)
+            self._flight.record_step(kind, batch_bucket, seconds,
+                                     compiled=first_use, tokens=tokens)
         if first_use:
             self.compile_total.labels(kind=kind,
                                       shape_bucket=batch_bucket).inc()
@@ -192,9 +229,41 @@ class EngineTelemetry:
 
     def record_host_gap(self, batch_bucket: str, seconds: float) -> None:
         """The serial host wall between a decode step's fetch and the next
-        decode dispatch."""
+        decode dispatch, which the flight ring's next record carries."""
+        self._flight.note_host_gap(seconds)
         self.host_gap_seconds.labels(batch_bucket=batch_bucket).observe(
             max(seconds, 0.0))
+
+    def drain_compile_events(self) -> list:
+        """The live compile events since the last drain."""
+        with self._lock:
+            events, self._pending_compile_events = (
+                self._pending_compile_events, [])
+        return events
+
+    # -- flight recorder / cost attribution -----------------------------
+
+    def attach_flight(self, recorder) -> None:
+        """Make ``recorder`` (``obs/flight.py``) the sink of every live
+        step."""
+        self._flight = recorder
+
+    def record_request_cost(self, tenant: str, prefill_s: float,
+                            decode_s: float) -> None:
+        """One finished request's device seconds: the per-phase histogram
+        and the tenant's chip-time meter."""
+        prefill_s = max(prefill_s, 0.0)
+        decode_s = max(decode_s, 0.0)
+        if prefill_s > 0:
+            self.request_device_seconds.labels(phase="prefill").observe(
+                prefill_s)
+        if decode_s > 0:
+            self.request_device_seconds.labels(phase="decode").observe(
+                decode_s)
+        total = prefill_s + decode_s
+        if total > 0:
+            self.tenant_device_seconds.labels(
+                tenant=str(tenant or "default")[:64]).inc(total)
 
     def compile_count(self) -> int:
         with self._lock:

@@ -1,0 +1,359 @@
+"""Engine flight recorder: an always-on ring of per-device-step records.
+
+A copy of the JAX package's ``obs/flight.py``. ``/debug/requests`` says
+what happened to one request; the flight recorder says what the engine
+was doing when a step stalled. Every live device step appends one record:
+step kind, padded batch bucket, the step's wall, the host gap before it,
+queue depths, KV occupancy, preemptions, the batch-tier rows and whether
+the step captured its graph key (the port's compile).
+
+- **Always on.** The ring is a preallocated list of ``capacity`` slots
+  written round-robin under a small lock: nothing grows with uptime.
+- **Post-mortem by construction.** A step past ``outlier_factor`` times
+  its bucket's rolling median, or a capture above 50 ms, snapshots the
+  ring's tail; SIGTERM and a failed step snapshot too
+  (``engine/server.py``, ``engine/async_engine.py``). With a snapshot
+  directory each snapshot is also written as a JSON file (bounded,
+  oldest first out) and read back after a restart.
+- **Fed, not called.** ``EngineTelemetry`` sees every dispatch and
+  forwards it here; the engine supplies a probe of the scheduler's depths
+  and the KV occupancy.
+
+Served by ``GET /debug/flight`` (the last N records, or a time window).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional, Tuple
+
+# Record tuple layout (kept positional — a dict per step would allocate
+# a hash table on the hot path; rows render to dicts only at read time).
+_F_WALL = 0        # time.time() stamp (for ?window_s= and human output)
+_F_KIND = 1        # prefill | decode
+_F_BUCKET = 2      # padded batch bucket label (b8xn4, b1xt512, ...)
+_F_DEVICE_S = 3    # device step wall (dispatch -> fetch)
+_F_HOST_GAP_S = 4  # serial host wall that preceded this dispatch
+_F_COMPILED = 5    # this step captured its graph key (eager run + capture)
+_F_WAITING = 6     # scheduler waiting depth at dispatch
+_F_RUNNING = 7     # scheduler running depth at dispatch
+_F_SWAPPED = 8     # sequences parked host-side
+_F_KV_OCC = 9      # KV page occupancy fraction
+_F_PREEMPT = 10    # cumulative preemptions
+_F_BATCH_ROWS = 11 # batch-tier rows in the running set (tier mix)
+_F_TOKENS = 12     # real tokens the step moved
+
+_FIELDS = (
+    "ts", "kind", "bucket", "device_s", "host_gap_s", "compiled",
+    "waiting", "running", "swapped", "kv_occupancy", "preemptions",
+    "batch_tier_rows", "tokens",
+)
+
+
+def _row_dict(row: tuple) -> dict:
+    return dict(zip(_FIELDS, row))
+
+
+def load_snapshot_dir(path: str, limit: Optional[int] = None) -> List[dict]:
+    """Read persisted snapshots back from a ``--flight-snapshot-dir``,
+    oldest first. Filenames encode a monotone (time_ns, seq) pair so a
+    lexical sort is chronological. Unparseable files are skipped — a
+    snapshot half-written at SIGKILL must not poison the post-mortem.
+
+    The recorder reads its directory back with it after a restart."""
+    snaps: List[dict] = []
+    try:
+        names = sorted(
+            f for f in os.listdir(path)
+            if f.startswith("flight_") and f.endswith(".json")
+        )
+    except OSError:
+        return snaps
+    if limit is not None and limit > 0:
+        names = names[-limit:]
+    for name in names:
+        try:
+            with open(os.path.join(path, name)) as f:
+                snap = json.load(f)
+        except (OSError, ValueError):
+            continue
+        if isinstance(snap, dict):
+            snap.setdefault("persisted_as", name)
+            snaps.append(snap)
+    return snaps
+
+
+class FlightRecorder:
+    """Bounded, thread-safe per-step ring + outlier auto-snapshots.
+
+    Written from the engine step thread; read from an HTTP thread by
+    ``GET /debug/flight``. The lock guards only the slot store and the
+    ring copy, never a device wait.
+    """
+
+    # Rolling per-bucket median window for the outlier bar. Small on
+    # purpose: the bar should track the CURRENT steady state (post-warmup
+    # step times), not the whole process history.
+    _MEDIAN_WINDOW = 64
+    # Steps below this are never outliers regardless of the median —
+    # 3x a 2 ms CPU decode step is noise, not a stall.
+    _MIN_OUTLIER_S = 0.05
+    # Buckets need this many samples before the bar arms (a fresh bucket's
+    # first few steps straddle cache effects).
+    _MIN_SAMPLES = 8
+
+    def __init__(
+        self,
+        capacity: int = 512,
+        outlier_factor: float = 3.0,
+        snapshot_keep: int = 8,
+        snapshot_tail: int = 64,
+        snapshot_dir: Optional[str] = None,
+        snapshot_disk_keep: int = 32,
+        on_persist: Optional[Callable[[], None]] = None,
+    ):
+        """``on_persist``: called once a snapshot file was written (the
+        engine counts ``pst_engine_flight_snapshots_persisted``)."""
+        self.capacity = max(int(capacity), 0)
+        self.outlier_factor = float(outlier_factor)
+        self._ring: List[Optional[tuple]] = [None] * self.capacity
+        self._idx = 0
+        self._total = 0
+        self._lock = threading.Lock()
+        self._snapshots: "deque[dict]" = deque(maxlen=max(snapshot_keep, 1))
+        self._snapshot_tail = max(int(snapshot_tail), 1)
+        # Snapshot persistence (--flight-snapshot-dir): every retained
+        # snapshot is also written as one JSON file, bounded to
+        # ``snapshot_disk_keep`` with oldest-first eviction, and loaded
+        # back after a restart — the post-mortem survives the process.
+        self.snapshot_dir = snapshot_dir or None
+        self._snapshot_disk_keep = max(int(snapshot_disk_keep), 1)
+        self._persist_seq = 0
+        self._restored: List[dict] = []
+        if self.snapshot_dir:
+            try:
+                os.makedirs(self.snapshot_dir, exist_ok=True)
+            except OSError:
+                self.snapshot_dir = None
+            else:
+                self._restored = load_snapshot_dir(
+                    self.snapshot_dir, limit=self._snapshot_disk_keep
+                )
+        # (bucket -> recent device_s samples) for the rolling median.
+        self._samples: Dict[Tuple[str, str], "deque[float]"] = {}
+        # Engine-supplied closure: () -> dict(waiting, running, swapped,
+        # batch_tier_rows, kv_occupancy, preemptions). Must be cheap and
+        # safe on the step thread.
+        self._probe: Optional[Callable[[], dict]] = None
+        # Host gap noted between steps: consumed by the next record.
+        self._pending_gap = 0.0
+        self._on_persist = on_persist
+
+    @property
+    def enabled(self) -> bool:
+        return self.capacity > 0
+
+    def set_probe(self, probe: Optional[Callable[[], dict]]) -> None:
+        self._probe = probe
+
+    # -- write side (engine step thread) --------------------------------
+
+    def note_host_gap(self, seconds: float) -> None:
+        """The host gap closing at the NEXT decode dispatch; attached to
+        that dispatch's record (EngineTelemetry.record_host_gap feeds
+        this)."""
+        self._pending_gap = max(float(seconds), 0.0)
+
+    def record_step(
+        self,
+        kind: str,
+        bucket: str,
+        device_s: float,
+        *,
+        compiled: bool = False,
+        tokens: int = 0,
+    ) -> None:
+        if not self.enabled:
+            return
+        probe = self._probe
+        state: dict = {}
+        if probe is not None:
+            try:
+                state = probe() or {}
+            except Exception:  # noqa: BLE001 — telemetry must not kill steps
+                state = {}
+        gap, self._pending_gap = self._pending_gap, 0.0
+        row = (
+            time.time(),
+            kind,
+            bucket,
+            round(max(device_s, 0.0), 6),
+            round(gap, 6),
+            bool(compiled),
+            int(state.get("waiting", 0)),
+            int(state.get("running", 0)),
+            int(state.get("swapped", 0)),
+            round(float(state.get("kv_occupancy", 0.0)), 4),
+            int(state.get("preemptions", 0)),
+            int(state.get("batch_tier_rows", 0)),
+            int(tokens),
+        )
+        outlier_bar = None
+        with self._lock:
+            self._ring[self._idx] = row
+            self._idx = (self._idx + 1) % self.capacity
+            self._total += 1
+            key = (kind, bucket)
+            dq = self._samples.get(key)
+            if dq is None:
+                dq = self._samples[key] = deque(maxlen=self._MEDIAN_WINDOW)
+            # Compile-bearing steps are architecture, not steady state:
+            # they set no baseline (and ARE flagged via `compiled`).
+            if not compiled:
+                if len(dq) >= self._MIN_SAMPLES:
+                    ordered = sorted(dq)
+                    p50 = ordered[len(ordered) // 2]
+                    outlier_bar = max(
+                        p50 * self.outlier_factor, self._MIN_OUTLIER_S
+                    )
+                dq.append(device_s)
+        if (
+            outlier_bar is not None and device_s > outlier_bar
+        ) or (compiled and device_s > self._MIN_OUTLIER_S):
+            self.snapshot(
+                "compile" if compiled else "tail_outlier",
+                detail={
+                    "kind": kind,
+                    "bucket": bucket,
+                    "device_s": round(device_s, 6),
+                    "bar_s": round(outlier_bar, 6) if outlier_bar else None,
+                    "waiting": row[_F_WAITING],
+                    "running": row[_F_RUNNING],
+                    "swapped": row[_F_SWAPPED],
+                    "kv_occupancy": row[_F_KV_OCC],
+                },
+            )
+
+    # -- read side -------------------------------------------------------
+
+    def _rows_locked(self) -> List[tuple]:
+        """Chronological copy of the live ring (oldest first)."""
+        if self._total < self.capacity:
+            rows = self._ring[: self._idx]
+        else:
+            rows = self._ring[self._idx:] + self._ring[: self._idx]
+        return [r for r in rows if r is not None]
+
+    def records(
+        self, n: Optional[int] = None, window_s: Optional[float] = None
+    ) -> List[dict]:
+        with self._lock:
+            rows = self._rows_locked()
+        if window_s is not None and window_s > 0:
+            cutoff = time.time() - window_s
+            rows = [r for r in rows if r[_F_WALL] >= cutoff]
+        if n is not None and n > 0:
+            rows = rows[-n:]
+        return [_row_dict(r) for r in rows]
+
+    def snapshot(self, reason: str, detail: Optional[dict] = None) -> dict:
+        """Freeze the ring tail as a post-mortem and retain it (bounded).
+
+        Returns the snapshot so shutdown paths can also log it. The tail
+        (not the whole ring) keeps SIGTERM dumps one log line, not a MB.
+        """
+        with self._lock:
+            rows = self._rows_locked()[-self._snapshot_tail:]
+            snap = {
+                "reason": reason,
+                "ts": time.time(),
+                "detail": detail or {},
+                "total_steps": self._total,
+                "records": [_row_dict(r) for r in rows],
+            }
+            self._snapshots.append(snap)
+        self._persist(snap)
+        return snap
+
+    def _persist(self, snap: dict) -> None:
+        """Write one snapshot file (atomic rename) and evict beyond the
+        disk bound, oldest first. Disk I/O stays off the ring lock; any
+        failure downgrades to in-memory-only retention."""
+        d = self.snapshot_dir
+        if not d:
+            return
+        with self._lock:
+            self._persist_seq += 1
+            seq = self._persist_seq
+        name = f"flight_{time.time_ns():020d}_{seq:06d}_{snap['reason']}.json"
+        try:
+            tmp = os.path.join(d, name + ".tmp")
+            with open(tmp, "w") as f:
+                json.dump(snap, f)
+            os.replace(tmp, os.path.join(d, name))
+            stale = sorted(
+                f for f in os.listdir(d)
+                if f.startswith("flight_") and f.endswith(".json")
+            )[: -self._snapshot_disk_keep]
+            for old in stale:
+                try:
+                    os.remove(os.path.join(d, old))
+                except OSError:
+                    pass
+        except OSError:
+            return
+        if self._on_persist is not None:
+            self._on_persist()
+
+    def restored_snapshots(self) -> List[dict]:
+        """Snapshots a previous process persisted to the snapshot dir,
+        loaded at construction (``GET /debug/flight?snapshots=1``)."""
+        return list(self._restored)
+
+    def snapshots(self) -> List[dict]:
+        with self._lock:
+            return list(self._snapshots)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "capacity": self.capacity,
+                "total_steps": self._total,
+                "resident": min(self._total, self.capacity),
+                "snapshots": len(self._snapshots),
+            }
+
+    def to_payload(
+        self,
+        n: Optional[int] = None,
+        window_s: Optional[float] = None,
+        include_restored: bool = False,
+    ) -> dict:
+        """The ``GET /debug/flight`` response body. ``include_restored``
+        (the ``?snapshots=1`` query) adds snapshots persisted by a
+        previous process to this snapshot dir — the post-mortem a
+        forensics collector reads after a restart."""
+        payload = {
+            **self.stats(),
+            "fields": list(_FIELDS),
+            "records": self.records(n=n, window_s=window_s),
+            "snapshot_log": self.snapshots(),
+        }
+        if include_restored:
+            payload["restored_snapshots"] = self.restored_snapshots()
+            payload["snapshot_dir"] = self.snapshot_dir
+        return payload
+
+
+class _NullFlightRecorder(FlightRecorder):
+    """``--flight-buffer 0``: every write is a no-op, reads are empty."""
+
+    def __init__(self):
+        super().__init__(capacity=0)
+
+
+NULL_FLIGHT_RECORDER = _NullFlightRecorder()

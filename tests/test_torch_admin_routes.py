@@ -3,9 +3,10 @@ JAX server's, and a level-2 sleep that drops every step graph.
 
 A JAX server (aiohttp, on its own event loop thread) and the port's
 server serve ``tiny-llama-debug`` on the CPU from the same weights
-(``params_from_jax``), each with the feature the port lacks turned off
-(cost attribution). The same requests to both must give the same status
-codes, headers and bodies, ids and timestamps aside. The sleep test puts
+(``params_from_jax``), each with cost attribution and tracing off (two
+engines bill their own device seconds). The same requests to both must
+give the same status codes, headers and bodies, ids and timestamps
+aside. The sleep test puts
 a stand-in for ``torch.cuda.CUDAGraph`` into the port's runner, whose
 replay reruns the captured step, and holds the greedy tokens of a prompt
 that filled the prefix cache before a level-2 sleep to its first, fresh
@@ -128,9 +129,11 @@ def servers(jax_params):
     jthread = threading.Thread(target=run_jax, daemon=True)
     jthread.start()
     assert started.wait(timeout=60)
+    # Cost attribution and tracing off, as the JAX server's above.
     engine = AsyncLLMEngine(EngineConfig(device="cpu", num_decode_steps=2,
-                                         **COMMON), params=params)
-    server, thread = serve_in_thread(engine)
+                                         cost_attribution=False, **COMMON),
+                            params=params)
+    server, thread = serve_in_thread(engine, tracing=False)
     yield box["port"], server.server_address[1], engine
     server.shutdown()
     server.server_close()
@@ -236,7 +239,10 @@ def test_drain_and_sleep_answer_as_the_jax_server(servers):
         assert got[0] == want[0] == 200
         assert set(got[1]) == set(want[1]), path
     state = got[1]
-    assert state["flight"] == {} and state["in_flight"] == 0
+    # The flight recorder's stats: the JAX ring's size and fields.
+    assert set(state["flight"]) == set(want[1]["flight"])
+    assert state["flight"]["capacity"] == want[1]["flight"]["capacity"] == 512
+    assert state["in_flight"] == 0
     assert state["compiles_total"] == state["stats"]["graphs_captured"] == 0
 
 

@@ -93,8 +93,9 @@ def test_page_io_moves_the_jax_runners_bytes(kv_dtype):
 
 @pytest.mark.parametrize("mode, over", [
     ("swap", dict(kv_swap=True, swap_quantum_tokens=16)),
-    # Recompute preemption at this pool thrashes in both engines (each
-    # re-prefill evicts the next): 35 pages preempt once.
+    # Recompute preemption at this pool thrashes in the JAX engine (each
+    # re-prefill evicts the next; the port's admission does not, see
+    # test_torch_scheduler_liveness.py): 35 pages preempt once in both.
     ("recompute", dict(kv_swap=False, num_kv_blocks=35)),
 ])
 def test_small_pool_serves_the_jax_engines_tokens(mode, over):

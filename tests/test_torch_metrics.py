@@ -21,6 +21,7 @@ from prometheus_client.parser import text_string_to_metric_families
 
 from production_stack_tpu.engine.server import EngineMetrics as JaxMetrics
 from production_stack_tpu.obs import engine_telemetry as jax_tel
+from production_stack_tpu.obs import metrics as jax_metrics
 from production_stack_tpu.router.stats.engine_stats import (
     _METRIC_FIELDS,
     EngineStats,
@@ -87,7 +88,11 @@ def test_vllm_families_parse_as_the_jax_servers():
 
 def _jax_collectors():
     reg = jax_tel.ENGINE_TELEMETRY_REGISTRY
-    return {c._name: c for c in reg._collector_to_names}
+    out = {c._name: c for c in reg._collector_to_names}
+    # The JAX package keeps this one engine family in its shared registry.
+    persisted = jax_metrics.flight_snapshots_persisted
+    out[persisted._name] = persisted
+    return out
 
 
 def test_engine_telemetry_families_are_the_jax_ones():
@@ -97,8 +102,7 @@ def test_engine_telemetry_families_are_the_jax_ones():
     jax = _jax_collectors()
     port = {f.name: f for f in EngineTelemetry().registry._families}
     not_ported = {"pst_engine_compile_cache_hits",
-                  "pst_engine_compile_cache_misses",
-                  "pst_request_device_seconds", "pst_tenant_device_seconds"}
+                  "pst_engine_compile_cache_misses"}
     assert set(port) == set(jax) - not_ported
     for name, fam in port.items():
         ref = jax[name]

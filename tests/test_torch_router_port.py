@@ -73,7 +73,13 @@ async def _router(engine_url: str, health_checks: bool = False):
 
 
 def _without_ids(body: dict) -> dict:
-    return {k: v for k, v in body.items() if k not in ("id", "created")}
+    """The body, ids and timestamps aside, and of a usage's ``pst_cost``
+    its fields only (each request bills its own device seconds)."""
+    out = {k: v for k, v in body.items() if k not in ("id", "created")}
+    if "pst_cost" in out.get("usage", {}):
+        out["usage"] = {**out["usage"],
+                        "pst_cost": sorted(out["usage"]["pst_cost"])}
+    return out
 
 
 async def _post(s, url, body):

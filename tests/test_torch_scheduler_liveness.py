@@ -74,3 +74,49 @@ def test_mixed_tiers_under_page_pressure(side):
     assert sorted(state) == sorted(f"r{i}" for i in range(14))
     # Interactive requests finish first (the pool's first five prompts).
     assert {int(r[1:]) % 2 for r in state[:5]} == {1}
+
+
+def _drain(engine, requests, cap: int):
+    """Step until drained or ``cap`` steps: (steps or None, token ids)."""
+    for rid, prompt, sp in requests:
+        engine.add_request(rid, prompt_token_ids=list(prompt), sampling=sp)
+    toks = {rid: [] for rid, _, _ in requests}
+    for n in range(cap):
+        if not engine.has_work():
+            return n, toks
+        for out in engine.step():
+            toks[out.request_id].extend(out.new_token_ids)
+    return None, toks
+
+
+def test_recompute_preemption_drains_where_the_jax_engine_livelocks():
+    """ROADMAP fault 3.6. With kv_swap off, the JAX admission sizes a
+    preempted sequence's pages by its prompt; it recomputes its output
+    too, takes the missing pages by preempting the next sequence, and the
+    two evict each other for good. The port sizes it by all its tokens:
+    at the small pool it drains, with the tokens the JAX engine serves
+    where it does not thrash."""
+    from .test_torch_kv_swap import LENGTHS, MAX_TOKENS, SMALL, _jax, _port
+    from .test_torch_overlap_decode import _reqs
+
+    from production_stack_tpu.engine.sequence import (
+        SamplingParams as JaxSamplingParams,
+    )
+    from production_stack_tpu_torch.engine.sequence import SamplingParams
+
+    assert SMALL["num_kv_blocks"] == 28
+    jeng = _jax(kv_swap=False)
+    steps, _ = _drain(jeng, _reqs(LENGTHS, MAX_TOKENS, JaxSamplingParams,
+                                  temperature=0.0), cap=120)
+    assert steps is None
+    assert jeng.stats()["num_preemptions_total"] > 50
+    port = _port(jeng, kv_swap=False)
+    steps, got = _drain(port, _reqs(LENGTHS, MAX_TOKENS, SamplingParams,
+                                    temperature=0.0), cap=120)
+    assert steps is not None
+    assert 1 <= port.stats()["num_preemptions_total"] <= 2
+    assert port.allocator.num_free == port.allocator.num_blocks
+    _, want = _drain(_jax(kv_swap=False, num_kv_blocks=64),
+                     _reqs(LENGTHS, MAX_TOKENS, JaxSamplingParams,
+                           temperature=0.0), cap=120)
+    assert got == want

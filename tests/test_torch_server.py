@@ -66,6 +66,11 @@ def test_completion_matches_engine_generate(served):
     choice = out["choices"][0]
     assert choice["text"] == expected["text"]
     assert choice["finish_reason"] == "length"
+    # Cost attribution is on by default, as in the JAX server: the usage
+    # carries the request's device seconds.
+    cost = out["usage"].pop("pst_cost")
+    assert set(cost) == {"prefill_device_s", "decode_device_s", "device_s",
+                         "kv_page_s", "queue_s"} and cost["device_s"] > 0
     assert out["usage"] == {"prompt_tokens": len(PROMPT.encode()),
                             "completion_tokens": 10,
                             "total_tokens": len(PROMPT.encode()) + 10}
