@@ -170,6 +170,31 @@ stack printed:
    stage. ``POST /debug/profile`` of 500 ms during a stream writes a
    ``torch.profiler`` trace that names ``decode_split_kernel`` (a second
    POST meanwhile answers 409).
+4j. KV tiers on served paths. (a) A server with ``--num-kv-blocks 160
+   --cpu-offload-blocks 512``: a 2070-token prompt A cold, as a device
+   prefix hit (its 64 full pages copied to the host), and after three
+   other prompts evicted every page of A as a host-tier hit (its 64
+   pages faulted up, counted in ``kv_offload_host_hit_blocks`` and the
+   ``kv_fetch_host`` stage, equal to the copies bit for bit; the prefill
+   and decode kernels launched); its tokens equal the device hit's bit
+   for bit; the three TTFTs printed. 4h's first wave again over a
+   1024-page host tier: every swap resumes, none recomputes. (b) The
+   port's kvserver and cache controller in threads of the script; a
+   producer and a consumer server (512 pages each, one param tree): a
+   2070-token prompt with the router's producer stamp (``max_tokens`` 1),
+   then with the consumer stamp: 64 pages prefetched, no fallback, the
+   consumer's pages equal the producer's bit for bit, its tokens equal
+   the producer's device hit; ``drop_manifest`` then a second prompt:
+   one fallback, a 200, the same tokens; the kvserver's ``/stats``, the
+   producer's leg and the prefetch's seconds printed. (c) One
+   registration of the producer's chunk hashes; ``/lookup`` of a
+   2048-token prompt's returns 2048 tokens for its URL. (d) Fault 3.8: a
+   2040-token prefix hit's 32 greedy tokens, decoded across the table's
+   64-page bucket, and its committed pages equal the synchronous loop's
+   bit for bit with the overlapped decode engaged from engine step 0, 4,
+   7 or 10. Prompts of 2070 tokens keep a partial last block, so that a
+   prefix hit's recomputed tail is not a block whose commit adopts
+   another run's page; no check depends on when the pipeline engages.
 3b. The same model int4-quantized on the card (streamed from the seed, the
    bf16 tree freed first), under ``PST_FUSED_KV_WRITE=1``: the same steps
    through the int4 and decode-write kernels, against the gather path on a
@@ -283,6 +308,7 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from production_stack_tpu_torch.engine.async_engine import AsyncLLMEngine  # noqa: E402
+from production_stack_tpu_torch.engine.cache_tiering import TieredAllocator  # noqa: E402
 from production_stack_tpu_torch.engine.config import (  # noqa: E402
     EngineConfig,
     resolve_num_kv_blocks,
@@ -305,9 +331,19 @@ from production_stack_tpu_torch.engine.server import (  # noqa: E402
     app_options_from_args,
     engine_config_from_args,
     parse_engine_args,
+    register_with_controller,
     serve_in_thread,
 )
 from production_stack_tpu_torch.engine.swap import KVSwapper  # noqa: E402
+from production_stack_tpu_torch.kvcache.hashing import (  # noqa: E402
+    block_hashes,
+    chunk_hashes,
+)
+from production_stack_tpu_torch.kvserver.controller import ControllerServer  # noqa: E402
+from production_stack_tpu_torch.kvserver.server import (  # noqa: E402
+    KVServer,
+    start_in_thread,
+)
 from production_stack_tpu_torch.models import llama as llama_mod  # noqa: E402
 from production_stack_tpu_torch.models.llama import (  # noqa: E402
     QUANT_SUFFIX,
@@ -951,15 +987,12 @@ def sm_count() -> int:
 
 def splits_of(q, cache, tables) -> int:
     """The split count the decode wrapper's plan gives these inputs."""
-    _, _, _, bs, lanes = cache.shape
     hd = q.shape[-1]
-    kh = lanes // hd
-    if pac.kernel_route("decode", q.dtype, cache.dtype, q.shape[-2], kh,
-                        hd) == "simt":
-        return pac.simt_decode_plan(q.shape[0], kh, tables.shape[1], bs,
-                                    sm_count(), hd, cache.dtype.itemsize)
-    return pac.decode_plan(q.shape[0], kh, tables.shape[1], bs, sm_count(),
-                           hd, cache.dtype == E4M3)
+    kh = cache.shape[-1] // hd
+    q3 = q.reshape(q.shape[0], -1, hd)
+    route = pac.kernel_route("decode", q.dtype, cache.dtype, q3.shape[1], kh,
+                             hd)
+    return pac.decode_launch_splits(route, q3, cache, tables, sm_count())
 
 
 def prefill_splits_of(q, cache, tables) -> int:
@@ -3779,7 +3812,8 @@ def _timed_request(port: int, body: dict, headers: dict) -> dict:
     return out
 
 
-def phase_tenancy_serving(params, card: str) -> dict:
+def phase_tenancy_serving(params, card: str, extra_argv=(),
+                          first_wave_only: bool = False) -> dict:
     """Phase 4h: the bf16 Llama-3-8B server of phase 4's flags with
     ``--num-kv-blocks 160`` (five 1024-token prompts' pages) and
     ``--max-num-seqs 16``: 16 requests of 1024-token prompts at once,
@@ -3792,10 +3826,11 @@ def phase_tenancy_serving(params, card: str) -> dict:
     recomputed); the interactive TTFT p50 at most the batch one. Then n=4
     candidates of a prompt just served (its pages counted as prefix hits),
     best_of=4 with n=2 ranked by mean logprob, an echo and a batch of
-    prompts."""
+    prompts (not with ``first_wave_only``). ``extra_argv`` adds flags (4j:
+    ``--cpu-offload-blocks``)."""
     argv = ["--model", MODEL, "--device", DEV.type,
             "--max-num-batched-tokens", "512", "--num-decode-steps", "4",
-            "--max-num-seqs", "16", "--num-kv-blocks", "160"]
+            "--max-num-seqs", "16", "--num-kv-blocks", "160", *extra_argv]
     engine = AsyncLLMEngine(engine_config_from_args(parse_engine_args(argv)),
                             params=params)
     server, thread = serve_in_thread(engine)
@@ -3883,7 +3918,9 @@ def phase_tenancy_serving(params, card: str) -> dict:
         check(p50["interactive"] <= p50["batch"],
               f"4h TTFT p50: interactive {p50['interactive']:.3f}s over "
               f"batch {p50['batch']:.3f}s")
-        log(f"[phase 4h] {MODEL}, 160 KV pages, 16 requests of 1024-token "
+        label = "4j" if extra_argv else "4h"
+        log(f"[phase {label}] {MODEL}, 160 KV pages"
+            f"{''.join(' ' + a for a in extra_argv)}, 16 requests of 1024-token "
             f"prompts in {wall:.2f}s: statuses and finish reasons as sent; "
             f"sheds at admission {shed_adm:.0f}, queued {shed_q:.0f}, "
             f"running {shed_r:.0f}; swaps out {out_:.0f}, in {in_:.0f}, "
@@ -3892,6 +3929,13 @@ def phase_tenancy_serving(params, card: str) -> dict:
             f"preemptions {grew('pst:tenant_batch_preemptions_total'):.0f}; "
             f"TTFT p50 interactive {p50['interactive']:.3f}s, batch "
             f"{p50['batch']:.3f}s; {card}")
+        host_hits = engine.engine.stats().get("kv_offload_host_hit_blocks",
+                                              0.0)
+        if first_wave_only:
+            check(engine.is_healthy(), f"{label}: {engine.step_error}")
+            return {"wall_s": wall, "ttft_p50_s": p50, "swaps": {
+                "out": out_, "in": in_, "recomputed": fallback},
+                "host_hit_blocks": host_hits}
 
         # n=4 candidates of a prompt just served: its pages are hits.
         base = {"prompt": prompts[6], "max_tokens": 16, "temperature": 0.8,
@@ -4009,6 +4053,389 @@ def phase_recompute_serving(params, card: str) -> dict:
         f"recompute preemptions {preempted:.0f}, no swap; {card}")
     del engine
     return {"wall_s": wall, "preemptions": preempted}
+
+
+# Phase 4j: KV tiers, the remote store, the disaggregated handoff and the
+# cache controller on a served path.
+
+
+def _recording(engine) -> list:
+    """Each request's token ids, in submission order, as the server
+    collects them (greedy answers compared bit for bit)."""
+    seen, generate = [], engine.generate
+
+    def recording(*args, **kw):
+        toks = []
+        seen.append(toks)
+        for out in generate(*args, **kw):
+            toks.extend(out.new_token_ids)
+            yield out
+
+    engine.generate = recording
+    return seen
+
+
+def _tier_server(params, argv: list):
+    engine = AsyncLLMEngine(engine_config_from_args(parse_engine_args(argv)),
+                            params=params)
+    seen = _recording(engine)
+    server, thread = serve_in_thread(engine)
+    return engine, server, thread, seen
+
+
+def _stop_server(engine, server, thread) -> None:
+    if server.controller_reports is not None:
+        server.controller_reports.set()
+    server.shutdown()
+    server.server_close()
+    engine.shutdown()
+    thread.join(timeout=10)
+
+
+def _engine_stats(port: int) -> dict:
+    status, body, _ = _call(port, "GET", "/debug/state")
+    check(status == 200, f"/debug/state: {status}")
+    return body["stats"]
+
+
+def _stage(m: dict, stage: str, part: str = "count") -> float:
+    return m.get(f'pst_stage_duration_seconds_{part}{{component="engine",'
+                 f'stage="{stage}"}}', 0.0)
+
+
+def _greedy(port: int, prompt: list, seen: list, max_tokens: int = 32,
+            extra=None) -> dict:
+    """One greedy streamed completion: its TTFT and token ids."""
+    r = _timed_request(port, {"prompt": prompt, "max_tokens": max_tokens,
+                              "temperature": 0.0, "ignore_eos": True,
+                              "stream": True, **(extra or {})}, {})
+    fr = r.get("frames", [])
+    check(r["status"] == 200 and fr[-1] == "[DONE]"
+          and len(fr) == max_tokens + 1, f"4j stream: {r['status']}, "
+          f"{len(fr)} frames")
+    return {"ttft": r["ttft"], "tokens": list(seen[-1])}
+
+
+def _leg(port: int, prompt: list, seen: list, rid=None, role=None,
+         max_tokens: int = 32) -> list:
+    """One collected greedy completion, with the router's handoff stamp
+    when ``rid`` is given; its token ids."""
+    body = {"prompt": prompt, "max_tokens": max_tokens, "temperature": 0.0,
+            "ignore_eos": True}
+    if rid is not None:
+        body["kv_transfer_params"] = {"request_id": rid, "role": role,
+                                      "pool": role}
+    status, out, _ = _call(port, "POST", "/v1/completions", body)
+    check(status == 200 and out["usage"]["completion_tokens"] == max_tokens,
+          f"4j {role or 'plain'} leg: {status} {out}")
+    return list(seen[-1])
+
+
+# Engine steps from which 4j(d) opens the pipeline's arrival gate.
+ENGAGE_STEPS = (0, 4, 7, 10)
+
+
+def phase_bucket_rounding(params, card: str) -> dict:
+    """Phase 4j(d), fault 3.8: one request's tokens must not depend on when
+    the overlapped decode engages. Llama-3-8B (``num_kv_blocks`` 256), a
+    2040-token prompt served for 1 token and then as a prefix hit for 32
+    greedy tokens, whose decode crosses the block table's 64-page bucket
+    at position 2048; the overlapped decode reserves the next page a step
+    earlier than the synchronous loop, so its table reaches the 128-page
+    bucket one step sooner. With the pipeline's arrival gate opened from
+    engine step k on (k in ``ENGAGE_STEPS``, on both sides of the step
+    whose burst starts on the row before the boundary), the tokens and
+    every committed page equal the synchronous loop's bit for bit, and
+    the split-KV decode ran."""
+    prompt = np.random.default_rng(60).integers(1, 128256, 2040).tolist()
+
+    def run(engage_at=None):
+        eng = LLMEngine(EngineConfig(model=MODEL, device=DEV.type,
+                                     num_kv_blocks=256,
+                                     overlap_decode=engage_at is not None),
+                        params=params)
+        calls = {"n": 0}
+
+        def gate():
+            calls["n"] += 1
+            return calls["n"] > engage_at
+
+        if engage_at is not None:
+            eng._arrival_safe = gate
+        toks = []
+        for rid, n in (("w", 1), ("r", 32)):
+            eng.add_request(rid, prompt_token_ids=prompt,
+                            sampling=SamplingParams(max_tokens=n,
+                                                    temperature=0.0,
+                                                    ignore_eos=True))
+            while eng.has_work():
+                for o in eng.step():
+                    toks += o.new_token_ids
+        torch.cuda.synchronize()
+        pages = {h: eng.runner.kv_cache[:, b].view(torch.uint8).cpu()
+                 for h, b in eng.allocator._block_of_hash.items()}
+        eng.shutdown()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return toks, pages
+
+    reset_launch_counts()
+    ref_toks, ref_pages = run()
+    parted = {}
+    for k in ENGAGE_STEPS:
+        toks, pages = run(k)
+        differ = sum(1 for h, page in pages.items()
+                     if h in ref_pages and not torch.equal(page, ref_pages[h]))
+        first = next((i for i, (a, b) in enumerate(zip(toks, ref_toks))
+                      if a != b), None)
+        parted[k] = (first, differ)
+    counts = {**launch_counts(), **route_counts()}
+    check(all(v == (None, 0) for v in parted.values())
+          and len(ref_toks) == 33,
+          f"4j(d): tokens part from the synchronous loop's by engagement "
+          f"step (first differing token, pages differing): {parted}")
+    check(counts.get("decode_split", 0) > 0,
+          f"4j(d): the split-KV decode did not run: {counts}")
+    log(f"[phase 4j] decode rounding across the 64 -> 128-page table bucket: "
+        f"a 2040-token prefix hit's 32 greedy tokens and {len(ref_pages)} "
+        f"committed pages equal the synchronous loop's with the overlapped "
+        f"decode engaged from step {list(ENGAGE_STEPS)}; launches decode "
+        f"{counts['decode_split']}; {card}")
+    return {"engage_steps": list(ENGAGE_STEPS), "parted": parted}
+
+
+def phase_tier_serving(params, card: str) -> dict:
+    """Phase 4j(a): the host tier. A bf16 server with ``--num-kv-blocks
+    160 --cpu-offload-blocks 512``; prompt A (2070 tokens, greedy, 32
+    output tokens) cold, then as a device prefix hit, whose 64 full pages
+    are copied to the host; then three 2048-token prompts evict every
+    page of A, and A once more: its 64 pages fault up from host memory
+    (``kv_offload_host_hit_blocks`` and the ``kv_fetch_host`` stage count
+    64), equal the copies bit for bit, the prefill and decode kernels run,
+    and its tokens equal the device hit's bit for bit. 2070 tokens, not
+    2048: a prefix hit recomputes the tail after its last full block, and
+    with a full last block that tail is the block itself, whose commit
+    adopts the resident page of its hash: the device hit would read the
+    cold run's 2048-token prefill's page and the host hit its own
+    32-token chunk's, rounded otherwise. The three TTFTs (cold, device
+    hit, host hit)."""
+    argv = ["--model", MODEL, "--device", DEV.type, "--num-kv-blocks", "160",
+            "--cpu-offload-blocks", "512"]
+    engine, server, thread, seen = _tier_server(params, argv)
+    port = server.server_address[1]
+    llm = engine.engine
+    rng = np.random.default_rng(47)
+    V = llm.model_cfg.vocab_size
+    warm, a = (rng.integers(1, V, 2070).tolist() for _ in range(2))
+    others = [rng.integers(1, V, 2048).tolist() for _ in range(3)]
+    full = (2070 - 1) // BS  # the pages a match of A can take
+    a_hashes = block_hashes(a[:full * BS], BS)
+    try:
+        alloc = llm.allocator
+        check(isinstance(alloc, TieredAllocator) and llm.remote is None
+              and alloc.host_pool.max_blocks == 512,
+              f"4j(a): allocator {type(alloc).__name__}")
+        # The shapes' graphs first: a cold prompt and its prefix hit.
+        _greedy(port, warm, seen)
+        _greedy(port, warm, seen)
+        cold = _greedy(port, a, seen)
+        hbm = _greedy(port, a, seen)
+        torch.cuda.synchronize()
+        before = {h: llm.runner.kv_cache[:, alloc._block_of_hash[h]]
+                  .view(torch.uint8).cpu() for h in a_hashes}
+        s0 = _engine_stats(port)
+        for p in others:
+            _greedy(port, p, seen, max_tokens=8)
+        check(not any(h in alloc._block_of_hash for h in a_hashes),
+              "4j(a): A's pages were not all evicted")
+        s1, m1 = _engine_stats(port), scrape(port)
+        pooled = len(alloc.host_pool)
+        reset_launch_counts()
+        host = _greedy(port, a, seen)
+        counts = {**launch_counts(), **route_counts()}
+        s2, m2 = _engine_stats(port), scrape(port)
+        torch.cuda.synchronize()
+        differ = [h for h in a_hashes if not torch.equal(
+            llm.runner.kv_cache[:, alloc._block_of_hash[h]]
+            .view(torch.uint8).cpu(), before[h])]
+        spilled = s1["kv_offload_spilled_blocks"] - s0[
+            "kv_offload_spilled_blocks"]
+        hits = s2["kv_offload_host_hit_blocks"] - s1[
+            "kv_offload_host_hit_blocks"]
+        fetch_host = _stage(m2, "kv_fetch_host") - _stage(m1, "kv_fetch_host")
+        check(spilled >= full and hits == full and fetch_host == full,
+              f"4j(a): spilled {spilled}, host hits {hits}, kv_fetch_host "
+              f"{fetch_host} (want {full})")
+        check(s2["prefix_cache_hits_total"] - s1["prefix_cache_hits_total"]
+              == full * BS, "4j(a): prefix hit tokens")
+        check(not differ, f"4j(a): {len(differ)} of A's {full} pages "
+              f"faulted up from host memory differ from their device copies")
+        check(host["tokens"] == hbm["tokens"],
+              f"4j(a): host-hit tokens {host['tokens'][:8]} != device-hit "
+              f"{hbm['tokens'][:8]}")
+        check(counts.get("prefill_wgmma", 0) > 0
+              and counts.get("decode_split", 0) > 0,
+              f"4j(a): kernels not launched: {counts}")
+        check(engine.is_healthy(), f"4j(a): {engine.step_error}")
+    finally:
+        _stop_server(engine, server, thread)
+    ttft = {"cold": cold["ttft"], "hbm_hit": hbm["ttft"],
+            "host_hit": host["ttft"]}
+    log(f"[phase 4j] host tier, 160 pages + 512 host pages ({pooled} "
+        f"held when A came back): A's {full} "
+        f"pages faulted up from host memory after {spilled:.0f} spills, "
+        f"equal to their device copies; tokens equal the device hit's; TTFT "
+        f"cold {ttft['cold']:.4f}s, device hit {ttft['hbm_hit']:.4f}s, host "
+        f"hit {ttft['host_hit']:.4f}s; launches prefill "
+        f"{counts['prefill_wgmma']}, decode {counts['decode_split']}; {card}")
+    del engine
+    return {"ttft_s": ttft, "spilled": spilled, "host_hits": hits,
+            "host_pages_held": pooled}
+
+
+def phase_disagg_serving(params, card: str) -> dict:
+    """Phase 4j(b) and (c): the port's kvserver and cache controller in
+    threads of this script; a producer and a consumer bf16 server
+    (``--remote-kv-url`` to the kvserver, ``--num-kv-blocks 512``, one
+    param tree; the producer also ``--cache-controller-url``). A
+    2070-token prompt goes to the producer with the router's producer
+    stamp and ``max_tokens`` 1, then to the consumer with the consumer
+    stamp: the consumer prefetches all 64 full pages (no fallback), they
+    equal the producer's bit for bit, and its tokens equal the
+    producer's answer to the prompt asked again (a device hit over the
+    pages it published). 2070 tokens, a partial last block: with a full
+    one the producer's hit adopts the page its own prefill computed for
+    it and the consumer keeps the one its chunk computed, rounded
+    otherwise. Then ``drop_manifest`` on
+    the kvserver and a second prompt: the consumer waits out its 5 s,
+    falls back to the fused path (one fallback, a 200; its pages from the
+    store's blocks) and matches again. The kvserver's ``/stats``, the
+    producer's two legs (a prefill and the downloads of its pages for
+    the publisher, the first with the server's first step captures) and
+    the prefetch's seconds are printed. (c): a 2048-token prompt on the
+    producer, one registration of its chunk hashes, called directly;
+    ``/lookup`` of that prompt's chunk hashes returns 2048 tokens for the
+    producer's URL."""
+    kv = KVServer(("127.0.0.1", 0), 8 << 30)
+    kv_thread = start_in_thread(kv)
+    ctrl = ControllerServer(("127.0.0.1", 0))
+    ctrl_thread = start_in_thread(ctrl)
+    common = ["--model", MODEL, "--device", DEV.type, "--num-kv-blocks",
+              "512", "--remote-kv-url", kv.url]
+    engine_url = "http://producer-4j:8000"
+    servers = []
+    try:
+        servers.append(_tier_server(params, common + [
+            "--kv-role", "producer", "--cache-controller-url", ctrl.url,
+            "--engine-url", engine_url]))
+        servers.append(_tier_server(params, common + [
+            "--kv-role", "consumer", "--kv-transfer-timeout-s", "5"]))
+        (peng, pserver, _, pseen), (ceng, cserver, _, cseen) = servers
+        pport, cport = (s.server_address[1] for _, s, _, _ in servers)
+        rng = np.random.default_rng(53)
+        V = peng.engine.model_cfg.vocab_size
+        p1, p2 = (rng.integers(1, V, 2070).tolist() for _ in range(2))
+        pages = full = 2070 // BS
+        m0 = scrape(cport)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _leg(pport, p1, pseen, "xfer-1", "producer", max_tokens=1)
+        producer_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        consumer = _leg(cport, p1, cseen, "xfer-1", "consumer")
+        leg_s = time.perf_counter() - t0
+        counts = {**launch_counts(), **route_counts()}
+        # The consumer's pages are the producer's, bit for bit.
+        torch.cuda.synchronize()
+        differ_pages = [
+            h for h in block_hashes(p1, BS)
+            if not torch.equal(*(
+                e.engine.runner.kv_cache[:, e.engine.allocator
+                                         ._block_of_hash[h]]
+                .view(torch.uint8) for e in (peng, ceng)))]
+        check(not differ_pages, f"4j(b): {len(differ_pages)} of the "
+              f"consumer's {full} pages differ from the producer's")
+        ref = _leg(pport, p1, pseen)
+        m1, s1 = scrape(cport), _engine_stats(cport)
+        prefetched = m1["pst:kv_prefetched_blocks_total"] - m0.get(
+            "pst:kv_prefetched_blocks_total", 0.0)
+        prefetch_s = (_stage(m1, "kv_prefetch", "sum")
+                      - _stage(m0, "kv_prefetch", "sum"))
+        check(prefetched == pages
+              and m1["pst:kv_transfer_fallbacks_total"] == 0
+              and _stage(m1, "kv_prefetch") == 1
+              and s1["kv_offload_host_hit_blocks"] == full,
+              f"4j(b): prefetched {prefetched}, fallbacks "
+              f"{m1['pst:kv_transfer_fallbacks_total']}, host hits "
+              f"{s1['kv_offload_host_hit_blocks']}")
+        check(m1.get("pst_kv_integrity_failures_total") == 0
+              and "pst_kv_read_repairs_total" in m1,
+              "4j(b): the remote tier's audit counters are not exported")
+        check(consumer == ref, f"4j(b): consumer tokens {consumer[:8]} != "
+              f"the producer's device hit {ref[:8]}")
+        check(counts.get("prefill_wgmma", 0) > 0
+              and counts.get("decode_split", 0) > 0,
+              f"4j(b): kernels not launched: {counts}")
+        # A lost manifest: the fused path, one fallback, a 200.
+        status, _, _ = _call(kv.server_address[1], "POST", "/admin/fail",
+                             {"mode": "drop_manifest"})
+        check(status == 200, f"4j(b) /admin/fail: {status}")
+        t0 = time.perf_counter()
+        _leg(pport, p2, pseen, "xfer-2", "producer", max_tokens=1)
+        producer2_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fused = _leg(cport, p2, cseen, "xfer-2", "consumer")
+        fused_s = time.perf_counter() - t0
+        _call(kv.server_address[1], "POST", "/admin/heal")
+        ref2 = _leg(pport, p2, pseen)
+        m2, s2 = scrape(cport), _engine_stats(cport)
+        check(m2["pst:kv_transfer_fallbacks_total"] == 1
+              and m2["pst:kv_prefetched_blocks_total"] == prefetched
+              and fused == ref2,
+              f"4j(b) dropped manifest: fallbacks "
+              f"{m2['pst:kv_transfer_fallbacks_total']}, tokens equal "
+              f"{fused == ref2}")
+        published = scrape(pport)["pst:kv_published_blocks_total"]
+        check(published == 2 * pages, f"4j(b): published {published}")
+        stats = _call(kv.server_address[1], "GET", "/stats")[1]
+        page_mib = stats["bytes_used"] / stats["num_blocks"] / 2**20
+        log(f"[phase 4j] disaggregated handoff over the port's kvserver: "
+            f"{prefetched:.0f} pages of {page_mib:.3f} MiB prefetched in "
+            f"{prefetch_s:.3f}s (the producer's leg {producer_s:.3f}s, its "
+            f"first request; the consumer's {leg_s:.3f}s), no "
+            f"fallback, tokens equal the producer's device hit; dropped "
+            f"manifest: the producer's leg {producer2_s:.3f}s, 1 "
+            f"fallback, a 200 in {fused_s:.3f}s, "
+            f"{s2['kv_offload_remote_hit_blocks']:.0f} pages from the "
+            f"store, tokens equal; kvserver /stats {json.dumps(stats)}; "
+            f"launches prefill {counts['prefill_wgmma']}, decode "
+            f"{counts['decode_split']}; {card}")
+        # (c) The controller: a 2048-token prompt on the producer, one
+        # registration, then a lookup of its chunk hashes.
+        p3 = rng.integers(1, V, 2048).tolist()
+        _leg(pport, p3, pseen, max_tokens=1)
+        check(register_with_controller(peng, ctrl.url, engine_url),
+              "4j(c): registration refused")
+        status, found, _ = _call(ctrl.server_address[1], "POST", "/lookup", {
+            "model": peng.engine.model_name, "hashes": chunk_hashes(p3)})
+        check(status == 200 and found["matches"].get(engine_url) == 2048,
+              f"4j(c) /lookup: {status} {found}")
+        log(f"[phase 4j] cache controller: /lookup of a 2048-token prompt's "
+            f"{len(chunk_hashes(p3))} chunk hashes -> {found['matches']}")
+        for eng, _, _, _ in servers:
+            check(eng.is_healthy(), f"4j: {eng.step_error}")
+    finally:
+        for eng, server, thread, _ in servers:
+            _stop_server(eng, server, thread)
+        for srv, th in ((kv, kv_thread), (ctrl, ctrl_thread)):
+            srv.shutdown()
+            srv.server_close()
+            th.join(timeout=10)
+    return {"prefetched_blocks": prefetched, "prefetch_s": prefetch_s,
+            "producer_leg_s": [producer_s, producer2_s],
+            "consumer_leg_s": leg_s, "fused_fallback_leg_s": fused_s,
+            "kvserver": stats, "lookup": found["matches"]}
 
 
 # Phase 4i: tracing, cost and the profiler on a served path.
@@ -4200,8 +4627,8 @@ def phase_traced_serving(params, card: str) -> dict:
 
 
 # The names of the router's scraper (router/stats/engine_stats.py,
-# _METRIC_FIELDS) that the port exports; the one it does not is the
-# remote KV tier's integrity counter (queue 1, item 13).
+# _METRIC_FIELDS) that the port exports without a remote KV tier; the
+# tier's integrity counter comes with one (phase 4j checks it).
 ROUTER_METRICS = (
     "vllm:num_requests_running", "vllm:num_requests_waiting",
     "vllm:gpu_prefix_cache_hit_rate", "vllm:gpu_prefix_cache_hits_total",
@@ -5068,6 +5495,30 @@ def main() -> None:
     traced = phase_traced_serving(params, card)
     gc.collect()
     torch.cuda.empty_cache()
+    tiers = {"host": phase_tier_serving(params, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiers["bucket"] = phase_bucket_rounding(params, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 4h's first wave over a host tier: a parked chain's evicted pages
+    # fault back up, so no resume recomputes.
+    tiers["wave_4h"] = phase_tenancy_serving(
+        params, card, extra_argv=("--cpu-offload-blocks", "1024"),
+        first_wave_only=True)
+    sw, base = tiers["wave_4h"]["swaps"], tenancy["swaps"]
+    check(sw["recomputed"] == 0 and sw["in"] == sw["out"],
+          f"4j 4h wave over a host tier: swaps {sw}")
+    log(f"  4h's wave: swapped out {sw['out']:.0f}, in {sw['in']:.0f}, "
+        f"recomputed {sw['recomputed']:.0f}, host-hit pages "
+        f"{tiers['wave_4h']['host_hit_blocks']:.0f}; without the tier in "
+        f"this run out {base['out']:.0f}, in {base['in']:.0f}, recomputed "
+        f"{base['recomputed']:.0f} (PR 15: out 1, recomputed 1)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tiers["disagg"] = phase_disagg_serving(params, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     os.environ["PST_FUSED_KV_WRITE"] = "1"
     fp8_served = phase_serving(
         params, "4c", kv_cache_dtype="float8_e4m3fn",
@@ -5164,7 +5615,7 @@ def main() -> None:
         "sleep_4f": admin, "pipelined_serving_4g": pipelined_serving,
         "checkpoint_3z": checkpoint, "swap_3w": swaps,
         "tenancy_serving_4h": tenancy, "recompute_serving_4h": recompute,
-        "traced_serving_4i": traced,
+        "traced_serving_4i": traced, "tiers_4j": tiers,
     }}), flush=True)
     print(json.dumps({"kernels": rows, "steps": steps, "int4_crossover": crossover}),
           flush=True)

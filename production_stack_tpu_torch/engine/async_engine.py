@@ -76,6 +76,7 @@ class AsyncLLMEngine:
         self._work.set()
         if self._thread is not None:
             self._thread.join(timeout=30)
+        self.engine.shutdown()  # the tiers' worker threads
 
     def is_healthy(self) -> bool:
         return (
@@ -193,10 +194,12 @@ class AsyncLLMEngine:
         deadline: Optional[float] = None,
         tenant: Optional[str] = None,
         tenant_class: Optional[str] = None,
+        kv_transfer: Optional[dict] = None,
     ) -> Iterator[RequestOutput]:
         """Submit one request now and return the iterator of its outputs,
-        which ends with its finish (``deadline``, ``tenant`` and
-        ``tenant_class`` as ``LLMEngine.add_request`` takes them). Requests
+        which ends with its finish (``deadline``, ``tenant``,
+        ``tenant_class`` and ``kv_transfer`` as ``LLMEngine.add_request``
+        takes them). Requests
         submitted back to back reach the same step's admission. The
         iterator raises ValueError if the engine refuses the request (e.g.
         a prompt that does not fit) and RuntimeError if an engine step
@@ -212,7 +215,8 @@ class AsyncLLMEngine:
                 (rid, dict(prompt=prompt, prompt_token_ids=prompt_token_ids,
                            sampling=sampling, arrival_time=time.monotonic(),
                            deadline=deadline, tenant=tenant,
-                           tenant_class=tenant_class))
+                           tenant_class=tenant_class,
+                           kv_transfer=kv_transfer))
             )
         self._work.set()
         return self._outputs(rid, q)

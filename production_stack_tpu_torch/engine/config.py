@@ -71,6 +71,29 @@ class EngineConfig:
     swap_quantum_tokens: int = 256
     # Host budget for stashed tail pages, in KV pages.
     swap_stash_blocks: int = 4096
+    # KV tiering (engine/cache_tiering.py): host-memory pages an evicted
+    # page spills into (0: no host tier unless a consumer needs staging).
+    cpu_offload_blocks: int = 0
+    # One kvserver base URL, or a comma-separated shard list (the
+    # replicated ShardedKVClient over the consistent-hash ring).
+    remote_kv_url: Optional[str] = None
+    # Replicas a block or manifest on the kvserver ring (clamped to the
+    # shard count).
+    kv_replication: int = 2
+    # Cache-controller registration (KV-aware routing); engine_url is the
+    # URL this engine reports itself as.
+    cache_controller_url: Optional[str] = None
+    engine_url: Optional[str] = None
+    # Disaggregated prefill role: a producer publishes each prefill's
+    # pages to the remote store under the router's transfer id (and
+    # pushes a finished request's pages); a consumer prefetches them
+    # before admission.
+    kv_role: str = "none"  # none | producer | consumer | both
+    # Consumer prefetch: most pages a batched GET while following a
+    # manifest, and the seconds it waits for the completion marker before
+    # the fused fallback (recompute the prefill here).
+    kv_prefetch_depth: int = 64
+    kv_transfer_timeout_s: float = 10.0
     # Honor the router-propagated X-PST-Deadline-Ms budget: 504 expired
     # work at admission, drop expired queued sequences before a prefill
     # step, and stop decoding expired running ones.

@@ -34,8 +34,17 @@ captured a graph key carry it as ``compile_events``. With
 finish, abort or deadline shed, before its pages are released; the
 finished output carries it as ``cost``.
 
-Not ported yet: speculative decoding, KV tiering, LoRA, disaggregated
-handoff.
+KV tiering and the disaggregated handoff (``engine/cache_tiering.py``,
+``engine/kv_handoff.py``): with ``cpu_offload_blocks`` or
+``remote_kv_url`` the allocator is a ``TieredAllocator`` (evicted pages
+spill to host memory and the remote store, prefix hits fault them back
+up); a producer (``kv_role``) publishes each prefill chunk's pages under
+the router's transfer id and pushes a finished request's unpublished
+pages, a consumer's server prefetches them before admission. Committed
+256-token chunks are kept in ``resident_chunk_hashes`` (with a TTL and a
+cap) for the cache controller's registration.
+
+Not ported yet: speculative decoding, LoRA.
 """
 
 from __future__ import annotations
@@ -45,11 +54,14 @@ import os
 import time
 from typing import Any, Dict, List, Optional, Sequence as Seq, Union
 
+from ..kvcache.hashing import CHUNK_TOKENS
 from ..logging_utils import init_logger
 from ..models.registry import get_model_config
 from ..obs.flight import NULL_FLIGHT_RECORDER, FlightRecorder
 from ..ops.sampling import unpack_sampled
+from .cache_tiering import TieredAllocator, create_remote_client, wait_landed
 from .config import EngineConfig
+from .kv_handoff import KVHandoffPrefetcher, KVHandoffPublisher
 from .kv_manager import BlockAllocator
 from .runner import ModelRunner
 from .scheduler import Scheduler, SchedulerConfig
@@ -58,6 +70,10 @@ from .swap import KVSwapper
 from .tokenizer import get_tokenizer
 
 logger = init_logger(__name__)
+
+
+def _no_stage(stage: str, seconds: float) -> None:
+    pass
 
 
 @dataclasses.dataclass
@@ -103,9 +119,28 @@ class LLMEngine:
         tok_spec = cfg.tokenizer or (
             cfg.model if os.path.isdir(cfg.model) else None)
         self.tokenizer = get_tokenizer(tok_spec, self.model_cfg.vocab_size)
-        self.allocator = BlockAllocator(
-            self.runner.num_blocks, cfg.block_size, cfg.enable_prefix_caching
-        )
+        # Stage durations the tiers observe (kv_fetch_host,
+        # kv_fetch_remote); the server points this at its recorder.
+        self.observe_stage = _no_stage
+        self.allocator = self._make_allocator()
+        # The streamed handoff: a producer ships each prefill chunk's
+        # committed pages under the request's transfer id; a consumer's
+        # prefetcher stages published pages in the host pool.
+        self.kv_publisher: Optional[KVHandoffPublisher] = None
+        self.kv_prefetcher: Optional[KVHandoffPrefetcher] = None
+        remote = self.remote
+        if remote is not None and cfg.kv_role in ("producer", "both"):
+            self.kv_publisher = KVHandoffPublisher(remote)
+        host_pool = getattr(self.allocator, "host_pool", None)
+        if (remote is not None and host_pool is not None
+                and cfg.kv_role in ("consumer", "both")):
+            self.kv_prefetcher = KVHandoffPrefetcher(
+                remote, host_pool, timeout_s=cfg.kv_transfer_timeout_s,
+                depth=cfg.kv_prefetch_depth)
+        # Chunk hashes committed here (hash -> last commit time): the
+        # controller registration's claims.
+        self.resident_chunk_hashes: Dict[int, float] = {}
+        self.kv_published_blocks_total = 0
         self.swapper: Optional[KVSwapper] = (
             KVSwapper(self.runner, max_stash_blocks=cfg.swap_stash_blocks)
             if cfg.kv_swap else None)
@@ -170,6 +205,44 @@ class LLMEngine:
         return self.runner.telemetry
 
     @property
+    def remote(self):
+        """The remote KV client (plain or sharded), or None."""
+        return getattr(self.allocator, "remote", None)
+
+    def _make_allocator(self, remote=None, host_pool=None) -> BlockAllocator:
+        """The JAX engine's choice: a ``TieredAllocator`` when a host or
+        remote tier is configured, else the device-only allocator. A
+        consumer without ``cpu_offload_blocks`` still gets a host pool to
+        stage prefetched pages in (``max(num_blocks // 2, 1024)`` pages,
+        each allocated only when a page arrives). ``remote`` and
+        ``host_pool`` carry existing tiers over a rebuild."""
+        cfg = self.cfg
+        if not (cfg.cpu_offload_blocks > 0 or cfg.remote_kv_url):
+            return BlockAllocator(self.runner.num_blocks, cfg.block_size,
+                                  cfg.enable_prefix_caching)
+        host_blocks = cfg.cpu_offload_blocks
+        if (host_blocks == 0 and cfg.remote_kv_url
+                and cfg.kv_role in ("consumer", "both")):
+            host_blocks = max(self.runner.num_blocks // 2, 1024)
+        if remote is None and cfg.remote_kv_url:
+            remote = create_remote_client(cfg.remote_kv_url,
+                                          replication=cfg.kv_replication)
+        return TieredAllocator(
+            self.runner.num_blocks, cfg.block_size, page_io=self.runner,
+            host_blocks=host_blocks, host_pool=host_pool,
+            remote=remote, enable_prefix_caching=cfg.enable_prefix_caching,
+            observe_stage=lambda stage, s: self.observe_stage(stage, s))
+
+    def shutdown(self) -> None:
+        """Stop the tiers' worker threads (the remote push and the
+        handoff publisher)."""
+        if self.kv_publisher is not None:
+            self.kv_publisher.shutdown()
+        shutdown = getattr(self.allocator, "shutdown", None)
+        if shutdown is not None:
+            shutdown()
+
+    @property
     def model_name(self) -> str:
         return self.cfg.served_model_name or self.model_cfg.name
 
@@ -216,11 +289,13 @@ class LLMEngine:
         deadline: Optional[float] = None,
         tenant: Optional[str] = None,
         tenant_class: Optional[str] = None,
+        kv_transfer: Optional[dict] = None,
     ) -> Sequence:
         """``deadline``: the monotonic expiry of the request's budget
         (ignored with ``deadline_shedding`` off); ``tenant`` and
         ``tenant_class`` (``"interactive"`` or ``"batch"``) order its
-        admission under ``tenant_fairness``."""
+        admission under ``tenant_fairness``; ``kv_transfer`` is the
+        router's ``{"request_id", "role"}`` handoff stamp."""
         if prompt_token_ids is None:
             prompt_token_ids = self.tokenizer.encode(prompt or "")
         if not prompt_token_ids:
@@ -231,6 +306,7 @@ class LLMEngine:
             deadline=deadline if self.cfg.deadline_shedding else None,
             tenant=tenant or "default",
             tenant_class=tenant_class or "interactive",
+            kv_transfer=kv_transfer,
         )
         self._last_arrival = time.time()
         self.scheduler.add(seq)
@@ -280,13 +356,19 @@ class LLMEngine:
         abort every request in flight (a parked one's abort drops its
         stash) and start an empty allocator, which the scheduler hands the
         swapper from then on, so no later prompt adopts a dropped (zeroed)
-        page as a prefix hit."""
+        page as a prefix hit. The lower tiers keep their pages (written
+        before the drop, still valid): the rebuilt allocator takes over
+        the warm host pool and the remote client, and the old push
+        thread stops."""
         self.abort_all_requests()
-        self.allocator = BlockAllocator(
-            self.runner.num_blocks, self.cfg.block_size,
-            self.cfg.enable_prefix_caching,
-        )
+        old = self.allocator
+        shutdown = getattr(old, "shutdown", None)
+        if shutdown is not None:
+            shutdown()
+        self.allocator = self._make_allocator(
+            remote=self.remote, host_pool=getattr(old, "host_pool", None))
         self.scheduler.allocator = self.allocator
+        self.resident_chunk_hashes.clear()
 
     # ------------------------------------------------------------------
     # Stepping
@@ -430,6 +512,10 @@ class LLMEngine:
             seq = item.seq
             seq.num_computed_tokens = item.end
             self._commit(seq)
+            # The streamed handoff: this chunk's committed pages go out
+            # now, overlapped with the next chunk's compute.
+            self._stream_publish(
+                seq, prefill_complete=item.end == seq.num_prompt_tokens)
             # Sample only when this chunk completes a *fresh* prompt;
             # recompute chunks (post-preemption) must not re-emit.
             if item.end == seq.num_prompt_tokens and not seq.output_token_ids:
@@ -502,8 +588,94 @@ class LLMEngine:
             seq.block_ids = []
         self._burst_deferred = []
 
+    # Controller-registration hygiene: chunk claims older than the TTL
+    # (or past the cap) are dropped, so KV-aware routing does not chase KV
+    # that eviction reclaimed, and the dict stays bounded.
+    CHUNK_CLAIM_TTL = 20 * 60.0
+    CHUNK_CLAIM_CAP = 200_000
+
     def _commit(self, seq: Sequence, allow_swap: bool = True) -> None:
         seq.commit_full_blocks(self.allocator, allow_swap=allow_swap)
+        now = time.time()
+        for h in seq.commit_full_chunks(CHUNK_TOKENS):
+            self.resident_chunk_hashes.pop(h, None)  # refresh its order
+            self.resident_chunk_hashes[h] = now
+        if len(self.resident_chunk_hashes) > self.CHUNK_CLAIM_CAP:
+            self._prune_chunk_claims(now)
+
+    def _prune_chunk_claims(self, now: float) -> None:
+        cutoff = now - self.CHUNK_CLAIM_TTL
+        fresh = {h: t for h, t in self.resident_chunk_hashes.items()
+                 if t >= cutoff}
+        if len(fresh) > self.CHUNK_CLAIM_CAP:
+            # Insertion order is recency (refreshed on re-commit).
+            fresh = dict(list(fresh.items())[-self.CHUNK_CLAIM_CAP:])
+        self.resident_chunk_hashes = fresh
+
+    def registered_chunk_hashes(self) -> List[int]:
+        """The chunk hashes to register with the controller: those
+        committed within ``CHUNK_CLAIM_TTL``. Called off the step thread:
+        ``dict.copy`` takes the snapshot in one step."""
+        cutoff = time.time() - self.CHUNK_CLAIM_TTL
+        return [h for h, t in self.resident_chunk_hashes.copy().items()
+                if t >= cutoff]
+
+    # -- the disaggregated handoff ---------------------------------------
+
+    def _stream_publish(self, seq: Sequence, prefill_complete: bool) -> None:
+        """Hand ``seq``'s newly committed pages to the publisher (on this
+        thread: queued copies and a deque append). The completion marker
+        carries the prompt's full-block count, what the consumer's
+        ``match_prefix`` can adopt."""
+        pub = self.kv_publisher
+        transfer = seq.kv_transfer
+        if pub is None or not transfer:
+            return
+        if transfer.get("role") == "consumer":
+            # The decode leg on a kv_role="both" engine: its prompt pages
+            # came from the store; re-publishing would copy each again.
+            return
+        rid = transfer.get("request_id")
+        if not rid:
+            return
+        n = seq._committed_blocks
+        if n > seq.kv_published_cursor:
+            pages = [(seq.block_hashes[i],
+                      *self.runner.download_page(seq.block_ids[i]))
+                     for i in range(seq.kv_published_cursor, n)]
+            pub.publish(rid, pages, self.runner.page_event())
+            self.kv_published_blocks_total += len(pages)
+            seq.kv_published_cursor = n
+        if prefill_complete and not transfer.get("_completed"):
+            transfer["_completed"] = True
+            pub.complete(rid, seq.num_prompt_tokens // self.cfg.block_size)
+
+    def _push_kv_to_remote(self, seq: Sequence) -> int:
+        """A producer's push at a request's finish: the committed pages the
+        publisher has not sent (``kv_published_cursor``), in one batched
+        round trip (a request without ``kv_transfer_params``, and the
+        decode-produced tail of a streamed one). One copy a page, ever.
+        Runs on the step thread, as the JAX engine's, and waits for the
+        pages' copies (their event) before the serde reads them."""
+        remote = self.remote
+        if remote is None:
+            return 0
+        start = seq.kv_published_cursor
+        if seq.kv_transfer and seq.kv_transfer.get("role") == "consumer":
+            # A consumer leg's cached prefix came from the store: only
+            # pages computed here are new.
+            start = max(start,
+                        seq.num_cached_prompt_tokens // self.cfg.block_size)
+        pages = [(h, *self.runner.download_page(blk))
+                 for blk, h in zip(seq.block_ids[start:],
+                                   seq.block_hashes[start:])]
+        if not pages:
+            return 0
+        wait_landed(self.runner.page_event())
+        if not remote.put_blocks(pages):
+            return 0
+        seq.kv_published_cursor = start + len(pages)
+        return len(pages)
 
     # ------------------------------------------------------------------
     # Token bookkeeping
@@ -579,6 +751,11 @@ class LLMEngine:
             # The account closes while the pages are still owned (the
             # scheduler releases them just below).
             out.cost = self._finalize_cost(seq)
+            if self.cfg.kv_role in ("producer", "both"):
+                sent = self._push_kv_to_remote(seq)
+                if sent:
+                    logger.debug("disagg: pushed %d KV pages for %s", sent,
+                                 seq.request_id)
             if self.runner.burst_in_flight and seq in self._burst_seqs:
                 # The in-flight burst still writes through its pages:
                 # detach now, release at the drain.
@@ -656,6 +833,7 @@ class LLMEngine:
             **({"pipelined_bursts_total": float(self.pipelined_bursts_total)}
                if self.cfg.async_decode or self.cfg.overlap_decode else {}),
             **(self._tenant_stats() if self.cfg.tenant_fairness else {}),
+            **self._tier_stats(),
             **({"kv_swap_out_total": float(swapper.swap_out_total),
                 "kv_swap_in_total": float(swapper.swap_in_total),
                 "kv_swap_tail_pages_total": float(swapper.tail_pages_moved),
@@ -664,6 +842,36 @@ class LLMEngine:
                 "kv_swap_stash_blocks": float(swapper.stash_blocks)}
                if swapper is not None else {}),
         }
+
+    def _tier_stats(self) -> Dict[str, float]:
+        """The JAX engine's tier entries: the tiers' page counts, the
+        handoff's, and the remote client's audit counters (digest
+        failures, read repairs, GET retries), each only where its layer
+        is on."""
+        out: Dict[str, float] = {}
+        alloc = self.allocator
+        for attr in ("host_hit_blocks", "remote_hit_blocks", "spilled_blocks"):
+            if hasattr(alloc, attr):
+                out[f"kv_offload_{attr}"] = float(getattr(alloc, attr))
+        pub, pre = self.kv_publisher, self.kv_prefetcher
+        if pub is not None or pre is not None:
+            out["kv_published_blocks_total"] = float(
+                self.kv_published_blocks_total)
+        if pub is not None:
+            out["kv_publish_failures_total"] = float(pub.publish_failures)
+        if pre is not None:
+            out["kv_prefetched_blocks_total"] = float(pre.prefetched_blocks)
+            out["kv_transfer_fallbacks_total"] = float(pre.fallbacks)
+        remote = self.remote
+        if remote is not None:
+            if hasattr(remote, "refresh_counters"):
+                remote.refresh_counters()
+            counters = remote.counters
+            out["kv_integrity_failures_total"] = float(
+                counters.get("integrity_failures", 0))
+            out["kv_read_repairs_total"] = float(counters.get("read_repairs", 0))
+            out["kv_remote_retries_total"] = float(counters.get("retries", 0))
+        return out
 
     def _tenant_stats(self) -> Dict[str, float]:
         ages = self.scheduler.queue_age_by_tier()

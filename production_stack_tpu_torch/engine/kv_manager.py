@@ -1,20 +1,21 @@
 """Paged KV-cache block manager with content-hash prefix caching.
 
-A copy of the JAX package's ``engine/kv_manager.py`` without the tiering
-hooks (``acquire_resident`` finds pages in device memory only).
-Host-side bookkeeping only — the device pages live in the stacked
+A copy of the JAX package's ``engine/kv_manager.py``. Host-side
+bookkeeping only — the device pages live in the stacked
 ``[L, nb, 2, bs, KH*hd]`` cache tensor owned by the runner; this class
 decides *which page index* each sequence writes and reads, and which full
 pages are shareable across requests via the prefix-committing block hashes
 of :mod:`production_stack_tpu_torch.kvcache.hashing`.
 
-Eviction is LRU over reusable pages (refcount 0 but content intact).
+Eviction is LRU over reusable pages (refcount 0 but content intact). An
+``on_evict(blk, h)`` hook lets the tiering layer
+(``engine/cache_tiering.py``) capture pages on their way out.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..kvcache.hashing import block_hashes
 
@@ -31,10 +32,12 @@ class BlockAllocator:
         num_blocks: int,
         block_size: int,
         enable_prefix_caching: bool = True,
+        on_evict: Optional[Callable[[int, int], None]] = None,
     ):
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.enable_prefix_caching = enable_prefix_caching
+        self.on_evict = on_evict
         self._refcount = [0] * num_blocks
         self._hash_of_block: Dict[int, int] = {}
         self._block_of_hash: Dict[int, int] = {}
@@ -67,6 +70,8 @@ class BlockAllocator:
             blk, h = self._reusable.popitem(last=False)
             del self._block_of_hash[h]
             del self._hash_of_block[blk]
+            if self.on_evict is not None:
+                self.on_evict(blk, h)
             self._refcount[blk] = 1
             return blk
         raise NoFreeBlocksError("out of KV blocks")
@@ -87,10 +92,11 @@ class BlockAllocator:
         self._refcount[blk] += 1
 
     def acquire_resident(self, h: int):
-        """Reacquire the page holding hash ``h`` from wherever it survives
-        (device memory: the port has no lower tier). The swap path uses it
-        to resurrect a parked sequence's committed prefix without copying
-        bytes that never left."""
+        """Reacquire the page holding hash ``h`` from wherever it survives.
+        Here device memory only; the tiered allocator also faults pages
+        back up from host memory or the remote store. The swap path uses
+        it to resurrect a parked sequence's committed prefix without
+        copying bytes that never left."""
         return self.acquire_cached(h)
 
     def commit(self, blk: int, h: int, allow_swap: bool = True) -> int:
@@ -133,17 +139,22 @@ class BlockAllocator:
     # -- prefix lookup ----------------------------------------------------
 
     def match_prefix(
-        self, token_ids: Sequence[int]
+        self,
+        token_ids: Sequence[int],
+        salt: int = 0,
+        deadline: Optional[float] = None,
     ) -> Tuple[List[int], List[int]]:
         """Longest resident prefix of ``token_ids`` at block granularity.
-        Returns (matched block ids — increfed, their hashes). Callers start
-        computing at ``len(matched) * block_size``."""
+        ``salt`` seeds the hash chain; ``deadline`` (monotonic) bounds the
+        tiered allocator's lower-tier fetches, and this device-only one
+        ignores it. Returns (matched block ids — increfed, their hashes).
+        Callers start computing at ``len(matched) * block_size``."""
         self.query_tokens += len(token_ids)
         if not self.enable_prefix_caching:
             return [], []
         matched: List[int] = []
         matched_hashes: List[int] = []
-        for h in block_hashes(token_ids, self.block_size):
+        for h in block_hashes(token_ids, self.block_size, parent=salt):
             blk = self.acquire_cached(h)
             if blk is None:
                 break

@@ -639,6 +639,18 @@ class ModelRunner:
             self.kv_cache[:, blk, kv].copy_(
                 host.reshape(L, bs, -1), non_blocking=pin)
 
+    def page_event(self):
+        """A CUDA event recorded on the current stream after the page
+        copies queued so far (None on the CPU, whose copies are done on
+        return): a host reader of ``download_page``'s tensors on another
+        thread waits on it (``cache_tiering.wait_landed``), never on the
+        whole device."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record()
+        return event
+
     # ------------------------------------------------------------------
     # Device steps
     # ------------------------------------------------------------------

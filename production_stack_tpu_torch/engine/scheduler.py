@@ -424,9 +424,14 @@ class Scheduler:
             # may grow a page within a few steps, and a resume that leaves
             # no slack is swapped right back out. With NOTHING running the
             # gate must not hold (a sequence that once filled the pool
-            # would wait forever): swap_in itself degrades safely.
+            # would wait forever): swap_in itself degrades safely. Unless
+            # a burst is in flight: its members that finished are off
+            # ``running`` while their pages wait for its drain, and a
+            # resume now would find no page for the chain it faults back
+            # and recompute. The JAX scheduler resumes there (ROADMAP
+            # fault 3.7); the port waits for the drain, one step.
             reserve = len(self.running) + 1
-            if self.running and (
+            if (self.running or self._locked) and (
                 self.swapper.blocks_needed(seq) + reserve + promised
                 > self.allocator.num_free
             ):
@@ -459,7 +464,8 @@ class Scheduler:
             # least one token must be computed to produce logits.
             if not seq.block_ids:
                 toks = seq.all_token_ids
-                blocks, hashes = self.allocator.match_prefix(toks[: len(toks) - 1])
+                blocks, hashes = self.allocator.match_prefix(
+                    toks[: len(toks) - 1], deadline=seq.deadline)
                 if blocks:
                     seq.adopt_cached_prefix(blocks, hashes)
                     seq.num_computed_tokens = len(blocks) * self.allocator.block_size

@@ -1,10 +1,10 @@
 """Request-side state for the serving engine: sampling params + sequences.
 
-A copy of the JAX package's ``engine/sequence.py`` without what this slice
-does not serve (LoRA salts, disaggregated KV handoff, controller chunk
-hashes). A :class:`Sequence` owns its token ids, its KV
-page list and the prefix-cache commit cursor; the KV itself lives in the
-runner's cache tensor.
+A copy of the JAX package's ``engine/sequence.py`` without LoRA (no cache
+salt). A :class:`Sequence` owns its token ids, its KV page list, the
+prefix-cache commit cursor, the chunk-hash cursor of the controller's
+registration and the disaggregated handoff's transfer stamp and publish
+cursor; the KV itself lives in the runner's cache tensor.
 """
 
 from __future__ import annotations
@@ -103,6 +103,7 @@ class Sequence:
         deadline: Optional[float] = None,
         tenant: str = "default",
         tenant_class: str = "interactive",
+        kv_transfer: Optional[dict] = None,
     ):
         self.request_id = request_id
         self.prompt_token_ids: List[int] = list(prompt_token_ids)
@@ -133,6 +134,15 @@ class Sequence:
         self.block_hashes: List[int] = []  # hash per committed block
         self._committed_blocks = 0
         self._last_hash = 0
+        # Chunk-hash cursor (the controller's registration granularity).
+        self._chunk_cursor = 0
+        self._chunk_last_hash = 0
+        # The router's kv_transfer_params ({"request_id", "role"}) or None.
+        # On a producer engine the handoff publisher ships this sequence's
+        # pages under that id; the cursor counts the committed blocks
+        # already handed to it.
+        self.kv_transfer = kv_transfer
+        self.kv_published_cursor = 0
         # Token count at admission or the last swap-in: the scheduler's
         # rotation quantum measures decode progress since this marker.
         self.resume_marker = 0
@@ -228,19 +238,37 @@ class Sequence:
         ``allow_swap=False`` while this sequence rides an in-flight
         pipelined burst (the device still writes through these page ids)."""
         bs = allocator.block_size
-        toks = self.all_token_ids
         n_full = self.num_computed_tokens // bs
-        while self._committed_blocks < n_full:
-            i = self._committed_blocks
-            h = block_hashes(
-                toks[i * bs : (i + 1) * bs], bs, parent=self._last_hash
-            )[0]
+        first = self._committed_blocks
+        if first >= n_full:
+            return
+        toks = self.all_token_ids
+        # One chained pass over every newly full block (the chain of
+        # block-by-block calls, in one vectorized hash).
+        for i, h in enumerate(block_hashes(toks[first * bs:n_full * bs], bs,
+                                           parent=self._last_hash),
+                              start=first):
             self.block_ids[i] = allocator.commit(
                 self.block_ids[i], h, allow_swap=allow_swap
             )
             self.block_hashes.append(h)
             self._last_hash = h
             self._committed_blocks += 1
+
+    def commit_full_chunks(self, chunk_tokens: int) -> List[int]:
+        """Chunk-granularity hashes of the newly computed prefix (the
+        controller's registration: the router's KV-aware lookup speaks
+        these)."""
+        n_full = self.num_computed_tokens // chunk_tokens
+        first = self._chunk_cursor
+        if first >= n_full:
+            return []
+        new = block_hashes(
+            self.all_token_ids[first * chunk_tokens:n_full * chunk_tokens],
+            chunk_tokens, parent=self._chunk_last_hash)
+        self._chunk_last_hash = new[-1]
+        self._chunk_cursor = n_full
+        return new
 
     def adopt_cached_prefix(self, blocks: List[int], hashes: List[int]) -> None:
         """Install prefix-cache-hit pages found at admission time."""
@@ -259,4 +287,6 @@ class Sequence:
         self.block_hashes = []
         self._committed_blocks = 0
         self._last_hash = 0
+        self._chunk_cursor = 0
+        self._chunk_last_hash = 0
         self.status = SequenceStatus.PREEMPTED

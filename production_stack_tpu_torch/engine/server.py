@@ -41,6 +41,18 @@ Bodies are plain JSON dicts. While the engine warms up, sleeps or drains
 it answers a generation request with a 503 (``X-PST-Warming: 1``, or
 ``X-PST-Draining: 1``) that lets a router fail over.
 
+KV tiers and the disaggregated handoff (``--cpu-offload-blocks``,
+``--remote-kv-url``, ``--kv-role``): a request's ``kv_transfer_params``
+(the router's ``{"request_id", "role", "pool"}`` stamp) names its
+transfer; on a consumer the handler thread follows the producer's
+manifest and stages the published pages in the host tier before
+admission (a ``kv_prefetch`` trace event and stage; a timeout admits
+anyway, the fused fallback). With ``--cache-controller-url`` a daemon
+thread registers the engine's resident chunk hashes with the cache
+controller every 10 s (``register_with_controller``). With a remote tier
+``/metrics`` adds ``pst_kv_integrity_failures_total{source}`` and
+``pst_kv_read_repairs_total``.
+
 The router's hop headers: ``X-PST-Deadline-Ms`` (a budget already spent
 gets an instant 504 tagged ``X-PST-Deadline-Exceeded: 1``, as does a
 request the scheduler sheds later; a streamed one ends with a frame whose
@@ -51,7 +63,9 @@ request the scheduler sheds later; a streamed one ends with a frame whose
         [--quantization int4] [--warmup lazy|full] [--no-overlap-decode] \
         [--no-kv-swap] [--no-deadline-shedding] [--no-tenant-fairness] \
         [--no-tracing] [--log-format json] [--profiling] \
-        [--flight-buffer 0] [--no-cost-attribution]
+        [--flight-buffer 0] [--no-cost-attribution] \
+        [--cpu-offload-blocks N] [--remote-kv-url URL[,URL...]] \
+        [--kv-role producer|consumer|both] [--cache-controller-url URL]
 
 ``--model`` takes a preset name or a local HF checkpoint directory (its
 ``config.json`` and safetensors; its tokenizer files unless
@@ -62,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import http.client
 import json
 import os
 import signal
@@ -94,6 +109,7 @@ from ..obs.tracing import (
 )
 from ..resilience.deadline import DEADLINE_EXCEEDED_HEADER, parse_deadline
 from .async_engine import AsyncLLMEngine
+from .cache_tiering import INTEGRITY_SOURCES
 from .config import EngineConfig
 from .sequence import SamplingParams
 from .tokenizer import ChatMessage
@@ -254,6 +270,48 @@ def parse_messages(raw) -> List[ChatMessage]:
     if not isinstance(raw, list):
         raise ValueError("messages must be a list")
     return [ChatMessage.from_dict(m) for m in raw]
+
+
+def _kv_transfer_params(req: dict) -> Optional[dict]:
+    """The request's ``kv_transfer_params`` (the router's handoff stamp),
+    as the JAX server reads it: a dict with a ``request_id``, else
+    ignored (never a 400)."""
+    raw = req.get("kv_transfer_params")
+    if not isinstance(raw, dict) or not raw.get("request_id"):
+        return None
+    return {"request_id": str(raw["request_id"]),
+            "role": str(raw["role"]) if raw.get("role") else None}
+
+
+class KVTierMetrics:
+    """The remote KV tier's audit families of the JAX package's shared
+    registry (``obs/metrics.py``), with its names and help: digest
+    failures by read path and read repairs, exported by an engine with a
+    remote tier (each source's sample from 0)."""
+
+    def __init__(self):
+        self.registry = r = Registry()
+        self.integrity = r.counter(
+            "pst_kv_integrity_failures",
+            "KV pages whose BLAKE2 digest failed verification on a read "
+            "path, by source (prefetch = disagg consumer manifest-following,"
+            " match_prefix = the remote leg of prefix matching, restore = "
+            "single-page fault-up). Each count is a quarantined replica copy"
+            " and a failover/recompute — a corrupt page is never decoded "
+            "(docs/kvserver.md)", ["source"])
+        self.read_repairs = r.counter(
+            "pst_kv_read_repairs",
+            "KV pages found on fewer than R ring owners during a read and "
+            "re-pushed to the owners that missed (client-side read-repair, "
+            "docs/kvserver.md)")
+
+    def refresh(self, remote) -> None:
+        """From the remote client's counters (their totals)."""
+        for source in INTEGRITY_SOURCES:
+            self.integrity.labels(source=source).to_total(
+                remote.integrity_by_source.get(source, 0))
+        self.read_repairs.labels().to_total(
+            remote.counters.get("read_repairs", 0))
 
 
 class EngineMetrics:
@@ -426,6 +484,9 @@ def create_engine_app(
     metrics = EngineMetrics(model_name)
     recorder = SpanRecorder("engine", buffer=debug_requests_buffer,
                             enabled=tracing)
+    # The tiers' fetch stages land in this app's stage histogram.
+    engine.engine.observe_stage = recorder.observe_stage
+    kv_metrics = KVTierMetrics() if engine.engine.remote is not None else None
     # One capture at a time: a second one while it runs answers 409.
     profile_lock = threading.Lock()
     if profiling and engine.engine.runner.device.type == "cuda":
@@ -557,6 +618,10 @@ def create_engine_app(
             telemetry.refresh_from_stats(stats)
             text = (metrics.registry.render() + telemetry.render()
                     + recorder.registry.render() + LOG_REGISTRY.render())
+            remote = engine.engine.remote
+            if kv_metrics is not None and remote is not None:
+                kv_metrics.refresh(remote)  # stats() folded shard counters
+                text += kv_metrics.registry.render()
             self._send(200, text.encode(), CONTENT_TYPE)
 
         def version(self) -> None:
@@ -883,8 +948,12 @@ def create_engine_app(
                     return
                 self._serve_choices(sampling, meta, admit, n, best_of)
                 return
+            kv_transfer = _kv_transfer_params(req)
+            if kv_transfer is not None:
+                self._prefetch(kv_transfer, deadline)
             gen = engine.generate(prompt_token_ids=ids, sampling=sampling,
-                                  request_id=rid, **admit)
+                                  request_id=rid, kv_transfer=kv_transfer,
+                                  **admit)
             if req.get("stream"):
                 usage = bool((req.get("stream_options") or {}).get(
                     "include_usage"))
@@ -904,6 +973,22 @@ def create_engine_app(
             self._finished(meta, len(ids), n_out)
             self._reply(meta, [self._choice(meta, result, 0)], n_out,
                         cost=result["cost"])
+
+        def _prefetch(self, kv_transfer: dict, deadline) -> None:
+            """The consumer leg of a handoff: follow the producer's
+            manifest and stage its pages in the host tier, on this thread,
+            within the request's deadline; admission then finds the
+            prompt a host-tier prefix hit. A timeout or a dead kvserver
+            admits anyway (the fused fallback, counted)."""
+            prefetcher = engine.engine.kv_prefetcher
+            if prefetcher is None or kv_transfer.get("role") != "consumer":
+                return
+            t0 = time.monotonic()
+            fetch = prefetcher.prefetch(kv_transfer["request_id"],
+                                        deadline=deadline)
+            self.trace.add_event("kv_prefetch", complete=fetch["complete"],
+                                 blocks=fetch["blocks"])
+            recorder.observe_stage("kv_prefetch", time.monotonic() - t0)
 
         def _serve_choices(self, sampling: SamplingParams, meta: dict,
                            admit: dict, n: int, best_of: int) -> None:
@@ -1206,7 +1291,55 @@ def create_engine_app(
 
     server = ThreadingHTTPServer((host, port), Handler)
     server.daemon_threads = True
+    cfg = engine.engine.cfg
+    # The controller registration's stop switch (None without one): a
+    # daemon thread registers every 10 s until it is set.
+    server.controller_reports = None
+    if cfg.cache_controller_url:
+        engine_url = (cfg.engine_url
+                      or f"http://{host}:{server.server_address[1]}")
+        server.controller_reports = threading.Event()
+        threading.Thread(
+            target=controller_report_loop, name="engine-controller-report",
+            args=(engine, cfg.cache_controller_url, engine_url, 10.0,
+                  server.controller_reports), daemon=True).start()
     return server
+
+
+def register_with_controller(engine: AsyncLLMEngine, controller_url: str,
+                             engine_url: str, timeout: float = 5.0) -> bool:
+    """One snapshot registration of the engine's resident chunk hashes
+    with the cache controller (``replace``: the snapshot is the engine's
+    whole claim). Best effort: False when the controller did not take
+    it."""
+    eng = engine.engine
+    parts = urlsplit(controller_url.rstrip("/"))
+    body = json.dumps({"url": engine_url, "model": eng.model_name,
+                       "hashes": eng.registered_chunk_hashes(),
+                       "replace": True}).encode()
+    try:
+        conn = http.client.HTTPConnection(parts.hostname, parts.port or 80,
+                                          timeout=timeout)
+        try:
+            conn.request("POST", parts.path + "/register", body,
+                         {"Content-Type": "application/json"})
+            return conn.getresponse().status == 200
+        finally:
+            conn.close()
+    except (OSError, http.client.HTTPException) as e:
+        logger.debug("controller registration failed: %s", e)
+        return False
+
+
+def controller_report_loop(engine: AsyncLLMEngine, controller_url: str,
+                           engine_url: str, interval: float,
+                           stop: threading.Event) -> None:
+    """Register every ``interval`` seconds until ``stop`` is set (the
+    JAX server's heartbeat; it feeds KV-aware routing)."""
+    while True:
+        register_with_controller(engine, controller_url, engine_url)
+        if stop.wait(interval):
+            return
 
 
 def _prime_profiler() -> None:
@@ -1296,6 +1429,28 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
                         "for parked/queued work (0 = only under pressure)")
     p.add_argument("--swap-stash-blocks", type=int, default=4096,
                    help="host budget for stashed tail pages (KV pages)")
+    # KV tiering, the remote store and the cache controller.
+    p.add_argument("--cpu-offload-blocks", type=int, default=0)
+    p.add_argument("--remote-kv-url", default=None,
+                   help="kvserver base URL; a comma-separated list makes "
+                        "the engine a sharded-ring client")
+    p.add_argument("--kv-replication", type=int, default=2,
+                   help="replicas per KV block/manifest on the kvserver "
+                        "ring (clamped to the shard count)")
+    p.add_argument("--cache-controller-url", default=None)
+    p.add_argument("--engine-url", default=None)
+    p.add_argument("--kv-role", default="none",
+                   choices=["none", "producer", "consumer", "both"])
+    # The streamed handoff: the consumer's prefetch batch depth, and the
+    # seconds it waits for a manifest's completion before recomputing
+    # the prefill here (the fused fallback).
+    p.add_argument("--kv-prefetch-depth", type=int, default=64,
+                   help="max KV pages per batched GET while following a "
+                        "disagg prefill's manifest")
+    p.add_argument("--kv-transfer-timeout-s", type=float, default=10.0,
+                   help="seconds the decode engine waits for a disagg "
+                        "manifest's completion marker before recomputing "
+                        "the prefill locally (fused fallback)")
     # Honor the router-propagated X-PST-Deadline-Ms budget.
     p.add_argument("--deadline-shedding", dest="deadline_shedding",
                    action="store_true", default=True)
@@ -1369,6 +1524,14 @@ def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
         kv_swap=args.kv_swap,
         swap_quantum_tokens=args.swap_quantum_tokens,
         swap_stash_blocks=args.swap_stash_blocks,
+        cpu_offload_blocks=args.cpu_offload_blocks,
+        remote_kv_url=args.remote_kv_url,
+        kv_replication=args.kv_replication,
+        cache_controller_url=args.cache_controller_url,
+        engine_url=args.engine_url,
+        kv_role=args.kv_role,
+        kv_prefetch_depth=args.kv_prefetch_depth,
+        kv_transfer_timeout_s=args.kv_transfer_timeout_s,
         deadline_shedding=args.deadline_shedding,
         tenant_fairness=args.tenant_fairness,
         flight_buffer=args.flight_buffer,
@@ -1414,6 +1577,8 @@ def main(argv=None) -> None:
         if snap["records"]:
             logger.info("flight snapshot (sigterm): %d steps recorded, "
                         "tail=%s", snap["total_steps"], snap["records"][-3:])
+        if server.controller_reports is not None:
+            server.controller_reports.set()
         server.server_close()
         engine.shutdown()
 

@@ -10,12 +10,12 @@ sequence is parked:
 - only the **uncommitted tail** (at most one partial page, plus pages
   reserved ahead of the write cursor) is copied into a host stash.
 
-Resume re-acquires the committed chain by hash (``acquire_resident``),
-uploads the stashed tail, and decode continues at the exact token it
-stopped at. If part of the chain was reused meanwhile (the port has no
-lower tier to fault it back from), the sequence falls back to the
-recompute path from the longest surviving prefix — strictly no worse
-than recompute preemption.
+Resume re-acquires the committed chain by hash (``acquire_resident``:
+over a tiered allocator a page evicted meanwhile faults back up from host
+memory or the remote store), uploads the stashed tail, and decode
+continues at the exact token it stopped at. If part of the chain is gone
+from every tier, the sequence falls back to the recompute path from the
+longest surviving prefix — strictly no worse than recompute preemption.
 
 ``page_io`` is the runner (``download_page`` / ``upload_page``). On the
 GPU both are queued on the step stream without a host wait: a page's

@@ -418,6 +418,23 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def decode_launch_splits(route, q3, kv_pages, block_tables,
+                         n_sm: int) -> int:
+    """The split count of a decode launch on ``route``: its plan taken at
+    the cache's page count, never at the block table's width. A row's
+    split count sets how its keys are partitioned, so its rounding; the
+    table's width is a bucket of the pages its sequences hold, and a
+    pipelined burst holds the next page a step earlier than the
+    synchronous loop, so a plan by the width made one request's tokens
+    depend on when the pipeline engaged (ROADMAP, fault 3.8)."""
+    B, _, hd = q3.shape
+    _, nb, _, bs, lanes = kv_pages.shape
+    KH = lanes // hd
+    if route == "split":
+        return decode_plan(B, KH, nb, bs, n_sm, hd, kv_pages.dtype == E4M3)
+    return simt_decode_plan(B, KH, nb, bs, n_sm, hd, kv_pages.dtype.itemsize)
+
+
 def _launch_decode(route, q3, kv_pages, block_tables, kv_lens, layer, write,
                    scale, window, softcap):
     """A decode (``write`` None) or decode-write (``write`` = (k_new, v_new,
@@ -433,12 +450,8 @@ def _launch_decode(route, q3, kv_pages, block_tables, kv_lens, layer, write,
     _, nb, _, bs, lanes = kv_pages.shape
     KH = lanes // hd
     W = block_tables.shape[1]
-    n_sm = _sm_count(q3.device)
-    if route == "split":
-        splits = decode_plan(B, KH, W, bs, n_sm, hd, kv_pages.dtype == E4M3)
-    else:
-        splits = simt_decode_plan(B, KH, W, bs, n_sm, hd,
-                                  kv_pages.dtype.itemsize)
+    splits = decode_launch_splits(route, q3, kv_pages, block_tables,
+                                  _sm_count(q3.device))
     out = torch.empty_like(q3)
     ws = counters = None
     if splits > 1:

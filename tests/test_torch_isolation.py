@@ -23,7 +23,8 @@ from production_stack_tpu_torch.ops.attention import paged_attention
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(production_stack_tpu_torch.__file__).parent
 FORBIDDEN = ("jax", "jaxlib", "production_stack_tpu", "aiohttp", "pydantic",
-             "prometheus_client", "xxhash", "safetensors", "ml_dtypes")
+             "prometheus_client", "xxhash", "safetensors", "ml_dtypes",
+             "requests")
 # Imported lazily, for an HF tokenizer only: never at import time.
 LAZY = ("transformers",)
 

@@ -15,6 +15,7 @@ port's text.
 import ast
 import math
 import pathlib
+import types
 
 from prometheus_client import generate_latest
 from prometheus_client.parser import text_string_to_metric_families
@@ -26,7 +27,10 @@ from production_stack_tpu.router.stats.engine_stats import (
     _METRIC_FIELDS,
     EngineStats,
 )
-from production_stack_tpu_torch.engine.server import EngineMetrics
+from production_stack_tpu_torch.engine.server import (
+    EngineMetrics,
+    KVTierMetrics,
+)
 from production_stack_tpu_torch.obs.engine_telemetry import EngineTelemetry
 from production_stack_tpu_torch.obs.prometheus_text import Registry
 
@@ -155,8 +159,10 @@ def test_counter_totals_rebaseline_as_jax():
 
 def test_router_names_are_exported():
     """Every name the router's scraper reads but one, which belongs to the
-    remote KV tier (not ported), is in the port's text; ``chip_smoke.py``
-    checks the same list on the card. Labels and help escape."""
+    remote KV tier, is in the port's text; ``chip_smoke.py`` checks the
+    same list on the card. With a remote tier the server adds that one
+    (``KVTierMetrics``, the JAX shared registry's families). Labels and
+    help escape."""
     tel = EngineTelemetry()
     tel.record_dispatch("prefill", "b1xt8", 0.1, first_use=True)
     tel.record_host_gap("b1", 0.001)
@@ -176,3 +182,19 @@ def test_router_names_are_exported():
               for s in fam.samples if s.name == "pst_engine_startup_seconds"]
     assert [(s.labels, s.value) for s in phases] == [
         ({"phase": 'pre"comp\\ile\n'}, math.pi)]
+    kv = KVTierMetrics()
+    kv.refresh(types.SimpleNamespace(
+        integrity_by_source={"prefetch": 2, "restore": 1},
+        counters={"read_repairs": 3}))
+    tiered = text + kv.registry.render()
+    assert set(_METRIC_FIELDS) <= {
+        s.name for fam in text_string_to_metric_families(tiered)
+        for s in fam.samples}
+    assert EngineStats.from_scrape(tiered).kv_integrity_failures_total == 3
+    fams = {f.name: f for f in text_string_to_metric_families(tiered)}
+    for ref in (jax_metrics.kv_integrity_failures, jax_metrics.kv_read_repairs):
+        assert (fams[ref._name].type, fams[ref._name].documentation) == (
+            ref._type, ref._documentation)
+    assert {s.labels["source"]: s.value for s in fams[
+        "pst_kv_integrity_failures"].samples} == {
+        "prefetch": 2.0, "match_prefix": 0.0, "restore": 1.0}

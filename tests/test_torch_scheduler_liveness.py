@@ -9,7 +9,8 @@ scheduler's waiting queue, interactive first, then holds its pick behind
 the older parked head: neither admits, and nothing runs. The port's
 waiting queue admits its pick once the head yielded, so every request
 finishes; where the JAX scheduler does not stall, the two agree (the
-parity cases of ``test_torch_scheduler_parity.py``).
+parity cases of ``test_torch_scheduler_parity.py``). Also faults 3.6
+(recompute preemption) and 3.7 (a resume behind an in-flight burst).
 """
 
 import numpy as np
@@ -120,3 +121,61 @@ def test_recompute_preemption_drains_where_the_jax_engine_livelocks():
                      _reqs(LENGTHS, MAX_TOKENS, JaxSamplingParams,
                            temperature=0.0), cap=120)
     assert got == want
+
+
+def _parked_behind_a_burst(side, tiered):
+    """A sequence parked with its three committed pages, then the pool
+    filled by pages that wait for an in-flight burst's drain (finished
+    members: off ``running``), which evicts the parked chain to the host
+    tier; one pass with that burst in flight."""
+    Sched, Cfg, _, Seq, SP, Swapper = side
+    pages = _Pages()
+    alloc = tiered(8, 4, page_io=pages, host_blocks=16)
+    swapper = Swapper(pages, max_stash_blocks=16)
+    sched = Sched(Cfg(max_num_seqs=4, max_prefill_tokens=64,
+                      max_model_len=64), alloc, swapper=swapper)
+    seq = Seq("parked", list(range(1, 13)), SP(max_tokens=8))
+    sched.add(seq)
+    assert [it.seq for it in sched.schedule().prefills] == [seq]
+    for blk in seq.block_ids:
+        pages.pages[blk] = (np.full(4, blk), np.full(4, -blk))
+    seq.num_computed_tokens = 12
+    seq.commit_full_blocks(alloc)
+    seq.output_token_ids.append(7)
+    sched.running.remove(seq)
+    swapper.swap_out(seq, alloc)
+    sched.swapped.append(seq)
+    held = [alloc.allocate() for _ in range(alloc.num_free)]
+    assert alloc.num_free == 0 and alloc.spilled_blocks == 3
+    sched.schedule(locked=frozenset({"finished-member"}))
+    return sched, swapper, alloc, seq, held
+
+
+def test_a_resume_waits_for_an_in_flight_bursts_pages():
+    """ROADMAP fault 3.7. With nothing running the scheduler resumes a
+    parked sequence ungated, but an in-flight burst's finished members
+    still hold their pages: the JAX scheduler resumes into a full pool,
+    faults none of the chain back and recomputes it. The port waits while
+    a burst is in flight, and after its drain faults the chain up from
+    the host tier."""
+    from production_stack_tpu.engine.cache_tiering import (
+        TieredAllocator as JaxTiered,
+    )
+    from production_stack_tpu_torch.engine.cache_tiering import (
+        TieredAllocator,
+    )
+
+    _, jswapper, _, jseq, _ = _parked_behind_a_burst(JAX, JaxTiered)
+    assert jswapper.fallback_recompute_total == 1
+    assert jswapper.swap_in_total == 0 and not jseq.output_token_ids[1:]
+    sched, swapper, alloc, seq, held = _parked_behind_a_burst(
+        PORT, TieredAllocator)
+    assert list(sched.swapped) == [seq]
+    assert swapper.fallback_recompute_total == swapper.swap_in_total == 0
+    alloc.release_all(held)  # the burst drained
+    sched.schedule()
+    assert swapper.swap_in_total == 1 and swapper.fallback_recompute_total == 0
+    # The chain's three pages back (and one for the next decode token).
+    assert seq in sched.running and len(seq.block_ids) == 4
+    assert alloc.host_hit_blocks == 3 and len(seq.block_hashes) == 3
+    assert seq.num_computed_tokens == 12
