@@ -63,6 +63,14 @@ stack printed:
    launches bit for bit). The sampler's seeded draw on the card against
    the CPU's: the threefry words bit for bit, the Gumbel values within
    1e-6, and ``sample_tokens``' tokens equal.
+2s. The prefill kernels at the speculative verify step's shapes: B = 1,
+   8 and 64 rows of T = 5 at contexts 512 and 4096 (rows whose kv_len
+   falls 3 short of their last position, padding rows, a window of 1000
+   at 4096), the wgmma kernel at Llama-3-8B's and gemma2-9b's heads over
+   bf16 and e4m3 caches, the CUDA-core kernel at the tiny presets' heads
+   over fp32 and e4m3, against their plain versions; each launch equal bit
+   for bit over a table 64 columns wider (the split plan follows the
+   cache's page count, never the table's width).
 2x. CUDA graphs: one launch each of the split-KV decode (bf16 cache; e4m3
    cache with the fused write), the wgmma prefill and the int4 wgmma and
    decode kernels captured into a CUDA graph; its inputs redrawn in
@@ -77,7 +85,10 @@ stack printed:
    in e4m3 and bf16. A decode step, a seeded draw (its seeds on the card)
    and a prefill chunk then run under CUDA's sync debug mode set to raise
    (no host sync), and
-   the unembed is held to a float32 product. 3x: the runner's steps eager
+   the unembed is held to a float32 product. 3s: a verify step's logits
+   (T = 5 after the 512-token prompt, ``all_logits``, the wgmma prefill
+   once a layer) against 5 decode steps over the same prefix. 3x: the
+   runner's steps eager
    against replayed from their CUDA graphs, each from the same KV cache
    (restored from a clone): a decode step at B=8 x 4096 (seeded draws,
    logprobs), a fresh 512-token chunk and a 4-step seeded burst with
@@ -195,6 +206,15 @@ stack printed:
    7 or 10. Prompts of 2070 tokens keep a partial last block, so that a
    prefix hit's recomputed tail is not a block whose commit adopts
    another run's page; no check depends on when the pipeline engages.
+4s. N-gram speculative decoding: a bf16 server with ``--speculative-ngram
+   4`` (its verify buckets captured before traffic, their pool logged)
+   and the same server without, 8 greedy streams of 128 tokens over
+   multi-round chat prompts that re-quote an earlier turn: each stream's
+   tokens equal the plain server's up to its first near-tie (a top-2
+   logit gap in the plain run within 3s's tolerance; where, is logged),
+   the /metrics speculation counters grow, every verify step launched the
+   wgmma prefill once a layer, both size the same KV pool; acceptance
+   and tok/s logged (one run each).
 3b. The same model int4-quantized on the card (streamed from the seed, the
    bf16 tree freed first), under ``PST_FUSED_KV_WRITE=1``: the same steps
    through the int4 and decode-write kernels, against the gather path on a
@@ -204,7 +224,8 @@ stack printed:
    against replayed.
 4b. Serving int4 with ``PST_FUSED_KV_WRITE=1``: a third server; the int4,
    decode-write and prefill counters must grow; split-sum passes follow
-   only wgmma launches.
+   only wgmma launches. 4t: 4s in int4 with the fused write; verify steps
+   of 8 rows run the int4 wgmma route (N = 40).
 3d. The same model int8-quantized, against the gather path on its weights
    dequantized to bf16 beforehand.
 3z. A checkpoint written and served: Llama-3-8B's widths at 4 of its 32
@@ -248,7 +269,8 @@ stack printed:
    PyTorch call as a yardstick where one computes the same function, and
    its bound: decode and decode-write at B=8, 1 and 64 at kv_len 4096 and
    at B=64 x 512 (with the split count of each); prefill at
-   T=512 fresh, T=512 at start 3584 and T=2048 fresh, each over a bf16 and
+   T=512 fresh, T=512 at start 3584, T=2048 fresh and the verify step's
+   B=8 x T=5 ending at 4096, each over a bf16 and
    an e4m3 cache (bound at the cache's bytes; the e4m3 yardstick is SDPA
    on K/V up-cast to bf16 beforehand); the CUDA-core kernels at
    tiny-llama-debug's heads and (decode, decode-write) at fp32 Llama-3-8B
@@ -278,6 +300,12 @@ package beside it, the script exits non-zero and prints no result.
 builds the kernels and runs only the drift sweep: gemma2-9b at 4, 12 and
 42 layers with its (1 + w) norms at w = 1, 0.5 and 0, through the
 kernels, the gather path and the kernels' plain versions (``drift``).
+
+    python3 chip_smoke.py rounds
+
+builds the kernels and runs only the rounds sweep (``rounds_sweep``):
+five rounds of 4s's streams on the default server and on the
+synchronous one, where each stream first parts from the second round.
 """
 
 from __future__ import annotations
@@ -996,12 +1024,9 @@ def splits_of(q, cache, tables) -> int:
 
 
 def prefill_splits_of(q, cache, tables) -> int:
-    """The split count the prefill wrapper's plan gives these inputs."""
-    _, _, _, bs, lanes = cache.shape
-    B, T, H, hd = q.shape
-    kh = lanes // hd
-    return pac.prefill_plan(B, kh, T, H // kh, tables.shape[1], bs,
-                            sm_count(), hd)
+    """The split count the prefill wrapper's plan gives these inputs (at
+    the cache's page count: ``tables`` does not enter)."""
+    return pac.prefill_launch_splits("wgmma", q, cache, sm_count())
 
 
 def same_nan(got, ref, label):
@@ -1499,12 +1524,9 @@ def phase_simt_splits() -> None:
 
 
 def simt_prefill_splits_of(q, cache, tables) -> int:
-    """The split count the CUDA-core prefill's plan gives these inputs."""
-    _, _, _, bs, lanes = cache.shape
-    B, T, h, hd = q.shape
-    kh = lanes // hd
-    return pac.simt_prefill_plan(B, kh, T, h // kh, tables.shape[1], bs,
-                                 sm_count(), hd)
+    """The split count the CUDA-core prefill's plan gives these inputs (at
+    the cache's page count: ``tables`` does not enter)."""
+    return pac.prefill_launch_splits("simt", q, cache, sm_count())
 
 
 def phase_simt_prefill_splits() -> None:
@@ -1545,6 +1567,94 @@ def phase_simt_prefill_splits() -> None:
     check(simt > 0 and simt == sum(pac.route_counts.values()),
           f"CUDA-core prefill split checks took other kernels: "
           f"{pac.route_counts}")
+
+
+# Phase 2s: the prefill kernels at the speculative verify step's shapes.
+# A verify step under --speculative-ngram 4 scores K + 1 = 5 positions a
+# row; the engine's row buckets run to 64.
+VERIFY_T = 5
+VERIFY_GEOS = (
+    ("wgmma", "Llama-3-8B heads", dict(h=H, kh=KH, hd=HD), SCALE, 0.0),
+    ("wgmma", "gemma2-9b heads", dict(h=GEMMA2_HEADS["h"],
+                                      kh=GEMMA2_HEADS["kh"], hd=HD256),
+     HD256_SCALE, GEMMA2_HEADS["softcap"]),
+    ("simt", "tiny-llama-debug heads, fp32 q", dict(h=8, kh=8, hd=16),
+     16 ** -0.5, 0.0),
+)
+
+
+def verify_rows(B: int, ctx: int) -> tuple:
+    """(kv_lens, starts) of B verify rows at context ``ctx``: each row's 5
+    positions end at ``ctx`` - 1, except that with B > 1 every fourth row
+    from the second has kv_len ``ctx`` - 3 (a draftless row short of
+    pages: its last three positions lie past its keys) and every fourth
+    from the fourth is padding (kv_len 0 at start 0)."""
+    lens, starts = [], []
+    for i in range(B):
+        kind = i % 4 if B > 1 else 0
+        lens.append(0 if kind == 3 else ctx - 3 if kind == 1 else ctx)
+        starts.append(0 if kind == 3 else ctx - VERIFY_T)
+    return lens, starts
+
+
+def phase_verify_kernels() -> dict:
+    """Phase 2s: the prefill kernels at the verify step's shapes, B = 1, 8
+    and 64 rows of T = 5 at contexts 512 and 4096 (``verify_rows``: rows
+    short of their keys, padding rows), against their plain versions: the
+    wgmma kernel at Llama-3-8B's and gemma2-9b's heads (its softcap of
+    50) over bf16 and e4m3 caches, the CUDA-core kernel at the tiny
+    presets' heads in fp32 over fp32 and e4m3; a window of 1000 at 4096.
+    Every launch is repeated over the same block table padded to 64 more
+    columns, bit for bit: a row's split count, and so its rounding, does
+    not follow the table's width. Returns the split counts by shape."""
+    log("[phase 2s] prefill kernels at the verify step's shapes "
+        f"(T={VERIFY_T})")
+    pac.reset_launch_counts()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(4321)
+    splits = {}
+    for route, name, heads, scale, cap in VERIFY_GEOS:
+        dt = torch.float32 if route == "simt" else torch.bfloat16
+        kind = "prefill_simt" if route == "simt" else "prefill"
+        for cdt in (dt, E4M3):
+            for B in (1, 8, 64):
+                for ctx in (512, 4096):
+                    lens, starts = verify_rows(B, ctx)
+                    q, cache, tables, kl, st = make_case(
+                        gen, B=B, T=VERIFY_T, kv_lens=lens, starts=starts,
+                        dtype=dt, cache_dtype=cdt, **heads)
+                    kw = dict(scale=scale, softcap=cap,
+                              window=1000 if ctx == 4096 else 0)
+                    got, ref = run_prefill(q, cache, tables, kl, st, 1, **kw)
+                    pad = [i for i, n in enumerate(lens) if n == 0]
+                    check(bool((got[pad] == 0).all()),
+                          "verify: kv_len 0 rows must be zeros")
+                    n = pac.prefill_launch_splits(route, q, cache,
+                                                  sm_count())
+                    compare(form(kind, cdt, heads["hd"]), got, ref,
+                            f"verify {route} {name}, {str(cdt)[6:]} cache, "
+                            f"B={B} x T={VERIFY_T} at {ctx}, window "
+                            f"{kw['window']} ({n} splits)")
+                    wide = torch.cat([tables, torch.zeros(
+                        (B, 64), dtype=torch.int32, device=DEV)], 1)
+                    again = pac.paged_attention_prefill(
+                        q, cache, wide.contiguous(), kl, st, 1, **kw)
+                    check(same_bits(got, again),
+                          f"verify B={B} at {ctx}: a table 64 columns wider "
+                          "changed the output")
+                    splits[f"{route} hd{heads['hd']} {str(cdt)[6:]} "
+                           f"B={B} ctx={ctx}"] = n
+                    del q, cache, tables, got, ref, again
+                    torch.cuda.empty_cache()
+    wg = sum(n for k, n in pac.route_counts.items()
+             if k.startswith("prefill_wgmma"))
+    simt = sum(n for k, n in pac.route_counts.items()
+               if k.startswith("prefill_simt"))
+    check(wg > 0 and simt > 0 and wg + simt == sum(pac.route_counts.values()),
+          f"verify shapes took other kernels: {pac.route_counts}")
+    log(f"  split counts (planned at the cache's pages, equal over a wider "
+        f"table): {splits}")
+    return splits
 
 
 # The seeds of the seeded-draw checks: the JAX sampler's draw is checked
@@ -1869,10 +1979,11 @@ def graph_runner(params, quantization=None) -> ModelRunner:
 
 
 def graph_batches(runner) -> dict:
-    """The runner's numpy batches of three steps: a decode step at 4096
+    """The runner's numpy batches of four steps: a decode step at 4096
     (seeded draws, logprobs), a fresh 512-token chunk in row 0's pages,
-    and a 4-step seeded burst with penalties (the dense form) ending at
-    4096."""
+    a 4-step seeded burst with penalties (the dense form) ending at 4096,
+    and a verify step of every row's last 5 positions before 4096 (the
+    argmax of each, position 0 seeded)."""
     rng = np.random.default_rng(5)
     B, ctx, T, n = GRAPH_B, GRAPH_CTX, GRAPH_T, GRAPH_N
     V = runner.model_cfg.vocab_size
@@ -1908,11 +2019,19 @@ def graph_batches(runner) -> dict:
                  presence=np.full(B, 0.5, f32), frequency=np.full(B, 0.3, f32),
                  repetition=np.full(B, 1.2, f32),
                  pen_counts=rng.poisson(0.01, (B, V)).astype(f32))
-    return {"decode": decode, "chunk": chunk, "burst": burst}
+    vp = np.arange(ctx - VERIFY_T, ctx)
+    verify = dict(tokens=rng.integers(0, V, (B, VERIFY_T)).astype(i32),
+                  positions=np.tile(vp, (B, 1)).astype(i32),
+                  write_idx=slots(np.arange(B)[:, None], vp[None])
+                  .astype(i32),
+                  block_tables=tables, kv_lens=np.full(B, ctx, i32),
+                  last_idx=np.zeros(B, i32), **sampling(B))
+    return {"decode": decode, "chunk": chunk, "burst": burst,
+            "verify": verify}
 
 
 def graph_vs_eager(runner, label: str, batch: dict, want_lp: bool,
-                   greedy: bool, n_steps: int = 0) -> dict:
+                   greedy: bool, n_steps: int = 0, spec: bool = False) -> dict:
     """One step run eagerly through the runner's own method, then (from
     the same KV cache, restored from a clone) through its graph path:
     first use (eager on the capture stream, then the capture), and, the
@@ -1928,6 +2047,13 @@ def graph_vs_eager(runner, label: str, batch: dict, want_lp: bool,
         def graphed():
             return runner._multi_step(batch, n_steps, want_lp,
                                       greedy)["rows"]
+    elif spec:
+        # A verify step's packed argmax ids and sampled position 0.
+        def eager():
+            return runner.eager_spec_verify(runner._put(batch))
+
+        def graphed():
+            return runner._spec_verify(batch)
     else:
         def eager():
             return runner.eager_step(runner._put(batch), want_lp, greedy)
@@ -1975,7 +2101,8 @@ def graph_vs_eager(runner, label: str, batch: dict, want_lp: bool,
 def phase_step_graphs(params, quantization=None) -> list:
     """Phase 3x: full-width Llama-3-8B steps through the runner, eager
     against replayed: bf16 — a decode step at B=8 x 4096, a fresh T=512
-    chunk and a 4-step seeded burst with penalties; int4 (under
+    chunk, a 4-step seeded burst with penalties and a verify step of
+    B=8 x T=5 ending at 4096; int4 (under
     ``PST_FUSED_KV_WRITE=1``) — the decode step."""
     runner = graph_runner(params, quantization)
     batches = graph_batches(runner)
@@ -1990,6 +2117,9 @@ def phase_step_graphs(params, quantization=None) -> list:
         rows.append(graph_vs_eager(
             runner, f"bf16 {GRAPH_N}-step seeded burst with penalties",
             batches["burst"], False, False, n_steps=GRAPH_N))
+        rows.append(graph_vs_eager(
+            runner, f"bf16 verify B={GRAPH_B} x T={VERIFY_T} at {GRAPH_CTX}",
+            batches["verify"], False, False, spec=True))
     log(f"  graphs {runner.graph_counts}, their pool "
         f"{runner.graph_pool_bytes / 2**20:.1f} MiB")
     del runner
@@ -2430,6 +2560,55 @@ def phase_model(model, params) -> dict:
         f"cuda {t_cuda:.2f}s, gather {t_gather:.2f}s (first calls)")
     return {"prefill_chunk": counts["prefill"],
             "decode_step": counts["decode"] // len(decode_tokens)}
+
+
+def phase_verify_logits(model, params) -> float:
+    """Phase 3s: a verify step's logits against T = 1 decode steps over the
+    same prefix. The model phases' 512-token prompt is prefilled, then
+    its first 5 decode tokens go through one forward of T = 5 with every
+    position's logits (``all_logits=True``: the wgmma prefill, once a
+    layer), and, on a fresh cache, through 5 decode steps (the split-KV
+    decode): position j's logits agree under ``agree``. Returns the logit
+    tolerance, ``MODEL_REL_ATOL`` of the decode steps' largest |logit|,
+    that the served phases' near-tie rule uses."""
+    cfg = model.cfg
+    prompt, decode_tokens = model_prompt(cfg)
+    toks = decode_tokens[:VERIFY_T]
+    ref, _ = drive_model(model, params, "cuda", prompt, toks)
+    ref = ref[1:]  # the logits after each decode token
+    T = len(prompt)
+    nb = -(-(T + VERIFY_T) // BS) + 1
+    cache = model.make_kv_cache(nb, BS, device=DEV)
+    tables = torch.arange(nb - 1, dtype=torch.int32,
+                          device=DEV)[None].flip(1).contiguous()
+
+    def slots(p0, n):
+        return torch.tensor([[int(tables[0, p // BS]) * BS + p % BS
+                              for p in range(p0, p0 + n)]],
+                            dtype=torch.int32, device=DEV)
+
+    def i32(values):
+        return torch.tensor(values, dtype=torch.int32, device=DEV)
+
+    _, cache = model.forward(
+        params, i32([prompt]), torch.arange(T, dtype=torch.int32,
+                                            device=DEV)[None],
+        slots(0, T), tables, i32([T]), i32([T - 1]), cache, attn_impl="cuda")
+    pac.reset_launch_counts()
+    got, cache = model.forward(
+        params, i32([toks]),
+        torch.arange(T, T + VERIFY_T, dtype=torch.int32, device=DEV)[None],
+        slots(T, VERIFY_T), tables, i32([T + VERIFY_T]), i32([0]), cache,
+        attn_impl="cuda", all_logits=True)
+    torch.cuda.synchronize()
+    expect_routes({"prefill_wgmma": cfg.num_layers}, "verify step")
+    check(got.shape == (1, VERIFY_T, cfg.vocab_size),
+          f"verify: logits shape {tuple(got.shape)}")
+    log(f"[phase 3s] a verify step (T={VERIFY_T} after the 512-token "
+        f"prompt, all_logits) against {VERIFY_T} decode steps: "
+        f"{agree(got[0], ref, 'verify vs decode')}; argmax equal at "
+        f"{(got[0].argmax(-1) == ref.argmax(-1)).tolist()}")
+    return MODEL_REL_ATOL * float(ref.abs().max())
 
 
 def expect_routes(want: dict, label: str) -> None:
@@ -3779,6 +3958,299 @@ def phase_pipelined_serving(params, card: str) -> dict:
     return out
 
 
+# Phase 4s: n-gram speculative decoding on a served path.
+
+
+def chat_prompt(i: int) -> str:
+    """A multi-round chat whose last user turn re-quotes the assistant's
+    earlier answer, as multi-round QA traffic re-quotes its history."""
+    answer = (f"Paged attention keeps conversation {i}'s keys and values "
+              f"in fixed-size blocks of {8 * (i + 1)} tokens, so memory is "
+              "allocated as the context grows.")
+    return (f"User: conversation {i}. What is paged attention?\n"
+            f"Assistant: {answer}\n"
+            f"User: You said: \"{answer}\" Say it again, word for word.\n"
+            "Assistant:")
+
+
+def serve_rounds(params, argv: list, n_req: int, n_tok: int,
+                 rounds: tuple) -> tuple:
+    """One server of ``argv`` over ``params``: a round per entry of
+    ``rounds`` (``"capture"``, ``"timed"`` or ``"logprobs"``), each
+    ``n_req`` concurrent greedy streams of ``n_tok`` tokens over
+    ``chat_prompt``s, the step loop gated until all of a round's requests
+    are in. A ``logprobs`` round asks for the top 2 and keeps each
+    position's top-2 logprob gap, which is the gap of the logits. For
+    each round: tokens (and gaps) by prompt, wall, launch counts, the
+    verify steps (rows, and the prefill and int4 launches inside them),
+    /metrics before and after. Also the engine's pages and the pages the
+    budget gave just before it was built (``"sized"``), its graph counts
+    and pool bytes, and the pool and reserved bytes its verify buckets
+    took when captured before traffic."""
+    args = parse_engine_args(argv)
+    cfg = engine_config_from_args(args)
+    gc.collect()  # the engine sizes its KV pool from the free memory
+    torch.cuda.empty_cache()
+    sized = resolve_num_kv_blocks(cfg, get_model_config(cfg.model), DEV)
+    engine = AsyncLLMEngine(cfg, params=params)
+    llm = engine.engine
+    runner = llm.runner
+    pool = {}
+    spec = [b for b in enumerate_lattice(llm.cfg) if b.kind == "spec_verify"]
+    if spec:
+        before = (runner.graph_pool_bytes, runner._reserved_bytes())
+        for b in spec:
+            runner.warmup_bucket(b)
+        pool = {"buckets": [b.label for b in spec],
+                "graph_pool_bytes": runner.graph_pool_bytes - before[0],
+                "reserved_bytes": runner._reserved_bytes() - before[1]}
+    seen, gaps = {}, {}
+    generate, add, step = engine.generate, llm.add_request, llm.step
+    all_in = threading.Event()
+
+    def recording_generate(*a, prompt_token_ids=None, **kw):
+        key = tuple(prompt_token_ids)
+        toks, gap = seen[key], gaps[key] = [], []
+        for o in generate(*a, prompt_token_ids=prompt_token_ids, **kw):
+            toks.extend(o.new_token_ids)
+            for e in o.logprobs or ():
+                gap.append(e["top"][0][1] - e["top"][1][1])
+            yield o
+
+    def counting_add(*a, **kw):
+        seq = add(*a, **kw)
+        if llm.scheduler.num_waiting + llm.scheduler.num_running >= n_req:
+            all_in.set()
+        return seq
+
+    def gated_step():
+        if not all_in.wait(timeout=0.01):
+            return []
+        return step()
+
+    verify = []
+    execute = runner.execute_spec_verify
+
+    def spy_verify(seqs, drafts):
+        c0 = route_counts()
+        out = execute(seqs, drafts)
+        c1 = route_counts()
+        verify.append((len(seqs), {k: n - c0[k] for k, n in c1.items()
+                                   if n != c0[k]}))
+        return out
+
+    engine.generate = recording_generate
+    llm.add_request, llm.step = counting_add, gated_step
+    runner.execute_spec_verify = spy_verify
+    server, thread = serve_in_thread(engine, **app_options_from_args(args))
+    port = server.server_address[1]
+
+    def one(i, lp, errors):
+        body = {"prompt": chat_prompt(i), "max_tokens": n_tok,
+                "temperature": 0.0, "ignore_eos": True}
+        if lp:
+            body["logprobs"] = 2
+        try:
+            _stream(port, body, n_tok)
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    out = []
+    try:
+        for kind in rounds:
+            all_in.clear()
+            seen.clear()
+            gaps.clear()
+            verify.clear()
+            reset_launch_counts()
+            before = scrape(port)
+            errors = []
+            threads = [threading.Thread(target=one,
+                                        args=(i, kind == "logprobs", errors))
+                       for i in range(n_req)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if errors:
+                raise errors[0]
+            out.append({"kind": kind, "tokens": dict(seen),
+                        "gaps": dict(gaps), "wall": wall,
+                        "counts": {**launch_counts(), **route_counts()},
+                        "verify": list(verify), "before": before,
+                        "samples": scrape(port)})
+        check(engine.is_healthy(), f"4s: {engine.step_error}")
+        info = {"pages": runner.num_blocks, "sized": sized,
+                "verify_pool": pool,
+                "graphs": dict(runner.graph_counts),
+                "graph_pool_bytes": runner.graph_pool_bytes}
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.shutdown()
+        thread.join(timeout=10)
+    return out, info
+
+
+def rounds_sweep(params, card: str) -> None:
+    """``python3 chip_smoke.py rounds``: the bf16 Llama-3-8B server of 4s
+    with its defaults (the overlapped decode on its arrival gate) and with
+    ``--no-overlap-decode``, five rounds each of 4s's 8 greedy streams
+    (the first cold, the third and fifth with top-2 logprobs): for each
+    round, each stream's first position whose token differs from the
+    second round's, the top-2 logit gap there (from the third round) and
+    the round's pipelined bursts (ROADMAP fault 3.9). Prints; checks
+    nothing."""
+    argv = ["--model", MODEL, "--device", DEV.type,
+            "--max-num-batched-tokens", "512", "--max-num-seqs", "16"]
+    for extra in ([], ["--no-overlap-decode"]):
+        rounds, _ = serve_rounds(params, argv + extra, 8, 128,
+                                 ("capture", "timed", "logprobs", "timed",
+                                  "logprobs"))
+        base, gaps = rounds[1]["tokens"], rounds[2]["gaps"]
+        for r in rounds:
+            diffs = {}
+            for key, want in base.items():
+                d = next((j for j, (a, b) in enumerate(zip(r["tokens"][key],
+                                                           want))
+                          if a != b), None)
+                if d is not None:
+                    diffs[f"stream {sorted(base).index(key)}"] = (
+                        d, round(gaps[key][d], 4))
+            name = "pst:pipelined_bursts_total"
+            log(f"[rounds] {' '.join(extra) or 'defaults'}: {r['kind']} "
+                f"round, {r['wall']:.3f} s, pipelined bursts "
+                f"{r['samples'].get(name, 0) - r['before'].get(name, 0):.0f}"
+                f"; (first difference from the second round, top-2 gap "
+                f"there) {diffs}; {card}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_spec_serving(params, card: str, gap_tol: float, label: str,
+                       quantization=None) -> dict:
+    """Phase 4s (bf16) / 4t (int4, under ``PST_FUSED_KV_WRITE=1``): the
+    Llama-3-8B server with ``--speculative-ngram 4`` (its verify buckets
+    captured before traffic: the pool they take is logged) and the same
+    server without it and with ``--no-overlap-decode`` (neither
+    pipelines; the server's other defaults on both): 8
+    concurrent greedy streams of 128 tokens over multi-round chat prompts
+    that re-quote an earlier turn, once to capture the graphs and once
+    timed; the plain server once more with top-2 logprobs. Each stream's
+    speculative tokens equal the plain server's up to the first position
+    whose top-2 logit gap in the plain run is within ``gap_tol`` (a
+    near-tie, where the verify step's prefill kernel and the decode
+    kernel may round apart; where it is, is logged). Both /metrics
+    speculation counters grow; in every verify step the wgmma prefill
+    launched once a layer (its launch counter grows during decode), and
+    in int4 the wgmma int4 route ran inside verify steps of 8 rows (N =
+    40). Each server's KV pool is what the memory budget gives just
+    before it is built: speculation takes no page. Acceptance and tok/s with
+    and without speculation are logged: one run each, no claim."""
+    n_req, n_tok = 8, 128
+    layers = get_model_config(MODEL).num_layers
+    argv = ["--model", MODEL, "--device", DEV.type,
+            "--max-num-batched-tokens", "512", "--max-num-seqs", "16"]
+    if quantization:
+        argv += ["--quantization", quantization]
+    spec_rounds, spec_info = serve_rounds(
+        params, argv + ["--speculative-ngram", "4"], n_req, n_tok,
+        ("capture", "timed"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The reference runs the synchronous loop: the overlapped decode
+    # engages on the wall clock's arrival gate, and where it engaged
+    # moved a near-tie token between two identical rounds (ROADMAP fault
+    # 3.9); a speculative server never pipelines.
+    plain_rounds, plain_info = serve_rounds(
+        params, argv + ["--no-overlap-decode"], n_req, n_tok,
+        ("capture", "timed", "logprobs"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec, plain, ref = spec_rounds[1], plain_rounds[1], plain_rounds[2]
+    check(plain["tokens"] == ref["tokens"],
+          f"4s {label}: the plain server's logprobs round changed tokens")
+    for tag, info in (("with", spec_info), ("without", plain_info)):
+        check(info["pages"] == info["sized"],
+              f"4s {label}: {info['pages']} KV pages {tag} speculation, the "
+              f"budget gave {info['sized']} just before")
+    check(len(spec["tokens"]) == n_req
+          and set(spec["tokens"]) == set(ref["tokens"]),
+          f"4s {label}: the two servers served other prompts")
+    agree_to = []
+    for key, want in ref["tokens"].items():
+        got, gap = spec["tokens"][key], ref["gaps"][key]
+        check(len(got) == len(want) == len(gap) == n_tok,
+              f"4s {label}: {len(got)} / {len(want)} tokens, {len(gap)} gaps")
+        near = next((j for j, g in enumerate(gap) if g <= gap_tol), n_tok)
+        first_diff = next((j for j, (a, b) in enumerate(zip(got, want))
+                           if a != b), n_tok)
+        check(first_diff >= near,
+              f"4s {label}: speculative tokens part from the plain server's "
+              f"at {first_diff}, before the first near-tie at {near} "
+              f"(gap {gap[min(first_diff, n_tok - 1)]:.4f} > "
+              f"{gap_tol:.4f})")
+        agree_to.append((near, first_diff))
+    d = {k: spec["samples"].get(f"vllm:spec_decode_num_{k}_tokens_total", 0.0)
+         - spec["before"].get(f"vllm:spec_decode_num_{k}_tokens_total", 0.0)
+         for k in ("draft", "accepted")}
+    check(d["draft"] > 0 and d["accepted"] > 0,
+          f"4s {label}: /metrics speculation counters grew by {d}")
+    check(not plain["samples"].get(
+        "vllm:spec_decode_num_draft_tokens_total", 0.0),
+        f"4s {label}: the plain server drafted")
+    steps = spec["verify"]
+    pre = "prefill_wgmma"
+    check(steps and all(c.get(pre, 0) == layers for _, c in steps),
+          f"4s {label}: verify steps' prefill launches "
+          f"{[c.get(pre, 0) for _, c in steps][:8]} (want {layers} each)")
+    inside = sum(c.get(pre, 0) for _, c in steps)
+    if quantization == "int4":
+        wide = [c for rows, c in steps if rows > 4]
+        check(wide and all(c.get("int4_wgmma", 0) > 0 for c in wide),
+              f"4t: verify steps of more than 4 rows without the int4 "
+              f"wgmma route: {wide[:2]}")
+    rate = d["accepted"] / d["draft"]
+    out = {
+        "spec_tok_per_s": n_req * n_tok / spec["wall"],
+        "plain_tok_per_s": n_req * n_tok / plain["wall"],
+        "spec_wall_s": spec["wall"], "plain_wall_s": plain["wall"],
+        "draft_tokens": d["draft"], "accepted_tokens": d["accepted"],
+        "acceptance": rate, "verify_steps": len(steps),
+        "verify_rows": sorted({rows for rows, _ in steps}),
+        "prefill_launches_in_verify": inside,
+        "prefill_launches": spec["counts"].get(pre, 0),
+        "agree_to": agree_to, "gap_tol": gap_tol,
+        "pages": spec_info["pages"], "plain_pages": plain_info["pages"],
+        "verify_pool": spec_info["verify_pool"],
+        "spec_graphs": spec_info["graphs"],
+        "spec_graph_pool_bytes": spec_info["graph_pool_bytes"],
+        "plain_graph_pool_bytes": plain_info["graph_pool_bytes"],
+        "spec_counts": {k: n for k, n in spec["counts"].items() if n},
+    }
+    vp = spec_info["verify_pool"]
+    log(f"[phase {label}] {quantization or 'bf16'} {MODEL} server with "
+        f"--speculative-ngram 4 against the same server without (one run "
+        f"each): {n_req} x {n_tok} streamed greedy tokens, "
+        f"{out['spec_tok_per_s']:.1f} against {out['plain_tok_per_s']:.1f} "
+        f"output tok/s; {d['draft']:.0f} draft tokens, {d['accepted']:.0f} "
+        f"accepted ({rate:.1%}); {len(steps)} verify steps of "
+        f"{out['verify_rows']} rows, {inside} prefill launches inside them "
+        f"of {out['prefill_launches']} in the round; tokens equal up to "
+        f"(first near-tie, first difference) {agree_to} with gap tol "
+        f"{gap_tol:.4f}; KV pages as the budget sized them, "
+        f"{out['pages']} with speculation, {out['plain_pages']} without; "
+        f"{len(vp.get('buckets', ()))} verify buckets "
+        f"{sorted(set(vp.get('buckets', ())))} took "
+        f"{vp.get('graph_pool_bytes', 0) / 2**20:.1f} "
+        f"MiB of graph pool ({vp.get('reserved_bytes', 0) / 2**20:.1f} MiB "
+        f"reserved); {card}")
+    return out
+
+
 # Phase 4h: a server with a small pool, deadlines and two tenants.
 
 
@@ -5098,11 +5570,14 @@ def phase_times(per_step: dict, launches: dict, card: str,
 
     # Prefill, one sequence: a fresh 512-token chunk, a 512-token chunk at
     # start 3584 (the last chunk of a 4096-token prompt) and a fresh
-    # 2048-token chunk (the engine's default max_prefill_tokens).
+    # 2048-token chunk (the engine's default max_prefill_tokens); then the
+    # verify step's shape, B=8 rows of T=5 ending at 4096.
     prefill = []
-    for T, start in ((512, 0), (512, 3584), (2048, 0)):
-        q, cache, tables, kl, st = case(gen, B=1, T=T, kv_lens=[start + T],
-                                        starts=[start])
+    for B, T, start in ((1, 512, 0), (1, 512, 3584), (1, 2048, 0),
+                        (8, VERIFY_T, 4096 - VERIFY_T)):
+        q, cache, tables, kl, st = case(gen, B=B, T=T,
+                                        kv_lens=[start + T] * B,
+                                        starts=[start] * B)
         ms = cuda_ms(lambda: pac.paged_attention_prefill(
             q, cache, tables, kl, st, 1, scale=scale, softcap=cap))
         plain_ms = cuda_ms(lambda: pac.paged_attention_prefill_plain(
@@ -5118,13 +5593,14 @@ def phase_times(per_step: dict, launches: dict, card: str,
         splits = prefill_splits_of(q, cache, tables)
         compare(pre_kind, got, ref, f"prefill {tag} T={T} start={start} "
                 f"({splits} splits) vs sdpa ({yard.__doc__})")
-        pairs = T * start + T * (T + 1) // 2  # (query, live key) pairs
-        nbytes = 2 * T * h * hd * 2 + (start + T) * 2 * kh * hd * item
+        pairs = B * (T * start + T * (T + 1) // 2)  # (query, live key) pairs
+        nbytes = B * (2 * T * h * hd * 2 + (start + T) * 2 * kh * hd * item)
         r = _row(
             pre_kind, ms, plain_ms, lib_ms, nbytes, 4 * h * hd * pairs,
             PEAK_BF16_FLOPS, per_step[pre_kind], launches[pre_kind], card,
-            f"B=1 T={T} start={start} {heads} bs={BS} bf16 q, {tag} cache, "
-            f"{splits} splits",
+            f"B={B} T={T} start={start} {heads} bs={BS} bf16 q, {tag} "
+            f"cache, {splits} splits" + (" (the verify step's shape)"
+                                         if T == VERIFY_T else ""),
             library="torch.nn.functional.scaled_dot_product_attention on "
                     f"K/V gathered{up} beforehand, " + yard.__doc__ + nocap)
         r["splits"] = splits
@@ -5447,11 +5923,14 @@ def main() -> None:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
     os.environ.pop("PST_FUSED_KV_WRITE", None)  # bf16 phases: unfused path
-    if sys.argv[1:] not in ([], ["drift"]):
-        sys.exit("usage: python3 chip_smoke.py [drift]")
+    if sys.argv[1:] not in ([], ["drift"], ["rounds"]):
+        sys.exit("usage: python3 chip_smoke.py [drift|rounds]")
     card = phase_toolchain()
     if sys.argv[1:] == ["drift"]:
         drift()
+        return
+    if sys.argv[1:] == ["rounds"]:
+        rounds_sweep(build_model()[1], card)
         return
     log("[phase 2] kernels vs plain versions")
     for cache_dtype in (torch.bfloat16, E4M3):
@@ -5463,11 +5942,13 @@ def main() -> None:
     phase_simt_geometries()
     phase_simt_splits()
     phase_simt_prefill_splits()
+    verify_splits = phase_verify_kernels()
     phase_device_draw()
     phase_int4_kernels()
     phase_capture_kernels()
     model, params = build_model()
     per_step = phase_model(model, params)
+    gap_tol = phase_verify_logits(model, params)
     fp8_per_step, fp8_path = phase_fp8_model(model, params)
     phase_no_host_sync(model, params)
     graph_steps = phase_step_graphs(params)
@@ -5486,6 +5967,7 @@ def main() -> None:
     pipelined_serving = phase_pipelined_serving(params, card)
     gc.collect()
     torch.cuda.empty_cache()
+    spec_serving = {"bf16": phase_spec_serving(params, card, gap_tol, "4s")}
     tenancy = phase_tenancy_serving(params, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5547,6 +6029,10 @@ def main() -> None:
     check(q_served["int4_sum"] <= q_served["int4_wgmma"],
           f"int4 serving: {q_served['int4_sum']} sum passes for "
           f"{q_served['int4_wgmma']} wgmma launches")
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_serving["int4"] = phase_spec_serving(q_params, card, gap_tol, "4t",
+                                              quantization="int4")
     del q_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5616,6 +6102,8 @@ def main() -> None:
         "checkpoint_3z": checkpoint, "swap_3w": swaps,
         "tenancy_serving_4h": tenancy, "recompute_serving_4h": recompute,
         "traced_serving_4i": traced, "tiers_4j": tiers,
+        "verify_splits_2s": verify_splits, "verify_gap_tol_3s": gap_tol,
+        "spec_serving_4s": spec_serving,
     }}), flush=True)
     print(json.dumps({"kernels": rows, "steps": steps, "int4_crossover": crossover}),
           flush=True)

@@ -46,6 +46,15 @@ class EngineConfig:
     adaptive_decode_min_running: int = 0
     # Floor for the decode-batch row bucket.
     min_decode_bucket: int = 1
+    # Speculative decoding via n-gram prompt lookup (engine/spec.py): draft
+    # up to this many tokens per greedy sequence per step and verify them
+    # in one forward pass. 0 = off. Sampled (temperature>0) rows ride the
+    # verify step undrafted.
+    speculative_ngram: int = 0
+    ngram_min: int = 1  # shortest suffix n-gram to match
+    ngram_max: int = 3  # longest suffix n-gram to match
+    # Cap the prompt-lookup scan to the last N tokens (0 = whole history).
+    ngram_lookback: int = 8192
     # Pipelined decode: keep one burst in flight and fetch its rows while
     # the next burst runs, unconditionally (batch serving: a new arrival's
     # prefill may wait behind one in-flight burst).

@@ -44,7 +44,16 @@ pages, a consumer's server prefetches them before admission. Committed
 256-token chunks are kept in ``resident_chunk_hashes`` (with a TTL and a
 cap) for the cache controller's registration.
 
-Not ported yet: speculative decoding, LoRA.
+N-gram speculative decoding (``speculative_ngram``, ``engine/spec.py``):
+a decode pass whose greedy rows find prompt-lookup drafts scores each
+row's last token and its K drafts in one verify step
+(``ModelRunner.execute_spec_verify``) and commits every row's accepted
+draft prefix plus the model's own next token; sampled and guided rows
+ride the step undrafted, their position 0 sampled as a plain decode step
+samples it. A speculative engine never pipelines (``_pipeline_ok``), as
+the JAX engine's; ``async_decode`` turns speculation off.
+
+Not ported yet: LoRA.
 """
 
 from __future__ import annotations
@@ -52,7 +61,9 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Dict, List, Optional, Sequence as Seq, Union
+from typing import Any, Dict, List, Optional, Sequence as Seq, Tuple, Union
+
+import numpy as np
 
 from ..kvcache.hashing import CHUNK_TOKENS
 from ..logging_utils import init_logger
@@ -66,6 +77,7 @@ from .kv_manager import BlockAllocator
 from .runner import ModelRunner
 from .scheduler import Scheduler, SchedulerConfig
 from .sequence import SamplingParams, Sequence
+from .spec import count_accepted, propose_ngram
 from .swap import KVSwapper
 from .tokenizer import get_tokenizer
 
@@ -152,9 +164,13 @@ class LLMEngine:
                 num_decode_steps=cfg.num_decode_steps,
                 # A continuation writes one burst past the host's view, so
                 # its pages must exist at dispatch: whenever a pipeline can
-                # engage.
+                # engage. Spec engines never pipeline (_pipeline_ok defers
+                # to speculation) and reserve the verify step's K instead.
                 decode_lookahead=(
-                    2 if cfg.async_decode or cfg.overlap_decode else 1),
+                    2 if cfg.async_decode
+                    or (cfg.overlap_decode and not cfg.speculative_ngram)
+                    else 1),
+                spec_tokens=0 if cfg.async_decode else cfg.speculative_ngram,
                 swap_quantum=cfg.swap_quantum_tokens,
                 deadline_shedding=cfg.deadline_shedding,
                 tenant_fairness=cfg.tenant_fairness,
@@ -162,6 +178,14 @@ class LLMEngine:
             self.allocator,
             swapper=self.swapper,
         )
+        if cfg.async_decode and cfg.speculative_ngram:
+            # Pipelined bursts win every decode step, so the spec branch
+            # would never run: say so rather than reserve pages for it.
+            logger.warning(
+                "speculative_ngram is disabled while async_decode is on "
+                "(pipelined bursts preempt the speculation path)")
+        self.spec_proposed_total = 0
+        self.spec_accepted_total = 0
         self._seqs: Dict[str, Sequence] = {}
         # Incremental detokenizer state per request:
         # emitted text + [prefix_offset, read_offset) decode window.
@@ -458,6 +482,11 @@ class LLMEngine:
             else:
                 self.runner.execute_prefill_batch_nofetch(sched.prefills)
             return outputs + self._process_prefill_rows(sched.prefills, rows)
+        spec = self._spec_drafts(sched.decodes, sched.n_decode_steps)
+        if spec is not None:
+            # Speculation first: when it engages it beats a burst on tokens
+            # per round trip.
+            return outputs + self._spec_step(sched.decodes, spec)
         deep = (hint is not None
                 and sched.n_decode_steps > self.cfg.num_decode_steps)
         if self._pipeline_ok(sched):
@@ -538,6 +567,10 @@ class LLMEngine:
             return False
         if self.cfg.async_decode:
             return True
+        # Speculation and overlap are alternative round-trip amortizers:
+        # with n-gram speculation configured, overlap stays out of its way.
+        if self.cfg.speculative_ngram:
+            return False
         return self.cfg.overlap_decode and self._arrival_safe()
 
     def _can_continue_burst(self, sched) -> bool:
@@ -580,6 +613,93 @@ class LLMEngine:
         if not inflight:
             self._burst_seqs = []
             self._burst_n = 0
+        return outputs
+
+    # -- speculative decoding (n-gram prompt lookup; engine/spec.py) ----
+
+    def _spec_drafts(self, decodes, n_burst: int = 1
+                     ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """Draft tokens [B, K] and their lengths [B] for this decode batch,
+        or None when speculation should not engage (the JAX engine's
+        gating). Per row: only greedy, unguided rows with room for K more
+        tokens get drafts; the others ride the verify step, their position
+        0 sampled as a plain decode step samples it. Per batch: penalties
+        (accepted tokens would change the counts mid-step) or logprobs
+        (verify returns no logprob rows) bail out, as do too few drafted
+        rows to beat the n-step burst the pass replaces."""
+        K = self.cfg.speculative_ngram
+        if not K or self.cfg.async_decode or not decodes:
+            return None
+        for s in decodes:
+            if s.sampling.has_penalties or s.sampling.logprobs is not None:
+                return None
+        drafts = np.zeros((len(decodes), K), np.int32)
+        lens = np.zeros(len(decodes), np.int32)
+        for i, s in enumerate(decodes):
+            if not s.sampling.greedy or s.sampling.guided_choice:
+                continue
+            if s.num_tokens + K > self.cfg.max_model_len:
+                continue  # verify writes would run past the last page
+            d = propose_ngram(self._spec_token_arr(s), K, self.cfg.ngram_min,
+                              self.cfg.ngram_max,
+                              lookback=self.cfg.ngram_lookback)
+            if d:
+                drafts[i, : len(d)] = d
+                lens[i] = len(d)
+        B = len(decodes)
+        hits = int(np.count_nonzero(lens))
+        if hits * 2 < B or hits * (K + 1) + (B - hits) < n_burst * B:
+            return None
+        return drafts, lens
+
+    @staticmethod
+    def _spec_token_arr(s: Sequence) -> np.ndarray:
+        """The sequence's token ids for the n-gram scan, grown in place
+        (tokens are append-only): rebuilding the whole array every decode
+        step is O(context) host work per sequence."""
+        total = s.num_tokens
+        buf = getattr(s, "_spec_buf", None)
+        n = getattr(s, "_spec_buf_n", 0)
+        if buf is None or n > total:
+            buf = np.empty(max(total * 2, 256), np.int64)
+            n = 0
+        elif buf.shape[0] < total:
+            grown = np.empty(max(total * 2, buf.shape[0] * 2), np.int64)
+            grown[:n] = buf[:n]
+            buf = grown
+        P = s.num_prompt_tokens
+        prompt, output = s.prompt_token_ids, s.output_token_ids
+        for idx in range(n, total):
+            buf[idx] = prompt[idx] if idx < P else output[idx - P]
+        s._spec_buf, s._spec_buf_n = buf, total
+        return buf[:total]
+
+    def _spec_step(self, decodes, spec) -> List[RequestOutput]:
+        """One verify pass: commit each row's accepted draft prefix plus
+        the model's own next token (a draftless row: its sampled position
+        0, exactly one plain decode step)."""
+        drafts, lens = spec
+        rows, sampled0 = self.runner.execute_spec_verify(decodes, drafts)
+        outputs: List[RequestOutput] = []
+        for i, seq in enumerate(decodes):
+            if lens[i] == 0:
+                emitted = [int(sampled0[i])]
+            else:
+                draft = [int(t) for t in drafts[i][: lens[i]]]
+                a = count_accepted(draft, rows[i])
+                # Never emit past max_model_len.
+                a = min(a, self.cfg.max_model_len - seq.num_tokens - 1)
+                self.spec_proposed_total += len(draft)
+                self.spec_accepted_total += a
+                emitted = draft[:a] + [int(rows[i][a])]
+            for tok in emitted:
+                seq.num_computed_tokens += 1
+                self._commit(seq)
+                out = self._append_token(seq, tok)
+                if out is not None:
+                    outputs.append(out)
+                if seq.is_finished:
+                    break
         return outputs
 
     def _release_burst_deferred(self) -> None:
@@ -832,6 +952,11 @@ class LLMEngine:
                if self.cfg.adaptive_decode_steps else {}),
             **({"pipelined_bursts_total": float(self.pipelined_bursts_total)}
                if self.cfg.async_decode or self.cfg.overlap_decode else {}),
+            **({"spec_decode_num_draft_tokens_total":
+                float(self.spec_proposed_total),
+                "spec_decode_num_accepted_tokens_total":
+                float(self.spec_accepted_total)}
+               if self.cfg.speculative_ngram else {}),
             **(self._tenant_stats() if self.cfg.tenant_fairness else {}),
             **self._tier_stats(),
             **({"kv_swap_out_total": float(swapper.swap_out_total),

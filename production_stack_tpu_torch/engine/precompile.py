@@ -4,15 +4,16 @@ The port of the JAX package's ``engine/precompile.py``. The runner pads
 every device step into a small set of power-of-two bucket shapes, which
 makes the full set of steps live traffic can ever demand *enumerable from
 config alone*. This module enumerates that lattice — prefill (rows x
-chunk), decode rows and decode bursts — and drives each bucket through
+chunk), decode rows, decode bursts and, with ``speculative_ngram``, the
+verify step (rows x K) — and drives each bucket through
 :meth:`ModelRunner.warmup_bucket` with an all-padding dummy batch before
 the server's ``/ready`` flips. Where the JAX runner compiles one XLA
 program a bucket, the port's runner captures one ``torch.cuda.CUDAGraph``
 a bucket, so after a ``full`` warmup no live step of a covered shape runs
 eagerly or captures: every one replays.
 
-Left out, as the port serves neither yet: the ``spec_verify`` and
-``encode`` kinds (ROADMAP queue 1, items 9 and 12).
+Left out, as the port does not serve it yet: the ``encode`` kind
+(ROADMAP queue 1, item 12).
 
 The JAX module's persistent compilation cache has no counterpart beyond
 what exists: the kernel library is already cached by the hash of its
@@ -32,12 +33,13 @@ from .config import EngineConfig
 logger = init_logger(__name__)
 
 # Kind walk order when a bucket budget truncates the lattice: decode
-# shapes serve every live token, prefill shapes gate TTFT, bursts are
-# the throughput path.
+# shapes serve every live token, prefill shapes gate TTFT, bursts and
+# verify steps are the throughput paths.
 _KIND_RANK = {
     "decode": 0,
     "decode_burst": 1,
     "prefill": 2,
+    "spec_verify": 3,
 }
 
 
@@ -45,9 +47,9 @@ _KIND_RANK = {
 class Bucket:
     """One captured-graph-worth of padded shape + static step flags."""
 
-    kind: str  # decode | decode_burst | prefill
+    kind: str  # decode | decode_burst | prefill | spec_verify
     rows: int = 0  # padded batch rows
-    tokens: int = 0  # prefill chunk bucket
+    tokens: int = 0  # prefill chunk bucket / spec K
     width: int = 0  # block-table width bucket
     n_steps: int = 0  # burst depth (decode_burst)
     want_lp: bool = False
@@ -65,6 +67,8 @@ class Bucket:
             return f"b{self.rows}"
         if self.kind == "decode_burst":
             return f"b{self.rows}xn{self.n_steps}"
+        if self.kind == "spec_verify":
+            return f"b{self.rows}xk{self.tokens}"
         return f"b{self.rows}xt{self.tokens}"
 
     def sort_key(self) -> tuple:
@@ -146,7 +150,9 @@ def burst_depths(cfg: EngineConfig) -> List[int]:
         for n in (cfg.num_decode_steps, cfg.adaptive_decode_steps)
         if n and n > 1
     }
-    if cfg.async_decode or cfg.overlap_decode:
+    # Overlap defers to n-gram speculation (LLMEngine._pipeline_ok), so
+    # spec engines never dispatch the depth-1 variant.
+    if cfg.async_decode or (cfg.overlap_decode and not cfg.speculative_ngram):
         depths.add(max(cfg.num_decode_steps, 1))
     return sorted(depths)
 
@@ -188,6 +194,11 @@ def enumerate_lattice(cfg: EngineConfig) -> List[Bucket]:
                         want_lp=lp, greedy=greedy,
                     )
                 )
+    if cfg.speculative_ngram:
+        for r in rows:
+            for w in widths:
+                buckets.append(Bucket("spec_verify", rows=r,
+                                      tokens=cfg.speculative_ngram, width=w))
     buckets.sort(key=Bucket.sort_key)
     return buckets
 

@@ -33,6 +33,14 @@ static inputs, the rows to a pinned host slot with an event the fetch
 waits on. ``prefill_dispatch`` / ``prefill_fetch`` let a prefill run
 behind an in-flight burst.
 
+The speculative verify step (``execute_spec_verify``) scores each row's
+last committed token and its K drafts in one forward over ``[Bb, K+1]``
+tokens with every position's logits (``Llama.forward(all_logits=True)``),
+so its attention is a T = K+1 prefill launch at decode-time context. It
+returns the argmax of every position and position 0 fully sampled, in
+one packed ``[Bb, K+2]`` array fetched once, and captures one graph per
+(rows, table width) bucket like every other step.
+
 A ``model`` that names a local HF checkpoint directory is loaded from
 its safetensors (``models/llama.py::load_hf_params``).
 
@@ -256,7 +264,7 @@ class ModelRunner:
             paged_attention_cuda.reserve_tickets(self.device, max(
                 paged_attention_cuda.ticket_count(
                     mc.torch_dtype, self.kv_dtype, mc.num_heads,
-                    mc.num_kv_heads, mc.head_dim, b.rows, b.tokens or 1)
+                    mc.num_kv_heads, mc.head_dim, b.rows, _step_tokens(b))
                 for b in lattice))
         # When the last decode step's rows reached the host (None after a
         # prefill): the next decode dispatch closes the host gap.
@@ -323,6 +331,27 @@ class ModelRunner:
             lambda: self._multi_step(batch, n_steps, want_lp,
                                      greedy)["rows"].cpu())
         return rows.numpy()[: len(seqs)]
+
+    def execute_spec_verify(self, seqs: List[Sequence], drafts: np.ndarray
+                            ) -> "tuple[np.ndarray, np.ndarray]":
+        """The speculative verify step: each sequence's last committed
+        token and its K draft tokens (``drafts`` [B, K] int32) scored in
+        one forward pass. Returns ``(argmax_ids [B, K+1], sampled0
+        [B])``: position j's argmax is the token the model emits after
+        positions <= p0 + j, and ``sampled0`` is position 0 through the
+        full sampler (temperature, top-p/k, seeds, logit_bias, a guided
+        mask), so a draftless row gets the token a plain decode step
+        gives it. KV is written for all K+1 positions; rejected ones lie
+        past the committed length and are overwritten by real decode."""
+        B, K = drafts.shape
+        batch = self._spec_batch(seqs, drafts)
+        Bb = batch["kv_lens"].shape[0]
+        self._host_gap_t0 = None  # a verify step is no plain decode step
+        rows = self._timed("spec_verify", f"b{Bb}xk{K}", B * (K + 1), B / Bb,
+                           lambda: self._spec_verify(batch).cpu(),
+                           charge=lambda dt: self._charge_decode(seqs, dt))
+        rows = rows.numpy()[:B]
+        return rows[:, :-1], rows[:, -1]
 
     # ------------------------------------------------------------------
     # Pipelined decode bursts: one burst in flight, its rows fetched while
@@ -485,6 +514,8 @@ class ModelRunner:
         if bucket.kind == "decode_burst":
             step = lambda: self._multi_step(  # noqa: E731
                 batch, bucket.n_steps, bucket.want_lp, bucket.greedy)
+        elif bucket.kind == "spec_verify":
+            step = lambda: self._spec_verify(batch)  # noqa: E731
         elif bucket.kind in ("decode", "prefill"):
             step = lambda: self._step(  # noqa: E731
                 batch, bucket.want_lp, bucket.greedy)
@@ -492,8 +523,8 @@ class ModelRunner:
             raise ValueError(f"unknown warmup bucket kind {bucket.kind!r}")
         self._host_gap_t0 = None
         # Serves no request: no tokens, no device-busy seconds.
-        self._timed("prefill" if bucket.kind == "prefill" else "decode",
-                    bucket.label, 0, None, step, live=False)
+        kind = "decode" if bucket.kind.startswith("decode") else bucket.kind
+        self._timed(kind, bucket.label, 0, None, step, live=False)
 
     # ------------------------------------------------------------------
     # Telemetry
@@ -738,10 +769,11 @@ class ModelRunner:
             return 0
         return torch.cuda.memory_reserved(self.device)
 
-    def _forward(self, dev, tokens, positions, write_idx, kv_lens, last_idx):
+    def _forward(self, dev, tokens, positions, write_idx, kv_lens, last_idx,
+                 all_logits=False):
         logits, self.kv_cache = self.model.forward(
             self.params, tokens, positions, write_idx, dev["block_tables"],
-            kv_lens, last_idx, self.kv_cache,
+            kv_lens, last_idx, self.kv_cache, all_logits=all_logits,
         )
         return logits
 
@@ -774,6 +806,39 @@ class ModelRunner:
             logits, dev["temps"], dev["top_ps"], dev["top_ks"], dev["min_ps"],
             dev["seeds"], with_logprobs=want_lp, greedy_only=greedy,
         )
+
+    def _spec_verify(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
+        dev = self._put(batch)
+        K = dev["tokens"].shape[1] - 1
+        return self._run(self._key("spec_verify", dev, False, False, K),
+                         lambda: self.eager_spec_verify(dev))
+
+    def eager_spec_verify(self, dev: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The verify step on ``_put``'s views, run eagerly (what its graph
+        captures): logits of all K+1 positions, ``logit_bias`` at every
+        position (a biased greedy row's accept chain follows the biased
+        argmax), the guided mask at position 0 only (guided rows carry no
+        drafts). Returns int32 ``[Bb, K+2]``: the K+1 argmax ids, then
+        position 0's sampled token."""
+        logits = self._forward(
+            dev, dev["tokens"], dev["positions"], dev["write_idx"],
+            dev["kv_lens"], dev["last_idx"], all_logits=True,
+        )  # [Bb, K+1, V] float32
+        B, T, V = logits.shape
+        if "bias_ids" in dev:
+            logits = apply_logit_bias(
+                logits.reshape(B * T, V),
+                dev["bias_ids"].repeat_interleave(T, 0),
+                dev["bias_vals"].repeat_interleave(T, 0)).view(B, T, V)
+        ids = torch.argmax(logits, dim=-1).to(torch.int32)
+        logits0 = logits[:, 0]
+        if "allowed_ids" in dev:
+            logits0 = apply_allowed_mask(logits0, dev["allowed_ids"],
+                                         dev["allow_free"])
+        sampled0 = sample_tokens_packed(
+            logits0, dev["temps"], dev["top_ps"], dev["top_ks"],
+            dev["min_ps"], dev["seeds"])[:, 0].to(torch.int32)
+        return torch.cat([ids, sampled0[:, None]], dim=1)
 
     def _multi_step(self, batch: Dict[str, np.ndarray], n_steps: int,
                     want_lp: bool, greedy: bool) -> Dict[str, torch.Tensor]:
@@ -878,7 +943,7 @@ class ModelRunner:
             batch = {"tokens": zeros(B), "positions": zeros(B),
                      "block_tables": zeros(B, W), "kv_lens": zeros(B)}
         else:
-            T = bucket.tokens if bucket.kind == "prefill" else 1
+            T = _step_tokens(bucket)
             batch = {"tokens": zeros(B, T), "positions": zeros(B, T),
                      "write_idx": np.full((B, T), self._drop_slot, np.int32),
                      "block_tables": zeros(B, W), "kv_lens": zeros(B),
@@ -949,6 +1014,50 @@ class ModelRunner:
         if not multi:
             batch["write_idx"] = write_idx
             batch["last_idx"] = last_idx
+        batch.update(self._sampling_arrays(seqs, Bb))
+        return batch
+
+    def _spec_batch(self, seqs: List[Sequence], drafts: np.ndarray
+                    ) -> Dict[str, np.ndarray]:
+        """The verify step's batch (the JAX runner's): tokens [Bb, K+1] —
+        the last committed token, then the drafts — at positions p0 + j
+        (p0 = num_tokens - 1); a position writes its slot only where a
+        page covers it (a draftless row near its last page may lack the
+        last K), else the drop slot; ``kv_lens = min(num_tokens + K,
+        covered)``. Padding rows have ``kv_len`` 0."""
+        B, K = drafts.shape
+        T = K + 1
+        Bb = self._row_bucket(B)
+        Wb = self._table_bucket(seqs)
+        bs = self.cfg.block_size
+        tokens = np.zeros((Bb, T), np.int32)
+        positions = np.zeros((Bb, T), np.int32)
+        write_idx = np.full((Bb, T), self._drop_slot, np.int32)
+        tables = np.zeros((Bb, Wb), np.int32)
+        kv_lens = np.zeros(Bb, np.int32)
+        for i, s in enumerate(seqs):
+            p0 = s.num_tokens - 1
+            tokens[i, 0] = (s.output_token_ids[-1] if s.output_token_ids
+                            else s.prompt_token_ids[-1])
+            tokens[i, 1:] = drafts[i]
+            positions[i] = p0 + np.arange(T, dtype=np.int32)
+            covered = len(s.block_ids) * bs
+            for j in range(T):
+                pos = p0 + j
+                if pos < covered:
+                    write_idx[i, j] = s.block_ids[pos // bs] * bs + pos % bs
+            tables[i] = self._table_row(s, Wb)
+            kv_lens[i] = min(s.num_tokens + K, covered)
+        batch = {
+            "tokens": tokens,
+            "positions": positions,
+            "write_idx": write_idx,
+            "block_tables": tables,
+            "kv_lens": kv_lens,
+            "last_idx": np.zeros(Bb, np.int32),
+        }
+        # Full sampling arrays: position 0 is sampled as a plain decode
+        # step samples it (penalized rows never reach a verify step).
         batch.update(self._sampling_arrays(seqs, Bb))
         return batch
 
@@ -1073,6 +1182,16 @@ class ModelRunner:
             "frequency": frequency,
             "repetition": repetition,
         }
+
+
+def _step_tokens(bucket) -> int:
+    """Query tokens a row of a lattice bucket's step carries: a prefill
+    chunk's, K+1 for a verify step, 1 for decode."""
+    if bucket.kind == "prefill":
+        return bucket.tokens
+    if bucket.kind == "spec_verify":
+        return bucket.tokens + 1
+    return 1
 
 
 def _leaves(tree):

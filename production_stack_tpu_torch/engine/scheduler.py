@@ -54,6 +54,10 @@ class SchedulerConfig:
     # pipelines bursts (the in-flight continuation writes one burst past
     # what the host has seen, so its pages must exist at dispatch time).
     decode_lookahead: int = 1
+    # Extra per-sequence page reservation for speculative decoding: a
+    # verify step writes KV at up to spec_tokens positions past the
+    # committed length, so those pages must exist before dispatch.
+    spec_tokens: int = 0
     # Fair timeslicing when more live users than the cache holds (needs
     # a swapper): after a running sequence has decoded this many tokens
     # since its last (re)admission, it may rotate out in favor of a
@@ -279,8 +283,9 @@ class Scheduler:
         for seq in list(self.running):
             if seq not in self.running:  # lost pages to an earlier preemption
                 continue
-            reserve = min(seq.num_tokens + look * n - 1,
-                          self.config.max_model_len)
+            reserve = min(
+                seq.num_tokens + max(look * n - 1, self.config.spec_tokens),
+                self.config.max_model_len)
             if not self._ensure_blocks(seq, reserve, out, protect=seq):
                 continue
             out.decodes.append(seq)

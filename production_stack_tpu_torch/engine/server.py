@@ -61,6 +61,7 @@ request the scheduler sheds later; a streamed one ends with a frame whose
 
     python -m production_stack_tpu_torch.engine.server --model llama-3-8b --port 8011 \
         [--quantization int4] [--warmup lazy|full] [--no-overlap-decode] \
+        [--speculative-ngram 4] \
         [--no-kv-swap] [--no-deadline-shedding] [--no-tenant-fairness] \
         [--no-tracing] [--log-format json] [--profiling] \
         [--flight-buffer 0] [--no-cost-attribution] \
@@ -316,9 +317,9 @@ class KVTierMetrics:
 
 class EngineMetrics:
     """The ``vllm:`` families of the JAX server's ``EngineMetrics``, with
-    its names, help strings, label and buckets. Families of features the
-    port does not have yet (speculation, KV transfer) are exported at 0,
-    as a JAX engine with those features off exports them."""
+    its names, help strings, label and buckets. A family whose feature is
+    off (speculation without ``--speculative-ngram``) is exported at 0,
+    as a JAX engine with that feature off exports it."""
 
     def __init__(self, model: str):
         self.registry = r = Registry()
@@ -1408,6 +1409,13 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
                    action="store_false",
                    help="disable the arrival-gated overlapped decode "
                         "pipeline (synchronous loop)")
+    # Speculative decoding (n-gram prompt lookup; 0 = off).
+    p.add_argument("--speculative-ngram", type=int, default=0,
+                   help="max draft tokens per step via n-gram prompt lookup")
+    p.add_argument("--ngram-min", type=int, default=1)
+    p.add_argument("--ngram-max", type=int, default=3)
+    p.add_argument("--ngram-lookback", type=int, default=8192,
+                   help="cap prompt-lookup scan to last N tokens (0 = all)")
     p.add_argument("--quantization", choices=("int8", "int4"), default=None,
                    help="weight-only quantization (int4: W4A16 kernel)")
     p.add_argument("--kv-cache-dtype", default=None,
@@ -1516,6 +1524,10 @@ def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
         adaptive_decode_quiet_s=args.adaptive_decode_quiet_s,
         adaptive_decode_min_running=args.adaptive_decode_min_running,
         overlap_decode=args.overlap_decode,
+        speculative_ngram=args.speculative_ngram,
+        ngram_min=args.ngram_min,
+        ngram_max=args.ngram_max,
+        ngram_lookback=args.ngram_lookback,
         quantization=args.quantization,
         kv_cache_dtype=args.kv_cache_dtype,
         seed=args.seed,

@@ -406,10 +406,10 @@ class Llama:
         all_logits: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One engine step. Returns (last-token logits [B, V] float32, the
-        cache). The cache is updated IN PLACE — the JAX package donates the
-        buffer to get the same effect — and returned for symmetry."""
-        if all_logits:
-            raise NotImplementedError("all_logits is not ported yet")
+        cache); with ``all_logits`` the logits of every position [B, T, V]
+        (the speculative verify step; ``last_idx`` is ignored). The cache
+        is updated IN PLACE — the JAX package donates the buffer to get
+        the same effect — and returned for symmetry."""
         cfg = self.cfg
         B, T = tokens.shape
         L, nb, _, bs, _ = kv_cache.shape
@@ -497,8 +497,13 @@ class Llama:
 
         x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps, offset)
         head = "lm_head" if "lm_head" in params else "embed"
-        last = x[torch.arange(B, device=x.device), last_idx.long()]  # [B, D]
-        logits = unembed_logits(last, _wcast(params[head], x.dtype))
+        unembed = _wcast(params[head], x.dtype)  # [V, D]
+        if all_logits:
+            logits = unembed_logits(x.reshape(B * T, -1), unembed).view(
+                B, T, -1)
+        else:
+            last = x[torch.arange(B, device=x.device), last_idx.long()]
+            logits = unembed_logits(last, unembed)  # [B, V]
         uqs = params.get(head + QUANT_SUFFIX)
         if uqs is not None:
             logits = logits * uqs  # per-vocab-row scale

@@ -34,7 +34,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 # Record tuple layout (kept positional — a dict per step would allocate
 # a hash table on the hot path; rows render to dicts only at read time).
 _F_WALL = 0        # time.time() stamp (for ?window_s= and human output)
-_F_KIND = 1        # prefill | decode
+_F_KIND = 1        # prefill | decode | spec_verify
 _F_BUCKET = 2      # padded batch bucket label (b8xn4, b1xt512, ...)
 _F_DEVICE_S = 3    # device step wall (dispatch -> fetch)
 _F_HOST_GAP_S = 4  # serial host wall that preceded this dispatch

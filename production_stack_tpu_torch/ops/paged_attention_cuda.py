@@ -435,6 +435,22 @@ def decode_launch_splits(route, q3, kv_pages, block_tables,
     return simt_decode_plan(B, KH, nb, bs, n_sm, hd, kv_pages.dtype.itemsize)
 
 
+def prefill_launch_splits(route, q, kv_pages, n_sm: int) -> int:
+    """The split count of a prefill launch on ``route``, its plan taken at
+    the cache's page count and never at the block table's width, as
+    :func:`decode_launch_splits` takes a decode's. The speculative verify
+    step is a prefill launch at decode-time context (B rows of K+1
+    positions): planned by the width of its table bucket, one row's
+    rounding would hang on which other rows share its step, and a greedy
+    token on the rows around it."""
+    B, T, H, hd = q.shape
+    _, nb, _, bs, lanes = kv_pages.shape
+    KH = lanes // hd
+    if route == "wgmma":
+        return prefill_plan(B, KH, T, H // KH, nb, bs, n_sm, hd)
+    return simt_prefill_plan(B, KH, T, H // KH, nb, bs, n_sm, hd)
+
+
 def _launch_decode(route, q3, kv_pages, block_tables, kv_lens, layer, write,
                    scale, window, softcap):
     """A decode (``write`` None) or decode-write (``write`` = (k_new, v_new,
@@ -661,13 +677,8 @@ def paged_attention_prefill(q, kv_pages, block_tables, kv_lens, starts,
     tail = (B, T, H, KH, hd, nb, bs, W, int(layer), int(window),
             float(scale), float(softcap))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    G, n_sm = H // KH, _sm_count(q.device)
-    if route == "wgmma":
-        splits = prefill_plan(B, KH, T, G, W, bs, n_sm, hd)
-        rows = PREFILL_ROWS
-    else:
-        splits = simt_prefill_plan(B, KH, T, G, W, bs, n_sm, hd)
-        rows = SIMT_PREFILL_TILES[hd][0]
+    splits = prefill_launch_splits(route, q, kv_pages, _sm_count(q.device))
+    rows = PREFILL_ROWS if route == "wgmma" else SIMT_PREFILL_TILES[hd][0]
     n = ticket_count(q.dtype, kv_pages.dtype, H, KH, hd, B, T)
     ws = counters = None
     if splits > 1:

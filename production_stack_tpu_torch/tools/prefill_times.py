@@ -110,10 +110,10 @@ def main(argv=None) -> None:
                 c = case(T, start, h, kh, hd, torch.bfloat16, cache_dtype)
                 ms = device_ms(lambda: pac.paged_attention_prefill(
                     *c, 1, scale=hd ** -0.5, softcap=cap))
-                W = c[2].shape[1]
+                nb = c[1].shape[1]  # the launch plans at the page count
                 point = {"heads": name, "cache": str(cache_dtype)[6:],
                          "T": T, "start": start, "ms": ms,
-                         "splits": plan(1, kh, T, h // kh, W, BS, n_sm, hd)
+                         "splits": plan(1, kh, T, h // kh, nb, BS, n_sm, hd)
                          if plan else 1,
                          "forced_ms": forced("prefill_plan", c, hd, cap)}
                 print(json.dumps(point), flush=True)
@@ -130,7 +130,7 @@ def main(argv=None) -> None:
             point = {"heads": name, "cache": cdt, "T": T, "start": start,
                      "ms": ms, "floor_ms": floor_ms,
                      "bound_ms": 4 * h * hd * keys / FP32_FLOPS * 1e3,
-                     "splits": simt_plan(1, kh, T, h // kh, tables.shape[1],
+                     "splits": simt_plan(1, kh, T, h // kh, cache.shape[1],
                                          BS, n_sm, hd) if simt_plan else 1,
                      "forced_ms": forced("simt_prefill_plan", c, hd, 0.0)}
             print(json.dumps(point), flush=True)

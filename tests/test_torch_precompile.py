@@ -2,10 +2,10 @@
 of the PyTorch port) against the JAX package's precompile module.
 
 The port's lattice, lazy core and budget selection must be the JAX
-ones with the kinds the port does not serve (``spec_verify``,
-``encode``) taken out, for the same pipeline fields (``overlap_decode``,
-``async_decode``, ``adaptive_decode_steps``) on both sides, pipelining
-off and on, without n-gram speculation. On the CPU nothing can be
+ones with the kind the port does not serve (``encode``) taken out, for
+the same pipeline fields (``overlap_decode``, ``async_decode``,
+``adaptive_decode_steps``) on both sides, pipelining off and on, without
+n-gram speculation (with it: ``tests/test_torch_spec_decode.py``). On the CPU nothing can be
 captured, so one test injects a
 stand-in for ``torch.cuda.CUDAGraph`` into a tiny CPU engine: after a
 full warmup, traffic that spans the lattice adds no graph key, and every
@@ -70,8 +70,7 @@ def _configs(c):
 
 def _served(buckets):
     """JAX buckets of the kinds the port serves, as field tuples."""
-    return [dataclasses.astuple(b) for b in buckets
-            if b.kind not in ("spec_verify", "encode")]
+    return [dataclasses.astuple(b) for b in buckets if b.kind != "encode"]
 
 
 def _tuples(buckets):
@@ -85,7 +84,7 @@ def test_lattice_equals_the_jax_lattice(config):
     want = jpre.enumerate_lattice(jcfg)
     assert got and _tuples(got) == _served(want)
     assert [b.label for b in got] == [
-        b.label for b in want if b.kind not in ("spec_verify", "encode")]
+        b.label for b in want if b.kind != "encode"]
     assert tpre.decode_row_buckets(cfg) == jpre.decode_row_buckets(jcfg)
     assert tpre.table_width_buckets(cfg) == jpre.table_width_buckets(jcfg)
     assert tpre.prefill_shape_buckets(cfg) == jpre.prefill_shape_buckets(jcfg)
