@@ -206,6 +206,21 @@ stack printed:
    7 or 10. Prompts of 2070 tokens keep a partial last block, so that a
    prefix hit's recomputed tail is not a block whose commit adopts
    another run's page; no check depends on when the pipeline engages.
+4k. Fault 3.9: one default bf16 server, 8 greedy streams of 96-124
+   tokens with top-2 logprobs after a warm-up round: the synchronous
+   loop, the pipeline forced to engage after decode pass 0, 1, 5 or 37,
+   and two rounds on the default arrival gate give every stream the same
+   tokens and logprobs bit for bit; each run's pipelined bursts, and what
+   a row's rounding follows on the card (cuBLAS products by row count,
+   the split-KV decode's splits by rows), printed.
+4l. The chart's argv: two port kvservers from the chart's cache-server
+   args (``--sweep-interval-s 1``) and the engine server through
+   ``parse_engine_args`` on the chart's default engine args (at
+   ``--tensor-parallel-size 1``, ``--warmup lazy``) with ``--api-key``:
+   the chart's served name, 401 without the key and 200 with it,
+   ``/metrics`` and ``/ready`` open, ``/sleep`` guarded; the served
+   prompt's pages published to the ring, one shard wiped, and the other
+   shard's sweep backfills it with the digests kept.
 4s. N-gram speculative decoding: a bf16 server with ``--speculative-ngram
    4`` (its verify buckets captured before traffic, their pool logged)
    and the same server without, 8 greedy streams of 128 tokens over
@@ -305,7 +320,14 @@ kernels, the gather path and the kernels' plain versions (``drift``).
 
 builds the kernels and runs only the rounds sweep (``rounds_sweep``):
 five rounds of 4s's streams on the default server and on the
-synchronous one, where each stream first parts from the second round.
+synchronous one, where each stream first parts from the second round;
+it fails unless each server's warm rounds agree token for token.
+
+    python3 chip_smoke.py engagement
+
+builds the kernels and runs phase 4k four times (``engagement_sweep``):
+with fault 3.9's two causes put back, each alone and both; it fails
+unless 4k fails with either and passes with neither.
 """
 
 from __future__ import annotations
@@ -316,10 +338,12 @@ import faulthandler
 import functools
 import gc
 import http.client
+import itertools
 import json
 import os
 import re
 import shutil
+import socket
 import statistics
 import struct
 import subprocess
@@ -336,7 +360,10 @@ if not torch.cuda.is_available():
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from production_stack_tpu_torch.engine.async_engine import AsyncLLMEngine  # noqa: E402
-from production_stack_tpu_torch.engine.cache_tiering import TieredAllocator  # noqa: E402
+from production_stack_tpu_torch.engine.cache_tiering import (  # noqa: E402
+    TieredAllocator,
+    wait_landed,
+)
 from production_stack_tpu_torch.engine.config import (  # noqa: E402
     EngineConfig,
     resolve_num_kv_blocks,
@@ -370,7 +397,9 @@ from production_stack_tpu_torch.kvcache.hashing import (  # noqa: E402
 from production_stack_tpu_torch.kvserver.controller import ControllerServer  # noqa: E402
 from production_stack_tpu_torch.kvserver.server import (  # noqa: E402
     KVServer,
+    server_from_args,
     start_in_thread,
+    unpack_blocks_ex,
 )
 from production_stack_tpu_torch.models import llama as llama_mod  # noqa: E402
 from production_stack_tpu_torch.models.llama import (  # noqa: E402
@@ -3260,11 +3289,11 @@ def phase_int4_model(model):
 
 
 def _call(port: int, method: str, path: str, body=None,
-          timeout: float = 300.0):
+          timeout: float = 300.0, headers=None):
     """One request: its status, its body (parsed when JSON) and headers."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     conn.request(method, path, None if body is None else json.dumps(body),
-                 {"Content-Type": "application/json"})
+                 {"Content-Type": "application/json", **(headers or {})})
     resp = conn.getresponse()
     raw = resp.read()
     conn.close()
@@ -3973,20 +4002,24 @@ def chat_prompt(i: int) -> str:
             "Assistant:")
 
 
-def serve_rounds(params, argv: list, n_req: int, n_tok: int,
-                 rounds: tuple) -> tuple:
+def serve_rounds(params, argv: list, n_req: int, n_tok, rounds: tuple,
+                 setup=None, logprobs: bool = False) -> tuple:
     """One server of ``argv`` over ``params``: a round per entry of
-    ``rounds`` (``"capture"``, ``"timed"`` or ``"logprobs"``), each
-    ``n_req`` concurrent greedy streams of ``n_tok`` tokens over
-    ``chat_prompt``s, the step loop gated until all of a round's requests
-    are in. A ``logprobs`` round asks for the top 2 and keeps each
-    position's top-2 logprob gap, which is the gap of the logits. For
-    each round: tokens (and gaps) by prompt, wall, launch counts, the
-    verify steps (rows, and the prefill and int4 launches inside them),
-    /metrics before and after. Also the engine's pages and the pages the
-    budget gave just before it was built (``"sized"``), its graph counts
-    and pool bytes, and the pool and reserved bytes its verify buckets
-    took when captured before traffic."""
+    ``rounds`` (``"capture"``, ``"timed"`` or ``"logprobs"``, or any name
+    ``setup`` knows), each ``n_req`` concurrent greedy streams over
+    ``chat_prompt``s, stream i of ``n_tok[i]`` tokens (``n_tok`` an int:
+    all alike), the step loop gated until all of a round's requests are
+    in. ``setup(kind, llm)`` runs before each round. A ``logprobs`` round
+    (every round with ``logprobs``) asks for the top 2 and keeps each
+    position's top 2 and their gap, which is the gap of the logits. For
+    each round: tokens (gaps and tops) by prompt, wall, launch counts,
+    the verify steps (rows, and the prefill and int4 launches inside
+    them), the pipelined bursts, /metrics before and after. Also the
+    engine's pages and the pages the budget gave just before it was built
+    (``"sized"``), its graph counts and pool bytes, and the pool and
+    reserved bytes its verify buckets took when captured before
+    traffic."""
+    n_toks = [n_tok] * n_req if isinstance(n_tok, int) else list(n_tok)
     args = parse_engine_args(argv)
     cfg = engine_config_from_args(args)
     gc.collect()  # the engine sizes its KV pool from the free memory
@@ -4004,17 +4037,18 @@ def serve_rounds(params, argv: list, n_req: int, n_tok: int,
         pool = {"buckets": [b.label for b in spec],
                 "graph_pool_bytes": runner.graph_pool_bytes - before[0],
                 "reserved_bytes": runner._reserved_bytes() - before[1]}
-    seen, gaps = {}, {}
+    seen, gaps, tops = {}, {}, {}
     generate, add, step = engine.generate, llm.add_request, llm.step
     all_in = threading.Event()
 
     def recording_generate(*a, prompt_token_ids=None, **kw):
         key = tuple(prompt_token_ids)
-        toks, gap = seen[key], gaps[key] = [], []
+        toks, gap, top = seen[key], gaps[key], tops[key] = [], [], []
         for o in generate(*a, prompt_token_ids=prompt_token_ids, **kw):
             toks.extend(o.new_token_ids)
             for e in o.logprobs or ():
                 gap.append(e["top"][0][1] - e["top"][1][1])
+                top.append(list(e["top"]))
             yield o
 
     def counting_add(*a, **kw):
@@ -4046,27 +4080,31 @@ def serve_rounds(params, argv: list, n_req: int, n_tok: int,
     port = server.server_address[1]
 
     def one(i, lp, errors):
-        body = {"prompt": chat_prompt(i), "max_tokens": n_tok,
+        body = {"prompt": chat_prompt(i), "max_tokens": n_toks[i],
                 "temperature": 0.0, "ignore_eos": True}
         if lp:
             body["logprobs"] = 2
         try:
-            _stream(port, body, n_tok)
+            _stream(port, body, n_toks[i])
         except BaseException as e:  # re-raised below
             errors.append(e)
 
     out = []
     try:
         for kind in rounds:
+            if setup is not None:
+                setup(kind, llm)
             all_in.clear()
             seen.clear()
             gaps.clear()
+            tops.clear()
             verify.clear()
             reset_launch_counts()
             before = scrape(port)
+            bursts = llm.pipelined_bursts_total
             errors = []
-            threads = [threading.Thread(target=one,
-                                        args=(i, kind == "logprobs", errors))
+            lp = logprobs or kind == "logprobs"
+            threads = [threading.Thread(target=one, args=(i, lp, errors))
                        for i in range(n_req)]
             t0 = time.perf_counter()
             for t in threads:
@@ -4078,7 +4116,9 @@ def serve_rounds(params, argv: list, n_req: int, n_tok: int,
             if errors:
                 raise errors[0]
             out.append({"kind": kind, "tokens": dict(seen),
-                        "gaps": dict(gaps), "wall": wall,
+                        "gaps": dict(gaps), "tops": dict(tops),
+                        "bursts": llm.pipelined_bursts_total - bursts,
+                        "wall": wall,
                         "counts": {**launch_counts(), **route_counts()},
                         "verify": list(verify), "before": before,
                         "samples": scrape(port)})
@@ -4095,39 +4135,181 @@ def serve_rounds(params, argv: list, n_req: int, n_tok: int,
     return out, info
 
 
+def first_parting(got: dict, want: dict) -> dict:
+    """Each stream's first position whose token (or top-2 logprobs, where
+    both runs kept them) differs between two runs' records, by stream
+    index; streams that agree are left out."""
+    out = {}
+    for key in want["tokens"]:
+        pairs = [zip(got["tokens"][key], want["tokens"][key])]
+        if want["tops"].get(key) and got["tops"].get(key):
+            pairs.append(zip(got["tops"][key], want["tops"][key]))
+        firsts = [next((j for j, (a, b) in enumerate(p) if a != b), None)
+                  for p in pairs]
+        firsts = [f for f in firsts if f is not None]
+        if firsts or got["tokens"][key] != want["tokens"][key]:
+            out[sorted(want["tokens"]).index(key)] = min(firsts, default=-1)
+    return out
+
+
 def rounds_sweep(params, card: str) -> None:
     """``python3 chip_smoke.py rounds``: the bf16 Llama-3-8B server of 4s
     with its defaults (the overlapped decode on its arrival gate) and with
     ``--no-overlap-decode``, five rounds each of 4s's 8 greedy streams
     (the first cold, the third and fifth with top-2 logprobs): for each
     round, each stream's first position whose token differs from the
-    second round's, the top-2 logit gap there (from the third round) and
-    the round's pipelined bursts (ROADMAP fault 3.9). Prints; checks
-    nothing."""
+    second round's, the top-2 logit gap there and the round's pipelined
+    bursts. Fails unless each server's warm rounds (the second to the
+    fifth) give every stream the same tokens (ROADMAP fault 3.9). The cold
+    round prefills its prompts in other chunks, so it may part at a near
+    tie."""
     argv = ["--model", MODEL, "--device", DEV.type,
             "--max-num-batched-tokens", "512", "--max-num-seqs", "16"]
     for extra in ([], ["--no-overlap-decode"]):
         rounds, _ = serve_rounds(params, argv + extra, 8, 128,
                                  ("capture", "timed", "logprobs", "timed",
                                   "logprobs"))
-        base, gaps = rounds[1]["tokens"], rounds[2]["gaps"]
+        base, gaps = rounds[1], rounds[2]["gaps"]
+        label = " ".join(extra) or "defaults"
         for r in rounds:
-            diffs = {}
-            for key, want in base.items():
-                d = next((j for j, (a, b) in enumerate(zip(r["tokens"][key],
-                                                           want))
-                          if a != b), None)
-                if d is not None:
-                    diffs[f"stream {sorted(base).index(key)}"] = (
-                        d, round(gaps[key][d], 4))
-            name = "pst:pipelined_bursts_total"
-            log(f"[rounds] {' '.join(extra) or 'defaults'}: {r['kind']} "
-                f"round, {r['wall']:.3f} s, pipelined bursts "
-                f"{r['samples'].get(name, 0) - r['before'].get(name, 0):.0f}"
-                f"; (first difference from the second round, top-2 gap "
-                f"there) {diffs}; {card}")
+            diffs = {i: (d, round(gaps[sorted(gaps)[i]][d], 4))
+                     for i, d in first_parting(dict(r, tops={}),
+                                               dict(base, tops={})).items()}
+            log(f"[rounds] {label}: {r['kind']} round, {r['wall']:.3f} s, "
+                f"pipelined bursts {r['bursts']}; (stream: first "
+                f"difference from the second round, top-2 gap there) "
+                f"{diffs}; {card}")
+        parted = {i: first_parting(dict(r, tops={}), dict(base, tops={}))
+                  for i, r in enumerate(rounds) if i > 1}
+        check(not any(parted.values()),
+              f"rounds ({label}): warm rounds part from the second round "
+              f"(round: stream: first differing token) {parted}")
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# Decode passes after which 4k opens the pipeline's arrival gate.
+ENGAGE_4K = (0, 1, 5, 37)
+
+
+def rows_rounding(params, runner) -> dict:
+    """What a decode row's rounding follows (ROADMAP fault 3.9), on the
+    card: for layer 0's q, down and the lm_head projections, the row
+    counts (of 1, 2, 4, 8, 16) at which one row's product through cuBLAS
+    differs bit-wise from its product among 8 rows; and the split-KV
+    decode's split count for each row count over ``runner``'s cache."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(41)
+    out = {}
+    lp = params["layers"]
+    for name, w in (("wq", lp["wq"][0]), ("w_down", lp["w_down"][0]),
+                    ("lm_head", params.get("lm_head",
+                                           params["embed"]).t())):
+        x = torch.randn(16, w.shape[0], device=DEV, generator=gen).to(w.dtype)
+        ref = i4.mm_f32(x[:8], w)[0]
+        out[name] = [m for m in (1, 2, 4, 8, 16)
+                     if not torch.equal(i4.mm_f32(x[:m], w)[0], ref)]
+    mc = runner.model_cfg
+    cache, n_sm = runner.kv_cache, sm_count()
+    tables = torch.zeros((1, 64), dtype=torch.int32, device=DEV)
+    out["decode_splits"] = {
+        B: pac.decode_launch_splits(
+            "split", torch.empty((B, mc.num_heads, mc.head_dim),
+                                 dtype=torch.bfloat16, device=DEV),
+            cache, tables.expand(B, -1), n_sm)
+        for B in (1, 2, 4, 8, 16)}
+    return out
+
+
+def phase_overlap_engagement(params, card: str) -> dict:
+    """Phase 4k, fault 3.9: a row's greedy tokens must not depend on when
+    the overlapped decode engages. One default bf16 Llama-3-8B server
+    (its arrival gate's 0.5 s), 8 greedy streams of 96-124 tokens (rows
+    finish one by one, so the batch crosses its row buckets) with top-2
+    logprobs: a warm-up round (every later run sees its prefix hits),
+    then the synchronous loop (``overlap_decode`` switched off), the
+    pipeline forced to engage after decode pass k for k in ``ENGAGE_4K``
+    (``_arrival_safe`` wrapped), and two rounds on the default gate. Every
+    stream's tokens and top-2 logprobs equal the synchronous run's bit
+    for bit; within one server, since the server's page count sets the
+    decode's split plans. Prints each run's pipelined bursts, and what a
+    row's rounding follows on the card (``rows_rounding``)."""
+    argv = ["--model", MODEL, "--device", DEV.type,
+            "--max-num-batched-tokens", "512", "--max-num-seqs", "16"]
+    n_tok = tuple(96 + 4 * i for i in range(8))
+    runs = ("warm-up", "sync", *(f"k{k}" for k in ENGAGE_4K), "gate",
+            "gate")
+    probe = {}
+
+    def setup(kind, llm):
+        llm.cfg.overlap_decode = kind != "sync"
+        llm.__dict__.pop("_arrival_safe", None)  # the default gate
+        if kind.startswith("k"):
+            passes, k = itertools.count(), int(kind[1:])
+            llm._arrival_safe = lambda: next(passes) >= k
+        if not probe:
+            probe.update(rows_rounding(params, llm.runner))
+
+    rounds, info = serve_rounds(params, argv, 8, n_tok, runs, setup=setup,
+                                logprobs=True)
+    ref = rounds[1]
+    parted = {r["kind"] + f"#{i}": first_parting(r, ref)
+              for i, r in enumerate(rounds) if i > 1}
+    bursts = {f"{r['kind']}#{i}": r["bursts"]
+              for i, r in enumerate(rounds)}
+    log(f"[phase 4k] engagement: 8 streams of {n_tok[0]}-{n_tok[-1]} "
+        f"tokens with top-2 logprobs; pipelined bursts by run {bursts}; "
+        f"first parting from the synchronous run (stream: position) "
+        f"{parted}; rows whose product differs from its 8-row product "
+        f"{ {k: v for k, v in probe.items() if k != 'decode_splits'} }, "
+        f"decode splits by rows {probe['decode_splits']}; "
+        f"{info['pages']} pages; {card}")
+    check(not any(parted.values()),
+          f"4k: tokens or top-2 logprobs part from the synchronous run by "
+          f"the pipeline's engagement (run: stream: position) {parted}")
+    check(all(r["bursts"] > 0 for r in rounds[2:]) and rounds[1]["bursts"]
+          == 0, f"4k: pipelined bursts by run {bursts}")
+    return {"bursts": bursts, "rows_rounding": probe,
+            "n_tok": list(n_tok)}
+
+
+def engagement_sweep(params, card: str) -> None:
+    """``python3 chip_smoke.py engagement``: phase 4k with each half of
+    fault 3.9's fix taken back (ROADMAP fault 3.9): the decoded pages'
+    dedup swap between bursts (``LLMEngine._commit`` as it was) and the
+    row bucket that shrinks as rows finish (``ModelRunner._decode_rows``
+    as it was), one, the other, neither. Fails unless 4k fails with
+    either half taken back and passes with neither."""
+    fixed = LLMEngine._commit, ModelRunner._decode_rows
+
+    def swap_between_bursts(self, seq, decoded=False):
+        seq.commit_full_blocks(self.allocator, allow_swap=not (
+            decoded and self.runner.burst_in_flight))
+
+    def bucket_by_rows(self, seqs):
+        return self._row_bucket(len(seqs))
+
+    passed = {}
+    for label, commit, rows in (
+            ("both halves back", swap_between_bursts, bucket_by_rows),
+            ("dedup swap back", swap_between_bursts, fixed[1]),
+            ("row bucket back", fixed[0], bucket_by_rows),
+            ("fixed", *fixed)):
+        LLMEngine._commit, ModelRunner._decode_rows = commit, rows
+        try:
+            phase_overlap_engagement(params, card)
+            passed[label] = True
+        except AssertionError as e:
+            log(f"[engagement] {label}: {str(e)[:600]}")
+            passed[label] = False
+        finally:
+            LLMEngine._commit, ModelRunner._decode_rows = fixed
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[engagement] 4k passes {passed}; {card}")
+    check(passed == {"both halves back": False, "dedup swap back": False,
+                     "row bucket back": False, "fixed": True},
+          f"engagement: 4k passes {passed}")
 
 
 def phase_spec_serving(params, card: str, gap_tol: float, label: str,
@@ -4161,10 +4343,8 @@ def phase_spec_serving(params, card: str, gap_tol: float, label: str,
         ("capture", "timed"))
     gc.collect()
     torch.cuda.empty_cache()
-    # The reference runs the synchronous loop: the overlapped decode
-    # engages on the wall clock's arrival gate, and where it engaged
-    # moved a near-tie token between two identical rounds (ROADMAP fault
-    # 3.9); a speculative server never pipelines.
+    # The reference runs the synchronous loop, as the speculative server
+    # never pipelines.
     plain_rounds, plain_info = serve_rounds(
         params, argv + ["--no-overlap-decode"], n_req, n_tok,
         ("capture", "timed", "logprobs"))
@@ -4915,6 +5095,179 @@ def phase_disagg_serving(params, card: str) -> dict:
 TRACE_ID, TRACE_PARENT = "4bf92f3577b34da6a3ce929d0e0e4736", "00f067aa0ba902b7"
 PROFILE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "profiles_smoke")
+
+
+# Phase 4l: the port started from the repo's own deployment argv.
+
+# The chart's engine args at its default values (helm/values.yaml's first
+# modelSpec through helm/templates/deployment-engine.yaml, for a release
+# named "pst"), written out.
+CHART_ENGINE_ARGV = (
+    "--model", "llama-3-8b",
+    "--served-model-name", "meta-llama/Llama-3-8B-Instruct",
+    "--host", "0.0.0.0", "--port", "8000",
+    "--max-model-len", "8192", "--max-num-seqs", "64",
+    "--max-num-batched-tokens", "2048", "--tensor-parallel-size", "8",
+    "--pipeline-parallel-size", "1", "--data-parallel-size", "1",
+    "--block-size", "32", "--gpu-memory-utilization", "0.9",
+    "--attn-impl", "pallas", "--num-decode-steps", "8",
+    "--warmup", "full", "--debug-requests-buffer", "256",
+    "--log-format", "text", "--flight-buffer", "512",
+    "--cpu-offload-blocks", "4096",
+    "--remote-kv-url", "http://pst-cache-server-0.pst-cache-server:8100",
+    "--kv-replication", "2", "--kv-prefetch-depth", "64",
+    "--kv-transfer-timeout-s", "10", "--cache-controller-url",
+    "http://pst-kv-controller:9000",
+)
+# The chart's cache-server args (helm/templates/cache-server.yaml).
+CHART_CACHE_ARGV = (
+    "--host", "0.0.0.0", "--port", "8100", "--max-bytes", "64000000000",
+    "--self-url", "http://pst-cache-server-0.pst-cache-server:8100",
+    "--peers", "http://pst-cache-server-0.pst-cache-server:8100",
+    "--replication", "2", "--sweep-interval-s", "30",
+)
+API_KEY = "chart-key"
+
+
+def with_args(argv, **values) -> list:
+    """``argv`` with the value after each ``--flag`` (``flag`` with
+    underscores) replaced."""
+    out = list(argv)
+    for flag, value in values.items():
+        out[out.index("--" + flag.replace("_", "-")) + 1] = str(value)
+    return out
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_chart_serving(params, card: str) -> dict:
+    """Phase 4l: the port started from the chart's argv. Two port
+    kvservers from the chart's cache-server argv (a ring of 2 on
+    localhost, ``--sweep-interval-s 1``), the cache controller, and the
+    engine server through ``parse_engine_args`` on the chart's default
+    engine argv with ``--api-key`` added; one card, so
+    ``--tensor-parallel-size 1`` (8 is refused, queue 1 item 15), and
+    ``--warmup lazy`` in place of ``full`` (the phase's time). Checks:
+    ``/v1/models`` serves the chart's name; a completion without the key
+    gets 401 and one with it 200; ``/metrics`` and ``/ready`` stay open;
+    ``/sleep`` is guarded. Then the served prompt's pages are published
+    to the ring, one shard is wiped, and the other's sweep backfills it
+    within a few intervals: a ``GET /blocks`` there returns every page
+    with the digest the other shard holds."""
+    try:
+        engine_config_from_args(parse_engine_args(list(CHART_ENGINE_ARGV)))
+        check(False, "4l: --tensor-parallel-size 8 was accepted")
+    except ValueError as e:
+        check("item 15" in str(e), f"4l: {e}")
+    urls = [f"http://127.0.0.1:{free_port()}" for _ in range(2)]
+    shards = [server_from_args(with_args(
+        CHART_CACHE_ARGV, host="127.0.0.1", port=u.rsplit(":", 1)[1],
+        self_url=u, peers=",".join(urls), sweep_interval_s=1))
+        for u in urls]
+    threads = [start_in_thread(sh) for sh in shards]
+    ctrl = ControllerServer(("127.0.0.1", 0))
+    ctrl_thread = start_in_thread(ctrl)
+    args = parse_engine_args(with_args(
+        CHART_ENGINE_ARGV, host="127.0.0.1", port=0, tensor_parallel_size=1,
+        warmup="lazy", remote_kv_url=",".join(urls),
+        cache_controller_url=ctrl.url) + ["--api-key", API_KEY])
+    engine = AsyncLLMEngine(engine_config_from_args(args), params=params)
+    server, thread = serve_in_thread(engine, args.host, args.port,
+                                     **app_options_from_args(args))
+    port = server.server_address[1]
+    key = {"Authorization": f"Bearer {API_KEY}"}
+    body = {"prompt": chat_prompt(9) * 4, "max_tokens": 16,
+            "temperature": 0.0, "ignore_eos": True}
+    try:
+        wait_ready(port)
+        status, models, _ = _call(port, "GET", "/v1/models", headers=key)
+        check(status == 200 and [m["id"] for m in models["data"]]
+              == ["meta-llama/Llama-3-8B-Instruct"], f"4l models: {models}")
+        statuses = {
+            "models, no key": _call(port, "GET", "/v1/models")[0],
+            "completion, no key": _call(port, "POST", "/v1/completions",
+                                        body)[0],
+            "completion, wrong key": _call(
+                port, "POST", "/v1/completions", body,
+                headers={"Authorization": "Bearer wrong"})[0],
+            "completion, key": _call(port, "POST", "/v1/completions", body,
+                                     headers=key)[0],
+            "metrics, no key": _call(port, "GET", "/metrics")[0],
+            "ready, no key": _call(port, "GET", "/ready")[0],
+            "sleep, no key": _call(port, "POST", "/sleep?level=1")[0],
+        }
+        want = {k: 401 for k in statuses}
+        want.update({"completion, key": 200, "metrics, no key": 200,
+                     "ready, no key": 200})
+        check(statuses == want and not engine.sleeping,
+              f"4l auth: {statuses}")
+        # Publish the prompt's committed pages to the ring.
+        llm = engine.engine
+        pages = []
+
+        def publish():
+            pages.extend((h, *llm.runner.download_page(b)) for h, b in
+                         llm.allocator._block_of_hash.items())
+            wait_landed(llm.runner.page_event())
+            check(llm.remote.put_blocks(pages), "4l: put_blocks failed")
+
+        engine.on_step_thread(publish)
+        hashes = [h for h, _, _ in pages]
+        wiped, other = shards
+        with wiped.lock:
+            gone = wiped.store.quarantine(hashes)
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 10.0:
+            with wiped.lock:
+                if all(wiped.store.contains(h) for h in hashes):
+                    break
+            time.sleep(0.05)
+        backfill_s = time.perf_counter() - t0
+
+        def frames(shard):
+            conn = http.client.HTTPConnection(*shard.server_address[:2],
+                                              timeout=60)
+            conn.request("GET", "/blocks?hashes=" + ",".join(map(str,
+                                                                hashes)))
+            resp = conn.getresponse()
+            raw = resp.read()
+            conn.close()
+            check(resp.status == 200, f"4l GET /blocks: {resp.status}")
+            return unpack_blocks_ex(raw)
+
+        got, held = frames(wiped), frames(other)
+        stats = [sh.stats() for sh in shards]
+        check(gone == len(hashes) > 0 and sorted(got) == sorted(held)
+              and len(got) == len(hashes)
+              and stats[1]["anti_entropy_pushes"] >= len(hashes),
+              f"4l: {len(hashes)} pages, {gone} wiped, {len(got)} back "
+              f"after {backfill_s:.2f} s; stats {stats}")
+        ring = _call(int(wiped.url.rsplit(":", 1)[1]), "GET", "/ring")[1]
+        check(ring == {"peers": urls, "self": urls[0], "replication": 2,
+                       "sweep_interval_s": 1.0}, f"4l /ring: {ring}")
+        check(engine.is_healthy(), f"4l: {engine.step_error}")
+    finally:
+        _stop_server(engine, server, thread)
+        for sh, t in zip(shards, threads):
+            sh.shutdown()
+            sh.server_close()
+            t.join(timeout=10)
+        ctrl.shutdown()
+        ctrl.server_close()
+        ctrl_thread.join(timeout=10)
+    log(f"[phase 4l] the chart's argv (tp 1, warmup lazy): /v1/models "
+        f"serves the chart's name; auth {statuses}; {len(hashes)} pages "
+        f"published to a ring of 2 port kvservers, one wiped and "
+        f"backfilled by the sweep in {backfill_s:.2f} s with the digests "
+        f"kept (pushes {stats[1]['anti_entropy_pushes']}, sweeps "
+        f"{stats[1]['anti_entropy_sweeps']}); {card}")
+    del engine
+    return {"auth": statuses, "pages": len(hashes),
+            "backfill_s": backfill_s}
 
 
 def _post(port: int, path: str, body: dict, headers: dict) -> tuple:
@@ -5923,14 +6276,17 @@ def main() -> None:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
     os.environ.pop("PST_FUSED_KV_WRITE", None)  # bf16 phases: unfused path
-    if sys.argv[1:] not in ([], ["drift"], ["rounds"]):
-        sys.exit("usage: python3 chip_smoke.py [drift|rounds]")
+    if sys.argv[1:] not in ([], ["drift"], ["rounds"], ["engagement"]):
+        sys.exit("usage: python3 chip_smoke.py [drift|rounds|engagement]")
     card = phase_toolchain()
     if sys.argv[1:] == ["drift"]:
         drift()
         return
     if sys.argv[1:] == ["rounds"]:
         rounds_sweep(build_model()[1], card)
+        return
+    if sys.argv[1:] == ["engagement"]:
+        engagement_sweep(build_model()[1], card)
         return
     log("[phase 2] kernels vs plain versions")
     for cache_dtype in (torch.bfloat16, E4M3):
@@ -5999,6 +6355,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     tiers["disagg"] = phase_disagg_serving(params, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    engagement = phase_overlap_engagement(params, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    chart = phase_chart_serving(params, card)
     gc.collect()
     torch.cuda.empty_cache()
     os.environ["PST_FUSED_KV_WRITE"] = "1"
@@ -6103,7 +6465,8 @@ def main() -> None:
         "tenancy_serving_4h": tenancy, "recompute_serving_4h": recompute,
         "traced_serving_4i": traced, "tiers_4j": tiers,
         "verify_splits_2s": verify_splits, "verify_gap_tol_3s": gap_tol,
-        "spec_serving_4s": spec_serving,
+        "spec_serving_4s": spec_serving, "engagement_4k": engagement,
+        "chart_serving_4l": chart,
     }}), flush=True)
     print(json.dumps({"kernels": rows, "steps": steps, "int4_crossover": crossover}),
           flush=True)

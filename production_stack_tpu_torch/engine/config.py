@@ -32,6 +32,10 @@ class EngineConfig:
     # Weight-only quantization: None, "int8" (per channel) or "int4"
     # (group-wise; embed/lm_head stay int8).
     quantization: Optional[str] = None
+    # Paged attention: "auto" (the hand-written CUDA kernels on the card,
+    # the gather path on the CPU), "gather" (the plain PyTorch path) or
+    # "pallas" (the JAX spelling of the kernels; refused on the CPU).
+    attn_impl: str = "auto"
     enable_prefix_caching: bool = True
     # Decode tokens generated per engine step (a device-side loop that
     # chains sampled tokens without a host round trip). 1 = per token.
@@ -124,6 +128,9 @@ class EngineConfig:
     # page-seconds and queue wait, on the X-PST-Cost header, the usage
     # extension and pst_request_device_seconds / pst_tenant_device_seconds.
     cost_attribution: bool = True
+    # Export pst_engine_startup_seconds (the load, shard, warmup and
+    # precompile phases); --no-startup-phases leaves the family empty.
+    startup_phases: bool = True
     seed: int = 0
     device: str = "cuda"
 
@@ -132,6 +139,19 @@ class EngineConfig:
             raise ValueError(
                 f"unsupported quantization {self.quantization!r} (int8 or int4)"
             )
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r} "
+                             f"({'|'.join(ATTN_IMPLS)})")
+
+    @property
+    def model_attn_impl(self) -> str:
+        """``Llama.forward``'s ``attn_impl``: ``pallas`` names the CUDA
+        kernels, the port's ``cuda``."""
+        return ATTN_IMPLS[self.attn_impl]
+
+
+# The JAX engine's attention impls and the port's name for each.
+ATTN_IMPLS = {"auto": "auto", "gather": "gather", "pallas": "cuda"}
 
 
 def kv_cache_torch_dtype(cfg: EngineConfig,

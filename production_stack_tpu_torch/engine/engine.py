@@ -505,7 +505,7 @@ class LLMEngine:
         for seq, seq_rows in zip(sched.decodes, bursts):
             for row in seq_rows:
                 seq.num_computed_tokens += 1
-                self._commit(seq)
+                self._commit(seq, decoded=True)
                 out = self._append_token(seq, int(row[0]), lp_row=row)
                 if out is not None:
                     outputs.append(out)
@@ -595,8 +595,8 @@ class LLMEngine:
     def _process_burst_rows(self, rows) -> List[RequestOutput]:
         """Apply one fetched burst's rows, aligned with ``_burst_seqs``;
         the rows of members that finished earlier are skipped. While the
-        next burst is in flight, dedup swaps and page releases wait: the
-        device writes through these page ids."""
+        next burst is in flight, page releases wait: the device writes
+        through these page ids."""
         outputs: List[RequestOutput] = []
         inflight = self.runner.burst_in_flight
         for seq, seq_rows in zip(self._burst_seqs, rows):
@@ -604,7 +604,7 @@ class LLMEngine:
                 continue
             for row in seq_rows:
                 seq.num_computed_tokens += 1
-                self._commit(seq, allow_swap=not inflight)
+                self._commit(seq, decoded=True)
                 out = self._append_token(seq, int(row[0]), lp_row=row)
                 if out is not None:
                     outputs.append(out)
@@ -694,7 +694,7 @@ class LLMEngine:
                 emitted = draft[:a] + [int(rows[i][a])]
             for tok in emitted:
                 seq.num_computed_tokens += 1
-                self._commit(seq)
+                self._commit(seq, decoded=True)
                 out = self._append_token(seq, tok)
                 if out is not None:
                     outputs.append(out)
@@ -714,8 +714,18 @@ class LLMEngine:
     CHUNK_CLAIM_TTL = 20 * 60.0
     CHUNK_CLAIM_CAP = 200_000
 
-    def _commit(self, seq: Sequence, allow_swap: bool = True) -> None:
-        seq.commit_full_blocks(self.allocator, allow_swap=allow_swap)
+    def _commit(self, seq: Sequence, decoded: bool = False) -> None:
+        """Content-address ``seq``'s newly full pages. A page a prefill
+        filled swaps to an existing copy of the same tokens, as in the
+        JAX engine. A page that decoding filled does not: it stays
+        un-addressed (the prefix map keeps the first copy, for later
+        prompts) and is released with the sequence, so a live row keeps
+        reading the bits it wrote. The first copy was computed by other
+        steps (another round's prefill chunks), and the swap could happen
+        only while no burst was in flight: the pipeline's engagement step
+        chose the row's rounding (ROADMAP fault 3.9). The JAX engine
+        swaps a decoded page whenever no burst is in flight."""
+        seq.commit_full_blocks(self.allocator, allow_swap=not decoded)
         now = time.time()
         for h in seq.commit_full_chunks(CHUNK_TOKENS):
             self.resident_chunk_hashes.pop(h, None)  # refresh its order

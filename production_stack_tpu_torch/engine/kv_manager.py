@@ -104,9 +104,9 @@ class BlockAllocator:
         If another request already committed the same content, dedup to the
         existing page: the caller must swap to the returned id.
         ``allow_swap=False`` suppresses that (and the release of the
-        duplicate) while an in-flight decode burst's block table still
-        points at ``blk``: released, the page could be handed to another
-        request while the burst reads it."""
+        duplicate): the engine keeps a page that decoding filled, whose
+        sequence goes on reading the bits it wrote (ROADMAP fault 3.9),
+        and which an in-flight burst's block table may still point at."""
         if not self.enable_prefix_caching:
             return blk
         existing = self._block_of_hash.get(h)

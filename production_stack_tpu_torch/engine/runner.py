@@ -67,7 +67,7 @@ import gc
 import hashlib
 import os
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -177,6 +177,9 @@ class ModelRunner:
         t0 = time.perf_counter()
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
+        if cfg.model_attn_impl == "cuda" and self.device.type != "cuda":
+            raise ValueError(f"attn_impl={cfg.attn_impl!r} runs the CUDA "
+                             "kernels, which need device='cuda'")
         self.model_cfg = model_cfg or get_model_config(cfg.model)
         self.model = Llama(self.model_cfg)
         self.kv_dtype = kv_cache_torch_dtype(cfg, self.model_cfg)
@@ -205,7 +208,7 @@ class ModelRunner:
         self.param_bytes = sum(
             t.numel() * t.element_size() for t in _leaves(params)
         )
-        self.telemetry = EngineTelemetry()
+        self.telemetry = EngineTelemetry(startup_phases=cfg.startup_phases)
         t_load = time.perf_counter()
         self.telemetry.record_startup_phase("load", t_load - t0)
         self.telemetry.set_model_info(
@@ -271,6 +274,10 @@ class ModelRunner:
         self._host_gap_t0: Optional[float] = None
         # The pipelined burst in flight (burst_start .. burst_drain).
         self._burst: Optional[Dict[str, Any]] = None
+        # The decode batch's rows and their row bucket, kept while rows
+        # only leave the batch (``_decode_rows``).
+        self._decode_cohort: Tuple[List[Sequence], frozenset, int] = (
+            [], frozenset(), 0)
         self.telemetry.record_startup_phase(
             "shard", time.perf_counter() - t_load)
 
@@ -774,6 +781,7 @@ class ModelRunner:
         logits, self.kv_cache = self.model.forward(
             self.params, tokens, positions, write_idx, dev["block_tables"],
             kv_lens, last_idx, self.kv_cache, all_logits=all_logits,
+            attn_impl=self.cfg.model_attn_impl,
         )
         return logits
 
@@ -981,11 +989,29 @@ class ModelRunner:
             min(_MIN_TABLE_BUCKET, _pow2(self.max_table_width)),
         )
 
+    def _decode_rows(self, seqs: List[Sequence]) -> int:
+        """A decode batch's row bucket: ``_row_bucket`` of its rows when a
+        row joins the batch, then kept while rows only leave it (finish,
+        abort, preemption). A row's rounding follows the bucket (the
+        split-KV decode plans its splits by it; a GEMM's algorithm may
+        follow its row count), and a pipelined burst keeps the bucket it
+        was dispatched at until it drains: a bucket that shrank as rows
+        finished would round the rows left by when the pipeline engaged
+        (ROADMAP fault 3.9). The JAX runner buckets each step by its own
+        rows."""
+        now = frozenset(map(id, seqs))
+        if not now <= self._decode_cohort[1]:
+            # The cohort's sequences are kept alive with it, so none of
+            # its ids is reused by a new sequence.
+            self._decode_cohort = (list(seqs), now,
+                                   self._row_bucket(len(seqs)))
+        return self._decode_cohort[2]
+
     def _decode_batch(
         self, seqs: List[Sequence], multi: bool = False
     ) -> Dict[str, np.ndarray]:
         B = len(seqs)
-        Bb = self._row_bucket(B)
+        Bb = self._decode_rows(seqs)
         Wb = self._table_bucket(seqs)
         bs = self.cfg.block_size
 

@@ -235,8 +235,8 @@ class Sequence:
         self, allocator: BlockAllocator, allow_swap: bool = True
     ) -> None:
         """Content-address every newly filled page (enables prefix sharing).
-        ``allow_swap=False`` while this sequence rides an in-flight
-        pipelined burst (the device still writes through these page ids)."""
+        ``allow_swap=False`` keeps this sequence's own pages (the engine
+        passes it for pages that decoding filled)."""
         bs = allocator.block_size
         n_full = self.num_computed_tokens // bs
         first = self._committed_blocks

@@ -53,6 +53,17 @@ controller every 10 s (``register_with_controller``). With a remote tier
 ``/metrics`` adds ``pst_kv_integrity_failures_total{source}`` and
 ``pst_kv_read_repairs_total``.
 
+The deploy layer's argv: the chart's and the operator's engine flags
+parse (``--served-model-name``, ``--gpu-memory-utilization``,
+``--attn-impl``, ``--no-enable-prefix-caching``,
+``--no-startup-phases``, ...), the five ``--*-parallel-size`` flags
+take 1 only (one GPU: a larger size is refused at start). With
+``--api-key`` every route but the probes and ``/metrics``
+(``_OPEN_PATHS``) answers 401 ``invalid API key`` to a request without
+``Authorization: Bearer <key>``; a traced path's 401 carries its
+``X-Request-Id``. ``main`` starts the Sentry (``--sentry-dsn``) and
+OpenTelemetry mirrors, no-ops without their SDKs.
+
 The router's hop headers: ``X-PST-Deadline-Ms`` (a budget already spent
 gets an instant 504 tagged ``X-PST-Deadline-Exceeded: 1``, as does a
 request the scheduler sheds later; a streamed one ends with a frame whose
@@ -66,7 +77,8 @@ request the scheduler sheds later; a streamed one ends with a frame whose
         [--no-tracing] [--log-format json] [--profiling] \
         [--flight-buffer 0] [--no-cost-attribution] \
         [--cpu-offload-blocks N] [--remote-kv-url URL[,URL...]] \
-        [--kv-role producer|consumer|both] [--cache-controller-url URL]
+        [--kv-role producer|consumer|both] [--cache-controller-url URL] \
+        [--api-key KEY] [--served-model-name NAME] [--attn-impl gather]
 
 ``--model`` takes a preset name or a local HF checkpoint directory (its
 ``config.json`` and safetensors; its tokenizer files unless
@@ -109,6 +121,7 @@ from ..obs.tracing import (
     error_headers,
 )
 from ..resilience.deadline import DEADLINE_EXCEEDED_HEADER, parse_deadline
+from ..utils_tracing import init_otel, init_sentry
 from .async_engine import AsyncLLMEngine
 from .cache_tiering import INTEGRITY_SOURCES
 from .config import EngineConfig
@@ -116,6 +129,9 @@ from .sequence import SamplingParams
 from .tokenizer import ChatMessage
 
 logger = init_logger(__name__)
+
+# The JAX server's --<axis>-parallel-size flags.
+PARALLEL_AXES = ("tensor", "pipeline", "data", "sequence", "expert")
 
 
 def _parse_logit_bias(raw) -> tuple:
@@ -466,6 +482,10 @@ class EngineMetrics:
 # The paths that get a root span and a timeline: the work a router
 # proxies (probes and admin routes are not traced).
 _TRACED_PATHS = frozenset({"/v1/completions", "/v1/chat/completions"})
+# The probe and scrape paths that stay open under --api-key; every other
+# path (/sleep, /drain and /debug/* included) needs the bearer key.
+_OPEN_PATHS = frozenset({"/health", "/ready", "/metrics", "/version",
+                         "/is_sleeping", "/is_draining"})
 
 DEFAULT_PROFILE_DIR = os.path.join(tempfile.gettempdir(), "pst_profiles")
 
@@ -474,13 +494,15 @@ def create_engine_app(
     engine: AsyncLLMEngine, host: str = "127.0.0.1", port: int = 0, *,
     tracing: bool = True, debug_requests_buffer: int = 256,
     profiling: bool = False, profile_dir: str = DEFAULT_PROFILE_DIR,
+    api_key: Optional[str] = None,
 ) -> ThreadingHTTPServer:
     """An HTTP server bound to ``(host, port)`` (port 0: any free port)
     serving ``engine``; call ``serve_forever()`` on it. ``tracing`` and
     ``debug_requests_buffer`` size the request tracing (the JAX server's
     ``--tracing`` and ``--debug-requests-buffer``); ``profiling`` opens
     ``POST /debug/profile``, which writes under ``profile_dir`` unless the
-    request names a ``dir``."""
+    request names a ``dir``. With ``api_key`` every route outside
+    ``_OPEN_PATHS`` needs ``Authorization: Bearer <api_key>``."""
     model_name = engine.engine.model_name
     metrics = EngineMetrics(model_name)
     recorder = SpanRecorder("engine", buffer=debug_requests_buffer,
@@ -542,6 +564,15 @@ def create_engine_app(
         def _route(self, routes: dict) -> None:
             url = urlsplit(self.path)
             self.query = {k: v[-1] for k, v in parse_qs(url.query).items()}
+            # The one place the key is checked, before any handler (an
+            # unknown path too, as the JAX middleware does). On a traced
+            # path the 401 is answered inside the root span and carries
+            # its X-Request-Id.
+            if (api_key is not None and url.path not in _OPEN_PATHS
+                    and self.headers.get("Authorization", "")
+                    != f"Bearer {api_key}"):
+                self._error("invalid API key", 401, "authentication_error")
+                return
             handler = routes.get(url.path)
             if handler is None:
                 self._error(f"no route {url.path}", 404)
@@ -1292,6 +1323,7 @@ def create_engine_app(
 
     server = ThreadingHTTPServer((host, port), Handler)
     server.daemon_threads = True
+    server.routes = {"GET": sorted(GET_ROUTES), "POST": sorted(POST_ROUTES)}
     cfg = engine.engine.cfg
     # The controller registration's stop switch (None without one): a
     # daemon thread registers every 10 s until it is set.
@@ -1386,6 +1418,9 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--model", default="llama-3-8b",
                    help="a preset name or a local HF checkpoint directory")
+    p.add_argument("--served-model-name", default=None,
+                   help="the model name /v1/models and the answers carry "
+                        "(default: the preset's)")
     p.add_argument("--tokenizer", default=None,
                    help="a local HF tokenizer directory (default: the "
                         "checkpoint directory, else the byte tokenizer)")
@@ -1393,14 +1428,37 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-model-len", type=int, default=4096)
     p.add_argument("--block-size", type=int, default=32)
     p.add_argument("--num-kv-blocks", type=int, default=None)
+    p.add_argument("--gpu-memory-utilization", "--hbm-utilization",
+                   dest="hbm_utilization", type=float, default=0.9,
+                   help="share of the card's memory the weights, the "
+                        "step graphs and the KV cache may take")
     p.add_argument("--max-num-seqs", type=int, default=64)
     p.add_argument("--max-num-batched-tokens", dest="max_prefill_tokens",
                    type=int, default=2048)
+    # The JAX server's mesh axes. The port serves on one GPU: each takes
+    # 1, and a larger size is refused at start (engine_config_from_args).
+    for axis in PARALLEL_AXES:
+        p.add_argument(f"--{axis}-parallel-size", type=int, default=1)
+    p.add_argument("--attn-impl", default="auto",
+                   choices=["auto", "gather", "pallas"],
+                   help="paged attention: the CUDA kernels on the card "
+                        "(auto, pallas) or the plain PyTorch path (gather)")
+    p.add_argument("--enable-prefix-caching", action="store_true",
+                   default=True)
+    p.add_argument("--no-enable-prefix-caching",
+                   dest="enable_prefix_caching", action="store_false")
+    p.add_argument("--api-key", default=None,
+                   help="require 'Authorization: Bearer <key>' on every "
+                        "route but the probes and /metrics")
+    p.add_argument("--sentry-dsn", default=None,
+                   help="report errors to Sentry (needs sentry_sdk)")
     p.add_argument("--num-decode-steps", type=int, default=1)
     p.add_argument("--adaptive-decode-steps", type=int, default=0,
                    help="deep burst cap when the arrival stream is quiet")
     p.add_argument("--adaptive-decode-quiet-s", type=float, default=0.5)
     p.add_argument("--adaptive-decode-min-running", type=int, default=0)
+    p.add_argument("--min-decode-bucket", type=int, default=1,
+                   help="floor of a decode batch's row bucket")
     # Overlapped decode pipeline: burst N+1 is dispatched before burst N's
     # rows are applied, under the adaptive depth's arrival gates.
     p.add_argument("--overlap-decode", dest="overlap_decode",
@@ -1489,6 +1547,11 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
                         "torch.profiler trace; skipped on a CPU engine)")
     p.add_argument("--profile-dir", default=DEFAULT_PROFILE_DIR,
                    help="directory POST /debug/profile writes traces to")
+    p.add_argument("--startup-phases", dest="startup_phases",
+                   action="store_true", default=True)
+    p.add_argument("--no-startup-phases", dest="startup_phases",
+                   action="store_false",
+                   help="do not export pst_engine_startup_seconds")
     # Flight recorder and cost attribution.
     p.add_argument("--flight-buffer", type=int, default=512,
                    help="per-step flight-recorder ring capacity (GET "
@@ -1510,19 +1573,34 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
 
 
 def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
+    """The engine's config from the server's flags. A parallel size above
+    1 raises: the port serves on one GPU, and multi-GPU serving is queue
+    1, item 15 of ROADMAP.md."""
+    for axis in PARALLEL_AXES:
+        size = getattr(args, f"{axis}_parallel_size")
+        if size != 1:
+            raise ValueError(
+                f"--{axis}-parallel-size {size}: the PyTorch engine serves "
+                "on one GPU (multi-GPU serving is queue 1, item 15 of "
+                "ROADMAP.md); pass 1")
     return EngineConfig(
         model=args.model,
         tokenizer=args.tokenizer,
+        served_model_name=args.served_model_name,
         device=args.device,
         max_model_len=args.max_model_len,
         block_size=args.block_size,
         num_kv_blocks=args.num_kv_blocks,
+        hbm_utilization=args.hbm_utilization,
         max_num_seqs=args.max_num_seqs,
         max_prefill_tokens=args.max_prefill_tokens,
+        attn_impl=args.attn_impl,
+        enable_prefix_caching=args.enable_prefix_caching,
         num_decode_steps=args.num_decode_steps,
         adaptive_decode_steps=args.adaptive_decode_steps,
         adaptive_decode_quiet_s=args.adaptive_decode_quiet_s,
         adaptive_decode_min_running=args.adaptive_decode_min_running,
+        min_decode_bucket=args.min_decode_bucket,
         overlap_decode=args.overlap_decode,
         speculative_ngram=args.speculative_ngram,
         ngram_min=args.ngram_min,
@@ -1549,6 +1627,7 @@ def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
         flight_buffer=args.flight_buffer,
         flight_snapshot_dir=args.flight_snapshot_dir,
         cost_attribution=args.cost_attribution,
+        startup_phases=args.startup_phases,
     )
 
 
@@ -1556,7 +1635,8 @@ def app_options_from_args(args: argparse.Namespace) -> dict:
     """``create_engine_app``'s keywords from the server's flags."""
     return dict(tracing=args.tracing,
                 debug_requests_buffer=args.debug_requests_buffer,
-                profiling=args.profiling, profile_dir=args.profile_dir)
+                profiling=args.profiling, profile_dir=args.profile_dir,
+                api_key=args.api_key)
 
 
 class _Terminated(Exception):
@@ -1571,7 +1651,12 @@ def main(argv=None) -> None:
     args = parse_engine_args(argv)
     configure_logging(args.log_format, component="engine",
                       engine_id=f"{args.host}:{args.port}")
-    engine = AsyncLLMEngine(engine_config_from_args(args))
+    cfg = engine_config_from_args(args)
+    # Error reporting and span export, no-ops without their SDKs (OTel
+    # also needs OTEL_EXPORTER_OTLP_ENDPOINT), as in the JAX server.
+    init_sentry(args.sentry_dsn)
+    init_otel("pst-engine")
+    engine = AsyncLLMEngine(cfg)
     server = create_engine_app(engine, args.host, args.port,
                                **app_options_from_args(args))
     engine.start()

@@ -34,11 +34,22 @@ digests run on a shared pool of threads (``block_digests``): BLAKE2b
 releases the GIL over large buffers, and a page handed from producer to
 consumer is digested three times (packed, stored, read).
 
-The JAX kvserver's peer ring (``--peers``, ``GET /ring``) and its
-anti-entropy sweep are not here; ``/stats`` reports their counters at 0.
+The peer ring: with ``--peers`` (every shard's base URL, this one
+included, as the clients address them) and ``--self-url`` the shard
+answers ``GET /ring``, and with ``--sweep-interval-s`` above 0 a daemon
+thread runs the anti-entropy sweep: every interval it samples its most
+recently used blocks (``SWEEP_SAMPLE_BLOCKS``), finds each block's owners
+on the consistent-hash ring (``--replication``), probes each co-owner
+with ``POST /contains`` and re-pushes the missing frames with their
+stored digests (``POST /blocks``). A shard restarted empty is backfilled
+by its peers within a sweep interval; a peer that fails is skipped until
+the next sweep. ``/stats`` counts ``anti_entropy_sweeps`` and
+``anti_entropy_pushes``.
 
     python -m production_stack_tpu_torch.kvserver.server --port 8100 \\
-        [--max-bytes 8589934592]
+        [--max-bytes 8589934592] [--self-url http://shard-0:8100 \\
+        --peers http://shard-0:8100,http://shard-1:8100 --replication 2 \\
+        --sweep-interval-s 30]
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from __future__ import annotations
 import argparse
 import collections
 import hashlib
+import http.client
 import json
 import os
 import threading
@@ -55,6 +67,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional, Sequence, Tuple
 from urllib.parse import parse_qs, urlsplit
 
+from ..hashring import ConsistentHashRing
 from ..logging_utils import init_logger
 
 logger = init_logger(__name__)
@@ -69,6 +82,10 @@ DIGEST_SIZE = 16
 _FRAME_HEADER = 8 + 4 + DIGEST_SIZE
 # The JAX kvserver's request size cap (aiohttp's client_max_size).
 MAX_REQUEST_BYTES = 256 << 20
+# Blocks one anti-entropy sweep samples, most recently used first.
+SWEEP_SAMPLE_BLOCKS = 2048
+# Seconds a sweep waits on one peer request.
+SWEEP_TIMEOUT_S = 10.0
 
 
 def block_digest(data: bytes) -> bytes:
@@ -206,6 +223,11 @@ class BlockStore:
     def contains(self, h: int) -> bool:
         return h in self._blocks
 
+    def sample_hashes(self, limit: int) -> List[int]:
+        """Up to ``limit`` block hashes, most recently used first (the
+        anti-entropy sweep's working set)."""
+        return list(reversed(self._blocks.keys()))[:limit]
+
     def quarantine(self, hashes: Sequence[int]) -> int:
         """Drop named blocks; returns how many were present."""
         dropped = 0
@@ -338,22 +360,104 @@ class ManifestStore:
 
 class KVServer(ThreadingHTTPServer):
     """One kvserver shard; ``serve_forever()`` serves it (a thread a
-    connection). ``store``, ``manifests`` and ``faults`` are its state,
-    ``lock`` guards the store and the faults."""
+    connection) and starts its anti-entropy sweep when the ring is set
+    (``peers``, ``self_url`` and ``sweep_interval_s`` above 0). ``store``,
+    ``manifests`` and ``faults`` are its state, ``lock`` guards the store,
+    the faults and the sweep's counters."""
 
     daemon_threads = True
 
-    def __init__(self, address: Tuple[str, int], max_bytes: int = 8 << 30):
+    def __init__(self, address: Tuple[str, int], max_bytes: int = 8 << 30,
+                 peers: Optional[Sequence[str]] = None,
+                 self_url: Optional[str] = None, replication: int = 2,
+                 sweep_interval_s: float = 0.0):
         self.store = BlockStore(max_bytes)
         self.manifests = ManifestStore()
         self.faults = FaultState()
         self.lock = threading.Lock()
+        self.peers = [p.rstrip("/") for p in (peers or []) if p]
+        self.self_url = (self_url or "").rstrip("/")
+        self.replication = max(int(replication), 1)
+        self.sweep_interval_s = float(sweep_interval_s)
+        self.anti_entropy_sweeps = 0
+        self.anti_entropy_pushes = 0
+        self._sweep_stop = threading.Event()
+        self._sweeper: Optional[threading.Thread] = None
         super().__init__(address, _Handler)
 
     @property
     def url(self) -> str:
         host, port = self.server_address[:2]
         return f"http://{host}:{port}"
+
+    def serve_forever(self, poll_interval: float = 0.5) -> None:
+        if (self.peers and self.self_url and self.sweep_interval_s > 0
+                and self._sweeper is None):
+            self._sweeper = threading.Thread(
+                target=self._sweep_loop, name="kv-anti-entropy", daemon=True)
+            self._sweeper.start()
+        super().serve_forever(poll_interval)
+
+    def server_close(self) -> None:
+        self._sweep_stop.set()
+        if self._sweeper is not None:
+            self._sweeper.join(timeout=SWEEP_TIMEOUT_S + 1)
+        super().server_close()
+
+    def ring(self) -> dict:
+        return {"peers": self.peers, "self": self.self_url,
+                "replication": self.replication,
+                "sweep_interval_s": self.sweep_interval_s}
+
+    def _sweep_loop(self) -> None:
+        while not self._sweep_stop.wait(self.sweep_interval_s):
+            try:
+                pushed = self.sweep_once()
+            except Exception:  # the sweep must survive any one pass
+                logger.exception("anti-entropy sweep failed")
+                pushed = 0
+            with self.lock:
+                self.anti_entropy_pushes += pushed
+                self.anti_entropy_sweeps += 1
+
+    def sweep_once(self) -> int:
+        """One anti-entropy pass: for each sampled block this shard
+        co-owns, re-push its stored frame (the producer's digest) to every
+        co-owner that lacks it. Returns the blocks pushed. A peer that
+        fails is skipped: it is what a later sweep heals."""
+        ring = ConsistentHashRing()
+        ring.update(self.peers)
+        with self.lock:
+            sample = self.store.sample_hashes(SWEEP_SAMPLE_BLOCKS)
+        by_peer = collections.defaultdict(list)
+        for h in sample:
+            owners = ring.get_nodes(str(h), self.replication)
+            if self.self_url not in owners:
+                continue  # left here by an old ring: reads still find it
+            for o in owners:
+                if o != self.self_url:
+                    by_peer[o].append(h)
+        pushed = 0
+        for peer, hashes in by_peer.items():
+            try:
+                status, raw = _peer_call(peer, "/contains",
+                                         json.dumps({"hashes": hashes}))
+                if status != 200:
+                    continue
+                present = json.loads(raw).get("present") or []
+                frames = []
+                with self.lock:
+                    for h, there in zip(hashes, present):
+                        item = (None if there
+                                else self.store.get_with_digest(h))
+                        if item is not None:
+                            frames.append((h, *item))
+                if frames and _peer_call(peer, "/blocks",
+                                         pack_blocks(frames))[0] == 200:
+                    pushed += len(frames)
+            except (OSError, http.client.HTTPException, ValueError) as e:
+                logger.debug("anti-entropy: peer %s failed: %s", peer, e)
+        return pushed
 
     def stats(self) -> dict:
         store = self.store
@@ -372,9 +476,25 @@ class KVServer(ThreadingHTTPServer):
                 "integrity_rejects": store.integrity_rejects,
                 "quarantined": store.quarantined,
                 "faults_injected": self.faults.injected,
-                "anti_entropy_sweeps": 0,
-                "anti_entropy_pushes": 0,
+                "anti_entropy_sweeps": self.anti_entropy_sweeps,
+                "anti_entropy_pushes": self.anti_entropy_pushes,
             }
+
+
+def _peer_call(base: str, path: str, body) -> Tuple[int, bytes]:
+    """POST ``body`` to a peer shard, within ``SWEEP_TIMEOUT_S``."""
+    parts = urlsplit(base)
+    conn = http.client.HTTPConnection(parts.hostname, parts.port or 80,
+                                      timeout=SWEEP_TIMEOUT_S)
+    try:
+        conn.request("POST", parts.path + path, body,
+                     {"Content-Type": "application/json"
+                      if isinstance(body, str) else
+                      "application/octet-stream"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -435,13 +555,14 @@ class _Handler(BaseHTTPRequestHandler):
             ("GET", "manifests"): self.get_manifest,
             ("POST", "contains"): self.contains,
             ("POST", "admin"): self.admin,
+            ("GET", "ring"): self.ring,
             ("GET", "stats"): self.stats,
             ("GET", "health"): self.health,
         }.get((method, head))
         with_arg = head in ("manifests",) or (head == "blocks"
                                               and method == "PUT")
         if route is None or (with_arg and not arg) or (
-                head in ("contains", "stats", "health") and arg):
+                head in ("contains", "ring", "stats", "health") and arg):
             self._json(404, {"error": "not found"})
             return
         route(arg)
@@ -640,6 +761,9 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._json(404, {"error": "not found"})
 
+    def ring(self, arg: str) -> None:
+        self._json(200, self.server.ring())
+
     def stats(self, arg: str) -> None:
         self._json(200, self.server.stats())
 
@@ -656,16 +780,39 @@ def start_in_thread(server: ThreadingHTTPServer) -> threading.Thread:
     return thread
 
 
-def main(argv=None) -> None:
+def server_from_args(argv=None) -> KVServer:
+    """A kvserver shard from the command line (the JAX kvserver's flags
+    and defaults); ``serve_forever()`` serves it."""
     p = argparse.ArgumentParser(
         description="production-stack-tpu remote KV store (PyTorch port)")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8100)
     p.add_argument("--max-bytes", type=int, default=8 << 30)
+    p.add_argument("--peers", default=None,
+                   help="comma-separated base URLs of every ring shard "
+                        "(this one included): enables GET /ring and the "
+                        "anti-entropy sweep")
+    p.add_argument("--self-url", default=None,
+                   help="this shard's own base URL as it appears in "
+                        "--peers")
+    p.add_argument("--replication", type=int, default=2,
+                   help="replicas a block on the ring (the engines' "
+                        "--kv-replication)")
+    p.add_argument("--sweep-interval-s", type=float, default=30.0,
+                   help="seconds between anti-entropy sweeps (0 disables; "
+                        "needs --peers and --self-url)")
     args = p.parse_args(argv)
-    server = KVServer((args.host, args.port), args.max_bytes)
-    logger.info("kvserver on %s:%d (%d bytes)", args.host, args.port,
-                args.max_bytes)
+    server = KVServer((args.host, args.port), args.max_bytes,
+                      peers=(args.peers or "").split(","),
+                      self_url=args.self_url, replication=args.replication,
+                      sweep_interval_s=args.sweep_interval_s)
+    logger.info("kvserver on %s:%d (%d bytes; ring %s)", args.host,
+                args.port, args.max_bytes, server.ring())
+    return server
+
+
+def main(argv=None) -> None:
+    server = server_from_args(argv)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -61,7 +61,10 @@ class EngineTelemetry:
 
     _TOKEN_WINDOW_S = 10.0
 
-    def __init__(self) -> None:
+    def __init__(self, startup_phases: bool = True) -> None:
+        # False (--no-startup-phases): pst_engine_startup_seconds stays
+        # without a sample.
+        self.startup_phases = startup_phases
         self.registry = r = Registry()
         self._lock = threading.Lock()
         self.compile_total = r.counter(
@@ -180,7 +183,8 @@ class EngineTelemetry:
         self.start_time_seconds.set(time.time())
 
     def record_startup_phase(self, phase: str, seconds: float) -> None:
-        self.startup_seconds.labels(phase=phase).set(max(seconds, 0.0))
+        if self.startup_phases:
+            self.startup_seconds.labels(phase=phase).set(max(seconds, 0.0))
 
     def set_warmup_coverage(self, compiled: int, total: int) -> None:
         self.warmup_buckets.labels(state="total").set(max(total, 0))

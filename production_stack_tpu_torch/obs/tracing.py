@@ -15,20 +15,29 @@ queue, prefill and decode spans.
 Span starts and ends read ``time.monotonic()``; each trace anchors one
 wall-clock time at creation for display.
 
-Not ported: the mirror of every span into an OpenTelemetry SDK and the
-id generator it installs, and the OpenMetrics exemplar that carries the
-trace id on the histogram (the port's text exposition has none).
+Once ``utils_tracing.init_otel`` installed an OpenTelemetry SDK
+provider, every completed span is mirrored into it
+(``SpanRecorder._mirror_otel``) with the recorder's own trace and span
+ids (``MirroredIdGenerator``), so the exported parent links resolve.
+
+Not ported: the OpenMetrics exemplar that carries the trace id on the
+histogram (the port's text exposition has none).
 """
 
 from __future__ import annotations
 
+import contextvars
+import random
 import threading
 import time
 import uuid
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
+from ..logging_utils import init_logger
 from .prometheus_text import Registry
+
+logger = init_logger(__name__)
 
 TRACEPARENT_HEADER = "traceparent"
 REQUEST_ID_HEADER = "X-Request-Id"
@@ -99,6 +108,33 @@ def parse_traceparent(value: Optional[str]) -> Optional[Tuple[str, str]]:
 
 def format_traceparent(trace_id: str, span_id: str) -> str:
     return f"00-{trace_id}-{span_id}-01"
+
+
+# The (trace_id, span_id) ints the OTel mirror forces onto the next SDK
+# span, so an exported span carries the recorder's ids.
+_FORCED_OTEL_IDS: "contextvars.ContextVar[Optional[Tuple[int, int]]]" = (
+    contextvars.ContextVar("pst_forced_otel_ids", default=None))
+
+
+class MirroredIdGenerator:
+    """An OTel SDK id generator (duck-typed ``IdGenerator``): the
+    recorder's ids while the mirror replays a span, random ids otherwise.
+    ``utils_tracing.init_otel`` installs it."""
+
+    def __init__(self):
+        self._rand = random.Random()
+
+    def generate_trace_id(self) -> int:
+        forced = _FORCED_OTEL_IDS.get()
+        if forced is not None:
+            return forced[0]
+        return self._rand.getrandbits(128) or 1
+
+    def generate_span_id(self) -> int:
+        forced = _FORCED_OTEL_IDS.get()
+        if forced is not None:
+            return forced[1]
+        return self._rand.getrandbits(64) or 1
 
 
 class Span:
@@ -234,6 +270,7 @@ class RequestTrace:
 
     def _on_span_end(self, span: Span) -> None:
         self.recorder.observe_stage(span.name, span.duration_s or 0.0)
+        self.recorder._mirror_otel(self, span)
 
     def finish(self, status: Optional[int] = None) -> None:
         if self._finished:
@@ -375,6 +412,58 @@ class SpanRecorder:
         if limit is not None and limit >= 0:
             items = items[:limit]
         return items
+
+    # -- the OTel mirror ---------------------------------------------------
+
+    def _mirror_otel(self, trace: RequestTrace, span: Span) -> None:
+        """Replay a completed span into the OTel SDK, once
+        ``utils_tracing.init_otel`` installed it. Best effort: an SDK
+        failure is logged and swallowed, the recorder stays the record."""
+        from ..utils_tracing import otel_active
+
+        if not otel_active():
+            return
+        try:
+            from opentelemetry import trace as ot
+            from opentelemetry.trace import (
+                NonRecordingSpan,
+                SpanContext,
+                TraceFlags,
+                set_span_in_context,
+            )
+
+            ctx = None
+            if span.parent_id:
+                ctx = set_span_in_context(NonRecordingSpan(SpanContext(
+                    trace_id=int(trace.trace_id, 16),
+                    span_id=int(span.parent_id, 16),
+                    is_remote=False, trace_flags=TraceFlags(0x01))))
+            start_wall = trace.t0_wall + (span.start_mono - trace.t0_mono)
+            end_wall = trace.t0_wall + (
+                (span.end_mono or span.start_mono) - trace.t0_mono)
+            attrs = {k: v for k, v in span.attributes.items()
+                     if isinstance(v, (str, bool, int, float))}
+            attrs["pst.request_id"] = trace.request_id
+            attrs["pst.trace_id"] = trace.trace_id
+            token = _FORCED_OTEL_IDS.set(
+                (int(trace.trace_id, 16), int(span.span_id, 16)))
+            try:
+                otspan = ot.get_tracer("production_stack_tpu").start_span(
+                    span.name, context=ctx,
+                    start_time=int(start_wall * 1e9), attributes=attrs)
+            finally:
+                _FORCED_OTEL_IDS.reset(token)
+            for ev in span.events:
+                otspan.add_event(
+                    ev["name"],
+                    {k: v for k, v in ev["attributes"].items()
+                     if isinstance(v, (str, bool, int, float))},
+                    # The event's own wall time, not the span's end.
+                    timestamp=int((trace.t0_wall + ev["at_ms"] / 1000.0)
+                                  * 1e9))
+            otspan.end(end_time=int(end_wall * 1e9))
+        except Exception as e:  # mirroring is best effort
+            logger.debug("otel span mirror failed: %s", e)
 
 
 def debug_requests_payload(recorder: SpanRecorder, query: dict) -> tuple:
