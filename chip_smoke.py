@@ -230,6 +230,26 @@ stack printed:
    the /metrics speculation counters grow, every verify step launched the
    wgmma prefill once a layer, both size the same KV pool; acceptance
    and tok/s logged (one run each).
+4m. LoRA: three PEFT adapters written by the script (rank 16, alpha 32,
+   q/k/v/o, bf16, B not zero) under ``build/``. (a) A bank of two parsed
+   by the port's ``LoraManager``, rows on slots 0, 1 and 2 of one batch:
+   a 512-token prefill and 8 decode steps through the kernels against the
+   gather path, each adapter row against a merged-weights forward (``W +
+   s * A @ B`` in fp32, cast once), the split-KV decode and wgmma prefill
+   launched. (e) 3x's decode step and T=512 chunk with every row on an
+   adapter (8 slots), eager against replayed, beside 3x's: host wall,
+   device busy, kernels a step, the bank's bytes and KV pages. (c) The
+   default bf16 server with ``--enable-lora --max-loras 2``: after a base
+   round, ``ad1`` and ``ad2`` load over HTTP and ``/v1/models`` lists
+   them; 8 greedy streams mixed over base and adapters with top-2
+   logprobs, warm rounds bit-equal with every decode step replaying a
+   graph captured before the load and the adapter streams apart from the
+   base ones; ``ad1`` unloaded while its streams run leaves them
+   bit-equal, its slot freed after the drain, a request naming it served
+   by the base model, ``ad3`` loaded into the slot. (d) The same with
+   ``--speculative-ngram 4``: verify steps hold adapter rows, tokens as
+   (c)'s under 4s's rule. (b), after 3b: (a) in int4 with the fused
+   write against the dequantized gather path.
 3b. The same model int4-quantized on the card (streamed from the seed, the
    bf16 tree freed first), under ``PST_FUSED_KV_WRITE=1``: the same steps
    through the int4 and decode-write kernels, against the gather path on a
@@ -328,6 +348,11 @@ it fails unless each server's warm rounds agree token for token.
 builds the kernels and runs phase 4k four times (``engagement_sweep``):
 with fault 3.9's two causes put back, each alone and both; it fails
 unless 4k fails with either and passes with neither.
+
+    python3 chip_smoke.py lora
+
+builds the kernels and runs phase 4m alone (``lora_only``), with 3s and
+3x for what it reads of them.
 """
 
 from __future__ import annotations
@@ -340,6 +365,7 @@ import gc
 import http.client
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -370,6 +396,7 @@ from production_stack_tpu_torch.engine.config import (  # noqa: E402
 )
 from production_stack_tpu_torch.engine.engine import LLMEngine  # noqa: E402
 from production_stack_tpu_torch.engine.kv_manager import BlockAllocator  # noqa: E402
+from production_stack_tpu_torch.engine.lora import LoraManager  # noqa: E402
 from production_stack_tpu_torch.engine.runner import (  # noqa: E402
     ModelRunner,
     capture,
@@ -5737,6 +5764,595 @@ def phase_admin(params, card: str) -> dict:
 
 # Cycles of the spin kernel that keeps the card busy while the host queues
 # a batch of timed launches (about 50 ms at the H100's clock).
+# ---------------------------------------------------------------------------
+# Phase 4m: LoRA serving
+# ---------------------------------------------------------------------------
+
+LORA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "lora_smoke")
+LORA_RANK, LORA_ALPHA = 16, 32.0
+LORA_NAMES = ("ad1", "ad2", "ad3")
+
+
+def write_adapters(cfg) -> dict:
+    """``LORA_DIR/<name>``: a PEFT directory per name of ``LORA_NAMES`` for
+    ``cfg``'s widths, rank 16 and alpha 32 over q, k, v and o of every
+    layer, bf16 tensors from seed 100 + i: A ``[r, in]`` ~ N(0, 1/in) and
+    B ``[out, r]`` ~ N(0, 1/(16 r)), so that a row's delta is about half
+    its projection (scale 2) and moves most greedy streams. B is not
+    PEFT's zero init."""
+    dims = {"q_proj": (cfg.hidden_size, cfg.q_size),
+            "k_proj": (cfg.hidden_size, cfg.kv_size),
+            "v_proj": (cfg.hidden_size, cfg.kv_size),
+            "o_proj": (cfg.q_size, cfg.hidden_size)}
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    gen = torch.Generator(device=DEV)
+    paths = {}
+    for i, name in enumerate(LORA_NAMES):
+        gen.manual_seed(100 + i)
+        path = os.path.join(LORA_DIR, name)
+        os.makedirs(path)
+        tensors = {}
+        for li in range(cfg.num_layers):
+            for t, (din, dout) in dims.items():
+                key = f"base_model.model.model.layers.{li}.self_attn.{t}"
+                tensors[f"{key}.lora_A.weight"] = (torch.randn(
+                    (LORA_RANK, din), generator=gen, device=DEV)
+                    / math.sqrt(din)).bfloat16()
+                tensors[f"{key}.lora_B.weight"] = (torch.randn(
+                    (dout, LORA_RANK), generator=gen, device=DEV)
+                    * (0.25 / math.sqrt(LORA_RANK))).bfloat16()
+        write_safetensors(tensors, os.path.join(path,
+                                                "adapter_model.safetensors"))
+        with open(os.path.join(path, "adapter_config.json"), "w") as f:
+            json.dump({"r": LORA_RANK, "lora_alpha": LORA_ALPHA,
+                       "peft_type": "LORA",
+                       "target_modules": list(dims)}, f)
+        paths[name] = path
+    return paths
+
+
+def drive_rows(model, params, impl: str, prompt, decode_tokens, idx,
+               scale):
+    """``drive_model`` for ``len(idx)`` rows of one prompt in one batch,
+    each on its own pages (in reverse order), row r under LoRA slot
+    ``idx[r]`` with scale ``scale[r]``: the prefill in one chunk, then a
+    decode step per token; returns the logits [rows, 1 + n, V]."""
+    B, T = len(idx), len(prompt)
+    per = -(-(T + len(decode_tokens)) // BS)
+    cache = model.make_kv_cache(B * per + 1, BS, device=DEV)
+    tables = torch.arange(B * per, dtype=torch.int32, device=DEV).flip(0)
+    tables = tables.view(B, per).contiguous()
+    lora = dict(lora_idx=torch.tensor(idx, dtype=torch.int32, device=DEV),
+                lora_scale=torch.tensor(scale, dtype=torch.float32,
+                                        device=DEV))
+
+    def i32(v):
+        return torch.full((B,), v, dtype=torch.int32, device=DEV)
+
+    def slots(pos):
+        blk = tables.gather(1, (pos // BS).long())
+        return (blk * BS + pos % BS).to(torch.int32).contiguous()
+
+    pos = torch.arange(T, dtype=torch.int32, device=DEV).expand(B, T)
+    toks = torch.tensor(prompt, dtype=torch.int32, device=DEV).expand(B, T)
+    logits, cache = model.forward(
+        params, toks.contiguous(), pos.contiguous(), slots(pos), tables,
+        i32(T), i32(T - 1), cache, attn_impl=impl, **lora)
+    out = [logits]
+    for i, tok in enumerate(decode_tokens):
+        p = torch.full((B, 1), T + i, dtype=torch.int32, device=DEV)
+        logits, cache = model.forward(
+            params, torch.full((B, 1), tok, dtype=torch.int32, device=DEV),
+            p, slots(p), tables, i32(T + i + 1), i32(0), cache,
+            attn_impl=impl, **lora)
+        out.append(logits)
+    torch.cuda.synchronize()
+    return torch.stack(out, 1)
+
+
+def lora_bank(model, loaded):
+    """A bank of 2 slots (rank 16) holding the ``(adapter, arrays)`` of
+    ``LoraManager.load``, written as ``ModelRunner.install_adapter``
+    writes them."""
+    bank = model.init_lora_bank(2, LORA_RANK, DEV)
+    for ad, arrays in loaded:
+        for t, (a, b) in arrays.items():
+            bank[f"lora_a_{t}"][:, ad.slot].copy_(torch.from_numpy(a))
+            bank[f"lora_b_{t}"][:, ad.slot].copy_(torch.from_numpy(b))
+    return bank
+
+
+def merged_tree(params, arrays, scaling: float):
+    """``params`` with q, k, v and o merged with one adapter, a layer at a
+    time: ``W + s * A @ B`` in fp32, then one cast to bf16."""
+    layers = dict(params["layers"])
+    for t, (a, b) in arrays.items():
+        w = params["layers"][t]
+        m = torch.empty_like(w)
+        for li in range(w.shape[0]):
+            delta = (torch.from_numpy(a[li]).to(DEV)
+                     @ torch.from_numpy(b[li]).to(DEV))
+            m[li] = (w[li].float() + scaling * delta).to(w.dtype)
+        layers[t] = m
+    return {**params, "layers": layers}
+
+
+def phase_lora_model(model, params, paths: dict, label: str) -> dict:
+    """Phase 4m(a) (bf16) and (b) (int4, ``PST_FUSED_KV_WRITE=1``): a bank
+    of two adapters parsed from their PEFT directories by the port's
+    ``LoraManager``, three rows of the model phases' prompt on slots 0,
+    1 and 2 in one batch, a 512-token prefill chunk and 8 decode steps.
+    Through the kernels against the gather path (the dequantized tree in
+    int4) under ``agree``, every row; the launch counters show the
+    kernels of the path; the adapter rows move the argmax. bf16: each
+    adapter row against a merged-weights forward through the kernels,
+    under the same tolerance."""
+    cfg = model.cfg
+    quant = llama_mod.quant_mode(params)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "4m: fp32 products would run in TF32")
+    mgr = LoraManager(cfg, 2, LORA_RANK, LORA_DIR)
+    t0 = time.perf_counter()
+    loaded = [mgr.load(n, paths[n]) for n in ("ad1", "ad2")]
+    parse_s = time.perf_counter() - t0
+    bank = lora_bank(model, loaded)
+    tree = {**params, "layers": {**params["layers"], **bank}}
+    idx = [0] + [ad.slot for ad, _ in loaded]
+    scale = [0.0] + [ad.scaling for ad, _ in loaded]
+    prompt, dec = model_prompt(cfg)
+    L, n = cfg.num_layers, len(dec)
+    reset_launch_counts()
+    got = drive_rows(model, tree, "cuda", prompt, dec, idx, scale)
+    routes = {k: v for k, v in route_counts().items() if v}
+    want = {"prefill_wgmma": L}
+    if quant == "int4":
+        want.update(decode_write_split=L * n, int4_decode=7 * L * n,
+                    int4_wgmma=7 * L)
+    else:
+        want["decode_split"] = L * n
+    check(all(routes.get(k) == v for k, v in want.items()),
+          f"{label}: routes {routes}, expected at least {want}")
+    ref_tree = tree
+    if quant:
+        deq = dequantized_copy(params)
+        ref_tree = {**deq, "layers": {**deq["layers"], **bank}}
+    ref = drive_rows(model, ref_tree, "gather", prompt, dec, idx, scale)
+    del ref_tree
+    check(got.shape == (3, 1 + n, cfg.vocab_size),
+          f"{label}: logits shape {tuple(got.shape)}")
+    rows = [agree(got[r], ref[r], f"{label} row {r} (slot {idx[r]})")
+            for r in range(3)]
+    moved = [float((got[r].argmax(-1) != got[0].argmax(-1)).float().mean())
+             for r in (1, 2)]
+    check(min(moved) > 0, f"{label}: an adapter row's argmax equals the "
+          f"base row's at every position ({moved})")
+    out = {"routes": routes, "argmax_moved": moved, "parse_s": parse_s,
+           "bank_bytes": sum(t.numel() * t.element_size()
+                             for t in bank.values())}
+    merged = []
+    if not quant:
+        for ad, arrays in loaded:
+            m = drive_rows(model, merged_tree(params, arrays, ad.scaling),
+                           "cuda", prompt, dec, [0], [0.0])[0]
+            err = float((got[ad.slot] - m).abs().max())
+            tol = MODEL_REL_ATOL * float(m.abs().max())
+            check(bool(torch.isfinite(m).all()) and err <= tol,
+                  f"{label}: slot {ad.slot} against its merged weights "
+                  f"{err:.4f} > {tol:.4f}")
+            merged.append({"slot": ad.slot, "err": err, "tol": tol,
+                           "argmax_agree": float(
+                               (got[ad.slot].argmax(-1) == m.argmax(-1))
+                               .float().mean())})
+            del m
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["merged"] = merged
+    del bank, tree
+    torch.cuda.empty_cache()
+    log(f"[phase {label}] {quant or 'bf16'} {MODEL}, a bank of 2 rank-16 "
+        f"adapters (parsed in {parse_s:.2f}s, bank "
+        f"{out['bank_bytes'] / 2**20:.1f} MiB), rows on slots {idx}: "
+        f"512-token prefill + {n} decode steps through the kernels against "
+        f"the gather path: {'; '.join(rows)}; adapter rows' argmax moved "
+        f"at {moved} of positions; routes {routes}"
+        + (f"; against merged weights {merged}" if merged else ""))
+    return out
+
+
+def _lora_stream(port: int, model: str, i: int, n_tok: int,
+                 logprobs: bool, errors: list) -> None:
+    body = {"model": model, "prompt": chat_prompt(i), "max_tokens": n_tok,
+            "temperature": 0.0, "ignore_eos": True}
+    if logprobs:
+        body["logprobs"] = 2
+    try:
+        _stream(port, body, n_tok)
+    except BaseException as e:  # re-raised by the caller
+        errors.append(e)
+
+
+class LoraServer:
+    """A server of ``argv`` over ``params`` whose step loop waits until
+    ``gate`` requests are in (so a round's streams share their steps), and
+    which records each request's tokens and top-2 logprobs by (model,
+    prompt ids), the verify steps' LoRA rows, and the runner's graph
+    keys."""
+
+    def __init__(self, params, argv: list):
+        args = parse_engine_args(argv)
+        cfg = engine_config_from_args(args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.engine = AsyncLLMEngine(cfg, params=params)
+        self.llm = llm = self.engine.engine
+        self.runner = llm.runner
+        self.gate, self.all_in = 1, threading.Event()
+        self.tokens, self.tops, self.gaps = {}, {}, {}
+        self.verify = []
+        generate, add, step = self.engine.generate, llm.add_request, llm.step
+        execute = self.runner.execute_spec_verify
+
+        def recording_generate(*a, prompt_token_ids=None, lora_name=None,
+                               **kw):
+            key = (lora_name or MODEL, tuple(prompt_token_ids))
+            toks, top, gap = self.tokens[key], self.tops[key], \
+                self.gaps[key] = [], [], []
+            for o in generate(*a, prompt_token_ids=prompt_token_ids,
+                              lora_name=lora_name, **kw):
+                toks.extend(o.new_token_ids)
+                for e in o.logprobs or ():
+                    top.append(list(e["top"]))
+                    gap.append(e["top"][0][1] - e["top"][1][1])
+                yield o
+
+        def counting_add(*a, **kw):
+            seq = add(*a, **kw)
+            if llm.scheduler.num_waiting + llm.scheduler.num_running \
+                    >= self.gate:
+                self.all_in.set()
+            return seq
+
+        def gated_step():
+            if not self.all_in.wait(timeout=0.01):
+                return []
+            return step()
+
+        def spy_verify(seqs, drafts):
+            self.verify.append((len(seqs), sum(s.lora_idx > 0 for s in seqs)))
+            return execute(seqs, drafts)
+
+        self.engine.generate = recording_generate
+        llm.add_request, llm.step = counting_add, gated_step
+        self.runner.execute_spec_verify = spy_verify
+        self.server, self.thread = serve_in_thread(
+            self.engine, **app_options_from_args(args))
+        self.port = self.server.server_address[1]
+
+    def round(self, streams: list, n_tok: int, logprobs: bool,
+              during=None) -> dict:
+        """``streams`` [(model, prompt index)] admitted together, each
+        ``n_tok`` greedy tokens; ``during(self)`` runs on a thread of its
+        own meanwhile. Returns the streams' tokens, tops and gaps by
+        stream, and the graph counts before and after."""
+        self.gate = len(streams)
+        self.all_in.clear()
+        for d in (self.tokens, self.tops, self.gaps):
+            d.clear()
+        errors = []
+        before = dict(self.runner.graph_counts)
+        keys = set(self.runner._graphs)
+        threads = [threading.Thread(target=_lora_stream, args=(
+            self.port, m, i, n_tok, logprobs, errors)) for m, i in streams]
+        if during is not None:
+            threads.append(threading.Thread(target=during, args=(self,)))
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        ids = {tuple(self.engine.engine.tokenizer.encode(chat_prompt(i))): i
+               for _, i in streams}
+        by = {(m, ids[p]): k for k in self.tokens for m, p in [k]}
+        return {"tokens": {s: self.tokens[by[s]] for s in streams},
+                "tops": {s: self.tops[by[s]] for s in streams},
+                "gaps": {s: self.gaps[by[s]] for s in streams},
+                "graphs": (before, dict(self.runner.graph_counts)),
+                "new_keys": set(self.runner._graphs) - keys, "wall": wall}
+
+    def one(self, model: str, i: int, n_tok: int) -> dict:
+        """A lone greedy completion."""
+        self.gate = 1
+        self.all_in.clear()
+        for d in (self.tokens, self.tops, self.gaps):
+            d.clear()
+        status, out, _ = _call(self.port, "POST", "/v1/completions", {
+            "model": model, "prompt": chat_prompt(i), "max_tokens": n_tok,
+            "temperature": 0.0, "ignore_eos": True})
+        check(status == 200, f"4m: a lone completion: {status} {out}")
+        key = next(iter(self.tokens))
+        return {"model": out["model"], "tokens": self.tokens.pop(key)}
+
+    def lora(self, route: str, body: dict) -> tuple:
+        t0 = time.perf_counter()
+        status, out, _ = _call(self.port, "POST", route, body)
+        return status, out, time.perf_counter() - t0
+
+    def close(self) -> dict:
+        check(self.engine.is_healthy(), f"4m: {self.engine.step_error}")
+        info = {"pages": self.runner.num_blocks,
+                "graphs": dict(self.runner.graph_counts),
+                "bank_bytes": self.runner.lora_bank_bytes}
+        self.server.shutdown()
+        self.server.server_close()
+        self.engine.shutdown()
+        self.thread.join(timeout=10)
+        return info
+
+
+# 8 streams: three prompts under the base model and each adapter (the
+# last prompt without ad2), and a capture round of 8 other prompts.
+LORA_STREAMS = [(m, i) for i in range(3) for m in (MODEL, "ad1", "ad2")][:8]
+LORA_TOKENS = 64
+
+
+def _load_both(srv: "LoraServer", paths: dict) -> list:
+    seconds = []
+    for slot, name in enumerate(("ad1", "ad2"), 1):
+        status, body, dt = srv.lora("/v1/load_lora_adapter",
+                                    {"lora_name": name,
+                                     "lora_path": paths[name]})
+        check(status == 200 and body == {"status": "ok", "name": name,
+                                         "rank": LORA_RANK, "slot": slot},
+              f"4m: load {name}: {status} {body}")
+        seconds.append(dt)
+    status, models, _ = _call(srv.port, "GET", "/v1/models")
+    check([(m["id"], m["parent"]) for m in models["data"]]
+          == [(MODEL, None), ("ad1", MODEL), ("ad2", MODEL)],
+          f"4m: /v1/models {models}")
+    return seconds
+
+
+def phase_lora_serving(params, card: str, paths: dict, gap_tol: float
+                       ) -> dict:
+    """Phase 4m(c): the default bf16 server with ``--enable-lora
+    --max-loras 2 --max-lora-rank 16 --lora-dir``. After two base rounds
+    of 8 streams (the synchronous loop's decode keys captured, then the
+    pipelined loop's), ``ad1`` and ``ad2`` load
+    through ``POST /v1/load_lora_adapter`` and ``/v1/models`` lists them.
+    Then rounds of ``LORA_STREAMS`` (64 greedy tokens, top-2 logprobs): a
+    cold one, two warm ones equal bit for bit, in which every decode step
+    replays a graph captured before the adapters were loaded, the
+    adapters' streams parting from the base streams of their prompts; a
+    third warm one in which ``ad1`` is unloaded while its streams run,
+    equal to the second bit for bit. Then its slot is released (the
+    engine's stats), a lone request naming ``ad1`` gets the base model's
+    tokens (the JAX server's answer: an unknown name resolves to the
+    base), and ``ad3`` loads into the freed slot. 4m(d): the same server
+    with ``--speculative-ngram 4`` (no logprobs: they turn speculation
+    off): adapter rows draft and verify with their adapter; each stream's
+    warm tokens equal (c)'s up to the first top-2 gap of (c) within
+    ``gap_tol`` (4s's rule)."""
+    argv = ["--model", MODEL, "--device", DEV.type,
+            "--max-num-batched-tokens", "512", "--max-num-seqs", "16",
+            "--enable-lora", "--max-loras", "2", "--max-lora-rank",
+            str(LORA_RANK), "--lora-dir", LORA_DIR]
+    capture = [(MODEL, 10 + i) for i in range(8)]
+    srv = LoraServer(params, argv)
+    try:
+        # The decode keys of both loops before the load: the synchronous
+        # step's, then the pipelined burst's (a round long enough for the
+        # arrival gate to open). Which loop a later round's step takes
+        # follows the wall clock.
+        srv.llm.cfg.overlap_decode = False
+        srv.round(capture, LORA_TOKENS, True)
+        srv.llm.cfg.overlap_decode = True
+        srv.round(capture, 2 * LORA_TOKENS, True)
+        check(srv.llm.pipelined_bursts_total > 0,
+              "4m: the capture round never pipelined")
+        load_s = _load_both(srv, paths)
+        cold = srv.round(LORA_STREAMS, LORA_TOKENS, True)
+        warm = [srv.round(LORA_STREAMS, LORA_TOKENS, True) for _ in range(2)]
+        unloaded = {}
+
+        def unload_ad1(s):
+            key = ("ad1", tuple(s.engine.engine.tokenizer.encode(
+                chat_prompt(0))))
+            t0 = time.perf_counter()
+            while len(s.tokens.get(key, ())) < 16:
+                check(time.perf_counter() - t0 < 60, "4m: ad1 never ran")
+                time.sleep(0.002)
+            status, body, dt = s.lora("/v1/unload_lora_adapter",
+                                      {"lora_name": "ad1"})
+            unloaded.update(status=status, body=body, seconds=dt,
+                            at=len(s.tokens[key]),
+                            retiring=sorted(s.llm._retiring_slots),
+                            running=s.llm.scheduler.num_running)
+
+        during = srv.round(LORA_STREAMS, LORA_TOKENS, True, unload_ad1)
+        check(unloaded.get("status") == 200 and unloaded["body"] == {
+            "status": "ok", "removed": True},
+              f"4m: unload while streams run: {unloaded}")
+        check(unloaded["retiring"] == [1] and unloaded["running"] > 0,
+              f"4m: ad1's slot not retiring while its streams ran "
+              f"{unloaded}")
+        t0 = time.perf_counter()
+        while srv.llm.stats()["lora_retiring_slots"]:
+            check(time.perf_counter() - t0 < 10, "4m: ad1's slot never freed")
+            time.sleep(0.01)
+        status, state, _ = _call(srv.port, "GET", "/debug/state")
+        check(state["stats"]["lora_free_slots"] == 1.0
+              and state["stats"]["lora_adapters_loaded"] == 1.0,
+              f"4m: /debug/state after the drain {state['stats']}")
+        gone = srv.one("ad1", 0, 16)
+        base = srv.one(MODEL, 0, 16)
+        status, body, load3 = srv.lora("/v1/load_lora_adapter",
+                                       {"lora_name": "ad3",
+                                        "lora_path": paths["ad3"]})
+        check(status == 200 and body["slot"] == 1,
+              f"4m: ad3 into the freed slot: {status} {body}")
+        ad3 = srv.one("ad3", 0, 16)
+        info = srv.close()
+    except BaseException:
+        srv.close()
+        raise
+    # The warm rounds, and the unload round, bit for bit.
+    for name, r in (("second warm round", warm[1]),
+                    ("round with the unload", during)):
+        parted = {s: next((j for j, (a, b) in enumerate(zip(
+            r["tokens"][s] + r["tops"][s],
+            warm[0]["tokens"][s] + warm[0]["tops"][s])) if a != b), None)
+            for s in LORA_STREAMS}
+        parted = {s: j for s, j in parted.items() if j is not None}
+        check(not parted, f"4m: the {name} parts from the first warm round "
+              f"(stream: position) {parted}")
+    # Adapters loaded after the decode buckets were captured: their
+    # decode steps replay those graphs, and their tokens part from the
+    # base model's on the same prompts.
+    for r in [cold] + warm:
+        decode_keys = [k for k in r["new_keys"] if k[0] == "burst" or dict(
+            k[1])["tokens"][1:] == (1,)]
+        check(not decode_keys and r["graphs"][1]["replayed"]
+              > r["graphs"][0]["replayed"],
+              f"4m: decode keys captured after the load {decode_keys}, "
+              f"graphs {r['graphs']}")
+    w = warm[0]["tokens"]
+    differs = {s: w[s] != w[(MODEL, s[1])] for s in LORA_STREAMS
+               if s[0] != MODEL}
+    check(sum(differs.values()) >= len(differs) - 1,
+          f"4m: adapter streams equal to the base streams of their "
+          f"prompts {differs}")
+    check(gone["tokens"] == base["tokens"] and gone["model"] == "ad1",
+          f"4m: a request naming the unloaded ad1 {gone} against the base "
+          f"model's {base}")
+    check(ad3["tokens"] != base["tokens"], "4m: ad3 served the base tokens")
+
+    # 4m(d): speculation with the adapters.
+    srv = LoraServer(params, argv + ["--speculative-ngram", "4"])
+    try:
+        srv.round(capture, 2 * LORA_TOKENS, False)
+        _load_both(srv, paths)
+        srv.round(LORA_STREAMS, LORA_TOKENS, False)
+        spec = srv.round(LORA_STREAMS, LORA_TOKENS, False)
+        verify = list(srv.verify)
+        samples = scrape(srv.port)
+        spec_info = srv.close()
+    except BaseException:
+        srv.close()
+        raise
+    agree_to, base_to = {}, {}
+    for s in LORA_STREAMS:
+        got, want, gap = spec["tokens"][s], w[s], warm[0]["gaps"][s]
+        near = next((j for j, g in enumerate(gap) if g <= gap_tol),
+                    LORA_TOKENS)
+        first = next((j for j, (a, b) in enumerate(zip(got, want))
+                      if a != b), LORA_TOKENS)
+        check(len(got) == LORA_TOKENS and first >= near,
+              f"4m(d): stream {s} parts from (c)'s at {first}, before the "
+              f"first near-tie at {near}")
+        agree_to[f"{s[0]}:{s[1]}"] = (near, first)
+        if s[0] != MODEL:  # how far it follows the base model's stream
+            base_to[f"{s[0]}:{s[1]}"] = next(
+                (j for j, (a, b) in enumerate(zip(got, w[(MODEL, s[1])]))
+                 if a != b), LORA_TOKENS)
+    lora_steps = sum(1 for _, n in verify if n)
+    check(lora_steps > 0, f"4m(d): no verify step held an adapter row "
+          f"({len(verify)} verify steps)")
+    check(samples.get("vllm:spec_decode_num_accepted_tokens_total", 0) > 0,
+          "4m(d): nothing accepted")
+    out = {"load_s": load_s, "load3_s": load3, "unload": unloaded,
+           "differs": sum(differs.values()), "of": len(differs),
+           "graphs": info["graphs"], "pages": info["pages"],
+           "bank_bytes": info["bank_bytes"], "warm_wall_s": warm[0]["wall"],
+           "verify_steps": len(verify), "verify_steps_with_lora": lora_steps,
+           "verify_lora_rows": sum(n for _, n in verify),
+           "spec_agree_to": agree_to, "spec_base_to": base_to,
+           "spec_pages": spec_info["pages"]}
+    log(f"[phase 4m(c)] LoRA server (--max-loras 2, rank {LORA_RANK}): "
+        f"loads {[f'{s:.3f}' for s in load_s]} s, ad3 {load3:.3f} s; "
+        f"{len(LORA_STREAMS)} streams x {LORA_TOKENS} tokens, warm rounds "
+        f"and the unload round bit-equal; adapter streams apart from the "
+        f"base on {out['differs']} of {out['of']}; no decode key captured "
+        f"after the load; unload at token {unloaded['at']} "
+        f"({unloaded['seconds']:.3f} s, slot retiring until the drain); "
+        f"warm round {warm[0]['wall']:.3f} s; {info['pages']} pages, bank "
+        f"{info['bank_bytes'] / 2**20:.1f} MiB; graphs {info['graphs']}; "
+        f"{card}")
+    log(f"[phase 4m(d)] with --speculative-ngram 4: {len(verify)} verify "
+        f"steps, {lora_steps} with adapter rows ({out['verify_lora_rows']} "
+        f"rows); (first near-tie, first difference) by stream {agree_to}; "
+        f"gap tol {gap_tol:.4f}; an adapter stream's first difference from "
+        f"(c)'s base stream of its prompt {base_to}")
+    return out
+
+
+def phase_lora_step_costs(params, card: str, paths: dict,
+                          base_rows: list) -> dict:
+    """Phase 4m(e): 3x's decode step (B=8 x 4096) and fresh T=512 chunk on
+    a runner with ``enable_lora`` (8 slots of rank 16, the JAX config's
+    defaults) and ``ad1`` and ``ad2`` installed, every row on an adapter
+    (alternating), eager against replayed; beside 3x's rows of the same
+    steps without LoRA (``base_rows``, this run). The bank's bytes and the
+    KV pages they take."""
+    W = GRAPH_CTX // BS
+    cfg = EngineConfig(
+        model=MODEL, device=DEV.type, max_num_seqs=GRAPH_B,
+        max_prefill_tokens=GRAPH_T, max_model_len=GRAPH_CTX,
+        num_decode_steps=GRAPH_N, num_kv_blocks=GRAPH_B * W + 1,
+        enable_lora=True, max_loras=8, max_lora_rank=LORA_RANK)
+    runner = ModelRunner(cfg, get_model_config(MODEL), params)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(11)
+    runner.kv_cache.normal_(generator=gen)
+    mgr = LoraManager(runner.model_cfg, 8, LORA_RANK, LORA_DIR)
+    install = []
+    for name in ("ad1", "ad2"):
+        ad, arrays = mgr.load(name, paths[name])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.install_adapter(ad.slot, arrays)
+        torch.cuda.synchronize()
+        install.append(time.perf_counter() - t0)
+    batches = graph_batches(runner)
+    scale = np.float32(LORA_ALPHA / LORA_RANK)
+    for name, b in batches.items():
+        rows = b["kv_lens"].shape[0]
+        b["lora_idx"] = (np.arange(rows) % 2 + 1).astype(np.int32)
+        b["lora_scale"] = np.full(rows, scale, np.float32)
+    log(f"[phase 4m(e)] {MODEL} bf16 steps with every row on an adapter "
+        f"(slots 1 and 2 of 8), eager against replayed")
+    rows = [graph_vs_eager(runner, f"bf16+LoRA decode B={GRAPH_B} x "
+                           f"{GRAPH_CTX}", batches["decode"], True, False),
+            graph_vs_eager(runner, f"bf16+LoRA prefill T={GRAPH_T} fresh",
+                           batches["chunk"], True, True)]
+    mc = runner.model_cfg
+    page = 2 * mc.num_layers * BS * mc.kv_size * 2
+    out = {"bank_bytes": runner.lora_bank_bytes,
+           "pages_lost": -(-runner.lora_bank_bytes // page),
+           "install_s": install, "rows": rows}
+    for lora, base in zip(rows, base_rows[:2]):
+        d = {how: {k: lora[how][k] - base[how][k]
+                   for k in ("wall_ms", "device_busy_ms", "kernels_per_step")}
+             for how in ("eager", "replayed")}
+        lora["delta"] = d
+        log(f"  {lora['step']}: against {base['step']} (3x, this run): "
+            + "; ".join(f"{how} +{v['wall_ms']:.2f} ms wall, "
+                        f"+{v['device_busy_ms']:.2f} ms busy, "
+                        f"+{v['kernels_per_step']:.0f} kernels"
+                        for how, v in d.items()))
+    log(f"  bank (8 slots, rank {LORA_RANK}): "
+        f"{out['bank_bytes'] / 2**20:.1f} MiB = {out['pages_lost']} KV "
+        f"pages of {page / 2**20:.0f} MiB; installs "
+        f"{[f'{s:.4f}' for s in install]} s; {card}")
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 SPIN_CYCLES = 100_000_000
 
 
@@ -6272,12 +6888,33 @@ def _row(kind, ms, plain_ms, lib_ms, nbytes, flops, peak, per_step, launches,
 WATCHDOG_S = 1140
 
 
+def lora_only(card: str) -> None:
+    """``python3 chip_smoke.py lora``: phase 4m alone, with what it reads
+    of earlier phases (3s's gap tolerance, 3x's steps without LoRA)."""
+    model, params = build_model()
+    gap_tol = phase_verify_logits(model, params)
+    paths = write_adapters(model.cfg)
+    out = {"model_4m_a": phase_lora_model(model, params, paths, "4m(a)"),
+           "steps_4m_e": phase_lora_step_costs(
+               params, card, paths, phase_step_graphs(params)[:2])}
+    out["serving_4m_cd"] = phase_lora_serving(params, card, paths, gap_tol)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    q_params, _ = phase_int4_model(model)
+    out["model_4m_b"] = phase_lora_model(model, q_params, paths, "4m(b)")
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    print(json.dumps({"lora_4m": out}, default=str), flush=True)
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
     os.environ.pop("PST_FUSED_KV_WRITE", None)  # bf16 phases: unfused path
-    if sys.argv[1:] not in ([], ["drift"], ["rounds"], ["engagement"]):
-        sys.exit("usage: python3 chip_smoke.py [drift|rounds|engagement]")
+    if sys.argv[1:] not in ([], ["drift"], ["rounds"], ["engagement"],
+                            ["lora"]):
+        sys.exit("usage: python3 chip_smoke.py "
+                 "[drift|rounds|engagement|lora]")
     card = phase_toolchain()
     if sys.argv[1:] == ["drift"]:
         drift()
@@ -6287,6 +6924,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["engagement"]:
         engagement_sweep(build_model()[1], card)
+        return
+    if sys.argv[1:] == ["lora"]:
+        lora_only(card)
         return
     log("[phase 2] kernels vs plain versions")
     for cache_dtype in (torch.bfloat16, E4M3):
@@ -6363,6 +7003,15 @@ def main() -> None:
     chart = phase_chart_serving(params, card)
     gc.collect()
     torch.cuda.empty_cache()
+    lora_paths = write_adapters(model.cfg)
+    lora = {"model_4m_a": phase_lora_model(model, params, lora_paths,
+                                           "4m(a)"),
+            "steps_4m_e": phase_lora_step_costs(params, card, lora_paths,
+                                                graph_steps[:2])}
+    lora["serving_4m_cd"] = phase_lora_serving(params, card, lora_paths,
+                                               gap_tol)
+    gc.collect()
+    torch.cuda.empty_cache()
     os.environ["PST_FUSED_KV_WRITE"] = "1"
     fp8_served = phase_serving(
         params, "4c", kv_cache_dtype="float8_e4m3fn",
@@ -6378,6 +7027,8 @@ def main() -> None:
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
     q_params, q_per_step = phase_int4_model(model)  # sets PST_FUSED_KV_WRITE=1
+    lora["model_4m_b"] = phase_lora_model(model, q_params, lora_paths, "4m(b)")
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
     steps.update(phase_step_times(model, q_params, tag="int4_", impls=("cuda",)))
     graph_steps += phase_step_graphs(q_params, quantization="int4")
     graph_steps.append(phase_pipelined_bursts(q_params, quantization="int4"))
@@ -6466,7 +7117,7 @@ def main() -> None:
         "traced_serving_4i": traced, "tiers_4j": tiers,
         "verify_splits_2s": verify_splits, "verify_gap_tol_3s": gap_tol,
         "spec_serving_4s": spec_serving, "engagement_4k": engagement,
-        "chart_serving_4l": chart,
+        "chart_serving_4l": chart, "lora_4m": lora,
     }}), flush=True)
     print(json.dumps({"kernels": rows, "steps": steps, "int4_crossover": crossover}),
           flush=True)

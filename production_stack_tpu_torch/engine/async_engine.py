@@ -13,6 +13,9 @@ the stream, the captures and the cache, so a sleep or a wake is posted to
 it through a mailbox and the caller waits for it: no step or capture
 interleaves with a drop or a restore. A wake from level 2 runs the
 configured warmup again. Draining only closes the HTTP admission gate.
+LoRA loads and unloads run on the step thread the same way: an adapter's
+write into the bank (or a retired slot's zeroing) queues between two
+dispatches, never beside a capture.
 
 The loop steps while the engine has work, and an in-flight pipelined
 burst is work: its rows are applied even once every queue is empty. A
@@ -157,6 +160,21 @@ class AsyncLLMEngine:
         if error:
             raise error[0]
 
+    # -- LoRA -------------------------------------------------------------
+
+    def load_lora(self, name: str, path: Optional[str] = None):
+        """``LLMEngine.load_lora`` on the step thread; its errors raise
+        here."""
+        out = []
+        self.on_step_thread(lambda: out.append(self.engine.load_lora(name, path)))
+        return out[0]
+
+    def unload_lora(self, name: str) -> bool:
+        """``LLMEngine.unload_lora`` on the step thread."""
+        out = []
+        self.on_step_thread(lambda: out.append(self.engine.unload_lora(name)))
+        return out[0]
+
     # -- drain ------------------------------------------------------------
 
     @property
@@ -191,15 +209,16 @@ class AsyncLLMEngine:
         prompt_token_ids: Optional[Seq[int]] = None,
         sampling: Optional[SamplingParams] = None,
         request_id: Optional[str] = None,
+        lora_name: Optional[str] = None,
         deadline: Optional[float] = None,
         tenant: Optional[str] = None,
         tenant_class: Optional[str] = None,
         kv_transfer: Optional[dict] = None,
     ) -> Iterator[RequestOutput]:
         """Submit one request now and return the iterator of its outputs,
-        which ends with its finish (``deadline``, ``tenant``,
-        ``tenant_class`` and ``kv_transfer`` as ``LLMEngine.add_request``
-        takes them). Requests
+        which ends with its finish (``lora_name``, ``deadline``,
+        ``tenant``, ``tenant_class`` and ``kv_transfer`` as
+        ``LLMEngine.add_request`` takes them). Requests
         submitted back to back reach the same step's admission. The
         iterator raises ValueError if the engine refuses the request (e.g.
         a prompt that does not fit) and RuntimeError if an engine step
@@ -214,7 +233,8 @@ class AsyncLLMEngine:
             self._pending_adds.append(
                 (rid, dict(prompt=prompt, prompt_token_ids=prompt_token_ids,
                            sampling=sampling, arrival_time=time.monotonic(),
-                           deadline=deadline, tenant=tenant,
+                           lora_name=lora_name, deadline=deadline,
+                           tenant=tenant,
                            tenant_class=tenant_class,
                            kv_transfer=kv_transfer))
             )

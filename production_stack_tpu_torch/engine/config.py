@@ -75,6 +75,14 @@ class EngineConfig:
     # Cap on buckets captured at warmup (0 = the entire lattice). Buckets
     # are walked most-likely-first, so a budget keeps the hot shapes.
     warmup_bucket_budget: int = 0
+    # LoRA serving (engine/lora.py): adapters loaded into a stacked bank
+    # of max_loras slots of rank up to max_lora_rank, any mix of them in
+    # one step; an adapter named at load without a path is read from
+    # lora_dir/<name>.
+    enable_lora: bool = False
+    max_loras: int = 8
+    max_lora_rank: int = 16
+    lora_dir: str = "/adapters"
     # Live-sequence KV swap (engine/swap.py): preemption parks a
     # sequence's KV instead of recomputing it. Committed pages stay
     # addressed in place; only the uncommitted tail goes to a host stash.

@@ -53,7 +53,13 @@ ride the step undrafted, their position 0 sampled as a plain decode step
 samples it. A speculative engine never pipelines (``_pipeline_ok``), as
 the JAX engine's; ``async_decode`` turns speculation off.
 
-Not ported yet: LoRA.
+LoRA (``enable_lora``, ``engine/lora.py``): ``load_lora`` parses a PEFT
+directory into a free bank slot and writes it in place; a request's
+``lora_name`` gives its rows that slot and scale and salts its prefix-hash
+chain with ``xxh64(name)``, so its KV is never a hit for the base model
+or another adapter. ``unload_lora`` removes the name at once and retires
+the slot: it is zeroed and freed only once no live sequence holds it and
+no in-flight burst read it (``_sweep_retiring_slots``, after every step).
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ from typing import Any, Dict, List, Optional, Sequence as Seq, Tuple, Union
 import numpy as np
 
 from ..kvcache.hashing import CHUNK_TOKENS
+from ..kvcache.xxh64 import xxh64
 from ..logging_utils import init_logger
 from ..models.registry import get_model_config
 from ..obs.flight import NULL_FLIGHT_RECORDER, FlightRecorder
@@ -74,6 +81,7 @@ from .cache_tiering import TieredAllocator, create_remote_client, wait_landed
 from .config import EngineConfig
 from .kv_handoff import KVHandoffPrefetcher, KVHandoffPublisher
 from .kv_manager import BlockAllocator
+from .lora import LoadedAdapter, LoraManager
 from .runner import ModelRunner
 from .scheduler import Scheduler, SchedulerConfig
 from .sequence import SamplingParams, Sequence
@@ -199,6 +207,11 @@ class LLMEngine:
         self._burst_seqs: List[Sequence] = []
         self._burst_n = 0
         self._burst_deferred: List[Sequence] = []
+        self.lora_manager: Optional[LoraManager] = (
+            LoraManager(self.model_cfg, cfg.max_loras, cfg.max_lora_rank,
+                        cfg.lora_dir) if cfg.enable_lora else None)
+        # Unloaded adapters' slots awaiting their last reader.
+        self._retiring_slots: set = set()
         # Last arrival (the adaptive-depth and overlap gates) and the
         # bursts each mode ran.
         self._last_arrival = 0.0
@@ -310,12 +323,15 @@ class LLMEngine:
         prompt_token_ids: Optional[Seq[int]] = None,
         sampling: Optional[SamplingParams] = None,
         arrival_time: Optional[float] = None,
+        lora_name: Optional[str] = None,
         deadline: Optional[float] = None,
         tenant: Optional[str] = None,
         tenant_class: Optional[str] = None,
         kv_transfer: Optional[dict] = None,
     ) -> Sequence:
-        """``deadline``: the monotonic expiry of the request's budget
+        """``lora_name``: a loaded adapter to serve the request under
+        (ValueError when LoRA is off or the name is not loaded);
+        ``deadline``: the monotonic expiry of the request's budget
         (ignored with ``deadline_shedding`` off); ``tenant`` and
         ``tenant_class`` (``"interactive"`` or ``"batch"``) order its
         admission under ``tenant_fairness``; ``kv_transfer`` is the
@@ -324,9 +340,21 @@ class LLMEngine:
             prompt_token_ids = self.tokenizer.encode(prompt or "")
         if not prompt_token_ids:
             prompt_token_ids = [0]
+        lora_idx, lora_scale, salt = 0, 0.0, 0
+        if lora_name:
+            if self.lora_manager is None:
+                raise ValueError("LoRA not enabled on this engine")
+            ad = self.lora_manager.get(lora_name)
+            if ad is None:
+                raise ValueError(f"LoRA adapter {lora_name!r} not loaded")
+            lora_idx, lora_scale = ad.slot, ad.scaling
+            # The JAX engine's salt, bit for bit: a mixed ring of port and
+            # JAX engines keeps an adapter's KV under the same keys.
+            salt = xxh64(lora_name.encode()) & 0x7FFF_FFFF_FFFF_FFFF
         seq = Sequence(
             request_id, prompt_token_ids, sampling or SamplingParams(),
             arrival_time=arrival_time,
+            lora_idx=lora_idx, lora_scale=lora_scale, cache_salt=salt,
             deadline=deadline if self.cfg.deadline_shedding else None,
             tenant=tenant or "default",
             tenant_class=tenant_class or "interactive",
@@ -338,6 +366,46 @@ class LLMEngine:
         self._detok[request_id] = {"emitted": "", "prefix": 0, "read": 0}
         self.prompt_tokens_total += len(prompt_token_ids)
         return seq
+
+    def load_lora(self, name: str, path: Optional[str] = None
+                  ) -> LoadedAdapter:
+        """Parse a PEFT adapter into a free bank slot and write it there
+        (the operator's ``POST /v1/load_lora_adapter``); a resident name
+        is returned as it is. Call on the step thread, between steps."""
+        if self.lora_manager is None:
+            raise ValueError("LoRA not enabled on this engine (--enable-lora)")
+        ad, arrays = self.lora_manager.load(name, path)
+        if arrays is not None:
+            self.runner.install_adapter(ad.slot, arrays)
+        return ad
+
+    def unload_lora(self, name: str) -> bool:
+        """Remove the adapter's name: new requests for it fail at once,
+        and the sequences in flight finish under its weights. Its slot is
+        zeroed and reused once they are gone (``_sweep_retiring_slots``).
+        Call on the step thread, between steps."""
+        if self.lora_manager is None:
+            return False
+        ad = self.lora_manager.unload(name)
+        if ad is None:
+            return False
+        self._retiring_slots.add(ad.slot)
+        self._sweep_retiring_slots()
+        return True
+
+    def _sweep_retiring_slots(self) -> None:
+        """Zero and free each retiring slot that nothing reads any more:
+        no live sequence holds it, and no member of an in-flight burst
+        (a finished member's row still runs in it until the drain)."""
+        if not self._retiring_slots:
+            return
+        live = {s.lora_idx for s in self._seqs.values()}
+        if self.runner.burst_in_flight:
+            live |= {s.lora_idx for s in self._burst_seqs}
+        for slot in sorted(self._retiring_slots - live):
+            self._retiring_slots.discard(slot)
+            self.runner.uninstall_adapter(slot)
+            self.lora_manager.release_slot(slot)
 
     def abort_request(self, request_id: str) -> bool:
         # An aborted request is billed for the device time it took, while
@@ -422,6 +490,7 @@ class LLMEngine:
 
     def step(self) -> List[RequestOutput]:
         outputs = self._step_impl()
+        self._sweep_retiring_slots()
         # A capture in this step delayed every request the step served:
         # its outputs carry the events. A step that emits nothing (an
         # intermediate prefill chunk) holds them for the next one that
@@ -968,6 +1037,11 @@ class LLMEngine:
                 float(self.spec_accepted_total)}
                if self.cfg.speculative_ngram else {}),
             **(self._tenant_stats() if self.cfg.tenant_fairness else {}),
+            **({"lora_adapters_loaded": float(
+                len(self.lora_manager.list_adapters())),
+                "lora_free_slots": float(self.lora_manager.free_slots),
+                "lora_retiring_slots": float(len(self._retiring_slots))}
+               if self.lora_manager is not None else {}),
             **self._tier_stats(),
             **({"kv_swap_out_total": float(swapper.swap_out_total),
                 "kv_swap_in_total": float(swapper.swap_in_total),

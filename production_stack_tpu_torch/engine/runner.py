@@ -44,6 +44,12 @@ one packed ``[Bb, K+2]`` array fetched once, and captures one graph per
 A ``model`` that names a local HF checkpoint directory is loaded from
 its safetensors (``models/llama.py::load_hf_params``).
 
+With ``enable_lora`` the LoRA bank (``Llama.init_lora_bank``) joins the
+layers after the weights, before the KV cache is sized, and every batch
+(warmup's too) carries ``lora_idx`` and ``lora_scale`` (slot 0 for
+padding rows). A captured graph reads the bank's address, so
+``install_adapter`` and ``uninstall_adapter`` write its slots in place.
+
 Every step is recorded in the runner's ``telemetry``
 (``obs/engine_telemetry.py``): a step that captured its key counts as a
 compile, the others as steps, and the wall from a decode step's fetch to
@@ -203,8 +209,20 @@ class ModelRunner:
                 raise ValueError(
                     f"quantization={cfg.quantization!r} but the given params "
                     f"are {quant_mode(params) or 'not quantized'}")
+        # The LoRA bank joins the layers after the weights and before the
+        # KV cache is sized from what is left. It is allocated once: every
+        # captured graph reads it in place (``install_adapter``). A given
+        # tree's bank leaves are dropped.
+        for k in [k for k in params["layers"] if k.startswith("lora_")]:
+            del params["layers"][k]
+        if cfg.enable_lora:
+            params["layers"].update(self.model.init_lora_bank(
+                cfg.max_loras, cfg.max_lora_rank, self.device))
         self.params = params
-        # Resident bytes, quantized leaves as stored.
+        self.lora_bank_bytes = sum(
+            t.numel() * t.element_size()
+            for k, t in params["layers"].items() if k.startswith("lora_"))
+        # Resident bytes, quantized leaves as stored (the bank included).
         self.param_bytes = sum(
             t.numel() * t.element_size() for t in _leaves(params)
         )
@@ -608,6 +626,29 @@ class ModelRunner:
         return f"b{Bb}xt{Tb}", real, real / max(Bb * Tb, 1)
 
     # ------------------------------------------------------------------
+    # LoRA bank slots (engine/lora.py owns name -> slot)
+    # ------------------------------------------------------------------
+
+    def install_adapter(self, slot: int, arrays: Dict[str, Any]) -> None:
+        """Write one adapter's matrices into bank slot ``slot`` (``arrays``:
+        {target: (A [L, in, r_max], B [L, r_max, out])} host float32,
+        cast to the bank's dtype). In place: the captured graphs read the
+        bank's address, and a rebound leaf would leave them reading the
+        old one. Queued on the current stream, behind any step in
+        flight; the engine calls it on the step thread between
+        dispatches."""
+        layers = self.params["layers"]
+        for t, (a, b) in arrays.items():
+            layers[f"lora_a_{t}"][:, slot].copy_(torch.from_numpy(a))
+            layers[f"lora_b_{t}"][:, slot].copy_(torch.from_numpy(b))
+
+    def uninstall_adapter(self, slot: int) -> None:
+        """Zero bank slot ``slot`` in place, so its id can be reused."""
+        for k, t in self.params["layers"].items():
+            if k.startswith("lora_"):
+                t[:, slot].zero_()
+
+    # ------------------------------------------------------------------
     # Sleep (level 2): the KV cache and the graphs that hold its address
     # ------------------------------------------------------------------
 
@@ -782,6 +823,7 @@ class ModelRunner:
             self.params, tokens, positions, write_idx, dev["block_tables"],
             kv_lens, last_idx, self.kv_cache, all_logits=all_logits,
             attn_impl=self.cfg.model_attn_impl,
+            lora_idx=dev.get("lora_idx"), lora_scale=dev.get("lora_scale"),
         )
         return logits
 
@@ -1148,6 +1190,16 @@ class ModelRunner:
             "min_ps": min_ps,
             "seeds": seeds,
         }
+        if self.cfg.enable_lora:
+            # In every batch, warmup's included: padding rows (and a held
+            # decode bucket's) take slot 0.
+            lora_idx = np.zeros(B, np.int32)
+            lora_scale = np.zeros(B, np.float32)
+            for i, s in enumerate(seqs):
+                lora_idx[i] = s.lora_idx
+                lora_scale[i] = s.lora_scale
+            out["lora_idx"] = lora_idx
+            out["lora_scale"] = lora_scale
         if any(s.sampling.has_penalties for s in seqs):
             out.update(self._penalty_arrays(seqs, B))
         if any(s.sampling.guided_choice for s in seqs):

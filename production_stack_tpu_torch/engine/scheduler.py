@@ -470,7 +470,8 @@ class Scheduler:
             if not seq.block_ids:
                 toks = seq.all_token_ids
                 blocks, hashes = self.allocator.match_prefix(
-                    toks[: len(toks) - 1], deadline=seq.deadline)
+                    toks[: len(toks) - 1], salt=seq.cache_salt,
+                    deadline=seq.deadline)
                 if blocks:
                     seq.adopt_cached_prefix(blocks, hashes)
                     seq.num_computed_tokens = len(blocks) * self.allocator.block_size

@@ -1,7 +1,7 @@
 """Request-side state for the serving engine: sampling params + sequences.
 
-A copy of the JAX package's ``engine/sequence.py`` without LoRA (no cache
-salt). A :class:`Sequence` owns its token ids, its KV page list, the
+A copy of the JAX package's ``engine/sequence.py``. A :class:`Sequence`
+owns its token ids, its LoRA slot and cache salt, its KV page list, the
 prefix-cache commit cursor, the chunk-hash cursor of the controller's
 registration and the disaggregated handoff's transfer stamp and publish
 cursor; the KV itself lives in the runner's cache tensor.
@@ -100,6 +100,9 @@ class Sequence:
         prompt_token_ids: Seq[int],
         sampling: SamplingParams,
         arrival_time: Optional[float] = None,
+        lora_idx: int = 0,
+        lora_scale: float = 0.0,
+        cache_salt: int = 0,
         deadline: Optional[float] = None,
         tenant: str = "default",
         tenant_class: str = "interactive",
@@ -115,6 +118,13 @@ class Sequence:
         self.first_scheduled_time: Optional[float] = None
         self.first_token_time: Optional[float] = None
         self.finish_reason: Optional[str] = None
+        # The LoRA bank slot serving this request (0: the base model) and
+        # its alpha / r scaling; cache_salt seeds the block-hash chain, so
+        # KV computed under one adapter is never a prefix hit for another
+        # or for the base model.
+        self.lora_idx = lora_idx
+        self.lora_scale = lora_scale
+        self.cache_salt = cache_salt
         # Monotonic expiry of the request's end-to-end budget (None: no
         # deadline). The scheduler sheds expired sequences before they
         # take a device step.
@@ -133,7 +143,7 @@ class Sequence:
         self.num_cached_prompt_tokens = 0  # prefix-cache hits at admission
         self.block_hashes: List[int] = []  # hash per committed block
         self._committed_blocks = 0
-        self._last_hash = 0
+        self._last_hash = cache_salt
         # Chunk-hash cursor (the controller's registration granularity).
         self._chunk_cursor = 0
         self._chunk_last_hash = 0
@@ -276,7 +286,7 @@ class Sequence:
         self.block_ids = list(blocks)
         self.block_hashes = list(hashes)
         self._committed_blocks = len(blocks)
-        self._last_hash = hashes[-1] if hashes else 0
+        self._last_hash = hashes[-1] if hashes else self.cache_salt
         # caller sets num_computed_tokens (= len(blocks) * block_size)
 
     def reset_for_recompute(self) -> None:
@@ -286,7 +296,7 @@ class Sequence:
         self.num_cached_prompt_tokens = 0
         self.block_hashes = []
         self._committed_blocks = 0
-        self._last_hash = 0
+        self._last_hash = self.cache_salt
         self._chunk_cursor = 0
         self._chunk_last_hash = 0
         self.status = SequenceStatus.PREEMPTED

@@ -64,6 +64,16 @@ take 1 only (one GPU: a larger size is refused at start). With
 ``X-Request-Id``. ``main`` starts the Sentry (``--sentry-dsn``) and
 OpenTelemetry mirrors, no-ops without their SDKs.
 
+LoRA (``--enable-lora``, ``--max-loras``, ``--max-lora-rank``,
+``--lora-dir``): ``POST /v1/load_lora_adapter`` (``{"lora_name",
+"lora_path"}``; the path defaults to ``<lora-dir>/<name>``) parses a PEFT
+directory into a bank slot and answers ``{status, name, rank, slot}``, a
+missing directory 404 ``not_found_error``, a bad adapter or a full bank
+400; ``POST /v1/unload_lora_adapter`` answers ``{status, removed}``.
+Both run on the engine's step thread and need the API key. ``/v1/models``
+lists each loaded adapter with ``parent`` set to the served model, and a
+completion or chat whose ``model`` names one is served under it.
+
 The router's hop headers: ``X-PST-Deadline-Ms`` (a budget already spent
 gets an instant 504 tagged ``X-PST-Deadline-Exceeded: 1``, as does a
 request the scheduler sheds later; a streamed one ends with a frame whose
@@ -72,7 +82,7 @@ request the scheduler sheds later; a streamed one ends with a frame whose
 
     python -m production_stack_tpu_torch.engine.server --model llama-3-8b --port 8011 \
         [--quantization int4] [--warmup lazy|full] [--no-overlap-decode] \
-        [--speculative-ngram 4] \
+        [--speculative-ngram 4] [--enable-lora --lora-dir DIR] \
         [--no-kv-swap] [--no-deadline-shedding] [--no-tenant-fairness] \
         [--no-tracing] [--log-format json] [--profiling] \
         [--flight-buffer 0] [--no-cost-attribution] \
@@ -515,6 +525,20 @@ def create_engine_app(
     if profiling and engine.engine.runner.device.type == "cuda":
         _prime_profiler()  # before main() or serve_in_thread starts steps
 
+    def _lora_names() -> List[str]:
+        mgr = engine.engine.lora_manager
+        return [a.name for a in mgr.list_adapters()] if mgr else []
+
+    def _resolve_lora(requested_model) -> Optional[str]:
+        """A request whose ``model`` is a loaded adapter's name is served
+        under that adapter."""
+        mgr = engine.engine.lora_manager
+        if (mgr is not None and isinstance(requested_model, str)
+                and requested_model != model_name
+                and mgr.get(requested_model) is not None):
+            return requested_model
+        return None
+
     class Handler(BaseHTTPRequestHandler):
         # The traced request's trace and id (do_POST sets them).
         trace = NOOP_TRACE
@@ -636,11 +660,13 @@ def create_engine_app(
                              "warmup": warmup})
 
         def models(self) -> None:
+            now = int(time.time())
             self._json(200, {"object": "list", "data": [
-                {"id": model_name, "object": "model",
-                 "created": int(time.time()),
-                 "owned_by": "production-stack-tpu",
-                 "root": None, "parent": None}
+                {"id": name, "object": "model", "created": now,
+                 "owned_by": "production-stack-tpu", "root": None,
+                 "parent": parent}
+                for name, parent in [(model_name, None)] + [
+                    (a, model_name) for a in _lora_names()]
             ]})
 
         def metrics(self) -> None:
@@ -784,6 +810,47 @@ def create_engine_app(
         def is_draining(self) -> None:
             self._json(200, {"is_draining": engine.draining,
                              "in_flight": engine.num_inflight()})
+
+        # -- LoRA ----------------------------------------------------------
+
+        def load_lora_adapter(self) -> None:
+            """Parse the PEFT directory and write it into a bank slot, on
+            the step thread (the operator's adapter reconciler)."""
+            try:
+                body = self._body()
+            except ValueError as e:
+                self._error(f"invalid request body: {e}")
+                return
+            name = body.get("lora_name")
+            if not name:
+                self._error("lora_name required")
+                return
+            if engine.engine.lora_manager is None:
+                self._error("LoRA not enabled (--enable-lora)")
+                return
+            try:
+                ad = engine.load_lora(name, body.get("lora_path"))
+            except FileNotFoundError as e:
+                self._error(str(e), 404, "not_found_error")
+                return
+            except (ValueError, RuntimeError) as e:
+                self._error(str(e))
+                return
+            self._json(200, {"status": "ok", "name": ad.name,
+                             "rank": ad.rank, "slot": ad.slot})
+
+        def unload_lora_adapter(self) -> None:
+            try:
+                body = self._body()
+            except ValueError as e:
+                self._error(f"invalid request body: {e}")
+                return
+            name = body.get("lora_name")
+            if not name:
+                self._error("lora_name required")
+                return
+            removed = engine.unload_lora(name)
+            self._json(200, {"status": "ok", "removed": bool(removed)})
 
         # -- tokens ------------------------------------------------------
 
@@ -972,7 +1039,9 @@ def create_engine_app(
             meta = dict(rid=rid, created=int(time.time()),
                         model=req.get("model", model_name), is_chat=is_chat,
                         ids=ids, echo=echo, start=time.time())
-            admit = dict(deadline=deadline, **self._request_tenant())
+            admit = dict(deadline=deadline,
+                         lora_name=_resolve_lora(req.get("model")),
+                         **self._request_tenant())
             if n > 1 or best_of > 1:
                 if req.get("stream"):
                     self._error(
@@ -1319,6 +1388,8 @@ def create_engine_app(
         "/drain": Handler.drain,
         "/undrain": Handler.undrain,
         "/debug/profile": Handler.debug_profile,
+        "/v1/load_lora_adapter": Handler.load_lora_adapter,
+        "/v1/unload_lora_adapter": Handler.unload_lora_adapter,
     }
 
     server = ThreadingHTTPServer((host, port), Handler)
@@ -1452,6 +1523,12 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
                         "route but the probes and /metrics")
     p.add_argument("--sentry-dsn", default=None,
                    help="report errors to Sentry (needs sentry_sdk)")
+    # LoRA serving (the chart emits --enable-lora --lora-dir for a
+    # modelSpec with lora.enabled).
+    p.add_argument("--enable-lora", action="store_true", default=False)
+    p.add_argument("--max-loras", type=int, default=8)
+    p.add_argument("--max-lora-rank", type=int, default=16)
+    p.add_argument("--lora-dir", default="/adapters")
     p.add_argument("--num-decode-steps", type=int, default=1)
     p.add_argument("--adaptive-decode-steps", type=int, default=0,
                    help="deep burst cap when the arrival stream is quiet")
@@ -1596,6 +1673,10 @@ def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
         max_prefill_tokens=args.max_prefill_tokens,
         attn_impl=args.attn_impl,
         enable_prefix_caching=args.enable_prefix_caching,
+        enable_lora=args.enable_lora,
+        max_loras=args.max_loras,
+        max_lora_rank=args.max_lora_rank,
+        lora_dir=args.lora_dir,
         num_decode_steps=args.num_decode_steps,
         adaptive_decode_steps=args.adaptive_decode_steps,
         adaptive_decode_quiet_s=args.adaptive_decode_quiet_s,

@@ -163,7 +163,7 @@ class KVSwapper:
         seq.block_ids = acquired + fresh
         seq.block_hashes = list(rec.hashes)
         seq._committed_blocks = len(rec.hashes)
-        seq._last_hash = rec.hashes[-1] if rec.hashes else 0
+        seq._last_hash = rec.hashes[-1] if rec.hashes else seq.cache_salt
         seq.num_computed_tokens = rec.num_computed_tokens
         seq.status = SequenceStatus.RUNNING
         self._drop_record(seq.request_id, rec)

@@ -34,9 +34,18 @@ the JAX one does, and ``load_hf_params`` builds the JAX ``load_hf_params``
 tree from its safetensors (``models/safetensors.py``), bit for bit, one
 stacked leaf at a time on the target device.
 
-Not ported yet (``Llama`` raises ``NotImplementedError`` on the config or
-the argument): mixture-of-experts and all-position logits; LoRA and
-pipeline parallelism have no parameter or argument here.
+LoRA (the JAX package's stacked adapter bank): ``init_lora_bank`` builds
+``lora_a_<t>`` ``[L, slots, in, r]`` and ``lora_b_<t>`` ``[L, slots, r,
+out]`` for t in wq, wk, wv, wo, zero-filled in the model dtype and never
+quantized; slot 0 stays zero ("no adapter"). Given a bank in
+``params["layers"]``, ``forward`` adds each row's delta
+``lora_scale[row] * (x @ A[slot]) @ B[slot]`` (``lora_idx``,
+``lora_scale``; every row on slot 0 when not given) with the JAX dtypes:
+q, k and v after their own cast, wo to the fp32 product before its one
+cast.
+
+Not ported yet (``Llama`` raises ``NotImplementedError`` on the config):
+mixture-of-experts; pipeline parallelism has no parameter here.
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import paged_attention, resolve_impl
 from ..ops.fp8 import E4M3, raw, to_cache_dtype
-from ..ops.int4_matmul import int4_matmul, mm_f32
+from ..ops.int4_matmul import bmm_f32, int4_matmul, mm_f32
 from ..ops.paged_attention_cuda import paged_attention_decode_write
 from .safetensors import Checkpoint
 
@@ -356,6 +365,36 @@ class Llama:
         return params
 
     # ------------------------------------------------------------------
+    # LoRA bank (stacked adapter slots; engine/lora.py owns the registry)
+    # ------------------------------------------------------------------
+
+    LORA_TARGETS = ("wq", "wk", "wv", "wo")
+
+    def init_lora_bank(self, max_loras: int, max_rank: int,
+                       device: Optional[torch.device] = None) -> Params:
+        """The zero-filled bank to merge into ``params["layers"]``:
+        ``lora_a_<t>`` [L, slots, in, r], ``lora_b_<t>`` [L, slots, r,
+        out] in the model dtype, slots = ``max_loras + 1``. A captured
+        step graph reads the bank's address, so adapters are written into
+        these tensors in place (``ModelRunner.install_adapter``)."""
+        cfg = self.cfg
+        L, S, R = cfg.num_layers, max_loras + 1, max_rank
+        dims = {
+            "wq": (cfg.hidden_size, cfg.q_size),
+            "wk": (cfg.hidden_size, cfg.kv_size),
+            "wv": (cfg.hidden_size, cfg.kv_size),
+            "wo": (cfg.q_size, cfg.hidden_size),
+        }
+        bank: Params = {}
+        for t in self.LORA_TARGETS:
+            din, dout = dims[t]
+            bank[f"lora_a_{t}"] = torch.zeros(
+                (L, S, din, R), dtype=cfg.torch_dtype, device=device)
+            bank[f"lora_b_{t}"] = torch.zeros(
+                (L, S, R, dout), dtype=cfg.torch_dtype, device=device)
+        return bank
+
+    # ------------------------------------------------------------------
     # KV cache
     # ------------------------------------------------------------------
 
@@ -404,16 +443,29 @@ class Llama:
         *,
         attn_impl: str = "auto",
         all_logits: bool = False,
+        lora_idx: Optional[torch.Tensor] = None,  # [B] int bank slot
+        lora_scale: Optional[torch.Tensor] = None,  # [B] float32
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One engine step. Returns (last-token logits [B, V] float32, the
         cache); with ``all_logits`` the logits of every position [B, T, V]
         (the speculative verify step; ``last_idx`` is ignored). The cache
         is updated IN PLACE — the JAX package donates the buffer to get
-        the same effect — and returned for symmetry."""
+        the same effect — and returned for symmetry. With a LoRA bank in
+        ``params["layers"]`` each row adds its slot's delta (slot 0 and
+        scale 0 for every row when ``lora_idx`` is None)."""
         cfg = self.cfg
         B, T = tokens.shape
         L, nb, _, bs, _ = kv_cache.shape
         layers = params["layers"]
+        has_lora = "lora_a_wq" in layers
+        if has_lora:
+            if lora_idx is None:
+                lora_idx = torch.zeros(B, dtype=torch.long,
+                                       device=tokens.device)
+                lora_scale = torch.zeros(B, dtype=torch.float32,
+                                         device=tokens.device)
+            lora_idx = lora_idx.long()
+            lora_scale = lora_scale.float()[:, None, None]
 
         offset = cfg.norm_unit_offset
         x = _embed_lookup(params, tokens.long(), cfg.torch_dtype)  # [B, T, D]
@@ -454,6 +506,10 @@ class Llama:
             q = _proj(h, lp, "wq", lp.get("bq"))
             k = _proj(h, lp, "wk", lp.get("bk"))
             v = _proj(h, lp, "wv", lp.get("bv"))
+            if has_lora:  # each rounded on its own, then added (as JAX)
+                q = q + lora_delta(lp, "wq", h, lora_idx, lora_scale).to(q.dtype)
+                k = k + lora_delta(lp, "wk", h, lora_idx, lora_scale).to(k.dtype)
+                v = v + lora_delta(lp, "wv", h, lora_idx, lora_scale).to(v.dtype)
             q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
             k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
             if cfg.qk_norm:  # Qwen3: per-head RMSNorm over hd, pre-rope
@@ -483,7 +539,16 @@ class Llama:
                     softcap=cfg.attn_logit_softcap,
                 )
             attn = attn.reshape(B, T, cfg.q_size).to(x.dtype)
-            o = _proj(attn, lp, "wo")
+            if has_lora:
+                # The delta joins wo's fp32 product (int8 scale applied,
+                # or the int4 kernel's result) before its one cast.
+                o, wo_s = _qdot(attn, lp, "wo")
+                if wo_s is not None:
+                    o = o * wo_s
+                o = (o + lora_delta(lp, "wo", attn, lora_idx, lora_scale)
+                     ).to(x.dtype)
+            else:
+                o = _proj(attn, lp, "wo")
             if cfg.post_block_norms:  # Gemma-2 post-attention norm
                 o = _rms_norm(o, lp["post_attn_norm"], cfg.rms_norm_eps,
                               offset)
@@ -577,6 +642,18 @@ def _qdot(x: torch.Tensor, p: Params, name: str
         return out.reshape(*lead, out.shape[-1]), None
     out = mm_f32(x2, _wcast(p[name], x.dtype))
     return out.reshape(*lead, out.shape[-1]), p.get(name + QUANT_SUFFIX)
+
+
+def lora_delta(lp: Params, t: str, x: torch.Tensor, lora_idx: torch.Tensor,
+               lora_scale: torch.Tensor) -> torch.Tensor:
+    """``scale * (x @ A[slot]) @ B[slot]`` of each row of ``x`` [B, T, in]
+    in fp32 (``lora_scale`` [B, 1, 1]): the first product cast to the
+    bank's dtype before the second, as the JAX ``lora_delta``. Slot 0 is
+    zeros, so a row without an adapter gets an exact zero."""
+    a = lp[f"lora_a_{t}"][lora_idx]  # [B, in, r]
+    b = lp[f"lora_b_{t}"][lora_idx]  # [B, r, out]
+    d = bmm_f32(x, a)
+    return bmm_f32(d.to(b.dtype), b) * lora_scale
 
 
 def _embed_lookup(params: Params, tokens: torch.Tensor,

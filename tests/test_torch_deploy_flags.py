@@ -42,8 +42,6 @@ REPO = Path(__file__).resolve().parent.parent
 # Flags the deploy layer may emit whose module the port has not yet, each
 # with its ROADMAP.md item; the port's parser refuses them.
 WAITING = {
-    "--enable-lora": "queue 1, item 10", "--max-loras": "queue 1, item 10",
-    "--max-lora-rank": "queue 1, item 10", "--lora-dir": "queue 1, item 10",
     "--scoring-model": "queue 1, item 12", "--moe-impl": "queue 1, item 11",
     "--compile-cache-dir": "XLA's compile cache, no counterpart",
 }
@@ -93,7 +91,10 @@ NEW_FLAGS = [
     ["--attn-impl", "pallas"], ["--no-startup-phases"],
     ["--api-key", "k"], ["--sentry-dsn", "https://key@sentry.invalid/1"],
     *[[f"--{axis}-parallel-size", "1"] for axis in AXES],
+    ["--enable-lora", "--max-loras", "4", "--max-lora-rank", "32"],
 ]
+# The chart's engine args for a modelSpec with lora.enabled.
+CHART_LORA = ["--enable-lora", "--lora-dir", "/adapters"]
 
 
 def _flags(text: str) -> set:
@@ -132,6 +133,8 @@ def test_every_deploy_flag_parses_but_the_waiting_list(capsys):
             "--served-model-name", "--no-enable-prefix-caching"} <= flags
     assert {"--enable-lora", "--lora-dir", "--scoring-model",
             "--compile-cache-dir"} <= flags
+    assert set(WAITING) == {"--scoring-model", "--moe-impl",
+                            "--compile-cache-dir"}
     for flag in sorted(flags - set(WAITING)):
         argv = _argv(flag)
         assert not _refused(argv), argv
@@ -153,14 +156,14 @@ def test_the_config_equals_the_jax_config():
     operator's default argv, and the operator's with each new flag."""
     chart = list(CHART_DEFAULT)
     chart[chart.index("--tensor-parallel-size") + 1] = "1"
-    for argv in [chart, OPERATOR_DEFAULT,
+    for argv in [chart, chart + CHART_LORA, OPERATOR_DEFAULT,
                  *[OPERATOR_DEFAULT + extra for extra in NEW_FLAGS]]:
         jargs = jax_server.parse_engine_args(argv)
         pargs = port_server.parse_engine_args(argv)
         got, want = _shared(port_server.engine_config_from_args(pargs),
                             jax_server.engine_config_from_args(jargs))
         assert got == want, argv
-        assert len(got) == 43  # every field but device (and JAX-only ones)
+        assert len(got) == 47  # every field but device (and JAX-only ones)
         for name in ("api_key", "sentry_dsn", "startup_phases"):
             assert getattr(pargs, name) == getattr(jargs, name), name
 
@@ -199,6 +202,10 @@ REQUESTS = [
     ("POST", "/debug/profile", {"duration_ms": 10}),
     ("POST", "/sleep?level=1", None), ("POST", "/wake_up", None),
     ("POST", "/drain", None), ("POST", "/undrain", None),
+    # LoRA is off on these engines: a load answers 400, an unload
+    # removes nothing.
+    ("POST", "/v1/load_lora_adapter", {"lora_name": "ad1"}),
+    ("POST", "/v1/unload_lora_adapter", {"lora_name": "ad1"}),
 ]
 
 
