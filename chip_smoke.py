@@ -250,6 +250,33 @@ stack printed:
    ``--speculative-ngram 4``: verify steps hold adapter rows, tokens as
    (c)'s under 4s's rule. (b), after 3b: (a) in int4 with the fused
    write against the dequantized gather path.
+4n. The encode path and the cross-encoder. (a) ``Llama.encode`` at full
+   width in bf16 at buckets 128, 512 and 4096: each vector finite with
+   unit norm within 1e-3, its time and peak memory above what was
+   allocated before it, at 128 and 4096 a ``torch.profiler`` breakdown;
+   after 3b, in int4 with the fused write at 16,
+   128, 512 and 4096, the kernels' run against the same encode through
+   the plain ``int4_matmul`` (within 5e-2 of max|v|, its ratio to
+   ``_agree``'s rule printed) and each launch against its plain version
+   on the same x (7 launches a layer of the decode route at 16, of the
+   wgmma route above), and the wgmma
+   route's plan, check and time at N = 4096 x 4096 x 14336. (b) The
+   default bf16 server: three rounds of 8 greedy streams of 128 tokens,
+   the third while six embedding requests arrive once a pipelined burst
+   is in flight; its tokens equal the second's bit for bit, encode flight
+   rows lie between decode steps; a string, a token-id list and a batch
+   of three equal ``runner.encode`` bit for bit; past ``max_model_len``
+   400; ``/rerank`` says ``embedding_cosine_similarity``. (d) The same
+   engine behind a second app with ``--scoring-model bge-reranker-base``
+   (random fp32 weights): the five rerank and score routes answer with
+   ``CrossEncoder.score_pairs``'s scores, a pair alone as in a batch
+   within 1e-4, descending, ``top_n`` kept. (e) Two server subprocesses
+   on ``tiny-llama-debug`` with one fresh ``--compile-cache-dir``: the
+   first misses and builds the kernel library (beside (b) and (d)), the
+   second hits with ``last_build_seconds`` 0 (``/metrics``,
+   ``/debug/state``). (c), after 3b: the int4 server with the fused
+   write, ``/v1/embeddings`` at 12 and 300 tokens launching the int4
+   decode and wgmma routes 7 x 32 times each.
 3b. The same model int4-quantized on the card (streamed from the seed, the
    bf16 tree freed first), under ``PST_FUSED_KV_WRITE=1``: the same steps
    through the int4 and decode-write kernels, against the gather path on a
@@ -353,10 +380,16 @@ unless 4k fails with either and passes with neither.
 
 builds the kernels and runs phase 4m alone (``lora_only``), with 3s and
 3x for what it reads of them.
+
+    python3 chip_smoke.py encode
+
+builds the kernels and runs phase 4n alone (``encode_only``), with the
+int4 tree drawn on the card in place of phase 3b.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import faulthandler
@@ -374,6 +407,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -411,6 +445,7 @@ from production_stack_tpu_torch.engine.tokenizer import ChatMessage  # noqa: E40
 from production_stack_tpu_torch.engine.precompile import enumerate_lattice  # noqa: E402
 from production_stack_tpu_torch.engine.server import (  # noqa: E402
     app_options_from_args,
+    cross_encoder_from_args,
     engine_config_from_args,
     parse_engine_args,
     register_with_controller,
@@ -4030,13 +4065,17 @@ def chat_prompt(i: int) -> str:
 
 
 def serve_rounds(params, argv: list, n_req: int, n_tok, rounds: tuple,
-                 setup=None, logprobs: bool = False) -> tuple:
+                 setup=None, logprobs: bool = False, during=None,
+                 after=None) -> tuple:
     """One server of ``argv`` over ``params``: a round per entry of
     ``rounds`` (``"capture"``, ``"timed"`` or ``"logprobs"``, or any name
     ``setup`` knows), each ``n_req`` concurrent greedy streams over
     ``chat_prompt``s, stream i of ``n_tok[i]`` tokens (``n_tok`` an int:
     all alike), the step loop gated until all of a round's requests are
-    in. ``setup(kind, llm)`` runs before each round. A ``logprobs`` round
+    in. ``setup(kind, llm)`` runs before each round, ``during(kind, port,
+    llm)`` on a thread of its own while the round's streams run, and
+    ``after(port, engine)`` once the rounds are done, before the server
+    stops (its result is the info's ``"after"``). A ``logprobs`` round
     (every round with ``logprobs``) asks for the top 2 and keeps each
     position's top 2 and their gap, which is the gap of the logits. For
     each round: tokens (gaps and tops) by prompt, wall, launch counts,
@@ -4133,6 +4172,14 @@ def serve_rounds(params, argv: list, n_req: int, n_tok, rounds: tuple,
             lp = logprobs or kind == "logprobs"
             threads = [threading.Thread(target=one, args=(i, lp, errors))
                        for i in range(n_req)]
+            if during is not None:
+                def side(kind=kind):
+                    try:
+                        during(kind, port, llm)
+                    except BaseException as e:  # re-raised below
+                        errors.append(e)
+
+                threads.append(threading.Thread(target=side))
             t0 = time.perf_counter()
             for t in threads:
                 t.start()
@@ -4154,6 +4201,8 @@ def serve_rounds(params, argv: list, n_req: int, n_tok, rounds: tuple,
                 "verify_pool": pool,
                 "graphs": dict(runner.graph_counts),
                 "graph_pool_bytes": runner.graph_pool_bytes}
+        if after is not None:
+            info["after"] = after(port, engine)
     finally:
         server.shutdown()
         server.server_close()
@@ -6353,6 +6402,530 @@ def phase_lora_step_costs(params, card: str, paths: dict,
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 4n: the encode path (/v1/embeddings) and the cross-encoder
+# ---------------------------------------------------------------------------
+
+ENCODE_BUCKETS = (128, 512, 4096)
+SCORING_MODEL = "bge-reranker-base"
+# 4n(b)'s embedding requests during the streams: a string, token ids, and
+# texts of a few hundred to a few thousand tokens.
+ENCODE_TEXTS = [" ".join(f"block {i} of conversation {j}." for i in range(n))
+                for j, n in enumerate((10, 35, 70, 120))]
+
+
+def encode_tokens(cfg, T: int, seed: int) -> torch.Tensor:
+    """A [1, T] prompt of random ids on the card."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    return torch.randint(1, cfg.vocab_size, (1, T), generator=gen).to(DEV)
+
+
+@contextlib.contextmanager
+def plain_int4():
+    """The model's int4 projections through the kernels' plain version
+    (``int4_matmul_plain``: the weight dequantized to bf16, then cuBLAS)."""
+    kernel = llama_mod.int4_matmul
+    llama_mod.int4_matmul = i4.int4_matmul_plain
+    try:
+        yield
+    finally:
+        llama_mod.int4_matmul = kernel
+
+
+@contextlib.contextmanager
+def checked_int4(worst: list):
+    """Each int4 projection of the model run through the kernel and, on
+    the same x, through its plain version, held to the per-row rule of
+    phase 2's int4 checks (``bf16_row_check``); each launch's worst
+    err / row tol goes to ``worst``. The plain calls launch nothing."""
+    kernel = llama_mod.int4_matmul
+
+    def both(x, packed, scales):
+        got = kernel(x, packed, scales)
+        ok, ratio, _ = bf16_row_check(got, i4.int4_matmul_plain(
+            x, packed, scales))
+        worst.append(ratio)
+        check(ok, f"int4 N={x.shape[0]} din={x.shape[1]} dout="
+              f"{packed.shape[1]} inside an encode: the kernel disagrees "
+              "with its plain version")
+        return got
+
+    llama_mod.int4_matmul = both
+    try:
+        yield
+    finally:
+        llama_mod.int4_matmul = kernel
+
+
+def encode_agree(got, want, label: str) -> dict:
+    """Two encodes' vectors: the kernels' against the plain versions'.
+    Held to ``MODEL_REL_ATOL`` of max|want|, the rule of this script's
+    other whole-model kernel-against-plain checks (32 random bf16 layers
+    carry a flipped rounding of one projection on to the vector); their
+    ratio to ``_agree``'s numeric rule (``tests/test_numerics_oracle.py``:
+    atol 2e-3 * max|want|, rtol 2e-3) is reported beside it."""
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite vector")
+    err = (got - want).abs()
+    scale = float(want.abs().max())
+    worst = float(err.max())
+    agree_ratio = float((err / (2e-3 * scale + 2e-3 * want.abs())).max())
+    check(worst <= MODEL_REL_ATOL * scale,
+          f"{label}: max|kernel - plain| {worst:.3e} is past "
+          f"{MODEL_REL_ATOL} of max|plain| {scale:.3e}")
+    return {"max_abs_err": worst, "max_abs": scale,
+            "agree_rule_ratio": agree_ratio}
+
+
+def phase_encode_model(model, params, card: str, quantized: bool = False
+                       ) -> dict:
+    """Phase 4n(a): ``Llama.encode`` at full width at buckets 128, 512 and
+    4096 (and 16 in int4): each vector finite and of unit norm within
+    1e-3; its time (the second call; the first loads what loads lazily)
+    and the peak memory above what was allocated before it; at 128 and
+    4096 in bf16, a ``torch.profiler`` breakdown. In int4 (with
+    the fused write set, which an encode does not reach) each bucket
+    launches the int4 route of its rows 7 times a layer; the kernels' run
+    is held to the same encode through the plain ``int4_matmul``
+    (``encode_agree``), and every launch of a third encode to its plain
+    version on the same x (``checked_int4``); and the wgmma route's plan
+    and time at N = 4096 on w_gate's shape, its first served N past
+    2048."""
+    cfg, L = model.cfg, model.cfg.num_layers
+    out = {}
+    tag = "int4" if quantized else cfg.dtype
+    for T in ((16,) + ENCODE_BUCKETS if quantized else ENCODE_BUCKETS):
+        toks, lens = encode_tokens(cfg, T, T), torch.tensor([T], device=DEV)
+        model.encode(params, toks, lens)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        vec = model.encode(params, toks, lens)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        routes = route_counts()
+        norm = float(vec.norm())
+        check(vec.shape == (1, cfg.hidden_size)
+              and bool(torch.isfinite(vec).all()) and abs(norm - 1) <= 1e-3,
+              f"4n(a) {tag} T={T}: shape {tuple(vec.shape)}, norm {norm}")
+        row = {"T": T, "ms": ms, "peak_bytes": peak, "norm": norm}
+        msg = ""
+        if quantized:
+            want = "int4_decode" if T <= i4._DECODE_MAX_ROWS else "int4_wgmma"
+            other = "int4_wgmma" if want == "int4_decode" else "int4_decode"
+            check(routes[want] == 7 * L and routes[other] == 0
+                  and routes["int4_simt"] == 0,
+                  f"4n(a) int4 T={T}: routes {routes}, expected {7 * L} "
+                  f"{want} launches")
+            with plain_int4():
+                ref = model.encode(params, toks, lens)
+            row.update(encode_agree(vec, ref, f"4n(a) int4 T={T}"))
+            launches: list = []
+            with checked_int4(launches):
+                model.encode(params, toks, lens)
+            row["launch_worst_ratio"] = max(launches)
+            row["routes"] = {want: routes[want],
+                             "int4_sum": routes["int4_sum"]}
+            msg = (f", {routes[want]} {want} launches; max|kernel - plain "
+                   f"int4_matmul| {row['max_abs_err']:.3e} of max "
+                   f"{row['max_abs']:.3e} ({row['agree_rule_ratio']:.2f} x "
+                   f"_agree's rule); each launch against its plain version "
+                   f"on the same x: worst err / row tol "
+                   f"{row['launch_worst_ratio']:.3f}")
+        log(f"[phase 4n(a)] {MODEL} {tag} encode T={T}: {ms:.2f} ms, peak "
+            f"{peak / 2**20:.1f} MiB above the {base / 2**30:.2f} GiB "
+            f"allocated before, |v| {norm:.6f}{msg}; {card}")
+        if not quantized and T in (ENCODE_BUCKETS[0], ENCODE_BUCKETS[-1]):
+            # Where the encode's time goes (torch.profiler, 2 encodes).
+            prof = row["profile"] = profile(
+                lambda: model.encode(params, toks, lens), 2, 6)
+            log(f"  T={T} profiled: wall {prof['wall_ms']:.2f} ms, device "
+                f"busy {prof['device_busy_ms']:.2f} ms (idle "
+                f"{prof['idle_share']:.1%}), {prof['kernels_per_step']:.0f} "
+                f"kernels; top: " + "; ".join(
+                    f"{k['kernel'][:60]} {k['ms_per_step']:.2f} ms x "
+                    f"{k['launches_per_step']:.0f}" for k in prof["top"]))
+        out[f"t{T}"] = row
+    if quantized:
+        N, din, dout = 4096, cfg.hidden_size, cfg.intermediate_size
+        layers = params["layers"]
+        w = [(layers["w_gate"][li], layers["w_gate_q4s"][li]) for li in (0, 1)]
+        G = din // w[0][1].shape[0]
+        p = i4.plan("wgmma", N, din, dout, G)
+        rows_t, cols_t = i4._TILES["wgmma"]
+        check(p.grid == (N // rows_t, -(-dout // cols_t), 1) and p.splits == 1,
+              f"4n(a) int4 N={N}: wgmma plan {p}")
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(4096)
+        x = torch.randn((N, din), generator=gen, device=DEV).bfloat16()
+        check(i4.route(x, *w[0]) == "wgmma", "4n(a) N=4096: not the wgmma "
+              "route")
+        dense = [i4.dequant_int4(pk, sc, torch.bfloat16) for pk, sc in w]
+        got = i4.int4_matmul(x, *w[0])
+        compare("int4_wgmma", got, torch.matmul(x.float(), dense[0].float()),
+                f"int4 bf16 N={N} din={din} dout={dout} vs fp32 product of "
+                "the bf16-dequantized weight", rows=True)
+        turn = itertools.cycle((0, 1))
+        ms = cuda_ms(lambda: i4.int4_matmul(x, *w[next(turn)]), iters=10)
+        plain_ms = cuda_ms(lambda: i4.int4_matmul_plain(x, *w[next(turn)]),
+                           iters=3)
+        lib_ms = cuda_ms(lambda: torch.matmul(x, dense[next(turn)]), iters=10)
+        flops = 2 * N * din * dout
+        nbytes = din * dout // 2 + (din // G) * dout * 4 + N * din * 2 \
+            + N * dout * 4
+        bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+        out["wgmma_n4096"] = {
+            "shape": f"N={N} din={din} dout={dout} G={G} bf16 x",
+            "grid": list(p.grid), "splits": p.splits, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": "operations"}
+        log(f"  int4_wgmma_kernel at N={N} x {din} x {dout}: grid {p.grid}, "
+            f"{p.splits} split, {ms:.4f} ms (plain {plain_ms:.4f}, "
+            f"torch.matmul on the dequantized weight {lib_ms:.4f}, bound "
+            f"{bound:.4f} ms by operations; {bound / ms:.1%} of it); {card}")
+        del x, dense, got
+    return out
+
+
+def _embed(port: int, inp, model: str = MODEL) -> tuple:
+    status, body, _ = _call(port, "POST", "/v1/embeddings",
+                            {"model": model, "input": inp})
+    return status, body
+
+
+def _vectors(body: dict) -> list:
+    return [np.asarray(d["embedding"], np.float32) for d in body["data"]]
+
+
+def encode_during_streams(record: dict):
+    """4n(b)'s ``during`` hook: in the ``embed`` round, once a pipelined
+    burst is in flight, six embedding requests at once (four texts of
+    about 60 to 2000 tokens, a token-id list and a batch of two)."""
+
+    def during(kind, port, llm):
+        if kind != "embed":
+            return
+        bursts = llm.pipelined_bursts_total
+        deadline = time.perf_counter() + 30
+        while (llm.pipelined_bursts_total == bursts
+               and time.perf_counter() < deadline):
+            time.sleep(0.005)
+        record["bursts_before"] = llm.pipelined_bursts_total - bursts
+        inputs = ENCODE_TEXTS + [[(7 * i) % 500 + 1 for i in range(1000)],
+                                 ENCODE_TEXTS[:2]]
+        answers = [None] * len(inputs)
+
+        def one(i):
+            answers[i] = _embed(port, inputs[i])
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(inputs))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        record["seconds"] = time.perf_counter() - t0
+        record["answers"] = answers
+        record["inputs"] = inputs
+
+    return during
+
+
+def check_encode_server(port: int, engine, record: dict, card: str) -> dict:
+    """4n(b)'s checks on the default bf16 server, then 4n(d)'s second app
+    over the same engine with ``--scoring-model``."""
+    runner = engine.engine.runner
+    tok = engine.engine.tokenizer
+    for (status, body), inp in zip(record["answers"], record["inputs"]):
+        check(status == 200, f"4n(b) embeddings during the streams: {status}")
+        items = inp if isinstance(inp, list) and isinstance(inp[0], str) \
+            else [inp]
+        for vec, item in zip(_vectors(body), items):
+            ids = item if isinstance(item, list) else tok.encode(item)
+            check(np.array_equal(vec, engine.encode(ids)),
+                  "4n(b): a vector served during the streams differs from "
+                  "runner.encode")
+    # A string, a token-id list and a batch of three, each vector equal to
+    # runner.encode on the same ids bit for bit.
+    cases = {"string": ENCODE_TEXTS[1], "ids": list(range(7, 300)),
+             "batch": ENCODE_TEXTS[:3]}
+    sizes = {}
+    for name, inp in cases.items():
+        t0 = time.perf_counter()
+        status, body = _embed(port, inp)
+        sizes[name] = time.perf_counter() - t0
+        check(status == 200, f"4n(b) {name}: {status} {body}")
+        items = inp if name == "batch" else [inp]
+        vecs = _vectors(body)
+        check(len(vecs) == len(items) and body["usage"]["prompt_tokens"]
+              == sum(len(x if isinstance(x, list) else tok.encode(x))
+                     for x in items), f"4n(b) {name}: {body['usage']}")
+        for vec, item in zip(vecs, items):
+            ids = item if isinstance(item, list) else tok.encode(item)
+            got = engine.encode(ids)
+            check(np.array_equal(vec, got) and abs(np.linalg.norm(got) - 1)
+                  <= 1e-3, f"4n(b) {name}: the served vector differs from "
+                  "runner.encode")
+    long_ids = list(range(1, engine.engine.cfg.max_model_len + 2))
+    status, body = _embed(port, long_ids)
+    check(status == 400, f"4n(b) past max_model_len: {status} {body}")
+    status, flight, _ = _call(port, "GET", "/debug/flight?n=100000")
+    rows = flight["records"]
+    enc = [i for i, r in enumerate(rows) if r["kind"] == "encode"]
+    between = [i for i in enc
+               if any(r["kind"] == "decode" for r in rows[:i])
+               and any(r["kind"] == "decode" for r in rows[i + 1:])]
+    check(len(enc) >= 6 + 3 + 1 and between,
+          f"4n(b): {len(enc)} encode flight rows, {len(between)} between "
+          "decode steps")
+    status, body, _ = _call(port, "POST", "/rerank", {
+        "model": MODEL, "query": "q", "documents": ["a b", "c d"]})
+    check(status == 200 and body["scoring_method"]
+          == "embedding_cosine_similarity", f"4n(b) /rerank: {status} {body}")
+    out = {"during_streams_s": record["seconds"],
+           "bursts_before_embeddings": record["bursts_before"],
+           "encode_flight_rows": len(enc),
+           "encode_rows_between_decode_steps": len(between),
+           "request_s": sizes}
+    log(f"[phase 4n(b)] bf16 server: 6 embedding requests during the "
+        f"embed round in {record['seconds']:.3f} s; {len(enc)} encode flight "
+        f"rows, {len(between)} between decode steps; vectors equal "
+        f"runner.encode bit for bit; past max_model_len 400; {card}")
+    out["scoring_4n_d"] = phase_scoring_serving(engine, card)
+    return out
+
+
+def phase_scoring_serving(engine, card: str) -> dict:
+    """Phase 4n(d): the same bf16 engine behind a second app with
+    ``--scoring-model bge-reranker-base`` (random fp32 weights from a
+    generator seeded 0, on the card): the five rerank and score routes
+    answer, their scores equal ``CrossEncoder.score_pairs`` called
+    directly, a pair alone scores as in a batch within 1e-4, the ranking
+    is descending and ``top_n`` holds, ``scoring_method`` is
+    ``cross_encoder``."""
+    args = parse_engine_args(["--model", MODEL, "--device", DEV.type,
+                              "--scoring-model", SCORING_MODEL])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ce = cross_encoder_from_args(args)
+    load_s = time.perf_counter() - t0
+    ce_bytes = torch.cuda.memory_allocated() - before
+    server, thread = serve_in_thread(engine, cross_encoder=ce)
+    port = server.server_address[1]
+    docs = [f"document {i}: " + ENCODE_TEXTS[i % 4][: 40 * (i + 1)]
+            for i in range(16)]
+    query = "which block of the conversation?"
+    try:
+        direct = ce.score_pairs([(query, d) for d in docs])
+        answers = {}
+        for path in ("/rerank", "/v1/rerank", "/v2/rerank"):
+            t1 = time.perf_counter()
+            status, body, _ = _call(port, "POST", path, {
+                "model": MODEL, "query": query, "documents": docs,
+                "top_n": 5})
+            answers[path] = time.perf_counter() - t1
+            check(status == 200 and body["scoring_method"] == "cross_encoder",
+                  f"4n(d) {path}: {status} {body}")
+            res = body["results"]
+            scores = [r["relevance_score"] for r in res]
+            check(len(res) == 5 and scores == sorted(scores, reverse=True)
+                  and scores == sorted(direct, reverse=True)[:5]
+                  and all(direct[r["index"]] == r["relevance_score"]
+                          for r in res), f"4n(d) {path}: {res}")
+        pairs4 = ce.score_pairs([(query, d) for d in docs[:4]])
+        for path in ("/score", "/v1/score"):
+            status, body, _ = _call(port, "POST", path, {
+                "model": MODEL, "text_1": query, "text_2": docs[:4]})
+            check(status == 200 and body["scoring_method"] == "cross_encoder"
+                  and [d["score"] for d in body["data"]] == pairs4,
+                  f"4n(d) {path}: {status} {body}")
+        alone = [ce.score_pairs([(query, d)])[0] for d in docs[:4]]
+        gap = max(abs(a - b) for a, b in zip(alone, direct))
+        check(gap <= 1e-4, f"4n(d): a pair alone against in a batch {gap}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    out = {"load_s": load_s, "weights_bytes": ce_bytes,
+           "rerank_16_docs_s": answers, "alone_vs_batch": gap}
+    log(f"[phase 4n(d)] {SCORING_MODEL} (random fp32, "
+        f"{ce_bytes / 1e9:.2f} GB on the card, loaded in {load_s:.2f} s) "
+        f"beside the bf16 engine: /rerank, /v1/rerank, /v2/rerank, /score, "
+        f"/v1/score answer; scores equal score_pairs; a pair alone against "
+        f"in a batch {gap:.2e}; a 16-document rerank "
+        f"{min(answers.values()) * 1e3:.1f} ms; {card}")
+    del ce
+    return out
+
+
+def phase_encode_serving(params, card: str) -> dict:
+    """Phase 4n(b) and (d): the default bf16 server (the overlapped decode
+    on its arrival gate). Three rounds of 8 greedy streams of 128 tokens:
+    one to capture, one plain, one while six embedding requests arrive
+    once a pipelined burst is in flight. The two warm rounds' tokens are
+    equal bit for bit: an encode between steps disturbs no graph and no
+    burst. Then ``check_encode_server`` and 4n(d)."""
+    argv = ["--model", MODEL, "--device", DEV.type,
+            "--max-num-batched-tokens", "512", "--max-num-seqs", "16"]
+    record: dict = {}
+    out = {}
+    rounds, info = serve_rounds(
+        params, argv, 8, 128, ("capture", "plain", "embed"),
+        during=encode_during_streams(record),
+        after=lambda port, engine: check_encode_server(port, engine, record,
+                                                       card))
+    plain, embed = rounds[1], rounds[2]
+    check(embed["bursts"] > 0 and record["bursts_before"] > 0,
+          f"4n(b): pipelined bursts {embed['bursts']}, "
+          f"{record['bursts_before']} before the embeddings")
+    parted = first_parting(dict(embed, tops={}), dict(plain, tops={}))
+    check(len(plain["tokens"]) == 8 and not parted,
+          f"4n(b): streams part from the plain round when embeddings arrive "
+          f"(stream: first differing token) {parted}")
+    log(f"[phase 4n(b)] 8 x 128 greedy tokens equal bit for bit with and "
+        f"without the embeddings; pipelined bursts {plain['bursts']} and "
+        f"{embed['bursts']}, rounds {plain['wall']:.3f} s and "
+        f"{embed['wall']:.3f} s; {card}")
+    out.update(info["after"])
+    out["rounds_s"] = [r["wall"] for r in rounds]
+    out["bursts"] = [r["bursts"] for r in rounds]
+    return out
+
+
+def phase_encode_int4_serving(q_params, card: str) -> dict:
+    """Phase 4n(c): the int4 server with the fused write answers
+    /v1/embeddings at T <= 16 and at T > 16, and each encode launches the
+    int4 decode route (T <= 16) or the wgmma route 7 times a layer."""
+    argv = ["--model", MODEL, "--device", DEV.type, "--quantization",
+            "int4", "--max-num-batched-tokens", "512", "--max-num-seqs", "16"]
+    engine, server, thread, _ = _tier_server(q_params, argv)
+    port = server.server_address[1]
+    L = get_model_config(MODEL).num_layers
+    out = {}
+    try:
+        for n, want in ((12, "int4_decode"), (300, "int4_wgmma")):
+            ids = list(range(5, 5 + n))
+            reset_launch_counts()
+            status, body = _embed(port, ids)
+            counts = route_counts()
+            vec = _vectors(body)[0] if status == 200 else None
+            check(status == 200 and abs(np.linalg.norm(vec) - 1) <= 1e-3
+                  and np.array_equal(vec, engine.encode(ids)),
+                  f"4n(c) {n} tokens: {status}")
+            other = "int4_wgmma" if want == "int4_decode" else "int4_decode"
+            check(counts[want] == 7 * L and counts[other] == 0,
+                  f"4n(c) {n} tokens: routes {counts}")
+            out[f"n{n}"] = {want: counts[want], "int4_sum": counts["int4_sum"]}
+        log(f"[phase 4n(c)] int4 server (fused write): /v1/embeddings of 12 "
+            f"tokens launched {out['n12']['int4_decode']} int4_decode, of 300 "
+            f"{out['n300']['int4_wgmma']} int4_wgmma (7 x {L} each); {card}")
+    finally:
+        _stop_server(engine, server, thread)
+    return out
+
+
+class CacheServer:
+    """4n(e): a server subprocess on ``tiny-llama-debug`` on the card with
+    ``--compile-cache-dir``, its output in a log file."""
+
+    def __init__(self, cache_dir: str, log_path: str):
+        self.port = free_port()
+        self.log_path = log_path
+        self.log = open(log_path, "w")
+        self.t0 = time.perf_counter()
+        # Stopped at exit too, when a phase fails before ``finish``.
+        atexit.register(self.stop)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "production_stack_tpu_torch.engine.server",
+             "--model", "tiny-llama-debug", "--device", DEV.type, "--host",
+             "127.0.0.1", "--port", str(self.port), "--num-kv-blocks", "64",
+             "--compile-cache-dir", cache_dir],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=self.log, stderr=subprocess.STDOUT)
+
+    def finish(self, limit: float = 400.0) -> dict:
+        """Wait for ``/ready``; read ``/metrics`` and ``/debug/state``;
+        stop the process."""
+        try:
+            while True:
+                check(self.proc.poll() is None, "4n(e): the server exited: "
+                      + open(self.log_path).read()[-2000:])
+                check(time.perf_counter() - self.t0 < limit,
+                      "4n(e): no /ready in time")
+                try:
+                    if _call(self.port, "GET", "/ready", timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.2)
+            ready_s = time.perf_counter() - self.t0
+            m = scrape(self.port)
+            stats = _call(self.port, "GET", "/debug/state")[1]["stats"]
+        finally:
+            self.stop()
+        return {"ready_s": ready_s,
+                "hits": m.get("pst_engine_compile_cache_hits_total", -1.0),
+                "misses": m.get("pst_engine_compile_cache_misses_total", -1.0),
+                "last_build_seconds": stats["kernel_build_seconds"]}
+
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.log.close()
+
+
+def phase_compile_cache(first: "CacheServer", cache_dir: str, card: str
+                        ) -> dict:
+    """Phase 4n(e): two server subprocesses on one fresh
+    ``--compile-cache-dir``. The first (started earlier, beside other
+    phases) misses and builds the kernel library; the second hits, with
+    ``last_build_seconds == 0``; both read from ``/metrics`` and
+    ``/debug/state``."""
+    try:
+        cold = first.finish()
+        warm = CacheServer(cache_dir, first.log_path + ".2").finish()
+        check(cold["misses"] == 1 and cold["hits"] == 0
+              and cold["last_build_seconds"] > 0,
+              f"4n(e) first start: {cold}")
+        check(warm["hits"] == 1 and warm["misses"] == 0
+              and warm["last_build_seconds"] == 0,
+              f"4n(e) second start: {warm}")
+        keyed = [d for d in os.listdir(cache_dir)
+                 if os.path.isdir(os.path.join(cache_dir, d))]
+        check(len(keyed) == 1 and os.listdir(os.path.join(cache_dir,
+                                                           keyed[0])),
+              f"4n(e): {cache_dir} holds {keyed}")
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        for path in (first.log_path, first.log_path + ".2"):
+            with contextlib.suppress(OSError):
+                os.remove(path)
+    log(f"[phase 4n(e)] --compile-cache-dir: first start built the kernel "
+        f"library in {cold['last_build_seconds']:.1f} s (miss), /ready after "
+        f"{cold['ready_s']:.1f} s; the second loaded it (hit, "
+        f"last_build_seconds 0), /ready after {warm['ready_s']:.1f} s; {card}")
+    return {"cold": cold, "warm": warm, "key": keyed[0]}
+
+
+def start_compile_cache() -> tuple:
+    """4n(e)'s first server, started in a fresh temp directory: its
+    library builds beside the phases that run meanwhile."""
+    cache_dir = tempfile.mkdtemp(prefix="pst_compile_cache_")
+    return CacheServer(cache_dir, cache_dir + ".log"), cache_dir
+
+
 SPIN_CYCLES = 100_000_000
 
 
@@ -6907,14 +7480,37 @@ def lora_only(card: str) -> None:
     print(json.dumps({"lora_4m": out}, default=str), flush=True)
 
 
+def encode_only(card: str) -> None:
+    """``python3 chip_smoke.py encode``: phase 4n alone, (a) to (e), with
+    the int4 tree drawn on the card in place of phase 3b."""
+    model, params = build_model()
+    out = {"model_4n_a": {"bf16": phase_encode_model(model, params, card)}}
+    first, cache_dir = start_compile_cache()
+    out["serving_4n_bd"] = phase_encode_serving(params, card)
+    out["cache_4n_e"] = phase_compile_cache(first, cache_dir, card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["PST_FUSED_KV_WRITE"] = "1"
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    q_params = model.init_params(gen, DEV, quantization="int4")
+    out["model_4n_a"]["int4"] = phase_encode_model(model, q_params, card,
+                                                   quantized=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serving_4n_c"] = phase_encode_int4_serving(q_params, card)
+    print(json.dumps({"encode_4n": out}, default=str), flush=True)
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
     os.environ.pop("PST_FUSED_KV_WRITE", None)  # bf16 phases: unfused path
     if sys.argv[1:] not in ([], ["drift"], ["rounds"], ["engagement"],
-                            ["lora"]):
+                            ["lora"], ["encode"]):
         sys.exit("usage: python3 chip_smoke.py "
-                 "[drift|rounds|engagement|lora]")
+                 "[drift|rounds|engagement|lora|encode]")
     card = phase_toolchain()
     if sys.argv[1:] == ["drift"]:
         drift()
@@ -6927,6 +7523,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["lora"]:
         lora_only(card)
+        return
+    if sys.argv[1:] == ["encode"]:
+        encode_only(card)
         return
     log("[phase 2] kernels vs plain versions")
     for cache_dtype in (torch.bfloat16, E4M3):
@@ -7012,6 +7611,15 @@ def main() -> None:
                                                gap_tol)
     gc.collect()
     torch.cuda.empty_cache()
+    # Phase 4n: the encode path and the cross-encoder; 4n(e)'s first
+    # server builds its kernel library beside 4n(b) and (d).
+    encode = {"model_4n_a": {"bf16": phase_encode_model(model, params,
+                                                        card)}}
+    cache_first, cache_dir = start_compile_cache()
+    encode["serving_4n_bd"] = phase_encode_serving(params, card)
+    encode["cache_4n_e"] = phase_compile_cache(cache_first, cache_dir, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     os.environ["PST_FUSED_KV_WRITE"] = "1"
     fp8_served = phase_serving(
         params, "4c", kv_cache_dtype="float8_e4m3fn",
@@ -7042,6 +7650,13 @@ def main() -> None:
     check(q_served["int4_sum"] <= q_served["int4_wgmma"],
           f"int4 serving: {q_served['int4_sum']} sum passes for "
           f"{q_served['int4_wgmma']} wgmma launches")
+    gc.collect()
+    torch.cuda.empty_cache()
+    encode["model_4n_a"]["int4"] = phase_encode_model(model, q_params, card,
+                                                      quantized=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    encode["serving_4n_c"] = phase_encode_int4_serving(q_params, card)
     gc.collect()
     torch.cuda.empty_cache()
     spec_serving["int4"] = phase_spec_serving(q_params, card, gap_tol, "4t",
@@ -7117,8 +7732,8 @@ def main() -> None:
         "traced_serving_4i": traced, "tiers_4j": tiers,
         "verify_splits_2s": verify_splits, "verify_gap_tol_3s": gap_tol,
         "spec_serving_4s": spec_serving, "engagement_4k": engagement,
-        "chart_serving_4l": chart, "lora_4m": lora,
-    }}), flush=True)
+        "chart_serving_4l": chart, "lora_4m": lora, "encode_4n": encode,
+    }}, default=str), flush=True)
     print(json.dumps({"kernels": rows, "steps": steps, "int4_crossover": crossover}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

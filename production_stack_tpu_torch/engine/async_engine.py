@@ -15,7 +15,9 @@ interleaves with a drop or a restore. A wake from level 2 runs the
 configured warmup again. Draining only closes the HTTP admission gate.
 LoRA loads and unloads run on the step thread the same way: an adapter's
 write into the bank (or a retired slot's zeroing) queues between two
-dispatches, never beside a capture.
+dispatches, never beside a capture. So does an encode
+(``/v1/embeddings``): it runs eagerly on the steps' stream, and never
+interleaves with a graph replay or a pipelined burst's refresh.
 
 The loop steps while the engine has work, and an in-flight pipelined
 burst is work: its rows are applied even once every queue is empty. A
@@ -30,6 +32,8 @@ import threading
 import time
 import uuid
 from typing import Any, Dict, Iterator, Optional, Sequence as Seq
+
+import numpy as np
 
 from ..logging_utils import init_logger
 from .config import EngineConfig
@@ -173,6 +177,18 @@ class AsyncLLMEngine:
         """``LLMEngine.unload_lora`` on the step thread."""
         out = []
         self.on_step_thread(lambda: out.append(self.engine.unload_lora(name)))
+        return out[0]
+
+    # -- embeddings -------------------------------------------------------
+
+    def encode(self, token_ids) -> np.ndarray:
+        """``ModelRunner.encode`` of one prompt, its input checked here
+        (``ValueError``) and its dispatch run on the step thread between
+        two steps, as the JAX runner holds its device lock around one."""
+        runner = self.engine.runner
+        toks, n = runner.encode_input(token_ids)
+        out = []
+        self.on_step_thread(lambda: out.append(runner.encode_dispatch(toks, n)))
         return out[0]
 
     # -- drain ------------------------------------------------------------

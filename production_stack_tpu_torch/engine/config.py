@@ -139,6 +139,10 @@ class EngineConfig:
     # Export pst_engine_startup_seconds (the load, shard, warmup and
     # precompile phases); --no-startup-phases leaves the family empty.
     startup_phases: bool = True
+    # The kernel library's compile cache (ops/_build.py): built into and
+    # loaded from <dir>/<key>, so a restart on the same volume loads it
+    # instead of building it. None: the checkout's build/torch_kernels/.
+    compile_cache_dir: Optional[str] = None
     seed: int = 0
     device: str = "cuda"
 

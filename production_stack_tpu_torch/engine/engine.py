@@ -76,6 +76,7 @@ from ..kvcache.xxh64 import xxh64
 from ..logging_utils import init_logger
 from ..models.registry import get_model_config
 from ..obs.flight import NULL_FLIGHT_RECORDER, FlightRecorder
+from ..ops import _build
 from ..ops.sampling import unpack_sampled
 from .cache_tiering import TieredAllocator, create_remote_client, wait_landed
 from .config import EngineConfig
@@ -133,7 +134,15 @@ class LLMEngine:
         ``cfg.seed`` when None."""
         self.cfg = cfg
         self.model_cfg = get_model_config(cfg.model)
+        if cfg.compile_cache_dir:
+            # Before the first kernel use (the runner's, on the card).
+            path = _build.set_compile_cache_dir(cfg.compile_cache_dir)
+            logger.info("kernel library compile cache: %s", path)
         self.runner = ModelRunner(cfg, self.model_cfg, params)
+        if cfg.compile_cache_dir and self.runner.device.type == "cuda":
+            # A warm restart loads the library here, a cold one builds it:
+            # at start, not on the first request.
+            _build.load()
         t_runner = time.perf_counter()
         # A checkpoint directory carries its own tokenizer files.
         tok_spec = cfg.tokenizer or (
@@ -396,16 +405,18 @@ class LLMEngine:
     def _sweep_retiring_slots(self) -> None:
         """Zero and free each retiring slot that nothing reads any more:
         no live sequence holds it, and no member of an in-flight burst
-        (a finished member's row still runs in it until the drain)."""
+        (a finished member's row still runs in it until the drain). A slot
+        leaves the retiring set only once it is free, so ``stats()``, read
+        from other threads, never shows it neither retiring nor free."""
         if not self._retiring_slots:
             return
         live = {s.lora_idx for s in self._seqs.values()}
         if self.runner.burst_in_flight:
             live |= {s.lora_idx for s in self._burst_seqs}
         for slot in sorted(self._retiring_slots - live):
-            self._retiring_slots.discard(slot)
             self.runner.uninstall_adapter(slot)
             self.lora_manager.release_slot(slot)
+            self._retiring_slots.discard(slot)
 
     def abort_request(self, request_id: str) -> bool:
         # An aborted request is billed for the device time it took, while
@@ -1026,6 +1037,10 @@ class LLMEngine:
             **{f"graphs_{k}": float(n)
                for k, n in self.runner.graph_counts.items()},
             "graph_pool_bytes": float(self.runner.graph_pool_bytes),
+            "compile_cache_hits_total": float(_build.cache_counts["hits"]),
+            "compile_cache_misses_total": float(
+                _build.cache_counts["misses"]),
+            "kernel_build_seconds": float(_build.last_build_seconds),
             **({"adaptive_deep_bursts_total":
                 float(self.adaptive_deep_bursts_total)}
                if self.cfg.adaptive_decode_steps else {}),

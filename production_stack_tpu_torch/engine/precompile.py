@@ -4,21 +4,21 @@ The port of the JAX package's ``engine/precompile.py``. The runner pads
 every device step into a small set of power-of-two bucket shapes, which
 makes the full set of steps live traffic can ever demand *enumerable from
 config alone*. This module enumerates that lattice — prefill (rows x
-chunk), decode rows, decode bursts and, with ``speculative_ngram``, the
-verify step (rows x K) — and drives each bucket through
-:meth:`ModelRunner.warmup_bucket` with an all-padding dummy batch before
-the server's ``/ready`` flips. Where the JAX runner compiles one XLA
-program a bucket, the port's runner captures one ``torch.cuda.CUDAGraph``
-a bucket, so after a ``full`` warmup no live step of a covered shape runs
-eagerly or captures: every one replays.
+chunk), decode rows, decode bursts, with ``speculative_ngram`` the verify
+step (rows x K), and the encode lengths of ``/v1/embeddings`` — and
+drives each bucket through :meth:`ModelRunner.warmup_bucket` with an
+all-padding dummy batch before the server's ``/ready`` flips. Where the
+JAX runner compiles one XLA program a bucket, the port's runner captures
+one ``torch.cuda.CUDAGraph`` a step bucket, so after a ``full`` warmup no
+live step of a covered shape runs eagerly or captures: every one
+replays. An encode bucket is run once and captured never (a graph of the
+T = 4096 encode would hold its activations in the shared pool): its
+warmup loads what its kernels load lazily, and counts toward ``/ready``'s
+coverage as the JAX package counts it.
 
-Left out, as the port does not serve it yet: the ``encode`` kind
-(ROADMAP queue 1, item 12).
-
-The JAX module's persistent compilation cache has no counterpart beyond
-what exists: the kernel library is already cached by the hash of its
-sources in ``build/torch_kernels/`` (``ops/_build.py``), and a CUDA graph
-cannot be written to disk — each process captures its own.
+The JAX module's persistent compilation cache becomes the kernel
+library's (``EngineConfig.compile_cache_dir``, ``ops/_build.py``): a CUDA
+graph cannot be written to disk, so each process captures its own.
 """
 
 from __future__ import annotations
@@ -34,12 +34,14 @@ logger = init_logger(__name__)
 
 # Kind walk order when a bucket budget truncates the lattice: decode
 # shapes serve every live token, prefill shapes gate TTFT, bursts and
-# verify steps are the throughput paths.
+# verify steps are the throughput paths, encode only serves
+# /v1/embeddings.
 _KIND_RANK = {
     "decode": 0,
     "decode_burst": 1,
     "prefill": 2,
     "spec_verify": 3,
+    "encode": 4,
 }
 
 
@@ -47,9 +49,9 @@ _KIND_RANK = {
 class Bucket:
     """One captured-graph-worth of padded shape + static step flags."""
 
-    kind: str  # decode | decode_burst | prefill | spec_verify
-    rows: int = 0  # padded batch rows
-    tokens: int = 0  # prefill chunk bucket / spec K
+    kind: str  # decode | decode_burst | prefill | spec_verify | encode
+    rows: int = 0  # padded batch rows (decode/prefill/spec)
+    tokens: int = 0  # prefill chunk bucket / encode length / spec K
     width: int = 0  # block-table width bucket
     n_steps: int = 0  # burst depth (decode_burst)
     want_lp: bool = False
@@ -67,9 +69,11 @@ class Bucket:
             return f"b{self.rows}"
         if self.kind == "decode_burst":
             return f"b{self.rows}xn{self.n_steps}"
+        if self.kind == "prefill":
+            return f"b{self.rows}xt{self.tokens}"
         if self.kind == "spec_verify":
             return f"b{self.rows}xk{self.tokens}"
-        return f"b{self.rows}xt{self.tokens}"
+        return f"t{self.tokens}"
 
     def sort_key(self) -> tuple:
         # Greedy-no-logprobs-unpenalized first (the overwhelmingly common
@@ -133,6 +137,13 @@ def prefill_shape_buckets(cfg: EngineConfig) -> List[tuple]:
             if min_rows - 1 + min_chunk <= budget:
                 pairs.append((rb, cb))
     return pairs
+
+
+def encode_buckets(cfg: EngineConfig) -> List[int]:
+    """Mirror of ``ModelRunner.encode``: every pow2 length up to
+    ``max_model_len``'s (the JAX ``encode_buckets`` at one sequence
+    shard)."""
+    return _pow2_buckets(cfg.max_model_len)
 
 
 def burst_depths(cfg: EngineConfig) -> List[int]:
@@ -199,6 +210,8 @@ def enumerate_lattice(cfg: EngineConfig) -> List[Bucket]:
             for w in widths:
                 buckets.append(Bucket("spec_verify", rows=r,
                                       tokens=cfg.speculative_ngram, width=w))
+    for t in encode_buckets(cfg):
+        buckets.append(Bucket("encode", tokens=t))
     buckets.sort(key=Bucket.sort_key)
     return buckets
 

@@ -50,6 +50,11 @@ layers after the weights, before the KV cache is sized, and every batch
 padding rows). A captured graph reads the bank's address, so
 ``install_adapter`` and ``uninstall_adapter`` write its slots in place.
 
+``encode`` (``/v1/embeddings``) runs ``Llama.encode`` over one prompt
+padded into its pow2 bucket, eagerly on the stream the steps use: the
+async engine calls it on its step thread between two steps, never beside
+a replay or a burst's refresh. It captures no graph.
+
 Every step is recorded in the runner's ``telemetry``
 (``obs/engine_telemetry.py``): a step that captured its key counts as a
 compile, the others as steps, and the wall from a decode step's fetch to
@@ -254,7 +259,8 @@ class ModelRunner:
         # Static inputs, one flat buffer a name, sized for the largest
         # bucket of the lattice and allocated here, outside any graph's
         # pool (dtypes from the warmup batches, which carry live dtypes).
-        lattice = enumerate_lattice(cfg)
+        # Encodes run eagerly on tensors of their own (``encode``).
+        lattice = [b for b in enumerate_lattice(cfg) if b.kind != "encode"]
         need: Dict[str, np.ndarray] = {}
         for bucket in lattice:
             for name, v in self._warmup_batch(bucket).items():
@@ -534,7 +540,16 @@ class ModelRunner:
         Every row carries ``kv_len = 0`` and writes to the drop slot, so
         the step touches no real KV state; its input names, shapes and
         flags are exactly what live traffic produces, so the first live
-        batch of the bucket replays its graph."""
+        batch of the bucket replays its graph. An encode bucket runs once,
+        uncaptured."""
+        if bucket.kind == "encode":
+            # One all-padding encode, eager and uncaptured; length 1, not
+            # 0, as the JAX warmup (the mean pool divides by it).
+            toks = np.zeros((1, bucket.tokens), np.int32)
+            self._host_gap_t0 = None
+            self._timed("encode", bucket.label, 0, None,
+                        lambda: self._encode(toks, 1), live=False)
+            return
         batch = self._warmup_batch(bucket)
         if bucket.kind == "decode_burst":
             step = lambda: self._multi_step(  # noqa: E731
@@ -550,6 +565,50 @@ class ModelRunner:
         # Serves no request: no tokens, no device-busy seconds.
         kind = "decode" if bucket.kind.startswith("decode") else bucket.kind
         self._timed(kind, bucket.label, 0, None, step, live=False)
+
+    # ------------------------------------------------------------------
+    # Embeddings (/v1/embeddings): the whole-prompt encode, mean-pooled
+    # ------------------------------------------------------------------
+
+    def encode(self, token_ids) -> np.ndarray:
+        """The L2-normalized mean-pooled final hidden states of one prompt
+        ([D] float32), padded into the pow2 bucket of its length, as the
+        JAX runner pads it. Run eagerly, never captured, between steps
+        (the async engine calls ``encode_dispatch`` on its step thread)."""
+        return self.encode_dispatch(*self.encode_input(token_ids))
+
+    def encode_input(self, token_ids) -> Tuple[np.ndarray, int]:
+        """(the padded ``[1, T]`` ids, the prompt's length) of an encode. A
+        prompt longer than ``max_model_len``, or holding an id outside the
+        vocabulary, raises ``ValueError``: the JAX runner fails inside
+        numpy on the first and clamps the second."""
+        ids = [int(t) for t in token_ids]
+        n, V = len(ids), self.model_cfg.vocab_size
+        if n > self.cfg.max_model_len:
+            raise ValueError(
+                f"input of {n} tokens exceeds max_model_len "
+                f"({self.cfg.max_model_len})")
+        if any(t < 0 or t >= V for t in ids):
+            raise ValueError(f"token ids must lie in [0, {V})")
+        T = _pow2(max(n, 1), cap=_pow2(self.cfg.max_model_len))
+        toks = np.zeros((1, T), np.int32)
+        toks[0, :n] = ids
+        return toks, n
+
+    def encode_dispatch(self, toks: np.ndarray, n: int) -> np.ndarray:
+        """Run and record one encode of ``encode_input``'s arrays: a
+        flight row of kind ``encode`` at bucket ``t{T}``."""
+        T = toks.shape[1]
+        self._host_gap_t0 = None  # an encode between decode steps
+        return self._timed("encode", f"t{T}", n, n / T,
+                           lambda: self._encode(toks, n))
+
+    def _encode(self, toks: np.ndarray, length: int) -> np.ndarray:
+        tokens = torch.from_numpy(toks).to(self.device)
+        lengths = torch.tensor([length], dtype=torch.int32,
+                               device=self.device)
+        out = self.model.encode(self.params, tokens, lengths)
+        return out[0].cpu().numpy()
 
     # ------------------------------------------------------------------
     # Telemetry

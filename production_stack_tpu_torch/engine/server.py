@@ -13,6 +13,16 @@ module behind it, with its status codes, response keys and headers:
   and ignored.
 - ``POST /tokenize`` (a ``prompt`` or chat ``messages``) and
   ``POST /detokenize``.
+- ``POST /v1/embeddings`` (a string, a list of strings, a token-id list
+  or a list of them: one L2-normalized mean-pooled vector a prompt,
+  ``ModelRunner.encode`` on the step thread; a prompt past
+  ``max_model_len`` answers 400), ``POST /rerank`` (also ``/v1/rerank``,
+  ``/v2/rerank``: the documents by score, descending, ``top_n`` of them)
+  and ``POST /score`` (also ``/v1/score``; a single ``text_1`` is paired
+  with every ``text_2``). With ``--scoring-model`` a pair is scored by
+  the cross-encoder (``scoring_method: "cross_encoder"``), else as the
+  dot product of its two embeddings (``"embedding_cosine_similarity"``).
+  They keep the generation routes' drain, warming and deadline gates.
 - ``GET /metrics``: the ``vllm:`` families the router's scraper reads
   and the engine's ``pst_engine_*`` telemetry, as Prometheus text.
 - ``GET /health``, ``GET /ready``, ``GET /v1/models``, ``GET /version``,
@@ -88,7 +98,8 @@ request the scheduler sheds later; a streamed one ends with a frame whose
         [--flight-buffer 0] [--no-cost-attribution] \
         [--cpu-offload-blocks N] [--remote-kv-url URL[,URL...]] \
         [--kv-role producer|consumer|both] [--cache-controller-url URL] \
-        [--api-key KEY] [--served-model-name NAME] [--attn-impl gather]
+        [--api-key KEY] [--served-model-name NAME] [--attn-impl gather] \
+        [--scoring-model bge-reranker-base] [--compile-cache-dir DIR]
 
 ``--model`` takes a preset name or a local HF checkpoint directory (its
 ``config.json`` and safetensors; its tokenizer files unless
@@ -111,6 +122,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 from urllib.parse import parse_qs, urlsplit
 
+import numpy as np
 import torch
 
 from .. import __version__
@@ -500,11 +512,40 @@ _OPEN_PATHS = frozenset({"/health", "/ready", "/metrics", "/version",
 DEFAULT_PROFILE_DIR = os.path.join(tempfile.gettempdir(), "pst_profiles")
 
 
+def embedding_inputs(raw) -> list:
+    """The prompts of an embeddings request's ``input``: a string, a list
+    of strings, a list of token ids (one prompt) or a list of token-id
+    lists, as the JAX ``EmbeddingRequest`` takes it; anything else raises
+    ``ValueError``."""
+    if isinstance(raw, str):
+        return [raw]
+    if not isinstance(raw, list):
+        raise ValueError("input must be a string, a list of strings or "
+                         "token ids, or a list of token-id lists")
+    if all(isinstance(x, int) and not isinstance(x, bool) for x in raw):
+        return [raw] if raw else []
+    if all(isinstance(x, str) for x in raw):
+        return raw
+    if all(isinstance(x, list) and all(isinstance(t, int) for t in x)
+           for x in raw):
+        return raw
+    raise ValueError("input must be a string, a list of strings or token "
+                     "ids, or a list of token-id lists")
+
+
+def _texts(raw, name: str) -> List[str]:
+    """A text field of a rerank or score body, as a list of strings."""
+    items = raw if isinstance(raw, list) else [raw]
+    if not all(isinstance(x, str) for x in items):
+        raise ValueError(f"{name} must be a string or a list of strings")
+    return items
+
+
 def create_engine_app(
     engine: AsyncLLMEngine, host: str = "127.0.0.1", port: int = 0, *,
     tracing: bool = True, debug_requests_buffer: int = 256,
     profiling: bool = False, profile_dir: str = DEFAULT_PROFILE_DIR,
-    api_key: Optional[str] = None,
+    api_key: Optional[str] = None, cross_encoder=None,
 ) -> ThreadingHTTPServer:
     """An HTTP server bound to ``(host, port)`` (port 0: any free port)
     serving ``engine``; call ``serve_forever()`` on it. ``tracing`` and
@@ -512,8 +553,23 @@ def create_engine_app(
     ``--tracing`` and ``--debug-requests-buffer``); ``profiling`` opens
     ``POST /debug/profile``, which writes under ``profile_dir`` unless the
     request names a ``dir``. With ``api_key`` every route outside
-    ``_OPEN_PATHS`` needs ``Authorization: Bearer <api_key>``."""
+    ``_OPEN_PATHS`` needs ``Authorization: Bearer <api_key>``.
+    ``cross_encoder`` (``engine/cross_encoder.py``, the ``--scoring-model``)
+    scores ``/rerank`` and ``/score`` pairs; without one a pair scores the
+    dot product of its two texts' embeddings."""
     model_name = engine.engine.model_name
+    # Surfaced in rerank and score answers, so a client can tell the
+    # embedding approximation from a real reranker.
+    scoring_method = ("cross_encoder" if cross_encoder is not None
+                      else "embedding_cosine_similarity")
+
+    def _pair_scores(texts_a: List[str], texts_b: List[str]) -> List[float]:
+        if cross_encoder is not None:
+            return cross_encoder.score_pairs(list(zip(texts_a, texts_b)))
+        tok = engine.engine.tokenizer
+        return [float(np.dot(engine.encode(tok.encode(a)),
+                             engine.encode(tok.encode(b))))
+                for a, b in zip(texts_a, texts_b)]
     metrics = EngineMetrics(model_name)
     recorder = SpanRecorder("engine", buffer=debug_requests_buffer,
                             enabled=tracing)
@@ -881,6 +937,97 @@ def create_engine_app(
                 return
             self._json(200, {"prompt": engine.engine.tokenizer.decode(ids)})
 
+        # -- embeddings, rerank, score ------------------------------------
+
+        def _encode_refused(self) -> bool:
+            """The generation routes' drain and warming gates and a spent
+            deadline (504), as the JAX server's encode routes keep them.
+            True when it answered."""
+            if self._gate_refused():
+                return True
+            if self._request_deadline()[0]:
+                self._deadline_error()
+                return True
+            return False
+
+        def embeddings(self) -> None:
+            """One vector a prompt: ``ModelRunner.encode`` on the step
+            thread, between two steps. A prompt past ``max_model_len`` (or
+            with an id outside the vocabulary) answers 400."""
+            try:
+                req = self._body()
+                if not isinstance(req.get("model"), str):
+                    raise ValueError("model: a string is required")
+                inputs = embedding_inputs(req.get("input", ""))
+            except (TypeError, ValueError) as e:
+                self._error(f"invalid request body: {e}")
+                return
+            if self._encode_refused():
+                return
+            tok = engine.engine.tokenizer
+            data, total = [], 0
+            for i, item in enumerate(inputs):
+                ids = item if isinstance(item, list) else tok.encode(item)
+                total += len(ids)
+                try:
+                    vec = engine.encode(ids)
+                except ValueError as e:
+                    self._error(str(e))
+                    return
+                data.append({"object": "embedding", "index": i,
+                             "embedding": vec.tolist()})
+            self._json(200, {"object": "list", "data": data,
+                             "model": req["model"],
+                             "usage": {"prompt_tokens": total,
+                                       "total_tokens": total}})
+
+        def rerank(self) -> None:
+            """The documents by relevance to the query, descending, the
+            first ``top_n``."""
+            if self._encode_refused():
+                return
+            try:
+                body = self._body()
+                query = _texts(body.get("query", ""), "query")[0]
+                docs = _texts(body.get("documents", []), "documents")
+                top_n = int(body.get("top_n") or len(docs))
+                scores = _pair_scores([query] * len(docs), docs)
+            except (TypeError, ValueError) as e:
+                self._error(f"invalid request body: {e}")
+                return
+            order = sorted(range(len(docs)), key=lambda i: -scores[i])[:top_n]
+            self._json(200, {
+                "id": f"rerank-{uuid.uuid4().hex}",
+                "model": body.get("model", model_name),
+                "scoring_method": scoring_method,
+                "results": [{"index": i, "document": {"text": docs[i]},
+                             "relevance_score": scores[i]} for i in order],
+            })
+
+        def score(self) -> None:
+            """The score of each (text_1, text_2) pair; a single
+            ``text_1`` is paired with every ``text_2``."""
+            if self._encode_refused():
+                return
+            try:
+                body = self._body()
+                l1 = _texts(body.get("text_1", ""), "text_1")
+                l2 = _texts(body.get("text_2", ""), "text_2")
+                if len(l1) == 1 and len(l2) > 1:
+                    l1 = l1 * len(l2)
+                scores = _pair_scores(l1, l2)
+            except (TypeError, ValueError) as e:
+                self._error(f"invalid request body: {e}")
+                return
+            self._json(200, {
+                "id": f"score-{uuid.uuid4().hex}", "object": "list",
+                "model": body.get("model", model_name),
+                "scoring_method": scoring_method,
+                "data": [{"index": i, "object": "score", "score": v}
+                         for i, v in enumerate(scores)],
+                "usage": {},
+            })
+
         # -- generation --------------------------------------------------
 
         def completions(self) -> None:
@@ -898,18 +1045,7 @@ def create_engine_app(
             if engine.sleeping:
                 self._error("engine is sleeping", 503, "service_unavailable")
                 return
-            if engine.draining:
-                # The marker tells a router this is a deliberate drain,
-                # not a failure: it fails over without a breaker penalty.
-                self._error("engine is draining", 503, "service_unavailable",
-                            headers={"X-PST-Draining": "1"})
-                return
-            if engine.warming:
-                # Accepting would queue the request behind the warmup
-                # pass; the marker lets a router fail over.
-                self._error("engine is warming up (capturing step graphs)",
-                            503, "service_unavailable",
-                            headers={"X-PST-Warming": "1"})
+            if self._gate_refused():
                 return
             tok = engine.engine.tokenizer
             if is_chat:
@@ -948,7 +1084,23 @@ def create_engine_app(
                 return
             self._serve_batch(req, prompts)
 
-        # -- admission: token ids, deadline, tenant -----------------------
+        # -- admission: gates, token ids, deadline, tenant ----------------
+
+        def _gate_refused(self) -> bool:
+            """Drain and warming: a 503 whose marker tells a router this is
+            deliberate, not a failure (it fails over without a breaker
+            penalty; accepting while warming would queue the request
+            behind the warmup pass). True when it answered."""
+            if engine.draining:
+                self._error("engine is draining", 503, "service_unavailable",
+                            headers={"X-PST-Draining": "1"})
+                return True
+            if engine.warming:
+                self._error("engine is warming up (capturing step graphs)",
+                            503, "service_unavailable",
+                            headers={"X-PST-Warming": "1"})
+                return True
+            return False
 
         def _deadline_error(self) -> None:
             # A budget shed, not an engine failure: the marker keeps the
@@ -1390,6 +1542,12 @@ def create_engine_app(
         "/debug/profile": Handler.debug_profile,
         "/v1/load_lora_adapter": Handler.load_lora_adapter,
         "/v1/unload_lora_adapter": Handler.unload_lora_adapter,
+        "/v1/embeddings": Handler.embeddings,
+        "/rerank": Handler.rerank,
+        "/v1/rerank": Handler.rerank,
+        "/v2/rerank": Handler.rerank,
+        "/score": Handler.score,
+        "/v1/score": Handler.score,
     }
 
     server = ThreadingHTTPServer((host, port), Handler)
@@ -1529,6 +1687,16 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-loras", type=int, default=8)
     p.add_argument("--max-lora-rank", type=int, default=16)
     p.add_argument("--lora-dir", default="/adapters")
+    # Cross-encoder scoring for /rerank and /score (the chart emits it for
+    # a modelSpec with scoringModel): a preset (random weights) or a local
+    # HF sequence-classification checkpoint.
+    p.add_argument("--scoring-model", default=None)
+    # The kernel library's compile cache (the chart's warmup.cacheDir).
+    p.add_argument("--compile-cache-dir", default=None,
+                   help="build the CUDA kernel library into, and load it "
+                        "from, <dir>/<key> (key: the sources, the nvcc "
+                        "version and the arch), so a restart on the same "
+                        "volume skips the build")
     p.add_argument("--num-decode-steps", type=int, default=1)
     p.add_argument("--adaptive-decode-steps", type=int, default=0,
                    help="deep burst cap when the arrival stream is quiet")
@@ -1709,15 +1877,28 @@ def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
         flight_snapshot_dir=args.flight_snapshot_dir,
         cost_attribution=args.cost_attribution,
         startup_phases=args.startup_phases,
+        compile_cache_dir=args.compile_cache_dir,
     )
 
 
 def app_options_from_args(args: argparse.Namespace) -> dict:
-    """``create_engine_app``'s keywords from the server's flags."""
+    """``create_engine_app``'s keywords from the server's flags (the
+    cross-encoder is ``cross_encoder_from_args``'s)."""
     return dict(tracing=args.tracing,
                 debug_requests_buffer=args.debug_requests_buffer,
                 profiling=args.profiling, profile_dir=args.profile_dir,
                 api_key=args.api_key)
+
+
+def cross_encoder_from_args(args: argparse.Namespace):
+    """The ``--scoring-model``'s cross-encoder on ``--device``, or None."""
+    if not args.scoring_model:
+        return None
+    from .cross_encoder import CrossEncoder
+
+    ce = CrossEncoder(args.scoring_model, device=args.device)
+    logger.info("cross-encoder scoring model loaded: %s", ce.cfg.name)
+    return ce
 
 
 class _Terminated(Exception):
@@ -1739,6 +1920,7 @@ def main(argv=None) -> None:
     init_otel("pst-engine")
     engine = AsyncLLMEngine(cfg)
     server = create_engine_app(engine, args.host, args.port,
+                               cross_encoder=cross_encoder_from_args(args),
                                **app_options_from_args(args))
     engine.start()
     logger.info("serving %s on %s:%d (%s)", engine.engine.model_name,

@@ -1,8 +1,8 @@
 """Tokenizers: a byte-level tokenizer and local HF tokenizers.
 
-A copy of the JAX package's ``engine/tokenizer.py`` without the sentence
-pairs of the cross-encoder (not ported yet), with its chat templating and
-a ``ChatMessage`` of its own. Tokenizers load only from local
+A copy of the JAX package's ``engine/tokenizer.py``, with its chat
+templating, the cross-encoder's sentence pairs (``encode_pair``) and a
+``ChatMessage`` of its own. Tokenizers load only from local
 directories; ``transformers`` is imported only when an HF tokenizer is
 asked for.
 """
@@ -106,6 +106,23 @@ class ByteTokenizer:
             "utf-8", errors="replace"
         )
 
+    def encode_pair(
+        self, a: str, b: str, max_len: Optional[int] = None
+    ) -> Tuple[List[int], List[int]]:
+        """(ids, segment ids) of a pair: ``a``, the separator 258 (outside
+        the byte ids 1..256), ``b``; segment 0 for ``a`` and the
+        separator, 1 for ``b``. Longest-first truncation to ``max_len``
+        keeps the template whole."""
+        ia, ib = self.encode(a), self.encode(b)
+        if max_len is not None:
+            budget = max_len - 1  # the separator
+            while len(ia) + len(ib) > budget:
+                if len(ia) >= len(ib):
+                    ia.pop()
+                else:
+                    ib.pop()
+        return ia + [258] + ib, [0] * (len(ia) + 1) + [1] * len(ib)
+
     def apply_chat_template(
         self,
         messages: List[ChatMessage],
@@ -135,6 +152,21 @@ class HFTokenizer:
 
     def decode(self, ids: Sequence[int]) -> str:
         return self._tok.decode(list(ids), skip_special_tokens=True)
+
+    def encode_pair(
+        self, a: str, b: str, max_len: Optional[int] = None
+    ) -> Tuple[List[int], List[int]]:
+        """The model's own pair template (RoBERTa: <s> a </s></s> b </s>;
+        BERT: [CLS] a [SEP] b [SEP] with segment ids), truncated
+        ``longest_first`` by the tokenizer, which keeps the final special
+        tokens."""
+        kwargs = {}
+        if max_len is not None:
+            kwargs = {"truncation": "longest_first", "max_length": max_len}
+        enc = self._tok(a, b, **kwargs)
+        ids = enc["input_ids"]
+        types = enc.get("token_type_ids") or [0] * len(ids)
+        return ids, types
 
     def apply_chat_template(
         self,

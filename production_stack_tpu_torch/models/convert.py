@@ -10,6 +10,10 @@ bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
 (``.view(np.uint16)``) and are reinterpreted as ``torch.bfloat16``. The
 int8 weights and fp32 ``*_qs`` / ``*_q4s`` scales of a JAX
 ``quantize_tree`` output cross as they are.
+
+``bert_params_from_jax(tree)`` does the same for the cross-encoder's tree
+(the JAX ``BertClassifier.init_params``, or ``load_hf_bert_params``), whose
+nested layer norms keep their nesting.
 """
 
 from __future__ import annotations
@@ -42,3 +46,14 @@ def params_from_jax(
         else tensor_from_numpy(np.asarray(v), device)
         for k, v in tree.items()
     }
+
+
+def bert_params_from_jax(
+    tree: Dict[str, Any], device: Optional[torch.device] = None
+) -> Dict[str, Any]:
+    """The JAX ``BertClassifier`` tree (numpy leaves) -> the port's
+    ``models/bert.py`` tree: the same names, nesting and layouts."""
+    for k in ("word_emb", "pos_emb", "type_emb", "layers", "cls_out_w"):
+        if k not in tree:
+            raise KeyError(f"not a BertClassifier tree: no {k!r}")
+    return params_from_jax(tree, device)

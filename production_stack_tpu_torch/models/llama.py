@@ -44,6 +44,11 @@ quantized; slot 0 stays zero ("no adapter"). Given a bank in
 q, k and v after their own cast, wo to the fp32 product before its one
 cast.
 
+The embedding path (``encode``, the JAX ``encode``): the same layers over
+a whole prompt with causal attention and no cache
+(:func:`encode_attention`, in blocks of query rows), then a mean pool and
+an L2 norm.
+
 Not ported yet (``Llama`` raises ``NotImplementedError`` on the config):
 mixture-of-experts; pipeline parallelism has no parameter here.
 """
@@ -573,6 +578,117 @@ class Llama:
         if uqs is not None:
             logits = logits * uqs  # per-vocab-row scale
         return _softcap(logits, cfg.final_logit_softcap), kv_cache
+
+    @torch.no_grad()
+    def encode(
+        self,
+        params: Params,
+        tokens: torch.Tensor,  # [B, T] int
+        lengths: torch.Tensor,  # [B] int valid lengths
+    ) -> torch.Tensor:
+        """The embedding path (``/v1/embeddings``), the JAX ``encode``:
+        causal attention over the whole prompt at positions ``0..T-1``, no
+        KV cache; returns the L2-normalized mean over each row's valid
+        positions of the final hidden states, ``[B, D]`` float32. The
+        layers are the forward's (embed scale, unit-offset norms, qk norm
+        before rope, llama3 rope, each layer's window and softcap,
+        post-block norms); the LoRA bank is not applied, as in JAX.
+        Attention runs in blocks of query rows (:func:`encode_attention`)."""
+        cfg = self.cfg
+        B, T = tokens.shape
+        dev = tokens.device
+        offset = cfg.norm_unit_offset
+        positions = torch.arange(T, device=dev)[None].expand(B, T)
+        x = _embed_lookup(params, tokens.long(), cfg.torch_dtype)
+        if cfg.embed_scale:
+            x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=x.dtype)
+        rope_cos, rope_sin = _rope_tables(positions, cfg)
+        lengths = lengths.to(dev).long()
+        layers = params["layers"]
+        for li in range(cfg.num_layers):
+            lp = {k: v[li] for k, v in layers.items()}
+            h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps, offset)
+            q = _proj(h, lp, "wq", lp.get("bq")).reshape(
+                B, T, cfg.num_heads, cfg.head_dim)
+            k = _proj(h, lp, "wk", lp.get("bk")).reshape(
+                B, T, cfg.num_kv_heads, cfg.head_dim)
+            v = _proj(h, lp, "wv", lp.get("bv")).reshape(
+                B, T, cfg.num_kv_heads, cfg.head_dim)
+            if cfg.qk_norm:  # Qwen3: per-head RMSNorm over hd, pre-rope
+                q = _rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
+                k = _rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
+            q = _apply_rope(q, rope_cos, rope_sin)
+            k = _apply_rope(k, rope_cos, rope_sin)
+            attn = encode_attention(
+                q, k, v, lengths, scale=cfg.attn_scale,
+                window=_layer_window(cfg, li),
+                softcap=cfg.attn_logit_softcap,
+            ).to(x.dtype)
+            o = _proj(attn, lp, "wo")
+            if cfg.post_block_norms:
+                o = _rms_norm(o, lp["post_attn_norm"], cfg.rms_norm_eps,
+                              offset)
+            x = x + o
+            h = _rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps, offset)
+            ff = _mlp(h, lp, _ACTS[cfg.hidden_act])
+            if cfg.post_block_norms:
+                ff = _rms_norm(ff, lp["post_mlp_norm"], cfg.rms_norm_eps,
+                               offset)
+            x = x + ff
+        x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps, offset)
+        mask = (positions < lengths[:, None]).float()[..., None]  # [B, T, 1]
+        pooled = (x.float() * mask).sum(1) / torch.clamp(mask.sum(1), min=1.0)
+        norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
+        return pooled / torch.clamp(norm, min=1e-12)
+
+
+# The most bytes the fp32 scores of one block of query rows take in
+# ``encode_attention`` (the probabilities beside them take as much again):
+# 512 of Llama-3-8B's rows at T = 4096, where the whole [H, T, T] tensor
+# would take 2 GiB a layer outside the KV budget.
+ENCODE_SCORE_BYTES = 256 << 20
+
+
+def encode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, *, scale: float, window: int = 0,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """Causal self-attention of the encode path: q [B, T, H, hd] against k
+    and v [B, T, KH, hd] at positions ``0..T-1``, keys masked to each row's
+    ``lengths``, to the causal past and to ``window`` (0 = global), the
+    scores soft-capped. Returns [B, T, H*hd] float32.
+
+    The JAX encode's arithmetic: fp32 scores of the operands' exact
+    products, the mask value -1e30, an fp32 softmax, the probabilities
+    cast to v's dtype and an fp32 product with v (a plain product in JAX,
+    ``jnp.einsum``, so here ``torch.bmm`` with an fp32 result). Query rows
+    run in blocks whose scores take at most ``ENCODE_SCORE_BYTES``: a
+    row's softmax over all its keys is the same in any block."""
+    B, T, H, hd = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    rows = max(1, min(T, ENCODE_SCORE_BYTES // (B * H * T * 4)))
+    kt = k.permute(0, 2, 3, 1).reshape(B * KH, hd, T)  # [B*KH, hd, S]
+    vt = v.permute(0, 2, 1, 3).reshape(B * KH, T, hd)  # [B*KH, S, hd]
+    keys = torch.arange(T, device=q.device)
+    valid = keys[None, :] < lengths[:, None]  # [B, S]
+    win = window if window > 0 else 1 << 30
+    out = torch.empty((B, T, H * hd), dtype=torch.float32, device=q.device)
+    for t0 in range(0, T, rows):
+        t1 = min(T, t0 + rows)
+        R = t1 - t0
+        qg = q[:, t0:t1].reshape(B, R, KH, G, hd).permute(0, 2, 3, 1, 4)
+        scores = bmm_f32(qg.reshape(B * KH, G * R, hd), kt).view(
+            B, KH, G, R, T).mul_(scale)
+        scores = _softcap(scores, softcap)
+        qpos = keys[t0:t1, None]
+        mask = ((keys[None, :] <= qpos) & (keys[None, :] > qpos - win))
+        mask = (mask[None] & valid[:, None, :])[:, None, None]  # [B,1,1,R,S]
+        scores.masked_fill_(~mask, -1e30)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        o = bmm_f32(probs.view(B * KH, G * R, T), vt)  # [B*KH, G*R, hd]
+        out[:, t0:t1] = o.view(B, KH, G, R, hd).permute(0, 3, 1, 2, 4) \
+            .reshape(B, R, H * hd)
+    return out
 
 
 # ----------------------------------------------------------------------------

@@ -19,8 +19,11 @@ What differs:
 - Compile events (a step that captured its key) are queued for the
   engine to attach to the requests it served only for live steps: a
   warmup capture delays no request.
-- Not exported, since its module is not ported: the JAX compilation
-  cache's hits and misses.
+- ``pst_engine_compile_cache_hits_total`` and ``..._misses_total`` keep
+  the JAX names and help, and count the kernel library's loads from, and
+  builds into, ``--compile-cache-dir`` (``ops/_build.py``): one library a
+  process, where the JAX package counts each compiled program. The
+  engine's ``stats()`` carries them.
 
 Every live step also goes to the engine's flight recorder
 (``attach_flight``, ``obs/flight.py``), and each finished request's
@@ -154,6 +157,14 @@ class EngineTelemetry:
             "Device-seconds attributed to finished requests, per tenant — "
             "the chip-time billing meter beside pst_tenant_usage_tokens",
             ["tenant"])
+        self.compile_cache_hits = r.counter(
+            "pst_engine_compile_cache_hits",
+            "Persistent JAX compilation-cache hits (executable deserialized "
+            "instead of rebuilt by XLA)")
+        self.compile_cache_misses = r.counter(
+            "pst_engine_compile_cache_misses",
+            "Persistent JAX compilation-cache misses (fresh XLA build, entry "
+            "written for the next restart)")
         self.flight_snapshots_persisted = r.counter(
             "pst_engine_flight_snapshots_persisted",
             "Flight-recorder snapshots written to --flight-snapshot-dir "
@@ -312,6 +323,10 @@ class EngineTelemetry:
             float(stats.get("num_preemptions_total", 0.0)))
         self.swap_out.to_total(float(stats.get("kv_swap_out_total", 0.0)))
         self.swap_in.to_total(float(stats.get("kv_swap_in_total", 0.0)))
+        self.compile_cache_hits.to_total(
+            float(stats.get("compile_cache_hits_total", 0.0)))
+        self.compile_cache_misses.to_total(
+            float(stats.get("compile_cache_misses_total", 0.0)))
 
     def render(self) -> str:
         return self.registry.render()

@@ -9,6 +9,15 @@ at the repository root, named by a hash of the sources and flags, and is
 built at first use (never at import: machines without ``nvcc`` import this
 module fine).
 
+The engine's ``--compile-cache-dir`` (``set_compile_cache_dir``, before
+the first kernel use) moves it to ``<dir>/<key>``, the key a digest of
+the sources, the ``nvcc`` version and the target arch
+(``compile_cache_key``): a restart, or a replacement pod on the same
+volume, loads the library instead of building it. ``cache_counts``
+counts the loads from that directory (``hits``) and the builds into it
+(``misses``), once a process: the library is one artifact, where the JAX
+package counts each compiled program.
+
 Kernels, each replacing a Pallas TPU kernel of the JAX package:
 
 - ``paged_attention.cuh`` (built as ``paged_attention.cu``,
@@ -67,8 +76,9 @@ SOURCES = ("paged_attention.cu", "paged_attention_write.cu",
 HEADERS = ("paged_attention.cuh", "decode_splitkv.cuh", "prefill_wgmma.cuh",
            "splits.cuh", "fp8.cuh", "sm90.cuh", "int4_bits.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+ARCH = "sm_90a"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-gencode", f"arch=compute_{ARCH[3:]},code={ARCH}",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
@@ -77,6 +87,9 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 # Seconds the last build in this process took (0.0 when it was cached).
 last_build_seconds = 0.0
+# The compile cache's keyed directory (None: BUILD_DIR) and its outcomes.
+_cache_dir: Optional[Path] = None
+cache_counts = {"hits": 0, "misses": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -103,22 +116,58 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def nvcc_version() -> str:
+    """``nvcc --version``'s release line, or ``"no nvcc"`` where there is
+    none (a machine without the toolkit still resolves its paths)."""
+    try:
+        out = subprocess.run([nvcc_path(), "--version"], capture_output=True,
+                             text=True, check=True).stdout
+    except (RuntimeError, OSError, subprocess.CalledProcessError):
+        return "no nvcc"
+    lines = [ln for ln in out.splitlines() if "release" in ln]
+    return (lines or out.splitlines() or ["unknown"])[-1].strip()
+
+
+def compile_cache_key() -> str:
+    """The compile cache's directory name: a digest of the kernel sources
+    and flags (``_digest``), the nvcc version and the target arch."""
+    parts = (f"sources={_digest()}", f"nvcc={nvcc_version()}",
+             f"arch={ARCH}")
+    return hashlib.sha256("|".join(parts).encode()).hexdigest()[:16]
+
+
+def set_compile_cache_dir(root: Optional[str]) -> Optional[Path]:
+    """Build into, and load from, ``<root>/<compile_cache_key()>`` (None:
+    ``BUILD_DIR`` again). Takes effect at the first kernel use: a library
+    this process already loaded stays loaded. Returns the directory."""
+    global _cache_dir
+    with _lock:
+        _cache_dir = (Path(root) / compile_cache_key()) if root else None
+        return _cache_dir
+
+
 def library_path() -> Path:
-    return BUILD_DIR / f"libpst_torch_kernels_{_digest()}.so"
+    return (_cache_dir or BUILD_DIR) / f"libpst_torch_kernels_{_digest()}.so"
 
 
 def build() -> Path:
     """Compile the sources if no library for their hash exists yet.
-    ptxas's register/shared-memory report goes to ``build.log`` beside it."""
+    ptxas's register/shared-memory report goes to ``build.log`` beside it.
+    In the compile cache's directory a load counts as a hit and a build
+    as a miss."""
     global last_build_seconds
     out = library_path()
+    cached = _cache_dir is not None
     if out.exists():
         last_build_seconds = 0.0
+        cache_counts["hits"] += cached
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cache_counts["misses"] += cached
+    build_dir = out.parent
+    build_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
-    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    objs = [build_dir / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    tmp = build_dir / f"{tag}.so.tmp"
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     cmds = [[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
@@ -137,7 +186,7 @@ def build() -> Path:
         logs.append((link, proc.stdout, proc.returncode))
     last_build_seconds = time.perf_counter() - t0
     text = "".join(" ".join(c) + "\n" + (o or "") for c, o, _ in logs)
-    (BUILD_DIR / "build.log").write_text(text)
+    (build_dir / "build.log").write_text(text)
     for o in objs:
         o.unlink(missing_ok=True)
     failed = [rc for *_, rc in logs if rc != 0]

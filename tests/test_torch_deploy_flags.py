@@ -41,10 +41,7 @@ from .test_torch_tracing import _call, _error
 REPO = Path(__file__).resolve().parent.parent
 # Flags the deploy layer may emit whose module the port has not yet, each
 # with its ROADMAP.md item; the port's parser refuses them.
-WAITING = {
-    "--scoring-model": "queue 1, item 12", "--moe-impl": "queue 1, item 11",
-    "--compile-cache-dir": "XLA's compile cache, no counterpart",
-}
+WAITING = {"--moe-impl": "queue 1, item 11"}
 # A value each flag that takes one accepts in both parsers.
 VALUES = {"--model": MODEL, "--attn-impl": "pallas", "--warmup": "full",
           "--kv-role": "producer", "--log-format": "json",
@@ -95,6 +92,9 @@ NEW_FLAGS = [
 ]
 # The chart's engine args for a modelSpec with lora.enabled.
 CHART_LORA = ["--enable-lora", "--lora-dir", "/adapters"]
+# ... with scoringModel, and with warmup.cacheDir.
+CHART_SCORING = ["--scoring-model", "bge-reranker-base",
+                 "--compile-cache-dir", "/var/cache/pst"]
 
 
 def _flags(text: str) -> set:
@@ -133,8 +133,7 @@ def test_every_deploy_flag_parses_but_the_waiting_list(capsys):
             "--served-model-name", "--no-enable-prefix-caching"} <= flags
     assert {"--enable-lora", "--lora-dir", "--scoring-model",
             "--compile-cache-dir"} <= flags
-    assert set(WAITING) == {"--scoring-model", "--moe-impl",
-                            "--compile-cache-dir"}
+    assert set(WAITING) == {"--moe-impl"}
     for flag in sorted(flags - set(WAITING)):
         argv = _argv(flag)
         assert not _refused(argv), argv
@@ -156,16 +155,21 @@ def test_the_config_equals_the_jax_config():
     operator's default argv, and the operator's with each new flag."""
     chart = list(CHART_DEFAULT)
     chart[chart.index("--tensor-parallel-size") + 1] = "1"
-    for argv in [chart, chart + CHART_LORA, OPERATOR_DEFAULT,
+    for argv in [chart, chart + CHART_LORA, chart + CHART_SCORING,
+                 OPERATOR_DEFAULT,
                  *[OPERATOR_DEFAULT + extra for extra in NEW_FLAGS]]:
         jargs = jax_server.parse_engine_args(argv)
         pargs = port_server.parse_engine_args(argv)
         got, want = _shared(port_server.engine_config_from_args(pargs),
                             jax_server.engine_config_from_args(jargs))
         assert got == want, argv
-        assert len(got) == 47  # every field but device (and JAX-only ones)
-        for name in ("api_key", "sentry_dsn", "startup_phases"):
+        assert len(got) == 48  # every field but device (and JAX-only ones)
+        for name in ("api_key", "sentry_dsn", "startup_phases",
+                     "scoring_model"):
             assert getattr(pargs, name) == getattr(jargs, name), name
+    assert got["compile_cache_dir"] is None
+    assert port_server.engine_config_from_args(port_server.parse_engine_args(
+        chart + CHART_SCORING)).compile_cache_dir == "/var/cache/pst"
 
 
 def test_a_parallel_size_above_one_is_refused_at_start():
@@ -206,6 +210,13 @@ REQUESTS = [
     # removes nothing.
     ("POST", "/v1/load_lora_adapter", {"lora_name": "ad1"}),
     ("POST", "/v1/unload_lora_adapter", {"lora_name": "ad1"}),
+    # The encode routes (no scoring model: embedding similarity).
+    ("POST", "/v1/embeddings", {"model": MODEL, "input": "Hi"}),
+    *[("POST", path, {"model": MODEL, "query": "Hi",
+                      "documents": ["a", "b"]})
+      for path in ("/rerank", "/v1/rerank", "/v2/rerank")],
+    *[("POST", path, {"model": MODEL, "text_1": "Hi", "text_2": "a"})
+      for path in ("/score", "/v1/score")],
 ]
 
 

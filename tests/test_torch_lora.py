@@ -393,6 +393,15 @@ def test_unload_in_flight_swap_and_recompute(tmp_path, stand_in_graphs):
     sync = engine(overlap_decode=False, num_decode_steps=2)
     bank = sync.runner.params["layers"]["lora_a_wq"]
     ptr = bank.data_ptr()
+    release = sync.lora_manager.release_slot
+
+    def release_while_retiring(slot):
+        # Freed before it leaves the retiring set: stats(), read from
+        # another thread, never shows the slot neither retiring nor free.
+        assert slot in sync._retiring_slots
+        release(slot)
+
+    sync.lora_manager.release_slot = release_while_retiring
 
     def unload_at_2(eng, n):
         if n == 2:

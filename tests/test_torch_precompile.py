@@ -1,9 +1,8 @@
 """Step capture over the shape-bucket lattice (``engine/precompile.py``
 of the PyTorch port) against the JAX package's precompile module.
 
-The port's lattice, lazy core and budget selection must be the JAX
-ones with the kind the port does not serve (``encode``) taken out, for
-the same pipeline fields (``overlap_decode``, ``async_decode``,
+The port's lattice (its ``encode`` lengths included), lazy core and
+budget selection must be the JAX ones, for the same pipeline fields (``overlap_decode``, ``async_decode``,
 ``adaptive_decode_steps``) on both sides, pipelining off and on, without
 n-gram speculation (with it: ``tests/test_torch_spec_decode.py``). On the CPU nothing can be
 captured, so one test injects a
@@ -69,8 +68,9 @@ def _configs(c):
 
 
 def _served(buckets):
-    """JAX buckets of the kinds the port serves, as field tuples."""
-    return [dataclasses.astuple(b) for b in buckets if b.kind != "encode"]
+    """JAX buckets as field tuples: the port serves every kind, the
+    encode lengths included."""
+    return [dataclasses.astuple(b) for b in buckets]
 
 
 def _tuples(buckets):
@@ -83,8 +83,9 @@ def test_lattice_equals_the_jax_lattice(config):
     got = tpre.enumerate_lattice(cfg)
     want = jpre.enumerate_lattice(jcfg)
     assert got and _tuples(got) == _served(want)
-    assert [b.label for b in got] == [
-        b.label for b in want if b.kind != "encode"]
+    assert [b.label for b in got] == [b.label for b in want]
+    assert tpre.encode_buckets(cfg) == jpre.encode_buckets(jcfg)
+    assert {b.kind for b in got} >= {"decode", "prefill", "encode"}
     assert tpre.decode_row_buckets(cfg) == jpre.decode_row_buckets(jcfg)
     assert tpre.table_width_buckets(cfg) == jpre.table_width_buckets(jcfg)
     assert tpre.prefill_shape_buckets(cfg) == jpre.prefill_shape_buckets(jcfg)

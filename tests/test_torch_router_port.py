@@ -6,7 +6,9 @@ the port's server on ``tiny-llama-debug`` on the CPU. Completions and
 chats through the router must equal the same requests sent directly; the
 router's scraper reads the port's ``/metrics``; its health loop reads
 ``/is_draining`` and ``/ready``, so an engine drained at its own
-``/drain`` leaves the rotation and comes back after ``/undrain``.
+``/drain`` leaves the rotation and comes back after ``/undrain``. The
+router forwards ``/v1/embeddings`` and ``/rerank`` to the port and their
+bodies come back as the port answers them directly.
 """
 
 import asyncio
@@ -195,5 +197,28 @@ async def test_router_admin_proxy_sleeps_and_drains_the_port(port_engine):
             assert status == 200 and not engine.draining
             assert (await _post(s, router_url + "/v1/completions",
                                 COMPLETION))[0] == 200
+    finally:
+        await runner.cleanup()
+
+
+@pytest.mark.parametrize("path,body", [
+    ("/v1/embeddings", {"model": MODEL, "input": ["paged", "attention"]}),
+    ("/rerank", {"model": MODEL, "query": "which block?",
+                 "documents": ["block one", "block two", "a third"],
+                 "top_n": 2}),
+])
+async def test_router_forwards_the_encode_routes(port_engine, path, body):
+    """``/v1/embeddings`` and ``/rerank`` through the router (which sends
+    ``/rerank`` on as ``/v1/rerank``) come back as the port answers them
+    directly, ids aside."""
+    engine_url, _ = port_engine
+    runner, router_url = await _router(engine_url)
+    try:
+        async with aiohttp.ClientSession() as s:
+            direct = await _post(s, engine_url + path, body)
+            routed = await _post(s, router_url + path, body)
+            assert routed[0] == direct[0] == 200
+            assert _without_ids(routed[1]) == _without_ids(direct[1])
+            assert routed[1].get("data") or routed[1].get("results")
     finally:
         await runner.cleanup()
