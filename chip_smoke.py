@@ -290,6 +290,45 @@ stack printed:
    of 8 rows run the int4 wgmma route (N = 40).
 3d. The same model int8-quantized, against the gather path on its weights
    dequantized to bf16 beforehand.
+4o. Mixture-of-experts: mixtral-8x7b in int4 at full width and depth (32
+   layers, 8 experts, top 2; served in int4 only: its bf16 tree is about
+   93 GB), the Llama trees freed first. (a) The tree drawn and quantized
+   on the card a slice at a time from a seed: its bytes split into expert
+   banks, attention, int8 embed/lm_head and the rest, within 24-26 GB,
+   and the peak allocated while drawing. (b) A 512-token prefill and 8
+   decode steps (every ``moe_impl`` name runs ``_moe_mlp``'s one body)
+   through the kernels, each int4 launch also held to its
+   plain version on the
+   same x (phase 2's per-row rule), and against the same forward through
+   the plain versions (``int4_matmul_plain``, which dequantizes one expert
+   slice a call, and the plain attention) on the kernel run's expert
+   choices (the router wrapped): the logits within ``MODEL_REL_ATOL`` of
+   max|logit| (phase 3b's rule). The kernels and the plain versions round
+   differently, so near-ties in a router's top 2 go either way and a
+   random 32-layer model carries such a flip on through attention: the
+   share of (token, layer) choices an unforced plain run makes otherwise,
+   by layer, is printed, not held. int4 launches 28 a layer a step (4
+   attention projections, 3 x 8 expert products), prefill and decode one
+   a layer a step; a negative control
+   whose kernels read layer 0's ``w_gate`` bank with its nibble planes
+   swapped fails the check. (c) Through the runner: a decode step at
+   B=8 x 4096 and a fresh T=512 chunk run eagerly, then replayed, under
+   CUDA's sync debug mode set to raise, and held eager against replayed
+   bit for bit (``graph_vs_eager``: rows and cache bytes; wall, device
+   busy, idle share); the expert products' FLOPs a step beside those of
+   the routed pairs alone; the decode step's byte bound with every
+   expert read, and with only the experts its rows routed to (their
+   count by layer recorded in the eager step). (d) The
+   server with ``--model mixtral-8x7b --quantization int4 --moe-impl
+   auto`` (prefix caching off, so both rounds prefill alike): 4
+   concurrent greedy completions of 32 tokens (one streamed),
+   a round to capture, then a timed round that must replay every step
+   (no eager step, no capture) with tokens equal to the first round's;
+   its int4 and attention counters grow from 0; TTFT (mean, from
+   ``/metrics``), output tok/s and the steps' share of the wall
+   (``pst_engine_device_busy_seconds``). (e) ``tiny-mixtral-debug`` (fp32,
+   head_dim 16) on the card: the CUDA-core attention kernels and the fp32
+   experts (``torch.matmul``), no int4 launch.
 3z. A checkpoint written and served: Llama-3-8B's widths at 4 of its 32
    layers (depth cut to bound the disk written, about 3.9 GB), random
    bf16 weights from a seed in HF names and ``[out, in]`` layout, two
@@ -385,6 +424,10 @@ builds the kernels and runs phase 4m alone (``lora_only``), with 3s and
 
 builds the kernels and runs phase 4n alone (``encode_only``), with the
 int4 tree drawn on the card in place of phase 3b.
+
+    python3 chip_smoke.py moe
+
+builds the kernels and runs phase 4o alone (``phase_moe``).
 """
 
 from __future__ import annotations
@@ -2052,17 +2095,17 @@ def phase_capture_kernels() -> None:
 GRAPH_B, GRAPH_CTX, GRAPH_T, GRAPH_N = 8, 4096, 512, 4
 
 
-def graph_runner(params, quantization=None) -> ModelRunner:
-    """A runner of the full-width model over ``params`` with pages for
+def graph_runner(params, quantization=None, model=MODEL) -> ModelRunner:
+    """A runner of the full-width ``model`` over ``params`` with pages for
     ``GRAPH_B`` sequences of ``GRAPH_CTX`` tokens, filled with random
     keys and values (every step reads all of them)."""
     W = GRAPH_CTX // BS
     cfg = EngineConfig(
-        model=MODEL, device=DEV.type, max_num_seqs=GRAPH_B,
+        model=model, device=DEV.type, max_num_seqs=GRAPH_B,
         max_prefill_tokens=GRAPH_T, max_model_len=GRAPH_CTX,
         num_decode_steps=GRAPH_N, num_kv_blocks=GRAPH_B * W + 1,
         quantization=quantization)
-    runner = ModelRunner(cfg, get_model_config(MODEL), params)
+    runner = ModelRunner(cfg, get_model_config(model), params)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(11)
     runner.kv_cache.normal_(generator=gen)
@@ -2180,7 +2223,8 @@ def graph_vs_eager(runner, label: str, batch: dict, want_lp: bool,
            os.environ.get("PST_FUSED_KV_WRITE") == "1"}
     for how, r in times.items():
         out[how] = {k: r[k] for k in ("wall_ms", "device_busy_ms",
-                                      "idle_share", "kernels_per_step")}
+                                      "idle_share", "kernels_per_step",
+                                      "top")}
     log(f"  {label}: packed rows {tuple(got.shape)} and cache bytes equal the "
         f"eager step's; " + "; ".join(
             f"{how} wall {r['wall_ms']:.2f} ms, device busy "
@@ -2344,7 +2388,8 @@ def phase_pipelined_bursts(params, quantization=None) -> dict:
            "fused_kv_write": os.environ.get("PST_FUSED_KV_WRITE") == "1"}
     for how, r in times.items():
         out[how] = {k: r[k] for k in ("wall_ms", "device_busy_ms",
-                                      "idle_share", "kernels_per_step")}
+                                      "idle_share", "kernels_per_step",
+                                      "top")}
     log(f"  {tag} per {n}-token burst: " + "; ".join(
         f"{how} host wall {r['wall_ms']:.3f} ms, device busy "
         f"{r['device_busy_ms']:.3f} ms, idle {r['idle_share']:.2%}"
@@ -3836,16 +3881,19 @@ def phase_checkpoint(card: str) -> dict:
 # Phase 4g: a pipelining server at full width.
 
 
-def serve_streams(params, argv: list, n_req: int, n_tok: int) -> dict:
+def serve_streams(params, argv: list, n_req: int, n_tok: int,
+                  streamed=None) -> dict:
     """One server of ``argv`` over ``params``: ``n_req`` concurrent greedy
-    streamed requests of ``n_tok`` tokens, once to capture the graphs and
-    once timed. In each round the step loop waits until all the round's
-    requests are in, so both servers step the same batches (a random
-    bf16 model's greedy tokens turn on the batch shapes' rounding).
-    Returns the timed round's tokens by prompt, wall, host gaps, launch
-    counts, scraped /metrics (and before it), the streams' costs (their
-    final usage chunks' ``pst_cost``), ``/debug/flight`` of the whole ring
-    and graph counts."""
+    requests of ``n_tok`` tokens (streamed, or those whose index is in
+    ``streamed``), once to capture the graphs and once timed. In each
+    round the step loop waits until all the round's requests are in, so
+    both servers step the same batches (a random bf16 model's greedy
+    tokens turn on the batch shapes' rounding). Returns the timed round's
+    tokens by prompt, wall, host gaps, launch counts, scraped /metrics
+    (and before it), the requests' costs (a stream's final usage chunk's
+    ``pst_cost``), ``/debug/flight`` of the whole ring and graph counts;
+    the first round's tokens and the graph counts after it as
+    ``warm_tokens`` and ``warm_graphs``."""
     args = parse_engine_args(argv)
     engine = AsyncLLMEngine(engine_config_from_args(args), params=params)
     llm = engine.engine
@@ -3885,11 +3933,14 @@ def serve_streams(params, argv: list, n_req: int, n_tok: int) -> dict:
     costs = []
 
     def one(i, errors):
+        body = {"prompt": f"Request {i}: a story about "
+                          f"{'paged ' * i}attention.",
+                "max_tokens": n_tok, "temperature": 0.0, "ignore_eos": True}
         try:
-            usage = _stream(port, {"prompt": f"Request {i}: a story about "
-                                             f"{'paged ' * i}attention.",
-                                   "max_tokens": n_tok, "temperature": 0.0,
-                                   "ignore_eos": True}, n_tok)
+            if streamed is None or i in streamed:
+                usage = _stream(port, body, n_tok)
+            else:
+                usage = _completion(port, body, n_tok)["usage"]
             costs.append(usage.get("pst_cost"))
         except BaseException as e:  # re-raised below
             errors.append(e)
@@ -3908,6 +3959,8 @@ def serve_streams(params, argv: list, n_req: int, n_tok: int) -> dict:
 
     try:
         traffic()  # captures this traffic's graphs
+        warm = ({k: list(v) for k, v in seen.items()},
+                dict(llm.runner.graph_counts))
         reset_launch_counts()
         gaps.clear()
         costs.clear()
@@ -3930,7 +3983,8 @@ def serve_streams(params, argv: list, n_req: int, n_tok: int) -> dict:
             "counts": counts, "samples": samples, "before": before,
             "costs": list(costs), "flight": flight,
             "lattice": {b.label for b in enumerate_lattice(llm.cfg)},
-            "graphs": dict(llm.runner.graph_counts)}
+            "graphs": dict(llm.runner.graph_counts),
+            "warm_tokens": warm[0], "warm_graphs": warm[1]}
 
 
 def audit_diagnostics(label: str, r: dict, n_req: int) -> dict:
@@ -6448,7 +6502,7 @@ def checked_int4(worst: list):
             x, packed, scales))
         worst.append(ratio)
         check(ok, f"int4 N={x.shape[0]} din={x.shape[1]} dout="
-              f"{packed.shape[1]} inside an encode: the kernel disagrees "
+              f"{packed.shape[1]} inside the model: the kernel disagrees "
               "with its plain version")
         return got
 
@@ -6924,6 +6978,377 @@ def start_compile_cache() -> tuple:
     library builds beside the phases that run meanwhile."""
     cache_dir = tempfile.mkdtemp(prefix="pst_compile_cache_")
     return CacheServer(cache_dir, cache_dir + ".log"), cache_dir
+
+
+# ---------------------------------------------------------------------------
+# Phase 4o: mixture-of-experts (mixtral-8x7b in int4)
+# ---------------------------------------------------------------------------
+
+MOE_MODEL = "mixtral-8x7b"
+MOE_TINY = "tiny-mixtral-debug"
+# mixtral-8x7b in int4, from the shapes: the expert banks' packed nibbles
+# 22.5 GB and their fp32 group scales 1.4 GB, attention 0.7 GB, the int8
+# embed and lm_head 0.26 GB.
+MOE_TREE_BYTES = (24.0e9, 26.0e9)
+# The kernels and their plain versions round differently, so a near-tie
+# in a router's top 2 can send a token to other experts in one run and not
+# in the other, and a random 32-layer model carries such a flip on to
+# other tokens (through attention) and later layers. The plain run held
+# to the kernels' therefore takes the kernel run's expert choices; an
+# unforced plain run gives the share of choices that differ.
+
+
+def moe_tree(model) -> tuple:
+    """4o(a): the int4 tree drawn and quantized on the card a slice at a
+    time; its bytes by part and the peak allocated while drawing."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init_params(gen, DEV, quantization="int4")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+
+    def nbytes(items):
+        return sum(v.numel() * v.element_size() for _, v in items)
+
+    layers = params["layers"].items()
+    split = {
+        "expert_banks": nbytes((k, v) for k, v in layers
+                               if k.startswith(("w_gate", "w_up", "w_down"))),
+        "attention": nbytes((k, v) for k, v in layers
+                            if k.startswith(("wq", "wk", "wv", "wo"))),
+        "embed_lm_head": nbytes((k, params[k]) for k in
+                                ("embed", "embed_qs", "lm_head", "lm_head_qs")),
+    }
+    total = sum(t.numel() * t.element_size() for t in _leaves(params))
+    split["router_and_norms"] = total - sum(split.values())
+    log(f"[phase 4o] {MOE_MODEL} int4 on {DEV} in {secs:.1f}s: "
+        f"{total / 1e9:.3f} GB resident ("
+        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in split.items())
+        + f"); peak allocated while drawing {peak / 1e9:.2f} GB")
+    check(MOE_TREE_BYTES[0] < total < MOE_TREE_BYTES[1],
+          f"4o: the int4 tree holds {total} bytes")
+    return params, {**split, "total": total, "peak_while_drawing": peak,
+                    "seconds": secs}
+
+
+@contextlib.contextmanager
+def recorded_routes(calls: list, forced=None):
+    """Each router call's expert ids ([N, k], one call a layer a step)
+    appended to ``calls``. With ``forced`` (another run's ``calls``) each
+    call takes that run's ids in turn instead of its own top k, weighted
+    by its own router's probabilities of them, renormalized."""
+    route = llama_mod.moe_route
+    given = iter(forced) if forced is not None else None
+
+    def recording(cfg, lp, x):
+        if given is None:
+            weights, ids = route(cfg, lp, x)
+        else:
+            ids = next(given)
+            probs = torch.softmax(llama_mod.mm_f32(
+                x.float(), lp["w_router"].float()), dim=-1)
+            weights = probs.gather(-1, ids)
+            weights = weights / weights.sum(dim=-1, keepdim=True)
+        calls.append(ids.clone())
+        return weights, ids
+
+    llama_mod.moe_route = recording
+    try:
+        yield
+    finally:
+        llama_mod.moe_route = route
+
+
+def route_flips(a_calls: list, b_calls: list, layers: int) -> dict:
+    """The (token, layer) expert choices that differ between two runs of
+    ``drive_model`` (the prompt's rows, then each decode step's live row;
+    a decode step's row 1 pads), in all and by layer."""
+    by_layer, choices = [0] * layers, 0
+    for c, (a, b) in enumerate(zip(a_calls, b_calls)):
+        step, layer = divmod(c, layers)
+        live = a.shape[0] if step == 0 else 1
+        diff = (a[:live].sort(-1).values != b[:live].sort(-1).values).any(-1)
+        by_layer[layer] += int(diff.sum())
+        choices += live
+    return {"share": sum(by_layer) / max(choices, 1),
+            "flipped": sum(by_layer), "choices": choices,
+            "by_layer": by_layer}
+
+
+def moe_int4_routes(cfg, N: int, steps: int) -> dict:
+    """The int4 routes a run of one N-token prefill and ``steps`` decode
+    steps (two rows) takes: every projection of the prefill on the wgmma
+    route (a split-sum pass where its plan splits), every decode one on
+    the decode route."""
+    D, F, E = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    shapes = ([(D, cfg.q_size), (D, cfg.kv_size), (D, cfg.kv_size),
+               (cfg.q_size, D)] + E * [(D, F), (D, F), (F, D)])
+    L = cfg.num_layers
+    sums = L * sum(i4.plan("wgmma", N, din, dout, 128).splits > 1
+                   for din, dout in shapes)
+    return {"wgmma": len(shapes) * L, "decode": len(shapes) * L * steps,
+            "simt": 0, "sum": sums}
+
+
+def phase_moe_model(model, params) -> dict:
+    """4o(b): the forward through the kernels (each int4 launch also held
+    to its plain version on the same x) against the plain versions on
+    the kernel run's expert choices, the launch counts, the share of
+    choices an unforced plain run makes otherwise, and a negative
+    control."""
+    cfg = model.cfg
+    L = cfg.num_layers
+    prompt, decode_tokens = model_prompt(cfg)
+    n = len(decode_tokens)
+    per_layer = 4 + 3 * cfg.num_experts
+    got_routes, forced_routes, free_routes, worst = [], [], [], []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with recorded_routes(got_routes), checked_int4(worst):
+        got, _ = drive_model(model, params, "cuda", prompt, decode_tokens)
+    t_cuda = time.perf_counter() - t0
+    counts, routes = launch_counts(), dict(i4.route_counts)
+    want = {"prefill": L, "decode": L * n, "decode_write": 0,
+            "int4": per_layer * L * (1 + n)}
+    check(counts == want, f"4o: launch counts {counts}, expected {want}")
+    want = moe_int4_routes(cfg, len(prompt), n)
+    check(routes == want, f"4o: int4 routes {routes}, expected {want}")
+    with plain_int4():
+        with recorded_routes(forced_routes, forced=got_routes):
+            ref, _ = drive_model(model, params, "plain", prompt,
+                                 decode_tokens)
+        with recorded_routes(free_routes):
+            free, _ = drive_model(model, params, "plain", prompt,
+                                  decode_tokens)
+    check(launch_counts() == counts,
+          "4o: the plain versions launched a kernel")
+    check(len(forced_routes) == len(got_routes) == L * (1 + n) and all(
+        torch.equal(a, b) for a, b in zip(forced_routes, got_routes)),
+        "4o: the forced plain run took other experts")
+    summary = agree(got, ref, "4o")
+    flips = route_flips(got_routes, free_routes, L)
+    free_err = float((got - free).abs().max())
+    log(f"  4o(b) 512-token prefill + {n} decode steps, launches "
+        f"{counts} (int4 {per_layer} a layer a step), each int4 launch "
+        f"within {max(worst):.3f} of its row tolerance against its plain "
+        f"version on the same x; against the plain versions on the same "
+        f"expert choices: {summary}; an unforced plain run chose other "
+        f"experts for {flips['flipped']} of {flips['choices']} (token, "
+        f"layer) choices ({flips['share']:.4%}; by layer "
+        f"{flips['by_layer']}), its logits max|diff| {free_err:.4f}; "
+        f"kernels {t_cuda:.2f}s (with the per-launch checks)")
+    out = {"agree": summary, "flips": flips,
+           "unforced_max_abs_err": free_err,
+           "worst_launch_ratio": max(worst), "launches": counts,
+           "int4_routes": routes}
+
+    # The negative control: layer 0's w_gate bank (every expert) read with
+    # its two nibble planes swapped by the kernels must fail the check
+    # against the plain versions on the true bank.
+    bank = params["layers"]["w_gate"][0]
+    saved = bank.clone()
+    bank.copy_(torch.bitwise_left_shift(saved, 4) | ((saved >> 4) & 0x0F))
+    bad_routes = []
+    try:
+        with recorded_routes(bad_routes):
+            bad, _ = drive_model(model, params, "cuda", prompt,
+                                 decode_tokens)
+    finally:
+        bank.copy_(saved)
+    with plain_int4(), recorded_routes([], forced=bad_routes):
+        ref, _ = drive_model(model, params, "plain", prompt, decode_tokens)
+    err = float((bad - ref).abs().max())
+    tol = MODEL_REL_ATOL * float(ref.abs().max())
+    log(f"  4o(b) negative control (layer 0's w_gate nibbles swapped): "
+        f"max|logit - plain| {err:.4f} against the tolerance {tol:.4f}")
+    check(err > tol, "4o: the check passes a bank with swapped nibbles")
+    out["negative_control"] = {"max_abs_err": err, "tol": tol}
+    return out
+
+
+def moe_step_flops(cfg, N: int) -> tuple:
+    """The expert products' FLOPs of an N-token step in the port (every
+    expert over N rows), and of the routed pairs alone."""
+    each = 2 * 3 * cfg.hidden_size * cfg.intermediate_size
+    full = cfg.num_layers * cfg.num_experts * N * each
+    return full, full * cfg.num_experts_per_tok // cfg.num_experts
+
+
+def phase_moe_steps(params) -> list:
+    """4o(c): a decode step at B=8 x 4096 and a fresh T=512 chunk through
+    the runner, eagerly and replayed under CUDA's sync debug mode set to
+    raise, and eager against replayed (``graph_vs_eager``); the decode
+    step's byte bound over every expert and over the experts its rows
+    routed to."""
+    cfg = get_model_config(MOE_MODEL)
+    L, E = cfg.num_layers, cfg.num_experts
+    runner = graph_runner(params, "int4", MOE_MODEL)
+    check(runner.moe_impl == "ragged", f"4o(c): runner form {runner.moe_impl}")
+    batches = graph_batches(runner)
+    rows, calls = [], []
+    for label, key, want_lp, greedy, N in (
+            (f"decode B={GRAPH_B} x {GRAPH_CTX}", "decode", True, False,
+             GRAPH_B),
+            (f"prefill T={GRAPH_T} fresh", "chunk", True, True, GRAPH_T)):
+        batch = batches[key]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with recorded_routes(calls if key == "decode" else []):
+                runner.eager_step(runner._put(batch), want_lp, greedy)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        row = graph_vs_eager(runner, f"mixtral int4 {label}", batch,
+                             want_lp, greedy)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runner._step(batch, want_lp, greedy)  # a replay
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        full, routed = moe_step_flops(cfg, N)
+        row.update(expert_flops=full, routed_expert_flops=routed)
+        top = "; ".join(
+            f"{t['kernel'][:60]} {t['ms_per_step']:.3f} ms "
+            f"({t['launches_per_step']:.0f})"
+            for t in row["replayed"]["top"])
+        log(f"  4o(c) {label}: eager and replayed ran with no host sync; "
+            f"expert products {full / 1e12:.3f} TFLOP a step (the routed "
+            f"pairs alone {routed / 1e12:.3f}); replayed, the top kernels "
+            f"a step: {top}")
+        rows.append(row)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The decode step's byte bound: every weight read once, and every
+    # row's keys and values; then with only the experts that the step's
+    # rows routed to in each layer (one router call a layer).
+    check(len(calls) == L, f"4o(c): {len(calls)} router calls, expected {L}")
+    touched = [int(c[:GRAPH_B].unique().numel()) for c in calls]
+    weights = sum(t.numel() * t.element_size() for t in _leaves(params))
+    banks = sum(v.numel() * v.element_size()
+                for k, v in params["layers"].items()
+                if k.startswith(("w_gate", "w_up", "w_down")))
+    expert_bytes = banks // (L * E)  # one expert's three slices in a layer
+    routed_weights = weights - banks + sum(touched) * expert_bytes
+    kv = (2 * GRAPH_B * GRAPH_CTX * L * cfg.kv_size
+          * torch.bfloat16.itemsize)
+    bound_ms = (weights + kv) / PEAK_BYTES_PER_S * 1e3
+    routed_ms = (routed_weights + kv) / PEAK_BYTES_PER_S * 1e3
+    log(f"  4o(c) decode step byte bound: {weights / 1e9:.2f} GB of weights "
+        f"+ {kv / 1e9:.2f} GB of KV at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s = "
+        f"{bound_ms:.2f} ms; the {GRAPH_B} rows routed to {sum(touched)} of "
+        f"{L * E} (layer, expert) pairs (by layer {touched}): "
+        f"{routed_weights / 1e9:.2f} GB of weights, {routed_ms:.2f} ms")
+    rows.append({"decode_bound_ms": bound_ms, "weight_bytes": weights,
+                 "kv_bytes": kv, "routed_bound_ms": routed_ms,
+                 "routed_weight_bytes": routed_weights,
+                 "experts_touched_by_layer": touched})
+    return rows
+
+
+def phase_moe_serving(params, card: str) -> dict:
+    """4o(d): the server of ``--model mixtral-8x7b --quantization int4
+    --moe-impl auto``, a warm round then a timed one. Prefix caching is
+    off, so the timed round's prefills compute what the warm round's did
+    (a cached prompt prefills only its tail: other shapes, other
+    rounding, and a random model's greedy tokens turn on it)."""
+    n_req, n_tok = 4, 32
+    argv = ["--model", MOE_MODEL, "--device", DEV.type, "--quantization",
+            "int4", "--moe-impl", "auto", "--max-num-batched-tokens", "512",
+            "--num-decode-steps", "4", "--max-num-seqs", "16",
+            "--no-enable-prefix-caching"]
+    check(engine_config_from_args(parse_engine_args(argv)).moe_impl == "auto",
+          "4o(d): --moe-impl did not reach the config")
+    r = serve_streams(params, argv, n_req, n_tok, streamed={0})
+    gc.collect()
+    torch.cuda.empty_cache()
+    warm, graphs = r["warm_graphs"], r["graphs"]
+    counts, m, before = r["counts"], r["samples"], r["before"]
+    parted = {i: next((j for j, (a, b) in enumerate(zip(
+        r["tokens"][k], r["warm_tokens"].get(k, []))) if a != b), -1)
+        for i, k in enumerate(sorted(r["tokens"]))
+        if r["tokens"][k] != r["warm_tokens"].get(k)}
+    check(len(r["tokens"]) == n_req
+          and all(len(t) == n_tok for t in r["tokens"].values())
+          and not parted,
+          f"4o(d): the timed round's tokens differ from the warm round's "
+          f"(stream: first differing position) {parted}")
+    check(graphs["eager"] == warm["eager"]
+          and graphs["captured"] == warm["captured"]
+          and graphs["replayed"] > warm["replayed"],
+          f"4o(d): after the warm round {warm}, then {graphs}: a step of "
+          "the timed round did not replay")
+    for k in ("int4", "int4_wgmma", "int4_decode", "prefill",
+              "prefill_wgmma"):
+        check(counts.get(k, 0) > 0, f"4o(d): the {k} counter did not grow: "
+              f"{counts}")
+    check(counts.get("decode", 0) + counts.get("decode_write", 0) > 0,
+          f"4o(d): no decode attention launched: {counts}")
+
+    def grew(name):
+        return m.get(name, 0.0) - before.get(name, 0.0)
+
+    ttft = (grew("vllm:time_to_first_token_seconds_sum")
+            / max(grew("vllm:time_to_first_token_seconds_count"), 1.0))
+    busy = grew("pst_engine_device_busy_seconds_total")
+    out = {"ttft_mean_s": ttft, "wall_s": r["wall"],
+           "output_tok_per_s": n_req * n_tok / r["wall"],
+           "steps_share_of_wall": busy / r["wall"],
+           "idle_share": max(0.0, 1.0 - busy / r["wall"]),
+           "graphs_warm": warm, "graphs": graphs, "launches": counts}
+    log(f"[phase 4o(d)] {MOE_MODEL} int4 server (--moe-impl auto): {n_req} "
+        f"concurrent greedy completions of {n_tok} tokens (one streamed), "
+        f"timed round equal to the warm one, every step replayed "
+        f"(graphs {warm} -> {graphs}); TTFT mean {ttft * 1e3:.1f} ms, "
+        f"{out['output_tok_per_s']:.1f} output tok/s, wall "
+        f"{r['wall']:.3f}s, steps busy {busy:.3f}s (idle share "
+        f"{out['idle_share']:.1%}); launches {counts}; {card}")
+    return out
+
+
+def phase_moe_tiny() -> dict:
+    """4o(e): tiny-mixtral-debug (fp32, head_dim 16) served on the card:
+    the CUDA-core attention kernels and the fp32 experts."""
+    prompt = list(range(5, 300))
+    engine = LLMEngine(EngineConfig(device="cuda", model=MOE_TINY))
+    reset_launch_counts()
+    got = engine.generate([prompt], SamplingParams(
+        max_tokens=16, temperature=0.0, ignore_eos=True))[0]
+    torch.cuda.synchronize()
+    out = {k: pac.route_counts[k] for k in ("decode_simt", "prefill_simt")}
+    check(len(got["token_ids"]) == 16 and all(out.values())
+          and sum(pac.route_counts.values()) == sum(out.values())
+          and i4.launch_counts["int4"] == 0,
+          f"4o(e): {got}, routes {pac.route_counts}, int4 "
+          f"{i4.launch_counts}")
+    log(f"[phase 4o(e)] {MOE_TINY} on {DEV}: a {len(prompt)}-token prompt "
+        f"-> 16 tokens; launches {out}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe(card: str) -> dict:
+    """Phase 4o, (a) to (e). The caller has freed the other models."""
+    model = Llama(get_model_config(MOE_MODEL))
+    params, tree = moe_tree(model)
+    out = {"tree_4o_a": tree, "model_4o_b": phase_moe_model(model, params)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["steps_4o_c"] = phase_moe_steps(params)
+    out["serving_4o_d"] = phase_moe_serving(params, card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["tiny_4o_e"] = phase_moe_tiny()
+    return out
 
 
 SPIN_CYCLES = 100_000_000
@@ -7508,9 +7933,9 @@ def main() -> None:
     t_start = time.perf_counter()
     os.environ.pop("PST_FUSED_KV_WRITE", None)  # bf16 phases: unfused path
     if sys.argv[1:] not in ([], ["drift"], ["rounds"], ["engagement"],
-                            ["lora"], ["encode"]):
+                            ["lora"], ["encode"], ["moe"]):
         sys.exit("usage: python3 chip_smoke.py "
-                 "[drift|rounds|engagement|lora|encode]")
+                 "[drift|rounds|engagement|lora|encode|moe]")
     card = phase_toolchain()
     if sys.argv[1:] == ["drift"]:
         drift()
@@ -7526,6 +7951,10 @@ def main() -> None:
         return
     if sys.argv[1:] == ["encode"]:
         encode_only(card)
+        return
+    if sys.argv[1:] == ["moe"]:
+        print(json.dumps({"moe_4o": phase_moe(card)}, default=str),
+              flush=True)
         return
     log("[phase 2] kernels vs plain versions")
     for cache_dtype in (torch.bfloat16, E4M3):
@@ -7667,6 +8096,9 @@ def main() -> None:
     os.environ.pop("PST_FUSED_KV_WRITE", None)
     phase_int8_model(model)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_moe(card)  # every Llama-3-8B tree and cache freed
     checkpoint = phase_checkpoint(card)
     phase_qwen2()
     tiny = phase_tiny_engines()
@@ -7733,6 +8165,7 @@ def main() -> None:
         "verify_splits_2s": verify_splits, "verify_gap_tol_3s": gap_tol,
         "spec_serving_4s": spec_serving, "engagement_4k": engagement,
         "chart_serving_4l": chart, "lora_4m": lora, "encode_4n": encode,
+        "moe_4o": moe,
     }}, default=str), flush=True)
     print(json.dumps({"kernels": rows, "steps": steps, "int4_crossover": crossover}),
           flush=True)

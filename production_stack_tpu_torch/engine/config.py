@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from ..models.llama import LlamaConfig
+from ..models.llama import MOE_IMPLS, LlamaConfig
 
 
 @dataclasses.dataclass
@@ -36,6 +36,11 @@ class EngineConfig:
     # the gather path on the CPU), "gather" (the plain PyTorch path) or
     # "pallas" (the JAX spelling of the kernels; refused on the CPU).
     attn_impl: str = "auto"
+    # Mixture-of-experts form, by its JAX name: "auto", "ragged" or
+    # "dense". All three run models/llama.py::_moe_mlp's one body (every
+    # expert on every token, then the one-hot combine), which gives
+    # either JAX form's result.
+    moe_impl: str = "auto"
     enable_prefix_caching: bool = True
     # Decode tokens generated per engine step (a device-side loop that
     # chains sampled tokens without a host round trip). 1 = per token.
@@ -154,6 +159,9 @@ class EngineConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r} "
                              f"({'|'.join(ATTN_IMPLS)})")
+        if self.moe_impl not in MOE_IMPLS:
+            raise ValueError(f"unknown moe_impl {self.moe_impl!r} "
+                             f"({'|'.join(MOE_IMPLS)})")
 
     @property
     def model_attn_impl(self) -> str:

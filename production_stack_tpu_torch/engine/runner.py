@@ -44,6 +44,12 @@ one packed ``[Bb, K+2]`` array fetched once, and captures one graph per
 A ``model`` that names a local HF checkpoint directory is loaded from
 its safetensors (``models/llama.py::load_hf_params``).
 
+A mixture-of-experts model's steps and encodes take the name
+``moe_impl`` (``EngineConfig.moe_impl``, ``auto`` resolved to ``ragged``
+as the JAX runner resolves it on one device); every name runs
+``_moe_mlp``'s one body, which reads no routing on the host, so its
+steps are captured like the others.
+
 With ``enable_lora`` the LoRA bank (``Llama.init_lora_bank``) joins the
 layers after the weights, before the KV cache is sized, and every batch
 (warmup's too) carries ``lora_idx`` and ``lora_scale`` (slot 0 for
@@ -193,6 +199,10 @@ class ModelRunner:
                              "kernels, which need device='cuda'")
         self.model_cfg = model_cfg or get_model_config(cfg.model)
         self.model = Llama(self.model_cfg)
+        # The MoE name every forward and encode takes: "auto" is ragged,
+        # as the JAX runner resolves it on an unsharded mesh (the port
+        # serves one GPU).
+        self.moe_impl = "ragged" if cfg.moe_impl == "auto" else cfg.moe_impl
         self.kv_dtype = kv_cache_torch_dtype(cfg, self.model_cfg)
         if params is None and os.path.isdir(cfg.model):
             # One stacked leaf at a time onto the device, quantized there.
@@ -607,7 +617,8 @@ class ModelRunner:
         tokens = torch.from_numpy(toks).to(self.device)
         lengths = torch.tensor([length], dtype=torch.int32,
                                device=self.device)
-        out = self.model.encode(self.params, tokens, lengths)
+        out = self.model.encode(self.params, tokens, lengths,
+                                moe_impl=self.moe_impl)
         return out[0].cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -881,7 +892,7 @@ class ModelRunner:
         logits, self.kv_cache = self.model.forward(
             self.params, tokens, positions, write_idx, dev["block_tables"],
             kv_lens, last_idx, self.kv_cache, all_logits=all_logits,
-            attn_impl=self.cfg.model_attn_impl,
+            attn_impl=self.cfg.model_attn_impl, moe_impl=self.moe_impl,
             lora_idx=dev.get("lora_idx"), lora_scale=dev.get("lora_scale"),
         )
         return logits

@@ -65,7 +65,7 @@ controller every 10 s (``register_with_controller``). With a remote tier
 
 The deploy layer's argv: the chart's and the operator's engine flags
 parse (``--served-model-name``, ``--gpu-memory-utilization``,
-``--attn-impl``, ``--no-enable-prefix-caching``,
+``--attn-impl``, ``--moe-impl``, ``--no-enable-prefix-caching``,
 ``--no-startup-phases``, ...), the five ``--*-parallel-size`` flags
 take 1 only (one GPU: a larger size is refused at start). With
 ``--api-key`` every route but the probes and ``/metrics``
@@ -99,7 +99,8 @@ request the scheduler sheds later; a streamed one ends with a frame whose
         [--cpu-offload-blocks N] [--remote-kv-url URL[,URL...]] \
         [--kv-role producer|consumer|both] [--cache-controller-url URL] \
         [--api-key KEY] [--served-model-name NAME] [--attn-impl gather] \
-        [--scoring-model bge-reranker-base] [--compile-cache-dir DIR]
+        [--scoring-model bge-reranker-base] [--compile-cache-dir DIR] \
+        [--model mixtral-8x7b --quantization int4 --moe-impl auto|ragged|dense]
 
 ``--model`` takes a preset name or a local HF checkpoint directory (its
 ``config.json`` and safetensors; its tokenizer files unless
@@ -1672,6 +1673,11 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
                    choices=["auto", "gather", "pallas"],
                    help="paged attention: the CUDA kernels on the card "
                         "(auto, pallas) or the plain PyTorch path (gather)")
+    p.add_argument("--moe-impl", default="auto",
+                   choices=["auto", "ragged", "dense"],
+                   help="mixture-of-experts form, by its JAX name; "
+                        "all three run every expert on every token, "
+                        "then the one-hot combine")
     p.add_argument("--enable-prefix-caching", action="store_true",
                    default=True)
     p.add_argument("--no-enable-prefix-caching",
@@ -1840,6 +1846,7 @@ def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
         max_num_seqs=args.max_num_seqs,
         max_prefill_tokens=args.max_prefill_tokens,
         attn_impl=args.attn_impl,
+        moe_impl=args.moe_impl,
         enable_prefix_caching=args.enable_prefix_caching,
         enable_lora=args.enable_lora,
         max_loras=args.max_loras,

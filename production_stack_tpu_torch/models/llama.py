@@ -49,8 +49,18 @@ a whole prompt with causal attention and no cache
 (:func:`encode_attention`, in blocks of query rows), then a mean pool and
 an L2 norm.
 
-Not ported yet (``Llama`` raises ``NotImplementedError`` on the config):
-mixture-of-experts; pipeline parallelism has no parameter here.
+Mixture-of-experts (Mixtral; ``num_experts`` > 0): the MLP is
+:func:`_moe_mlp` over the expert banks ``w_gate``/``w_up`` ``[L, E, D,
+F]``, ``w_down`` ``[L, E, F, D]`` and the unquantized router ``w_router``
+``[L, D, E]``: every expert over every token, then the one-hot combine.
+The JAX ``moe_impl`` names (``auto``, ``ragged``, ``dense``) all take
+this one body, which gives the result of either JAX form. Its shapes
+are fixed, so a step with experts is captured into a CUDA graph like
+any other: no expert's row count is read on the host. Each expert's
+products go one slice at a time through the rules of the dense
+projections (an int4 bank through :func:`int4_matmul`).
+
+Not ported yet: pipeline parallelism has no parameter here.
 """
 
 from __future__ import annotations
@@ -259,21 +269,10 @@ class LlamaConfig:
         return self.num_kv_heads * self.head_dim
 
 
-def _unported(cfg: LlamaConfig) -> Optional[str]:
-    if cfg.num_experts:
-        return "mixture-of-experts"
-    return None
-
-
 class Llama:
     """Stateless model functions bound to a config."""
 
     def __init__(self, cfg: LlamaConfig):
-        missing = _unported(cfg)
-        if missing:
-            raise NotImplementedError(
-                f"{missing} is not ported to the PyTorch package yet"
-            )
         if cfg.hidden_act not in _ACTS:
             raise ValueError(f"unsupported hidden_act {cfg.hidden_act!r}")
         self.cfg = cfg
@@ -297,6 +296,10 @@ class Llama:
             "w_up": (L, D, Fi),
             "w_down": (L, Fi, D),
         }
+        if cfg.num_experts:  # the expert banks, stacked on their own axis
+            E = cfg.num_experts
+            layers.update(w_router=(L, D, E), w_gate=(L, E, D, Fi),
+                          w_up=(L, E, D, Fi), w_down=(L, E, Fi, D))
         if cfg.attention_bias:
             layers["bq"] = (L, cfg.q_size)
             layers["bk"] = (L, cfg.kv_size)
@@ -450,6 +453,7 @@ class Llama:
         all_logits: bool = False,
         lora_idx: Optional[torch.Tensor] = None,  # [B] int bank slot
         lora_scale: Optional[torch.Tensor] = None,  # [B] float32
+        moe_impl: str = "auto",
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One engine step. Returns (last-token logits [B, V] float32, the
         cache); with ``all_logits`` the logits of every position [B, T, V]
@@ -457,7 +461,9 @@ class Llama:
         is updated IN PLACE — the JAX package donates the buffer to get
         the same effect — and returned for symmetry. With a LoRA bank in
         ``params["layers"]`` each row adds its slot's delta (slot 0 and
-        scale 0 for every row when ``lora_idx`` is None)."""
+        scale 0 for every row when ``lora_idx`` is None). ``moe_impl``:
+        a JAX name of the mixture-of-experts form, checked by
+        :func:`_moe_mlp` (every name runs its one body)."""
         cfg = self.cfg
         B, T = tokens.shape
         L, nb, _, bs, _ = kv_cache.shape
@@ -559,7 +565,7 @@ class Llama:
                               offset)
             x = x + o
             h = _rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps, offset)
-            ff = _mlp(h, lp, _ACTS[cfg.hidden_act])
+            ff = _mlp(h, lp, cfg, moe_impl)
             if cfg.post_block_norms:  # Gemma-2 post-feedforward norm
                 ff = _rms_norm(ff, lp["post_mlp_norm"], cfg.rms_norm_eps,
                                offset)
@@ -585,6 +591,7 @@ class Llama:
         params: Params,
         tokens: torch.Tensor,  # [B, T] int
         lengths: torch.Tensor,  # [B] int valid lengths
+        moe_impl: str = "auto",
     ) -> torch.Tensor:
         """The embedding path (``/v1/embeddings``), the JAX ``encode``:
         causal attention over the whole prompt at positions ``0..T-1``, no
@@ -630,7 +637,7 @@ class Llama:
                               offset)
             x = x + o
             h = _rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps, offset)
-            ff = _mlp(h, lp, _ACTS[cfg.hidden_act])
+            ff = _mlp(h, lp, cfg, moe_impl)
             if cfg.post_block_norms:
                 ff = _rms_norm(ff, lp["post_mlp_norm"], cfg.rms_norm_eps,
                                offset)
@@ -817,14 +824,83 @@ _ACTS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 }
 
 
-def _mlp(h: torch.Tensor, lp: Params,
-         act: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
-    """Dense gated MLP: act(h @ w_gate) * (h @ w_up) in float32, then
-    w_down."""
+def _mlp(h: torch.Tensor, lp: Params, cfg: LlamaConfig,
+         moe_impl: str = "auto") -> torch.Tensor:
+    """The MLP block in h's dtype. Dense: act(h @ w_gate) * (h @ w_up) in
+    float32, then w_down. With experts: :func:`_moe_mlp` over the
+    flattened tokens, its fp32 result cast once (as the JAX forward casts
+    ``_mlp``'s)."""
+    if cfg.num_experts:
+        lead = h.shape[:-1]
+        out = _moe_mlp(cfg, lp, h.reshape(-1, h.shape[-1]), moe_impl)
+        return out.reshape(*lead, out.shape[-1]).to(h.dtype)
     gate = _proj(h, lp, "w_gate")
     up = _proj(h, lp, "w_up")
-    ff = (act(gate.float()) * up.float()).to(h.dtype)
+    ff = (_ACTS[cfg.hidden_act](gate.float()) * up.float()).to(h.dtype)
     return _proj(ff, lp, "w_down")
+
+
+MOE_IMPLS = ("auto", "ragged", "dense")
+
+
+def moe_route(cfg: LlamaConfig, lp: Params, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The router of a layer over tokens ``x`` [N, D], in fp32 (the HF
+    Mixtral convention): softmax over the experts, the top k, their
+    weights renormalized. Returns (weights [N, k] fp32, expert ids [N,
+    k]), best first."""
+    logits = mm_f32(x.float(), lp["w_router"].float())  # [N, E]
+    probs = torch.softmax(logits, dim=-1)
+    weights, ids = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+    return weights / weights.sum(dim=-1, keepdim=True), ids
+
+
+def _expert_dot(x: torch.Tensor, lp: Params, name: str, e: int
+                ) -> torch.Tensor:
+    """``x @ lp[name][e]`` in fp32 (its int8 scale applied): one expert's
+    slice of a bank through :func:`_qdot`'s rules, so an int4 slice goes
+    through :func:`int4_matmul` and no bank is ever dequantized whole."""
+    p = {k: lp[k][e] for k in (name, name + QUANT_SUFFIX,
+                               name + QUANT4_SUFFIX) if k in lp}
+    out, s = _qdot(x, p, name)
+    return out if s is None else out * s
+
+
+def _expert_ffn(cfg: LlamaConfig, lp: Params, x: torch.Tensor, e: int
+                ) -> torch.Tensor:
+    """Expert ``e``'s SwiGLU over rows ``x`` [n, D]: [n, D] fp32."""
+    g = _expert_dot(x, lp, "w_gate", e)
+    u = _expert_dot(x, lp, "w_up", e)
+    h = (_ACTS[cfg.hidden_act](g) * u).to(x.dtype)
+    return _expert_dot(h, lp, "w_down", e)
+
+
+def _moe_mlp(cfg: LlamaConfig, lp: Params, x: torch.Tensor,
+             impl: str) -> torch.Tensor:
+    """The sparse mixture-of-experts MLP over tokens ``x`` [N, D] -> fp32
+    [N, D] (the JAX ``_moe_mlp``): every expert over every token, then
+    the one-hot combine of the routing weights.
+
+    Every name of ``MOE_IMPLS`` runs this one body. It is the JAX
+    ``dense`` form, and it equals the JAX ``ragged`` form too: a token's
+    rows are added in expert order, as the JAX scatter of the sorted pairs
+    adds them, and the experts it did not pick add exact zeros. No shape
+    depends on the routing, so the step needs no host sync and is
+    captured like any other. A sorted-pair form would still run every
+    expert over N rows here (its group sizes cannot size a product
+    without a host read), so it would cost the same FLOPs plus the sort;
+    it comes back with a grouped int4 kernel that reads the expert
+    offsets on the device (ROADMAP queue 2, item 10)."""
+    if impl not in MOE_IMPLS:
+        raise ValueError(f"unknown moe_impl {impl!r} (ragged|dense|auto)")
+    weights, ids = moe_route(cfg, lp, x)
+    experts = torch.arange(cfg.num_experts, device=x.device)
+    combine = ((ids[..., None] == experts).float()
+               * weights[..., None]).sum(dim=1)  # [N, E]
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(cfg.num_experts):
+        out += _expert_ffn(cfg, lp, x, e) * combine[:, e:e + 1]
+    return out
 
 
 def _layer_window(cfg: LlamaConfig, li: int) -> int:
@@ -912,17 +988,17 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
     ``[out, in]`` and become ``[in, out]``; layers are stacked on axis 0;
     the Gemma-2 and qk-norm names map as there, Qwen2's q/k/v biases are
     read, and a checkpoint without ``lm_head.weight`` serves its tied
-    embeddings.
+    embeddings. Mixtral's ``block_sparse_moe.experts.{e}.w1/w3/w2`` become
+    the expert banks ``w_gate``/``w_up``/``w_down`` (stacked on the expert
+    axis after the layer axis) and its ``block_sparse_moe.gate`` the
+    router ``w_router``.
 
-    Each layer's tensor is copied from the mapped file to ``device`` and
-    written into its stacked leaf there, so no leaf is ever whole on the
-    host. ``quantize`` ("int8" or True, "int4"): each layer's slice is
-    quantized on ``device`` from the stored values as soon as it lands,
-    with the numpy loader's division (``divide=True``), and only the
-    quantized leaf stays."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "mixture-of-experts is not ported to the PyTorch package yet")
+    Each layer's tensor (each expert's, in a bank) is copied from the
+    mapped file to ``device`` and written into its stacked leaf there, so
+    no leaf is ever whole on the host. ``quantize`` ("int8" or True,
+    "int4"): each slice is quantized on ``device`` from the stored values
+    as soon as it lands, with the numpy loader's division
+    (``divide=True``), and only the quantized leaf stays."""
     qmode = "int8" if quantize is True else (quantize or None)
     if qmode not in (None, *QUANT_MODES):
         raise ValueError(f"unsupported quantization {quantize!r} (int8 or int4)")
@@ -935,10 +1011,12 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
         t = ck.tensor(name).to(device)
         return t.T.contiguous() if t.dim() == 2 else t
 
-    def put(tree: Params, ours: str, names) -> None:
+    def put(tree: Params, ours: str, names, lead: Tuple[int, ...] = ()
+            ) -> None:
         """Leaf ``ours`` from the stored tensor ``names`` (a top leaf, as
-        stored) or from one a layer (stacked): cast to the model dtype,
-        or quantized."""
+        stored) or from the ``prod(lead)`` tensors listed in ``names``,
+        stacked into leading dims ``lead`` (default: one a layer): cast to
+        the model dtype, or quantized."""
         if isinstance(names, str):
             w = ck.tensor(names).to(device)
             if qmode and ours in QUANT_TOP_KEYS:
@@ -947,10 +1025,11 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
             else:
                 tree[ours] = w.to(dtype)
             return
+        lead = lead or (len(names),)
         if qmode and ours in QUANT_LAYER_KEYS:
             fn, suffix = _quantizer(ours, qmode, divide=True)
             tree[ours], tree[ours + suffix] = _stack_slices(
-                (len(names),), lambda i: fn(read(names[i])))
+                lead, lambda i: fn(read(names[i])))
             return
         first = read(names[0])
         out = torch.empty((len(names), *first.shape), dtype=dtype,
@@ -958,7 +1037,7 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
         out[0].copy_(first)
         for i in range(1, len(names)):
             out[i].copy_(read(names[i]))
-        tree[ours] = out
+        tree[ours] = out.view(*lead, *first.shape)
 
     params: Params = {"layers": {}}
     put(params, "embed", "model.embed_tokens.weight")
@@ -976,6 +1055,18 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
         layer_map["pre_feedforward_layernorm"] = "mlp_norm"
         layer_map["post_feedforward_layernorm"] = "post_mlp_norm"
     L = cfg.num_layers
+    if cfg.num_experts:
+        # Mixtral: one w1/w3/w2 (gate/up/down) an expert, and the router.
+        E = cfg.num_experts
+        for hf_name in ("mlp.gate_proj", "mlp.up_proj", "mlp.down_proj"):
+            del layer_map[hf_name]
+        for ours, wname in (("w_gate", "w1"), ("w_up", "w3"),
+                            ("w_down", "w2")):
+            put(params["layers"], ours,
+                [f"model.layers.{i}.block_sparse_moe.experts.{e}."
+                 f"{wname}.weight" for i in range(L) for e in range(E)],
+                lead=(L, E))
+        layer_map["block_sparse_moe.gate"] = "w_router"
     for hf_name, ours in layer_map.items():
         put(params["layers"], ours,
             [f"model.layers.{i}.{hf_name}.weight" for i in range(L)])
@@ -988,8 +1079,7 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
 
 def config_from_hf_json(config_path: str, name: str = "") -> LlamaConfig:
     """A :class:`LlamaConfig` from an HF ``config.json``, field for field
-    as the JAX package builds it (a ``mixtral`` config is built; ``Llama``
-    refuses it)."""
+    as the JAX package builds it."""
     with open(config_path) as f:
         hf = json.load(f)
     mt = hf.get("model_type", "llama")

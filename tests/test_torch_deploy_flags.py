@@ -3,9 +3,10 @@
 The chart's engine template (``helm/templates/deployment-engine.yaml``)
 and the operator's ``build_engine_deployment``
 (``operator/src/reconcilers.cc``) emit the JAX server's flags. Here: the
-port's ``parse_engine_args`` takes every flag either emits except the
-ones whose module waits in ROADMAP.md (``WAITING``); for the chart's
-default render, the operator's default argv and one argv a new flag, the
+port's ``parse_engine_args`` takes every flag either emits (no module
+waits in ROADMAP.md: ``WAITING`` is empty) and ``--moe-impl``, which
+reaches an engine through ``extraArgs``; for the chart's default render,
+the operator's default argv and one argv a new flag, the
 port's ``EngineConfig`` equals the JAX one on every field both have; a
 parallel size above 1 is refused at start; and with ``--api-key`` every
 port route answers as the JAX server's does (status, the error's message
@@ -40,8 +41,10 @@ from .test_torch_tracing import _call, _error
 
 REPO = Path(__file__).resolve().parent.parent
 # Flags the deploy layer may emit whose module the port has not yet, each
-# with its ROADMAP.md item; the port's parser refuses them.
-WAITING = {"--moe-impl": "queue 1, item 11"}
+# with its ROADMAP.md item; the port's parser refuses them. None is left:
+# --moe-impl, the last, parses since mixture-of-experts was ported (the
+# chart and the operator emit it only through extraArgs).
+WAITING: dict = {}
 # A value each flag that takes one accepts in both parsers.
 VALUES = {"--model": MODEL, "--attn-impl": "pallas", "--warmup": "full",
           "--kv-role": "producer", "--log-format": "json",
@@ -89,6 +92,7 @@ NEW_FLAGS = [
     ["--api-key", "k"], ["--sentry-dsn", "https://key@sentry.invalid/1"],
     *[[f"--{axis}-parallel-size", "1"] for axis in AXES],
     ["--enable-lora", "--max-loras", "4", "--max-lora-rank", "32"],
+    *[["--moe-impl", impl] for impl in ("auto", "ragged", "dense")],
 ]
 # The chart's engine args for a modelSpec with lora.enabled.
 CHART_LORA = ["--enable-lora", "--lora-dir", "/adapters"]
@@ -133,13 +137,14 @@ def test_every_deploy_flag_parses_but_the_waiting_list(capsys):
             "--served-model-name", "--no-enable-prefix-caching"} <= flags
     assert {"--enable-lora", "--lora-dir", "--scoring-model",
             "--compile-cache-dir"} <= flags
-    assert set(WAITING) == {"--moe-impl"}
-    for flag in sorted(flags - set(WAITING)):
+    assert WAITING == {}
+    # --moe-impl reaches an engine through extraArgs only.
+    assert "--moe-impl" not in flags
+    for flag in sorted(flags | {"--moe-impl"}):
         argv = _argv(flag)
         assert not _refused(argv), argv
         jax_server.parse_engine_args(argv)
-    for flag in WAITING:
-        assert _refused(_argv(flag)), flag
+    assert _refused(["--moe-impl", "sparse"])  # the JAX choices only
     capsys.readouterr()  # argparse's usage lines of the refusals
 
 
@@ -163,7 +168,8 @@ def test_the_config_equals_the_jax_config():
         got, want = _shared(port_server.engine_config_from_args(pargs),
                             jax_server.engine_config_from_args(jargs))
         assert got == want, argv
-        assert len(got) == 48  # every field but device (and JAX-only ones)
+        assert len(got) == 49  # every field but device (and JAX-only ones)
+        assert "moe_impl" in got
         for name in ("api_key", "sentry_dsn", "startup_phases",
                      "scoring_model"):
             assert getattr(pargs, name) == getattr(jargs, name), name

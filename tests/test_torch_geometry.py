@@ -50,7 +50,8 @@ def test_every_served_preset_has_a_kernel():
                 assert route == want, (name, kv, kind, route)
     assert {"tiny-llama-debug", "llama-3-8b", "qwen2-7b", "gemma-7b",
             "gemma2-9b", "qwen3-8b", "tiny-gemma-debug", "tiny-gemma2-debug",
-            "tiny-qwen3-debug"} <= set(served)
+            "tiny-qwen3-debug", "tiny-mixtral-debug",
+            "mixtral-8x7b"} <= set(served)
 
 
 def test_kernel_route_refuses_what_no_kernel_takes():

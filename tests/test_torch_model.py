@@ -178,14 +178,14 @@ def test_params_from_jax_bfloat16():
 
 
 def test_unported_configs_raise():
-    """Mixture-of-experts is the one architecture knob still refused; the
-    Qwen3 and Gemma knobs are served (tests/test_torch_gemma.py)."""
+    """No architecture knob is refused any more: mixture-of-experts
+    (tests/test_torch_moe.py), the Qwen3 and Gemma knobs
+    (tests/test_torch_gemma.py) construct; an activation the JAX package
+    does not know still raises."""
     base = LlamaConfig(**dataclasses.asdict(jax_config("tiny-llama-debug")))
-    with pytest.raises(NotImplementedError):
-        Llama(dataclasses.replace(base, num_experts=4))
-    for kw in (dict(qk_norm=True), dict(hidden_act="gelu_tanh"),
-               dict(norm_unit_offset=True), dict(embed_scale=True),
-               dict(post_block_norms=True)):
+    for kw in (dict(num_experts=4), dict(qk_norm=True),
+               dict(hidden_act="gelu_tanh"), dict(norm_unit_offset=True),
+               dict(embed_scale=True), dict(post_block_norms=True)):
         Llama(dataclasses.replace(base, **kw))
     with pytest.raises(ValueError):
         Llama(dataclasses.replace(base, hidden_act="relu"))
