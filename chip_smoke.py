@@ -428,6 +428,26 @@ int4 tree drawn on the card in place of phase 3b.
     python3 chip_smoke.py moe
 
 builds the kernels and runs phase 4o alone (``phase_moe``).
+
+    python3 chip_smoke.py tp
+
+builds the kernels and runs phase 4p alone (``tp_only``): tensor
+parallelism at 2 ranks that share the card over gloo (NCCL refuses two
+ranks on one device; the NCCL path, a card a rank, is not run on a
+one-card machine, and the phase says so). (a) Llama-3-8B bf16 from seed
+0: a tp-2 runner (this process and one spawned follower, each drawing
+its shard) against the whole tree at tp 1 through the 512-token prompt
+and 8 teacher-forced decode steps, every position's logits under
+``agree``, the prefill and decode kernels' launches on both ranks; (b)
+the int4 tree with the fused write the same way (the int4 kernels at
+the shard shapes, ``decode_split_kernel<..., true, ...>``), and each
+shard shape's int4 route and time; (c) ``python -m
+production_stack_tpu_torch.engine.server --tensor-parallel-size 2``
+through its ``main``: greedy, streamed and seeded sampled completions,
+``/metrics``, ``/debug/state``, each rank's report at shutdown, SIGTERM
+leaving no rank alive, and its greedy tokens against a tp-1 server's.
+The step times it prints measure gloo's transport through the host on
+one card, not tensor parallelism.
 """
 
 from __future__ import annotations
@@ -445,6 +465,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import socket
 import statistics
 import struct
@@ -474,6 +495,10 @@ from production_stack_tpu_torch.engine.config import (  # noqa: E402
 from production_stack_tpu_torch.engine.engine import LLMEngine  # noqa: E402
 from production_stack_tpu_torch.engine.kv_manager import BlockAllocator  # noqa: E402
 from production_stack_tpu_torch.engine.lora import LoraManager  # noqa: E402
+from production_stack_tpu_torch.engine.multihost import (  # noqa: E402
+    Ranks,
+    start_ranks,
+)
 from production_stack_tpu_torch.engine.runner import (  # noqa: E402
     ModelRunner,
     capture,
@@ -1864,9 +1889,9 @@ def int4_check(x, packed, scales, label, want_route):
     N, dout = x.shape[0], packed.shape[1]
     check(got.dtype == torch.float32 and got.shape == (N, dout),
           f"int4: output {got.dtype} {tuple(got.shape)}")
-    compare("int4_wgmma" if route == "wgmma" else "int4", got, ref,
-            f"{label} ({route})", rows=True)
-    return got
+    err = compare("int4_wgmma" if route == "wgmma" else "int4", got, ref,
+                  f"{label} ({route})", rows=True)
+    return err, bf16_row_check(got, ref)[1]
 
 
 def phase_int4_kernels() -> None:
@@ -5280,7 +5305,8 @@ def phase_chart_serving(params, card: str) -> dict:
     localhost, ``--sweep-interval-s 1``), the cache controller, and the
     engine server through ``parse_engine_args`` on the chart's default
     engine argv with ``--api-key`` added; one card, so
-    ``--tensor-parallel-size 1`` (8 is refused, queue 1 item 15), and
+    ``--tensor-parallel-size 1`` (the chart's 8 parses into the config;
+    its eight ranks are not started on one card: 4p serves tp 2), and
     ``--warmup lazy`` in place of ``full`` (the phase's time). Checks:
     ``/v1/models`` serves the chart's name; a completion without the key
     gets 401 and one with it 200; ``/metrics`` and ``/ready`` stay open;
@@ -5288,11 +5314,9 @@ def phase_chart_serving(params, card: str) -> dict:
     to the ring, one shard is wiped, and the other's sweep backfills it
     within a few intervals: a ``GET /blocks`` there returns every page
     with the digest the other shard holds."""
-    try:
-        engine_config_from_args(parse_engine_args(list(CHART_ENGINE_ARGV)))
-        check(False, "4l: --tensor-parallel-size 8 was accepted")
-    except ValueError as e:
-        check("item 15" in str(e), f"4l: {e}")
+    tp = engine_config_from_args(parse_engine_args(
+        list(CHART_ENGINE_ARGV))).tensor_parallel_size
+    check(tp == 8, f"4l: the chart's --tensor-parallel-size parsed as {tp}")
     urls = [f"http://127.0.0.1:{free_port()}" for _ in range(2)]
     shards = [server_from_args(with_args(
         CHART_CACHE_ARGV, host="127.0.0.1", port=u.rsplit(":", 1)[1],
@@ -7351,6 +7375,347 @@ def phase_moe(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 4p: tensor parallelism, two ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+TP_SIZE = 2
+TP_LABEL = "gloo on one card"
+# Llama-3-8B's projections at tp 2, one rank's (din, dout).
+TP_SHARD_SHAPES = (("wq", 4096, 2048), ("wk", 4096, 512), ("wv", 4096, 512),
+                   ("wo", 2048, 4096), ("w_gate", 4096, 7168),
+                   ("w_up", 4096, 7168), ("w_down", 7168, 4096))
+TP_REPORT = re.compile(r"rank report (\{.*\})")
+
+
+def tp_ranks() -> "Ranks":
+    """Two ranks on ``cuda:0``: this process and one spawned follower
+    (which inherits ``PST_FUSED_KV_WRITE`` as it stands)."""
+    ranks = start_ranks(EngineConfig(model=MODEL, tensor_parallel_size=TP_SIZE))
+    check(ranks.ctx.backend == "gloo" and ranks.ctx.devices == [
+        "0/cuda:0"] * TP_SIZE, f"4p: ranks {ranks.ctx.devices}, device group "
+        f"{ranks.ctx.backend}: expected gloo on one card")
+    log(f"  4p ranks: control group gloo, device group {ranks.ctx.backend}, "
+        f"devices {ranks.ctx.devices}, follower pids {ranks.pids}")
+    return ranks
+
+
+def tp_batches(prompt, decode_tokens, nb: int) -> list:
+    """``drive_model``'s steps as runner batches: the prompt's prefill into
+    pages in reverse, then one decode step a token beside a padding row."""
+    T = len(prompt)
+    tables = np.arange(nb - 1, dtype=np.int32)[None, ::-1].copy()
+    drop = nb * BS
+
+    def slot(p):
+        return int(tables[0, p // BS]) * BS + p % BS
+
+    out = [{"tokens": np.array([prompt], np.int32),
+            "positions": np.arange(T, dtype=np.int32)[None],
+            "write_idx": np.array([[slot(p) for p in range(T)]], np.int32),
+            "block_tables": tables, "kv_lens": np.array([T], np.int32),
+            "last_idx": np.array([T - 1], np.int32)}]
+    for i, tok in enumerate(decode_tokens):
+        p = T + i
+        out.append({"tokens": np.array([[tok], [0]], np.int32),
+                    "positions": np.array([[p], [0]], np.int32),
+                    "write_idx": np.array([[slot(p)], [drop]], np.int32),
+                    "block_tables": np.concatenate(
+                        [tables, np.zeros_like(tables)]),
+                    "kv_lens": np.array([p + 1, 0], np.int32),
+                    "last_idx": np.zeros(2, np.int32)})
+    return out
+
+
+def tp_rank_rows(label: str, before: list, after: list, want: dict) -> list:
+    """Each rank's launches in a phase (its counters' change), checked
+    against ``want``, with its device, graph counts, peak memory and KV
+    blocks; logged."""
+    rows = []
+    for b, a in zip(before, after):
+        d = {k: n - b["launches"].get(k, 0) for k, n in a["launches"].items()
+             if n != b["launches"].get(k, 0)}
+        check({k: d.get(k, 0) for k in want} == want,
+              f"4p {label}: rank {a['rank']} launched {d}, expected {want}")
+        row = {"rank": a["rank"], "device": a["device"],
+               "backend": a["backend"], "graph_counts": a["graph_counts"],
+               "launches": d, "peak_memory_gb": a["peak_memory_bytes"] / 1e9,
+               "num_blocks": a["num_blocks"]}
+        log(f"  4p {label} rank {row['rank']} on {row['device']} "
+            f"({row['backend']}): graphs {row['graph_counts']}, launches "
+            f"{d}, peak memory {row['peak_memory_gb']:.2f} GB, "
+            f"{row['num_blocks']} KV blocks")
+        rows.append(row)
+    return rows
+
+
+def tp_model(ranks, model, params, quant, label: str) -> dict:
+    """4p(a) and (b): the whole tree at tp 1 on the card (``drive_model``)
+    against a tp-2 runner on ``ranks`` (each rank draws its shard of the
+    same seed) through the same 512-token prefill and 8 teacher-forced
+    decode steps (``forward_logits``); every position's logits under
+    ``agree``, and both ranks' kernel launches."""
+    cfg = model.cfg
+    prompt, decode_tokens = model_prompt(cfg)
+    ref, _ = drive_model(model, params, "cuda", prompt, decode_tokens)
+    nb = -(-(len(prompt) + len(decode_tokens)) // BS) + 1
+    ecfg = EngineConfig(model=MODEL, tensor_parallel_size=TP_SIZE,
+                        num_kv_blocks=nb, block_size=BS, max_model_len=1024,
+                        max_num_seqs=2, max_prefill_tokens=len(prompt),
+                        quantization=quant)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = ranks.build_runner(ecfg)
+    t_build = time.perf_counter() - t0
+    try:
+        before = runner.rank_reports()
+        rows, times = [], []
+        for batch in tp_batches(prompt, decode_tokens, nb):
+            t0 = time.perf_counter()
+            logits = runner.forward_logits(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            rows.append(logits[0])
+        got = torch.stack(rows)
+        after = runner.rank_reports()
+    finally:
+        ranks.publisher.shutdown()
+    L, n = cfg.num_layers, len(decode_tokens)
+    fused = os.environ.get("PST_FUSED_KV_WRITE") == "1"
+    want = {"prefill": L, "decode_write" if fused else "decode": L * n,
+            "decode_write_split" if fused else "decode_split": L * n,
+            "prefill_wgmma": L}
+    if quant:
+        want["int4"] = 7 * L * (1 + n)
+    per_rank = tp_rank_rows(label, before, after, want)
+    summary = agree(got, ref, f"4p {label}")
+    decode_ms = statistics.median(times[1:]) * 1e3
+    log(f"  4p {label}: tp 2 against tp 1, 512-token prefill + {n} decode "
+        f"steps: {summary}; runner built in {t_build:.1f}s; step times "
+        f"({TP_LABEL}): prefill {times[0] * 1e3:.1f} ms, decode median "
+        f"{decode_ms:.1f} ms")
+    return {"agree": summary, "ranks": per_rank,
+            "prefill_ms_gloo_one_card": times[0] * 1e3,
+            "decode_ms_gloo_one_card": decode_ms}
+
+
+def tp_int4_shapes(card: str) -> list:
+    """Each tp-2 shard shape at a decode step's 2 rows and a prefill's 512:
+    the int4 kernel held against ``int4_matmul_plain`` on the route the
+    main path takes there (decode, wgmma), then timed (the
+    ``int4_crossover`` way)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    rows = []
+    for name, din, dout in TP_SHARD_SHAPES:
+        packed, scales = int4_weights(gen, din, dout)
+        for N in (2, 512):
+            x = torch.randn((N, din), generator=gen, device=DEV,
+                            dtype=torch.bfloat16)
+            want = "decode" if N <= i4._DECODE_MAX_ROWS else "wgmma"
+            err, ratio = int4_check(x, packed, scales,
+                                    f"4p int4 shard {name} N={N} din={din} "
+                                    f"dout={dout}", want)
+            ms = cuda_ms(lambda: i4.int4_matmul(x, packed, scales))
+            rows.append({"name": name, "N": N, "din": din, "dout": dout,
+                         "route": want, "ms": ms, "max_abs_err": err,
+                         "err_over_row_tol": ratio})
+            log(f"  4p int4 shard {name} {din}x{dout} N={N}: {want}, "
+                f"{ms * 1e3:.1f} us ({card}); against the plain version: "
+                f"worst err / row tol {ratio:.2e}")
+    return rows
+
+
+def _tp_children(pid: int) -> list:
+    with open(f"/proc/{pid}/task/{pid}/children") as f:
+        return [int(p) for p in f.read().split()]
+
+
+def _tp_gone(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+def tp_greedy(port: int, prompts: list, n: int) -> list:
+    """Greedy completions of ``n`` tokens; each one's chosen logprobs."""
+    out = []
+    for p in prompts:
+        status, body, _ = _call(port, "POST", "/v1/completions", {
+            "prompt": p, "max_tokens": n, "temperature": 0.0,
+            "ignore_eos": True, "logprobs": 1})
+        check(status == 200 and body["usage"]["completion_tokens"] == n,
+              f"4p greedy: {status} {body}")
+        out.append(body["choices"][0]["logprobs"]["token_logprobs"])
+    return out
+
+
+def tp_server(card: str, params) -> dict:
+    """4p(c): ``python -m production_stack_tpu_torch.engine.server --model
+    llama-3-8b --tensor-parallel-size 2`` through its ``main``: greedy,
+    streamed and seeded sampled completions, ``/metrics`` and
+    ``/debug/state``; SIGTERM stops every rank. Its greedy tokens against
+    a tp-1 server's on the same weights (seed 0), by their chosen
+    logprobs (the byte tokenizer names no id above 256)."""
+    port = free_port()
+    env = {k: v for k, v in os.environ.items() if k != "PST_FUSED_KV_WRITE"}
+    log_path = os.path.join(tempfile.mkdtemp(), "tp_server.log")
+    argv = [sys.executable, "-m", "production_stack_tpu_torch.engine.server",
+            "--model", MODEL, "--tensor-parallel-size", str(TP_SIZE),
+            "--host", "127.0.0.1", "--port", str(port),
+            "--gpu-memory-utilization", "0.6", "--max-model-len", "2048",
+            "--max-num-seqs", "8"]
+    prompts = [model_prompt(get_model_config(MODEL), 48 + 16 * i)[0]
+               for i in range(3)]
+    n_tok = 16
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(argv, cwd=os.path.dirname(
+            os.path.abspath(__file__)), stdout=logf, stderr=subprocess.STDOUT,
+            env=env)
+    pids = [proc.pid]
+    try:
+        while True:
+            check(proc.poll() is None and time.perf_counter() - t0 < 300,
+                  f"4p server did not come up: {open(log_path).read()[-3000:]}")
+            try:
+                if _call(port, "GET", "/ready", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+        t_up = time.perf_counter() - t0
+        pids += _tp_children(proc.pid)
+        check(len(pids) >= TP_SIZE, f"4p server: pids {pids}")
+        t0 = time.perf_counter()
+        tp2 = tp_greedy(port, prompts, n_tok)
+        t_greedy = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        usage = _stream(port, {"prompt": prompts[0], "max_tokens": 32,
+                               "temperature": 0.0, "ignore_eos": True}, 32)
+        t_stream = time.perf_counter() - t0
+        sampled = {"prompt": prompts[1], "max_tokens": n_tok,
+                   "temperature": 0.8, "seed": 11, "ignore_eos": True}
+        a = _completion(port, sampled, n_tok)
+        b = _completion(port, sampled, n_tok)
+        check(a["choices"] == b["choices"], "4p seeded sampling differs")
+        status, text, _ = _call(port, "GET", "/metrics")
+        check(status == 200 and "pst" in text, f"4p /metrics: {status}")
+        status, state, _ = _call(port, "GET", "/debug/state")
+        stats = state["stats"]
+        check(stats["tensor_parallel_size"] == TP_SIZE
+              and stats["tp_device_backend"] == "gloo",
+              f"4p /debug/state: {stats}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    deadline = time.perf_counter() + 30
+    while not all(_tp_gone(p) for p in pids) and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    left = [p for p in pids if not _tp_gone(p)]
+    check(not left, f"4p: rank pids {left} still alive after SIGTERM")
+    with open(log_path) as f:
+        out = f.read()
+    reports = sorted((json.loads(m) for m in TP_REPORT.findall(out)),
+                     key=lambda r: r["rank"])
+    check([r["rank"] for r in reports] == list(range(TP_SIZE)),
+          f"4p server: rank reports {reports}; log tail {out[-3000:]}")
+    check(len({r["num_blocks"] for r in reports}) == 1
+          and len({r["rows_digest"] for r in reports}) == 1,
+          f"4p server: ranks disagree: {reports}")
+    for r in reports:
+        check(r["launches"].get("prefill", 0) > 0
+              and r["launches"].get("decode", 0) > 0,
+              f"4p server: rank {r['rank']} launched {r['launches']}")
+        log(f"  4p(c) rank {r['rank']} on {r['device']} ({r['backend']}): "
+            f"graphs {r['graph_counts']}, launches {r['launches']}, peak "
+            f"memory {r['peak_memory_bytes'] / 1e9:.2f} GB")
+    log(f"  4p(c) server up in {t_up:.1f}s; {reports[0]['num_blocks']} KV "
+        f"blocks agreed; {len(prompts)} greedy x {n_tok} tokens in "
+        f"{t_greedy:.2f}s, a 32-token stream in {t_stream:.2f}s "
+        f"({TP_LABEL}; usage {usage}); stopped by SIGTERM, {len(pids)} pids "
+        f"gone ({card})")
+
+    # The tp-1 server on the same weights.
+    engine = AsyncLLMEngine(EngineConfig(model=MODEL, num_kv_blocks=512,
+                                         max_model_len=2048, max_num_seqs=8),
+                            params=params)
+    server, thread = serve_in_thread(engine)
+    try:
+        tp1 = tp_greedy(server.server_address[1], prompts, n_tok)
+    finally:
+        server.shutdown()
+        engine.shutdown()
+    agreed = 0
+    for x, y in zip(tp2, tp1):
+        for lx, ly in zip(x, y):
+            if abs(lx - ly) > 0.05 * max(1.0, abs(ly)):
+                break
+            agreed += 1
+    log(f"  4p(c) greedy tokens agreeing with the tp-1 server (by chosen "
+        f"logprob, up to the first parting): {agreed} of "
+        f"{len(prompts) * n_tok}")
+    return {"num_blocks": reports[0]["num_blocks"], "ranks": reports,
+            "up_s": t_up, "greedy_s_gloo_one_card": t_greedy,
+            "stream32_s_gloo_one_card": t_stream,
+            "agreed_with_tp1": agreed, "tokens": len(prompts) * n_tok}
+
+
+def phase_tp(card: str, model, params) -> dict:
+    """Phase 4p, (a) to (c), on one card: two ranks share ``cuda:0`` over
+    gloo (NCCL refuses two ranks on one device). The NCCL path, a card a
+    rank, is not run here."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"[phase 4p] tensor parallelism, {TP_SIZE} ranks on one card "
+        f"({card}; compute mode {mode}); the NCCL path (a card a rank) is "
+        "not run on a one-card machine")
+    check(mode.splitlines()[0] == "Default",
+          f"4p: compute mode {mode!r} forbids two processes on the card")
+    out = {"card": card, "compute_mode": mode, "nccl": "not run"}
+    t0 = time.perf_counter()
+    os.environ.pop("PST_FUSED_KV_WRITE", None)
+    ranks = tp_ranks()
+    try:
+        out["model_4p_a"] = tp_model(ranks, model, params, None, "(a) bf16")
+    finally:
+        ranks.close()
+    os.environ["PST_FUSED_KV_WRITE"] = "1"
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    q_params = model.init_params(gen, DEV, quantization="int4")
+    ranks = tp_ranks()
+    try:
+        out["model_4p_b"] = tp_model(ranks, model, q_params, "int4",
+                                     "(b) int4, fused write")
+    finally:
+        ranks.close()
+        os.environ.pop("PST_FUSED_KV_WRITE")
+    del q_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["int4_shards_4p_b"] = tp_int4_shapes(card)
+    out["server_4p_c"] = tp_server(card, params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase 4p] passed in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def tp_only(card: str) -> None:
+    """``python3 chip_smoke.py tp``: phase 4p alone."""
+    model, params = build_model()
+    print(json.dumps({"tp_4p": phase_tp(card, model, params)}, default=str),
+          flush=True)
+
+
 SPIN_CYCLES = 100_000_000
 
 
@@ -7933,9 +8298,9 @@ def main() -> None:
     t_start = time.perf_counter()
     os.environ.pop("PST_FUSED_KV_WRITE", None)  # bf16 phases: unfused path
     if sys.argv[1:] not in ([], ["drift"], ["rounds"], ["engagement"],
-                            ["lora"], ["encode"], ["moe"]):
+                            ["lora"], ["encode"], ["moe"], ["tp"]):
         sys.exit("usage: python3 chip_smoke.py "
-                 "[drift|rounds|engagement|lora|encode|moe]")
+                 "[drift|rounds|engagement|lora|encode|moe|tp]")
     card = phase_toolchain()
     if sys.argv[1:] == ["drift"]:
         drift()
@@ -7955,6 +8320,9 @@ def main() -> None:
     if sys.argv[1:] == ["moe"]:
         print(json.dumps({"moe_4o": phase_moe(card)}, default=str),
               flush=True)
+        return
+    if sys.argv[1:] == ["tp"]:
+        tp_only(card)
         return
     log("[phase 2] kernels vs plain versions")
     for cache_dtype in (torch.bfloat16, E4M3):
@@ -8057,6 +8425,9 @@ def main() -> None:
     os.environ.pop("PST_FUSED_KV_WRITE")
     log(f"  KV pages beside the bf16 weights: {fp8_served['pages']} e4m3 "
         f"against {served['pages']} bf16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = phase_tp(card, model, params)  # tensor parallelism, on one card
     del params
     gc.collect()  # the engine's KV cache and the bf16 tree, cycles included
     torch.cuda.empty_cache()
@@ -8165,7 +8536,7 @@ def main() -> None:
         "verify_splits_2s": verify_splits, "verify_gap_tol_3s": gap_tol,
         "spec_serving_4s": spec_serving, "engagement_4k": engagement,
         "chart_serving_4l": chart, "lora_4m": lora, "encode_4n": encode,
-        "moe_4o": moe,
+        "moe_4o": moe, "tp_4p": tp,
     }}, default=str), flush=True)
     print(json.dumps({"kernels": rows, "steps": steps, "int4_crossover": crossover}),
           flush=True)

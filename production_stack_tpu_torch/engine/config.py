@@ -1,8 +1,14 @@
 """Engine configuration for the PyTorch engine.
 
 The fields of the JAX package's ``EngineConfig`` that this slice reads,
-plus ``device``. Every engine runs on the GPU (``device="cuda"``) unless
-the caller asks for the CPU.
+plus ``device``. Every engine runs on the
+GPU (``device="cuda"``) unless the caller asks for the CPU.
+
+Of the JAX package's five parallel sizes only ``tensor_parallel_size``
+may exceed 1 (one process a rank, ``engine/multihost.py``); a pipeline,
+data, sequence or expert size above 1 is refused here, at start
+(ROADMAP.md queue 1, item 15). :func:`check_parallel` holds the model
+to the tensor-parallel split, as the JAX runner does at start.
 """
 
 from __future__ import annotations
@@ -12,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from ..models.llama import MOE_IMPLS, LlamaConfig
+from ..models.llama import MOE_IMPLS, LlamaConfig, check_tp
 
 
 @dataclasses.dataclass
@@ -26,6 +32,14 @@ class EngineConfig:
     hbm_utilization: float = 0.9  # --gpu-memory-utilization
     max_num_seqs: int = 64
     max_prefill_tokens: int = 2048
+    # Tensor parallelism: one process a rank, each holding a Megatron
+    # shard of the weights and its kv heads of the cache. The other four
+    # JAX axes are refused above 1 (ROADMAP.md queue 1, item 15).
+    tensor_parallel_size: int = 1
+    data_parallel_size: int = 1
+    pipeline_parallel_size: int = 1
+    sequence_parallel_size: int = 1
+    expert_parallel_size: int = 1
     # None (the model dtype), the model dtype, or "float8_e4m3fn" (half
     # the bytes of a bf16 page; the kernels up-convert K and V exactly).
     kv_cache_dtype: Optional[str] = None
@@ -162,6 +176,16 @@ class EngineConfig:
         if self.moe_impl not in MOE_IMPLS:
             raise ValueError(f"unknown moe_impl {self.moe_impl!r} "
                              f"({'|'.join(MOE_IMPLS)})")
+        if self.tensor_parallel_size < 1:
+            raise ValueError(f"tensor_parallel_size must be >= 1, got "
+                             f"{self.tensor_parallel_size}")
+        for axis in ("pipeline", "data", "sequence", "expert"):
+            size = getattr(self, f"{axis}_parallel_size")
+            if size != 1:
+                raise ValueError(
+                    f"{axis}_parallel_size={size}: the PyTorch engine "
+                    "serves tensor parallelism only (the other axes are "
+                    "queue 1, item 15 of ROADMAP.md); pass 1")
 
     @property
     def model_attn_impl(self) -> str:
@@ -198,16 +222,26 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
+def check_parallel(cfg: EngineConfig, model_cfg: LlamaConfig) -> None:
+    """The JAX runner's start-time checks of the parallel layout: raise
+    ``ValueError`` unless the model splits over ``tensor_parallel_size``
+    ranks (whole heads and FFN slices, whole int4 groups a rank)."""
+    check_tp(model_cfg, cfg.tensor_parallel_size, cfg.quantization)
+
+
 def resolve_num_kv_blocks(
-    cfg: EngineConfig, model_cfg: LlamaConfig, device: torch.device
+    cfg: EngineConfig, model_cfg: LlamaConfig, device: torch.device,
+    share: int = 1,
 ) -> int:
     """Page count from the device-memory budget (the
     ``--gpu-memory-utilization`` analogue): what is left of
     ``total * hbm_utilization`` once everything already allocated (the
-    weights included) is taken out, per ``torch.cuda.mem_get_info``.
+    weights included) is taken out, per ``torch.cuda.mem_get_info``,
+    divided among the ``share`` ranks that hold a cache on the device.
 
     bytes/page = 2 (K+V) * L * bs * KH * hd * itemsize, the itemsize of
-    the cache's element type (1 for e4m3)."""
+    the cache's element type (1 for e4m3); ``model_cfg`` is one rank's
+    geometry (``tp_local_config``)."""
     if cfg.num_kv_blocks is not None:
         return cfg.num_kv_blocks
     itemsize = kv_cache_torch_dtype(cfg, model_cfg).itemsize
@@ -217,7 +251,7 @@ def resolve_num_kv_blocks(
     )
     if device.type == "cuda":
         free, total = torch.cuda.mem_get_info(device)
-        budget = int(total * cfg.hbm_utilization) - (total - free)
+        budget = (int(total * cfg.hbm_utilization) - (total - free)) // share
     else:
         budget = 512 * 1024 * 1024  # CPU: keep the cache modest
     n = max(budget // page_bytes, cfg.max_num_seqs * 2)

@@ -65,6 +65,7 @@ no in-flight burst read it (``_sweep_retiring_slots``, after every step).
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 from typing import Any, Dict, List, Optional, Sequence as Seq, Tuple, Union
@@ -83,6 +84,7 @@ from .config import EngineConfig
 from .kv_handoff import KVHandoffPrefetcher, KVHandoffPublisher
 from .kv_manager import BlockAllocator
 from .lora import LoadedAdapter, LoraManager
+from .multihost import Ranks, start_ranks
 from .runner import ModelRunner
 from .scheduler import Scheduler, SchedulerConfig
 from .sequence import SamplingParams, Sequence
@@ -128,17 +130,31 @@ class RequestOutput:
 
 
 class LLMEngine:
-    def __init__(self, cfg: EngineConfig, params: Optional[Dict[str, Any]] = None):
+    def __init__(self, cfg: EngineConfig, params: Optional[Dict[str, Any]] = None,
+                 ranks: Optional[Ranks] = None):
         """``params``: an existing parameter tree (e.g. converted from the
         JAX package's, see ``models/convert.py``); random init from
-        ``cfg.seed`` when None."""
+        ``cfg.seed`` when None. ``ranks``: the tensor-parallel ranks
+        (``engine/multihost.py``) to build on; with
+        ``tensor_parallel_size`` > 1 and none given the engine starts its
+        own, and stops them at ``shutdown``."""
         self.cfg = cfg
         self.model_cfg = get_model_config(cfg.model)
         if cfg.compile_cache_dir:
             # Before the first kernel use (the runner's, on the card).
             path = _build.set_compile_cache_dir(cfg.compile_cache_dir)
             logger.info("kernel library compile cache: %s", path)
-        self.runner = ModelRunner(cfg, self.model_cfg, params)
+        self._own_ranks = ranks is None and cfg.tensor_parallel_size > 1
+        self.ranks = start_ranks(cfg) if self._own_ranks else ranks
+        self._shut = False
+        try:
+            self.runner = (
+                ModelRunner(cfg, self.model_cfg, params) if self.ranks is None
+                else self.ranks.build_runner(cfg, self.model_cfg, params))
+        except BaseException:
+            if self._own_ranks:
+                self.ranks.close()
+            raise
         if cfg.compile_cache_dir and self.runner.device.type == "cuda":
             # A warm restart loads the library here, a cold one builds it:
             # at start, not on the first request.
@@ -281,12 +297,24 @@ class LLMEngine:
 
     def shutdown(self) -> None:
         """Stop the tiers' worker threads (the remote push and the
-        handoff publisher)."""
+        handoff publisher); across tensor-parallel ranks, end the
+        followers' mirror (each logs its ``rank report``, as rank 0 does
+        here) and stop the ranks this engine started. Idempotent."""
+        if self._shut:
+            return
+        self._shut = True
         if self.kv_publisher is not None:
             self.kv_publisher.shutdown()
         shutdown = getattr(self.allocator, "shutdown", None)
         if shutdown is not None:
             shutdown()
+        if self.ranks is not None:
+            logger.info("rank report %s",
+                        json.dumps(self.runner.rank_report()))
+            self.runner.publisher.shutdown()
+            if self._own_ranks:
+                self.ranks.close()
+
 
     @property
     def model_name(self) -> str:
@@ -1058,6 +1086,10 @@ class LLMEngine:
                 "lora_retiring_slots": float(len(self._retiring_slots))}
                if self.lora_manager is not None else {}),
             **self._tier_stats(),
+            **({"tensor_parallel_size": float(self.cfg.tensor_parallel_size),
+                "tp_device_backend": self.ranks.ctx.backend,
+                "tp_rank_devices": ",".join(self.ranks.ctx.devices)}
+               if self.ranks is not None else {}),
             **({"kv_swap_out_total": float(swapper.swap_out_total),
                 "kv_swap_in_total": float(swapper.swap_in_total),
                 "kv_swap_tail_pages_total": float(swapper.tail_pages_moved),

@@ -56,6 +56,28 @@ layers after the weights, before the KV cache is sized, and every batch
 padding rows). A captured graph reads the bank's address, so
 ``install_adapter`` and ``uninstall_adapter`` write its slots in place.
 
+Tensor parallelism (``tensor_parallel_size`` > 1, ``ranks`` given): the
+runner holds its rank's Megatron shard (``models/llama.py::shard_params``;
+random weights drawn whole and cut, a checkpoint cut on read) and its kv
+heads of the cache, and passes the ranks' device group to the model,
+which sums the fp32 products of ``wo`` and ``w_down`` over it. Every
+device call is split into a dispatch function a follower rank can call
+with the same arguments; on rank 0 it is announced to the followers
+first (``publisher``, ``engine/multihost.py``) and runs under the
+publisher's lock, so every rank issues the same collectives in the same
+order. The KV block count is agreed across ranks: each sizes its budget
+(split among the ranks on its card) after a barrier that follows every
+rank's weights, and all take the least. A page leaves the engine whole,
+``[L, bs, KH, hd]`` as at one rank (each rank's heads gathered on rank 0
+over the control group) and is split back on upload, so swap, the tiers
+and the handoff run unchanged. Every rank samples: the logits after the
+all-reduce are the same on every rank and each row's seed comes from
+rank 0's batch, so a follower draws rank 0's tokens, which a burst feeds
+back on its own device (``rank_reports`` carries a digest of each rank's
+sampled rows to check it). Steps are captured only where the device group
+can be (NCCL); under gloo, whose collectives wait on the host, they run
+eagerly and count as ``eager``.
+
 ``encode`` (``/v1/embeddings``) runs ``Llama.encode`` over one prompt
 padded into its pow2 bucket, eagerly on the stream the steps use: the
 async engine calls it on its step thread between two steps, never beside
@@ -90,10 +112,19 @@ import numpy as np
 import torch
 
 from ..logging_utils import init_logger
-from ..models.llama import Llama, LlamaConfig, load_hf_params, quant_mode
+from ..models.llama import (
+    Llama,
+    LlamaConfig,
+    load_hf_params,
+    quant_mode,
+    shard_leaf,
+    shard_params,
+    tp_local_config,
+)
 from ..models.registry import get_model_config
 from ..obs.engine_telemetry import EngineTelemetry
-from ..ops import int4_matmul, paged_attention_cuda
+from ..ops import _build, int4_matmul, paged_attention_cuda
+from ..parallel.distributed import HostBridge, RankContext
 from ..ops.sampling import (
     apply_allowed_mask,
     apply_logit_bias,
@@ -103,6 +134,7 @@ from ..ops.sampling import (
 )
 from .config import (
     EngineConfig,
+    check_parallel,
     kv_cache_torch_dtype,
     resolve_device,
     resolve_num_kv_blocks,
@@ -123,6 +155,27 @@ def _pow2(n: int, cap: Optional[int] = None) -> int:
 
 # Block tables below this width share one bucket (as in the JAX runner).
 _MIN_TABLE_BUCKET = 64
+
+# The device calls rank 0 announces (by the JAX step kinds) and the
+# runner method a follower calls with the announced arguments
+# (``engine/multihost.py::run_follower``): the one map of the mirror.
+MIRRORED = {
+    "step": "_step",
+    "step_nofetch": "_step",
+    "multi_step": "_multi_step",
+    "burst_start": "_dispatch_burst_start",
+    "burst_cont": "_dispatch_burst_continue",
+    "spec_verify": "_spec_verify",
+    "forward": "forward_logits",
+    "encode": "_encode",
+    "download_page": "_gather_page",
+    "upload_page": "_dispatch_upload_page",
+    "drop_kv": "_drop_kv_cache",
+    "restore_kv": "restore_kv_cache",
+    "install_adapter": "install_adapter",
+    "uninstall_adapter": "uninstall_adapter",
+    "report": "rank_reports",
+}
 
 def _launch_counters() -> tuple:
     """The kernel wrappers' launch counters, which count in Python and so
@@ -190,15 +243,38 @@ class ModelRunner:
         cfg: EngineConfig,
         model_cfg: Optional[LlamaConfig] = None,
         params: Optional[Dict[str, Any]] = None,
+        ranks: Optional[RankContext] = None,
+        publisher=None,
     ):
+        """``ranks``: this rank's place and groups when
+        ``tensor_parallel_size`` > 1 (``parallel/distributed.py``);
+        ``publisher``: rank 0's ``StepPublisher``, which announces each
+        device call to the followers (None on a follower, and at one
+        rank). A given ``params`` is the whole tree: each rank keeps its
+        shard."""
         t0 = time.perf_counter()
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self.tp = cfg.tensor_parallel_size
+        if (ranks.world_size if ranks else 1) != self.tp:
+            raise ValueError(
+                f"tensor_parallel_size={self.tp} needs a rank context of "
+                f"{self.tp} ranks")
+        self.ranks = ranks
+        self.rank = ranks.rank if ranks else 0
+        self.publisher = publisher
+        self.tp_group = ranks.device_group if ranks else None
+        self._bridge = HostBridge(ranks) if ranks else None
+        self.device = ranks.device if ranks else resolve_device(cfg.device)
         if cfg.model_attn_impl == "cuda" and self.device.type != "cuda":
             raise ValueError(f"attn_impl={cfg.attn_impl!r} runs the CUDA "
                              "kernels, which need device='cuda'")
         self.model_cfg = model_cfg or get_model_config(cfg.model)
+        check_parallel(cfg, self.model_cfg)
         self.model = Llama(self.model_cfg)
+        # This rank's heads and FFN slice: its cache pages and LoRA bank.
+        self.local_cfg = tp_local_config(self.model_cfg, self.tp)
+        self._local_model = Llama(self.local_cfg)
+        shard = (self.rank, self.tp) if self.tp > 1 else None
         # The MoE name every forward and encode takes: "auto" is ragged,
         # as the JAX runner resolves it on an unsharded mesh (the port
         # serves one GPU).
@@ -208,17 +284,21 @@ class ModelRunner:
             # One stacked leaf at a time onto the device, quantized there.
             params = load_hf_params(self.model_cfg, cfg.model,
                                     quantize=cfg.quantization,
-                                    device=self.device)
+                                    device=self.device, shard=shard)
         elif params is None:
             # Quantized presets are drawn and quantized a layer's slice at a
             # time on the device: the bf16 tree never exists whole.
             gen = torch.Generator(device=self.device)
             gen.manual_seed(cfg.seed)
             params = self.model.init_params(gen, self.device,
-                                            quantization=cfg.quantization)
+                                            quantization=cfg.quantization,
+                                            shard=shard)
         else:
             # A given tree is served as it is (a converted JAX
-            # quantize_tree output is already quantized).
+            # quantize_tree output is already quantized), cut to the
+            # rank's shard first.
+            if shard:
+                params = shard_params(params, self.model_cfg, *shard)
             params = _to_device(params, self.device)
             if cfg.quantization and quant_mode(params) != cfg.quantization:
                 raise ValueError(
@@ -231,7 +311,7 @@ class ModelRunner:
         for k in [k for k in params["layers"] if k.startswith("lora_")]:
             del params["layers"][k]
         if cfg.enable_lora:
-            params["layers"].update(self.model.init_lora_bank(
+            params["layers"].update(self._local_model.init_lora_bank(
                 cfg.max_loras, cfg.max_lora_rank, self.device))
         self.params = params
         self.lora_bank_bytes = sum(
@@ -253,9 +333,13 @@ class ModelRunner:
             quant_mode(params) or self.model_cfg.dtype,
             self.param_bytes / 2**30, self.device, time.perf_counter() - t0,
         )
-        self.num_blocks = resolve_num_kv_blocks(cfg, self.model_cfg, self.device)
+        if ranks is None:
+            self.num_blocks = resolve_num_kv_blocks(cfg, self.model_cfg,
+                                                    self.device)
+        else:
+            self.num_blocks = self._agree_num_blocks()
         self.max_table_width = -(-cfg.max_model_len // cfg.block_size)
-        self.kv_cache = self.model.make_kv_cache(
+        self.kv_cache = self._local_model.make_kv_cache(
             self.num_blocks, cfg.block_size, dtype=self.kv_dtype,
             device=self.device
         )
@@ -289,15 +373,18 @@ class ModelRunner:
         self.graph_counts = {"captured": 0, "replayed": 0, "eager": 0,
                              "dropped": 0}
         self.graph_pool_bytes = 0  # device memory the captures reserved
-        self._graph_cls = None  # None: steps run eagerly (CPU tensors)
+        # None: steps run eagerly (CPU tensors, and a device group whose
+        # collectives no graph can hold).
+        self._graph_cls = None
         self._capture_stream = self._pool = None
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and (ranks is None or ranks.capturable):
             self._graph_cls = torch.cuda.CUDAGraph
             self._capture_stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
+        if self.device.type == "cuda":
             # The split kernels' tickets for the largest launch of the
             # lattice, before any capture (a graph keeps the buffer it saw).
-            mc = self.model_cfg
+            mc = self.local_cfg
             paged_attention_cuda.reserve_tickets(self.device, max(
                 paged_attention_cuda.ticket_count(
                     mc.torch_dtype, self.kv_dtype, mc.num_heads,
@@ -306,14 +393,102 @@ class ModelRunner:
         # When the last decode step's rows reached the host (None after a
         # prefill): the next decode dispatch closes the host gap.
         self._host_gap_t0: Optional[float] = None
-        # The pipelined burst in flight (burst_start .. burst_drain).
+        # The pipelined burst in flight (burst_start .. burst_drain), on
+        # rank 0; its static inputs, graph key and eager function, on
+        # every rank (set by each burst_start).
         self._burst: Optional[Dict[str, Any]] = None
+        self._pipe: Optional[tuple] = None
         # The decode batch's rows and their row bucket, kept while rows
         # only leave the batch (``_decode_rows``).
         self._decode_cohort: Tuple[List[Sequence], frozenset, int] = (
             [], frozenset(), 0)
+        # A digest of every step's sampled rows on this rank (tensor
+        # parallel only): equal on every rank while they draw alike.
+        self._rows_digest = (torch.zeros((), dtype=torch.int64,
+                                         device=self.device)
+                             if ranks else None)
         self.telemetry.record_startup_phase(
             "shard", time.perf_counter() - t_load)
+
+    def _agree_num_blocks(self) -> int:
+        """The KV block count every rank allocates: each rank's budget
+        (its card's, split among the ranks on it) sized after a barrier
+        that follows every rank's weights (and, on the card, the kernel
+        library rank 0 built before it), and the least of them."""
+        on_gpu = self.device.type == "cuda"
+        if on_gpu and self.rank == 0:
+            _build.load()
+        self._bridge.barrier()
+        if on_gpu and self.rank != 0:
+            _build.load()
+        n = resolve_num_kv_blocks(self.cfg, self.local_cfg, self.device,
+                                  share=self.ranks.ranks_on_device())
+        n = self._bridge.all_min(n)
+        logger.info("rank %d: %d KV blocks agreed across %d ranks",
+                    self.rank, n, self.tp)
+        return n
+
+    @contextlib.contextmanager
+    def _mirror(self, kind: str, *args):
+        """Announce device call ``kind`` with ``args`` to the followers,
+        which call ``MIRRORED[kind]`` with them, and hold the publisher's
+        lock while the block dispatches it: no other announcement (a
+        keepalive) comes between. A no-op on a follower and at one rank;
+        a kind outside ``MIRRORED`` raises on every rank."""
+        if kind not in MIRRORED:
+            raise KeyError(f"device call {kind!r} is not mirrored")
+        pub = self.publisher
+        if pub is None:
+            yield
+            return
+        with pub.lock:
+            pub.announce(kind, args)
+            yield
+
+    def _note_rows(self, rows: torch.Tensor) -> None:
+        """Fold a step's sampled rows into this rank's digest, on the
+        device (no host sync); tensor parallel only."""
+        if self._rows_digest is None:
+            return
+        r = rows.reshape(-1)
+        if r.dtype.is_floating_point:
+            r = r.view(torch.int32)
+        w = torch.arange(1, r.numel() + 1, dtype=torch.int64, device=r.device)
+        self._rows_digest.mul_(1_000_003).add_((r.long() * w).sum())
+
+    def rank_report(self) -> Dict[str, Any]:
+        """This rank's device, its device group's backend, graph counts,
+        kernel launch counts, peak device memory, KV blocks and rows
+        digest."""
+        cuda = self.device.type == "cuda"
+        return {
+            "rank": self.rank,
+            "device": str(self.device),
+            "backend": self.ranks.backend if self.ranks else None,
+            "graph_counts": dict(self.graph_counts),
+            # The kernels' launch counters that moved, the int4 routes
+            # named ``int4_<route>``.
+            "launches": {k: n for k, n in {
+                **paged_attention_cuda.launch_counts,
+                **paged_attention_cuda.route_counts,
+                **int4_matmul.launch_counts,
+                **{f"int4_{r}": n
+                   for r, n in int4_matmul.route_counts.items()}}.items()
+                if n},
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated(self.device)
+                                  if cuda else 0),
+            "num_blocks": self.num_blocks,
+            "rows_digest": (int(self._rows_digest)
+                            if self._rows_digest is not None else None),
+        }
+
+    def rank_reports(self) -> List[Dict[str, Any]]:
+        """Every rank's ``rank_report``, by rank (on rank 0; a mirrored
+        call, made between steps)."""
+        if self.ranks is None:
+            return [self.rank_report()]
+        with self._mirror("report"):
+            return self._bridge.gather(self.rank_report())
 
     # ------------------------------------------------------------------
     # Public entry points
@@ -344,7 +519,7 @@ class ModelRunner:
         chunks): the cheapest sampling variant, no host copy."""
         batch = self._prefill_batch(items)
         self._timed("prefill", *self._prefill_tel(items, batch),
-                    lambda: self._step(batch, False, True),
+                    lambda: self._step(batch, False, True, "step_nofetch"),
                     charge=lambda dt: self._charge_prefill(items, dt))
 
     def execute_decode(self, seqs: List[Sequence]) -> np.ndarray:
@@ -422,16 +597,12 @@ class ModelRunner:
             self._host_gap_t0 = None
 
         def step():
-            dev = self._put(batch)
-            key = self._key("burst", dev, want_lp, greedy, n_steps)
-            fn = lambda: self.eager_multi_step(  # noqa: E731
-                dev, n_steps, want_lp, greedy)
-            out = self._run(key, fn)
-            slots = [self._host_slot(out["rows"]) for _ in range(2)]
-            self._burst = {"dev": dev, "key": key, "fn": fn, "n": n_steps,
-                           "label": label, "members": len(seqs),
-                           "slots": slots, "count": 1,
-                           "pending": self._stage(out, dev, slots[0])}
+            rows = self._dispatch_burst_start(batch, n_steps, want_lp,
+                                              greedy)
+            slots = [self._host_slot(rows) for _ in range(2)]
+            self._burst = {"n": n_steps, "label": label,
+                           "members": len(seqs), "slots": slots, "count": 1,
+                           "pending": self._stage(rows, slots[0])}
 
         self._timed("decode", label, len(seqs) * n_steps, len(seqs) / Bb,
                     step, charge=lambda dt: self._charge_decode(seqs, dt))
@@ -441,7 +612,7 @@ class ModelRunner:
         the in-flight burst was dispatched with (growth needs a drain)."""
         if self._burst is None:
             return False
-        Wb = self._burst["dev"]["block_tables"].shape[1]
+        Wb = self._pipe[0]["block_tables"].shape[1]
         return max(len(s.block_ids) for s in members) <= Wb
 
     def burst_continue(self, members: List[Sequence]) -> np.ndarray:
@@ -454,8 +625,7 @@ class ModelRunner:
         st = self._burst
         if st is None:
             raise RuntimeError("no burst in flight")
-        dev = st["dev"]
-        Bb, Wb = dev["block_tables"].shape
+        Bb, Wb = self._pipe[0]["block_tables"].shape
         tables = np.zeros((Bb, Wb), np.int32)
         kv_lens = np.zeros(Bb, np.int32)
         for i, s in enumerate(members):
@@ -464,11 +634,10 @@ class ModelRunner:
         alive = sum(1 for s in members if not s.is_finished)
 
         def step():
-            self._put({"block_tables": tables, "kv_lens": kv_lens})
-            out = self._run(st["key"], st["fn"])
+            rows = self._dispatch_burst_continue(tables, kv_lens)
             slot = st["slots"][st["count"] % 2]
             st["count"] += 1
-            prev, st["pending"] = st["pending"], self._stage(out, dev, slot)
+            prev, st["pending"] = st["pending"], self._stage(rows, slot)
             return self._fetch(prev)
 
         # Dispatched before the previous burst's rows were read: the
@@ -504,7 +673,7 @@ class ModelRunner:
 
         def step():
             out = self._step(batch, want_lp, greedy)
-            return self._stage(out, None, self._host_slot(out))
+            return self._stage(out, self._host_slot(out))
 
         return self._timed("prefill", *self._prefill_tel(items, batch), step,
                            charge=lambda dt: self._charge_prefill(items, dt))
@@ -512,24 +681,53 @@ class ModelRunner:
     def prefill_fetch(self, handle, n_items: int) -> np.ndarray:
         return self._fetch(handle)[:n_items]
 
+    def _dispatch_burst_start(self, batch: Dict[str, np.ndarray],
+                              n_steps: int, want_lp: bool, greedy: bool
+                              ) -> torch.Tensor:
+        """A pipeline's first burst on the device; returns its rows. The
+        pipeline (static inputs, graph key, eager function) is kept in
+        ``_pipe`` for its continuations, and the burst's carry is moved
+        into the static inputs before anything else is enqueued.
+        Mirrored as ``burst_start``."""
+        with self._mirror("burst_start", batch, n_steps, want_lp, greedy):
+            dev = self._put(batch)
+            key = self._key("burst", dev, want_lp, greedy, n_steps)
+            fn = lambda: self.eager_multi_step(  # noqa: E731
+                dev, n_steps, want_lp, greedy)
+            self._pipe = (dev, key, fn)
+            return self._burst_out(self._run(key, fn))
+
+    def _dispatch_burst_continue(self, tables: np.ndarray,
+                                 kv_lens: np.ndarray) -> torch.Tensor:
+        """The next burst of the pipeline in ``_pipe``: fresh block tables
+        and ``kv_lens``, the carry already in the static inputs; returns
+        its rows. Mirrored as ``burst_cont``, before rank 0 fetches the
+        previous burst."""
+        with self._mirror("burst_cont", tables, kv_lens):
+            _, key, fn = self._pipe
+            self._put({"block_tables": tables, "kv_lens": kv_lens})
+            return self._burst_out(self._run(key, fn))
+
+    def _burst_out(self, out: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """A pipelined burst's carry (every output but the rows) into the
+        static inputs its continuation reads; its rows."""
+        dev = self._pipe[0]
+        for k, v in out.items():
+            if k != "rows":
+                dev[k].copy_(v)
+        self._note_rows(out["rows"])
+        return out["rows"]
+
     def _host_slot(self, like: torch.Tensor) -> torch.Tensor:
         """A host tensor for a step's rows: pinned on the GPU, so the
         copy into it runs on the stream without holding the host."""
         return torch.empty(like.shape, dtype=like.dtype,
                            pin_memory=self.device.type == "cuda")
 
-    def _stage(self, out: Any, dev: Optional[Dict[str, torch.Tensor]],
-               slot: torch.Tensor) -> tuple:
-        """Move a dispatched step's output out of the graph pool before
-        anything else is enqueued: a burst's carry into the static inputs
-        ``dev`` it feeds back into, its rows into the host ``slot``.
-        Returns (slot, the event the fetch waits on)."""
-        rows = out
-        if isinstance(out, dict):
-            rows = out["rows"]
-            for k, v in out.items():
-                if k != "rows":
-                    dev[k].copy_(v)
+    def _stage(self, rows: torch.Tensor, slot: torch.Tensor) -> tuple:
+        """Move a dispatched step's rows out of the graph pool, into the
+        host ``slot``, before anything else is enqueued. Returns (slot,
+        the event the fetch waits on)."""
         slot.copy_(rows, non_blocking=True)
         event = None
         if self.device.type == "cuda":
@@ -614,11 +812,13 @@ class ModelRunner:
                            lambda: self._encode(toks, n))
 
     def _encode(self, toks: np.ndarray, length: int) -> np.ndarray:
-        tokens = torch.from_numpy(toks).to(self.device)
-        lengths = torch.tensor([length], dtype=torch.int32,
-                               device=self.device)
-        out = self.model.encode(self.params, tokens, lengths,
-                                moe_impl=self.moe_impl)
+        with self._mirror("encode", toks, length):
+            tokens = torch.from_numpy(toks).to(self.device)
+            lengths = torch.tensor([length], dtype=torch.int32,
+                                   device=self.device)
+            out = self.model.encode(self.params, tokens, lengths,
+                                    moe_impl=self.moe_impl,
+                                    tp_group=self.tp_group)
         return out[0].cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -706,17 +906,21 @@ class ModelRunner:
         bank's address, and a rebound leaf would leave them reading the
         old one. Queued on the current stream, behind any step in
         flight; the engine calls it on the step thread between
-        dispatches."""
-        layers = self.params["layers"]
-        for t, (a, b) in arrays.items():
-            layers[f"lora_a_{t}"][:, slot].copy_(torch.from_numpy(a))
-            layers[f"lora_b_{t}"][:, slot].copy_(torch.from_numpy(b))
+        dispatches. Across tensor-parallel ranks every rank gets the whole
+        arrays and writes its cut of each (``lora_pspecs``)."""
+        with self._mirror("install_adapter", slot, arrays):
+            layers = self.params["layers"]
+            for t, (a, b) in arrays.items():
+                for name, x in ((f"lora_a_{t}", a), (f"lora_b_{t}", b)):
+                    x = shard_leaf(name, x, self.rank, self.tp)
+                    layers[name][:, slot].copy_(torch.from_numpy(x))
 
     def uninstall_adapter(self, slot: int) -> None:
         """Zero bank slot ``slot`` in place, so its id can be reused."""
-        for k, t in self.params["layers"].items():
-            if k.startswith("lora_"):
-                t[:, slot].zero_()
+        with self._mirror("uninstall_adapter", slot):
+            for k, t in self.params["layers"].items():
+                if k.startswith("lora_"):
+                    t[:, slot].zero_()
 
     # ------------------------------------------------------------------
     # Sleep (level 2): the KV cache and the graphs that hold its address
@@ -730,6 +934,10 @@ class ModelRunner:
         refers to the cache)."""
         if self._burst is not None:
             raise RuntimeError("a decode burst is in flight (drain first)")
+        with self._mirror("drop_kv"):
+            self._drop_kv_cache()
+
+    def _drop_kv_cache(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # no replay still runs
         n_graphs = len(self._graphs)
@@ -747,11 +955,12 @@ class ModelRunner:
     def restore_kv_cache(self) -> None:
         """A zeroed cache of the dropped one's shape and type, and a new
         graph pool: every step key captures afresh on first use."""
-        self.kv_cache = self.model.make_kv_cache(
-            self.num_blocks, self.cfg.block_size, dtype=self.kv_dtype,
-            device=self.device)
-        if self.device.type == "cuda":
-            self._pool = torch.cuda.graph_pool_handle()
+        with self._mirror("restore_kv"):
+            self.kv_cache = self._local_model.make_kv_cache(
+                self.num_blocks, self.cfg.block_size, dtype=self.kv_dtype,
+                device=self.device)
+            if self.device.type == "cuda":
+                self._pool = torch.cuda.graph_pool_handle()
 
     # ------------------------------------------------------------------
     # Page I/O for KV swap (engine/swap.py): one page's K and V of every
@@ -764,9 +973,17 @@ class ModelRunner:
         stream into pinned memory and nothing waits for them: they run
         after the steps queued before (an in-flight burst included), and
         an upload of the same tensors queued later reads them only after
-        they landed. A host reader synchronizes first."""
+        they landed. A host reader synchronizes first.
+
+        Across tensor-parallel ranks (a mirrored call) each rank copies
+        its heads of the page to the host and rank 0 gathers them over the
+        control group: the page it returns is whole, and the copies have
+        landed on return."""
         mc = self.model_cfg
         L, bs = mc.num_layers, self.cfg.block_size
+        if self.ranks is not None:
+            with self._mirror("download_page", blk):
+                return self._gather_page(blk)
         pin = self.device.type == "cuda"
         out = []
         for kv in (0, 1):
@@ -777,16 +994,49 @@ class ModelRunner:
             out.append(host)
         return out[0], out[1]
 
+    def _gather_page(self, blk: int) -> Optional[tuple]:
+        """Page ``blk``'s K and V ``[L, bs, KH, hd]`` gathered from every
+        rank's heads, on rank 0 (None on a follower). The heads travel as
+        bytes, whatever the cache's type."""
+        L, bs, hd = (self.model_cfg.num_layers, self.cfg.block_size,
+                     self.model_cfg.head_dim)
+        local = self.kv_cache[:, blk].to("cpu").view(torch.uint8)
+        parts = self._bridge.gather_tensor(local)  # [L, 2, bs, KHl*hd*isz]
+        if parts is None:
+            return None
+        khl = self.local_cfg.num_kv_heads
+        return tuple(
+            torch.cat([p[:, kv].reshape(L, bs, khl, -1) for p in parts],
+                      dim=2).view(self.kv_dtype).reshape(L, bs, -1, hd)
+            for kv in (0, 1))
+
     def upload_page(self, blk: int, k, v) -> None:
         """Write K and V (``download_page``'s shapes and type) into page
         ``blk`` of the existing cache, in place and queued on the current
         stream: every captured step graph holds the cache's address, so
-        the cache is never rebound."""
+        the cache is never rebound. Across tensor-parallel ranks the whole
+        page is announced as bytes and each rank writes its heads."""
+        if self.ranks is not None:
+            raw = tuple(t.contiguous().view(torch.uint8) for t in (k, v))
+            with self._mirror("upload_page", blk, *raw):
+                self._dispatch_upload_page(blk, *raw)
+            return
         L, bs = self.model_cfg.num_layers, self.cfg.block_size
         pin = self.device.type == "cuda"
         for kv, host in ((0, k), (1, v)):
             self.kv_cache[:, blk, kv].copy_(
                 host.reshape(L, bs, -1), non_blocking=pin)
+
+    def _dispatch_upload_page(self, blk: int, k_raw: torch.Tensor,
+                              v_raw: torch.Tensor) -> None:
+        """Write this rank's heads of a whole page's bytes (``[L, bs, KH,
+        hd * itemsize]`` uint8) into page ``blk``."""
+        L, bs = self.model_cfg.num_layers, self.cfg.block_size
+        khl = self.local_cfg.num_kv_heads
+        heads = slice(self.rank * khl, (self.rank + 1) * khl)
+        for kv, raw in ((0, k_raw), (1, v_raw)):
+            mine = raw[:, :, heads].contiguous().view(self.kv_dtype)
+            self.kv_cache[:, blk, kv].copy_(mine.reshape(L, bs, -1))
 
     def page_event(self):
         """A CUDA event recorded on the current stream after the page
@@ -894,14 +1144,35 @@ class ModelRunner:
             kv_lens, last_idx, self.kv_cache, all_logits=all_logits,
             attn_impl=self.cfg.model_attn_impl, moe_impl=self.moe_impl,
             lora_idx=dev.get("lora_idx"), lora_scale=dev.get("lora_scale"),
+            tp_group=self.tp_group,
         )
         return logits
 
+    def forward_logits(self, batch: Dict[str, np.ndarray],
+                       all_logits: bool = False) -> torch.Tensor:
+        """The fp32 logits of one forward over ``batch`` (a prefill step's
+        ``tokens``, ``positions``, ``write_idx``, ``block_tables``,
+        ``kv_lens`` and ``last_idx`` int32 arrays), its K/V written to
+        the cache: uncaptured and unsampled, the teacher-forced scoring
+        that holds a rank layout against one rank. Mirrored as
+        ``forward``."""
+        with self._mirror("forward", batch, all_logits):
+            dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                   for k, v in batch.items()}
+            return self._forward(dev, dev["tokens"], dev["positions"],
+                                 dev["write_idx"], dev["kv_lens"],
+                                 dev["last_idx"], all_logits=all_logits)
+
     def _step(self, batch: Dict[str, np.ndarray], want_lp: bool,
-              greedy: bool) -> torch.Tensor:
-        dev = self._put(batch)
-        return self._run(self._key("step", dev, want_lp, greedy, 1),
-                         lambda: self.eager_step(dev, want_lp, greedy))
+              greedy: bool, kind: str = "step") -> torch.Tensor:
+        """One step on the device; mirrored as ``kind`` (``step``, or
+        ``step_nofetch`` for a prefill whose rows nobody reads)."""
+        with self._mirror(kind, batch, want_lp, greedy):
+            dev = self._put(batch)
+            out = self._run(self._key("step", dev, want_lp, greedy, 1),
+                            lambda: self.eager_step(dev, want_lp, greedy))
+            self._note_rows(out)
+        return out
 
     def eager_step(self, dev: Dict[str, torch.Tensor], want_lp: bool,
                    greedy: bool) -> torch.Tensor:
@@ -928,10 +1199,13 @@ class ModelRunner:
         )
 
     def _spec_verify(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
-        dev = self._put(batch)
-        K = dev["tokens"].shape[1] - 1
-        return self._run(self._key("spec_verify", dev, False, False, K),
-                         lambda: self.eager_spec_verify(dev))
+        with self._mirror("spec_verify", batch):
+            dev = self._put(batch)
+            K = dev["tokens"].shape[1] - 1
+            out = self._run(self._key("spec_verify", dev, False, False, K),
+                            lambda: self.eager_spec_verify(dev))
+            self._note_rows(out)
+        return out
 
     def eager_spec_verify(self, dev: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The verify step on ``_put``'s views, run eagerly (what its graph
@@ -962,10 +1236,13 @@ class ModelRunner:
 
     def _multi_step(self, batch: Dict[str, np.ndarray], n_steps: int,
                     want_lp: bool, greedy: bool) -> Dict[str, torch.Tensor]:
-        dev = self._put(batch)
-        return self._run(
-            self._key("burst", dev, want_lp, greedy, n_steps),
-            lambda: self.eager_multi_step(dev, n_steps, want_lp, greedy))
+        with self._mirror("multi_step", batch, n_steps, want_lp, greedy):
+            dev = self._put(batch)
+            out = self._run(
+                self._key("burst", dev, want_lp, greedy, n_steps),
+                lambda: self.eager_multi_step(dev, n_steps, want_lp, greedy))
+            self._note_rows(out["rows"])
+        return out
 
     def eager_multi_step(self, dev: Dict[str, torch.Tensor], n_steps: int,
                          want_lp: bool, greedy: bool

@@ -66,8 +66,13 @@ controller every 10 s (``register_with_controller``). With a remote tier
 The deploy layer's argv: the chart's and the operator's engine flags
 parse (``--served-model-name``, ``--gpu-memory-utilization``,
 ``--attn-impl``, ``--moe-impl``, ``--no-enable-prefix-caching``,
-``--no-startup-phases``, ...), the five ``--*-parallel-size`` flags
-take 1 only (one GPU: a larger size is refused at start). With
+``--no-startup-phases``, ...). ``--tensor-parallel-size N`` serves on N
+ranks, one process each (``engine/multihost.py``): ``main`` starts them
+(under the chart's multi-host ``PST_*`` environment, each pod its own,
+and a pod other than the first mirrors rank 0 and serves nothing), rank
+0 serves HTTP, and a SIGTERM stops every local rank. The other four
+``--*-parallel-size`` flags take 1 only (refused at start above 1,
+ROADMAP.md queue 1, item 15). With
 ``--api-key`` every route but the probes and ``/metrics``
 (``_OPEN_PATHS``) answers 401 ``invalid API key`` to a request without
 ``Authorization: Bearer <key>``; a traced path's 401 carries its
@@ -115,6 +120,7 @@ import http.client
 import json
 import os
 import signal
+import sys
 import tempfile
 import threading
 import time
@@ -143,11 +149,13 @@ from ..obs.tracing import (
     debug_requests_payload,
     error_headers,
 )
+from ..parallel.distributed import DistributedConfig
 from ..resilience.deadline import DEADLINE_EXCEEDED_HEADER, parse_deadline
 from ..utils_tracing import init_otel, init_sentry
 from .async_engine import AsyncLLMEngine
 from .cache_tiering import INTEGRITY_SOURCES
 from .config import EngineConfig
+from .multihost import start_ranks
 from .sequence import SamplingParams
 from .tokenizer import ChatMessage
 
@@ -1665,8 +1673,9 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-num-seqs", type=int, default=64)
     p.add_argument("--max-num-batched-tokens", dest="max_prefill_tokens",
                    type=int, default=2048)
-    # The JAX server's mesh axes. The port serves on one GPU: each takes
-    # 1, and a larger size is refused at start (engine_config_from_args).
+    # The JAX server's mesh axes. The port serves tensor parallelism; the
+    # other four take 1, a larger size is refused at start
+    # (engine_config_from_args).
     for axis in PARALLEL_AXES:
         p.add_argument(f"--{axis}-parallel-size", type=int, default=1)
     p.add_argument("--attn-impl", default="auto",
@@ -1824,17 +1833,19 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
 
 
 def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
-    """The engine's config from the server's flags. A parallel size above
-    1 raises: the port serves on one GPU, and multi-GPU serving is queue
-    1, item 15 of ROADMAP.md."""
+    """The engine's config from the server's flags. A pipeline, data,
+    sequence or expert size above 1 raises: the port serves tensor
+    parallelism only, and the other axes are queue 1, item 15 of
+    ROADMAP.md."""
     for axis in PARALLEL_AXES:
         size = getattr(args, f"{axis}_parallel_size")
-        if size != 1:
+        if axis != "tensor" and size != 1:
             raise ValueError(
                 f"--{axis}-parallel-size {size}: the PyTorch engine serves "
-                "on one GPU (multi-GPU serving is queue 1, item 15 of "
-                "ROADMAP.md); pass 1")
+                "tensor parallelism only (the other axes are queue 1, item "
+                "15 of ROADMAP.md); pass 1")
     return EngineConfig(
+        tensor_parallel_size=args.tensor_parallel_size,
         model=args.model,
         tokenizer=args.tokenizer,
         served_model_name=args.served_model_name,
@@ -1925,6 +1936,12 @@ def main(argv=None) -> None:
     # also needs OTEL_EXPORTER_OTLP_ENDPOINT), as in the JAX server.
     init_sentry(args.sentry_dsn)
     init_otel("pst-engine")
+    if (cfg.tensor_parallel_size > 1
+            and DistributedConfig.from_env().process_id != 0):
+        # A pod other than the first: mirror rank 0, serve nothing.
+        sys.exit(start_ranks(cfg).follow())
+    # At tensor_parallel_size > 1 the engine starts this host's ranks and
+    # stops them at its shutdown.
     engine = AsyncLLMEngine(cfg)
     server = create_engine_app(engine, args.host, args.port,
                                cross_encoder=cross_encoder_from_args(args),
@@ -1947,7 +1964,7 @@ def main(argv=None) -> None:
         if server.controller_reports is not None:
             server.controller_reports.set()
         server.server_close()
-        engine.shutdown()
+        engine.shutdown()  # every local rank stopped, or killed
 
 
 def serve_in_thread(engine: AsyncLLMEngine, host: str = "127.0.0.1",

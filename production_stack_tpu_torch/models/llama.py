@@ -60,6 +60,24 @@ any other: no expert's row count is read on the host. Each expert's
 products go one slice at a time through the rules of the dense
 projections (an int4 bank through :func:`int4_matmul`).
 
+Tensor parallelism (Megatron, the JAX ``param_pspecs``, ``lora_pspecs``
+and ``cache_pspec``): :func:`shard_params` cuts a tree for one of ``tp``
+ranks. ``wq``/``wk``/``wv`` (and their biases) are column-parallel by
+whole heads, ``w_gate``/``w_up`` (an expert bank's too) by the FFN hidden
+dim; ``wo`` and ``w_down`` are row-parallel. A quantized tree is sliced,
+never quantized again: int8 scales follow their weight's output
+channels (a row-parallel weight's stay whole), int4 packed rows and
+group scales are cut on whole groups. The LoRA bank's B of q/k/v is cut
+on its output dim and the A of ``wo`` on its input dim; norms, the
+router, ``embed`` and ``lm_head`` stay whole on every rank, so the
+logits need no gather. ``init_params`` and ``load_hf_params`` take
+``shard=(rank, tp)`` and keep only the rank's slice of each leaf, which
+equals the same slice of the whole tree. ``forward`` and ``encode`` take
+the ranks' device group (``tp_group``; None for one rank): each rank runs
+its heads (a cache of ``[L, nb, 2, bs, (KH/tp)*hd]``) and its slice of
+the FFN, and the fp32 products of ``wo`` and ``w_down`` (or the experts'
+combine) are summed over the group before their one cast.
+
 Not ported yet: pipeline parallelism has no parameter here.
 """
 
@@ -73,6 +91,7 @@ import os
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops.attention import paged_attention, resolve_impl
@@ -204,6 +223,117 @@ def quant_mode(params: Params) -> Optional[str]:
         return "int8"
     return None
 
+
+# ----------------------------------------------------------------------------
+# Tensor-parallel shards (Megatron; the JAX param_pspecs and lora_pspecs)
+# ----------------------------------------------------------------------------
+
+# Leaves cut on their output dim (-1) and on their input dim (-2).
+_COLUMN_PARALLEL = ("wq", "wk", "wv", "bq", "bk", "bv", "w_gate", "w_up",
+                    "lora_b_wq", "lora_b_wk", "lora_b_wv")
+_ROW_PARALLEL = ("wo", "w_down", "lora_a_wo")
+
+
+def shard_axis(name: str) -> Optional[int]:
+    """The axis a layer leaf is cut on across tensor-parallel ranks (-1:
+    output channels, -2: input rows), or None where every rank holds it
+    whole. A scale leaf follows its weight, but a row-parallel weight's
+    int8 scales (one an output channel) stay whole."""
+    if name.endswith(QUANT4_SUFFIX):
+        base = name[: -len(QUANT4_SUFFIX)]
+    elif name.endswith(QUANT_SUFFIX):
+        base = name[: -len(QUANT_SUFFIX)]
+        if base in _ROW_PARALLEL:
+            return None
+    else:
+        base = name
+    if base in _COLUMN_PARALLEL:
+        return -1
+    if base in _ROW_PARALLEL:
+        return -2
+    return None
+
+
+def shard_leaf(name: str, t, rank: int, tp: int):
+    """Rank ``rank``'s contiguous slice of layer leaf ``name`` (a tensor,
+    or a numpy array) of ``tp``: ``t`` itself where it stays whole."""
+    axis = shard_axis(name)
+    if tp == 1 or axis is None:
+        return t
+    n = t.shape[axis]
+    if n % tp:
+        raise ValueError(f"{name}: dim {n} does not split over {tp} ranks")
+    k = n // tp
+    if isinstance(t, torch.Tensor):
+        return t.narrow(axis, rank * k, k).contiguous()
+    return t[(..., slice(rank * k, (rank + 1) * k))
+             + ((slice(None),) if axis == -2 else ())].copy()
+
+
+def check_tp(cfg: "LlamaConfig", tp: int,
+             quantization: Optional[str] = None) -> None:
+    """Raise ``ValueError`` unless ``cfg`` splits over ``tp`` ranks: whole
+    query and kv heads and an FFN hidden dim a rank, and under int4 a
+    whole number of the full weight's groups in each row-parallel
+    contraction (the kernels read the group from the shapes)."""
+    if tp < 1:
+        raise ValueError(f"tensor_parallel_size must be >= 1, got {tp}")
+    for what, n in (("num_heads", cfg.num_heads),
+                    ("num_kv_heads", cfg.num_kv_heads),
+                    ("intermediate_size", cfg.intermediate_size)):
+        if n % tp:
+            raise ValueError(f"{what}={n} is not divisible by "
+                             f"tensor_parallel_size={tp}")
+    if quantization == "int4":
+        for what, din in (("wo", cfg.q_size),
+                          ("w_down", cfg.intermediate_size)):
+            g = q4_group(din)
+            if (din // tp) % g:
+                raise ValueError(
+                    f"int4 {what}: a rank's {din // tp} input rows are not "
+                    f"a whole number of the weight's {g}-row groups at "
+                    f"tensor_parallel_size={tp}")
+
+
+def tp_local_config(cfg: "LlamaConfig", tp: int) -> "LlamaConfig":
+    """The geometry one of ``tp`` ranks runs: its query and kv heads and
+    its slice of the FFN (what sizes its KV pages and its LoRA bank)."""
+    if tp == 1:
+        return cfg
+    check_tp(cfg, tp)
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // tp,
+        num_kv_heads=cfg.num_kv_heads // tp,
+        intermediate_size=cfg.intermediate_size // tp)
+
+
+def shard_params(params: "Params", cfg: "LlamaConfig", rank: int,
+                 tp: int) -> "Params":
+    """Rank ``rank``'s shard of a whole tree (quantized or not, with or
+    without a LoRA bank): each layer leaf cut per :func:`shard_axis`, the
+    top leaves (``embed``, ``lm_head``, ``final_norm`` and their scales)
+    whole."""
+    check_tp(cfg, tp, quant_mode(params))
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: shard_leaf(k, v, rank, tp)
+                     for k, v in params["layers"].items()}
+    return out
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed in place over the tensor-parallel group (None: one
+    rank, nothing to sum)."""
+    if group is not None:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def _tp_heads(cfg: "LlamaConfig", group) -> Tuple[int, int]:
+    """(query heads, kv heads) of one rank of ``group``."""
+    tp = 1 if group is None else group.size()
+    return cfg.num_heads // tp, cfg.num_kv_heads // tp
+
+
 # The CUDA caching allocator rounds a large allocation's segment up to a
 # multiple of this and splits off a free tail of more than 1 MiB.
 _SEGMENT_GRANULE = 2 << 20
@@ -322,6 +452,7 @@ class Llama:
     def init_params(
         self, generator: torch.Generator, device: torch.device,
         quantization: Optional[str] = None,
+        shard: Optional[Tuple[int, int]] = None,
     ) -> Params:
         """Random init with the JAX package's distributions (norms 1,
         biases 0, matmul weights N(0, 1/fan_in)); not its values — the
@@ -332,18 +463,39 @@ class Llama:
         device as soon as it is drawn and freed before the next, so only
         the quantized tree stays resident; the result equals
         ``quantize_tree(init_params(...), quantization)`` from the same
-        generator state, bit for bit."""
+        generator state, bit for bit.
+
+        ``shard=(rank, tp)``: each slice is still drawn (and quantized)
+        whole, so the generator advances as for the whole tree, and only
+        the rank's cut of it is kept: the result equals
+        ``shard_params(init_params(...), cfg, rank, tp)``."""
         if quantization not in (None, *QUANT_MODES):
             raise ValueError(
                 f"unsupported quantization {quantization!r} (int8 or int4)")
         dtype = self.cfg.torch_dtype
+        rank, tp = shard or (0, 1)
+        if tp > 1:
+            check_tp(self.cfg, tp, quantization)
+
+        def cut(name: str, t: torch.Tensor) -> torch.Tensor:
+            return shard_leaf(name, t, rank, tp)
+
+        def local(name: str, shape) -> Tuple[int, ...]:
+            axis = shard_axis(name)
+            if tp == 1 or axis is None:
+                return tuple(shape)
+            out = list(shape)
+            out[axis] //= tp
+            return tuple(out)
 
         def fill(params: Params, name: str, shape) -> None:
             if "norm" in name:
-                params[name] = torch.ones(shape, dtype=dtype, device=device)
+                params[name] = torch.ones(local(name, shape), dtype=dtype,
+                                          device=device)
                 return
             if name.startswith("b"):
-                params[name] = torch.zeros(shape, dtype=dtype, device=device)
+                params[name] = torch.zeros(local(name, shape), dtype=dtype,
+                                           device=device)
                 return
             fan_in = shape[-1] if name in QUANT_TOP_KEYS else shape[-2]
 
@@ -354,14 +506,20 @@ class Llama:
 
             quantized = name in QUANT_LAYER_KEYS + QUANT_TOP_KEYS
             if quantization is None or not quantized:
-                out = torch.empty(shape, dtype=dtype, device=device)
-                for part in out.view(-1, *shape[-2:]):
-                    part.copy_(draw())
+                mine = local(name, shape)
+                out = torch.empty(mine, dtype=dtype, device=device)
+                for part in out.view(-1, *mine[-2:]):
+                    part.copy_(cut(name, draw()))
                 params[name] = out
                 return
             fn, suffix = _quantizer(name, quantization)
+
+            def make(i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                q, s = fn(draw())
+                return cut(name, q), cut(name + suffix, s)
+
             params[name], params[name + suffix] = _stack_slices(
-                tuple(shape[:-2]), lambda i: fn(draw()))
+                tuple(shape[:-2]), make)
 
         shapes = self.param_shapes()
         params: Params = {"layers": {}}
@@ -454,6 +612,7 @@ class Llama:
         lora_idx: Optional[torch.Tensor] = None,  # [B] int bank slot
         lora_scale: Optional[torch.Tensor] = None,  # [B] float32
         moe_impl: str = "auto",
+        tp_group=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One engine step. Returns (last-token logits [B, V] float32, the
         cache); with ``all_logits`` the logits of every position [B, T, V]
@@ -463,8 +622,13 @@ class Llama:
         ``params["layers"]`` each row adds its slot's delta (slot 0 and
         scale 0 for every row when ``lora_idx`` is None). ``moe_impl``:
         a JAX name of the mixture-of-experts form, checked by
-        :func:`_moe_mlp` (every name runs its one body)."""
+        :func:`_moe_mlp` (every name runs its one body). ``tp_group``: the
+        tensor-parallel ranks' device group, each rank holding its
+        :func:`shard_params` shard and its heads' cache; None for one
+        rank."""
         cfg = self.cfg
+        H, KH = _tp_heads(cfg, tp_group)
+        q_size, kv_size = H * cfg.head_dim, KH * cfg.head_dim
         B, T = tokens.shape
         L, nb, _, bs, _ = kv_cache.shape
         layers = params["layers"]
@@ -521,8 +685,8 @@ class Llama:
                 q = q + lora_delta(lp, "wq", h, lora_idx, lora_scale).to(q.dtype)
                 k = k + lora_delta(lp, "wk", h, lora_idx, lora_scale).to(k.dtype)
                 v = v + lora_delta(lp, "wv", h, lora_idx, lora_scale).to(v.dtype)
-            q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
-            k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+            q = q.reshape(B, T, H, cfg.head_dim)
+            k = k.reshape(B, T, KH, cfg.head_dim)
             if cfg.qk_norm:  # Qwen3: per-head RMSNorm over hd, pre-rope
                 q = _rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
                 k = _rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
@@ -532,15 +696,14 @@ class Llama:
             if fused:
                 attn = paged_attention_decode_write(
                     q[:, 0], kv_cache, tables, lens, li,
-                    k.reshape(B, cfg.kv_size), v.reshape(B, cfg.kv_size),
+                    k.reshape(B, kv_size), v.reshape(B, kv_size),
                     write_flat, scale=cfg.attn_scale,
                     window=_layer_window(cfg, li),
                     softcap=cfg.attn_logit_softcap,
                 )[:, None]
             else:
                 kvd = to_cache_dtype(torch.cat(
-                    [k.reshape(B * T, cfg.kv_size),
-                     v.reshape(B * T, cfg.kv_size)]
+                    [k.reshape(B * T, kv_size), v.reshape(B * T, kv_size)]
                 ), kv_cache.dtype)
                 raw(flat_cache).index_copy_(0, targets[li], raw(kvd))
                 attn = paged_attention(
@@ -549,15 +712,16 @@ class Llama:
                     window=_layer_window(cfg, li),
                     softcap=cfg.attn_logit_softcap,
                 )
-            attn = attn.reshape(B, T, cfg.q_size).to(x.dtype)
-            if has_lora:
-                # The delta joins wo's fp32 product (int8 scale applied,
-                # or the int4 kernel's result) before its one cast.
-                o, wo_s = _qdot(attn, lp, "wo")
-                if wo_s is not None:
-                    o = o * wo_s
-                o = (o + lora_delta(lp, "wo", attn, lora_idx, lora_scale)
-                     ).to(x.dtype)
+            attn = attn.reshape(B, T, q_size).to(x.dtype)
+            if has_lora or tp_group is not None:
+                # wo's fp32 product (int8 scale applied, or the int4
+                # kernel's result), summed over the ranks, and the LoRA
+                # delta join before its one cast.
+                o = _all_reduce(_qdot_scaled(attn, lp, "wo"), tp_group)
+                if has_lora:
+                    o = o + lora_delta(lp, "wo", attn, lora_idx, lora_scale,
+                                       tp_group)
+                o = o.to(x.dtype)
             else:
                 o = _proj(attn, lp, "wo")
             if cfg.post_block_norms:  # Gemma-2 post-attention norm
@@ -565,7 +729,7 @@ class Llama:
                               offset)
             x = x + o
             h = _rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps, offset)
-            ff = _mlp(h, lp, cfg, moe_impl)
+            ff = _mlp(h, lp, cfg, moe_impl, tp_group)
             if cfg.post_block_norms:  # Gemma-2 post-feedforward norm
                 ff = _rms_norm(ff, lp["post_mlp_norm"], cfg.rms_norm_eps,
                                offset)
@@ -592,6 +756,7 @@ class Llama:
         tokens: torch.Tensor,  # [B, T] int
         lengths: torch.Tensor,  # [B] int valid lengths
         moe_impl: str = "auto",
+        tp_group=None,
     ) -> torch.Tensor:
         """The embedding path (``/v1/embeddings``), the JAX ``encode``:
         causal attention over the whole prompt at positions ``0..T-1``, no
@@ -600,8 +765,10 @@ class Llama:
         layers are the forward's (embed scale, unit-offset norms, qk norm
         before rope, llama3 rope, each layer's window and softcap,
         post-block norms); the LoRA bank is not applied, as in JAX.
-        Attention runs in blocks of query rows (:func:`encode_attention`)."""
+        Attention runs in blocks of query rows (:func:`encode_attention`).
+        ``tp_group`` as in :meth:`forward`."""
         cfg = self.cfg
+        H, KH = _tp_heads(cfg, tp_group)
         B, T = tokens.shape
         dev = tokens.device
         offset = cfg.norm_unit_offset
@@ -616,11 +783,11 @@ class Llama:
             lp = {k: v[li] for k, v in layers.items()}
             h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps, offset)
             q = _proj(h, lp, "wq", lp.get("bq")).reshape(
-                B, T, cfg.num_heads, cfg.head_dim)
+                B, T, H, cfg.head_dim)
             k = _proj(h, lp, "wk", lp.get("bk")).reshape(
-                B, T, cfg.num_kv_heads, cfg.head_dim)
+                B, T, KH, cfg.head_dim)
             v = _proj(h, lp, "wv", lp.get("bv")).reshape(
-                B, T, cfg.num_kv_heads, cfg.head_dim)
+                B, T, KH, cfg.head_dim)
             if cfg.qk_norm:  # Qwen3: per-head RMSNorm over hd, pre-rope
                 q = _rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
                 k = _rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
@@ -631,13 +798,13 @@ class Llama:
                 window=_layer_window(cfg, li),
                 softcap=cfg.attn_logit_softcap,
             ).to(x.dtype)
-            o = _proj(attn, lp, "wo")
+            o = _row_proj(attn, lp, "wo", tp_group)
             if cfg.post_block_norms:
                 o = _rms_norm(o, lp["post_attn_norm"], cfg.rms_norm_eps,
                               offset)
             x = x + o
             h = _rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps, offset)
-            ff = _mlp(h, lp, cfg, moe_impl)
+            ff = _mlp(h, lp, cfg, moe_impl, tp_group)
             if cfg.post_block_norms:
                 ff = _rms_norm(ff, lp["post_mlp_norm"], cfg.rms_norm_eps,
                                offset)
@@ -768,14 +935,18 @@ def _qdot(x: torch.Tensor, p: Params, name: str
 
 
 def lora_delta(lp: Params, t: str, x: torch.Tensor, lora_idx: torch.Tensor,
-               lora_scale: torch.Tensor) -> torch.Tensor:
+               lora_scale: torch.Tensor, tp_group=None) -> torch.Tensor:
     """``scale * (x @ A[slot]) @ B[slot]`` of each row of ``x`` [B, T, in]
     in fp32 (``lora_scale`` [B, 1, 1]): the first product cast to the
     bank's dtype before the second, as the JAX ``lora_delta``. Slot 0 is
-    zeros, so a row without an adapter gets an exact zero."""
+    zeros, so a row without an adapter gets an exact zero. ``wo``'s A is
+    cut on its input rows across tensor-parallel ranks: its fp32 product
+    is summed over ``tp_group`` before the cast, as XLA sums it."""
     a = lp[f"lora_a_{t}"][lora_idx]  # [B, in, r]
     b = lp[f"lora_b_{t}"][lora_idx]  # [B, r, out]
     d = bmm_f32(x, a)
+    if t == "wo":
+        d = _all_reduce(d, tp_group)
     return bmm_f32(d.to(b.dtype), b) * lora_scale
 
 
@@ -800,6 +971,21 @@ def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
     return normed.to(x.dtype) * w
 
 
+def _qdot_scaled(x: torch.Tensor, p: Params, name: str) -> torch.Tensor:
+    """``x @ p[name]`` in fp32 with its int8 scale applied."""
+    out, s = _qdot(x, p, name)
+    return out if s is None else out * s
+
+
+def _row_proj(x: torch.Tensor, p: Params, name: str, group) -> torch.Tensor:
+    """A row-parallel projection in x's dtype: each rank's fp32 product of
+    its input rows, summed over ``group``, then one cast; ``_proj`` on one
+    rank."""
+    if group is None:
+        return _proj(x, p, name)
+    return _all_reduce(_qdot_scaled(x, p, name), group).to(x.dtype)
+
+
 def _proj(x: torch.Tensor, p: Params, name: str,
           b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ p[name]`` (+ bias) in x's dtype, as the JAX ``_proj``: the
@@ -809,9 +995,7 @@ def _proj(x: torch.Tensor, p: Params, name: str,
     w = p[name]
     if b is None and w.dtype == x.dtype:
         return x @ w
-    out, s = _qdot(x, p, name)
-    if s is not None:
-        out = out * s
+    out = _qdot_scaled(x, p, name)
     if b is not None:
         out = out + b.float()
     return out.to(x.dtype)
@@ -825,19 +1009,22 @@ _ACTS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 
 def _mlp(h: torch.Tensor, lp: Params, cfg: LlamaConfig,
-         moe_impl: str = "auto") -> torch.Tensor:
+         moe_impl: str = "auto", tp_group=None) -> torch.Tensor:
     """The MLP block in h's dtype. Dense: act(h @ w_gate) * (h @ w_up) in
     float32, then w_down. With experts: :func:`_moe_mlp` over the
     flattened tokens, its fp32 result cast once (as the JAX forward casts
-    ``_mlp``'s)."""
+    ``_mlp``'s). Across tensor-parallel ranks each holds a slice of the
+    hidden dim (of every expert's), and the fp32 result is summed over
+    ``tp_group`` before the cast."""
     if cfg.num_experts:
         lead = h.shape[:-1]
         out = _moe_mlp(cfg, lp, h.reshape(-1, h.shape[-1]), moe_impl)
+        out = _all_reduce(out, tp_group)
         return out.reshape(*lead, out.shape[-1]).to(h.dtype)
     gate = _proj(h, lp, "w_gate")
     up = _proj(h, lp, "w_up")
     ff = (_ACTS[cfg.hidden_act](gate.float()) * up.float()).to(h.dtype)
-    return _proj(ff, lp, "w_down")
+    return _row_proj(ff, lp, "w_down", tp_group)
 
 
 MOE_IMPLS = ("auto", "ragged", "dense")
@@ -862,8 +1049,7 @@ def _expert_dot(x: torch.Tensor, lp: Params, name: str, e: int
     through :func:`int4_matmul` and no bank is ever dequantized whole."""
     p = {k: lp[k][e] for k in (name, name + QUANT_SUFFIX,
                                name + QUANT4_SUFFIX) if k in lp}
-    out, s = _qdot(x, p, name)
-    return out if s is None else out * s
+    return _qdot_scaled(x, p, name)
 
 
 def _expert_ffn(cfg: LlamaConfig, lp: Params, x: torch.Tensor, e: int
@@ -982,7 +1168,8 @@ _HF_MODEL_TYPES = ("llama", "mistral", "qwen2", "qwen3", "mixtral", "gemma",
 
 
 def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
-                   device: Optional[torch.device] = None) -> Params:
+                   device: Optional[torch.device] = None,
+                   shard: Optional[Tuple[int, int]] = None) -> Params:
     """The parameter tree of a local HF checkpoint directory: the JAX
     ``load_hf_params`` tree, bit for bit. HF linear weights are stored
     ``[out, in]`` and become ``[in, out]``; layers are stacked on axis 0;
@@ -998,10 +1185,17 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
     no leaf is ever whole on the host. ``quantize`` ("int8" or True,
     "int4"): each slice is quantized on ``device`` from the stored values
     as soon as it lands, with the numpy loader's division
-    (``divide=True``), and only the quantized leaf stays."""
+    (``divide=True``), and only the quantized leaf stays.
+
+    ``shard=(rank, tp)``: each layer's tensor is cut to the rank's slice
+    as it lands (after its quantization, which sees the whole tensor):
+    the result equals ``shard_params`` of the whole tree."""
     qmode = "int8" if quantize is True else (quantize or None)
     if qmode not in (None, *QUANT_MODES):
         raise ValueError(f"unsupported quantization {quantize!r} (int8 or int4)")
+    rank, tp = shard or (0, 1)
+    if tp > 1:
+        check_tp(cfg, tp, qmode)
     device = torch.device(device or "cpu")
     dtype = cfg.torch_dtype
     ck = Checkpoint(model_dir)
@@ -1028,15 +1222,20 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
         lead = lead or (len(names),)
         if qmode and ours in QUANT_LAYER_KEYS:
             fn, suffix = _quantizer(ours, qmode, divide=True)
-            tree[ours], tree[ours + suffix] = _stack_slices(
-                lead, lambda i: fn(read(names[i])))
+
+            def make(i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                q, s = fn(read(names[i]))
+                return (shard_leaf(ours, q, rank, tp),
+                        shard_leaf(ours + suffix, s, rank, tp))
+
+            tree[ours], tree[ours + suffix] = _stack_slices(lead, make)
             return
-        first = read(names[0])
+        first = shard_leaf(ours, read(names[0]), rank, tp)
         out = torch.empty((len(names), *first.shape), dtype=dtype,
                           device=device)
         out[0].copy_(first)
         for i in range(1, len(names)):
-            out[i].copy_(read(names[i]))
+            out[i].copy_(shard_leaf(ours, read(names[i]), rank, tp))
         tree[ours] = out.view(*lead, *first.shape)
 
     params: Params = {"layers": {}}

@@ -23,6 +23,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 from aiohttp import web
 
 from production_stack_tpu.engine import server as jax_server
@@ -32,9 +33,15 @@ from production_stack_tpu.engine.async_engine import (
 from production_stack_tpu.engine.config import EngineConfig as JaxEngineConfig
 from production_stack_tpu_torch.engine import server as port_server
 from production_stack_tpu_torch.engine.async_engine import AsyncLLMEngine
-from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.config import (
+    EngineConfig,
+    check_parallel,
+)
+from production_stack_tpu_torch.engine.multihost import start_ranks
 from production_stack_tpu_torch.engine.server import serve_in_thread
 from production_stack_tpu_torch.models.convert import params_from_jax
+from production_stack_tpu_torch.models.registry import get_model_config
+from production_stack_tpu_torch.parallel.distributed import DistributedConfig
 
 from .test_torch_admin_routes import CHAT, COMMON, MODEL
 from .test_torch_tracing import _call, _error
@@ -168,7 +175,9 @@ def test_the_config_equals_the_jax_config():
         got, want = _shared(port_server.engine_config_from_args(pargs),
                             jax_server.engine_config_from_args(jargs))
         assert got == want, argv
-        assert len(got) == 49  # every field but device (and JAX-only ones)
+        # Every field but device (and JAX-only ones), the five parallel
+        # sizes included.
+        assert len(got) == 54
         assert "moe_impl" in got
         for name in ("api_key", "sentry_dsn", "startup_phases",
                      "scoring_model"):
@@ -178,17 +187,29 @@ def test_the_config_equals_the_jax_config():
         chart + CHART_SCORING)).compile_cache_dir == "/var/cache/pst"
 
 
-def test_a_parallel_size_above_one_is_refused_at_start():
+@pytest.mark.parametrize("axis", AXES)
+def test_a_parallel_size_above_one_is_refused_at_start(axis):
+    """Tensor parallelism parses into the config: the chart's default
+    render (tp 8) passes the model's split and fails only on the start's
+    checks of the rank count and the devices. Each other axis above 1 is
+    refused with ROADMAP item 15's message."""
+    if axis != "tensor":
+        with pytest.raises(ValueError, match=f"--{axis}-parallel-size 2.*"
+                                             "item 15"):
+            port_server.engine_config_from_args(port_server.parse_engine_args(
+                [*OPERATOR_DEFAULT, f"--{axis}-parallel-size", "2"]))
+        return
     tp = CHART_DEFAULT.index("--tensor-parallel-size")
     assert CHART_DEFAULT[tp + 1] == "8"
-    for argv in ([*OPERATOR_DEFAULT, f"--{axis}-parallel-size", "2"]
-                 for axis in AXES):
-        with pytest.raises(ValueError, match="item 15"):
-            port_server.engine_config_from_args(
-                port_server.parse_engine_args(argv))
-    with pytest.raises(ValueError, match="--tensor-parallel-size 8.*item 15"):
-        port_server.engine_config_from_args(
-            port_server.parse_engine_args(CHART_DEFAULT))
+    cfg = port_server.engine_config_from_args(
+        port_server.parse_engine_args(CHART_DEFAULT))
+    assert cfg.tensor_parallel_size == 8 and cfg.device == "cuda"
+    check_parallel(cfg, get_model_config(cfg.model))
+    with pytest.raises(ValueError, match="does not split over 3"):
+        start_ranks(cfg, DistributedConfig("pst-engine-0:1234", 3, 0))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            AsyncLLMEngine(cfg)
     # The CUDA kernels are refused on the CPU; the gather path serves there.
     with pytest.raises(ValueError, match="device='cuda'"):
         AsyncLLMEngine(EngineConfig(device="cpu", attn_impl="pallas",
