@@ -448,6 +448,30 @@ through its ``main``: greedy, streamed and seeded sampled completions,
 leaving no rank alive, and its greedy tokens against a tp-1 server's.
 The step times it prints measure gloo's transport through the host on
 one card, not tensor parallelism.
+
+    python3 chip_smoke.py pp
+
+builds the kernels and runs phase 4q alone (``pp_only``): pipeline and
+data parallelism, every rank sharing the card over gloo (the NCCL path
+is not run on a one-card machine, and the phase says so). (a)
+Llama-3-8B bf16 from seed 0 at pp 2 (each stage draws its 16 layers)
+against the whole tree at one rank through the 512-token prompt and 8
+teacher-forced decode steps under ``agree``, each stage's prefill and
+decode launches for its own 16 layers, its peak memory and its
+hand-off's bytes and time; (b) the int4 tree with the fused write at dp
+2: a prefill of 8 rows and 8 decode steps of them, split 4 and 4, under
+``agree`` against one rank, the int4 decode route at N=4 and
+``decode_split_kernel<128, 4, true, false>`` on both replicas, the int4
+kernel at N=4 against its plain version at the four Llama shapes, both
+replicas' caches equal bit for bit on every written page and the K/V
+exchange's bytes and time; (c) ``python -m
+production_stack_tpu_torch.engine.server --pipeline-parallel-size 2
+--data-parallel-size 2 --quantization int4`` (four ranks) through its
+``main``: greedy, streamed and seeded sampled completions, ``/metrics``,
+``/debug/state``'s ranks, each rank's report at shutdown, SIGTERM leaving
+no rank alive, and 48 greedy tokens against a one-rank int4 server's.
+Its step times measure gloo's transport through the host on one card,
+not pipeline or data parallel speed.
 """
 
 from __future__ import annotations
@@ -7427,7 +7451,8 @@ def tp_batches(prompt, decode_tokens, nb: int) -> list:
     return out
 
 
-def tp_rank_rows(label: str, before: list, after: list, want: dict) -> list:
+def tp_rank_rows(label: str, before: list, after: list, want: dict,
+                 phase: str = "4p") -> list:
     """Each rank's launches in a phase (its counters' change), checked
     against ``want``, with its device, graph counts, peak memory and KV
     blocks; logged."""
@@ -7436,12 +7461,13 @@ def tp_rank_rows(label: str, before: list, after: list, want: dict) -> list:
         d = {k: n - b["launches"].get(k, 0) for k, n in a["launches"].items()
              if n != b["launches"].get(k, 0)}
         check({k: d.get(k, 0) for k in want} == want,
-              f"4p {label}: rank {a['rank']} launched {d}, expected {want}")
+              f"{phase} {label}: rank {a['rank']} launched {d}, expected "
+              f"{want}")
         row = {"rank": a["rank"], "device": a["device"],
                "backend": a["backend"], "graph_counts": a["graph_counts"],
                "launches": d, "peak_memory_gb": a["peak_memory_bytes"] / 1e9,
                "num_blocks": a["num_blocks"]}
-        log(f"  4p {label} rank {row['rank']} on {row['device']} "
+        log(f"  {phase} {label} rank {row['rank']} on {row['device']} "
             f"({row['backend']}): graphs {row['graph_counts']}, launches "
             f"{d}, peak memory {row['peak_memory_gb']:.2f} GB, "
             f"{row['num_blocks']} KV blocks")
@@ -7713,6 +7739,396 @@ def tp_only(card: str) -> None:
     """``python3 chip_smoke.py tp``: phase 4p alone."""
     model, params = build_model()
     print(json.dumps({"tp_4p": phase_tp(card, model, params)}, default=str),
+          flush=True)
+
+
+# Phase 4q: pipeline and data parallelism on one card. Every rank of a
+# layout shares cuda:0 over gloo, as 4p's do, so its step times are
+# gloo's transport through the host, not pipeline or data parallel speed.
+PP_LABEL = "gloo on one card"
+PP_LAYOUT = dict(pipeline_parallel_size=2)
+DP_LAYOUT = dict(data_parallel_size=2)
+GRID_LAYOUT = dict(pipeline_parallel_size=2, data_parallel_size=2)
+# The four distinct int4 projection shapes of Llama-3-8B (din, dout):
+# wq and wo, wk and wv, w_gate and w_up, w_down.
+LLAMA_INT4_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336),
+                     (14336, 4096))
+DP_ROWS = 8  # the 4q(b) decode batch, split 4 and 4
+
+
+def pp_ranks(layout: dict) -> "Ranks":
+    """The ranks of ``layout`` on ``cuda:0``: this process and spawned
+    followers (which inherit ``PST_FUSED_KV_WRITE`` as it stands)."""
+    ranks = start_ranks(EngineConfig(model=MODEL, **layout))
+    n = ranks.ctx.world_size
+    check(set(ranks.ctx.backends.values()) == {"gloo"}
+          and ranks.ctx.devices == ["0/cuda:0"] * n,
+          f"4q: ranks {ranks.ctx.devices}, device groups "
+          f"{ranks.ctx.backends}: expected gloo on one card")
+    log(f"  4q ranks {layout}: control group gloo, device groups "
+        f"{ranks.ctx.backends}, devices {ranks.ctx.devices}, follower pids "
+        f"{ranks.pids}")
+    return ranks
+
+
+def traffic_since(before: dict, after: dict) -> dict:
+    """A rank report's hand-off and dp-exchange traffic in a phase."""
+    return {kind: {k: after["traffic"][kind][k] - before["traffic"][kind][k]
+                   for k in ("calls", "bytes", "seconds")}
+            for kind in ("handoff", "dp_share")}
+
+
+def pp_model(ranks, model, params) -> dict:
+    """4q(a): the whole bf16 tree at one rank on the card
+    (``drive_model``) against a pp-2 runner on ``ranks`` (each stage draws
+    its 16 layers of the same seed) through the 512-token prefill and 8
+    teacher-forced decode steps; every position's logits under ``agree``,
+    each stage's launches for its own layers, its peak memory and its
+    hand-off's bytes and time."""
+    cfg = model.cfg
+    prompt, decode_tokens = model_prompt(cfg)
+    ref, _ = drive_model(model, params, "cuda", prompt, decode_tokens)
+    nb = -(-(len(prompt) + len(decode_tokens)) // BS) + 1
+    ecfg = EngineConfig(model=MODEL, **PP_LAYOUT, num_kv_blocks=nb,
+                        block_size=BS, max_model_len=1024, max_num_seqs=2,
+                        max_prefill_tokens=len(prompt))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = ranks.build_runner(ecfg)
+    t_build = time.perf_counter() - t0
+    try:
+        before = runner.rank_reports()
+        rows, times = [], []
+        for batch in tp_batches(prompt, decode_tokens, nb):
+            t0 = time.perf_counter()
+            logits = runner.forward_logits(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            rows.append(logits[0])
+        got = torch.stack(rows)
+        after = runner.rank_reports()
+    finally:
+        ranks.publisher.shutdown()
+    Ls, n = cfg.num_layers // 2, len(decode_tokens)
+    want = {"prefill": Ls, "decode": Ls * n, "decode_split": Ls * n,
+            "prefill_wgmma": Ls}
+    per_rank = tp_rank_rows("(a) bf16 pp 2", before, after, want, "4q")
+    D, isz = cfg.hidden_size, cfg.torch_dtype.itemsize
+    for row, b, a in zip(per_rank, before, after):
+        t = traffic_since(b, a)["handoff"]
+        # Two hops a forward (stage 0 -> 1, then 1 -> 0): [1, 512, D] for
+        # the prefill, [2, 1, D] for a decode step beside its padding row.
+        want_bytes = 2 * isz * D * (len(prompt) + 2 * n)
+        check(t["calls"] == 2 * (1 + n) and t["bytes"] == want_bytes,
+              f"4q(a) rank {row['rank']}: hand-off {t}, expected "
+              f"{2 * (1 + n)} calls of {want_bytes} bytes")
+        row["handoff"] = t
+        log(f"  4q(a) rank {row['rank']} (stage {a['coords']['pp']}, "
+            f"{a['layers']} layers): hand-off {t['calls']} calls, "
+            f"{t['bytes'] / 2**20:.3f} MiB (prefill hop "
+            f"{isz * len(prompt) * D / 2**20:.3f} MiB, decode hop "
+            f"{isz * 2 * D / 2**10:.1f} KiB), {t['seconds'] * 1e3:.1f} ms in "
+            f"the calls ({PP_LABEL}), peak memory "
+            f"{row['peak_memory_gb']:.2f} GB")
+    summary = agree(got, ref, "4q(a) pp 2")
+    decode_ms = statistics.median(times[1:]) * 1e3
+    log(f"  4q(a): pp 2 against one rank, 512-token prefill + {n} decode "
+        f"steps: {summary}; runner built in {t_build:.1f}s; step times "
+        f"({PP_LABEL}): prefill {times[0] * 1e3:.1f} ms, decode median "
+        f"{decode_ms:.1f} ms")
+    return {"agree": summary, "ranks": per_rank,
+            "prefill_ms_gloo_one_card": times[0] * 1e3,
+            "decode_ms_gloo_one_card": decode_ms}
+
+
+def dp_batches(cfg, nb: int) -> tuple:
+    """``DP_ROWS`` prompts of 64 + 8i tokens (seed 7), each in its own
+    pages, as one prefill step padded to 128, then 8 teacher-forced
+    decode steps of the ``DP_ROWS`` rows; and the pages written."""
+    gen = torch.Generator().manual_seed(7)
+    lens = [64 + 8 * i for i in range(DP_ROWS)]
+    T, n = 128, 8
+    W = -(-(T + n) // BS)
+    tables = np.arange(DP_ROWS * W, dtype=np.int32).reshape(DP_ROWS, W)
+    check(DP_ROWS * W < nb, f"4q(b): {DP_ROWS * W} pages of {nb}")
+    drop = nb * BS
+
+    def slot(i, p):
+        return int(tables[i, p // BS]) * BS + p % BS
+
+    tokens = np.zeros((DP_ROWS, T), np.int32)
+    positions = np.zeros((DP_ROWS, T), np.int32)
+    write = np.full((DP_ROWS, T), drop, np.int32)
+    for i, m in enumerate(lens):
+        tokens[i, :m] = torch.randint(1, cfg.vocab_size, (m,),
+                                      generator=gen).numpy()
+        positions[i, :m] = np.arange(m)
+        positions[i, m:] = m - 1
+        write[i, :m] = [slot(i, p) for p in range(m)]
+    out = [{"tokens": tokens, "positions": positions, "write_idx": write,
+            "block_tables": tables, "kv_lens": np.array(lens, np.int32),
+            "last_idx": np.array(lens, np.int32) - 1}]
+    for j in range(n):
+        pos = np.array(lens, np.int32) + j
+        out.append({
+            "tokens": torch.randint(1, cfg.vocab_size, (DP_ROWS, 1),
+                                    generator=gen).numpy().astype(np.int32),
+            "positions": pos[:, None],
+            "write_idx": np.array([[slot(i, p)] for i, p in enumerate(pos)],
+                                  np.int32),
+            "block_tables": tables, "kv_lens": pos + 1,
+            "last_idx": np.zeros(DP_ROWS, np.int32)})
+    return out, sorted({int(b) for b in tables.reshape(-1)})
+
+
+def dp_model(ranks, q_params, card: str) -> dict:
+    """4q(b): int4 with the fused write at dp 2: a prefill of
+    ``DP_ROWS`` rows and 8 decode steps of them, each split 4 and 4
+    between the replicas, against one rank on the whole int4 tree
+    (``agree``: a replica's 4-row launches plan their splits and GEMMs
+    unlike one rank's 8); both replicas' launches (the int4 decode route
+    at N=4, the fused decode-write), their caches equal bit for bit on
+    every written page, and the exchange's bytes and time. The int4
+    kernel at N=4 held against its plain version at the four Llama
+    shapes, route asserted."""
+    cfg = get_model_config(MODEL)
+    nb = DP_ROWS * (-(-(128 + 8) // BS)) + 2
+    kw = dict(model=MODEL, quantization="int4", num_kv_blocks=nb,
+              block_size=BS, max_model_len=1024, max_num_seqs=DP_ROWS,
+              max_prefill_tokens=128 * DP_ROWS)
+    batches, pages = dp_batches(cfg, nb)
+    one = ModelRunner(EngineConfig(**kw), params=q_params)
+    ref = torch.cat([one.forward_logits(b) for b in batches])
+    del one
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runner = ranks.build_runner(EngineConfig(**kw, **DP_LAYOUT))
+    try:
+        before = runner.rank_reports()
+        rows, times = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            rows.append(runner.forward_logits(batch))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        after = runner.rank_reports()
+        parts = runner.page_replicas(pages)
+    finally:
+        ranks.publisher.shutdown()
+    got = torch.cat(rows)
+    L, n = cfg.num_layers, len(batches) - 1
+    want = {"prefill": L, "prefill_wgmma": L, "decode_write": L * n,
+            "decode_write_split": L * n, "int4": 7 * L * (1 + n),
+            "int4_decode": 7 * L * n}
+    per_rank = tp_rank_rows("(b) int4 fused dp 2", before, after, want, "4q")
+    check(torch.equal(parts[0], parts[1]),
+          f"4q(b): the replicas' caches differ on "
+          f"{int((parts[0] != parts[1]).any(-1).sum())} rows of "
+          f"{len(pages)} written pages")
+    page_mib = parts[0].numel() / 2**20
+    for row, b, a in zip(per_rank, before, after):
+        t = traffic_since(b, a)["dp_share"]
+        row["dp_share"] = t
+        log(f"  4q(b) rank {row['rank']} (replica {a['coords']['dp']}): "
+            f"K/V exchange {t['calls']} calls, {t['bytes'] / 2**20:.3f} MiB "
+            f"gathered ({t['bytes'] / max(t['calls'], 1) / 2**20:.3f} MiB a "
+            f"step), {t['seconds'] * 1e3:.1f} ms in the calls ({PP_LABEL})")
+    summary = agree(got, ref, "4q(b) dp 2")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    shapes = []
+    for din, dout in LLAMA_INT4_SHAPES:
+        packed, scales = int4_weights(gen, din, dout)
+        x = torch.randn((DP_ROWS // 2, din), generator=gen, device=DEV,
+                        dtype=torch.bfloat16)
+        err, ratio = int4_check(x, packed, scales,
+                                f"4q int4 {din}x{dout} N={DP_ROWS // 2}",
+                                "decode")
+        shapes.append({"din": din, "dout": dout, "N": DP_ROWS // 2,
+                       "route": "decode", "max_abs_err": err,
+                       "err_over_row_tol": ratio})
+        log(f"  4q(b) int4 {din}x{dout} N={DP_ROWS // 2}: decode route, "
+            f"against the plain version: worst err / row tol {ratio:.2e}")
+    decode_ms = statistics.median(times[1:]) * 1e3
+    log(f"  4q(b): dp 2 against one rank, {DP_ROWS}-row prefill + {n} "
+        f"decode steps: {summary}; replicas' caches equal on {len(pages)} "
+        f"written pages ({page_mib:.1f} MiB a replica); step times "
+        f"({PP_LABEL}): prefill {times[0] * 1e3:.1f} ms, decode median "
+        f"{decode_ms:.1f} ms ({card})")
+    return {"agree": summary, "ranks": per_rank, "int4_shapes": shapes,
+            "pages_equal": len(pages),
+            "prefill_ms_gloo_one_card": times[0] * 1e3,
+            "decode_ms_gloo_one_card": decode_ms}
+
+
+def grid_server(card: str) -> dict:
+    """4q(c): ``python -m production_stack_tpu_torch.engine.server --model
+    llama-3-8b --pipeline-parallel-size 2 --data-parallel-size 2
+    --quantization int4`` (four ranks) through its ``main``: greedy,
+    streamed and seeded sampled completions, ``/metrics``,
+    ``/debug/state``'s ranks; SIGTERM stops every rank, whose reports
+    agree. Its greedy tokens against a one-rank int4 server's (the same
+    seed), by their chosen logprobs."""
+    port = free_port()
+    env = {k: v for k, v in os.environ.items() if k != "PST_FUSED_KV_WRITE"}
+    log_path = os.path.join(tempfile.mkdtemp(), "grid_server.log")
+    argv = [sys.executable, "-m", "production_stack_tpu_torch.engine.server",
+            "--model", MODEL, "--pipeline-parallel-size", "2",
+            "--data-parallel-size", "2", "--quantization", "int4",
+            "--host", "127.0.0.1", "--port", str(port),
+            "--gpu-memory-utilization", "0.6", "--max-model-len", "2048",
+            "--max-num-seqs", "8"]
+    prompts = [model_prompt(get_model_config(MODEL), 48 + 16 * i)[0]
+               for i in range(3)]
+    n_tok, world = 16, 4
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(argv, cwd=os.path.dirname(
+            os.path.abspath(__file__)), stdout=logf, stderr=subprocess.STDOUT,
+            env=env)
+    pids = [proc.pid]
+    try:
+        while True:
+            check(proc.poll() is None and time.perf_counter() - t0 < 300,
+                  f"4q server did not come up: {open(log_path).read()[-3000:]}")
+            try:
+                if _call(port, "GET", "/ready", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+        t_up = time.perf_counter() - t0
+        pids += _tp_children(proc.pid)
+        check(len(pids) >= world, f"4q server: pids {pids}")
+        t0 = time.perf_counter()
+        grid = tp_greedy(port, prompts, n_tok)
+        t_greedy = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        usage = _stream(port, {"prompt": prompts[0], "max_tokens": 32,
+                               "temperature": 0.0, "ignore_eos": True}, 32)
+        t_stream = time.perf_counter() - t0
+        sampled = {"prompt": prompts[1], "max_tokens": n_tok,
+                   "temperature": 0.8, "seed": 11, "ignore_eos": True}
+        a = _completion(port, sampled, n_tok)
+        b = _completion(port, sampled, n_tok)
+        check(a["choices"] == b["choices"], "4q seeded sampling differs")
+        status, text, _ = _call(port, "GET", "/metrics")
+        check(status == 200 and "pst" in text, f"4q /metrics: {status}")
+        status, state, _ = _call(port, "GET", "/debug/state")
+        layout = [(r["rank"], r["dp"], r["pp"], r["tp"], r["device"])
+                  for r in state["ranks"]]
+        check(layout == [(r, r // 2, r % 2, 0, "0/cuda:0")
+                         for r in range(world)],
+              f"4q /debug/state ranks: {state['ranks']}")
+        check(state["stats"]["pipeline_parallel_size"] == 2
+              and state["stats"]["data_parallel_size"] == 2,
+              f"4q /debug/state: {state['stats']}")
+        log(f"  4q(c) /debug/state ranks (rank, dp, pp, tp, device): "
+            f"{layout}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    deadline = time.perf_counter() + 30
+    while not all(_tp_gone(p) for p in pids) and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    left = [p for p in pids if not _tp_gone(p)]
+    check(not left, f"4q: rank pids {left} still alive after SIGTERM")
+    with open(log_path) as f:
+        out = f.read()
+    reports = sorted((json.loads(m) for m in TP_REPORT.findall(out)),
+                     key=lambda r: r["rank"])
+    check([r["rank"] for r in reports] == list(range(world)),
+          f"4q server: rank reports {reports}; log tail {out[-3000:]}")
+    check(len({r["num_blocks"] for r in reports}) == 1
+          and len({r["rows_digest"] for r in reports}) == 1,
+          f"4q server: ranks disagree: {reports}")
+    for r in reports:
+        check(r["layers"] == 16 and r["launches"].get("prefill", 0) > 0
+              and r["launches"].get("decode", 0) > 0
+              and r["launches"].get("int4", 0) > 0,
+              f"4q server: rank {r['rank']} ran {r['layers']} layers, "
+              f"launched {r['launches']}")
+        log(f"  4q(c) rank {r['rank']} {r['coords']} on {r['device']} "
+            f"({r['backends']}): graphs {r['graph_counts']}, launches "
+            f"{r['launches']}, peak memory "
+            f"{r['peak_memory_bytes'] / 1e9:.2f} GB, traffic {r['traffic']}")
+    log(f"  4q(c) server up in {t_up:.1f}s; {reports[0]['num_blocks']} KV "
+        f"blocks agreed; {len(prompts)} greedy x {n_tok} tokens in "
+        f"{t_greedy:.2f}s, a 32-token stream in {t_stream:.2f}s "
+        f"({PP_LABEL}; usage {usage}); stopped by SIGTERM, {len(pids)} pids "
+        f"gone ({card})")
+
+    # The one-rank int4 server, its tree drawn from the same seed.
+    engine = AsyncLLMEngine(EngineConfig(model=MODEL, quantization="int4",
+                                         num_kv_blocks=512,
+                                         max_model_len=2048, max_num_seqs=8))
+    server, thread = serve_in_thread(engine)
+    try:
+        one = tp_greedy(server.server_address[1], prompts, n_tok)
+    finally:
+        server.shutdown()
+        engine.shutdown()
+    agreed = 0
+    for x, y in zip(grid, one):
+        for lx, ly in zip(x, y):
+            if abs(lx - ly) > 0.05 * max(1.0, abs(ly)):
+                break
+            agreed += 1
+    log(f"  4q(c) greedy tokens agreeing with the one-rank server (by "
+        f"chosen logprob, up to the first parting): {agreed} of "
+        f"{len(prompts) * n_tok}")
+    return {"num_blocks": reports[0]["num_blocks"], "ranks": reports,
+            "up_s": t_up, "greedy_s_gloo_one_card": t_greedy,
+            "stream32_s_gloo_one_card": t_stream,
+            "agreed_with_one_rank": agreed, "tokens": len(prompts) * n_tok}
+
+
+def phase_pp(card: str, model, params) -> dict:
+    """Phase 4q, (a) to (c), on one card: every rank shares ``cuda:0``
+    over gloo. The NCCL path (a card a rank) is not run here."""
+    log(f"[phase 4q] pipeline and data parallelism on one card ({card}); "
+        "every rank shares it over gloo, so step times are gloo's transport "
+        "through the host, and the NCCL path (a card a rank) is not run")
+    out = {"card": card, "nccl": "not run"}
+    t0 = time.perf_counter()
+    os.environ.pop("PST_FUSED_KV_WRITE", None)
+    ranks = pp_ranks(PP_LAYOUT)
+    try:
+        out["model_4q_a"] = pp_model(ranks, model, params)
+    finally:
+        ranks.close()
+    log(f"  4q(a) done at {time.perf_counter() - t0:.1f}s")
+    os.environ["PST_FUSED_KV_WRITE"] = "1"
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    q_params = model.init_params(gen, DEV, quantization="int4")
+    ranks = pp_ranks(DP_LAYOUT)
+    try:
+        out["model_4q_b"] = dp_model(ranks, q_params, card)
+    finally:
+        ranks.close()
+        os.environ.pop("PST_FUSED_KV_WRITE")
+    del q_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  4q(b) done at {time.perf_counter() - t0:.1f}s")
+    out["server_4q_c"] = grid_server(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 4q] passed in {out['seconds']:.1f}s")
+    return out
+
+
+def pp_only(card: str) -> None:
+    """``python3 chip_smoke.py pp``: phase 4q alone."""
+    model, params = build_model()
+    print(json.dumps({"pp_4q": phase_pp(card, model, params)}, default=str),
           flush=True)
 
 
@@ -8298,9 +8714,9 @@ def main() -> None:
     t_start = time.perf_counter()
     os.environ.pop("PST_FUSED_KV_WRITE", None)  # bf16 phases: unfused path
     if sys.argv[1:] not in ([], ["drift"], ["rounds"], ["engagement"],
-                            ["lora"], ["encode"], ["moe"], ["tp"]):
+                            ["lora"], ["encode"], ["moe"], ["tp"], ["pp"]):
         sys.exit("usage: python3 chip_smoke.py "
-                 "[drift|rounds|engagement|lora|encode|moe|tp]")
+                 "[drift|rounds|engagement|lora|encode|moe|tp|pp]")
     card = phase_toolchain()
     if sys.argv[1:] == ["drift"]:
         drift()
@@ -8323,6 +8739,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["tp"]:
         tp_only(card)
+        return
+    if sys.argv[1:] == ["pp"]:
+        pp_only(card)
         return
     log("[phase 2] kernels vs plain versions")
     for cache_dtype in (torch.bfloat16, E4M3):
@@ -8428,6 +8847,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     tp = phase_tp(card, model, params)  # tensor parallelism, on one card
+    pp = phase_pp(card, model, params)  # pipeline and data, on one card
     del params
     gc.collect()  # the engine's KV cache and the bf16 tree, cycles included
     torch.cuda.empty_cache()
@@ -8536,7 +8956,7 @@ def main() -> None:
         "verify_splits_2s": verify_splits, "verify_gap_tol_3s": gap_tol,
         "spec_serving_4s": spec_serving, "engagement_4k": engagement,
         "chart_serving_4l": chart, "lora_4m": lora, "encode_4n": encode,
-        "moe_4o": moe, "tp_4p": tp,
+        "moe_4o": moe, "tp_4p": tp, "pp_4q": pp,
     }}, default=str), flush=True)
     print(json.dumps({"kernels": rows, "steps": steps, "int4_crossover": crossover}),
           flush=True)

@@ -134,17 +134,17 @@ class LLMEngine:
                  ranks: Optional[Ranks] = None):
         """``params``: an existing parameter tree (e.g. converted from the
         JAX package's, see ``models/convert.py``); random init from
-        ``cfg.seed`` when None. ``ranks``: the tensor-parallel ranks
-        (``engine/multihost.py``) to build on; with
-        ``tensor_parallel_size`` > 1 and none given the engine starts its
-        own, and stops them at ``shutdown``."""
+        ``cfg.seed`` when None. ``ranks``: the ``dp x pp x tp`` ranks
+        (``engine/multihost.py``) to build on; with more than one rank
+        (``cfg.num_ranks``) and none given the engine starts its own,
+        and stops them at ``shutdown``."""
         self.cfg = cfg
         self.model_cfg = get_model_config(cfg.model)
         if cfg.compile_cache_dir:
             # Before the first kernel use (the runner's, on the card).
             path = _build.set_compile_cache_dir(cfg.compile_cache_dir)
             logger.info("kernel library compile cache: %s", path)
-        self._own_ranks = ranks is None and cfg.tensor_parallel_size > 1
+        self._own_ranks = ranks is None and cfg.num_ranks > 1
         self.ranks = start_ranks(cfg) if self._own_ranks else ranks
         self._shut = False
         try:
@@ -297,7 +297,7 @@ class LLMEngine:
 
     def shutdown(self) -> None:
         """Stop the tiers' worker threads (the remote push and the
-        handoff publisher); across tensor-parallel ranks, end the
+        handoff publisher); across ranks, end the
         followers' mirror (each logs its ``rank report``, as rank 0 does
         here) and stop the ranks this engine started. Idempotent."""
         if self._shut:
@@ -315,6 +315,17 @@ class LLMEngine:
             if self._own_ranks:
                 self.ranks.close()
 
+
+    def rank_layout(self) -> List[Dict[str, Any]]:
+        """Each rank's ``rank``, ``dp``/``pp``/``tp`` coordinates and
+        device, by rank (none at one rank), from the grid and the device
+        map rank 0 holds: no collective."""
+        if self.ranks is None:
+            return []
+        ctx = self.ranks.ctx
+        return [{"rank": r, "device": ctx.devices[r],
+                 **{a: ctx.grid.coords(r)[a] for a in ("dp", "pp", "tp")}}
+                for r in range(ctx.world_size)]
 
     @property
     def model_name(self) -> str:
@@ -1087,6 +1098,9 @@ class LLMEngine:
                if self.lora_manager is not None else {}),
             **self._tier_stats(),
             **({"tensor_parallel_size": float(self.cfg.tensor_parallel_size),
+                "pipeline_parallel_size": float(
+                    self.cfg.pipeline_parallel_size),
+                "data_parallel_size": float(self.cfg.data_parallel_size),
                 "tp_device_backend": self.ranks.ctx.backend,
                 "tp_rank_devices": ",".join(self.ranks.ctx.devices)}
                if self.ranks is not None else {}),

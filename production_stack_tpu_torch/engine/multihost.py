@@ -1,4 +1,4 @@
-"""Tensor-parallel engine execution: rank 0 announces steps, followers mirror.
+"""Multi-rank engine execution: rank 0 announces steps, followers mirror.
 
 The port of the JAX package's ``engine/multihost.py``. There, a multi-host
 engine is one jitted SPMD program over a mesh that spans hosts, and host 0
@@ -14,6 +14,11 @@ with the same asymmetry:
   and make the same dispatch on their shard, so every rank issues the
   same collectives in the same order (a diverged order deadlocks them;
   the groups' timeout turns that into an error).
+
+An engine of ``dp x pp x tp`` ranks (``EngineConfig.num_ranks``) lays
+them out by the rank grid (``parallel/mesh.py``): every rank mirrors
+every announced call, whatever its coordinates, and takes its own part
+of it (its stage's layers, its heads, its ``dp`` rows).
 
 Only step descriptions cross the control group: token ids, tables and
 sampling arrays, a page's bytes on upload, an adapter's matrices.
@@ -198,12 +203,13 @@ def follower_loop(ctx: RankContext) -> int:
 
 
 def _rank_process(rank: int, world: int, local_rank: int, init_method: str,
-                  device_type: str, timeout_s: float, node: int) -> None:
+                  device_type: str, timeout_s: float, node: int,
+                  mesh: MeshConfig) -> None:
     """A spawned follower rank's entry point."""
     if device_type == "cpu":
         torch.set_num_threads(CPU_RANK_THREADS)
     ctx = maybe_init_distributed(world, rank, local_rank, init_method,
-                                 device_type, timeout_s, node)
+                                 device_type, timeout_s, node, mesh)
     code = follower_loop(ctx)
     if code == 0:
         ctx.close()
@@ -220,7 +226,7 @@ def _free_port() -> int:
 
 
 class Ranks:
-    """One host's tensor-parallel ranks, seen from its first process: its
+    """One host's ranks, seen from its first process: its
     rank context, the rank processes it started and, on rank 0, the
     publisher that announces device calls."""
 
@@ -291,21 +297,32 @@ class Ranks:
                 p.join(timeout=5)
 
 
+def mesh_config(cfg) -> MeshConfig:
+    """The engine's rank layout: its ``dp``, ``pp`` and ``tp`` sizes."""
+    return MeshConfig(data_parallel_size=cfg.data_parallel_size,
+                      pipeline_parallel_size=cfg.pipeline_parallel_size,
+                      tensor_parallel_size=cfg.tensor_parallel_size)
+
+
 def start_ranks(cfg, dist_cfg: Optional[DistributedConfig] = None) -> Ranks:
-    """Start this host's ranks of a ``cfg.tensor_parallel_size`` engine and
-    join them: the first process of the host (this one) is its first
-    rank, the others are spawned. On one host rank 0 serves the
-    rendezvous on a free local port; under the multi-host environment
-    (``PST_*``) each of ``num_processes`` pods holds ``tp /
-    num_processes`` ranks, the ``process_id``-th contiguous block of the
-    rank grid (``RankGrid.host_ranks``: global rank ``process_id * local
-    + local_rank``), and the rendezvous is the coordinator address."""
+    """Start this host's ranks of a ``dp x pp x tp`` engine
+    (``cfg.num_ranks``) and join them: the first process of the host
+    (this one) is its first rank, the others are spawned. On one host rank
+    0 serves the rendezvous on a free local port; under the multi-host
+    environment (``PST_*``) each of ``num_processes`` pods holds
+    ``num_ranks / num_processes`` ranks, the ``process_id``-th contiguous
+    block of the rank grid (``RankGrid.host_ranks``: global rank
+    ``process_id * local + local_rank``, so a host keeps whole ``tp``
+    groups, then whole stages), and the rendezvous is the coordinator
+    address."""
     dist_cfg = dist_cfg or DistributedConfig.from_env()
-    world = cfg.tensor_parallel_size
+    world = cfg.num_ranks
     if world < 2:
-        raise ValueError("start_ranks needs tensor_parallel_size > 1")
+        raise ValueError("start_ranks needs more than one rank (a "
+                         "tensor, pipeline or data parallel size above 1)")
     check_parallel(cfg, get_model_config(cfg.model))  # before any process
-    grid = RankGrid(MeshConfig(tensor_parallel_size=world))
+    mesh = mesh_config(cfg)
+    grid = RankGrid(mesh)
     host = grid.host_ranks(dist_cfg.process_id, dist_cfg.num_processes)
     base, local = host[0], len(host)
     device_type = torch.device(cfg.device).type
@@ -322,7 +339,7 @@ def start_ranks(cfg, dist_cfg: Optional[DistributedConfig] = None) -> Ranks:
     procs = [mp.Process(target=_rank_process, daemon=True,
                         name=f"pst-rank-{host[i]}",
                         args=(host[i], world, i, init_method, device_type,
-                              timeout, dist_cfg.process_id))
+                              timeout, dist_cfg.process_id, mesh))
              for i in range(1, local)]
     for p in procs:
         p.start()
@@ -333,14 +350,15 @@ def start_ranks(cfg, dist_cfg: Optional[DistributedConfig] = None) -> Ranks:
     try:
         ctx = maybe_init_distributed(world, base, 0, init_method,
                                      device_type, timeout,
-                                     dist_cfg.process_id)
+                                     dist_cfg.process_id, mesh)
     except BaseException:
         for p in procs:
             p.kill()
         if threads is not None:
             torch.set_num_threads(threads)
         raise
-    logger.info("tensor parallel: %d ranks (%d on this host, pids %s), "
-                "device group %s", world, local,
-                [p.pid for p in procs], ctx.backend)
+    logger.info("ranks: dp %d x pp %d x tp %d = %d (%d on this host, pids "
+                "%s), device groups %s", mesh.data_parallel_size,
+                mesh.pipeline_parallel_size, mesh.tensor_parallel_size,
+                world, local, [p.pid for p in procs], ctx.backends)
     return Ranks(ctx, procs, threads)

@@ -107,8 +107,9 @@ def _pow2(n: int) -> int:
 
 
 def decode_row_buckets(cfg: EngineConfig) -> List[int]:
-    """Mirror of ``ModelRunner._row_bucket`` over all batch sizes."""
-    floor = max(cfg.min_decode_bucket, 1)
+    """Mirror of ``ModelRunner._row_bucket`` over all batch sizes: ``dp``
+    is a floor, as in the JAX module."""
+    floor = max(cfg.data_parallel_size, cfg.min_decode_bucket, 1)
     return sorted({max(p, floor) for p in _pow2_buckets(cfg.max_num_seqs)})
 
 
@@ -306,8 +307,10 @@ class Precompiler:
                 next((b.label for b in lattice if b not in done), "-"),
             )
         logger.info(
-            "precompile: %d/%d buckets in %.1fs (mode=%s)",
-            compiled, total, seconds, self.mode,
+            "precompile: %d/%d buckets in %.1fs (mode=%s, tp=%d, dp=%d, "
+            "pp=%d)", compiled, total, seconds, self.mode,
+            self.cfg.tensor_parallel_size, self.cfg.data_parallel_size,
+            self.cfg.pipeline_parallel_size,
         )
         return {
             "mode": self.mode,

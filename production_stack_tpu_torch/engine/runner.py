@@ -78,6 +78,23 @@ sampled rows to check it). Steps are captured only where the device group
 can be (NCCL); under gloo, whose collectives wait on the host, they run
 eagerly and count as ``eager``.
 
+Pipeline and data parallelism (``pipeline_parallel_size``,
+``data_parallel_size``; the ranks laid out ``dp x pp x tp`` by
+``parallel/mesh.py``): a rank holds its stage's ``L/pp`` layers of its
+tensor shard (``stage_params``; drawn or read a stage at a time) and a
+cache of those layers, and the model hands the activation from stage to
+stage over the ranks' ``pp`` group (``models/llama.py``), so every rank
+ends a forward with the same logits. A ``dp`` rank is a whole replica: a
+step of ``Bb`` rows with ``Bb % dp == 0`` is split, each replica taking
+its contiguous ``Bb/dp`` rows of the announced batch (any other batch,
+a one-row prefill or encode, runs whole on every replica: the JAX rule);
+after each forward the replicas exchange the step's new K/V rows
+(``share_kv_writes``), so their caches stay equal, and the packed rows
+each samples (with rank 0's seeds) are gathered over ``dp``, so every
+rank, rank 0 too, returns every row. A pipelined burst's carry stays on
+the replica that holds its rows. The decode and verify row bucket has
+``dp`` as its floor, as in JAX, so they always split.
+
 ``encode`` (``/v1/embeddings``) runs ``Llama.encode`` over one prompt
 padded into its pow2 bucket, eagerly on the stream the steps use: the
 async engine calls it on its step thread between two steps, never beside
@@ -113,18 +130,23 @@ import torch
 
 from ..logging_utils import init_logger
 from ..models.llama import (
+    PARALLEL_TRAFFIC,
     Llama,
     LlamaConfig,
     load_hf_params,
     quant_mode,
+    rank_local_config,
     shard_leaf,
     shard_params,
-    tp_local_config,
+    share_kv_writes,
+    stage_leaf,
+    stage_params,
 )
 from ..models.registry import get_model_config
 from ..obs.engine_telemetry import EngineTelemetry
 from ..ops import _build, int4_matmul, paged_attention_cuda
 from ..parallel.distributed import HostBridge, RankContext
+from ..parallel.mesh import AXIS_DATA, AXIS_PIPELINE, AXIS_TENSOR
 from ..ops.sampling import (
     apply_allowed_mask,
     apply_logit_bias,
@@ -246,23 +268,31 @@ class ModelRunner:
         ranks: Optional[RankContext] = None,
         publisher=None,
     ):
-        """``ranks``: this rank's place and groups when
-        ``tensor_parallel_size`` > 1 (``parallel/distributed.py``);
-        ``publisher``: rank 0's ``StepPublisher``, which announces each
-        device call to the followers (None on a follower, and at one
-        rank). A given ``params`` is the whole tree: each rank keeps its
+        """``ranks``: this rank's place and groups when the engine has
+        more than one rank (``parallel/distributed.py``); ``publisher``:
+        rank 0's ``StepPublisher``, which announces each device call to
+        the followers (None on a follower, and at one rank). A given
+        ``params`` is the whole tree: each rank keeps its stage of its
         shard."""
         t0 = time.perf_counter()
         self.cfg = cfg
         self.tp = cfg.tensor_parallel_size
-        if (ranks.world_size if ranks else 1) != self.tp:
+        self.pp = cfg.pipeline_parallel_size
+        self.dp = cfg.data_parallel_size
+        if (ranks.world_size if ranks else 1) != cfg.num_ranks:
             raise ValueError(
-                f"tensor_parallel_size={self.tp} needs a rank context of "
-                f"{self.tp} ranks")
+                f"dp {self.dp} x pp {self.pp} x tp {self.tp} needs a rank "
+                f"context of {cfg.num_ranks} ranks")
         self.ranks = ranks
         self.rank = ranks.rank if ranks else 0
+        coords = ranks.coords if ranks else {}
+        self.tp_rank = coords.get(AXIS_TENSOR, 0)
+        self.stage = coords.get(AXIS_PIPELINE, 0)
+        self.dp_rank = coords.get(AXIS_DATA, 0)
         self.publisher = publisher
-        self.tp_group = ranks.device_group if ranks else None
+        self.tp_group = ranks.group(AXIS_TENSOR) if ranks else None
+        self.pp_group = ranks.group(AXIS_PIPELINE) if ranks else None
+        self.dp_group = ranks.group(AXIS_DATA) if ranks else None
         self._bridge = HostBridge(ranks) if ranks else None
         self.device = ranks.device if ranks else resolve_device(cfg.device)
         if cfg.model_attn_impl == "cuda" and self.device.type != "cuda":
@@ -271,10 +301,12 @@ class ModelRunner:
         self.model_cfg = model_cfg or get_model_config(cfg.model)
         check_parallel(cfg, self.model_cfg)
         self.model = Llama(self.model_cfg)
-        # This rank's heads and FFN slice: its cache pages and LoRA bank.
-        self.local_cfg = tp_local_config(self.model_cfg, self.tp)
+        # This rank's heads, FFN slice and stage's layers: its cache pages
+        # and LoRA bank.
+        self.local_cfg = rank_local_config(self.model_cfg, self.tp, self.pp)
         self._local_model = Llama(self.local_cfg)
-        shard = (self.rank, self.tp) if self.tp > 1 else None
+        shard = (self.tp_rank, self.tp) if self.tp > 1 else None
+        stage = (self.stage, self.pp) if self.pp > 1 else None
         # The MoE name every forward and encode takes: "auto" is ragged,
         # as the JAX runner resolves it on an unsharded mesh (the port
         # serves one GPU).
@@ -284,7 +316,8 @@ class ModelRunner:
             # One stacked leaf at a time onto the device, quantized there.
             params = load_hf_params(self.model_cfg, cfg.model,
                                     quantize=cfg.quantization,
-                                    device=self.device, shard=shard)
+                                    device=self.device, shard=shard,
+                                    stage=stage)
         elif params is None:
             # Quantized presets are drawn and quantized a layer's slice at a
             # time on the device: the bf16 tree never exists whole.
@@ -292,11 +325,13 @@ class ModelRunner:
             gen.manual_seed(cfg.seed)
             params = self.model.init_params(gen, self.device,
                                             quantization=cfg.quantization,
-                                            shard=shard)
+                                            shard=shard, stage=stage)
         else:
             # A given tree is served as it is (a converted JAX
             # quantize_tree output is already quantized), cut to the
-            # rank's shard first.
+            # rank's stage of its shard first.
+            if stage:
+                params = stage_params(params, self.model_cfg, *stage)
             if shard:
                 params = shard_params(params, self.model_cfg, *shard)
             params = _to_device(params, self.device)
@@ -338,6 +373,15 @@ class ModelRunner:
                                                     self.device)
         else:
             self.num_blocks = self._agree_num_blocks()
+            # One transport for each, whatever the backend: gloo's and
+            # NCCL's broadcast and all-gather both take CUDA tensors.
+            logger.info(
+                "rank %d: stage %d of %d (%d layers), hand-off by broadcast "
+                "over the pp group (%s); replica %d of %d, rows and K/V "
+                "rows by all-gather over the dp group (%s)", self.rank,
+                self.stage, self.pp, self.local_cfg.num_layers,
+                ranks.backends.get(AXIS_PIPELINE, "none"), self.dp_rank,
+                self.dp, ranks.backends.get(AXIS_DATA, "none"))
         self.max_table_width = -(-cfg.max_model_len // cfg.block_size)
         self.kv_cache = self._local_model.make_kv_cache(
             self.num_blocks, cfg.block_size, dtype=self.kv_dtype,
@@ -384,26 +428,32 @@ class ModelRunner:
         if self.device.type == "cuda":
             # The split kernels' tickets for the largest launch of the
             # lattice, before any capture (a graph keeps the buffer it saw).
+            # A dp replica launches over its own rows of a split batch.
             mc = self.local_cfg
             paged_attention_cuda.reserve_tickets(self.device, max(
                 paged_attention_cuda.ticket_count(
                     mc.torch_dtype, self.kv_dtype, mc.num_heads,
-                    mc.num_kv_heads, mc.head_dim, b.rows, _step_tokens(b))
+                    mc.num_kv_heads, mc.head_dim,
+                    b.rows // self.dp if self._split(b.rows) else b.rows,
+                    _step_tokens(b))
                 for b in lattice))
         # When the last decode step's rows reached the host (None after a
         # prefill): the next decode dispatch closes the host gap.
         self._host_gap_t0: Optional[float] = None
         # The pipelined burst in flight (burst_start .. burst_drain), on
-        # rank 0; its static inputs, graph key and eager function, on
-        # every rank (set by each burst_start).
+        # rank 0; its static inputs, graph key, eager function and the
+        # whole batch's row count, on every rank (set by each
+        # burst_start).
         self._burst: Optional[Dict[str, Any]] = None
         self._pipe: Optional[tuple] = None
         # The decode batch's rows and their row bucket, kept while rows
         # only leave the batch (``_decode_rows``).
         self._decode_cohort: Tuple[List[Sequence], frozenset, int] = (
             [], frozenset(), 0)
-        # A digest of every step's sampled rows on this rank (tensor
-        # parallel only): equal on every rank while they draw alike.
+        # A digest of every step's sampled rows on this rank (more than
+        # one rank only): every rank holds every row after the dp
+        # gather, so the digests are equal on every rank while the ranks
+        # draw alike.
         self._rows_digest = (torch.zeros((), dtype=torch.int64,
                                          device=self.device)
                              if ranks else None)
@@ -414,8 +464,12 @@ class ModelRunner:
         """The KV block count every rank allocates: each rank's budget
         (its card's, split among the ranks on it) sized after a barrier
         that follows every rank's weights (and, on the card, the kernel
-        library rank 0 built before it), and the least of them."""
+        library rank 0 built before it), and the least of them. Each rank
+        first returns the blocks its weights' draws left cached, which
+        ranks sharing the card would otherwise count as used."""
         on_gpu = self.device.type == "cuda"
+        if on_gpu:
+            torch.cuda.empty_cache()
         if on_gpu and self.rank == 0:
             _build.load()
         self._bridge.barrier()
@@ -424,9 +478,39 @@ class ModelRunner:
         n = resolve_num_kv_blocks(self.cfg, self.local_cfg, self.device,
                                   share=self.ranks.ranks_on_device())
         n = self._bridge.all_min(n)
-        logger.info("rank %d: %d KV blocks agreed across %d ranks",
-                    self.rank, n, self.tp)
+        logger.info("rank %d %s: %d KV blocks of %d layers agreed across "
+                    "%d ranks", self.rank, self.ranks.coords, n,
+                    self.local_cfg.num_layers, self.ranks.world_size)
         return n
+
+    def _split(self, rows: int) -> bool:
+        """Whether a step of ``rows`` rows is split over the ``dp``
+        replicas: JAX's rule, rows sharded when ``rows % dp == 0``, the
+        batch replicated otherwise."""
+        return self.dp > 1 and rows % self.dp == 0
+
+    def _my_rows(self, batch: Dict[str, np.ndarray]
+                 ) -> Tuple[Dict[str, np.ndarray], bool]:
+        """(this replica's rows of an announced batch, whether it was
+        split): the ``dp_rank``-th contiguous ``Bb/dp`` rows of every
+        array (all are row-major), or the whole batch."""
+        B = batch["kv_lens"].shape[0]
+        if not self._split(B):
+            return batch, False
+        n = B // self.dp
+        rows = slice(self.dp_rank * n, (self.dp_rank + 1) * n)
+        return {k: v[rows] for k, v in batch.items()}, True
+
+    def _all_rows(self, t: torch.Tensor, split: bool) -> torch.Tensor:
+        """Every replica's rows of ``t`` (its leading axis), gathered over
+        ``dp`` in row order, where the step was split: every rank returns
+        the whole batch's."""
+        if not split:
+            return t
+        parts = [torch.empty_like(t) for _ in range(self.dp)]
+        torch.distributed.all_gather(parts, t.contiguous(),
+                                     group=self.dp_group)
+        return torch.cat(parts)
 
     @contextlib.contextmanager
     def _mirror(self, kind: str, *args):
@@ -447,7 +531,7 @@ class ModelRunner:
 
     def _note_rows(self, rows: torch.Tensor) -> None:
         """Fold a step's sampled rows into this rank's digest, on the
-        device (no host sync); tensor parallel only."""
+        device (no host sync); more than one rank only."""
         if self._rows_digest is None:
             return
         r = rows.reshape(-1)
@@ -457,14 +541,18 @@ class ModelRunner:
         self._rows_digest.mul_(1_000_003).add_((r.long() * w).sum())
 
     def rank_report(self) -> Dict[str, Any]:
-        """This rank's device, its device group's backend, graph counts,
-        kernel launch counts, peak device memory, KV blocks and rows
-        digest."""
+        """This rank's coordinates, device, device groups' backends,
+        graph counts, kernel launch counts, peak device memory, KV blocks
+        and rows digest."""
         cuda = self.device.type == "cuda"
         return {
             "rank": self.rank,
+            "coords": {"dp": self.dp_rank, "pp": self.stage,
+                       "tp": self.tp_rank},
             "device": str(self.device),
             "backend": self.ranks.backend if self.ranks else None,
+            "backends": dict(self.ranks.backends) if self.ranks else {},
+            "layers": self.local_cfg.num_layers,
             "graph_counts": dict(self.graph_counts),
             # The kernels' launch counters that moved, the int4 routes
             # named ``int4_<route>``.
@@ -478,6 +566,8 @@ class ModelRunner:
             "peak_memory_bytes": (torch.cuda.max_memory_allocated(self.device)
                                   if cuda else 0),
             "num_blocks": self.num_blocks,
+            # This process's hand-offs and dp exchanges (eager calls).
+            "traffic": {k: dict(v) for k, v in PARALLEL_TRAFFIC.items()},
             "rows_digest": (int(self._rows_digest)
                             if self._rows_digest is not None else None),
         }
@@ -625,7 +715,7 @@ class ModelRunner:
         st = self._burst
         if st is None:
             raise RuntimeError("no burst in flight")
-        Bb, Wb = self._pipe[0]["block_tables"].shape
+        Bb, Wb = self._pipe[3], self._pipe[0]["block_tables"].shape[1]
         tables = np.zeros((Bb, Wb), np.int32)
         kv_lens = np.zeros(Bb, np.int32)
         for i, s in enumerate(members):
@@ -690,11 +780,12 @@ class ModelRunner:
         into the static inputs before anything else is enqueued.
         Mirrored as ``burst_start``."""
         with self._mirror("burst_start", batch, n_steps, want_lp, greedy):
-            dev = self._put(batch)
-            key = self._key("burst", dev, want_lp, greedy, n_steps)
+            mine, split = self._my_rows(batch)
+            dev = self._put(mine)
+            key = self._key("burst", dev, want_lp, greedy, n_steps, split)
             fn = lambda: self.eager_multi_step(  # noqa: E731
-                dev, n_steps, want_lp, greedy)
-            self._pipe = (dev, key, fn)
+                dev, n_steps, want_lp, greedy, split)
+            self._pipe = (dev, key, fn, batch["kv_lens"].shape[0])
             return self._burst_out(self._run(key, fn))
 
     def _dispatch_burst_continue(self, tables: np.ndarray,
@@ -702,10 +793,11 @@ class ModelRunner:
         """The next burst of the pipeline in ``_pipe``: fresh block tables
         and ``kv_lens``, the carry already in the static inputs; returns
         its rows. Mirrored as ``burst_cont``, before rank 0 fetches the
-        previous burst."""
+        previous burst. A ``dp`` replica takes the rows it started with."""
         with self._mirror("burst_cont", tables, kv_lens):
-            _, key, fn = self._pipe
-            self._put({"block_tables": tables, "kv_lens": kv_lens})
+            _, key, fn, _ = self._pipe
+            self._put(self._my_rows({"block_tables": tables,
+                                     "kv_lens": kv_lens})[0])
             return self._burst_out(self._run(key, fn))
 
     def _burst_out(self, out: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -818,7 +910,9 @@ class ModelRunner:
                                    device=self.device)
             out = self.model.encode(self.params, tokens, lengths,
                                     moe_impl=self.moe_impl,
-                                    tp_group=self.tp_group)
+                                    tp_group=self.tp_group,
+                                    pp_group=self.pp_group,
+                                    pp_stage=self.stage)
         return out[0].cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -906,13 +1000,14 @@ class ModelRunner:
         bank's address, and a rebound leaf would leave them reading the
         old one. Queued on the current stream, behind any step in
         flight; the engine calls it on the step thread between
-        dispatches. Across tensor-parallel ranks every rank gets the whole
-        arrays and writes its cut of each (``lora_pspecs``)."""
+        dispatches. Across ranks every rank gets the whole arrays and
+        writes its stage's layers of its cut of each (``lora_pspecs``)."""
         with self._mirror("install_adapter", slot, arrays):
             layers = self.params["layers"]
             for t, (a, b) in arrays.items():
                 for name, x in ((f"lora_a_{t}", a), (f"lora_b_{t}", b)):
-                    x = shard_leaf(name, x, self.rank, self.tp)
+                    x = shard_leaf(name, stage_leaf(x, self.stage, self.pp),
+                                   self.tp_rank, self.tp)
                     layers[name][:, slot].copy_(torch.from_numpy(x))
 
     def uninstall_adapter(self, slot: int) -> None:
@@ -975,10 +1070,10 @@ class ModelRunner:
         an upload of the same tensors queued later reads them only after
         they landed. A host reader synchronizes first.
 
-        Across tensor-parallel ranks (a mirrored call) each rank copies
-        its heads of the page to the host and rank 0 gathers them over the
-        control group: the page it returns is whole, and the copies have
-        landed on return."""
+        Across ranks (a mirrored call) each rank copies its stage's layers
+        of its heads of the page to the host and rank 0 gathers them over
+        the control group: the page it returns is whole (the first ``dp``
+        replica's), and the copies have landed on return."""
         mc = self.model_cfg
         L, bs = mc.num_layers, self.cfg.block_size
         if self.ranks is not None:
@@ -994,28 +1089,49 @@ class ModelRunner:
             out.append(host)
         return out[0], out[1]
 
-    def _gather_page(self, blk: int) -> Optional[tuple]:
+    def page_replicas(self, blocks: List[int]) -> List[torch.Tensor]:
+        """Every rank's own bytes of pages ``blocks``, by global rank, on
+        rank 0: ``[Ll, len(blocks), 2, bs, KHl*hd*itemsize]`` uint8 (its
+        stage's layers of its heads), which ranks that differ only in
+        ``dp`` hold equal. A mirrored call, made between steps."""
+        if self.ranks is None:
+            return [self._local_pages(blocks)]
+        with self._mirror("download_page", blocks, True):
+            return self._gather_page(blocks, True)
+
+    def _local_pages(self, blk) -> torch.Tensor:
+        return self.kv_cache[:, blk].to("cpu").view(torch.uint8)
+
+    def _gather_page(self, blk, replicas: bool = False):
         """Page ``blk``'s K and V ``[L, bs, KH, hd]`` gathered from every
-        rank's heads, on rank 0 (None on a follower). The heads travel as
-        bytes, whatever the cache's type."""
+        stage's layers and every ``tp`` rank's heads (of the first ``dp``
+        replica), on rank 0 (None on a follower); with ``replicas``, every
+        rank's bytes of pages ``blk`` (``page_replicas``). The heads
+        travel as bytes, whatever the cache's type."""
+        # [Ll, (n,) 2, bs, KHl*hd*isz] on every rank
+        parts = self._bridge.gather_tensor(self._local_pages(blk))
+        if parts is None or replicas:
+            return parts
         L, bs, hd = (self.model_cfg.num_layers, self.cfg.block_size,
                      self.model_cfg.head_dim)
-        local = self.kv_cache[:, blk].to("cpu").view(torch.uint8)
-        parts = self._bridge.gather_tensor(local)  # [L, 2, bs, KHl*hd*isz]
-        if parts is None:
-            return None
-        khl = self.local_cfg.num_kv_heads
+        Ll, khl = self.local_cfg.num_layers, self.local_cfg.num_kv_heads
+        grid = self.ranks.grid
+
+        def stage(s: int, kv: int) -> torch.Tensor:
+            return torch.cat([parts[grid.rank(pp=s, tp=t)][:, kv].reshape(
+                Ll, bs, khl, -1) for t in range(self.tp)], dim=2)
+
         return tuple(
-            torch.cat([p[:, kv].reshape(L, bs, khl, -1) for p in parts],
-                      dim=2).view(self.kv_dtype).reshape(L, bs, -1, hd)
-            for kv in (0, 1))
+            torch.cat([stage(s, kv) for s in range(self.pp)])
+            .view(self.kv_dtype).reshape(L, bs, -1, hd) for kv in (0, 1))
 
     def upload_page(self, blk: int, k, v) -> None:
         """Write K and V (``download_page``'s shapes and type) into page
         ``blk`` of the existing cache, in place and queued on the current
         stream: every captured step graph holds the cache's address, so
-        the cache is never rebound. Across tensor-parallel ranks the whole
-        page is announced as bytes and each rank writes its heads."""
+        the cache is never rebound. Across ranks the whole page is
+        announced as bytes and each rank writes its stage's layers of its
+        heads (every ``dp`` replica the same)."""
         if self.ranks is not None:
             raw = tuple(t.contiguous().view(torch.uint8) for t in (k, v))
             with self._mirror("upload_page", blk, *raw):
@@ -1029,14 +1145,15 @@ class ModelRunner:
 
     def _dispatch_upload_page(self, blk: int, k_raw: torch.Tensor,
                               v_raw: torch.Tensor) -> None:
-        """Write this rank's heads of a whole page's bytes (``[L, bs, KH,
-        hd * itemsize]`` uint8) into page ``blk``."""
-        L, bs = self.model_cfg.num_layers, self.cfg.block_size
+        """Write this rank's stage's layers of its heads of a whole page's
+        bytes (``[L, bs, KH, hd * itemsize]`` uint8) into page ``blk``."""
+        Ll, bs = self.local_cfg.num_layers, self.cfg.block_size
         khl = self.local_cfg.num_kv_heads
-        heads = slice(self.rank * khl, (self.rank + 1) * khl)
+        layers = slice(self.stage * Ll, (self.stage + 1) * Ll)
+        heads = slice(self.tp_rank * khl, (self.tp_rank + 1) * khl)
         for kv, raw in ((0, k_raw), (1, v_raw)):
-            mine = raw[:, :, heads].contiguous().view(self.kv_dtype)
-            self.kv_cache[:, blk, kv].copy_(mine.reshape(L, bs, -1))
+            mine = raw[layers, :, heads].contiguous().view(self.kv_dtype)
+            self.kv_cache[:, blk, kv].copy_(mine.reshape(Ll, bs, -1))
 
     def page_event(self):
         """A CUDA event recorded on the current stream after the page
@@ -1083,12 +1200,14 @@ class ModelRunner:
         return out
 
     def _key(self, kind: str, dev: Dict[str, torch.Tensor], want_lp: bool,
-             greedy: bool, n_steps: int) -> tuple:
+             greedy: bool, n_steps: int, split: bool = False) -> tuple:
         """A step's graph key. ``PST_FUSED_KV_WRITE`` is in it: the model
-        reads it on every call and a graph fixes the choice at capture."""
+        reads it on every call and a graph fixes the choice at capture;
+        so is the ``dp`` split (a replica's rows of a split batch and a
+        whole smaller batch may have one shape)."""
         shapes = tuple(sorted((k, tuple(v.shape)) for k, v in dev.items()))
         return (kind, shapes, want_lp, greedy, n_steps,
-                os.environ.get("PST_FUSED_KV_WRITE") == "1")
+                os.environ.get("PST_FUSED_KV_WRITE") == "1", split)
 
     def _run(self, key: tuple, fn: Callable[[], torch.Tensor]) -> torch.Tensor:
         """A step: replayed from its key's graph, or run eagerly — on CPU
@@ -1138,14 +1257,19 @@ class ModelRunner:
         return torch.cuda.memory_reserved(self.device)
 
     def _forward(self, dev, tokens, positions, write_idx, kv_lens, last_idx,
-                 all_logits=False):
+                 all_logits=False, split=False):
+        """The model's forward over this rank's rows, its groups and
+        stage; after a split step the replicas share its K/V rows."""
         logits, self.kv_cache = self.model.forward(
             self.params, tokens, positions, write_idx, dev["block_tables"],
             kv_lens, last_idx, self.kv_cache, all_logits=all_logits,
             attn_impl=self.cfg.model_attn_impl, moe_impl=self.moe_impl,
             lora_idx=dev.get("lora_idx"), lora_scale=dev.get("lora_scale"),
-            tp_group=self.tp_group,
+            tp_group=self.tp_group, pp_group=self.pp_group,
+            pp_stage=self.stage,
         )
+        if split:
+            share_kv_writes(self.kv_cache, write_idx, self.dp_group)
         return logits
 
     def forward_logits(self, batch: Dict[str, np.ndarray],
@@ -1157,30 +1281,36 @@ class ModelRunner:
         that holds a rank layout against one rank. Mirrored as
         ``forward``."""
         with self._mirror("forward", batch, all_logits):
+            mine, split = self._my_rows(batch)
             dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                   for k, v in batch.items()}
-            return self._forward(dev, dev["tokens"], dev["positions"],
-                                 dev["write_idx"], dev["kv_lens"],
-                                 dev["last_idx"], all_logits=all_logits)
+                   for k, v in mine.items()}
+            return self._all_rows(self._forward(
+                dev, dev["tokens"], dev["positions"], dev["write_idx"],
+                dev["kv_lens"], dev["last_idx"], all_logits=all_logits,
+                split=split), split)
 
     def _step(self, batch: Dict[str, np.ndarray], want_lp: bool,
               greedy: bool, kind: str = "step") -> torch.Tensor:
         """One step on the device; mirrored as ``kind`` (``step``, or
         ``step_nofetch`` for a prefill whose rows nobody reads)."""
         with self._mirror(kind, batch, want_lp, greedy):
-            dev = self._put(batch)
-            out = self._run(self._key("step", dev, want_lp, greedy, 1),
-                            lambda: self.eager_step(dev, want_lp, greedy))
+            mine, split = self._my_rows(batch)
+            dev = self._put(mine)
+            out = self._run(self._key("step", dev, want_lp, greedy, 1, split),
+                            lambda: self.eager_step(dev, want_lp, greedy,
+                                                    split))
             self._note_rows(out)
         return out
 
     def eager_step(self, dev: Dict[str, torch.Tensor], want_lp: bool,
-                   greedy: bool) -> torch.Tensor:
+                   greedy: bool, split: bool = False) -> torch.Tensor:
         """The forward and the sampler of one step on the inputs ``dev``
-        (``_put``'s views), run eagerly: what a step's graph captures."""
+        (``_put``'s views), run eagerly: what a step's graph captures.
+        ``split``: ``dev`` holds this replica's rows of a split batch,
+        whose sampled rows are gathered over ``dp``."""
         logits = self._forward(
             dev, dev["tokens"], dev["positions"], dev["write_idx"],
-            dev["kv_lens"], dev["last_idx"],
+            dev["kv_lens"], dev["last_idx"], split=split,
         )
         if "penalty_prompt" in dev:
             logits = apply_penalties(
@@ -1193,30 +1323,34 @@ class ModelRunner:
             logits = apply_allowed_mask(
                 logits, dev["allowed_ids"], dev["allow_free"]
             )
-        return sample_tokens_packed(
+        return self._all_rows(sample_tokens_packed(
             logits, dev["temps"], dev["top_ps"], dev["top_ks"], dev["min_ps"],
             dev["seeds"], with_logprobs=want_lp, greedy_only=greedy,
-        )
+        ), split)
 
     def _spec_verify(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
         with self._mirror("spec_verify", batch):
-            dev = self._put(batch)
+            mine, split = self._my_rows(batch)
+            dev = self._put(mine)
             K = dev["tokens"].shape[1] - 1
-            out = self._run(self._key("spec_verify", dev, False, False, K),
-                            lambda: self.eager_spec_verify(dev))
+            out = self._run(
+                self._key("spec_verify", dev, False, False, K, split),
+                lambda: self.eager_spec_verify(dev, split))
             self._note_rows(out)
         return out
 
-    def eager_spec_verify(self, dev: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def eager_spec_verify(self, dev: Dict[str, torch.Tensor],
+                          split: bool = False) -> torch.Tensor:
         """The verify step on ``_put``'s views, run eagerly (what its graph
         captures): logits of all K+1 positions, ``logit_bias`` at every
         position (a biased greedy row's accept chain follows the biased
         argmax), the guided mask at position 0 only (guided rows carry no
         drafts). Returns int32 ``[Bb, K+2]``: the K+1 argmax ids, then
-        position 0's sampled token."""
+        position 0's sampled token (every replica's rows, where
+        ``split``)."""
         logits = self._forward(
             dev, dev["tokens"], dev["positions"], dev["write_idx"],
-            dev["kv_lens"], dev["last_idx"], all_logits=True,
+            dev["kv_lens"], dev["last_idx"], all_logits=True, split=split,
         )  # [Bb, K+1, V] float32
         B, T, V = logits.shape
         if "bias_ids" in dev:
@@ -1232,20 +1366,23 @@ class ModelRunner:
         sampled0 = sample_tokens_packed(
             logits0, dev["temps"], dev["top_ps"], dev["top_ks"],
             dev["min_ps"], dev["seeds"])[:, 0].to(torch.int32)
-        return torch.cat([ids, sampled0[:, None]], dim=1)
+        return self._all_rows(torch.cat([ids, sampled0[:, None]], dim=1),
+                              split)
 
     def _multi_step(self, batch: Dict[str, np.ndarray], n_steps: int,
                     want_lp: bool, greedy: bool) -> Dict[str, torch.Tensor]:
         with self._mirror("multi_step", batch, n_steps, want_lp, greedy):
-            dev = self._put(batch)
+            mine, split = self._my_rows(batch)
+            dev = self._put(mine)
             out = self._run(
-                self._key("burst", dev, want_lp, greedy, n_steps),
-                lambda: self.eager_multi_step(dev, n_steps, want_lp, greedy))
+                self._key("burst", dev, want_lp, greedy, n_steps, split),
+                lambda: self.eager_multi_step(dev, n_steps, want_lp, greedy,
+                                              split))
             self._note_rows(out["rows"])
         return out
 
     def eager_multi_step(self, dev: Dict[str, torch.Tensor], n_steps: int,
-                         want_lp: bool, greedy: bool
+                         want_lp: bool, greedy: bool, split: bool = False
                          ) -> Dict[str, torch.Tensor]:
         """Decode ``n_steps`` tokens per sequence without a host round trip:
         each sampled token, its position, its page write slot and the seed
@@ -1257,7 +1394,9 @@ class ModelRunner:
         continuation feeds back under the input names it replaces: the
         next ``tokens`` and ``positions``, the ``seeds`` advanced by n (the
         JAX ``seed_off``; the draw masks each seed to 32 bits, as JAX's
-        uint32 sum wraps) and, with penalties, ``pen_counts``."""
+        uint32 sum wraps) and, with penalties, ``pen_counts``. Where
+        ``split``, the rows are every replica's (gathered over ``dp``) and
+        the carry this replica's own."""
         bs = self.cfg.block_size
         tables = dev["block_tables"]
         active = dev["kv_lens"] > 0  # padding rows never write
@@ -1276,7 +1415,7 @@ class ModelRunner:
             logits = self._forward(
                 dev, tokens[:, None], positions[:, None], flat[:, None],
                 positions + 1,  # kv valid through the just-written slot
-                zeros,
+                zeros, split=split,
             )
             if with_pen:
                 logits = apply_penalties_counts(
@@ -1296,7 +1435,8 @@ class ModelRunner:
                            tokens.long()] += active.float()
             positions = positions + 1
             rows.append(packed)
-        out = {"rows": torch.stack(rows, dim=1),  # [B, n, W]
+        out = {"rows": self._all_rows(torch.stack(rows, dim=1),  # [B, n, W]
+                                      split),
                "tokens": tokens, "positions": positions,
                "seeds": dev["seeds"] + n_steps}
         if with_pen:
@@ -1368,8 +1508,10 @@ class ModelRunner:
         return row
 
     def _row_bucket(self, B: int) -> int:
+        """Decode/verify batch-row bucket: pow2, floored by ``dp`` (so
+        every replica gets rows) and the compile-stability floor."""
         Bb = _pow2(B, cap=_pow2(self.cfg.max_num_seqs))
-        return max(Bb, B, self.cfg.min_decode_bucket)
+        return max(Bb, B, self.dp, self.cfg.min_decode_bucket)
 
     def _table_bucket(self, seqs: List[Sequence]) -> int:
         W = max(max(len(s.block_ids) for s in seqs), 1)

@@ -66,13 +66,16 @@ controller every 10 s (``register_with_controller``). With a remote tier
 The deploy layer's argv: the chart's and the operator's engine flags
 parse (``--served-model-name``, ``--gpu-memory-utilization``,
 ``--attn-impl``, ``--moe-impl``, ``--no-enable-prefix-caching``,
-``--no-startup-phases``, ...). ``--tensor-parallel-size N`` serves on N
-ranks, one process each (``engine/multihost.py``): ``main`` starts them
-(under the chart's multi-host ``PST_*`` environment, each pod its own,
-and a pod other than the first mirrors rank 0 and serves nothing), rank
-0 serves HTTP, and a SIGTERM stops every local rank. The other four
-``--*-parallel-size`` flags take 1 only (refused at start above 1,
-ROADMAP.md queue 1, item 15). With
+``--no-startup-phases``, ...). ``--tensor-parallel-size``,
+``--pipeline-parallel-size`` and ``--data-parallel-size`` serve on
+``dp x pp x tp`` ranks, one process each (``engine/multihost.py``):
+``main`` starts them (under the chart's multi-host ``PST_*``
+environment, each pod its own, and a pod other than the first mirrors
+rank 0 and serves nothing), rank 0 serves HTTP, ``/debug/state`` lists
+each rank's ``dp``/``pp``/``tp`` coordinates and device (``ranks``), and
+a SIGTERM stops every local rank. ``--sequence-parallel-size`` and
+``--expert-parallel-size`` take 1 only (refused at start above 1,
+ROADMAP.md queue 1, items 15.iii and 15.iv). With
 ``--api-key`` every route but the probes and ``/metrics``
 (``_OPEN_PATHS``) answers 401 ``invalid API key`` to a request without
 ``Authorization: Bearer <key>``; a traced path's 401 carries its
@@ -154,7 +157,7 @@ from ..resilience.deadline import DEADLINE_EXCEEDED_HEADER, parse_deadline
 from ..utils_tracing import init_otel, init_sentry
 from .async_engine import AsyncLLMEngine
 from .cache_tiering import INTEGRITY_SOURCES
-from .config import EngineConfig
+from .config import UNSERVED_AXES, EngineConfig
 from .multihost import start_ranks
 from .sequence import SamplingParams
 from .tokenizer import ChatMessage
@@ -752,6 +755,9 @@ def create_engine_app(
 
         def debug_state(self) -> None:
             stats = engine.engine.stats()
+            # Each rank's coordinates and device, where there are ranks
+            # (at one rank the keys are the JAX server's).
+            layout = engine.engine.rank_layout()
             self._json(200, {
                 "model": model_name,
                 "ready": engine.ready,
@@ -764,6 +770,7 @@ def create_engine_app(
                 "flight": engine.engine.flight.stats(),
                 "stats": {k: v for k, v in stats.items()
                           if isinstance(v, (int, float, str, bool))},
+                **({"ranks": layout} if layout else {}),
             })
 
         def debug_requests(self) -> None:
@@ -1833,19 +1840,21 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
 
 
 def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
-    """The engine's config from the server's flags. A pipeline, data,
-    sequence or expert size above 1 raises: the port serves tensor
-    parallelism only, and the other axes are queue 1, item 15 of
+    """The engine's config from the server's flags. A sequence or expert
+    size above 1 raises: the port serves the tensor, pipeline and data
+    axes, and those two are queue 1, items 15.iii and 15.iv of
     ROADMAP.md."""
-    for axis in PARALLEL_AXES:
+    for axis, item in UNSERVED_AXES.items():
         size = getattr(args, f"{axis}_parallel_size")
-        if axis != "tensor" and size != 1:
+        if size != 1:
             raise ValueError(
                 f"--{axis}-parallel-size {size}: the PyTorch engine serves "
-                "tensor parallelism only (the other axes are queue 1, item "
-                "15 of ROADMAP.md); pass 1")
+                f"the tensor, pipeline and data axes (the {axis} axis is "
+                f"queue 1, item {item} of ROADMAP.md); pass 1")
     return EngineConfig(
         tensor_parallel_size=args.tensor_parallel_size,
+        pipeline_parallel_size=args.pipeline_parallel_size,
+        data_parallel_size=args.data_parallel_size,
         model=args.model,
         tokenizer=args.tokenizer,
         served_model_name=args.served_model_name,
@@ -1936,11 +1945,10 @@ def main(argv=None) -> None:
     # also needs OTEL_EXPORTER_OTLP_ENDPOINT), as in the JAX server.
     init_sentry(args.sentry_dsn)
     init_otel("pst-engine")
-    if (cfg.tensor_parallel_size > 1
-            and DistributedConfig.from_env().process_id != 0):
+    if cfg.num_ranks > 1 and DistributedConfig.from_env().process_id != 0:
         # A pod other than the first: mirror rank 0, serve nothing.
         sys.exit(start_ranks(cfg).follow())
-    # At tensor_parallel_size > 1 the engine starts this host's ranks and
+    # With more than one rank the engine starts this host's ranks and
     # stops them at its shutdown.
     engine = AsyncLLMEngine(cfg)
     server = create_engine_app(engine, args.host, args.port,

@@ -78,7 +78,27 @@ its heads (a cache of ``[L, nb, 2, bs, (KH/tp)*hd]``) and its slice of
 the FFN, and the fp32 products of ``wo`` and ``w_down`` (or the experts'
 combine) are summed over the group before their one cast.
 
-Not ported yet: pipeline parallelism has no parameter here.
+Pipeline parallelism (the JAX ``param_pspecs(pipeline=True)``,
+``lora_pspecs`` and ``cache_pspec``, and ``pp_compose``): a stage of
+``pp`` holds ``L/pp`` consecutive layers, every layer leaf (the LoRA
+bank and the expert banks too) cut on its leading layer axis
+(:func:`stage_params`; ``init_params`` and ``load_hf_params`` take
+``stage=(stage, pp)``), and a cache of its own ``L/pp`` layers;
+``embed``, ``lm_head`` and ``final_norm`` stay whole on every stage, as
+JAX replicates them. ``forward`` and ``encode`` take the stages' device
+group (``pp_group``) and the rank's stage: stage 0 embeds, each stage
+runs its layers (the cache and the kernels get the stage-local layer
+index, the window pattern the global one), and after stage ``s`` runs
+its output is broadcast over the group, so stage ``s + 1`` runs on it
+and, after the last stage, every rank holds the final activation and
+computes the same logits (the JAX ``ppermute`` hops and the masked
+``psum``). A broadcast rides on NCCL and on gloo alike, CUDA tensors
+included.
+
+Data-parallel replicas hold the whole cache each; a step's rows split
+among them write only their own rows, and :func:`share_kv_writes` then
+copies every replica's new K/V rows into the others' caches (JAX keeps
+the replicated cache equal through XLA).
 """
 
 from __future__ import annotations
@@ -88,6 +108,7 @@ import functools
 import json
 import math
 import os
+import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -295,6 +316,58 @@ def check_tp(cfg: "LlamaConfig", tp: int,
                     f"tensor_parallel_size={tp}")
 
 
+def check_pp(cfg: "LlamaConfig", pp: int) -> None:
+    """Raise ``ValueError`` unless ``cfg``'s layers split into ``pp``
+    stages of equal depth (the JAX runner's start check)."""
+    if pp < 1:
+        raise ValueError(f"pipeline_parallel_size must be >= 1, got {pp}")
+    if cfg.num_layers % pp:
+        raise ValueError(f"num_layers={cfg.num_layers} not divisible by "
+                         f"pipeline_parallel_size={pp}")
+
+
+def stage_layers(cfg: "LlamaConfig", stage: int, pp: int) -> range:
+    """The global indices of stage ``stage``'s layers of ``pp``."""
+    check_pp(cfg, pp)
+    n = cfg.num_layers // pp
+    return range(stage * n, (stage + 1) * n)
+
+
+def stage_leaf(t, stage: int, pp: int):
+    """Stage ``stage``'s layers (a contiguous cut of the leading layer
+    axis) of a stacked layer leaf ``t`` (a tensor or a numpy array)."""
+    if pp == 1:
+        return t
+    n = t.shape[0] // pp
+    if isinstance(t, torch.Tensor):
+        return t.narrow(0, stage * n, n).contiguous()
+    return t[stage * n:(stage + 1) * n].copy()
+
+
+def stage_params(params: "Params", cfg: "LlamaConfig", stage: int,
+                 pp: int) -> "Params":
+    """Stage ``stage``'s cut of a tree (quantized or not, with or without
+    a LoRA bank or expert banks): every layer leaf on its leading axis,
+    the top leaves whole."""
+    check_pp(cfg, pp)
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: stage_leaf(v, stage, pp)
+                     for k, v in params["layers"].items()}
+    return out
+
+
+def rank_local_config(cfg: "LlamaConfig", tp: int = 1,
+                      pp: int = 1) -> "LlamaConfig":
+    """The geometry one rank runs: :func:`tp_local_config`'s heads and FFN
+    slice, and its stage's ``L/pp`` layers (what sizes its KV pages and
+    its LoRA bank)."""
+    local = tp_local_config(cfg, tp)
+    if pp == 1:
+        return local
+    check_pp(cfg, pp)
+    return dataclasses.replace(local, num_layers=cfg.num_layers // pp)
+
+
 def tp_local_config(cfg: "LlamaConfig", tp: int) -> "LlamaConfig":
     """The geometry one of ``tp`` ranks runs: its query and kv heads and
     its slice of the FFN (what sizes its KV pages and its LoRA bank)."""
@@ -332,6 +405,116 @@ def _tp_heads(cfg: "LlamaConfig", group) -> Tuple[int, int]:
     """(query heads, kv heads) of one rank of ``group``."""
     tp = 1 if group is None else group.size()
     return cfg.num_heads // tp, cfg.num_kv_heads // tp
+
+
+# What this process's pipeline hand-offs and dp K/V exchanges moved:
+# calls, bytes (a hand-off's broadcast tensor; an exchange's gathered
+# rows and slots) and the host seconds inside the collective calls (under
+# gloo a call returns once its bytes moved, a receiver's wait for the
+# sending stage included; under NCCL once they are queued). Eager calls
+# only: a captured step's replays run no Python. Read by the runner's
+# rank report.
+PARALLEL_TRAFFIC: Dict[str, Dict[str, float]] = {
+    "handoff": {"calls": 0, "bytes": 0, "seconds": 0.0},
+    "dp_share": {"calls": 0, "bytes": 0, "seconds": 0.0},
+}
+
+
+def _count_traffic(kind: str, nbytes: int, t0: float) -> None:
+    rec = PARALLEL_TRAFFIC[kind]
+    rec["calls"] += 1
+    rec["bytes"] += nbytes
+    rec["seconds"] += time.perf_counter() - t0
+
+
+def _stage_span(cfg: "LlamaConfig", group, stage: int) -> Tuple[int, int]:
+    """(stages, global index of stage ``stage``'s first layer) of one
+    rank of the pipeline ``group`` (None: one stage)."""
+    pp = 1 if group is None else group.size()
+    if not 0 <= stage < pp:
+        raise ValueError(f"stage {stage} of a {pp}-stage pipeline")
+    return pp, stage_layers(cfg, stage, pp).start
+
+
+def _run_stages(x: torch.Tensor, group, stage: int, pp: int,
+                run: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """The pipeline's hops: stage ``s`` applies ``run`` (its layers) to
+    the activation, then broadcasts its output over ``group``; the other
+    stages receive it in place. After the last hop every rank holds the
+    final activation. One stage: ``run(x)``."""
+    if group is None:
+        return run(x)
+    for s in range(pp):
+        if s == stage:
+            x = run(x).contiguous()
+        t0 = time.perf_counter()
+        dist.broadcast(x, src=dist.get_global_rank(group, s), group=group)
+        _count_traffic("handoff", x.numel() * x.element_size(), t0)
+    return x
+
+
+def _stage_input(params: "Params", cfg: "LlamaConfig", tokens: torch.Tensor,
+                 stage: int) -> torch.Tensor:
+    """The residual stream entering the layers: stage 0's embedding (its
+    ``sqrt(D)`` scale rounded to the model dtype first, the HF-Gemma
+    convention); on a later stage an empty buffer of the same shape and
+    type, which the hand-off fills."""
+    B, T = tokens.shape
+    if stage:
+        return torch.empty((B, T, cfg.hidden_size), dtype=cfg.torch_dtype,
+                           device=tokens.device)
+    x = _embed_lookup(params, tokens.long(), cfg.torch_dtype)  # [B, T, D]
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=x.dtype)
+    return x
+
+
+def _write_targets(write_idx: torch.Tensor, L: int, nb: int, bs: int,
+                   spare: int) -> torch.Tensor:
+    """The flat ``[L*nb*2*bs (+1), KH*hd]`` cache rows that the K and V
+    rows of flat slots ``write_idx`` fill in each of ``L`` layers:
+    ``[L, 2N]``, the N K rows then the N V rows. Slot (blk, pos) of layer
+    li holds its K row at (li*nb + blk)*2*bs + pos and its V row bs rows
+    later. A slot at or past nb*bs is DROPPED (padding rows, the runner's
+    drop slot): it must not wrap into the next layer's first page, so its
+    rows go to the cache's spare row ``spare`` instead, on the device."""
+    flat = write_idx.reshape(-1).long()
+    rows = (flat // bs) * (2 * bs) + flat % bs  # layer-0 K
+    rows = torch.cat([rows, rows + bs])  # K rows, then V rows
+    dropped = (flat >= nb * bs).repeat(2)
+    layer_base = torch.arange(L, device=rows.device)[:, None] * (nb * 2 * bs)
+    return torch.where(dropped, spare, rows + layer_base)
+
+
+def share_kv_writes(kv_cache: torch.Tensor, write_idx: torch.Tensor,
+                    group) -> None:
+    """Keep the data-parallel replicas' caches equal after a step whose
+    rows were split among them: every replica's K/V rows of the step
+    (written into its own cache at its rows' slots ``write_idx``) are
+    gathered over ``group`` with their slots, as bytes, and written into
+    every other replica's cache, in place. Valid because within a step no
+    row reads a page that another row writes (the fused write's engine
+    rule), so no replica read a row another one wrote. None: one replica,
+    nothing to share."""
+    if group is None:
+        return
+    L, nb, _, bs, _ = kv_cache.shape
+    flat_cache = _rows_with_spare(kv_cache).view(torch.uint8)
+    spare = flat_cache.shape[0] - 1
+    idx = write_idx.reshape(-1).to(torch.int32).contiguous()
+    mine = flat_cache[_write_targets(idx, L, nb, bs, spare).reshape(-1)]
+    n = group.size()
+    t0 = time.perf_counter()
+    idxs = [torch.empty_like(idx) for _ in range(n)]
+    dist.all_gather(idxs, idx, group=group)
+    rows = [torch.empty_like(mine) for _ in range(n)]
+    dist.all_gather(rows, mine, group=group)
+    _count_traffic("dp_share", n * (idx.numel() * 4 + mine.numel()), t0)
+    me = dist.get_group_rank(group, dist.get_rank())
+    for r, (i, v) in enumerate(zip(idxs, rows)):
+        if r != me:
+            flat_cache.index_copy_(
+                0, _write_targets(i, L, nb, bs, spare).reshape(-1), v)
 
 
 # The CUDA caching allocator rounds a large allocation's segment up to a
@@ -453,6 +636,7 @@ class Llama:
         self, generator: torch.Generator, device: torch.device,
         quantization: Optional[str] = None,
         shard: Optional[Tuple[int, int]] = None,
+        stage: Optional[Tuple[int, int]] = None,
     ) -> Params:
         """Random init with the JAX package's distributions (norms 1,
         biases 0, matmul weights N(0, 1/fan_in)); not its values — the
@@ -468,7 +652,12 @@ class Llama:
         ``shard=(rank, tp)``: each slice is still drawn (and quantized)
         whole, so the generator advances as for the whole tree, and only
         the rank's cut of it is kept: the result equals
-        ``shard_params(init_params(...), cfg, rank, tp)``."""
+        ``shard_params(init_params(...), cfg, rank, tp)``.
+
+        ``stage=(stage, pp)``: every slice is still drawn, in order, and
+        only the stage's layers are kept (and quantized): the result
+        equals ``stage_params(init_params(...), cfg, stage, pp)``, and so
+        composes with ``shard``."""
         if quantization not in (None, *QUANT_MODES):
             raise ValueError(
                 f"unsupported quantization {quantization!r} (int8 or int4)")
@@ -476,26 +665,27 @@ class Llama:
         rank, tp = shard or (0, 1)
         if tp > 1:
             check_tp(self.cfg, tp, quantization)
+        span = stage_layers(self.cfg, *(stage or (0, 1)))
 
         def cut(name: str, t: torch.Tensor) -> torch.Tensor:
             return shard_leaf(name, t, rank, tp)
 
-        def local(name: str, shape) -> Tuple[int, ...]:
-            axis = shard_axis(name)
-            if tp == 1 or axis is None:
-                return tuple(shape)
+        def local(name: str, shape, layer: bool) -> Tuple[int, ...]:
             out = list(shape)
-            out[axis] //= tp
+            axis = shard_axis(name)
+            if tp > 1 and axis is not None:
+                out[axis] //= tp
+            if layer:
+                out[0] = len(span)
             return tuple(out)
 
-        def fill(params: Params, name: str, shape) -> None:
+        def fill(params: Params, name: str, shape, layer: bool) -> None:
+            mine = local(name, shape, layer)
             if "norm" in name:
-                params[name] = torch.ones(local(name, shape), dtype=dtype,
-                                          device=device)
+                params[name] = torch.ones(mine, dtype=dtype, device=device)
                 return
             if name.startswith("b"):
-                params[name] = torch.zeros(local(name, shape), dtype=dtype,
-                                           device=device)
+                params[name] = torch.zeros(mine, dtype=dtype, device=device)
                 return
             fan_in = shape[-1] if name in QUANT_TOP_KEYS else shape[-2]
 
@@ -504,30 +694,39 @@ class Llama:
                                     device=device, dtype=torch.float32)
                         / math.sqrt(fan_in)).to(dtype)
 
+            # The stage's slices of the leaf's prod(shape[:-2]): the ones
+            # before and after it are drawn and dropped.
+            n_all = math.prod(shape[:-2])
+            per = n_all // shape[0] if layer else n_all
+            lo, hi = ((span.start * per, span.stop * per) if layer
+                      else (0, n_all))
+            for _ in range(lo):
+                draw()
             quantized = name in QUANT_LAYER_KEYS + QUANT_TOP_KEYS
             if quantization is None or not quantized:
-                mine = local(name, shape)
                 out = torch.empty(mine, dtype=dtype, device=device)
                 for part in out.view(-1, *mine[-2:]):
                     part.copy_(cut(name, draw()))
                 params[name] = out
-                return
-            fn, suffix = _quantizer(name, quantization)
+            else:
+                fn, suffix = _quantizer(name, quantization)
 
-            def make(i: int) -> Tuple[torch.Tensor, torch.Tensor]:
-                q, s = fn(draw())
-                return cut(name, q), cut(name + suffix, s)
+                def make(i: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    q, s = fn(draw())
+                    return cut(name, q), cut(name + suffix, s)
 
-            params[name], params[name + suffix] = _stack_slices(
-                tuple(shape[:-2]), make)
+                params[name], params[name + suffix] = _stack_slices(
+                    mine[:-2], make)
+            for _ in range(n_all - hi):
+                draw()
 
         shapes = self.param_shapes()
         params: Params = {"layers": {}}
         for k, v in shapes.items():
             if k != "layers":
-                fill(params, k, v)
+                fill(params, k, v, False)
         for k, v in shapes["layers"].items():
-            fill(params["layers"], k, v)
+            fill(params["layers"], k, v, True)
         return params
 
     # ------------------------------------------------------------------
@@ -613,6 +812,8 @@ class Llama:
         lora_scale: Optional[torch.Tensor] = None,  # [B] float32
         moe_impl: str = "auto",
         tp_group=None,
+        pp_group=None,
+        pp_stage: int = 0,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One engine step. Returns (last-token logits [B, V] float32, the
         cache); with ``all_logits`` the logits of every position [B, T, V]
@@ -625,12 +826,19 @@ class Llama:
         :func:`_moe_mlp` (every name runs its one body). ``tp_group``: the
         tensor-parallel ranks' device group, each rank holding its
         :func:`shard_params` shard and its heads' cache; None for one
-        rank."""
+        rank. ``pp_group``: the pipeline stages' device group, this rank
+        stage ``pp_stage`` of it, holding its :func:`stage_params` cut and
+        a cache of its ``L/pp`` layers; None for one stage. Every rank
+        returns the same logits."""
         cfg = self.cfg
         H, KH = _tp_heads(cfg, tp_group)
+        pp, li_base = _stage_span(cfg, pp_group, pp_stage)
         q_size, kv_size = H * cfg.head_dim, KH * cfg.head_dim
         B, T = tokens.shape
         L, nb, _, bs, _ = kv_cache.shape
+        if L * pp != cfg.num_layers:
+            raise ValueError(f"a cache of {L} layers for a stage of "
+                             f"{cfg.num_layers // pp}")
         layers = params["layers"]
         has_lora = "lora_a_wq" in layers
         if has_lora:
@@ -643,11 +851,7 @@ class Llama:
             lora_scale = lora_scale.float()[:, None, None]
 
         offset = cfg.norm_unit_offset
-        x = _embed_lookup(params, tokens.long(), cfg.torch_dtype)  # [B, T, D]
-        if cfg.embed_scale:
-            # HF-Gemma convention: the sqrt(D) normalizer is rounded to the
-            # model dtype before multiplying.
-            x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=x.dtype)
+        x = _stage_input(params, cfg, tokens, pp_stage)  # [B, T, D]
         rope_cos, rope_sin = _rope_tables(positions, cfg)
 
         fused = _decode_write_fused(attn_impl, tokens.is_cuda, T)
@@ -655,27 +859,20 @@ class Llama:
             write_flat = write_idx.reshape(-1).to(torch.int32).contiguous()
         else:
             # KV write: one scatter per layer over the flat
-            # [L*nb*2*bs, KH*hd] row view. Slot (blk, pos) of layer li
-            # holds its K row at (li*nb + blk)*2*bs + pos and its V row bs
-            # rows later. A slot at or past nb*bs is DROPPED (padding rows,
-            # the runner's drop slot) — it must not wrap into the next
-            # layer's first page — so its rows go to the cache's spare row
-            # instead, on the device.
-            flat_write = write_idx.reshape(-1).long()
-            rows = (flat_write // bs) * (2 * bs) + flat_write % bs  # layer-0 K
-            rows = torch.cat([rows, rows + bs])  # K rows, then V rows
-            dropped = (flat_write >= nb * bs).repeat(2)
+            # [L*nb*2*bs, KH*hd] row view (:func:`_write_targets`).
             flat_cache = _rows_with_spare(kv_cache)
-            layer_base = (torch.arange(L, device=rows.device)[:, None]
-                          * (nb * 2 * bs))
-            targets = torch.where(dropped, flat_cache.shape[0] - 1,
-                                  rows + layer_base)  # [L, 2*B*T]
+            targets = _write_targets(write_idx, L, nb, bs,
+                                     flat_cache.shape[0] - 1)  # [L, 2*B*T]
 
         positions_i = positions.to(torch.int32)
         tables = block_tables.to(torch.int32).contiguous()
         lens = kv_lens.to(torch.int32).contiguous()
 
-        for li in range(cfg.num_layers):
+        def layer(x: torch.Tensor, li: int) -> torch.Tensor:
+            """Stage-local layer ``li``: its leaves, cache layer and
+            kernels' ``layer`` argument; ``li_base + li`` is its global
+            index, which sets its window."""
+            window = _layer_window(cfg, li_base + li)
             lp = {k: v[li] for k, v in layers.items()}
             h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps, offset)
             q = _proj(h, lp, "wq", lp.get("bq"))
@@ -698,7 +895,7 @@ class Llama:
                     q[:, 0], kv_cache, tables, lens, li,
                     k.reshape(B, kv_size), v.reshape(B, kv_size),
                     write_flat, scale=cfg.attn_scale,
-                    window=_layer_window(cfg, li),
+                    window=window,
                     softcap=cfg.attn_logit_softcap,
                 )[:, None]
             else:
@@ -709,7 +906,7 @@ class Llama:
                 attn = paged_attention(
                     q, kv_cache, tables, lens, positions_i, li,
                     scale=cfg.attn_scale, impl=attn_impl,
-                    window=_layer_window(cfg, li),
+                    window=window,
                     softcap=cfg.attn_logit_softcap,
                 )
             attn = attn.reshape(B, T, q_size).to(x.dtype)
@@ -734,6 +931,14 @@ class Llama:
                 ff = _rms_norm(ff, lp["post_mlp_norm"], cfg.rms_norm_eps,
                                offset)
             x = x + ff
+            return x
+
+        def run(x: torch.Tensor) -> torch.Tensor:
+            for li in range(L):
+                x = layer(x, li)
+            return x
+
+        x = _run_stages(x, pp_group, pp_stage, pp, run)
 
         x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps, offset)
         head = "lm_head" if "lm_head" in params else "embed"
@@ -757,6 +962,8 @@ class Llama:
         lengths: torch.Tensor,  # [B] int valid lengths
         moe_impl: str = "auto",
         tp_group=None,
+        pp_group=None,
+        pp_stage: int = 0,
     ) -> torch.Tensor:
         """The embedding path (``/v1/embeddings``), the JAX ``encode``:
         causal attention over the whole prompt at positions ``0..T-1``, no
@@ -766,20 +973,20 @@ class Llama:
         before rope, llama3 rope, each layer's window and softcap,
         post-block norms); the LoRA bank is not applied, as in JAX.
         Attention runs in blocks of query rows (:func:`encode_attention`).
-        ``tp_group`` as in :meth:`forward`."""
+        ``tp_group``, ``pp_group`` and ``pp_stage`` as in :meth:`forward`."""
         cfg = self.cfg
         H, KH = _tp_heads(cfg, tp_group)
+        pp, li_base = _stage_span(cfg, pp_group, pp_stage)
         B, T = tokens.shape
         dev = tokens.device
         offset = cfg.norm_unit_offset
         positions = torch.arange(T, device=dev)[None].expand(B, T)
-        x = _embed_lookup(params, tokens.long(), cfg.torch_dtype)
-        if cfg.embed_scale:
-            x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=x.dtype)
+        x = _stage_input(params, cfg, tokens, pp_stage)
         rope_cos, rope_sin = _rope_tables(positions, cfg)
         lengths = lengths.to(dev).long()
         layers = params["layers"]
-        for li in range(cfg.num_layers):
+
+        def layer(x: torch.Tensor, li: int) -> torch.Tensor:
             lp = {k: v[li] for k, v in layers.items()}
             h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps, offset)
             q = _proj(h, lp, "wq", lp.get("bq")).reshape(
@@ -795,7 +1002,7 @@ class Llama:
             k = _apply_rope(k, rope_cos, rope_sin)
             attn = encode_attention(
                 q, k, v, lengths, scale=cfg.attn_scale,
-                window=_layer_window(cfg, li),
+                window=_layer_window(cfg, li_base + li),
                 softcap=cfg.attn_logit_softcap,
             ).to(x.dtype)
             o = _row_proj(attn, lp, "wo", tp_group)
@@ -809,6 +1016,14 @@ class Llama:
                 ff = _rms_norm(ff, lp["post_mlp_norm"], cfg.rms_norm_eps,
                                offset)
             x = x + ff
+            return x
+
+        def run(x: torch.Tensor) -> torch.Tensor:
+            for li in range(cfg.num_layers // pp):
+                x = layer(x, li)
+            return x
+
+        x = _run_stages(x, pp_group, pp_stage, pp, run)
         x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps, offset)
         mask = (positions < lengths[:, None]).float()[..., None]  # [B, T, 1]
         pooled = (x.float() * mask).sum(1) / torch.clamp(mask.sum(1), min=1.0)
@@ -1169,7 +1384,8 @@ _HF_MODEL_TYPES = ("llama", "mistral", "qwen2", "qwen3", "mixtral", "gemma",
 
 def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
                    device: Optional[torch.device] = None,
-                   shard: Optional[Tuple[int, int]] = None) -> Params:
+                   shard: Optional[Tuple[int, int]] = None,
+                   stage: Optional[Tuple[int, int]] = None) -> Params:
     """The parameter tree of a local HF checkpoint directory: the JAX
     ``load_hf_params`` tree, bit for bit. HF linear weights are stored
     ``[out, in]`` and become ``[in, out]``; layers are stacked on axis 0;
@@ -1189,13 +1405,17 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
 
     ``shard=(rank, tp)``: each layer's tensor is cut to the rank's slice
     as it lands (after its quantization, which sees the whole tensor):
-    the result equals ``shard_params`` of the whole tree."""
+    the result equals ``shard_params`` of the whole tree.
+
+    ``stage=(stage, pp)``: only the stage's layers are read: the result
+    equals ``stage_params`` of the whole tree."""
     qmode = "int8" if quantize is True else (quantize or None)
     if qmode not in (None, *QUANT_MODES):
         raise ValueError(f"unsupported quantization {quantize!r} (int8 or int4)")
     rank, tp = shard or (0, 1)
     if tp > 1:
         check_tp(cfg, tp, qmode)
+    span = stage_layers(cfg, *(stage or (0, 1)))
     device = torch.device(device or "cpu")
     dtype = cfg.torch_dtype
     ck = Checkpoint(model_dir)
@@ -1253,7 +1473,7 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
         layer_map["post_attention_layernorm"] = "post_attn_norm"
         layer_map["pre_feedforward_layernorm"] = "mlp_norm"
         layer_map["post_feedforward_layernorm"] = "post_mlp_norm"
-    L = cfg.num_layers
+    L = len(span)
     if cfg.num_experts:
         # Mixtral: one w1/w3/w2 (gate/up/down) an expert, and the router.
         E = cfg.num_experts
@@ -1263,16 +1483,16 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
                             ("w_down", "w2")):
             put(params["layers"], ours,
                 [f"model.layers.{i}.block_sparse_moe.experts.{e}."
-                 f"{wname}.weight" for i in range(L) for e in range(E)],
+                 f"{wname}.weight" for i in span for e in range(E)],
                 lead=(L, E))
         layer_map["block_sparse_moe.gate"] = "w_router"
     for hf_name, ours in layer_map.items():
         put(params["layers"], ours,
-            [f"model.layers.{i}.{hf_name}.weight" for i in range(L)])
+            [f"model.layers.{i}.{hf_name}.weight" for i in span])
     if cfg.attention_bias:
         for hf_name, ours in _HF_BIAS_MAP.items():
             put(params["layers"], ours,
-                [f"model.layers.{i}.{hf_name}.bias" for i in range(L)])
+                [f"model.layers.{i}.{hf_name}.bias" for i in span])
     return params
 
 

@@ -10,13 +10,19 @@ groups (:func:`maybe_init_distributed`):
 - the **control group** (the default group, gloo over CPU tensors): the
   step descriptions (:class:`HostBridge`), the page gathers, barriers and
   the KV block count's agreement;
-- the **device group**, for the activations' all-reduces: NCCL when every
-  rank has a card of its own, gloo when ranks share one card (NCCL
-  refuses two ranks on one device). The choice follows from the
-  rank -> device map every rank gathers, is logged, and is kept in
-  :class:`RankContext` (``backend``); it is never a fallback.
+- the **device groups**, one a parallel axis in use (``tp``, ``pp``,
+  ``dp``; :class:`~..parallel.mesh.RankGrid` lays the ranks out): the
+  activations' all-reduces over ``tp``, the stage hand-off over ``pp``
+  and the replicas' row and KV exchange over ``dp``. Each group's
+  backend is NCCL when each of its members has a card of its own, gloo
+  when members share one card (NCCL refuses two ranks on one device) or
+  run on the CPU. The choice follows from the rank -> device map every
+  rank gathers, is logged, and is kept in :class:`RankContext`
+  (``backends``); it is never a fallback. Every rank creates every group,
+  in the grid's order, as ``torch.distributed.new_group`` requires, even
+  the groups it is not in.
 
-Both groups get the bounded ``timeout_s``: a collective whose peer is
+Every group gets the bounded ``timeout_s``: a collective whose peer is
 gone raises within it instead of waiting for ever.
 
 Rank 0 (``RankContext.is_primary``) binds the HTTP server and runs the
@@ -35,14 +41,18 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
 
 from ..logging_utils import init_logger
+from .mesh import AXIS_DATA, AXIS_PIPELINE, AXIS_TENSOR, MeshConfig, RankGrid
 
 logger = init_logger(__name__)
+
+# The axes that may exceed 1, each with a device group of its own.
+DEVICE_AXES = (AXIS_TENSOR, AXIS_PIPELINE, AXIS_DATA)
 
 # Env surface (set by the Helm multi-host template / JobSet downward API).
 ENV_COORDINATOR = "PST_COORDINATOR_ADDRESS"
@@ -80,20 +90,34 @@ class RankContext:
     local_rank: int
     device: torch.device
     control: Any  # the default group: gloo, CPU tensors
-    device_group: Any  # the activations' group
-    backend: str  # the device group's: "nccl" or "gloo"
+    backend: str  # every rank's devices': "nccl" or "gloo"
     devices: List[str]  # every rank's "node/device", by rank
     timeout_s: float
+    grid: RankGrid
+    # This rank's device group on each axis above 1 (None: a group of
+    # one), and the backend of each.
+    groups: Dict[str, Any]
+    backends: Dict[str, str]
 
     @property
     def is_primary(self) -> bool:
         return self.rank == 0
 
     @property
+    def coords(self) -> Dict[str, int]:
+        """This rank's coordinate on each axis."""
+        return self.grid.coords(self.rank)
+
+    def group(self, axis: str) -> Any:
+        """This rank's device group on ``axis``; None where it has one
+        member."""
+        return self.groups.get(axis)
+
+    @property
     def capturable(self) -> bool:
-        """Whether a CUDA graph may hold the device group's collectives:
-        NCCL's run on the stream; gloo's wait on the host."""
-        return self.backend == "nccl"
+        """Whether a CUDA graph may hold this rank's collectives: NCCL's
+        run on the stream; gloo's wait on the host."""
+        return all(b == "nccl" for b in self.backends.values())
 
     def ranks_on_device(self) -> int:
         """Ranks that share this rank's card (its KV budget's divisor)."""
@@ -131,14 +155,21 @@ def device_backend(devices: List[str]) -> str:
 
 def maybe_init_distributed(world_size: int, rank: int, local_rank: int,
                            init_method: str, device_type: str = "cuda",
-                           timeout_s: float = 600.0, node: int = 0
+                           timeout_s: float = 600.0, node: int = 0,
+                           mesh: Optional[MeshConfig] = None
                            ) -> Optional[RankContext]:
     """Join rank ``rank`` of ``world_size`` at ``init_method`` (a
-    ``tcp://host:port`` rendezvous that rank 0 serves) and create both
-    groups with ``timeout_s``. None for a world of one: nothing to join.
-    ``node`` tells ranks of different hosts apart in the device map."""
+    ``tcp://host:port`` rendezvous that rank 0 serves) and create the
+    control group and every device group of the ``mesh`` layout (default:
+    all ranks on ``tp``) with ``timeout_s``. None for a world of one:
+    nothing to join. ``node`` tells ranks of different hosts apart in the
+    device map."""
     if world_size <= 1:
         return None
+    grid = RankGrid(mesh or MeshConfig(tensor_parallel_size=world_size))
+    if grid.world_size != world_size:
+        raise ValueError(f"a grid of {grid.world_size} ranks for a world of "
+                         f"{world_size}")
     device = rank_device(device_type, local_rank)
     if device.type == "cuda":
         torch.cuda.set_device(device)
@@ -147,16 +178,25 @@ def maybe_init_distributed(world_size: int, rank: int, local_rank: int,
                             world_size=world_size, timeout=timeout)
     devices: List[Optional[str]] = [None] * world_size
     dist.all_gather_object(devices, f"{node}/{device}")
-    backend = device_backend(devices)
-    device_group = dist.new_group(backend=backend, timeout=timeout)
+    groups: Dict[str, Any] = {}
+    backends: Dict[str, str] = {}
+    for axis in DEVICE_AXES:
+        for members in grid.groups(axis):
+            if len(members) == 1:
+                break  # the axis is 1: no group
+            backend = device_backend([devices[m] for m in members])
+            group = dist.new_group(members, backend=backend, timeout=timeout)
+            if rank in members:
+                groups[axis], backends[axis] = group, backend
     ctx = RankContext(rank=rank, world_size=world_size,
                       local_rank=local_rank, device=device,
-                      control=dist.group.WORLD, device_group=device_group,
-                      backend=backend, devices=list(devices),
-                      timeout_s=timeout_s)
-    logger.info("rank %d/%d on %s: control group gloo, device group %s "
-                "(ranks on %s), timeout %.0fs", rank, world_size, device,
-                backend, devices, timeout_s)
+                      control=dist.group.WORLD,
+                      backend=device_backend(devices), devices=list(devices),
+                      timeout_s=timeout_s, grid=grid, groups=groups,
+                      backends=backends)
+    logger.info("rank %d/%d %s on %s: control group gloo, device groups %s "
+                "(ranks on %s), timeout %.0fs", rank, world_size,
+                ctx.coords, device, backends, devices, timeout_s)
     return ctx
 
 

@@ -8,8 +8,9 @@ lays the global ranks out in the same order and gives each rank its
 coordinate on each axis: the ``tp`` group of a rank is the ranks that
 differ from it only on ``tp``, which are contiguous.
 
-Only ``tp`` may exceed 1 in the port so far (``engine/config.py`` refuses
-the other four at start; ROADMAP.md queue 1, item 15).
+``dp``, ``pp`` and ``tp`` may exceed 1 (``dp x pp x tp`` ranks, one
+process each); ``sp`` and ``ep`` are refused above 1 at start
+(``engine/config.py``; ROADMAP.md queue 1, items 15.iii and 15.iv).
 """
 
 from __future__ import annotations
@@ -75,6 +76,26 @@ class RankGrid:
                               reversed(self.config.sizes())):
             rank, out[axis] = divmod(rank, size)
         return {axis: out[axis] for axis in MESH_AXIS_ORDER}
+
+    def rank(self, **coords: int) -> int:
+        """The global rank at ``coords`` (an axis left out is at 0): the
+        inverse of :meth:`coords`."""
+        out = 0
+        for axis, size in zip(MESH_AXIS_ORDER, self.config.sizes()):
+            c = coords.get(axis, 0)
+            if not 0 <= c < size:
+                raise ValueError(f"{axis}={c} outside an axis of {size}")
+            out = out * size + c
+        return out
+
+    def groups(self, axis: str) -> List[List[int]]:
+        """Every group along ``axis``, each in order along it, the groups
+        by their first rank: the order in which every rank creates them."""
+        seen: Dict[int, List[int]] = {}
+        for r in range(self.world_size):
+            g = self.group(r, axis)
+            seen.setdefault(g[0], g)
+        return [seen[k] for k in sorted(seen)]
 
     def group(self, rank: int, axis: str) -> List[int]:
         """The ranks that share every coordinate of ``rank`` but

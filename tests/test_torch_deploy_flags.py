@@ -191,13 +191,29 @@ def test_the_config_equals_the_jax_config():
 def test_a_parallel_size_above_one_is_refused_at_start(axis):
     """Tensor parallelism parses into the config: the chart's default
     render (tp 8) passes the model's split and fails only on the start's
-    checks of the rank count and the devices. Each other axis above 1 is
-    refused with ROADMAP item 15's message."""
-    if axis != "tensor":
+    checks of the rank count and the devices. The pipeline and data
+    sizes parse into the config the same way (the model's layers split
+    into 2 stages). The sequence and expert axes above 1 are
+    refused with their ROADMAP items' message (15.iii, 15.iv)."""
+    if axis in ("sequence", "expert"):
+        item = {"sequence": "15.iii", "expert": "15.iv"}[axis]
         with pytest.raises(ValueError, match=f"--{axis}-parallel-size 2.*"
-                                             "item 15"):
+                                             f"item {re.escape(item)} "):
             port_server.engine_config_from_args(port_server.parse_engine_args(
                 [*OPERATOR_DEFAULT, f"--{axis}-parallel-size", "2"]))
+        return
+    if axis != "tensor":
+        cfg = port_server.engine_config_from_args(
+            port_server.parse_engine_args(
+                [*OPERATOR_DEFAULT, f"--{axis}-parallel-size", "2"]))
+        assert getattr(cfg, f"{axis}_parallel_size") == 2
+        assert cfg.num_ranks == 2 and cfg.device == "cuda"
+        check_parallel(cfg, get_model_config(cfg.model))
+        with pytest.raises(ValueError, match="does not split over 3"):
+            start_ranks(cfg, DistributedConfig("pst-engine-0:1234", 3, 0))
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA GPU"):
+                AsyncLLMEngine(cfg)
         return
     tp = CHART_DEFAULT.index("--tensor-parallel-size")
     assert CHART_DEFAULT[tp + 1] == "8"

@@ -290,8 +290,10 @@ def test_the_multihost_env_the_grid_and_the_start_refusals(monkeypatch):
     assert device_backend(["0/cuda:0", "0/cuda:0"]) == "gloo"
     assert device_backend(["0/cuda:0", "1/cuda:0"]) == "nccl"
     assert device_backend(["0/cpu", "0/cpu"]) == "gloo"
-    for axis in ("pipeline", "data", "sequence", "expert"):
-        with pytest.raises(ValueError, match="item 15"):
+    for axis in ("pipeline", "data"):  # accepted: dp x pp x tp ranks
+        assert EngineConfig(**{f"{axis}_parallel_size": 2}).num_ranks == 2
+    for axis, item in (("sequence", "15.iii"), ("expert", "15.iv")):
+        with pytest.raises(ValueError, match=f"item {re.escape(item)} "):
             EngineConfig(**{f"{axis}_parallel_size": 2})
     if not torch.cuda.is_available():  # the card is checked before a spawn
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
