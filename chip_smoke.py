@@ -329,6 +329,29 @@ stack printed:
    (``pst_engine_device_busy_seconds``). (e) ``tiny-mixtral-debug`` (fp32,
    head_dim 16) on the card: the CUDA-core attention kernels and the fp32
    experts (``torch.matmul``), no int4 launch.
+4r. Sequence and expert parallelism, every rank sharing the card over
+   gloo (the ring's blocks staged through the host; the NCCL path is not
+   run). (a), after 4q: Llama-3-8B encodes at sp 2 (two ranks, each
+   drawing the tree from seed 0) against the whole tree at one rank, in
+   bf16 and in int4, at T = 512 and 4096: the vectors under
+   ``encode_agree``, each rank's ring hops, bytes and seconds and its
+   encode peak, in int4 its ``int4_wgmma`` launches at N = T/2 and that
+   kernel at N = T/2 against its plain version. (b), after 4o:
+   mixtral-8x7b int4 at ep 2 (each rank drawing its 4 experts) against
+   the whole tree at one rank through the 512-token prompt and 8 decode
+   steps: the logits under ``agree`` against the one-rank run on rank 0's
+   expert choices, through the kernels and through their plain versions,
+   the share of choices an unforced one-rank run makes
+   otherwise, each rank's launches (16 int4 a layer), the combine's
+   all-reduce traffic, both ranks' caches bit for bit on every written
+   page, the int4 kernels at the expert shapes against their plain
+   versions. (c) The server with ``--model mixtral-8x7b --quantization
+   int4 --sequence-parallel-size 2 --expert-parallel-size 2`` (four
+   ranks) through its ``main``: greedy, streamed and seeded sampled
+   completions, ``/v1/embeddings``, ``/metrics``, ``/debug/state``'s
+   ranks; SIGTERM stops every rank, whose reports agree; its 48 greedy
+   tokens by chosen logprob and its embedding against a one-rank int4
+   server's on the same tree.
 3z. A checkpoint written and served: Llama-3-8B's widths at 4 of its 32
    layers (depth cut to bound the disk written, about 3.9 GB), random
    bf16 weights from a seed in HF names and ``[out, in]`` layout, two
@@ -472,6 +495,13 @@ production_stack_tpu_torch.engine.server --pipeline-parallel-size 2
 no rank alive, and 48 greedy tokens against a one-rank int4 server's.
 Its step times measure gloo's transport through the host on one card,
 not pipeline or data parallel speed.
+
+    python3 chip_smoke.py sp
+
+builds the kernels and runs phase 4r alone (``sp_only``): (a) the ring
+encode at sp 2, then (b) and (c) on mixtral-8x7b int4 at ep 2 and the
+sp 2 x ep 2 server. Its times measure gloo's transport through the host
+on one card, not sequence or expert parallel speed.
 """
 
 from __future__ import annotations
@@ -7046,7 +7076,7 @@ MOE_TREE_BYTES = (24.0e9, 26.0e9)
 # unforced plain run gives the share of choices that differ.
 
 
-def moe_tree(model) -> tuple:
+def moe_tree(model, phase: str = "4o") -> tuple:
     """4o(a): the int4 tree drawn and quantized on the card a slice at a
     time; its bytes by part and the peak allocated while drawing."""
     gen = torch.Generator(device=DEV)
@@ -7074,12 +7104,12 @@ def moe_tree(model) -> tuple:
     }
     total = sum(t.numel() * t.element_size() for t in _leaves(params))
     split["router_and_norms"] = total - sum(split.values())
-    log(f"[phase 4o] {MOE_MODEL} int4 on {DEV} in {secs:.1f}s: "
+    log(f"[phase {phase}] {MOE_MODEL} int4 on {DEV} in {secs:.1f}s: "
         f"{total / 1e9:.3f} GB resident ("
         + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in split.items())
         + f"); peak allocated while drawing {peak / 1e9:.2f} GB")
     check(MOE_TREE_BYTES[0] < total < MOE_TREE_BYTES[1],
-          f"4o: the int4 tree holds {total} bytes")
+          f"{phase}: the int4 tree holds {total} bytes")
     return params, {**split, "total": total, "peak_while_drawing": peak,
                     "seconds": secs}
 
@@ -7756,26 +7786,28 @@ LLAMA_INT4_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336),
 DP_ROWS = 8  # the 4q(b) decode batch, split 4 and 4
 
 
-def pp_ranks(layout: dict) -> "Ranks":
-    """The ranks of ``layout`` on ``cuda:0``: this process and spawned
-    followers (which inherit ``PST_FUSED_KV_WRITE`` as it stands)."""
-    ranks = start_ranks(EngineConfig(model=MODEL, **layout))
+def pp_ranks(layout: dict, phase: str = "4q", model=None) -> "Ranks":
+    """The ranks of ``layout`` (of ``model``, default ``MODEL``) on
+    ``cuda:0``: this process and spawned followers (which inherit
+    ``PST_FUSED_KV_WRITE`` as it stands)."""
+    ranks = start_ranks(EngineConfig(model=model or MODEL, **layout))
     n = ranks.ctx.world_size
     check(set(ranks.ctx.backends.values()) == {"gloo"}
           and ranks.ctx.devices == ["0/cuda:0"] * n,
-          f"4q: ranks {ranks.ctx.devices}, device groups "
+          f"{phase}: ranks {ranks.ctx.devices}, device groups "
           f"{ranks.ctx.backends}: expected gloo on one card")
-    log(f"  4q ranks {layout}: control group gloo, device groups "
+    log(f"  {phase} ranks {layout}: control group gloo, device groups "
         f"{ranks.ctx.backends}, devices {ranks.ctx.devices}, follower pids "
         f"{ranks.pids}")
     return ranks
 
 
 def traffic_since(before: dict, after: dict) -> dict:
-    """A rank report's hand-off and dp-exchange traffic in a phase."""
+    """A rank report's traffic of each kind (the pp hand-off, the dp
+    exchange, the sp ring, the ep combine) in a phase."""
     return {kind: {k: after["traffic"][kind][k] - before["traffic"][kind][k]
                    for k in ("calls", "bytes", "seconds")}
-            for kind in ("handoff", "dp_share")}
+            for kind in after["traffic"]}
 
 
 def pp_model(ranks, model, params) -> dict:
@@ -8130,6 +8162,445 @@ def pp_only(card: str) -> None:
     model, params = build_model()
     print(json.dumps({"pp_4q": phase_pp(card, model, params)}, default=str),
           flush=True)
+
+# Phase 4r: sequence and expert parallelism on one card. Every rank shares
+# cuda:0 over gloo, as 4p's and 4q's do: the ring's blocks go through the
+# host (gloo's point-to-point calls take host tensors), so its times are
+# gloo's transport, not sequence or expert parallel speed.
+SP_LABEL = "gloo on one card"
+SP_LAYOUT = dict(sequence_parallel_size=2)
+EP_LAYOUT = dict(expert_parallel_size=2)
+GRID_SP_EP = dict(sequence_parallel_size=2, expert_parallel_size=2)
+SP_BUCKETS = (512, 4096)
+# mixtral-8x7b's expert projections (din, dout): w_gate and w_up, w_down.
+MOE_EXPERT_SHAPES = ((4096, 14336), (14336, 4096))
+
+
+def sp_encode(ranks, model, params, quant, card: str) -> dict:
+    """4r(a), one tree: ``Llama.encode`` of the script's whole tree at one
+    rank against an sp-2 runner on ``ranks`` (each rank draws the tree
+    from seed 0, its own rows of every encode), at T = 512 and 4096: the
+    vectors under ``encode_agree`` (4n's rule), each rank's encode peak
+    above what it found allocated, the ring's calls, bytes and seconds;
+    in int4 each rank's ``int4_wgmma_kernel`` launches at N = T/2 and that
+    kernel at N = T/2 held against its plain version on Llama's four
+    shapes."""
+    cfg, L = model.cfg, model.cfg.num_layers
+    tag = quant or cfg.dtype
+    ecfg = EngineConfig(model=MODEL, **SP_LAYOUT, quantization=quant,
+                        num_kv_blocks=16, block_size=BS,
+                        max_model_len=max(SP_BUCKETS), max_num_seqs=2,
+                        max_prefill_tokens=512)
+    t0 = time.perf_counter()
+    runner = ranks.build_runner(ecfg)
+    t_build = time.perf_counter() - t0
+    out = {"runner_built_s": t_build}
+    try:
+        for T in SP_BUCKETS:
+            toks = encode_tokens(cfg, T, T)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            ref = model.encode(params, toks, torch.tensor([T], device=DEV))[0]
+            torch.cuda.synchronize()
+            one_ms = (time.perf_counter() - t0) * 1e3
+            one_peak = torch.cuda.max_memory_allocated() - base
+            before = runner.rank_reports()
+            t0 = time.perf_counter()
+            vec = runner.encode(toks[0].tolist())
+            sp_ms = (time.perf_counter() - t0) * 1e3
+            after = runner.rank_reports()
+            got = torch.from_numpy(vec).to(DEV)
+            row = {"T": T, "sp_ms_gloo_one_card": sp_ms, "one_rank_ms": one_ms,
+                   "one_rank_peak_bytes": one_peak,
+                   **encode_agree(got, ref, f"4r(a) {tag} T={T}")}
+            want_bytes = L * 2 * (T // 2) * cfg.kv_size * cfg.torch_dtype.itemsize
+            want = ({"int4": 7 * L, "int4_wgmma": 7 * L} if quant else {})
+            ranks_out = []
+            for b, a in zip(before, after):
+                d = {k: n - b["launches"].get(k, 0)
+                     for k, n in a["launches"].items()
+                     if n != b["launches"].get(k, 0)}
+                ring = traffic_since(b, a)["sp_ring"]
+                check(ring["calls"] == L and ring["bytes"] == want_bytes,
+                      f"4r(a) {tag} T={T} rank {a['rank']}: ring {ring}, "
+                      f"expected {L} hops of {want_bytes // L} bytes")
+                check({k: d.get(k, 0) for k in ("int4", "int4_wgmma",
+                                                 "int4_decode")}
+                      == {"int4": 0, "int4_wgmma": 0, "int4_decode": 0,
+                          **want},
+                      f"4r(a) {tag} T={T} rank {a['rank']}: launches {d}, "
+                      f"expected {want}")
+                ranks_out.append({"rank": a["rank"], "coords": a["coords"],
+                                  "launches": d, "ring": ring,
+                                  "encode_peak_bytes": a["encode_peak_bytes"]})
+                log(f"  4r(a) {tag} T={T} rank {a['rank']} (sp "
+                    f"{a['coords']['sp']}, {T // 2} rows): ring {ring['calls']} "
+                    f"hops, {ring['bytes'] / 2**20:.3f} MiB sent, "
+                    f"{ring['seconds'] * 1e3:.1f} ms in the calls "
+                    f"({SP_LABEL}); encode peak "
+                    f"{a['encode_peak_bytes'] / 2**20:.1f} MiB above what it "
+                    f"found; launches {d}")
+            row["ranks"] = ranks_out
+            log(f"  4r(a) {tag} T={T}: sp 2 against one rank "
+                f"max|diff| {row['max_abs_err']:.3e} of max "
+                f"{row['max_abs']:.3e} ({row['agree_rule_ratio']:.2f} x "
+                f"_agree's rule); sp-2 encode {sp_ms:.1f} ms ({SP_LABEL}), "
+                f"one rank {one_ms:.1f} ms, peak {one_peak / 2**20:.1f} MiB "
+                f"above its weights; {card}")
+            out[f"t{T}"] = row
+    finally:
+        ranks.publisher.shutdown()
+    if quant:
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(5)
+        shapes = []
+        for din, dout in LLAMA_INT4_SHAPES:
+            packed, scales = int4_weights(gen, din, dout)
+            for T in SP_BUCKETS:
+                x = torch.randn((T // 2, din), generator=gen, device=DEV,
+                                dtype=torch.bfloat16)
+                err, ratio = int4_check(
+                    x, packed, scales, f"4r int4 {din}x{dout} N={T // 2}",
+                    "wgmma")
+                shapes.append({"din": din, "dout": dout, "N": T // 2,
+                               "route": "wgmma", "max_abs_err": err,
+                               "err_over_row_tol": ratio})
+                log(f"  4r(a) int4 {din}x{dout} N={T // 2}: wgmma route, "
+                    f"against the plain version: worst err / row tol "
+                    f"{ratio:.2e}")
+        out["int4_shapes"] = shapes
+    return out
+
+
+def phase_sp(card: str, model, params) -> dict:
+    """Phase 4r(a) on one card: the ring encode at sp 2 (two ranks sharing
+    ``cuda:0`` over gloo), Llama-3-8B from seed 0 in bf16 (against
+    ``params``) and in int4 (a tree drawn here)."""
+    log(f"[phase 4r(a)] the ring encode at sp 2 on one card ({card}); both "
+        "ranks share it over gloo, the ring's blocks staged through the "
+        "host, so its times are gloo's transport, and the NCCL path (a "
+        "card a rank) is not run")
+    out = {"card": card, "nccl": "not run"}
+    t0 = time.perf_counter()
+    ranks = pp_ranks(SP_LAYOUT, "4r(a)")
+    try:
+        out["bf16"] = sp_encode(ranks, model, params, None, card)
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(0)
+        q_params = model.init_params(gen, DEV, quantization="int4")
+        out["int4"] = sp_encode(ranks, model, q_params, "int4", card)
+        del q_params
+    finally:
+        ranks.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 4r(a)] passed in {out['seconds']:.1f}s")
+    return out
+
+
+def ep_model(model, params, card: str) -> dict:
+    """4r(b): mixtral-8x7b int4 at ep 2 (two ranks sharing ``cuda:0`` over
+    gloo, each drawing its 4 experts of seed 0) against the script's whole
+    int4 tree at one rank, through the 512-token prompt and 8
+    teacher-forced decode steps: the logits under ``agree`` against the
+    one-rank run that takes rank 0's expert choices, through the kernels
+    and through their plain versions (``int4_matmul_plain``, the plain
+    attention), the share of choices
+    an unforced one-rank run makes otherwise, each rank's launches (16
+    int4 launches a layer: 4 attention, 3 x 4 experts), its peak memory
+    and the combine's all-reduce traffic, both ranks' caches equal bit
+    for bit on every written page; the int4 kernel at the expert shapes
+    against its plain version."""
+    cfg = model.cfg
+    L = cfg.num_layers
+    n_exp = cfg.num_experts // EP_LAYOUT["expert_parallel_size"]
+    prompt, decode_tokens = model_prompt(cfg)
+    n = len(decode_tokens)
+    nb = -(-(len(prompt) + n) // BS) + 1
+    batches = tp_batches(prompt, decode_tokens, nb)
+    pages = sorted({int(b) for b in batches[0]["block_tables"][0][
+        :-(-(len(prompt) + n) // BS)]})
+    ranks = pp_ranks(EP_LAYOUT, "4r(b)", MOE_MODEL)
+    try:
+        t0 = time.perf_counter()
+        runner = ranks.build_runner(EngineConfig(
+            model=MOE_MODEL, **EP_LAYOUT, quantization="int4",
+            num_kv_blocks=nb, block_size=BS, max_model_len=1024,
+            max_num_seqs=2, max_prefill_tokens=len(prompt)))
+        t_build = time.perf_counter() - t0
+        try:
+            check(runner.moe_impl == "dense"
+                  and runner.params["layers"]["w_gate"].shape[1] == n_exp,
+                  f"4r(b): form {runner.moe_impl}, banks of "
+                  f"{runner.params['layers']['w_gate'].shape[1]} experts")
+            before = runner.rank_reports()
+            ep_routes, rows, times = [], [], []
+            with recorded_routes(ep_routes):
+                for batch in batches:
+                    t0 = time.perf_counter()
+                    rows.append(runner.forward_logits(batch)[0])
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+            after = runner.rank_reports()
+            parts = runner.page_replicas(pages)
+        finally:
+            ranks.publisher.shutdown()
+    finally:
+        ranks.close()
+    got = torch.stack(rows)
+    per_layer = 4 + 3 * n_exp
+    want = {"prefill": L, "decode": L * n, "int4": per_layer * L * (1 + n),
+            "int4_wgmma": per_layer * L, "int4_decode": per_layer * L * n}
+    per_rank = tp_rank_rows("(b) mixtral int4 ep 2", before, after, want,
+                            "4r")
+    for row, b, a in zip(per_rank, before, after):
+        t = traffic_since(b, a)["ep_reduce"]
+        row["ep_reduce"] = t
+        check(t["calls"] == L * (1 + n),
+              f"4r(b) rank {a['rank']}: {t['calls']} combines, expected "
+              f"{L * (1 + n)}")
+        log(f"  4r(b) rank {row['rank']} (ep {a['coords']['ep']}): the "
+            f"combine's all-reduce {t['calls']} calls, "
+            f"{t['bytes'] / 2**20:.3f} MiB, {t['seconds'] * 1e3:.1f} ms in "
+            f"the calls ({SP_LABEL})")
+    check(torch.equal(parts[0], parts[1]),
+          f"4r(b): the ep ranks' caches differ on "
+          f"{int((parts[0] != parts[1]).any(-1).sum())} rows of "
+          f"{len(pages)} written pages")
+    free_routes, forced_routes = [], []
+    with recorded_routes(free_routes):
+        free, _ = drive_model(model, params, "cuda", prompt, decode_tokens)
+    with recorded_routes(forced_routes, forced=ep_routes):
+        ref, _ = drive_model(model, params, "cuda", prompt, decode_tokens)
+    summary = agree(got, ref, "4r(b) ep 2")
+    with plain_int4(), recorded_routes([], forced=ep_routes):
+        plain, _ = drive_model(model, params, "plain", prompt, decode_tokens)
+    plain_summary = agree(got, plain, "4r(b) ep 2 against the plain versions")
+    flips = route_flips(ep_routes, free_routes, L)
+    free_err = float((got - free).abs().max())
+    bits = bool(torch.equal(got, free))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    shapes = []
+    for din, dout in MOE_EXPERT_SHAPES:
+        packed, scales = int4_weights(gen, din, dout)
+        for N, route in ((2, "decode"), (len(prompt), "wgmma")):
+            x = torch.randn((N, din), generator=gen, device=DEV,
+                            dtype=torch.bfloat16)
+            err, ratio = int4_check(x, packed, scales,
+                                    f"4r int4 expert {din}x{dout} N={N}",
+                                    route)
+            shapes.append({"din": din, "dout": dout, "N": N, "route": route,
+                           "max_abs_err": err, "err_over_row_tol": ratio})
+            log(f"  4r(b) int4 expert {din}x{dout} N={N}: {route} route, "
+                f"against the plain version: worst err / row tol "
+                f"{ratio:.2e}")
+    decode_ms = statistics.median(times[1:]) * 1e3
+    log(f"  4r(b): ep 2 against one rank on the same expert choices, "
+        f"512-token prefill + {n} decode steps: {summary}; against the "
+        f"kernels' plain versions at one rank on the same choices: "
+        f"{plain_summary}; unforced, one "
+        f"rank chose other experts for {flips['flipped']} of "
+        f"{flips['choices']} (token, layer) choices ({flips['share']:.4%}), "
+        f"its logits max|diff| {free_err:.4f} (bit-equal: {bits}); the "
+        f"ep ranks' caches equal on {len(pages)} written pages; runner "
+        f"built in {t_build:.1f}s; step times ({SP_LABEL}): prefill "
+        f"{times[0] * 1e3:.1f} ms, decode median {decode_ms:.1f} ms ({card})")
+    return {"agree": summary, "agree_plain": plain_summary, "flips": flips,
+            "unforced_max_abs_err": free_err,
+            "bit_equal_unforced": bits, "ranks": per_rank,
+            "int4_shapes": shapes, "pages_equal": len(pages),
+            "runner_built_s": t_build,
+            "prefill_ms_gloo_one_card": times[0] * 1e3,
+            "decode_ms_gloo_one_card": decode_ms}
+
+
+def sp_ep_server(card: str, one: dict) -> dict:
+    """4r(c): ``python -m production_stack_tpu_torch.engine.server --model
+    mixtral-8x7b --quantization int4 --sequence-parallel-size 2
+    --expert-parallel-size 2`` (four ranks) through its ``main``: greedy,
+    streamed and seeded sampled completions, ``/v1/embeddings``,
+    ``/metrics``, ``/debug/state``'s ranks; SIGTERM stops every rank,
+    whose reports agree. Its greedy tokens and an embedding against the
+    one-rank int4 server's in ``one`` (the same seed)."""
+    port = free_port()
+    env = {k: v for k, v in os.environ.items() if k != "PST_FUSED_KV_WRITE"}
+    log_path = os.path.join(tempfile.mkdtemp(), "sp_ep_server.log")
+    argv = [sys.executable, "-m", "production_stack_tpu_torch.engine.server",
+            "--model", MOE_MODEL, "--quantization", "int4",
+            "--sequence-parallel-size", "2", "--expert-parallel-size", "2",
+            "--host", "127.0.0.1", "--port", str(port),
+            "--max-model-len", "2048", "--max-num-seqs", "8"]
+    n_tok, world = 16, 4
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(argv, cwd=os.path.dirname(
+            os.path.abspath(__file__)), stdout=logf, stderr=subprocess.STDOUT,
+            env=env)
+    pids = [proc.pid]
+    try:
+        while True:
+            check(proc.poll() is None and time.perf_counter() - t0 < 300,
+                  f"4r server did not come up: {open(log_path).read()[-3000:]}")
+            try:
+                if _call(port, "GET", "/ready", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+        t_up = time.perf_counter() - t0
+        pids += _tp_children(proc.pid)
+        check(len(pids) >= world, f"4r server: pids {pids}")
+        t0 = time.perf_counter()
+        grid = tp_greedy(port, one["prompts"], n_tok)
+        t_greedy = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        usage = _stream(port, {"prompt": one["prompts"][0], "max_tokens": 32,
+                               "temperature": 0.0, "ignore_eos": True}, 32)
+        t_stream = time.perf_counter() - t0
+        sampled = {"prompt": one["prompts"][1], "max_tokens": n_tok,
+                   "temperature": 0.8, "seed": 11, "ignore_eos": True}
+        a = _completion(port, sampled, n_tok)
+        b = _completion(port, sampled, n_tok)
+        check(a["choices"] == b["choices"], "4r seeded sampling differs")
+        t0 = time.perf_counter()
+        status, body = _embed(port, one["embed_ids"], MOE_MODEL)
+        t_embed = time.perf_counter() - t0
+        check(status == 200, f"4r /v1/embeddings: {status} {body}")
+        vec = torch.tensor(body["data"][0]["embedding"], device=DEV)
+        embed = encode_agree(vec, one["embedding"], "4r(c) embedding")
+        status, text, _ = _call(port, "GET", "/metrics")
+        check(status == 200 and "pst" in text, f"4r /metrics: {status}")
+        status, state, _ = _call(port, "GET", "/debug/state")
+        layout = [(r["rank"], r["sp"], r["ep"], r["device"])
+                  for r in state["ranks"]]
+        check(layout == [(r, r // 2, r % 2, "0/cuda:0") for r in range(world)]
+              and all(r["dp"] == r["pp"] == r["tp"] == 0
+                      for r in state["ranks"]),
+              f"4r /debug/state ranks: {state['ranks']}")
+        check(state["stats"]["sequence_parallel_size"] == 2
+              and state["stats"]["expert_parallel_size"] == 2,
+              f"4r /debug/state: {state['stats']}")
+        log(f"  4r(c) /debug/state ranks (rank, sp, ep, device): {layout}")
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    deadline = time.perf_counter() + 30
+    while not all(_tp_gone(p) for p in pids) and time.perf_counter() < deadline:
+        time.sleep(0.2)
+    left = [p for p in pids if not _tp_gone(p)]
+    check(not left, f"4r: rank pids {left} still alive after SIGTERM")
+    with open(log_path) as f:
+        out = f.read()
+    reports = sorted((json.loads(m) for m in TP_REPORT.findall(out)),
+                     key=lambda r: r["rank"])
+    check([r["rank"] for r in reports] == list(range(world)),
+          f"4r server: rank reports {reports}; log tail {out[-3000:]}")
+    check(len({r["num_blocks"] for r in reports}) == 1
+          and len({r["rows_digest"] for r in reports}) == 1,
+          f"4r server: ranks disagree: {reports}")
+    for r in reports:
+        check(r["launches"].get("prefill", 0) > 0
+              and r["launches"].get("decode", 0) > 0
+              and r["launches"].get("int4", 0) > 0
+              and r["traffic"]["sp_ring"]["calls"] > 0
+              and r["traffic"]["ep_reduce"]["calls"] > 0,
+              f"4r server: rank {r['rank']} launched {r['launches']}, "
+              f"traffic {r['traffic']}")
+        log(f"  4r(c) rank {r['rank']} {r['coords']} on {r['device']} "
+            f"({r['backends']}): graphs {r['graph_counts']}, launches "
+            f"{r['launches']}, peak memory "
+            f"{r['peak_memory_bytes'] / 1e9:.2f} GB, traffic {r['traffic']}")
+    agreed = 0
+    for x, y in zip(grid, one["greedy"]):
+        for lx, ly in zip(x, y):
+            if abs(lx - ly) > 0.05 * max(1.0, abs(ly)):
+                break
+            agreed += 1
+    same = grid == one["greedy"]
+    log(f"  4r(c) server up in {t_up:.1f}s; {reports[0]['num_blocks']} KV "
+        f"blocks agreed; {len(grid)} greedy x {n_tok} tokens in "
+        f"{t_greedy:.2f}s, a 32-token stream in {t_stream:.2f}s, an "
+        f"embedding of {len(one['embed_ids'])} tokens in {t_embed:.2f}s "
+        f"({SP_LABEL}; usage {usage}); stopped by SIGTERM, {len(pids)} pids "
+        f"gone; greedy tokens agreeing with the one-rank server (by chosen "
+        f"logprob, up to the first parting): {agreed} of {len(grid) * n_tok} "
+        f"(logprobs equal: {same}); embedding max|diff| "
+        f"{embed['max_abs_err']:.3e} ({card})")
+    return {"num_blocks": reports[0]["num_blocks"], "ranks": reports,
+            "up_s": t_up, "greedy_s_gloo_one_card": t_greedy,
+            "stream32_s_gloo_one_card": t_stream,
+            "embed_s_gloo_one_card": t_embed, "embedding": embed,
+            "agreed_with_one_rank": agreed, "logprobs_equal": same,
+            "tokens": len(grid) * n_tok}
+
+
+def one_rank_moe_server(params) -> dict:
+    """The one-rank int4 mixtral server on ``params`` (4r(c)'s reference):
+    its greedy logprobs on 3 prompts and an embedding."""
+    cfg = get_model_config(MOE_MODEL)
+    prompts = [model_prompt(cfg, 48 + 16 * i)[0] for i in range(3)]
+    embed_ids = model_prompt(cfg, 300)[0]
+    engine = AsyncLLMEngine(EngineConfig(model=MOE_MODEL, quantization="int4",
+                                         num_kv_blocks=512,
+                                         max_model_len=2048, max_num_seqs=8),
+                            params=params)
+    server, thread = serve_in_thread(engine)
+    try:
+        port = server.server_address[1]
+        greedy = tp_greedy(port, prompts, 16)
+        status, body = _embed(port, embed_ids, MOE_MODEL)
+        check(status == 200, f"4r one-rank /v1/embeddings: {status} {body}")
+    finally:
+        server.shutdown()
+        engine.shutdown()
+    return {"prompts": prompts, "greedy": greedy, "embed_ids": embed_ids,
+            "embedding": torch.tensor(body["data"][0]["embedding"],
+                                      device=DEV)}
+
+
+def phase_ep(card: str) -> dict:
+    """Phase 4r(b) and (c) on one card: expert parallelism at ep 2, then
+    the sp 2 x ep 2 server; every rank shares ``cuda:0`` over gloo. The
+    caller has freed the other models."""
+    log(f"[phase 4r(b, c)] expert parallelism and the sp 2 x ep 2 server on "
+        f"one card ({card}); every rank shares it over gloo, so step times "
+        "are gloo's transport, and the NCCL path is not run")
+    t0 = time.perf_counter()
+    os.environ.pop("PST_FUSED_KV_WRITE", None)
+    model = Llama(get_model_config(MOE_MODEL))
+    params, tree = moe_tree(model, "4r(b)")
+    out = {"tree_bytes": tree["total"], "tree_s": tree["seconds"],
+           "model_4r_b": ep_model(model, params, card)}
+    log(f"  4r(b) done at {time.perf_counter() - t0:.1f}s")
+    one = one_rank_moe_server(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["server_4r_c"] = sp_ep_server(card, one)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[phase 4r(b, c)] passed in {out['seconds']:.1f}s")
+    return out
+
+
+def sp_only(card: str) -> None:
+    """``python3 chip_smoke.py sp``: phase 4r alone."""
+    model, params = build_model()
+    out = {"sp_4r_a": phase_sp(card, model, params)}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ep_4r_bc"] = phase_ep(card)
+    print(json.dumps({"sp_ep_4r": out}, default=str), flush=True)
 
 
 SPIN_CYCLES = 100_000_000
@@ -8662,9 +9133,9 @@ def _row(kind, ms, plain_ms, lib_ms, nbytes, flops, peak, per_step, launches,
     return row
 
 
-# A hang anywhere prints every thread's stack and fails the run before
-# the 1200 s the run is given.
-WATCHDOG_S = 1140
+# A hang anywhere prints every thread's stack and fails the run 30 s
+# before the 1200 s the run is given: time enough to print them.
+WATCHDOG_S = 1170
 
 
 def lora_only(card: str) -> None:
@@ -8714,9 +9185,10 @@ def main() -> None:
     t_start = time.perf_counter()
     os.environ.pop("PST_FUSED_KV_WRITE", None)  # bf16 phases: unfused path
     if sys.argv[1:] not in ([], ["drift"], ["rounds"], ["engagement"],
-                            ["lora"], ["encode"], ["moe"], ["tp"], ["pp"]):
+                            ["lora"], ["encode"], ["moe"], ["tp"], ["pp"],
+                            ["sp"]):
         sys.exit("usage: python3 chip_smoke.py "
-                 "[drift|rounds|engagement|lora|encode|moe|tp|pp]")
+                 "[drift|rounds|engagement|lora|encode|moe|tp|pp|sp]")
     card = phase_toolchain()
     if sys.argv[1:] == ["drift"]:
         drift()
@@ -8742,6 +9214,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["pp"]:
         pp_only(card)
+        return
+    if sys.argv[1:] == ["sp"]:
+        sp_only(card)
         return
     log("[phase 2] kernels vs plain versions")
     for cache_dtype in (torch.bfloat16, E4M3):
@@ -8848,6 +9323,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     tp = phase_tp(card, model, params)  # tensor parallelism, on one card
     pp = phase_pp(card, model, params)  # pipeline and data, on one card
+    sp = {"sp_4r_a": phase_sp(card, model, params)}  # the ring encode
     del params
     gc.collect()  # the engine's KV cache and the bf16 tree, cycles included
     torch.cuda.empty_cache()
@@ -8890,6 +9366,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     moe = phase_moe(card)  # every Llama-3-8B tree and cache freed
+    sp["ep_4r_bc"] = phase_ep(card)  # experts over ep, the sp x ep server
     checkpoint = phase_checkpoint(card)
     phase_qwen2()
     tiny = phase_tiny_engines()
@@ -8956,7 +9433,7 @@ def main() -> None:
         "verify_splits_2s": verify_splits, "verify_gap_tol_3s": gap_tol,
         "spec_serving_4s": spec_serving, "engagement_4k": engagement,
         "chart_serving_4l": chart, "lora_4m": lora, "encode_4n": encode,
-        "moe_4o": moe, "tp_4p": tp, "pp_4q": pp,
+        "moe_4o": moe, "tp_4p": tp, "pp_4q": pp, "sp_ep_4r": sp,
     }}, default=str), flush=True)
     print(json.dumps({"kernels": rows, "steps": steps, "int4_crossover": crossover}),
           flush=True)

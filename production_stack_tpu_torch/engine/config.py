@@ -4,12 +4,11 @@ The fields of the JAX package's ``EngineConfig`` that this slice reads,
 plus ``device``. Every engine runs on the
 GPU (``device="cuda"``) unless the caller asks for the CPU.
 
-Of the JAX package's five parallel sizes the tensor, pipeline and data
-sizes may exceed 1 (``dp x pp x tp`` ranks, one process each,
-``engine/multihost.py``); a sequence or expert size above 1 is refused
-here, at start (ROADMAP.md queue 1, items 15.iii and 15.iv).
-:func:`check_parallel` holds the model to the tensor-parallel split and
-its layers to the pipeline's stages, as the JAX runner does at start.
+Each of the JAX package's five parallel sizes may exceed 1 (``dp x pp x
+sp x ep x tp`` ranks, one process each, ``engine/multihost.py``).
+:func:`check_parallel` holds the model to the tensor-parallel split, its
+layers to the pipeline's stages and its experts to the expert ranks, and
+refuses a ring encode over a pipeline, as the JAX runner does at start.
 """
 
 from __future__ import annotations
@@ -19,7 +18,14 @@ from typing import Optional
 
 import torch
 
-from ..models.llama import MOE_IMPLS, LlamaConfig, check_pp, check_tp
+from ..models.llama import (
+    MOE_IMPLS,
+    LlamaConfig,
+    check_ep,
+    check_pp,
+    check_sp,
+    check_tp,
+)
 
 
 @dataclasses.dataclass
@@ -33,11 +39,12 @@ class EngineConfig:
     hbm_utilization: float = 0.9  # --gpu-memory-utilization
     max_num_seqs: int = 64
     max_prefill_tokens: int = 2048
-    # Parallelism, one process a rank over dp x pp x tp: tensor ranks
-    # hold a Megatron shard of the weights and their kv heads of the
-    # cache; pipeline ranks a stage of the layers; data ranks a replica
-    # each, a batch's rows split among them. Sequence and expert sizes
-    # are refused above 1 (ROADMAP.md queue 1, items 15.iii and 15.iv).
+    # Parallelism, one process a rank over dp x pp x sp x ep x tp: tensor
+    # ranks hold a Megatron shard of the weights and their kv heads of
+    # the cache; pipeline ranks a stage of the layers; data ranks a
+    # replica each, a batch's rows split among them; sequence ranks an
+    # encode's rows each (the ring); expert ranks E/ep experts of every
+    # bank. Sequence and expert ranks replicate every other step.
     tensor_parallel_size: int = 1
     data_parallel_size: int = 1
     pipeline_parallel_size: int = 1
@@ -179,24 +186,18 @@ class EngineConfig:
         if self.moe_impl not in MOE_IMPLS:
             raise ValueError(f"unknown moe_impl {self.moe_impl!r} "
                              f"({'|'.join(MOE_IMPLS)})")
-        for axis in ("tensor", "pipeline", "data"):
+        for axis in ("tensor", "pipeline", "data", "sequence", "expert"):
             size = getattr(self, f"{axis}_parallel_size")
             if size < 1:
                 raise ValueError(f"{axis}_parallel_size must be >= 1, got "
                                  f"{size}")
-        for axis, item in UNSERVED_AXES.items():
-            size = getattr(self, f"{axis}_parallel_size")
-            if size != 1:
-                raise ValueError(
-                    f"{axis}_parallel_size={size}: the PyTorch engine "
-                    "serves the tensor, pipeline and data axes (the "
-                    f"{axis} axis is queue 1, item {item} of ROADMAP.md); "
-                    "pass 1")
 
     @property
     def num_ranks(self) -> int:
-        """The engine's ranks, one process each: ``dp x pp x tp``."""
+        """The engine's ranks, one process each: ``dp x pp x sp x ep x
+        tp``."""
         return (self.data_parallel_size * self.pipeline_parallel_size
+                * self.sequence_parallel_size * self.expert_parallel_size
                 * self.tensor_parallel_size)
 
     @property
@@ -205,9 +206,6 @@ class EngineConfig:
         kernels, the port's ``cuda``."""
         return ATTN_IMPLS[self.attn_impl]
 
-
-# The parallel axes the port refuses above 1, with their ROADMAP.md item.
-UNSERVED_AXES = {"sequence": "15.iii", "expert": "15.iv"}
 
 # The JAX engine's attention impls and the port's name for each.
 ATTN_IMPLS = {"auto": "auto", "gather": "gather", "pallas": "cuda"}
@@ -240,10 +238,15 @@ def resolve_device(name: str) -> torch.device:
 def check_parallel(cfg: EngineConfig, model_cfg: LlamaConfig) -> None:
     """The JAX runner's start-time checks of the parallel layout: raise
     ``ValueError`` unless the model splits over ``tensor_parallel_size``
-    ranks (whole heads and FFN slices, whole int4 groups a rank) and its
-    layers over ``pipeline_parallel_size`` stages."""
+    ranks (whole heads and FFN slices, whole int4 groups a rank), its
+    layers over ``pipeline_parallel_size`` stages and its experts over
+    ``expert_parallel_size`` ranks (a model with experts, ``num_experts %
+    ep == 0``), and unless a ring encode (``sequence_parallel_size`` > 1)
+    runs without a pipeline."""
     check_tp(model_cfg, cfg.tensor_parallel_size, cfg.quantization)
     check_pp(model_cfg, cfg.pipeline_parallel_size)
+    check_sp(cfg.sequence_parallel_size, cfg.pipeline_parallel_size)
+    check_ep(model_cfg, cfg.expert_parallel_size)
 
 
 def resolve_num_kv_blocks(
@@ -259,7 +262,9 @@ def resolve_num_kv_blocks(
     bytes/page = 2 (K+V) * L * bs * KH * hd * itemsize, the itemsize of
     the cache's element type (1 for e4m3); ``model_cfg`` is one rank's
     geometry (``rank_local_config``: its ``KH/tp`` kv heads and its
-    stage's ``L/pp`` layers)."""
+    stage's ``L/pp`` layers). The budget is taken after the rank's own
+    weights landed, so it holds what the rank holds: its stage of its
+    shard, and of an expert bank its ``E/ep`` experts."""
     if cfg.num_kv_blocks is not None:
         return cfg.num_kv_blocks
     itemsize = kv_cache_torch_dtype(cfg, model_cfg).itemsize

@@ -134,7 +134,7 @@ class LLMEngine:
                  ranks: Optional[Ranks] = None):
         """``params``: an existing parameter tree (e.g. converted from the
         JAX package's, see ``models/convert.py``); random init from
-        ``cfg.seed`` when None. ``ranks``: the ``dp x pp x tp`` ranks
+        ``cfg.seed`` when None. ``ranks``: the ``dp x pp x sp x ep x tp`` ranks
         (``engine/multihost.py``) to build on; with more than one rank
         (``cfg.num_ranks``) and none given the engine starts its own,
         and stops them at ``shutdown``."""
@@ -317,14 +317,13 @@ class LLMEngine:
 
 
     def rank_layout(self) -> List[Dict[str, Any]]:
-        """Each rank's ``rank``, ``dp``/``pp``/``tp`` coordinates and
-        device, by rank (none at one rank), from the grid and the device
-        map rank 0 holds: no collective."""
+        """Each rank's ``rank``, ``dp``/``pp``/``sp``/``ep``/``tp``
+        coordinates and device, by rank (none at one rank), from the grid
+        and the device map rank 0 holds: no collective."""
         if self.ranks is None:
             return []
         ctx = self.ranks.ctx
-        return [{"rank": r, "device": ctx.devices[r],
-                 **{a: ctx.grid.coords(r)[a] for a in ("dp", "pp", "tp")}}
+        return [{"rank": r, "device": ctx.devices[r], **ctx.grid.coords(r)}
                 for r in range(ctx.world_size)]
 
     @property
@@ -1097,10 +1096,10 @@ class LLMEngine:
                 "lora_retiring_slots": float(len(self._retiring_slots))}
                if self.lora_manager is not None else {}),
             **self._tier_stats(),
-            **({"tensor_parallel_size": float(self.cfg.tensor_parallel_size),
-                "pipeline_parallel_size": float(
-                    self.cfg.pipeline_parallel_size),
-                "data_parallel_size": float(self.cfg.data_parallel_size),
+            **({**{f"{axis}_parallel_size": float(
+                getattr(self.cfg, f"{axis}_parallel_size"))
+                for axis in ("tensor", "pipeline", "data", "sequence",
+                             "expert")},
                 "tp_device_backend": self.ranks.ctx.backend,
                 "tp_rank_devices": ",".join(self.ranks.ctx.devices)}
                if self.ranks is not None else {}),

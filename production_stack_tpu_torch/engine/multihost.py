@@ -15,10 +15,11 @@ with the same asymmetry:
   same collectives in the same order (a diverged order deadlocks them;
   the groups' timeout turns that into an error).
 
-An engine of ``dp x pp x tp`` ranks (``EngineConfig.num_ranks``) lays
-them out by the rank grid (``parallel/mesh.py``): every rank mirrors
+An engine of ``dp x pp x sp x ep x tp`` ranks (``EngineConfig.num_ranks``)
+lays them out by the rank grid (``parallel/mesh.py``): every rank mirrors
 every announced call, whatever its coordinates, and takes its own part
-of it (its stage's layers, its heads, its ``dp`` rows).
+of it (its stage's layers, its heads, its ``dp`` rows, its ``sp`` rows of
+an encode, its experts).
 
 Only step descriptions cross the control group: token ids, tables and
 sampling arrays, a page's bytes on upload, an adapter's matrices.
@@ -298,14 +299,16 @@ class Ranks:
 
 
 def mesh_config(cfg) -> MeshConfig:
-    """The engine's rank layout: its ``dp``, ``pp`` and ``tp`` sizes."""
+    """The engine's rank layout: its five parallel sizes."""
     return MeshConfig(data_parallel_size=cfg.data_parallel_size,
                       pipeline_parallel_size=cfg.pipeline_parallel_size,
+                      sequence_parallel_size=cfg.sequence_parallel_size,
+                      expert_parallel_size=cfg.expert_parallel_size,
                       tensor_parallel_size=cfg.tensor_parallel_size)
 
 
 def start_ranks(cfg, dist_cfg: Optional[DistributedConfig] = None) -> Ranks:
-    """Start this host's ranks of a ``dp x pp x tp`` engine
+    """Start this host's ranks of a ``dp x pp x sp x ep x tp`` engine
     (``cfg.num_ranks``) and join them: the first process of the host
     (this one) is its first rank, the others are spawned. On one host rank
     0 serves the rendezvous on a free local port; under the multi-host
@@ -319,7 +322,7 @@ def start_ranks(cfg, dist_cfg: Optional[DistributedConfig] = None) -> Ranks:
     world = cfg.num_ranks
     if world < 2:
         raise ValueError("start_ranks needs more than one rank (a "
-                         "tensor, pipeline or data parallel size above 1)")
+                         "parallel size above 1)")
     check_parallel(cfg, get_model_config(cfg.model))  # before any process
     mesh = mesh_config(cfg)
     grid = RankGrid(mesh)
@@ -357,8 +360,8 @@ def start_ranks(cfg, dist_cfg: Optional[DistributedConfig] = None) -> Ranks:
         if threads is not None:
             torch.set_num_threads(threads)
         raise
-    logger.info("ranks: dp %d x pp %d x tp %d = %d (%d on this host, pids "
-                "%s), device groups %s", mesh.data_parallel_size,
-                mesh.pipeline_parallel_size, mesh.tensor_parallel_size,
-                world, local, [p.pid for p in procs], ctx.backends)
+    logger.info("ranks: dp %d x pp %d x sp %d x ep %d x tp %d = %d (%d on "
+                "this host, pids %s), device groups %s",
+                *mesh.sizes(), world, local, [p.pid for p in procs],
+                ctx.backends)
     return Ranks(ctx, procs, threads)

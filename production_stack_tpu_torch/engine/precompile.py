@@ -142,9 +142,10 @@ def prefill_shape_buckets(cfg: EngineConfig) -> List[tuple]:
 
 def encode_buckets(cfg: EngineConfig) -> List[int]:
     """Mirror of ``ModelRunner.encode``: every pow2 length up to
-    ``max_model_len``'s (the JAX ``encode_buckets`` at one sequence
-    shard)."""
-    return _pow2_buckets(cfg.max_model_len)
+    ``max_model_len``'s, rounded up to a multiple of the ring encode's
+    ``sequence_parallel_size`` (the JAX ``encode_buckets``)."""
+    sp = cfg.sequence_parallel_size
+    return sorted({-(-p // sp) * sp for p in _pow2_buckets(cfg.max_model_len)})
 
 
 def burst_depths(cfg: EngineConfig) -> List[int]:
@@ -308,9 +309,10 @@ class Precompiler:
             )
         logger.info(
             "precompile: %d/%d buckets in %.1fs (mode=%s, tp=%d, dp=%d, "
-            "pp=%d)", compiled, total, seconds, self.mode,
+            "pp=%d, sp=%d, ep=%d)", compiled, total, seconds, self.mode,
             self.cfg.tensor_parallel_size, self.cfg.data_parallel_size,
-            self.cfg.pipeline_parallel_size,
+            self.cfg.pipeline_parallel_size, self.cfg.sequence_parallel_size,
+            self.cfg.expert_parallel_size,
         )
         return {
             "mode": self.mode,

@@ -95,6 +95,18 @@ rank, rank 0 too, returns every row. A pipelined burst's carry stays on
 the replica that holds its rows. The decode and verify row bucket has
 ``dp`` as its floor, as in JAX, so they always split.
 
+Sequence and expert parallelism (``sequence_parallel_size``,
+``expert_parallel_size``; the grid ``dp x pp x sp x ep x tp``): an ``sp``
+rank runs an encode on its ``T/sp`` rows, the attention over the ring of
+its ``sp`` group (``ops/ring_attention.py``; the encode's bucket is
+rounded up to a multiple of ``sp``, as in JAX), and every other step
+whole, as a replica. An ``ep`` rank holds its ``E/ep`` experts of every
+bank (``expert_params``; drawn or read an expert at a time) and the
+router whole; every forward and encode sums the experts' combine over
+its ``ep`` group. ``sp`` and ``ep`` replicas run the same arithmetic on
+the same rows, so their caches stay equal without an exchange; pages
+leave from the ``sp = ep = 0`` ranks.
+
 ``encode`` (``/v1/embeddings``) runs ``Llama.encode`` over one prompt
 padded into its pow2 bucket, eagerly on the stream the steps use: the
 async engine calls it on its step thread between two steps, never beside
@@ -133,6 +145,7 @@ from ..models.llama import (
     PARALLEL_TRAFFIC,
     Llama,
     LlamaConfig,
+    expert_params,
     load_hf_params,
     quant_mode,
     rank_local_config,
@@ -145,8 +158,15 @@ from ..models.llama import (
 from ..models.registry import get_model_config
 from ..obs.engine_telemetry import EngineTelemetry
 from ..ops import _build, int4_matmul, paged_attention_cuda
+from ..ops.ring_attention import ring_transport
 from ..parallel.distributed import HostBridge, RankContext
-from ..parallel.mesh import AXIS_DATA, AXIS_PIPELINE, AXIS_TENSOR
+from ..parallel.mesh import (
+    AXIS_DATA,
+    AXIS_EXPERT,
+    AXIS_PIPELINE,
+    AXIS_SEQUENCE,
+    AXIS_TENSOR,
+)
 from ..ops.sampling import (
     apply_allowed_mask,
     apply_logit_bias,
@@ -273,26 +293,33 @@ class ModelRunner:
         rank 0's ``StepPublisher``, which announces each device call to
         the followers (None on a follower, and at one rank). A given
         ``params`` is the whole tree: each rank keeps its stage of its
-        shard."""
+        shard (of its experts)."""
         t0 = time.perf_counter()
         self.cfg = cfg
         self.tp = cfg.tensor_parallel_size
         self.pp = cfg.pipeline_parallel_size
         self.dp = cfg.data_parallel_size
+        self.sp = cfg.sequence_parallel_size
+        self.ep = cfg.expert_parallel_size
         if (ranks.world_size if ranks else 1) != cfg.num_ranks:
             raise ValueError(
-                f"dp {self.dp} x pp {self.pp} x tp {self.tp} needs a rank "
-                f"context of {cfg.num_ranks} ranks")
+                f"dp {self.dp} x pp {self.pp} x sp {self.sp} x ep {self.ep} "
+                f"x tp {self.tp} needs a rank context of {cfg.num_ranks} "
+                "ranks")
         self.ranks = ranks
         self.rank = ranks.rank if ranks else 0
         coords = ranks.coords if ranks else {}
         self.tp_rank = coords.get(AXIS_TENSOR, 0)
         self.stage = coords.get(AXIS_PIPELINE, 0)
         self.dp_rank = coords.get(AXIS_DATA, 0)
+        self.sp_rank = coords.get(AXIS_SEQUENCE, 0)
+        self.ep_rank = coords.get(AXIS_EXPERT, 0)
         self.publisher = publisher
         self.tp_group = ranks.group(AXIS_TENSOR) if ranks else None
         self.pp_group = ranks.group(AXIS_PIPELINE) if ranks else None
         self.dp_group = ranks.group(AXIS_DATA) if ranks else None
+        self.sp_group = ranks.group(AXIS_SEQUENCE) if ranks else None
+        self.ep_group = ranks.group(AXIS_EXPERT) if ranks else None
         self._bridge = HostBridge(ranks) if ranks else None
         self.device = ranks.device if ranks else resolve_device(cfg.device)
         if cfg.model_attn_impl == "cuda" and self.device.type != "cuda":
@@ -301,23 +328,28 @@ class ModelRunner:
         self.model_cfg = model_cfg or get_model_config(cfg.model)
         check_parallel(cfg, self.model_cfg)
         self.model = Llama(self.model_cfg)
-        # This rank's heads, FFN slice and stage's layers: its cache pages
-        # and LoRA bank.
-        self.local_cfg = rank_local_config(self.model_cfg, self.tp, self.pp)
+        # This rank's heads, FFN slice, stage's layers and experts: its
+        # cache pages and LoRA bank (the forward's router keeps every
+        # expert: it runs ``self.model``).
+        self.local_cfg = rank_local_config(self.model_cfg, self.tp, self.pp,
+                                           self.ep)
         self._local_model = Llama(self.local_cfg)
         shard = (self.tp_rank, self.tp) if self.tp > 1 else None
         stage = (self.stage, self.pp) if self.pp > 1 else None
-        # The MoE name every forward and encode takes: "auto" is ragged,
-        # as the JAX runner resolves it on an unsharded mesh (the port
-        # serves one GPU).
-        self.moe_impl = "ragged" if cfg.moe_impl == "auto" else cfg.moe_impl
+        experts = (self.ep_rank, self.ep) if self.ep > 1 else None
+        # The MoE name every forward and encode takes: "auto" is ragged
+        # on one rank and dense on an ep, tp or pp split, as the JAX
+        # runner resolves it (both run ``_moe_mlp``'s one body).
+        split = self.ep > 1 or self.tp > 1 or self.pp > 1
+        self.moe_impl = (("dense" if split else "ragged")
+                         if cfg.moe_impl == "auto" else cfg.moe_impl)
         self.kv_dtype = kv_cache_torch_dtype(cfg, self.model_cfg)
         if params is None and os.path.isdir(cfg.model):
             # One stacked leaf at a time onto the device, quantized there.
             params = load_hf_params(self.model_cfg, cfg.model,
                                     quantize=cfg.quantization,
                                     device=self.device, shard=shard,
-                                    stage=stage)
+                                    stage=stage, experts=experts)
         elif params is None:
             # Quantized presets are drawn and quantized a layer's slice at a
             # time on the device: the bf16 tree never exists whole.
@@ -325,11 +357,14 @@ class ModelRunner:
             gen.manual_seed(cfg.seed)
             params = self.model.init_params(gen, self.device,
                                             quantization=cfg.quantization,
-                                            shard=shard, stage=stage)
+                                            shard=shard, stage=stage,
+                                            experts=experts)
         else:
             # A given tree is served as it is (a converted JAX
             # quantize_tree output is already quantized), cut to the
-            # rank's stage of its shard first.
+            # rank's stage of its shard of its experts first.
+            if experts:
+                params = expert_params(params, self.model_cfg, *experts)
             if stage:
                 params = stage_params(params, self.model_cfg, *stage)
             if shard:
@@ -382,6 +417,16 @@ class ModelRunner:
                 self.stage, self.pp, self.local_cfg.num_layers,
                 ranks.backends.get(AXIS_PIPELINE, "none"), self.dp_rank,
                 self.dp, ranks.backends.get(AXIS_DATA, "none"))
+            sp_backend = ranks.backends.get(AXIS_SEQUENCE)
+            logger.info(
+                "rank %d: sequence rank %d of %d, the ring encode's K/V "
+                "rotation %s over the sp group (%s); expert rank %d of %d "
+                "(%d experts), the combine by all-reduce over the ep group "
+                "(%s)", self.rank, self.sp_rank, self.sp,
+                ring_transport(sp_backend, self.device.type)
+                if sp_backend else "none", sp_backend or "none",
+                self.ep_rank, self.ep, self.local_cfg.num_experts,
+                ranks.backends.get(AXIS_EXPERT, "none"))
         self.max_table_width = -(-cfg.max_model_len // cfg.block_size)
         self.kv_cache = self._local_model.make_kv_cache(
             self.num_blocks, cfg.block_size, dtype=self.kv_dtype,
@@ -457,6 +502,10 @@ class ModelRunner:
         self._rows_digest = (torch.zeros((), dtype=torch.int64,
                                          device=self.device)
                              if ranks else None)
+        # The last encode's peak device memory above what it found
+        # allocated, and the process's peak before encodes reset it.
+        self.encode_peak_bytes = 0
+        self._peak_floor = 0
         self.telemetry.record_startup_phase(
             "shard", time.perf_counter() - t_load)
 
@@ -542,13 +591,13 @@ class ModelRunner:
 
     def rank_report(self) -> Dict[str, Any]:
         """This rank's coordinates, device, device groups' backends,
-        graph counts, kernel launch counts, peak device memory, KV blocks
-        and rows digest."""
+        graph counts, kernel launch counts, peak device memory (and the
+        last encode's, above what it found), KV blocks and rows
+        digest."""
         cuda = self.device.type == "cuda"
         return {
             "rank": self.rank,
-            "coords": {"dp": self.dp_rank, "pp": self.stage,
-                       "tp": self.tp_rank},
+            "coords": self.ranks.coords if self.ranks else {},
             "device": str(self.device),
             "backend": self.ranks.backend if self.ranks else None,
             "backends": dict(self.ranks.backends) if self.ranks else {},
@@ -563,8 +612,10 @@ class ModelRunner:
                 **{f"int4_{r}": n
                    for r, n in int4_matmul.route_counts.items()}}.items()
                 if n},
-            "peak_memory_bytes": (torch.cuda.max_memory_allocated(self.device)
-                                  if cuda else 0),
+            "peak_memory_bytes": (max(
+                self._peak_floor,
+                torch.cuda.max_memory_allocated(self.device)) if cuda else 0),
+            "encode_peak_bytes": self.encode_peak_bytes,
             "num_blocks": self.num_blocks,
             # This process's hand-offs and dp exchanges (eager calls).
             "traffic": {k: dict(v) for k, v in PARALLEL_TRAFFIC.items()},
@@ -891,6 +942,8 @@ class ModelRunner:
         if any(t < 0 or t >= V for t in ids):
             raise ValueError(f"token ids must lie in [0, {V})")
         T = _pow2(max(n, 1), cap=_pow2(self.cfg.max_model_len))
+        # The ring shards T over sp: the bucket rounded up to a multiple.
+        T = -(-T // self.sp) * self.sp
         toks = np.zeros((1, T), np.int32)
         toks[0, :n] = ids
         return toks, n
@@ -905,6 +958,13 @@ class ModelRunner:
 
     def _encode(self, toks: np.ndarray, length: int) -> np.ndarray:
         with self._mirror("encode", toks, length):
+            cuda = self.device.type == "cuda"
+            if cuda:  # the encode's own peak, above what it found
+                self._peak_floor = max(
+                    self._peak_floor,
+                    torch.cuda.max_memory_allocated(self.device))
+                base = torch.cuda.memory_allocated(self.device)
+                torch.cuda.reset_peak_memory_stats(self.device)
             tokens = torch.from_numpy(toks).to(self.device)
             lengths = torch.tensor([length], dtype=torch.int32,
                                    device=self.device)
@@ -912,7 +972,13 @@ class ModelRunner:
                                     moe_impl=self.moe_impl,
                                     tp_group=self.tp_group,
                                     pp_group=self.pp_group,
-                                    pp_stage=self.stage)
+                                    pp_stage=self.stage,
+                                    sp_group=self.sp_group,
+                                    sp_rank=self.sp_rank,
+                                    ep_group=self.ep_group)
+            if cuda:
+                self.encode_peak_bytes = (
+                    torch.cuda.max_memory_allocated(self.device) - base)
         return out[0].cpu().numpy()
 
     # ------------------------------------------------------------------
@@ -1266,7 +1332,7 @@ class ModelRunner:
             attn_impl=self.cfg.model_attn_impl, moe_impl=self.moe_impl,
             lora_idx=dev.get("lora_idx"), lora_scale=dev.get("lora_scale"),
             tp_group=self.tp_group, pp_group=self.pp_group,
-            pp_stage=self.stage,
+            pp_stage=self.stage, ep_group=self.ep_group,
         )
         if split:
             share_kv_writes(self.kv_cache, write_idx, self.dp_group)

@@ -67,15 +67,16 @@ The deploy layer's argv: the chart's and the operator's engine flags
 parse (``--served-model-name``, ``--gpu-memory-utilization``,
 ``--attn-impl``, ``--moe-impl``, ``--no-enable-prefix-caching``,
 ``--no-startup-phases``, ...). ``--tensor-parallel-size``,
-``--pipeline-parallel-size`` and ``--data-parallel-size`` serve on
-``dp x pp x tp`` ranks, one process each (``engine/multihost.py``):
-``main`` starts them (under the chart's multi-host ``PST_*``
-environment, each pod its own, and a pod other than the first mirrors
-rank 0 and serves nothing), rank 0 serves HTTP, ``/debug/state`` lists
-each rank's ``dp``/``pp``/``tp`` coordinates and device (``ranks``), and
-a SIGTERM stops every local rank. ``--sequence-parallel-size`` and
-``--expert-parallel-size`` take 1 only (refused at start above 1,
-ROADMAP.md queue 1, items 15.iii and 15.iv). With
+``--pipeline-parallel-size``, ``--data-parallel-size``,
+``--sequence-parallel-size`` and ``--expert-parallel-size`` serve on
+``dp x pp x sp x ep x tp`` ranks, one process each
+(``engine/multihost.py``): ``main`` starts them (under the chart's
+multi-host ``PST_*`` environment, each pod its own, and a pod other than
+the first mirrors rank 0 and serves nothing), rank 0 serves HTTP,
+``/debug/state`` lists each rank's ``dp``/``pp``/``sp``/``ep``/``tp``
+coordinates and device (``ranks``), and a SIGTERM stops every local rank.
+The JAX start checks refuse a ring encode over a pipeline and an expert
+size that does not divide the model's experts. With
 ``--api-key`` every route but the probes and ``/metrics``
 (``_OPEN_PATHS``) answers 401 ``invalid API key`` to a request without
 ``Authorization: Bearer <key>``; a traced path's 401 carries its
@@ -157,7 +158,7 @@ from ..resilience.deadline import DEADLINE_EXCEEDED_HEADER, parse_deadline
 from ..utils_tracing import init_otel, init_sentry
 from .async_engine import AsyncLLMEngine
 from .cache_tiering import INTEGRITY_SOURCES
-from .config import UNSERVED_AXES, EngineConfig
+from .config import EngineConfig
 from .multihost import start_ranks
 from .sequence import SamplingParams
 from .tokenizer import ChatMessage
@@ -1680,9 +1681,7 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-num-seqs", type=int, default=64)
     p.add_argument("--max-num-batched-tokens", dest="max_prefill_tokens",
                    type=int, default=2048)
-    # The JAX server's mesh axes. The port serves tensor parallelism; the
-    # other four take 1, a larger size is refused at start
-    # (engine_config_from_args).
+    # The JAX server's mesh axes, each served above 1.
     for axis in PARALLEL_AXES:
         p.add_argument(f"--{axis}-parallel-size", type=int, default=1)
     p.add_argument("--attn-impl", default="auto",
@@ -1840,21 +1839,11 @@ def parse_engine_args(argv=None) -> argparse.Namespace:
 
 
 def engine_config_from_args(args: argparse.Namespace) -> EngineConfig:
-    """The engine's config from the server's flags. A sequence or expert
-    size above 1 raises: the port serves the tensor, pipeline and data
-    axes, and those two are queue 1, items 15.iii and 15.iv of
-    ROADMAP.md."""
-    for axis, item in UNSERVED_AXES.items():
-        size = getattr(args, f"{axis}_parallel_size")
-        if size != 1:
-            raise ValueError(
-                f"--{axis}-parallel-size {size}: the PyTorch engine serves "
-                f"the tensor, pipeline and data axes (the {axis} axis is "
-                f"queue 1, item {item} of ROADMAP.md); pass 1")
+    """The engine's config from the server's flags, the five parallel
+    sizes included (the model's checks of them come at start)."""
     return EngineConfig(
-        tensor_parallel_size=args.tensor_parallel_size,
-        pipeline_parallel_size=args.pipeline_parallel_size,
-        data_parallel_size=args.data_parallel_size,
+        **{f"{axis}_parallel_size": getattr(args, f"{axis}_parallel_size")
+           for axis in PARALLEL_AXES},
         model=args.model,
         tokenizer=args.tokenizer,
         served_model_name=args.served_model_name,

@@ -99,6 +99,26 @@ Data-parallel replicas hold the whole cache each; a step's rows split
 among them write only their own rows, and :func:`share_kv_writes` then
 copies every replica's new K/V rows into the others' caches (JAX keeps
 the replicated cache equal through XLA).
+
+Sequence parallelism (the JAX ring encode, ``sp_size > 1``): ``encode``
+takes the ``sp`` ranks' device group and the rank's place on it. Each
+rank runs the whole layer stack on its ``T/sp`` contiguous rows (JAX
+shards only the attention's rows; the other layers' products are row-wise
+either way), the attention through the ring
+(``ops/ring_attention.py``) at each row's global position, and the mean
+pool sums each rank's masked rows and counts over the group. Outside the
+encode, ``sp`` ranks replicate every step.
+
+Expert parallelism (the JAX ``param_pspecs`` of an expert bank,
+``P(pp, ep, ., tp)``): :func:`expert_params` keeps a rank's ``E/ep``
+experts of every bank leaf and its scales, cut on the expert axis, and
+``w_router`` whole; ``init_params`` and ``load_hf_params`` take
+``experts=(rank, ep)``. ``forward`` and ``encode`` take the ``ep`` group:
+the router picks among every expert by global id, each rank runs its own
+experts and reads their combine columns, and the fp32 sum is added over
+``ep`` (after ``tp``) before its one cast, where XLA all-reduces the
+combine's reduction over E. Attention, the cache and the rows are
+replicated over ``ep``.
 """
 
 from __future__ import annotations
@@ -119,6 +139,7 @@ from ..ops.attention import paged_attention, resolve_impl
 from ..ops.fp8 import E4M3, raw, to_cache_dtype
 from ..ops.int4_matmul import bmm_f32, int4_matmul, mm_f32
 from ..ops.paged_attention_cuda import paged_attention_decode_write
+from ..ops.ring_attention import ring_rotate, ring_self_attention
 from .safetensors import Checkpoint
 
 Params = Dict[str, Any]
@@ -326,6 +347,76 @@ def check_pp(cfg: "LlamaConfig", pp: int) -> None:
                          f"pipeline_parallel_size={pp}")
 
 
+def check_ep(cfg: "LlamaConfig", ep: int) -> None:
+    """Raise ``ValueError`` unless the experts split over ``ep`` ranks:
+    a model with experts, ``num_experts % ep == 0`` (the JAX runner's
+    start check)."""
+    if ep < 1:
+        raise ValueError(f"expert_parallel_size must be >= 1, got {ep}")
+    if ep > 1 and (not cfg.num_experts or cfg.num_experts % ep):
+        raise ValueError(
+            f"expert_parallel_size={ep} needs a MoE model with num_experts "
+            f"divisible by it (model has {cfg.num_experts})")
+
+
+def check_sp(sp: int, pp: int) -> None:
+    """Raise ``ValueError`` on a ring encode over a pipeline (the JAX
+    runner's start check)."""
+    if sp < 1:
+        raise ValueError(f"sequence_parallel_size must be >= 1, got {sp}")
+    if sp > 1 and pp > 1:
+        raise ValueError(
+            "sequence_parallel_size > 1 (ring encode) does not compose "
+            "with pipeline_parallel_size > 1 yet")
+
+
+def check_ring_encode(cfg: "LlamaConfig") -> None:
+    """Raise ``ValueError`` on a ring encode of a sliding-window or
+    softcapped model (JAX raises it at the encode)."""
+    if cfg.sliding_window or cfg.attn_logit_softcap:
+        raise ValueError("ring (sp) encode does not support sliding-window/"
+                         "softcap models yet")
+
+
+# Expert bank leaves, cut on their expert axis (1, after the layer axis)
+# across expert-parallel ranks, with their scale leaves.
+_EXPERT_BANKS = ("w_gate", "w_up", "w_down")
+
+
+def is_expert_leaf(name: str) -> bool:
+    """Whether layer leaf ``name`` is an expert bank or a bank's scales
+    (given a model with experts)."""
+    for suffix in (QUANT4_SUFFIX, QUANT_SUFFIX):
+        if name.endswith(suffix):
+            name = name[: -len(suffix)]
+            break
+    return name in _EXPERT_BANKS
+
+
+def expert_span(cfg: "LlamaConfig", rank: int, ep: int) -> range:
+    """The global ids of rank ``rank``'s experts of ``ep``."""
+    check_ep(cfg, ep)
+    n = cfg.num_experts // ep
+    return range(rank * n, (rank + 1) * n)
+
+
+def expert_params(params: "Params", cfg: "LlamaConfig", rank: int,
+                  ep: int) -> "Params":
+    """Rank ``rank``'s cut of a tree with expert banks (quantized or not,
+    stage-cut or tensor-sharded or not): its ``E/ep`` experts of every
+    bank leaf and its scales, on the expert axis; ``w_router`` and every
+    other leaf whole."""
+    span = expert_span(cfg, rank, ep)
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = {
+        k: (v[:, span.start:span.stop].contiguous()
+            if isinstance(v, torch.Tensor) else
+            v[:, span.start:span.stop].copy())
+        if ep > 1 and is_expert_leaf(k) else v
+        for k, v in params["layers"].items()}
+    return out
+
+
 def stage_layers(cfg: "LlamaConfig", stage: int, pp: int) -> range:
     """The global indices of stage ``stage``'s layers of ``pp``."""
     check_pp(cfg, pp)
@@ -356,16 +447,21 @@ def stage_params(params: "Params", cfg: "LlamaConfig", stage: int,
     return out
 
 
-def rank_local_config(cfg: "LlamaConfig", tp: int = 1,
-                      pp: int = 1) -> "LlamaConfig":
-    """The geometry one rank runs: :func:`tp_local_config`'s heads and FFN
-    slice, and its stage's ``L/pp`` layers (what sizes its KV pages and
-    its LoRA bank)."""
+def rank_local_config(cfg: "LlamaConfig", tp: int = 1, pp: int = 1,
+                      ep: int = 1) -> "LlamaConfig":
+    """The geometry one rank holds: :func:`tp_local_config`'s heads and
+    FFN slice, its stage's ``L/pp`` layers (what sizes its KV pages and
+    its LoRA bank) and its ``E/ep`` experts. The forward runs the whole
+    model's config: its router picks among every expert."""
     local = tp_local_config(cfg, tp)
-    if pp == 1:
-        return local
-    check_pp(cfg, pp)
-    return dataclasses.replace(local, num_layers=cfg.num_layers // pp)
+    if pp > 1:
+        check_pp(cfg, pp)
+        local = dataclasses.replace(local, num_layers=cfg.num_layers // pp)
+    if ep > 1:
+        check_ep(cfg, ep)
+        local = dataclasses.replace(local,
+                                    num_experts=cfg.num_experts // ep)
+    return local
 
 
 def tp_local_config(cfg: "LlamaConfig", tp: int) -> "LlamaConfig":
@@ -407,16 +503,17 @@ def _tp_heads(cfg: "LlamaConfig", group) -> Tuple[int, int]:
     return cfg.num_heads // tp, cfg.num_kv_heads // tp
 
 
-# What this process's pipeline hand-offs and dp K/V exchanges moved:
-# calls, bytes (a hand-off's broadcast tensor; an exchange's gathered
-# rows and slots) and the host seconds inside the collective calls (under
-# gloo a call returns once its bytes moved, a receiver's wait for the
-# sending stage included; under NCCL once they are queued). Eager calls
-# only: a captured step's replays run no Python. Read by the runner's
-# rank report.
+# What this process's pipeline hand-offs, dp K/V exchanges, ring hops
+# and ep combines moved: calls, bytes (a hand-off's broadcast tensor; an
+# exchange's gathered rows and slots; a hop's K/V block sent; an
+# all-reduced combine) and the host seconds inside the collective calls
+# (under gloo a call returns once its bytes moved, a receiver's wait for
+# its peer included; under NCCL once they are queued). Eager calls only:
+# a captured step's replays run no Python. Read by the runner's rank
+# report.
 PARALLEL_TRAFFIC: Dict[str, Dict[str, float]] = {
-    "handoff": {"calls": 0, "bytes": 0, "seconds": 0.0},
-    "dp_share": {"calls": 0, "bytes": 0, "seconds": 0.0},
+    kind: {"calls": 0, "bytes": 0, "seconds": 0.0}
+    for kind in ("handoff", "dp_share", "sp_ring", "ep_reduce")
 }
 
 
@@ -637,6 +734,7 @@ class Llama:
         quantization: Optional[str] = None,
         shard: Optional[Tuple[int, int]] = None,
         stage: Optional[Tuple[int, int]] = None,
+        experts: Optional[Tuple[int, int]] = None,
     ) -> Params:
         """Random init with the JAX package's distributions (norms 1,
         biases 0, matmul weights N(0, 1/fan_in)); not its values — the
@@ -657,7 +755,12 @@ class Llama:
         ``stage=(stage, pp)``: every slice is still drawn, in order, and
         only the stage's layers are kept (and quantized): the result
         equals ``stage_params(init_params(...), cfg, stage, pp)``, and so
-        composes with ``shard``."""
+        composes with ``shard``.
+
+        ``experts=(rank, ep)``: every expert's slices are still drawn, in
+        order, and only the rank's experts are kept (and quantized): the
+        result equals ``expert_params(init_params(...), cfg, rank, ep)``,
+        and composes with ``shard`` and ``stage``."""
         if quantization not in (None, *QUANT_MODES):
             raise ValueError(
                 f"unsupported quantization {quantization!r} (int8 or int4)")
@@ -666,9 +769,14 @@ class Llama:
         if tp > 1:
             check_tp(self.cfg, tp, quantization)
         span = stage_layers(self.cfg, *(stage or (0, 1)))
+        ep = experts[1] if experts else 1
+        mine_e = (expert_span(self.cfg, *experts) if ep > 1 else None)
 
         def cut(name: str, t: torch.Tensor) -> torch.Tensor:
             return shard_leaf(name, t, rank, tp)
+
+        def banked(name: str, layer: bool) -> bool:
+            return layer and mine_e is not None and is_expert_leaf(name)
 
         def local(name: str, shape, layer: bool) -> Tuple[int, ...]:
             out = list(shape)
@@ -677,6 +785,8 @@ class Llama:
                 out[axis] //= tp
             if layer:
                 out[0] = len(span)
+            if banked(name, layer):
+                out[1] = len(mine_e)
             return tuple(out)
 
         def fill(params: Params, name: str, shape, layer: bool) -> None:
@@ -694,31 +804,39 @@ class Llama:
                                     device=device, dtype=torch.float32)
                         / math.sqrt(fan_in)).to(dtype)
 
-            # The stage's slices of the leaf's prod(shape[:-2]): the ones
-            # before and after it are drawn and dropped.
+            # The kept slices of the leaf's prod(shape[:-2]), in order: the
+            # stage's layers (of a bank, the rank's experts); every other
+            # slice is drawn and dropped.
             n_all = math.prod(shape[:-2])
             per = n_all // shape[0] if layer else n_all
             lo, hi = ((span.start * per, span.stop * per) if layer
                       else (0, n_all))
-            for _ in range(lo):
-                draw()
+            E = shape[1] if banked(name, layer) else 0
+
+            def kept():
+                for i in range(n_all):
+                    w = draw()
+                    if lo <= i < hi and (not E or i % E in mine_e):
+                        yield w
+
+            slices = kept()
             quantized = name in QUANT_LAYER_KEYS + QUANT_TOP_KEYS
             if quantization is None or not quantized:
                 out = torch.empty(mine, dtype=dtype, device=device)
                 for part in out.view(-1, *mine[-2:]):
-                    part.copy_(cut(name, draw()))
+                    part.copy_(cut(name, next(slices)))
                 params[name] = out
             else:
                 fn, suffix = _quantizer(name, quantization)
 
                 def make(i: int) -> Tuple[torch.Tensor, torch.Tensor]:
-                    q, s = fn(draw())
+                    q, s = fn(next(slices))
                     return cut(name, q), cut(name + suffix, s)
 
                 params[name], params[name + suffix] = _stack_slices(
                     mine[:-2], make)
-            for _ in range(n_all - hi):
-                draw()
+            for _ in slices:  # the slices after the last kept one
+                raise AssertionError(f"{name}: a kept slice left unused")
 
         shapes = self.param_shapes()
         params: Params = {"layers": {}}
@@ -814,6 +932,7 @@ class Llama:
         tp_group=None,
         pp_group=None,
         pp_stage: int = 0,
+        ep_group=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One engine step. Returns (last-token logits [B, V] float32, the
         cache); with ``all_logits`` the logits of every position [B, T, V]
@@ -828,7 +947,9 @@ class Llama:
         :func:`shard_params` shard and its heads' cache; None for one
         rank. ``pp_group``: the pipeline stages' device group, this rank
         stage ``pp_stage`` of it, holding its :func:`stage_params` cut and
-        a cache of its ``L/pp`` layers; None for one stage. Every rank
+        a cache of its ``L/pp`` layers; None for one stage. ``ep_group``:
+        the expert-parallel ranks' device group, each rank holding its
+        :func:`expert_params` experts; None for one rank. Every rank
         returns the same logits."""
         cfg = self.cfg
         H, KH = _tp_heads(cfg, tp_group)
@@ -840,6 +961,7 @@ class Llama:
             raise ValueError(f"a cache of {L} layers for a stage of "
                              f"{cfg.num_layers // pp}")
         layers = params["layers"]
+        ep_first = _expert_first(cfg, layers, ep_group)
         has_lora = "lora_a_wq" in layers
         if has_lora:
             if lora_idx is None:
@@ -926,7 +1048,7 @@ class Llama:
                               offset)
             x = x + o
             h = _rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps, offset)
-            ff = _mlp(h, lp, cfg, moe_impl, tp_group)
+            ff = _mlp(h, lp, cfg, moe_impl, tp_group, ep_group, ep_first)
             if cfg.post_block_norms:  # Gemma-2 post-feedforward norm
                 ff = _rms_norm(ff, lp["post_mlp_norm"], cfg.rms_norm_eps,
                                offset)
@@ -964,6 +1086,9 @@ class Llama:
         tp_group=None,
         pp_group=None,
         pp_stage: int = 0,
+        sp_group=None,
+        sp_rank: int = 0,
+        ep_group=None,
     ) -> torch.Tensor:
         """The embedding path (``/v1/embeddings``), the JAX ``encode``:
         causal attention over the whole prompt at positions ``0..T-1``, no
@@ -973,45 +1098,75 @@ class Llama:
         before rope, llama3 rope, each layer's window and softcap,
         post-block norms); the LoRA bank is not applied, as in JAX.
         Attention runs in blocks of query rows (:func:`encode_attention`).
-        ``tp_group``, ``pp_group`` and ``pp_stage`` as in :meth:`forward`."""
+        ``tp_group``, ``pp_group``, ``pp_stage`` and ``ep_group`` as in
+        :meth:`forward`.
+
+        ``sp_group``: the sequence-parallel ranks' device group, this rank
+        ``sp_rank`` of it (None: one rank). The rank runs every layer on
+        its ``T/sp`` contiguous rows, the attention through the ring over
+        the group (``ops/ring_attention.py``), and the pool's masked sums
+        and counts are summed over the group: every rank returns the same
+        embeddings. A length ``sp`` does not divide, a pipeline, and a
+        sliding-window or softcapped model raise, as in JAX."""
         cfg = self.cfg
         H, KH = _tp_heads(cfg, tp_group)
         pp, li_base = _stage_span(cfg, pp_group, pp_stage)
         B, T = tokens.shape
         dev = tokens.device
+        sp = 1 if sp_group is None else sp_group.size()
+        if sp > 1:
+            check_sp(sp, pp)
+            check_ring_encode(cfg)
+        if T % sp:
+            raise ValueError(f"sequence length {T} not divisible by sp={sp}")
+        Tl = T // sp
+        mine = slice(sp_rank * Tl, (sp_rank + 1) * Tl)
+        rotate = ring_rotate(sp_group) if sp > 1 else None
         offset = cfg.norm_unit_offset
-        positions = torch.arange(T, device=dev)[None].expand(B, T)
-        x = _stage_input(params, cfg, tokens, pp_stage)
+        positions = torch.arange(T, device=dev)[None, mine].expand(B, Tl)
+        x = _stage_input(params, cfg, tokens[:, mine], pp_stage)
         rope_cos, rope_sin = _rope_tables(positions, cfg)
         lengths = lengths.to(dev).long()
         layers = params["layers"]
+        ep_first = _expert_first(cfg, layers, ep_group)
+
+        def hop(kv: torch.Tensor) -> torch.Tensor:
+            t0 = time.perf_counter()
+            out = rotate(kv)
+            _count_traffic("sp_ring", kv.numel() * kv.element_size(), t0)
+            return out
 
         def layer(x: torch.Tensor, li: int) -> torch.Tensor:
             lp = {k: v[li] for k, v in layers.items()}
             h = _rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps, offset)
             q = _proj(h, lp, "wq", lp.get("bq")).reshape(
-                B, T, H, cfg.head_dim)
+                B, Tl, H, cfg.head_dim)
             k = _proj(h, lp, "wk", lp.get("bk")).reshape(
-                B, T, KH, cfg.head_dim)
+                B, Tl, KH, cfg.head_dim)
             v = _proj(h, lp, "wv", lp.get("bv")).reshape(
-                B, T, KH, cfg.head_dim)
+                B, Tl, KH, cfg.head_dim)
             if cfg.qk_norm:  # Qwen3: per-head RMSNorm over hd, pre-rope
                 q = _rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
                 k = _rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
             q = _apply_rope(q, rope_cos, rope_sin)
             k = _apply_rope(k, rope_cos, rope_sin)
-            attn = encode_attention(
-                q, k, v, lengths, scale=cfg.attn_scale,
-                window=_layer_window(cfg, li_base + li),
-                softcap=cfg.attn_logit_softcap,
-            ).to(x.dtype)
-            o = _row_proj(attn, lp, "wo", tp_group)
+            if sp > 1:
+                attn = ring_self_attention(
+                    q, k, v, lengths, scale=cfg.attn_scale, rank=sp_rank,
+                    size=sp, rotate=hop).reshape(B, Tl, H * cfg.head_dim)
+            else:
+                attn = encode_attention(
+                    q, k, v, lengths, scale=cfg.attn_scale,
+                    window=_layer_window(cfg, li_base + li),
+                    softcap=cfg.attn_logit_softcap,
+                )
+            o = _row_proj(attn.to(x.dtype), lp, "wo", tp_group)
             if cfg.post_block_norms:
                 o = _rms_norm(o, lp["post_attn_norm"], cfg.rms_norm_eps,
                               offset)
             x = x + o
             h = _rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps, offset)
-            ff = _mlp(h, lp, cfg, moe_impl, tp_group)
+            ff = _mlp(h, lp, cfg, moe_impl, tp_group, ep_group, ep_first)
             if cfg.post_block_norms:
                 ff = _rms_norm(ff, lp["post_mlp_norm"], cfg.rms_norm_eps,
                                offset)
@@ -1025,8 +1180,13 @@ class Llama:
 
         x = _run_stages(x, pp_group, pp_stage, pp, run)
         x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps, offset)
-        mask = (positions < lengths[:, None]).float()[..., None]  # [B, T, 1]
-        pooled = (x.float() * mask).sum(1) / torch.clamp(mask.sum(1), min=1.0)
+        mask = (positions < lengths[:, None]).float()[..., None]  # [B, Tl, 1]
+        sums, count = (x.float() * mask).sum(1), mask.sum(1)
+        if sp > 1:  # every rank's rows: one all-reduce of sums and counts
+            both = torch.cat([sums, count], dim=-1)
+            dist.all_reduce(both, group=sp_group)
+            sums, count = both[:, :-1], both[:, -1:]
+        pooled = sums / torch.clamp(count, min=1.0)
         norm = torch.linalg.vector_norm(pooled, dim=-1, keepdim=True)
         return pooled / torch.clamp(norm, min=1e-12)
 
@@ -1224,17 +1384,25 @@ _ACTS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 
 def _mlp(h: torch.Tensor, lp: Params, cfg: LlamaConfig,
-         moe_impl: str = "auto", tp_group=None) -> torch.Tensor:
+         moe_impl: str = "auto", tp_group=None, ep_group=None,
+         ep_first: int = 0) -> torch.Tensor:
     """The MLP block in h's dtype. Dense: act(h @ w_gate) * (h @ w_up) in
     float32, then w_down. With experts: :func:`_moe_mlp` over the
     flattened tokens, its fp32 result cast once (as the JAX forward casts
     ``_mlp``'s). Across tensor-parallel ranks each holds a slice of the
     hidden dim (of every expert's), and the fp32 result is summed over
-    ``tp_group`` before the cast."""
+    ``tp_group`` before the cast; across expert-parallel ranks each runs
+    its experts (the first of them global expert ``ep_first``) and the
+    sum goes on over ``ep_group``."""
     if cfg.num_experts:
         lead = h.shape[:-1]
-        out = _moe_mlp(cfg, lp, h.reshape(-1, h.shape[-1]), moe_impl)
+        out = _moe_mlp(cfg, lp, h.reshape(-1, h.shape[-1]), moe_impl,
+                       ep_first)
         out = _all_reduce(out, tp_group)
+        if ep_group is not None:
+            t0 = time.perf_counter()
+            dist.all_reduce(out, group=ep_group)
+            _count_traffic("ep_reduce", out.numel() * out.element_size(), t0)
         return out.reshape(*lead, out.shape[-1]).to(h.dtype)
     gate = _proj(h, lp, "w_gate")
     up = _proj(h, lp, "w_up")
@@ -1277,7 +1445,7 @@ def _expert_ffn(cfg: LlamaConfig, lp: Params, x: torch.Tensor, e: int
 
 
 def _moe_mlp(cfg: LlamaConfig, lp: Params, x: torch.Tensor,
-             impl: str) -> torch.Tensor:
+             impl: str, first: int = 0) -> torch.Tensor:
     """The sparse mixture-of-experts MLP over tokens ``x`` [N, D] -> fp32
     [N, D] (the JAX ``_moe_mlp``): every expert over every token, then
     the one-hot combine of the routing weights.
@@ -1291,7 +1459,11 @@ def _moe_mlp(cfg: LlamaConfig, lp: Params, x: torch.Tensor,
     expert over N rows here (its group sizes cannot size a product
     without a host read), so it would cost the same FLOPs plus the sort;
     it comes back with a grouped int4 kernel that reads the expert
-    offsets on the device (ROADMAP queue 2, item 10)."""
+    offsets on the device (ROADMAP queue 2, item 10).
+
+    Banks that hold an expert-parallel rank's experts (global ids
+    ``first ..``) run only those; the router and the combine work on
+    global ids, and the ranks' partial sums are added by the caller."""
     if impl not in MOE_IMPLS:
         raise ValueError(f"unknown moe_impl {impl!r} (ragged|dense|auto)")
     weights, ids = moe_route(cfg, lp, x)
@@ -1299,9 +1471,26 @@ def _moe_mlp(cfg: LlamaConfig, lp: Params, x: torch.Tensor,
     combine = ((ids[..., None] == experts).float()
                * weights[..., None]).sum(dim=1)  # [N, E]
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for e in range(cfg.num_experts):
-        out += _expert_ffn(cfg, lp, x, e) * combine[:, e:e + 1]
+    for e in range(lp["w_gate"].shape[0]):
+        g = first + e
+        out += _expert_ffn(cfg, lp, x, e) * combine[:, g:g + 1]
     return out
+
+
+def _expert_first(cfg: LlamaConfig, layers: Params, group) -> int:
+    """The global id of the first expert this rank's banks hold: its
+    place on the expert-parallel ``group`` times the experts a bank holds
+    (0 without experts or a group)."""
+    if not cfg.num_experts:
+        return 0
+    local = layers["w_gate"].shape[1]
+    ep = 1 if group is None else group.size()
+    if local * ep != cfg.num_experts:
+        raise ValueError(f"banks of {local} experts on {ep} expert ranks "
+                         f"for a model of {cfg.num_experts}")
+    if group is None:
+        return 0
+    return dist.get_group_rank(group, dist.get_rank()) * local
 
 
 def _layer_window(cfg: LlamaConfig, li: int) -> int:
@@ -1385,7 +1574,8 @@ _HF_MODEL_TYPES = ("llama", "mistral", "qwen2", "qwen3", "mixtral", "gemma",
 def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
                    device: Optional[torch.device] = None,
                    shard: Optional[Tuple[int, int]] = None,
-                   stage: Optional[Tuple[int, int]] = None) -> Params:
+                   stage: Optional[Tuple[int, int]] = None,
+                   experts: Optional[Tuple[int, int]] = None) -> Params:
     """The parameter tree of a local HF checkpoint directory: the JAX
     ``load_hf_params`` tree, bit for bit. HF linear weights are stored
     ``[out, in]`` and become ``[in, out]``; layers are stacked on axis 0;
@@ -1408,7 +1598,11 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
     the result equals ``shard_params`` of the whole tree.
 
     ``stage=(stage, pp)``: only the stage's layers are read: the result
-    equals ``stage_params`` of the whole tree."""
+    equals ``stage_params`` of the whole tree.
+
+    ``experts=(rank, ep)``: only the rank's experts of each bank are read
+    (``block_sparse_moe.experts.{e}`` of its span; the router whole): the
+    result equals ``expert_params`` of the whole tree."""
     qmode = "int8" if quantize is True else (quantize or None)
     if qmode not in (None, *QUANT_MODES):
         raise ValueError(f"unsupported quantization {quantize!r} (int8 or int4)")
@@ -1416,6 +1610,8 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
     if tp > 1:
         check_tp(cfg, tp, qmode)
     span = stage_layers(cfg, *(stage or (0, 1)))
+    mine_e = (expert_span(cfg, *experts) if experts
+              else range(cfg.num_experts))
     device = torch.device(device or "cpu")
     dtype = cfg.torch_dtype
     ck = Checkpoint(model_dir)
@@ -1475,16 +1671,16 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
         layer_map["post_feedforward_layernorm"] = "post_mlp_norm"
     L = len(span)
     if cfg.num_experts:
-        # Mixtral: one w1/w3/w2 (gate/up/down) an expert, and the router.
-        E = cfg.num_experts
+        # Mixtral: one w1/w3/w2 (gate/up/down) an expert (the rank's
+        # experts), and the router.
         for hf_name in ("mlp.gate_proj", "mlp.up_proj", "mlp.down_proj"):
             del layer_map[hf_name]
         for ours, wname in (("w_gate", "w1"), ("w_up", "w3"),
                             ("w_down", "w2")):
             put(params["layers"], ours,
                 [f"model.layers.{i}.block_sparse_moe.experts.{e}."
-                 f"{wname}.weight" for i in span for e in range(E)],
-                lead=(L, E))
+                 f"{wname}.weight" for i in span for e in mine_e],
+                lead=(L, len(mine_e)))
         layer_map["block_sparse_moe.gate"] = "w_router"
     for hf_name, ours in layer_map.items():
         put(params["layers"], ours,

@@ -11,9 +11,11 @@ groups (:func:`maybe_init_distributed`):
   step descriptions (:class:`HostBridge`), the page gathers, barriers and
   the KV block count's agreement;
 - the **device groups**, one a parallel axis in use (``tp``, ``pp``,
-  ``dp``; :class:`~..parallel.mesh.RankGrid` lays the ranks out): the
-  activations' all-reduces over ``tp``, the stage hand-off over ``pp``
-  and the replicas' row and KV exchange over ``dp``. Each group's
+  ``dp``, ``sp``, ``ep``; :class:`~..parallel.mesh.RankGrid` lays the
+  ranks out): the activations' all-reduces over ``tp``, the stage
+  hand-off over ``pp``, the replicas' row and KV exchange over ``dp``,
+  the ring encode's K/V rotation and pooled sums over ``sp`` and the
+  experts' combine over ``ep``. Each group's
   backend is NCCL when each of its members has a card of its own, gloo
   when members share one card (NCCL refuses two ranks on one device) or
   run on the CPU. The choice follows from the rank -> device map every
@@ -47,12 +49,22 @@ import torch
 import torch.distributed as dist
 
 from ..logging_utils import init_logger
-from .mesh import AXIS_DATA, AXIS_PIPELINE, AXIS_TENSOR, MeshConfig, RankGrid
+from .mesh import (
+    AXIS_DATA,
+    AXIS_EXPERT,
+    AXIS_PIPELINE,
+    AXIS_SEQUENCE,
+    AXIS_TENSOR,
+    MeshConfig,
+    RankGrid,
+)
 
 logger = init_logger(__name__)
 
-# The axes that may exceed 1, each with a device group of its own.
-DEVICE_AXES = (AXIS_TENSOR, AXIS_PIPELINE, AXIS_DATA)
+# The axes that may exceed 1, each with a device group of its own, in
+# the order every rank creates the groups.
+DEVICE_AXES = (AXIS_TENSOR, AXIS_PIPELINE, AXIS_DATA, AXIS_SEQUENCE,
+               AXIS_EXPERT)
 
 # Env surface (set by the Helm multi-host template / JobSet downward API).
 ENV_COORDINATOR = "PST_COORDINATOR_ADDRESS"

@@ -8,9 +8,10 @@ lays the global ranks out in the same order and gives each rank its
 coordinate on each axis: the ``tp`` group of a rank is the ranks that
 differ from it only on ``tp``, which are contiguous.
 
-``dp``, ``pp`` and ``tp`` may exceed 1 (``dp x pp x tp`` ranks, one
-process each); ``sp`` and ``ep`` are refused above 1 at start
-(``engine/config.py``; ROADMAP.md queue 1, items 15.iii and 15.iv).
+Every axis may exceed 1: ``dp x pp x sp x ep x tp`` ranks, one process
+each. ``sp`` ranks share the rows of an encode (the ring,
+``ops/ring_attention.py``) and ``ep`` ranks the experts of a bank; both
+replicate every other step.
 """
 
 from __future__ import annotations

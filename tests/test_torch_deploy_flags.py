@@ -188,19 +188,42 @@ def test_the_config_equals_the_jax_config():
 
 
 @pytest.mark.parametrize("axis", AXES)
-def test_a_parallel_size_above_one_is_refused_at_start(axis):
+def test_a_parallel_size_above_one_parses_and_meets_the_start_checks(axis):
     """Tensor parallelism parses into the config: the chart's default
     render (tp 8) passes the model's split and fails only on the start's
     checks of the rank count and the devices. The pipeline and data
     sizes parse into the config the same way (the model's layers split
-    into 2 stages). The sequence and expert axes above 1 are
-    refused with their ROADMAP items' message (15.iii, 15.iv)."""
+    into 2 stages). The sequence and expert sizes parse too, and the JAX
+    runner's start checks refuse what JAX refuses: a ring encode over a
+    pipeline, experts over a model without them, and an expert size
+    that does not divide the model's experts."""
     if axis in ("sequence", "expert"):
-        item = {"sequence": "15.iii", "expert": "15.iv"}[axis]
-        with pytest.raises(ValueError, match=f"--{axis}-parallel-size 2.*"
-                                             f"item {re.escape(item)} "):
-            port_server.engine_config_from_args(port_server.parse_engine_args(
-                [*OPERATOR_DEFAULT, f"--{axis}-parallel-size", "2"]))
+        flag = [f"--{axis}-parallel-size", "2"]
+        cfg = port_server.engine_config_from_args(
+            port_server.parse_engine_args([*OPERATOR_DEFAULT, *flag]))
+        assert getattr(cfg, f"{axis}_parallel_size") == 2
+        assert cfg.num_ranks == 2 and cfg.device == "cuda"
+        dense = get_model_config(cfg.model)
+        if axis == "sequence":
+            check_parallel(cfg, dense)
+            with pytest.raises(ValueError, match="does not compose with "
+                                                 "pipeline_parallel_size"):
+                check_parallel(port_server.engine_config_from_args(
+                    port_server.parse_engine_args(
+                        [*OPERATOR_DEFAULT, *flag,
+                         "--pipeline-parallel-size", "2"])), dense)
+            return
+        with pytest.raises(ValueError, match=re.escape(
+                "expert_parallel_size=2 needs a MoE model with num_experts "
+                "divisible by it (model has 0)")):
+            check_parallel(cfg, dense)
+        moe = port_server.engine_config_from_args(
+            port_server.parse_engine_args(
+                [*OPERATOR_DEFAULT, "--model", "tiny-mixtral-debug", *flag]))
+        check_parallel(moe, get_model_config(moe.model))
+        with pytest.raises(ValueError, match=r"\(model has 4\)"):
+            check_parallel(dataclasses.replace(moe, expert_parallel_size=3),
+                           get_model_config(moe.model))
         return
     if axis != "tensor":
         cfg = port_server.engine_config_from_args(

@@ -72,7 +72,8 @@ def test_the_grid_and_its_groups(ranks):
             (2, 1, 0, 0, "0/cpu"), (3, 1, 1, 0, "0/cpu")]
         reports = same_rows_and_replicas(eng.runner, GRID)
         assert [r["coords"] for r in reports] == [
-            {"dp": d, "pp": p, "tp": 0} for d in (0, 1) for p in (0, 1)]
+            {"dp": d, "pp": p, "sp": 0, "ep": 0, "tp": 0} for d in (0, 1)
+            for p in (0, 1)]
 
 
 def test_greedy_and_seeded_engines_match_the_jax_engine(ranks, jax_grid):

@@ -37,7 +37,7 @@ import pytest
 import torch
 
 from production_stack_tpu_torch.engine import multihost
-from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.config import EngineConfig, check_parallel
 from production_stack_tpu_torch.engine.engine import LLMEngine
 from production_stack_tpu_torch.engine.multihost import (
     UnknownStepKind,
@@ -45,6 +45,7 @@ from production_stack_tpu_torch.engine.multihost import (
     start_ranks,
 )
 from production_stack_tpu_torch.engine.runner import MIRRORED, ModelRunner
+from production_stack_tpu_torch.models.registry import get_model_config
 from production_stack_tpu_torch.parallel.distributed import (
     DistributedConfig,
     device_backend,
@@ -292,9 +293,19 @@ def test_the_multihost_env_the_grid_and_the_start_refusals(monkeypatch):
     assert device_backend(["0/cpu", "0/cpu"]) == "gloo"
     for axis in ("pipeline", "data"):  # accepted: dp x pp x tp ranks
         assert EngineConfig(**{f"{axis}_parallel_size": 2}).num_ranks == 2
-    for axis, item in (("sequence", "15.iii"), ("expert", "15.iv")):
-        with pytest.raises(ValueError, match=f"item {re.escape(item)} "):
-            EngineConfig(**{f"{axis}_parallel_size": 2})
+    for axis in ("sequence", "expert"):  # accepted; the model's checks
+        cfg = EngineConfig(model="tiny-mixtral-debug",
+                           **{f"{axis}_parallel_size": 2})
+        assert cfg.num_ranks == 2
+        check_parallel(cfg, get_model_config(cfg.model))
+    with pytest.raises(ValueError, match="does not compose with pipeline"):
+        start_ranks(EngineConfig(sequence_parallel_size=2,
+                                 pipeline_parallel_size=2, device="cpu"))
+    with pytest.raises(ValueError, match="needs a MoE model"):
+        start_ranks(EngineConfig(expert_parallel_size=2, device="cpu"))
+    with pytest.raises(ValueError, match=r"num_experts divisible.*model has 4"):
+        start_ranks(EngineConfig(model="tiny-mixtral-debug",
+                                 expert_parallel_size=3, device="cpu"))
     if not torch.cuda.is_available():  # the card is checked before a spawn
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             start_ranks(EngineConfig(tensor_parallel_size=2),
