@@ -765,8 +765,12 @@ GEMMA2_HEADS = dict(h=16, kh=8, softcap=50.0)
 GEMMA1_HEADS = dict(h=16, kh=16, softcap=0.0)
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run, stamped with its seconds since the start."""
+    print(f"[{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2174,7 +2178,8 @@ def phase_capture_kernels() -> None:
 GRAPH_B, GRAPH_CTX, GRAPH_T, GRAPH_N = 8, 4096, 512, 4
 
 
-def graph_runner(params, quantization=None, model=MODEL) -> ModelRunner:
+def graph_runner(params, quantization=None, model=MODEL,
+                 model_cfg=None) -> ModelRunner:
     """A runner of the full-width ``model`` over ``params`` with pages for
     ``GRAPH_B`` sequences of ``GRAPH_CTX`` tokens, filled with random
     keys and values (every step reads all of them)."""
@@ -2184,7 +2189,7 @@ def graph_runner(params, quantization=None, model=MODEL) -> ModelRunner:
         max_prefill_tokens=GRAPH_T, max_model_len=GRAPH_CTX,
         num_decode_steps=GRAPH_N, num_kv_blocks=GRAPH_B * W + 1,
         quantization=quantization)
-    runner = ModelRunner(cfg, get_model_config(model), params)
+    runner = ModelRunner(cfg, model_cfg or get_model_config(model), params)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(11)
     runner.kv_cache.normal_(generator=gen)
@@ -2273,15 +2278,21 @@ def graph_vs_eager(runner, label: str, batch: dict, want_lp: bool,
 
         def graphed():
             return runner._step(batch, want_lp, greedy)
+    marks = [time.perf_counter()]
     saved = runner.kv_cache.clone()
     ref = eager().clone()
     ref_cache = runner.kv_cache.clone()
     before = dict(runner.graph_counts)
     runner.kv_cache.copy_(saved)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
     graphed()
     runner.kv_cache.copy_(saved)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
     got = graphed().clone()
     torch.cuda.synchronize()
+    marks.append(time.perf_counter())
     after = runner.graph_counts
     check(after["captured"] == before["captured"] + 1
           and after["replayed"] == before["replayed"] + 1,
@@ -2297,9 +2308,14 @@ def graph_vs_eager(runner, label: str, batch: dict, want_lp: bool,
           f"{label}: replay differs from the eager step (rows equal "
           f"{rows_equal}, cache bytes equal {cache_equal})")
     del saved, ref_cache
-    times = {"eager": profile(eager, 5, 3), "replayed": profile(graphed, 5, 3)}
+    times = {"eager": profile(eager, 5, 3)}
+    marks.append(time.perf_counter())
+    times["replayed"] = profile(graphed, 5, 3)
+    marks.append(time.perf_counter())
+    secs = dict(zip(("eager", "capture", "replay", "profile_eager",
+                     "profile_replayed"), np.diff(marks).tolist()))
     out = {"step": label, "fused_kv_write":
-           os.environ.get("PST_FUSED_KV_WRITE") == "1"}
+           os.environ.get("PST_FUSED_KV_WRITE") == "1", "seconds": secs}
     for how, r in times.items():
         out[how] = {k: r[k] for k in ("wall_ms", "device_busy_ms",
                                       "idle_share", "kernels_per_step",
@@ -2308,7 +2324,8 @@ def graph_vs_eager(runner, label: str, batch: dict, want_lp: bool,
         f"eager step's; " + "; ".join(
             f"{how} wall {r['wall_ms']:.2f} ms, device busy "
             f"{r['device_busy_ms']:.2f} ms, idle {r['idle_share']:.1%}, "
-            f"{r['kernels_per_step']:.0f} kernels" for how, r in times.items()))
+            f"{r['kernels_per_step']:.0f} kernels" for how, r in times.items())
+        + "; seconds " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
     return out
 
 
@@ -6964,48 +6981,60 @@ def phase_encode_int4_serving(q_params, card: str) -> dict:
 
 class CacheServer:
     """4n(e): a server subprocess on ``tiny-llama-debug`` on the card with
-    ``--compile-cache-dir``, its output in a log file."""
+    ``--compile-cache-dir``, its output in a log file, at the lowest CPU
+    priority (``os.nice(19)``, its ``nvcc`` processes too): a cold build
+    takes the cores the other phases leave idle. A thread polls its
+    ``/ready`` from the start, so the seconds to ready are its own however
+    late ``finish`` comes."""
 
-    def __init__(self, cache_dir: str, log_path: str):
+    def __init__(self, cache_dir: str, log_path: str, limit: float = 400.0):
         self.port = free_port()
         self.log_path = log_path
         self.log = open(log_path, "w")
         self.t0 = time.perf_counter()
+        self.ready_s = None
         # Stopped at exit too, when a phase fails before ``finish``.
         atexit.register(self.stop)
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "production_stack_tpu_torch.engine.server",
+            [sys.executable, "-c",
+             "import os, runpy; os.nice(19); runpy.run_module("
+             "'production_stack_tpu_torch.engine.server', run_name='__main__')",
              "--model", "tiny-llama-debug", "--device", DEV.type, "--host",
              "127.0.0.1", "--port", str(self.port), "--num-kv-blocks", "64",
              "--compile-cache-dir", cache_dir],
             cwd=os.path.dirname(os.path.abspath(__file__)),
             stdout=self.log, stderr=subprocess.STDOUT)
+        self.watch = threading.Thread(target=self._wait_ready, args=(limit,),
+                                      daemon=True)
+        self.watch.start()
 
-    def finish(self, limit: float = 400.0) -> dict:
+    def _wait_ready(self, limit: float) -> None:
+        while (self.proc.poll() is None
+               and time.perf_counter() - self.t0 < limit):
+            try:
+                if _call(self.port, "GET", "/ready", timeout=5)[0] == 200:
+                    self.ready_s = time.perf_counter() - self.t0
+                    return
+            except (OSError, http.client.HTTPException):
+                pass
+            time.sleep(0.2)
+
+    def finish(self) -> dict:
         """Wait for ``/ready``; read ``/metrics`` and ``/debug/state``;
         stop the process."""
         try:
-            while True:
-                check(self.proc.poll() is None, "4n(e): the server exited: "
-                      + open(self.log_path).read()[-2000:])
-                check(time.perf_counter() - self.t0 < limit,
-                      "4n(e): no /ready in time")
-                try:
-                    if _call(self.port, "GET", "/ready", timeout=5)[0] == 200:
-                        break
-                except OSError:
-                    pass
-                time.sleep(0.2)
-            ready_s = time.perf_counter() - self.t0
+            self.watch.join()
+            check(self.ready_s is not None, "4n(e): no /ready in time (exit "
+                  f"code {self.proc.poll()}): "
+                  + open(self.log_path).read()[-2000:])
             m = scrape(self.port)
             stats = _call(self.port, "GET", "/debug/state")[1]["stats"]
         finally:
             self.stop()
-        return {"ready_s": ready_s,
+        return {"ready_s": self.ready_s,
                 "hits": m.get("pst_engine_compile_cache_hits_total", -1.0),
                 "misses": m.get("pst_engine_compile_cache_misses_total", -1.0),
                 "last_build_seconds": stats["kernel_build_seconds"]}
-
 
     def stop(self) -> None:
         if self.proc.poll() is None:
@@ -7053,7 +7082,8 @@ def phase_compile_cache(first: "CacheServer", cache_dir: str, card: str
 
 def start_compile_cache() -> tuple:
     """4n(e)'s first server, started in a fresh temp directory: its
-    library builds beside the phases that run meanwhile."""
+    library builds beside the phases that run meanwhile, and it waits,
+    idle, for :func:`phase_compile_cache`."""
     cache_dir = tempfile.mkdtemp(prefix="pst_compile_cache_")
     return CacheServer(cache_dir, cache_dir + ".log"), cache_dir
 
@@ -7068,6 +7098,11 @@ MOE_TINY = "tiny-mixtral-debug"
 # 22.5 GB and their fp32 group scales 1.4 GB, attention 0.7 GB, the int8
 # embed and lm_head 0.26 GB.
 MOE_TREE_BYTES = (24.0e9, 26.0e9)
+# 4o(b), 4o(c) and 4r(b) run the model at this depth (its first layers),
+# to fit the full run in its call; their checks are per layer or against
+# one rank or the plain versions on the same tree. The trees the servers
+# serve (4o(d), 4r(c)) keep all 32.
+MOE_LAYERS = 8
 # The kernels and their plain versions round differently, so a near-tie
 # in a router's top 2 can send a token to other experts in one run and not
 # in the other, and a random 32-layer model carries such a flip on to
@@ -7257,15 +7292,22 @@ def moe_step_flops(cfg, N: int) -> tuple:
     return full, full * cfg.num_experts_per_tok // cfg.num_experts
 
 
-def phase_moe_steps(params) -> list:
+def moe_cut(model, params) -> tuple:
+    """(the model at ``MOE_LAYERS`` layers, ``params``' first
+    ``MOE_LAYERS`` layers: views, no copy)."""
+    cfg = model.cfg
+    cut = llama_mod.stage_params(params, cfg, 0, cfg.num_layers // MOE_LAYERS)
+    return Llama(dataclasses.replace(cfg, num_layers=MOE_LAYERS)), cut
+
+
+def phase_moe_steps(params, cfg) -> list:
     """4o(c): a decode step at B=8 x 4096 and a fresh T=512 chunk through
     the runner, eagerly and replayed under CUDA's sync debug mode set to
     raise, and eager against replayed (``graph_vs_eager``); the decode
     step's byte bound over every expert and over the experts its rows
-    routed to."""
-    cfg = get_model_config(MOE_MODEL)
+    routed to; ``cfg`` is the model's at the depth of ``params``."""
     L, E = cfg.num_layers, cfg.num_experts
-    runner = graph_runner(params, "int4", MOE_MODEL)
+    runner = graph_runner(params, "int4", MOE_MODEL, cfg)
     check(runner.moe_impl == "ragged", f"4o(c): runner form {runner.moe_impl}")
     batches = graph_batches(runner)
     rows, calls = [], []
@@ -7417,10 +7459,15 @@ def phase_moe(card: str) -> dict:
     """Phase 4o, (a) to (e). The caller has freed the other models."""
     model = Llama(get_model_config(MOE_MODEL))
     params, tree = moe_tree(model)
-    out = {"tree_4o_a": tree, "model_4o_b": phase_moe_model(model, params)}
+    cut_model, cut = moe_cut(model, params)
+    log(f"  4o(b, c) at {MOE_LAYERS} of {MOE_MODEL}'s "
+        f"{model.cfg.num_layers} layers (the tree's first {MOE_LAYERS})")
+    out = {"tree_4o_a": tree, "layers_4o_bc": MOE_LAYERS,
+           "model_4o_b": phase_moe_model(cut_model, cut)}
     gc.collect()
     torch.cuda.empty_cache()
-    out["steps_4o_c"] = phase_moe_steps(params)
+    out["steps_4o_c"] = phase_moe_steps(cut, cut_model.cfg)
+    del cut
     out["serving_4o_d"] = phase_moe_serving(params, card)
     del params
     gc.collect()
@@ -7495,12 +7542,13 @@ def tp_rank_rows(label: str, before: list, after: list, want: dict,
               f"{want}")
         row = {"rank": a["rank"], "device": a["device"],
                "backend": a["backend"], "graph_counts": a["graph_counts"],
-               "launches": d, "peak_memory_gb": a["peak_memory_bytes"] / 1e9,
+               "launches": d, "param_bytes": a["param_bytes"],
+               "peak_memory_gb": a["peak_memory_bytes"] / 1e9,
                "num_blocks": a["num_blocks"]}
         log(f"  {phase} {label} rank {row['rank']} on {row['device']} "
             f"({row['backend']}): graphs {row['graph_counts']}, launches "
-            f"{d}, peak memory {row['peak_memory_gb']:.2f} GB, "
-            f"{row['num_blocks']} KV blocks")
+            f"{d}, weights {row['param_bytes'] / 1e9:.3f} GB, peak memory "
+            f"{row['peak_memory_gb']:.2f} GB, {row['num_blocks']} KV blocks")
         rows.append(row)
     return rows
 
@@ -7544,6 +7592,27 @@ def tp_model(ranks, model, params, quant, label: str) -> dict:
     if quant:
         want["int4"] = 7 * L * (1 + n)
     per_rank = tp_rank_rows(label, before, after, want)
+    mine, tables = tp_rank_bytes(params, cfg)
+    for row, b, a in zip(per_rank, before, after):
+        t = traffic_since(b, a)["tp_vocab"]
+        row.update(tp_vocab=t, whole_tables_bytes=mine + tables)
+        # A forward gathers the lookup's [B, T, D] rows and all-reduces
+        # the fp32 logits [B, V]: the prefill's 1 x 512, then 2 x 1 a step.
+        want_bytes = (len(prompt) + 2 * n) * cfg.hidden_size * (
+            cfg.torch_dtype.itemsize) + (
+            1 + 2 * n) * cfg.vocab_size * 4
+        check(row["param_bytes"] == mine and t["calls"] == 2 * (1 + n)
+              and t["bytes"] == want_bytes,
+              f"4p {label} rank {a['rank']}: {row['param_bytes']} weight "
+              f"bytes (expected {mine}), tp_vocab {t} (expected "
+              f"{2 * (1 + n)} calls, {want_bytes} bytes)")
+        log(f"  4p {label} rank {a['rank']}: weights {mine / 1e9:.3f} GB, "
+            f"{tables / 1e9:.3f} GB below the {(mine + tables) / 1e9:.3f} GB "
+            f"it held with whole embed and lm_head; peak memory "
+            f"{row['peak_memory_gb']:.2f} GB; tp_vocab (the lookup's gather "
+            f"and the logits' all-reduce) {t['calls']} calls, "
+            f"{t['bytes'] / 2**20:.3f} MiB, {t['seconds'] * 1e3:.1f} ms in "
+            f"the calls ({TP_LABEL})")
     summary = agree(got, ref, f"4p {label}")
     decode_ms = statistics.median(times[1:]) * 1e3
     log(f"  4p {label}: tp 2 against tp 1, 512-token prefill + {n} decode "
@@ -7553,6 +7622,25 @@ def tp_model(ranks, model, params, quant, label: str) -> dict:
     return {"agree": summary, "ranks": per_rank,
             "prefill_ms_gloo_one_card": times[0] * 1e3,
             "decode_ms_gloo_one_card": decode_ms}
+
+
+def tp_rank_bytes(params, cfg) -> tuple:
+    """(bytes of one tp rank's shard of the whole tree ``params``, from
+    the shapes and ``shard_axis``/``shard_top_axis``; the bytes it would
+    hold more with ``embed`` and ``lm_head`` whole)."""
+    mine = cut = 0
+    for tree, axis_of in ((params["layers"], llama_mod.shard_axis),
+                          ({k: v for k, v in params.items()
+                            if k != "layers"}, llama_mod.shard_top_axis)):
+        for k, v in tree.items():
+            n = v.numel() * v.element_size()
+            if axis_of(k) is None:
+                mine += n
+            else:
+                mine += n // TP_SIZE
+                if tree is not params["layers"]:
+                    cut += n - n // TP_SIZE
+    return mine, cut
 
 
 def tp_int4_shapes(card: str) -> list:
@@ -7689,9 +7777,13 @@ def tp_server(card: str, params) -> dict:
         check(r["launches"].get("prefill", 0) > 0
               and r["launches"].get("decode", 0) > 0,
               f"4p server: rank {r['rank']} launched {r['launches']}")
+        check(r["traffic"]["tp_vocab"]["calls"] > 0,
+              f"4p server: rank {r['rank']} traffic {r['traffic']}")
         log(f"  4p(c) rank {r['rank']} on {r['device']} ({r['backend']}): "
-            f"graphs {r['graph_counts']}, launches {r['launches']}, peak "
-            f"memory {r['peak_memory_bytes'] / 1e9:.2f} GB")
+            f"graphs {r['graph_counts']}, launches {r['launches']}, weights "
+            f"{r['param_bytes'] / 1e9:.3f} GB, peak memory "
+            f"{r['peak_memory_bytes'] / 1e9:.2f} GB, tp_vocab "
+            f"{r['traffic']['tp_vocab']}")
     log(f"  4p(c) server up in {t_up:.1f}s; {reports[0]['num_blocks']} KV "
         f"blocks agreed; {len(prompts)} greedy x {n_tok} tokens in "
         f"{t_greedy:.2f}s, a 32-token stream in {t_stream:.2f}s "
@@ -7724,9 +7816,10 @@ def tp_server(card: str, params) -> dict:
 
 
 def phase_tp(card: str, model, params) -> dict:
-    """Phase 4p, (a) to (c), on one card: two ranks share ``cuda:0`` over
+    """Phase 4p (a) and (c) on one card: two ranks share ``cuda:0`` over
     gloo (NCCL refuses two ranks on one device). The NCCL path, a card a
-    rank, is not run here."""
+    rank, is not run here. (b) runs on phase 3b's int4 tree
+    (:func:`phase_tp_int4`)."""
     mode = subprocess.run(
         ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
@@ -7743,21 +7836,6 @@ def phase_tp(card: str, model, params) -> dict:
         out["model_4p_a"] = tp_model(ranks, model, params, None, "(a) bf16")
     finally:
         ranks.close()
-    os.environ["PST_FUSED_KV_WRITE"] = "1"
-    gen = torch.Generator(device=DEV)
-    gen.manual_seed(0)
-    q_params = model.init_params(gen, DEV, quantization="int4")
-    ranks = tp_ranks()
-    try:
-        out["model_4p_b"] = tp_model(ranks, model, q_params, "int4",
-                                     "(b) int4, fused write")
-    finally:
-        ranks.close()
-        os.environ.pop("PST_FUSED_KV_WRITE")
-    del q_params
-    gc.collect()
-    torch.cuda.empty_cache()
-    out["int4_shards_4p_b"] = tp_int4_shapes(card)
     out["server_4p_c"] = tp_server(card, params)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7765,11 +7843,45 @@ def phase_tp(card: str, model, params) -> dict:
     return out
 
 
+def phase_tp_int4(card: str, model, q_params) -> dict:
+    """Phase 4p(b): tp 2 against tp 1 on the int4 tree of seed 0 under
+    ``PST_FUSED_KV_WRITE=1``, then the int4 kernel at each tp-2 shard
+    shape."""
+    t0 = time.perf_counter()
+    fused = os.environ.get("PST_FUSED_KV_WRITE")
+    os.environ["PST_FUSED_KV_WRITE"] = "1"
+    ranks = tp_ranks()
+    try:
+        out = {"model_4p_b": tp_model(ranks, model, q_params, "int4",
+                                      "(b) int4, fused write")}
+    finally:
+        ranks.close()
+        if fused is None:
+            os.environ.pop("PST_FUSED_KV_WRITE")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["int4_shards_4p_b"] = tp_int4_shapes(card)
+    log(f"[phase 4p(b)] passed in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def draw_int4(model):
+    """The int4 tree of seed 0, drawn and quantized on the card (phase
+    3b's, for a phase run alone)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    return model.init_params(gen, DEV, quantization="int4")
+
+
 def tp_only(card: str) -> None:
     """``python3 chip_smoke.py tp``: phase 4p alone."""
     model, params = build_model()
-    print(json.dumps({"tp_4p": phase_tp(card, model, params)}, default=str),
-          flush=True)
+    out = phase_tp(card, model, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(phase_tp_int4(card, model, draw_int4(model)))
+    print(json.dumps({"tp_4p": out}, default=str), flush=True)
 
 
 # Phase 4q: pipeline and data parallelism on one card. Every rank of a
@@ -8121,8 +8233,9 @@ def grid_server(card: str) -> dict:
 
 
 def phase_pp(card: str, model, params) -> dict:
-    """Phase 4q, (a) to (c), on one card: every rank shares ``cuda:0``
-    over gloo. The NCCL path (a card a rank) is not run here."""
+    """Phase 4q (a) and (c) on one card: every rank shares ``cuda:0``
+    over gloo. The NCCL path (a card a rank) is not run here. (b) runs on
+    phase 3b's int4 tree (:func:`phase_dp_int4`)."""
     log(f"[phase 4q] pipeline and data parallelism on one card ({card}); "
         "every rank shares it over gloo, so step times are gloo's transport "
         "through the host, and the NCCL path (a card a rank) is not run")
@@ -8135,20 +8248,6 @@ def phase_pp(card: str, model, params) -> dict:
     finally:
         ranks.close()
     log(f"  4q(a) done at {time.perf_counter() - t0:.1f}s")
-    os.environ["PST_FUSED_KV_WRITE"] = "1"
-    gen = torch.Generator(device=DEV)
-    gen.manual_seed(0)
-    q_params = model.init_params(gen, DEV, quantization="int4")
-    ranks = pp_ranks(DP_LAYOUT)
-    try:
-        out["model_4q_b"] = dp_model(ranks, q_params, card)
-    finally:
-        ranks.close()
-        os.environ.pop("PST_FUSED_KV_WRITE")
-    del q_params
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"  4q(b) done at {time.perf_counter() - t0:.1f}s")
     out["server_4q_c"] = grid_server(card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -8157,11 +8256,34 @@ def phase_pp(card: str, model, params) -> dict:
     return out
 
 
+def phase_dp_int4(card: str, q_params) -> dict:
+    """Phase 4q(b): dp 2 on the int4 tree of seed 0 under
+    ``PST_FUSED_KV_WRITE=1``."""
+    t0 = time.perf_counter()
+    fused = os.environ.get("PST_FUSED_KV_WRITE")
+    os.environ["PST_FUSED_KV_WRITE"] = "1"
+    ranks = pp_ranks(DP_LAYOUT)
+    try:
+        out = {"model_4q_b": dp_model(ranks, q_params, card)}
+    finally:
+        ranks.close()
+        if fused is None:
+            os.environ.pop("PST_FUSED_KV_WRITE")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase 4q(b)] passed in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def pp_only(card: str) -> None:
     """``python3 chip_smoke.py pp``: phase 4q alone."""
     model, params = build_model()
-    print(json.dumps({"pp_4q": phase_pp(card, model, params)}, default=str),
-          flush=True)
+    out = phase_pp(card, model, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out.update(phase_dp_int4(card, draw_int4(model)))
+    print(json.dumps({"pp_4q": out}, default=str), flush=True)
 
 # Phase 4r: sequence and expert parallelism on one card. Every rank shares
 # cuda:0 over gloo, as 4p's and 4q's do: the ring's blocks go through the
@@ -8317,6 +8439,8 @@ def ep_model(model, params, card: str) -> dict:
     cfg = model.cfg
     L = cfg.num_layers
     n_exp = cfg.num_experts // EP_LAYOUT["expert_parallel_size"]
+    log(f"  4r(b) at {L} of {MOE_MODEL}'s "
+        f"{get_model_config(MOE_MODEL).num_layers} layers")
     prompt, decode_tokens = model_prompt(cfg)
     n = len(decode_tokens)
     nb = -(-(len(prompt) + n) // BS) + 1
@@ -8329,7 +8453,7 @@ def ep_model(model, params, card: str) -> dict:
         runner = ranks.build_runner(EngineConfig(
             model=MOE_MODEL, **EP_LAYOUT, quantization="int4",
             num_kv_blocks=nb, block_size=BS, max_model_len=1024,
-            max_num_seqs=2, max_prefill_tokens=len(prompt)))
+            max_num_seqs=2, max_prefill_tokens=len(prompt)), cfg)
         t_build = time.perf_counter() - t0
         try:
             check(runner.moe_impl == "dense"
@@ -8575,11 +8699,17 @@ def phase_ep(card: str) -> dict:
         "are gloo's transport, and the NCCL path is not run")
     t0 = time.perf_counter()
     os.environ.pop("PST_FUSED_KV_WRITE", None)
-    model = Llama(get_model_config(MOE_MODEL))
-    params, tree = moe_tree(model, "4r(b)")
-    out = {"tree_bytes": tree["total"], "tree_s": tree["seconds"],
-           "model_4r_b": ep_model(model, params, card)}
+    cfg = get_model_config(MOE_MODEL)
+    # 4r(b) at MOE_LAYERS: the ranks draw their experts of seed 0 at that
+    # depth, and the one-rank reference the whole tree of it.
+    model = Llama(dataclasses.replace(cfg, num_layers=MOE_LAYERS))
+    out = {"layers_4r_b": MOE_LAYERS,
+           "model_4r_b": ep_model(model, draw_int4(model), card)}
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"  4r(b) done at {time.perf_counter() - t0:.1f}s")
+    params, tree = moe_tree(Llama(cfg), "4r(b)")
+    out.update(tree_bytes=tree["total"], tree_s=tree["seconds"])
     one = one_rank_moe_server(params)
     del params
     gc.collect()
@@ -8603,7 +8733,29 @@ def sp_only(card: str) -> None:
     print(json.dumps({"sp_ep_4r": out}, default=str), flush=True)
 
 
-SPIN_CYCLES = 100_000_000
+SPIN_CYCLES = 100_000_000  # the longest spin, about 50 ms on an H100
+# The shortest spin, and its length against the host's dispatch of the
+# batch behind it, timed on an idle queue.
+SPIN_FLOOR_MS = 5.0
+SPIN_OVER_DISPATCH = 4.0
+_spin_cycles_per_ms: list = []
+
+
+def spin_cycles(ms: float) -> int:
+    """Cycles of ``torch.cuda._sleep`` that keep the card busy for about
+    ``ms``, at most ``SPIN_CYCLES`` (the rate timed once with CUDA
+    events)."""
+    if not _spin_cycles_per_ms:
+        n = SPIN_CYCLES // 5
+        torch.cuda._sleep(n)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(n)
+        b.record()
+        b.synchronize()
+        _spin_cycles_per_ms.append(n / a.elapsed_time(b))
+    return min(SPIN_CYCLES, int(ms * _spin_cycles_per_ms[0]))
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 5) -> float:
@@ -8611,15 +8763,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, reps: int = 5) -> float:
     between two CUDA events, queued behind a spin kernel so that the host's
     dispatch time is not counted (a version that makes the host wait for
     the card, as the plain decode-write does, still counts its stalls);
-    the median over ``reps`` batches."""
+    the median over ``reps`` batches. The spin lasts ``SPIN_OVER_DISPATCH``
+    times the host's dispatch of one batch, timed on an idle queue first
+    (at least ``SPIN_FLOOR_MS``, at most ``SPIN_CYCLES``)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dispatch_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin = spin_cycles(max(SPIN_FLOOR_MS, SPIN_OVER_DISPATCH * dispatch_ms))
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         a.record()
         for _ in range(iters):
             fn()
@@ -9189,6 +9349,11 @@ def main() -> None:
                             ["sp"]):
         sys.exit("usage: python3 chip_smoke.py "
                  "[drift|rounds|engagement|lora|encode|moe|tp|pp|sp]")
+    if not sys.argv[1:]:
+        # 4n(e)'s first server: its cold library build runs, at the lowest
+        # priority, beside phase 1's and the phases after it; then it
+        # waits, idle, for 4n(e).
+        cache_first, cache_dir = start_compile_cache()
     card = phase_toolchain()
     if sys.argv[1:] == ["drift"]:
         drift()
@@ -9303,10 +9468,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     # Phase 4n: the encode path and the cross-encoder; 4n(e)'s first
-    # server builds its kernel library beside 4n(b) and (d).
+    # server built its kernel library beside phase 1.
     encode = {"model_4n_a": {"bf16": phase_encode_model(model, params,
                                                         card)}}
-    cache_first, cache_dir = start_compile_cache()
     encode["serving_4n_bd"] = phase_encode_serving(params, card)
     encode["cache_4n_e"] = phase_compile_cache(cache_first, cache_dir, card)
     gc.collect()
@@ -9331,6 +9495,8 @@ def main() -> None:
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
     q_params, q_per_step = phase_int4_model(model)  # sets PST_FUSED_KV_WRITE=1
+    tp.update(phase_tp_int4(card, model, q_params))  # 4p(b) on this tree
+    pp.update(phase_dp_int4(card, q_params))  # 4q(b) on this tree
     lora["model_4m_b"] = phase_lora_model(model, q_params, lora_paths, "4m(b)")
     shutil.rmtree(LORA_DIR, ignore_errors=True)
     steps.update(phase_step_times(model, q_params, tag="int4_", impls=("cuda",)))

@@ -58,9 +58,11 @@ padding rows). A captured graph reads the bank's address, so
 
 Tensor parallelism (``tensor_parallel_size`` > 1, ``ranks`` given): the
 runner holds its rank's Megatron shard (``models/llama.py::shard_params``;
-random weights drawn whole and cut, a checkpoint cut on read) and its kv
-heads of the cache, and passes the ranks' device group to the model,
-which sums the fp32 products of ``wo`` and ``w_down`` over it. Every
+random weights drawn whole and cut, a checkpoint cut on read; ``embed``
+and ``lm_head`` cut to ``D/tp`` columns) and its kv heads of the cache,
+and passes the ranks' device group to the model, which gathers the
+embedding's columns over it, sums the fp32 products of ``wo`` and
+``w_down`` and the partial logits over it. Every
 device call is split into a dispatch function a follower rank can call
 with the same arguments; on rank 0 it is announced to the followers
 first (``publisher``, ``engine/multihost.py``) and runs under the
@@ -591,9 +593,9 @@ class ModelRunner:
 
     def rank_report(self) -> Dict[str, Any]:
         """This rank's coordinates, device, device groups' backends,
-        graph counts, kernel launch counts, peak device memory (and the
-        last encode's, above what it found), KV blocks and rows
-        digest."""
+        weight bytes, graph counts, kernel launch counts, peak device
+        memory (and the last encode's, above what it found), KV blocks
+        and rows digest."""
         cuda = self.device.type == "cuda"
         return {
             "rank": self.rank,
@@ -602,6 +604,8 @@ class ModelRunner:
             "backend": self.ranks.backend if self.ranks else None,
             "backends": dict(self.ranks.backends) if self.ranks else {},
             "layers": self.local_cfg.num_layers,
+            # This rank's resident weights, as stored (its shard).
+            "param_bytes": self.param_bytes,
             "graph_counts": dict(self.graph_counts),
             # The kernels' launch counters that moved, the int4 routes
             # named ``int4_<route>``.
@@ -617,7 +621,8 @@ class ModelRunner:
                 torch.cuda.max_memory_allocated(self.device)) if cuda else 0),
             "encode_peak_bytes": self.encode_peak_bytes,
             "num_blocks": self.num_blocks,
-            # This process's hand-offs and dp exchanges (eager calls).
+            # This process's hand-offs, dp exchanges, ring hops, ep
+            # combines and tp table traffic (eager calls).
             "traffic": {k: dict(v) for k, v in PARALLEL_TRAFFIC.items()},
             "rows_digest": (int(self._rows_digest)
                             if self._rows_digest is not None else None),

@@ -625,6 +625,11 @@ def create_engine_app(
 
         def _send(self, status: int, body: bytes, content_type: str,
                   headers: Optional[dict] = None) -> None:
+            # A traced answer's timeline is filed (the root span ended,
+            # its stage counted, the ring holding it) before its bytes
+            # leave, as the JAX middleware finishes before aiohttp writes:
+            # a caller's next request finds it.
+            self.trace.finish(status=status)
             self.send_response(status)
             self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(body)))
@@ -1917,8 +1922,11 @@ def cross_encoder_from_args(args: argparse.Namespace):
     return ce
 
 
-class _Terminated(Exception):
-    """Raised in the main thread by SIGTERM, to leave ``serve_forever``."""
+class _Terminated(BaseException):
+    """Raised in the main thread by SIGTERM, to leave ``serve_forever``.
+    Not an ``Exception``: ``socketserver`` catches those while it starts a
+    request's thread, and a SIGTERM landing there would be logged and
+    lost."""
 
 
 def _on_sigterm(signum, frame):

@@ -68,15 +68,21 @@ dim; ``wo`` and ``w_down`` are row-parallel. A quantized tree is sliced,
 never quantized again: int8 scales follow their weight's output
 channels (a row-parallel weight's stay whole), int4 packed rows and
 group scales are cut on whole groups. The LoRA bank's B of q/k/v is cut
-on its output dim and the A of ``wo`` on its input dim; norms, the
-router, ``embed`` and ``lm_head`` stay whole on every rank, so the
-logits need no gather. ``init_params`` and ``load_hf_params`` take
+on its output dim and the A of ``wo`` on its input dim; ``embed`` and
+``lm_head`` on their hidden dim (:func:`shard_top_axis`, the JAX
+``P(None, tensor)``), a rank holding ``D/tp`` columns of each table;
+norms, the router and the tables' int8 per-row scales stay whole on
+every rank. ``init_params`` and ``load_hf_params`` take
 ``shard=(rank, tp)`` and keep only the rank's slice of each leaf, which
 equals the same slice of the whole tree. ``forward`` and ``encode`` take
-the ranks' device group (``tp_group``; None for one rank): each rank runs
-its heads (a cache of ``[L, nb, 2, bs, (KH/tp)*hd]``) and its slice of
-the FFN, and the fp32 products of ``wo`` and ``w_down`` (or the experts'
-combine) are summed over the group before their one cast.
+the ranks' device group (``tp_group``; None for one rank): each rank
+looks up its columns of the embedding and the slices are gathered into
+whole rows, runs its heads (a cache of ``[L, nb, 2, bs, (KH/tp)*hd]``)
+and its slice of the FFN, and the fp32 products of ``wo`` and ``w_down``
+(or the experts' combine) are summed over the group before their one
+cast; the unembed multiplies each rank's columns of the final hidden
+state by its columns of the table and sums the fp32 partial logits over
+the group, before the int8 row scale and the softcap.
 
 Pipeline parallelism (the JAX ``param_pspecs(pipeline=True)``,
 ``lora_pspecs`` and ``cache_pspec``, and ``pp_compose``): a stage of
@@ -299,7 +305,12 @@ def shard_axis(name: str) -> Optional[int]:
 def shard_leaf(name: str, t, rank: int, tp: int):
     """Rank ``rank``'s contiguous slice of layer leaf ``name`` (a tensor,
     or a numpy array) of ``tp``: ``t`` itself where it stays whole."""
-    axis = shard_axis(name)
+    return _cut(name, t, shard_axis(name), rank, tp)
+
+
+def _cut(name: str, t, axis: Optional[int], rank: int, tp: int):
+    """Rank ``rank``'s contiguous slice of ``t`` on ``axis`` (-1 or -2)
+    of ``tp``: ``t`` itself where ``axis`` is None."""
     if tp == 1 or axis is None:
         return t
     n = t.shape[axis]
@@ -312,17 +323,34 @@ def shard_leaf(name: str, t, rank: int, tp: int):
              + ((slice(None),) if axis == -2 else ())].copy()
 
 
+def shard_top_axis(name: str) -> Optional[int]:
+    """The axis a top leaf is cut on across tensor-parallel ranks: -1 (the
+    hidden dim, the JAX ``P(None, tensor)``) for ``embed`` and
+    ``lm_head``; None for their int8 per-row scales (one a vocabulary
+    row, over the whole row) and ``final_norm``, which every rank holds
+    whole."""
+    return -1 if name in QUANT_TOP_KEYS else None
+
+
+def shard_top(name: str, t, rank: int, tp: int):
+    """Rank ``rank``'s columns of top leaf ``name`` of ``tp`` (a tensor or
+    a numpy array): ``t`` itself where it stays whole."""
+    return _cut(name, t, shard_top_axis(name), rank, tp)
+
+
 def check_tp(cfg: "LlamaConfig", tp: int,
              quantization: Optional[str] = None) -> None:
     """Raise ``ValueError`` unless ``cfg`` splits over ``tp`` ranks: whole
-    query and kv heads and an FFN hidden dim a rank, and under int4 a
+    query and kv heads, an FFN hidden dim and a hidden dim (the tables'
+    columns) a rank, and under int4 a
     whole number of the full weight's groups in each row-parallel
     contraction (the kernels read the group from the shapes)."""
     if tp < 1:
         raise ValueError(f"tensor_parallel_size must be >= 1, got {tp}")
     for what, n in (("num_heads", cfg.num_heads),
                     ("num_kv_heads", cfg.num_kv_heads),
-                    ("intermediate_size", cfg.intermediate_size)):
+                    ("intermediate_size", cfg.intermediate_size),
+                    ("hidden_size", cfg.hidden_size)):
         if n % tp:
             raise ValueError(f"{what}={n} is not divisible by "
                              f"tensor_parallel_size={tp}")
@@ -479,11 +507,12 @@ def tp_local_config(cfg: "LlamaConfig", tp: int) -> "LlamaConfig":
 def shard_params(params: "Params", cfg: "LlamaConfig", rank: int,
                  tp: int) -> "Params":
     """Rank ``rank``'s shard of a whole tree (quantized or not, with or
-    without a LoRA bank): each layer leaf cut per :func:`shard_axis`, the
-    top leaves (``embed``, ``lm_head``, ``final_norm`` and their scales)
-    whole."""
+    without a LoRA bank): each layer leaf cut per :func:`shard_axis`, each
+    top leaf per :func:`shard_top_axis` (``embed`` and ``lm_head`` on their
+    hidden dim; their scales and ``final_norm`` whole)."""
     check_tp(cfg, tp, quant_mode(params))
-    out = {k: v for k, v in params.items() if k != "layers"}
+    out = {k: shard_top(k, v, rank, tp) for k, v in params.items()
+           if k != "layers"}
     out["layers"] = {k: shard_leaf(k, v, rank, tp)
                      for k, v in params["layers"].items()}
     return out
@@ -503,17 +532,19 @@ def _tp_heads(cfg: "LlamaConfig", group) -> Tuple[int, int]:
     return cfg.num_heads // tp, cfg.num_kv_heads // tp
 
 
-# What this process's pipeline hand-offs, dp K/V exchanges, ring hops
-# and ep combines moved: calls, bytes (a hand-off's broadcast tensor; an
-# exchange's gathered rows and slots; a hop's K/V block sent; an
-# all-reduced combine) and the host seconds inside the collective calls
+# What this process's pipeline hand-offs, dp K/V exchanges, ring hops,
+# ep combines and tp table traffic moved: calls, bytes (a hand-off's
+# broadcast tensor; an exchange's gathered rows and slots; a hop's K/V
+# block sent; an all-reduced combine; the lookup's gathered [B, T, D]
+# rows and the unembed's all-reduced fp32 logits, under ``tp_vocab``)
+# and the host seconds inside the collective calls
 # (under gloo a call returns once its bytes moved, a receiver's wait for
 # its peer included; under NCCL once they are queued). Eager calls only:
 # a captured step's replays run no Python. Read by the runner's rank
 # report.
 PARALLEL_TRAFFIC: Dict[str, Dict[str, float]] = {
     kind: {"calls": 0, "bytes": 0, "seconds": 0.0}
-    for kind in ("handoff", "dp_share", "sp_ring", "ep_reduce")
+    for kind in ("handoff", "dp_share", "sp_ring", "ep_reduce", "tp_vocab")
 }
 
 
@@ -551,16 +582,24 @@ def _run_stages(x: torch.Tensor, group, stage: int, pp: int,
 
 
 def _stage_input(params: "Params", cfg: "LlamaConfig", tokens: torch.Tensor,
-                 stage: int) -> torch.Tensor:
+                 stage: int, tp_group=None) -> torch.Tensor:
     """The residual stream entering the layers: stage 0's embedding (its
     ``sqrt(D)`` scale rounded to the model dtype first, the HF-Gemma
     convention); on a later stage an empty buffer of the same shape and
-    type, which the hand-off fills."""
+    type, which the hand-off fills. Across ``tp_group`` each rank looks up
+    its ``D/tp`` columns and the slices are gathered, in rank order, into
+    the whole rows: a gather moves bits, so the stream equals one rank's."""
     B, T = tokens.shape
     if stage:
         return torch.empty((B, T, cfg.hidden_size), dtype=cfg.torch_dtype,
                            device=tokens.device)
-    x = _embed_lookup(params, tokens.long(), cfg.torch_dtype)  # [B, T, D]
+    x = _embed_lookup(params, tokens.long(), cfg.torch_dtype)  # [B, T, D/tp]
+    if tp_group is not None:
+        t0 = time.perf_counter()
+        parts = [torch.empty_like(x) for _ in range(tp_group.size())]
+        dist.all_gather(parts, x, group=tp_group)
+        x = torch.cat(parts, dim=-1)  # [B, T, D]
+        _count_traffic("tp_vocab", x.numel() * x.element_size(), t0)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.hidden_size), dtype=x.dtype)
     return x
@@ -748,8 +787,10 @@ class Llama:
         generator state, bit for bit.
 
         ``shard=(rank, tp)``: each slice is still drawn (and quantized)
-        whole, so the generator advances as for the whole tree, and only
-        the rank's cut of it is kept: the result equals
+        whole, so the generator advances as for the whole tree and a
+        table's int8 row scales see its whole rows, and only the rank's
+        cut of it is kept (of ``embed`` and ``lm_head``, its ``D/tp``
+        columns): the result equals
         ``shard_params(init_params(...), cfg, rank, tp)``.
 
         ``stage=(stage, pp)``: every slice is still drawn, in order, and
@@ -772,15 +813,15 @@ class Llama:
         ep = experts[1] if experts else 1
         mine_e = (expert_span(self.cfg, *experts) if ep > 1 else None)
 
-        def cut(name: str, t: torch.Tensor) -> torch.Tensor:
-            return shard_leaf(name, t, rank, tp)
+        def cut(name: str, t: torch.Tensor, layer: bool) -> torch.Tensor:
+            return (shard_leaf if layer else shard_top)(name, t, rank, tp)
 
         def banked(name: str, layer: bool) -> bool:
             return layer and mine_e is not None and is_expert_leaf(name)
 
         def local(name: str, shape, layer: bool) -> Tuple[int, ...]:
             out = list(shape)
-            axis = shard_axis(name)
+            axis = shard_axis(name) if layer else shard_top_axis(name)
             if tp > 1 and axis is not None:
                 out[axis] //= tp
             if layer:
@@ -824,14 +865,14 @@ class Llama:
             if quantization is None or not quantized:
                 out = torch.empty(mine, dtype=dtype, device=device)
                 for part in out.view(-1, *mine[-2:]):
-                    part.copy_(cut(name, next(slices)))
+                    part.copy_(cut(name, next(slices), layer))
                 params[name] = out
             else:
                 fn, suffix = _quantizer(name, quantization)
 
                 def make(i: int) -> Tuple[torch.Tensor, torch.Tensor]:
                     q, s = fn(next(slices))
-                    return cut(name, q), cut(name + suffix, s)
+                    return cut(name, q, layer), cut(name + suffix, s, layer)
 
                 params[name], params[name + suffix] = _stack_slices(
                     mine[:-2], make)
@@ -973,7 +1014,7 @@ class Llama:
             lora_scale = lora_scale.float()[:, None, None]
 
         offset = cfg.norm_unit_offset
-        x = _stage_input(params, cfg, tokens, pp_stage)  # [B, T, D]
+        x = _stage_input(params, cfg, tokens, pp_stage, tp_group)  # [B, T, D]
         rope_cos, rope_sin = _rope_tables(positions, cfg)
 
         fused = _decode_write_fused(attn_impl, tokens.is_cuda, T)
@@ -1064,13 +1105,13 @@ class Llama:
 
         x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps, offset)
         head = "lm_head" if "lm_head" in params else "embed"
-        unembed = _wcast(params[head], x.dtype)  # [V, D]
+        unembed = _wcast(params[head], x.dtype)  # [V, D/tp]
         if all_logits:
-            logits = unembed_logits(x.reshape(B * T, -1), unembed).view(
-                B, T, -1)
+            logits = unembed_logits(x.reshape(B * T, -1), unembed,
+                                    tp_group).view(B, T, -1)
         else:
             last = x[torch.arange(B, device=x.device), last_idx.long()]
-            logits = unembed_logits(last, unembed)  # [B, V]
+            logits = unembed_logits(last, unembed, tp_group)  # [B, V]
         uqs = params.get(head + QUANT_SUFFIX)
         if uqs is not None:
             logits = logits * uqs  # per-vocab-row scale
@@ -1124,7 +1165,7 @@ class Llama:
         rotate = ring_rotate(sp_group) if sp > 1 else None
         offset = cfg.norm_unit_offset
         positions = torch.arange(T, device=dev)[None, mine].expand(B, Tl)
-        x = _stage_input(params, cfg, tokens[:, mine], pp_stage)
+        x = _stage_input(params, cfg, tokens[:, mine], pp_stage, tp_group)
         rope_cos, rope_sin = _rope_tables(positions, cfg)
         lengths = lengths.to(dev).long()
         layers = params["layers"]
@@ -1260,10 +1301,23 @@ def _rows_with_spare(kv_cache: torch.Tensor) -> torch.Tensor:
     return kv_cache.as_strided((n + 1, lanes), (lanes, 1))
 
 
-def unembed_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def unembed_logits(x: torch.Tensor, w: torch.Tensor,
+                   tp_group=None) -> torch.Tensor:
     """Logits ``x @ w.T`` in float32. bf16 products keep their float32
-    accumulator, as the JAX package's ``preferred_element_type`` does."""
-    return mm_f32(x, w.t())
+    accumulator, as the JAX package's ``preferred_element_type`` does.
+    Across ``tp_group`` ``w`` is the rank's ``[V, D/tp]`` columns: each
+    rank multiplies its columns of ``x`` and the fp32 partial logits are
+    summed over the group, before any scale or softcap, where XLA sums
+    the sharded contraction."""
+    if tp_group is None:
+        return mm_f32(x, w.t())
+    k = w.shape[-1]
+    rank = dist.get_group_rank(tp_group, dist.get_rank())
+    logits = mm_f32(x[:, rank * k:(rank + 1) * k], w.t())
+    t0 = time.perf_counter()
+    _all_reduce(logits, tp_group)
+    _count_traffic("tp_vocab", logits.numel() * logits.element_size(), t0)
+    return logits
 
 
 def _decode_write_fused(attn_impl: str, on_cuda: bool, T: int) -> bool:
@@ -1327,8 +1381,9 @@ def lora_delta(lp: Params, t: str, x: torch.Tensor, lora_idx: torch.Tensor,
 
 def _embed_lookup(params: Params, tokens: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
-    """Token embedding gather; an int8 table dequantizes its rows with
-    their per-row scale."""
+    """Token embedding gather (of the rank's columns of a sharded table);
+    an int8 table dequantizes its rows with their per-row scale, which
+    every rank holds whole."""
     x = params["embed"][tokens]
     s = params.get("embed" + QUANT_SUFFIX)
     if s is not None:
@@ -1593,9 +1648,10 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
     as soon as it lands, with the numpy loader's division
     (``divide=True``), and only the quantized leaf stays.
 
-    ``shard=(rank, tp)``: each layer's tensor is cut to the rank's slice
-    as it lands (after its quantization, which sees the whole tensor):
-    the result equals ``shard_params`` of the whole tree.
+    ``shard=(rank, tp)``: each layer's tensor, and ``embed`` and
+    ``lm_head`` (to their ``D/tp`` columns), is cut to the rank's slice as
+    it lands (after its quantization, which sees the whole tensor): the
+    result equals ``shard_params`` of the whole tree.
 
     ``stage=(stage, pp)``: only the stage's layers are read: the result
     equals ``stage_params`` of the whole tree.
@@ -1631,9 +1687,11 @@ def load_hf_params(cfg: LlamaConfig, model_dir: str, quantize=None,
             w = ck.tensor(names).to(device)
             if qmode and ours in QUANT_TOP_KEYS:
                 fn, suffix = _quantizer(ours, qmode, divide=True)
-                tree[ours], tree[ours + suffix] = fn(w)
+                q, s = fn(w)
+                tree[ours] = shard_top(ours, q, rank, tp)
+                tree[ours + suffix] = shard_top(ours + suffix, s, rank, tp)
             else:
-                tree[ours] = w.to(dtype)
+                tree[ours] = shard_top(ours, w.to(dtype), rank, tp)
             return
         lead = lead or (len(names),)
         if qmode and ours in QUANT_LAYER_KEYS:

@@ -6,8 +6,10 @@ rank 0, one spawned process rank 1, every collective bounded by
 ``TIMEOUT_S``); each check builds its runners and engines on it, and each
 one's shutdown returns the follower to its loop.
 
-- ``shard_params`` then reassembly along ``shard_axis`` gives the tree
-  back leaf for leaf (bf16, int8, int4, a LoRA bank, MoE banks), and
+- ``shard_params`` then reassembly along ``shard_axis`` and
+  ``shard_top_axis`` gives the tree back leaf for leaf (bf16, int8, int4,
+  a tied table, a LoRA bank, MoE banks; ``embed`` and ``lm_head`` cut to
+  ``[V, D/2]``, their int8 row scales whole), and
   ``init_params(shard=...)`` and ``load_hf_params(shard=...)`` give
   exactly the slice ``shard_params`` cuts; a model that does not split is
   refused.
@@ -35,6 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import NamedSharding
 
 from production_stack_tpu.engine.config import EngineConfig as JaxEngineConfig
 from production_stack_tpu.engine.engine import LLMEngine as JaxLLMEngine
@@ -42,6 +45,11 @@ from production_stack_tpu.engine.sequence import (
     SamplingParams as JaxSamplingParams,
 )
 from production_stack_tpu.models.llama import Llama as JaxLlama
+from production_stack_tpu.models.llama import (
+    quantize_tree as jax_quantize_tree,
+)
+from production_stack_tpu.parallel.mesh import MeshConfig as JaxMeshConfig
+from production_stack_tpu.parallel.mesh import build_mesh
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine import multihost
 from production_stack_tpu_torch.engine.engine import LLMEngine
@@ -55,6 +63,7 @@ from production_stack_tpu_torch.models.llama import (
     shard_axis,
     shard_leaf,
     shard_params,
+    shard_top_axis,
     tp_local_config,
 )
 from production_stack_tpu_torch.models.registry import get_model_config
@@ -114,17 +123,23 @@ def _same_rows(runner):
 
 
 def _reassemble(shards):
-    """The whole tree from its rank shards, along ``shard_axis``."""
-    out = {k: v for k, v in shards[0].items() if k != "layers"}
-    out["layers"] = {}
+    """The whole tree from its rank shards, along ``shard_axis`` (a layer
+    leaf) and ``shard_top_axis`` (a top leaf)."""
+    out = {"layers": {}}
     for k, v in shards[0]["layers"].items():
         axis = shard_axis(k)
         out["layers"][k] = (v if axis is None else
                             torch.cat([s["layers"][k] for s in shards], axis))
-    for s in shards[1:]:  # the whole leaves are the same on every rank
-        for k, v in s.items():
-            if k != "layers":
-                assert torch.equal(v, out[k]), k
+    for k, v in shards[0].items():
+        if k == "layers":
+            continue
+        axis = shard_top_axis(k)
+        if axis is None:  # the whole top leaves are the same on every rank
+            for s in shards[1:]:
+                assert torch.equal(s[k], v), k
+            out[k] = v
+        else:
+            out[k] = torch.cat([s[k] for s in shards], axis)
     return out
 
 
@@ -143,9 +158,11 @@ def test_shard_params_reassembles_every_tree(tmp_path):
                                num_heads=16, num_kv_heads=16,
                                attention_bias=True)
     moe = dataclasses.replace(base, num_experts=4, attention_bias=False)
+    tied = dataclasses.replace(base, tie_word_embeddings=True)
     cpu = torch.device("cpu")
     for cfg, quant, lora in ((base, None, False), (base, "int8", False),
                              (base, "int4", False), (base, None, True),
+                             (tied, "int8", False),
                              (moe, None, False), (moe, "int4", False)):
         model = Llama(cfg)
         tree = model.init_params(torch.Generator().manual_seed(3), cpu,
@@ -160,6 +177,15 @@ def test_shard_params_reassembles_every_tree(tmp_path):
         _equal_trees(_reassemble(shards), tree)
         assert shards[0]["layers"]["wq"].shape[-1] == tp_local_config(
             cfg, 2).q_size
+        tables = ("embed",) if cfg.tie_word_embeddings else ("embed",
+                                                            "lm_head")
+        assert [k for k in tree if k in ("embed", "lm_head")] == list(tables)
+        for r in (0, 1):  # D/2 columns of each table; row scales whole
+            for k in tables:
+                assert shards[r][k].shape == (cfg.vocab_size,
+                                              cfg.hidden_size // 2)
+                if quant:
+                    assert torch.equal(shards[r][k + "_qs"], tree[k + "_qs"])
         if not lora:  # drawn whole and cut: the same slice
             for r in (0, 1):
                 _equal_trees(model.init_params(
@@ -171,15 +197,17 @@ def test_shard_params_reassembles_every_tree(tmp_path):
                                   shards[1]["layers"]["lora_a_wo"]
                                   .float().numpy())
     # A checkpoint is cut on read: the whole tree's shards (Qwen2's biases
-    # and GQA; int8 scales of the row-parallel wo and w_down stay whole).
-    path = _checkpoint(tmp_path / "ckpt", "qwen2")
-    cfg = config_from_hf_json(f"{path}/config.json")
-    for quant in (None, "int8"):
-        whole = load_hf_params(cfg, path, quantize=quant)
-        for r in (0, 1):
-            _equal_trees(load_hf_params(cfg, path, quantize=quant,
-                                        shard=(r, 2)),
-                         shard_params(whole, cfg, r, 2))
+    # and GQA; int8 scales of the row-parallel wo and w_down stay whole;
+    # Gemma's one tied table).
+    for model_type in ("qwen2", "gemma"):
+        path = _checkpoint(tmp_path / model_type, model_type)
+        cfg = config_from_hf_json(f"{path}/config.json")
+        for quant in (None, "int8"):
+            whole = load_hf_params(cfg, path, quantize=quant)
+            for r in (0, 1):
+                _equal_trees(load_hf_params(cfg, path, quantize=quant,
+                                            shard=(r, 2)),
+                             shard_params(whole, cfg, r, 2))
     tiny = get_model_config("tiny-llama-debug")
     check_tp(tiny, 2)
     with pytest.raises(ValueError, match="int4 wo"):
@@ -188,25 +216,73 @@ def test_shard_params_reassembles_every_tree(tmp_path):
         check_tp(tiny, 3)
 
 
+def _on_tp2_mesh(jmodel, jparams, quant):
+    """``jparams`` placed by ``param_pspecs`` on a tp-2 mesh of the
+    conftest's virtual CPU devices: the JAX forward and encode then run at
+    ``tensor_parallel_size=2``, each table cut on its hidden dim."""
+    mesh = build_mesh(JaxMeshConfig(tensor_parallel_size=2),
+                      jax.devices()[:2])
+    return jax.tree.map(
+        lambda x, s: jax.device_put(x, NamedSharding(mesh, s)), jparams,
+        jmodel.param_pspecs(quantize=quant or False))
+
+
+def _near_bf16(got, want, label):
+    """The repo's rule for bf16 against JAX, 3e-2 * max|want|
+    (``test_torch_model.test_forward_bfloat16_near_jax``): the packages
+    round intermediate bf16 values at different points, one rank or two."""
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=3e-2 * float(np.abs(want).max()),
+                               err_msg=label)
+
+
 def test_forward_and_encode_match_jax(ranks):
-    """Llama (forward and encode) and Gemma-2 (post-block norms after the
-    reduce, softcaps) against the JAX forward, every norm weight moved off
-    1. Mixtral's reduce after the experts' combine is held by its
-    engine's tokens below."""
+    """Llama and the tied Gemma-2 (post-block norms after the reduce,
+    softcaps) at tp 2 in fp32, forward (a prefill, then a verify-shaped
+    step with every position's logits) and encode, against the JAX
+    ``forward`` and ``encode`` at ``tensor_parallel_size=2`` under
+    ``_agree``, every norm weight moved off 1. Each rank holds ``D/2``
+    columns of each table: its lookup is gathered and its partial logits
+    summed, one ``tp_vocab`` call each (two a forward step). Mixtral's
+    reduce after the experts' combine is held by its engine's tokens
+    below."""
+    _forward_and_encode(ranks, "float32", None)
+
+
+@pytest.mark.parametrize("dtype,quant", [("float32", "int8"),
+                                         ("bfloat16", None)],
+                         ids=["int8", "bf16"])
+def test_forward_and_encode_match_jax_quantized_and_bf16(ranks, dtype,
+                                                         quant):
+    """The same in int8 (a JAX ``quantize_tree`` output: the tables' int8
+    rows cut, their row scales whole) under ``_agree``, and in bf16 under
+    the repo's bf16 rule."""
+    _forward_and_encode(ranks, dtype, quant)
+
+
+def _forward_and_encode(ranks, dtype, quant):
+    agree = _agree if dtype == "float32" else _near_bf16
     prefill, verify = _verify_steps(512)
     names = ("tokens", "positions", "write_idx", "block_tables", "kv_lens",
              "last_idx")
+    toks = np.array(REPEAT + RANDOM, np.int32)
     for name in ("tiny-llama-debug", "tiny-gemma2-debug"):
-        jcfg, tcfg = gemma._configs(name, dtype="float32")
+        jcfg, tcfg = gemma._configs(name, dtype=dtype)
         jmodel = JaxLlama(jcfg)
         jparams = gemma._jax_params(jmodel)  # every norm off 1
+        if quant:
+            jparams = jax_quantize_tree(jparams, quant)
         params = params_from_jax(jax.tree.map(np.asarray, jparams))
+        jparams = _on_tp2_mesh(jmodel, jparams, quant)
         jforward = jax.jit(jmodel.forward,
                            static_argnames=("attn_impl", "all_logits"))
         jcache = jmodel.make_kv_cache(model_test.NB, model_test.BS)
         with tp_runner(ranks, tcfg, params, num_kv_blocks=model_test.NB,
                        block_size=model_test.BS) as runner:
             assert runner.kv_cache.shape[-1] == tcfg.kv_size // 2
+            assert runner.params["embed"].shape == (tcfg.vocab_size,
+                                                    tcfg.hidden_size // 2)
+            before = runner.rank_reports()
             for step, all_logits in ((prefill, False), (verify, True)):
                 want, jcache = jforward(
                     jparams, *(jnp.asarray(a) for a in step), jcache,
@@ -215,16 +291,22 @@ def test_forward_and_encode_match_jax(ranks):
                                             all_logits=all_logits)
                 want = np.asarray(want)
                 for row in ((0, 2) if all_logits else (0,)):
-                    _agree(got.numpy()[row], want[row], f"{name} {row}")
-            if name != "tiny-llama-debug":
-                continue
-            toks = np.array(REPEAT + RANDOM, np.int32)
-            want = np.asarray(jmodel.encode(
+                    agree(got.numpy()[row], want[row], f"{name} {row}")
+            want = np.asarray(jax.jit(jmodel.encode)(
                 jparams, jnp.asarray(toks[None]),
                 jnp.asarray([len(toks)], jnp.int32)))[0]
-            np.testing.assert_allclose(runner.encode(toks.tolist()), want,
-                                       atol=2e-3 * np.abs(want).max(),
-                                       rtol=2e-3)
+            agree(runner.encode(toks.tolist()), want, f"{name} encode")
+            padded = runner.encode_input(toks.tolist())[0].size
+            after = runner.rank_reports()
+        for b, a in zip(before, after):
+            vocab = {k: a["traffic"]["tp_vocab"][k]
+                     - b["traffic"]["tp_vocab"][k] for k in ("calls", "bytes")}
+            width = tcfg.hidden_size * tcfg.torch_dtype.itemsize
+            assert vocab == {"calls": 5, "bytes": (
+                (prefill[0].size + verify[0].size) * width  # the gathers
+                + (prefill[0].shape[0] + verify[0].size)
+                * tcfg.vocab_size * 4  # the fp32 logits
+                + padded * width)}, vocab  # the encode's gather
 
 
 @pytest.fixture(scope="module")
