@@ -749,6 +749,16 @@ max_err = {k: 0.0 for k in KERNELS}
 
 # Llama-3-8B projections: (din, dout) of wq/wo, wk/wv, w_gate/w_up, w_down.
 INT4_SHAPES = ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096))
+# The same four of llama-3-70b (224 groups of 128 rows in w_down) and of
+# llama-1b: with Llama-3-8B's, every preset's int4 projection shape.
+INT4_SHAPES_70B = ((8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192))
+INT4_SHAPES_1B = ((2048, 2048), (2048, 1024), (2048, 5632), (5632, 2048))
+# llama-3-70b: served in int4 on one card (phase 4u); its heads, H=64 over
+# KH=8 (G=8 at head_dim 128); the model check's depth (the tree's first
+# layers: a bf16 copy of all 80 for the gather path would not fit).
+BIG_MODEL = "llama-3-70b"
+BIG_HEADS = dict(h=64, kh=8)
+BIG_LAYERS = 8
 # The seven projections of a layer, in that order: wq, wk, wv, wo, w_gate,
 # w_up, w_down.
 LAYER_SHAPES = ((4096, 4096), (4096, 1024), (4096, 1024), (4096, 4096),
@@ -1952,15 +1962,55 @@ def int4_check(x, packed, scales, label, want_route):
     return err, bf16_row_check(got, ref)[1]
 
 
+def phase_big_attention(cache_dtype=torch.bfloat16) -> None:
+    """llama-3-70b's heads (H=64 over KH=8, G=8 at head_dim 128) over a
+    bf16 or an e4m3 cache: the split-KV decode and the decode-write over
+    ragged lengths to 4096 (a kv_len 0 row), the wgmma prefill at T=512
+    fresh beside T=512 continuing at 3584, and T=100 at mixed starts."""
+    pac.reset_launch_counts()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(7070)
+    tag = f"{str(cache_dtype)[6:]} {BIG_MODEL}'s heads (H=64, KH=8)"
+    case = functools.partial(make_case, cache_dtype=cache_dtype, **BIG_HEADS)
+    kh = BIG_HEADS["kh"]
+    lens = [0, 1, 31, 32, 33, 4096, 4000, 777]
+    q, cache, tables, kl, _ = case(gen, B=8, T=1, kv_lens=lens)
+    got, ref = run_decode(q[:, 0], cache, tables, kl, 1)
+    check(bool((got[0] == 0).all()), "decode: kv_len 0 row must be zeros")
+    compare(form("decode", cache_dtype), got, ref,
+            f"decode {tag} B=8 kv_lens={lens} "
+            f"({splits_of(q, cache, tables)} splits)")
+    pos = [max(n - 1, 0) for n in lens]
+    wf = write_slots(tables, pos, [0], cache.shape[1])
+    k_new = torch.randn((8, kh * HD), generator=gen, device=DEV).bfloat16()
+    v_new = torch.randn((8, kh * HD), generator=gen, device=DEV).bfloat16()
+    got, ref = run_decode_write(q[:, 0], cache, tables, kl, 1, k_new, v_new,
+                                wf)
+    compare(form("decode_write", cache_dtype), got, ref,
+            f"decode_write {tag} B=8 kv_lens={lens} (row 0 dropped): "
+            "caches equal;")
+    for T, starts, kv_lens in ((512, [0, 3584], [512, 4096]),
+                               (100, [0, 300, 1000], [100, 0, 1100])):
+        q, cache, tables, kl, st = case(gen, B=len(starts), T=T,
+                                        kv_lens=kv_lens, starts=starts)
+        got, ref = run_prefill(q, cache, tables, kl, st, 1)
+        compare(form("prefill", cache_dtype), got, ref,
+                f"prefill {tag} T={T} starts={starts} kv_lens={kv_lens} "
+                f"({prefill_splits_of(q, cache, tables)} splits)")
+    check(sum(n for k, n in pac.route_counts.items() if "simt" in k) == 0,
+          f"{tag}: a bf16 launch took a CUDA-core kernel")
+
+
 def phase_int4_kernels() -> None:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(777)
-    # bf16 (tensor-core routes): every projection shape at decode rows (1, 2
-    # and every bucket up to the decode route's boundary) and at 17, 64,
-    # 300, 512 and 2048 rows (the wgmma kernel above the boundary).
+    # bf16 (tensor-core routes): every projection shape of every preset
+    # (Llama-3-8B's, llama-3-70b's, llama-1b's) at decode rows (1, 2 and
+    # every bucket up to the decode route's boundary) and at 17, 64, 300,
+    # 512 and 2048 rows (the wgmma kernel above the boundary).
     edge = i4._DECODE_MAX_ROWS
     decode_rows = sorted({1, 2, 8, 16} | {b for b in DECODE_BUCKETS if b <= edge})
-    for din, dout in INT4_SHAPES:
+    for din, dout in INT4_SHAPES + INT4_SHAPES_70B + INT4_SHAPES_1B:
         packed, scales = int4_weights(gen, din, dout)
         for N in decode_rows + [17, 64, 300, 512, 2048]:
             x = torch.randn((N, din), generator=gen, device=DEV).bfloat16()
@@ -2179,15 +2229,15 @@ GRAPH_B, GRAPH_CTX, GRAPH_T, GRAPH_N = 8, 4096, 512, 4
 
 
 def graph_runner(params, quantization=None, model=MODEL,
-                 model_cfg=None) -> ModelRunner:
+                 model_cfg=None, B: int = GRAPH_B) -> ModelRunner:
     """A runner of the full-width ``model`` over ``params`` with pages for
-    ``GRAPH_B`` sequences of ``GRAPH_CTX`` tokens, filled with random
-    keys and values (every step reads all of them)."""
+    ``B`` sequences of ``GRAPH_CTX`` tokens, filled with random keys and
+    values (every step reads all of them)."""
     W = GRAPH_CTX // BS
     cfg = EngineConfig(
-        model=model, device=DEV.type, max_num_seqs=GRAPH_B,
+        model=model, device=DEV.type, max_num_seqs=B,
         max_prefill_tokens=GRAPH_T, max_model_len=GRAPH_CTX,
-        num_decode_steps=GRAPH_N, num_kv_blocks=GRAPH_B * W + 1,
+        num_decode_steps=GRAPH_N, num_kv_blocks=B * W + 1,
         quantization=quantization)
     runner = ModelRunner(cfg, model_cfg or get_model_config(model), params)
     gen = torch.Generator(device=DEV)
@@ -2197,13 +2247,14 @@ def graph_runner(params, quantization=None, model=MODEL,
 
 
 def graph_batches(runner) -> dict:
-    """The runner's numpy batches of four steps: a decode step at 4096
-    (seeded draws, logprobs), a fresh 512-token chunk in row 0's pages,
-    a 4-step seeded burst with penalties (the dense form) ending at 4096,
-    and a verify step of every row's last 5 positions before 4096 (the
-    argmax of each, position 0 seeded)."""
+    """The runner's numpy batches of four steps over its rows (its
+    ``max_num_seqs``): a decode step at 4096 (seeded draws, logprobs), a
+    fresh 512-token chunk in row 0's pages, a 4-step seeded burst with
+    penalties (the dense form) ending at 4096, and a verify step of every
+    row's last 5 positions before 4096 (the argmax of each, position 0
+    seeded)."""
     rng = np.random.default_rng(5)
-    B, ctx, T, n = GRAPH_B, GRAPH_CTX, GRAPH_T, GRAPH_N
+    B, ctx, T, n = (runner.cfg.max_num_seqs, GRAPH_CTX, GRAPH_T, GRAPH_N)
     V = runner.model_cfg.vocab_size
     i32, f32 = np.int32, np.float32
     tables = np.arange(B * (ctx // BS), dtype=i32).reshape(B, -1)
@@ -2794,8 +2845,9 @@ def phase_model(model, params) -> dict:
             "decode_step": counts["decode"] // len(decode_tokens)}
 
 
-def phase_verify_logits(model, params) -> float:
-    """Phase 3s: a verify step's logits against T = 1 decode steps over the
+def phase_verify_logits(model, params, label: str = "3s") -> float:
+    """Phase 3s (3s(g): gemma2-9b at head_dim 256): a verify step's logits
+    against T = 1 decode steps over the
     same prefix. The model phases' 512-token prompt is prefilled, then
     its first 5 decode tokens go through one forward of T = 5 with every
     position's logits (``all_logits=True``: the wgmma prefill, once a
@@ -2833,11 +2885,12 @@ def phase_verify_logits(model, params) -> float:
         slots(T, VERIFY_T), tables, i32([T + VERIFY_T]), i32([0]), cache,
         attn_impl="cuda", all_logits=True)
     torch.cuda.synchronize()
-    expect_routes({"prefill_wgmma": cfg.num_layers}, "verify step")
+    expect_routes({form("prefill_wgmma", None, cfg.head_dim):
+                   cfg.num_layers}, f"{label} verify step")
     check(got.shape == (1, VERIFY_T, cfg.vocab_size),
           f"verify: logits shape {tuple(got.shape)}")
-    log(f"[phase 3s] a verify step (T={VERIFY_T} after the 512-token "
-        f"prompt, all_logits) against {VERIFY_T} decode steps: "
+    log(f"[phase {label}] {cfg.name}: a verify step (T={VERIFY_T} after the "
+        f"512-token prompt, all_logits) against {VERIFY_T} decode steps: "
         f"{agree(got[0], ref, 'verify vs decode')}; argmax equal at "
         f"{(got[0].argmax(-1) == ref.argmax(-1)).tolist()}")
     return MODEL_REL_ATOL * float(ref.abs().max())
@@ -2983,17 +3036,10 @@ def set_norms(cfg, params, gen=None, noise: float = 0.0,
                            .to(w.dtype) * noise)
 
 
-def phase_gemma2() -> tuple:
-    """gemma2-9b at full width and depth (42 layers, random bf16 weights
-    from seed 0, norms drawn by ``set_norms`` around w = 0): a 4608-token
-    prompt in 512-token chunks and 8 decode steps through the head_dim-256
-    kernels, against the gather path: over a bf16 cache (unfused write;
-    the kernels' plain versions beside them as a witness of how far two
-    correct paths differ), and over an e4m3 cache with the unfused and
-    with the fused write (against the gather path over an e4m3 cache, so
-    the e4m3 rows' own error is not counted). Returns (model, params,
-    each e4m3/bf16 unfused row's launches a step, and its launches on
-    this path)."""
+def gemma2_tree() -> tuple:
+    """gemma2-9b at full width and depth (42 layers): random bf16 weights
+    from seed 0 drawn on the card, norms drawn by ``set_norms`` around
+    w = 0. Returns (model, params)."""
     cfg = get_model_config(GEMMA)
     model = Llama(cfg)
     gen = torch.Generator(device=DEV)
@@ -3011,6 +3057,22 @@ def phase_gemma2() -> tuple:
         f"{cfg.sliding_window} on alternate layers, softcaps "
         f"{cfg.attn_logit_softcap} / {cfg.final_logit_softcap}, tied "
         f"{cfg.vocab_size}-row unembed; (1 + w) norms at w ~ N(0, 0.1)")
+    return model, params
+
+
+def phase_gemma2() -> tuple:
+    """gemma2-9b at full width and depth (42 layers, random bf16 weights
+    from seed 0, norms drawn by ``set_norms`` around w = 0): a 4608-token
+    prompt in 512-token chunks and 8 decode steps through the head_dim-256
+    kernels, against the gather path: over a bf16 cache (unfused write;
+    the kernels' plain versions beside them as a witness of how far two
+    correct paths differ), and over an e4m3 cache with the unfused and
+    with the fused write (against the gather path over an e4m3 cache, so
+    the e4m3 rows' own error is not counted). Returns (model, params,
+    each e4m3/bf16 unfused row's launches a step, and its launches on
+    this path)."""
+    model, params = gemma2_tree()
+    cfg = model.cfg
     prompt, decode_tokens = model_prompt(cfg, GEMMA_PROMPT)
     L, nd = cfg.num_layers, len(decode_tokens)
     chunks = -(-GEMMA_PROMPT // GEMMA_CHUNK)
@@ -3408,16 +3470,83 @@ def dequantized_copy(params):
         if s4 is None and s8 is None:
             layers[k] = v
             continue
-        rows = 2 * v.shape[1] if s4 is not None else v.shape[1]
-        w = torch.empty((v.shape[0], rows, v.shape[2]),
-                        dtype=torch.bfloat16, device=DEV)
+        shape = list(v.shape)  # [L, din, dout], of a bank [L, E, din, dout]
+        shape[-2] *= 2 if s4 is not None else 1
+        w = torch.empty(shape, dtype=torch.bfloat16, device=DEV)
         for i in range(v.shape[0]):
             w[i] = (i4.dequant_int4(v[i], s4[i], torch.bfloat16)
                     if s4 is not None else
-                    (v[i].float() * s8[i][None, :]).bfloat16())
+                    (v[i].float() * s8[i].unsqueeze(-2)).bfloat16())
         layers[k] = w
     out["layers"] = layers
     return out
+
+
+def shape_bytes(cfg, quantization) -> dict:
+    """The resident bytes of ``cfg``'s tree under ``quantization``, by
+    part, from its shapes alone: the layers' projections (int4: packed
+    nibbles and one fp32 scale per 128-row group and column; int8: a byte
+    a weight and one fp32 scale per column), the int8 embed and lm_head
+    with their fp32 row scales, the rest (norms, the router) in the
+    model's dtype."""
+    shapes = Llama(cfg).param_shapes()
+    item = cfg.torch_dtype.itemsize
+    out = {"projections": 0, "embed_lm_head": 0, "rest": 0}
+    for name, shape in shapes["layers"].items():
+        n = math.prod(shape)
+        if name not in llama_mod.QUANT_LAYER_KEYS:
+            out["rest"] += n * item
+            continue
+        din, dout = shape[-2:]
+        slices = n // (din * dout)
+        if quantization == "int4":
+            g = llama_mod.q4_group(din)
+            out["projections"] += slices * (din * dout // 2
+                                            + din // g * dout * 4)
+        else:
+            out["projections"] += n + slices * dout * 4
+    for name in llama_mod.QUANT_TOP_KEYS:
+        if name in shapes:
+            V, D = shapes[name]
+            out["embed_lm_head"] += V * D + V * 4
+    out["rest"] += math.prod(shapes["final_norm"]) * item
+    out["total"] = sum(out.values())
+    return out
+
+
+def draw_tree(model, quantization: str, phase: str, **kw) -> tuple:
+    """``model``'s tree drawn and quantized on the card a slice at a time
+    (seed 0; ``kw`` to ``init_params``): its seconds, its bytes by part
+    and the peak allocated while drawing. With all its layers, its bytes
+    must be within 2 % of ``shape_bytes``."""
+    cfg = model.cfg
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init_params(gen, DEV, quantization=quantization, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    total = sum(t.numel() * t.element_size() for t in _leaves(params))
+    layers = len(llama_mod.stage_layers(cfg, *kw.get("stage", (0, 1))))
+    want = shape_bytes(dataclasses.replace(cfg, num_layers=layers),
+                       quantization)
+    log(f"[phase {phase}] {cfg.name} {quantization}, {layers} of "
+        f"{cfg.num_layers} layers, on {DEV} in {secs:.1f}s: "
+        f"{total / 1e9:.3f} GB resident; from the shapes "
+        f"{want['total'] / 1e9:.3f} GB (projections and their scales "
+        f"{want['projections'] / 1e9:.3f}, int8 embed/lm_head and row "
+        f"scales {want['embed_lm_head'] / 1e9:.3f}, norms and router "
+        f"{want['rest'] / 1e9:.3f}); peak allocated while drawing "
+        f"{peak / 1e9:.2f} GB")
+    check(abs(total - want["total"]) <= 0.02 * want["total"],
+          f"{phase}: the {quantization} tree holds {total} bytes, its "
+          f"shapes {want['total']}")
+    return params, {"bytes": total, "from_shapes": want, "layers": layers,
+                    "peak_while_drawing": peak, "seconds": secs}
 
 
 def phase_int4_model(model):
@@ -4026,6 +4155,7 @@ def serve_streams(params, argv: list, n_req: int, n_tok: int,
     llm.runner.telemetry.record_host_gap = spy_gap
     server, thread = serve_in_thread(engine, **app_options_from_args(args))
     port = server.server_address[1]
+    warmup = wait_ready(port)["warmup"] if args.warmup != "off" else None
     costs = []
 
     def one(i, errors):
@@ -4080,7 +4210,10 @@ def serve_streams(params, argv: list, n_req: int, n_tok: int,
             "costs": list(costs), "flight": flight,
             "lattice": {b.label for b in enumerate_lattice(llm.cfg)},
             "graphs": dict(llm.runner.graph_counts),
-            "warm_tokens": warm[0], "warm_graphs": warm[1]}
+            "warm_tokens": warm[0], "warm_graphs": warm[1],
+            "warmup": warmup, "pages": llm.runner.num_blocks,
+            "graph_pool_bytes": llm.runner.graph_pool_bytes,
+            "param_bytes": llm.runner.param_bytes}
 
 
 def audit_diagnostics(label: str, r: dict, n_req: int) -> dict:
@@ -4539,9 +4672,10 @@ def engagement_sweep(params, card: str) -> None:
 
 
 def phase_spec_serving(params, card: str, gap_tol: float, label: str,
-                       quantization=None) -> dict:
-    """Phase 4s (bf16) / 4t (int4, under ``PST_FUSED_KV_WRITE=1``): the
-    Llama-3-8B server with ``--speculative-ngram 4`` (its verify buckets
+                       quantization=None, model: str = MODEL) -> dict:
+    """Phase 4s (bf16) / 4t (int4, under ``PST_FUSED_KV_WRITE=1``) / 4s(g)
+    (``model`` gemma2-9b, bf16, head_dim 256): the server of ``model``
+    (Llama-3-8B by default) with ``--speculative-ngram 4`` (its verify buckets
     captured before traffic: the pool they take is logged) and the same
     server without it and with ``--no-overlap-decode`` (neither
     pipelines; the server's other defaults on both): 8
@@ -4559,8 +4693,9 @@ def phase_spec_serving(params, card: str, gap_tol: float, label: str,
     before it is built: speculation takes no page. Acceptance and tok/s with
     and without speculation are logged: one run each, no claim."""
     n_req, n_tok = 8, 128
-    layers = get_model_config(MODEL).num_layers
-    argv = ["--model", MODEL, "--device", DEV.type,
+    mcfg = get_model_config(model)
+    layers = mcfg.num_layers
+    argv = ["--model", model, "--device", DEV.type,
             "--max-num-batched-tokens", "512", "--max-num-seqs", "16"]
     if quantization:
         argv += ["--quantization", quantization]
@@ -4609,7 +4744,7 @@ def phase_spec_serving(params, card: str, gap_tol: float, label: str,
         "vllm:spec_decode_num_draft_tokens_total", 0.0),
         f"4s {label}: the plain server drafted")
     steps = spec["verify"]
-    pre = "prefill_wgmma"
+    pre = form("prefill_wgmma", None, mcfg.head_dim)
     check(steps and all(c.get(pre, 0) == layers for _, c in steps),
           f"4s {label}: verify steps' prefill launches "
           f"{[c.get(pre, 0) for _, c in steps][:8]} (want {layers} each)")
@@ -4638,7 +4773,7 @@ def phase_spec_serving(params, card: str, gap_tol: float, label: str,
         "spec_counts": {k: n for k, n in spec["counts"].items() if n},
     }
     vp = spec_info["verify_pool"]
-    log(f"[phase {label}] {quantization or 'bf16'} {MODEL} server with "
+    log(f"[phase {label}] {quantization or 'bf16'} {model} server with "
         f"--speculative-ngram 4 against the same server without (one run "
         f"each): {n_req} x {n_tok} streamed greedy tokens, "
         f"{out['spec_tok_per_s']:.1f} against {out['plain_tok_per_s']:.1f} "
@@ -4931,6 +5066,148 @@ def phase_recompute_serving(params, card: str) -> dict:
         f"recompute preemptions {preempted:.0f}, no swap; {card}")
     del engine
     return {"wall_s": wall, "preemptions": preempted}
+
+
+# Phase 4h(r): the swap quantum's rotation engaged on a served path.
+
+ROTATE_QUANTUM = 64
+
+
+def _swap_stats(port: int, engine) -> dict:
+    sw = engine.engine.swapper
+    return {"out": sw.swap_out_total, "in": sw.swap_in_total,
+            "fallback": sw.fallback_recompute_total,
+            "tail_pages": sw.tail_pages_moved,
+            "recompute_preemptions": engine.engine.num_preempted_total}
+
+
+def phase_rotation_serving(params, card: str, gap_tol: float) -> dict:
+    """Phase 4h(r): the bf16 Llama-3-8B server with ``--max-num-seqs 4``
+    and ``--swap-quantum-tokens 64``, its pool as the memory budget sizes
+    it (far more pages than the streams take, so no admission runs short),
+    against the same server with ``--swap-quantum-tokens 0``: 8 concurrent
+    greedy streams of 384 tokens with top-2 logprobs on each. Swaps out
+    happen, each made by the scheduler's rotation (``_rotate``) and none by
+    a preemption; every sequence swapped out is swapped back in, none
+    falling back to recompute. Each stream's tokens equal the
+    reference's until they part at a near-tie of the reference (4s's
+    tolerance: rotation changes which rows step together, so the
+    products' rounding may part them there, and nowhere else); its top
+    logprob is the reference's within that tolerance at every position
+    before it; and a stream swapped out and back agrees with the
+    reference past the token it was swapped back in at."""
+    n_req, n_tok = 8, 384
+    argv = ["--model", MODEL, "--device", DEV.type,
+            "--max-num-batched-tokens", "512", "--max-num-seqs", "4"]
+    seen = {"rotated": 0, "preempted": 0, "out": [], "in": [],
+            "resumed_at": {}}
+
+    def spy(kind, llm):
+        sched, swapper = llm.scheduler, llm.swapper
+        rotate, preempt = sched._rotate, sched._preempt
+        swap_out, swap_in = swapper.swap_out, swapper.swap_in
+
+        def counted_rotate():
+            n = swapper.swap_out_total
+            rotate()
+            seen["rotated"] += swapper.swap_out_total - n
+
+        def counted_preempt(*a, **kw):
+            seen["preempted"] += 1
+            return preempt(*a, **kw)
+
+        def recorded_out(seq, allocator):
+            seen["out"].append(seq.request_id)
+            return swap_out(seq, allocator)
+
+        def recorded_in(seq, allocator):
+            ok = swap_in(seq, allocator)
+            if ok:
+                seen["in"].append(seq.request_id)
+                seen["resumed_at"][tuple(seq.prompt_token_ids)] = len(
+                    seq.output_token_ids)
+            return ok
+
+        sched._rotate, sched._preempt = counted_rotate, counted_preempt
+        swapper.swap_out, swapper.swap_in = recorded_out, recorded_in
+
+    quantum = ["--swap-quantum-tokens", str(ROTATE_QUANTUM)]
+    (rot,), rot_info = serve_rounds(params, argv + quantum, n_req, n_tok,
+                                    ("rotating",), setup=spy, logprobs=True,
+                                    after=_swap_stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (ref,), ref_info = serve_rounds(
+        params, argv + ["--swap-quantum-tokens", "0"], n_req, n_tok,
+        ("reference",), logprobs=True, after=_swap_stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sw, base = rot_info["after"], ref_info["after"]
+    check(sw["out"] > 0 and seen["rotated"] == sw["out"]
+          and seen["preempted"] == 0 and sw["recompute_preemptions"] == 0,
+          f"4h(r): swaps out {sw['out']}, by rotation {seen['rotated']}, "
+          f"preemptions {seen['preempted']} (recompute "
+          f"{sw['recompute_preemptions']})")
+    check(sw["in"] == sw["out"] and sw["fallback"] == 0
+          and sorted(seen["in"]) == sorted(seen["out"]),
+          f"4h(r): swapped out {seen['out']}, back in {seen['in']}, "
+          f"{sw['fallback']} fell back to recompute")
+    check(base["out"] == 0 and base["recompute_preemptions"] == 0,
+          f"4h(r): the reference server swapped or preempted: {base}")
+    agree_to, parted_at, top_err = [], [], 0.0
+    for key, want in ref["tokens"].items():
+        got, gap = rot["tokens"].get(key, []), ref["gaps"][key]
+        check(len(got) == len(want) == len(gap) == n_tok
+              and len(rot["tops"][key]) == len(ref["tops"][key]) == n_tok,
+              f"4h(r): {len(got)} / {len(want)} tokens, {len(gap)} gaps")
+        near = next((j for j, g in enumerate(gap) if g <= gap_tol), n_tok)
+        first_diff = next((j for j, (a, b) in enumerate(zip(got, want))
+                           if a != b), n_tok)
+        if first_diff < n_tok:
+            check(gap[first_diff] <= gap_tol,
+                  f"4h(r): a rotating stream parts from the reference at "
+                  f"{first_diff}, where the reference's top-2 gap "
+                  f"{gap[first_diff]:.4f} is no near-tie (> {gap_tol:.4f})")
+            parted_at.append(round(gap[first_diff], 4))
+        err = max((abs(a[0][1] - b[0][1]) for a, b in zip(
+            rot["tops"][key][:first_diff], ref["tops"][key][:first_diff])),
+            default=0.0)
+        check(err <= gap_tol,
+              f"4h(r): before the first difference at {first_diff}, a top "
+              f"logprob is {err:.4f} from the reference's (> {gap_tol:.4f})")
+        top_err = max(top_err, err)
+        agree_to.append((near, first_diff))
+    firsts = dict(zip(ref["tokens"], (d for _, d in agree_to)))
+    check(set(seen["resumed_at"]) <= set(firsts),
+          "4h(r): a stream swapped back in is not one of the round's")
+    past = sorted((n_out, firsts[key])
+                  for key, n_out in seen["resumed_at"].items())
+    check(any(d > n_out for n_out, d in past),
+          f"4h(r): no stream swapped back in agrees with the reference past "
+          f"its swap-in ((swap-in token, first difference) {past})")
+    out = {"swaps": sw, "rotated": seen["rotated"],
+           "swapped_requests": len(set(seen["out"])), "agree_to": agree_to,
+           "gaps_where_parted": parted_at, "top_logprob_err": top_err,
+           "resumed_at_first_diff": past,
+           "gap_tol": gap_tol, "wall_s": rot["wall"],
+           "reference_wall_s": ref["wall"],
+           "tok_per_s": n_req * n_tok / rot["wall"],
+           "reference_tok_per_s": n_req * n_tok / ref["wall"],
+           "pages": rot_info["pages"]}
+    log(f"[phase 4h(r)] rotation: {MODEL} bf16, --max-num-seqs 4 "
+        f"--swap-quantum-tokens {ROTATE_QUANTUM}, {rot_info['pages']} KV "
+        f"pages: {n_req} greedy streams of {n_tok} tokens; {sw['out']} "
+        f"swaps out, all by rotation ({len(set(seen['out']))} requests; no "
+        f"preemption), {sw['in']} back in ({sw['tail_pages']} tail pages "
+        f"moved, no recompute); tokens equal to the --swap-quantum-tokens 0 "
+        f"server's up to (first near-tie, first difference) {agree_to} "
+        f"with gap tol {gap_tol:.4f}, each part at a reference gap in "
+        f"{parted_at}, top logprobs within {top_err:.4f} before it; "
+        f"(swap-in token, first difference) {out['resumed_at_first_diff']}"
+        f"; {out['tok_per_s']:.1f} output tok/s "
+        f"against {out['reference_tok_per_s']:.1f} (one run each, no "
+        f"claim); {card}")
+    return out
 
 
 # Phase 4j: KV tiers, the remote store, the disaggregated handoff and the
@@ -7094,10 +7371,6 @@ def start_compile_cache() -> tuple:
 
 MOE_MODEL = "mixtral-8x7b"
 MOE_TINY = "tiny-mixtral-debug"
-# mixtral-8x7b in int4, from the shapes: the expert banks' packed nibbles
-# 22.5 GB and their fp32 group scales 1.4 GB, attention 0.7 GB, the int8
-# embed and lm_head 0.26 GB.
-MOE_TREE_BYTES = (24.0e9, 26.0e9)
 # 4o(b), 4o(c) and 4r(b) run the model at this depth (its first layers),
 # to fit the full run in its call; their checks are per layer or against
 # one rank or the plain versions on the same tree. The trees the servers
@@ -7109,44 +7382,6 @@ MOE_LAYERS = 8
 # other tokens (through attention) and later layers. The plain run held
 # to the kernels' therefore takes the kernel run's expert choices; an
 # unforced plain run gives the share of choices that differ.
-
-
-def moe_tree(model, phase: str = "4o") -> tuple:
-    """4o(a): the int4 tree drawn and quantized on the card a slice at a
-    time; its bytes by part and the peak allocated while drawing."""
-    gen = torch.Generator(device=DEV)
-    gen.manual_seed(0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    params = model.init_params(gen, DEV, quantization="int4")
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() - base
-
-    def nbytes(items):
-        return sum(v.numel() * v.element_size() for _, v in items)
-
-    layers = params["layers"].items()
-    split = {
-        "expert_banks": nbytes((k, v) for k, v in layers
-                               if k.startswith(("w_gate", "w_up", "w_down"))),
-        "attention": nbytes((k, v) for k, v in layers
-                            if k.startswith(("wq", "wk", "wv", "wo"))),
-        "embed_lm_head": nbytes((k, params[k]) for k in
-                                ("embed", "embed_qs", "lm_head", "lm_head_qs")),
-    }
-    total = sum(t.numel() * t.element_size() for t in _leaves(params))
-    split["router_and_norms"] = total - sum(split.values())
-    log(f"[phase {phase}] {MOE_MODEL} int4 on {DEV} in {secs:.1f}s: "
-        f"{total / 1e9:.3f} GB resident ("
-        + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in split.items())
-        + f"); peak allocated while drawing {peak / 1e9:.2f} GB")
-    check(MOE_TREE_BYTES[0] < total < MOE_TREE_BYTES[1],
-          f"{phase}: the int4 tree holds {total} bytes")
-    return params, {**split, "total": total, "peak_while_drawing": peak,
-                    "seconds": secs}
 
 
 @contextlib.contextmanager
@@ -7193,14 +7428,15 @@ def route_flips(a_calls: list, b_calls: list, layers: int) -> dict:
             "by_layer": by_layer}
 
 
-def moe_int4_routes(cfg, N: int, steps: int) -> dict:
+def int4_routes(cfg, N: int, steps: int) -> dict:
     """The int4 routes a run of one N-token prefill and ``steps`` decode
     steps (two rows) takes: every projection of the prefill on the wgmma
     route (a split-sum pass where its plan splits), every decode one on
-    the decode route."""
-    D, F, E = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
+    the decode route (of a mixture of experts, every expert's)."""
+    D, F = cfg.hidden_size, cfg.intermediate_size
     shapes = ([(D, cfg.q_size), (D, cfg.kv_size), (D, cfg.kv_size),
-               (cfg.q_size, D)] + E * [(D, F), (D, F), (F, D)])
+               (cfg.q_size, D)]
+              + max(cfg.num_experts, 1) * [(D, F), (D, F), (F, D)])
     L = cfg.num_layers
     sums = L * sum(i4.plan("wgmma", N, din, dout, 128).splits > 1
                    for din, dout in shapes)
@@ -7229,7 +7465,7 @@ def phase_moe_model(model, params) -> dict:
     want = {"prefill": L, "decode": L * n, "decode_write": 0,
             "int4": per_layer * L * (1 + n)}
     check(counts == want, f"4o: launch counts {counts}, expected {want}")
-    want = moe_int4_routes(cfg, len(prompt), n)
+    want = int4_routes(cfg, len(prompt), n)
     check(routes == want, f"4o: int4 routes {routes}, expected {want}")
     with plain_int4():
         with recorded_routes(forced_routes, forced=got_routes):
@@ -7292,12 +7528,12 @@ def moe_step_flops(cfg, N: int) -> tuple:
     return full, full * cfg.num_experts_per_tok // cfg.num_experts
 
 
-def moe_cut(model, params) -> tuple:
-    """(the model at ``MOE_LAYERS`` layers, ``params``' first
-    ``MOE_LAYERS`` layers: views, no copy)."""
+def depth_cut(model, params, layers: int) -> tuple:
+    """(the model at ``layers`` layers, ``params``' first ``layers``
+    layers: views, no copy)."""
     cfg = model.cfg
-    cut = llama_mod.stage_params(params, cfg, 0, cfg.num_layers // MOE_LAYERS)
-    return Llama(dataclasses.replace(cfg, num_layers=MOE_LAYERS)), cut
+    cut = llama_mod.stage_params(params, cfg, 0, cfg.num_layers // layers)
+    return Llama(dataclasses.replace(cfg, num_layers=layers)), cut
 
 
 def phase_moe_steps(params, cfg) -> list:
@@ -7378,13 +7614,27 @@ def phase_moe_serving(params, card: str) -> dict:
     off, so the timed round's prefills compute what the warm round's did
     (a cached prompt prefills only its tail: other shapes, other
     rounding, and a random model's greedy tokens turn on it)."""
-    n_req, n_tok = 4, 32
     argv = ["--model", MOE_MODEL, "--device", DEV.type, "--quantization",
             "int4", "--moe-impl", "auto", "--max-num-batched-tokens", "512",
             "--num-decode-steps", "4", "--max-num-seqs", "16",
             "--no-enable-prefix-caching"]
     check(engine_config_from_args(parse_engine_args(argv)).moe_impl == "auto",
           "4o(d): --moe-impl did not reach the config")
+    return served_rounds("4o(d)", f"{MOE_MODEL} int4 server (--moe-impl "
+                         "auto)", params, argv, card,
+                         ("int4", "int4_wgmma", "int4_decode", "prefill",
+                          "prefill_wgmma"))
+
+
+def served_rounds(phase: str, what: str, params, argv: list, card: str,
+                  used: tuple, n_req: int = 4, n_tok: int = 32) -> dict:
+    """``serve_streams`` of ``argv``: ``n_req`` concurrent greedy
+    completions of ``n_tok`` tokens (one streamed), a warm round then a
+    timed one. The timed round's tokens equal the warm round's, every
+    step of it replays a graph, each counter of ``used`` and a decode
+    attention kernel launched; the TTFT mean, tok/s, the steps' busy
+    share, the KV pages and the graph pool are logged (one run, no
+    claim)."""
     r = serve_streams(params, argv, n_req, n_tok, streamed={0})
     gc.collect()
     torch.cuda.empty_cache()
@@ -7397,19 +7647,18 @@ def phase_moe_serving(params, card: str) -> dict:
     check(len(r["tokens"]) == n_req
           and all(len(t) == n_tok for t in r["tokens"].values())
           and not parted,
-          f"4o(d): the timed round's tokens differ from the warm round's "
-          f"(stream: first differing position) {parted}")
+          f"{phase}: the timed round's tokens differ from the warm "
+          f"round's (stream: first differing position) {parted}")
     check(graphs["eager"] == warm["eager"]
           and graphs["captured"] == warm["captured"]
           and graphs["replayed"] > warm["replayed"],
-          f"4o(d): after the warm round {warm}, then {graphs}: a step of "
+          f"{phase}: after the warm round {warm}, then {graphs}: a step of "
           "the timed round did not replay")
-    for k in ("int4", "int4_wgmma", "int4_decode", "prefill",
-              "prefill_wgmma"):
-        check(counts.get(k, 0) > 0, f"4o(d): the {k} counter did not grow: "
-              f"{counts}")
+    for k in used:
+        check(counts.get(k, 0) > 0, f"{phase}: the {k} counter did not "
+              f"grow: {counts}")
     check(counts.get("decode", 0) + counts.get("decode_write", 0) > 0,
-          f"4o(d): no decode attention launched: {counts}")
+          f"{phase}: no decode attention launched: {counts}")
 
     def grew(name):
         return m.get(name, 0.0) - before.get(name, 0.0)
@@ -7421,14 +7670,18 @@ def phase_moe_serving(params, card: str) -> dict:
            "output_tok_per_s": n_req * n_tok / r["wall"],
            "steps_share_of_wall": busy / r["wall"],
            "idle_share": max(0.0, 1.0 - busy / r["wall"]),
-           "graphs_warm": warm, "graphs": graphs, "launches": counts}
-    log(f"[phase 4o(d)] {MOE_MODEL} int4 server (--moe-impl auto): {n_req} "
-        f"concurrent greedy completions of {n_tok} tokens (one streamed), "
-        f"timed round equal to the warm one, every step replayed "
-        f"(graphs {warm} -> {graphs}); TTFT mean {ttft * 1e3:.1f} ms, "
-        f"{out['output_tok_per_s']:.1f} output tok/s, wall "
-        f"{r['wall']:.3f}s, steps busy {busy:.3f}s (idle share "
-        f"{out['idle_share']:.1%}); launches {counts}; {card}")
+           "graphs_warm": warm, "graphs": graphs, "launches": counts,
+           "pages": r["pages"], "graph_pool_bytes": r["graph_pool_bytes"],
+           "param_bytes": r["param_bytes"], "warmup": r["warmup"]}
+    log(f"[phase {phase}] {what}: {n_req} concurrent greedy completions of "
+        f"{n_tok} tokens (one streamed), timed round equal to the warm "
+        f"one, every step replayed (graphs {warm} -> {graphs}); TTFT mean "
+        f"{ttft * 1e3:.1f} ms, {out['output_tok_per_s']:.1f} output tok/s, "
+        f"wall {r['wall']:.3f}s, steps busy {busy:.3f}s (idle share "
+        f"{out['idle_share']:.1%}); {r['pages']} KV pages beside "
+        f"{r['param_bytes'] / 1e9:.3f} GB of weights, graph pool "
+        f"{r['graph_pool_bytes'] / 2**30:.2f} GiB, warmup {r['warmup']}; "
+        f"launches {counts}; {card}")
     return out
 
 
@@ -7458,8 +7711,8 @@ def phase_moe_tiny() -> dict:
 def phase_moe(card: str) -> dict:
     """Phase 4o, (a) to (e). The caller has freed the other models."""
     model = Llama(get_model_config(MOE_MODEL))
-    params, tree = moe_tree(model)
-    cut_model, cut = moe_cut(model, params)
+    params, tree = draw_tree(model, "int4", "4o(a)")
+    cut_model, cut = depth_cut(model, params, MOE_LAYERS)
     log(f"  4o(b, c) at {MOE_LAYERS} of {MOE_MODEL}'s "
         f"{model.cfg.num_layers} layers (the tree's first {MOE_LAYERS})")
     out = {"tree_4o_a": tree, "layers_4o_bc": MOE_LAYERS,
@@ -7473,6 +7726,190 @@ def phase_moe(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["tiny_4o_e"] = phase_moe_tiny()
+    return out
+
+
+def replayed_decode(params, quantization, model: str, cfg, phase: str,
+                    card: str) -> dict:
+    """A decode step of 4 rows at 4096 through a runner of ``model`` at
+    full depth, eager against replayed (``graph_vs_eager``: the replay's
+    rows and cache bytes equal the eager step's); its wall, device busy
+    and largest kernels a step are logged."""
+    runner = graph_runner(params, quantization, model, cfg, B=4)
+    row = graph_vs_eager(runner, f"{phase} {model} {quantization} decode "
+                         f"B=4 x {GRAPH_CTX}", graph_batches(runner)["decode"],
+                         True, False)
+    row["graph_pool_bytes"] = runner.graph_pool_bytes
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    top = "; ".join(f"{t['kernel'][:60]} {t['ms_per_step']:.3f} ms "
+                    f"({t['launches_per_step']:.0f})"
+                    for t in row["replayed"]["top"])
+    log(f"  {phase} replayed decode step, B=4 x {GRAPH_CTX}: device busy "
+        f"{row['replayed']['device_busy_ms']:.2f} ms a step; the top "
+        f"kernels a step: {top}; {card}")
+    return row
+
+
+def phase_moe_int8_model(model, params) -> dict:
+    """4o(f)'s model check, on the tree's first ``MOE_LAYERS`` layers: a
+    512-token prefill and 8 decode steps through the attention kernels
+    against the gather path on a copy of those layers dequantized to bf16
+    beforehand, on the kernel run's expert choices (4o(b)'s forcing);
+    launch counts checked, and the share of choices an unforced run
+    makes otherwise."""
+    cfg = model.cfg
+    L = cfg.num_layers
+    prompt, decode_tokens = model_prompt(cfg)
+    n = len(decode_tokens)
+    got_routes, forced_routes, free_routes = [], [], []
+    reset_launch_counts()
+    with recorded_routes(got_routes):
+        got, _ = drive_model(model, params, "cuda", prompt, decode_tokens)
+    counts = launch_counts()
+    want = {"prefill": L, "decode": L * n, "decode_write": 0, "int4": 0}
+    check(counts == want, f"4o(f): launch counts {counts}, expected {want}")
+    expect_routes({"prefill_wgmma": L, "decode_split": L * n}, "4o(f)")
+    ref_params = dequantized_copy(params)
+    with recorded_routes(forced_routes, forced=got_routes):
+        ref, _ = drive_model(model, ref_params, "gather", prompt,
+                             decode_tokens)
+    with recorded_routes(free_routes):
+        free, _ = drive_model(model, ref_params, "gather", prompt,
+                              decode_tokens)
+    del ref_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = agree(got, ref, "4o(f)")
+    flips = route_flips(got_routes, free_routes, L)
+    free_err = float((got - free).abs().max())
+    log(f"  4o(f) int8, {L} layers: 512-token prefill + {n} decode steps, "
+        f"launches {counts}; against the dequantized gather path on the "
+        f"same expert choices: {summary}; an unforced run chose other "
+        f"experts for {flips['flipped']} of {flips['choices']} (token, "
+        f"layer) choices ({flips['share']:.4%}), its logits max|diff| "
+        f"{free_err:.4f}")
+    return {"agree": summary, "flips": flips,
+            "unforced_max_abs_err": free_err, "launches": counts}
+
+
+def phase_moe_int8(card: str) -> dict:
+    """Phase 4o(f): mixtral-8x7b with int8 weights, the first int8 server
+    on the card. The model check on an 8-layer tree (every slice drawn
+    as for the whole tree, the first ``MOE_LAYERS`` layers kept: the
+    whole tree's first layers, without a bf16 copy beside the whole
+    tree); then the whole tree (bytes against its shapes), the server of
+    ``--quantization int8 --moe-impl auto`` at all 32 layers (4o(d)'s
+    checks; every decode counter grows, every timed step replays) and a
+    replayed decode step at B=4 with its largest kernels. The caller has
+    freed the other trees."""
+    model = Llama(get_model_config(MOE_MODEL))
+    L = model.cfg.num_layers
+    cut, cut_tree = draw_tree(model, "int8", "4o(f)",
+                              stage=(0, L // MOE_LAYERS))
+    cut_model = Llama(dataclasses.replace(model.cfg, num_layers=MOE_LAYERS))
+    out = {"cut_tree_4o_f": cut_tree,
+           "model_4o_f": phase_moe_int8_model(cut_model, cut)}
+    del cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, out["tree_4o_f"] = draw_tree(model, "int8", "4o(f)")
+    argv = ["--model", MOE_MODEL, "--device", DEV.type, "--quantization",
+            "int8", "--moe-impl", "auto", "--max-num-batched-tokens", "512",
+            "--num-decode-steps", "4", "--max-num-seqs", "16",
+            "--no-enable-prefix-caching"]
+    served = served_rounds("4o(f)", f"{MOE_MODEL} int8 server (--moe-impl "
+                           "auto)", params, argv, card,
+                           ("prefill", "prefill_wgmma", "decode",
+                            "decode_split"))
+    check(served["launches"].get("int4", 0) == 0,
+          f"4o(f): the int8 server launched int4 kernels: "
+          f"{served['launches']}")
+    out["serving_4o_f"] = served
+    out["step_4o_f"] = replayed_decode(params, "int8", MOE_MODEL, model.cfg,
+                                       "4o(f)", card)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4u: llama-3-70b in int4 on one card
+# ---------------------------------------------------------------------------
+
+
+def phase_big_model(model, params) -> dict:
+    """4u(b): the tree's first ``BIG_LAYERS`` layers under
+    ``PST_FUSED_KV_WRITE=1``: one 512-token prefill and 8 decode steps
+    through the int4, wgmma prefill and decode-write kernels, against the
+    gather path on a copy of those layers dequantized to bf16 beforehand
+    (a copy of all 80 would take 141 GB); launch and route counts
+    checked."""
+    cut_model, cut = depth_cut(model, params, BIG_LAYERS)
+    cfg = cut_model.cfg
+    L = cfg.num_layers
+    prompt, decode_tokens = model_prompt(cfg)
+    n = len(decode_tokens)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got, _ = drive_model(cut_model, cut, "cuda", prompt, decode_tokens)
+    t_cuda = time.perf_counter() - t0
+    counts = launch_counts()
+    want = {"prefill": L, "decode": 0, "decode_write": L * n,
+            "int4": 7 * L * (1 + n)}
+    check(counts == want, f"4u(b): launch counts {counts}, expected {want}")
+    routes = dict(i4.route_counts)
+    want = int4_routes(cfg, len(prompt), n)
+    check(routes == want, f"4u(b): int4 routes {routes}, expected {want}")
+    expect_routes({"prefill_wgmma": L, "decode_write_split": L * n}, "4u(b)")
+    ref_params = dequantized_copy(cut)
+    ref, _ = drive_model(cut_model, ref_params, "gather", prompt,
+                         decode_tokens)
+    del ref_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = agree(got, ref, "4u(b)")
+    log(f"  4u(b) {BIG_MODEL} int4, the tree's first {L} layers, "
+        f"PST_FUSED_KV_WRITE=1: 512-token prefill + {n} decode steps, "
+        f"launches {counts}, int4 routes {routes}; against the dequantized "
+        f"gather path: {summary}; kernels {t_cuda:.2f}s (first calls)")
+    return {"agree": summary, "launches": counts, "int4_routes": routes,
+            "layers": L}
+
+
+def phase_big(card: str) -> dict:
+    """Phase 4u: llama-3-70b in int4 on one card, at full width and depth
+    (80 layers), under ``PST_FUSED_KV_WRITE=1``: (a) the tree drawn and
+    quantized on the card, its bytes against its shapes; (b) the model
+    check at ``BIG_LAYERS`` layers; (c) the server of ``--model
+    llama-3-70b --quantization int4 --warmup lazy`` (prefix caching off,
+    as 4o(d)), a warm round and a timed round of 4 greedy streams of 32
+    tokens, and a replayed B=4 decode step. The caller has freed every
+    other tree."""
+    os.environ["PST_FUSED_KV_WRITE"] = "1"
+    try:
+        model = Llama(get_model_config(BIG_MODEL))
+        params, tree = draw_tree(model, "int4", "4u(a)")
+        out = {"tree_4u_a": tree, "model_4u_b": phase_big_model(model,
+                                                               params)}
+        argv = ["--model", BIG_MODEL, "--device", DEV.type,
+                "--quantization", "int4", "--warmup", "lazy",
+                "--max-num-batched-tokens", "512", "--num-decode-steps", "4",
+                "--max-num-seqs", "16", "--no-enable-prefix-caching"]
+        out["serving_4u_c"] = served_rounds(
+            "4u(c)", f"{BIG_MODEL} int4 server, all "
+            f"{model.cfg.num_layers} layers (PST_FUSED_KV_WRITE=1, --warmup "
+            "lazy)", params, argv, card,
+            ("int4_decode", "int4_wgmma", "prefill_wgmma", "decode_write"))
+        out["step_4u_c"] = replayed_decode(params, "int4", BIG_MODEL,
+                                           model.cfg, "4u(c)", card)
+    finally:
+        os.environ.pop("PST_FUSED_KV_WRITE", None)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -8708,8 +9145,8 @@ def phase_ep(card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  4r(b) done at {time.perf_counter() - t0:.1f}s")
-    params, tree = moe_tree(Llama(cfg), "4r(b)")
-    out.update(tree_bytes=tree["total"], tree_s=tree["seconds"])
+    params, tree = draw_tree(Llama(cfg), "int4", "4r(b)")
+    out.update(tree_bytes=tree["bytes"], tree_s=tree["seconds"])
     one = one_rank_moe_server(params)
     del params
     gc.collect()
@@ -9201,7 +9638,7 @@ def with_points(rows: list) -> dict:
     return main
 
 
-def phase_int4_times(per_step: dict, served: dict, card: str):
+def phase_int4_times(per_step: dict, served: dict, card: str, big: dict):
     """Rows of the int4 kernels: the decode route at the four projection
     shapes with 1, 8 and 16 rows (and the decode buckets up to its
     boundary), the wgmma route at 512 rows for the four shapes and at 2048
@@ -9210,17 +9647,29 @@ def phase_int4_times(per_step: dict, served: dict, card: str):
     (117 MB of packed weights for w_gate, more than the 50 MB L2), as a
     step finds each layer's weights cold. The yardstick is torch.matmul on
     the weight dequantized to bf16 beforehand: it reads 4x the bytes.
+    At llama-3-70b's four shapes, with 4u(c)'s served launches (``big``):
+    the decode route at 8 rows, the wgmma route at 512, no sweep.
     Returns (rows, crossover)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(98)
     edge = i4._DECODE_MAX_ROWS
     decode_rows = sorted({1, 8, 16} | {b for b in DECODE_BUCKETS if 16 <= b <= edge})
-    # w_gate's shape first: its N = 8 row heads the decode route's points.
-    shapes = ((4096, 14336), (14336, 4096), (4096, 4096), (4096, 1024))
+    # Each shape with its points, its launches a step and while serving,
+    # and the rows its crossover sweep takes. w_gate's shape first: its
+    # N = 8 row heads the decode route's points.
     wgmma_cases = {(4096, 14336): (512, 2048)}
+    shapes = [("", din, dout, [("int4", N) for N in decode_rows]
+               + [("int4_wgmma", N) for N in wgmma_cases.get((din, dout),
+                                                              (512,))],
+               per_step, served, DECODE_BUCKETS) for din, dout in (
+        (4096, 14336), (14336, 4096), (4096, 4096), (4096, 1024))]
+    big_step = dict.fromkeys(("decode", "wgmma"),
+                             7 * get_model_config(BIG_MODEL).num_layers)
+    shapes += [(f"{BIG_MODEL} ", din, dout, [("int4", 8), ("int4_wgmma", 512)],
+                big_step, big, ()) for din, dout in INT4_SHAPES_70B]
     rows = {"int4": [], "int4_wgmma": []}
     crossover = []
-    for din, dout in shapes:
+    for preset, din, dout, cases, step, launches, sweep in shapes:
         weights = [int4_case(gen, 1, din, dout)[1:] for _ in range(4)]
         dense = [i4.dequant_int4(p, s, torch.bfloat16) for p, s in weights]
         G = din // weights[0][1].shape[0]
@@ -9230,8 +9679,6 @@ def phase_int4_times(per_step: dict, served: dict, card: str):
             turn["i"] = (turn["i"] + 1) % 4
             return turn["i"]
 
-        cases = [("int4", N) for N in decode_rows]
-        cases += [("int4_wgmma", N) for N in wgmma_cases.get((din, dout), (512,))]
         for kind, N in cases:
             x = torch.randn((N, din), generator=gen, device=DEV).bfloat16()
             check(i4.route(x, *weights[0]) == ROUTE_OF[kind],
@@ -9248,13 +9695,13 @@ def phase_int4_times(per_step: dict, served: dict, card: str):
                       + N * dout * 4)
             rows[kind].append(_row(
                 kind, ms, plain_ms, lib_ms, nbytes, 2 * N * din * dout,
-                PEAK_BF16_FLOPS, per_step[ROUTE_OF[kind]],
-                served["int4_" + ROUTE_OF[kind]], card,
-                f"N={N} din={din} dout={dout} G={G} bf16 x",
+                PEAK_BF16_FLOPS, step[ROUTE_OF[kind]],
+                launches["int4_" + ROUTE_OF[kind]],
+                card, f"{preset}N={N} din={din} dout={dout} G={G} bf16 x",
                 library="torch.matmul on the weight dequantized to bf16 "
                         "beforehand (reads 4x the bytes)"))
         # Both bf16 routes at every decode bucket: where the boundary goes.
-        for N in DECODE_BUCKETS:
+        for N in sweep:
             x = torch.randn((N, din), generator=gen, device=DEV).bfloat16()
             point = {"shape": f"N={N} din={din} dout={dout}"}
             for name in ("decode", "wgmma"):
@@ -9340,15 +9787,35 @@ def encode_only(card: str) -> None:
     print(json.dumps({"encode_4n": out}, default=str), flush=True)
 
 
+def big_only(card: str) -> None:
+    """``python3 chip_smoke.py big``: llama-3-70b's kernel shapes (phase
+    2's attention at its heads and int4 checks), then phase 4u."""
+    for cache_dtype in (torch.bfloat16, E4M3):
+        phase_big_attention(cache_dtype)
+    phase_int4_kernels()
+    print(json.dumps({"big_4u": phase_big(card)}, default=str), flush=True)
+
+
+def spec256_only(card: str) -> None:
+    """``python3 chip_smoke.py spec256``: phase 3f's gemma2-9b tree, its
+    verify-logits check (3s(g)) and its speculating server (4s(g))."""
+    model, params = gemma2_tree()
+    gap_tol = phase_verify_logits(model, params, "3s(g)")
+    print(json.dumps({"spec_serving_4s_g": phase_spec_serving(
+        params, card, gap_tol, "4s(g)", model=GEMMA)}, default=str),
+        flush=True)
+
+
 def main() -> None:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     t_start = time.perf_counter()
     os.environ.pop("PST_FUSED_KV_WRITE", None)  # bf16 phases: unfused path
     if sys.argv[1:] not in ([], ["drift"], ["rounds"], ["engagement"],
                             ["lora"], ["encode"], ["moe"], ["tp"], ["pp"],
-                            ["sp"]):
-        sys.exit("usage: python3 chip_smoke.py "
-                 "[drift|rounds|engagement|lora|encode|moe|tp|pp|sp]")
+                            ["sp"], ["big"], ["int8moe"], ["spec256"],
+                            ["rotate"]):
+        sys.exit("usage: python3 chip_smoke.py [drift|rounds|engagement|"
+                 "lora|encode|moe|tp|pp|sp|big|int8moe|spec256|rotate]")
     if not sys.argv[1:]:
         # 4n(e)'s first server: its cold library build runs, at the lowest
         # priority, beside phase 1's and the phases after it; then it
@@ -9383,11 +9850,28 @@ def main() -> None:
     if sys.argv[1:] == ["sp"]:
         sp_only(card)
         return
+    if sys.argv[1:] == ["big"]:
+        big_only(card)
+        return
+    if sys.argv[1:] == ["int8moe"]:
+        print(json.dumps({"moe_int8_4o_f": phase_moe_int8(card)},
+                         default=str), flush=True)
+        return
+    if sys.argv[1:] == ["spec256"]:
+        spec256_only(card)
+        return
+    if sys.argv[1:] == ["rotate"]:
+        model, params = build_model()
+        gap_tol = phase_verify_logits(model, params)
+        print(json.dumps({"rotation_4h_r": phase_rotation_serving(
+            params, card, gap_tol)}, default=str), flush=True)
+        return
     log("[phase 2] kernels vs plain versions")
     for cache_dtype in (torch.bfloat16, E4M3):
         phase_kernels(cache_dtype)
         phase_decode_write_kernels(cache_dtype)
         phase_hd256_kernels(cache_dtype)
+        phase_big_attention(cache_dtype)
     phase_hd256_splits()
     phase_e4m3_all_codes()
     phase_simt_geometries()
@@ -9425,6 +9909,7 @@ def main() -> None:
     recompute = phase_recompute_serving(params, card)
     gc.collect()
     torch.cuda.empty_cache()
+    rotation = phase_rotation_serving(params, card, gap_tol)
     traced = phase_traced_serving(params, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -9533,6 +10018,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe = phase_moe(card)  # every Llama-3-8B tree and cache freed
     sp["ep_4r_bc"] = phase_ep(card)  # experts over ep, the sp x ep server
+    moe["int8_4o_f"] = phase_moe_int8(card)
+    big = phase_big(card)
     checkpoint = phase_checkpoint(card)
     phase_qwen2()
     tiny = phase_tiny_engines()
@@ -9549,6 +10036,10 @@ def main() -> None:
               "prefill_wgmma_hd256"))
     os.environ.pop("PST_FUSED_KV_WRITE")
     g_layers = g_model.cfg.num_layers
+    # Speculation at head_dim 256, with gemma2-9b's own near-tie rule.
+    spec_serving["gemma2"] = phase_spec_serving(
+        g_params, card, phase_verify_logits(g_model, g_params, "3s(g)"),
+        "4s(g)", model=GEMMA)
     del g_model, g_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -9583,7 +10074,8 @@ def main() -> None:
     tiny_steps = {k: tiny_layers for k in tiny}
     tiny_steps["int4_simt"] = 7 * tiny_layers  # the seven projections
     rows += phase_times_simt(tiny_steps, tiny, card)
-    int4_rows, crossover = phase_int4_times(q_per_step, q_served, card)
+    int4_rows, crossover = phase_int4_times(
+        q_per_step, q_served, card, big["serving_4u_c"]["launches"])
     rows += int4_rows
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"graphs": {
@@ -9595,6 +10087,7 @@ def main() -> None:
         "sleep_4f": admin, "pipelined_serving_4g": pipelined_serving,
         "checkpoint_3z": checkpoint, "swap_3w": swaps,
         "tenancy_serving_4h": tenancy, "recompute_serving_4h": recompute,
+        "rotation_4h_r": rotation, "big_4u": big,
         "traced_serving_4i": traced, "tiers_4j": tiers,
         "verify_splits_2s": verify_splits, "verify_gap_tol_3s": gap_tol,
         "spec_serving_4s": spec_serving, "engagement_4k": engagement,

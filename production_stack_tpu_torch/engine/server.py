@@ -522,6 +522,12 @@ _TRACED_PATHS = frozenset({"/v1/completions", "/v1/chat/completions"})
 _OPEN_PATHS = frozenset({"/health", "/ready", "/metrics", "/version",
                          "/is_sleeping", "/is_draining"})
 
+# The most of a refused request's body (401, 404) that is read and
+# dropped before the answer: aiohttp's ``client_max_size``, the JAX
+# server's bound on any body. A longer one is not read, and its
+# connection is closed after the answer.
+REFUSED_BODY_MAX = 1 << 20
+
 DEFAULT_PROFILE_DIR = os.path.join(tempfile.gettempdir(), "pst_profiles")
 
 
@@ -653,25 +659,51 @@ def create_engine_app(
                        error_headers(self.request_id, headers))
 
         def _body(self) -> dict:
-            n = int(self.headers.get("Content-Length", 0))
-            req = json.loads(self.rfile.read(n) or b"{}")
+            if self._raw_body is None:
+                raise ValueError("Content-Length is not a number")
+            req = json.loads(self._raw_body or b"{}")
             if not isinstance(req, dict):
                 raise ValueError("body must be a JSON object")
             return req
+
+        def _read_body(self, keep: bool) -> Optional[bytes]:
+            """The request's body, read whole before any answer: a
+            connection closed with request bytes unread is reset, and the
+            reset drops answer bytes still queued (a 401's body was lost
+            so when the request's body came after its headers). A refused
+            request's body (``keep`` false) is dropped as it is read, and
+            only up to ``REFUSED_BODY_MAX``: past that, or with a bad
+            Content-Length, nothing is read and the connection closes
+            after the answer. None: Content-Length is not a number."""
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+            except ValueError:
+                self.close_connection = True
+                return None
+            if keep:
+                return self.rfile.read(n) if n > 0 else b""
+            if n > REFUSED_BODY_MAX:
+                self.close_connection = True
+                return b""
+            while n > 0 and (got := len(self.rfile.read(min(n, 1 << 16)))):
+                n -= got
+            return b""
 
         def _route(self, routes: dict) -> None:
             url = urlsplit(self.path)
             self.query = {k: v[-1] for k, v in parse_qs(url.query).items()}
             # The one place the key is checked, before any handler (an
-            # unknown path too, as the JAX middleware does). On a traced
-            # path the 401 is answered inside the root span and carries
-            # its X-Request-Id.
-            if (api_key is not None and url.path not in _OPEN_PATHS
-                    and self.headers.get("Authorization", "")
-                    != f"Bearer {api_key}"):
+            # unknown path too, as the JAX middleware does) and before
+            # the body is read. On a traced path the 401 is answered
+            # inside the root span and carries its X-Request-Id.
+            refused = (api_key is not None and url.path not in _OPEN_PATHS
+                       and self.headers.get("Authorization", "")
+                       != f"Bearer {api_key}")
+            handler = None if refused else routes.get(url.path)
+            self._raw_body = self._read_body(keep=handler is not None)
+            if refused:
                 self._error("invalid API key", 401, "authentication_error")
                 return
-            handler = routes.get(url.path)
             if handler is None:
                 self._error(f"no route {url.path}", 404)
                 return

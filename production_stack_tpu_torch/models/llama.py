@@ -1105,7 +1105,7 @@ class Llama:
 
         x = _rms_norm(x, params["final_norm"], cfg.rms_norm_eps, offset)
         head = "lm_head" if "lm_head" in params else "embed"
-        unembed = _wcast(params[head], x.dtype)  # [V, D/tp]
+        unembed = params[head]  # [V, D/tp], bf16 or int8
         if all_logits:
             logits = unembed_logits(x.reshape(B * T, -1), unembed,
                                     tp_group).view(B, T, -1)
@@ -1301,19 +1301,37 @@ def _rows_with_spare(kv_cache: torch.Tensor) -> torch.Tensor:
     return kv_cache.as_strided((n + 1, lanes), (lanes, 1))
 
 
+# Bytes of x's dtype that an int8 table's unembed converts at a time. The
+# whole table at once would be a temporary of V x D in every step and in
+# every captured graph's pool: 1.96 GiB for llama-3-70b's lm_head, which
+# the memory budget's headroom beside its KV pages does not hold.
+UNEMBED_CHUNK_BYTES = 256 * 2**20
+
+
 def unembed_logits(x: torch.Tensor, w: torch.Tensor,
                    tp_group=None) -> torch.Tensor:
     """Logits ``x @ w.T`` in float32. bf16 products keep their float32
-    accumulator, as the JAX package's ``preferred_element_type`` does.
+    accumulator, as the JAX package's ``preferred_element_type`` does. An
+    int8 table (its row scale applied after) is converted to x's dtype a
+    block of rows at a time, at most ``UNEMBED_CHUNK_BYTES``, where XLA
+    fuses the convert into the product's read; each logit is still one
+    row's product, so the blocks change no value's reduction.
     Across ``tp_group`` ``w`` is the rank's ``[V, D/tp]`` columns: each
     rank multiplies its columns of ``x`` and the fp32 partial logits are
     summed over the group, before any scale or softcap, where XLA sums
     the sharded contraction."""
+    if tp_group is not None:
+        k = w.shape[-1]
+        rank = dist.get_group_rank(tp_group, dist.get_rank())
+        x = x[:, rank * k:(rank + 1) * k]
+    if w.dtype != torch.int8:
+        logits = mm_f32(x, w.t())
+    else:
+        rows = max(1, UNEMBED_CHUNK_BYTES // (w.shape[-1] * x.element_size()))
+        logits = torch.cat([mm_f32(x, _wcast(w[i:i + rows], x.dtype).t())
+                            for i in range(0, w.shape[0], rows)], dim=-1)
     if tp_group is None:
-        return mm_f32(x, w.t())
-    k = w.shape[-1]
-    rank = dist.get_group_rank(tp_group, dist.get_rank())
-    logits = mm_f32(x[:, rank * k:(rank + 1) * k], w.t())
+        return logits
     t0 = time.perf_counter()
     _all_reduce(logits, tp_group)
     _count_traffic("tp_vocab", logits.numel() * logits.element_size(), t0)

@@ -16,7 +16,10 @@ and type, and a traced 401's ``X-Request-Id``), the probes and
 
 import asyncio
 import dataclasses
+import inspect
+import json
 import re
+import socket
 import threading
 from pathlib import Path
 
@@ -325,6 +328,57 @@ def keyed():
     loop.call_soon_threadsafe(loop.stop)
     jthread.join(timeout=10)
     jeng.shutdown()
+
+
+def test_a_refused_request_is_read_whole_before_its_answer(keyed):
+    """The port's server reads a request's whole body before it answers,
+    so an answer that needs none (a 401 here) never closes the
+    connection with request bytes unread: such a close is a reset, and
+    the reset drops answer bytes still queued (a 401's body was lost so
+    on the card, ``chip_smoke.py`` 4l). The body comes after its headers,
+    as a client's second send does; the answer, whole, after the body."""
+    ports, _ = keyed
+    body = json.dumps({"prompt": "hi", "max_tokens": 1}).encode()
+    with socket.create_connection(("127.0.0.1", ports["port"])) as s:
+        s.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: t\r\n"
+                  b"Authorization: Bearer nope\r\nContent-Type: "
+                  b"application/json\r\nContent-Length: %d\r\n\r\n"
+                  % len(body))
+        s.settimeout(0.5)
+        with pytest.raises(socket.timeout):
+            s.recv(1)  # no answer while the body is owed
+        s.settimeout(10)
+        s.sendall(body)
+        data = b""
+        while chunk := s.recv(65536):
+            data += chunk
+    head, _, answer = data.partition(b"\r\n\r\n")
+    assert head.startswith(b"HTTP/1.0 401")
+    assert _error(json.loads(answer)) == ("invalid API key",
+                                          "authentication_error")
+
+
+def test_a_refused_body_past_the_bound_is_not_read(keyed):
+    """A refused request whose Content-Length passes ``REFUSED_BODY_MAX``,
+    aiohttp's ``client_max_size`` (the JAX server's bound), is answered
+    without its body being read: the 401 comes whole, and the connection
+    closes, while a gibibyte is still owed."""
+    assert port_server.REFUSED_BODY_MAX == inspect.signature(
+        web.Application).parameters["client_max_size"].default
+    ports, _ = keyed
+    with socket.create_connection(("127.0.0.1", ports["port"])) as s:
+        s.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: t\r\n"
+                  b"Authorization: Bearer nope\r\nContent-Type: "
+                  b"application/json\r\nContent-Length: %d\r\n\r\n"
+                  % (1 << 30))
+        s.settimeout(10)
+        data = b""
+        while chunk := s.recv(65536):
+            data += chunk
+    head, _, answer = data.partition(b"\r\n\r\n")
+    assert head.startswith(b"HTTP/1.0 401")
+    assert _error(json.loads(answer)) == ("invalid API key",
+                                          "authentication_error")
 
 
 def test_api_key_guards_every_route_as_the_jax_server(keyed):

@@ -3,7 +3,8 @@ package's, and the mixture-of-experts step's fixed shapes.
 
 - ``LLMEngine``, greedy, on the JAX runner's own weights (fp32, on the
   CPU): tokens equal to the JAX engine's for prompts of three lengths,
-  under ``moe_impl`` ``auto`` and ``dense`` in both engines; the port
+  under ``moe_impl`` ``auto`` and ``dense`` in both engines, and under
+  ``auto`` with int8 weights (the JAX engine's quantized tree); the port
   steps in four-token decode bursts and its runner resolves ``auto`` to
   ``ragged`` as the JAX runner does on one device.
 - ``/v1/embeddings`` of the port's server (``--moe-impl`` from its own
@@ -47,16 +48,27 @@ COMMON = dict(model=MODEL, block_size=8, max_prefill_tokens=32,
               max_model_len=256, num_kv_blocks=128, max_num_seqs=8)
 
 
-@pytest.mark.parametrize("impl", ["auto", "dense"])
-def test_engine_greedy_tokens_match_jax(impl):
+@pytest.mark.parametrize("impl, quantization", [
+    pytest.param("auto", None, id="auto"),
+    pytest.param("dense", None, id="dense"),
+    # The JAX runner's own streamed int8 tree: every expert slice int8
+    # with its per-column scales, the tables int8 per row.
+    pytest.param("auto", "int8", id="auto-int8"),
+])
+def test_engine_greedy_tokens_match_jax(impl, quantization):
+    common = dict(COMMON, quantization=quantization)
     jeng = JaxLLMEngine(JaxEngineConfig(attn_impl="gather", moe_impl=impl,
-                                        num_decode_steps=1, **COMMON))
+                                        num_decode_steps=1, **common))
     assert jeng.runner._moe_impl == ("ragged" if impl == "auto" else impl)
     params = params_from_jax(jax.tree.map(np.asarray, jeng.runner.params))
+    assert tllama.quant_mode(params) == quantization
     eng = LLMEngine(EngineConfig(device="cpu", moe_impl=impl,
-                                 num_decode_steps=4, **COMMON), params=params)
+                                 num_decode_steps=4, **common), params=params)
     assert eng.runner.moe_impl == jeng.runner._moe_impl
     assert eng.runner.params["layers"]["w_gate"].dim() == 4
+    if quantization:
+        assert eng.runner.params["layers"]["w_gate"].dtype == torch.int8
+        assert eng.runner.params["layers"]["w_gate_qs"].dim() == 3
 
     rng = np.random.default_rng(4)
     prompts = [rng.integers(1, 512, n).tolist() for n in (50, 13, 7)]

@@ -132,11 +132,24 @@ def test_int4_matmul_plain_matches_pallas_kernel():
     np.testing.assert_allclose(got, want, rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("mode", ["int8", "int4"])
-def test_quantized_forward_matches_jax(mode):
+# llama-3-70b's head ratio, H = 8 * KH (G = 8), in int4: 8 query heads
+# over one kv head, so wk and wv are 128 x 16.
+G8 = dict(CONFIGS["gqa-rope-scaled-bias"], num_kv_heads=1)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4", "int4-g8", "int8-blocks"])
+def test_quantized_forward_matches_jax(mode, monkeypatch):
     """GQA + llama3 rope + biases in float32; one prefill chunk crossing
-    pages (padding row, dropped tail writes) and three decode steps."""
-    jcfg, tcfg = _variant(**CONFIGS["gqa-rope-scaled-bias"], dtype="float32")
+    pages (padding row, dropped tail writes) and three decode steps.
+    ``int4-g8``: int4 at 8 query heads a kv head. ``int8-blocks``: the
+    int8 ``lm_head`` converted for the unembed 100 rows at a time."""
+    g8 = mode == "int4-g8"
+    if mode == "int8-blocks":
+        monkeypatch.setattr(tllama, "UNEMBED_CHUNK_BYTES", 100 * 128 * 4)
+    mode = mode.split("-")[0]
+    jcfg, tcfg = _variant(**(G8 if g8 else CONFIGS["gqa-rope-scaled-bias"]),
+                          dtype="float32")
+    assert not g8 or tcfg.num_heads == 8 * tcfg.num_kv_heads
     jmodel, tmodel = JaxLlama(jcfg), Llama(tcfg)
     jparams = _jax_params(jmodel, jcfg)
     # quantize_tree mutates its argument: give it a copy of the tree.
@@ -170,6 +183,46 @@ def test_quantized_forward_matches_jax(mode):
         _agree(got.numpy()[:1], np.asarray(want)[:1], f"{mode} step {i}")
     np.testing.assert_allclose(tcache.numpy(), np.asarray(jcache),
                                rtol=1e-5, atol=1e-5)
+
+
+def test_int8_unembed_converts_a_block_of_rows_at_a_time(monkeypatch):
+    """An int8 table's unembed converts at most ``UNEMBED_CHUNK_BYTES`` of
+    it to x's dtype at a time: the whole table at once is a temporary of
+    V x D in every step and every captured graph's pool (1.96 GiB for
+    llama-3-70b's lm_head, which ran its server out of memory on the
+    card). The logits are the whole table's product."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.integers(-127, 128, (1000, 64), dtype=np.int8))
+    want = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(rng.standard_normal((3, 64), dtype=np.float32)
+                             ).to(dtype)
+        want[dtype] = (x, x.float() @ w.to(dtype).float().t())
+    budget = 300 * 64 * 4  # 300 rows in fp32, 600 in bf16
+    monkeypatch.setattr(tllama, "UNEMBED_CHUNK_BYTES", budget)
+
+    class Casts(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.sizes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (func is torch.ops.aten._to_copy.default
+                    and args[0].dtype == torch.int8):
+                self.sizes.append(out.numel() * out.element_size())
+            return out
+
+    for dtype, blocks in ((torch.float32, 4), (torch.bfloat16, 2)):
+        x, ref = want[dtype]
+        with Casts() as casts:
+            got = tllama.unembed_logits(x, w)
+        assert len(casts.sizes) == blocks, casts.sizes
+        assert max(casts.sizes) <= budget
+        assert got.dtype == torch.float32 and got.shape == (3, 1000)
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-4)
 
 
 def test_int4_engine_greedy_tokens_match_jax():

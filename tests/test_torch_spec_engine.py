@@ -2,7 +2,10 @@
 the JAX spec engine and against the port's own plain engine, on the
 cases of ``tests/test_spec_decode.py``: the repetitive and the random
 prompt, a batch of four, a greedy and a seeded sampled request in one
-batch, the ``max_model_len=32`` clamp and the 24-page pool.
+batch, the ``max_model_len=32`` clamp and the 24-page pool; and
+``tiny-gemma2-debug`` (attention and final softcaps, a 16-token window
+on alternate layers, a tied unembed), whose rows run past the window
+while they draft and verify.
 
 Both packages run their gather paths on the same weights. In each case
 the port's spec engine gives the JAX spec engine's tokens, its proposed
@@ -32,15 +35,17 @@ REPEAT = [11, 22, 33, 44, 55, 66, 77, 88, 11, 22, 33, 44, 55, 66, 77, 88,
           11, 22, 33, 44]
 RANDOM = [3, 17, 98, 255, 42, 7, 205, 131, 8, 77, 123, 9, 54, 201, 33, 4]
 
-_PARAMS = []
+_PARAMS = {}
 
 
-def _params():
-    """The JAX tiny engine's weights, converted once for the module."""
-    if not _PARAMS:
-        engine = JaxLLMEngine(JaxEngineConfig(attn_impl="gather", **COMMON))
-        _PARAMS.append(jax.tree.map(np.asarray, engine.runner.params))
-    return _PARAMS[0]
+def _params(model=COMMON["model"]):
+    """The JAX tiny engine's weights of ``model``, converted once for the
+    module."""
+    if model not in _PARAMS:
+        engine = JaxLLMEngine(JaxEngineConfig(
+            attn_impl="gather", **dict(COMMON, model=model)))
+        _PARAMS[model] = jax.tree.map(np.asarray, engine.runner.params)
+    return _PARAMS[model]
 
 
 def _engines(**over):
@@ -48,15 +53,16 @@ def _engines(**over):
     config on the same weights."""
     jcfg = dict(COMMON, attn_impl="gather", speculative_ngram=4, **over)
     jax_spec = JaxLLMEngine(JaxEngineConfig(**jcfg))
+    params = _params(jcfg["model"])
     # The same seed draws the same weights.
     assert np.array_equal(np.asarray(jax_spec.runner.params["embed"]),
-                          _params()["embed"])
+                          params["embed"])
     tcfg = dict(COMMON, device="cpu", **over)
     return (jax_spec,
             LLMEngine(EngineConfig(speculative_ngram=4, **tcfg),
-                      params=params_from_jax(_params())),
+                      params=params_from_jax(params)),
             LLMEngine(EngineConfig(overlap_decode=False, **tcfg),
-                      params=params_from_jax(_params())))
+                      params=params_from_jax(params)))
 
 
 def _drive(engine, waves):
@@ -99,6 +105,11 @@ CASES = {
     # (prefix hits on the repeated prompt).
     "pool_of_24_pages": (dict(num_kv_blocks=24, max_num_seqs=4), [
         [(f"p{i}", REPEAT, GREEDY16)] for i in range(3)]),
+    # Gemma-2: softcapped verify logits, and rows of 44 and 40 tokens
+    # beside the 16-token window of every other layer.
+    "gemma2_softcap_window": (dict(model="tiny-gemma2-debug"), [[
+        ("g", REPEAT, dict(max_tokens=24, temperature=0.0)),
+        ("h", REPEAT[4:], dict(max_tokens=24, temperature=0.0))]]),
 }
 
 
@@ -121,5 +132,6 @@ def test_spec_engine_equals_jax_and_plain(case):
     assert stats["spec_decode_num_accepted_tokens_total"] == float(
         port_spec.spec_accepted_total)
     assert "spec_decode_num_draft_tokens_total" not in port_plain.stats()
-    if case in ("repeat", "batch_of_four", "mixed_greedy_and_seeded"):
+    if case in ("repeat", "batch_of_four", "mixed_greedy_and_seeded",
+                "gemma2_softcap_window"):
         assert port_spec.spec_accepted_total > 0  # speculation shortcut steps
